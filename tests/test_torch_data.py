@@ -1,0 +1,165 @@
+"""Shared inputs of the PyTorch-port differential tests, and their checks.
+
+The other ``test_torch_*.py`` files import their tables, rows and plane
+trees from here. Every table and row set is built twice from one seed:
+once with the JAX package's data model and once with the port's, so that
+a test feeds both sides the same bytes. Runs are flat (one version per
+key) with tombstones, NULLs, unset columns, UPDATE-only rows (no
+liveness) and TTLs that expire inside the history.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import random
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+import yugabyte_db_tpu.models.partition as j_partition
+import yugabyte_db_tpu.models.schema as j_schema
+import yugabyte_db_tpu.storage.columnar as j_columnar
+import yugabyte_db_tpu.storage.memtable as j_memtable
+import yugabyte_db_tpu.storage.row_version as j_row_version
+import yugabyte_db_tpu_torch.models.partition as t_partition
+import yugabyte_db_tpu_torch.models.schema as t_schema
+import yugabyte_db_tpu_torch.storage.columnar as t_columnar
+import yugabyte_db_tpu_torch.storage.memtable as t_memtable
+import yugabyte_db_tpu_torch.storage.row_version as t_row_version
+
+JAX = SimpleNamespace(schema=j_schema, partition=j_partition,
+                      columnar=j_columnar, memtable=j_memtable,
+                      row_version=j_row_version)
+PORT = SimpleNamespace(schema=t_schema, partition=t_partition,
+                       columnar=t_columnar, memtable=t_memtable,
+                       row_version=t_row_version)
+
+MAX_HT = t_row_version.MAX_HT
+
+# (name, DataType name, ColumnKind name).
+TABLES = {
+    "pallas": [("k", "STRING", "HASH"), ("a", "INT64", "REGULAR"),
+               ("d", "INT32", "REGULAR")],
+    "bench": [("k", "STRING", "HASH"), ("r", "INT64", "RANGE"),
+              ("a", "INT64", "REGULAR"), ("c", "DOUBLE", "REGULAR"),
+              ("d", "INT32", "REGULAR")],
+    "mixed": [("k", "STRING", "HASH"), ("r", "INT64", "RANGE"),
+              ("a", "INT64", "REGULAR"), ("b", "STRING", "REGULAR"),
+              ("c", "DOUBLE", "REGULAR"), ("d", "INT32", "REGULAR")],
+}
+
+
+def make_schema(side, table: str):
+    S = side.schema
+    DataType = S.DataType
+    return S.Schema([S.ColumnSchema(name, getattr(DataType, dt),
+                                    getattr(S.ColumnKind, kind))
+                     for name, dt, kind in TABLES[table]],
+                    table_id=f"torch_{table}")
+
+
+def encode_key(side, schema, i: int) -> bytes:
+    kv = {}
+    for c in schema.key_columns:
+        kv[c.name] = f"u{i:05d}" if c.dtype.name == "STRING" else i % 7
+    hashed = {c.name: kv[c.name] for c in schema.hash_columns}
+    return schema.encode_primary_key(
+        kv, side.partition.compute_hash_code(schema, hashed))
+
+
+def _value(rng: random.Random, dtype_name: str):
+    if dtype_name == "INT64":
+        return rng.randrange(-10**14, 10**14)
+    if dtype_name == "INT32":
+        return rng.randrange(-10**6, 10**6)
+    if dtype_name == "DOUBLE":
+        return rng.uniform(0.0, 100.0)
+    return rng.choice(["xy", "xyz", "zz", "commonprefix-aa",
+                       "commonprefix-ab"])
+
+
+def flat_rows(side, schema, n: int, seed: int):
+    """(rows, max_ht): one RowVersion per key in ``side``'s classes."""
+    RowVersion = side.row_version.RowVersion
+    rng = random.Random(seed)
+    ht = 100
+    rows = []
+    for i in range(n):
+        key = encode_key(side, schema, i)
+        ht += rng.randrange(1, 4)
+        roll = rng.random()
+        if roll < 0.06:
+            rows.append(RowVersion(key, ht=ht, tombstone=True))
+            continue
+        cols = {}
+        for c in schema.value_columns:
+            r = rng.random()
+            if r < 0.07:
+                cols[c.col_id] = None
+            elif r >= 0.15:
+                cols[c.col_id] = _value(rng, c.dtype.name)
+        expire = ht + rng.randrange(1, 400) if rng.random() < 0.08 \
+            else MAX_HT
+        rows.append(RowVersion(key, ht=ht, liveness=roll < 0.85,
+                               columns=cols, expire_ht=expire))
+    return rows, ht
+
+
+def build_run(side, schema, rows, rows_per_block: int):
+    mem = side.memtable.MemTable()
+    mem.apply(rows)
+    return side.columnar.ColumnarRun.build(schema, mem.drain_sorted(),
+                                           rows_per_block)
+
+
+@contextlib.contextmanager
+def plain_planes():
+    """The JAX package's runs upload plain (unencoded) planes inside."""
+    from yugabyte_db_tpu.utils.flags import FLAGS
+
+    old = FLAGS.get("tpu_plane_encoding")
+    FLAGS.set("tpu_plane_encoding", "off")
+    try:
+        yield
+    finally:
+        FLAGS.set("tpu_plane_encoding", old)
+
+
+def reference_planes(jax_crun, window_blocks: int) -> dict:
+    """The JAX package's DeviceRun.arrays of ``jax_crun``, as numpy."""
+    import jax
+
+    from yugabyte_db_tpu.ops.device_run import DeviceRun
+
+    with plain_planes():
+        dev = DeviceRun(jax_crun, window_blocks)
+    return jax.tree.map(np.asarray, jax.device_get(dev.arrays))
+
+
+def read_planes(P, read_ht: int) -> tuple:
+    """(read hi, read lo, expiry hi, expiry lo) of a read point."""
+    r = P.scalar_ht_planes(min(read_ht, MAX_HT))
+    e = P.scalar_ht_planes(min(read_ht, MAX_HT - 1))
+    return (*r, *e)
+
+
+@pytest.mark.parametrize("table", sorted(TABLES))
+def test_both_sides_get_the_same_rows_in_every_state(table):
+    js, ps = make_schema(JAX, table), make_schema(PORT, table)
+    jrows, jht = flat_rows(JAX, js, 600, seed=9)
+    prows, pht = flat_rows(PORT, ps, 600, seed=9)
+
+    def fields(r):
+        return (r.key, r.ht, r.tombstone, r.liveness, r.columns,
+                r.expire_ht)
+
+    assert jht == pht
+    assert [fields(r) for r in jrows] == [fields(r) for r in prows]
+    run = build_run(JAX, js, jrows, 64)
+    assert run.max_group_versions == 1  # flat
+    assert run.tomb.any()
+    assert (run.valid & ~run.live & ~run.tomb).any()  # UPDATE-only rows
+    assert any(c.isnull.any() for c in run.cols.values())
+    assert any((run.valid & ~c.set_).any() for c in run.cols.values())
+    assert (run.exp_hi != run.exp_hi.max()).any()  # TTLs

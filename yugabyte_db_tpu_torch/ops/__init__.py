@@ -1,0 +1,10 @@
+"""Device side of the port: plane upload and the aggregate folds.
+
+- ``flat_agg``: the flat-run aggregate fold as a CUDA kernel
+  (``csrc/flat_agg.cu``) with its plain PyTorch version;
+- ``flat_fold``: the same fold in plain PyTorch for the signatures the
+  kernel does not take (f64 predicates, float aggregates);
+- ``device_run``: a run's planes resident on the engine's device;
+- ``scan`` / ``agg_fold``: the static signatures and the host-side
+  packing/finalize shared with the JAX package's layout.
+"""

@@ -1,0 +1,340 @@
+"""Columnar sorted runs: the SoA layout the device folds read.
+
+Copy of the JAX package's ``storage/columnar.py`` generic build path: the
+planes are byte-identical to the ones it builds (tests/test_torch_models.py
+holds them so), which is what lets the JAX package's planes feed this
+port's kernels in the differential tests.
+
+- rows are MVCC versions sorted (encoded key asc, commit ht desc), grouped
+  by key; a key's versions never span a block boundary;
+- keys are represented device-side by a fixed-width big-endian word prefix
+  as int32 "planes" (signed compare == byte order, utils.planes); full key
+  bytes stay host-side for ties/materialization;
+- every 64-bit ordered quantity (hybrid times, int64/double values) is two
+  int32 planes; varlen values keep an 8-byte order-preserving prefix on
+  device and their payload host-side.
+
+Not in this slice: the native one-pass flush (``build_from_memtable``),
+the compressed plane encodings (``encoded_arrays`` returns None: runs
+upload plain planes) and the hashed-prefix bloom.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from yugabyte_db_tpu_torch.models.datatypes import DataType
+from yugabyte_db_tpu_torch.models.schema import Schema
+from yugabyte_db_tpu_torch.storage.row_version import MAX_HT, RowVersion
+from yugabyte_db_tpu_torch.utils import planes as P
+
+DEFAULT_ROWS_PER_BLOCK = 2048
+KEY_WORDS = 8  # 32-byte key prefix on device
+
+
+def _varlen_raw(v) -> bytes:
+    """Bytes for a varlen value's device prefix planes. Strings/bytes are
+    their contents (order-preserving compares); opaque containers
+    (collections, jsonb) serialize deterministically — their prefix is
+    only an equality heuristic, predicates on them stay host-side."""
+    if isinstance(v, str):
+        return v.encode("utf-8", "surrogateescape")
+    if isinstance(v, (bytes, bytearray)):
+        return bytes(v)
+    return repr(v).encode("utf-8", "surrogateescape")
+
+
+@dataclass
+class ColumnData:
+    """Host planes for one value column across all blocks: [B, R, ...]."""
+
+    dtype: DataType
+    set_: np.ndarray          # bool: version sets this column
+    isnull: np.ndarray        # bool: set and value is NULL
+    cmp_planes: np.ndarray    # [B, R, P] int32: order planes (compare/minmax)
+    arith: np.ndarray | None  # [B, R] float32 arithmetic plane (numeric only)
+    varlen: list | None       # per-block list of python payloads (varlen only)
+
+
+@dataclass
+class BlockMeta:
+    min_key: bytes
+    max_key: bytes
+    num_valid: int
+
+
+class ColumnarRun:
+    """One immutable sorted run in blocked columnar layout."""
+
+    def __init__(self, schema: Schema, rows_per_block: int = DEFAULT_ROWS_PER_BLOCK):
+        self.schema = schema
+        self.R = rows_per_block
+        self.B = 0
+        self.num_versions = 0
+        self.blocks: list[BlockMeta] = []
+        # Filled by build():
+        self.key_planes: np.ndarray | None = None   # [B, R, KEY_WORDS] i32
+        self.ht_hi = self.ht_lo = None              # [B, R] i32
+        self.exp_hi = self.exp_lo = None            # [B, R] i32
+        self.tomb = self.live = self.valid = self.group_start = None  # [B, R] bool
+        self.cols: dict[int, ColumnData] = {}       # col_id -> ColumnData
+        # Host-side exact data for ties/materialization/compaction —
+        # [B, R] OBJECT ndarrays (bytes / RowVersion / key-value lists)
+        # so compaction slices whole blocks as views:
+        self.row_keys: np.ndarray | None = None     # [B, R] object (b"" pad)
+        self.row_versions: np.ndarray | None = None  # [B, R] object
+        self.min_key = b""
+        self.max_key = b""
+        self.max_ht = 0
+        # Largest key-group version count. 1 means the run is "flat": every
+        # row is its own group, so device kernels can skip the segmented
+        # MVCC merge machinery entirely (the common post-compaction shape).
+        self.max_group_versions = 0
+        # Longest varlen value per column (bytes): values <= 8 are fully
+        # captured by the device prefix planes, making prefix equality
+        # EXACT — the device GROUP BY eligibility check for strings.
+        self.varlen_max_len: dict[int, int] = {}
+        # Longest encoded key (bytes): keys <= 32 are fully captured by
+        # the KEY_WORDS prefix planes, so plane equality/order is EXACT —
+        # the device compaction eligibility check.
+        self.max_key_len = 0
+
+    # -- construction ------------------------------------------------------
+    @staticmethod
+    def build(schema: Schema, entries: list[tuple[bytes, list[RowVersion]]],
+              rows_per_block: int = DEFAULT_ROWS_PER_BLOCK) -> "ColumnarRun":
+        """entries: (key asc, versions ht-desc) — MemTable.drain_sorted() or a
+        compaction merge. Packs key groups into blocks without splitting."""
+        run = ColumnarRun(schema, rows_per_block)
+        R = run.R
+        for key, versions in entries:
+            n = len(versions)
+            if n > run.max_group_versions:
+                run.max_group_versions = n
+            if len(key) > run.max_key_len:
+                run.max_key_len = len(key)
+        # Greedy block packing, key groups kept whole (shared with the
+        # device-compaction gather path).
+        ranges = ColumnarRun.pack_group_ranges(
+            [len(v) for _, v in entries], R)
+        blocks = [entries[g0:g0 + gn] for g0, gn, _rows in ranges]
+        B = max(1, len(blocks))
+        run.B = B
+        run._alloc(B)
+        for b, group_list in enumerate(blocks):
+            run._fill_block(b, group_list)
+        run.min_key = blocks[0][0][0] if blocks else b""
+        run.max_key = blocks[-1][-1][0] if blocks else b""
+        run.num_versions = sum(len(v) for _, v in entries)
+        return run
+
+    @staticmethod
+    def pack_group_ranges(sizes: list[int], R: int):
+        """Greedy packing of whole key groups into R-row blocks:
+        [(first_group_index, group_count, row_count)] per block. The ONE
+        packing implementation — build() and device compaction share it,
+        so their block layouts always agree."""
+        ranges = []
+        g0, gn, fill = 0, 0, 0
+        for gi, n in enumerate(sizes):
+            if n > R:
+                raise ValueError(
+                    f"key has {n} versions > rows_per_block={R}; "
+                    "GC history (compact with a cutoff) to shrink it")
+            if fill + n > R and fill > 0:
+                ranges.append((g0, gn, fill))
+                g0, gn, fill = gi, 0, 0
+            gn += 1
+            fill += n
+        if fill > 0 or not ranges:
+            if gn > 0:
+                ranges.append((g0, gn, fill))
+        return ranges
+
+    def _alloc(self, B: int) -> None:
+        R = self.R
+        self.key_planes = np.zeros((B, R, KEY_WORDS), dtype=np.int32)
+        self.ht_hi = np.zeros((B, R), dtype=np.int32)
+        self.ht_lo = np.zeros((B, R), dtype=np.int32)
+        maxhi, maxlo = P.scalar_ht_planes(MAX_HT)
+        self.exp_hi = np.full((B, R), maxhi, dtype=np.int32)
+        self.exp_lo = np.full((B, R), maxlo, dtype=np.int32)
+        self.tomb = np.zeros((B, R), dtype=bool)
+        self.live = np.zeros((B, R), dtype=bool)
+        self.valid = np.zeros((B, R), dtype=bool)
+        # Padding rows are each their own group so they never join a real one.
+        self.group_start = np.ones((B, R), dtype=bool)
+        for c in self.schema.value_columns:
+            P_cmp = 2 if c.dtype.device_planes == 2 else 1
+            self.cols[c.col_id] = ColumnData(
+                dtype=c.dtype,
+                set_=np.zeros((B, R), dtype=bool),
+                isnull=np.zeros((B, R), dtype=bool),
+                cmp_planes=np.zeros((B, R, P_cmp), dtype=np.int32),
+                arith=(np.zeros((B, R), dtype=np.float32)
+                       if c.dtype.is_numeric else None),
+                varlen=([[None] * R for _ in range(B)]
+                        if not c.dtype.is_fixed_width else None),
+            )
+        # Object NDARRAYS (not lists): compaction slices whole blocks of
+        # row payloads as views instead of per-row pointer copies.
+        self.row_keys = np.empty((B, R), dtype=object)
+        self.row_keys[:] = b""
+        self.row_versions = np.empty((B, R), dtype=object)
+        self.blocks = [BlockMeta(b"", b"", 0) for _ in range(B)]
+
+    def _fill_block(self, b: int, group_list) -> None:
+        """Encode one block's rows. One cheap Python pass collects parallel
+        per-plane lists; every plane then encodes with a single vectorized
+        numpy call (the per-row scalar encode was the write-path
+        bottleneck: ~15 tiny numpy ops per version)."""
+        keys_flat: list[bytes] = []
+        vers_flat: list[RowVersion] = []
+        gs: list[bool] = []
+        hts: list[int] = []
+        tombs: list[bool] = []
+        lives: list[bool] = []
+        exp_idx: list[int] = []
+        exp_hts: list[int] = []
+        col_rows: dict[int, list[int]] = {cid: [] for cid in self.cols}
+        col_vals: dict[int, list] = {cid: [] for cid in self.cols}
+        r = 0
+        for key, versions in group_list:
+            first = True
+            for v in versions:
+                gs.append(first)
+                first = False
+                keys_flat.append(key)
+                vers_flat.append(v)
+                hts.append(v.ht)
+                tombs.append(v.tombstone)
+                lives.append(v.liveness)
+                if v.has_ttl:
+                    exp_idx.append(r)
+                    exp_hts.append(v.expire_ht)
+                for cid, val in v.columns.items():
+                    if cid in col_rows:  # dropped columns: id retired
+                        col_rows[cid].append(r)
+                        col_vals[cid].append(val)
+                r += 1
+        n = r
+        self.blocks[b] = BlockMeta(
+            group_list[0][0] if group_list else b"",
+            group_list[-1][0] if group_list else b"",
+            n,
+        )
+        if n == 0:
+            return
+        self.valid[b, :n] = True
+        self.group_start[b, :n] = gs
+        self.tomb[b, :n] = tombs
+        self.live[b, :n] = lives
+        self.row_keys[b][:n] = keys_flat
+        self.row_versions[b][:n] = vers_flat
+        ht_arr = np.array(hts, dtype=np.int64)
+        hi, lo = P.ht_to_planes(ht_arr)
+        self.ht_hi[b, :n] = hi
+        self.ht_lo[b, :n] = lo
+        self.max_ht = max(self.max_ht, int(ht_arr.max()))
+        if exp_idx:
+            ehi, elo = P.ht_to_planes(np.array(exp_hts, dtype=np.int64))
+            self.exp_hi[b, exp_idx] = ehi
+            self.exp_lo[b, exp_idx] = elo
+        kp = P.key_prefix_planes(keys_flat, KEY_WORDS)
+        self.key_planes[b, :n] = kp
+        for cid in self.cols:
+            if col_rows[cid]:
+                self._fill_column(b, cid, col_rows[cid], col_vals[cid])
+
+    def _fill_column(self, b: int, cid: int, rows: list[int],
+                     vals: list) -> None:
+        """Vectorized encode of one column's set values within a block."""
+        col = self.cols[cid]
+        col.set_[b, rows] = True
+        nn_rows = rows
+        nn_vals = vals
+        if any(v is None for v in vals):
+            null_rows = [r for r, v in zip(rows, vals) if v is None]
+            col.isnull[b, null_rows] = True
+            nn_rows = [r for r, v in zip(rows, vals) if v is not None]
+            nn_vals = [v for v in vals if v is not None]
+            if not nn_rows:
+                return
+        dt = col.dtype
+        if dt.is_integer or dt == DataType.BOOL:
+            if dt == DataType.BOOL:
+                arr = np.array([int(bool(v)) for v in nn_vals],
+                               dtype=np.int64)
+            else:
+                arr = np.array(nn_vals, dtype=np.int64)
+            if col.cmp_planes.shape[-1] == 2:
+                hi, lo = P.i64_to_ordered_planes(arr)
+                col.cmp_planes[b, nn_rows, 0] = hi
+                col.cmp_planes[b, nn_rows, 1] = lo
+            else:
+                col.cmp_planes[b, nn_rows, 0] = arr
+            if col.arith is not None:  # BOOL: orderable but not numeric
+                col.arith[b, nn_rows] = arr.astype(np.float32)
+        elif dt == DataType.FLOAT:
+            arr = np.array(nn_vals, dtype=np.float32)
+            col.cmp_planes[b, nn_rows, 0] = arr.view(np.int32)
+            col.arith[b, nn_rows] = arr
+        elif dt == DataType.DOUBLE:
+            arr = np.array(nn_vals, dtype=np.float64)
+            hi, lo = P.f64_to_ordered_planes(arr)
+            col.cmp_planes[b, nn_rows, 0] = hi
+            col.cmp_planes[b, nn_rows, 1] = lo
+            col.arith[b, nn_rows] = arr.astype(np.float32)
+        else:  # STRING / BINARY / opaque (collections, jsonb)
+            raws = [_varlen_raw(v) for v in nn_vals]
+            hi, lo = P.varlen_prefix_planes(raws)
+            col.cmp_planes[b, nn_rows, 0] = hi
+            col.cmp_planes[b, nn_rows, 1] = lo
+            vl = col.varlen[b]
+            for r, v in zip(nn_rows, nn_vals):
+                vl[r] = v
+            longest = max(map(len, raws))
+            if longest > self.varlen_max_len.get(cid, 0):
+                self.varlen_max_len[cid] = longest
+
+    def encoded_arrays(self):
+        """The compressed device plane tree: not in this slice, so runs
+        always upload their plain planes."""
+        return None
+
+    # -- exact host-side key location (bounds) ------------------------------
+    def lower_row(self, key: bytes) -> int:
+        """Global row index (b*R + r) of the first valid row with
+        row_key >= key. Exact on full key bytes — this is what turns scan
+        bounds into device row-index bounds with no prefix-tie ambiguity."""
+        import bisect as _bisect
+
+        if self.B == 0 or not self.blocks[0].num_valid:
+            return 0
+        maxes = getattr(self, "_block_maxes", None)
+        if maxes is None:
+            # Runs are immutable once built; cache the per-block max-key
+            # list (page scans bisect this on every request).
+            maxes = self._block_maxes = [m.max_key for m in self.blocks
+                                         if m.num_valid]
+        b = _bisect.bisect_left(maxes, key)
+        if b >= len(maxes):
+            return self.total_rows()
+        meta = self.blocks[b]
+        r = _bisect.bisect_left(self.row_keys[b], key, 0, meta.num_valid)
+        return b * self.R + r
+
+    def upper_row(self, upper: bytes) -> int:
+        """Global row index bound for exclusive upper (b'' = unbounded)."""
+        if not upper:
+            return self.total_rows()
+        return self.lower_row(upper)
+
+    def total_rows(self) -> int:
+        return self.B * self.R
+
+    def key_at(self, global_row: int) -> bytes:
+        b, r = divmod(global_row, self.R)
+        return self.row_keys[b][r]

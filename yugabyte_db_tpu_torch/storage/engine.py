@@ -1,0 +1,70 @@
+"""The storage-engine seam: the pluggable boundary the query layer scans through.
+
+Reference analog: common::YQLStorageIf (src/yb/common/ql_storage_interface.h:31)
+— the only interface the query execution layer uses to read a tablet, with
+the engine selected where the tablet injects its storage
+(src/yb/tablet/tablet.h:648). The seam also carries writes.
+
+The port keeps its own registry: ``make_engine("gpu", schema, options)``
+builds the PyTorch/CUDA engine (``storage/gpu_engine.py``). Options are read
+from the ``options`` dict; there is no process-wide flag registry here.
+"""
+
+from __future__ import annotations
+
+import abc
+
+from yugabyte_db_tpu_torch.models.schema import Schema
+from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+from yugabyte_db_tpu_torch.storage.scan_spec import ScanResult, ScanSpec
+
+
+class StorageEngine(abc.ABC):
+    """Per-tablet storage: an LSM of MVCC row versions behind a scan API."""
+
+    def __init__(self, schema: Schema, options: dict | None = None):
+        self.schema = schema
+        self.options = dict(options or {})
+
+    # -- writes ------------------------------------------------------------
+    @abc.abstractmethod
+    def apply(self, rows: list[RowVersion]) -> None:
+        """Apply committed row versions (the Raft-apply stage calls this)."""
+
+    # -- reads -------------------------------------------------------------
+    @abc.abstractmethod
+    def scan(self, spec: ScanSpec) -> ScanResult:
+        """MVCC scan/aggregate at spec.read_ht over [lower, upper)."""
+
+    def scan_batch(self, specs: list[ScanSpec]) -> list[ScanResult]:
+        """Execute many scans. Engines with a device data plane override
+        this to issue the whole batch before waiting on any result."""
+        return [self.scan(s) for s in specs]
+
+    # -- lifecycle ---------------------------------------------------------
+    @abc.abstractmethod
+    def flush(self) -> None:
+        """Persist the memtable as a new sorted run."""
+
+    @abc.abstractmethod
+    def stats(self) -> dict:
+        """Observability counters (runs, rows, bytes, versions)."""
+
+
+_ENGINES: dict[str, type] = {}
+
+
+def register_engine(name: str, cls: type) -> None:
+    _ENGINES[name] = cls
+
+
+def make_engine(name: str, schema: Schema,
+                options: dict | None = None) -> StorageEngine:
+    """Factory behind the ``tablet_storage_engine`` option."""
+    if name == "gpu" and name not in _ENGINES:
+        # Lazy: the engine module pulls in torch; host-only users of the
+        # data model shouldn't pay for it.
+        import yugabyte_db_tpu_torch.storage.gpu_engine  # noqa: F401
+    if name not in _ENGINES:
+        raise ValueError(f"unknown storage engine {name!r}; have {sorted(_ENGINES)}")
+    return _ENGINES[name](schema, options)
