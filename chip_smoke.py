@@ -9,17 +9,28 @@ line is printed:
    compiles every CUDA kernel of the main path from ``csrc/``;
 2. kernel: 16,777,216 rows at R = 2048 of flat-run planes made from a
    numpy seed (~5% tombstones, NULLs, unset values, expired TTLs, invalid
-   rows), resident on the card; for each signature (COUNT, i32/i64
+   rows, values at the i32 and i64 extremes, an all-NULL and a never-set
+   column), resident on the card; for each signature (COUNT, i32/i64
    SUM/MIN/MAX, every predicate op on i32 and i64, a bounded row range, a
    mid-history read point, a 32-spec batch) the kernel must equal its
    plain PyTorch version exactly; prints times (CUDA events, median of
-   12 launches), the bandwidth bound and the launch count;
+   12 launches), the bound and the launch count, and the 32-spec batch
+   beside 32 x the single spec's time. Then the edges, checked exactly
+   and not timed: row ranges with ends off the tile and vector width
+   (empty ones too), more distinct read points than a block masks per
+   tile, batches of 33, SPEC_CHUNK + 1 and 512 specs that
+   differ in read point, range and literal, literals at the i32/i64
+   extremes, all-NULL columns, and a table of MAX_COLS value columns at
+   1,048,576 rows;
 3. engine: ``make_engine("gpu")`` on the bench table at 1,000,000 keys,
    apply -> flush, the headline aggregate alone and as depth-pipelined
    ``scan_batch_async`` batches of 32 specs; every result must equal an
    exact Python-integer oracle over the generated rows, and the kernel's
-   launch count must have advanced during that run; then the kernel is
-   timed and held against its plain version at the engine's shapes;
+   launch count must have advanced during that run; ``torch.profiler``
+   over 4 pipelined batches gives the device's busy share, its time by
+   kernel and the host's time per batch ("not measured" where the trace
+   holds no device event); then the kernel is timed and held against its
+   plain version at the engine's shapes;
 4. one JSON line listing every kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -47,11 +58,16 @@ N_BATCHES = 12
 KERNEL_REPS = 12
 PLAIN_REPS = 3
 
-# Device-memory bandwidth by card (NVIDIA data sheets), bytes/s; and the
-# table's CUDA-core (non-tensor) rate the integer work is held against.
+TRACE_BATCHES = 4
+
+# Device-memory bandwidth by card (NVIDIA data sheets), bytes/s.
 _BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
               ("H100", 3.35e12))
-_CORE_OPS_PER_S = 67e12
+# 32-bit integer ALU lanes per SM on Hopper (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0: 64 results
+# per clock per SM for 32-bit integer add, compare, min/max, logical ops
+# and shifts); the integer work is held against lanes x SMs x SM clock.
+_INT32_LANES_PER_SM = 64
 
 
 def check(ok: bool, what: str) -> None:
@@ -59,11 +75,10 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip smoke check failed: {what}")
 
 
-def nvidia_smi() -> str:
+def nvidia_smi(query: str = "name,power.limit") -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
 
 
@@ -72,6 +87,17 @@ def bandwidth(name: str) -> float:
         if key in name:
             return rate
     raise RuntimeError(f"no memory bandwidth on record for {name!r}")
+
+
+def int32_ops_per_s() -> float:
+    """The card's 32-bit integer rate: 64 lanes per SM x its SMs
+    (``torch.cuda.get_device_properties``) x its maximum SM clock
+    (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    import torch
+
+    mhz = float(nvidia_smi("clocks.max.sm").split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return _INT32_LANES_PER_SM * sms * mhz * 1e6
 
 
 def cuda_ms(fn, reps: int, queue_ahead: bool = False) -> float:
@@ -110,23 +136,62 @@ def covered_rows(params: np.ndarray, n_rows: int) -> int:
     return int((np.cumsum(cover)[:n_rows] > 0).sum())
 
 
-def ops_per_row(plan) -> int:
-    """Integer operations per row and spec: visibility, expiry and
-    existence, one compare chain per predicate, the aggregate updates."""
-    per_agg = {"count": 1, "sum": 10, "min": 3, "max": 3}
-    return (10 + 3 * len(plan.col_ids) + 3 * len(plan.preds)
-            + sum(per_agg[a.fn] for a in plan.aggs))
+def rows_in_ranges(params: np.ndarray, n_rows: int) -> int:
+    """Rows summed over the specs' [row_lo, row_hi) ranges."""
+    lo = np.clip(params[:, 0].astype(np.int64), 0, n_rows)
+    hi = np.clip(params[:, 1].astype(np.int64), 0, n_rows)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
-def measure(plan, table, params_np, device, bw: float) -> dict:
-    """Kernel vs plain version on the same inputs: exact comparison of the
-    folded partial rows, times, and the bound."""
+def decode_ops(plan) -> float:
+    """Integer operations per row in range that no spec changes, as the
+    function needs them: the bool planes hold one 0/1 byte a row, so one
+    32-bit logic op serves four rows: one three-input op for valid, tomb
+    and live, and one per value column for its set and isnull."""
+    return (1 + len(plan.col_ids)) / 4
+
+
+# Integer operations per row and distinct read point (read and expiry
+# hybrid times): its two 64-bit compares, two 32-bit ops each. Specs that
+# share a read point share the row's visibility.
+VISIBILITY_OPS = 4
+
+
+def spec_ops(plan) -> float:
+    """Integer operations per row and spec in the spec's range, as the
+    function needs them: one compare per order plane of each predicate;
+    SUM two adds per order-plane word (its 16-bit limbs, or the word into
+    an int64), MIN/MAX one min/max op on an i32 column and a 64-bit compare
+    and select (4) on an i64 one; COUNT nothing per row. The count slots
+    (COUNT(*), the scanned rows, each aggregate's count or n) cost a
+    popcount and an add per 32-row mask word, and the row range nothing
+    per row (it is decided per 32-row word but at a spec's two edges)."""
+    n = sum(1 if p.kind == "i32" else 2 for p in plan.preds)
+    for a in plan.aggs:
+        width = 1 if a.kind == "i32" else 2
+        if a.fn == "sum":
+            n += 2 * width
+        elif a.fn != "count":
+            n += 1 if width == 1 else 4
+    return n + 2 * (2 + len(plan.aggs)) / 32
+
+
+def visibility_rows(params: np.ndarray, n_rows: int) -> tuple:
+    """(distinct read points, rows summed over each read point's union of
+    ranges): the rows whose visibility the specs need."""
+    reads = {tuple(r) for r in params[:, 2:6].tolist()}
+    return len(reads), sum(
+        covered_rows(params[(params[:, 2:6] == r).all(axis=1)], n_rows)
+        for r in reads)
+
+
+def exact(plan, table, params):
+    """The kernel's folded rows, held exactly against the plain version
+    on the same inputs: (folded rows on the host, max |diff|)."""
     import torch
 
     from yugabyte_db_tpu_torch.ops import flat_agg
 
-    params = torch.from_numpy(params_np).to(device)
-    launches0 = flat_agg.flat_aggregate.launches
     got = flat_agg.fold_partials(
         plan, flat_agg.flat_aggregate(plan, table, params))
     want = flat_agg.fold_partials(
@@ -135,23 +200,44 @@ def measure(plan, table, params_np, device, bw: float) -> dict:
     err = int((got - want).abs().max())
     check(torch.equal(got, want), f"kernel != plain version (max |diff| "
                                   f"{err}) for {plan.aggs} {plan.preds}")
+    return got.cpu(), err
+
+
+def measure(plan, table, params_np, device, bw: float, rate: float) -> dict:
+    """Kernel vs plain version on the same inputs: exact comparison of the
+    folded partial rows, times, and the bound."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import flat_agg
+
+    params = torch.from_numpy(params_np).to(device)
+    launches0 = flat_agg.flat_aggregate.launches
+    got, err = exact(plan, table, params)
     ms = cuda_ms(lambda: flat_agg.flat_aggregate(plan, table, params),
                  KERNEL_REPS, queue_ahead=True)
     plain_ms = cuda_ms(
         lambda: flat_agg.flat_aggregate_plain(plan, table, params),
         PLAIN_REPS)
     launches = flat_agg.flat_aggregate.launches - launches0
-    rows = covered_rows(params_np, table[0].numel())
+    n_rows = table[0].numel()
+    rows = covered_rows(params_np, n_rows)
+    n_reads, vis_rows = visibility_rows(params_np, n_rows)
     # Inputs read once (the planes of the rows in range, the parameter
-    # rows), the folded [N, S] int64 result written once.
+    # rows), the folded [N, S] int64 result written once; the decode once
+    # per row in range, visibility once per row and read point, the
+    # per-spec work once per row in each range.
     nbytes = (rows * plan.bytes_per_row(table) + params_np.nbytes
               + params_np.shape[0] * plan.n_out * 8)
-    ops = params_np.shape[0] * rows * ops_per_row(plan)
+    ops = (rows * decode_ops(plan) + vis_rows * VISIBILITY_OPS
+           + rows_in_ranges(params_np, n_rows) * spec_ops(plan))
     bytes_ms = nbytes / bw * 1e3
-    ops_ms = ops / _CORE_OPS_PER_S * 1e3
+    ops_ms = ops / rate * 1e3
     return {"specs": params_np.shape[0], "rows": rows,
-            "bytes_per_row": plan.bytes_per_row(table), "ms": ms,
+            "bytes_per_row": plan.bytes_per_row(table),
+            "ops_per_row": decode_ops(plan), "read_points": n_reads,
+            "ops_per_row_and_spec": spec_ops(plan), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": err, "launches": launches,
             "count": int(got[0, 0]),
@@ -160,9 +246,20 @@ def measure(plan, table, params_np, device, bw: float) -> dict:
 
 # -- phase 2: the kernel at 16M rows ---------------------------------------
 
-def kernel_planes(n_rows: int, R: int, seed: int = 11):
-    """Flat-run planes in the DeviceRun.arrays layout, and read points.
-    Columns: 1 = a (INT64, two order planes), 2 = d (INT32)."""
+I32_MIN, I32_MAX = int(np.iinfo(np.int32).min), int(np.iinfo(np.int32).max)
+I64_MIN, I64_MAX = int(np.iinfo(np.int64).min), int(np.iinfo(np.int64).max)
+# The kernel table's value columns: (col_id, kind, P(set), P(NULL | set)).
+# 1 = a (INT64) and 2 = d (INT32) as the bench table's; 3 (INT32) is NULL
+# wherever it is set, 4 (INT64) is never set.
+MAIN_COLUMNS = ((1, "i64", 0.99, 0.02), (2, "i32", 0.97, 0.03),
+                (3, "i32", 0.9, 1.0), (4, "i64", 0.0, 0.0))
+WIDE_ROWS = 1 << 20
+
+
+def kernel_planes(n_rows: int, R: int, columns, seed: int = 11):
+    """Flat-run planes in the DeviceRun.arrays layout, and read points
+    (latest, median and 5th-percentile hybrid time). About 0.1% of the
+    set values sit at their type's extremes."""
     from yugabyte_db_tpu_torch.storage.row_version import MAX_HT
     from yugabyte_db_tpu_torch.utils import planes as P
 
@@ -181,19 +278,27 @@ def kernel_planes(n_rows: int, R: int, seed: int = 11):
     def shaped(x, *extra):
         return np.ascontiguousarray(x.reshape((B, R) + extra))
 
-    def column(values_hi, values_lo, p_set, p_null):
+    def column(kind, p_set, p_null):
+        if kind == "i64":
+            values = rng.integers(-10**12, 10**12, n_rows, dtype=np.int64)
+            lo_hi = (I64_MIN, I64_MAX)
+        else:
+            values = rng.integers(-10**6, 10**6, n_rows).astype(np.int32)
+            lo_hi = (I32_MIN, I32_MAX)
+        ext = rng.random(n_rows) < 0.001
+        values[ext] = np.where(rng.random(int(ext.sum())) < 0.5, *lo_hi)
         set_ = valid & ~tomb & (rng.random(n_rows) < p_set)
         isnull = set_ & (rng.random(n_rows) < p_null)
         keep = set_ & ~isnull
-        planes = [np.where(keep, values_hi, 0).astype(np.int32)]
-        if values_lo is not None:
-            planes.append(np.where(keep, values_lo, 0).astype(np.int32))
+        if kind == "i64":
+            hi, lo = P.i64_to_ordered_planes(values)
+            cmp = np.stack([np.where(keep, hi, 0), np.where(keep, lo, 0)],
+                           axis=-1).astype(np.int32)
+        else:
+            cmp = np.where(keep, values, 0).astype(np.int32)[:, None]
         return {"set": shaped(set_), "isnull": shaped(isnull),
-                "cmp": shaped(np.stack(planes, axis=-1), len(planes))}
+                "cmp": shaped(cmp, cmp.shape[1])}
 
-    a_hi, a_lo = P.i64_to_ordered_planes(
-        rng.integers(-10**12, 10**12, n_rows, dtype=np.int64))
-    d = rng.integers(-10**6, 10**6, n_rows, dtype=np.int32)
     ht_hi, ht_lo = P.ht_to_planes(ht)
     exp_hi, exp_lo = P.ht_to_planes(exp)
     planes = {
@@ -201,25 +306,56 @@ def kernel_planes(n_rows: int, R: int, seed: int = 11):
         "tomb": shaped(tomb), "live": shaped(live),
         "ht_hi": shaped(ht_hi), "ht_lo": shaped(ht_lo),
         "exp_hi": shaped(exp_hi), "exp_lo": shaped(exp_lo),
-        "cols": {1: column(a_hi, a_lo, 0.99, 0.02),
-                 2: column(d, None, 0.97, 0.03)},
+        "cols": {cid: column(kind, p_set, p_null)
+                 for cid, kind, p_set, p_null in columns},
     }
-    read_all = int(ht.max()) + 1
-    read_mid = int(np.median(ht))
-    return planes, read_all, read_mid
+    reads = {"all": int(ht.max()) + 1, "mid": int(np.median(ht)),
+             "early": int(np.percentile(ht, 5)),
+             "spread": [int(np.percentile(ht, q)) for q in range(10, 100, 10)]}
+    return planes, reads
 
 
-def kernel_signatures(planes, read_all: int, read_mid: int, n_rows: int):
-    """(label, aggs, preds, [N, P] params) per signature."""
-    from yugabyte_db_tpu_torch.ops import flat_agg
-    from yugabyte_db_tpu_torch.ops.scan import AggSig, PredSig
+def read_params(read_ht: int) -> tuple:
     from yugabyte_db_tpu_torch.storage.row_version import MAX_HT
     from yugabyte_db_tpu_torch.utils import planes as P
 
-    A, D = 1, 2
+    r = P.scalar_ht_planes(min(read_ht, MAX_HT))
+    e = P.scalar_ht_planes(min(read_ht, MAX_HT - 1))
+    return (*r, *e)
+
+
+def lit_i64(v: int) -> np.ndarray:
+    from yugabyte_db_tpu_torch.utils import planes as P
+
+    hi, lo = P.i64_to_ordered_planes(np.array([v], np.int64))
+    return np.array([hi[0], lo[0]], np.int32)
+
+
+def make_params(plan, rows) -> np.ndarray:
+    """[N, P] parameter rows of (row_lo, row_hi, read_ht, literals)."""
+    return np.array([plan.param_row(lo, hi, read_params(rd), lits)
+                     for lo, hi, rd, lits in rows], np.int32)
+
+
+A, D, E, F = 1, 2, 3, 4
+
+
+def headline_aggs():
+    from yugabyte_db_tpu_torch.ops.scan import AggSig
+
+    return (AggSig("count", None, None), AggSig("sum", A, "i64"),
+            AggSig("min", A, "i64"), AggSig("max", A, "i64"),
+            AggSig("sum", D, "i32"))
+
+
+def kernel_signatures(planes, reads: dict, n_rows: int):
+    """(label, plan, [N, P] params) of every timed signature."""
+    from yugabyte_db_tpu_torch.ops import flat_agg
+    from yugabyte_db_tpu_torch.ops.scan import AggSig, PredSig
+
     cnt = AggSig("count", None, None)
-    headline = (cnt, AggSig("sum", A, "i64"), AggSig("min", A, "i64"),
-                AggSig("max", A, "i64"), AggSig("sum", D, "i32"))
+    headline = headline_aggs()
+    read_all, read_mid = reads["all"], reads["mid"]
     # Literals that hit a stored value, so '=' matches rows.
     a_cmp = planes["cols"][A]["cmp"].reshape(-1, 2)
     d_cmp = planes["cols"][D]["cmp"].reshape(-1)
@@ -228,15 +364,6 @@ def kernel_signatures(planes, read_all: int, read_mid: int, n_rows: int):
     hit = int(np.flatnonzero(ok.reshape(-1))[777])
     a_lit = (int(a_cmp[hit, 0]), int(a_cmp[hit, 1]))
     d_lit = int(d_cmp[hit])
-
-    def reads(read_ht):
-        r = P.scalar_ht_planes(min(read_ht, MAX_HT))
-        e = P.scalar_ht_planes(min(read_ht, MAX_HT - 1))
-        return (*r, *e)
-
-    def params(plan, rows):
-        return np.array([plan.param_row(lo, hi, reads(rd), lits)
-                         for lo, hi, rd, lits in rows], np.int32)
 
     sigs = [
         ("count", (cnt, AggSig("count", A, "i64"), AggSig("count", D, "i32")),
@@ -271,32 +398,161 @@ def kernel_signatures(planes, read_all: int, read_mid: int, n_rows: int):
         rd = read_mid if i % 4 == 3 else read_all
         batch.append((lo, hi, rd, (np.int32(-500_000 - 7 * i),)))
     sigs.append(("batch32", headline, ge, batch))
+    return [(label, flat_agg.make_plan(aggs, preds, (A, D)),
+             make_params(flat_agg.make_plan(aggs, preds, (A, D)), rows))
+            for label, aggs, preds, rows in sigs]
+
+
+def varied_rows(count: int, n_rows: int, reads: dict, lits, seed: int):
+    """``count`` specs whose row ranges (odd ends, some empty), read
+    points and literals differ; ``lits(rng)`` draws one spec's literals."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(count):
+        lo = (int(rng.integers(0, n_rows // 3)) | 1) if i % 3 else 0
+        hi = n_rows - (int(rng.integers(0, n_rows // 3)) | 1) if i % 5 \
+            else n_rows
+        if i % 11 == 7:
+            hi = lo  # empty
+        rd = (reads["all"], reads["mid"], reads["early"])[i % 3]
+        rows.append((lo, hi, rd, lits(rng)))
+    return rows
+
+
+def edge_signatures(reads: dict, n_rows: int):
+    """(label, plan, [N, P] params, check of the folded rows) of the
+    edges the kernel is held at, untimed."""
+    from yugabyte_db_tpu_torch.ops import flat_agg
+    from yugabyte_db_tpu_torch.ops.scan import AggSig, PredSig
+
+    headline = headline_aggs()
+    ge = (PredSig(D, "i32", ">="),)
+    read_all = reads["all"]
+    n = n_rows
+
+    def d_lit(rng):
+        return (np.int32(int(rng.integers(-10**6, 10**6))),)
+
+    def any_rows(plan, folded):
+        return int(folded[:, 1].sum()) > 0
+
     out = []
-    for label, aggs, preds, rows in sigs:
-        plan = flat_agg.make_plan(aggs, preds, (A, D))
-        out.append((label, plan, params(plan, rows)))
+    plan = flat_agg.make_plan(headline, ge, (A, D))
+    odd = [(1, n - 3), (3, 1027), (1021, 1029), (2047, 2049), (4097, 4097),
+           (5001, 4999), (n - 5, n), (0, 1), (n // 2 + 1, n // 2 + 1023)]
+    out.append(("odd_bounds", plan, make_params(plan, [
+        (lo, hi, (reads["all"], reads["mid"])[k % 2],
+         (np.int32(-500_000 + k),)) for k, (lo, hi) in enumerate(odd)]),
+        any_rows))
+    # More distinct read points than a block masks per tile: the specs
+    # past READ_CLASSES compare hybrid times row by row.
+    out.append(("read_points_past_classes", plan, make_params(plan, [
+        (k % 2, n - k, rd, (np.int32(-500_000 + k),))
+        for k, rd in enumerate(reads["spread"])]), any_rows))
+    for count in (33, flat_agg.SPEC_CHUNK + 1, 512):
+        out.append((f"batch{count}", plan, make_params(
+            plan, varied_rows(count, n, reads, d_lit, count)), any_rows))
+    extremes = [(I32_MIN, I64_MAX), (I32_MAX, I64_MIN), (0, 0),
+                (I32_MIN, I64_MIN), (I32_MAX, I64_MAX)]
+    for ops in ((">=", "<="), ("=", "!="), ("<", ">")):
+        plan_x = flat_agg.make_plan(
+            headline, (PredSig(D, "i32", ops[0]), PredSig(A, "i64", ops[1])),
+            (A, D))
+        out.append((f"extreme_literals_{ops[0]}_{ops[1]}", plan_x,
+                    make_params(plan_x, [
+                        (1, n - 1, read_all, (np.int32(x), lit_i64(y)))
+                        for x, y in extremes]), lambda p, f: True))
+    null_aggs = (AggSig("count", None, None), AggSig("count", E, "i32"),
+                 AggSig("sum", E, "i32"), AggSig("min", E, "i32"),
+                 AggSig("max", E, "i32"), AggSig("sum", F, "i64"),
+                 AggSig("min", F, "i64"), AggSig("max", F, "i64"))
+    plan_n = flat_agg.make_plan(null_aggs, ge, (A, D, E, F))
+
+    def all_null(plan, folded):
+        return all(plan.combine(row)[2][1:] == [0] + [None] * 6
+                   for row in folded.tolist()) and any_rows(plan, folded)
+
+    out.append(("all_null_columns", plan_n, make_params(
+        plan_n, varied_rows(5, n, reads, d_lit, 3)), all_null))
     return out
 
 
-def kernel_phase(device, bw: float) -> list[dict]:
+def wide_signature(reads: dict, n_rows: int):
+    """MAX_COLS value columns (odd col_ids INT64, even INT32, the last
+    one all NULL): MAX_PREDS predicates on columns 1..8 and MAX_AGGS
+    aggregates on columns 9..16."""
+    from yugabyte_db_tpu_torch.ops import flat_agg
+    from yugabyte_db_tpu_torch.ops.scan import AggSig, PredSig
+
+    kind = {c: "i64" if c % 2 else "i32"
+            for c in range(1, flat_agg.MAX_COLS + 1)}
+    ops = ("!=", ">=", "<=", ">", "<", "!=", ">=", "<=")
+    low, high = -10**6 - 1, 10**6 + 1
+    lit = {"!=": 0, ">=": low, ">": low, "<=": high, "<": high}
+    preds = tuple(PredSig(c, kind[c], op) for c, op in zip(range(1, 9), ops))
+    fns = ("sum", "min", "max", "count", "sum", "min", "max", "sum")
+    aggs = tuple(AggSig(fn, c, kind[c]) for c, fn in zip(range(9, 17), fns))
+    plan = flat_agg.make_plan(aggs, preds, tuple(range(1, 17)))
+
+    def lits(rng):
+        return tuple(lit_i64(lit[p.op]) if p.kind == "i64"
+                     else np.int32(lit[p.op]) for p in preds)
+
+    return plan, make_params(plan, varied_rows(5, n_rows, reads, lits, 9))
+
+
+def kernel_phase(device, bw: float, rate: float) -> int:
+    """Times every signature and checks every edge; returns the largest
+    |diff| of every comparison (0, or a check has already failed)."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import flat_agg
     from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
 
     t0 = time.perf_counter()
-    planes, read_all, read_mid = kernel_planes(KERNEL_ROWS, KERNEL_R)
+    planes, reads = kernel_planes(KERNEL_ROWS, KERNEL_R, MAIN_COLUMNS)
     run = DeviceRun.from_reference_planes(planes, KERNEL_R, device)
     print(f"kernel phase: {KERNEL_ROWS} rows resident, {run.nbytes} bytes "
           f"of planes, made and uploaded in "
           f"{time.perf_counter() - t0:.1f} s")
     out = []
-    for label, plan, params in kernel_signatures(planes, read_all, read_mid,
+    for label, plan, params in kernel_signatures(planes, reads,
                                                  KERNEL_ROWS):
         table = plan.plane_table(run.arrays)
-        row = {"signature": label, **measure(plan, table, params, device,
-                                             bw)}
+        row = {"signature": label,
+               **measure(plan, table, params, device, bw, rate)}
         check(row["scanned"] > 0, f"{label}: no row exists in range")
         out.append(row)
         print("kernel_signature " + json.dumps(row))
-    return out
+    by = {r["signature"]: r for r in out}
+    single, batch = by["headline"]["ms"], by["batch32"]["ms"]
+    print("kernel_batch_vs_single " + json.dumps({
+        "batch32_ms": batch, "single_ms": single,
+        "32x_single_ms": BATCH * single,
+        "batch32_over_32x_single": batch / (BATCH * single)}))
+    errs = [r["max_abs_err"] for r in out]
+
+    def edge(label, plan, table, params_np, ok):
+        folded, err = exact(plan, table, torch.from_numpy(params_np).to(
+            device))
+        check(ok(plan, folded), f"edge {label}: unexpected result")
+        errs.append(err)
+        print(f"kernel_edge {label}: {params_np.shape[0]} specs, "
+              f"{table[0].numel()} rows, "
+              f"{len(plan.col_ids)} columns, exact")
+
+    for label, plan, params, ok in edge_signatures(reads, KERNEL_ROWS):
+        edge(label, plan, plan.plane_table(run.arrays), params, ok)
+    del run, planes
+    kinds = tuple((c, "i64" if c % 2 else "i32", 0.99,
+                   1.0 if c == flat_agg.MAX_COLS else 0.01)
+                  for c in range(1, flat_agg.MAX_COLS + 1))
+    planes, reads = kernel_planes(WIDE_ROWS, KERNEL_R, kinds, seed=12)
+    run = DeviceRun.from_reference_planes(planes, KERNEL_R, device)
+    plan, params = wide_signature(reads, WIDE_ROWS)
+    edge("max_cols_preds_aggs", plan, plan.plane_table(run.arrays), params,
+         lambda p, f: int(f[:, 0].sum()) > 0)
+    return max(errs)
 
 
 # -- phase 3: the engine at 1M keys -----------------------------------------
@@ -341,7 +597,7 @@ class Oracle:
         return sum(cs), min(cs), max(cs), self.abs_c[i]
 
 
-def engine_phase(device, bw: float) -> dict:
+def engine_phase(device, bw: float, rate: float) -> dict:
     import torch
 
     from yugabyte_db_tpu_torch import workload
@@ -419,6 +675,10 @@ def engine_phase(device, bw: float) -> dict:
           f"sum(c) {fs} vs {want_s}")
     check((fmin, fmax) == (want_min, want_max), "min/max(c)")
 
+    eng_trace = trace_batches(eng, [[spec(lo) for lo in lits]
+                                     for lits in batches[:TRACE_BATCHES]])
+    print("engine_trace " + json.dumps(eng_trace))
+
     n_scans = BATCH * N_BATCHES
     eng_row = {
         "versions": versions, "load_s": load_s,
@@ -439,9 +699,60 @@ def engine_phase(device, bw: float) -> dict:
     params = np.array([plan.param_row(p.row_lo, p.row_hi, p.read_planes,
                                       p.lits) for p in preps], np.int32)
     table = plan.plane_table(eng.runs[0].dev.arrays)
-    eng_row["kernel"] = measure(plan, table, params, device, bw)
+    eng_row["kernel"] = measure(plan, table, params, device, bw, rate)
     print("engine_kernel " + json.dumps(eng_row["kernel"]))
     return eng_row
+
+
+def trace_batches(eng, batches) -> dict:
+    """``torch.profiler`` (CPU + CUDA) over pipelined ``scan_batch_async``
+    batches: the device's busy share of the wall time (union of its
+    kernel and copy intervals), its time by kernel name, and the host's
+    time per batch in ``scan_batch_async`` (planning and launches) and in
+    ``finish`` (waiting and unpacking)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    plan_s = finish_s = 0.0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inflight = []
+        for specs in batches:
+            t = time.perf_counter()
+            inflight.append(eng.scan_batch_async(specs))
+            plan_s += time.perf_counter() - t
+        for b in inflight:
+            t = time.perf_counter()
+            b.finish()
+            finish_s += time.perf_counter() - t
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    spans, by_name = [], collections.Counter()
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_name[e.name[:90]] += (end - start) / 1e3
+    n = len(batches)
+    out = {"batches": n, "wall_ms_per_batch": wall_s * 1e3 / n,
+           "host_plan_ms_per_batch": plan_s * 1e3 / n,
+           "host_finish_ms_per_batch": finish_s * 1e3 / n}
+    if not spans:
+        out["device_busy_share"] = "not measured"
+        out["device_ms_by_kernel"] = "not measured"
+        return out
+    busy, end_at = 0.0, float("-inf")
+    for start, end in sorted(spans):  # union of the device intervals, us
+        if end > end_at:
+            busy += end - max(start, end_at)
+            end_at = end
+    out["device_busy_share"] = busy / (wall_s * 1e6)
+    out["device_ms_per_batch"] = busy / 1e3 / n
+    out["device_ms_by_kernel"] = dict(by_name.most_common(12))
+    return out
 
 
 def main() -> int:
@@ -456,6 +767,10 @@ def main() -> int:
     card = nvidia_smi()
     print(card)  # nvidia-smi: name, power limit
     bw = bandwidth(card)
+    rate = int32_ops_per_s()
+    print(f"bounds: {bw} bytes/s, {rate} int32 operations/s "
+          f"(64 lanes x SMs x clocks.max.sm "
+          f"{nvidia_smi('clocks.max.sm')})")
     t0 = time.perf_counter()
     native.build(["flat_agg"])
     print(f"build: flat_agg in {time.perf_counter() - t0:.1f} s")
@@ -463,10 +778,10 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
-    kernel_rows = kernel_phase(device, bw)
-    eng = engine_phase(device, bw)
+    kernel_err = kernel_phase(device, bw, rate)
+    eng = engine_phase(device, bw, rate)
     k = eng["kernel"]
-    err = max([k["max_abs_err"]] + [r["max_abs_err"] for r in kernel_rows])
+    err = max(k["max_abs_err"], kernel_err)
     print(json.dumps({"kernels": [{
         "name": "flat_agg", "route": "cuda",
         "source": "yugabyte_db_tpu_torch/csrc/flat_agg.cu",

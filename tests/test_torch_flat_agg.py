@@ -201,3 +201,135 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(run):
     bad[0] = bad[0].t()
     with pytest.raises(ValueError):
         flat_agg.flat_aggregate(plan, bad, good)
+
+
+# -- the redesigned kernel's launch shape, wrapper checks and edges ------------
+
+I32_LO, I32_HI = int(np.iinfo(np.int32).min), int(np.iinfo(np.int32).max)
+I64_LO, I64_HI = int(np.iinfo(np.int64).min), int(np.iinfo(np.int64).max)
+
+
+@pytest.mark.parametrize("n_cols,cmp_words,n_preds,n_out", [
+    (1, 0, 0, 3),                                         # COUNT(*) only
+    (3, 3, 1, 19),                                        # headline spec
+    (flat_agg.MAX_COLS, 2 * flat_agg.MAX_COLS, flat_agg.MAX_PREDS,
+     2 + 5 * flat_agg.MAX_AGGS),                          # the maxima
+])
+def test_launch_geometry_fits_every_spec_count(n_cols, cmp_words, n_preds,
+                                               n_out):
+    """For N = 1..65535 specs: every spec in exactly one chunk, no more
+    than 65535 chunks (grid.y), shared memory within the block limit."""
+    for n_rows in (0, 4, 1_001_472, (1 << 31) - 4):
+        tiles = max(1, -(-n_rows // flat_agg.TILE_ROWS))
+        for n in range(1, 65536):
+            g = flat_agg.launch_geometry(n, n_rows, n_cols, cmp_words,
+                                         n_preds, n_out, 132)
+            assert g.tile_rows == flat_agg.TILE_ROWS
+            assert 1 <= g.spec_chunk <= flat_agg.SPEC_CHUNK
+            assert g.n_chunks <= 65535
+            assert (g.n_chunks - 1) * g.spec_chunk < n <= \
+                g.n_chunks * g.spec_chunk
+            assert g.smem_bytes <= flat_agg.SMEM_LIMIT
+            assert 1 <= g.grid_x <= min(tiles, flat_agg.BLOCKS_PER_SM * 132)
+            if n_rows:  # shape depends on N only through the chunk
+                break
+    for bad in (0, 65536):
+        with pytest.raises(ValueError):
+            flat_agg.launch_geometry(bad, 1024, n_cols, cmp_words, n_preds,
+                                     n_out, 132)
+
+
+@pytest.mark.parametrize("plane", [0, 4, 9])  # ht_hi, valid, a's cmp
+def test_wrapper_refuses_a_plane_off_the_16_byte_alignment(run, plane):
+    cid = run["cid"]
+    aggs = all_aggs(cid)
+    plan = flat_agg.make_plan(aggs, (), (cid["a"], cid["d"]))
+    table = list(plan.plane_table(run["port"].arrays))
+    good = torch.tensor([params(run, aggs, (), 0, 10, 10**6)],
+                        dtype=torch.int32)
+    t = table[plane]
+    # Right shape, dtype and contiguity, one element past an aligned base.
+    off = torch.empty(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    off.copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % flat_agg.ALIGN
+    want = flat_agg.flat_aggregate(plan, table, good)
+    table[plane] = off
+    # The CUDA branch checks the table just before its launch; the plain
+    # version on CPU tensors needs no alignment and serves it.
+    with pytest.raises(ValueError, match="aligned"):
+        flat_agg.check_launchable(table)
+    assert torch.equal(flat_agg.flat_aggregate(plan, table, good), want)
+
+
+def test_wrapper_refuses_a_row_count_off_the_vector_width():
+    plan = flat_agg.make_plan((AggSig("count", None, None),), (), (1,))
+    B, R = 1, flat_agg.VEC + 2
+    table = [torch.zeros((B, R), dtype=torch.int32) for _ in range(4)]
+    table += [torch.zeros((B, R), dtype=torch.bool) for _ in range(5)]
+    table.append(torch.zeros((B, R, 1), dtype=torch.int32))
+    p = torch.tensor([plan.param_row(0, R, (0, 0, 0, 0), ())],
+                     dtype=torch.int32)
+    with pytest.raises(ValueError, match="multiple"):
+        flat_agg.check_launchable(table)
+    assert flat_agg.flat_aggregate(plan, table, p).shape == (1, 1, 3)
+
+
+@pytest.fixture(scope="module")
+def extreme_run(run):
+    """The module's run with ~2% of the non-NULL a and d values moved to
+    their type's extremes (both sides read the same bytes)."""
+    planes = {k: (v if k == "cols" else v.copy()) for k, v in run["planes"].items()}
+    cid = run["cid"]
+    planes["cols"] = {c: {n: a.copy() for n, a in e.items()}
+                      for c, e in run["planes"]["cols"].items()}
+    rng = np.random.default_rng(33)
+    for c, lo, hi in ((cid["a"], I64_LO, I64_HI), (cid["d"], I32_LO, I32_HI)):
+        col = planes["cols"][c]
+        keep = (col["set"] & ~col["isnull"]).reshape(-1)
+        pick = np.flatnonzero(keep & (rng.random(keep.size) < 0.02))
+        values = np.where(rng.random(pick.size) < 0.5, lo, hi)
+        cmp = col["cmp"].reshape(-1, col["cmp"].shape[-1])
+        if c == cid["a"]:
+            h, l = P.i64_to_ordered_planes(values.astype(np.int64))
+            cmp[pick, 0], cmp[pick, 1] = h, l
+        else:
+            cmp[pick, 0] = values.astype(np.int32)
+    return {**run, "planes": planes, "jax_arrays": jax_arrays(planes),
+            "port": DeviceRun.from_reference_planes(planes, R, "cpu")}
+
+
+def test_batch_of_33_with_odd_bounds_and_extremes_matches_pallas(
+        extreme_run):
+    """33 parameter rows of one signature, ranges with ends off the tile
+    and vector width (empty and reversed ones too), three read points,
+    literals at the i32/i64 extremes: each row equals its Pallas call."""
+    run = extreme_run
+    cid = run["cid"]
+    aggs = all_aggs(cid)
+    preds = (PredSig(cid["d"], "i32", ">="), PredSig(cid["a"], "i64", "<="))
+    total = run["crun"].total_rows()
+    reads = (run["max_ht"] + 1, (100 + run["max_ht"]) // 2, 150)
+    lits = [(I32_LO, I64_HI), (I32_HI, I64_HI), (I32_LO, I64_LO),
+            (-250_000, 10**13), (0, 0)]
+    bounds = [(1, total - 3), (3, 131), (127, 129), (5, 5), (9, 7),
+              (total - 5, total), (0, 1), (total // 2 + 1, total // 2 + 127),
+              (0, total), (2, total - 1), (129, 1021)]
+    rows = []
+    for k in range(33):
+        lo, hi = bounds[k % len(bounds)]
+        x, y = lits[k % len(lits)]
+        rows.append(params(run, aggs, preds, lo, hi, reads[k % 3],
+                           [np.int32(x), lit_pair(y)]))
+    got = check_same(run, aggs, preds, rows)
+    full = got[0]
+    assert full[0] > 0  # the full-range spec with the loosest literals
+    vals = check_same(run, aggs, (), [params(run, aggs, (), 0, total,
+                                             reads[0])])[0][2]
+    # MIN/MAX see the extremes that were planted.
+    assert vals[4] == I64_LO and vals[5] == I64_HI
+    assert vals[6] == I32_LO and vals[7] == I32_HI
+
+
+def lit_pair(v: int) -> np.ndarray:
+    return np.array(P.i64_to_ordered_planes(
+        np.array([v], np.int64))).ravel().astype(np.int32)

@@ -16,6 +16,8 @@ order planes, under i32/i64 predicates (``=, !=, <, <=, >, >=``).
   in the Pallas kernel's slot order: ``[count, scanned, per aggregate:
   count | 4 limbs + n | hi, lo, n]``; ``scanned`` counts the existing
   rows in range before predicates, as the Pallas kernel's slot 1 does;
+- ``launch_geometry``: the kernel's launch shape (tile rows, grid x, spec
+  chunk per block, dynamic shared memory), pure Python;
 - ``fold_partials``: the torch fold of ``[N, G, S]`` to ``[N, S]`` (the
   counterpart of ``pallas_agg.combine_partials``'s reduction, not a
   kernel); ``FlatAggPlan.combine`` / ``FlatAggPlan.to_packed`` read a
@@ -26,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -35,11 +38,22 @@ from yugabyte_db_tpu_torch.ops.agg_fold import DIGITS
 from yugabyte_db_tpu_torch.ops.scan import I32_MAX, I32_MIN, le2
 from yugabyte_db_tpu_torch.utils import planes as PL
 
-# Descriptor limits; csrc/flat_agg.cu holds the same constants.
+# Descriptor limits and launch shape; csrc/flat_agg.cu holds the same
+# constants.
 MAX_COLS = 16
 MAX_PREDS = 8
 MAX_AGGS = 8
 THREADS = 256
+VEC = 4                      # consecutive rows a thread loads as vectors
+TILE_ROWS = THREADS * VEC    # rows a block loads at once
+BLOCKS_PER_SM = 4            # resident blocks the kernel is built for
+SPEC_CHUNK = 64              # specs one block serves (grid.y chunks more)
+SMEM_LIMIT = 232_448         # shared-memory bytes a block may use
+ALIGN = 16                   # plane base alignment for 16-byte loads
+_SPEC_HEAD_BYTES = 32        # read key, expiry key, row_lo, row_hi, class
+READ_CLASSES = 4             # read points a block masks once per tile
+HEAD_WORDS = 4               # staged hybrid-time and expiry words a row
+MASK_KINDS = 2 + READ_CLASSES  # staged row masks besides one per column
 _HEAD = 5
 DESC_WORDS = _HEAD + MAX_COLS + 4 * MAX_PREDS + 3 * MAX_AGGS
 PARAM_HEAD = 6  # row_lo, row_hi, read_hi, read_lo, rexp_hi, rexp_lo
@@ -158,6 +172,14 @@ class FlatAggPlan:
                                                          "i32" else 2])
         return row
 
+    def cmp_words(self, table: list[torch.Tensor]) -> int:
+        """Order-plane words per row the kernel stages in shared memory:
+        one per order plane of each column a predicate or aggregate
+        reads."""
+        return sum(table[9 + 3 * k].shape[-1]
+                   for k, cid in enumerate(self.col_ids)
+                   if cid in self.cmp_cols)
+
     def bytes_per_row(self, table: list[torch.Tensor]) -> int:
         """Plane bytes the fold needs per row in range: hybrid-time and
         expiry planes, valid/tomb/live, set/isnull of every column, and
@@ -220,6 +242,37 @@ def _limb_total(row: list, off: int) -> int:
 
 # -- the wrapper --------------------------------------------------------------
 
+class Geometry(NamedTuple):
+    tile_rows: int    # rows a block loads at once
+    grid_x: int       # blocks over the rows (grid-stride over tiles)
+    spec_chunk: int   # specs a block serves
+    n_chunks: int     # grid.y: chunks of the batch, each reading the planes
+    smem_bytes: int   # dynamic shared memory of a block
+
+
+def launch_geometry(n_specs: int, n_rows: int, n_cols: int, cmp_words: int,
+                    n_preds: int, n_out: int, sms: int) -> Geometry:
+    """The kernel's launch shape for ``n_specs`` parameter rows over
+    ``n_rows`` rows: shared memory holds the tile's staged words
+    (``HEAD_WORDS`` of hybrid time and expiry, ``cmp_words`` of order
+    planes, each an int32 a row), its row masks (one byte per ``VEC``
+    rows for the candidate rows, the predicates' columns, each of
+    ``READ_CLASSES`` read points and each of the ``n_cols`` columns) and
+    each spec of the chunk's record (read and expiry keys, row range,
+    read class, one 8-byte key per literal, one int64 per partial-row
+    slot). csrc/flat_agg.cu checks the same sum."""
+    if not 1 <= n_specs <= 65535:
+        raise ValueError(f"{n_specs} specs; the kernel takes 1..65535")
+    chunk = min(n_specs, SPEC_CHUNK)
+    tiles = max(1, -(-n_rows // TILE_ROWS))
+    spec_bytes = _SPEC_HEAD_BYTES + 8 * n_preds + 8 * n_out
+    return Geometry(TILE_ROWS, min(tiles, BLOCKS_PER_SM * sms), chunk,
+                    -(-n_specs // chunk),
+                    (HEAD_WORDS + cmp_words) * TILE_ROWS * 4
+                    + (MASK_KINDS + n_cols) * (TILE_ROWS // VEC)
+                    + chunk * spec_bytes)
+
+
 def _check(plan: FlatAggPlan, table, params: torch.Tensor) -> tuple:
     device = params.device
     if len(table) != 7 + 3 * len(plan.col_ids):
@@ -251,6 +304,23 @@ def _check(plan: FlatAggPlan, table, params: torch.Tensor) -> tuple:
     return B, R
 
 
+def check_launchable(table: list[torch.Tensor]) -> None:
+    """What the CUDA kernel alone needs of a plane table (the plain
+    version needs none of it): every plane 16-byte aligned, a row count
+    that is a multiple of ``VEC`` and whose row indices stay int32 past
+    the last tile."""
+    n_rows = table[0].numel()
+    if n_rows > (1 << 31) - TILE_ROWS:
+        raise ValueError(f"{n_rows} rows exceed the kernel's int32 row "
+                         "range")
+    if n_rows % VEC:
+        raise ValueError(f"{n_rows} rows: the kernel loads {VEC} rows at "
+                         "once and needs a multiple of that")
+    for k, t in enumerate(table):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"plane {k} is not {ALIGN}-byte aligned")
+
+
 def flat_aggregate(plan: FlatAggPlan, table: list[torch.Tensor],
                    params: torch.Tensor) -> torch.Tensor:
     """[N, G, S] int64 partial rows of the N specs whose parameter rows
@@ -263,11 +333,14 @@ def flat_aggregate(plan: FlatAggPlan, table: list[torch.Tensor],
         return flat_aggregate_plain(plan, table, params)
     if device.type != "cuda":
         raise ValueError(f"flat_aggregate runs on cuda or cpu, not {device}")
+    check_launchable(table)
     lib = _library()
     n_specs = params.shape[0]
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    grid_x = max(1, min(-(-B * R // (THREADS * 16)), 4 * sms))
-    out = torch.empty((n_specs, grid_x, plan.n_out), dtype=torch.int64,
+    geo = launch_geometry(
+        n_specs, B * R, len(plan.col_ids), plan.cmp_words(table),
+        len(plan.preds), plan.n_out,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    out = torch.empty((n_specs, geo.grid_x, plan.n_out), dtype=torch.int64,
                       device=device)
     desc = plan.descriptor(table)
     ptrs = (ctypes.c_void_p * len(table))(*[t.data_ptr() for t in table])
@@ -277,7 +350,8 @@ def flat_aggregate(plan: FlatAggPlan, table: list[torch.Tensor],
             ptrs, len(table),
             desc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(desc),
             ctypes.c_void_p(params.data_ptr()), n_specs, B * R,
-            ctypes.c_void_p(out.data_ptr()), grid_x, ctypes.c_void_p(stream))
+            ctypes.c_void_p(out.data_ptr()), geo.grid_x, geo.spec_chunk,
+            geo.smem_bytes, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"flat_agg kernel launch failed ({rc}): "
                            f"{lib.flat_agg_error_string(rc).decode()}")
@@ -296,7 +370,7 @@ def _library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.flat_agg_launch.restype = ctypes.c_int
     lib.flat_agg_error_string.argtypes = [ctypes.c_int]
     lib.flat_agg_error_string.restype = ctypes.c_char_p
