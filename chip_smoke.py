@@ -6,7 +6,8 @@ root of a checkout, in phases; any failure exits non-zero before the last
 line is printed:
 
 1. build: prints the card (``nvidia-smi`` name and power limit) and
-   compiles every CUDA kernel of the main path from ``csrc/``;
+   compiles every CUDA kernel of the main path from ``csrc/``, one
+   ``nvcc`` each, all at once (``ptxas:`` lines: registers and spills);
 2. kernel: 16,777,216 rows at R = 2048 of flat-run planes made from a
    numpy seed (~5% tombstones, NULLs, unset values, expired TTLs, invalid
    rows, values at the i32 and i64 extremes, an all-NULL and a never-set
@@ -31,7 +32,24 @@ line is printed:
    kernel and the host's time per batch ("not measured" where the trace
    holds no device event); then the kernel is timed and held against its
    plain version at the engine's shapes;
-4. one JSON line listing every kernel of the path, then as the last line
+4. mvcc: the bench table at 1,000,000 keys plus 1,000,000 updates
+   (``workload.make_update_rows``: zipfian keys and one field per update
+   as YCSB workload A's updates, plus deletes with same-hybrid-time
+   writes, TTLs and NULLs for coverage), one multi-version run of ~2M
+   versions at R = 2048 with keys past 32 versions. The resolve kernel (``ops.mvcc_resolve``) at
+   the newest and a mid-history read point: its view must equal its
+   plain version byte for byte; times and the bytes bound. Then the
+   engine: one scan, pipelined 32-spec batches at one read point (depth
+   6), one batch at 32 distinct read points (six pairs across TTL
+   expiries; checked once, with the device memory it takes beyond its
+   start held under two views, then timed as the median of 5 calls,
+   each resolving its 32 views) and one float spec (the plain flat fold
+   over the view);
+   every result must equal an exact oracle built on the port's host merge
+   (``storage/merge.py``), and both kernels' launch counts must have
+   advanced. ``mvcc_trace`` profiles 4 batches that each resolve a view;
+   K1 is held against its plain version on the newest view;
+5. one JSON line listing every kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a result when no CUDA device is visible.
@@ -39,7 +57,6 @@ Exits 2 without a result when no CUDA device is visible.
 
 from __future__ import annotations
 
-import bisect
 import collections
 import json
 import statistics
@@ -59,6 +76,7 @@ KERNEL_REPS = 12
 PLAIN_REPS = 3
 
 TRACE_BATCHES = 4
+KERNELS = ("flat_agg", "mvcc_resolve")  # the CUDA kernels of the main path
 
 # Device-memory bandwidth by card (NVIDIA data sheets), bytes/s.
 _BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -558,43 +576,68 @@ def kernel_phase(device, bw: float, rate: float) -> int:
 # -- phase 3: the engine at 1M keys -----------------------------------------
 
 class Oracle:
-    """Exact answers of the headline spec ``d >= lo`` over the generated
-    rows, in Python integers: live rows sorted by d, suffix sums."""
+    """Exact answers of the headline spec ``d >= lo``, and of sum, min and
+    max of c under it, over the rows that exist with a non-NULL d, given
+    as arrays of d, a, c and the masks of non-NULL a and c: suffix counts,
+    sums and extremes over the rows sorted by d. The int64 sums are exact: fewer
+    than 2^22 rows of |a| < 2^40."""
 
-    def __init__(self, schema, rows):
+    def __init__(self, d, a, a_ok, c, c_ok):
+        order = np.argsort(d, kind="stable")
+        self.d = d[order]
+        a, a_ok, c, c_ok = a[order], a_ok[order], c[order], c_ok[order]
+
+        def suffix(x, op, fill):
+            x = np.append(x, fill)
+            return op.accumulate(x[::-1])[::-1]
+
+        self.n_a = suffix(a_ok.astype(np.int64), np.add, 0)
+        self.sum_a = suffix(np.where(a_ok, a, 0), np.add, 0)
+        self.min_a = suffix(np.where(a_ok, a, I64_MAX), np.minimum, I64_MAX)
+        self.max_a = suffix(np.where(a_ok, a, I64_MIN), np.maximum, I64_MIN)
+        self.sum_d = suffix(self.d, np.add, 0)
+        self.n_c = suffix(c_ok.astype(np.int64), np.add, 0)
+        self.sum_c = suffix(np.where(c_ok, c, 0.0), np.add, 0.0)
+        self.abs_c = suffix(np.where(c_ok, np.abs(c), 0.0), np.add, 0.0)
+        self.min_c = suffix(np.where(c_ok, c, np.inf), np.minimum, np.inf)
+        self.max_c = suffix(np.where(c_ok, c, -np.inf), np.maximum, -np.inf)
+
+    @staticmethod
+    def arrays(triples) -> tuple:
+        """(d, a, a_ok, c, c_ok) arrays of (d, a, c) triples."""
+        d = np.array([t[0] for t in triples], np.int64)
+        a_ok = np.array([t[1] is not None for t in triples], bool)
+        a = np.array([t[1] or 0 for t in triples], np.int64)
+        c_ok = np.array([t[2] is not None for t in triples], bool)
+        c = np.array([t[2] or 0.0 for t in triples], np.float64)
+        return d, a, a_ok, c, c_ok
+
+    @classmethod
+    def of_rows(cls, schema, rows):
+        """Over flat rows (one version per key, no NULLs)."""
         cid = {c.name: c.col_id for c in schema.columns}
-        live = sorted((r.columns[cid["d"]], r.columns[cid["a"]],
-                       r.columns[cid["c"]])
-                      for r in rows if not r.tombstone)
-        self.d = [t[0] for t in live]
-        n = len(live)
-        self.sum_a = [0] * (n + 1)
-        self.sum_d = [0] * (n + 1)
-        self.min_a = [None] * (n + 1)
-        self.max_a = [None] * (n + 1)
-        self.abs_c = [0.0] * (n + 1)
-        self.c = [t[2] for t in live]
-        for i in range(n - 1, -1, -1):
-            d, a, c = live[i]
-            self.sum_a[i] = self.sum_a[i + 1] + a
-            self.sum_d[i] = self.sum_d[i + 1] + d
-            self.min_a[i] = a if self.min_a[i + 1] is None else \
-                min(a, self.min_a[i + 1])
-            self.max_a[i] = a if self.max_a[i + 1] is None else \
-                max(a, self.max_a[i + 1])
-            self.abs_c[i] = self.abs_c[i + 1] + abs(c)
+        return cls(*cls.arrays([(r.columns[cid["d"]], r.columns[cid["a"]],
+                                 r.columns[cid["c"]])
+                                for r in rows if not r.tombstone]))
 
     def headline(self, lo: int) -> tuple:
-        i = bisect.bisect_left(self.d, lo)
+        i = int(np.searchsorted(self.d, lo, side="left"))
         if i == len(self.d):
             return (0, None, None, None, None)
-        return (len(self.d) - i, self.sum_a[i], self.min_a[i], self.max_a[i],
-                self.sum_d[i])
+        has_a = bool(self.n_a[i])
+        return (len(self.d) - i,
+                int(self.sum_a[i]) if has_a else None,
+                int(self.min_a[i]) if has_a else None,
+                int(self.max_a[i]) if has_a else None,
+                int(self.sum_d[i]))
 
     def c_aggs(self, lo: int) -> tuple:
-        i = bisect.bisect_left(self.d, lo)
-        cs = self.c[i:]
-        return sum(cs), min(cs), max(cs), self.abs_c[i]
+        """(sum, min, max, sum of |c|) of c under ``d >= lo``."""
+        i = int(np.searchsorted(self.d, lo, side="left"))
+        if not self.n_c[i]:
+            return None, None, None, 0.0
+        return (float(self.sum_c[i]), float(self.min_c[i]),
+                float(self.max_c[i]), float(self.abs_c[i]))
 
 
 def engine_phase(device, bw: float, rate: float) -> dict:
@@ -608,7 +651,7 @@ def engine_phase(device, bw: float, rate: float) -> dict:
     t0 = time.perf_counter()
     schema = workload.make_schema()
     rows, max_ht = workload.make_rows(schema, ENGINE_KEYS)
-    oracle = Oracle(schema, rows)
+    oracle = Oracle.of_rows(schema, rows)
     gen_s = time.perf_counter() - t0
     eng = make_engine("gpu", schema, {"rows_per_block": 2048,
                                       "device": device})
@@ -755,6 +798,319 @@ def trace_batches(eng, batches) -> dict:
     return out
 
 
+# -- phase 4: multi-version runs at 1M keys + 1M updates ----------------------
+
+MVCC_KEYS = 1_000_000
+MVCC_UPDATES = 1_000_000
+# Integer operations per valid row of the resolve that the function
+# needs: the row's group-start and validity test, its visibility and
+# expiry compares (VISIBILITY_OPS), its tombstone and shadowing tests (a
+# 64-bit compare, 2) and its alive test; then one set test and one select
+# per column.
+RESOLVE_ROW_OPS = 2 + VISIBILITY_OPS + 2 + 2
+RESOLVE_COL_OPS = 2
+MIXED_REPS = 5  # timed calls of the 32-read-point batch
+
+
+class HistoryOracle:
+    """Exact headline answers over a multi-version history at any read
+    point: every updated key merged by the port's host merge
+    (``storage/merge.py`` ``merge_versions``, the merge the JAX package's
+    ``cpu`` engine serves from); a key never updated holds its one
+    version, visible from its hybrid time on (no TTL, no NULL)."""
+
+    def __init__(self, schema, rows, updates):
+        cid = {c.name: c.col_id for c in schema.columns}
+        self.a, self.c, self.d = cid["a"], cid["c"], cid["d"]
+        by_key: dict = {}
+        for u in updates:
+            by_key.setdefault(u.key, []).append(u)
+        self.multi = [(r.key, [r] + by_key[r.key]) for r in rows
+                      if r.key in by_key]
+        single = [r for r in rows if r.key not in by_key and
+                  not r.tombstone]
+        self.s_ht = np.array([r.ht for r in single], np.int64)
+        self.single = Oracle.arrays([
+            (r.columns[self.d], r.columns[self.a], r.columns[self.c])
+            for r in single])
+
+    def at(self, read_ht: int) -> Oracle:
+        from yugabyte_db_tpu_torch.storage.merge import merge_versions
+
+        merged = []
+        for key, versions in self.multi:
+            m = merge_versions(key, versions, read_ht)
+            d = m.get(self.d)
+            if d is not None:  # a non-NULL value: the row exists
+                merged.append((d, m.get(self.a), m.get(self.c)))
+        vis = self.s_ht <= read_ht
+        parts = zip(Oracle.arrays(merged), (x[vis] for x in self.single))
+        return Oracle(*(np.concatenate(p) for p in parts))
+
+
+def view_planes(view: dict) -> dict:
+    """A view's planes by name, flat."""
+    out = {k: v for k, v in view.items() if k != "cols"}
+    for cid, c in view["cols"].items():
+        out.update({f"{cid}.{k}": v for k, v in c.items()})
+    return out
+
+
+def view_diff(got: dict, want: dict) -> int:
+    """Largest |difference| between two views' planes, read as integers
+    (float planes by their bits): 0 when they are equal byte for byte."""
+    import torch
+
+    err = 0
+    g, w = view_planes(got), view_planes(want)
+    check(g.keys() == w.keys(), "view planes differ in name")
+    for k in w:
+        check(g[k].dtype == w[k].dtype and g[k].shape == w[k].shape,
+              f"view plane {k}: {g[k].dtype} {tuple(g[k].shape)} vs "
+              f"{w[k].dtype} {tuple(w[k].shape)}")
+        a, b = g[k], w[k]
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+def measure_resolve(trun, read_ht: int, bw: float, rate: float) -> dict:
+    """The resolve kernel against its plain version at one read point:
+    the views byte for byte, times, and the bound."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import mvcc_resolve
+
+    arrays, const = trun.dev.arrays, trun._const
+    planes = read_params(read_ht)
+    launches0 = mvcc_resolve.resolve_view.launches
+    got = mvcc_resolve.resolve_view(arrays, *planes, const)
+    want = mvcc_resolve.resolve_view_plain(arrays, *planes, const)
+    torch.cuda.synchronize()
+    err = view_diff(got, want)
+    check(err == 0, f"resolve kernel != plain version at {read_ht} "
+                    f"(max |diff| {err})")
+    ms = cuda_ms(lambda: mvcc_resolve.resolve_view(arrays, *planes, const),
+                 KERNEL_REPS, queue_ahead=True)
+    plain_ms = cuda_ms(
+        lambda: mvcc_resolve.resolve_view_plain(arrays, *planes, const),
+        PLAIN_REPS)
+    n_rows = arrays["valid"].numel()
+    nbytes = mvcc_resolve.view_bytes(arrays, *planes)
+    ops = int(arrays["valid"].sum()) * (
+        RESOLVE_ROW_OPS + RESOLVE_COL_OPS * len(arrays["cols"]))
+    bytes_ms, ops_ms = nbytes / bw * 1e3, ops / rate * 1e3
+    return {"read_ht": read_ht, "view_key": list(trun.view_key(read_ht)),
+            "rows": n_rows, "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err,
+            "launches": mvcc_resolve.resolve_view.launches - launches0,
+            "representatives": int(want["valid"].sum()),
+            "live": int(want["live"].sum())}
+
+
+def run_pipelined(eng, batches: list) -> list:
+    """``scan_batch_async`` over ``batches`` (lists of specs), finishing
+    the oldest whenever more than DEPTH are in flight: their results, in
+    order."""
+    q, out = collections.deque(), []
+    for specs in batches:
+        q.append(eng.scan_batch_async(specs))
+        if len(q) > DEPTH:
+            out.append(q.popleft().finish())
+    out.extend(b.finish() for b in q)
+    return out
+
+
+def mvcc_phase(device, bw: float, rate: float) -> dict:
+    """A multi-version history over the bench table: the resolve
+    kernel timed and checked at two read points, then the engine's
+    multi-version routes (resolve, then K1 or the plain flat fold)
+    against an exact oracle over the history."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_agg, mvcc_resolve
+    from yugabyte_db_tpu_torch.storage import AggSpec, Predicate, ScanSpec
+    from yugabyte_db_tpu_torch.storage import make_engine
+
+    t0 = time.perf_counter()
+    schema = workload.make_schema()
+    rows, load_ht = workload.make_rows(schema, MVCC_KEYS)
+    updates, max_ht = workload.make_update_rows(schema, rows, load_ht,
+                                                MVCC_UPDATES)
+    gen_s = time.perf_counter() - t0
+    eng = make_engine("gpu", schema, {"rows_per_block": 2048,
+                                      "device": device})
+    t0 = time.perf_counter()
+    eng.apply(rows)
+    eng.apply(updates)
+    eng.flush()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    history = HistoryOracle(schema, rows, updates)
+    trun = eng.runs[0]
+    crun = trun.crun
+    sizes = collections.Counter(len(v) for _k, v in history.multi)
+    setup = {"keys": MVCC_KEYS, "updates": len(updates),
+             "versions": crun.num_versions,
+             "rows": trun.dev.arrays["valid"].numel(),
+             "max_group_versions": crun.max_group_versions,
+             "keys_2_to_32_versions": sum(n for v, n in sizes.items()
+                                          if v <= 32),
+             "keys_over_32_versions": sum(n for v, n in sizes.items()
+                                          if v > 32),
+             "generate_s": gen_s, "apply_flush_s": load_s,
+             "device_bytes": eng.stats()["device_bytes"]}
+    print("mvcc_setup " + json.dumps(setup))
+    check(crun.max_group_versions > 32, "no key past 32 versions")
+
+    newest, mid = max_ht + 1, (load_ht + max_ht) // 2
+    resolve = {label: measure_resolve(trun, rd, bw, rate)
+               for label, rd in (("newest", newest), ("mid", mid))}
+    for label, row in resolve.items():
+        print(f"mvcc_resolve_{label} " + json.dumps(row))
+    # Past MAX_COLS value columns the wrapper launches once per chunk of
+    # columns: the run's three columns repeated under 18 ids.
+    arrays = trun.dev.arrays
+    cids = list(arrays["cols"])
+    wide = dict(arrays, cols={100 + i: arrays["cols"][cids[i % len(cids)]]
+                              for i in range(mvcc_resolve.MAX_COLS + 2)})
+    launches0 = mvcc_resolve.resolve_view.launches
+    got = mvcc_resolve.resolve_view(wide, *read_params(mid), trun._const)
+    want = mvcc_resolve.resolve_view_plain(wide, *read_params(mid),
+                                           trun._const)
+    torch.cuda.synchronize()
+    check(view_diff(got, want) == 0, "resolve over 18 value columns")
+    n = mvcc_resolve.resolve_view.launches - launches0
+    check(n == 2, f"18 value columns launched the resolve {n} times, not 2")
+    print(f"mvcc_resolve_edge {len(wide['cols'])} value columns, {n} "
+          "launches, exact")
+    del got, want
+
+    def spec(read, lo):
+        return workload.headline_spec(read, lo)
+
+    # Read points across the history, six pairs across a TTL expiry.
+    expiries = sorted({u.expire_ht for u in updates if u.has_ttl
+                       and u.expire_ht <= max_ht})
+    ttl = [expiries[len(expiries) * k // 7] for k in range(1, 7)]
+    reads = set(ttl) | {e - 1 for e in ttl}
+    for r in np.linspace(100, max_ht, BATCH).astype(int).tolist():
+        while len(reads) < BATCH and r in reads:
+            r += 1
+        if len(reads) < BATCH:
+            reads.add(r)
+    reads = sorted(reads)
+    oracle_s = time.perf_counter()
+    oracles = {rd: history.at(rd) for rd in [newest] + reads}
+    oracle_s = time.perf_counter() - oracle_s
+
+    # The main path, counted.
+    mvcc_resolve.resolve_view.launches = 0
+    flat_agg.flat_aggregate.launches = 0
+    trun._view = None
+    want = oracles[newest]
+    got = eng.scan(spec(newest, -500_000)).rows[0]
+    check(got == want.headline(-500_000),
+          f"mvcc scan {got} != oracle {want.headline(-500_000)}")
+    lat = []
+    for _ in range(10):
+        t = time.perf_counter()
+        eng.scan(spec(newest, -500_000))
+        lat.append(time.perf_counter() - t)
+    batches = [[-500_000 - 7 * (b * BATCH + i) for i in range(BATCH)]
+               for b in range(N_BATCHES)]
+    run_pipelined(eng, [[spec(newest, lo) for lo in lits]
+                        for lits in batches[:DEPTH + 2]])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = run_pipelined(eng, [[spec(newest, lo) for lo in lits]
+                                  for lits in batches])
+    tput_s = time.perf_counter() - t0
+    for lits, res in zip(batches, results):
+        for lo, r in zip(lits, res):
+            check(r.rows[0] == want.headline(lo),
+                  f"mvcc batched d >= {lo}: {r.rows[0]} != "
+                  f"{want.headline(lo)}")
+    lits = [-500_000 + 9_000 * i for i in range(BATCH)]
+    mixed_specs = [spec(rd, lo) for rd, lo in zip(reads, lits)]
+    # Device memory the batch takes beyond what it starts with: a view is
+    # let go before the next one is resolved, so it must stay under two
+    # views however many read points the batch holds.
+    view_nbytes = sum(t.nbytes for t in view_planes(
+        {"valid": arrays["valid"], "live": arrays["live"],
+         "cols": arrays["cols"]}).values())  # what a resolve writes
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mixed = eng.scan_batch(mixed_specs)
+    peak = torch.cuda.max_memory_allocated()
+    check(peak - base < 2 * view_nbytes,
+          f"the 32-read-point batch took {peak - base} bytes beyond its "
+          f"start, a view is {view_nbytes}")
+    for rd, lo, r in zip(reads, lits, mixed):
+        check(r.rows[0] == oracles[rd].headline(lo),
+              f"mvcc read point {rd}, d >= {lo}: {r.rows[0]} != "
+              f"{oracles[rd].headline(lo)}")
+    mixed_ms = []  # each call resolves its 32 views anew
+    for _ in range(MIXED_REPS):
+        t0 = time.perf_counter()
+        eng.scan_batch(mixed_specs)
+        mixed_ms.append((time.perf_counter() - t0) * 1e3)
+    fspec = ScanSpec(read_ht=newest, predicates=[Predicate("d", ">=", 0)],
+                     aggregates=[AggSpec("sum", "c"), AggSpec("min", "c"),
+                                 AggSpec("max", "c")])
+    check(eng._plan_scan(fspec).route == "mv_flat", "float spec route")
+    fs, fmin, fmax = eng.scan(fspec).rows[0]
+    want_s, want_min, want_max, abs_sum = want.c_aggs(0)
+    # f32 sums over the arith plane: error within 2^-17 of sum(|c|).
+    check(abs(fs - want_s) <= abs_sum * 2.0 ** -17,
+          f"mvcc sum(c) {fs} vs {want_s}")
+    check((fmin, fmax) == (want_min, want_max), "mvcc min/max(c)")
+    launches = {"mvcc_resolve": mvcc_resolve.resolve_view.launches,
+                "flat_agg": flat_agg.flat_aggregate.launches}
+    check(launches["mvcc_resolve"] > 0,
+          "the multi-version path launched the resolve kernel 0 times")
+    check(launches["flat_agg"] > 0,
+          "the multi-version path launched the flat_agg kernel 0 times")
+
+    # Where a batch's time goes when each batch resolves its own view.
+    trace_reads = reads[-TRACE_BATCHES:]
+    mv_trace = trace_batches(eng, [[spec(rd, lo) for lo in batches[0]]
+                                   for rd in trace_reads])
+    print("mvcc_trace " + json.dumps(mv_trace))
+
+    n_scans = BATCH * N_BATCHES
+    row = {"single_scan_latency_ms": statistics.median(lat) * 1e3,
+           "rows_per_s": crun.num_versions * n_scans / tput_s,
+           "scans": n_scans, "batch": BATCH, "depth": DEPTH,
+           "mixed_read_batch_ms": statistics.median(mixed_ms),
+           "mixed_read_batch_ms_each": mixed_ms,
+           "mixed_read_batch_peak_bytes": peak,
+           "mixed_read_batch_extra_bytes": peak - base,
+           "view_nbytes": view_nbytes, "oracle_s": oracle_s,
+           "launches": launches}
+    print("mvcc " + json.dumps(row))
+
+    # K1 at this path's shapes: the newest view and one batch's
+    # parameter rows, timed and held against its plain version.
+    preps = [eng._plan_scan(spec(newest, lo)) for lo in batches[0]]
+    p0 = preps[0]
+    plan = flat_agg.make_plan(p0.sig.aggs, p0.sig.preds,
+                              tuple(cs.col_id for cs in p0.sig.cols))
+    params = np.array([plan.param_row(p.row_lo, p.row_hi, p.read_planes,
+                                      p.lits) for p in preps], np.int32)
+    table = plan.plane_table(p0.arrays())
+    row["kernel"] = measure(plan, table, params, device, bw, rate)
+    print("mvcc_kernel " + json.dumps(row["kernel"]))
+    row["resolve"] = resolve
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -772,24 +1128,39 @@ def main() -> int:
           f"(64 lanes x SMs x clocks.max.sm "
           f"{nvidia_smi('clocks.max.sm')})")
     t0 = time.perf_counter()
-    native.build(["flat_agg"])
-    print(f"build: flat_agg in {time.perf_counter() - t0:.1f} s")
-    for line in native.build_logs.get("flat_agg", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    native.build(KERNELS)
+    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        for line in native.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {name}: {line.strip()}")
 
     kernel_err = kernel_phase(device, bw, rate)
     eng = engine_phase(device, bw, rate)
+    mv = mvcc_phase(device, bw, rate)
     k = eng["kernel"]
-    err = max(k["max_abs_err"], kernel_err)
+    err = max(k["max_abs_err"], kernel_err, mv["kernel"]["max_abs_err"])
+    res = mv["resolve"]["newest"]
+    res_err = max(r["max_abs_err"] for r in mv["resolve"].values())
     print(json.dumps({"kernels": [{
         "name": "flat_agg", "route": "cuda",
         "source": "yugabyte_db_tpu_torch/csrc/flat_agg.cu",
         "replaces": "yugabyte_db_tpu/ops/pallas_agg.py:76",
-        "launches": eng["launches"], "max_abs_err": err,
+        "launches": eng["launches"] + mv["launches"]["flat_agg"],
+        "launches_by_path": {"engine": eng["launches"],
+                             "mvcc": mv["launches"]["flat_agg"]},
+        "max_abs_err": err,
         "max_abs_diff": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "mvcc_resolve", "route": "cuda",
+        "source": "yugabyte_db_tpu_torch/csrc/mvcc_resolve.cu",
+        "replaces": "yugabyte_db_tpu/ops/seg_fold.py:104, "
+                    "yugabyte_db_tpu/ops/lookback_fold.py:87",
+        "launches": mv["launches"]["mvcc_resolve"],
+        "max_abs_err": res_err, "max_abs_diff": res_err, "ms": res["ms"],
+        "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,9 +3,10 @@
 The other ``test_torch_*.py`` files import their tables, rows and plane
 trees from here. Every table and row set is built twice from one seed:
 once with the JAX package's data model and once with the port's, so that
-a test feeds both sides the same bytes. Runs are flat (one version per
-key) with tombstones, NULLs, unset columns, UPDATE-only rows (no
-liveness) and TTLs that expire inside the history.
+a test feeds both sides the same bytes. ``flat_rows`` gives flat runs
+(one version per key) with tombstones, NULLs, unset columns, UPDATE-only
+rows (no liveness) and TTLs that expire inside the history;
+``multiversion_rows`` gives multi-version histories.
 """
 
 from __future__ import annotations
@@ -106,6 +107,50 @@ def flat_rows(side, schema, n: int, seed: int):
     return rows, ht
 
 
+def multiversion_rows(side, schema, n: int = 900, nkeys: int = 120,
+                      seed: int = 3, hot: float = 0.0):
+    """(rows, max_ht): a history of ``n`` writes to ``nkeys`` keys of the
+    bench table in ``side``'s classes, in the style of
+    ``tests/test_seg_fold.py``: full-row INSERTs (some with a TTL that
+    expires inside the history, some d NULL), one-column UPDATEs (some
+    NULL) and DELETEs, a third of them followed by a write at the same
+    hybrid time that lands before or after the tombstone in the layout.
+    ``hot`` is the share of writes that go to key 0."""
+    RowVersion = side.row_version.RowVersion
+    rng = random.Random(seed)
+    cid = {c.name: c.col_id for c in schema.value_columns}
+    keys = [encode_key(side, schema, i) for i in range(nkeys)]
+    ht = 0
+    rows = []
+    for _ in range(n):
+        ht += rng.randrange(1, 3)
+        key = keys[0] if rng.random() < hot else keys[rng.randrange(nkeys)]
+        roll = rng.random()
+        if roll < 0.12:
+            rows.append(RowVersion(key, ht=ht, tombstone=True))
+            if rng.random() < 0.33:
+                rows.append(RowVersion(
+                    key, ht=ht, liveness=True, write_id=rng.randrange(2),
+                    columns={cid["a"]: rng.randrange(-10**9, 10**9)}))
+        elif roll < 0.7:
+            rows.append(RowVersion(
+                key, ht=ht, liveness=True,
+                columns={cid["a"]: rng.randrange(-10**12, 10**12),
+                         cid["c"]: rng.uniform(-1e6, 1e6),
+                         cid["d"]: rng.choice(
+                             [None, rng.randrange(-10**6, 10**6)])},
+                expire_ht=(ht + rng.randrange(5, 500)
+                           if rng.random() < 0.1 else MAX_HT)))
+        else:
+            col = rng.choice(["a", "c", "d"])
+            val = {"a": rng.randrange(-10**10, 10**10),
+                   "c": rng.uniform(-100, 100),
+                   "d": rng.randrange(-1000, 1000)}[col]
+            rows.append(RowVersion(key, ht=ht, columns={
+                cid[col]: None if rng.random() < 0.1 else val}))
+    return rows, ht
+
+
 def build_run(side, schema, rows, rows_per_block: int):
     mem = side.memtable.MemTable()
     mem.apply(rows)
@@ -162,4 +207,27 @@ def test_both_sides_get_the_same_rows_in_every_state(table):
     assert (run.valid & ~run.live & ~run.tomb).any()  # UPDATE-only rows
     assert any(c.isnull.any() for c in run.cols.values())
     assert any((run.valid & ~c.set_).any() for c in run.cols.values())
+    assert (run.exp_hi != run.exp_hi.max()).any()  # TTLs
+
+
+@pytest.mark.parametrize("hot", [0.0, 0.045])
+def test_both_sides_get_the_same_multiversion_history(hot):
+    js, ps = make_schema(JAX, "bench"), make_schema(PORT, "bench")
+    jrows, jht = multiversion_rows(JAX, js, seed=4, hot=hot)
+    prows, pht = multiversion_rows(PORT, ps, seed=4, hot=hot)
+
+    def fields(r):
+        return (r.key, r.ht, r.tombstone, r.liveness, r.columns,
+                r.expire_ht, r.write_id)
+
+    assert jht == pht
+    assert [fields(r) for r in jrows] == [fields(r) for r in prows]
+    run = build_run(PORT, ps, prows, 64)
+    assert 1 < run.max_group_versions <= 64
+    assert (run.max_group_versions > 32) == (hot > 0)
+    # Same-hybrid-time DELETE + write pairs on both sides of the tombstone.
+    ties = {(r.key, r.ht): r for r in prows if r.tombstone}
+    writes = [r for r in prows if not r.tombstone and (r.key, r.ht) in ties]
+    assert {w.write_id for w in writes} == {0, 1}
+    assert any(v is None for r in prows for v in r.columns.values())
     assert (run.exp_hi != run.exp_hi.max()).any()  # TTLs

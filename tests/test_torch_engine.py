@@ -1,15 +1,20 @@
 """The port's ``gpu`` engine against the JAX package's ``cpu`` and ``tpu``.
 
 ``make_engine("gpu", ..., {"device": "cpu"})`` (kernels in their plain
-PyTorch versions) and the JAX package's two engines take the same rows.
-Every flat-run aggregate spec, alone and in one ``scan_batch_async``
-batch, must give the same column names and rows as both (integers, counts,
-MIN and MAX exactly; float sums and averages within rel 1e-4 / abs 1e-4,
-the tolerance of ``tests/test_engine_diff.py``) and the ``rows_scanned``
-the ``tpu`` engine reports (the ``cpu`` engine counts keys examined, a
-different statistic). Specs outside the port's slice must raise
+PyTorch versions) and the JAX package's two engines take the same rows:
+a flat run, and a multi-version history (``multiversion_rows``, one key
+past 32 versions, so the ``tpu`` engine takes its ``seg`` route). Every
+aggregate spec, alone and in one ``scan_batch_async`` batch (on the
+multi-version run, at mixed read points), must give the same column names
+and rows as both (integers, counts, MIN and MAX exactly; float sums and
+averages within rel 1e-4 / abs 1e-4, the tolerance of
+``tests/test_engine_diff.py``) and the ``rows_scanned`` the ``tpu``
+engine reports (the ``cpu`` engine counts keys examined, a different
+statistic). Specs outside the port's slice must raise
 ``NotImplementedError``.
 """
+
+import weakref
 
 import pytest
 import torch
@@ -17,8 +22,9 @@ import torch
 import yugabyte_db_tpu.storage as J
 import yugabyte_db_tpu.storage.tpu_engine  # noqa: F401  (registers 'tpu')
 import yugabyte_db_tpu_torch.storage as T
-from yugabyte_db_tpu_torch.ops import flat_agg
-from test_torch_data import JAX, PORT, encode_key, flat_rows, make_schema
+from yugabyte_db_tpu_torch.ops import flat_agg, flat_fold, mvcc_resolve
+from test_torch_data import (JAX, MAX_HT, PORT, encode_key, flat_rows,
+                             make_schema, multiversion_rows)
 
 R = 64
 N_KEYS = 800
@@ -157,7 +163,10 @@ def test_out_of_slice_specs_raise(engines):
 
 
 def test_multi_source_and_multi_version_runs_raise():
-    ps = make_schema(PORT, "mixed")
+    """A second run or a live memtable beside a run still raises; a run
+    with a second version of a key is served, as the JAX engines serve
+    it."""
+    ps, js = make_schema(PORT, "mixed"), make_schema(JAX, "mixed")
     rows, max_ht = flat_rows(PORT, ps, 200, seed=5)
     spec = T.ScanSpec(read_ht=max_ht + 10,
                       aggregates=[T.AggSpec("count", None)])
@@ -173,12 +182,213 @@ def test_multi_source_and_multi_version_runs_raise():
     with pytest.raises(NotImplementedError, match="overlay"):
         eng.scan(spec)                                # two runs
     assert eng.stats()["num_runs"] == 2
-    mv = T.make_engine("gpu", ps, {"rows_per_block": R, "device": "cpu"})
-    mv.apply(rows + [PORT.row_version.RowVersion(
-        rows[5].key, ht=max_ht + 1, tombstone=True)])
-    mv.flush()
-    with pytest.raises(NotImplementedError, match="multi-version"):
-        mv.scan(spec)
+    jrows, _ = flat_rows(JAX, js, 200, seed=5)
+    engines = {"gpu": (T, T.make_engine("gpu", ps, {"rows_per_block": R,
+                                                     "device": "cpu"}),
+                       rows, PORT),
+               "tpu": (J, J.make_engine("tpu", js, {"rows_per_block": R}),
+                       jrows, JAX),
+               "cpu": (J, J.make_engine("cpu", js), jrows, JAX)}
+    got = {}
+    for name, (S, e, rs, side) in engines.items():
+        e.apply(rs + [side.row_version.RowVersion(
+            rs[5].key, ht=max_ht + 1, tombstone=True)])
+        e.flush()
+        got[name] = [e.scan(S.ScanSpec(read_ht=rd, aggregates=[
+            S.AggSpec("count", None)])) for rd in (max_ht, max_ht + 1)]
+    assert engines["gpu"][1].runs[0].crun.max_group_versions == 2
+    for want, g in zip(got["tpu"], got["gpu"]):
+        assert_same(want, g, "one deleted key")
+    for want, g in zip(got["cpu"], got["gpu"]):
+        assert_same(want, g, "one deleted key", scanned=False)
+    assert got["gpu"][0].rows[0][0] == got["gpu"][1].rows[0][0] + 1
+
+
+# -- multi-version runs -----------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mv_engines():
+    js, ps = make_schema(JAX, "bench"), make_schema(PORT, "bench")
+    jrows, max_ht = multiversion_rows(JAX, js, seed=12, hot=0.045)
+    prows, _ = multiversion_rows(PORT, ps, seed=12, hot=0.045)
+    cpu = J.make_engine("cpu", js)
+    tpu = J.make_engine("tpu", js, {"rows_per_block": R})
+    gpu = T.make_engine("gpu", ps, {"rows_per_block": R, "device": "cpu"})
+    for eng, rows in ((cpu, jrows), (tpu, jrows), (gpu, prows)):
+        eng.apply(rows)
+        eng.flush()
+    assert gpu.runs[0].crun.max_group_versions > 32
+    exps = sorted({r.expire_ht for r in prows if r.has_ttl})
+    return {"js": js, "ps": ps, "cpu": cpu, "tpu": tpu, "gpu": gpu,
+            "max_ht": max_ht, "expiries": exps}
+
+
+def mv_cases(e):
+    """(label, spec keyword arguments) on the multi-version run."""
+    ps, top = e["ps"], e["max_ht"]
+    lo_key, hi_key = encode_key(PORT, ps, 20), encode_key(PORT, ps, 90)
+    headline = [("count", None), ("sum", "a"), ("min", "a"), ("max", "a"),
+                ("sum", "d")]
+    ttl = e["expiries"][len(e["expiries"]) // 2]
+    return [
+        ("headline", dict(read_ht=top + 1, aggregates=headline,
+                          predicates=[("d", ">=", -500_000)])),
+        ("all_ints_two_preds", dict(read_ht=top // 2, aggregates=headline + [
+            ("count", "d"), ("min", "d"), ("max", "d")],
+            predicates=[("a", "<", 0), ("d", "!=", 3)])),
+        ("floats", dict(read_ht=MAX_HT, aggregates=[
+            ("count", None), ("sum", "c"), ("min", "c"), ("max", "c"),
+            ("avg", "c"), ("sum", "a")], predicates=[("c", ">=", 0.0)])),
+        ("bounded_mid", dict(lower=lo_key, upper=hi_key, read_ht=top // 3,
+                             aggregates=headline)),
+        ("before_ttl", dict(read_ht=ttl - 1, aggregates=headline)),
+        ("at_ttl", dict(read_ht=ttl, aggregates=headline)),
+        ("before_all", dict(read_ht=1, aggregates=headline)),
+    ]
+
+
+def test_multi_version_specs_alone_match_cpu_and_tpu(mv_engines):
+    e = mv_engines
+    for label, kw in mv_cases(e):
+        got = e["gpu"].scan(build(T, kw))
+        assert_same(e["tpu"].scan(build(J, kw)), got, label)
+        assert_same(e["cpu"].scan(build(J, kw)), got, label, scanned=False)
+
+
+def test_multi_version_routes(mv_engines, monkeypatch):
+    e = mv_engines
+    routes = {label: e["gpu"]._plan_scan(build(T, kw)).route
+              for label, kw in mv_cases(e)}
+    assert routes.pop("floats") == "mv_flat"
+    assert set(routes.values()) == {"mv_kernel"}
+    # Past the flat fold's bounds a non-kernel signature still raises,
+    # naming the windowed fold's place in ROADMAP.md.
+    monkeypatch.setattr(flat_fold, "MAX_B", 1)
+    with pytest.raises(NotImplementedError, match="item 7: the windowed"):
+        e["gpu"].scan(build(T, mv_cases(e)[2][1]))
+    e["gpu"].scan(build(T, mv_cases(e)[0][1]))  # the kernel has no bound
+
+
+def test_multi_version_async_batch_mixed_read_points(mv_engines,
+                                                     monkeypatch):
+    """One batch at many read points: one resolve per view key, one K1
+    call per (view, signature), every spec equal to both JAX engines."""
+    e = mv_engines
+    cases = mv_cases(e)
+    top = e["max_ht"]
+    reads = [top // 7 * k for k in range(1, 7)] + [top + 1, MAX_HT]
+    cases += [(f"headline_at_{rd}", dict(cases[0][1], read_ht=rd))
+              for rd in reads]
+    cases += [(f"headline_lo_{lo}", dict(cases[0][1], predicates=[
+        ("d", ">=", lo)])) for lo in (-900_000, 0, 400_000)]
+    trun = e["gpu"].runs[0]
+    keys = {trun.view_key(kw["read_ht"]) for _l, kw in cases}
+    resolves, calls = [], []
+    resolve, fold = mvcc_resolve.resolve_view, flat_agg.flat_aggregate
+
+    def counted_resolve(run, *args):
+        resolves.append(args[:4])
+        return resolve(run, *args)
+
+    def counted_fold(plan, table, params):
+        calls.append(params.shape[0])
+        return fold(plan, table, params)
+
+    monkeypatch.setattr(mvcc_resolve, "resolve_view", counted_resolve)
+    monkeypatch.setattr(flat_agg, "flat_aggregate", counted_fold)
+    trun._view = None
+    batch = e["gpu"].scan_batch_async([build(T, kw) for _l, kw in cases])
+    got = batch.finish()
+    assert len(resolves) == len(keys) < len(cases)
+    assert sum(calls) == len(cases) - 1  # all but the float spec
+    assert len(calls) < len(cases) - 1
+    for (label, kw), g in zip(cases, got):
+        assert_same(e["tpu"].scan(build(J, kw)), g, label)
+        assert_same(e["cpu"].scan(build(J, kw)), g, label, scanned=False)
+    # The run keeps its latest view: a batch at that key resolves nothing.
+    resolves.clear()
+    last = trun._view[0]
+    again = [kw for _l, kw in cases if trun.view_key(kw["read_ht"]) == last]
+    e["gpu"].scan_batch([build(T, kw) for kw in again])
+    assert resolves == []
+
+
+def test_a_batch_holds_one_view_of_a_run_at_a_time(mv_engines,
+                                                   monkeypatch):
+    """A batch at many read points lets each view go before it resolves
+    the next, and the run keeps the last one."""
+    e = mv_engines
+    trun = e["gpu"].runs[0]
+    top = e["max_ht"]
+    cases = mv_cases(e)
+    kws = [dict(cases[0][1], read_ht=top // 7 * k) for k in range(1, 7)]
+    kws.append(dict(cases[2][1], read_ht=kws[2]["read_ht"]))  # mv_flat
+    held = []
+    resolve = mvcc_resolve.resolve_view
+
+    def watched(run, *args):
+        assert [ref() for ref in held if ref() is not None] == []
+        view = resolve(run, *args)
+        held.append(weakref.ref(view["valid"]))
+        return view
+
+    monkeypatch.setattr(mvcc_resolve, "resolve_view", watched)
+    trun._view = None
+    got = e["gpu"].scan_batch([build(T, kw) for kw in kws])
+    assert len(held) == len({trun.view_key(kw["read_ht"]) for kw in kws}) \
+        == 6
+    assert held[-1]() is trun._view[1]["valid"]
+    for kw, g in zip(kws, got):
+        assert_same(e["tpu"].scan(build(J, kw)), g, kw["read_ht"])
+
+
+def test_ycsb_a_update_phase_matches_the_cpu_engine():
+    """``workload.make_update_rows``: its mix, its version cap, and the
+    multi-version run it makes served as the JAX ``cpu`` engine serves
+    it at read points across the history."""
+    from yugabyte_db_tpu_torch import workload
+
+    ps, js = workload.make_schema(), make_schema(JAX, "bench")
+    assert [(c.name, c.col_id) for c in ps.columns] == \
+        [(c.name, c.col_id) for c in js.columns]
+    rows, load_ht = workload.make_rows(ps, 3000, seed=7)
+    ups, top = workload.make_update_rows(ps, rows, load_ht, 6000, seed=7)
+    assert ups == workload.make_update_rows(ps, rows, load_ht, 6000,
+                                            seed=7)[0]
+    n = len(ups)
+    tombs = {(u.key, u.ht) for u in ups if u.tombstone}
+    ties = [u for u in ups if not u.tombstone and (u.key, u.ht) in tombs]
+    assert 6000 <= n <= 6000 + len(ties)
+    assert 0.01 < len(tombs) / n < 0.03
+    assert 0.2 < len(ties) / len(tombs) < 0.5
+    assert all(u.write_id == 1 and u.liveness for u in ties)
+    single = [u for u in ups if not u.tombstone and u not in ties]
+    assert all(len(u.columns) == 1 and not u.liveness for u in single)
+    assert 0.02 < sum(u.has_ttl for u in single) / n < 0.04
+    nulls = sum(None in u.columns.values() for u in single)
+    assert 0.004 < nulls / n < 0.02
+    per_key = {}
+    for u in ups:
+        per_key[u.key] = per_key.get(u.key, 1) + 1
+    assert max(per_key.values()) == workload.MAX_VERSIONS
+
+    gpu = T.make_engine("gpu", ps, {"rows_per_block": 512, "device": "cpu"})
+    gpu.apply(rows + ups)
+    gpu.flush()
+    cpu = J.make_engine("cpu", js)
+    cpu.apply([JAX.row_version.RowVersion(
+        r.key, ht=r.ht, tombstone=r.tombstone, liveness=r.liveness,
+        columns=dict(r.columns), expire_ht=r.expire_ht, write_id=r.write_id)
+        for r in rows + ups])
+    cpu.flush()
+    for rd in (load_ht, (load_ht + top) // 2, top + 1):
+        for kw in (dict(read_ht=rd, aggregates=[
+                ("count", None), ("sum", "a"), ("min", "a"), ("max", "a"),
+                ("sum", "d")], predicates=[("d", ">=", -500_000)]),
+                dict(read_ht=rd, aggregates=[("count", "c"), ("avg", "c"),
+                                             ("max", "c")])):
+            assert_same(cpu.scan(build(J, kw)), gpu.scan(build(T, kw)),
+                        rd, scanned=False)
 
 
 def test_device_defaults_to_cuda():

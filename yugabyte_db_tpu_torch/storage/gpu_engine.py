@@ -1,21 +1,29 @@
 """GPU storage engine: the ``tablet_storage_engine=gpu`` data plane.
 
-The first slice of the JAX package's ``storage/tpu_engine.py``: writes go
-to the host memtable, ``flush`` builds a columnar run on the host and
-uploads its planes to the engine's device, and single-source aggregate
-scans over a flat run (one version per key, the post-compaction shape)
-fold on the device:
+A slice of the JAX package's ``storage/tpu_engine.py``: writes go to the
+host memtable, ``flush`` builds a columnar run on the host and uploads
+its planes to the engine's device, and single-source aggregate scans
+fold on the device, over a flat run (one version per key, the
+post-compaction shape) or a multi-version one:
 
-- signatures the CUDA kernel takes (``ops.flat_agg.eligible``: COUNT,
-  i32/i64 SUM/MIN/MAX, i32/i64 predicates) go through it, and the specs
-  of one batch that share a signature go as ONE launch with an [N, P]
-  parameter tensor (the counterpart of ``_batched_agg_fn``);
-- the other flat-run signatures (f64 predicates, float aggregates) go
-  through ``ops.flat_fold`` in plain PyTorch, one spec at a time.
+- a multi-version run is first resolved at the spec's read point into a
+  flat view (``ops.mvcc_resolve``, a CUDA kernel; the counterpart of the
+  resolve inside the JAX package's ``lookback_fold`` / ``seg_fold``):
+  one resolve per run and set of visible versions and expiries, shared
+  by the specs of a batch, and the run keeps its latest view for the
+  next batch. The view is then folded as a flat run is;
+- signatures the CUDA fold kernel takes (``ops.flat_agg.eligible``:
+  COUNT, i32/i64 SUM/MIN/MAX, i32/i64 predicates) go through it, and the
+  specs of one batch that share a signature and a run (or view) go as
+  ONE launch with an [N, P] parameter tensor (the counterpart of
+  ``_batched_agg_fn``);
+- the other signatures (f64 predicates, float aggregates) go through
+  ``ops.flat_fold`` in plain PyTorch, one spec at a time.
 
 Both return ``agg_fold.pack``'s layout, which ``unpack`` / ``finalize``
 turn into a ``ScanResult``. ``rows_scanned`` is what the JAX ``tpu``
-engine reports on its flat route: the rows that pass every predicate.
+engine reports on these routes: the rows (key groups, on a multi-version
+run) that pass every predicate.
 
 Everything else raises ``NotImplementedError`` naming the ROADMAP.md item
 that brings it. There is no host re-serve: a device error raises.
@@ -25,10 +33,12 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from yugabyte_db_tpu_torch.models.schema import Schema
-from yugabyte_db_tpu_torch.ops import agg_fold, flat_agg, flat_fold
+from yugabyte_db_tpu_torch.ops import (agg_fold, flat_agg, flat_fold,
+                                      mvcc_resolve)
 from yugabyte_db_tpu_torch.ops import scan as dscan
 from yugabyte_db_tpu_torch.ops.device_run import (DeviceRun, dtype_kind,
                                                   resolve_device)
@@ -54,8 +64,6 @@ _LATER = {
                  "(ROADMAP.md §1 item 7: row path, K7/K9)",
     "multi_source": "scans over several runs or a live memtable "
                     "(ROADMAP.md §1 item 5: overlay aggregates)",
-    "multi_version": "runs with several versions per key (ROADMAP.md §1 "
-                     "item 4: multi-version routes, K3-K5)",
 }
 
 
@@ -65,11 +73,44 @@ def _later(what: str) -> NotImplementedError:
 
 class GpuRun:
     """A columnar run and its planes resident on the engine's device (no
-    residency budget yet: a run stays resident for its lifetime)."""
+    residency budget yet: a run stays resident for its lifetime). A
+    multi-version run also holds its view's constant planes, the sorted
+    hybrid times of its versions and expiries (the view keys), and its
+    most recent resolved view."""
 
     def __init__(self, crun: ColumnarRun, device: torch.device):
         self.crun = crun
         self.dev = DeviceRun(crun, PAD_BLOCKS, device=device)
+        self.flat = crun.max_group_versions <= 1
+        self._view = None  # (view key, view arrays)
+        if not self.flat:
+            v = crun.valid
+            self._hts = np.sort(P.planes_to_u64(
+                crun.ht_hi[v], crun.ht_lo[v]).astype(np.int64))
+            exps = P.planes_to_u64(crun.exp_hi[v],
+                                   crun.exp_lo[v]).astype(np.int64)
+            self._exps = np.sort(exps[exps != MAX_HT])
+            self._const = mvcc_resolve.constant_planes(self.dev.B, crun.R,
+                                                       device)
+
+    def view_key(self, read_ht: int) -> tuple:
+        """Two read points resolve to one view exactly when they see the
+        same versions (commit time <= read point) and the same expiries
+        (expiry <= the expiry read point)."""
+        return (int(np.searchsorted(self._hts, min(read_ht, MAX_HT),
+                                    side="right")),
+                int(np.searchsorted(self._exps, min(read_ht, MAX_HT - 1),
+                                    side="right")))
+
+    def view(self, key: tuple, read_planes: tuple) -> dict:
+        """The resolved view of ``key`` (``read_planes``: those of any read
+        point of that key). Only the latest one is kept: the previous one
+        is let go before the new one is made."""
+        if self._view is None or self._view[0] != key:
+            self._view = None
+            self._view = (key, mvcc_resolve.resolve_view(
+                self.dev.arrays, *read_planes, self._const))
+        return self._view[1]
 
 
 @dataclass
@@ -78,21 +119,29 @@ class _AggPrep:
 
     spec: ScanSpec
     trun: GpuRun
-    sig: dscan.ScanSig
-    route: str            # "kernel" | "flat"
+    sig: dscan.ScanSig    # the fold's signature (a view's is flat)
+    route: str            # "kernel" | "flat" | "mv_kernel" | "mv_flat"
     row_lo: int
     row_hi: int
     read_planes: tuple    # read hi/lo, expiry hi/lo
     lits: tuple           # host predicate literals
     dev_aggs: tuple
     lowering: list
+    view_key: tuple | None  # multi-version routes: the resolve's key
+
+    def arrays(self) -> dict:
+        """The planes the fold reads: the run's, or its resolved view."""
+        if self.view_key is None:
+            return self.trun.dev.arrays
+        return self.trun.view(self.view_key, self.read_planes)
 
 
 class GpuStorageEngine(StorageEngine):
     """Options: ``device`` (default ``cuda``; raises when there is no
     GPU) and ``rows_per_block`` (2048). The memtable flushes only when
-    ``flush`` is called: a second run could not be scanned in this
-    slice."""
+    ``flush`` is called: a second run, or a live memtable beside a run,
+    could not be scanned yet (overlay aggregates, ROADMAP.md §1 item 5).
+    A run may hold any number of versions per key."""
 
     def __init__(self, schema: Schema, options: dict | None = None):
         super().__init__(schema, options)
@@ -142,40 +191,55 @@ class GpuStorageEngine(StorageEngine):
     def scan_batch_async(self, specs: list[ScanSpec]) -> "_AsyncBatch":
         """Plan every scan, launch all device work and start the results'
         copies to the host without waiting; ``.finish()`` waits and
-        builds the results. Same-signature kernel specs on one run share
-        one launch."""
+        builds the results. A multi-version run is resolved once per view
+        key; same-signature kernel specs on one run (or view) share one
+        launch."""
         results: list = [None] * len(specs)
-        kernel_groups: dict = {}
-        fold_preps: list[tuple[int, _AggPrep]] = []
+        # Per source, a run or one view of it: kernel specs by plan, and
+        # the specs of the plain flat fold.
+        sources: dict = {}
         for i, spec in enumerate(specs):
             prep = self._plan_scan(spec)
             if isinstance(prep, ScanResult):
                 results[i] = prep
-            elif prep.route == "kernel":
+                continue
+            kernels, folds = sources.setdefault(
+                (id(prep.trun), prep.view_key), ({}, []))
+            if prep.route in ("kernel", "mv_kernel"):
                 plan = flat_agg.make_plan(
                     prep.sig.aggs, prep.sig.preds,
                     tuple(cs.col_id for cs in prep.sig.cols))
-                kernel_groups.setdefault((id(prep.trun), plan), []).append(
-                    (i, prep))
+                kernels.setdefault(plan, []).append((i, prep))
             else:
-                fold_preps.append((i, prep))
+                folds.append((i, prep))
 
         pending = []  # (device tensors, finish(host tensors))
-        for (_run, plan), group in kernel_groups.items():
-            trun = group[0][1].trun
+        for kernels, folds in sources.values():
+            pending += self._launch_source(kernels, folds, results)
+        return _AsyncBatch(results, pending)
+
+    def _launch_source(self, kernels: dict, folds: list,
+                       results: list) -> list:
+        """Queue every launch that reads one source. A view is held only
+        here, so it is let go before the next source's view is resolved:
+        a batch holds at most one view of a run at a time."""
+        first = next(iter(kernels.values()))[0] if kernels else folds[0]
+        arrays = first[1].arrays()
+        pending = []
+        for plan, group in kernels.items():
             params = torch.tensor(
                 [plan.param_row(p.row_lo, p.row_hi, p.read_planes, p.lits)
                  for _i, p in group], dtype=torch.int32).to(self.device)
             partials = flat_agg.flat_aggregate(
-                plan, plan.plane_table(trun.dev.arrays), params)
+                plan, plan.plane_table(arrays), params)
             folded = flat_agg.fold_partials(plan, partials)
             pending.append(([folded], _kernel_finish(plan, group, results)))
-        for i, p in fold_preps:
+        for i, p in folds:
             fn = flat_fold.compiled_flat_aggregate(p.sig)
-            ivec, fvec = fn(p.trun.dev.arrays, p.row_lo, p.row_hi,
-                            *p.read_planes, p.lits)
+            ivec, fvec = fn(arrays, p.row_lo, p.row_hi, *p.read_planes,
+                            p.lits)
             pending.append(([ivec, fvec], _fold_finish(i, p, results)))
-        return _AsyncBatch(results, pending)
+        return pending
 
     # -- planning ------------------------------------------------------------
     def _overlapping_runs(self, spec: ScanSpec) -> list[GpuRun]:
@@ -241,10 +305,7 @@ class GpuStorageEngine(StorageEngine):
             return ScanResult([_agg_name(a) for a in spec.aggregates],
                               [tuple(0 if a.fn == "count" else None
                                      for a in spec.aggregates)], None, 0)
-        trun = runs[0]
-        if trun.crun.max_group_versions > 1:
-            raise _later("multi_version")
-        return self._device_agg_prep(trun, spec, exact)
+        return self._device_agg_prep(runs[0], spec, exact)
 
     def _device_agg_prep(self, trun: GpuRun, spec: ScanSpec,
                          exact_preds) -> _AggPrep:
@@ -258,6 +319,8 @@ class GpuStorageEngine(StorageEngine):
         dev_aggs, lowering = agg_fold.lower_aggs(
             spec.aggregates, self._name_to_id, self._kinds)
         R = crun.R
+        # The fold's signature: a multi-version run is folded through its
+        # resolved view, which is flat.
         sig = dscan.ScanSig(
             B=trun.dev.B, R=R,
             K=agg_fold.safe_window_blocks(R, agg_fold.FULL_WINDOW_BLOCKS),
@@ -265,18 +328,22 @@ class GpuStorageEngine(StorageEngine):
                        for c in self.schema.value_columns),
             preds=tuple(pred_sigs), aggs=dev_aggs, apply_preds=True,
             flat=True)
+        prefix, view_key = "", None
+        if not trun.flat:
+            prefix, view_key = "mv_", trun.view_key(spec.read_ht)
         if flat_agg.eligible(sig):
-            route = "kernel"
+            route = prefix + "kernel"
         elif flat_fold.supports(sig):
-            route = "flat"
+            route = prefix + "flat"
         else:
             raise NotImplementedError(
-                f"not in the port yet: a flat run of {sig.B} blocks x "
-                f"{sig.R} rows exceeds the flat fold's exact-limb bounds "
-                "(ROADMAP.md §1 item 4: the windowed fold, K5)")
+                f"not in the port yet: a run of {sig.B} blocks x {sig.R} "
+                "rows exceeds the flat fold's exact-limb bounds "
+                "(ROADMAP.md §1 item 7: the windowed fold K5, beside the "
+                "row path)")
         return _AggPrep(spec, trun, sig, route, crun.lower_row(spec.lower),
                         crun.upper_row(spec.upper), self._read_planes(spec),
-                        tuple(lits), dev_aggs, lowering)
+                        tuple(lits), dev_aggs, lowering, view_key)
 
 
 def _agg_name(a) -> str:
