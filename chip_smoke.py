@@ -37,8 +37,12 @@ line is printed:
    as YCSB workload A's updates, plus deletes with same-hybrid-time
    writes, TTLs and NULLs for coverage), one multi-version run of ~2M
    versions at R = 2048 with keys past 32 versions. The resolve kernel (``ops.mvcc_resolve``) at
-   the newest and a mid-history read point: its view must equal its
-   plain version byte for byte; times and the bytes bound. Then the
+   the newest and a mid-history read point, and on
+   ``workload.long_group_planes`` (2,097,152 rows, R = 2048, key groups
+   of 1 to 2048 versions): its view must equal its plain version byte for
+   byte; times and the bytes bound. Its edges, byte for byte and untimed:
+   18 value columns (two launches), R = 48, and groups filling whole
+   blocks of 2048 rows. Then the
    engine: one scan, pipelined 32-spec batches at one read point (depth
    6), one batch at 32 distinct read points (six pairs across TTL
    expiries; checked once, with the device memory it takes beyond its
@@ -53,6 +57,12 @@ line is printed:
    ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a result when no CUDA device is visible.
+
+``python3 chip_smoke.py --resolve-ab OTHER.cu[,OTHER2.cu...]`` builds the
+kernels, then times this tree's resolve kernel against each other source
+of it (the same C interface) in turns on one card, on the mvcc run and
+the long-group planes, each held byte for byte against the plain version
+(``resolve_ab`` lines), and exits.
 """
 
 from __future__ import annotations
@@ -875,14 +885,15 @@ def view_diff(got: dict, want: dict) -> int:
     return err
 
 
-def measure_resolve(trun, read_ht: int, bw: float, rate: float) -> dict:
-    """The resolve kernel against its plain version at one read point:
+def measure_resolve(arrays: dict, const: dict, read_ht: int, bw: float,
+                    rate: float) -> dict:
+    """The resolve kernel against its plain version at one read point of
+    a run's planes (``DeviceRun.arrays``, constant view planes ``const``):
     the views byte for byte, times, and the bound."""
     import torch
 
     from yugabyte_db_tpu_torch.ops import mvcc_resolve
 
-    arrays, const = trun.dev.arrays, trun._const
     planes = read_params(read_ht)
     launches0 = mvcc_resolve.resolve_view.launches
     got = mvcc_resolve.resolve_view(arrays, *planes, const)
@@ -901,9 +912,9 @@ def measure_resolve(trun, read_ht: int, bw: float, rate: float) -> dict:
     ops = int(arrays["valid"].sum()) * (
         RESOLVE_ROW_OPS + RESOLVE_COL_OPS * len(arrays["cols"]))
     bytes_ms, ops_ms = nbytes / bw * 1e3, ops / rate * 1e3
-    return {"read_ht": read_ht, "view_key": list(trun.view_key(read_ht)),
-            "rows": n_rows, "bytes": nbytes, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+    return {"read_ht": read_ht, "rows": n_rows, "bytes": nbytes, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bytes_ms": bytes_ms,
             "ops_ms": ops_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": err,
@@ -925,16 +936,79 @@ def run_pipelined(eng, batches: list) -> list:
     return out
 
 
-def mvcc_phase(device, bw: float, rate: float) -> dict:
-    """A multi-version history over the bench table: the resolve
-    kernel timed and checked at two read points, then the engine's
-    multi-version routes (resolve, then K1 or the plain flat fold)
-    against an exact oracle over the history."""
-    import torch
+LONG_ROWS = 2_097_152  # long-group planes: the mvcc run's row count
+LONG_R = 2048
+# Byte-exact edges of the resolve, untimed: (label, rows, R).
+RESOLVE_EDGES = (("R48", 48 * 4096, 48),
+                 ("full_block_groups", 2048 * 64, 2048))
 
+
+def group_lengths(planes: dict) -> np.ndarray:
+    """Versions of each key group of valid rows (a group ends at the next
+    group start or at its block's end)."""
+    valid = planes["valid"].reshape(-1)
+    starts = planes["group_start"].reshape(-1).copy()
+    starts[::planes["valid"].shape[1]] = True
+    first = np.flatnonzero(starts & valid)
+    ends = np.append(np.flatnonzero(starts), valid.size)
+    return ends[np.searchsorted(ends, first, side="right")] - first
+
+
+def long_group_resolve(device, bw: float, rate: float) -> dict:
+    """The resolve on ``workload.long_group_planes`` (groups of 1 to R
+    versions straddling warp steps and filling blocks) at LONG_ROWS rows,
+    R = LONG_R: held byte for byte against its plain version and timed at
+    the newest read point; then the edges of RESOLVE_EDGES, held byte for
+    byte at the newest and a mid read point."""
     from yugabyte_db_tpu_torch import workload
-    from yugabyte_db_tpu_torch.ops import flat_agg, mvcc_resolve
-    from yugabyte_db_tpu_torch.storage import AggSpec, Predicate, ScanSpec
+    from yugabyte_db_tpu_torch.ops import mvcc_resolve
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+    from yugabyte_db_tpu_torch.utils import planes as P
+
+    def upload(n_rows, R, seed):
+        planes = workload.long_group_planes(n_rows, R, seed)
+        run = DeviceRun.from_reference_planes(planes, R, device)
+        valid = planes["valid"]
+        ht = P.planes_to_u64(planes["ht_hi"][valid],
+                             planes["ht_lo"][valid]).astype(np.int64)
+        const = mvcc_resolve.constant_planes(run.B, R, device)
+        return planes, run.arrays, const, int(ht.max()) + 1, \
+            int(np.median(ht))
+
+    t0 = time.perf_counter()
+    planes, arrays, const, newest, mid = upload(LONG_ROWS, LONG_R, 7)
+    lengths = group_lengths(planes)
+    setup = {"rows": LONG_ROWS, "R": LONG_R, "groups": int(lengths.size),
+             "versions": int(lengths.sum()),
+             "groups_over_32": int((lengths > 32).sum()),
+             "versions_in_groups_over_32": int(lengths[lengths > 32].sum()),
+             "full_block_groups": int((lengths == LONG_R).sum()),
+             "made_s": time.perf_counter() - t0}
+    row = dict(measure_resolve(arrays, const, newest, bw, rate), **setup)
+    print("mvcc_resolve_long " + json.dumps(row))
+    del arrays, const
+    for label, n_rows, R in RESOLVE_EDGES:
+        planes, arrays, const, e_newest, e_mid = upload(n_rows, R, 8)
+        lengths = group_lengths(planes)
+        check((lengths == R).any(), f"edge {label}: no group fills a block")
+        for rd in (e_newest, e_mid):
+            got = mvcc_resolve.resolve_view(arrays, *read_params(rd), const)
+            want = mvcc_resolve.resolve_view_plain(arrays, *read_params(rd),
+                                                   const)
+            check(view_diff(got, want) == 0,
+                  f"resolve edge {label} at {rd}: kernel != plain version")
+        print(f"mvcc_resolve_edge {label}: {n_rows} rows, R = {R}, "
+              f"{int((lengths == R).sum())} groups of R versions, the "
+              f"longest {int(lengths.max())}, newest and mid, exact")
+        del arrays, const
+    return row
+
+
+def mvcc_engine(device) -> tuple:
+    """The bench table at MVCC_KEYS keys plus MVCC_UPDATES updates, applied
+    and flushed into one multi-version run of a ``gpu`` engine: (schema,
+    rows, updates, load_ht, max_ht, engine, generate s, apply+flush s)."""
+    from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.storage import make_engine
 
     t0 = time.perf_counter()
@@ -949,7 +1023,93 @@ def mvcc_phase(device, bw: float, rate: float) -> dict:
     eng.apply(rows)
     eng.apply(updates)
     eng.flush()
-    load_s = time.perf_counter() - t0
+    return (schema, rows, updates, load_ht, max_ht, eng, gen_s,
+            time.perf_counter() - t0)
+
+
+def resolve_ab(device, bw: float, others: list) -> None:
+    """This tree's resolve kernel (A) against other sources of it (B1, B2,
+    ..., each with the same C interface), on one card: the mvcc run at its
+    newest and mid read points and the long-group planes, each kernel held
+    byte for byte against the plain version, then timed in turns A B1 ..
+    Bn Bn .. B1 A (``cuda_ms``)."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import mvcc_resolve, native
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+    from yugabyte_db_tpu_torch.utils import planes as P
+
+    procs = []
+    for k, other in enumerate(others):
+        lib = native.BUILD_DIR / f"libmvcc_resolve-other{k}.so"
+        procs.append((other, lib, subprocess.Popen(
+            [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
+             str(Path(other).resolve())], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    libs = {"A": mvcc_resolve._library()}
+    for other, lib, proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"building {other}: {log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {other}: {line.strip()}")
+        libs[other] = mvcc_resolve.bind(ctypes.CDLL(str(lib)))
+    own = mvcc_resolve._library
+
+    *_, load_ht, max_ht, eng, _gen, _load = mvcc_engine(device)
+    trun = eng.runs[0]
+    planes = workload.long_group_planes(LONG_ROWS, LONG_R, 7)
+    long_run = DeviceRun.from_reference_planes(planes, LONG_R, device)
+    valid = planes["valid"]
+    long_read = int(P.planes_to_u64(planes["ht_hi"][valid],
+                                    planes["ht_lo"][valid]).max()) + 1
+    cases = {"newest": (trun.dev.arrays, trun._const, max_ht + 1),
+             "mid": (trun.dev.arrays, trun._const, (load_ht + max_ht) // 2),
+             "long": (long_run.arrays, mvcc_resolve.constant_planes(
+                 long_run.B, LONG_R, device), long_read)}
+    order = ["A", *others, *others[::-1], "A"]
+    try:
+        for label, (arrays, const, rd) in cases.items():
+            rp = read_params(rd)
+            want = mvcc_resolve.resolve_view_plain(arrays, *rp, const)
+            times = {name: [] for name in libs}
+            for name in order:
+                mvcc_resolve._library = lambda lib=libs[name]: lib
+                got = mvcc_resolve.resolve_view(arrays, *rp, const)
+                torch.cuda.synchronize()
+                check(view_diff(got, want) == 0,
+                      f"resolve {name} at {label} != plain version")
+                del got
+                times[name].append(cuda_ms(
+                    lambda: mvcc_resolve.resolve_view(arrays, *rp, const),
+                    KERNEL_REPS, queue_ahead=True))
+            nbytes = mvcc_resolve.view_bytes(arrays, *rp)
+            print("resolve_ab " + json.dumps({
+                "case": label, "read_ht": rd,
+                "rows": arrays["valid"].numel(), "bytes": nbytes,
+                "bytes_ms": nbytes / bw * 1e3, "ms": times}))
+    finally:
+        mvcc_resolve._library = own
+
+
+def mvcc_phase(device, bw: float, rate: float) -> dict:
+    """A multi-version history over the bench table: the resolve
+    kernel timed and checked at two read points and on the long-group
+    planes (with its edges), then the engine's
+    multi-version routes (resolve, then K1 or the plain flat fold)
+    against an exact oracle over the history."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_agg, mvcc_resolve
+    from yugabyte_db_tpu_torch.storage import AggSpec, Predicate, ScanSpec
+
+    schema, rows, updates, load_ht, max_ht, eng, gen_s, load_s = \
+        mvcc_engine(device)
     t0 = time.perf_counter()
     history = HistoryOracle(schema, rows, updates)
     trun = eng.runs[0]
@@ -969,10 +1129,13 @@ def mvcc_phase(device, bw: float, rate: float) -> dict:
     check(crun.max_group_versions > 32, "no key past 32 versions")
 
     newest, mid = max_ht + 1, (load_ht + max_ht) // 2
-    resolve = {label: measure_resolve(trun, rd, bw, rate)
-               for label, rd in (("newest", newest), ("mid", mid))}
-    for label, row in resolve.items():
-        print(f"mvcc_resolve_{label} " + json.dumps(row))
+    resolve = {}
+    for label, rd in (("newest", newest), ("mid", mid)):
+        resolve[label] = dict(
+            measure_resolve(trun.dev.arrays, trun._const, rd, bw, rate),
+            view_key=list(trun.view_key(rd)))
+        print(f"mvcc_resolve_{label} " + json.dumps(resolve[label]))
+    resolve["long"] = long_group_resolve(device, bw, rate)
     # Past MAX_COLS value columns the wrapper launches once per chunk of
     # columns: the run's three columns repeated under 18 ids.
     arrays = trun.dev.arrays
@@ -1135,12 +1298,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {name}: {line.strip()}")
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--resolve-ab":
+        resolve_ab(device, bw, sys.argv[2].split(","))
+        return 0
     kernel_err = kernel_phase(device, bw, rate)
     eng = engine_phase(device, bw, rate)
     mv = mvcc_phase(device, bw, rate)
     k = eng["kernel"]
     err = max(k["max_abs_err"], kernel_err, mv["kernel"]["max_abs_err"])
-    res = mv["resolve"]["newest"]
+    res, mid, long = (mv["resolve"][k] for k in ("newest", "mid", "long"))
     res_err = max(r["max_abs_err"] for r in mv["resolve"].values())
     print(json.dumps({"kernels": [{
         "name": "flat_agg", "route": "cuda",
@@ -1160,7 +1326,10 @@ def main() -> int:
         "launches": mv["launches"]["mvcc_resolve"],
         "max_abs_err": res_err, "max_abs_diff": res_err, "ms": res["ms"],
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-        "bound_by": res["bound_by"], "library_ms": None}]}))
+        "bound_by": res["bound_by"], "library_ms": None,
+        "mid_ms": mid["ms"], "mid_bound_ms": mid["bound_ms"],
+        "long_group_ms": long["ms"], "long_group_bound_ms": long["bound_ms"],
+        "long_group_plain_ms": long["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,6 +10,11 @@ within rel 1e-5 / abs 1e-3, the tolerance of ``tests/test_seg_fold.py``).
 Read points with one view key give byte-identical views; read points on
 either side of a version's hybrid time or of a TTL expiry get different
 keys. ``view_bytes`` charges each plane only where the resolve needs it.
+The long-group planes (``workload.long_group_planes``: groups of up to a
+whole block, straddling 32-row warp steps, at R = 64 and at R = 48, not a
+multiple of 32) keep the layout's invariants and fold to what
+``compiled_seg_aggregate`` gives on them, at read points that include a
+tombstone's hybrid time, where its tied write is shadowed.
 """
 
 import numpy as np
@@ -24,6 +29,7 @@ from yugabyte_db_tpu.ops import agg_fold as j_agg_fold
 from yugabyte_db_tpu.ops import scan as j_scan
 from yugabyte_db_tpu.ops import seg_fold as j_seg_fold
 import yugabyte_db_tpu_torch.storage as T
+from yugabyte_db_tpu_torch import workload
 from yugabyte_db_tpu_torch.ops import agg_fold, flat_agg, flat_fold
 from yugabyte_db_tpu_torch.ops import mvcc_resolve
 from yugabyte_db_tpu_torch.ops import scan as t_scan
@@ -65,11 +71,19 @@ def test_view_folds_to_jax_seg_fold(run, read):
     read_ht = {"ht/3": run["max_ht"] // 3, "ht/2": run["max_ht"] // 2,
                "ht": run["max_ht"], "MAX_HT": MAX_HT}[read]
     pred, lit = pred_of(run)
-    total = run["crun"].total_rows()
+    assert_view_folds_to_jax(
+        run["jax_arrays"], sig_of(j_scan, run, [pred]),
+        sig_of(t_scan, run, [pred], flat=True), lambda: view_at(run, read_ht),
+        run["kinds"], pred, lit, read_ht, run["crun"].total_rows())
+
+
+def assert_view_folds_to_jax(jax_arrays, jsig, tsig, make_view, kinds, pred,
+                             lit, read_ht, total):
+    """The view (``make_view()``, resolved on CPU tensors) folded by
+    ``flat_fold`` and by K1's plain version finalizes to what
+    ``compiled_seg_aggregate`` gives on the run."""
     args = (0, total, *read_planes(P, read_ht), (lit,))
-    jsig = sig_of(j_scan, run, [pred])
-    ji, jf = j_seg_fold.compiled_seg_aggregate(jsig)(run["jax_arrays"],
-                                                      *args)
+    ji, jf = j_seg_fold.compiled_seg_aggregate(jsig)(jax_arrays, *args)
     acc, want_scanned = j_agg_fold.unpack(jsig.aggs, np.asarray(ji),
                                           np.asarray(jf))
     want = [j_agg_fold.finalize(ag, a, ag.fn)
@@ -77,10 +91,9 @@ def test_view_folds_to_jax_seg_fold(run, read):
     assert want_scanned > 0
 
     launches = mvcc_resolve.resolve_view.launches
-    view = view_at(run, read_ht)
+    view = make_view()
     assert mvcc_resolve.resolve_view.launches == launches  # plain version
     # flat_fold over the view: every aggregate, floats included.
-    tsig = sig_of(t_scan, run, [pred], flat=True)
     ti, tf = flat_fold.compiled_flat_aggregate(tsig)(view, *args)
     tacc, scanned = agg_fold.unpack(tsig.aggs, np.asarray(ti),
                                     np.asarray(tf))
@@ -94,8 +107,7 @@ def test_view_folds_to_jax_seg_fold(run, read):
     # K1's arithmetic over the view: the integer aggregates.
     k1 = [i for i, ag in enumerate(tsig.aggs) if ag.kind != "f64"]
     plan = flat_agg.make_plan(tuple(tsig.aggs[i] for i in k1),
-                              (t_scan.PredSig(*pred),),
-                              tuple(run["kinds"]))
+                              (t_scan.PredSig(*pred),), tuple(kinds))
     params = torch.tensor([plan.param_row(0, total, read_planes(P, read_ht),
                                           (lit,))], dtype=torch.int32)
     folded = flat_agg.fold_partials(plan, flat_agg.flat_aggregate_plain(
@@ -210,3 +222,142 @@ def test_view_bytes_charges_each_plane_where_the_resolve_needs_it(run):
                   for cid, w in widths.items())
     assert setters > 0
     assert mvcc_resolve.view_bytes(arrays, *planes) > nothing + setters
+
+
+# -- long key groups ---------------------------------------------------------
+
+LONG_BLOCKS = 16  # a multiple of K
+
+
+@pytest.fixture(scope="module", params=[64, 48], ids=["R64", "R48"])
+def long_run(request):
+    R_ = request.param
+    planes = workload.long_group_planes(LONG_BLOCKS * R_, R_, seed=R_)
+    schema = workload.make_schema()
+    port = DeviceRun.from_reference_planes(planes, R_, "cpu")
+    return {"R": R_, "planes": planes, "jax_arrays": jax_arrays(planes),
+            "port": port, "const": mvcc_resolve.constant_planes(
+                port.B, R_, "cpu"),
+            "cid": {c.name: c.col_id for c in schema.value_columns},
+            "kinds": {c.col_id: dtype_kind(c.dtype)
+                      for c in schema.value_columns}}
+
+
+def long_groups(planes):
+    """(first row, length) of every key group of valid rows, flattened."""
+    valid = planes["valid"].reshape(-1)
+    R_ = planes["valid"].shape[1]
+    starts = planes["group_start"].reshape(-1).copy()
+    starts[::R_] = True  # a group never crosses a block
+    first = np.flatnonzero(starts & valid)
+    ends = np.append(np.flatnonzero(starts), valid.size)
+    return first, ends[np.searchsorted(ends, first, side="right")] - first
+
+
+def long_hts(planes):
+    return P.planes_to_u64(planes["ht_hi"], planes["ht_lo"]).astype(
+        np.int64).reshape(-1)
+
+
+def tie_rows(planes):
+    """Tombstones whose previous row, in the same group, is a write at the
+    same hybrid time."""
+    tomb = planes["tomb"].reshape(-1)
+    gs = planes["group_start"].reshape(-1)
+    ht = long_hts(planes)
+    t = np.flatnonzero(tomb[1:] & ~gs[1:]) + 1
+    return t[(ht[t - 1] == ht[t]) & ~tomb[t - 1]]
+
+
+def test_long_group_planes_keep_the_layout(long_run):
+    planes, R_ = long_run["planes"], long_run["R"]
+    B = LONG_BLOCKS
+    valid = planes["valid"]
+    assert valid.shape == (B, R_) and planes["group_start"][:, 0].all()
+    # Padding only at a block's end, each padding row its own group with
+    # zero planes and no expiry.
+    assert not (~valid[:, :-1] & valid[:, 1:]).any()
+    pad = ~valid
+    assert planes["group_start"][pad].all()
+    assert not (planes["tomb"] | planes["live"])[pad].any()
+    assert not (planes["ht_hi"][pad] | planes["ht_lo"][pad]).any()
+    exp_hi, exp_lo = P.scalar_ht_planes(MAX_HT)
+    assert (planes["exp_hi"][pad] == exp_hi).all()
+    assert (planes["exp_lo"][pad] == exp_lo).all()
+    for c in planes["cols"].values():
+        assert not (c["set"] & ~valid).any() and not (c["set"] &
+                                                      planes["tomb"]).any()
+        assert not (c["isnull"] & ~c["set"]).any()
+        assert not c["cmp"][~c["set"] | c["isnull"]].any()
+        assert not c["arith"][~c["set"] | c["isnull"]].any()
+    assert any(c["isnull"].any() for c in planes["cols"].values())
+    # Group lengths from the drawn set, groups past one warp step, one
+    # filling a block; hybrid times never increase within a group.
+    first, length = long_groups(planes)
+    allowed = {n for n in workload.LONG_GROUP_LENGTHS + (R_,) if n <= R_}
+    assert set(length.tolist()) <= allowed
+    assert (length > 32).any() and (length == R_).any()
+    assert length.sum() == valid.sum()
+    ht = long_hts(planes)
+    same_group = ~planes["group_start"].reshape(-1)[1:] & \
+        valid.reshape(-1)[1:]
+    assert (ht[1:][same_group] <= ht[:-1][same_group]).all()
+    # Tombstones, same-hybrid-time writes before them, and TTLs.
+    share = planes["tomb"].sum() / valid.sum()
+    assert 0.005 < share < 0.05
+    assert len(tie_rows(planes)) > 0
+    assert (planes["exp_hi"][valid] != exp_hi).any()
+
+
+def long_read(long_run, which: str) -> int:
+    planes = long_run["planes"]
+    ht = long_hts(planes)[planes["valid"].reshape(-1)]
+    tie = int(long_hts(planes)[tie_rows(planes)[0]])
+    return {"newest": int(ht.max()) + 1, "mid": int(np.median(ht)),
+            "tie": tie, "before_tie": tie - 1}[which]
+
+
+@pytest.mark.parametrize("read", ["newest", "mid", "tie", "before_tie"])
+def test_long_groups_fold_to_jax_seg_fold(long_run, read):
+    R_, kinds, cid = long_run["R"], long_run["kinds"], long_run["cid"]
+    read_ht = long_read(long_run, read)
+    pred, lit = (cid["d"], "i32", ">="), np.int32(-300_000)
+
+    def sig(scan, flat):
+        return scan.ScanSig(
+            B=LONG_BLOCKS, R=R_, K=K,
+            cols=tuple(scan.ColSig(c, k) for c, k in kinds.items()),
+            preds=(scan.PredSig(*pred),),
+            aggs=tuple(scan.AggSig(*a) for a in (
+                ("count", None, None), ("count", cid["d"], "i32"),
+                ("sum", cid["a"], "i64"), ("sum", cid["d"], "i32"),
+                ("min", cid["a"], "i64"), ("max", cid["a"], "i64"),
+                ("min", cid["d"], "i32"), ("max", cid["d"], "i32"),
+                ("sum", cid["c"], "f64"), ("min", cid["c"], "f64"),
+                ("max", cid["c"], "f64"))),
+            apply_preds=True, flat=flat)
+
+    arrays = long_run["port"].arrays
+    assert_view_folds_to_jax(
+        long_run["jax_arrays"], sig(j_scan, False), sig(t_scan, True),
+        lambda: mvcc_resolve.resolve_view(
+            arrays, *read_planes(P, read_ht), long_run["const"]),
+        kinds, pred, lit, read_ht, LONG_BLOCKS * R_)
+
+
+@pytest.mark.parametrize("R", [1, 33, 48, 64, 2048, 2049, 4096])
+def test_launch_geometry_tiles_whole_blocks(R):
+    """Each block of the kernel stages whole blocks of R rows (so no key
+    group crosses a tile) where R fits a tile, the tiles cover every row,
+    and the shared memory of a block fits an SM at every column count."""
+    n_rows = 7 * R
+    for n_cols in (0, 1, 3, mvcc_resolve.MAX_COLS):
+        geo = mvcc_resolve.launch_geometry(n_rows, R, n_cols)
+        tile = geo["tile_rows"]
+        assert 0 < tile <= mvcc_resolve.TILE_MAX
+        if R <= mvcc_resolve.TILE_MAX:
+            assert tile % R == 0 and tile + R > mvcc_resolve.TILE_MAX
+        assert (geo["blocks"] - 1) * tile < n_rows <= geo["blocks"] * tile
+        assert geo["smem_bytes"] <= mvcc_resolve.SMEM_PER_SM
+        # Each column's set flags (a byte a row) and setters (two).
+        assert geo["dynamic_smem_bytes"] >= 3 * n_cols * tile

@@ -43,6 +43,12 @@ from yugabyte_db_tpu_torch.utils import planes as PL
 
 MAX_COLS = 16   # value columns one launch resolves; csrc/mvcc_resolve.cu
 MAX_HT = (1 << 63) - 1  # no expiry (storage.row_version.MAX_HT)
+TILE_MAX = 2048  # rows a block of the kernel stages (kTileMax)
+THREADS = 256  # threads a block (kThreads)
+# A block's static shared memory: 21 bytes a row of the tile (4 flag
+# bytes, 16 bytes of hybrid time and expiry, the answers).
+STATIC_SMEM = 21 * TILE_MAX
+SMEM_PER_SM = 228 * 1024  # shared memory an H100 SM holds
 # Input planes of the run, in the kernel's order; per column set, isnull,
 # cmp, arith follow.
 _RUN_PLANES = ("valid", "group_start", "tomb", "live", "ht_hi", "ht_lo",
@@ -62,6 +68,20 @@ def constant_planes(B: int, R: int, device) -> dict:
             "ht_hi": full(ht_hi, torch.int32), "ht_lo": full(ht_lo, torch.int32),
             "exp_hi": full(exp_hi, torch.int32),
             "exp_lo": full(exp_lo, torch.int32)}
+
+
+def launch_geometry(n_rows: int, R: int, n_cols: int) -> dict:
+    """The kernel's launch shape, as ``csrc/mvcc_resolve.cu`` computes it:
+    each block stages a tile of the most whole blocks of R rows that fit
+    in TILE_MAX rows (TILE_MAX rows of a longer block), so that no group
+    crosses a tile unless R > TILE_MAX; ``smem_bytes``: the block's shared
+    memory (the static planes and the dynamic part: each column's set
+    flags, then its setters, two bytes a row)."""
+    tile = TILE_MAX // R * R if R <= TILE_MAX else TILE_MAX
+    dyn = -(-tile * n_cols // 16) * 16 + 2 * n_cols * tile
+    return {"tile_rows": tile, "blocks": -(-n_rows // tile),
+            "threads": THREADS, "dynamic_smem_bytes": dyn,
+            "smem_bytes": STATIC_SMEM + dyn}
 
 
 def _check(run: dict, const: dict) -> tuple:
@@ -154,7 +174,12 @@ resolve_view.launches = 0
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
-    lib = native.load_library("mvcc_resolve")
+    return bind(native.load_library("mvcc_resolve"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the kernel's C
+    interface set."""
     lib.mvcc_resolve_launch.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_longlong,

@@ -23,6 +23,7 @@ from yugabyte_db_tpu_torch.models.schema import (ColumnKind, ColumnSchema,
 from yugabyte_db_tpu_torch.storage.row_version import MAX_HT, RowVersion
 from yugabyte_db_tpu_torch.storage.scan_spec import (AggSpec, Predicate,
                                                      ScanSpec)
+from yugabyte_db_tpu_torch.utils import planes as P
 
 
 def make_schema() -> Schema:
@@ -138,6 +139,110 @@ def make_update_rows(schema: Schema, rows: list, max_ht: int,
                               expire_ht=expire))
         versions[k] += 1
     return out, ht
+
+
+LONG_GROUP_LENGTHS = (1, 2, 31, 32, 33, 256)  # and R: a key filling a block
+LONG_GROUP_HT0 = 1 << 40  # hybrid times of long_group_planes start here
+
+
+def long_group_planes(n_rows: int, R: int, seed: int = 7) -> dict:
+    """Multi-version planes of the bench table's value columns in the
+    ``DeviceRun.arrays`` layout (numpy, [n_rows // R, R]), laid out for
+    the resolve's hard cases rather than drawn from traffic: group lengths
+    drawn evenly from ``LONG_GROUP_LENGTHS`` and R (those up to R), so that
+    groups straddle 32-row warp steps and fill whole blocks. Groups are
+    packed into blocks as ``storage/columnar.py`` packs them: a group that
+    does not fit in the rest of a block starts the next one, and the rest
+    is padding (valid False, its own group, hybrid time 0, expiry MAX_HT,
+    no flags). Hybrid times do not increase within a group (newest first,
+    from ``LONG_GROUP_HT0`` up); about 2% of the versions are tombstones,
+    a third of those (where the group has a row before them) with a write
+    at the same hybrid time sorted before them: a full-row write with the
+    liveness marker (the same-batch DELETE + INSERT). Of the other writes
+    about 30% carry the liveness marker, 3% a TTL that may expire inside
+    the history, and each column is set on 40% of them; 2% of the set
+    values are NULL."""
+    if R < 1 or n_rows % R:
+        raise ValueError(f"{n_rows} rows are not whole blocks of {R}")
+    rng = np.random.default_rng(seed)
+    choices = np.array(sorted({n for n in LONG_GROUP_LENGTHS + (R,)
+                               if n <= R}))
+    draws = rng.choice(choices, size=max(n_rows, 1)).tolist()
+    starts, lens = [], []
+    row, end = 0, R
+    for n in draws:
+        if row + n > end:  # pad the block's rest; the group opens the next
+            row, end = end, end + R
+        if row >= n_rows:
+            break
+        starts.append(row)
+        lens.append(n)
+        row += n
+        if row == end:
+            end += R
+    starts, lens = np.array(starts, np.int64), np.array(lens, np.int64)
+    total = int(lens.sum())
+    first = np.repeat(np.cumsum(lens) - lens, lens)  # group's first version
+    pos = np.arange(total) - first  # version's place in its group
+    idx = np.repeat(starts, lens) + pos  # its row
+
+    history = 4 * n_rows  # hybrid-time span of the tops of the groups
+    top = LONG_GROUP_HT0 + rng.integers(0, history, len(lens))
+    steps = rng.integers(1, 4, total)
+    tomb = rng.random(total) < 0.02
+    tie = tomb & (pos > 0) & (rng.random(total) < 1 / 3)
+    steps[pos == 0] = 0
+    steps[tie] = 0  # the write before it shares its hybrid time
+    tied = np.zeros(total, bool)  # the write before a tied tombstone
+    tied[np.flatnonzero(tie) - 1] = True
+    tomb &= ~tied
+    cs = np.cumsum(steps)
+    ht = np.repeat(top, lens) - (cs - cs[first])
+    live = tied | (~tomb & (rng.random(total) < 0.3))
+    exp = np.full(total, MAX_HT, np.int64)
+    ttl = ~tomb & (rng.random(total) < 0.03)
+    exp[ttl] = ht[ttl] + rng.integers(1, history // 2 + 2, int(ttl.sum()))
+
+    def plane(values, fill, dtype):
+        out = np.full(n_rows, fill, dtype)
+        out[idx] = values
+        return out.reshape(n_rows // R, R)
+
+    ht_hi, ht_lo = P.ht_to_planes(ht)
+    exp_hi, exp_lo = P.ht_to_planes(exp)
+    pad_exp_hi, pad_exp_lo = P.scalar_ht_planes(MAX_HT)
+    planes = {"valid": plane(True, False, bool),
+              "group_start": plane(pos == 0, True, bool),
+              "tomb": plane(tomb, False, bool),
+              "live": plane(live, False, bool),
+              "ht_hi": plane(ht_hi, 0, np.int32),
+              "ht_lo": plane(ht_lo, 0, np.int32),
+              "exp_hi": plane(exp_hi, pad_exp_hi, np.int32),
+              "exp_lo": plane(exp_lo, pad_exp_lo, np.int32), "cols": {}}
+    for col in make_schema().value_columns:
+        set_ = tied | (~tomb & (rng.random(total) < 0.4))
+        keep = set_ & (rng.random(total) >= 0.02)  # set and not NULL
+        if col.dtype == DataType.INT64:
+            values = rng.integers(-10**12, 10**12, total)
+            hi, lo = P.i64_to_ordered_planes(values)
+            cmp = np.stack([hi, lo], axis=-1)
+        elif col.dtype == DataType.DOUBLE:
+            values = rng.uniform(-1e6, 1e6, total)
+            hi, lo = P.f64_to_ordered_planes(values)
+            cmp = np.stack([hi, lo], axis=-1)
+        else:
+            values = rng.integers(-10**6, 10**6, total)
+            cmp = values[:, None]
+        cmp = np.where(keep[:, None], cmp, 0).astype(np.int32)
+        full = np.zeros((n_rows, cmp.shape[1]), np.int32)
+        full[idx] = cmp
+        planes["cols"][col.col_id] = {
+            "set": plane(set_, False, bool),
+            "isnull": plane(set_ & ~keep, False, bool),
+            "cmp": full.reshape(n_rows // R, R, cmp.shape[1]),
+            "arith": plane(np.where(keep, values, 0).astype(np.float32), 0,
+                           np.float32)}
+    return planes
 
 
 def headline_spec(read_ht: int, lo: int = -500_000) -> ScanSpec:
