@@ -53,7 +53,23 @@ line is printed:
    (``storage/merge.py``), and both kernels' launch counts must have
    advanced. ``mvcc_trace`` profiles 4 batches that each resolve a view;
    K1 is held against its plain version on the newest view;
-5. one JSON line listing every kernel of the path, then as the last line
+5. overlay: post-write scans through the delta overlay, on both engines
+   above. The flat one takes 4 waves of ``workload.make_wave_rows``
+   (20,000 uniform updates of d each, ``bench.py:740
+   bench_multisource``'s shape), flushed after the first 3 (4 runs and a
+   live memtable); the multi-version one takes a live wave of 20,000
+   ``make_update_rows`` updates. Every result (between and after the
+   waves, floats of c too) must equal an exact oracle, K1 and the resolve
+   must have launched on the masked primaries and no spec may have been
+   served by the memtable-only host fold. Prints the first scan, the
+   steady scan, throughput, the delta apply after a fifth wave, the K13
+   scatter and its bound, K1 and the resolve on the masked planes held
+   exactly against their plain versions (and the resolve on the
+   long-group planes with 20% of their groups cleared, and byte-exact on
+   cleared edges at R = 48, 2048 and 4096), the host fold per miss and
+   hit, and an 8-spec batch of new literals traced (host plan, host
+   fold, device, finish);
+6. one JSON line listing every kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a result when no CUDA device is visible.
@@ -61,8 +77,9 @@ Exits 2 without a result when no CUDA device is visible.
 ``python3 chip_smoke.py --resolve-ab OTHER.cu[,OTHER2.cu...]`` builds the
 kernels, then times this tree's resolve kernel against each other source
 of it (the same C interface) in turns on one card, on the mvcc run and
-the long-group planes, each held byte for byte against the plain version
-(``resolve_ab`` lines), and exits.
+the long-group planes (also with 20% of their groups cleared), each held
+byte for byte against the plain version (``resolve_ab`` lines), and
+exits.
 """
 
 from __future__ import annotations
@@ -73,6 +90,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -650,25 +668,40 @@ class Oracle:
                 float(self.max_c[i]), float(self.abs_c[i]))
 
 
-def engine_phase(device, bw: float, rate: float) -> dict:
-    import torch
-
+def flat_engine(device) -> SimpleNamespace:
+    """The bench table at ENGINE_KEYS keys, applied and flushed into one
+    flat run of a ``gpu`` engine: schema, rows, max_ht, engine, generate
+    and apply+flush seconds."""
     from yugabyte_db_tpu_torch import workload
-    from yugabyte_db_tpu_torch.ops import flat_agg
-    from yugabyte_db_tpu_torch.storage import AggSpec, Predicate, ScanSpec
     from yugabyte_db_tpu_torch.storage import make_engine
 
     t0 = time.perf_counter()
     schema = workload.make_schema()
     rows, max_ht = workload.make_rows(schema, ENGINE_KEYS)
-    oracle = Oracle.of_rows(schema, rows)
     gen_s = time.perf_counter() - t0
     eng = make_engine("gpu", schema, {"rows_per_block": 2048,
                                       "device": device})
     t0 = time.perf_counter()
     eng.apply(rows)
     eng.flush()
-    load_s = time.perf_counter() - t0
+    return SimpleNamespace(schema=schema, rows=rows, max_ht=max_ht, eng=eng,
+                           gen_s=gen_s, load_s=time.perf_counter() - t0)
+
+
+def engine_phase(device, bw: float, rate: float) -> tuple:
+    """(measurements, the engine's ``flat_engine`` namespace)."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_agg
+    from yugabyte_db_tpu_torch.storage import AggSpec, Predicate, ScanSpec
+
+    ctx = flat_engine(device)
+    schema, rows, max_ht, eng = ctx.schema, ctx.rows, ctx.max_ht, ctx.eng
+    t0 = time.perf_counter()
+    oracle = Oracle.of_rows(schema, rows)
+    gen_s = ctx.gen_s + time.perf_counter() - t0
+    load_s = ctx.load_s
     versions = eng.runs[0].crun.num_versions
     read = max_ht + 1
     print(f"engine phase: {versions} versions generated in {gen_s:.1f} s, "
@@ -754,7 +787,7 @@ def engine_phase(device, bw: float, rate: float) -> dict:
     table = plan.plane_table(eng.runs[0].dev.arrays)
     eng_row["kernel"] = measure(plan, table, params, device, bw, rate)
     print("engine_kernel " + json.dumps(eng_row["kernel"]))
-    return eng_row
+    return eng_row, ctx
 
 
 def trace_batches(eng, batches) -> dict:
@@ -1030,7 +1063,8 @@ def mvcc_engine(device) -> tuple:
 def resolve_ab(device, bw: float, others: list) -> None:
     """This tree's resolve kernel (A) against other sources of it (B1, B2,
     ..., each with the same C interface), on one card: the mvcc run at its
-    newest and mid read points and the long-group planes, each kernel held
+    newest and mid read points and the long-group planes (as they are and
+    with CLEARED_SHARE of their groups cleared), each kernel held
     byte for byte against the plain version, then timed in turns A B1 ..
     Bn Bn .. B1 A (``cuda_ms``)."""
     import ctypes
@@ -1067,10 +1101,13 @@ def resolve_ab(device, bw: float, others: list) -> None:
     valid = planes["valid"]
     long_read = int(P.planes_to_u64(planes["ht_hi"][valid],
                                     planes["ht_lo"][valid]).max()) + 1
+    cleared = DeviceRun.from_reference_planes(
+        clear_groups(planes, CLEARED_SHARE)[0], LONG_R, device)
+    long_const = mvcc_resolve.constant_planes(long_run.B, LONG_R, device)
     cases = {"newest": (trun.dev.arrays, trun._const, max_ht + 1),
              "mid": (trun.dev.arrays, trun._const, (load_ht + max_ht) // 2),
-             "long": (long_run.arrays, mvcc_resolve.constant_planes(
-                 long_run.B, LONG_R, device), long_read)}
+             "long": (long_run.arrays, long_const, long_read),
+             "long_cleared": (cleared.arrays, long_const, long_read)}
     order = ["A", *others, *others[::-1], "A"]
     try:
         for label, (arrays, const, rd) in cases.items():
@@ -1096,12 +1133,14 @@ def resolve_ab(device, bw: float, others: list) -> None:
         mvcc_resolve._library = own
 
 
-def mvcc_phase(device, bw: float, rate: float) -> dict:
+def mvcc_phase(device, bw: float, rate: float) -> tuple:
     """A multi-version history over the bench table: the resolve
     kernel timed and checked at two read points and on the long-group
     planes (with its edges), then the engine's
     multi-version routes (resolve, then K1 or the plain flat fold)
-    against an exact oracle over the history."""
+    against an exact oracle over the history. Returns (measurements, a
+    namespace of the engine, its history and the newest read point's
+    oracle)."""
     import torch
 
     from yugabyte_db_tpu_torch import workload
@@ -1271,7 +1310,400 @@ def mvcc_phase(device, bw: float, rate: float) -> dict:
     row["kernel"] = measure(plan, table, params, device, bw, rate)
     print("mvcc_kernel " + json.dumps(row["kernel"]))
     row["resolve"] = resolve
+    return row, SimpleNamespace(schema=schema, rows=rows, updates=updates,
+                                max_ht=max_ht, eng=eng, history=history,
+                                before=want)
+
+
+# -- phase 5: post-write scans through the delta overlay ---------------------
+
+WAVES = 4  # update waves on the flat primary, flushed between the first 3
+OVERLAY_BATCH = 8  # specs of the batch that misses the host-partial cache
+CLEARED_SHARE = 0.2  # key groups cleared from the long-group planes
+
+
+def clear_groups(planes: dict, share: float, seed: int = 13) -> tuple:
+    """(a copy of ``planes``, numpy ``DeviceRun.arrays`` layout, with the
+    valid flags of about ``share`` of its key groups cleared, every
+    version of each, as the overlay clears its dirty keys; groups cleared;
+    of them, groups that fill a whole block)."""
+    valid = planes["valid"].reshape(-1)
+    R = planes["valid"].shape[1]
+    starts = planes["group_start"].reshape(-1).copy()
+    starts[::R] = True
+    first = np.flatnonzero(starts & valid)
+    ends = np.append(np.flatnonzero(starts), valid.size)
+    lengths = ends[np.searchsorted(ends, first, side="right")] - first
+    pick = np.random.default_rng(seed).random(first.size) < share
+    offsets = np.cumsum(lengths[pick]) - lengths[pick]
+    rows = (np.repeat(first[pick] - offsets, lengths[pick])
+            + np.arange(int(lengths[pick].sum())))
+    out = dict(planes, valid=valid.copy())
+    out["valid"][rows] = False
+    out["valid"] = out["valid"].reshape(planes["valid"].shape)
+    return out, int(pick.sum()), int((pick & (lengths == R)).sum())
+
+
+def scatter_ms(valid, idx, bw: float) -> dict:
+    """K13 (``gpu_engine.scatter_invalid``, a torch op) event-timed on the
+    masked primary's plane and dirty rows, and its bytes bound: the plane
+    read and its copy written once, the row indices read once."""
+    from yugabyte_db_tpu_torch.storage import gpu_engine
+
+    ms = cuda_ms(lambda: gpu_engine.scatter_invalid(valid, idx),
+                 KERNEL_REPS)
+    nbytes = 2 * valid.numel() + idx.nbytes
+    return {"rows": valid.numel(), "cleared": int(idx.size), "ms": ms,
+            "bytes": nbytes, "bound_ms": nbytes / bw * 1e3,
+            "bound_by": "bytes"}
+
+
+def host_fold_ms(eng, spec_of) -> dict:
+    """The dirty keys' host fold (``_overlay_host_partial``) on the engine's
+    overlay state: a miss (a literal not folded before) and a hit (the
+    same spec again), medians of 3, in ms."""
+    ov = eng._overlay(eng.memtable)
+    miss, hit = [], []
+    for k in range(3):
+        spec = spec_of(-123_457 - 1_001 * k)
+        for out in (miss, hit):
+            t = time.perf_counter()
+            eng._overlay_host_partial(ov, spec)
+            out.append((time.perf_counter() - t) * 1e3)
+    return {"dirty_keys": len(ov.rows), "miss_ms": statistics.median(miss),
+            "hit_ms": statistics.median(hit)}
+
+
+def timed_overlay_batch(eng, specs) -> dict:
+    """One ``scan_batch_async`` batch traced (``trace_batches``), with the
+    time of its host folds split out of its planning: host planning and
+    launching, host fold, device busy, finish (ms)."""
+    folds = []
+    partial = eng._overlay_host_partial
+
+    def timed(ov, spec):
+        t = time.perf_counter()
+        out = partial(ov, spec)
+        folds.append(time.perf_counter() - t)
+        return out
+
+    eng._overlay_host_partial = timed
+    try:
+        tr = trace_batches(eng, [specs])
+    finally:
+        del eng._overlay_host_partial
+    fold_ms = sum(folds) * 1e3
+    return dict(tr, specs=len(specs), host_folds=len(folds),
+                host_fold_ms=fold_ms,
+                host_plan_launch_ms=tr["host_plan_ms_per_batch"] - fold_ms)
+
+
+def check_overlay_scan(eng, spec, want, label: str) -> None:
+    prep = eng._plan_scan(spec)
+    check(prep.overlay is not None, f"{label}: not an overlay plan")
+    got = eng.scan(spec).rows[0]
+    check(got == want, f"{label}: {got} != oracle {want}")
+
+
+def check_c_aggs(eng, read: int, oracle, label: str) -> None:
+    from yugabyte_db_tpu_torch.storage import AggSpec, Predicate, ScanSpec
+
+    fspec = ScanSpec(read_ht=read, predicates=[Predicate("d", ">=", 0)],
+                     aggregates=[AggSpec("sum", "c"), AggSpec("min", "c"),
+                                 AggSpec("max", "c")])
+    fs, fmin, fmax = eng.scan(fspec).rows[0]
+    want_s, want_min, want_max, abs_sum = oracle.c_aggs(0)
+    # f32 sums over the arith plane: error within 2^-17 of sum(|c|).
+    check(abs(fs - want_s) <= abs_sum * 2.0 ** -17,
+          f"{label} sum(c) {fs} vs {want_s}")
+    check((fmin, fmax) == (want_min, want_max), f"{label} min/max(c)")
+
+
+def overlay_flat(ctx, device, bw: float, rate: float) -> dict:
+    """``bench_multisource``'s shape on the flat primary: WAVES waves of
+    2% of the keys, flushed between the first three (4 runs and a live
+    memtable), each result held against an exact oracle; then the
+    latencies, a fifth memtable-only wave and its delta, the scatter, K1
+    on the masked primary and the host fold, timed."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_agg
+
+    eng, schema, rows = ctx.eng, ctx.schema, ctx.rows
+    per_wave = ENGINE_KEYS // 50
+    t0 = time.perf_counter()
+    waves, ht, ends = [], ctx.max_ht, []
+    for w in range(WAVES + 1):
+        wave, ht = workload.make_wave_rows(schema, ENGINE_KEYS, per_wave, ht,
+                                           seed=21 + w)
+        waves.append(wave)
+        ends.append(ht)
+    updates = [r for wave in waves[:WAVES] for r in wave]
+    history = HistoryOracle(schema, rows, updates)
+    newest, between, before = ends[WAVES - 1] + 1, ends[1] + 1, \
+        ctx.max_ht + 1
+    oracles = {rd: history.at(rd) for rd in (newest, between, before)}
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for w in range(WAVES):
+        eng.apply(waves[w])
+        if w < WAVES - 1:
+            eng.flush()
+    apply_s = time.perf_counter() - t0
+    versions = (sum(t.crun.num_versions for t in eng.runs)
+                + eng.memtable.num_versions)
+    setup = {"keys": ENGINE_KEYS, "waves": WAVES, "per_wave": per_wave,
+             "runs": len(eng.runs), "memtable_versions":
+             eng.memtable.num_versions, "versions": versions,
+             "generate_and_oracle_s": gen_s, "apply_flush_s": apply_s}
+
+    def spec(read, lo):
+        return workload.headline_spec(read, lo)
+
+    # The overlay path on the flat primary, counted.
+    flat_agg.flat_aggregate.launches = 0
+    memtable_scans = eng.memtable_scans
+    t = time.perf_counter()
+    got = eng.scan(spec(newest, -500_000)).rows[0]
+    first_ms = (time.perf_counter() - t) * 1e3
+    check(got == oracles[newest].headline(-500_000),
+          f"flat overlay first scan {got} != "
+          f"{oracles[newest].headline(-500_000)}")
+    ov = eng._overlay(eng.memtable)
+    check(ov is not None and eng._plan_scan(spec(newest, 0)).route ==
+          "kernel", "the flat overlay does not take K1")
+    lat = []
+    for _ in range(10):
+        t = time.perf_counter()
+        eng.scan(spec(newest, -500_000))
+        lat.append((time.perf_counter() - t) * 1e3)
+    for lo in (-900_000, 0, 400_000):
+        check_overlay_scan(eng, spec(newest, lo),
+                           oracles[newest].headline(lo), f"flat d >= {lo}")
+        check_overlay_scan(eng, spec(between, lo),
+                           oracles[between].headline(lo),
+                           f"flat between waves, d >= {lo}")
+    check_c_aggs(eng, newest, oracles[newest], "flat overlay")
+    batch = eng.scan_batch([spec(newest, -500_000 - 7 * i)
+                            for i in range(BATCH)])
+    for i, r in enumerate(batch):
+        want = oracles[newest].headline(-500_000 - 7 * i)
+        check(r.rows[0] == want, f"flat overlay batch {i}: {r.rows[0]}")
+    mixed = eng.scan_batch([spec(rd, 1) for rd in (between, newest,
+                                                   before)])
+    check([r.rows[0] for r in mixed] == [
+        oracles[rd].headline(1) for rd in (between, newest, before)],
+        "flat overlay batch at three read points")
+    launches = flat_agg.flat_aggregate.launches
+    check(launches > 0, "the flat overlay launched the flat_agg kernel 0 "
+                        "times")
+    check(eng.memtable_scans == memtable_scans,
+          "an overlay spec was served by the memtable-only host fold")
+
+    # Outside the counted run: a fifth wave, memtable only, and the delta
+    # apply alone (as bench_multisource isolates it).
+    eng.apply(waves[WAVES])
+    t = time.perf_counter()
+    ov5 = eng._overlay(eng.memtable)
+    delta_ms = (time.perf_counter() - t) * 1e3
+    check(ov5 is not ov and ov5.mem_count == eng.memtable.num_versions,
+          "the fifth wave did not advance the overlay incrementally")
+    newest5 = ends[WAVES] + 1
+    want5 = HistoryOracle(schema, rows, updates + waves[WAVES]).at(newest5)
+    check_overlay_scan(eng, spec(newest5, -500_000),
+                       want5.headline(-500_000), "flat after the fifth wave")
+    lits = [-400_000 + 97_531 * i for i in range(OVERLAY_BATCH)]
+    batch_trace = timed_overlay_batch(eng, [spec(newest5, lo)
+                                            for lo in lits])
+    fold = host_fold_ms(eng, lambda lo: spec(newest5, lo))
+
+    # K1 on the masked primary: the headline batch of 32 specs, timed and
+    # held against its plain version.
+    preps = [eng._plan_scan(spec(newest5, -500_000 - 7 * i))
+             for i in range(BATCH)]
+    p0 = preps[0]
+    plan = flat_agg.make_plan(p0.sig.aggs, p0.sig.preds,
+                              tuple(cs.col_id for cs in p0.sig.cols))
+    params = np.array([plan.param_row(p.row_lo, p.row_hi, p.read_planes,
+                                      p.lits) for p in preps], np.int32)
+    masked = p0.trun.dev.arrays
+    kernel = measure(plan, plan.plane_table(masked), params, device, bw,
+                     rate)
+    print("overlay_flat_kernel " + json.dumps(kernel))
+    scatter = scatter_ms(eng.runs[0].dev.arrays["valid"], ov5.idx, bw)
+    print("overlay_scatter " + json.dumps(scatter))
+    torch.cuda.synchronize()
+    steady = statistics.median(lat)
+    row = dict(setup, card=nvidia_smi(), first_scan_ms=first_ms,
+               steady_scan_ms=steady,
+               steady_scan_ms_each=lat,
+               rows_per_s=versions / (steady / 1e3),
+               dirty_keys=len(ov.rows), cleared_rows=int(ov.idx.size),
+               delta_apply_ms=delta_ms,
+               fifth_wave_dirty_keys=len(ov5.rows), host_fold=fold,
+               batch=batch_trace, launches=launches)
+    print("overlay_flat " + json.dumps(row))
+    row["kernel"], row["scatter"] = kernel, scatter
     return row
+
+
+def overlay_mvcc(ctx, device, bw: float, rate: float) -> dict:
+    """One wave of YCSB A's zipfian updates (``make_update_rows``, the
+    history's key popularity, so the hot keys' long groups go dirty) in
+    the memtable over the multi-version run: each result held against an
+    exact oracle, the resolve and K1 on the masked run held against their
+    plain versions and timed, and the resolve on the long-group planes
+    with CLEARED_SHARE of their groups cleared."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_agg, mvcc_resolve
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+    from yugabyte_db_tpu_torch.utils import planes as P
+
+    eng, schema = ctx.eng, ctx.schema
+    t0 = time.perf_counter()
+    wave, ht = workload.make_update_rows(schema, ctx.rows, ctx.max_ht,
+                                         MVCC_KEYS // 50)
+    newest, before = ht + 1, ctx.max_ht + 1
+    want = HistoryOracle(schema, ctx.rows, ctx.updates + wave).at(newest)
+    gen_s = time.perf_counter() - t0
+    eng.apply(wave)
+    trun = eng.runs[0]
+
+    def spec(read, lo):
+        return workload.headline_spec(read, lo)
+
+    # The overlay path on the multi-version primary, counted.
+    flat_agg.flat_aggregate.launches = 0
+    mvcc_resolve.resolve_view.launches = 0
+    memtable_scans = eng.memtable_scans
+    t = time.perf_counter()
+    got = eng.scan(spec(newest, -500_000)).rows[0]
+    first_ms = (time.perf_counter() - t) * 1e3
+    check(got == want.headline(-500_000),
+          f"mvcc overlay first scan {got} != {want.headline(-500_000)}")
+    ov = eng._overlay(eng.memtable)
+    check(eng._plan_scan(spec(newest, 0)).route == "mv_kernel",
+          "the multi-version overlay does not take K1 over a view")
+    lat = []
+    for _ in range(10):
+        t = time.perf_counter()
+        eng.scan(spec(newest, -500_000))
+        lat.append((time.perf_counter() - t) * 1e3)
+    for lo in (-900_000, 0, 400_000):
+        check_overlay_scan(eng, spec(newest, lo), want.headline(lo),
+                           f"mvcc overlay d >= {lo}")
+        check_overlay_scan(eng, spec(before, lo), ctx.before.headline(lo),
+                           f"mvcc overlay before the wave, d >= {lo}")
+    check_c_aggs(eng, newest, want, "mvcc overlay")
+    batch = eng.scan_batch([spec(newest, -500_000 - 7 * i)
+                            for i in range(BATCH)])
+    for i, r in enumerate(batch):
+        check(r.rows[0] == want.headline(-500_000 - 7 * i),
+              f"mvcc overlay batch {i}: {r.rows[0]}")
+    launches = {"flat_agg": flat_agg.flat_aggregate.launches,
+                "mvcc_resolve": mvcc_resolve.resolve_view.launches}
+    check(launches["mvcc_resolve"] > 0,
+          "the multi-version overlay launched the resolve 0 times")
+    check(launches["flat_agg"] > 0,
+          "the multi-version overlay launched the flat_agg kernel 0 times")
+    check(eng.memtable_scans == memtable_scans,
+          "an overlay spec was served by the memtable-only host fold")
+
+    # The resolve and K1 on the masked run, held and timed.
+    masked = ov.masked
+    hot = trun.crun.max_group_versions
+    hot_rows = [k for k, v in ov.rows if len(v) > 32]
+    resolve = {}
+    for label, rd in (("newest", newest), ("mid", (before + newest) // 2)):
+        resolve[label] = measure_resolve(masked.dev.arrays, masked._const,
+                                         rd, bw, rate)
+        print(f"overlay_resolve_{label} " + json.dumps(resolve[label]))
+    planes = workload.long_group_planes(LONG_ROWS, LONG_R, 7)
+    planes, cleared, whole = clear_groups(planes, CLEARED_SHARE)
+    check(whole > 0, "no whole-block group cleared")
+    long_run = DeviceRun.from_reference_planes(planes, LONG_R, device)
+    valid = planes["valid"]
+    long_read = int(P.planes_to_u64(planes["ht_hi"][valid],
+                                    planes["ht_lo"][valid]).max()) + 1
+    resolve["long"] = dict(measure_resolve(
+        long_run.arrays, mvcc_resolve.constant_planes(long_run.B, LONG_R,
+                                                      device),
+        long_read, bw, rate), groups_cleared=cleared,
+        whole_block_groups_cleared=whole)
+    print("overlay_resolve_long " + json.dumps(resolve["long"]))
+    del long_run, planes
+    # Byte-exact, untimed: the edges with groups cleared, and R = 4096,
+    # where a group of R versions runs past the kernel's tile.
+    for label, n_rows, R in RESOLVE_EDGES + (("R4096", 4096 * 128, 4096),):
+        planes, cleared, whole = clear_groups(
+            workload.long_group_planes(n_rows, R, 8), CLEARED_SHARE)
+        arrays = DeviceRun.from_reference_planes(planes, R, device).arrays
+        const = mvcc_resolve.constant_planes(n_rows // R, R, device)
+        valid = planes["valid"]
+        ht = P.planes_to_u64(planes["ht_hi"][valid],
+                             planes["ht_lo"][valid]).astype(np.int64)
+        for rd in (int(ht.max()) + 1, int(np.median(ht))):
+            got = mvcc_resolve.resolve_view(arrays, *read_params(rd), const)
+            want = mvcc_resolve.resolve_view_plain(arrays, *read_params(rd),
+                                                   const)
+            check(view_diff(got, want) == 0,
+                  f"cleared resolve edge {label} at {rd}: kernel != plain "
+                  "version")
+        check(whole > 0, f"cleared edge {label}: no whole block cleared")
+        print(f"overlay_resolve_edge {label}: {n_rows} rows, R = {R}, "
+              f"{cleared} groups cleared, {whole} of them whole blocks, "
+              "newest and mid, exact")
+        del arrays, const, got, want
+    preps = [eng._plan_scan(spec(newest, -500_000 - 7 * i))
+             for i in range(BATCH)]
+    p0 = preps[0]
+    plan = flat_agg.make_plan(p0.sig.aggs, p0.sig.preds,
+                              tuple(cs.col_id for cs in p0.sig.cols))
+    params = np.array([plan.param_row(p.row_lo, p.row_hi, p.read_planes,
+                                      p.lits) for p in preps], np.int32)
+    kernel = measure(plan, plan.plane_table(p0.arrays()), params, device, bw,
+                     rate)
+    print("overlay_mvcc_kernel " + json.dumps(kernel))
+    scatter = scatter_ms(trun.dev.arrays["valid"], ov.idx, bw)
+    print("overlay_mvcc_scatter " + json.dumps(scatter))
+    fold = host_fold_ms(eng, lambda lo: spec(newest, lo))
+    torch.cuda.synchronize()
+    steady = statistics.median(lat)
+    versions = trun.crun.num_versions + eng.memtable.num_versions
+    row = {"card": nvidia_smi(), "wave": len(wave),
+           "generate_and_oracle_s": gen_s,
+           "max_group_versions": hot, "dirty_keys": len(ov.rows),
+           "dirty_keys_over_32_versions": len(hot_rows),
+           "cleared_rows": int(ov.idx.size), "versions": versions,
+           "first_scan_ms": first_ms, "steady_scan_ms": steady,
+           "steady_scan_ms_each": lat,
+           "rows_per_s": versions / (steady / 1e3), "host_fold": fold,
+           "launches": launches}
+    print("overlay_mvcc " + json.dumps(row))
+    row.update(kernel=kernel, scatter=scatter, resolve=resolve)
+    return row
+
+
+def overlay_phase(device, bw: float, rate: float, flat=None,
+                  mvcc=None) -> dict:
+    """Post-write scans on the flat primary (``flat``: ``flat_engine``'s
+    namespace, after the engine phase) and on the multi-version one
+    (``mvcc``: ``mvcc_phase``'s namespace); without them, both engines
+    are built here."""
+    if flat is None:
+        flat = flat_engine(device)
+    out = {"flat": overlay_flat(flat, device, bw, rate)}
+    if mvcc is None:
+        schema, rows, updates, _l, max_ht, eng, _g, _a = mvcc_engine(device)
+        history = HistoryOracle(schema, rows, updates)
+        mvcc = SimpleNamespace(schema=schema, rows=rows, updates=updates,
+                               max_ht=max_ht, eng=eng, history=history,
+                               before=history.at(max_ht + 1))
+    out["mvcc"] = overlay_mvcc(mvcc, device, bw, rate)
+    return out
 
 
 def main() -> int:
@@ -1302,34 +1734,55 @@ def main() -> int:
         resolve_ab(device, bw, sys.argv[2].split(","))
         return 0
     kernel_err = kernel_phase(device, bw, rate)
-    eng = engine_phase(device, bw, rate)
-    mv = mvcc_phase(device, bw, rate)
+    eng, flat = engine_phase(device, bw, rate)
+    mv, mvcc = mvcc_phase(device, bw, rate)
+    ov = overlay_phase(device, bw, rate, flat, mvcc)
+    del flat, mvcc
+    ovf, ovm = ov["flat"], ov["mvcc"]
     k = eng["kernel"]
-    err = max(k["max_abs_err"], kernel_err, mv["kernel"]["max_abs_err"])
+    err = max(k["max_abs_err"], kernel_err, mv["kernel"]["max_abs_err"],
+              ovf["kernel"]["max_abs_err"], ovm["kernel"]["max_abs_err"])
     res, mid, long = (mv["resolve"][k] for k in ("newest", "mid", "long"))
-    res_err = max(r["max_abs_err"] for r in mv["resolve"].values())
+    res_err = max(r["max_abs_err"] for r in list(mv["resolve"].values())
+                  + list(ovm["resolve"].values()))
+    overlay_k1 = ovf["launches"] + ovm["launches"]["flat_agg"]
     print(json.dumps({"kernels": [{
         "name": "flat_agg", "route": "cuda",
         "source": "yugabyte_db_tpu_torch/csrc/flat_agg.cu",
         "replaces": "yugabyte_db_tpu/ops/pallas_agg.py:76",
-        "launches": eng["launches"] + mv["launches"]["flat_agg"],
+        "launches": eng["launches"] + mv["launches"]["flat_agg"]
+        + overlay_k1,
         "launches_by_path": {"engine": eng["launches"],
-                             "mvcc": mv["launches"]["flat_agg"]},
+                             "mvcc": mv["launches"]["flat_agg"],
+                             "overlay": overlay_k1},
         "max_abs_err": err,
         "max_abs_diff": err, "ms": k["ms"], "plain_ms": k["plain_ms"],
         "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "overlay_flat_ms": ovf["kernel"]["ms"],
+        "overlay_flat_bound_ms": ovf["kernel"]["bound_ms"],
+        "overlay_mvcc_ms": ovm["kernel"]["ms"],
+        "overlay_mvcc_bound_ms": ovm["kernel"]["bound_ms"]}, {
         "name": "mvcc_resolve", "route": "cuda",
         "source": "yugabyte_db_tpu_torch/csrc/mvcc_resolve.cu",
         "replaces": "yugabyte_db_tpu/ops/seg_fold.py:104, "
                     "yugabyte_db_tpu/ops/lookback_fold.py:87",
-        "launches": mv["launches"]["mvcc_resolve"],
+        "launches": mv["launches"]["mvcc_resolve"]
+        + ovm["launches"]["mvcc_resolve"],
+        "launches_by_path": {"mvcc": mv["launches"]["mvcc_resolve"],
+                             "overlay": ovm["launches"]["mvcc_resolve"]},
         "max_abs_err": res_err, "max_abs_diff": res_err, "ms": res["ms"],
         "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
         "bound_by": res["bound_by"], "library_ms": None,
         "mid_ms": mid["ms"], "mid_bound_ms": mid["bound_ms"],
         "long_group_ms": long["ms"], "long_group_bound_ms": long["bound_ms"],
-        "long_group_plain_ms": long["plain_ms"]}]}))
+        "long_group_plain_ms": long["plain_ms"],
+        "overlay_newest_ms": ovm["resolve"]["newest"]["ms"],
+        "overlay_newest_bound_ms": ovm["resolve"]["newest"]["bound_ms"],
+        "overlay_mid_ms": ovm["resolve"]["mid"]["ms"],
+        "overlay_mid_bound_ms": ovm["resolve"]["mid"]["bound_ms"],
+        "overlay_long_group_ms": ovm["resolve"]["long"]["ms"],
+        "overlay_long_group_bound_ms": ovm["resolve"]["long"]["bound_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

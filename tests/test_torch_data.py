@@ -151,6 +151,62 @@ def multiversion_rows(side, schema, n: int = 900, nkeys: int = 120,
     return rows, ht
 
 
+def overlay_history(side, schema, flat: bool, seed: int = 7,
+                    nbase: int = 1500, nkeys: int = 250, waves: int = 3,
+                    per_wave: int = 120, hot: int = 0):
+    """(base rows, [rows of each wave], max_ht) of the bench table in
+    ``side``'s classes, in ``tests/test_overlay.py``'s ``_setup`` shape:
+    keys (k in ``nkeys`` names) x (r in 0..5). The base is the primary
+    run: on a flat one (``flat``) one full-row write to each of ``nbase``
+    keys; on a multi-version one ``nbase`` full-row writes to
+    (k_{i % nkeys}, i % 6), plus ``hot`` one-column updates of key
+    (k0000, 0), a group past 32 versions when ``hot`` > 31. Each wave
+    writes ``per_wave`` keys drawn from the whole key space (the first
+    write of the first wave goes to the hot key): 15% DELETEs, 15% NULL
+    writes of d, the rest a new d."""
+    RowVersion = side.row_version.RowVersion
+    cid = {c.name: c.col_id for c in schema.value_columns}
+
+    def enc(k, r):
+        return schema.encode_primary_key(
+            {"k": k, "r": r},
+            side.partition.compute_hash_code(schema, {"k": k}))
+
+    rnd = random.Random(seed)
+    ht = 0
+    base = []
+    for i in range(nbase):
+        ht += 1
+        r = (i // nkeys) % 6 if flat else i % 6
+        base.append(RowVersion(
+            enc(f"k{i % nkeys:04d}", r), ht=ht, liveness=True,
+            columns={cid["a"]: rnd.randrange(-10**12, 10**12),
+                     cid["c"]: rnd.uniform(-1e6, 1e6),
+                     cid["d"]: rnd.randrange(-10**6, 10**6)}))
+    for _ in range(hot):
+        ht += 1
+        base.append(RowVersion(enc("k0000", 0), ht=ht, columns={
+            cid["a"]: rnd.randrange(-10**12, 10**12)}))
+    out = []
+    for w in range(waves):
+        batch = []
+        for j in range(per_wave):
+            ht += 1
+            k = enc(f"k{rnd.randrange(nkeys):04d}", rnd.randrange(6))
+            if hot and w == j == 0:
+                k = enc("k0000", 0)
+            roll = rnd.random()
+            if roll < 0.15:
+                batch.append(RowVersion(k, ht=ht, tombstone=True))
+            elif roll < 0.3:
+                batch.append(RowVersion(k, ht=ht, columns={cid["d"]: None}))
+            else:
+                batch.append(RowVersion(k, ht=ht, columns={
+                    cid["d"]: rnd.randrange(-10**6, 10**6)}))
+        out.append(batch)
+    return base, out, ht
+
+
 def build_run(side, schema, rows, rows_per_block: int):
     mem = side.memtable.MemTable()
     mem.apply(rows)
@@ -187,6 +243,33 @@ def read_planes(P, read_ht: int) -> tuple:
     r = P.scalar_ht_planes(min(read_ht, MAX_HT))
     e = P.scalar_ht_planes(min(read_ht, MAX_HT - 1))
     return (*r, *e)
+
+
+def build_spec(S, kwargs):
+    """``S.ScanSpec`` of keyword arguments with (fn, column) aggregates and
+    (column, op, value) predicates (``S``: either package's storage)."""
+    kw = dict(kwargs)
+    kw["aggregates"] = [S.AggSpec(fn, col) for fn, col in kw["aggregates"]]
+    kw["predicates"] = [S.Predicate(*p) for p in kw.get("predicates", [])]
+    return S.ScanSpec(**kw)
+
+
+APPROX = ("sum(c)", "avg(c)", "avg(a)", "avg(d)")
+
+
+def assert_same(want, got, label, scanned=True):
+    """The same columns and rows (float sums and averages within rel 1e-4
+    / abs 1e-4, the tolerance of ``tests/test_engine_diff.py``), and the
+    same ``rows_scanned`` unless ``scanned`` is False."""
+    assert got.columns == want.columns, label
+    assert len(got.rows) == len(want.rows) == 1, label
+    for name, w, g in zip(want.columns, want.rows[0], got.rows[0]):
+        if name in APPROX and w is not None:
+            assert g == pytest.approx(w, rel=1e-4, abs=1e-4), (label, name)
+        else:
+            assert g == w, (label, name)
+    if scanned:
+        assert got.rows_scanned == want.rows_scanned, label
 
 
 @pytest.mark.parametrize("table", sorted(TABLES))

@@ -23,8 +23,9 @@ import yugabyte_db_tpu.storage as J
 import yugabyte_db_tpu.storage.tpu_engine  # noqa: F401  (registers 'tpu')
 import yugabyte_db_tpu_torch.storage as T
 from yugabyte_db_tpu_torch.ops import flat_agg, flat_fold, mvcc_resolve
-from test_torch_data import (JAX, MAX_HT, PORT, encode_key, flat_rows,
-                             make_schema, multiversion_rows)
+from test_torch_data import (JAX, MAX_HT, PORT, assert_same, encode_key,
+                             flat_rows, make_schema, multiversion_rows)
+from test_torch_data import build_spec as build
 
 R = 64
 N_KEYS = 800
@@ -72,28 +73,6 @@ def spec_kwargs(e):
         ("past_the_end", dict(lower=b"\xff\xff", read_ht=top,
                               aggregates=headline)),
     ]
-
-
-def build(S, kwargs):
-    kw = dict(kwargs)
-    kw["aggregates"] = [S.AggSpec(fn, col) for fn, col in kw["aggregates"]]
-    kw["predicates"] = [S.Predicate(*p) for p in kw.get("predicates", [])]
-    return S.ScanSpec(**kw)
-
-
-APPROX = ("sum(c)", "avg(c)", "avg(a)", "avg(d)")
-
-
-def assert_same(want, got, label, scanned=True):
-    assert got.columns == want.columns, label
-    assert len(got.rows) == len(want.rows) == 1, label
-    for name, w, g in zip(want.columns, want.rows[0], got.rows[0]):
-        if name in APPROX and w is not None:
-            assert g == pytest.approx(w, rel=1e-4, abs=1e-4), (label, name)
-        else:
-            assert g == w, (label, name)
-    if scanned:
-        assert got.rows_scanned == want.rows_scanned, label
 
 
 def test_each_spec_alone_matches_cpu_and_tpu(engines):
@@ -163,26 +142,54 @@ def test_out_of_slice_specs_raise(engines):
 
 
 def test_multi_source_and_multi_version_runs_raise():
-    """A second run or a live memtable beside a run still raises; a run
-    with a second version of a key is served, as the JAX engines serve
-    it."""
+    """A live memtable beside a run, and a second run, are served through
+    the delta overlay as the JAX engines serve them; a dirty set larger
+    than half the primary run still raises (the row path, ROADMAP.md §1
+    item 7). A run with a second version of a key is served, as the JAX
+    engines serve it."""
     ps, js = make_schema(PORT, "mixed"), make_schema(JAX, "mixed")
     rows, max_ht = flat_rows(PORT, ps, 200, seed=5)
-    spec = T.ScanSpec(read_ht=max_ht + 10,
-                      aggregates=[T.AggSpec("count", None)])
-    eng = T.make_engine("gpu", ps, {"rows_per_block": R, "device": "cpu"})
-    eng.apply(rows)
-    eng.flush()
-    assert eng.scan(spec).rows[0][0] > 0
-    eng.apply([PORT.row_version.RowVersion(rows[3].key, ht=max_ht + 1,
-                                           tombstone=True)])
-    with pytest.raises(NotImplementedError, match="overlay"):
-        eng.scan(spec)                                # live memtable
-    eng.flush()
-    with pytest.raises(NotImplementedError, match="overlay"):
-        eng.scan(spec)                                # two runs
-    assert eng.stats()["num_runs"] == 2
     jrows, _ = flat_rows(JAX, js, 200, seed=5)
+    sides = {"gpu": (T, T.make_engine("gpu", ps, {"rows_per_block": R,
+                                                   "device": "cpu"}),
+                     rows, PORT),
+             "tpu": (J, J.make_engine("tpu", js, {"rows_per_block": R}),
+                     jrows, JAX),
+             "cpu": (J, J.make_engine("cpu", js), jrows, JAX)}
+
+    def scans():
+        return {name: e.scan(S.ScanSpec(read_ht=max_ht + 10, aggregates=[
+                    S.AggSpec("count", None)]))
+                for name, (S, e, _rs, _side) in sides.items()}
+
+    def write(step, make):
+        for _S, e, rs, side in sides.values():
+            e.apply(make(side, rs))
+        got = scans()
+        assert_same(got["tpu"], got["gpu"], step)
+        assert_same(got["cpu"], got["gpu"], step, scanned=False)
+        return got["gpu"].rows[0][0]
+
+    for _S, e, rs, _side in sides.values():
+        e.apply(rs)
+        e.flush()
+    assert scans()["gpu"].rows[0][0] > 0
+    n = write("live memtable", lambda side, rs: [
+        side.row_version.RowVersion(rs[3].key, ht=max_ht + 1,
+                                    tombstone=True)])
+    for _S, e, _rs, _side in sides.values():
+        e.flush()
+    got = scans()
+    assert sides["gpu"][1].stats()["num_runs"] == 2
+    assert_same(got["tpu"], got["gpu"], "two runs")
+    assert got["gpu"].rows[0][0] == n
+    # More dirty keys than half the primary's 256 rows: the row path.
+    for _S, e, _rs, side in sides.values():
+        e.apply([side.row_version.RowVersion(
+            encode_key(side, e.schema, 1000 + i), ht=max_ht + 2,
+            liveness=True) for i in range(130)])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        scans()
     engines = {"gpu": (T, T.make_engine("gpu", ps, {"rows_per_block": R,
                                                      "device": "cpu"}),
                        rows, PORT),

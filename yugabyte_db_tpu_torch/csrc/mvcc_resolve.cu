@@ -55,9 +55,10 @@
 //      window's end starts the next window. A group longer than a window
 //      goes in warp steps of kUnroll x 32 rows: a sweep to its first
 //      visible tombstone, a sweep for liveness and setters that stops once
-//      every answer is known, and a scan of group starts to its end. A
-//      group of L versions costs about L / 32 warp steps, never L steps of
-//      one thread. Each group's answers (first row, live, each column's
+//      every answer is known, and a scan of group starts to its end (only
+//      the scan where the group's first row is not valid: such a group has
+//      no view row). A group of L versions costs about L / 32 warp steps,
+//      never L steps of one thread. Each group's answers (first row, live, each column's
 //      setter as a row of the tile) are recorded in shared memory.
 //   3. Write. Each warp then writes the view rows of its eighth, a lane a
 //      row, stores coalesced: valid and live from the answers, then a pass
@@ -436,12 +437,19 @@ __device__ __forceinline__ int resolve_window(const Params& p, const Row& x,
 // group's end.
 __device__ int32_t resolve_long(const Params& p, int32_t lo, int32_t hi,
                                 int32_t start, int32_t lim, int lane) {
+  // The group has a view row only when its first row is valid. A group
+  // without one (the delta overlay clears whole groups from a run's valid
+  // plane) has no answer to find: only its end is sought, since no
+  // alive row would ever stop the sweeps early.
+  const int32_t i = start - lo;
+  const bool rep = s_flag[kPlaneStart][i] && s_flag[kPlaneValid][i];
   // Sweep 1: the group's first visible tombstone, and where the group
   // ends when it has none.
   bool has_tomb = false;
   uint64_t t_key = 0;
   int32_t end = lim;
-  for (int32_t base = start; base < end && !has_tomb; base += 32 * kUnroll) {
+  for (int32_t base = start; rep && base < end && !has_tomb;
+       base += 32 * kUnroll) {
     Row x[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -476,7 +484,8 @@ __device__ int32_t resolve_long(const Params& p, int32_t lo, int32_t hi,
   int32_t my_setter = -1;
   bool my_setter_expired = false;
   int32_t base = start;
-  for (; base < end && !(live_any && found == all); base += 32 * kUnroll) {
+  for (; rep && base < end && !(live_any && found == all);
+       base += 32 * kUnroll) {
     Row x[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -525,8 +534,6 @@ __device__ int32_t resolve_long(const Params& p, int32_t lo, int32_t hi,
   }
   // The group's first row: its answer for the view pass, or, when the
   // group runs past the tile, written here.
-  const int32_t i = start - lo;
-  const bool rep = s_flag[kPlaneStart][i] && s_flag[kPlaneValid][i];
   if (end <= hi) {
     if (lane == 0 && rep) s_out[i] = kRep | (live_any ? kRepLive : 0);
     if (lane < p.n_cols && rep) {

@@ -304,6 +304,39 @@ class ColumnarRun:
         always upload their plain planes."""
         return None
 
+    # -- host-side access (the delta overlay's dirty keys) ------------------
+    def iter_entries(self):
+        """Yield (key, versions ht-desc) in key order."""
+        for b in range(self.B):
+            meta = self.blocks[b]
+            r = 0
+            while r < meta.num_valid:
+                key = self.row_keys[b][r]
+                versions = []
+                while r < meta.num_valid and self.row_keys[b][r] == key:
+                    versions.append(self.row_versions[b][r])
+                    r += 1
+                yield key, versions
+
+    def key_rows(self, key: bytes) -> tuple[int, list[RowVersion]]:
+        """(global row index of the key's first version, its versions
+        ht-desc); [] when the run does not hold the key. One bisect,
+        then a read forward."""
+        row = self.lower_row(key)
+        out = []
+        if row < self.total_rows():
+            b, r = divmod(row, self.R)
+            meta = self.blocks[b]
+            keys, versions = self.row_keys[b], self.row_versions[b]
+            while r < meta.num_valid and keys[r] == key:
+                out.append(versions[r])
+                r += 1
+        return row, out
+
+    def find_versions(self, key: bytes) -> list[RowVersion]:
+        """All versions of key in this run (ht-desc), or []."""
+        return self.key_rows(key)[1]
+
     # -- exact host-side key location (bounds) ------------------------------
     def lower_row(self, key: bytes) -> int:
         """Global row index (b*R + r) of the first valid row with

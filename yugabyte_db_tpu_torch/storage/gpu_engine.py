@@ -2,9 +2,9 @@
 
 A slice of the JAX package's ``storage/tpu_engine.py``: writes go to the
 host memtable, ``flush`` builds a columnar run on the host and uploads
-its planes to the engine's device, and single-source aggregate scans
-fold on the device, over a flat run (one version per key, the
-post-compaction shape) or a multi-version one:
+its planes to the engine's device, and aggregate scans fold on the
+device, over a flat run (one version per key, the post-compaction shape)
+or a multi-version one:
 
 - a multi-version run is first resolved at the spec's read point into a
   flat view (``ops.mvcc_resolve``, a CUDA kernel; the counterpart of the
@@ -25,13 +25,30 @@ turn into a ``ScanResult``. ``rows_scanned`` is what the JAX ``tpu``
 engine reports on these routes: the rows (key groups, on a multi-version
 run) that pass every predicate.
 
+A scan over several sources (a live memtable over a run, several runs,
+or both) goes through the **delta overlay**, as in the JAX engine: the
+largest run is the primary, and every key held by another run or by the
+memtable is dirty. The dirty keys' rows are cleared from a copy of the
+primary's ``valid`` plane (K13, a torch op), the masked primary takes the
+routes above (a multi-version one resolved into a view of its own), and
+the dirty keys' version sets, merged on the host, are folded there after
+the launches and before the batch waits. The two partials cover disjoint
+keys and are combined at the finalized level; ``rows_scanned`` adds the
+dirty keys that exist at the read point, before predicates, as the JAX
+engine adds them. Before the first flush the memtable alone is folded on
+the host: there is no plane to fold.
+
 Everything else raises ``NotImplementedError`` naming the ROADMAP.md item
 that brings it. There is no host re-serve: a device error raises.
 """
 
 from __future__ import annotations
 
+import bisect
+import operator
+import weakref
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -44,9 +61,12 @@ from yugabyte_db_tpu_torch.ops.device_run import (DeviceRun, dtype_kind,
                                                   resolve_device)
 from yugabyte_db_tpu_torch.storage.columnar import (DEFAULT_ROWS_PER_BLOCK,
                                                     ColumnarRun)
+from yugabyte_db_tpu_torch.storage.cpu_engine import (Aggregator,
+                                                      RowMaterializer)
 from yugabyte_db_tpu_torch.storage.engine import (StorageEngine,
                                                   register_engine)
 from yugabyte_db_tpu_torch.storage.memtable import MemTable
+from yugabyte_db_tpu_torch.storage.merge import merge_versions
 from yugabyte_db_tpu_torch.storage.row_version import MAX_HT, RowVersion
 from yugabyte_db_tpu_torch.storage.scan_spec import ScanResult, ScanSpec
 from yugabyte_db_tpu_torch.utils import planes as P
@@ -62,8 +82,9 @@ _LATER = {
                   "(ROADMAP.md §1 item 7: row path, K7/K9)",
     "host_aggs": "aggregates of key columns and MIN/MAX/SUM of strings "
                  "(ROADMAP.md §1 item 7: row path, K7/K9)",
-    "multi_source": "scans over several runs or a live memtable "
-                    "(ROADMAP.md §1 item 5: overlay aggregates)",
+    "multi_source": "scans over several sources whose dirty keys exceed "
+                    "half the primary run (ROADMAP.md §1 item 7: row path, "
+                    "K7/K9)",
 }
 
 
@@ -83,6 +104,8 @@ class GpuRun:
         self.dev = DeviceRun(crun, PAD_BLOCKS, device=device)
         self.flat = crun.max_group_versions <= 1
         self._view = None  # (view key, view arrays)
+        # This run or a masked copy of it: whichever holds a view.
+        self._view_holder = None
         if not self.flat:
             v = crun.valid
             self._hts = np.sort(P.planes_to_u64(
@@ -92,6 +115,11 @@ class GpuRun:
             self._exps = np.sort(exps[exps != MAX_HT])
             self._const = mvcc_resolve.constant_planes(self.dev.B, crun.R,
                                                        device)
+
+    @property
+    def source(self) -> "GpuRun":
+        """The run whose planes these are."""
+        return self
 
     def view_key(self, read_ht: int) -> tuple:
         """Two read points resolve to one view exactly when they see the
@@ -104,13 +132,97 @@ class GpuRun:
 
     def view(self, key: tuple, read_planes: tuple) -> dict:
         """The resolved view of ``key`` (``read_planes``: those of any read
-        point of that key). Only the latest one is kept: the previous one
-        is let go before the new one is made."""
+        point of that key). Only the latest view of a run is kept, by the
+        run or by one masked copy of it: the previous one is let go
+        before the new one is made."""
         if self._view is None or self._view[0] != key:
+            source = self.source
+            holder = source._view_holder and source._view_holder()
+            if holder is not None:
+                holder._view = None
             self._view = None
             self._view = (key, mvcc_resolve.resolve_view(
                 self.dev.arrays, *read_planes, self._const))
+            source._view_holder = weakref.ref(self)
         return self._view[1]
+
+
+class _MaskedRun(GpuRun):
+    """The delta overlay's primary with its dirty keys' rows cleared from
+    ``valid`` (the JAX engine's ``_MaskedRun``). It shares the source's
+    ``ColumnarRun``, view keys and constant view planes, and has a view
+    slot of its own: a masked view is never taken for the plain run's."""
+
+    def __init__(self, source: GpuRun, valid: torch.Tensor):
+        self.crun = source.crun
+        self._source = source
+        self.flat = source.flat
+        self.dev = SimpleNamespace(
+            B=source.dev.B, arrays=dict(source.dev.arrays, valid=valid))
+        self._view = None
+        if not self.flat:
+            self._hts, self._exps = source._hts, source._exps
+            self._const = source._const
+
+    @property
+    def source(self) -> GpuRun:
+        return self._source
+
+
+def scatter_invalid(valid: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+    """K13 (the JAX engine's ``_scatter_invalid``) as a torch op: a copy of
+    ``valid`` with the flattened rows ``idx`` (int64) cleared. The copy is
+    made from the source every time, so a plane that an in-flight batch
+    may read is never written. The JAX engine pads ``idx`` to a few bucket
+    sizes to bound its compiles; nothing compiles here, so it goes as it
+    is."""
+    out = valid.clone()
+    out.view(-1).index_fill_(0, torch.from_numpy(idx).to(out.device), False)
+    return out
+
+
+class _OverlayState:
+    """The cached delta-overlay state (``GpuStorageEngine._overlay``): the
+    masked primary, the key-sorted dirty rows ``(key, versions ht-desc
+    across every source)`` with a parallel key list and a by-key map
+    (what the incremental copy-on-write update bisects into), the cleared
+    primary rows, the memtable version count the state includes, and the
+    host-partial cache."""
+
+    __slots__ = ("masked", "rows", "keys", "by_key", "idx", "mem_count",
+                 "partial")
+
+    def __init__(self, masked, rows, keys, by_key, idx, mem_count):
+        self.masked = masked
+        self.rows = rows
+        self.keys = keys
+        self.by_key = by_key
+        self.idx = idx
+        self.mem_count = mem_count
+        self.partial: dict = {}
+
+
+# _overlay_apply_delta verdict: the delta can't be applied (no memtable
+# log) and the caller must rebuild from scratch.
+_OVERLAY_REBUILD = object()
+
+
+def _dirty_entry(crun: ColumnarRun, key: bytes, versions: list) -> tuple:
+    """((key, ``versions`` and the primary's versions of ``key``, ht-desc),
+    first primary row, primary rows of the key)."""
+    start, own = crun.key_rows(key)
+    versions = versions + own
+    if len(versions) > 1:
+        versions.sort(key=lambda x: (x.ht, x.write_id), reverse=True)
+    return (key, versions), start, len(own)
+
+
+def _row_spans(starts: list, counts: list) -> np.ndarray:
+    """The int64 rows [start, start + count) of every span, in order."""
+    starts = np.asarray(starts, np.int64)
+    counts = np.asarray(counts, np.int64)
+    first = np.cumsum(counts) - counts
+    return np.repeat(starts - first, counts) + np.arange(int(counts.sum()))
 
 
 @dataclass
@@ -128,6 +240,8 @@ class _AggPrep:
     dev_aggs: tuple
     lowering: list
     view_key: tuple | None  # multi-version routes: the resolve's key
+    overlay: _OverlayState | None = None  # an overlay spec's state
+    host: tuple | None = None  # its dirty keys' host partial, once folded
 
     def arrays(self) -> dict:
         """The planes the fold reads: the run's, or its resolved view."""
@@ -139,9 +253,10 @@ class _AggPrep:
 class GpuStorageEngine(StorageEngine):
     """Options: ``device`` (default ``cuda``; raises when there is no
     GPU) and ``rows_per_block`` (2048). The memtable flushes only when
-    ``flush`` is called: a second run, or a live memtable beside a run,
-    could not be scanned yet (overlay aggregates, ROADMAP.md §1 item 5).
-    A run may hold any number of versions per key."""
+    ``flush`` is called. A run may hold any number of versions per key;
+    a scan over several runs or a live memtable beside them goes through
+    the delta overlay, and one before the first flush folds the memtable
+    on the host."""
 
     def __init__(self, schema: Schema, options: dict | None = None):
         super().__init__(schema, options)
@@ -151,6 +266,11 @@ class GpuStorageEngine(StorageEngine):
         self.flushed_frontier_ht = 0
         self.rows_per_block = int(self.options.get(
             "rows_per_block", DEFAULT_ROWS_PER_BLOCK))
+        self.mat = RowMaterializer(schema)
+        # (run list, memtable, its version count, _OverlayState or None).
+        self._overlay_cache = None
+        # Scans served by the host fold of a memtable with no run beside.
+        self.memtable_scans = 0
         self._kinds = {c.col_id: dtype_kind(c.dtype)
                        for c in schema.value_columns}
         self._name_to_id = {c.name: c.col_id for c in schema.value_columns}
@@ -171,6 +291,9 @@ class GpuStorageEngine(StorageEngine):
                                  self.rows_per_block)
         self.runs.append(GpuRun(crun, self.device))
         self.memtable = MemTable()
+        # The run set changed: the overlay is built anew at its next use
+        # (the JAX engine's _drop_overlay_cache, with no pin to release).
+        self._overlay_cache = None
 
     def stats(self) -> dict:
         return {
@@ -190,19 +313,23 @@ class GpuStorageEngine(StorageEngine):
 
     def scan_batch_async(self, specs: list[ScanSpec]) -> "_AsyncBatch":
         """Plan every scan, launch all device work and start the results'
-        copies to the host without waiting; ``.finish()`` waits and
-        builds the results. A multi-version run is resolved once per view
-        key; same-signature kernel specs on one run (or view) share one
-        launch."""
+        copies to the host without waiting, then fold the overlay specs'
+        dirty keys on the host; ``.finish()`` waits and builds the
+        results. A multi-version run (or a masked copy of it) is resolved
+        once per view key; same-signature kernel specs on one run, masked
+        run or view share one launch."""
         results: list = [None] * len(specs)
         # Per source, a run or one view of it: kernel specs by plan, and
         # the specs of the plain flat fold.
         sources: dict = {}
+        overlay = []
         for i, spec in enumerate(specs):
             prep = self._plan_scan(spec)
             if isinstance(prep, ScanResult):
                 results[i] = prep
                 continue
+            if prep.overlay is not None:
+                overlay.append(prep)
             kernels, folds = sources.setdefault(
                 (id(prep.trun), prep.view_key), ({}, []))
             if prep.route in ("kernel", "mv_kernel"):
@@ -216,6 +343,8 @@ class GpuStorageEngine(StorageEngine):
         pending = []  # (device tensors, finish(host tensors))
         for kernels, folds in sources.values():
             pending += self._launch_source(kernels, folds, results)
+        for prep in overlay:  # while the device works
+            prep.host = self._overlay_host_partial(prep.overlay, prep.spec)
         return _AsyncBatch(results, pending)
 
     def _launch_source(self, kernels: dict, folds: list,
@@ -283,7 +412,9 @@ class GpuStorageEngine(StorageEngine):
         return r_hi, r_lo, e_hi, e_lo
 
     def _plan_scan(self, spec: ScanSpec):
-        """-> a finished ScanResult (nothing in range) or an _AggPrep."""
+        """-> a finished ScanResult (nothing in range, or the memtable
+        folded on the host before the first flush) or an _AggPrep (with
+        its overlay state when the spec reads several sources)."""
         if not spec.is_aggregate:
             raise _later("row")
         if spec.group_by or any(a.expr is not None for a in spec.aggregates):
@@ -299,13 +430,189 @@ class GpuStorageEngine(StorageEngine):
         mem = self.memtable
         runs = self._overlapping_runs(spec)
         mem_live = not mem.is_empty and mem.has_keys(spec.lower, spec.upper)
-        if mem_live or len(runs) > 1:
-            raise _later("multi_source")
-        if not runs:
+        if len(runs) == 1 and not mem_live:
+            return self._device_agg_prep(runs[0], spec, exact)
+        if not runs and not mem_live:
             return ScanResult([_agg_name(a) for a in spec.aggregates],
                               [tuple(0 if a.fn == "count" else None
                                      for a in spec.aggregates)], None, 0)
-        return self._device_agg_prep(runs[0], spec, exact)
+        if not self.runs:
+            return self._memtable_aggregate(spec, mem)
+        ov = self._overlay(mem)
+        if ov is None:
+            raise _later("multi_source")
+        prep = self._device_agg_prep(ov.masked, spec, exact)
+        prep.overlay = ov
+        return prep
+
+    def _memtable_aggregate(self, spec: ScanSpec, mem: MemTable) -> ScanResult:
+        """The engine before its first flush (the JAX engine's ``_row_scan``
+        over no run): no plane exists, so the memtable's keys in range
+        are merged and folded on the host. ``rows_scanned`` counts the
+        keys examined, as there. The planner has already refused key
+        columns in predicates and aggregates, so no key is decoded."""
+        self.memtable_scans += 1
+        agg = Aggregator(spec.aggregates, [])
+        scanned = 0
+        for key in mem.scan_keys(spec.lower, spec.upper):
+            scanned += 1
+            merged = mem.merged(key, spec.read_ht)
+            if merged.exists and self.mat.matches(spec, None, merged):
+                agg.add(lambda name: self.mat.value(name, None, merged))
+        return ScanResult(agg.column_names(), agg.results(), None, scanned)
+
+    # -- delta overlay (masked primary + host-folded dirty keys) -------------
+    def _overlay(self, mem: MemTable) -> _OverlayState | None:
+        """The cached delta-overlay state for the engine's runs and ``mem``
+        (the JAX engine's ``_overlay``): the largest run is the primary;
+        every key present in another run or in the memtable is dirty,
+        with its versions from every source merged into one list; the
+        dirty keys' primary rows are cleared from the masked primary's
+        ``valid``. Keyed by (run list, memtable, version count): a later
+        write to the same memtable advances the state incrementally
+        (``_overlay_apply_delta``). None when the dirty keys are more
+        than half the primary's rows: a compaction is the answer there."""
+        runs = list(self.runs)
+        cache = self._overlay_cache
+        if cache is not None:
+            c_runs, c_mem, c_ver, state = cache
+            if c_runs == runs and c_mem is mem:
+                if c_ver == mem.num_versions:
+                    return state
+                if state is not None and mem.num_versions > c_ver:
+                    inc = self._overlay_apply_delta(state, mem, c_ver)
+                    if inc is not _OVERLAY_REBUILD:
+                        ver = (inc.mem_count if inc is not None
+                               else mem.num_versions)
+                        self._overlay_cache = (runs, mem, ver, inc)
+                        return inc
+        primary = max(runs, key=lambda t: t.crun.total_rows())
+        # Snapshot the counter BEFORE collecting: rows racing in during
+        # collection are re-applied by the next delta, which dedups them.
+        ver0 = mem.num_versions
+        dirty: dict[bytes, list] = {}
+        for t in runs:
+            if t is not primary:
+                for key, versions in t.crun.iter_entries():
+                    dirty.setdefault(key, []).extend(versions)
+        for key in mem.scan_keys(b"", b""):
+            dirty.setdefault(key, []).extend(mem.versions(key))
+        state = None
+        if dirty and len(dirty) * 2 <= max(primary.crun.total_rows(), 64):
+            rows, starts, counts = [], [], []
+            for key in sorted(dirty):
+                entry, start, n = _dirty_entry(primary.crun, key, dirty[key])
+                rows.append(entry)
+                starts.append(start)
+                counts.append(n)
+            idx = _row_spans(starts, counts)
+            state = _OverlayState(
+                _MaskedRun(primary, scatter_invalid(
+                    primary.dev.arrays["valid"], idx)),
+                rows, [e[0] for e in rows], {e[0]: e for e in rows}, idx,
+                ver0)
+            self._overlay_cache = (runs, mem, ver0, state)
+        else:
+            self._overlay_cache = (runs, mem, mem.num_versions, None)
+        return state
+
+    def _overlay_apply_delta(self, state: _OverlayState, mem: MemTable,
+                             since: int):
+        """Advance the cached overlay by the memtable versions applied
+        after index ``since``, copy-on-write: the old state's rows list,
+        entries and masked plane are never written, so a batch issued
+        before the write still reads the old state. Returns the new
+        state, None when the dirty keys outgrew the overlay's shape, or
+        _OVERLAY_REBUILD when the memtable has no delta log."""
+        delta = mem.versions_since(since)
+        if delta is None:
+            return _OVERLAY_REBUILD
+        if not delta:
+            return state
+        changed: dict[bytes, list] = {}
+        for r in delta:
+            changed.setdefault(r.key, []).append(r)
+        primary = state.masked.source
+        crun = primary.crun
+        n_new = sum(1 for k in changed if k not in state.by_key)
+        if (len(state.rows) + n_new) * 2 > max(crun.total_rows(), 64):
+            return None
+        rows = list(state.rows)
+        by_key = dict(state.by_key)
+        added, starts, counts = [], [], []
+        for key in sorted(changed):
+            old = by_key.get(key)
+            if old is None:
+                entry, start, n = _dirty_entry(crun, key, changed[key])
+                added.append(entry)  # in key order
+                starts.append(start)
+                counts.append(n)
+            else:
+                # Re-applied versions (a build racing a write) dedup by
+                # the version identity the merge sorts on.
+                seen = {(v.ht, v.write_id) for v in old[1]}
+                versions = old[1] + [v for v in changed[key]
+                                     if (v.ht, v.write_id) not in seen]
+                versions.sort(key=lambda x: (x.ht, x.write_id), reverse=True)
+                entry = (key, versions)
+                rows[bisect.bisect_left(state.keys, key)] = entry
+            by_key[key] = entry
+        idx, masked, keys = state.idx, state.masked, state.keys
+        if added:
+            # Two sorted lists: the sort merges them as two runs.
+            rows = sorted(rows + added, key=operator.itemgetter(0))
+            keys = [e[0] for e in rows]
+            new_idx = _row_spans(starts, counts)
+            if new_idx.size:
+                idx = np.concatenate([idx, new_idx])
+                masked = _MaskedRun(primary, scatter_invalid(
+                    primary.dev.arrays["valid"], idx))
+        return _OverlayState(masked, rows, keys, by_key, idx,
+                             since + len(delta))
+
+    def _overlay_host_partial(self, ov: _OverlayState, spec: ScanSpec):
+        """Exact host fold of the dirty keys in the spec's range at its
+        read point: (keys that exist, before predicates; per aggregate
+        (n, value)), the value being the sum, min or max (COUNT rides n).
+        The last 8 (read point, bounds, predicates, aggregates) are cached
+        on the state."""
+        key = (self._read_planes(spec), spec.lower, spec.upper,
+               tuple((p.column, p.op, p.value) for p in spec.predicates),
+               tuple((a.fn, a.column) for a in spec.aggregates))
+        hit = ov.partial.get(key)
+        if hit is not None:
+            return hit
+        lo = bisect.bisect_left(ov.keys, spec.lower)
+        hi = (bisect.bisect_left(ov.keys, spec.upper) if spec.upper
+              else len(ov.keys))
+        scanned = 0
+        parts = [[0, None] for _ in spec.aggregates]
+        for rkey, versions in ov.rows[lo:hi]:
+            merged = merge_versions(rkey, versions, spec.read_ht)
+            if not merged.exists:
+                continue
+            scanned += 1
+            if not self.mat.matches(spec, None, merged):
+                continue
+            for p, a in zip(parts, spec.aggregates):
+                if a.column is None:
+                    p[0] += 1
+                    continue
+                v = self.mat.value(a.column, None, merged)
+                if v is None:
+                    continue
+                p[0] += 1
+                if a.fn in ("sum", "avg"):
+                    p[1] = v if p[1] is None else p[1] + v
+                elif a.fn == "min":
+                    p[1] = v if p[1] is None else min(p[1], v)
+                elif a.fn == "max":
+                    p[1] = v if p[1] is None else max(p[1], v)
+        result = (scanned, [tuple(p) for p in parts])
+        if len(ov.partial) >= 8:
+            ov.partial.pop(next(iter(ov.partial)))
+        ov.partial[key] = result
+        return result
 
     def _device_agg_prep(self, trun: GpuRun, spec: ScanSpec,
                          exact_preds) -> _AggPrep:
@@ -352,10 +659,38 @@ def _agg_name(a) -> str:
 
 def _agg_result(prep: _AggPrep, ivec, fvec) -> ScanResult:
     acc, scanned = agg_fold.unpack(prep.dev_aggs, ivec, fvec)
-    row = tuple(agg_fold.finalize(prep.dev_aggs[di], acc[di], fn_name)
-                for fn_name, di in prep.lowering)
-    return ScanResult([_agg_name(a) for a in prep.spec.aggregates], [row],
-                      None, scanned)
+    names = [_agg_name(a) for a in prep.spec.aggregates]
+    if prep.host is None:
+        row = tuple(agg_fold.finalize(prep.dev_aggs[di], acc[di], fn_name)
+                    for fn_name, di in prep.lowering)
+        return ScanResult(names, [row], None, scanned)
+    h_scanned, h_parts = prep.host
+    row = tuple(_combine(fn_name, prep.dev_aggs[di], acc[di], h)
+                for (fn_name, di), h in zip(prep.lowering, h_parts))
+    return ScanResult(names, [row], None, scanned + h_scanned)
+
+
+def _combine(fn: str, ag, acc: dict, host: tuple):
+    """The finalized value of an overlay aggregate: the masked primary's
+    accumulator and the dirty keys' host partial ``(n, value)`` over
+    disjoint keys (the JAX engine's ``_plan_overlay_aggregate``)."""
+    h_n, h_v = host
+    if fn == "count":
+        return agg_fold.finalize(ag, acc, "count") + h_n
+    if fn in ("sum", "avg"):
+        ds = agg_fold.finalize(ag, acc, "sum")
+        total = None
+        if ds is not None or h_v is not None:
+            total = (ds or 0) + (h_v or 0)
+        if fn == "sum":
+            return total
+        n = int(acc.get("n", 0)) + h_n
+        return total / n if n else None
+    vals = [v for v in (agg_fold.finalize(ag, acc, fn), h_v)
+            if v is not None]
+    if not vals:
+        return None
+    return min(vals) if fn == "min" else max(vals)
 
 
 def _kernel_finish(plan, group, results):

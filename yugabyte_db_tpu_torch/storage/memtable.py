@@ -3,7 +3,8 @@
 Reference analog: src/yb/rocksdb/memtable (skiplist memtable). The
 pure-Python ``MemTable`` of the JAX package: a dict keyed by encoded key
 with per-key version lists, plus a lazily-sorted key index for ordered
-scans and the flush drain.
+scans and the flush drain, and an apply-order log that the delta overlay
+reads (``versions_since``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,10 @@ class MemTable:
     def __init__(self):
         self._data: dict[bytes, list[RowVersion]] = {}
         self._sorted_keys: list[bytes] | None = []
+        # Apply-order log backing versions_since(); entries are the same
+        # RowVersion objects _data holds, so the overhead is one pointer
+        # per version.
+        self._log: list[RowVersion] | None = []
         self.num_versions = 0
         self.approx_bytes = 0
         self.min_ht = None
@@ -38,6 +43,8 @@ class MemTable:
                 self._sorted_keys = None  # new key invalidates the index
             else:
                 versions.append(r)
+            if self._log is not None:
+                self._log.append(r)
             self.num_versions += 1
             self.approx_bytes += len(r.key) + 64 + 16 * len(r.columns)
             if self.min_ht is None or r.ht < self.min_ht:
@@ -67,6 +74,15 @@ class MemTable:
 
     def versions(self, key: bytes) -> list[RowVersion]:
         return self._data.get(key, [])
+
+    def versions_since(self, n: int) -> list[RowVersion] | None:
+        """Row versions applied after global version index ``n`` (i.e.
+        once ``num_versions`` was ``n``), in apply order: the delta
+        source for the incremental scan overlay. None when the log is
+        unavailable, which tells the caller to rebuild from scratch."""
+        if self._log is None:
+            return None
+        return self._log[n:]
 
     def merged(self, key: bytes, read_ht: int) -> MergedRow | None:
         versions = self._data.get(key)

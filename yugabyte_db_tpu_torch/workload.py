@@ -7,7 +7,9 @@ INT64, a DOUBLE and an INT32 value column. The headline spec is
 ``bench.py``'s ``bench_aggregate`` scan: count(*), sum(a), min(a),
 max(a), sum(d) under ``d >= lo``. ``make_update_rows`` adds updates
 whose keys and single fields follow YCSB workload A's, which turn the
-flat run into a multi-version one.
+flat run into a multi-version one; ``make_wave_rows`` adds the uniform
+update waves of ``bench.py``'s post-write scan bench, which leave several
+runs and a live memtable.
 """
 
 from __future__ import annotations
@@ -36,6 +38,13 @@ def make_schema() -> Schema:
     ], table_id="bench")
 
 
+def bench_key(schema: Schema, i: int) -> bytes:
+    """The encoded key of the bench table's key number ``i``."""
+    return schema.encode_primary_key(
+        {"k": f"user{i:06d}", "r": i % 7},
+        compute_hash_code(schema, {"k": f"user{i:06d}"}))
+
+
 def make_rows(schema: Schema, num_keys: int, seed: int = 3):
     """(rows, max_ht): one RowVersion per key, in key-generation order."""
     rng = random.Random(seed)
@@ -43,9 +52,7 @@ def make_rows(schema: Schema, num_keys: int, seed: int = 3):
     ht = 100
     rows = []
     for i in range(num_keys):
-        key = schema.encode_primary_key(
-            {"k": f"user{i:06d}", "r": i % 7},
-            compute_hash_code(schema, {"k": f"user{i:06d}"}))
+        key = bench_key(schema, i)
         ht += rng.randrange(1, 4)
         if rng.random() < 0.05:
             rows.append(RowVersion(key, ht=ht, tombstone=True))
@@ -139,6 +146,30 @@ def make_update_rows(schema: Schema, rows: list, max_ht: int,
                               expire_ht=expire))
         versions[k] += 1
     return out, ht
+
+
+def make_wave_rows(schema: Schema, num_keys: int, count: int, ht: int,
+                   seed: int = 5):
+    """(rows, max_ht): one update wave of ``bench.py:740``
+    ``bench_multisource`` over the keys of ``make_rows(schema,
+    num_keys)``: ``count`` operations (that bench takes 2% of the keys a
+    wave) on keys drawn uniformly, each at the next hybrid time after
+    ``ht`` and each a one-field update of d to a value in [-10^6, 10^6).
+    The rest is coverage of the merge's traps, not measured traffic:
+    about 2% of the operations are DELETEs and about 2% write d NULL."""
+    rng = random.Random(seed)
+    d = next(c.col_id for c in schema.columns if c.name == "d")
+    rows = []
+    for _ in range(count):
+        key = bench_key(schema, rng.randrange(num_keys))
+        ht += 1
+        roll = rng.random()
+        if roll < 0.02:
+            rows.append(RowVersion(key, ht=ht, tombstone=True))
+        else:
+            rows.append(RowVersion(key, ht=ht, columns={
+                d: None if roll < 0.04 else rng.randrange(-10**6, 10**6)}))
+    return rows, ht
 
 
 LONG_GROUP_LENGTHS = (1, 2, 31, 32, 33, 256)  # and R: a key filling a block
