@@ -69,7 +69,23 @@ line is printed:
    cleared edges at R = 48, 2048 and 4096), the host fold per miss and
    hit, and an 8-spec batch of new literals traced (host plan, host
    fold, device, finish);
-6. one JSON line listing every kernel of the path, then as the last line
+6. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
+   ``workload.generate_lineitem``) applied and flushed into one flat run
+   (generation and load seconds printed). Q1 and Q6 through the engine
+   must equal numpy oracles exactly; the single-scan latency (median of
+   5), ``bench.py:1003 bench_tpch``'s 10 pipelined batches of 8 Q1 specs
+   at depth 4 (rows/s) and one traced batch; K8 held byte for byte
+   against its plain version and timed (Q1 alone, the 8-spec batch, Q6)
+   beside its bound; no Q1/Q6 spec may be re-served on the host. Then
+   1,000,000 rows and 1,000,000 zipfian one-field updates in one
+   multi-version run: Q1 exact at the newest and a mid read point
+   through the resolve and K8. Then K8's edges at 20,000 rows, each
+   result against the port's host oracle and each launch against the
+   plain version: NULL group values, a group column of more than 512
+   values (a collision, re-served on the host), negative bases (the
+   same), COUNT(col), an empty range, and 8 specs of distinct literals
+   and read points in one launch;
+7. one JSON line listing every kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a result when no CUDA device is visible.
@@ -79,7 +95,8 @@ kernels, then times this tree's resolve kernel against each other source
 of it (the same C interface) in turns on one card, on the mvcc run and
 the long-group planes (also with 20% of their groups cleared), each held
 byte for byte against the plain version (``resolve_ab`` lines), and
-exits.
+exits. ``--group-ab OTHER.cu[,...]`` does the same for K8 on Q1, the
+8-spec Q1 batch and Q6 at 2,000,000 lineitem rows (``group_ab`` lines).
 """
 
 from __future__ import annotations
@@ -104,7 +121,8 @@ KERNEL_REPS = 12
 PLAIN_REPS = 3
 
 TRACE_BATCHES = 4
-KERNELS = ("flat_agg", "mvcc_resolve")  # the CUDA kernels of the main path
+# The CUDA kernels of the main path.
+KERNELS = ("flat_agg", "mvcc_resolve", "group_agg")
 
 # Device-memory bandwidth by card (NVIDIA data sheets), bytes/s.
 _BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -1706,6 +1724,545 @@ def overlay_phase(device, bw: float, rate: float, flat=None,
     return out
 
 
+# -- phase 6: GROUP BY and expression aggregates (TPC-H Q1/Q6, K8) -------
+
+LINEITEM_ROWS = 6_001_215  # TPC-H SF1 (workload.SF1_ROWS)
+LINEITEM_R = 2048
+MV_LINEITEM_ROWS = 1_000_000
+MV_LINEITEM_UPDATES = 1_000_000
+TPCH_BATCH = 8      # bench.py:1003 bench_tpch: 10 batches of 8 Q1 specs,
+TPCH_BATCHES = 10   # depth 4, after 4 warm-up batches
+TPCH_DEPTH = 4
+GROUP_EDGE_ROWS = 20_000
+# Integer operations per row that the function needs, beside each
+# column's set/isnull pair (decode_ops) and the read point's visibility
+# (VISIBILITY_OPS): per matching row the hash (two a key plane, five for
+# the mix and the bucket), and per sum the base decode (2), the factors'
+# nodes (1 each), the 128-bit product (4 a factor) and add (4); COUNTs
+# and n cost a popcount and an add per 32-row mask word.
+GROUP_HASH_OPS = 5
+SUM_OPS = 2 + 4
+
+
+def q1_oracle(cols: dict, cutoff: int = 10471) -> list:
+    """TPC-H Q1 over lineitem column arrays in numpy int64 (exact at
+    SF1: a sum_charge term is under 6e10, 6e6 of them under 4e17): the
+    engine's rows, sorted by (returnflag, linestatus)."""
+    m = cols["l_shipdate"] <= cutoff
+    flag, status = cols["l_returnflag"][m], cols["l_linestatus"][m]
+    qty, price = cols["l_quantity"][m], cols["l_extendedprice"][m]
+    disc, tax = cols["l_discount"][m], cols["l_tax"][m]
+    disc_price = price * (100 - disc)
+    charge = disc_price * (100 + tax)
+    out = []
+    for f in sorted(set(flag.tolist())):
+        for st in sorted(set(status[flag == f].tolist())):
+            g = (flag == f) & (status == st)
+            out.append((f, st, int(qty[g].sum()), int(price[g].sum()),
+                        int(disc_price[g].sum()), int(charge[g].sum()),
+                        int(g.sum())))
+    return out
+
+
+def q6_oracle(cols: dict, date_lo: int = 9131, discount: int = 6,
+              quantity: int = 24) -> list:
+    ship, disc = cols["l_shipdate"], cols["l_discount"]
+    m = ((ship >= date_lo) & (ship < date_lo + 365) & (disc >= discount - 1)
+         & (disc <= discount + 1) & (cols["l_quantity"] < quantity))
+    return [(int((cols["l_extendedprice"][m] * disc[m]).sum())
+             if m.any() else None,)]
+
+
+def lineitem_at(cols: dict, upd: dict, read_ht: int) -> dict:
+    """The lineitem columns as they read at ``read_ht`` after the updates
+    of ``workload.make_lineitem_updates`` (arrays ``upd``): per row and
+    field, the newest update at or before the read point, in numpy."""
+    from yugabyte_db_tpu_torch import workload
+
+    out = dict(cols)
+    vis = upd["ht"] <= read_ht
+    for f, name in enumerate(workload.LINEITEM_UPDATED):
+        at = np.flatnonzero(vis & (upd["field"] == f))
+        if not at.size:
+            continue
+        rows = upd["row"][at]
+        order = np.lexsort((upd["ht"][at], rows))
+        last = order[np.r_[rows[order][1:] != rows[order][:-1], True]]
+        col = out[name].copy()
+        col[rows[last]] = np.array([upd["value"][i] for i in at[last]],
+                                   dtype=col.dtype)
+        out[name] = col
+    return out
+
+
+def lineitem_engine(device, n_rows: int, n_updates: int = 0):
+    """A ``gpu`` engine holding ``n_rows`` generated lineitem rows and
+    ``n_updates`` zipfian one-field updates of them
+    (``workload.make_lineitem_updates``), applied and flushed into one
+    run: (namespace with schema, columns, the updates' arrays, max_ht,
+    engine, generate and load seconds). The cyclic garbage collector is
+    paused while the rows' objects are made and loaded (they hold no
+    cycles)."""
+    import gc
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage import make_engine
+
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        schema = workload.lineitem_schema()
+        cols = workload.generate_lineitem(n_rows)
+        keys = workload.lineitem_keys(schema, cols)
+        rows, max_ht = workload.lineitem_rows(schema, cols)
+        upd = None
+        if n_updates:
+            updates, upd = workload.make_lineitem_updates(
+                schema, keys, max_ht, n_updates)
+            rows += updates
+            max_ht = int(upd["ht"][-1])
+        gen_s = time.perf_counter() - t0
+        eng = make_engine("gpu", schema, {"rows_per_block": LINEITEM_R,
+                                          "device": device})
+        t0 = time.perf_counter()
+        eng.apply(rows)
+        eng.flush()
+        load_s = time.perf_counter() - t0
+        del rows
+    finally:
+        gc.enable()
+    return SimpleNamespace(schema=schema, cols=cols, upd=upd,
+                           max_ht=max_ht, eng=eng, gen_s=gen_s,
+                           load_s=load_s)
+
+
+def k8_inputs(eng, specs: list) -> tuple:
+    """(plan, plane table, parameter rows on the card) of specs that the
+    engine sends to K8 in one launch (one source, one signature)."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import group_agg
+
+    preps = [eng._plan_scan(s) for s in specs]
+    plan = group_agg.make_plan(preps[0].sig)
+    check(all(group_agg.make_plan(p.sig) is plan and p.trun is preps[0].trun
+              and p.view_key == preps[0].view_key for p in preps),
+          "specs of one K8 launch differ in signature or source")
+    params = torch.tensor(
+        [plan.param_row(p.row_lo, p.row_hi, p.read_planes, p.lits)
+         for p in preps], dtype=torch.int32, device=eng.device)
+    return plan, plan.plane_table(preps[0].arrays()), params
+
+
+def k8_exact(plan, table, params) -> int:
+    """K8 against its plain version on the same inputs, every output
+    byte for byte: 0, or the check fails."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import group_agg
+
+    got = group_agg.grouped_aggregate(plan, table, params)
+    want = group_agg.grouped_aggregate_plain(plan, table, params)
+    torch.cuda.synchronize()
+    err = int((got - want).abs().max())
+    check(torch.equal(got, want), f"K8 != plain version (max |diff| {err}) "
+                                  f"for {plan.sig.aggs}")
+    return err
+
+
+def group_ops(plan, table, params) -> float:
+    """Integer operations the function needs for these specs (see
+    GROUP_HASH_OPS): the decode once per row in any range, visibility
+    once per row and read point, per spec the predicates at the rows
+    they see, the hash and the aggregates at its matching rows."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import group_agg
+
+    flat = group_agg._flat(table)
+    n = flat[4].numel()
+    p_np = params.cpu().numpy()
+    decode = (1 + len(plan.col_ids)) / 4
+    n_reads, vis_rows = visibility_rows(p_np, n)
+    ops = covered_rows(p_np, n) * decode + vis_rows * VISIBILITY_OPS
+    for p in params.tolist():
+        mk = group_agg._row_masks(plan, flat, p)
+        for ps, seen in zip(plan.sig.preds, mk["pred"]):
+            ops += int(seen.sum()) * group_agg._PLANES[ps.kind]
+        per_match = 2 * plan.kp + GROUP_HASH_OPS
+        for ag in plan.sig.aggs:
+            per_match += 2 / 32
+            if ag.kind != "count":
+                per_match += SUM_OPS + sum(
+                    len(group_agg._nodes(f)) + 4 for f in ag.factors)
+        ops += int(mk["m"].sum()) * per_match
+    return ops
+
+
+def measure_k8(plan, table, params, bw: float, rate: float) -> dict:
+    """K8 held byte for byte against its plain version, timed (CUDA
+    events), with its bound: the larger of ``group_bytes`` over the
+    bandwidth and ``group_ops`` over the int32 rate."""
+    from yugabyte_db_tpu_torch.ops import group_agg
+
+    launches0 = group_agg.grouped_aggregate.launches
+    err = k8_exact(plan, table, params)
+    ms = cuda_ms(lambda: group_agg.grouped_aggregate(plan, table, params),
+                 KERNEL_REPS, queue_ahead=True)
+    plain_ms = cuda_ms(
+        lambda: group_agg.grouped_aggregate_plain(plan, table, params),
+        PLAIN_REPS)
+    nbytes = group_agg.group_bytes(plan, table, params)
+    ops = group_ops(plan, table, params)
+    bytes_ms, ops_ms = nbytes / bw * 1e3, ops / rate * 1e3
+    return {"specs": params.shape[0], "rows": table[4].numel(),
+            "bytes": nbytes, "ops": ops, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": err,
+            "launches": group_agg.grouped_aggregate.launches - launches0}
+
+
+def host_answer(schema, versions_by_key: dict, spec):
+    """The spec's rows by the port's host oracle, independent of K8:
+    each key's versions merged at the read point (``merge_versions``),
+    its predicates applied and the ``Aggregator`` fold."""
+    from yugabyte_db_tpu_torch.storage.cpu_engine import (Aggregator,
+                                                          RowMaterializer)
+    from yugabyte_db_tpu_torch.storage.merge import merge_versions
+
+    mat = RowMaterializer(schema)
+    agg = Aggregator(spec.aggregates, spec.group_by or [])
+    for key in sorted(versions_by_key):
+        if not spec.in_range(key):
+            continue
+        merged = merge_versions(key, versions_by_key[key], spec.read_ht)
+        kv = mat.key_values(key)
+        if merged.exists and mat.matches(spec, kv, merged):
+            agg.add(lambda name: mat.value(name, kv, merged))
+    return agg.results()
+
+
+def group_edges(device) -> dict:
+    """K8's edges at GROUP_EDGE_ROWS lineitem rows, each result held
+    against ``host_answer`` and each launch against the plain version:
+    NULLs in a group column; an int32 group column of more than 512
+    values (a collision: re-served on the host); negative bases (negs:
+    re-served on the host); COUNT(col) over NULLs; an empty range; a
+    batch of distinct literals and read points in one launch."""
+    import dataclasses
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import group_agg
+    from yugabyte_db_tpu_torch.storage import (AggSpec, ScanSpec,
+                                               make_engine)
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+
+    schema = workload.lineitem_schema()
+    cid = {c.name: c.col_id for c in schema.columns}
+    rng = np.random.default_rng(17)
+    cols = workload.generate_lineitem(GROUP_EDGE_ROWS, seed=19)
+    rows, max_ht = workload.lineitem_rows(schema, cols)
+    # NULL statuses (5%) and quantities (3%); a negative price (1%) in a
+    # second table of its own.
+    neg_rows = []
+    for r in rows:
+        neg = dict(r.columns)
+        if rng.random() < 0.05:
+            r.columns[cid["l_linestatus"]] = None
+        if rng.random() < 0.03:
+            r.columns[cid["l_quantity"]] = None
+        if rng.random() < 0.01:
+            neg[cid["l_extendedprice"]] = -neg[cid["l_extendedprice"]]
+        neg_rows.append(RowVersion(r.key, ht=r.ht, liveness=True,
+                                   columns=neg))
+    out = {}
+    for label, rs in (("nulls", rows), ("negative", neg_rows)):
+        eng = make_engine("gpu", schema, {"rows_per_block": LINEITEM_R,
+                                          "device": device})
+        eng.apply(rs)
+        eng.flush()
+        by_key = {r.key: [r] for r in rs}
+        read = max_ht + 1
+        cases = {"q1": [workload.q1_spec(read)]}
+        if label == "nulls":
+            cases.update({
+                "null_group": [ScanSpec(
+                    read_ht=read, group_by=["l_linestatus"],
+                    aggregates=[AggSpec("count", None),
+                                AggSpec("sum", "l_quantity")])],
+                "collision": [ScanSpec(
+                    read_ht=read, group_by=["l_shipdate"],
+                    aggregates=[AggSpec("count", None),
+                                AggSpec("sum", "l_tax")])],
+                "count_col": [ScanSpec(
+                    read_ht=read, group_by=["l_returnflag"],
+                    aggregates=[AggSpec("count", "l_quantity"),
+                                AggSpec("count", "l_linestatus"),
+                                AggSpec("sum", "l_quantity")])],
+                "batch": [workload.q1_spec(
+                    max_ht + 1 - GROUP_EDGE_ROWS // 16 * i, 10471 - 150 * i)
+                    for i in range(TPCH_BATCH)],
+            })
+        for case, specs in cases.items():
+            folds0 = eng.grouped_host_folds
+            launches0 = group_agg.grouped_aggregate.launches
+            got = eng.scan_batch(specs)
+            launches = group_agg.grouped_aggregate.launches - launches0
+            for s, g in zip(specs, got):
+                want = host_answer(schema, by_key, s)
+                check(g.rows == want, f"grouped edge {label}/{case}: "
+                                      f"{g.rows[:3]} != {want[:3]}")
+            err = k8_exact(*k8_inputs(eng, specs))
+            folds = eng.grouped_host_folds - folds0
+            check(launches == 1, f"grouped edge {label}/{case}: {launches} "
+                                 "K8 launches, want 1")
+            expect_folds = len(specs) if case == "collision" or \
+                label == "negative" else 0
+            check(folds == expect_folds,
+                  f"grouped edge {label}/{case}: {folds} host folds, want "
+                  f"{expect_folds}")
+            out[f"{label}_{case}"] = {"specs": len(specs),
+                                      "groups": len(got[0].rows),
+                                      "host_folds": folds,
+                                      "max_abs_err": err}
+        if label == "nulls":
+            # An empty range: the engine answers without a launch; K8 on
+            # an empty parameter row leaves every bucket empty.
+            key = workload.lineitem_keys(schema, {
+                "l_orderkey": np.array([3]), "l_linenumber": np.array([2])})[0]
+            spec = dataclasses.replace(workload.q1_spec(read), lower=key,
+                                       upper=key)
+            launches0 = group_agg.grouped_aggregate.launches
+            check(eng.scan(spec).rows == [], "empty range: rows")
+            check(group_agg.grouped_aggregate.launches == launches0,
+                  "empty range: a launch")
+            plan, table, params = k8_inputs(eng, [workload.q1_spec(read)])
+            params[:, 1] = params[:, 0]
+            err = k8_exact(plan, table, params)
+            out["empty_range"] = {"max_abs_err": err}
+    return out
+
+
+def grouped_phase(device, bw: float, rate: float) -> dict:
+    """TPC-H lineitem at LINEITEM_ROWS (SF1) in one flat run, and at
+    MV_LINEITEM_ROWS with MV_LINEITEM_UPDATES zipfian one-field updates in
+    one multi-version run: Q1 and Q6 through the engine against numpy
+    oracles, K8 held against its plain version and timed, its edges."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_agg, group_agg, mvcc_resolve
+
+    ctx = lineitem_engine(device, LINEITEM_ROWS)
+    eng, cols = ctx.eng, ctx.cols
+    read = ctx.max_ht + 1
+    q1, q6 = workload.q1_spec(read), workload.q6_spec(read)
+    want_q1, want_q6 = q1_oracle(cols), q6_oracle(cols)
+    setup = {"rows": LINEITEM_ROWS, "generate_s": ctx.gen_s,
+             "apply_flush_s": ctx.load_s,
+             "device_bytes": eng.stats()["device_bytes"]}
+    print("grouped_setup " + json.dumps(setup))
+
+    # The main path, counted.
+    group_agg.grouped_aggregate.launches = 0
+    flat_agg.flat_aggregate.launches = 0
+    mvcc_resolve.resolve_view.launches = 0
+    got = eng.scan(q1).rows
+    check(got == want_q1, f"Q1 {got} != oracle {want_q1}")
+    got = eng.scan(q6).rows
+    check(got == want_q6, f"Q6 {got} != oracle {want_q6}")
+    lat = {}
+    for name, spec in (("q1", q1), ("q6", q6)):
+        ts = []
+        for _ in range(5):
+            t = time.perf_counter()
+            eng.scan(spec)
+            ts.append(time.perf_counter() - t)
+        lat[name] = statistics.median(ts) * 1e3
+    batches = [[workload.q1_spec(read) for _ in range(TPCH_BATCH)]
+               for _ in range(TPCH_BATCHES)]
+    q = collections.deque()
+    for bt in batches[:TPCH_DEPTH]:
+        q.append(eng.scan_batch_async(bt))
+    while q:
+        q.popleft().finish()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = []
+    for bt in batches:
+        q.append(eng.scan_batch_async(bt))
+        if len(q) > TPCH_DEPTH:
+            done.append(q.popleft().finish())
+    done.extend(b.finish() for b in q)
+    pipe_s = time.perf_counter() - t0
+    for res in done:
+        for r in res:
+            check(r.rows == want_q1, "pipelined Q1 != oracle")
+    launches = group_agg.grouped_aggregate.launches
+    check(launches > 0, "the grouped path launched K8 0 times")
+    check(flat_agg.flat_aggregate.launches == 0,
+          "the grouped path launched K1")
+    check(eng.grouped_host_folds == 0,
+          f"{eng.grouped_host_folds} Q1/Q6 specs re-served on the host")
+    # The profiler has come back without device events late in a long
+    # process: one more try, then the K8 batch's event-timed share below.
+    for _ in range(2):
+        trace = trace_batches(eng, [batches[0]])
+        if trace["device_busy_share"] != "not measured":
+            break
+    row = {"rows": LINEITEM_ROWS, "q1_latency_ms": lat["q1"],
+           "q6_latency_ms": lat["q6"],
+           "q1_pipelined_rows_per_s": LINEITEM_ROWS * TPCH_BATCH
+           * TPCH_BATCHES / pipe_s,
+           "batch": TPCH_BATCH, "batches": TPCH_BATCHES,
+           "depth": TPCH_DEPTH, "launches": launches,
+           "grouped_host_folds": eng.grouped_host_folds,
+           "groups": len(want_q1)}
+    print("grouped " + json.dumps(row))
+
+    # K8 at the main path's shapes, outside the counted run.
+    kern = {}
+    for label, specs in (("q1", [q1]), ("q1_batch", batches[0]),
+                         ("q6", [q6])):
+        kern[label] = measure_k8(*k8_inputs(eng, specs), bw, rate)
+        print(f"grouped_kernel_{label} " + json.dumps(kern[label]))
+    row["kernel"] = kern
+    if trace["device_busy_share"] == "not measured":
+        trace["k8_share_from_events"] = (kern["q1_batch"]["ms"]
+                                         / trace["wall_ms_per_batch"])
+    print("grouped_trace " + json.dumps(trace))
+    row["trace"] = trace
+    del ctx, eng, cols, batches, done
+    torch.cuda.empty_cache()
+
+    # A multi-version run: Q1 at the newest and a mid read point through
+    # the resolve and K8.
+    ctx = lineitem_engine(device, MV_LINEITEM_ROWS, MV_LINEITEM_UPDATES)
+    eng, upd = ctx.eng, ctx.upd
+    trun = eng.runs[0]
+    newest, mid = ctx.max_ht + 1, int(upd["ht"][len(upd["ht"]) // 2])
+    mv = {"rows": MV_LINEITEM_ROWS, "updates": MV_LINEITEM_UPDATES,
+          "versions": trun.crun.num_versions,
+          "max_group_versions": trun.crun.max_group_versions,
+          "generate_s": ctx.gen_s, "apply_flush_s": ctx.load_s}
+    check(not trun.flat, "the updated lineitem run is flat")
+    group_agg.grouped_aggregate.launches = 0
+    mvcc_resolve.resolve_view.launches = 0
+    for label, rd in (("newest", newest), ("mid", mid)):
+        want = q1_oracle(lineitem_at(ctx.cols, upd, rd))
+        got = eng.scan(workload.q1_spec(rd)).rows
+        check(got == want, f"multi-version Q1 at {label}: {got} != {want}")
+        mv[f"{label}_groups"] = len(want)
+    mv["launches"] = {"group_agg": group_agg.grouped_aggregate.launches,
+                      "mvcc_resolve": mvcc_resolve.resolve_view.launches}
+    check(mv["launches"]["group_agg"] > 0 and
+          mv["launches"]["mvcc_resolve"] > 0,
+          f"multi-version Q1 launches {mv['launches']}")
+    check(eng.grouped_host_folds == 0, "multi-version Q1 re-served on host")
+    mv["kernel"] = measure_k8(*k8_inputs(eng, [workload.q1_spec(newest)]),
+                              bw, rate)
+    print("grouped_mvcc " + json.dumps(mv))
+    row["mvcc"] = mv
+    del ctx, eng, trun
+    torch.cuda.empty_cache()
+
+    group_agg.grouped_aggregate.launches = 0
+    row["edges"] = group_edges(device)
+    print("grouped_edges " + json.dumps(row["edges"]))
+    return row
+
+
+GROUP_AB_ROWS = 2_000_000  # lineitem rows of the --group-ab comparison
+
+
+def group_ab(device, bw: float, others: list) -> None:
+    """This tree's K8 (A) against other sources of it (B1, B2, ..., each
+    with the same C interface), on one card: Q1 alone, the 8-spec Q1
+    batch and Q6 over GROUP_AB_ROWS lineitem rows, each kernel held byte
+    for byte against the plain version, then timed in turns A B1 .. Bn
+    Bn .. B1 A (``cuda_ms``)."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import group_agg, native
+
+    procs = []
+    for k, other in enumerate(others):
+        lib = native.BUILD_DIR / f"libgroup_agg-other{k}.so"
+        procs.append((other, lib, subprocess.Popen(
+            [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
+             str(Path(other).resolve())], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    libs = {"A": group_agg._library()}
+    for other, lib, proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"building {other}: {log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {other}: {line.strip()}")
+        libs[other] = group_agg.bind(ctypes.CDLL(str(lib)))
+    own = group_agg._library
+    ctx = lineitem_engine(device, GROUP_AB_ROWS)
+    read = ctx.max_ht + 1
+    q1, q6 = workload.q1_spec(read), workload.q6_spec(read)
+    cases = {"q1": [q1], "q1_batch": [q1] * TPCH_BATCH, "q6": [q6]}
+    order = ["A", *others, *others[::-1], "A"]
+    try:
+        for label, specs in cases.items():
+            plan, table, params = k8_inputs(ctx.eng, specs)
+            want = group_agg.grouped_aggregate_plain(plan, table, params)
+            times = {name: [] for name in libs}
+            for name in order:
+                group_agg._library = lambda lib=libs[name]: lib
+                got = group_agg.grouped_aggregate(plan, table, params)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want),
+                      f"K8 {name} on {label} != plain version")
+                times[name].append(cuda_ms(
+                    lambda: group_agg.grouped_aggregate(plan, table, params),
+                    KERNEL_REPS, queue_ahead=True))
+            nbytes = group_agg.group_bytes(plan, table, params)
+            print("group_ab " + json.dumps({
+                "case": label, "rows": table[4].numel(), "bytes": nbytes,
+                "bytes_ms": nbytes / bw * 1e3, "ms": times}))
+    finally:
+        group_agg._library = own
+
+
+def group_agg_entry(grp: dict) -> dict:
+    """The kernels line's K8 entry: the single Q1 launch at SF1 as the
+    headline, the other shapes beside it."""
+    k = grp["kernel"]
+    q1, mv = k["q1"], grp["mvcc"]
+    err = max([r["max_abs_err"] for r in k.values()]
+              + [mv["kernel"]["max_abs_err"]]
+              + [e["max_abs_err"] for e in grp["edges"].values()])
+    launches = {"grouped": grp["launches"],
+                "grouped_mvcc": mv["launches"]["group_agg"]}
+    return {
+        "name": "group_agg", "route": "cuda",
+        "source": "yugabyte_db_tpu_torch/csrc/group_agg.cu",
+        "replaces": "yugabyte_db_tpu/ops/group_agg.py:139",
+        "launches": sum(launches.values()), "launches_by_path": launches,
+        "max_abs_err": err, "max_abs_diff": err, "ms": q1["ms"],
+        "plain_ms": q1["plain_ms"], "bound_ms": q1["bound_ms"],
+        "bound_by": q1["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes K8 (a hashed "
+                        "bucket table with exact 128-bit product sums)",
+        "q1_batch_ms": k["q1_batch"]["ms"],
+        "q1_batch_bound_ms": k["q1_batch"]["bound_ms"],
+        "q1_batch_plain_ms": k["q1_batch"]["plain_ms"],
+        "q6_ms": k["q6"]["ms"], "q6_bound_ms": k["q6"]["bound_ms"],
+        "q6_plain_ms": k["q6"]["plain_ms"],
+        "mvcc_view_ms": mv["kernel"]["ms"],
+        "mvcc_view_bound_ms": mv["kernel"]["bound_ms"]}
+
+
 def main() -> int:
     import torch
 
@@ -1733,11 +2290,16 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--resolve-ab":
         resolve_ab(device, bw, sys.argv[2].split(","))
         return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--group-ab":
+        group_ab(device, bw, sys.argv[2].split(","))
+        return 0
     kernel_err = kernel_phase(device, bw, rate)
     eng, flat = engine_phase(device, bw, rate)
     mv, mvcc = mvcc_phase(device, bw, rate)
     ov = overlay_phase(device, bw, rate, flat, mvcc)
     del flat, mvcc
+    torch.cuda.empty_cache()
+    grp = grouped_phase(device, bw, rate)
     ovf, ovm = ov["flat"], ov["mvcc"]
     k = eng["kernel"]
     err = max(k["max_abs_err"], kernel_err, mv["kernel"]["max_abs_err"],
@@ -1782,7 +2344,8 @@ def main() -> int:
         "overlay_mid_ms": ovm["resolve"]["mid"]["ms"],
         "overlay_mid_bound_ms": ovm["resolve"]["mid"]["bound_ms"],
         "overlay_long_group_ms": ovm["resolve"]["long"]["ms"],
-        "overlay_long_group_bound_ms": ovm["resolve"]["long"]["bound_ms"]}]}))
+        "overlay_long_group_bound_ms": ovm["resolve"]["long"]["bound_ms"]},
+        group_agg_entry(grp)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -314,3 +314,79 @@ def test_both_sides_get_the_same_multiversion_history(hot):
     assert {w.write_id for w in writes} == {0, 1}
     assert any(v is None for r in prows for v in r.columns.values())
     assert (run.exp_hi != run.exp_hi.max()).any()  # TTLs
+
+
+# -- GROUP BY and expression aggregates ----------------------------------------
+
+# The table of tests/test_group_agg.py (a Q1-like lineitem slice) with a
+# DOUBLE column beside it.
+GROUP_TABLE = [("k", "STRING", "HASH"), ("flag", "STRING", "REGULAR"),
+               ("status", "STRING", "REGULAR"), ("qty", "INT64", "REGULAR"),
+               ("price", "INT64", "REGULAR"), ("disc", "INT8", "REGULAR"),
+               ("tax", "INT8", "REGULAR"), ("d", "INT32", "REGULAR"),
+               ("x", "DOUBLE", "REGULAR")]
+
+
+def group_schema(side):
+    S = side.schema
+    return S.Schema([S.ColumnSchema(name, getattr(S.DataType, dt),
+                                    getattr(S.ColumnKind, kind))
+                     for name, dt, kind in GROUP_TABLE], table_id="li")
+
+
+def group_rows(side, schema, num: int = 3000, seed: int = 7,
+               with_nulls: bool = True, negatives: bool = False,
+               versions: int = 1):
+    """(rows, max_ht) in ``tests/test_group_agg.py``'s ``_load`` shape:
+    ``versions`` full-row writes to each of ``num`` keys, flags A/N/R,
+    statuses F/O, money in cents, discounts and taxes in percent; about
+    5% of quantities NULL (``with_nulls``) and 1% of prices negative
+    (``negatives``); x a double in [0, 100) with ~3% NULL."""
+    RowVersion = side.row_version.RowVersion
+    rng = random.Random(seed)
+    cid = {c.name: c.col_id for c in schema.columns}
+    ht = 10
+    rows = []
+    for i in range(num):
+        key = schema.encode_primary_key(
+            {"k": f"r{i:06d}"},
+            side.partition.compute_hash_code(schema, {"k": f"r{i:06d}"}))
+        for _v in range(versions):
+            ht += 1
+            price = rng.randrange(100, 10_000_00)
+            if negatives and rng.random() < 0.01:
+                price = -price
+            cols = {
+                cid["flag"]: rng.choice(["A", "N", "R"]),
+                cid["status"]: rng.choice(["F", "O"]),
+                cid["qty"]: rng.randrange(1, 51),
+                cid["price"]: price,
+                cid["disc"]: rng.randrange(0, 11),
+                cid["tax"]: rng.randrange(0, 9),
+                cid["d"]: rng.randrange(0, 1000),
+                cid["x"]: (None if rng.random() < 0.03
+                           else rng.uniform(0.0, 100.0)),
+            }
+            if with_nulls and rng.random() < 0.05:
+                cols[cid["qty"]] = None
+            rows.append(RowVersion(key, ht=ht, liveness=True, columns=cols))
+    return rows, ht
+
+
+def jax_rows(rows):
+    """The JAX package's RowVersions of the port's ``rows`` (the same
+    fields)."""
+    RowVersion = j_row_version.RowVersion
+    return [RowVersion(r.key, ht=r.ht, tombstone=r.tombstone,
+                       liveness=r.liveness, columns=dict(r.columns),
+                       expire_ht=r.expire_ht, write_id=r.write_id)
+            for r in rows]
+
+
+def assert_same_rows(want, got, label, scanned=True):
+    """The same columns and rows, every value exact (grouped results),
+    and the same ``rows_scanned`` unless ``scanned`` is False."""
+    assert got.columns == want.columns, label
+    assert got.rows == want.rows, label
+    if scanned:
+        assert got.rows_scanned == want.rows_scanned, label

@@ -22,6 +22,8 @@ import torch
 import yugabyte_db_tpu.storage as J
 import yugabyte_db_tpu.storage.tpu_engine  # noqa: F401  (registers 'tpu')
 import yugabyte_db_tpu_torch.storage as T
+from yugabyte_db_tpu.storage import expr as j_expr
+from yugabyte_db_tpu_torch.storage import expr as t_expr
 from yugabyte_db_tpu_torch.ops import flat_agg, flat_fold, mvcc_resolve
 from test_torch_data import (JAX, MAX_HT, PORT, assert_same, encode_key,
                              flat_rows, make_schema, multiversion_rows)
@@ -125,9 +127,6 @@ def test_out_of_slice_specs_raise(engines):
     for spec in [
         T.ScanSpec(read_ht=top),                                 # row scan
         T.ScanSpec(read_ht=top, limit=5),
-        T.ScanSpec(read_ht=top, aggregates=count, group_by=["b"]),
-        T.ScanSpec(read_ht=top, aggregates=[
-            T.AggSpec("sum", None, expr=("mul", "a", "d"))]),
         T.ScanSpec(read_ht=top, aggregates=count,
                    predicates=[T.Predicate("b", "=", "xy")]),
         T.ScanSpec(read_ht=top, aggregates=count,
@@ -139,6 +138,41 @@ def test_out_of_slice_specs_raise(engines):
     ]:
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             gpu.scan(spec)
+
+
+def test_grouped_and_expression_specs_match_cpu_and_tpu(engines):
+    """GROUP BY and expression aggregates, once refused, are served as the
+    JAX engines serve them: a group column of more than 512 values (its
+    collisions re-served on the host), a narrow one through K8, and an
+    expression sum."""
+    e = engines
+    top = e["max_ht"] + 1
+
+    def specs(S, X):
+        times3 = X.BinOp("*", X.Col("a"), X.Const(3))
+        return {
+            "group_d": S.ScanSpec(read_ht=top, group_by=["d"], aggregates=[
+                S.AggSpec("count", None), S.AggSpec("sum", "a"),
+                S.AggSpec("count", "c")]),
+            "group_d_narrow": S.ScanSpec(
+                read_ht=top, group_by=["d"],
+                predicates=[S.Predicate("d", ">=", 900_000)],
+                aggregates=[S.AggSpec("count", None),
+                            S.AggSpec("sum", "a")]),
+            "expr": S.ScanSpec(read_ht=top, aggregates=[
+                S.AggSpec("sum", None, expr=times3),
+                S.AggSpec("count", None)]),
+        }
+
+    want = specs(J, j_expr)
+    for label, spec in specs(T, t_expr).items():
+        got = e["gpu"].scan(spec)
+        w = e["tpu"].scan(want[label])
+        assert (got.columns, got.rows, got.rows_scanned) == \
+            (w.columns, w.rows, w.rows_scanned), label
+        c = e["cpu"].scan(want[label])
+        assert (got.columns, got.rows) == (c.columns, c.rows), label
+    assert len(e["gpu"].scan(specs(T, t_expr)["group_d"]).rows) > 512
 
 
 def test_multi_source_and_multi_version_runs_raise():

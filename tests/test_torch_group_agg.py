@@ -1,0 +1,418 @@
+"""K8 (``ops.group_agg``) and the ``gpu`` engine's grouped route against
+the JAX package.
+
+- The plain version against the JAX program ``compiled_grouped`` on the
+  CPU backend, on the same planes (the JAX engine's run uploaded to the
+  port), bucket by bucket: count, rep, key minima and maxima, scanned,
+  negs, each COUNT and n exactly, and each sum decoded to a Python int
+  (where no negative input voids the JAX program's digit sums). On a
+  flat run, and on a multi-version run through ``resolve_view_plain``.
+- The engine (``device="cpu"``) against the JAX ``tpu`` and ``cpu``
+  engines on every case of ``tests/test_group_agg.py`` and a few more:
+  the same columns and rows exactly, and the ``tpu`` engine's
+  ``rows_scanned``.
+- The refusals that stay (ROADMAP.md §1 item 7), one launch per batch of
+  same-signature specs, ``lower_product`` / ``bounds`` against the JAX
+  package's, and the launch geometry.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import yugabyte_db_tpu.storage as J
+import yugabyte_db_tpu.storage.tpu_engine  # noqa: F401  (registers 'tpu')
+import yugabyte_db_tpu_torch.storage as T
+from test_torch_data import (JAX, MAX_HT, PORT, assert_same_rows, flat_rows,
+                             group_rows, group_schema, jax_rows, make_schema,
+                             plain_planes, reference_planes)
+from yugabyte_db_tpu.models.datatypes import DataType as JDT
+from yugabyte_db_tpu.ops import group_agg as j_group_agg
+from yugabyte_db_tpu.storage import expr as JX
+from yugabyte_db_tpu_torch.models.datatypes import DataType as TDT
+from yugabyte_db_tpu_torch.ops import group_agg, mvcc_resolve
+from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+from yugabyte_db_tpu_torch.storage import expr as TX
+
+R = 64
+NB = group_agg.NUM_BUCKETS
+PAD_BLOCKS = 64  # both engines pad a run's block axis to this multiple
+
+
+def expr(X, e):
+    """A storage.expr tree of ``X``'s package from a nested tuple: a str
+    is a column, an int a constant, (op, left, right) a BinOp."""
+    if isinstance(e, str):
+        return X.Col(e)
+    if isinstance(e, int):
+        return X.Const(e)
+    return X.BinOp(e[0], expr(X, e[1]), expr(X, e[2]))
+
+
+def build(S, X, kw: dict):
+    """``S.ScanSpec`` from keyword arguments with (fn, column, expression
+    tuple or None, label) aggregates and (column, op, value) predicates."""
+    kw = dict(kw)
+    kw["aggregates"] = [
+        S.AggSpec(fn, col, expr=None if e is None else expr(X, e),
+                  label=label) for fn, col, e, label in kw["aggregates"]]
+    kw["predicates"] = [S.Predicate(*p) for p in kw.get("predicates", [])]
+    return S.ScanSpec(**kw)
+
+
+DISC_PRICE = ("*", "price", ("-", 100, "disc"))
+Q1_AGGS = [("count", None, None, "n"), ("sum", "qty", None, "sum_qty"),
+           ("sum", "price", None, "sum_price"),
+           ("sum", None, DISC_PRICE, "sum_disc_price"),
+           ("sum", None, ("*", DISC_PRICE, ("+", 100, "tax")), "sum_charge")]
+
+
+def load(rows):
+    """The JAX ``tpu`` and ``cpu`` engines and the port's ``gpu`` engine
+    (plain versions on the CPU), each with ``rows`` applied and flushed
+    into one run."""
+    with plain_planes():
+        tpu = J.make_engine("tpu", group_schema(JAX), {"rows_per_block": R})
+        cpu = J.make_engine("cpu", group_schema(JAX))
+        for eng in (tpu, cpu):
+            eng.apply(jax_rows(rows))
+            eng.flush()
+    gpu = T.make_engine("gpu", group_schema(PORT), {"rows_per_block": R,
+                                                     "device": "cpu"})
+    gpu.apply(rows)
+    gpu.flush()
+    return {"tpu": tpu, "cpu": cpu, "gpu": gpu}
+
+
+def null_statuses(rows, max_ht):
+    """``rows`` plus, at the next hybrid time, a NULL status written to
+    every 7th key: ``tests/test_group_agg.py``'s NULL group values."""
+    schema = group_schema(PORT)
+    status = schema.column("status").col_id
+    keys = list(dict.fromkeys(r.key for r in rows))
+    return rows + [PORT.row_version.RowVersion(k, ht=max_ht + 1,
+                                                columns={status: None})
+                   for k in keys[::7]], max_ht + 1
+
+
+@pytest.fixture(scope="module")
+def tables():
+    """The three tables of ``tests/test_group_agg.py``: flat with NULLs
+    (and NULL group values written over it, in the same run), one with
+    negative prices, and three versions a key."""
+    flat, ht = null_statuses(*group_rows(PORT, group_schema(PORT), 1500))
+    neg, neg_ht = group_rows(PORT, group_schema(PORT), 800, negatives=True)
+    mv, mv_ht = group_rows(PORT, group_schema(PORT), 300, versions=3)
+    return {"flat": (load(flat), ht), "negative": (load(neg), neg_ht),
+            "mv": (load(mv), mv_ht)}
+
+
+def cases(ht: dict) -> list:
+    """(label, table, spec keyword arguments) of every case."""
+    f, n, m = ht["flat"], ht["negative"], ht["mv"]
+    return [
+        ("q1_shape", "flat", dict(read_ht=f + 1, aggregates=Q1_AGGS,
+                                  group_by=["flag", "status"],
+                                  predicates=[("d", "<", 900)])),
+        ("q6_shape", "flat", dict(read_ht=f + 1, aggregates=[
+            ("sum", None, ("*", "price", "disc"), "revenue")],
+            predicates=[("qty", "<", 25), ("d", ">=", 100)])),
+        ("null_group", "flat", dict(read_ht=f + 1, group_by=["status"],
+                                    aggregates=[("count", None, None, None),
+                                                ("sum", "qty", None, None)])),
+        ("before_nulls", "flat", dict(read_ht=f - 1, group_by=["status"],
+                                      aggregates=[("count", None, None,
+                                                   None)])),
+        ("int32_group_count_col", "flat", dict(
+            read_ht=f + 1, group_by=["disc"],
+            aggregates=[("count", "qty", None, None),
+                        ("sum", "price", None, None)])),
+        ("f64_pred", "flat", dict(read_ht=f + 1, group_by=["flag"],
+                                  aggregates=[("count", "x", None, None),
+                                              ("sum", "d", None, None)],
+                                  predicates=[("x", ">=", 50.0)])),
+        ("negative_base", "negative", dict(
+            read_ht=n + 1, group_by=["flag"],
+            aggregates=[("sum", "price", None, None),
+                        ("sum", None, DISC_PRICE, None)])),
+        ("mv_current", "mv", dict(read_ht=m + 1, group_by=["flag", "status"],
+                                  aggregates=[("count", None, None, None),
+                                              ("sum", "price", None, None)])),
+        ("mv_historical", "mv", dict(read_ht=m - 300, group_by=["flag"],
+                                     aggregates=[("sum", "qty", None,
+                                                  None)])),
+        ("mv_q1", "mv", dict(read_ht=m - 100, aggregates=Q1_AGGS,
+                             group_by=["flag", "status"],
+                             predicates=[("d", ">=", 250)])),
+    ]
+
+
+CASE_LABELS = [c[0] for c in cases({"flat": 0, "negative": 0, "mv": 0})]
+
+
+def case(tables, label):
+    ht = {name: t[1] for name, t in tables.items()}
+    _l, table, kw = next(c for c in cases(ht) if c[0] == label)
+    return tables[table][0], kw
+
+
+@pytest.mark.parametrize("label", CASE_LABELS)
+def test_plain_version_matches_jax_bucket_by_bucket(tables, label):
+    e, kw = case(tables, label)
+    jspec, pspec = build(J, JX, kw), build(T, TX, kw)
+    tpu, gpu = e["tpu"], e["gpu"]
+    jrun = tpu.runs[0]
+    exact, _superset, _host = tpu._split_predicates(jspec)
+    kind, (jsig, ip, fp) = tpu._grouped_prep(jrun, jspec, exact)
+    assert kind == "params"
+    want = jax.device_get(j_group_agg.compiled_grouped(jsig)(
+        jrun.dev.arrays, ip, fp))
+    prep = gpu._plan_scan(pspec)
+    assert prep.route == ("grouped" if jsig.flat else "mv_grouped")
+    plan = group_agg.make_plan(prep.sig)
+    arrays = DeviceRun.from_reference_planes(
+        reference_planes(jrun.crun, PAD_BLOCKS), R, "cpu").arrays
+    if prep.view_key is not None:
+        arrays = mvcc_resolve.resolve_view_plain(
+            arrays, *prep.read_planes, mvcc_resolve.constant_planes(
+                arrays["valid"].shape[0], R, "cpu"))
+    params = torch.tensor([plan.param_row(prep.row_lo, prep.row_hi,
+                                          prep.read_planes, prep.lits)],
+                          dtype=torch.int32)
+    got = group_agg.grouped_aggregate(plan, plan.plane_table(arrays),
+                                      params)[0].numpy()
+    kp = plan.kp
+    assert kp == want["keymin"].shape[1]
+    np.testing.assert_array_equal(got[:NB, 0], want["count"][:NB])
+    np.testing.assert_array_equal(got[:NB, 1], want["rep"][:NB])
+    np.testing.assert_array_equal(got[:NB, 2:2 + kp], want["keymin"][:NB])
+    np.testing.assert_array_equal(got[:NB, 2 + kp:2 + 2 * kp],
+                                  want["keymax"][:NB])
+    assert got[NB, 0] == int(want["scanned"]) > 0
+    assert got[NB, 1] == int(want["negs"])
+    assert (int(want["negs"]) > 0) == (label == "negative_base")
+    for i, (ga, off) in enumerate(zip(plan.sig.aggs, plan.offsets)):
+        if ga.kind == "count":
+            np.testing.assert_array_equal(got[:NB, off], want[f"a{i}"][:NB])
+            continue
+        np.testing.assert_array_equal(got[:NB, off], want[f"n{i}"][:NB])
+        if int(want["negs"]):
+            continue
+        for b in np.nonzero(want["count"][:NB])[0]:
+            digits = want[f"a{i}"][b]
+            assert plan.sum_value(got[b], i) == sum(
+                int(d) << (16 * k) for k, d in enumerate(digits)), (i, b)
+    assert (got[:NB, 0] > 0).sum() >= 1
+
+
+@pytest.mark.parametrize("label", CASE_LABELS)
+def test_engine_matches_jax_engines(tables, label):
+    e, kw = case(tables, label)
+    folds0 = e["gpu"].grouped_host_folds
+    got = e["gpu"].scan(build(T, TX, kw))
+    want = e["tpu"].scan(build(J, JX, kw))
+    assert_same_rows(want, got, label)
+    assert_same_rows(e["cpu"].scan(build(J, JX, kw)), got, label,
+                     scanned=False)
+    # Negative bases re-serve on the host, as the JAX engine does; the
+    # int32 column's 11 values and the rest hash without a collision.
+    assert e["gpu"].grouped_host_folds - folds0 == (
+        1 if label == "negative_base" else 0)
+    if label == "int32_group_count_col":
+        assert len(got.rows) == 11
+    if label == "q1_shape":
+        assert len(got.rows) == 9  # 3 flags x (F, O, NULL)
+
+
+def test_collision_is_reserved_on_the_host(tables):
+    """More than NUM_BUCKETS distinct group values collide; the spec is
+    re-served by the host fold and stays exact."""
+    e, _kw = case(tables, "q1_shape")
+    kw = dict(read_ht=tables["flat"][1] + 1, group_by=["d"],
+              aggregates=[("count", None, None, None),
+                          ("sum", None, DISC_PRICE, None)],
+              predicates=[("qty", ">", 3)])
+    folds0 = e["gpu"].grouped_host_folds
+    got = e["gpu"].scan(build(T, TX, kw))
+    assert e["gpu"].grouped_host_folds == folds0 + 1
+    assert len(got.rows) > NB
+    assert_same_rows(e["tpu"].scan(build(J, JX, kw)), got, "collision")
+    assert_same_rows(e["cpu"].scan(build(J, JX, kw)), got, "collision",
+                     scanned=False)
+
+
+def test_bounds_and_empty_ranges_match_jax(tables):
+    e, kw = case(tables, "q1_shape")
+    crun = e["gpu"].runs[0].crun
+    lo, hi = crun.key_at(R + 5), crun.key_at(5 * R + 17)
+    for lower, upper in ((lo, hi), (hi, lo), (lo, lo), (b"", lo)):
+        for with_group in (True, False):
+            k = dict(kw, lower=lower, upper=upper)
+            if not with_group:
+                k.pop("group_by")
+            got = e["gpu"].scan(build(T, TX, k))
+            assert_same_rows(e["tpu"].scan(build(J, JX, k)), got,
+                             (lower, upper))
+            assert_same_rows(e["cpu"].scan(build(J, JX, k)), got,
+                             (lower, upper), scanned=False)
+
+
+def test_batch_of_literals_and_read_points_is_one_launch(monkeypatch):
+    """On a flat run every read point reads the same planes: one K8
+    launch serves the batch."""
+    rows, ht = group_rows(PORT, group_schema(PORT), 900, seed=11)
+    e = load(rows)
+    assert e["gpu"].runs[0].flat
+    kw = dict(aggregates=Q1_AGGS, group_by=["flag", "status"])
+    specs = [dict(kw, read_ht=ht + 1 - 97 * i,
+                  predicates=[("d", "<", 900 - 50 * i)]) for i in range(6)]
+    specs.append(dict(kw, read_ht=ht + 1, predicates=[("d", "<", 10)]))
+    calls = []
+    wrapper = group_agg.grouped_aggregate
+
+    def counted(plan, table, params):
+        calls.append(params.shape[0])
+        return wrapper(plan, table, params)
+
+    monkeypatch.setattr(group_agg, "grouped_aggregate", counted)
+    got = e["gpu"].scan_batch([build(T, TX, k) for k in specs])
+    assert calls == [len(specs)]
+    want = e["tpu"].scan_batch([build(J, JX, k) for k in specs])
+    for k, g, w in zip(specs, got, want):
+        assert_same_rows(w, g, k["read_ht"])
+
+
+def test_memtable_before_the_first_flush_matches_jax():
+    rows, ht = group_rows(PORT, group_schema(PORT), 300, seed=3)
+    tpu = J.make_engine("tpu", group_schema(JAX), {"rows_per_block": R})
+    tpu.apply(jax_rows(rows))
+    gpu = T.make_engine("gpu", group_schema(PORT), {"rows_per_block": R,
+                                                     "device": "cpu"})
+    gpu.apply(rows)
+    kw = dict(read_ht=ht + 1, aggregates=Q1_AGGS, group_by=["status"],
+              predicates=[("d", "<", 700)])
+    assert_same_rows(tpu.scan(build(J, JX, kw)),
+                     gpu.scan(build(T, TX, kw)), "memtable")
+    assert gpu.memtable_scans == 1
+
+
+def test_refusals_name_item_7():
+    """A key group column, string group values past 8 bytes, MIN under
+    GROUP BY, an expression the device cannot lower and a grouped scan
+    over several sources raise naming ROADMAP.md §1 item 7."""
+    ps = make_schema(PORT, "mixed")
+    rows, ht = flat_rows(PORT, ps, 300, seed=2)
+    gpu = T.make_engine("gpu", ps, {"rows_per_block": R, "device": "cpu"})
+    gpu.apply(rows)
+    gpu.flush()
+    count = [T.AggSpec("count", None)]
+    refused = [
+        T.ScanSpec(read_ht=ht + 1, aggregates=count, group_by=["k"]),
+        T.ScanSpec(read_ht=ht + 1, aggregates=count, group_by=["b"]),
+        T.ScanSpec(read_ht=ht + 1, aggregates=[T.AggSpec("min", "a")],
+                   group_by=["d"]),
+        T.ScanSpec(read_ht=ht + 1, aggregates=[T.AggSpec(
+            "sum", None, expr=TX.BinOp("*", TX.Col("a"), TX.Col("d")))]),
+    ]
+    for spec in refused:
+        with pytest.raises(NotImplementedError, match="item 7"):
+            gpu.scan(spec)
+    gpu.apply(flat_rows(PORT, ps, 5, seed=3)[0])  # a live memtable
+    with pytest.raises(NotImplementedError, match="item 7"):
+        gpu.scan(T.ScanSpec(read_ht=MAX_HT, aggregates=count,
+                            group_by=["d"]))
+
+
+DTYPES = {"qty": "INT64", "price": "INT64", "disc": "INT8", "tax": "INT8",
+          "d": "INT32", "x": "DOUBLE", "flag": "STRING", "small": "INT16",
+          "ok": "BOOL"}
+EXPRS = [
+    DISC_PRICE, ("*", DISC_PRICE, ("+", 100, "tax")), ("*", "price", "disc"),
+    ("*", "d", ("-", 100, "disc")), ("*", "qty", "d"), ("*", "price", "x"),
+    ("*", "price", ("*", "small", "disc")), ("*", "price", "small"),
+    ("*", "price", "ok"), ("*", ("*", "price", "disc"), ("*", "tax", "ok")),
+    ("*", "disc", "tax"), ("+", "price", "disc"), "price",
+    ("*", ("*", ("*", "price", "disc"), "tax"), "ok"),
+    ("*", "price", ("-", "disc", "tax")), ("*", "price", "flag"),
+]
+
+
+def _tuple(X, e):
+    """An expression of either package back to the nested-tuple form."""
+    if isinstance(e, X.Col):
+        return e.name
+    if isinstance(e, X.Const):
+        return e.value
+    return (e.op, _tuple(X, e.left), _tuple(X, e.right))
+
+
+@pytest.mark.parametrize("e", EXPRS, ids=str)
+def test_lower_product_and_bounds_match_jax(e):
+    def j_dtype(name):
+        return getattr(JDT, DTYPES[name])
+
+    def t_dtype(name):
+        return getattr(TDT, DTYPES[name])
+
+    want = JX.lower_product(expr(JX, e), j_dtype)
+    got = TX.lower_product(expr(TX, e), t_dtype)
+    if want is None:
+        assert got is None
+    else:
+        assert got[0] == want[0]
+        assert [_tuple(TX, f) for f in got[1]] == \
+            [_tuple(JX, f) for f in want[1]]
+    try:
+        jb = JX.bounds(expr(JX, e), j_dtype)
+    except ValueError:
+        with pytest.raises(ValueError):
+            TX.bounds(expr(TX, e), t_dtype)
+    else:
+        assert TX.bounds(expr(TX, e), t_dtype) == jb
+
+
+def test_launch_geometry():
+    q1 = 512 * (16 * 4 + 4 * (2 + 2 * 6 + 5))  # TPC-H Q1's bucket table
+    assert q1 == 71_680
+    geo = group_agg.launch_geometry(1, 6_001_215, q1, 132, 3)
+    assert geo == group_agg.Geometry(256, 1, 3 * 132, q1)
+    # One wave: 8 specs x 49 slices fill 392 of the 396 resident blocks.
+    geo = group_agg.launch_geometry(8, 6_001_215, q1, 132, 3)
+    assert (geo.specs, geo.slices) == (8, 49)
+    assert group_agg.launch_geometry(8, 6_001_215, q1, 132, 2).slices == 33
+    geo = group_agg.launch_geometry(1, 10_000, q1, 132, 3)
+    assert geo.slices == 3  # no slice under MIN_BLOCK_ROWS rows
+    assert group_agg.launch_geometry(1, 0, q1, 132, 3).slices == 1
+    assert group_agg.launch_geometry(1000, 10**8, q1, 132, 2).slices == 1
+    with pytest.raises(ValueError):
+        group_agg.launch_geometry(0, 100, q1, 132, 3)
+    with pytest.raises(ValueError):
+        group_agg.launch_geometry(65536, 100, q1, 132, 3)
+    with pytest.raises(ValueError):
+        group_agg.launch_geometry(1, 100, group_agg.SMEM_LIMIT + 1, 132, 1)
+    with pytest.raises(ValueError):
+        group_agg.launch_geometry(1, 100, q1, 132, 0)
+
+
+def test_plan_layout_and_descriptor(tables):
+    e, kw = case(tables, "q1_shape")
+    prep = e["gpu"]._plan_scan(build(T, TX, kw))
+    plan = group_agg.make_plan(prep.sig)
+    assert plan.kp == 6 and plan.n_out == 2 + 12 + 1 + 4 * 3
+    assert plan.smem_bytes == 71_680
+    assert plan.n_params == group_agg.PARAM_HEAD + 1
+    table = plan.plane_table(e["gpu"].runs[0].dev.arrays)
+    w = plan.descriptor(table)
+    assert len(w) == group_agg.DESC_WORDS
+    assert list(w[:7]) == [len(plan.col_ids), 1, 2, 5, plan.n_params, 6,
+                           plan.n_out]
+    # sum_disc_price's factor (100 - disc) in postfix: 100, disc, -.
+    at = (7 + group_agg.MAX_COLS + 4 * group_agg.MAX_PREDS
+          + 2 * group_agg.MAX_GROUP + 6 * group_agg.MAX_AGGS
+          + 2 * group_agg.MAX_NODES * group_agg.MAX_FACTORS * 3)
+    disc = plan.slot[group_schema(PORT).column("disc").col_id]
+    assert list(w[at:at + 8]) == [1, 100, 2, disc, 4, 0, 0, 0]
+    assert not group_agg.eligible(group_agg.GroupAggSig(
+        NB, prep.sig.cols, prep.sig.preds, prep.sig.group_cols * 3,
+        prep.sig.aggs))  # more group columns than the descriptor holds

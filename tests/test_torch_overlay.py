@@ -33,11 +33,13 @@ from yugabyte_db_tpu.ops import lookback_fold as j_lookback_fold
 from yugabyte_db_tpu.ops import scan as j_scan
 from yugabyte_db_tpu.ops import seg_fold as j_seg_fold
 from yugabyte_db_tpu.storage import cpu_engine as j_cpu_engine
+from yugabyte_db_tpu.storage import expr as j_expr
 from yugabyte_db_tpu_torch.ops import agg_fold, flat_agg, flat_fold
 from yugabyte_db_tpu_torch.ops import mvcc_resolve
 from yugabyte_db_tpu_torch.ops import scan as t_scan
 from yugabyte_db_tpu_torch.ops.device_run import DeviceRun, dtype_kind
 from yugabyte_db_tpu_torch.storage import cpu_engine as t_cpu_engine
+from yugabyte_db_tpu_torch.storage import expr as t_expr
 from yugabyte_db_tpu_torch.storage import gpu_engine
 from yugabyte_db_tpu_torch.utils import planes as P
 
@@ -467,9 +469,29 @@ def test_row_materializer_and_aggregator_match_jax():
         (want,), (got,) = out["jax"][2], out["port"][2]
         assert got[:3] + got[4:] == want[:3] + want[4:]
         assert got[3] == pytest.approx(want[3], rel=1e-12)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        t_cpu_engine.Aggregator([T.AggSpec("sum", None, expr=("mul", "a",
-                                                              "d"))], [])
+    # Expression aggregates under GROUP BY: the expression evaluated in
+    # Python integers, NULL contagious, as the JAX Aggregator does.
+    out = {}
+    for side, mem, mat, mod, X, S in (
+            ("jax", jm, jmat, j_cpu_engine, j_expr, J),
+            ("port", pm, tmat, t_cpu_engine, t_expr, T)):
+        tree = X.BinOp("*", X.Col("a"), X.BinOp("-", X.Const(100),
+                                                X.Col("d")))
+        agg = mod.Aggregator([
+            S.AggSpec("sum", None, expr=tree, label="s"),
+            S.AggSpec("count", None, expr=tree),
+            S.AggSpec("max", None, expr=X.BinOp("+", X.Col("d"),
+                                                X.Col("r"))),
+            S.AggSpec("count", None)], ["r"])
+        for key in mem.scan_keys(b"", b""):
+            merged = mem.merged(key, MAX_HT)
+            kv = mat.key_values(key)
+            if merged.exists:
+                agg.add(lambda n, kv=kv, m=merged: mat.value(n, kv, m))
+        out[side] = (agg.column_names(), agg.results())
+    assert out["port"] == out["jax"]
+    # A NULL d leaves its row out of count(expr) but not of count(*).
+    assert any(r[2] < r[4] for r in out["port"][1])
 
 
 def test_scatter_invalid_leaves_its_source():

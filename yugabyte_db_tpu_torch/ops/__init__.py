@@ -4,6 +4,11 @@
   (``csrc/flat_agg.cu``) with its plain PyTorch version;
 - ``flat_fold``: the same fold in plain PyTorch for the signatures the
   kernel does not take (f64 predicates, float aggregates);
+- ``mvcc_resolve`` / ``seg_fold``: a multi-version run resolved into a
+  flat view (CUDA kernel ``csrc/mvcc_resolve.cu``) and its plain version;
+- ``group_agg``: GROUP BY and expression aggregates, the bucket-table
+  fold as a CUDA kernel (``csrc/group_agg.cu``) with its plain version;
+- ``native``: builds and loads the CUDA kernels;
 - ``device_run``: a run's planes resident on the engine's device;
 - ``scan`` / ``agg_fold``: the static signatures and the host-side
   packing/finalize shared with the JAX package's layout.

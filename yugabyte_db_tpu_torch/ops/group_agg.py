@@ -1,0 +1,621 @@
+"""GROUP BY and expression aggregates: the bucket-table fold K8, the CUDA
+kernel and its plain version.
+
+Counterpart of the JAX package's ``ops/group_agg.py``
+``grouped_aggregate`` (an XLA program), which becomes
+``csrc/group_agg.cu`` here (its source note says how the design differs).
+For each spec of a launch it folds the rows of a flat run (or of a
+multi-version run's resolved view, ``ops.mvcc_resolve``) that are visible
+at the spec's read point, lie in its row range and pass its predicates
+into a table of ``NUM_BUCKETS`` buckets, keyed by a hash of the group
+columns' order planes:
+
+- per bucket: the row count, ``rep`` (the smallest matching row: on a
+  view, its key group's first row), the min and max of every key plane
+  (a bucket whose min and max differ holds two groups: a collision), and
+  per aggregate its COUNT, or for a SUM ``n`` (rows whose inputs are all
+  non-NULL) and the exact sum of ``base * f1 [* f2]`` as a 128-bit
+  integer (two int64 words, low and high);
+- per spec: ``scanned`` (rows that exist in range, before predicates:
+  the JAX program's ``pre_pred``) and ``negs`` (rows where a sum's base or
+  a factor is negative; the engine re-serves those specs on the host, as
+  the JAX engine does).
+
+The bucket hash is the JAX program's, bit for bit: FNV-style over each
+group column's planes (zeroed when NULL) and its null flag, then the
+murmur3 fmix step, modulo ``NUM_BUCKETS``.
+
+- ``GAgg`` / ``GroupAggSig``: the JAX package's dataclasses without the
+  window fields (B, R, K, flat, apply_preds) that only the XLA program
+  needs; the port always folds flat planes with predicates applied;
+- ``make_plan``: a signature's descriptor, ``[N, P]`` parameter rows and
+  output layout; ``eligible``: whether the descriptor takes it;
+- ``grouped_aggregate``: the wrapper. On CUDA tensors it launches the
+  kernel (or raises); on CPU tensors it runs ``grouped_aggregate_plain``.
+  Either returns ``[N, NUM_BUCKETS + 1, S]`` int64 (row ``NUM_BUCKETS``
+  holds ``scanned`` and ``negs``); ``grouped_aggregate.launches`` counts
+  launches;
+- ``launch_geometry``: the launch shape, pure Python;
+- ``group_bytes``: the bytes the function must move, for the bound.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from yugabyte_db_tpu_torch.ops import native
+from yugabyte_db_tpu_torch.ops.scan import I32_MAX, I32_MIN, le2
+
+NUM_BUCKETS = 512
+# Descriptor limits and launch shape; csrc/group_agg.cu holds the same
+# constants.
+MAX_COLS = 16
+MAX_PREDS = 8
+MAX_GROUP = 4        # group columns
+MAX_AGGS = 8
+MAX_FACTORS = 2      # small factors of one sum
+MAX_NODES = 8        # postfix nodes of one factor
+THREADS = 256
+MIN_BLOCK_ROWS = 16 * THREADS  # rows a block takes at least
+SMEM_LIMIT = 232_448  # shared-memory bytes a block may use
+_HEAD = 7
+DESC_WORDS = (_HEAD + MAX_COLS + 4 * MAX_PREDS + 2 * MAX_GROUP + 6 * MAX_AGGS
+              + 2 * MAX_NODES * MAX_FACTORS * MAX_AGGS)
+PARAM_HEAD = 6  # row_lo, row_hi, read_hi, read_lo, rexp_hi, rexp_lo
+
+_OP = {"=": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
+_PLANES = {"i32": 1, "i64": 2, "f64": 2}  # predicate kinds the kernel takes
+# Factor nodes (postfix): end, constant, column, +, -, *.
+_NODE = {"k": 1, "c": 2, "+": 3, "-": 4, "*": 5}
+# Hash constants of the JAX program, as uint32.
+HASH_SEED = 0x01000193
+HASH_MUL = -2128831035 & 0xFFFFFFFF
+MIX_MUL = -2048144789 & 0xFFFFFFFF
+
+
+@dataclass(frozen=True)
+class GAgg:
+    kind: str            # 'count' | 'sum_prod'
+    col_id: int | None   # count: the column (None: COUNT(*)); sum: the base
+    planes: int = 1      # base column plane count (1 = i32, 2 = i64)
+    factors: tuple = ()  # sum_prod: factor tuples ("k", v) | ("c", cid) |
+    #                      (op, left, right), op in "+-*"
+    need_cols: tuple = ()  # col_ids whose non-NULL gates the row
+
+
+@dataclass(frozen=True)
+class GroupAggSig:
+    NB: int
+    cols: tuple          # tuple[ColSig]: every value column (existence)
+    preds: tuple         # tuple[PredSig]
+    group_cols: tuple    # tuple[(col_id, planes)]
+    aggs: tuple          # tuple[GAgg]
+
+
+def _nodes(expr) -> list:
+    if expr[0] in ("k", "c"):
+        return [expr]
+    return _nodes(expr[1]) + _nodes(expr[2]) + [(expr[0],)]
+
+
+def eligible(sig: GroupAggSig) -> bool:
+    """Whether the kernel's descriptor takes ``sig``."""
+    if len(sig.cols) > MAX_COLS or len(sig.preds) > MAX_PREDS or \
+            len(sig.group_cols) > MAX_GROUP or len(sig.aggs) > MAX_AGGS:
+        return False
+    if any(p.kind not in _PLANES or p.op not in _OP for p in sig.preds):
+        return False
+    for ag in sig.aggs:
+        if len(ag.factors) > MAX_FACTORS or any(
+                len(_nodes(f)) > MAX_NODES for f in ag.factors):
+            return False
+    return smem_bytes(sig) <= SMEM_LIMIT
+
+
+def key_planes(sig: GroupAggSig) -> int:
+    """KP: key planes a bucket keeps (each group column's order planes
+    and its null flag), at least 1 as in the JAX program."""
+    return max(1, sum(p + 1 for _c, p in sig.group_cols))
+
+
+def smem_bytes(sig: GroupAggSig) -> int:
+    """A block's bucket table in shared memory: per bucket two 64-bit
+    words a sum, and 32-bit words for the count, rep, key minima and
+    maxima and each aggregate's count or n."""
+    n_sums = sum(1 for a in sig.aggs if a.kind != "count")
+    n32 = 2 + 2 * key_planes(sig) + len(sig.aggs)
+    return sig.NB * (16 * n_sums + 4 * n32)
+
+
+@functools.lru_cache(maxsize=256)
+def make_plan(sig: GroupAggSig) -> GroupAggPlan:
+    return GroupAggPlan(sig)
+
+
+class GroupAggPlan:
+    """Static layout of one signature: column slots, parameter-row and
+    output-row layouts, and the kernel's descriptor."""
+
+    def __init__(self, sig: GroupAggSig):
+        if sig.NB != NUM_BUCKETS:
+            raise ValueError(f"the kernel has {NUM_BUCKETS} buckets")
+        if not eligible(sig):
+            raise ValueError("signature exceeds the kernel's descriptor")
+        self.sig = sig
+        self.col_ids = tuple(cs.col_id for cs in sig.cols)
+        self.slot = {cid: i for i, cid in enumerate(self.col_ids)}
+        used = [p.col_id for p in sig.preds] + [c for c, _p in sig.group_cols]
+        for a in sig.aggs:
+            used += list(a.need_cols) + ([a.col_id] if a.col_id is not None
+                                         else [])
+        if any(cid not in self.slot for cid in used):
+            raise ValueError("a predicate, group column or aggregate reads a "
+                             "column missing from the signature's columns")
+        self.lit_offsets = []
+        off = PARAM_HEAD
+        for p in sig.preds:
+            self.lit_offsets.append(off)
+            off += _PLANES[p.kind]
+        self.n_params = off
+        self.kp = key_planes(sig)
+        self.offsets = []  # output slot of each aggregate
+        off = 2 + 2 * self.kp
+        for a in sig.aggs:
+            self.offsets.append(off)
+            off += 1 if a.kind == "count" else 3
+        self.n_out = off
+        self.smem_bytes = smem_bytes(sig)
+
+    # -- what the kernel is given ------------------------------------------
+    def plane_table(self, arrays: dict) -> list[torch.Tensor]:
+        """The planes in the kernel's order: ht_hi, ht_lo, exp_hi, exp_lo,
+        valid, tomb, live, then per column slot set, isnull, cmp."""
+        out = [arrays[n] for n in ("ht_hi", "ht_lo", "exp_hi", "exp_lo",
+                                   "valid", "tomb", "live")]
+        for cid in self.col_ids:
+            c = arrays["cols"][cid]
+            out.extend((c["set"], c["isnull"], c["cmp"]))
+        return out
+
+    def descriptor(self, table: list[torch.Tensor]) -> np.ndarray:
+        """int32 words: [n_cols, n_preds, n_group, n_aggs, n_params, KP,
+        S], order planes per row per column slot, (slot, planes, op,
+        literal offset) per predicate, (slot, planes) per group column,
+        (kind, slot or -1, base planes, need-mask, factor count, output
+        slot) per aggregate, then per aggregate and factor MAX_NODES
+        postfix (node, argument) pairs; unused entries zero."""
+        sig = self.sig
+        w = np.zeros(DESC_WORDS, np.int32)
+        w[:_HEAD] = (len(self.col_ids), len(sig.preds), len(sig.group_cols),
+                     len(sig.aggs), self.n_params, self.kp, self.n_out)
+        for k in range(len(self.col_ids)):
+            w[_HEAD + k] = table[9 + 3 * k].shape[-1]
+        base = _HEAD + MAX_COLS
+        for q, (p, lit) in enumerate(zip(sig.preds, self.lit_offsets)):
+            w[base + 4 * q: base + 4 * q + 4] = (
+                self.slot[p.col_id], _PLANES[p.kind], _OP[p.op], lit)
+        base += 4 * MAX_PREDS
+        for g, (cid, planes) in enumerate(sig.group_cols):
+            w[base + 2 * g: base + 2 * g + 2] = (self.slot[cid], planes)
+        base += 2 * MAX_GROUP
+        for a_i, (a, off) in enumerate(zip(sig.aggs, self.offsets)):
+            need = 0
+            for cid in a.need_cols:
+                need |= 1 << self.slot[cid]
+            w[base + 6 * a_i: base + 6 * a_i + 6] = (
+                0 if a.kind == "count" else 1,
+                -1 if a.col_id is None else self.slot[a.col_id],
+                a.planes, need, len(a.factors), off)
+        base += 6 * MAX_AGGS
+        for a_i, a in enumerate(sig.aggs):
+            for f_i, f in enumerate(a.factors):
+                at = base + 2 * MAX_NODES * (MAX_FACTORS * a_i + f_i)
+                for n_i, node in enumerate(_nodes(f)):
+                    arg = 0
+                    if node[0] == "k":
+                        arg = int(node[1])
+                    elif node[0] == "c":
+                        arg = self.slot[node[1]]
+                    w[at + 2 * n_i: at + 2 * n_i + 2] = (_NODE[node[0]], arg)
+        return w
+
+    def param_row(self, row_lo: int, row_hi: int, read_planes, lits) -> list:
+        """One spec's parameter row: row range, read point planes (read
+        hi/lo, expiry hi/lo), then one word per i32 literal and two (hi,
+        lo) per i64 or f64 literal."""
+        total = (1 << 31) - 1
+        row = [max(0, min(row_lo, total)), max(0, min(row_hi, total)),
+               *(int(v) for v in read_planes)]
+        for p, lit in zip(self.sig.preds, lits):
+            row.extend(int(v) for v in
+                       np.atleast_1d(lit)[:_PLANES[p.kind]])
+        return row
+
+    # -- reading an output table -------------------------------------------
+    def sum_value(self, table_row, a_i: int) -> int:
+        """The exact sum of aggregate ``a_i`` in one bucket's row: its
+        two 64-bit words as one unsigned 128-bit integer."""
+        off = self.offsets[a_i]
+        lo, hi = int(table_row[off + 1]), int(table_row[off + 2])
+        return (lo & ((1 << 64) - 1)) | ((hi & ((1 << 64) - 1)) << 64)
+
+
+# -- the wrapper --------------------------------------------------------------
+
+class Geometry(NamedTuple):
+    threads: int      # threads a block
+    specs: int        # grid.x: one block a spec and slice
+    slices: int       # grid.y: a spec's rows cut into this many slices
+    smem_bytes: int   # dynamic shared memory of a block (its bucket table)
+
+
+def launch_geometry(n_specs: int, n_rows: int, table_bytes: int, sms: int,
+                    per_sm: int) -> Geometry:
+    """The kernel's launch shape: grid.x runs over the specs (so that the
+    specs' blocks of one slice run together and share its reads in L2),
+    and each spec's rows are cut into grid.y slices, as many as one wave
+    of ``per_sm`` resident blocks on each of ``sms`` SMs holds (a second,
+    partial wave would double the time of its blocks' rows), but no
+    slice under MIN_BLOCK_ROWS rows."""
+    if not 1 <= n_specs <= 65535:
+        raise ValueError(f"{n_specs} specs; the kernel takes 1..65535")
+    if table_bytes > SMEM_LIMIT or per_sm < 1:
+        raise ValueError(f"a {table_bytes}-byte bucket table does not fit "
+                         "a block")
+    wave = per_sm * sms // n_specs
+    slices = -(-n_rows // MIN_BLOCK_ROWS)
+    return Geometry(THREADS, n_specs, max(1, min(wave, slices, 65535)),
+                    table_bytes)
+
+
+def _check(plan: GroupAggPlan, table, params: torch.Tensor) -> None:
+    device = params.device
+    if len(table) != 7 + 3 * len(plan.col_ids):
+        raise ValueError("plane table does not match the plan's columns")
+    B, R = table[0].shape
+    if B * R >= (1 << 31) - THREADS:
+        raise ValueError(f"{B * R} rows exceed the kernel's int32 row range")
+    for k, t in enumerate(table):
+        cmp = k >= 7 and (k - 7) % 3 == 2
+        want = torch.int32 if (k < 4 or cmp) else torch.bool
+        if t.device != device:
+            raise ValueError(f"plane {k} on {t.device}, params on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"plane {k} is not contiguous")
+        if t.dtype != want:
+            raise ValueError(f"plane {k} is {t.dtype}, want {want}")
+        if tuple(t.shape[:2]) != (B, R) or t.dim() != (3 if cmp else 2):
+            raise ValueError(f"plane {k} has shape {tuple(t.shape)}")
+        if cmp and t.shape[2] not in (1, 2):
+            raise ValueError(f"plane {k}: {t.shape[2]} order planes")
+    for p in plan.sig.preds:
+        if table[9 + 3 * plan.slot[p.col_id]].shape[2] < _PLANES[p.kind]:
+            raise ValueError(f"predicate on column {p.col_id} needs "
+                             f"{_PLANES[p.kind]} order planes")
+    if params.dtype != torch.int32 or params.dim() != 2 or \
+            params.shape[1] != plan.n_params or not params.is_contiguous():
+        raise ValueError(f"params must be contiguous int32 "
+                         f"[N, {plan.n_params}]")
+    if not 1 <= params.shape[0] <= 65535:
+        raise ValueError(f"{params.shape[0]} specs; the kernel takes "
+                         "1..65535")
+
+
+def grouped_aggregate(plan: GroupAggPlan, table: list[torch.Tensor],
+                      params: torch.Tensor) -> torch.Tensor:
+    """[N, NUM_BUCKETS + 1, S] int64 bucket tables of the N specs whose
+    parameter rows are ``params`` over the planes in ``table``
+    (``plan.plane_table``). Launches the CUDA kernel for CUDA tensors,
+    runs the plain version for CPU tensors, and raises for anything
+    else."""
+    _check(plan, table, params)
+    device = params.device
+    if device.type == "cpu":
+        return grouped_aggregate_plain(plan, table, params)
+    if device.type != "cuda":
+        raise ValueError(f"grouped_aggregate runs on cuda or cpu, not "
+                         f"{device}")
+    lib = _library()
+    n_specs = params.shape[0]
+    n_rows = table[0].numel()
+    geo = launch_geometry(
+        n_specs, n_rows, plan.smem_bytes,
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        _occupancy(lib, len(plan.col_ids), plan.smem_bytes))
+    out = torch.empty((n_specs, NUM_BUCKETS + 1, plan.n_out),
+                      dtype=torch.int64, device=device)
+    desc = plan.descriptor(table)
+    ptrs = (ctypes.c_void_p * len(table))(*[t.data_ptr() for t in table])
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.group_agg_launch(
+            ptrs, len(table),
+            desc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(desc),
+            ctypes.c_void_p(params.data_ptr()), n_specs, n_rows,
+            ctypes.c_void_p(out.data_ptr()), geo.slices, geo.smem_bytes,
+            ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"group_agg kernel launch failed ({rc}): "
+                           f"{lib.group_agg_error_string(rc).decode()}")
+    grouped_aggregate.launches += 1
+    return out
+
+
+# Kernel launches since the count was last set to 0.
+grouped_aggregate.launches = 0
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    return bind(native.load_library("group_agg"))
+
+
+@functools.lru_cache(maxsize=64)
+def _occupancy(lib: ctypes.CDLL, n_cols: int, table_bytes: int) -> int:
+    """Blocks of the kernel an SM holds at once (the CUDA occupancy
+    calculator: registers, threads and the bucket table counted)."""
+    blocks = lib.group_agg_occupancy(n_cols, table_bytes)
+    if blocks < 1:
+        raise RuntimeError(f"group_agg occupancy query failed ({blocks}): "
+                           f"{lib.group_agg_error_string(-blocks).decode()}"
+                           if blocks < 0 else
+                           "a group_agg block does not fit an SM")
+    return blocks
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the kernel's C
+    interface set."""
+    lib.group_agg_launch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.group_agg_launch.restype = ctypes.c_int
+    lib.group_agg_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.group_agg_occupancy.restype = ctypes.c_int
+    lib.group_agg_error_string.argtypes = [ctypes.c_int]
+    lib.group_agg_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# -- the plain version ----------------------------------------------------------
+
+def _flat(table: list[torch.Tensor]) -> list[torch.Tensor]:
+    n = table[0].numel()
+    return [t.reshape(n, -1) if t.dim() == 3 else t.reshape(n) for t in table]
+
+
+def _wrap32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced to int32's wrapping range."""
+    return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _mul32(a: torch.Tensor, m: int) -> torch.Tensor:
+    """(a * m) mod 2^32 for a in [0, 2^32), without int64 overflow."""
+    return (a * (m & 0xFFFF) + (((a * (m >> 16)) & 0xFFFF) << 16)) \
+        & 0xFFFFFFFF
+
+
+def _pred_mask(kind: str, op: str, cmp, lit: list):
+    hi = cmp[:, 0]
+    if _PLANES[kind] == 1:
+        x = lit[0]
+        return {"=": hi == x, "!=": hi != x, "<": hi < x, "<=": hi <= x,
+                ">": hi > x, ">=": hi >= x}[op]
+    lo = cmp[:, 1]
+    eq = (hi == lit[0]) & (lo == lit[1])
+    lt = (hi < lit[0]) | ((hi == lit[0]) & (lo < lit[1]))
+    return {"=": eq, "!=": ~eq, "<": lt, "<=": lt | eq, ">": ~(lt | eq),
+            ">=": ~lt}[op]
+
+
+def _row_masks(plan: GroupAggPlan, flat: list, p: list) -> dict:
+    """One spec's per-row masks over the flat planes: ``in_range``,
+    ``visible`` (in range, valid, committed at the read point), ``alive``
+    (visible, not a tombstone), ``notnull`` per column, ``pre`` (exists),
+    ``pred`` (the rows each predicate sees: those that passed the ones
+    before it) and ``m`` (matches)."""
+    ht_hi, ht_lo, exp_hi, exp_lo, valid, tomb, live = flat[:7]
+    row_lo, row_hi, read_hi, read_lo, rexp_hi, rexp_lo = p[:PARAM_HEAD]
+    rows = torch.arange(valid.numel(), device=valid.device)
+    in_range = (rows >= row_lo) & (rows < row_hi)
+    visible = in_range & valid & le2(ht_hi, ht_lo, read_hi, read_lo)
+    alive = visible & ~tomb
+    expired = le2(exp_hi, exp_lo, rexp_hi, rexp_lo)
+    exists = alive & live & ~expired
+    notnull = {}
+    for k, cid in enumerate(plan.col_ids):
+        notnull[cid] = alive & flat[7 + 3 * k] & ~flat[8 + 3 * k] & ~expired
+        exists = exists | notnull[cid]
+    m = exists
+    pred = []
+    for ps, off in zip(plan.sig.preds, plan.lit_offsets):
+        pred.append(m)
+        cmp = flat[9 + 3 * plan.slot[ps.col_id]]
+        m = m & notnull[ps.col_id] & _pred_mask(
+            ps.kind, ps.op, cmp, p[off:off + _PLANES[ps.kind]])
+    return {"in_range": in_range, "visible": visible, "alive": alive,
+            "notnull": notnull, "pre": exists, "pred": pred, "m": m}
+
+
+def _factor(expr, cmps: dict) -> torch.Tensor:
+    """A factor tuple over every row, in wrapping int32 arithmetic."""
+    if expr[0] == "k":
+        return torch.tensor(int(expr[1]), dtype=torch.int64)
+    if expr[0] == "c":
+        return cmps[expr[1]][:, 0].long()
+    left, right = _factor(expr[1], cmps), _factor(expr[2], cmps)
+    if expr[0] == "+":
+        return _wrap32(left + right)
+    if expr[0] == "-":
+        return _wrap32(left - right)
+    return _wrap32(left * right)
+
+
+def _base_value(planes: int, cmp) -> torch.Tensor:
+    """A sum's base column as int64: an i32 plane, or an i64 column's two
+    ordered planes decoded (each plane is its 32-bit word of v ^ 2^63
+    with the top bit flipped, so v = hi * 2^32 + lo + 2^31)."""
+    if planes == 1:
+        return cmp[:, 0].long()
+    return (cmp[:, 0].long() << 32) + (cmp[:, 1].long() + (1 << 31))
+
+
+def _digit_sums(value: torch.Tensor, factors: list, bucket: torch.Tensor,
+                nb: int) -> torch.Tensor:
+    """Per bucket, the exact sum of value * f1 [* f2] (non-negative,
+    value < 2^63, factors < 2^14) as 8 base-2^16 digits, int64."""
+    digits = [(value >> (16 * k)) & 0xFFFF for k in range(4)]
+    for f in factors:
+        carry = torch.zeros_like(value)
+        out = []
+        for d in digits:
+            t = d * f + carry
+            out.append(t & 0xFFFF)
+            carry = t >> 16
+        digits = out + [carry]
+    sums = torch.zeros((nb, 8), dtype=torch.int64, device=value.device)
+    for k, d in enumerate(digits[:8]):
+        sums[:, k].index_add_(0, bucket, d)
+    for k in range(7):  # carry-normalise; the top digit keeps mod 2^16
+        sums[:, k + 1] += sums[:, k] >> 16
+        sums[:, k] &= 0xFFFF
+    sums[:, 7] &= 0xFFFF
+    return sums
+
+
+def _words(d: torch.Tensor) -> torch.Tensor:
+    """Four base-2^16 digits [nb, 4] -> the 64-bit word they spell, as
+    int64 (the top digit read as signed, so that nothing overflows)."""
+    top = torch.where(d[:, 3] >= (1 << 15), d[:, 3] - (1 << 16), d[:, 3])
+    return (top << 48) + (d[:, 2] << 32) + (d[:, 1] << 16) + d[:, 0]
+
+
+def grouped_aggregate_plain(plan: GroupAggPlan, table: list[torch.Tensor],
+                            params: torch.Tensor) -> torch.Tensor:
+    """The kernel's function in torch ops, one spec at a time over every
+    row: the same [N, NUM_BUCKETS + 1, S] int64 tables, byte for byte."""
+    sig, kp, nb = plan.sig, plan.kp, NUM_BUCKETS
+    flat = _flat(table)
+    device = flat[4].device
+    cmps = {cid: flat[9 + 3 * k] for k, cid in enumerate(plan.col_ids)}
+    rows = torch.arange(flat[4].numel(), device=device)
+    out = torch.zeros((params.shape[0], nb + 1, plan.n_out),
+                      dtype=torch.int64, device=device)
+    for n, p in enumerate(params.tolist()):
+        mk = _row_masks(plan, flat, p)
+        m, notnull = mk["m"], mk["notnull"]
+        h = torch.full_like(rows, HASH_SEED)
+        key = []
+        for cid, planes in sig.group_cols:
+            nn = notnull[cid]
+            for pi in range(planes):
+                v = torch.where(nn, cmps[cid][:, pi].long(), 0)
+                key.append(v)
+                h = _mul32(h ^ (v & 0xFFFFFFFF), HASH_MUL)
+            null = (~nn).long()
+            key.append(null)
+            h = _mul32(h ^ null, HASH_MUL)
+        h = h ^ (h >> 16)
+        h = _mul32(h, MIX_MUL)
+        h = h ^ (h >> 13)
+        every = (h & 0x7FFFFFFF) % nb  # the bucket of every row
+        bucket = every[m]
+        t = out[n]
+        t[:nb, 0].index_add_(0, bucket, torch.ones_like(bucket))
+        t[:nb, 1] = torch.full((nb,), int(I32_MAX), dtype=torch.int64,
+                               device=device).scatter_reduce(
+            0, bucket, rows[m], "amin")
+        t[:nb, 2:2 + kp] = int(I32_MAX)
+        t[:nb, 2 + kp:2 + 2 * kp] = int(I32_MIN)
+        for k, v in enumerate(key):
+            t[:nb, 2 + k].scatter_reduce_(0, bucket, v[m], "amin")
+            t[:nb, 2 + kp + k].scatter_reduce_(0, bucket, v[m], "amax")
+        negs = 0
+        for ag, off in zip(sig.aggs, plan.offsets):
+            ok = m
+            for cid in ag.need_cols:
+                ok = ok & notnull[cid]
+            t[:nb, off].index_add_(0, every[ok], torch.ones_like(rows[ok]))
+            if ag.kind == "count":
+                continue
+            value = _base_value(ag.planes, cmps[ag.col_id])
+            factors = [_factor(f, cmps).expand_as(value)
+                       for f in ag.factors]
+            bad = value < 0
+            negs += int((ok & bad).sum())
+            for f in factors:
+                negs += int((ok & (f < 0)).sum())
+                bad = bad | (f < 0)
+            good = ok & ~bad
+            sums = _digit_sums(value[good], [f[good] for f in factors],
+                               every[good], nb)
+            t[:nb, off + 1] = _words(sums[:, :4])
+            t[:nb, off + 2] = _words(sums[:, 4:])
+        t[nb, 0] = mk["pre"].sum()
+        t[nb, 1] = negs
+    return out
+
+
+# -- the bound -------------------------------------------------------------------
+
+def group_bytes(plan: GroupAggPlan, table: list[torch.Tensor],
+                params: torch.Tensor) -> int:
+    """Bytes the function must move for these specs: each input plane
+    read once, at the rows where some spec needs it (1 byte a flag, 4 an
+    order-plane word, 8 a hybrid time or expiry), the parameter rows
+    read and the tables written once:
+
+    - every row in some spec's range: its valid flag;
+    - at its valid rows: the hybrid time; at visible rows, the tombstone
+      flag; at alive rows (visible, no tombstone): the liveness marker,
+      the expiry, and each column's set flag, and where set, its isnull
+      flag;
+    - at rows that exist: the order planes of each predicate's column
+      where the predicates before it passed and it is not NULL;
+    - at matching rows: the group columns' planes where not NULL, and
+      each sum's base and factor columns' planes where its inputs are all
+      non-NULL."""
+    flat = _flat(table)
+    n = flat[4].numel()
+    zero = torch.zeros(n, dtype=torch.bool, device=flat[4].device)
+    need = {k: zero.clone() for k in ("in_range", "valid", "visible",
+                                      "alive")}
+    set_rows = {cid: zero.clone() for cid in plan.col_ids}
+    cmp_rows = {cid: zero.clone() for cid in plan.col_ids}
+    for p in params.tolist():
+        mk = _row_masks(plan, flat, p)
+        need["in_range"] |= mk["in_range"]
+        need["valid"] |= mk["in_range"] & flat[4]
+        need["visible"] |= mk["visible"]
+        need["alive"] |= mk["alive"]
+        for k, cid in enumerate(plan.col_ids):
+            set_rows[cid] |= mk["alive"] & flat[7 + 3 * k]
+        for ps, before in zip(plan.sig.preds, mk["pred"]):
+            cmp_rows[ps.col_id] |= before & mk["notnull"][ps.col_id]
+        m = mk["m"]
+        for cid, _planes in plan.sig.group_cols:
+            cmp_rows[cid] |= m & mk["notnull"][cid]
+        for ag in plan.sig.aggs:
+            if ag.kind == "count":
+                continue
+            ok = m
+            for cid in ag.need_cols:
+                ok = ok & mk["notnull"][cid]
+            for cid in ag.need_cols:
+                cmp_rows[cid] |= ok
+    count = {k: int(v.sum()) for k, v in need.items()}
+    total = (count["in_range"] + 8 * count["valid"] + count["visible"]
+             + (1 + 8) * count["alive"])
+    for k, cid in enumerate(plan.col_ids):
+        total += count["alive"] + int(set_rows[cid].sum())
+        total += 4 * table[9 + 3 * k].shape[-1] * int(cmp_rows[cid].sum())
+    return (total + params.numel() * 4
+            + params.shape[0] * (NUM_BUCKETS + 1) * plan.n_out * 8)

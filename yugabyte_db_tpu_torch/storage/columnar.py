@@ -186,40 +186,26 @@ class ColumnarRun:
         self.blocks = [BlockMeta(b"", b"", 0) for _ in range(B)]
 
     def _fill_block(self, b: int, group_list) -> None:
-        """Encode one block's rows. One cheap Python pass collects parallel
+        """Encode one block's rows. List comprehensions collect parallel
         per-plane lists; every plane then encodes with a single vectorized
         numpy call (the per-row scalar encode was the write-path
         bottleneck: ~15 tiny numpy ops per version)."""
-        keys_flat: list[bytes] = []
-        vers_flat: list[RowVersion] = []
-        gs: list[bool] = []
-        hts: list[int] = []
-        tombs: list[bool] = []
-        lives: list[bool] = []
-        exp_idx: list[int] = []
-        exp_hts: list[int] = []
-        col_rows: dict[int, list[int]] = {cid: [] for cid in self.cols}
-        col_vals: dict[int, list] = {cid: [] for cid in self.cols}
-        r = 0
-        for key, versions in group_list:
-            first = True
-            for v in versions:
-                gs.append(first)
-                first = False
-                keys_flat.append(key)
-                vers_flat.append(v)
-                hts.append(v.ht)
-                tombs.append(v.tombstone)
-                lives.append(v.liveness)
-                if v.has_ttl:
-                    exp_idx.append(r)
-                    exp_hts.append(v.expire_ht)
-                for cid, val in v.columns.items():
-                    if cid in col_rows:  # dropped columns: id retired
-                        col_rows[cid].append(r)
-                        col_vals[cid].append(val)
-                r += 1
-        n = r
+        vers_flat = [v for _key, versions in group_list for v in versions]
+        keys_flat = [key for key, versions in group_list for _v in versions]
+        gs = [i == 0 for _key, versions in group_list
+              for i in range(len(versions))]
+        hts = [v.ht for v in vers_flat]
+        tombs = [v.tombstone for v in vers_flat]
+        lives = [v.liveness for v in vers_flat]
+        exp_idx = [r for r, v in enumerate(vers_flat) if v.has_ttl]
+        exp_hts = [vers_flat[r].expire_ht for r in exp_idx]
+        columns = [v.columns for v in vers_flat]
+        col_rows: dict[int, list[int]] = {}
+        col_vals: dict[int, list] = {}
+        for cid in self.cols:  # dropped columns: id retired, not read
+            col_rows[cid] = [r for r, c in enumerate(columns) if cid in c]
+            col_vals[cid] = [columns[r][cid] for r in col_rows[cid]]
+        n = len(vers_flat)
         self.blocks[b] = BlockMeta(
             group_list[0][0] if group_list else b"",
             group_list[-1][0] if group_list else b"",
@@ -317,6 +303,30 @@ class ColumnarRun:
                     versions.append(self.row_versions[b][r])
                     r += 1
                 yield key, versions
+
+    def group_versions(self, b: int, r: int) -> tuple[bytes, list[RowVersion]]:
+        """The key group starting at (block b, row r): its key and versions
+        ht-desc (r must be a group start)."""
+        key = self.row_keys[b][r]
+        versions = []
+        meta = self.blocks[b]
+        while r < meta.num_valid and self.row_keys[b][r] == key:
+            versions.append(self.row_versions[b][r])
+            r += 1
+        return key, versions
+
+    def iter_groups(self, row_lo: int, row_hi: int):
+        """Yield (key, versions ht-desc) of the key groups whose first row
+        lies in [row_lo, row_hi) (global rows; ``row_lo`` a group start,
+        as ``lower_row`` gives it)."""
+        R = self.R
+        for b in range(row_lo // R, min(self.B, -(-row_hi // R))):
+            r = row_lo - b * R if b == row_lo // R else 0
+            end = min(self.blocks[b].num_valid, row_hi - b * R)
+            while r < end:
+                key, versions = self.group_versions(b, r)
+                yield key, versions
+                r += len(versions)
 
     def key_rows(self, key: bytes) -> tuple[int, list[RowVersion]]:
         """(global row index of the key's first version, its versions

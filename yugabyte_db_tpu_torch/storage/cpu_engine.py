@@ -17,6 +17,7 @@ from __future__ import annotations
 
 from yugabyte_db_tpu_torch.models.encoding import decode_doc_key
 from yugabyte_db_tpu_torch.models.schema import Schema
+from yugabyte_db_tpu_torch.storage.expr import eval_expr
 from yugabyte_db_tpu_torch.storage.merge import MergedRow
 from yugabyte_db_tpu_torch.storage.scan_spec import AggSpec, ScanSpec
 
@@ -50,15 +51,11 @@ class RowMaterializer:
 
 
 class Aggregator:
-    """Pushdown aggregation: count/sum/min/max/avg with optional GROUP BY.
-    Expression aggregates raise: ``storage/expr.py`` comes with GROUP BY
-    (ROADMAP.md §1 item 6)."""
+    """Pushdown aggregation: count/sum/min/max/avg with optional GROUP BY,
+    over a column or an expression (``storage.expr``, evaluated exactly,
+    NULL contagious)."""
 
     def __init__(self, aggs: list[AggSpec], group_by: list[str]):
-        if any(a.expr is not None for a in aggs):
-            raise NotImplementedError(
-                "not in the port yet: expression aggregates (ROADMAP.md §1 "
-                "item 6: GROUP BY, K8)")
         self.aggs = aggs
         self.group_by = group_by
         self.groups: dict[tuple, list] = {}
@@ -73,10 +70,12 @@ class Aggregator:
             acc = self.groups[gkey] = self._new_acc()
         for i, a in enumerate(self.aggs):
             if a.fn == "count":
-                if a.column is None or get_value(a.column) is not None:
+                if a.column is None and a.expr is None:
+                    acc[i] = (acc[i] or 0) + 1
+                elif _input(a, get_value) is not None:
                     acc[i] = (acc[i] or 0) + 1
                 continue
-            v = get_value(a.column)
+            v = _input(a, get_value)
             if v is None:
                 continue
             if a.fn == "sum":
@@ -111,6 +110,14 @@ class Aggregator:
         for a in self.aggs:
             names.append(a.output_name)
         return names
+
+
+def _input(a: AggSpec, get_value):
+    """The aggregate's input value of one row: its expression's or its
+    column's."""
+    if a.expr is not None:
+        return eval_expr(a.expr, get_value)
+    return get_value(a.column)
 
 
 def _sortable(v):

@@ -25,6 +25,17 @@ turn into a ``ScanResult``. ``rows_scanned`` is what the JAX ``tpu``
 engine reports on these routes: the rows (key groups, on a multi-version
 run) that pass every predicate.
 
+GROUP BY and expression aggregates (TPC-H Q1/Q6) over one run take the
+grouped route (``_grouped_prep``, the JAX engine's): the bucket-table fold
+K8 (``ops.group_agg``, a CUDA kernel) over the run or its view, every
+spec of a batch that shares a source and a signature in one launch; the
+host decodes the live buckets (``_finish_grouped``). ``rows_scanned`` is
+there the rows (key groups) that exist in range, before predicates, as
+the JAX program's ``pre_pred``. A spec whose buckets show a negative sum
+input or a hash collision is re-served by a host fold of the run's keys
+in range (``_grouped_host_fold``, counted in ``grouped_host_folds``), as
+the JAX engine re-serves it with its row scan.
+
 A scan over several sources (a live memtable over a run, several runs,
 or both) goes through the **delta overlay**, as in the JAX engine: the
 largest run is the primary, and every key held by another run or by the
@@ -36,7 +47,8 @@ the launches and before the batch waits. The two partials cover disjoint
 keys and are combined at the finalized level; ``rows_scanned`` adds the
 dirty keys that exist at the read point, before predicates, as the JAX
 engine adds them. Before the first flush the memtable alone is folded on
-the host: there is no plane to fold.
+the host: there is no plane to fold. The grouped route takes one run
+only: a grouped spec over several sources raises.
 
 Everything else raises ``NotImplementedError`` naming the ROADMAP.md item
 that brings it. There is no host re-serve: a device error raises.
@@ -53,9 +65,10 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from yugabyte_db_tpu_torch.models.datatypes import DataType
 from yugabyte_db_tpu_torch.models.schema import Schema
 from yugabyte_db_tpu_torch.ops import (agg_fold, flat_agg, flat_fold,
-                                      mvcc_resolve)
+                                      group_agg, mvcc_resolve)
 from yugabyte_db_tpu_torch.ops import scan as dscan
 from yugabyte_db_tpu_torch.ops.device_run import (DeviceRun, dtype_kind,
                                                   resolve_device)
@@ -63,6 +76,7 @@ from yugabyte_db_tpu_torch.storage.columnar import (DEFAULT_ROWS_PER_BLOCK,
                                                     ColumnarRun)
 from yugabyte_db_tpu_torch.storage.cpu_engine import (Aggregator,
                                                       RowMaterializer)
+from yugabyte_db_tpu_torch.storage import expr as X
 from yugabyte_db_tpu_torch.storage.engine import (StorageEngine,
                                                   register_engine)
 from yugabyte_db_tpu_torch.storage.memtable import MemTable
@@ -76,8 +90,12 @@ PAD_BLOCKS = 64  # run block-axis padding, as the JAX engine pads
 # Work outside this slice, by the ROADMAP.md §1 item that brings it.
 _LATER = {
     "row": "row scans (ROADMAP.md §1 item 7: row path, K7/K9)",
-    "grouped": "GROUP BY and expression aggregates (ROADMAP.md §1 item 6: "
-               "GROUP BY, K8)",
+    "grouped_host": "GROUP BY on key, float or long string columns, "
+                    "MIN/MAX/AVG beside GROUP BY or expressions, and "
+                    "expressions the device cannot lower (ROADMAP.md §1 "
+                    "item 7: row path, K7/K9)",
+    "grouped_overlay": "GROUP BY and expression aggregates over several "
+                       "sources (ROADMAP.md §1 item 7: row path, K7/K9)",
     "host_preds": "predicates on strings, floats, key columns or IN lists "
                   "(ROADMAP.md §1 item 7: row path, K7/K9)",
     "host_aggs": "aggregates of key columns and MIN/MAX/SUM of strings "
@@ -250,6 +268,24 @@ class _AggPrep:
         return self.trun.view(self.view_key, self.read_planes)
 
 
+@dataclass
+class _GroupPrep:
+    """Host planning of one single-run grouped or expression aggregate."""
+
+    spec: ScanSpec
+    trun: GpuRun
+    sig: group_agg.GroupAggSig
+    route: str            # "grouped" | "mv_grouped"
+    row_lo: int
+    row_hi: int
+    read_planes: tuple    # read hi/lo, expiry hi/lo
+    lits: tuple           # host predicate literals
+    view_key: tuple | None  # a multi-version run: the resolve's key
+    overlay = None        # never: the grouped route reads one run
+
+    arrays = _AggPrep.arrays
+
+
 class GpuStorageEngine(StorageEngine):
     """Options: ``device`` (default ``cuda``; raises when there is no
     GPU) and ``rows_per_block`` (2048). The memtable flushes only when
@@ -271,8 +307,12 @@ class GpuStorageEngine(StorageEngine):
         self._overlay_cache = None
         # Scans served by the host fold of a memtable with no run beside.
         self.memtable_scans = 0
+        # Grouped specs re-served by a host fold of their run (a negative
+        # sum input or a bucket collision).
+        self.grouped_host_folds = 0
         self._kinds = {c.col_id: dtype_kind(c.dtype)
                        for c in schema.value_columns}
+        self._dtypes = {c.col_id: c.dtype for c in schema.value_columns}
         self._name_to_id = {c.name: c.col_id for c in schema.value_columns}
         self._key_col_names = {c.name for c in schema.key_columns}
 
@@ -316,11 +356,11 @@ class GpuStorageEngine(StorageEngine):
         copies to the host without waiting, then fold the overlay specs'
         dirty keys on the host; ``.finish()`` waits and builds the
         results. A multi-version run (or a masked copy of it) is resolved
-        once per view key; same-signature kernel specs on one run, masked
-        run or view share one launch."""
+        once per view key; same-signature kernel specs (K1 or K8) on one
+        run, masked run or view share one launch."""
         results: list = [None] * len(specs)
-        # Per source, a run or one view of it: kernel specs by plan, and
-        # the specs of the plain flat fold.
+        # Per source, a run or one view of it: K1 specs by plan, the specs
+        # of the plain flat fold, and K8 specs by plan.
         sources: dict = {}
         overlay = []
         for i, spec in enumerate(specs):
@@ -330,9 +370,12 @@ class GpuStorageEngine(StorageEngine):
                 continue
             if prep.overlay is not None:
                 overlay.append(prep)
-            kernels, folds = sources.setdefault(
-                (id(prep.trun), prep.view_key), ({}, []))
-            if prep.route in ("kernel", "mv_kernel"):
+            kernels, folds, grouped = sources.setdefault(
+                (id(prep.trun), prep.view_key), ({}, [], {}))
+            if isinstance(prep, _GroupPrep):
+                grouped.setdefault(group_agg.make_plan(prep.sig), []).append(
+                    (i, prep))
+            elif prep.route in ("kernel", "mv_kernel"):
                 plan = flat_agg.make_plan(
                     prep.sig.aggs, prep.sig.preds,
                     tuple(cs.col_id for cs in prep.sig.cols))
@@ -341,20 +384,29 @@ class GpuStorageEngine(StorageEngine):
                 folds.append((i, prep))
 
         pending = []  # (device tensors, finish(host tensors))
-        for kernels, folds in sources.values():
-            pending += self._launch_source(kernels, folds, results)
+        for kernels, folds, grouped in sources.values():
+            pending += self._launch_source(kernels, folds, grouped, results)
         for prep in overlay:  # while the device works
             prep.host = self._overlay_host_partial(prep.overlay, prep.spec)
         return _AsyncBatch(results, pending)
 
-    def _launch_source(self, kernels: dict, folds: list,
+    def _launch_source(self, kernels: dict, folds: list, grouped: dict,
                        results: list) -> list:
         """Queue every launch that reads one source. A view is held only
         here, so it is let go before the next source's view is resolved:
         a batch holds at most one view of a run at a time."""
-        first = next(iter(kernels.values()))[0] if kernels else folds[0]
+        first = next(g[0] for g in (*kernels.values(), folds,
+                                    *grouped.values()) if g)
         arrays = first[1].arrays()
         pending = []
+        for plan, group in grouped.items():
+            params = torch.tensor(
+                [plan.param_row(p.row_lo, p.row_hi, p.read_planes, p.lits)
+                 for _i, p in group], dtype=torch.int32).to(self.device)
+            tables = group_agg.grouped_aggregate(
+                plan, plan.plane_table(arrays), params)
+            pending.append(([tables], self._grouped_finish(plan, group,
+                                                           results)))
         for plan, group in kernels.items():
             params = torch.tensor(
                 [plan.param_row(p.row_lo, p.row_hi, p.read_planes, p.lits)
@@ -417,12 +469,12 @@ class GpuStorageEngine(StorageEngine):
         its overlay state when the spec reads several sources)."""
         if not spec.is_aggregate:
             raise _later("row")
-        if spec.group_by or any(a.expr is not None for a in spec.aggregates):
-            raise _later("grouped")
         exact, other = self._split_predicates(spec)
         if other:
             raise _later("host_preds")
-        if not self._aggs_device_eligible(spec):
+        grouped = bool(spec.group_by) or any(a.expr is not None
+                                             for a in spec.aggregates)
+        if not grouped and not self._aggs_device_eligible(spec):
             raise _later("host_aggs")
         # Snapshot the memtable before the run list (as the JAX engine
         # does): a concurrent flush appends its run before swapping in an
@@ -431,7 +483,16 @@ class GpuStorageEngine(StorageEngine):
         runs = self._overlapping_runs(spec)
         mem_live = not mem.is_empty and mem.has_keys(spec.lower, spec.upper)
         if len(runs) == 1 and not mem_live:
+            if grouped:
+                return self._grouped_prep(runs[0], spec, exact)
             return self._device_agg_prep(runs[0], spec, exact)
+        if grouped:
+            # The JAX engine folds these on the host (_row_scan): with no
+            # run in range the memtable is all there is; over several
+            # sources the row path is not in the port yet.
+            if not runs:
+                return self._memtable_aggregate(spec, mem)
+            raise _later("grouped_overlay")
         if not runs and not mem_live:
             return ScanResult([_agg_name(a) for a in spec.aggregates],
                               [tuple(0 if a.fn == "count" else None
@@ -446,19 +507,24 @@ class GpuStorageEngine(StorageEngine):
         return prep
 
     def _memtable_aggregate(self, spec: ScanSpec, mem: MemTable) -> ScanResult:
-        """The engine before its first flush (the JAX engine's ``_row_scan``
-        over no run): no plane exists, so the memtable's keys in range
-        are merged and folded on the host. ``rows_scanned`` counts the
-        keys examined, as there. The planner has already refused key
-        columns in predicates and aggregates, so no key is decoded."""
+        """The memtable alone (the JAX engine's ``_row_scan`` over no
+        run): before the first flush, or a grouped spec whose range no run
+        holds. No plane exists, so the memtable's keys in range are merged
+        and folded on the host. ``rows_scanned`` counts the keys examined,
+        as there. The planner has already refused key columns in
+        predicates and ungrouped aggregates; a grouped spec's key values
+        are decoded."""
         self.memtable_scans += 1
-        agg = Aggregator(spec.aggregates, [])
+        agg = Aggregator(spec.aggregates, spec.group_by or [])
+        keyed = bool(spec.group_by) or any(a.expr is not None
+                                           for a in spec.aggregates)
         scanned = 0
         for key in mem.scan_keys(spec.lower, spec.upper):
             scanned += 1
             merged = mem.merged(key, spec.read_ht)
-            if merged.exists and self.mat.matches(spec, None, merged):
-                agg.add(lambda name: self.mat.value(name, None, merged))
+            kv = self.mat.key_values(key) if keyed else None
+            if merged.exists and self.mat.matches(spec, kv, merged):
+                agg.add(lambda name: self.mat.value(name, kv, merged))
         return ScanResult(agg.column_names(), agg.results(), None, scanned)
 
     # -- delta overlay (masked primary + host-folded dirty keys) -------------
@@ -651,6 +717,209 @@ class GpuStorageEngine(StorageEngine):
         return _AggPrep(spec, trun, sig, route, crun.lower_row(spec.lower),
                         crun.upper_row(spec.upper), self._read_planes(spec),
                         tuple(lits), dev_aggs, lowering, view_key)
+
+    # -- grouped and expression aggregates (K8) ------------------------------
+    def _dtype_of(self, name: str):
+        cid = self._name_to_id.get(name)
+        if cid is None:
+            raise ValueError(f"{name} is not a value column")
+        return self._dtypes[cid]
+
+    def _encode_factor(self, node) -> tuple:
+        """A ``storage.expr`` tree -> the kernel's factor tuples."""
+        if isinstance(node, X.Col):
+            return ("c", self._name_to_id[node.name])
+        if isinstance(node, X.Const):
+            return ("k", int(node.value))
+        return (node.op, self._encode_factor(node.left),
+                self._encode_factor(node.right))
+
+    def _grouped_aggs(self, spec: ScanSpec) -> list | None:
+        """The spec's aggregates as ``group_agg.GAgg``s, or None where the
+        device cannot take one (the JAX engine's ``_grouped_prep`` rules):
+        COUNT of a value column or of *, SUM of an i32/i64 column, or SUM
+        of an expression ``lower_product`` lowers; no MIN, MAX or AVG."""
+        gaggs = []
+        for a in spec.aggregates:
+            if a.fn == "count" and a.expr is None:
+                cid = self._name_to_id.get(a.column) if a.column else None
+                if a.column and cid is None:
+                    return None
+                gaggs.append(group_agg.GAgg(
+                    "count", cid, need_cols=(cid,) if cid is not None else ()))
+            elif a.fn == "sum" and a.expr is None:
+                cid = self._name_to_id.get(a.column)
+                if cid is None or self._kinds[cid] not in ("i32", "i64"):
+                    return None
+                gaggs.append(group_agg.GAgg(
+                    "sum_prod", cid, planes=1 if self._kinds[cid] == "i32"
+                    else 2, need_cols=(cid,)))
+            elif a.fn == "sum":
+                lowered = X.lower_product(a.expr, self._dtype_of)
+                if lowered is None:
+                    return None
+                base, factors = lowered
+                base_cid = self._name_to_id[base]
+                need = [base_cid] + [self._name_to_id[c] for f in factors
+                                     for c in sorted(X.columns_of(f))]
+                gaggs.append(group_agg.GAgg(
+                    "sum_prod", base_cid,
+                    planes=1 if self._kinds[base_cid] == "i32" else 2,
+                    factors=tuple(self._encode_factor(f) for f in factors),
+                    need_cols=tuple(dict.fromkeys(need))))
+            else:
+                return None
+        return gaggs
+
+    def _grouped_prep(self, trun: GpuRun, spec: ScanSpec, exact_preds):
+        """The JAX engine's ``_grouped_prep``: a _GroupPrep for K8, a
+        finished ScanResult for an empty range, or a raise (ROADMAP.md §1
+        item 7) where the JAX engine goes to its gather or row scan: a
+        key, f32 or over-8-byte string group column, MIN/MAX/AVG, a sum
+        ``lower_product`` does not lower, or a signature past K8's
+        descriptor."""
+        crun = trun.crun
+        group_cols = []
+        for name in spec.group_by or []:
+            cid = self._name_to_id.get(name)
+            if cid is None:
+                raise _later("grouped_host")  # a key column
+            kind = self._kinds[cid]
+            if kind == "f32" or (kind == "str" and
+                                 crun.varlen_max_len.get(cid, 0) > 8):
+                # f32 raw bits conflate -0.0 and 0.0; a longer string's
+                # 8-byte prefix is not its value.
+                raise _later("grouped_host")
+            group_cols.append((cid, 2 if kind in ("i64", "f64", "str")
+                               else 1))
+        gaggs = self._grouped_aggs(spec)
+        if gaggs is None:
+            raise _later("grouped_host")
+        pred_sigs, lits = [], []
+        for p in exact_preds:
+            cid = self._name_to_id[p.column]
+            kind = self._kinds[cid]
+            pred_sigs.append(dscan.PredSig(cid, kind, p.op))
+            lits.append(agg_fold.pred_literal_host(kind, p.value))
+        sig = group_agg.GroupAggSig(
+            NB=group_agg.NUM_BUCKETS,
+            cols=tuple(dscan.ColSig(c.col_id, self._kinds[c.col_id])
+                       for c in self.schema.value_columns),
+            preds=tuple(pred_sigs), group_cols=tuple(group_cols),
+            aggs=tuple(gaggs))
+        if not group_agg.eligible(sig):
+            raise _later("grouped_host")
+        row_lo, row_hi = crun.lower_row(spec.lower), crun.upper_row(spec.upper)
+        if row_lo >= row_hi:
+            agg = Aggregator(spec.aggregates, spec.group_by or [])
+            return ScanResult(agg.column_names(), agg.results(), None, 0)
+        flat = trun.flat
+        return _GroupPrep(spec, trun, sig, "grouped" if flat else "mv_grouped",
+                          row_lo, row_hi, self._read_planes(spec), tuple(lits),
+                          None if flat else trun.view_key(spec.read_ht))
+
+    def _grouped_finish(self, plan, group, results):
+        def finish(host):
+            tables = host[0].numpy()
+            for n, (i, prep) in enumerate(group):
+                results[i] = self._finish_grouped(prep, plan, tables[n])
+        return finish
+
+    def _finish_grouped(self, prep: _GroupPrep, plan, table) -> ScanResult:
+        """One spec's bucket table -> its ScanResult (the JAX engine's
+        ``_finish_grouped``): the live buckets' group values and exact
+        sums (NULL where no row had its inputs), rows sorted by group
+        values with NULL first. A negative sum input or a collision (a
+        live bucket whose key planes differ) re-serves the spec on the
+        host."""
+        spec, sig, nb, kp = prep.spec, plan.sig, group_agg.NUM_BUCKETS, plan.kp
+        scanned, negs = int(table[nb, 0]), int(table[nb, 1])
+        live = np.nonzero(table[:nb, 0] > 0)[0]
+        if negs > 0:
+            return self._grouped_host_fold(prep)
+        key_min = table[:nb, 2:2 + kp]
+        key_max = table[:nb, 2 + kp:2 + 2 * kp]
+        if live.size and sig.group_cols and \
+                not (key_min[live] == key_max[live]).all():
+            return self._grouped_host_fold(prep)
+        group_names = list(spec.group_by or [])
+        rows = []
+        for b in live:
+            gvals = self._decode_group(prep, sig, key_min[b], int(table[b, 1]))
+            if gvals is None:
+                return self._grouped_host_fold(prep)
+            aggs = []
+            for i, (ga, off) in enumerate(zip(sig.aggs, plan.offsets)):
+                if ga.kind == "count":
+                    aggs.append(int(table[b, off]))
+                else:  # SQL's sum over no non-NULL input is NULL
+                    aggs.append(plan.sum_value(table[b], i)
+                                if table[b, off] else None)
+            rows.append(tuple(gvals) + tuple(aggs))
+        if not rows and not spec.group_by:
+            agg = Aggregator(spec.aggregates, [])
+            return ScanResult(agg.column_names(), agg.results(), None, scanned)
+        rows.sort(key=lambda r: tuple((v is None, v)
+                                      for v in r[:len(group_names)]))
+        names = group_names + [a.output_name for a in spec.aggregates]
+        return ScanResult(names, rows, None, scanned)
+
+    def _decode_group(self, prep: _GroupPrep, sig, key_planes, rep: int):
+        """A live bucket's key planes (min == max) -> its group values;
+        strings from the representative row's merged state at the read
+        point. None when the representative is out of the run."""
+        crun = prep.trun.crun
+        out = []
+        off = 0
+        for cid, planes in sig.group_cols:
+            vals = key_planes[off:off + planes]
+            null = key_planes[off + planes]
+            off += planes + 1
+            if null:
+                out.append(None)
+                continue
+            kind = self._kinds[cid]
+            if kind == "i32":
+                v = int(vals[0])
+                out.append(bool(v) if self._dtypes[cid] == DataType.BOOL
+                           else v)
+            elif kind == "i64":
+                out.append(int(P.ordered_planes_to_i64(
+                    np.array([vals[0]], np.int32),
+                    np.array([vals[1]], np.int32))[0]))
+            elif kind == "f64":
+                out.append(float(P.ordered_planes_to_f64(
+                    np.array([vals[0]], np.int32),
+                    np.array([vals[1]], np.int32))[0]))
+            else:
+                if rep >= crun.total_rows():
+                    return None
+                key, versions = crun.group_versions(*divmod(rep, crun.R))
+                out.append(merge_versions(key, versions,
+                                          prep.spec.read_ht).get(cid))
+        return out
+
+    def _grouped_host_fold(self, prep: _GroupPrep) -> ScanResult:
+        """The JAX engine's ``_row_scan`` over the spec's one run: every
+        key group in range merged at the read point, its predicates
+        applied on the host and the rest folded by the ``Aggregator``.
+        ``rows_scanned`` counts the keys that exist and match, as the JAX
+        engine's device candidates there."""
+        self.grouped_host_folds += 1
+        spec = prep.spec
+        agg = Aggregator(spec.aggregates, spec.group_by or [])
+        scanned = 0
+        for key, versions in prep.trun.crun.iter_groups(prep.row_lo,
+                                                        prep.row_hi):
+            merged = merge_versions(key, versions, spec.read_ht)
+            if not merged.exists:
+                continue
+            kv = self.mat.key_values(key)
+            if not self.mat.matches(spec, kv, merged):
+                continue
+            scanned += 1
+            agg.add(lambda name: self.mat.value(name, kv, merged))
+        return ScanResult(agg.column_names(), agg.results(), None, scanned)
 
 
 def _agg_name(a) -> str:

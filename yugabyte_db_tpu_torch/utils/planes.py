@@ -111,8 +111,10 @@ def varlen_prefix_planes(raws: list[bytes]) -> tuple[np.ndarray, np.ndarray]:
     return planes[:, 0], planes[:, 1]
 
 
-def bytes_to_key_words(data: bytes, num_words: int) -> np.ndarray:
-    """Key bytes -> fixed-width big-endian uint32 words, zero-padded.
+def key_prefix_planes(keys: list[bytes], num_words: int) -> np.ndarray:
+    """Encoded keys -> [N, num_words] int32 planes; signed-lex order == byte order
+    on the first 4*num_words bytes: each key's fixed-width big-endian
+    uint32 words, zero-padded.
 
     Zero padding is order-correct for the DocKey encoding because encoded keys
     are prefix-free at every component boundary (terminators/type tags are
@@ -121,14 +123,6 @@ def bytes_to_key_words(data: bytes, num_words: int) -> np.ndarray:
     the full key bytes on host (see storage.block boundary handling).
     """
     width = num_words * 4
-    padded = data[:width].ljust(width, b"\x00")
-    return np.frombuffer(padded, dtype=">u4").astype(np.uint32)
-
-
-def key_prefix_planes(keys: list[bytes], num_words: int) -> np.ndarray:
-    """Encoded keys -> [N, num_words] int32 planes; signed-lex order == byte order
-    on the first 4*num_words bytes."""
-    out = np.empty((len(keys), num_words), dtype=np.uint32)
-    for i, k in enumerate(keys):
-        out[i] = bytes_to_key_words(k, num_words)
+    padded = b"".join(k[:width].ljust(width, b"\x00") for k in keys)
+    out = np.frombuffer(padded, dtype=">u4").reshape(len(keys), num_words)
     return u32_to_plane(out)

@@ -10,6 +10,13 @@ whose keys and single fields follow YCSB workload A's, which turn the
 flat run into a multi-version one; ``make_wave_rows`` adds the uniform
 update waves of ``bench.py``'s post-write scan bench, which leave several
 runs and a live memtable.
+
+TPC-H's lineitem (BASELINE config 3) is the port's copy of the data part
+of the JAX package's ``yql/pgsql/tpch.py``: its schema (scaled-integer
+money), a seeded numpy generator with the same value distributions as
+``generate_lineitem``, and the Q1/Q6 specs. ``make_lineitem_updates``
+rewrites single fields of zipfian keys, which makes the run
+multi-version.
 """
 
 from __future__ import annotations
@@ -19,10 +26,14 @@ import random
 import numpy as np
 
 from yugabyte_db_tpu_torch.models.datatypes import DataType
+from yugabyte_db_tpu_torch.models.encoding import (GROUP_END,
+                                                   encode_doc_key_prefix,
+                                                   encode_key_component)
 from yugabyte_db_tpu_torch.models.partition import compute_hash_code
 from yugabyte_db_tpu_torch.models.schema import (ColumnKind, ColumnSchema,
                                                  Schema)
 from yugabyte_db_tpu_torch.storage.row_version import MAX_HT, RowVersion
+from yugabyte_db_tpu_torch.storage.expr import BinOp, Col, Const
 from yugabyte_db_tpu_torch.storage.scan_spec import (AggSpec, Predicate,
                                                      ScanSpec)
 from yugabyte_db_tpu_torch.utils import planes as P
@@ -283,3 +294,177 @@ def headline_spec(read_ht: int, lo: int = -500_000) -> ScanSpec:
         aggregates=[AggSpec("count", None), AggSpec("sum", "a"),
                     AggSpec("min", "a"), AggSpec("max", "a"),
                     AggSpec("sum", "d")])
+
+
+# -- TPC-H lineitem ------------------------------------------------------------
+
+LINEITEM_COLUMNS = [
+    ColumnSchema("l_orderkey", DataType.INT64, ColumnKind.HASH),
+    ColumnSchema("l_linenumber", DataType.INT32, ColumnKind.RANGE),
+    ColumnSchema("l_quantity", DataType.INT32),       # whole units
+    ColumnSchema("l_extendedprice", DataType.INT64),  # cents
+    ColumnSchema("l_discount", DataType.INT8),        # percent 0..10
+    ColumnSchema("l_tax", DataType.INT8),             # percent 0..8
+    ColumnSchema("l_returnflag", DataType.STRING),    # 'A'|'N'|'R'
+    ColumnSchema("l_linestatus", DataType.STRING),    # 'F'|'O'
+    ColumnSchema("l_shipdate", DataType.INT32),       # days since epoch
+]
+LINEITEM_VALUES = tuple(c.name for c in LINEITEM_COLUMNS[2:])
+
+SHIPDATE_LO = 8766    # ~1994-01-01 in days
+SHIPDATE_HI = 10957   # ~1998-12-31
+SF1_ROWS = 6_001_215  # lineitem rows at TPC-H scale factor 1
+LINEITEM_HT0 = 100    # the first row is written at LINEITEM_HT0 + 1
+
+
+def lineitem_schema(table_id: str = "lineitem") -> Schema:
+    return Schema(list(LINEITEM_COLUMNS), table_id=table_id)
+
+
+def generate_lineitem(num_rows: int, seed: int = 42) -> dict:
+    """Column arrays of ``num_rows`` lineitem rows (int64, and str for
+    the flags), drawn with numpy in the value distributions of the JAX
+    package's ``generate_lineitem``: four lines an order; quantity
+    uniform in 1..50; price quantity x uniform 900.00..10999.99 / 10, in
+    cents; ship date uniform over five years; the return flag A or R
+    (even odds) and status F before day 9496, else flag N and status O
+    after day 9600 (F until then); discount 0..10 and tax 0..8 percent,
+    uniform."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(num_rows, dtype=np.int64)
+    qty = rng.integers(1, 51, num_rows)
+    price = qty * rng.integers(900_00, 11_000_00, num_rows) // 10
+    ship = rng.integers(SHIPDATE_LO, SHIPDATE_HI, num_rows)
+    early = ship < 9496
+    flag = np.where(early, np.where(rng.random(num_rows) < 0.5, "A", "R"),
+                    "N")
+    return {"l_orderkey": i // 4 + 1, "l_linenumber": i % 4 + 1,
+            "l_quantity": qty, "l_extendedprice": price,
+            "l_discount": rng.integers(0, 11, num_rows),
+            "l_tax": rng.integers(0, 9, num_rows),
+            "l_returnflag": flag,
+            "l_linestatus": np.where(early | (ship <= 9600), "F", "O"),
+            "l_shipdate": ship}
+
+
+def lineitem_keys(schema: Schema, cols: dict) -> list[bytes]:
+    """The encoded keys of the rows of ``cols``: ``encode_primary_key``'s
+    bytes (hash prelude and order key, then the line number), each order
+    key encoded once."""
+    okey, oline = schema.hash_columns[0], schema.range_columns[0]
+    prefix = {}
+    for ok in np.unique(cols[okey.name]).tolist():
+        kv = {okey.name: ok}
+        prefix[ok] = encode_doc_key_prefix(
+            compute_hash_code(schema, kv), [(ok, okey.dtype)], [])
+    suffix = {ln: encode_key_component(ln, oline.dtype) + bytes([GROUP_END])
+              for ln in np.unique(cols[oline.name]).tolist()}
+    return [prefix[ok] + suffix[ln] for ok, ln in
+            zip(cols[okey.name].tolist(), cols[oline.name].tolist())]
+
+
+def lineitem_rows(schema: Schema, cols: dict) -> tuple[list, int]:
+    """(rows, max_ht): one INSERT (liveness and every value column) per
+    row of ``cols``, row i at hybrid time LINEITEM_HT0 + 1 + i, as the
+    JAX package's ``tpch.load_engine`` writes them."""
+    cid = [schema.column(name).col_id for name in LINEITEM_VALUES]
+    values = zip(*(cols[name].tolist() for name in LINEITEM_VALUES))
+    ht0 = LINEITEM_HT0 + 1
+    rows = [RowVersion(key, ht=ht0 + i, liveness=True,
+                       columns=dict(zip(cid, vals)))
+            for i, (key, vals) in enumerate(zip(lineitem_keys(schema, cols),
+                                                values))]
+    return rows, LINEITEM_HT0 + len(rows)
+
+
+# The fields a lineitem update rewrites, one an update.
+LINEITEM_UPDATED = ("l_quantity", "l_extendedprice", "l_discount",
+                    "l_shipdate", "l_returnflag")
+
+
+def zipfian_draws(n_keys: int, count: int, cap: int, nprng) -> np.ndarray:
+    """``count`` key indexes drawn zipfian (constant ZIPFIAN_THETA, ranks
+    scrambled across the keys by a permutation) with no key drawn more
+    than ``cap`` times: draws past the cap are drawn again."""
+    cdf = np.cumsum(1.0 / np.arange(1, n_keys + 1) ** ZIPFIAN_THETA)
+    cdf /= cdf[-1]
+    rank_to_key = nprng.permutation(n_keys)
+    out = np.zeros(0, np.int64)
+    while out.size < count:
+        ranks = np.searchsorted(cdf, nprng.random(count - out.size),
+                                side="right")
+        out = np.concatenate([out, rank_to_key[np.minimum(ranks,
+                                                          n_keys - 1)]])
+        order = np.argsort(out, kind="stable")
+        srt = out[order]
+        first = np.searchsorted(srt, srt, side="left")
+        seen = np.empty_like(out)
+        seen[order] = np.arange(out.size) - first  # earlier draws of the key
+        out = out[seen < cap]
+    return out
+
+
+def make_lineitem_updates(schema: Schema, keys: list[bytes], max_ht: int,
+                          count: int, seed: int = 5) -> tuple[list, dict]:
+    """(updates, their arrays) over the rows whose keys are ``keys``:
+    ``count`` one-field updates, in order at hybrid times max_ht + 1, +2,
+    ... Keys are drawn zipfian (constant 0.99, as ``make_update_rows``),
+    a key at MAX_VERSIONS versions drawing again; the field is one of
+    LINEITEM_UPDATED, evenly; its value is drawn from the generator's
+    distribution of that field. The arrays: ``row`` (index into
+    ``keys``), ``ht``, ``field`` (index into LINEITEM_UPDATED) and
+    ``value`` (object)."""
+    nprng = np.random.default_rng(seed)
+    row = zipfian_draws(len(keys), count, MAX_VERSIONS - 1, nprng)
+    field = nprng.integers(0, len(LINEITEM_UPDATED), count)
+    pool = generate_lineitem(count, seed + 1)
+    value = np.empty(count, object)
+    for f, name in enumerate(LINEITEM_UPDATED):
+        at = field == f
+        value[at] = pool[name][at]
+    value = value.tolist()
+    cids = [schema.column(name).col_id for name in LINEITEM_UPDATED]
+    ht = max_ht + 1 + np.arange(count, dtype=np.int64)
+    updates = [RowVersion(keys[k], ht=h, columns={cids[f]: v})
+               for k, h, f, v in zip(row.tolist(), ht.tolist(),
+                                     field.tolist(), value)]
+    return updates, {"row": row, "ht": ht, "field": field, "value": value}
+
+
+DISC_PRICE = BinOp("*", Col("l_extendedprice"),
+                   BinOp("-", Const(100), Col("l_discount")))
+CHARGE = BinOp("*", DISC_PRICE, BinOp("+", Const(100), Col("l_tax")))
+
+
+def q1_spec(read_ht: int, ship_cutoff: int = 10471) -> ScanSpec:
+    """TPC-H Q1 as one pushed-down grouped scan (avg lowers to sum and
+    count above the scan)."""
+    return ScanSpec(
+        read_ht=read_ht,
+        predicates=[Predicate("l_shipdate", "<=", ship_cutoff)],
+        group_by=["l_returnflag", "l_linestatus"],
+        aggregates=[
+            AggSpec("sum", "l_quantity", label="sum_qty"),
+            AggSpec("sum", "l_extendedprice", label="sum_base_price"),
+            AggSpec("sum", None, expr=DISC_PRICE, label="sum_disc_price"),
+            AggSpec("sum", None, expr=CHARGE, label="sum_charge"),
+            AggSpec("count", None, label="count_order"),
+        ])
+
+
+def q6_spec(read_ht: int, date_lo: int = 9131, discount: int = 6,
+            quantity: int = 24) -> ScanSpec:
+    """TPC-H Q6: sum(l_extendedprice * l_discount) under date, discount
+    and quantity bands."""
+    return ScanSpec(
+        read_ht=read_ht,
+        predicates=[
+            Predicate("l_shipdate", ">=", date_lo),
+            Predicate("l_shipdate", "<", date_lo + 365),
+            Predicate("l_discount", ">=", discount - 1),
+            Predicate("l_discount", "<=", discount + 1),
+            Predicate("l_quantity", "<", quantity),
+        ],
+        aggregates=[AggSpec(
+            "sum", None, label="revenue",
+            expr=BinOp("*", Col("l_extendedprice"), Col("l_discount")))])
