@@ -75,8 +75,10 @@ line is printed:
    must equal numpy oracles exactly; the single-scan latency (median of
    5), ``bench.py:1003 bench_tpch``'s 10 pipelined batches of 8 Q1 specs
    at depth 4 (rows/s) and one traced batch; K8 held byte for byte
-   against its plain version and timed (Q1 alone, the 8-spec batch, Q6)
-   beside its bound; no Q1/Q6 spec may be re-served on the host. Then
+   against its plain version and timed (``k8_cases``: Q1 alone, 8 copies
+   of one Q1 spec, 8 Q1 specs at distinct cut-offs and read points, Q1
+   grouped by tax and return flag past a block's slots, Q6) beside its
+   bound; no Q1/Q6 spec may be re-served on the host. Then
    1,000,000 rows and 1,000,000 zipfian one-field updates in one
    multi-version run: Q1 exact at the newest and a mid read point
    through the resolve and K8. Then K8's edges at 20,000 rows, each
@@ -95,8 +97,12 @@ kernels, then times this tree's resolve kernel against each other source
 of it (the same C interface) in turns on one card, on the mvcc run and
 the long-group planes (also with 20% of their groups cleared), each held
 byte for byte against the plain version (``resolve_ab`` lines), and
-exits. ``--group-ab OTHER.cu[,...]`` does the same for K8 on Q1, the
-8-spec Q1 batch and Q6 at 2,000,000 lineitem rows (``group_ab`` lines).
+exits. ``--group-ab OTHER.cu[,...]`` does the same for K8 on every case
+of ``k8_cases`` at 2,000,000 lineitem rows (``group_ab`` lines), each
+other source launched at the geometry of K8's first design (a 512-bucket
+table a block; ``pr6_geometry``), as the source of commit b104a1a is:
+``git show b104a1a:yugabyte_db_tpu_torch/csrc/group_agg.cu >
+build/k8_pr6.cu``.
 """
 
 from __future__ import annotations
@@ -2122,10 +2128,10 @@ def grouped_phase(device, bw: float, rate: float) -> dict:
            "groups": len(want_q1)}
     print("grouped " + json.dumps(row))
 
-    # K8 at the main path's shapes, outside the counted run.
+    # K8 at the main path's shapes and past its slots, outside the counted
+    # run.
     kern = {}
-    for label, specs in (("q1", [q1]), ("q1_batch", batches[0]),
-                         ("q6", [q6])):
+    for label, specs in k8_cases(read, LINEITEM_ROWS).items():
         kern[label] = measure_k8(*k8_inputs(eng, specs), bw, rate)
         print(f"grouped_kernel_{label} " + json.dumps(kern[label]))
     row["kernel"] = kern
@@ -2177,18 +2183,57 @@ def grouped_phase(device, bw: float, rate: float) -> dict:
 GROUP_AB_ROWS = 2_000_000  # lineitem rows of the --group-ab comparison
 
 
+def k8_cases(read: int, n_rows: int) -> dict:
+    """The spec batches K8 is timed on over a flat lineitem run of
+    ``n_rows`` rows whose newest version is below ``read``: Q1 alone, 8
+    copies of one Q1 spec (``q1_batch``), 8 Q1 specs at distinct ship
+    cut-offs and read points (``q1_mixed``), Q1's aggregates grouped by
+    (l_tax, l_returnflag), up to 27 groups: more than a block's slots
+    (``q1_wide``), and Q6."""
+    import dataclasses
+
+    from yugabyte_db_tpu_torch import workload
+
+    q1 = workload.q1_spec(read)
+    return {"q1": [q1], "q1_batch": [q1] * TPCH_BATCH,
+            "q1_mixed": [workload.q1_spec(read - n_rows // 16 * i,
+                                          10471 - 150 * i)
+                         for i in range(TPCH_BATCH)],
+            "q1_wide": [dataclasses.replace(
+                q1, group_by=["l_tax", "l_returnflag"])],
+            "q6": [workload.q6_spec(read)]}
+
+
+def pr6_geometry(lib, plan, n_specs: int, n_rows: int) -> tuple:
+    """(grid, shared bytes) of K8's first design (a 512-bucket table in
+    shared memory; specs on grid.x, each spec's rows in one wave of
+    ``group_agg_occupancy`` blocks on grid.y), for --group-ab."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import group_agg
+
+    n_sums = sum(1 for a in plan.sig.aggs if a.kind != "count")
+    n32 = 2 + 2 * plan.kp + len(plan.sig.aggs)
+    table = group_agg.NUM_BUCKETS * (16 * n_sums + 4 * n32)
+    per_sm = lib.group_agg_occupancy(len(plan.col_ids), table)
+    check(per_sm > 0, f"occupancy of the other K8: {per_sm}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slices = max(1, min(per_sm * sms // n_specs, -(-n_rows // 4096), 65535))
+    return slices, table
+
+
 def group_ab(device, bw: float, others: list) -> None:
-    """This tree's K8 (A) against other sources of it (B1, B2, ..., each
-    with the same C interface), on one card: Q1 alone, the 8-spec Q1
-    batch and Q6 over GROUP_AB_ROWS lineitem rows, each kernel held byte
-    for byte against the plain version, then timed in turns A B1 .. Bn
-    Bn .. B1 A (``cuda_ms``)."""
+    """This tree's K8 (A) against sources of K8's first design (B1, B2,
+    ..., each with the same C interface, launched at that design's
+    geometry, ``pr6_geometry``), on one card: every case of ``k8_cases``
+    over GROUP_AB_ROWS lineitem rows, each kernel held byte for byte
+    against the plain version, then timed in turns A B1 .. Bn Bn .. B1 A
+    (``cuda_ms``)."""
     import ctypes
     from pathlib import Path
 
     import torch
 
-    from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.ops import group_agg, native
 
     procs = []
@@ -2198,7 +2243,7 @@ def group_ab(device, bw: float, others: list) -> None:
             [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
              str(Path(other).resolve())], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)))
-    libs = {"A": group_agg._library()}
+    libs = {}
     for other, lib, proc in procs:
         log, _ = proc.communicate(timeout=600)
         check(proc.returncode == 0, f"building {other}: {log}")
@@ -2206,38 +2251,66 @@ def group_ab(device, bw: float, others: list) -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {other}: {line.strip()}")
         libs[other] = group_agg.bind(ctypes.CDLL(str(lib)))
-    own = group_agg._library
     ctx = lineitem_engine(device, GROUP_AB_ROWS)
-    read = ctx.max_ht + 1
-    q1, q6 = workload.q1_spec(read), workload.q6_spec(read)
-    cases = {"q1": [q1], "q1_batch": [q1] * TPCH_BATCH, "q6": [q6]}
     order = ["A", *others, *others[::-1], "A"]
-    try:
-        for label, specs in cases.items():
-            plan, table, params = k8_inputs(ctx.eng, specs)
-            want = group_agg.grouped_aggregate_plain(plan, table, params)
-            times = {name: [] for name in libs}
-            for name in order:
-                group_agg._library = lambda lib=libs[name]: lib
-                got = group_agg.grouped_aggregate(plan, table, params)
-                torch.cuda.synchronize()
-                check(torch.equal(got, want),
-                      f"K8 {name} on {label} != plain version")
-                times[name].append(cuda_ms(
-                    lambda: group_agg.grouped_aggregate(plan, table, params),
-                    KERNEL_REPS, queue_ahead=True))
-            nbytes = group_agg.group_bytes(plan, table, params)
-            print("group_ab " + json.dumps({
-                "case": label, "rows": table[4].numel(), "bytes": nbytes,
-                "bytes_ms": nbytes / bw * 1e3, "ms": times}))
-    finally:
-        group_agg._library = own
+    for label, specs in k8_cases(ctx.max_ht + 1, GROUP_AB_ROWS).items():
+        plan, table, params = k8_inputs(ctx.eng, specs)
+        want = group_agg.grouped_aggregate_plain(plan, table, params)
+        runs = {"A": lambda: group_agg.grouped_aggregate(plan, table, params)}
+        for name, lib in libs.items():
+            geo = pr6_geometry(lib, plan, params.shape[0], table[4].numel())
+            runs[name] = (lambda lib=lib, geo=geo: group_agg.launch(
+                lib, plan, table, params, *geo))
+        times = {name: [] for name in runs}
+        for name in order:
+            got = runs[name]()
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"K8 {name} on {label} != plain "
+                                          f"version")
+            times[name].append(cuda_ms(runs[name], KERNEL_REPS,
+                                       queue_ahead=True))
+        nbytes = group_agg.group_bytes(plan, table, params)
+        ops = group_ops(plan, table, params)
+        print("group_ab " + json.dumps({
+            "case": label, "rows": table[4].numel(), "specs": len(specs),
+            "groups": int((want[0, :group_agg.NUM_BUCKETS, 0] > 0).sum()),
+            "bytes": nbytes, "bytes_ms": nbytes / bw * 1e3,
+            "ops_ms": ops / int32_ops_per_s() * 1e3, "ms": times}))
+
+
+def ptxas_usage(name: str) -> list:
+    """Each entry function of kernel ``name``'s build in this process, as
+    ``nvcc -Xptxas -v`` reported it: registers, stack frame and spill
+    bytes."""
+    import re
+
+    from yugabyte_db_tpu_torch.ops import native
+
+    out = []
+    for line in native.build_logs.get(name, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append({"function": m[1]})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and out:
+            out[-1].update(stack_bytes=int(m[1]), spill_store_bytes=int(m[2]),
+                           spill_load_bytes=int(m[3]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m[1])
+    return out
 
 
 def group_agg_entry(grp: dict) -> dict:
     """The kernels line's K8 entry: the single Q1 launch at SF1 as the
-    headline, the other shapes beside it."""
+    headline, the other shapes beside it, and the build's registers and
+    stack (no spills)."""
     k = grp["kernel"]
+    usage = ptxas_usage("group_agg")
+    check(all(u.get("spill_store_bytes", 0) == 0 and
+              u.get("spill_load_bytes", 0) == 0 for u in usage),
+          f"K8's build spills: {usage}")
     q1, mv = k["q1"], grp["mvcc"]
     err = max([r["max_abs_err"] for r in k.values()]
               + [mv["kernel"]["max_abs_err"]]
@@ -2257,8 +2330,15 @@ def group_agg_entry(grp: dict) -> dict:
         "q1_batch_ms": k["q1_batch"]["ms"],
         "q1_batch_bound_ms": k["q1_batch"]["bound_ms"],
         "q1_batch_plain_ms": k["q1_batch"]["plain_ms"],
+        "q1_mixed_ms": k["q1_mixed"]["ms"],
+        "q1_mixed_bound_ms": k["q1_mixed"]["bound_ms"],
+        "q1_mixed_plain_ms": k["q1_mixed"]["plain_ms"],
+        "q1_wide_ms": k["q1_wide"]["ms"],
+        "q1_wide_bound_ms": k["q1_wide"]["bound_ms"],
+        "q1_wide_plain_ms": k["q1_wide"]["plain_ms"],
         "q6_ms": k["q6"]["ms"], "q6_bound_ms": k["q6"]["bound_ms"],
         "q6_plain_ms": k["q6"]["plain_ms"],
+        "ptxas": usage if usage else "not measured",
         "mvcc_view_ms": mv["kernel"]["ms"],
         "mvcc_view_bound_ms": mv["kernel"]["bound_ms"]}
 

@@ -157,31 +157,45 @@ def case(tables, label):
     return tables[table][0], kw
 
 
-@pytest.mark.parametrize("label", CASE_LABELS)
-def test_plain_version_matches_jax_bucket_by_bucket(tables, label):
-    e, kw = case(tables, label)
-    jspec, pspec = build(J, JX, kw), build(T, TX, kw)
+def plain_and_jax(e, kws: list) -> tuple:
+    """(plan, [(table, JAX outputs)] a spec): the plain version over one
+    parameter row per spec of ``kws`` (one signature, one source), and
+    the JAX program ``compiled_grouped`` on each spec alone, on the same
+    planes (the JAX engine's run uploaded to the port)."""
     tpu, gpu = e["tpu"], e["gpu"]
     jrun = tpu.runs[0]
-    exact, _superset, _host = tpu._split_predicates(jspec)
-    kind, (jsig, ip, fp) = tpu._grouped_prep(jrun, jspec, exact)
-    assert kind == "params"
-    want = jax.device_get(j_group_agg.compiled_grouped(jsig)(
-        jrun.dev.arrays, ip, fp))
-    prep = gpu._plan_scan(pspec)
-    assert prep.route == ("grouped" if jsig.flat else "mv_grouped")
-    plan = group_agg.make_plan(prep.sig)
+    preps, wants = [], []
+    for kw in kws:
+        jspec, pspec = build(J, JX, kw), build(T, TX, kw)
+        exact, _superset, _host = tpu._split_predicates(jspec)
+        kind, (jsig, ip, fp) = tpu._grouped_prep(jrun, jspec, exact)
+        assert kind == "params"
+        wants.append(jax.device_get(j_group_agg.compiled_grouped(jsig)(
+            jrun.dev.arrays, ip, fp)))
+        preps.append(gpu._plan_scan(pspec))
+        assert preps[-1].route == ("grouped" if jsig.flat else "mv_grouped")
+    plan = group_agg.make_plan(preps[0].sig)
+    assert all(group_agg.make_plan(p.sig) is plan for p in preps)
     arrays = DeviceRun.from_reference_planes(
         reference_planes(jrun.crun, PAD_BLOCKS), R, "cpu").arrays
-    if prep.view_key is not None:
+    if preps[0].view_key is not None:
+        assert len(preps) == 1
         arrays = mvcc_resolve.resolve_view_plain(
-            arrays, *prep.read_planes, mvcc_resolve.constant_planes(
+            arrays, *preps[0].read_planes, mvcc_resolve.constant_planes(
                 arrays["valid"].shape[0], R, "cpu"))
-    params = torch.tensor([plan.param_row(prep.row_lo, prep.row_hi,
-                                          prep.read_planes, prep.lits)],
+    params = torch.tensor([plan.param_row(p.row_lo, p.row_hi, p.read_planes,
+                                          p.lits) for p in preps],
                           dtype=torch.int32)
     got = group_agg.grouped_aggregate(plan, plan.plane_table(arrays),
-                                      params)[0].numpy()
+                                      params).numpy()
+    return plan, list(zip(got, wants))
+
+
+def assert_same_buckets(plan, got, want) -> None:
+    """One spec's table against the JAX program's, bucket by bucket:
+    count, rep, key minima and maxima, scanned, negs, each COUNT and n
+    exactly, and each sum as a Python int (where no negative input voids
+    the JAX program's digit sums)."""
     kp = plan.kp
     assert kp == want["keymin"].shape[1]
     np.testing.assert_array_equal(got[:NB, 0], want["count"][:NB])
@@ -191,7 +205,6 @@ def test_plain_version_matches_jax_bucket_by_bucket(tables, label):
                                   want["keymax"][:NB])
     assert got[NB, 0] == int(want["scanned"]) > 0
     assert got[NB, 1] == int(want["negs"])
-    assert (int(want["negs"]) > 0) == (label == "negative_base")
     for i, (ga, off) in enumerate(zip(plan.sig.aggs, plan.offsets)):
         if ga.kind == "count":
             np.testing.assert_array_equal(got[:NB, off], want[f"a{i}"][:NB])
@@ -204,6 +217,47 @@ def test_plain_version_matches_jax_bucket_by_bucket(tables, label):
             assert plan.sum_value(got[b], i) == sum(
                 int(d) << (16 * k) for k, d in enumerate(digits)), (i, b)
     assert (got[:NB, 0] > 0).sum() >= 1
+
+
+@pytest.mark.parametrize("label", CASE_LABELS)
+def test_plain_version_matches_jax_bucket_by_bucket(tables, label):
+    e, kw = case(tables, label)
+    plan, [(got, want)] = plain_and_jax(e, [kw])
+    assert_same_buckets(plan, got, want)
+    assert (int(want["negs"]) > 0) == (label == "negative_base")
+
+
+@pytest.fixture(scope="module")
+def flat_table():
+    """A flat run (one version a key): every read point reads the same
+    planes, so specs at distinct read points share one launch."""
+    rows, ht = group_rows(PORT, group_schema(PORT), 900, seed=11)
+    e = load(rows)
+    assert e["gpu"].runs[0].flat
+    return e, ht
+
+
+@pytest.mark.parametrize("label", ["q1_mixed", "q1_wide"])
+def test_plain_version_matches_jax_on_batches(flat_table, label):
+    """K8's cases past one spec and its slots: 8 Q1 specs at distinct
+    cut-offs and read points in one parameter table, and Q1's aggregates
+    grouped by (tax, flag): 27 live groups, more than a block's SLOTS."""
+    e, ht = flat_table
+    q1 = dict(aggregates=Q1_AGGS, group_by=["flag", "status"])
+    if label == "q1_mixed":
+        kws = [dict(q1, read_ht=ht + 1 - 97 * i,
+                    predicates=[("d", "<", 900 - 50 * i)]) for i in range(8)]
+    else:
+        kws = [dict(q1, read_ht=ht + 1, group_by=["tax", "flag"],
+                    predicates=[("d", "<", 900)])]
+    plan, pairs = plain_and_jax(e, kws)
+    for got, want in pairs:
+        assert_same_buckets(plan, got, want)
+    live = [int((got[:NB, 0] > 0).sum()) for got, _want in pairs]
+    if label == "q1_wide":
+        assert live[0] > group_agg.SLOTS
+    else:
+        assert len({int(got[NB, 0]) for got, _want in pairs}) == 8
 
 
 @pytest.mark.parametrize("label", CASE_LABELS)
@@ -372,27 +426,102 @@ def test_lower_product_and_bounds_match_jax(e):
         assert TX.bounds(expr(TX, e), t_dtype) == jb
 
 
+# TPC-H Q1's shape on the group table: the staged words of a row (hybrid
+# time, expiry, row word; d, flag and status's order planes; four limbs
+# for each of 4 sums) and one spec's records (16 slots of 8 64-bit and 19
+# 32-bit words, a 7-word parameter row).
+Q1_TILE = 4 * 128 * 4 * (5 + 1 + 2 + 2 + 4 * 4)
+Q1_SPEC = 16 * -(-(16 * (8 * 8 + 4 * 19) + 4 * 7) // 16)
+
+
 def test_launch_geometry():
-    q1 = 512 * (16 * 4 + 4 * (2 + 2 * 6 + 5))  # TPC-H Q1's bucket table
-    assert q1 == 71_680
-    geo = group_agg.launch_geometry(1, 6_001_215, q1, 132, 3)
-    assert geo == group_agg.Geometry(256, 1, 3 * 132, q1)
-    # One wave: 8 specs x 49 slices fill 392 of the 396 resident blocks.
-    geo = group_agg.launch_geometry(8, 6_001_215, q1, 132, 3)
-    assert (geo.specs, geo.slices) == (8, 49)
-    assert group_agg.launch_geometry(8, 6_001_215, q1, 132, 2).slices == 33
-    geo = group_agg.launch_geometry(1, 10_000, q1, 132, 3)
-    assert geo.slices == 3  # no slice under MIN_BLOCK_ROWS rows
-    assert group_agg.launch_geometry(1, 0, q1, 132, 3).slices == 1
-    assert group_agg.launch_geometry(1000, 10**8, q1, 132, 2).slices == 1
+    assert (Q1_TILE, Q1_SPEC) == (53_248, 2_272)
+    seen = []
+
+    def per_sm(smem):
+        seen.append(smem)
+        return 3
+
+    geo = group_agg.launch_geometry(1, 6_001_215, Q1_TILE, Q1_SPEC, 132,
+                                    per_sm)
+    assert geo == group_agg.Geometry(128, 3 * 132, 1, 1, Q1_TILE + Q1_SPEC)
+    assert seen == [Q1_TILE + Q1_SPEC]  # the occupancy of this block
+    # 8 specs: one chunk, one wave of 396 blocks reading the planes once.
+    geo = group_agg.launch_geometry(8, 6_001_215, Q1_TILE, Q1_SPEC, 132,
+                                    per_sm)
+    assert geo == group_agg.Geometry(128, 396, 8, 1, Q1_TILE + 8 * Q1_SPEC)
+    # 37 specs: 3 balanced chunks of 13 share the wave.
+    geo = group_agg.launch_geometry(37, 6_001_215, Q1_TILE, Q1_SPEC, 132,
+                                    per_sm)
+    assert (geo.blocks, geo.chunk, geo.chunks) == (132, 13, 3)
+    # No more blocks than the pieces need: 79 pieces of 128 rows, 4 a
+    # block.
+    assert group_agg.launch_geometry(1, 10_000, Q1_TILE, Q1_SPEC, 132,
+                                     per_sm).blocks == 20
+    assert group_agg.launch_geometry(1, 0, Q1_TILE, Q1_SPEC, 132,
+                                     per_sm).blocks == 1
+    assert group_agg.launch_geometry(65535, 10**8, Q1_TILE, Q1_SPEC, 132,
+                                     per_sm).blocks == 1
     with pytest.raises(ValueError):
-        group_agg.launch_geometry(0, 100, q1, 132, 3)
+        group_agg.launch_geometry(0, 100, Q1_TILE, Q1_SPEC, 132, per_sm)
     with pytest.raises(ValueError):
-        group_agg.launch_geometry(65536, 100, q1, 132, 3)
+        group_agg.launch_geometry(65536, 100, Q1_TILE, Q1_SPEC, 132, per_sm)
     with pytest.raises(ValueError):
-        group_agg.launch_geometry(1, 100, group_agg.SMEM_LIMIT + 1, 132, 1)
+        group_agg.launch_geometry(
+            1, 100, group_agg.SMEM_LIMIT - group_agg.STATIC_SMEM, Q1_SPEC,
+            132, per_sm)
     with pytest.raises(ValueError):
-        group_agg.launch_geometry(1, 100, q1, 132, 0)
+        group_agg.launch_geometry(1, 100, Q1_TILE, Q1_SPEC, 132,
+                                  lambda smem: 0)
+
+
+def _signature(n_cols: int, kind: str, n_preds: int, n_group: int,
+               n_aggs: int) -> group_agg.GroupAggSig:
+    """A signature of n_cols columns of ``kind``: predicates and group
+    columns on distinct columns, sums of a column times two factors."""
+    from yugabyte_db_tpu_torch.ops.scan import ColSig, PredSig
+
+    cols = tuple(ColSig(c, kind) for c in range(n_cols))
+    preds = tuple(PredSig(c % n_cols, "i64" if kind != "i32" else "i32",
+                          "<") for c in range(n_preds))
+    group = tuple((c % n_cols, 2 if kind != "i32" else 1)
+                  for c in range(n_preds, n_preds + n_group))
+    factors = (("-", ("k", 100), ("c", 0)), ("*", ("c", 1 % n_cols),
+                                             ("k", 3)))
+    aggs = tuple(group_agg.GAgg("sum_prod", a % n_cols,
+                                2 if kind != "i32" else 1, factors,
+                                (a % n_cols, 0, 1 % n_cols))
+                 for a in range(n_aggs))
+    return group_agg.GroupAggSig(NB, cols, preds, group, aggs)
+
+
+SIGNATURES = {
+    "widest": (16, "i64", 8, 4, 8),   # the descriptor's maxima
+    "wide_i32": (16, "i32", 8, 4, 8),
+    "q1_like": (8, "str", 1, 2, 5),
+    "count_only": (1, "i32", 0, 0, 1),
+}
+
+
+@pytest.mark.parametrize("n_specs", [1, 8, 64, 65_535])
+@pytest.mark.parametrize("name", list(SIGNATURES))
+def test_every_eligible_signature_fits_a_block(name, n_specs):
+    """Every signature the descriptor takes gets a geometry within the
+    block's 232,448 shared bytes, and its chunks cover every spec once."""
+    sig = _signature(*SIGNATURES[name])
+    assert group_agg.eligible(sig)
+    plan = group_agg.make_plan(sig)
+    geo = group_agg.launch_geometry(n_specs, 6_001_215, plan.tile_bytes,
+                                    plan.spec_bytes, 132, lambda smem: 1)
+    assert geo.smem_bytes == plan.tile_bytes + geo.chunk * plan.spec_bytes
+    assert geo.smem_bytes + group_agg.STATIC_SMEM <= group_agg.SMEM_LIMIT
+    assert group_agg.SMEM_LIMIT == 232_448
+    assert 1 <= geo.chunk <= group_agg.SPEC_CHUNK and geo.chunks <= 65_535
+    covered = [s for c in range(geo.chunks)
+               for s in range(c * geo.chunk, min(n_specs, (c + 1) * geo.chunk))]
+    assert covered == list(range(n_specs))
+    assert (geo.chunks - 1) * geo.chunk < n_specs  # no empty chunk
+    assert geo.blocks * geo.chunks <= max(132, geo.chunks)  # one wave
 
 
 def test_plan_layout_and_descriptor(tables):
@@ -400,7 +529,7 @@ def test_plan_layout_and_descriptor(tables):
     prep = e["gpu"]._plan_scan(build(T, TX, kw))
     plan = group_agg.make_plan(prep.sig)
     assert plan.kp == 6 and plan.n_out == 2 + 12 + 1 + 4 * 3
-    assert plan.smem_bytes == 71_680
+    assert (plan.tile_bytes, plan.spec_bytes) == (Q1_TILE, Q1_SPEC)
     assert plan.n_params == group_agg.PARAM_HEAD + 1
     table = plan.plane_table(e["gpu"].runs[0].dev.arrays)
     w = plan.descriptor(table)

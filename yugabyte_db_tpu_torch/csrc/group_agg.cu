@@ -27,48 +27,70 @@
 // time, tombstone, liveness, expiry, every column's set/isnull (existence
 // reads them all) and the order planes the predicates, group columns and
 // sums read: ~73 B a row for TPC-H Q1 on lineitem, ~0.44 GB at SF1,
-// 0.13 ms at 3.35 TB/s. The work per matching row is a hash, a few
-// compares and 128-bit multiply-adds: small beside the bytes, but it all
-// lands on the few buckets a low-cardinality GROUP BY has (Q1 has 4 live
-// groups), where per-row atomics would serialise.
+// 0.13 ms at 3.35 TB/s. The planes are the same for every spec of a
+// launch; what differs per spec is the range, the read point, the
+// literals, and the fold of its matching rows, which all lands on the few
+// buckets a low-cardinality GROUP BY has (Q1 has 4 live groups), where
+// per-row atomics would serialise.
 //
-// What the design does about it (a first design: simple and exact):
-//   - contention: each block folds a slice of one spec's rows into a
-//     bucket table of its own in shared memory, then merges its live
-//     buckets into the spec's table in device memory once, with 64-bit
-//     atomics. Inside a block a warp takes 32 consecutive rows at a time.
-//     Each lane first works out its row's inputs once: which aggregates
-//     it feeds, and each sum's product as four 26-bit limbs. Then the
-//     warp folds its rows one bucket at a time: the lanes whose rows share
-//     the first pending bucket are found with a ballot, their counts come
-//     from popc, their sums from one __reduce_add_sync a limb (32 lanes'
-//     26-bit limbs add up in 32 bits), and one lane adds them into the
-//     shared table. A warp's rows hold few buckets on a low-cardinality
-//     GROUP BY, so a row costs a few warp instructions rather than an
-//     atomic per aggregate. Rep is the lowest peer lane's row (rows rise
-//     with the lane); the key planes are checked against that lane's, and
-//     only a lane whose key differs (a collision) adds its own minima and
-//     maxima.
-//   - latency: a row's loads (the header, every slot's set/isnull, the
-//     order words of the columns the spec reads) are all issued before
-//     any is used, none guarded by another's value; the slot loops are
-//     specialised on the table's width (8 or 16 slots).
+// What the design does about it:
+//   - bytes, once a batch: a warp walks pieces of kPieceRows consecutive
+//     rows, kRows a lane, and reads every plane of a piece once for all
+//     the specs of its block's chunk (16-byte vectors for int32 planes, two
+//     for a two-plane column's interleaved words, 4-byte words for bool
+//     planes), the row header and every column's set/isnull loaded
+//     together. What no spec changes is decoded once a row into the warp's
+//     own area of shared memory: the hybrid time and expiry; a row word
+//     (each column's not-NULL bit, the candidate bit: valid, no tombstone,
+//     live or some column not NULL; the bucket; the row's negative sum
+//     inputs); the predicate and group columns' order words, zeroed where
+//     NULL; and each sum's product as four 24-bit limbs. A warp reads only
+//     what it staged (and its piece's first rows of each bucket), so no
+//     block barrier separates pieces, and the warps of an SM overlap one
+//     another's loads and folds.
+//   - the bucket steps, once a piece: the piece's candidate rows grouped
+//     by bucket (a ballot loop), each bucket's slot claimed in the block's
+//     tag table (atomicCAS, probing linearly; the chunk's specs share the
+//     tags), and whether some row's key differs from its bucket's first
+//     row's (a collision in the piece), checked a key plane at a time.
+//   - per spec, only what the spec changes: the range check, visibility
+//     against its read point and expiry, one compare per predicate, and
+//     the fold of its matching rows step by step into its slot table: a
+//     step's count from popc and __reduce_add_sync, each aggregate's count
+//     or n and each limb of each sum from one __reduce_add_sync (128 rows
+//     of 24-bit limbs add up in 32 bits), then one word a lane (lane 0 the
+//     count, lane 1 + a aggregate a's, lane i the i-th sum's 128 bits, the
+//     first lanes rep and the step's first matching row's key planes), so
+//     that each kind of addition is one atomic instruction. Only where the
+//     piece holds a collision does each differing row add its own key
+//     planes. Minima and maxima read the word first and skip the atomic
+//     when the value cannot move it. A bucket with no free slot folds into
+//     the spec's table in device memory with the same 64- and 128-bit
+//     atomics the final merge uses; every fold is an exact addition,
+//     minimum or maximum, so the result does not depend on which buckets
+//     overflow or on order.
 //   - exactness: sums are two 64-bit words with an explicit carry, in
 //     shared memory and in the output alike (a carry is detected from the
 //     atomic's old value), so they are exact to 2^128: a Q1 sum_charge
 //     row is under 2^91, and 2^31 rows of it under 2^122.
-//   - batches: grid.y runs over the specs of a launch (a shared table
-//     holds one spec's buckets: 70 KB for Q1), grid.x over slices of each
-//     spec's rows; the engine sends every spec of a batch that shares a
-//     source and a signature in one launch. Each spec reads its rows'
-//     planes itself: sharing one read between specs is later work.
-//
-// One build serves every signature: a descriptor (kernel parameter; loops
-// unrolled to its maxima with block-uniform guards) names the columns,
-// predicates (slot, planes, op, literal offset), group columns (slot,
-// planes) and aggregates (kind, slot, base planes, need mask, factors,
-// output slot, and each factor's postfix program); the [N, P] parameter
-// rows carry each spec's row range, read point and literals.
+//   - batches: grid.y runs chunks of up to kMaxSpecChunk specs (their
+//     slot tables and parameter rows beside the warps' areas in shared
+//     memory), each chunk reading the planes once; grid.x is one wave of
+//     the resident blocks the occupancy calculator allows (a partial
+//     second wave doubles its blocks' time). ops/group_agg.py
+//     launch_geometry computes the shape and shared bytes, checked here.
+//   - registers: nothing a thread holds is indexed at run time (a
+//     factor's postfix stack lives in its sum's limb words until the limbs
+//     are written), so ptxas reports no stack frame.
+
+// One build serves every signature: a descriptor (kernel parameter, read
+// from the constant bank; loops unrolled to its maxima with block-uniform
+// guards) names the columns, predicates (slot, planes, op, literal
+// offset), group columns (slot, planes) and aggregates (kind, slot, base
+// planes, need mask, factors, output slot, and each factor's postfix
+// program); the host resolves each role to its plane and staged words.
+// The [N, P] parameter rows carry each spec's row range, read point and
+// literals.
 //
 // Interface: plain C, for ctypes. group_agg_launch returns 0, a negative
 // code for a descriptor or geometry it refuses, or the launches'
@@ -87,19 +109,37 @@ constexpr int kMaxGroup = 4;
 constexpr int kMaxAggs = 8;
 constexpr int kMaxFactors = 2;
 constexpr int kMaxNodes = 8;
-constexpr int kKeySlots = 3 * kMaxGroup;  // per group: 2 planes + null
-constexpr int kThreads = 256;
+constexpr int kMaxKeyPlanes = 3 * kMaxGroup;  // per group: 2 planes + null
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMinBlocks = 4;      // blocks an SM's registers hold (__launch_bounds__)
+constexpr int kRows = 4;           // rows a lane stages and folds at once
+constexpr int kPieceRows = 32 * kRows;  // rows a warp stages and folds
+constexpr int kSlots = 16;         // a spec's slots in a block (a power of 2)
+constexpr int kMaxSpecChunk = 16;  // specs a block serves
 constexpr int kSmemLimit = 232448;
 constexpr int kSmemDefault = 48 * 1024;
+// Static shared memory: the union range, the slots' tags, each warp's
+// bucket steps and its scanned and negs a spec, the key planes' map.
+constexpr int kStaticBytes = 8 + 4 * kSlots + 8 * kWarps * kPieceRows +
+                             16 * kWarps * kMaxSpecChunk + 8 * kMaxKeyPlanes;
 constexpr int kHead = 7;
 constexpr int kDescWords = kHead + kMaxCols + 4 * kMaxPreds + 2 * kMaxGroup +
                            6 * kMaxAggs + 2 * kMaxNodes * kMaxFactors * kMaxAggs;
 constexpr int kParamHead = 6;  // row_lo, row_hi, read hi/lo, expiry hi/lo
+// Staged words of a row, each [kPieceRows] in a warp's area: hybrid time
+// and expiry, the row word, then the predicate and group columns' order
+// words and each sum's four limbs.
+constexpr int kHtHi = 0, kHtLo = 1, kExpHi = 2, kExpLo = 3, kRowWord = 4,
+              kHeadWords = 5;
+// The row word: bits 0..15 column slot c set and not NULL, then the
+// candidate bit, the bucket and the count of negative sum inputs.
+constexpr int kCandBit = 16, kBucketShift = 17, kNegShift = 26;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kHashSeed = 0x01000193u;
 constexpr uint32_t kHashMul = 0x811C9DC5u;  // -2128831035 as uint32
 constexpr uint32_t kMixMul = 0x85EBCA6Bu;   // -2048144789 as uint32
-constexpr uint32_t kLimbMask = (1u << 26) - 1;
+constexpr uint32_t kLimbMask = (1u << 24) - 1;
 
 enum Op : int32_t { kEq = 0, kNe = 1, kLt = 2, kLe = 3, kGt = 4, kGe = 5 };
 enum AggKind : int32_t { kCount = 0, kSum = 1 };
@@ -116,6 +156,7 @@ enum Err : int {
   kErrOutWidth = -7,
   kErrGrid = -8,
   kErrShared = -9,
+  kErrAlign = -10,
 };
 
 struct Desc {
@@ -126,21 +167,29 @@ struct Desc {
   const uint8_t* valid;
   const uint8_t* tomb;
   const uint8_t* live;
-  const uint8_t* set[kMaxCols];
+  const uint8_t* set[kMaxCols];  // slots past n_cols: the valid plane
   const uint8_t* isnull[kMaxCols];
   const int32_t* cmp[kMaxCols];
-  int32_t width[kMaxCols];   // order planes a row: 1 or 2
-  int32_t stride[kMaxCols];  // words loaded a row: width, or 0 if unread
-  uint32_t col_mask;         // bits of the slots 0..n_cols-1
+  int32_t width[kMaxCols];  // order planes a row: 1 or 2
+  uint32_t col_mask;        // bits of the slots 0..n_cols-1
   int32_t n_cols, n_preds, n_group, n_aggs, n_params, kp, n_out;
+  // Staged columns (those predicates and group columns read), in slot
+  // order: plane, slot, words a row, first staged word.
+  int32_t n_staged;
+  const int32_t* stg_ptr[kMaxCols];
+  int32_t stg_col[kMaxCols], stg_width[kMaxCols], stg_word[kMaxCols];
   int32_t pred_col[kMaxPreds], pred_planes[kMaxPreds], pred_op[kMaxPreds],
-      pred_lit[kMaxPreds];
-  int32_t grp_col[kMaxGroup], grp_planes[kMaxGroup], grp_key[kMaxGroup];
+      pred_lit[kMaxPreds], pred_word[kMaxPreds];
+  int32_t grp_col[kMaxGroup], grp_planes[kMaxGroup], grp_word[kMaxGroup];
   int32_t agg_kind[kMaxAggs], agg_col[kMaxAggs], agg_planes[kMaxAggs],
       agg_nf[kMaxAggs], agg_off[kMaxAggs];
   uint32_t agg_need[kMaxAggs];
-  int32_t agg_w32[kMaxAggs];  // the aggregate's count or n in a bucket's words
-  int32_t agg_w64[kMaxAggs];  // its sum's low word in a bucket's 64-bit words
+  int32_t agg_w32[kMaxAggs];   // the aggregate's count or n in a slot's words
+  int32_t agg_w64[kMaxAggs];   // its sum's low word in a slot's 64-bit words
+  int32_t agg_sum[kMaxAggs];   // a sum's index among the sums
+  int32_t limb_word[kMaxAggs];  // a sum's first staged limb
+  const int32_t* agg_ptr[kMaxAggs];  // a sum's base column and its width
+  int32_t agg_width[kMaxAggs];
   int8_t node_op[kMaxAggs][kMaxFactors][kMaxNodes];
   int32_t node_arg[kMaxAggs][kMaxFactors][kMaxNodes];
   // A factor affine in one column (k, c, k + c, k - c, c - k, k * c...):
@@ -148,8 +197,14 @@ struct Desc {
   int8_t fac_affine[kMaxAggs][kMaxFactors];
   int32_t fac_k0[kMaxAggs][kMaxFactors], fac_k1[kMaxAggs][kMaxFactors],
       fac_col[kMaxAggs][kMaxFactors];
-  int32_t n32, n64;  // a bucket's 32-bit and 64-bit words in shared memory
-  int32_t n_rows;
+  const int32_t* fac_ptr[kMaxAggs][kMaxFactors];
+  int32_t fac_width[kMaxAggs][kMaxFactors];
+  // Key plane k: its staged word, or -1 for a null flag of column
+  // key_col[k]; n_kpl planes (0 without group columns).
+  int32_t key_word[kMaxKeyPlanes], key_col[kMaxKeyPlanes], n_kpl;
+  int32_t n32, n64;  // a slot's 32-bit and 64-bit words
+  int32_t words;     // staged words a row
+  int32_t spec_bytes, chunk, n_specs, n_rows;
 };
 
 // (a_hi, a_lo) <= (b_hi, b_lo) and <, lexicographic on signed planes.
@@ -190,27 +245,30 @@ __device__ __forceinline__ bool pred_ok(int op, int planes, const int32_t* v,
   }
 }
 
-// A factor's postfix program at one row (``cw``: its order words), in
-// wrapping int32 arithmetic (as the JAX program's int32 ops).
-__device__ int32_t eval_factor(const Desc& d, int a, int f,
-                               const int32_t (*cw)[2]) {
-  uint32_t st[kMaxNodes];
+// A factor's postfix program at row r, in wrapping int32 arithmetic (as
+// the JAX program's int32 ops). Its columns' words are loaded as the
+// program reaches them; its stack is kept in shared memory, entry k at
+// stk(k).
+template <class Slot>
+__device__ int32_t eval_factor(const Desc& d, int a, int f, long long r,
+                               Slot stk) {
   int sp = 0;
+#pragma unroll 1
   for (int k = 0; k < kMaxNodes; ++k) {
     const int op = d.node_op[a][f][k];
     if (op == kEnd) break;
     const int32_t arg = d.node_arg[a][f][k];
     if (op == kConst) {
-      st[sp++] = static_cast<uint32_t>(arg);
+      *stk(sp++) = static_cast<uint32_t>(arg);
     } else if (op == kColumn) {
-      st[sp++] = static_cast<uint32_t>(cw[arg][0]);
+      *stk(sp++) = static_cast<uint32_t>(__ldg(d.cmp[arg] + r * d.width[arg]));
     } else {
-      const uint32_t r = st[--sp];
-      const uint32_t l = st[--sp];
-      st[sp++] = op == kAdd ? l + r : op == kSub ? l - r : l * r;
+      const uint32_t rt = *stk(--sp);
+      const uint32_t l = *stk(--sp);
+      *stk(sp++) = op == kAdd ? l + rt : op == kSub ? l - rt : l * rt;
     }
   }
-  return static_cast<int32_t>(st[0]);
+  return static_cast<int32_t>(*stk(0));
 }
 
 // A sum's base value from its order words: an i32 plane, or an i64
@@ -244,6 +302,68 @@ __device__ __forceinline__ void atomic_add128(unsigned long long* lo,
   }
 }
 
+// The slot of bucket b in a block's slot table (tags[s] < 0: free): the
+// slot that holds it, or a free one claimed for it, probing linearly from
+// b mod kSlots; -1 when every slot holds another bucket. A tag once set
+// never changes, so every warp of the block finds a bucket in one slot.
+__device__ __forceinline__ int claim_slot(int* tags, int b) {
+  for (int k = 0; k < kSlots; ++k) {
+    const int s = (b + k) & (kSlots - 1);
+    int t = *reinterpret_cast<volatile int*>(&tags[s]);
+    if (t < 0) t = atomicCAS(&tags[s], -1, b);
+    if (t < 0 || t == b) return s;
+  }
+  return -1;
+}
+
+// Where a warp folds one bucket's rows: its slot's words in shared memory,
+// or, when no slot is free, the bucket's row of the spec's table in device
+// memory. Words 0 .. 2 + 2 * kp (count, rep, key minima and maxima) sit at
+// the same index in both; an aggregate's count or n at agg_w32 / agg_off,
+// its sum at agg_w64 / agg_off + 1. All of it is order-free (additions,
+// minima, maxima), so the table is the same whichever rows overflow.
+struct Dest {
+  uint32_t* w32;  // null: fold into o
+  unsigned long long* w64;
+  long long* o;
+
+  __device__ __forceinline__ void add(int k32, int ko, uint32_t v) const {
+    if (w32) {
+      atomicAdd(&w32[k32], v);
+    } else {
+      atomicAdd(reinterpret_cast<unsigned long long*>(&o[ko]),
+                static_cast<unsigned long long>(v));
+    }
+  }
+  // A plain read first: a value that cannot move the word costs no atomic
+  // (minima only fall and maxima only rise, so a stale read costs one).
+  __device__ __forceinline__ void min(int k, int32_t v) const {
+    if (w32) {
+      int* p = reinterpret_cast<int*>(&w32[k]);
+      if (v < *reinterpret_cast<volatile int*>(p)) atomicMin(p, v);
+    } else if (v < *reinterpret_cast<volatile long long*>(&o[k])) {
+      atomicMin(&o[k], static_cast<long long>(v));
+    }
+  }
+  __device__ __forceinline__ void max(int k, int32_t v) const {
+    if (w32) {
+      int* p = reinterpret_cast<int*>(&w32[k]);
+      if (v > *reinterpret_cast<volatile int*>(p)) atomicMax(p, v);
+    } else if (v > *reinterpret_cast<volatile long long*>(&o[k])) {
+      atomicMax(&o[k], static_cast<long long>(v));
+    }
+  }
+  __device__ __forceinline__ void sum(int k64, int ko, uint64_t lo,
+                                      uint64_t hi) const {
+    if (w32) {
+      atomic_add128(&w64[k64], &w64[k64 + 1], lo, hi);
+    } else {
+      atomic_add128(reinterpret_cast<unsigned long long*>(&o[ko]),
+                    reinterpret_cast<unsigned long long*>(&o[ko + 1]), lo, hi);
+    }
+  }
+};
+
 __global__ void group_agg_init(long long* out, long long total, int n_out,
                                int kp) {
   for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -260,229 +380,613 @@ __global__ void group_agg_init(long long* out, long long total, int n_out,
   }
 }
 
-// kCols: the column slots a row loads (8 or kMaxCols, the least that
-// holds n_cols), so that a narrow table issues no padding loads.
+// A spec's records in shared memory: its slot table (each slot's 64-bit
+// words, then its 32-bit words; the slots' tags are the block's, shared by
+// the chunk's specs) and its parameter row.
+struct Spec {
+  unsigned long long* t64;
+  uint32_t* t32;
+  int32_t* p;
+};
+
+__device__ __forceinline__ Spec spec_at(const Desc& d, unsigned char* base,
+                                        int s) {
+  unsigned char* at = base + static_cast<size_t>(s) * d.spec_bytes;
+  Spec r;
+  r.t64 = reinterpret_cast<unsigned long long*>(at);
+  r.t32 = reinterpret_cast<uint32_t*>(r.t64 + kSlots * d.n64);
+  r.p = reinterpret_cast<int32_t*>(r.t32 + kSlots * d.n32);
+  return r;
+}
+
+// The sum of a 128-bit value given as four 24-bit limb sums (each under
+// 2^32), as (lo, hi).
+__device__ __forceinline__ void limbs_to_128(const uint32_t (&sum)[4],
+                                             uint64_t& lo, uint64_t& hi) {
+  lo = sum[0];
+  hi = 0;
+  add128(lo, hi, static_cast<uint64_t>(sum[1]) << 24, 0);
+  add128(lo, hi, static_cast<uint64_t>(sum[2]) << 48,
+         static_cast<uint64_t>(sum[2]) >> 16);
+  add128(lo, hi, 0, static_cast<uint64_t>(sum[3]) << 8);
+}
+
+// A lane's kRows staged words (its rows kRows * lane ...), in shared memory.
+__device__ __forceinline__ uint4 sld(const uint32_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ void sst(uint32_t* p, uint4 v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+__device__ __forceinline__ uint32_t at4(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// A bool plane's kRows bytes (one a row) as 0/1 in byte j.
+__device__ __forceinline__ uint32_t ldb(const uint8_t* p) {
+  return __ldg(reinterpret_cast<const unsigned int*>(p));
+}
+
+__device__ __forceinline__ bool byte_of(uint32_t x, int j) {
+  return (x >> (8 * j)) & 0xffu;
+}
+
+// A two-plane column's kRows rows: the hi plane and the lo plane.
+__device__ __forceinline__ void ld_wide(const int32_t* p, uint4& hi,
+                                        uint4& lo) {
+  const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+  const int4 b = __ldg(reinterpret_cast<const int4*>(p + 4));
+  hi = make_uint4(a.x, a.z, b.x, b.z);
+  lo = make_uint4(a.y, a.w, b.y, b.w);
+}
+
+__device__ __forceinline__ uint4 ld_narrow(const int32_t* p) {
+  const int4 a = __ldg(reinterpret_cast<const int4*>(p));
+  return make_uint4(a.x, a.y, a.z, a.w);
+}
+
+// Stages a warp's piece: every plane of the lane's kRows rows from row0
+// loaded once, and what no spec changes decoded into `my` (word k of the
+// lane's rows at my + k * kPieceRows). Returns the lane's candidate bits.
 template <int kCols>
-__global__ void __launch_bounds__(kThreads, 2)
-    group_agg_kernel(const Desc d, const int32_t* __restrict__ params,
-                     long long* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned long long* t64 = reinterpret_cast<unsigned long long*>(smem);
-  uint32_t* t32 = reinterpret_cast<uint32_t*>(t64 + kNumBuckets * d.n64);
-  __shared__ unsigned long long s_scanned, s_negs;
-
-  const int spec = blockIdx.x;
-  const int32_t* p = params + static_cast<long long>(spec) * d.n_params;
-  const int lane = threadIdx.x & 31;
-
-  for (int i = threadIdx.x; i < kNumBuckets * d.n64; i += kThreads) t64[i] = 0;
-  for (int i = threadIdx.x; i < kNumBuckets * d.n32; i += kThreads) {
-    const int w = i % d.n32;
-    uint32_t v = 0;
-    if (w == 1 || (w >= 2 && w < 2 + d.kp)) v = 0x7fffffffu;
-    else if (w >= 2 + d.kp && w < 2 + 2 * d.kp) v = 0x80000000u;
-    t32[i] = v;
+__device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
+                                                int row0) {
+  const bool in = row0 < d.n_rows;  // n_rows is a multiple of kRows
+  const int at = in ? row0 : 0;     // past the end: row 0, no candidate
+  const uint32_t vb = ldb(d.valid + at), tb = ldb(d.tomb + at),
+                 lb = ldb(d.live + at);
+  const uint4 hh = ld_narrow(d.ht_hi + at), hl = ld_narrow(d.ht_lo + at);
+  const uint4 eh = ld_narrow(d.exp_hi + at), el = ld_narrow(d.exp_lo + at);
+  uint32_t sb[kCols], nb[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    sb[c] = ldb(d.set[c] + at);
+    nb[c] = ldb(d.isnull[c] + at);
   }
-  if (threadIdx.x == 0) s_scanned = s_negs = 0;
-  __syncthreads();
+  uint32_t nn[kRows];  // bit c: slot c set and not NULL
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) nn[j] = 0;
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    const uint32_t x = sb[c] & ~nb[c];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) nn[j] |= ((x >> (8 * j)) & 1u) << c;
+  }
+  uint32_t cand = 0;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    nn[j] &= d.col_mask;
+    cand |= static_cast<uint32_t>(in && byte_of(vb, j) && !byte_of(tb, j) &&
+                                  (byte_of(lb, j) || nn[j]))
+            << j;
+  }
+  sst(my + kHtHi * kPieceRows, hh);
+  sst(my + kHtLo * kPieceRows, hl);
+  sst(my + kExpHi * kPieceRows, eh);
+  sst(my + kExpLo * kPieceRows, el);
 
-  // This block's slice of the spec's rows: whole warps' worth, in order.
-  const long long lo = min(max(p[0], 0), d.n_rows);
-  const long long hi = min(max(p[1], 0), d.n_rows);
-  const long long span = hi > lo ? hi - lo : 0;
-  const long long per = ((span + gridDim.y - 1) / gridDim.y + 31) & ~31ll;
-  const long long s_lo = lo + blockIdx.y * per;
-  const long long s_hi = min(hi, s_lo + per);
-  const int32_t read_hi = p[2], read_lo = p[3], exp_hi = p[4], exp_lo = p[5];
+  // The predicate and group columns' order words, zeroed where NULL.
+#pragma unroll
+  for (int v = 0; v < kMaxCols; ++v) {
+    if (v >= d.n_staged) break;
+    const int c = d.stg_col[v];
+    uint4 hi, lo;
+    if (d.stg_width[v] == 2) {
+      ld_wide(d.stg_ptr[v] + 2 * at, hi, lo);
+    } else {
+      hi = ld_narrow(d.stg_ptr[v] + at);
+      lo = hi;
+    }
+    const uint32_t z0 = (nn[0] >> c) & 1, z1 = (nn[1] >> c) & 1,
+                   z2 = (nn[2] >> c) & 1, z3 = (nn[3] >> c) & 1;
+    uint32_t* dst = my + d.stg_word[v] * kPieceRows;
+    sst(dst, make_uint4(z0 ? hi.x : 0, z1 ? hi.y : 0, z2 ? hi.z : 0,
+                        z3 ? hi.w : 0));
+    if (d.stg_width[v] == 2) {
+      sst(dst + kPieceRows, make_uint4(z0 ? lo.x : 0, z1 ? lo.y : 0,
+                                       z2 ? lo.z : 0, z3 ? lo.w : 0));
+    }
+  }
 
-  unsigned long long my_scanned = 0, my_negs = 0;
-  for (long long base = s_lo; base < s_hi; base += kThreads) {
-    const long long row = base + threadIdx.x;
-    const long long r = row < s_hi ? row : s_lo;  // past the slice: no row
-    // Every load of the row first, none guarded by another's value, so
-    // that a row costs one memory latency: the header, each slot's
-    // set/isnull (slots past n_cols read the valid plane) and the order
-    // words of each column the spec reads (stride 0 for the others: one
-    // cached word for the whole warp).
-    const bool valid = d.valid[r] && row < s_hi;
-    const bool tomb = d.tomb[r], live = d.live[r];
-    const int32_t h_hi = __ldg(d.ht_hi + r), h_lo = __ldg(d.ht_lo + r);
-    const int32_t e_hi = __ldg(d.exp_hi + r), e_lo = __ldg(d.exp_lo + r);
-    uint32_t notnull = 0;  // bit c: slot c is set and not NULL
+  // The bucket of each row from the staged key planes and null flags.
+  uint32_t h[kRows];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const uint32_t set = d.set[c][r], isnull = d.isnull[c][r];
-      notnull |= (set & (isnull ^ 1u)) << c;
+  for (int j = 0; j < kRows; ++j) h[j] = kHashSeed;
+#pragma unroll
+  for (int g = 0; g < kMaxGroup; ++g) {
+    if (g >= d.n_group) break;
+    const uint32_t* w = my + d.grp_word[g] * kPieceRows;
+    const uint4 a = sld(w);
+    const uint4 b = d.grp_planes[g] == 2 ? sld(w + kPieceRows) : a;
+    const int c = d.grp_col[g];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      h[j] = (h[j] ^ at4(a, j)) * kHashMul;
+      if (d.grp_planes[g] == 2) h[j] = (h[j] ^ at4(b, j)) * kHashMul;
+      h[j] = (h[j] ^ (((nn[j] >> c) & 1) ^ 1u)) * kHashMul;
     }
-    int32_t cw[kCols][2];  // order words of the columns read
+  }
+  uint32_t rw[kRows];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-      const int32_t* q = d.cmp[c] + r * d.stride[c];
-      cw[c][0] = __ldg(q);
-      cw[c][1] = __ldg(q + (d.stride[c] > 1 ? 1 : 0));
+  for (int j = 0; j < kRows; ++j) {
+    h[j] ^= h[j] >> 16;
+    h[j] *= kMixMul;
+    h[j] ^= h[j] >> 13;
+    rw[j] = nn[j] | ((cand >> j) & 1u) << kCandBit |
+            ((h[j] & 0x7fffffffu) % kNumBuckets) << kBucketShift;
+  }
+
+  // Each sum's product as four 24-bit limbs (zero where an input is NULL
+  // or negative), and the row's negative inputs where its sums' inputs are
+  // all non-NULL (negs, counted for the specs the row matches).
+#pragma unroll 1
+  for (int a = 0; a < d.n_aggs; ++a) {
+    if (d.agg_kind[a] != kSum) continue;
+    const uint32_t need = d.agg_need[a];
+    uint4 bh, bl;
+    if (d.agg_width[a] == 2) {
+      ld_wide(d.agg_ptr[a] + 2 * at, bh, bl);
+    } else {
+      bh = bl = ld_narrow(d.agg_ptr[a] + at);
     }
-    const bool alive = valid && le2(h_hi, h_lo, read_hi, read_lo) && !tomb &&
-                       !le2(e_hi, e_lo, exp_hi, exp_lo);
-    const uint32_t nn = alive ? notnull & d.col_mask : 0;
-    const bool pre = alive && (live || nn != 0);
-    my_scanned += pre;
-    bool m = pre;
+    // Each factor's value a row: affine ones from the column's words,
+    // the others by their postfix program, one row at a time, with the
+    // sum's limb words (not yet written) as the stack and the results.
+    static_assert(kMaxNodes + kRows <= 4 * kRows, "scratch in the limbs");
+    uint32_t* scratch = my + d.limb_word[a] * kPieceRows;
+    auto slot = [scratch](int i) {
+      return scratch + (i / kRows) * kPieceRows + i % kRows;
+    };
+    uint4 fc[kMaxFactors];
 #pragma unroll
-    for (int q = 0; q < kMaxPreds; ++q) {
-      if (q < d.n_preds) {
-        const int c = d.pred_col[q];
-        m = m && ((nn >> c) & 1) &&
-            pred_ok(d.pred_op[q], d.pred_planes[q], cw[c], p + d.pred_lit[q]);
-      }
-    }
-    // Key planes at fixed slots (3 a group column) and the bucket.
-    int32_t key[kKeySlots];
-    uint32_t h = kHashSeed;
-#pragma unroll
-    for (int g = 0; g < kMaxGroup; ++g) {
-      key[3 * g] = key[3 * g + 1] = key[3 * g + 2] = 0;
-      if (g < d.n_group) {
-        const int c = d.grp_col[g];
-        const bool on = m && ((nn >> c) & 1);
-        key[3 * g] = on ? cw[c][0] : 0;
-        h = (h ^ static_cast<uint32_t>(key[3 * g])) * kHashMul;
-        if (d.grp_planes[g] == 2) {
-          key[3 * g + 1] = on ? cw[c][1] : 0;
-          h = (h ^ static_cast<uint32_t>(key[3 * g + 1])) * kHashMul;
+    for (int k = 0; k < kMaxFactors; ++k) {
+      fc[k] = make_uint4(0, 0, 0, 0);
+      if (k >= d.agg_nf[a]) continue;
+      if (d.fac_affine[a][k]) {
+        uint4 col, unused;
+        if (d.fac_width[a][k] == 2) {
+          ld_wide(d.fac_ptr[a][k] + 2 * at, col, unused);
+        } else {
+          col = ld_narrow(d.fac_ptr[a][k] + at);
         }
-        key[3 * g + 2] = ((nn >> c) & 1) ? 0 : 1;
-        h = (h ^ static_cast<uint32_t>(key[3 * g + 2])) * kHashMul;
+        const uint32_t k0 = static_cast<uint32_t>(d.fac_k0[a][k]),
+                       k1 = static_cast<uint32_t>(d.fac_k1[a][k]);
+        fc[k] = make_uint4(k0 + k1 * col.x, k0 + k1 * col.y, k0 + k1 * col.z,
+                           k0 + k1 * col.w);
+      } else {
+#pragma unroll 1
+        for (int j = 0; j < kRows; ++j) {
+          *slot(kMaxNodes + j) = static_cast<uint32_t>(
+              eval_factor(d, a, k, at + j, slot));
+        }
+        fc[k] = make_uint4(*slot(kMaxNodes), *slot(kMaxNodes + 1),
+                           *slot(kMaxNodes + 2), *slot(kMaxNodes + 3));
       }
     }
-    h ^= h >> 16;
-    h *= kMixMul;
-    h ^= h >> 13;
-    const int bucket = static_cast<int>((h & 0x7fffffffu) % kNumBuckets);
+    uint32_t limb[4][kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int32_t w2[2] = {static_cast<int32_t>(at4(bh, j)),
+                             static_cast<int32_t>(at4(bl, j))};
+      const int64_t v = base_value(w2, d.agg_planes[a]);
+      uint32_t bad = v < 0;
+      uint64_t f[kMaxFactors] = {1, 1};
+#pragma unroll
+      for (int k = 0; k < kMaxFactors; ++k) {
+        if (k >= d.agg_nf[a]) break;
+        const int32_t x = static_cast<int32_t>(at4(fc[k], j));
+        bad += x < 0;
+        f[k] = static_cast<uint32_t>(x);
+      }
+      const bool ok = (nn[j] & need) == need;
+      rw[j] += (ok ? bad : 0u) << kNegShift;
+      const bool on = ok && !bad;
+      const uint64_t u = static_cast<uint64_t>(v);
+      uint64_t lo = u * f[0];  // < 2^77: two words
+      uint64_t hi = __umul64hi(u, f[0]);
+      hi = hi * f[1] + __umul64hi(lo, f[1]);
+      lo *= f[1];
+      limb[0][j] = on ? static_cast<uint32_t>(lo) & kLimbMask : 0;
+      limb[1][j] = on ? static_cast<uint32_t>(lo >> 24) & kLimbMask : 0;
+      limb[2][j] = on ? static_cast<uint32_t>((lo >> 48) | (hi << 16)) &
+                            kLimbMask
+                      : 0;
+      limb[3][j] = on ? static_cast<uint32_t>(hi >> 8) & kLimbMask : 0;
+    }
+    uint32_t* dst = my + d.limb_word[a] * kPieceRows;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      sst(dst + k * kPieceRows,
+          make_uint4(limb[k][0], limb[k][1], limb[k][2], limb[k][3]));
+    }
+  }
+  sst(my + kRowWord * kPieceRows, make_uint4(rw[0], rw[1], rw[2], rw[3]));
+  return cand;
+}
 
-    // The row's aggregate inputs, once: the aggregates it feeds (bit a:
-    // it matches and aggregate a's inputs are all non-NULL), and each
-    // sum's product as four 26-bit limbs (a product is under 2^91, and 32
-    // lanes' limbs add up in 32 bits). A product with a negative input
-    // is left out and counted in negs.
-    uint32_t ok_bits = 0;
-    uint32_t limb[kMaxAggs][4];
+// Key plane k of the piece's row r (a group column's order word, or its
+// null flag from the row word); keymap[k]: (word or -1, column).
+__device__ __forceinline__ int32_t key_plane(const int2* keymap,
+                                             const uint32_t* area, int k,
+                                             int r) {
+  const int2 km = keymap[k];
+  if (km.x >= 0) return static_cast<int32_t>(area[km.x * kPieceRows + r]);
+  return static_cast<int32_t>(
+      ((area[kRowWord * kPieceRows + r] >> km.y) & 1u) ^ 1u);
+}
+
+// Whether row r's key differs from row l's (both in the piece).
+__device__ __forceinline__ bool key_differs(const Desc& d, const int2* keymap,
+                                            const uint32_t* area, int r,
+                                            int l) {
+  bool diff = false;
+#pragma unroll 1
+  for (int k = 0; k < d.n_kpl; ++k) {
+    diff |= key_plane(keymap, area, k, r) != key_plane(keymap, area, k, l);
+  }
+  return diff;
+}
+
+// The lane's rows (bits of `rows`) whose bucket is b.
+__device__ __forceinline__ uint32_t rows_in(const uint32_t (&bk)[kRows],
+                                            uint32_t b) {
+  uint32_t r = 0;
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) r |= static_cast<uint32_t>(bk[j] == b) << j;
+  return r;
+}
+
+// The piece's bucket steps, once for every spec: its candidate rows
+// grouped by bucket in the order of their first rows, each bucket's slot
+// claimed in the block's tag table (-1: no slot free), written to `steps`
+// (bucket | first row << 9, slot); each lane's rows' step indices in st
+// (8 bits a row). Returns the step count, and in `collide` whether some
+// row's key differs from its step's first row's (a collision inside the
+// piece), checked once for all rows, a key plane at a time.
+__device__ __forceinline__ int piece_steps(const Desc& d, const int2* keymap,
+                                           const uint32_t* area, int lane,
+                                           uint32_t cand, int* tags,
+                                           int2* steps, uint32_t& st,
+                                           bool& collide) {
+  const uint32_t* my = area + kRows * lane;
+  const uint4 rw = sld(my + kRowWord * kPieceRows);
+  uint32_t bk[kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    bk[j] = (at4(rw, j) >> kBucketShift) & (kNumBuckets - 1);
+  }
+  int n = 0;
+  st = 0;
+  for (uint32_t pend = cand;;) {
+    const unsigned lanes = __ballot_sync(kFull, pend != 0);
+    if (!lanes) break;
+    const int leader = __ffs(lanes) - 1;
+    const int lj = __shfl_sync(kFull, __ffs(pend) - 1, leader);
+    uint32_t mb = bk[0];
+#pragma unroll
+    for (int j = 1; j < kRows; ++j) mb = lj == j ? bk[j] : mb;
+    const uint32_t b = __shfl_sync(kFull, mb, leader);
+    const uint32_t mine = pend & rows_in(bk, b);
+    pend &= ~mine;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      st |= ((mine >> j) & 1u ? static_cast<uint32_t>(n) : 0u) << (8 * j);
+    }
+    if (lane == leader) {
+      steps[n] = make_int2(static_cast<int>(b) | (kRows * leader + lj) << 9,
+                           claim_slot(tags, static_cast<int>(b)));
+    }
+    ++n;
+  }
+  __syncwarp();
+  // Each candidate row's key planes against its step's first row's.
+  int lrow[kRows];
+  uint32_t lrw[kRows];
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    lrow[j] = steps[(st >> (8 * j)) & 0xffu].x >> 9;
+    lrw[j] = area[kRowWord * kPieceRows + lrow[j]];
+  }
+  bool diff = false;
+#pragma unroll 1
+  for (int k = 0; k < d.n_kpl; ++k) {
+    const int2 km = keymap[k];
+    if (km.x >= 0) {
+      const uint32_t* w = area + km.x * kPieceRows;
+      const uint4 own = sld(w + kRows * lane);
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        diff |= ((cand >> j) & 1u) && at4(own, j) != w[lrow[j]];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        diff |= ((cand >> j) & 1u) &&
+                (((at4(rw, j) ^ lrw[j]) >> km.y) & 1u);
+      }
+    }
+  }
+  collide = __any_sync(kFull, diff);
+  return n;
+}
+
+// Folds one spec's matching rows of a piece (m: bit j, the lane's row
+// kRows * lane + j) step by step into its slot table, or into its table
+// in device memory for a bucket without a slot. Per step: lane 0 adds the
+// count, lane 1 + a aggregate a's count or n, lane agg_sum[a] sum a's
+// limbs, and lanes 1 .. 2 * n_kpl the leader's key planes' minima and
+// maxima, so that each kind goes out as one atomic instruction; lane 0
+// also rep, the step's first matching row. Where the piece holds a
+// collision, each row whose key differs from the leader's adds its own
+// key planes.
+__device__ __forceinline__ void fold_spec(const Desc& d, const Spec& sp,
+                                          long long* table,
+                                          const int2* keymap,
+                                          const uint32_t* area,
+                                          const int2* steps, int n_steps,
+                                          bool collide, int lane, int piece0,
+                                          uint32_t m, uint32_t st,
+                                          const uint4& rw) {
+  const uint32_t* my = area + kRows * lane;
+  for (int i = 0; i < n_steps; ++i) {
+    uint32_t mine = 0;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      mine |= static_cast<uint32_t>(((st >> (8 * j)) & 0xffu) == i) << j;
+    }
+    mine &= m;
+    const unsigned lanes = __ballot_sync(kFull, mine != 0);
+    if (!lanes) continue;
+    const int2 step = steps[i];
+    const uint32_t bucket = step.x & (kNumBuckets - 1);
+    const int leader = __ffs(lanes) - 1;
+    const int lrow = kRows * leader + __shfl_sync(kFull, __ffs(mine) - 1,
+                                                  leader);
+    const Dest t{step.y >= 0 ? sp.t32 + step.y * d.n32 : nullptr,
+                 sp.t64 + (step.y >= 0 ? step.y : 0) * d.n64,
+                 table + static_cast<long long>(bucket) * d.n_out};
+    if (lane <= 2 * d.n_kpl) {
+      // Lane 0 rep, lanes 1 .. n_kpl the key planes' minima, the next
+      // n_kpl their maxima.
+      const bool is_max = lane > d.n_kpl;
+      const int k = is_max ? lane - 1 - d.n_kpl : lane - 1;
+      const int32_t v =
+          lane == 0 ? piece0 + lrow : key_plane(keymap, area, k, lrow);
+      const int word = lane == 0 ? 1 : is_max ? 2 + d.kp + k : 2 + k;
+      if (is_max) t.max(word, v);
+      else t.min(word, v);
+    }
+    if (collide) {
+#pragma unroll 1
+      for (int j = 0; j < kRows; ++j) {
+        const int r = kRows * lane + j;
+        if (!((mine >> j) & 1) || r == lrow ||
+            !key_differs(d, keymap, area, r, lrow)) {
+          continue;
+        }
+        for (int k = 0; k < d.n_kpl; ++k) {
+          const int32_t v = key_plane(keymap, area, k, r);
+          t.min(2 + k, v);
+          t.max(2 + d.kp + k, v);
+        }
+      }
+    }
+    const uint32_t cnt = __reduce_add_sync(kFull, __popc(mine));
+    uint32_t add_v = lane == 0 ? cnt : 0u;
+    int add_k32 = 0, add_ko = 0;
+    uint32_t sum[4] = {0, 0, 0, 0};
+    int sum_k64 = 0, sum_ko = 0;
 #pragma unroll
     for (int a = 0; a < kMaxAggs; ++a) {
-      limb[a][0] = limb[a][1] = limb[a][2] = limb[a][3] = 0;
-      if (a < d.n_aggs && m && (nn & d.agg_need[a]) == d.agg_need[a]) {
-        ok_bits |= 1u << a;
-        if (d.agg_kind[a] == kSum) {
-          const int64_t v = base_value(cw[d.agg_col[a]], d.agg_planes[a]);
-          int bad = v < 0;
-          uint64_t f[kMaxFactors] = {1, 1};
+      if (a >= d.n_aggs) break;
+      const uint32_t need = d.agg_need[a];
+      uint32_t ok = 0;
 #pragma unroll
-          for (int k = 0; k < kMaxFactors; ++k) {
-            if (k < d.agg_nf[a]) {
-              const int32_t x =
-                  d.fac_affine[a][k]
-                      ? static_cast<int32_t>(
-                            static_cast<uint32_t>(d.fac_k0[a][k]) +
-                            static_cast<uint32_t>(d.fac_k1[a][k]) *
-                                static_cast<uint32_t>(cw[d.fac_col[a][k]][0]))
-                      : eval_factor(d, a, k, cw);
-              bad += x < 0;
-              f[k] = static_cast<uint32_t>(x);
-            }
-          }
-          my_negs += bad;
-          if (!bad) {
-            const uint64_t u = static_cast<uint64_t>(v);
-            uint64_t lo = u * f[0];  // < 2^77: two words
-            uint64_t hi = __umul64hi(u, f[0]);
-            hi = hi * f[1] + __umul64hi(lo, f[1]);
-            lo *= f[1];
-            limb[a][0] = static_cast<uint32_t>(lo) & kLimbMask;
-            limb[a][1] = static_cast<uint32_t>(lo >> 26) & kLimbMask;
-            limb[a][2] = static_cast<uint32_t>((lo >> 52) | (hi << 12)) &
-                         kLimbMask;
-            limb[a][3] = static_cast<uint32_t>(hi >> 14) & kLimbMask;
-          }
-        }
+      for (int j = 0; j < kRows; ++j) {
+        ok |= static_cast<uint32_t>((at4(rw, j) & need) == need) << j;
+      }
+      ok &= mine;
+      const uint32_t n = __reduce_add_sync(kFull, __popc(ok));
+      if (lane == 1 + a) {
+        add_v = n;
+        add_k32 = d.agg_w32[a];
+        add_ko = d.agg_off[a];
+      }
+      if (d.agg_kind[a] == kCount) continue;
+      const uint32_t* lw = my + d.limb_word[a] * kPieceRows;
+      const bool own = lane == d.agg_sum[a];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint4 l = sld(lw + k * kPieceRows);
+        const uint32_t part = ((ok & 1u) ? l.x : 0u) + ((ok & 2u) ? l.y : 0u) +
+                              ((ok & 4u) ? l.z : 0u) + ((ok & 8u) ? l.w : 0u);
+        const uint32_t v = __reduce_add_sync(kFull, part);
+        sum[k] = own ? v : sum[k];
+      }
+      if (own) {
+        sum_k64 = d.agg_w64[a];
+        sum_ko = d.agg_off[a] + 1;
       }
     }
-
-    // Fold the warp's matching rows one bucket at a time.
-    unsigned todo = __ballot_sync(kFull, m);
-    while (todo) {
-      const int leader = __ffs(todo) - 1;
-      const int b = __shfl_sync(kFull, bucket, leader);
-      const bool mine = m && bucket == b && ((todo >> lane) & 1);
-      const unsigned peers = __ballot_sync(kFull, mine);
-      todo &= ~peers;
-      bool same = true;
-#pragma unroll
-      for (int k = 0; k < kKeySlots; ++k) {
-        if (k < 3 * d.n_group) {
-          same &= key[k] == __shfl_sync(kFull, key[k], leader);
-        }
-      }
-      uint32_t* w32 = t32 + b * d.n32;
-      if (lane == leader) {
-        atomicAdd(&w32[0], __popc(peers));
-        atomicMin(reinterpret_cast<int*>(&w32[1]), static_cast<int>(row));
-      }
-      if (mine && (lane == leader || !same)) {
-#pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
-          if (g < d.n_group) {
-            // Planes at key positions at, at + 1 (two-plane columns),
-            // then the null flag.
-            const int at = d.grp_key[g];
-            const int planes = d.grp_planes[g];
-            int* kmin = reinterpret_cast<int*>(&w32[2 + at]);
-            int* kmax = reinterpret_cast<int*>(&w32[2 + d.kp + at]);
-            atomicMin(kmin, key[3 * g]);
-            atomicMax(kmax, key[3 * g]);
-            if (planes == 2) {
-              atomicMin(kmin + 1, key[3 * g + 1]);
-              atomicMax(kmax + 1, key[3 * g + 1]);
-            }
-            atomicMin(kmin + planes, key[3 * g + 2]);
-            atomicMax(kmax + planes, key[3 * g + 2]);
-          }
-        }
-      }
-#pragma unroll
-      for (int a = 0; a < kMaxAggs; ++a) {
-        if (a >= d.n_aggs) continue;
-        const bool ok = mine && ((ok_bits >> a) & 1);
-        const unsigned oks = __ballot_sync(kFull, ok);
-        if (!oks) continue;
-        if (lane == leader) atomicAdd(&w32[d.agg_w32[a]], __popc(oks));
-        if (d.agg_kind[a] == kCount) continue;
-        uint32_t sum[4];
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          sum[k] = __reduce_add_sync(kFull, ok ? limb[a][k] : 0u);
-        }
-        if (lane == leader && (sum[0] | sum[1] | sum[2] | sum[3])) {
-          uint64_t lo = sum[0], hi = 0;
-          add128(lo, hi, static_cast<uint64_t>(sum[1]) << 26, 0);
-          add128(lo, hi, static_cast<uint64_t>(sum[2]) << 52,
-                 static_cast<uint64_t>(sum[2]) >> 12);
-          add128(lo, hi, 0, static_cast<uint64_t>(sum[3]) << 14);
-          unsigned long long* w = t64 + b * d.n64 + d.agg_w64[a];
-          atomic_add128(w, w + 1, lo, hi);
-        }
-      }
+    if (add_v) t.add(add_k32, add_ko, add_v);
+    if (sum[0] | sum[1] | sum[2] | sum[3]) {
+      uint64_t lo, hi;
+      limbs_to_128(sum, lo, hi);
+      t.sum(sum_k64, sum_ko, lo, hi);
     }
   }
-  atomicAdd(&s_scanned, my_scanned);
-  if (my_negs) atomicAdd(&s_negs, my_negs);
+}
+
+// kCols: the column slots whose set/isnull a row loads (8 or kMaxCols, the
+// least that holds n_cols), so that a narrow table issues no padding loads.
+template <int kCols>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    group_agg_kernel(const __grid_constant__ Desc d,
+                     const int32_t* __restrict__ params,
+                     long long* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int union_lo, union_hi;
+  __shared__ int tags[kSlots];  // each slot's bucket, -1 while free
+  // Each warp's bucket steps of its piece, and its scanned and negs a spec
+  // (added without atomics).
+  __shared__ int2 steps[kWarps][kPieceRows];
+  __shared__ unsigned long long counts[kWarps][kMaxSpecChunk][2];
+  __shared__ int2 keymap[kMaxKeyPlanes];  // key plane: (word or -1, column)
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s0 = blockIdx.y * d.chunk;
+  const int ns = min(d.chunk, d.n_specs - s0);
+  uint32_t* area = reinterpret_cast<uint32_t*>(smem + d.chunk * d.spec_bytes) +
+                   warp * d.words * kPieceRows;
+
+  // The chunk's records: parameter rows, empty slot tables, zero counts.
+  for (int s = 0; s < ns; ++s) {
+    const Spec sp = spec_at(d, smem, s);
+    const int32_t* p = params + static_cast<long long>(s0 + s) * d.n_params;
+    for (int i = tid; i < d.n_params; i += kThreads) sp.p[i] = p[i];
+    for (int i = tid; i < kSlots * d.n64; i += kThreads) sp.t64[i] = 0;
+    for (int i = tid; i < kSlots * d.n32; i += kThreads) {
+      const int w = i % d.n32;
+      uint32_t v = 0;
+      if (w == 1 || (w >= 2 && w < 2 + d.kp)) v = 0x7fffffffu;
+      else if (w >= 2 + d.kp && w < 2 + 2 * d.kp) v = 0x80000000u;
+      sp.t32[i] = v;
+    }
+  }
+  if (tid < kSlots) tags[tid] = -1;
+  if (tid < d.n_kpl) keymap[tid] = make_int2(d.key_word[tid], d.key_col[tid]);
+  for (int i = tid; i < kWarps * kMaxSpecChunk * 2; i += kThreads) {
+    (&counts[0][0][0])[i] = 0;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int u_lo = d.n_rows, u_hi = 0;
+    for (int s = 0; s < ns; ++s) {
+      const int32_t* p = spec_at(d, smem, s).p;
+      const int lo = min(max(p[0], 0), d.n_rows);
+      const int hi = min(max(p[1], 0), d.n_rows);
+      if (lo < hi) {
+        u_lo = min(u_lo, lo);
+        u_hi = max(u_hi, hi);
+      }
+    }
+    union_lo = u_lo;
+    union_hi = u_hi;
+  }
   __syncthreads();
 
-  // Merge the live buckets into the spec's table in device memory.
-  long long* table = out + static_cast<long long>(spec) * (kNumBuckets + 1) *
-                               d.n_out;
-  for (int b = threadIdx.x; b < kNumBuckets; b += kThreads) {
-    const uint32_t* w32 = t32 + b * d.n32;
-    if (!w32[0]) continue;
-    long long* o = table + static_cast<long long>(b) * d.n_out;
+  // The pieces that meet some spec's range, a warp at a time.
+  const int first = union_lo / kPieceRows;
+  const int end = union_lo < union_hi
+                      ? (union_hi + kPieceRows - 1) / kPieceRows
+                      : first;
+  long long* tables = out + static_cast<long long>(s0) * (kNumBuckets + 1) *
+                                d.n_out;
+  const uint32_t* my = area + kRows * lane;
+  for (int piece = first + blockIdx.x * kWarps + warp; piece < end;
+       piece += gridDim.x * kWarps) {
+    const int piece0 = piece * kPieceRows;
+    const int row0 = piece0 + kRows * lane;
+    __syncwarp();  // the previous piece's folds are done with the area
+    const uint32_t cand = stage_piece<kCols>(d, area + kRows * lane, row0);
+    __syncwarp();
+    if (!__any_sync(kFull, cand != 0)) continue;
+    uint32_t st;
+    bool collide;
+    const int n_steps = piece_steps(d, keymap, area, lane, cand, tags,
+                                    steps[warp], st, collide);
+    __syncwarp();
+    const uint4 rw = sld(my + kRowWord * kPieceRows);
+    const uint4 th = sld(my + kHtHi * kPieceRows);
+    const uint4 tl = sld(my + kHtLo * kPieceRows);
+    const uint4 xh = sld(my + kExpHi * kPieceRows);
+    const uint4 xl = sld(my + kExpLo * kPieceRows);
+    for (int s = 0; s < ns; ++s) {
+      const Spec sp = spec_at(d, smem, s);
+      const int32_t* p = sp.p;
+      const int lo = max(p[0], 0), hi = min(p[1], d.n_rows);
+      if (piece0 + kPieceRows <= lo || piece0 >= hi) continue;
+      // Rows that exist in range at the spec's read point (scanned), then
+      // those that pass its predicates too (matches).
+      uint32_t e = 0;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const bool ok =
+            row0 + j >= lo && row0 + j < hi &&
+            le2(static_cast<int32_t>(at4(th, j)),
+                static_cast<int32_t>(at4(tl, j)), p[2], p[3]) &&
+            !le2(static_cast<int32_t>(at4(xh, j)),
+                 static_cast<int32_t>(at4(xl, j)), p[4], p[5]);
+        e |= static_cast<uint32_t>(ok) << j;
+      }
+      e &= cand;
+      uint32_t m = e;
+#pragma unroll 1
+      for (int q = 0; q < d.n_preds; ++q) {
+        const int c = d.pred_col[q], planes = d.pred_planes[q];
+        const uint32_t* w = my + d.pred_word[q] * kPieceRows;
+        const uint4 a = sld(w);
+        const uint4 b = planes == 2 ? sld(w + kPieceRows) : a;
+        const int32_t* lit = p + d.pred_lit[q];
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          const int32_t v[2] = {static_cast<int32_t>(at4(a, j)),
+                                static_cast<int32_t>(at4(b, j))};
+          const bool pass = ((at4(rw, j) >> c) & 1) &&
+                            pred_ok(d.pred_op[q], planes, v, lit);
+          m &= ~(static_cast<uint32_t>(!pass) << j);
+        }
+      }
+      uint32_t neg = 0;
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        neg += (m >> j) & 1u ? at4(rw, j) >> kNegShift : 0u;
+      }
+      const uint32_t scanned = __reduce_add_sync(kFull, __popc(e));
+      const uint32_t negs = __reduce_add_sync(kFull, neg);
+      if (lane == 0) {
+        counts[warp][s][0] += scanned;
+        counts[warp][s][1] += negs;
+      }
+      fold_spec(d, sp,
+                tables + static_cast<long long>(s) * (kNumBuckets + 1) *
+                             d.n_out,
+                keymap, area, steps[warp], n_steps, collide, lane, piece0, m,
+                st, rw);
+    }
+  }
+  __syncthreads();
+
+  // Merge each spec's live slots, scanned and negs into its table.
+  for (int i = tid; i < ns * kSlots; i += kThreads) {
+    const int s = i / kSlots, slot = i - s * kSlots;
+    const Spec sp = spec_at(d, smem, s);
+    const int b = tags[slot];
+    const uint32_t* w32 = sp.t32 + slot * d.n32;
+    if (b < 0 || !w32[0]) continue;  // free, or no row of this spec
+    long long* o = tables + (static_cast<long long>(s) * (kNumBuckets + 1) +
+                             b) * d.n_out;
     atomicAdd(reinterpret_cast<unsigned long long*>(&o[0]),
               static_cast<unsigned long long>(w32[0]));
     atomicMin(&o[1], static_cast<long long>(static_cast<int32_t>(w32[1])));
@@ -499,7 +1003,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                   static_cast<unsigned long long>(w32[d.agg_w32[a]]));
       }
       if (d.agg_kind[a] == kSum) {
-        const unsigned long long* w = t64 + b * d.n64 + d.agg_w64[a];
+        const unsigned long long* w = sp.t64 + slot * d.n64 + d.agg_w64[a];
         if (w[0] | w[1]) {
           atomic_add128(reinterpret_cast<unsigned long long*>(&o[off + 1]),
                         reinterpret_cast<unsigned long long*>(&o[off + 2]),
@@ -508,12 +1012,13 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
   }
-  if (threadIdx.x == 0) {
-    long long* o = table + static_cast<long long>(kNumBuckets) * d.n_out;
-    if (s_scanned) {
-      atomicAdd(reinterpret_cast<unsigned long long*>(&o[0]), s_scanned);
-    }
-    if (s_negs) atomicAdd(reinterpret_cast<unsigned long long*>(&o[1]), s_negs);
+  for (int i = tid; i < 2 * ns; i += kThreads) {
+    const int s = i >> 1, k = i & 1;
+    unsigned long long v = 0;
+    for (int w = 0; w < kWarps; ++w) v += counts[w][s][k];
+    long long* o = tables + (static_cast<long long>(s) * (kNumBuckets + 1) +
+                             kNumBuckets) * d.n_out;
+    if (v) atomicAdd(reinterpret_cast<unsigned long long*>(&o[k]), v);
   }
 }
 
@@ -552,14 +1057,15 @@ void affine(Desc& d, int a, int f) {
 extern "C" {
 
 // planes: ht_hi, ht_lo, exp_hi, exp_lo, valid, tomb, live, then per column
-// slot: set, isnull, cmp. desc: kDescWords int32 words (layout in
-// ops/group_agg.py GroupAggPlan.descriptor). params: [n_specs, n_params]
-// int32 on the device. out: [n_specs, kNumBuckets + 1, n_out] int64 on the
-// device. slices (blocks a spec) and smem_bytes: ops/group_agg.py
+// slot: set, isnull, cmp; each 16-byte aligned, over an even number of
+// rows. desc: kDescWords int32 words (layout in ops/group_agg.py
+// GroupAggPlan.descriptor). params: [n_specs, n_params] int32 on the
+// device. out: [n_specs, kNumBuckets + 1, n_out] int64 on the device.
+// grid_x (blocks a spec chunk) and smem_bytes: ops/group_agg.py
 // launch_geometry.
 int group_agg_launch(const void* const* planes, int n_planes,
                      const int32_t* desc, int n_desc, const int32_t* params,
-                     int n_specs, long long n_rows, long long* out, int slices,
+                     int n_specs, long long n_rows, long long* out, int grid_x,
                      int smem_bytes, void* stream) {
   if (n_desc != kDescWords) return kErrDescWords;
   Desc d{};
@@ -585,6 +1091,7 @@ int group_agg_launch(const void* const* planes, int n_planes,
     d.cmp[c] = static_cast<const int32_t*>(planes[9 + 3 * c]);
   }
   w += kMaxCols;
+  uint32_t staged = 0;  // column slots predicates and group columns read
   for (int q = 0; q < kMaxPreds; ++q, w += 4) {
     if (q >= d.n_preds) continue;
     if (w[0] < 0 || w[0] >= d.n_cols || (w[1] != 1 && w[1] != 2) ||
@@ -596,6 +1103,7 @@ int group_agg_launch(const void* const* planes, int n_planes,
     d.pred_planes[q] = w[1];
     d.pred_op[q] = w[2];
     d.pred_lit[q] = w[3];
+    staged |= 1u << w[0];
   }
   int kp = 0;
   for (int g = 0; g < kMaxGroup; ++g, w += 2) {
@@ -606,8 +1114,8 @@ int group_agg_launch(const void* const* planes, int n_planes,
     }
     d.grp_col[g] = w[0];
     d.grp_planes[g] = w[1];
-    d.grp_key[g] = kp;
     kp += w[1] + 1;
+    staged |= 1u << w[0];
   }
   if (d.kp != (kp > 1 ? kp : 1)) return kErrGroup;
   int n_out = 2 + 2 * d.kp, n64 = 0;
@@ -629,6 +1137,7 @@ int group_agg_launch(const void* const* planes, int n_planes,
     d.agg_off[a] = w[5];
     d.agg_w32[a] = 2 + 2 * d.kp + a;
     d.agg_w64[a] = sum ? n64 : -1;
+    d.agg_sum[a] = sum ? n64 / 2 : -1;
     n64 += sum ? 2 : 0;
     n_out += sum ? 3 : 1;
     for (int f = 0; f < d.agg_nf[a]; ++f) {
@@ -651,14 +1160,55 @@ int group_agg_launch(const void* const* planes, int n_planes,
   if (n_out != d.n_out) return kErrOutWidth;
   d.n64 = n64;
   d.n32 = 2 + 2 * d.kp + d.n_aggs;
-  if (slices < 1 || slices > 65535 || n_specs < 1 || n_specs > 65535 ||
-      n_rows < 0 ||
-      n_rows > (1ll << 31) - 1 - kThreads) {
+  if (grid_x < 1 || n_specs < 1 || n_specs > 65535 || n_rows < 0 ||
+      n_rows > (1ll << 31) - 1 - kPieceRows) {
     return kErrGrid;
   }
-  const long long need =
-      static_cast<long long>(kNumBuckets) * (8 * d.n64 + 4 * d.n32);
-  if (need != smem_bytes || need > kSmemLimit) return kErrShared;
+  // Staged words a row: the header, the staged columns' order words in
+  // slot order, each sum's four limbs.
+  int words = kHeadWords;
+  int col_word[kMaxCols] = {};
+  for (int c = 0; c < d.n_cols; ++c) {
+    if (!((staged >> c) & 1)) continue;
+    d.stg_ptr[d.n_staged] = d.cmp[c];
+    d.stg_col[d.n_staged] = c;
+    d.stg_width[d.n_staged] = d.width[c];
+    d.stg_word[d.n_staged++] = col_word[c] = words;
+    words += d.width[c];
+  }
+  for (int q = 0; q < d.n_preds; ++q) d.pred_word[q] = col_word[d.pred_col[q]];
+  for (int g = 0; g < d.n_group; ++g) {
+    d.grp_word[g] = col_word[d.grp_col[g]];
+    for (int k = 0; k <= d.grp_planes[g]; ++k, ++d.n_kpl) {
+      d.key_word[d.n_kpl] = k < d.grp_planes[g] ? d.grp_word[g] + k : -1;
+      d.key_col[d.n_kpl] = d.grp_col[g];
+    }
+  }
+  for (int a = 0; a < d.n_aggs; ++a) {
+    if (d.agg_kind[a] != kSum) continue;
+    d.limb_word[a] = words;
+    words += 4;
+    d.agg_ptr[a] = d.cmp[d.agg_col[a]];
+    d.agg_width[a] = d.width[d.agg_col[a]];
+    for (int f = 0; f < d.agg_nf[a]; ++f) {
+      d.fac_ptr[a][f] = d.cmp[d.fac_col[a][f]];
+      d.fac_width[a][f] = d.width[d.fac_col[a][f]];
+    }
+  }
+  d.words = words;
+  // Specs in balanced chunks of at most kMaxSpecChunk, one a grid.y.
+  const int chunks = (n_specs + kMaxSpecChunk - 1) / kMaxSpecChunk;
+  d.chunk = (n_specs + chunks - 1) / chunks;
+  d.n_specs = n_specs;
+  d.spec_bytes = (kSlots * (8 * d.n64 + 4 * d.n32) +
+                  4 * d.n_params + 15) & ~15;
+  const long long need = static_cast<long long>(d.chunk) * d.spec_bytes +
+                         4ll * kWarps * kPieceRows * words;
+  if (need != smem_bytes || need + kStaticBytes > kSmemLimit) return kErrShared;
+  for (int k = 0; k < n_planes; ++k) {
+    if (reinterpret_cast<uintptr_t>(planes[k]) & 15u) return kErrAlign;
+  }
+  if (n_rows % kRows) return kErrAlign;
   d.ht_hi = static_cast<const int32_t*>(planes[0]);
   d.ht_lo = static_cast<const int32_t*>(planes[1]);
   d.exp_hi = static_cast<const int32_t*>(planes[2]);
@@ -667,28 +1217,8 @@ int group_agg_launch(const void* const* planes, int n_planes,
   d.tomb = static_cast<const uint8_t*>(planes[5]);
   d.live = static_cast<const uint8_t*>(planes[6]);
   d.n_rows = static_cast<int32_t>(n_rows);
-  // The order words a row reads: the predicates', group columns', sum
-  // bases' and factor columns'. Unread slots and slots past n_cols load one
-  // fixed word (stride 0); their set/isnull load the valid plane.
-  uint32_t read = 0;
-  for (int q = 0; q < d.n_preds; ++q) read |= 1u << d.pred_col[q];
-  for (int g = 0; g < d.n_group; ++g) read |= 1u << d.grp_col[g];
-  for (int a = 0; a < d.n_aggs; ++a) {
-    if (d.agg_kind[a] == kSum) read |= 1u << d.agg_col[a];
-    for (int f = 0; f < d.agg_nf[a]; ++f) {
-      for (int k = 0; k < kMaxNodes; ++k) {
-        if (d.node_op[a][f][k] == kColumn) read |= 1u << d.node_arg[a][f][k];
-      }
-    }
-  }
-  for (int c = 0; c < kMaxCols; ++c) {
-    if (c >= d.n_cols) {
-      d.set[c] = d.isnull[c] = d.valid;
-      d.cmp[c] = d.ht_hi;
-    }
-    d.stride[c] = c < d.n_cols && ((read >> c) & 1) ? d.width[c] : 0;
-  }
-  d.col_mask = d.n_cols == 32 ? ~0u : (1u << d.n_cols) - 1;
+  for (int c = d.n_cols; c < kMaxCols; ++c) d.set[c] = d.isnull[c] = d.valid;
+  d.col_mask = (1u << d.n_cols) - 1;
   const auto kernel =
       d.n_cols <= 8 ? group_agg_kernel<8> : group_agg_kernel<kMaxCols>;
   if (smem_bytes > kSmemDefault) {
@@ -704,16 +1234,13 @@ int group_agg_launch(const void* const* planes, int n_planes,
   group_agg_init<<<init_blocks, kThreads, 0, s>>>(out, total, d.n_out, d.kp);
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  // Specs on x: the blocks of one row slice for every spec are scheduled
-  // together, so that the specs after the first read it from L2.
-  kernel<<<dim3(n_specs, slices), kThreads, smem_bytes, s>>>(
-      d, params, out);
+  kernel<<<dim3(grid_x, chunks), kThreads, smem_bytes, s>>>(d, params, out);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks of the kernel one SM holds at once for a table of n_cols value
-// columns and a bucket table of smem_bytes (registers, threads and shared
-// memory all counted), or a negative CUDA error code.
+// columns and smem_bytes of dynamic shared memory (registers, threads and
+// shared memory all counted), or a negative CUDA error code.
 int group_agg_occupancy(int n_cols, int smem_bytes) {
   const auto kernel =
       n_cols <= 8 ? group_agg_kernel<8> : group_agg_kernel<kMaxCols>;
@@ -738,7 +1265,9 @@ const char* group_agg_error_string(int code) {
     case kErrAgg: return "bad aggregate descriptor";
     case kErrOutWidth: return "output row width disagrees with the aggregates";
     case kErrGrid: return "bad grid, spec count or row count";
-    case kErrShared: return "shared-memory bytes disagree with the table";
+    case kErrShared: return "shared-memory bytes disagree with the layout";
+    case kErrAlign:
+      return "a plane is not 16-byte aligned or the rows are not a multiple of 4";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

@@ -35,7 +35,9 @@ murmur3 fmix step, modulo ``NUM_BUCKETS``.
   Either returns ``[N, NUM_BUCKETS + 1, S]`` int64 (row ``NUM_BUCKETS``
   holds ``scanned`` and ``negs``); ``grouped_aggregate.launches`` counts
   launches;
-- ``launch_geometry``: the launch shape, pure Python;
+- ``launch_geometry``: the launch shape (chunks of specs on grid.y, one
+  wave of blocks walking 128-row pieces on grid.x) and the shared bytes
+  (``tile_bytes``, ``spec_bytes``), pure Python;
 - ``group_bytes``: the bytes the function must move, for the bound.
 """
 
@@ -49,21 +51,29 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from yugabyte_db_tpu_torch.ops import native
+from yugabyte_db_tpu_torch.ops import flat_agg, native
 from yugabyte_db_tpu_torch.ops.scan import I32_MAX, I32_MIN, le2
 
 NUM_BUCKETS = 512
-# Descriptor limits and launch shape; csrc/group_agg.cu holds the same
-# constants.
+# Descriptor limits, launch shape and shared-memory layout;
+# csrc/group_agg.cu holds the same constants.
 MAX_COLS = 16
 MAX_PREDS = 8
 MAX_GROUP = 4        # group columns
 MAX_AGGS = 8
 MAX_FACTORS = 2      # small factors of one sum
 MAX_NODES = 8        # postfix nodes of one factor
-THREADS = 256
-MIN_BLOCK_ROWS = 16 * THREADS  # rows a block takes at least
+WARPS = 4
+THREADS = 32 * WARPS
+PIECE_ROWS = 128     # rows a warp stages and folds at once, four a lane
+SLOTS = 16           # a spec's slots (buckets in shared memory) in a block
+SPEC_CHUNK = 16      # specs a block serves (grid.y runs the chunks)
+HEAD_WORDS = 5       # staged words a row: hybrid time, expiry, row word
 SMEM_LIMIT = 232_448  # shared-memory bytes a block may use
+# The kernel's static shared memory: the union range, the slots' tags, each
+# warp's bucket steps and its scanned and negs a spec, the key planes' map.
+STATIC_SMEM = (8 + 4 * SLOTS + 8 * WARPS * PIECE_ROWS + 16 * WARPS * SPEC_CHUNK
+               + 8 * 3 * MAX_GROUP)
 _HEAD = 7
 DESC_WORDS = (_HEAD + MAX_COLS + 4 * MAX_PREDS + 2 * MAX_GROUP + 6 * MAX_AGGS
               + 2 * MAX_NODES * MAX_FACTORS * MAX_AGGS)
@@ -115,7 +125,9 @@ def eligible(sig: GroupAggSig) -> bool:
         if len(ag.factors) > MAX_FACTORS or any(
                 len(_nodes(f)) > MAX_NODES for f in ag.factors):
             return False
-    return smem_bytes(sig) <= SMEM_LIMIT
+    n_params = PARAM_HEAD + sum(_PLANES[p.kind] for p in sig.preds)
+    return (tile_bytes(sig) + SPEC_CHUNK * spec_bytes(sig, n_params)
+            + STATIC_SMEM <= SMEM_LIMIT)
 
 
 def key_planes(sig: GroupAggSig) -> int:
@@ -124,13 +136,36 @@ def key_planes(sig: GroupAggSig) -> int:
     return max(1, sum(p + 1 for _c, p in sig.group_cols))
 
 
-def smem_bytes(sig: GroupAggSig) -> int:
-    """A block's bucket table in shared memory: per bucket two 64-bit
-    words a sum, and 32-bit words for the count, rep, key minima and
-    maxima and each aggregate's count or n."""
+def staged_words(sig: GroupAggSig) -> int:
+    """The words a row stages in its warp's area of shared memory: the
+    hybrid time, expiry and row word, the order planes of each column a
+    predicate or group column reads, and four limbs a sum."""
+    two = {c.col_id: c.two_plane for c in sig.cols}
+    staged = {p.col_id for p in sig.preds} | {c for c, _p in sig.group_cols}
+    n_sums = sum(1 for a in sig.aggs if a.kind != "count")
+    return HEAD_WORDS + sum(1 + two[c] for c in staged) + 4 * n_sums
+
+
+def tile_bytes(sig: GroupAggSig) -> int:
+    """A block's warp areas: WARPS pieces of PIECE_ROWS rows."""
+    return WARPS * PIECE_ROWS * 4 * staged_words(sig)
+
+
+def spec_bytes(sig: GroupAggSig, n_params: int) -> int:
+    """One spec's records in a block: its slot table (SLOTS slots, each two
+    64-bit words a sum and 32-bit words for the count, rep, key minima and
+    maxima and each aggregate's count or n) and its parameter row, rounded
+    up to 16 bytes."""
     n_sums = sum(1 for a in sig.aggs if a.kind != "count")
     n32 = 2 + 2 * key_planes(sig) + len(sig.aggs)
-    return sig.NB * (16 * n_sums + 4 * n32)
+    raw = SLOTS * (16 * n_sums + 4 * n32) + 4 * n_params
+    return -(-raw // 16) * 16
+
+
+def spec_chunks(n_specs: int) -> tuple[int, int]:
+    """(specs a block, chunks): balanced chunks of at most SPEC_CHUNK."""
+    chunks = -(-n_specs // SPEC_CHUNK)
+    return -(-n_specs // chunks), chunks
 
 
 @functools.lru_cache(maxsize=256)
@@ -170,7 +205,8 @@ class GroupAggPlan:
             self.offsets.append(off)
             off += 1 if a.kind == "count" else 3
         self.n_out = off
-        self.smem_bytes = smem_bytes(sig)
+        self.tile_bytes = tile_bytes(sig)
+        self.spec_bytes = spec_bytes(sig, self.n_params)
 
     # -- what the kernel is given ------------------------------------------
     def plane_table(self, arrays: dict) -> list[torch.Tensor]:
@@ -250,28 +286,33 @@ class GroupAggPlan:
 
 class Geometry(NamedTuple):
     threads: int      # threads a block
-    specs: int        # grid.x: one block a spec and slice
-    slices: int       # grid.y: a spec's rows cut into this many slices
-    smem_bytes: int   # dynamic shared memory of a block (its bucket table)
+    blocks: int       # grid.x: blocks walking a chunk's row pieces
+    chunk: int        # specs a block serves
+    chunks: int       # grid.y: spec chunks, each reading the planes once
+    smem_bytes: int   # dynamic shared memory of a block
 
 
-def launch_geometry(n_specs: int, n_rows: int, table_bytes: int, sms: int,
-                    per_sm: int) -> Geometry:
-    """The kernel's launch shape: grid.x runs over the specs (so that the
-    specs' blocks of one slice run together and share its reads in L2),
-    and each spec's rows are cut into grid.y slices, as many as one wave
-    of ``per_sm`` resident blocks on each of ``sms`` SMs holds (a second,
-    partial wave would double the time of its blocks' rows), but no
-    slice under MIN_BLOCK_ROWS rows."""
+def launch_geometry(n_specs: int, n_rows: int, tile: int, spec: int,
+                    sms: int, per_sm) -> Geometry:
+    """The kernel's launch shape: the specs in balanced chunks of at most
+    SPEC_CHUNK (grid.y), each block holding its chunk's records (``spec``
+    bytes a spec) beside its warps' areas (``tile`` bytes); grid.x as many
+    blocks as one wave of ``per_sm(smem_bytes)`` resident blocks on each of
+    ``sms`` SMs holds beside the other chunks (a second, partial wave would
+    double the time of its blocks' rows), but no more than the row pieces
+    need. csrc/group_agg.cu checks the same sum."""
     if not 1 <= n_specs <= 65535:
         raise ValueError(f"{n_specs} specs; the kernel takes 1..65535")
-    if table_bytes > SMEM_LIMIT or per_sm < 1:
-        raise ValueError(f"a {table_bytes}-byte bucket table does not fit "
-                         "a block")
-    wave = per_sm * sms // n_specs
-    slices = -(-n_rows // MIN_BLOCK_ROWS)
-    return Geometry(THREADS, n_specs, max(1, min(wave, slices, 65535)),
-                    table_bytes)
+    chunk, chunks = spec_chunks(n_specs)
+    smem = tile + chunk * spec
+    if smem + STATIC_SMEM > SMEM_LIMIT:
+        raise ValueError(f"a {smem}-byte block does not fit shared memory")
+    resident = per_sm(smem)
+    if resident < 1:
+        raise ValueError("a block does not fit an SM")
+    pieces = -(-n_rows // PIECE_ROWS)
+    blocks = max(1, min(resident * sms // chunks, -(-pieces // WARPS)))
+    return Geometry(THREADS, blocks, chunk, chunks, smem)
 
 
 def _check(plan: GroupAggPlan, table, params: torch.Tensor) -> None:
@@ -279,7 +320,7 @@ def _check(plan: GroupAggPlan, table, params: torch.Tensor) -> None:
     if len(table) != 7 + 3 * len(plan.col_ids):
         raise ValueError("plane table does not match the plan's columns")
     B, R = table[0].shape
-    if B * R >= (1 << 31) - THREADS:
+    if B * R > (1 << 31) - 1 - PIECE_ROWS:
         raise ValueError(f"{B * R} rows exceed the kernel's int32 row range")
     for k, t in enumerate(table):
         cmp = k >= 7 and (k - 7) % 3 == 2
@@ -323,11 +364,23 @@ def grouped_aggregate(plan: GroupAggPlan, table: list[torch.Tensor],
                          f"{device}")
     lib = _library()
     n_specs = params.shape[0]
-    n_rows = table[0].numel()
+    flat_agg.check_launchable(table)
     geo = launch_geometry(
-        n_specs, n_rows, plan.smem_bytes,
+        n_specs, table[0].numel(), plan.tile_bytes, plan.spec_bytes,
         torch.cuda.get_device_properties(device).multi_processor_count,
-        _occupancy(lib, len(plan.col_ids), plan.smem_bytes))
+        lambda smem: _occupancy(lib, len(plan.col_ids), smem))
+    out = launch(lib, plan, table, params, geo.blocks, geo.smem_bytes)
+    grouped_aggregate.launches += 1
+    return out
+
+
+def launch(lib: ctypes.CDLL, plan: GroupAggPlan, table: list[torch.Tensor],
+           params: torch.Tensor, grid: int, smem: int) -> torch.Tensor:
+    """One launch of ``lib``'s kernel (any source with the C interface of
+    csrc/group_agg.cu) at the given grid and shared bytes: the output
+    tables, or a RuntimeError naming the code the launch returned."""
+    device = params.device
+    n_specs = params.shape[0]
     out = torch.empty((n_specs, NUM_BUCKETS + 1, plan.n_out),
                       dtype=torch.int64, device=device)
     desc = plan.descriptor(table)
@@ -337,13 +390,12 @@ def grouped_aggregate(plan: GroupAggPlan, table: list[torch.Tensor],
         rc = lib.group_agg_launch(
             ptrs, len(table),
             desc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(desc),
-            ctypes.c_void_p(params.data_ptr()), n_specs, n_rows,
-            ctypes.c_void_p(out.data_ptr()), geo.slices, geo.smem_bytes,
+            ctypes.c_void_p(params.data_ptr()), n_specs, table[0].numel(),
+            ctypes.c_void_p(out.data_ptr()), grid, smem,
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"group_agg kernel launch failed ({rc}): "
                            f"{lib.group_agg_error_string(rc).decode()}")
-    grouped_aggregate.launches += 1
     return out
 
 
@@ -357,10 +409,10 @@ def _library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=64)
-def _occupancy(lib: ctypes.CDLL, n_cols: int, table_bytes: int) -> int:
+def _occupancy(lib: ctypes.CDLL, n_cols: int, smem_bytes: int) -> int:
     """Blocks of the kernel an SM holds at once (the CUDA occupancy
-    calculator: registers, threads and the bucket table counted)."""
-    blocks = lib.group_agg_occupancy(n_cols, table_bytes)
+    calculator: registers, threads and shared memory counted)."""
+    blocks = lib.group_agg_occupancy(n_cols, smem_bytes)
     if blocks < 1:
         raise RuntimeError(f"group_agg occupancy query failed ({blocks}): "
                            f"{lib.group_agg_error_string(-blocks).decode()}"
