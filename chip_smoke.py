@@ -53,7 +53,23 @@ line is printed:
    (``storage/merge.py``), and both kernels' launch counts must have
    advanced. ``mvcc_trace`` profiles 4 batches that each resolve a view;
    K1 is held against its plain version on the newest view;
-5. overlay: post-write scans through the delta overlay, on both engines
+5. rows: row scans on one run, reusing the engine and mvcc phases'
+   tables (``rows_phase``). YCSB-E batches (``workload.ycsb_e_batch``,
+   ``bench.py:179 bench_ycsb_e``'s 256 LIMIT-100 pages from random keys
+   under ``d >= -500000``, projecting k, r, a, d) on the flat run (host
+   pages, no K7) and on the multi-version run through K7 at the newest
+   and a mid read point: 6 batches checked, then 5 pipelined runs of them
+   at depth 6 timed (median ms a batch, pages a second, K7's share); a
+   full range scan of each run (chunks mode, rows a second); a selective
+   paged scan (~1% of the rows, several continuation rounds); pages with
+   a string and a float predicate (superset masks the host verifies) on
+   a table of 100,000 keys made here, the bench table having neither
+   column. Every page's rows, resume key and ``rows_scanned`` equal a host
+   oracle built from the run's key groups with ``merge_versions``
+   (``RunOracle``, which walks K7's windows to count as the gather
+   counts); every K7 launch equals its plain version byte for byte; K7
+   timed alone (CUDA events) beside its plain version and its bound;
+6. overlay: post-write scans through the delta overlay, on both engines
    above. The flat one takes 4 waves of ``workload.make_wave_rows``
    (20,000 uniform updates of d each, ``bench.py:740
    bench_multisource``'s shape), flushed after the first 3 (4 runs and a
@@ -69,7 +85,13 @@ line is printed:
    cleared edges at R = 48, 2048 and 4096), the host fold per miss and
    hit, and an 8-spec batch of new literals traced (host plan, host
    fold, device, finish);
-6. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
+7. rows over several sources (``rows_sources_phase``): the flat engine
+   after the overlay phase (4 runs, a live memtable): 64 YCSB-E pages and
+   a GROUP BY r over 20,000 keys through the row scan, whose candidates
+   K9 gives; each result against a host oracle of every source
+   (``SourcesOracle``), every K9 launch byte for byte against its plain
+   version, K9 timed alone;
+8. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
    ``workload.generate_lineitem``) applied and flushed into one flat run
    (generation and load seconds printed). Q1 and Q6 through the engine
    must equal numpy oracles exactly; the single-scan latency (median of
@@ -87,7 +109,7 @@ line is printed:
    values (a collision, re-served on the host), negative bases (the
    same), COUNT(col), an empty range, and 8 specs of distinct literals
    and read points in one launch;
-7. one JSON line listing every kernel of the path, then as the last line
+9. one JSON line listing every kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a result when no CUDA device is visible.
@@ -102,13 +124,17 @@ of ``k8_cases`` at 2,000,000 lineitem rows (``group_ab`` lines), each
 other source launched at the geometry of K8's first design (a 512-bucket
 table a block; ``pr6_geometry``), as the source of commit b104a1a is:
 ``git show b104a1a:yugabyte_db_tpu_torch/csrc/group_agg.cu >
-build/k8_pr6.cu``.
+build/k8_pr6.cu``. ``--rows`` builds the kernels, makes the flat and
+multi-version tables, runs the rows phase, applies the overlay phase's
+waves and runs the rows phase over several sources, and exits.
 """
 
 from __future__ import annotations
 
+import bisect
 import collections
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -128,7 +154,7 @@ PLAIN_REPS = 3
 
 TRACE_BATCHES = 4
 # The CUDA kernels of the main path.
-KERNELS = ("flat_agg", "mvcc_resolve", "group_agg")
+KERNELS = ("flat_agg", "mvcc_resolve", "group_agg", "row_gather")
 
 # Device-memory bandwidth by card (NVIDIA data sheets), bytes/s.
 _BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -1537,6 +1563,7 @@ def overlay_flat(ctx, device, bw: float, rate: float) -> dict:
     want5 = HistoryOracle(schema, rows, updates + waves[WAVES]).at(newest5)
     check_overlay_scan(eng, spec(newest5, -500_000),
                        want5.headline(-500_000), "flat after the fifth wave")
+    ctx.sources_read_ht = newest5  # the rows phase's several sources
     lits = [-400_000 + 97_531 * i for i in range(OVERLAY_BATCH)]
     batch_trace = timed_overlay_batch(eng, [spec(newest5, lo)
                                             for lo in lits])
@@ -1728,6 +1755,676 @@ def overlay_phase(device, bw: float, rate: float, flat=None,
                                before=history.at(max_ht + 1))
     out["mvcc"] = overlay_mvcc(mvcc, device, bw, rate)
     return out
+
+
+# -- phase 5 and 7: row scans (K7 and K9) ------------------------------------
+
+YCSB_BATCHES = 6     # batches a pipelined run (bench_ycsb_e: depth 6)
+YCSB_REPS = 5        # pipelined runs a configuration; the median is kept
+SELECTIVE_LO = 980_000  # d >= this: about 1% of the rows
+SUPERSET_KEYS = 100_000
+SUPERSET_PAGES = 32
+SOURCE_PAGES = 64
+SOURCE_GROUP_KEYS = 20_000  # keys of the grouped scan over several sources
+ROW_OPS = 48  # integer operations a walked row's resolve needs (flags,
+              # visibility, expiry, existence, bounds, predicates, ranks)
+FLOAT_CHOICES = (0.5, 1.25, -3.0, 7.75, 0.1, 16777216.0, 16777217.0, 0.0)
+STRING_CHOICES = ("xy", "xyz", "zz", "commonprefix-aa", "commonprefix-ab")
+
+
+class SmokePred:
+    """One predicate of the rows phase: its exact test on a merged value
+    and the device's superset test (an 8-byte prefix for strings, float32
+    rounding for floats)."""
+
+    def __init__(self, column: str, op: str, value, kind: str):
+        self.column, self.op, self.value, self.kind = column, op, value, kind
+
+    def spec(self):
+        from yugabyte_db_tpu_torch.storage import Predicate
+
+        return Predicate(self.column, self.op, self.value)
+
+    def real(self, v) -> bool:
+        return self.spec().matches(v)
+
+    def superset(self, v) -> bool:
+        if v is None:
+            return False
+        if self.kind == "f32":
+            a, b = np.float32(v), np.float32(self.value)
+            return {"=": a == b, "!=": True, "<": a <= b, "<=": a <= b,
+                    ">": a >= b, ">=": a >= b}[self.op]
+        if self.kind == "str":
+            a = v.encode()[:8].ljust(8, b"\0")
+            b = self.value.encode()[:8].ljust(8, b"\0")
+            return {"=": a == b, "!=": True, "<": a <= b, "<=": a <= b,
+                    ">": a >= b, ">=": a >= b}[self.op]
+        return self.real(v)
+
+
+class RunOracle:
+    """A run's key groups merged at one read point, from the run's own
+    host rows (key, versions) with the port's ``merge_versions`` (a
+    single version without a TTL merged inline, by the same rule) and
+    ``RowMaterializer``: each group's key, first row, whether it exists,
+    and its values by column name. ``key_vals``: each key's key-column
+    values as the generator wrote them (else decoded)."""
+
+    def __init__(self, schema, crun, groups, read_ht: int, columns,
+                 key_vals=None):
+        from yugabyte_db_tpu_torch.storage.cpu_engine import RowMaterializer
+        from yugabyte_db_tpu_torch.storage.merge import merge_versions
+
+        self.schema, self.crun, self.R = schema, crun, crun.R
+        self.mat = RowMaterializer(schema)
+        self.key_vals = key_vals
+        self.key_pos = {c.name: j for j, c in enumerate(schema.key_columns)}
+        cid = {c.name: c.col_id for c in schema.value_columns}
+        self.keys, self.starts, singles, multis = groups
+        exists = np.zeros(len(self.keys), bool)
+        self.vals = {}
+        # One version and no TTL: the merge's rule inline.
+        idx, vs = singles
+        ok = [not v.tombstone and v.ht <= read_ht and
+              (v.liveness or any(x is not None for x in v.columns.values()))
+              for v in vs]
+        exists[idx] = ok
+        cols = {name: np.empty(len(self.keys), object) for name in columns}
+        for name in columns:
+            c = cid[name]
+            cols[name][idx] = [v.columns.get(c) if o else None
+                               for v, o in zip(vs, ok)]
+        for i, key, versions in multis:
+            m = merge_versions(key, versions, read_ht)
+            exists[i] = m.exists
+            for name in columns:
+                cols[name][i] = m.get(cid[name]) if m.exists else None
+        self.vals = {name: v.tolist() for name, v in cols.items()}
+        self.exists = exists
+        self.cum_exists = np.concatenate([[0], np.cumsum(self.exists)])
+        self._masks: dict = {}
+
+    @classmethod
+    def at_reads(cls, schema, crun, reads, columns, key_vals=None) -> list:
+        """One oracle a read point of ``reads``, the run's key groups
+        read once: every valid row's key and version in run order, a
+        group wherever the key changes."""
+        keys, versions, rows = [], [], []
+        for b in range(crun.B):
+            n = crun.blocks[b].num_valid
+            keys.append(crun.row_keys[b][:n])
+            versions.append(crun.row_versions[b][:n])
+            rows.append(b * crun.R + np.arange(n, dtype=np.int64))
+        keys = np.concatenate(keys)
+        versions = np.concatenate(versions)
+        rows = np.concatenate(rows)
+        first = np.ones(len(keys), bool)
+        first[1:] = keys[1:] != keys[:-1]
+        starts = np.nonzero(first)[0]
+        ends = np.append(starts[1:], len(keys))
+        one = (ends - starts) == 1
+        ttl = np.fromiter((v.has_ttl for v in versions[starts]), bool,
+                          len(starts))
+        single = np.nonzero(one & ~ttl)[0]
+        multis = [(int(i), keys[starts[i]],
+                   list(versions[starts[i]:ends[i]]))
+                  for i in np.nonzero(~(one & ~ttl))[0]]
+        groups = (keys[starts].tolist(), rows[starts],
+                  (single, versions[starts[single]].tolist()), multis)
+        return [cls(schema, crun, groups, rd, columns, key_vals)
+                for rd in reads]
+
+    def row(self, i: int, projection) -> tuple:
+        key = self.keys[i]
+        kv = (self.key_vals[key] if self.key_vals is not None
+              else self.mat.key_values(key))
+        return tuple(kv[self.key_pos[nm]] if nm in self.key_pos
+                     else self.vals[nm][i] for nm in projection)
+
+    def mask(self, preds, superset: bool = False) -> tuple:
+        """(mask, indexes) of the groups that exist and pass ``preds``
+        (or their superset tests), cached."""
+        key = (tuple((p.column, p.op, p.value) for p in preds), superset)
+        if key not in self._masks:
+            m = self.exists.copy()
+            for p in preds:
+                test = p.superset if superset else p.real
+                m &= np.fromiter(map(test, self.vals[p.column]), bool,
+                                 len(self.keys))
+            self._masks[key] = (m, np.nonzero(m)[0])
+        return self._masks[key]
+
+    def page(self, spec, preds, route: str, M: int = 0) -> tuple:
+        """(rows, resume key, rows_scanned) of the spec on ``route``:
+        "page" (the host page index: existing rows through the last row
+        taken), "chunks" (every window of the range) or "gather" (K7's
+        window walk: it stops after the window that holds the M-th
+        superset match, the host takes the real matches of the buffer,
+        and a full buffer continues after its last row)."""
+        i0 = bisect.bisect_left(self.keys, spec.lower)
+        i1 = (bisect.bisect_left(self.keys, spec.upper) if spec.upper
+              else len(self.keys))
+        row_lo = self.crun.lower_row(spec.lower)
+        row_hi = self.crun.upper_row(spec.upper)
+        proj, limit = spec.projection, spec.limit
+        real, real_idx = self.mask(preds)
+        cum = self.cum_exists
+        if route in ("page", "chunks"):
+            take = real_idx[np.searchsorted(real_idx, i0):
+                            np.searchsorted(real_idx, i1)]
+            take = take[:limit] if limit is not None else take
+            hit = limit is not None and len(take) >= limit > 0
+            if route == "page":
+                hi = (int(take[-1]) + 1 if len(take) else i1)
+                scanned = int(cum[hi] - cum[i0])
+            else:
+                scanned = int(cum[i1] - cum[i0])
+            resume = self.keys[take[-1]] + b"\0" if hit else None
+            return [self.row(i, proj) for i in take.tolist()], resume, \
+                scanned
+        sup_idx = self.mask(preds, superset=True)[1]
+        KR = 8 * self.R
+        w_last = (row_hi - 1) // KR
+        rows, scanned, lo, scan_from = [], 0, row_lo, row_lo
+        while True:
+            a = int(np.searchsorted(self.starts, lo))
+            end_range = int(np.searchsorted(self.starts, row_hi))
+            j = int(np.searchsorted(sup_idx, a))
+            if j + M - 1 < len(sup_idx) and sup_idx[j + M - 1] < end_range:
+                w_end = int(self.starts[sup_idx[j + M - 1]]) // KR + 1
+            else:
+                w_end = w_last + 1
+            e = min(int(np.searchsorted(self.starts, w_end * KR)), end_range)
+            count = int(np.searchsorted(sup_idx, e)) - j
+            f = max(a, int(np.searchsorted(self.starts, scan_from)))
+            scanned += int(cum[e] - cum[min(f, e)])
+            buf = sup_idx[j:j + min(count, M)].tolist()
+            for i in buf:
+                if not real[i]:
+                    continue
+                rows.append(self.row(i, proj))
+                if limit is not None and len(rows) >= limit:
+                    return rows, self.keys[i] + b"\0", scanned
+            if count <= M and w_end > w_last:
+                return rows, None, scanned
+            nxt = (int(self.starts[buf[-1]]) + 1 if count > M
+                   else max(lo, w_end * KR))
+            if nxt >= row_hi:
+                return rows, None, scanned
+            lo, scan_from = nxt, max(nxt, w_end * KR)
+
+
+def check_page(got, want, label: str) -> None:
+    rows, resume, scanned = want
+    check(got.rows == rows, f"{label}: rows differ from the oracle's "
+          f"({len(got.rows)} against {len(rows)})")
+    check(got.resume_key == resume, f"{label}: resume key")
+    check(got.rows_scanned == scanned,
+          f"{label}: rows_scanned {got.rows_scanned} != {scanned}")
+
+
+class LaunchLog:
+    """The engine's row path with every K7 and K9 launch recorded (its
+    signature, planes, parameters and output), to be held byte for byte
+    against the plain versions after the timed runs: the row path module
+    reads ``row_gather`` through this proxy."""
+
+    def __init__(self):
+        from yugabyte_db_tpu_torch.ops import row_gather
+
+        self.rg = row_gather
+        self.gathers, self.cands = [], []
+        self.record = True
+
+        def gather(sig, run, ip, fp):
+            out = row_gather.gather_rows(sig, run, ip, fp)
+            if self.record:
+                self.gathers.append((sig, run, ip, fp, out))
+            return out
+
+        def cands(sig, run, ip, fp, n):
+            out = row_gather.scan_candidates(sig, run, ip, fp, n)
+            if self.record:
+                self.cands.append((sig, run, ip, fp, n, out))
+            return out
+
+        self.proxy = SimpleNamespace(**vars(row_gather))
+        self.proxy.gather_rows, self.proxy.scan_candidates = gather, cands
+
+    def __enter__(self):
+        from yugabyte_db_tpu_torch.storage import gpu_rows
+
+        gpu_rows.row_gather = self.proxy
+        return self
+
+    def __exit__(self, *exc):
+        from yugabyte_db_tpu_torch.storage import gpu_rows
+
+        gpu_rows.row_gather = self.rg
+
+    def verify(self) -> dict:
+        """Every recorded launch against its plain version: the number of
+        launches held and the largest |difference| (0: byte for byte)."""
+        import torch
+
+        err = 0
+        for sig, run, ip, fp, out in self.gathers:
+            want = self.rg.gather_rows_plain(sig, run, ip, fp)
+            err = max(err, int((out.long() - want.long()).abs().max()))
+        for sig, run, ip, fp, n, out in self.cands:
+            want = self.rg.scan_candidates_plain(sig, run, ip, fp, n)
+            for a, b in zip(out, want):
+                err = max(err, int((a.long() - b.long()).abs().max()))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        check(err == 0, f"a row-path kernel differs from its plain version "
+                        f"by {err}")
+        n = (len(self.gathers), len(self.cands))
+        self.gathers, self.cands = [], []
+        return {"gather_rows": n[0], "scan_candidates": n[1],
+                "max_abs_err": err}
+
+
+def row_bound(kind: str, launch, bw: float, rate: float) -> dict:
+    """The least time of one recorded launch: its bytes (``gather_bytes``
+    / ``candidates_bytes``) over the card's bandwidth, or ROW_OPS a
+    walked row over its integer rate, whichever is larger."""
+    rg = __import__("yugabyte_db_tpu_torch.ops.row_gather",
+                    fromlist=["x"])
+    if kind == "gather":
+        sig, run, ip, _fp, out = launch
+        ipn, outn = ip.cpu().numpy(), out.cpu().numpy()
+        nbytes = rg.gather_bytes(sig, run, ipn, outn)
+        walked = (np.maximum(outn[:, sig.M, 2] - ipn[:, 0], 0).sum()
+                  if sig.packed else ipn.shape[0])
+    else:
+        sig, run, _ip, _fp, n, _out = launch
+        nbytes = rg.candidates_bytes(sig, run, n)
+        walked = n
+    ops = float(walked) * sig.K * sig.R * ROW_OPS
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / rate * 1e3
+    return {"bytes": int(nbytes), "operations": ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_launch(kind: str, launch, bw: float, rate: float) -> dict:
+    """One recorded launch timed (CUDA events, median of 12) beside its
+    plain version (median of 3) and its bound."""
+    from yugabyte_db_tpu_torch.ops import row_gather as rg
+
+    if kind == "gather":
+        sig, run, ip, fp, _out = launch
+        ms = cuda_ms(lambda: rg.gather_rows(sig, run, ip, fp), KERNEL_REPS)
+        plain = cuda_ms(lambda: rg.gather_rows_plain(sig, run, ip, fp),
+                        PLAIN_REPS)
+        shape = {"pages": int(ip.shape[0]), "M": sig.M, "flat": sig.flat,
+                 "packed": sig.packed}
+    else:
+        sig, run, ip, fp, n, _out = launch
+        ms = cuda_ms(lambda: rg.scan_candidates(sig, run, ip, fp, n),
+                     KERNEL_REPS)
+        plain = cuda_ms(lambda: rg.scan_candidates_plain(sig, run, ip, fp,
+                                                         n), PLAIN_REPS)
+        shape = {"windows": n, "flat": sig.flat,
+                 "apply_preds": sig.apply_preds}
+    return dict(shape, ms=ms, plain_ms=plain, library_ms=None,
+                **row_bound(kind, launch, bw, rate))
+
+
+def pipelined_ms(eng, batches) -> tuple:
+    """``bench_ycsb_e``'s pipeline (``scan_batch_async`` at depth DEPTH)
+    over ``batches``: (its results, ms a batch)."""
+    import torch
+
+    torch.cuda.synchronize() if torch.cuda.is_available() else None
+    t0 = time.perf_counter()
+    results = run_pipelined(eng, batches)
+    return results, (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def ycsb_e(eng, oracle, route: str, read_ht: int, label: str, seed: int,
+           log: LaunchLog) -> dict:
+    """YCSB-E batches of LIMIT-100 pages from random keys: every page of
+    YCSB_BATCHES batches held against the oracle, then YCSB_REPS timed
+    pipelined runs of them (median ms a batch, pages a second). Returns
+    them and the first batch's K7 launch (None on host pages)."""
+    from yugabyte_db_tpu_torch import workload
+
+    rng = random.Random(seed)
+    n_keys = len(oracle.keys)
+    batches = [workload.ycsb_e_batch(eng.schema, ENGINE_KEYS, read_ht, rng)
+               for _ in range(YCSB_BATCHES)]
+    preds = [SmokePred("d", ">=", -500_000, "i32")]
+    first = len(log.gathers)
+    results, _ms = pipelined_ms(eng, batches)  # checked, and warm
+    k7_launch = log.gathers[first] if len(log.gathers) > first else None
+    for b, (specs, res) in enumerate(zip(batches, results)):
+        for j, (s, r) in enumerate(zip(specs, res)):
+            check_page(r, oracle.page(s, preds, route, 104),
+                       f"{label} batch {b} page {j}")
+    times = []
+    for _ in range(YCSB_REPS):
+        _r, ms = pipelined_ms(eng, batches)
+        times.append(ms)
+    ms = statistics.median(times)
+    row = {"route": route, "keys": n_keys, "batch_ms": ms,
+           "batch_ms_each": times,
+           "pages_per_s": workload.YCSB_E_PAGES / (ms / 1e3),
+           "rows_per_page": statistics.mean(len(r.rows) for res in results
+                                            for r in res),
+           "rows_scanned_per_page": statistics.mean(
+               r.rows_scanned for res in results for r in res)}
+    return row, k7_launch
+
+
+def scan_rows_per_s(eng, spec, oracle, preds, route, label, M=0) -> dict:
+    """One scan checked against the oracle, then timed (median of 3 host
+    clocks): rows a second and its gather rounds."""
+    import torch
+
+    want = oracle.page(spec, preds, route, M)
+    check_page(eng.scan(spec), want, label)
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize() if torch.cuda.is_available() else None
+        t = time.perf_counter()
+        eng.scan(spec)
+        times.append((time.perf_counter() - t) * 1e3)
+    ms = statistics.median(times)
+    return {"rows": len(want[0]), "rows_scanned": want[2], "ms": ms,
+            "ms_each": times, "rows_per_s": len(want[0]) / (ms / 1e3),
+            "scanned_rows_per_s": want[2] / (ms / 1e3)}
+
+
+def superset_engine(device):
+    """A table of SUPERSET_KEYS keys with a STRING and a FLOAT value
+    column (the bench table has neither), applied and flushed into one
+    flat run: the pages whose predicates the device can only narrow
+    down."""
+    from yugabyte_db_tpu_torch.models.datatypes import DataType
+    from yugabyte_db_tpu_torch.models.partition import compute_hash_code
+    from yugabyte_db_tpu_torch.models.schema import (ColumnKind,
+                                                     ColumnSchema, Schema)
+    from yugabyte_db_tpu_torch.storage import make_engine
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+
+    schema = Schema([
+        ColumnSchema("k", DataType.STRING, ColumnKind.HASH),
+        ColumnSchema("a", DataType.INT64), ColumnSchema("b", DataType.STRING),
+        ColumnSchema("f", DataType.FLOAT), ColumnSchema("d", DataType.INT32),
+    ], table_id="superset")
+    cid = {c.name: c.col_id for c in schema.columns}
+    rng = random.Random(17)
+    rows = []
+    for i in range(SUPERSET_KEYS):
+        key = schema.encode_primary_key(
+            {"k": f"user{i:06d}"},
+            compute_hash_code(schema, {"k": f"user{i:06d}"}))
+        rows.append(RowVersion(key, ht=100 + i, liveness=True, columns={
+            cid["a"]: rng.randrange(-10**12, 10**12),
+            cid["b"]: rng.choice(STRING_CHOICES),
+            cid["f"]: rng.choice(FLOAT_CHOICES),
+            cid["d"]: rng.randrange(-10**6, 10**6)}))
+    eng = make_engine("gpu", schema, {"rows_per_block": 2048,
+                                      "device": device})
+    eng.apply(rows)
+    eng.flush()
+    return eng, 100 + SUPERSET_KEYS
+
+
+def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
+    """Row scans on one run: YCSB-E batches on the flat run (host pages)
+    and on the multi-version run through K7 (newest and mid read points),
+    a full range scan of each run (chunks), a selective paged scan with
+    continuation rounds, and superset-predicate pages; every page against
+    the oracle, every K7 launch byte for byte against its plain version.
+    ``flat`` / ``mvcc``: the engine and mvcc phases' namespaces."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import row_gather as rg
+    from yugabyte_db_tpu_torch.storage import ScanSpec
+
+    t_phase = time.perf_counter()
+    out = {"card": nvidia_smi()}
+    fe, me = flat.eng, mvcc.eng
+    newest_f = flat.max_ht + 1
+    newest_m = mvcc.max_ht + 1
+    mid_m = (max(r.ht for r in mvcc.rows) + mvcc.max_ht) // 2
+    t0 = time.perf_counter()
+    cols = ("a", "c", "d")
+    # Both runs hold make_rows' keys: key i is (user%06d, i % 7).
+    kv = {r.key: [f"user{i:06d}", i % 7] for i, r in enumerate(flat.rows)}
+    oracles = {"flat": RunOracle.at_reads(flat.schema, fe.runs[0].crun,
+                                          [newest_f], cols, kv)[0]}
+    oracles["mv_newest"], oracles["mv_mid"] = RunOracle.at_reads(
+        mvcc.schema, me.runs[0].crun, [newest_m, mid_m], cols, kv)
+    out["oracle_s"] = time.perf_counter() - t0
+    rg.gather_rows.launches = rg.scan_candidates.launches = 0
+    log = LaunchLog()
+    with log:
+        ycsb, k7_launches, chunk_launches = {}, {}, {}
+        for label, eng, oracle, route, rd in (
+                ("flat", fe, oracles["flat"], "page", newest_f),
+                ("mv_newest", me, oracles["mv_newest"], "gather", newest_m),
+                ("mv_mid", me, oracles["mv_mid"], "gather", mid_m)):
+            ycsb[label], k7_launches[label] = ycsb_e(
+                eng, oracle, route, rd, f"ycsb_e {label}", 11, log)
+        check(k7_launches["flat"] is None,
+              "a flat-run YCSB-E page launched K7 (host pages expected)")
+        out["ycsb_e"] = ycsb
+        held = log.verify()
+
+        proj = ["k", "r", "a", "d"]
+        full = {}
+        for label, eng, oracle, rd in (
+                ("flat", fe, oracles["flat"], newest_f),
+                ("mv", me, oracles["mv_newest"], newest_m)):
+            full[label] = scan_rows_per_s(
+                eng, ScanSpec(read_ht=rd, projection=proj), oracle, [],
+                "chunks", f"full scan {label}")
+            chunk_launches[label] = log.gathers[-1]
+        out["full_scan"] = full
+        held_full = log.verify()
+
+        pred = SmokePred("d", ">=", SELECTIVE_LO, "i32")
+        sel = scan_rows_per_s(
+            fe, ScanSpec(read_ht=newest_f, projection=proj,
+                         predicates=[pred.spec()]),
+            oracles["flat"], [pred], "gather", "selective scan", 4096)
+        sel["rounds"] = len(log.gathers) // 4  # 1 checked + 3 timed scans
+        check(sel["rounds"] > 1, "the selective scan took one round")
+        print("rows_selective " + json.dumps(sel))
+        out["selective"] = sel
+        held_sel = log.verify()
+
+        seng, s_read = superset_engine(device)
+        s_oracle = RunOracle.at_reads(seng.schema, seng.runs[0].crun,
+                                      [s_read], ("a", "b", "f", "d"))[0]
+        rng = random.Random(5)
+        sup = {}
+        for label, p in (("str", SmokePred("b", "=", "commonprefix-ab",
+                                           "str")),
+                         ("f32", SmokePred("f", "<", 1.25, "f32"))):
+            specs = []
+            for _ in range(SUPERSET_PAGES):
+                k = s_oracle.keys[rng.randrange(len(s_oracle.keys))]
+                specs.append(ScanSpec(lower=k, read_ht=s_read, limit=100,
+                                      predicates=[p.spec()],
+                                      projection=["k", "b", "f", "d"]))
+            res, ms = pipelined_ms(seng, [specs])
+            for j, (s, r) in enumerate(zip(specs, res[0])):
+                check_page(r, s_oracle.page(s, [p], "gather", 4096),
+                           f"superset {label} page {j}")
+            sup[label] = {"pages": SUPERSET_PAGES, "batch_ms": ms,
+                          "superset_share": float(np.mean([
+                              p.superset(v) for v in s_oracle.vals[p.column]
+                          ])), "real_share": float(np.mean([
+                              p.real(v) for v in s_oracle.vals[p.column]]))}
+        print("rows_superset " + json.dumps(sup))
+        out["superset"] = sup
+        held_sup = log.verify()
+        launches = {"gather_rows": rg.gather_rows.launches,
+                    "scan_candidates": rg.scan_candidates.launches}
+    check(launches["gather_rows"] > 0, "the row path launched K7 0 times")
+    out["held"] = [held, held_full, held_sel, held_sup]
+    # Outside the counted run: K7 alone at the path's shapes.
+    out["k7"] = time_launch("gather", k7_launches["mv_newest"], bw, rate)
+    out["k7"]["mid"] = time_launch("gather", k7_launches["mv_mid"], bw,
+                                   rate)
+    for label in ("mv_newest", "mv_mid"):
+        k7 = out["k7"] if label == "mv_newest" else out["k7"]["mid"]
+        ycsb[label].update(k7_ms=k7["ms"],
+                           k7_share=k7["ms"] / ycsb[label]["batch_ms"])
+    ycsb["flat"].update(k7_ms=None, k7_share=0.0)
+    for label, launch in chunk_launches.items():
+        full[label]["k7_chunks_launch"] = time_launch("gather", launch, bw,
+                                                      rate)
+    for label in ycsb:
+        print(f"rows_ycsb_e_{label} " + json.dumps(ycsb[label]))
+    for label in full:
+        print(f"rows_full_scan_{label} " + json.dumps(full[label]))
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    del seng
+    torch.cuda.synchronize() if torch.cuda.is_available() else None
+    print("rows " + json.dumps({k: v for k, v in out.items()
+                                if k in ("card", "oracle_s", "held", "k7",
+                                         "launches", "phase_s")}))
+    return out
+
+
+class SourcesOracle:
+    """The flat engine after the overlay phase: the base rows and every
+    wave, merged per key at one read point over all sources (the row
+    scan's rows), and per source whether the key exists there alone (a
+    run's K9 candidates) or is in the memtable (every memtable key in
+    range is a candidate)."""
+
+    def __init__(self, schema, eng, base_rows, read_ht: int):
+        from yugabyte_db_tpu_torch.storage.cpu_engine import RowMaterializer
+        from yugabyte_db_tpu_torch.storage.merge import merge_versions
+
+        self.mat = RowMaterializer(schema)
+        self.schema = schema
+        self.cid = {c.name: c.col_id for c in schema.value_columns}
+        self.keys = sorted(r.key for r in base_rows)
+        self.read_ht = read_ht
+        self.merge = merge_versions
+        self.base = {r.key: r for r in base_rows}
+        self.extra = [{} for _ in eng.runs[1:]]
+        for src, t in zip(self.extra, eng.runs[1:]):
+            for key, versions in t.crun.iter_entries():
+                src[key] = versions
+        self.mem = {}
+        for key in eng.memtable.scan_keys(b"", b""):
+            self.mem[key] = eng.memtable.versions(key)
+
+    def _candidate(self, key) -> bool:
+        b = self.base[key]
+        if not b.tombstone and b.ht <= self.read_ht:
+            return True
+        if key in self.mem:
+            return True
+        return any(key in src and self.merge(key, src[key],
+                                             self.read_ht).exists
+                   for src in self.extra)
+
+    def merged(self, key):
+        versions = [self.base[key]] + [v for src in self.extra
+                                       for v in src.get(key, [])]
+        return self.merge(key, versions + self.mem.get(key, []),
+                          self.read_ht)
+
+    def scan(self, spec, preds, fold=None) -> tuple:
+        """(rows, resume, rows_scanned) of the row scan over the sources;
+        with ``fold``, its Aggregator fed instead of rows."""
+        i0 = bisect.bisect_left(self.keys, spec.lower)
+        i1 = (bisect.bisect_left(self.keys, spec.upper) if spec.upper
+              else len(self.keys))
+        rows, scanned = [], 0
+        for key in self.keys[i0:i1]:
+            if not self._candidate(key):
+                continue
+            scanned += 1
+            m = self.merged(key)
+            if not m.exists:
+                continue
+            kv = self.mat.key_values(key)
+            if not all(p.real(self.mat.value(p.column, kv, m))
+                       for p in preds):
+                continue
+            if fold is not None:
+                fold.add(lambda nm, _kv=kv, _m=m: self.mat.value(nm, _kv, _m))
+                continue
+            rows.append(tuple(self.mat.value(nm, kv, m)
+                              for nm in spec.projection))
+            if spec.limit is not None and len(rows) >= spec.limit:
+                return rows, key + b"\0", scanned
+        return rows, None, scanned
+
+
+def rows_sources_phase(device, bw: float, rate: float, flat) -> dict:
+    """Row scans over several sources: the flat engine after the overlay
+    phase (4 runs and a live memtable). YCSB-E pages and one grouped
+    aggregate over a key range go through the row scan, whose candidates
+    K9 gives; every result against the oracle, every K9 launch byte for
+    byte against its plain version, one K9 launch timed."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import row_gather as rg
+    from yugabyte_db_tpu_torch.storage import AggSpec, ScanSpec
+    from yugabyte_db_tpu_torch.storage.cpu_engine import Aggregator
+
+    t_phase = time.perf_counter()
+    eng = flat.eng
+    read = flat.sources_read_ht
+    check(len(eng.runs) > 1 and not eng.memtable.is_empty,
+          "the flat engine holds one source")
+    t0 = time.perf_counter()
+    oracle = SourcesOracle(flat.schema, eng, flat.rows, read)
+    oracle_s = time.perf_counter() - t0
+    rg.gather_rows.launches = rg.scan_candidates.launches = 0
+    preds = [SmokePred("d", ">=", -500_000, "i32")]
+    log = LaunchLog()
+    with log:
+        specs = workload.ycsb_e_batch(flat.schema, ENGINE_KEYS, read,
+                                      random.Random(23), SOURCE_PAGES)
+        t = time.perf_counter()
+        got = eng.scan_batch(specs)
+        pages_ms = (time.perf_counter() - t) * 1e3
+        for j, (s, r) in enumerate(zip(specs, got)):
+            check_page(r, oracle.scan(s, preds), f"sources page {j}")
+        first = len(oracle.keys) // 10
+        lo = oracle.keys[first]
+        hi = oracle.keys[first + SOURCE_GROUP_KEYS]
+        gspec = ScanSpec(lower=lo, upper=hi, read_ht=read, group_by=["r"],
+                         aggregates=[AggSpec("count", None),
+                                     AggSpec("sum", "d"),
+                                     AggSpec("max", "a")])
+        t = time.perf_counter()
+        res = eng.scan(gspec)
+        group_ms = (time.perf_counter() - t) * 1e3
+        agg = Aggregator(gspec.aggregates, gspec.group_by)
+        _r, _s, scanned = oracle.scan(gspec, [], fold=agg)
+        check(res.rows == agg.results() and res.rows_scanned == scanned,
+              "grouped scan over several sources differs from the oracle")
+        launches = {"gather_rows": rg.gather_rows.launches,
+                    "scan_candidates": rg.scan_candidates.launches}
+        widest = max(log.cands, key=lambda c: c[4])
+        held = log.verify()
+    check(launches["scan_candidates"] > 0,
+          "the row scan over several sources launched K9 0 times")
+    k9 = time_launch("cands", widest, bw, rate)
+    row = {"card": nvidia_smi(), "runs": len(eng.runs),
+           "memtable_versions": eng.memtable.num_versions,
+           "oracle_s": oracle_s, "pages": SOURCE_PAGES,
+           "pages_batch_ms": pages_ms, "group_keys": SOURCE_GROUP_KEYS,
+           "group_ms": group_ms, "group_rows_scanned": res.rows_scanned,
+           "held": held, "launches": launches, "k9": k9,
+           "phase_s": time.perf_counter() - t_phase}
+    print("rows_sources " + json.dumps(row))
+    return row
 
 
 # -- phase 6: GROUP BY and expression aggregates (TPC-H Q1/Q6, K8) -------
@@ -2343,6 +3040,73 @@ def group_agg_entry(grp: dict) -> dict:
         "mvcc_view_bound_ms": mv["kernel"]["bound_ms"]}
 
 
+def rows_alone(device, bw: float, rate: float) -> None:
+    """The rows phases without the others: the flat and multi-version
+    tables, the rows phase, the overlay phase's waves (applied and
+    flushed as there), the rows phase over several sources, and the
+    kernels line's K7 and K9 entries."""
+    from yugabyte_db_tpu_torch import workload
+
+    flat = flat_engine(device)
+    schema, rows, updates, _l, max_ht, eng, _g, _a = mvcc_engine(device)
+    mvcc = SimpleNamespace(schema=schema, rows=rows, updates=updates,
+                           max_ht=max_ht, eng=eng)
+    out = rows_phase(device, bw, rate, flat, mvcc)
+    ht = flat.max_ht
+    for w in range(WAVES + 1):
+        wave, ht = workload.make_wave_rows(flat.schema, ENGINE_KEYS,
+                                           ENGINE_KEYS // 50, ht, seed=21 + w)
+        flat.eng.apply(wave)
+        if w < WAVES - 1:
+            flat.eng.flush()
+    flat.sources_read_ht = ht + 1
+    sources = rows_sources_phase(device, bw, rate, flat)
+    print(json.dumps({"kernels": row_path_entries(out, sources)}))
+
+
+def row_path_entries(rows: dict, sources: dict) -> list:
+    """The kernels line's K7 and K9 entries: K7 at a YCSB-E batch on the
+    multi-version run (the newest read point; the mid one and the full
+    scans' chunks launches beside it), K9 at the widest launch of the
+    row scan over several sources; launches of the phases' counted runs,
+    the build's registers and stack."""
+    usage = ptxas_usage("row_gather")
+    err = max(h["max_abs_err"] for h in rows["held"] + [sources["held"]])
+    k7, k9 = rows["k7"], sources["k9"]
+    full = rows["full_scan"]
+    common = {"route": "cuda",
+              "source": "yugabyte_db_tpu_torch/csrc/row_gather.cu",
+              "max_abs_err": err, "max_abs_diff": err, "library_ms": None,
+              "ptxas": usage if usage else "not measured"}
+    gather_launches = {"rows": rows["launches"]["gather_rows"],
+                       "rows_sources": sources["launches"]["gather_rows"]}
+    cand_launches = {"rows": rows["launches"]["scan_candidates"],
+                     "rows_sources": sources["launches"]["scan_candidates"]}
+    return [dict(common, **{
+        "name": "row_gather", "replaces": "yugabyte_db_tpu/ops/row_gather.py:143",
+        "launches": sum(gather_launches.values()),
+        "launches_by_path": gather_launches,
+        "ms": k7["ms"], "plain_ms": k7["plain_ms"],
+        "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
+        "pages": k7["pages"], "M": k7["M"],
+        "library_note": "no single PyTorch call resolves MVCC groups and "
+                        "compacts the first M matches",
+        "mid_ms": k7["mid"]["ms"], "mid_bound_ms": k7["mid"]["bound_ms"],
+        "chunks_flat_ms": full["flat"]["k7_chunks_launch"]["ms"],
+        "chunks_flat_bound_ms": full["flat"]["k7_chunks_launch"]["bound_ms"],
+        "chunks_mv_ms": full["mv"]["k7_chunks_launch"]["ms"],
+        "chunks_mv_bound_ms": full["mv"]["k7_chunks_launch"]["bound_ms"]}),
+        dict(common, **{
+            "name": "scan_window", "replaces": "yugabyte_db_tpu/ops/scan.py:320",
+            "launches": sum(cand_launches.values()),
+            "launches_by_path": cand_launches,
+            "ms": k9["ms"], "plain_ms": k9["plain_ms"],
+            "bound_ms": k9["bound_ms"], "bound_by": k9["bound_by"],
+            "windows": k9["windows"],
+            "library_note": "no single PyTorch call resolves MVCC groups "
+                            "of a window"})]
+
+
 def main() -> int:
     import torch
 
@@ -2373,10 +3137,15 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--group-ab":
         group_ab(device, bw, sys.argv[2].split(","))
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--rows":
+        rows_alone(device, bw, rate)
+        return 0
     kernel_err = kernel_phase(device, bw, rate)
     eng, flat = engine_phase(device, bw, rate)
     mv, mvcc = mvcc_phase(device, bw, rate)
+    rows = rows_phase(device, bw, rate, flat, mvcc)
     ov = overlay_phase(device, bw, rate, flat, mvcc)
+    sources = rows_sources_phase(device, bw, rate, flat)
     del flat, mvcc
     torch.cuda.empty_cache()
     grp = grouped_phase(device, bw, rate)
@@ -2425,7 +3194,7 @@ def main() -> int:
         "overlay_mid_bound_ms": ovm["resolve"]["mid"]["bound_ms"],
         "overlay_long_group_ms": ovm["resolve"]["long"]["ms"],
         "overlay_long_group_bound_ms": ovm["resolve"]["long"]["bound_ms"]},
-        group_agg_entry(grp)]}))
+        group_agg_entry(grp), *row_path_entries(rows, sources)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

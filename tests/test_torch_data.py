@@ -6,7 +6,9 @@ once with the JAX package's data model and once with the port's, so that
 a test feeds both sides the same bytes. ``flat_rows`` gives flat runs
 (one version per key) with tombstones, NULLs, unset columns, UPDATE-only
 rows (no liveness) and TTLs that expire inside the history;
-``multiversion_rows`` gives multi-version histories.
+``multiversion_rows`` gives multi-version histories, ``layered_rows``
+layers of ``flat_rows`` over the same keys (the row path's multi-version
+runs, on the ``rows`` table with a FLOAT and a STRING value column).
 """
 
 from __future__ import annotations
@@ -48,7 +50,18 @@ TABLES = {
     "mixed": [("k", "STRING", "HASH"), ("r", "INT64", "RANGE"),
               ("a", "INT64", "REGULAR"), ("b", "STRING", "REGULAR"),
               ("c", "DOUBLE", "REGULAR"), ("d", "INT32", "REGULAR")],
+    # The row path's table: every predicate kind (i32, i64, f64, and the
+    # superset kinds str and f32).
+    "rows": [("k", "STRING", "HASH"), ("r", "INT64", "RANGE"),
+             ("a", "INT64", "REGULAR"), ("b", "STRING", "REGULAR"),
+             ("c", "DOUBLE", "REGULAR"), ("d", "INT32", "REGULAR"),
+             ("f", "FLOAT", "REGULAR")],
 }
+
+# FLOAT values: signed zeros, and pairs that are equal once rounded to
+# float32 (16777217 and 16777216; 0.1 and its float32) but not as stored.
+FLOATS = [0.0, -0.0, 0.5, 1.25, -3.0, 7.75, 0.1, float(np.float32(0.1)),
+          16777216.0, 16777217.0, -16777217.0]
 
 
 def make_schema(side, table: str):
@@ -76,6 +89,8 @@ def _value(rng: random.Random, dtype_name: str):
         return rng.randrange(-10**6, 10**6)
     if dtype_name == "DOUBLE":
         return rng.uniform(0.0, 100.0)
+    if dtype_name == "FLOAT":
+        return rng.choice(FLOATS)
     return rng.choice(["xy", "xyz", "zz", "commonprefix-aa",
                        "commonprefix-ab"])
 
@@ -149,6 +164,25 @@ def multiversion_rows(side, schema, n: int = 900, nkeys: int = 120,
             rows.append(RowVersion(key, ht=ht, columns={
                 cid[col]: None if rng.random() < 0.1 else val}))
     return rows, ht
+
+
+def layered_rows(side, schema, layers=(500, 300, 150), seed: int = 5):
+    """(rows, max_ht): ``flat_rows`` layers over the same keys (layer i
+    writes keys 0 .. layers[i] - 1), each layer's hybrid times (and TTLs)
+    after the previous layer's: a multi-version history of up to
+    len(layers) versions a key, with tombstones, NULLs, UPDATE-only rows
+    and TTLs in every layer."""
+    RowVersion = side.row_version.RowVersion
+    out, top = [], 0
+    for i, n in enumerate(layers):
+        rows, ht = flat_rows(side, schema, n, seed=seed + i)
+        out += [RowVersion(r.key, ht=r.ht + top, tombstone=r.tombstone,
+                           liveness=r.liveness, columns=r.columns,
+                           expire_ht=(r.expire_ht if r.expire_ht == MAX_HT
+                                      else r.expire_ht + top))
+                for r in rows]
+        top += ht
+    return out, top
 
 
 def overlay_history(side, schema, flat: bool, seed: int = 7,

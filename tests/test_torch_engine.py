@@ -10,8 +10,10 @@ and rows as both (integers, counts, MIN and MAX exactly; float sums and
 averages within rel 1e-4 / abs 1e-4, the tolerance of
 ``tests/test_engine_diff.py``) and the ``rows_scanned`` the ``tpu``
 engine reports (the ``cpu`` engine counts keys examined, a different
-statistic). Specs outside the port's slice must raise
-``NotImplementedError``.
+statistic). Row scans and the aggregates the device folds do not take go
+down the row path, and must equal both too. The JAX engines upload plain
+planes here (``plain_planes``): the port has no plane encodings yet, so a
+string predicate takes the same route on both sides.
 """
 
 import weakref
@@ -26,11 +28,18 @@ from yugabyte_db_tpu.storage import expr as j_expr
 from yugabyte_db_tpu_torch.storage import expr as t_expr
 from yugabyte_db_tpu_torch.ops import flat_agg, flat_fold, mvcc_resolve
 from test_torch_data import (JAX, MAX_HT, PORT, assert_same, encode_key,
-                             flat_rows, make_schema, multiversion_rows)
+                             flat_rows, make_schema, multiversion_rows,
+                             plain_planes)
 from test_torch_data import build_spec as build
 
 R = 64
 N_KEYS = 800
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _plain_planes():
+    with plain_planes():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -121,23 +130,36 @@ def test_async_batch_matches_cpu_and_tpu(engines, monkeypatch):
 
 
 def test_out_of_slice_specs_raise(engines):
+    """The specs this test once saw refused (a row scan, a LIMIT page,
+    string, IN and key-column predicates, MIN of a string, MAX of a key
+    column) are served by the row path: the same rows, resume key and
+    ``rows_scanned`` as the ``tpu`` engine, the same rows as ``cpu``."""
     e = engines
-    gpu, top = e["gpu"], e["max_ht"] + 1
-    count = [T.AggSpec("count", None)]
-    for spec in [
-        T.ScanSpec(read_ht=top),                                 # row scan
-        T.ScanSpec(read_ht=top, limit=5),
-        T.ScanSpec(read_ht=top, aggregates=count,
-                   predicates=[T.Predicate("b", "=", "xy")]),
-        T.ScanSpec(read_ht=top, aggregates=count,
-                   predicates=[T.Predicate("d", "IN", (1, 2))]),
-        T.ScanSpec(read_ht=top, aggregates=count,
-                   predicates=[T.Predicate("r", ">=", 3)]),
-        T.ScanSpec(read_ht=top, aggregates=[T.AggSpec("min", "b")]),
-        T.ScanSpec(read_ht=top, aggregates=[T.AggSpec("max", "r")]),
-    ]:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            gpu.scan(spec)
+    top = e["max_ht"] + 1
+
+    def specs(S):
+        count = [S.AggSpec("count", None)]
+        return [
+            S.ScanSpec(read_ht=top),                             # row scan
+            S.ScanSpec(read_ht=top, limit=5),
+            S.ScanSpec(read_ht=top, aggregates=count,
+                       predicates=[S.Predicate("b", "=", "xy")]),
+            S.ScanSpec(read_ht=top, aggregates=count,
+                       predicates=[S.Predicate("d", "IN", (1, 2))]),
+            S.ScanSpec(read_ht=top, aggregates=count,
+                       predicates=[S.Predicate("r", ">=", 3)]),
+            S.ScanSpec(read_ht=top, aggregates=[S.AggSpec("min", "b")]),
+            S.ScanSpec(read_ht=top, aggregates=[S.AggSpec("max", "r")]),
+        ]
+
+    for i, (g, j) in enumerate(zip(specs(T), specs(J))):
+        got, want = e["gpu"].scan(g), e["tpu"].scan(j)
+        assert (got.columns, got.rows, got.resume_key, got.rows_scanned) \
+            == (want.columns, want.rows, want.resume_key,
+                want.rows_scanned), i
+        c = e["cpu"].scan(j)
+        assert (got.columns, got.rows, got.resume_key) == \
+            (c.columns, c.rows, c.resume_key), i
 
 
 def test_grouped_and_expression_specs_match_cpu_and_tpu(engines):
@@ -178,9 +200,9 @@ def test_grouped_and_expression_specs_match_cpu_and_tpu(engines):
 def test_multi_source_and_multi_version_runs_raise():
     """A live memtable beside a run, and a second run, are served through
     the delta overlay as the JAX engines serve them; a dirty set larger
-    than half the primary run still raises (the row path, ROADMAP.md §1
-    item 7). A run with a second version of a key is served, as the JAX
-    engines serve it."""
+    than half the primary run is served by the row scan over the sources,
+    as the JAX engines serve it. A run with a second version of a key is
+    served, as the JAX engines serve it."""
     ps, js = make_schema(PORT, "mixed"), make_schema(JAX, "mixed")
     rows, max_ht = flat_rows(PORT, ps, 200, seed=5)
     jrows, _ = flat_rows(JAX, js, 200, seed=5)
@@ -217,13 +239,13 @@ def test_multi_source_and_multi_version_runs_raise():
     assert sides["gpu"][1].stats()["num_runs"] == 2
     assert_same(got["tpu"], got["gpu"], "two runs")
     assert got["gpu"].rows[0][0] == n
-    # More dirty keys than half the primary's 256 rows: the row path.
-    for _S, e, _rs, side in sides.values():
-        e.apply([side.row_version.RowVersion(
-            encode_key(side, e.schema, 1000 + i), ht=max_ht + 2,
-            liveness=True) for i in range(130)])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        scans()
+    # More dirty keys than half the primary's 256 rows: the row scan.
+    m = write("past half the primary", lambda side, rs: [
+        side.row_version.RowVersion(
+            encode_key(side, sides["cpu"][1].schema, 1000 + i),
+            ht=max_ht + 2, liveness=True) for i in range(130)])
+    assert sides["gpu"][1]._overlay_cache[3] is None
+    assert m == n + 130
     engines = {"gpu": (T, T.make_engine("gpu", ps, {"rows_per_block": R,
                                                      "device": "cpu"}),
                        rows, PORT),

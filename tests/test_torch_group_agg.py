@@ -11,8 +11,9 @@ the JAX package.
   engines on every case of ``tests/test_group_agg.py`` and a few more:
   the same columns and rows exactly, and the ``tpu`` engine's
   ``rows_scanned``.
-- The refusals that stay (ROADMAP.md §1 item 7), one launch per batch of
-  same-signature specs, ``lower_product`` / ``bounds`` against the JAX
+- The specs K8 does not take (served by the gather or the row scan, as
+  the JAX engines serve them), one launch per batch of same-signature
+  specs, ``lower_product`` / ``bounds`` against the JAX
   package's, and the launch geometry.
 """
 
@@ -352,30 +353,57 @@ def test_memtable_before_the_first_flush_matches_jax():
 
 
 def test_refusals_name_item_7():
-    """A key group column, string group values past 8 bytes, MIN under
-    GROUP BY, an expression the device cannot lower and a grouped scan
-    over several sources raise naming ROADMAP.md §1 item 7."""
-    ps = make_schema(PORT, "mixed")
+    """The specs this test once saw refused are served as the JAX engines
+    serve them: a key group column, string group values past 8 bytes,
+    MIN under GROUP BY and an expression the device cannot lower through
+    the gather (K7), and a grouped scan over several sources through the
+    row scan (K9). Rows and ``rows_scanned`` equal the ``tpu`` engine's,
+    rows the ``cpu`` engine's."""
+    ps, js = make_schema(PORT, "mixed"), make_schema(JAX, "mixed")
     rows, ht = flat_rows(PORT, ps, 300, seed=2)
     gpu = T.make_engine("gpu", ps, {"rows_per_block": R, "device": "cpu"})
-    gpu.apply(rows)
-    gpu.flush()
-    count = [T.AggSpec("count", None)]
-    refused = [
-        T.ScanSpec(read_ht=ht + 1, aggregates=count, group_by=["k"]),
-        T.ScanSpec(read_ht=ht + 1, aggregates=count, group_by=["b"]),
-        T.ScanSpec(read_ht=ht + 1, aggregates=[T.AggSpec("min", "a")],
-                   group_by=["d"]),
-        T.ScanSpec(read_ht=ht + 1, aggregates=[T.AggSpec(
-            "sum", None, expr=TX.BinOp("*", TX.Col("a"), TX.Col("d")))]),
-    ]
-    for spec in refused:
-        with pytest.raises(NotImplementedError, match="item 7"):
-            gpu.scan(spec)
-    gpu.apply(flat_rows(PORT, ps, 5, seed=3)[0])  # a live memtable
-    with pytest.raises(NotImplementedError, match="item 7"):
-        gpu.scan(T.ScanSpec(read_ht=MAX_HT, aggregates=count,
-                            group_by=["d"]))
+    with plain_planes():
+        tpu = J.make_engine("tpu", js, {"rows_per_block": R})
+        cpu = J.make_engine("cpu", js)
+        for eng in (tpu, cpu, gpu):
+            eng.apply(rows if eng is gpu else jax_rows(rows))
+            eng.flush()
+
+        def specs(S, X):
+            count = [S.AggSpec("count", None)]
+            return [
+                S.ScanSpec(read_ht=ht + 1, aggregates=count, group_by=["k"]),
+                S.ScanSpec(read_ht=ht + 1, aggregates=count, group_by=["b"]),
+                S.ScanSpec(read_ht=ht + 1,
+                           aggregates=[S.AggSpec("min", "a")],
+                           group_by=["d"]),
+                S.ScanSpec(read_ht=ht + 1, aggregates=[S.AggSpec(
+                    "sum", None, expr=X.BinOp("*", X.Col("a"),
+                                              X.Col("d")))]),
+            ]
+
+        def check(label):
+            for i, (g, j) in enumerate(zip(specs(T, TX), specs(J, JX))):
+                got = gpu.scan(g)
+                assert_same_rows(tpu.scan(j), got, (label, i))
+                assert_same_rows(cpu.scan(j), got, (label, i),
+                                 scanned=False)
+
+        check("one run")
+        # A live memtable: five keys rewritten after the flush.
+        more = [PORT.row_version.RowVersion(
+            r.key, ht=ht + r.ht, tombstone=r.tombstone, liveness=r.liveness,
+            columns=r.columns) for r in flat_rows(PORT, ps, 5, seed=3)[0]]
+        for eng in (tpu, cpu, gpu):
+            eng.apply(more if eng is gpu else jax_rows(more))
+        check("several sources")
+        kw = dict(read_ht=MAX_HT, group_by=["d"])
+        got = gpu.scan(T.ScanSpec(aggregates=[T.AggSpec("count", None)],
+                                  **kw))
+        want = J.ScanSpec(aggregates=[J.AggSpec("count", None)], **kw)
+        assert_same_rows(tpu.scan(want), got, "grouped over sources")
+        assert_same_rows(cpu.scan(want), got, "grouped over sources",
+                         scanned=False)
 
 
 DTYPES = {"qty": "INT64", "price": "INT64", "disc": "INT8", "tax": "INT8",

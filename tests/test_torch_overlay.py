@@ -12,7 +12,8 @@ averages within rel 1e-4 / abs 1e-4) and the ``rows_scanned`` of the
 ``tpu`` engine. Also here: the engine before its first flush, the
 incremental delta after a write, a flush that changes the run set, a
 batch issued before a write and finished after it, the dirty set too
-large for the overlay (which raises, naming the row path), the resolve
+large for the overlay (served by the row scan over the sources), the
+resolve
 and fold of planes with whole key groups cleared against the JAX
 package's K4 and K3, and the host pieces (``versions_since``,
 ``iter_entries`` / ``find_versions``, ``RowMaterializer`` /
@@ -268,21 +269,28 @@ def test_engine_before_its_first_flush():
     kws = cases(e)
     check_all(e, kws)
     assert e["gpu"].memtable_scans == len(kws)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        e["gpu"].scan(T.ScanSpec(aggregates=[T.AggSpec("count", None)],
-                                 predicates=[T.Predicate("r", ">=", 3)]))
+    # A key-column predicate over the memtable: the row scan.
+    kw = dict(read_ht=MAX_HT, aggregates=[("count", None)],
+              predicates=[("r", ">=", 3)])
+    got = e["gpu"].scan(build_spec(T, kw))
+    assert_same(e["tpu"].scan(build_spec(J, kw)), got, "key predicate")
+    assert_same(e["cpu"].scan(build_spec(J, kw)), got, "key predicate",
+                scanned=False)
 
 
 def test_a_dirty_set_past_half_the_primary_raises():
     """``tests/test_overlay.py::test_overlay_large_dirty_set_falls_back``'s
-    shape: the JAX engines serve it on their row path, which the port
-    does not have yet."""
+    shape: the overlay declines it, and the port serves it on its row
+    scan over the sources (K9's candidates) as the JAX engines serve it
+    on theirs."""
     e = make_engines(flat=False, seed=19, nbase=300, nkeys=60, waves=2,
                      per_wave=400)
     kw = dict(read_ht=MAX_HT, aggregates=INTS)
-    assert e["tpu"].scan(build_spec(J, kw)).rows
-    with pytest.raises(NotImplementedError, match="item 7: row path"):
-        e["gpu"].scan(build_spec(T, kw))
+    got = e["gpu"].scan(build_spec(T, kw))
+    assert got.rows
+    assert_same(e["tpu"].scan(build_spec(J, kw)), got, "past half")
+    assert_same(e["cpu"].scan(build_spec(J, kw)), got, "past half",
+                scanned=False)
     assert e["gpu"]._overlay_cache[3] is None
 
 

@@ -14,13 +14,16 @@ port's kernels in the differential tests.
   int32 planes; varlen values keep an 8-byte order-preserving prefix on
   device and their payload host-side.
 
-Not in this slice: the native one-pass flush (``build_from_memtable``),
-the compressed plane encodings (``encoded_arrays`` returns None: runs
-upload plain planes) and the hashed-prefix bloom.
+Also copied: the row path's host helpers (``key_vals_at``,
+``key_col_arrays``) and the hashed-prefix bloom
+(``bloom_ready``, ``may_contain_hashed``). Not in this slice: the native
+one-pass flush (``build_from_memtable``) and the compressed plane
+encodings (``encoded_arrays`` returns None: runs upload plain planes).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -100,6 +103,17 @@ class ColumnarRun:
         # the KEY_WORDS prefix planes, so plane equality/order is EXACT —
         # the device compaction eligibility check.
         self.max_key_len = 0
+        # Lazily-built per-key-column object arrays (global row index ->
+        # decoded key value) for fancy-indexed materialization of key
+        # columns on the batched scan path; decoded block by block under a
+        # lock (concurrent scans share one run).
+        self._kv_cols: list[np.ndarray] | None = None
+        self._kv_blocks_done: set[int] = set()
+        self.kv_ready = False  # True once every block's keys are decoded
+        # Hashed-prefix bloom (storage.bloom): None = not built yet,
+        # True = inapplicable (range-partitioned keys present).
+        self._hash_bloom = None
+        self._kv_lock = threading.Lock()
 
     # -- construction ------------------------------------------------------
     @staticmethod
@@ -183,6 +197,7 @@ class ColumnarRun:
         self.row_keys = np.empty((B, R), dtype=object)
         self.row_keys[:] = b""
         self.row_versions = np.empty((B, R), dtype=object)
+        self.row_key_vals = np.empty((B, R), dtype=object)
         self.blocks = [BlockMeta(b"", b"", 0) for _ in range(B)]
 
     def _fill_block(self, b: int, group_list) -> None:
@@ -381,3 +396,100 @@ class ColumnarRun:
     def key_at(self, global_row: int) -> bytes:
         b, r = divmod(global_row, self.R)
         return self.row_keys[b][r]
+
+    def key_vals_at(self, global_row: int) -> list:
+        """Decoded key-column values (hashed + range) of the row's key,
+        memoized per row so repeated scans never re-decode."""
+        from yugabyte_db_tpu_torch.models.encoding import decode_doc_key
+
+        b, r = divmod(global_row, self.R)
+        kv = self.row_key_vals[b][r]
+        if kv is None:
+            _, hashed, ranges = decode_doc_key(self.row_keys[b][r])
+            kv = self.row_key_vals[b][r] = hashed + ranges
+        return kv
+
+    def key_col_arrays(self, blocks=None) -> list[np.ndarray]:
+        """One object ndarray per key column, indexed by global row index
+        (b*R + r), holding the decoded key value. Decoded lazily PER
+        BLOCK (``blocks``: iterable of block indices a scan touched;
+        None = all) so a small page never pays an O(run) decode pass;
+        batched scans then materialize key columns with one numpy
+        fancy-index instead of per-row Python."""
+        from yugabyte_db_tpu_torch.models.encoding import decode_doc_key
+
+        nk = len(self.schema.key_columns)
+        if self.kv_ready:  # lock-free fast path once fully decoded
+            return self._kv_cols
+        with self._kv_lock:
+            if self._kv_cols is None:
+                self._kv_cols = [np.empty(self.B * self.R, dtype=object)
+                                 for _ in range(nk)]
+            cols = self._kv_cols
+            todo = range(self.B) if blocks is None else blocks
+            for b in todo:
+                if b in self._kv_blocks_done or b >= self.B:
+                    continue
+                n = self.blocks[b].num_valid
+                rk = self.row_keys[b]
+                kvs = self.row_key_vals[b]
+                base = b * self.R
+                for r in range(n):
+                    kv = kvs[r]
+                    if kv is None:
+                        _, hashed, ranges = decode_doc_key(rk[r])
+                        kv = kvs[r] = hashed + ranges
+                    for p in range(nk):
+                        cols[p][base + r] = kv[p]
+                # marked done only after the block is fully decoded, so a
+                # concurrent reader can never see half-filled rows
+                self._kv_blocks_done.add(b)
+            if len(self._kv_blocks_done) == self.B:
+                self.kv_ready = True
+        return cols
+
+    # -- run pruning (hashed-prefix bloom) ----------------------------------
+    @property
+    def bloom_ready(self) -> bool:
+        """True once the lazy hash bloom exists (callers use this to
+        avoid paying the build for workloads where a binary search on
+        one or two runs is already cheap)."""
+        return self._hash_bloom is not None
+
+    def may_contain_hashed(self, prefix: bytes) -> bool:
+        """Can this run contain any key with the given hashed-components
+        prefix? False lets point gets / single-key scans skip the run
+        entirely (reference: DocDbAwareFilterPolicy,
+        src/yb/docdb/doc_key.h:551-575). Never a false negative."""
+        bl = self._hash_bloom
+        if bl is None:
+            bl = self._build_hash_bloom()
+        if bl is True:
+            return True
+        return bl.may_contain(prefix)
+
+    def _build_hash_bloom(self):
+        from yugabyte_db_tpu_torch.models.encoding import hashed_prefix
+        from yugabyte_db_tpu_torch.storage.bloom import BloomFilter
+
+        with self._kv_lock:
+            if self._hash_bloom is not None:
+                return self._hash_bloom
+            bl = BloomFilter(self.num_versions or 1)
+            prefixes: list[bytes] = []
+            last = None
+            for b in range(self.B):
+                n = self.blocks[b].num_valid
+                rk = self.row_keys[b]
+                for r in range(n):
+                    key = rk[r]
+                    hp = hashed_prefix(key)
+                    if not hp:
+                        self._hash_bloom = True  # filter inapplicable
+                        return True
+                    if hp != last:
+                        prefixes.append(hp)
+                        last = hp
+            bl.add_many(prefixes)
+            self._hash_bloom = bl
+            return bl

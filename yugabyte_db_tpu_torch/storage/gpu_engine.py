@@ -46,12 +46,17 @@ the dirty keys' version sets, merged on the host, are folded there after
 the launches and before the batch waits. The two partials cover disjoint
 keys and are combined at the finalized level; ``rows_scanned`` adds the
 dirty keys that exist at the read point, before predicates, as the JAX
-engine adds them. Before the first flush the memtable alone is folded on
-the host: there is no plane to fold. The grouped route takes one run
-only: a grouped spec over several sources raises.
+engine adds them.
 
-Everything else raises ``NotImplementedError`` naming the ROADMAP.md item
-that brings it. There is no host re-serve: a device error raises.
+Row scans, and the aggregates none of the folds above take, go down the
+JAX engine's row path (``storage.gpu_rows``): exact-key reads, host LIMIT
+pages on a flat run, the gather through K7 (``ops.row_gather``, a CUDA
+kernel) on one run, and the row scan over several sources, whose
+candidates K9 gives (also a dirty set past half the primary, a grouped
+spec over several sources, and the memtable before the first flush).
+A run past the flat fold's limb bounds on a signature K1 does not take
+raises ``NotImplementedError``: the windowed fold (K5) is ROADMAP.md §1
+item 7's remainder. There is no host re-serve: a device error raises.
 """
 
 from __future__ import annotations
@@ -77,38 +82,18 @@ from yugabyte_db_tpu_torch.storage.columnar import (DEFAULT_ROWS_PER_BLOCK,
 from yugabyte_db_tpu_torch.storage.cpu_engine import (Aggregator,
                                                       RowMaterializer)
 from yugabyte_db_tpu_torch.storage import expr as X
+from yugabyte_db_tpu_torch.storage import host_page
 from yugabyte_db_tpu_torch.storage.engine import (StorageEngine,
                                                   register_engine)
+from yugabyte_db_tpu_torch.storage.gpu_rows import RowPath
 from yugabyte_db_tpu_torch.storage.memtable import MemTable
 from yugabyte_db_tpu_torch.storage.merge import merge_versions
 from yugabyte_db_tpu_torch.storage.row_version import MAX_HT, RowVersion
-from yugabyte_db_tpu_torch.storage.scan_spec import ScanResult, ScanSpec
+from yugabyte_db_tpu_torch.storage.scan_spec import (ScanResult, ScanSpec,
+                                                     point_key_of)
 from yugabyte_db_tpu_torch.utils import planes as P
 
 PAD_BLOCKS = 64  # run block-axis padding, as the JAX engine pads
-
-# Work outside this slice, by the ROADMAP.md §1 item that brings it.
-_LATER = {
-    "row": "row scans (ROADMAP.md §1 item 7: row path, K7/K9)",
-    "grouped_host": "GROUP BY on key, float or long string columns, "
-                    "MIN/MAX/AVG beside GROUP BY or expressions, and "
-                    "expressions the device cannot lower (ROADMAP.md §1 "
-                    "item 7: row path, K7/K9)",
-    "grouped_overlay": "GROUP BY and expression aggregates over several "
-                       "sources (ROADMAP.md §1 item 7: row path, K7/K9)",
-    "host_preds": "predicates on strings, floats, key columns or IN lists "
-                  "(ROADMAP.md §1 item 7: row path, K7/K9)",
-    "host_aggs": "aggregates of key columns and MIN/MAX/SUM of strings "
-                 "(ROADMAP.md §1 item 7: row path, K7/K9)",
-    "multi_source": "scans over several sources whose dirty keys exceed "
-                    "half the primary run (ROADMAP.md §1 item 7: row path, "
-                    "K7/K9)",
-}
-
-
-def _later(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not in the port yet: {_LATER[what]}")
-
 
 class GpuRun:
     """A columnar run and its planes resident on the engine's device (no
@@ -121,6 +106,7 @@ class GpuRun:
         self.crun = crun
         self.dev = DeviceRun(crun, PAD_BLOCKS, device=device)
         self.flat = crun.max_group_versions <= 1
+        self.host_index = None  # storage.host_page.HostPageIndex, lazy
         self._view = None  # (view key, view arrays)
         # This run or a masked copy of it: whichever holds a view.
         self._view_holder = None
@@ -286,13 +272,13 @@ class _GroupPrep:
     arrays = _AggPrep.arrays
 
 
-class GpuStorageEngine(StorageEngine):
+class GpuStorageEngine(RowPath, StorageEngine):
     """Options: ``device`` (default ``cuda``; raises when there is no
     GPU) and ``rows_per_block`` (2048). The memtable flushes only when
     ``flush`` is called. A run may hold any number of versions per key;
-    a scan over several runs or a live memtable beside them goes through
-    the delta overlay, and one before the first flush folds the memtable
-    on the host."""
+    an aggregate over several runs or a live memtable beside them goes
+    through the delta overlay, and the rest over several sources through
+    the row scan (``storage.gpu_rows``)."""
 
     def __init__(self, schema: Schema, options: dict | None = None):
         super().__init__(schema, options)
@@ -305,7 +291,7 @@ class GpuStorageEngine(StorageEngine):
         self.mat = RowMaterializer(schema)
         # (run list, memtable, its version count, _OverlayState or None).
         self._overlay_cache = None
-        # Scans served by the host fold of a memtable with no run beside.
+        # Scans of the memtable alone: no run holds their range.
         self.memtable_scans = 0
         # Grouped specs re-served by a host fold of their run (a negative
         # sum input or a bucket collision).
@@ -315,6 +301,8 @@ class GpuStorageEngine(StorageEngine):
         self._dtypes = {c.col_id: c.dtype for c in schema.value_columns}
         self._name_to_id = {c.name: c.col_id for c in schema.value_columns}
         self._key_col_names = {c.name for c in schema.key_columns}
+        self._plan_cache: dict = {}        # gather plans by structure
+        self._read_plane_cache: dict = {}  # read planes by read point
 
     # -- writes --------------------------------------------------------------
     def apply(self, rows: list[RowVersion]) -> None:
@@ -363,10 +351,14 @@ class GpuStorageEngine(StorageEngine):
         # of the plain flat fold, and K8 specs by plan.
         sources: dict = {}
         overlay = []
+        rows = {"host": [], "page": [], "gather": []}  # the row path
         for i, spec in enumerate(specs):
             prep = self._plan_scan(spec)
             if isinstance(prep, ScanResult):
                 results[i] = prep
+                continue
+            if isinstance(prep, tuple):
+                rows[prep[0]].append((i, prep[1]))
                 continue
             if prep.overlay is not None:
                 overlay.append(prep)
@@ -386,9 +378,13 @@ class GpuStorageEngine(StorageEngine):
         pending = []  # (device tensors, finish(host tensors))
         for kernels, folds, grouped in sources.values():
             pending += self._launch_source(kernels, folds, grouped, results)
+        # The gathers' first round: one K7 launch per (signature, run).
+        states = dict(rows["gather"])
+        round1 = {i: st.pending for i, st in rows["gather"] if st.pending}
+        dispatches = self._issue_round(states, round1) if round1 else []
         for prep in overlay:  # while the device works
             prep.host = self._overlay_host_partial(prep.overlay, prep.spec)
-        return _AsyncBatch(results, pending)
+        return _AsyncBatch(self, results, pending, rows, round1, dispatches)
 
     def _launch_source(self, kernels: dict, folds: list, grouped: dict,
                        results: list) -> list:
@@ -423,28 +419,54 @@ class GpuStorageEngine(StorageEngine):
         return pending
 
     # -- planning ------------------------------------------------------------
+    @staticmethod
+    def _prune_prefix(spec: ScanSpec) -> bytes | None:
+        """The hashed-components prefix shared by every key in the scan
+        range, or None: present for point gets and scans within one hash
+        section, the shapes the runs' blooms prune."""
+        if not spec.lower or not spec.upper:
+            return None
+        from yugabyte_db_tpu_torch.models.encoding import (hashed_prefix,
+                                                           prefix_successor)
+
+        hp = hashed_prefix(spec.lower)
+        if not hp:
+            return None
+        ps = prefix_successor(hp)
+        if ps and spec.upper > ps:
+            return None  # the range leaves the hash section
+        return hp
+
     def _overlapping_runs(self, spec: ScanSpec) -> list[GpuRun]:
+        hp = self._prune_prefix(spec)
         return [t for t in self.runs
                 if t.crun.num_versions
                 and not (spec.upper and t.crun.min_key >= spec.upper)
-                and not t.crun.max_key < spec.lower]
+                and not t.crun.max_key < spec.lower
+                and (hp is None or t.crun.may_contain_hashed(hp))]
 
     def _split_predicates(self, spec: ScanSpec):
-        """(device-exact preds, preds the device can only narrow down):
-        'str' prefixes and rounded 'f32' values give superset masks, and
-        key-column, IN and opaque-column predicates are host-only; the
-        row path that serves both is not in this slice."""
-        exact, other = [], []
+        """(device-exact preds, device-superset preds, host-only preds):
+        'str' prefixes and rounded 'f32' values give superset masks (ties
+        are maybe-matches the host verifies); key-column, IN and opaque
+        (collection, jsonb) predicates are host-only."""
+        exact, superset, host_only = [], [], []
         for p in spec.predicates:
             if p.column in self._key_col_names or p.op == "IN":
-                other.append(p)
+                host_only.append(p)
                 continue
             cid = self._name_to_id[p.column]
-            if self._kinds[cid] in ("str", "f32"):
-                other.append(p)
+            dt = self._dtypes[cid]
+            if not dt.is_fixed_width and dt not in (DataType.STRING,
+                                                    DataType.BINARY):
+                # opaque payloads: the device prefix is repr-ordered, not
+                # value-ordered
+                host_only.append(p)
+            elif self._kinds[cid] in ("str", "f32"):
+                superset.append(p)
             else:
                 exact.append(p)
-        return exact, other
+        return exact, superset, host_only
 
     def _aggs_device_eligible(self, spec: ScanSpec) -> bool:
         """Every aggregate column must be a value column (key columns live
@@ -458,74 +480,69 @@ class GpuStorageEngine(StorageEngine):
                 return False
         return True
 
-    def _read_planes(self, spec: ScanSpec) -> tuple:
-        r_hi, r_lo = P.scalar_ht_planes(min(spec.read_ht, MAX_HT))
-        e_hi, e_lo = P.scalar_ht_planes(min(spec.read_ht, MAX_HT - 1))
-        return r_hi, r_lo, e_hi, e_lo
-
     def _plan_scan(self, spec: ScanSpec):
-        """-> a finished ScanResult (nothing in range, or the memtable
-        folded on the host before the first flush) or an _AggPrep (with
-        its overlay state when the spec reads several sources)."""
-        if not spec.is_aggregate:
-            raise _later("row")
-        exact, other = self._split_predicates(spec)
-        if other:
-            raise _later("host_preds")
-        grouped = bool(spec.group_by) or any(a.expr is not None
-                                             for a in spec.aggregates)
-        if not grouped and not self._aggs_device_eligible(spec):
-            raise _later("host_aggs")
+        """The JAX engine's routing (its ``_plan_scan``) -> a finished
+        ScanResult (nothing in range), an _AggPrep (with its
+        overlay state when the spec reads several sources) or a
+        _GroupPrep for the device folds, or a row-path plan:
+        ("host", finish()) for an exact-key read or a row scan,
+        ("page", (run, spec, predicate items)) for a host page,
+        ("gather", _GatherScan)."""
         # Snapshot the memtable before the run list (as the JAX engine
         # does): a concurrent flush appends its run before swapping in an
         # empty memtable.
         mem = self.memtable
         runs = self._overlapping_runs(spec)
         mem_live = not mem.is_empty and mem.has_keys(spec.lower, spec.upper)
-        if len(runs) == 1 and not mem_live:
-            if grouped:
-                return self._grouped_prep(runs[0], spec, exact)
-            return self._device_agg_prep(runs[0], spec, exact)
-        if grouped:
-            # The JAX engine folds these on the host (_row_scan): with no
-            # run in range the memtable is all there is; over several
-            # sources the row path is not in the port yet.
-            if not runs:
-                return self._memtable_aggregate(spec, mem)
-            raise _later("grouped_overlay")
-        if not runs and not mem_live:
-            return ScanResult([_agg_name(a) for a in spec.aggregates],
-                              [tuple(0 if a.fn == "count" else None
-                                     for a in spec.aggregates)], None, 0)
-        if not self.runs:
-            return self._memtable_aggregate(spec, mem)
-        ov = self._overlay(mem)
-        if ov is None:
-            raise _later("multi_source")
-        prep = self._device_agg_prep(ov.masked, spec, exact)
-        prep.overlay = ov
-        return prep
+        pred_split = self._split_predicates(spec)
+        exact, superset, host_only = pred_split
+        single = len(runs) == 1 and not mem_live
+        if not runs and not mem_live:  # nothing in range: no source to read
+            return self._row_scan(spec, [], False, pred_split,
+                                  spec.is_aggregate, mem)
 
-    def _memtable_aggregate(self, spec: ScanSpec, mem: MemTable) -> ScanResult:
-        """The memtable alone (the JAX engine's ``_row_scan`` over no
-        run): before the first flush, or a grouped spec whose range no run
-        holds. No plane exists, so the memtable's keys in range are merged
-        and folded on the host. ``rows_scanned`` counts the keys examined,
-        as there. The planner has already refused key columns in
-        predicates and ungrouped aggregates; a grouped spec's key values
-        are decoded."""
-        self.memtable_scans += 1
-        agg = Aggregator(spec.aggregates, spec.group_by or [])
-        keyed = bool(spec.group_by) or any(a.expr is not None
-                                           for a in spec.aggregates)
-        scanned = 0
-        for key in mem.scan_keys(spec.lower, spec.upper):
-            scanned += 1
-            merged = mem.merged(key, spec.read_ht)
-            kv = self.mat.key_values(key) if keyed else None
-            if merged.exists and self.mat.matches(spec, kv, merged):
-                agg.add(lambda name: self.mat.value(name, kv, merged))
-        return ScanResult(agg.column_names(), agg.results(), None, scanned)
+        def row_scan(aggregate):
+            if not runs:
+                self.memtable_scans += 1
+            return ("host", lambda: self._row_scan(
+                spec, runs, mem_live, pred_split, aggregate, mem))
+
+        if spec.is_aggregate:
+            grouped = bool(spec.group_by) or any(a.expr is not None
+                                                 for a in spec.aggregates)
+            if single and grouped and not superset and not host_only:
+                prep = self._grouped_prep(runs[0], spec, exact)
+                if prep is not None:
+                    return prep
+            eligible = (not superset and not host_only and not grouped
+                        and self._aggs_device_eligible(spec))
+            if eligible and single:
+                return self._device_agg_prep(runs[0], spec, exact)
+            if eligible and not single and (runs or mem_live) and self.runs:
+                ov = self._overlay(mem)
+                if ov is not None:
+                    prep = self._device_agg_prep(ov.masked, spec, exact)
+                    prep.overlay = ov
+                    return prep
+            if single:
+                return ("gather", self._plan_gather(runs[0], spec, pred_split,
+                                                    aggregate=True))
+            return row_scan(True)
+        page_eligible = (single and spec.limit is not None
+                         and spec.limit <= host_page.MAX_PAGE_LIMIT
+                         and runs[0].flat and not superset and not host_only)
+        page_items = (host_page.encode_pred_items(self, exact)
+                      if page_eligible else None)
+        pk = point_key_of(spec, self.schema)
+        if pk is not None and page_items is None:
+            # An exact-key read: the bloom-pruned version lookup.
+            return ("host", lambda: self._point_get_row(spec, mem, pk))
+        if single:
+            if page_items is not None:
+                return ("page", (runs[0], spec, page_items))
+            return ("gather", self._plan_gather(runs[0], spec, pred_split,
+                                                aggregate=False))
+        return row_scan(False)
 
     # -- delta overlay (masked primary + host-folded dirty keys) -------------
     def _overlay(self, mem: MemTable) -> _OverlayState | None:
@@ -642,7 +659,7 @@ class GpuStorageEngine(StorageEngine):
         (n, value)), the value being the sum, min or max (COUNT rides n).
         The last 8 (read point, bounds, predicates, aggregates) are cached
         on the state."""
-        key = (self._read_planes(spec), spec.lower, spec.upper,
+        key = (self._read_plane_ints(spec), spec.lower, spec.upper,
                tuple((p.column, p.op, p.value) for p in spec.predicates),
                tuple((a.fn, a.column) for a in spec.aggregates))
         hit = ov.partial.get(key)
@@ -712,10 +729,9 @@ class GpuStorageEngine(StorageEngine):
             raise NotImplementedError(
                 f"not in the port yet: a run of {sig.B} blocks x {sig.R} "
                 "rows exceeds the flat fold's exact-limb bounds "
-                "(ROADMAP.md §1 item 7: the windowed fold K5, beside the "
-                "row path)")
+                "(ROADMAP.md §1 item 7: the windowed fold K5)")
         return _AggPrep(spec, trun, sig, route, crun.lower_row(spec.lower),
-                        crun.upper_row(spec.upper), self._read_planes(spec),
+                        crun.upper_row(spec.upper), self._read_plane_ints(spec),
                         tuple(lits), dev_aggs, lowering, view_key)
 
     # -- grouped and expression aggregates (K8) ------------------------------
@@ -773,9 +789,9 @@ class GpuStorageEngine(StorageEngine):
 
     def _grouped_prep(self, trun: GpuRun, spec: ScanSpec, exact_preds):
         """The JAX engine's ``_grouped_prep``: a _GroupPrep for K8, a
-        finished ScanResult for an empty range, or a raise (ROADMAP.md §1
-        item 7) where the JAX engine goes to its gather or row scan: a
-        key, f32 or over-8-byte string group column, MIN/MAX/AVG, a sum
+        finished ScanResult for an empty range, or None where the JAX
+        engine goes to its gather (the caller does too): a key, f32 or
+        over-8-byte string group column, MIN/MAX/AVG, a sum
         ``lower_product`` does not lower, or a signature past K8's
         descriptor."""
         crun = trun.crun
@@ -783,18 +799,18 @@ class GpuStorageEngine(StorageEngine):
         for name in spec.group_by or []:
             cid = self._name_to_id.get(name)
             if cid is None:
-                raise _later("grouped_host")  # a key column
+                return None  # a key column
             kind = self._kinds[cid]
             if kind == "f32" or (kind == "str" and
                                  crun.varlen_max_len.get(cid, 0) > 8):
                 # f32 raw bits conflate -0.0 and 0.0; a longer string's
                 # 8-byte prefix is not its value.
-                raise _later("grouped_host")
+                return None
             group_cols.append((cid, 2 if kind in ("i64", "f64", "str")
                                else 1))
         gaggs = self._grouped_aggs(spec)
         if gaggs is None:
-            raise _later("grouped_host")
+            return None
         pred_sigs, lits = [], []
         for p in exact_preds:
             cid = self._name_to_id[p.column]
@@ -808,14 +824,14 @@ class GpuStorageEngine(StorageEngine):
             preds=tuple(pred_sigs), group_cols=tuple(group_cols),
             aggs=tuple(gaggs))
         if not group_agg.eligible(sig):
-            raise _later("grouped_host")
+            return None
         row_lo, row_hi = crun.lower_row(spec.lower), crun.upper_row(spec.upper)
         if row_lo >= row_hi:
             agg = Aggregator(spec.aggregates, spec.group_by or [])
             return ScanResult(agg.column_names(), agg.results(), None, 0)
         flat = trun.flat
         return _GroupPrep(spec, trun, sig, "grouped" if flat else "mv_grouped",
-                          row_lo, row_hi, self._read_planes(spec), tuple(lits),
+                          row_lo, row_hi, self._read_plane_ints(spec), tuple(lits),
                           None if flat else trun.view_key(spec.read_ht))
 
     def _grouped_finish(self, plan, group, results):
@@ -978,30 +994,54 @@ def _fold_finish(i, prep, results):
 
 class _AsyncBatch:
     """An in-flight scan batch: the device work is launched and its
-    results are on their way to host memory; ``finish()`` waits for them
-    and builds the ScanResults."""
+    results are on their way to host memory; ``finish()`` serves the
+    batch's host plans and pages while the device works, waits, builds
+    the fold results, and drives the gathers' continuation rounds."""
 
-    def __init__(self, results: list, pending: list):
+    def __init__(self, eng, results: list, pending: list, rows: dict,
+                 round1: dict, dispatches: list):
+        self.eng = eng
         self.results = results
-        self._finishers = []
-        self._event = None
-        for outs, fin in pending:
-            host = [_to_host(t) for t in outs]
-            self._finishers.append((host, fin))
+        self.rows = rows
+        self.round1 = round1
+        self._finishers = [([_to_host(t) for t in outs], fin)
+                           for outs, fin in pending]
+        self._members = [m for m, _out in dispatches]
+        self._bufs = [_to_host(out) for _m, out in dispatches]
         cuda = [t for outs, _f in pending for t in outs if t.is_cuda]
+        cuda += [out for _m, out in dispatches if out.is_cuda]
+        self._event = None
         if cuda:
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(cuda[0].device))
         self._done = False
 
     def finish(self) -> list[ScanResult]:
-        if not self._done:
-            if self._event is not None:
-                self._event.synchronize()
-            for host, fin in self._finishers:
-                fin(host)
-            self._finishers = []
-            self._done = True
+        if self._done:
+            return self.results
+        eng, results, rows = self.eng, self.results, self.rows
+        for i, fin in rows["host"]:
+            results[i] = fin()
+        if rows["page"]:
+            served = host_page.serve_pages(eng, [it for _i, it in rows["page"]])
+            for (i, _it), res in zip(rows["page"], served):
+                results[i] = res
+        if self._event is not None:
+            self._event.synchronize()
+        for host, fin in self._finishers:
+            fin(host)
+        states = dict(rows["gather"])
+        pending = eng._feed_round(states, self.round1, self._members,
+                                  [b.numpy() for b in self._bufs])
+        while pending:  # continuation rounds: synchronous
+            dispatches = eng._issue_round(states, pending)
+            pending = eng._feed_round(
+                states, pending, [m for m, _o in dispatches],
+                [out.cpu().numpy() for _m, out in dispatches])
+        for i, st in rows["gather"]:
+            results[i] = st.result()
+        self._finishers = self._bufs = []
+        self._done = True
         return self.results
 
 

@@ -9,7 +9,8 @@ max(a), sum(d) under ``d >= lo``. ``make_update_rows`` adds updates
 whose keys and single fields follow YCSB workload A's, which turn the
 flat run into a multi-version one; ``make_wave_rows`` adds the uniform
 update waves of ``bench.py``'s post-write scan bench, which leave several
-runs and a live memtable.
+runs and a live memtable. ``ycsb_e_batch`` is a batch of YCSB workload
+E's LIMIT pages, as ``bench.py``'s ``bench_ycsb_e`` makes them.
 
 TPC-H's lineitem (BASELINE config 3) is the port's copy of the data part
 of the JAX package's ``yql/pgsql/tpch.py``: its schema (scaled-integer
@@ -285,6 +286,30 @@ def long_group_planes(n_rows: int, R: int, seed: int = 7) -> dict:
             "arith": plane(np.where(keep, values, 0).astype(np.float32), 0,
                            np.float32)}
     return planes
+
+
+YCSB_E_LIMIT = 100    # bench.py:179 bench_ycsb_e: rows a page
+YCSB_E_PAGES = 256    # pages a batch
+
+
+def ycsb_e_batch(schema: Schema, num_keys: int, read_ht: int,
+                 rng: random.Random, n_pages: int = YCSB_E_PAGES) -> list:
+    """One batch of ``bench.py:179`` ``bench_ycsb_e``'s ``make_batch``
+    over the keys of ``make_rows(schema, num_keys)``: ``n_pages`` LIMIT
+    pages of YCSB_E_LIMIT rows, each from a key drawn uniformly by
+    ``rng`` (``user%06d``, range component 0), under ``d >= -500000``,
+    projecting k, r, a, d."""
+    out = []
+    for _ in range(n_pages):
+        i = rng.randrange(num_keys)
+        lo = schema.encode_primary_key(
+            {"k": f"user{i:06d}", "r": 0},
+            compute_hash_code(schema, {"k": f"user{i:06d}"}))
+        out.append(ScanSpec(lower=lo, read_ht=read_ht,
+                            predicates=[Predicate("d", ">=", -500_000)],
+                            projection=["k", "r", "a", "d"],
+                            limit=YCSB_E_LIMIT))
+    return out
 
 
 def headline_spec(read_ht: int, lo: int = -500_000) -> ScanSpec:
