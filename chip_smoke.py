@@ -1766,6 +1766,10 @@ SUPERSET_KEYS = 100_000
 SUPERSET_PAGES = 32
 SOURCE_PAGES = 64
 SOURCE_GROUP_KEYS = 20_000  # keys of the grouped scan over several sources
+# (the row scan merges each candidate key in Python, ~33 us a key: the
+# whole table would take ~33 s)
+WIDE_SCAN_SHARE = 50  # the wide scan reads where 1 key in 50 was written
+K7_SPILL_CEILING = 64  # bytes of spill stores, and of loads, K7 may have
 ROW_OPS = 48  # integer operations a walked row's resolve needs (flags,
               # visibility, expiry, existence, bounds, predicates, ranks)
 FLOAT_CHOICES = (0.5, 1.25, -3.0, 7.75, 0.1, 16777216.0, 16777217.0, 0.0)
@@ -2174,6 +2178,22 @@ def superset_engine(device):
     return eng, 100 + SUPERSET_KEYS
 
 
+def k7_ptxas() -> dict:
+    """K7's entry as ptxas reported it in this process's build, held
+    against K7_SPILL_CEILING; "not measured" where the library was built
+    by an earlier process."""
+    usage = [u for u in ptxas_usage("row_gather")
+             if "gather_kernel" in u["function"]]
+    if not usage:
+        return {"ptxas": "not measured"}
+    u = usage[0]
+    spill = max(u.get("spill_store_bytes", 0), u.get("spill_load_bytes", 0))
+    check(spill <= K7_SPILL_CEILING,
+          f"K7's build spills {spill} bytes, past its ceiling of "
+          f"{K7_SPILL_CEILING}: {u}")
+    return dict(u, spill_ceiling_bytes=K7_SPILL_CEILING)
+
+
 def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
     """Row scans on one run: YCSB-E batches on the flat run (host pages)
     and on the multi-version run through K7 (newest and mid read points),
@@ -2203,7 +2223,9 @@ def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
     out["oracle_s"] = time.perf_counter() - t0
     rg.gather_rows.launches = rg.scan_candidates.launches = 0
     log = LaunchLog()
+    parts = {}  # seconds of each part of the phase
     with log:
+        t0 = time.perf_counter()
         ycsb, k7_launches, chunk_launches = {}, {}, {}
         for label, eng, oracle, route, rd in (
                 ("flat", fe, oracles["flat"], "page", newest_f),
@@ -2215,7 +2237,9 @@ def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
               "a flat-run YCSB-E page launched K7 (host pages expected)")
         out["ycsb_e"] = ycsb
         held = log.verify()
+        parts["ycsb_e_s"] = time.perf_counter() - t0
 
+        t0 = time.perf_counter()
         proj = ["k", "r", "a", "d"]
         full = {}
         for label, eng, oracle, rd in (
@@ -2227,7 +2251,9 @@ def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
             chunk_launches[label] = log.gathers[-1]
         out["full_scan"] = full
         held_full = log.verify()
+        parts["full_scan_s"] = time.perf_counter() - t0
 
+        t0 = time.perf_counter()
         pred = SmokePred("d", ">=", SELECTIVE_LO, "i32")
         sel = scan_rows_per_s(
             fe, ScanSpec(read_ht=newest_f, projection=proj,
@@ -2238,8 +2264,11 @@ def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
         print("rows_selective " + json.dumps(sel))
         out["selective"] = sel
         held_sel = log.verify()
+        parts["selective_s"] = time.perf_counter() - t0
 
+        t0 = time.perf_counter()
         seng, s_read = superset_engine(device)
+        parts["superset_table_s"] = time.perf_counter() - t0
         s_oracle = RunOracle.at_reads(seng.schema, seng.runs[0].crun,
                                       [s_read], ("a", "b", "f", "d"))[0]
         rng = random.Random(5)
@@ -2265,11 +2294,14 @@ def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
         print("rows_superset " + json.dumps(sup))
         out["superset"] = sup
         held_sup = log.verify()
+        parts["superset_pages_s"] = (time.perf_counter() - t0
+                                     - parts["superset_table_s"])
         launches = {"gather_rows": rg.gather_rows.launches,
                     "scan_candidates": rg.scan_candidates.launches}
     check(launches["gather_rows"] > 0, "the row path launched K7 0 times")
     out["held"] = [held, held_full, held_sel, held_sup]
     # Outside the counted run: K7 alone at the path's shapes.
+    t0 = time.perf_counter()
     out["k7"] = time_launch("gather", k7_launches["mv_newest"], bw, rate)
     out["k7"]["mid"] = time_launch("gather", k7_launches["mv_mid"], bw,
                                    rate)
@@ -2281,6 +2313,9 @@ def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
     for label, launch in chunk_launches.items():
         full[label]["k7_chunks_launch"] = time_launch("gather", launch, bw,
                                                       rate)
+    parts["k7_timing_s"] = time.perf_counter() - t0
+    out["parts_s"] = parts
+    out["k7_ptxas"] = k7_ptxas()
     for label in ycsb:
         print(f"rows_ycsb_e_{label} " + json.dumps(ycsb[label]))
     for label in full:
@@ -2290,8 +2325,9 @@ def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
     del seng
     torch.cuda.synchronize() if torch.cuda.is_available() else None
     print("rows " + json.dumps({k: v for k, v in out.items()
-                                if k in ("card", "oracle_s", "held", "k7",
-                                         "launches", "phase_s")}))
+                                if k in ("card", "oracle_s", "parts_s", "held",
+                                         "k7", "k7_ptxas", "launches",
+                                         "phase_s")}))
     return out
 
 
@@ -2365,12 +2401,17 @@ class SourcesOracle:
         return rows, None, scanned
 
 
-def rows_sources_phase(device, bw: float, rate: float, flat) -> dict:
+def rows_sources_phase(device, bw: float, rate: float, flat,
+                       mvcc) -> dict:
     """Row scans over several sources: the flat engine after the overlay
-    phase (4 runs and a live memtable). YCSB-E pages and one grouped
-    aggregate over a key range go through the row scan, whose candidates
-    K9 gives; every result against the oracle, every K9 launch byte for
-    byte against its plain version, one K9 launch timed."""
+    phase (4 runs and a live memtable) and the multi-version one (its run
+    and a live memtable). YCSB-E pages and one grouped aggregate over a
+    key range of the flat engine, and a scan of the whole multi-version
+    table at a read point where 1 key in WIDE_SCAN_SHARE was written (its
+    run's 123 windows: K9 launches of 1, 4, 16, 64 and 38 windows), go
+    through the row scan, whose candidates K9 gives; every result against
+    the oracle, every K9 launch byte for byte against its plain version,
+    the widest launch timed."""
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.ops import row_gather as rg
     from yugabyte_db_tpu_torch.storage import AggSpec, ScanSpec
@@ -2409,19 +2450,36 @@ def rows_sources_phase(device, bw: float, rate: float, flat) -> dict:
         _r, _s, scanned = oracle.scan(gspec, [], fold=agg)
         check(res.rows == agg.results() and res.rows_scanned == scanned,
               "grouped scan over several sources differs from the oracle")
+        check(len(mvcc.eng.runs) == 1 and not mvcc.eng.memtable.is_empty,
+              "the multi-version engine holds one source")
+        early = mvcc.rows[len(mvcc.rows) // WIDE_SCAN_SHARE].ht
+        t = time.perf_counter()
+        w_oracle = SourcesOracle(mvcc.schema, mvcc.eng, mvcc.rows, early)
+        oracle_s += time.perf_counter() - t
+        wspec = ScanSpec(read_ht=early, projection=["k", "r", "a", "d"])
+        t = time.perf_counter()
+        wide = mvcc.eng.scan(wspec)
+        wide_ms = (time.perf_counter() - t) * 1e3
+        check_page(wide, w_oracle.scan(wspec, []), "wide scan over "
+                   "several sources")
         launches = {"gather_rows": rg.gather_rows.launches,
                     "scan_candidates": rg.scan_candidates.launches}
+        widths = sorted({c[4] for c in log.cands})
         widest = max(log.cands, key=lambda c: c[4])
         held = log.verify()
     check(launches["scan_candidates"] > 0,
           "the row scan over several sources launched K9 0 times")
+    check(widest[4] == 64, f"no 64-window K9 launch: widths {widths}")
     k9 = time_launch("cands", widest, bw, rate)
     row = {"card": nvidia_smi(), "runs": len(eng.runs),
            "memtable_versions": eng.memtable.num_versions,
            "oracle_s": oracle_s, "pages": SOURCE_PAGES,
            "pages_batch_ms": pages_ms, "group_keys": SOURCE_GROUP_KEYS,
            "group_ms": group_ms, "group_rows_scanned": res.rows_scanned,
-           "held": held, "launches": launches, "k9": k9,
+           "wide_read_ht": early, "wide_rows": len(wide.rows),
+           "wide_rows_scanned": wide.rows_scanned, "wide_ms": wide_ms,
+           "k9_widths": widths, "held": held, "launches": launches,
+           "k9": k9,
            "phase_s": time.perf_counter() - t_phase}
     print("rows_sources " + json.dumps(row))
     return row
@@ -3060,7 +3118,9 @@ def rows_alone(device, bw: float, rate: float) -> None:
         if w < WAVES - 1:
             flat.eng.flush()
     flat.sources_read_ht = ht + 1
-    sources = rows_sources_phase(device, bw, rate, flat)
+    eng.apply(workload.make_update_rows(schema, rows, max_ht,
+                                        MVCC_KEYS // 50)[0])
+    sources = rows_sources_phase(device, bw, rate, flat, mvcc)
     print(json.dumps({"kernels": row_path_entries(out, sources)}))
 
 
@@ -3145,7 +3205,7 @@ def main() -> int:
     mv, mvcc = mvcc_phase(device, bw, rate)
     rows = rows_phase(device, bw, rate, flat, mvcc)
     ov = overlay_phase(device, bw, rate, flat, mvcc)
-    sources = rows_sources_phase(device, bw, rate, flat)
+    sources = rows_sources_phase(device, bw, rate, flat, mvcc)
     del flat, mvcc
     torch.cuda.empty_cache()
     grp = grouped_phase(device, bw, rate)

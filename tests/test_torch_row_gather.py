@@ -268,6 +268,9 @@ def test_wrappers_on_cpu_tensors_run_the_plain_version(run):
     row_gather.scan_candidates(ssig, arrays, ipt, fpt, 2)
     assert row_gather.gather_rows.launches == 0
     assert row_gather.scan_candidates.launches == 0
+    with pytest.raises(ValueError, match="apply_preds"):
+        row_gather.gather_rows(sigs(run, [], 104, apply_preds=False)[1],
+                               arrays, ipt[None], fpt[None])
     with pytest.raises(ValueError, match="M = K"):
         chunks = sigs(run, [], 104, packed=False)[1]
         row_gather.gather_rows(chunks, arrays, ipt[None], fpt[None])
@@ -302,3 +305,32 @@ def test_layouts_match_the_jax_package(run):
     walked = int(out[0, 104, 2])
     one = row_gather.gather_bytes(tsig, run["dev"].arrays, ip[None], out)
     assert one > walked * N * 20
+
+
+def test_gather_bytes_charge_output_planes_per_row_written(run):
+    """The bound charges the resolve's planes (the predicates' included,
+    a flat run's without group_start) for each row of the windows walked,
+    and an output column that no predicate reads for each row written,
+    min(count, M), not for each row walked."""
+    ints, floats = literals(run, PAGED_PREDS)
+    ip, fp = row_gather.pack_params(0, run["B"] // K - 1, 0, 10**7,
+                                    read_planes(P, run["ht"] + 1), ints,
+                                    floats)
+    a, d = run["cid"]["a"], run["cid"]["d"]
+    charged = {}
+    for label, outs in (("none", []), ("a", [(a, 2, False)]),
+                        ("d", [(d, 1, False)])):
+        tsig = sigs(run, PAGED_PREDS, 8, outs=outs)[1]
+        out = row_gather.gather_rows(tsig, run["dev"].arrays,
+                                     torch.from_numpy(ip)[None],
+                                     torch.from_numpy(fp)[None]).numpy()
+        charged[label] = row_gather.gather_bytes(
+            tsig, run["dev"].arrays, ip[None], out) - out.nbytes - ip.nbytes
+        count, walked = int(out[0, 8, 0]), int(out[0, 8, 2])
+    assert count > 8  # overflow: M rows written
+    # valid, tomb, live, hybrid time, expiry, (group_start); set and
+    # isnull of the 5 value columns; d (i32), f (f32), b (str) planes.
+    per_row = 19 + (0 if run["flat"] else 1) + 2 * 5 + 4 * (1 + 1 + 2)
+    assert charged["none"] == walked * N * per_row
+    assert charged["a"] - charged["none"] == 8 * 2 * 4
+    assert charged["d"] == charged["none"]

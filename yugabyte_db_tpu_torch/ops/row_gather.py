@@ -321,6 +321,8 @@ def gather_rows(sig: GatherSig, run: dict, iparams: torch.Tensor,
     _check_params(iparams, fparams, device, G)
     if not sig.packed and sig.M != sig.K * sig.R:
         raise ValueError("chunks mode writes a whole window: M = K * R")
+    if not sig.apply_preds:
+        raise ValueError("K7 applies its predicates: apply_preds = True")
     if device.type == "cpu":
         return gather_rows_plain(sig, run, iparams, fparams)
     if device.type != "cuda":
@@ -430,43 +432,57 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 # -- bytes the functions must move (the bound) ------------------------------
 
-def _row_bytes(sig, run: dict, pred_cols: set, out_cols: set) -> int:
-    """Bytes a walked row's resolve reads: its flags and hybrid times, each
-    value column's set and isnull flags, and the order (and, for an f32
-    predicate, arithmetic) planes of the predicate and output columns."""
-    total = 4 + 8 + 8
-    f32 = {ps.col_id for ps in sig.preds if ps.kind == "f32"}
-    for cs in sig.cols:
-        total += 2
-        if cs.col_id in pred_cols or cs.col_id in out_cols:
-            total += 4 * run["cols"][cs.col_id]["cmp"].shape[2]
-        if cs.col_id in f32:
-            total += 4
-    return total
+def _resolve_bytes(sig, with_preds: bool) -> tuple:
+    """(bytes, columns read): what a walked row's resolve reads. Its
+    valid, tombstone and liveness flags, hybrid time and expiry (and, on a
+    multi-version run, its group_start flag; a flat run's groups are its
+    rows), each value column's set and isnull flags, and with
+    ``with_preds`` each predicate column's planes: an f32 predicate's
+    arithmetic plane, an i32 one's order plane, the others' two order
+    planes. Columns read: the ones whose order planes that covers."""
+    total = 3 + 8 + 8 + (0 if sig.flat else 1) + 2 * len(sig.cols)
+    planes: dict = {}
+    if with_preds:
+        for ps in sig.preds:
+            key = (ps.col_id, ps.kind == "f32")
+            planes[key] = max(planes.get(key, 0), 1 if ps.kind in (
+                "f32", "i32") else 2)
+    total += 4 * sum(planes.values())
+    return total, {c for (c, arith), n in planes.items() if not arith}
 
 
 def gather_bytes(sig: GatherSig, run: dict, iparams: np.ndarray,
                  out: np.ndarray) -> int:
-    """Bytes K7 must move for one launch: each page's params, every plane
-    its resolve needs over the windows it walked (from the output's tail:
-    w_end - w_first windows, one in chunks mode), and the output once."""
+    """Bytes K7 must move for one launch: each page's params; the
+    resolve's planes, predicates' included, for every row of the windows
+    it walked (from the output's tail: w_end - w_first windows, one in
+    chunks mode); the planes of the output columns that no predicate
+    read, for each row written (a page's min(count, M) matches, or a
+    chunks window's groups); and the output once."""
     N = sig.K * sig.R
-    per_row = _row_bytes(sig, run, {p.col_id for p in sig.preds} if
-                         sig.apply_preds else set(),
-                         {oc.col_id for oc in sig.out_cols})
+    per_row, read = _resolve_bytes(sig, True)
+    per_out = 4 * sum(oc.planes for oc in sig.out_cols
+                      if oc.col_id not in read)
     if sig.packed:
         walked = np.maximum(out[:, sig.M, 2].astype(np.int64)
                             - iparams[:, 0].astype(np.int64), 0)
+        written = np.minimum(out[:, sig.M, 0].astype(np.int64), sig.M)
     else:
         walked = np.ones(out.shape[0], np.int64)
-    return int(walked.sum()) * N * per_row + iparams.nbytes + out.nbytes
+        if sig.flat:
+            written = walked * N
+        else:
+            groups = run["group_start"].reshape(-1, N).sum(
+                1, dtype=torch.int64).cpu().numpy()
+            written = groups[iparams[:, 0]]
+    return (int(walked.sum()) * N * per_row + int(written.sum()) * per_out
+            + iparams.nbytes + out.nbytes)
 
 
 def candidates_bytes(sig, run: dict, n_windows: int) -> int:
-    """Bytes K9 must move for one launch: the planes of ``n_windows``
-    windows and the outputs (a flag and a row a group, a count a
-    window)."""
+    """Bytes K9 must move for one launch: the resolve's planes
+    (predicates' with ``apply_preds``) for ``n_windows`` windows and the
+    outputs (a flag and a row a group slot, a count a window)."""
     N = sig.K * sig.R
-    per_row = _row_bytes(sig, run, {p.col_id for p in sig.preds} if
-                         sig.apply_preds else set(), set())
+    per_row, _read = _resolve_bytes(sig, sig.apply_preds)
     return n_windows * (N * (per_row + 1 + 4) + 4)

@@ -197,7 +197,6 @@ class ColumnarRun:
         self.row_keys = np.empty((B, R), dtype=object)
         self.row_keys[:] = b""
         self.row_versions = np.empty((B, R), dtype=object)
-        self.row_key_vals = np.empty((B, R), dtype=object)
         self.blocks = [BlockMeta(b"", b"", 0) for _ in range(B)]
 
     def _fill_block(self, b: int, group_list) -> None:
@@ -399,15 +398,9 @@ class ColumnarRun:
 
     def key_vals_at(self, global_row: int) -> list:
         """Decoded key-column values (hashed + range) of the row's key,
-        memoized per row so repeated scans never re-decode."""
-        from yugabyte_db_tpu_torch.models.encoding import decode_doc_key
-
-        b, r = divmod(global_row, self.R)
-        kv = self.row_key_vals[b][r]
-        if kv is None:
-            _, hashed, ranges = decode_doc_key(self.row_keys[b][r])
-            kv = self.row_key_vals[b][r] = hashed + ranges
-        return kv
+        from ``key_col_arrays`` (its block decoded once)."""
+        cols = self.key_col_arrays([global_row // self.R])
+        return [c[global_row] for c in cols]
 
     def key_col_arrays(self, blocks=None) -> list[np.ndarray]:
         """One object ndarray per key column, indexed by global row index
@@ -432,13 +425,10 @@ class ColumnarRun:
                     continue
                 n = self.blocks[b].num_valid
                 rk = self.row_keys[b]
-                kvs = self.row_key_vals[b]
                 base = b * self.R
                 for r in range(n):
-                    kv = kvs[r]
-                    if kv is None:
-                        _, hashed, ranges = decode_doc_key(rk[r])
-                        kv = kvs[r] = hashed + ranges
+                    _, hashed, ranges = decode_doc_key(rk[r])
+                    kv = hashed + ranges
                     for p in range(nk):
                         cols[p][base + r] = kv[p]
                 # marked done only after the block is fully decoded, so a

@@ -444,15 +444,28 @@ class RowPath:
                 next_pending[pi] = more
         return next_pending
 
+    def _decode_rows(self, ctx, buf, n) -> list:
+        """The projection's rows of the first ``n`` rows of a packed
+        buffer: key columns from the run's decoded key arrays (only the
+        blocks the rows touch), each value column decoded at once."""
+        crun, key_col_pos = ctx["crun"], ctx["key_col_pos"]
+        _w, col_offs = row_gather.out_layout(ctx["sig"])
+        starts = buf[:n, 0]
+        projection = ctx["projection"]
+        kv_cols = (crun.key_col_arrays(np.unique(starts // crun.R).tolist())
+                   if any(nm in key_col_pos for nm in projection) else None)
+        return list(zip(*[
+            kv_cols[key_col_pos[nm]][starts].tolist() if nm in key_col_pos
+            else self._decode_col(self._name_to_id[nm], buf, n, crun,
+                                  col_offs)
+            for nm in projection]))
+
     def _batch_emit(self, group) -> None:
         """Decode many finished LIMIT pages that share one plan structure:
         one concatenate and one decode a column for the whole group, then
         per-page slices."""
         ctx = group[0][1].ctx
         M, limit, crun = ctx["M"], ctx["limit"], ctx["crun"]
-        projection = ctx["projection"]
-        key_col_pos = ctx["key_col_pos"]
-        _w, col_offs = row_gather.out_layout(ctx["sig"])
         parts, metas = [], []
         for _pi, st, buf, (count, scanned) in group:
             n_take = min(count, M, limit)
@@ -460,24 +473,11 @@ class RowPath:
             if n_take:
                 parts.append(buf[:n_take])
             metas.append((st, n_take))
-        starts = None
-        rows_all = []
+        rows_all, starts = [], None
         if parts:
             flat = np.concatenate(parts) if len(parts) > 1 else parts[0]
             starts = flat[:, 0]
-            kv_cols = (crun.key_col_arrays(
-                           np.unique(starts // crun.R).tolist())
-                       if any(nm in key_col_pos for nm in projection)
-                       else None)
-            cols_out = []
-            for nm in projection:
-                if nm in key_col_pos:
-                    cols_out.append(kv_cols[key_col_pos[nm]][starts].tolist())
-                else:
-                    cols_out.append(self._decode_col(
-                        self._name_to_id[nm], flat, flat.shape[0], crun,
-                        col_offs))
-            rows_all = list(zip(*cols_out))
+            rows_all = self._decode_rows(ctx, flat, flat.shape[0])
         off = 0
         for st, n_take in metas:
             st.rows = rows_all[off:off + n_take]
@@ -509,27 +509,15 @@ class RowPath:
             buf = buf[:n]
         if n == 0:
             return 0, 0, False, None
-        _w, col_offs = row_gather.out_layout(ctx["sig"])
         starts = buf[:n, 0]
         if not verify_preds and not aggregate:
-            # Columnar path: decode only the rows the page emits; key
-            # columns come from the run's per-column object arrays.
+            # Columnar path: decode only the rows the page emits.
             n_take = n if limit is None else min(n, limit - len(rows))
-            sel = starts[:n_take]
-            kv_cols = (crun.key_col_arrays(np.unique(sel // crun.R).tolist())
-                       if any(nm in key_col_pos for nm in projection)
-                       else None)
-            cols_out = []
-            for nm in projection:
-                if nm in key_col_pos:
-                    cols_out.append(kv_cols[key_col_pos[nm]][sel].tolist())
-                else:
-                    cols_out.append(self._decode_col(
-                        self._name_to_id[nm], buf, n_take, crun, col_offs))
-            rows.extend(zip(*cols_out))
+            rows.extend(self._decode_rows(ctx, buf, n_take))
             hit_limit = limit is not None and len(rows) >= limit
             return count, n, hit_limit, int(starts[n_take - 1])
 
+        _w, col_offs = row_gather.out_layout(ctx["sig"])
         colvals = {cid: self._decode_col(cid, buf, n, crun, col_offs)
                    for cid in ctx["decode_ids"]}
 
