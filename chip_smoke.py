@@ -69,6 +69,11 @@ line is printed:
    (``RunOracle``, which walks K7's windows to count as the gather
    counts); every K7 launch equals its plain version byte for byte; K7
    timed alone (CUDA events) beside its plain version and its bound;
+   then ``rows_edges``: K7 (paged and chunks) and K9 on
+   ``workload.row_edge_planes`` at 9 geometries of the cluster design
+   (K of 1, 2, 8, 12; R of 48, 64, 100, 2048, 4096; a flat layout),
+   every launch byte for byte; both kernels' ptxas reports must show no
+   spill and no stack frame;
 6. overlay: post-write scans through the delta overlay, on both engines
    above. The flat one takes 4 waves of ``workload.make_wave_rows``
    (20,000 uniform updates of d each, ``bench.py:740
@@ -127,6 +132,12 @@ table a block; ``pr6_geometry``), as the source of commit b104a1a is:
 build/k8_pr6.cu``. ``--rows`` builds the kernels, makes the flat and
 multi-version tables, runs the rows phase, applies the overlay phase's
 waves and runs the rows phase over several sources, and exits.
+``--rows-ab OTHER.cu[,...]`` times this tree's K7 and K9 against other
+sources of them (the same C interface) in turns on one card, on the
+engine's own launches (``rows_ab`` lines), each held byte for byte;
+PR 9's source: ``git show
+37f133e:yugabyte_db_tpu_torch/csrc/row_gather.cu >
+build/row_gather_pr9.cu``.
 """
 
 from __future__ import annotations
@@ -1769,7 +1780,8 @@ SOURCE_GROUP_KEYS = 20_000  # keys of the grouped scan over several sources
 # (the row scan merges each candidate key in Python, ~33 us a key: the
 # whole table would take ~33 s)
 WIDE_SCAN_SHARE = 50  # the wide scan reads where 1 key in 50 was written
-K7_SPILL_CEILING = 64  # bytes of spill stores, and of loads, K7 may have
+K7_SPILL_CEILING = 0  # bytes of spill stores, and of loads, K7 and K9 may
+                      # have (ptxas must also report no stack frame)
 ROW_OPS = 48  # integer operations a walked row's resolve needs (flags,
               # visibility, expiry, existence, bounds, predicates, ranks)
 FLOAT_CHOICES = (0.5, 1.25, -3.0, 7.75, 0.1, 16777216.0, 16777217.0, 0.0)
@@ -2054,25 +2066,30 @@ def row_bound(kind: str, launch, bw: float, rate: float) -> dict:
 
 
 def time_launch(kind: str, launch, bw: float, rate: float) -> dict:
-    """One recorded launch timed (CUDA events, median of 12) beside its
-    plain version (median of 3) and its bound."""
+    """One recorded launch timed (CUDA events, median of 12, the calls
+    queued behind a sleeping kernel: a launch of a few windows takes less
+    device time than its wrapper takes on the host) beside its plain
+    version (median of 3) and its bound."""
     from yugabyte_db_tpu_torch.ops import row_gather as rg
 
     if kind == "gather":
         sig, run, ip, fp, _out = launch
-        ms = cuda_ms(lambda: rg.gather_rows(sig, run, ip, fp), KERNEL_REPS)
+        ms = cuda_ms(lambda: rg.gather_rows(sig, run, ip, fp), KERNEL_REPS,
+                     queue_ahead=True)
         plain = cuda_ms(lambda: rg.gather_rows_plain(sig, run, ip, fp),
                         PLAIN_REPS)
         shape = {"pages": int(ip.shape[0]), "M": sig.M, "flat": sig.flat,
-                 "packed": sig.packed}
+                 "packed": sig.packed,
+                 "geometry": rg.launch_geometry(sig, int(ip.shape[0]))}
     else:
         sig, run, ip, fp, n, _out = launch
         ms = cuda_ms(lambda: rg.scan_candidates(sig, run, ip, fp, n),
-                     KERNEL_REPS)
+                     KERNEL_REPS, queue_ahead=True)
         plain = cuda_ms(lambda: rg.scan_candidates_plain(sig, run, ip, fp,
                                                          n), PLAIN_REPS)
         shape = {"windows": n, "flat": sig.flat,
-                 "apply_preds": sig.apply_preds}
+                 "apply_preds": sig.apply_preds,
+                 "geometry": rg.launch_geometry(sig, n)}
     return dict(shape, ms=ms, plain_ms=plain, library_ms=None,
                 **row_bound(kind, launch, bw, rate))
 
@@ -2178,20 +2195,162 @@ def superset_engine(device):
     return eng, 100 + SUPERSET_KEYS
 
 
-def k7_ptxas() -> dict:
-    """K7's entry as ptxas reported it in this process's build, held
-    against K7_SPILL_CEILING; "not measured" where the library was built
-    by an earlier process."""
-    usage = [u for u in ptxas_usage("row_gather")
-             if "gather_kernel" in u["function"]]
+def row_ptxas() -> dict:
+    """K7's and K9's entries (``gather_kernel``, ``candidates_kernel``) as
+    ptxas reported them in this process's build: registers, stack frame
+    and spills; fails on spills past K7_SPILL_CEILING or on a stack frame.
+    "not measured" where the library was built by an earlier process."""
+    usage = ptxas_usage("row_gather")
     if not usage:
         return {"ptxas": "not measured"}
-    u = usage[0]
-    spill = max(u.get("spill_store_bytes", 0), u.get("spill_load_bytes", 0))
-    check(spill <= K7_SPILL_CEILING,
-          f"K7's build spills {spill} bytes, past its ceiling of "
-          f"{K7_SPILL_CEILING}: {u}")
-    return dict(u, spill_ceiling_bytes=K7_SPILL_CEILING)
+    out = {}
+    for key, name in (("k7", "gather_kernel"), ("k9", "candidates_kernel")):
+        found = [u for u in usage if name in u["function"]]
+        check(bool(found), f"ptxas reported no {name}: {usage}")
+        for u in found:
+            spill = max(u.get("spill_store_bytes", 0),
+                        u.get("spill_load_bytes", 0))
+            check(spill <= K7_SPILL_CEILING,
+                  f"{name}'s build spills {spill} bytes, past the ceiling "
+                  f"of {K7_SPILL_CEILING}: {u}")
+            check(u.get("stack_bytes", 0) == 0,
+                  f"{name}'s build has a stack frame: {u}")
+        out[key] = found
+    return dict(out, spill_ceiling_bytes=K7_SPILL_CEILING)
+
+
+# Geometries of the edge planes (label, R, K, windows, flat): K of 1, 2, 8
+# and 12 (two run blocks a block of the cluster), R not a multiple of 16
+# (staged row by row), the main path's R = 2048 with groups filling whole
+# blocks, and R = 4096 (staged in pieces, groups crossing them).
+ROW_EDGE_CASES = (("R64_K1", 64, 1, 4, False), ("R64_K2", 64, 2, 4, False),
+                  ("R64_K8", 64, 8, 3, False), ("R64_K8_flat", 64, 8, 3, True),
+                  ("R48_K8", 48, 8, 2, False), ("R100_K2", 100, 2, 3, False),
+                  ("R64_K12", 64, 12, 2, False),
+                  ("R2048_K8", 2048, 8, 2, False),
+                  ("R4096_K2", 4096, 2, 2, False))
+ROW_EDGE_PREDS = ((), (("a", ">=", -10**11),),
+                  (("d", "<", 300_000), ("c", "!=", 5.0),
+                   ("a", ">=", -10**11)))
+
+
+def edge_sigs(R: int, K: int, B: int, flat: bool, preds, M: int,
+              packed: bool = True, apply_preds: bool = True) -> tuple:
+    """(GatherSig, row-scan ScanSig, int literals) over the bench table's
+    value columns, every one an output (setter rows on two of them)."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import agg_fold
+    from yugabyte_db_tpu_torch.ops import row_gather as rg
+    from yugabyte_db_tpu_torch.ops import scan as S
+    from yugabyte_db_tpu_torch.ops.device_run import dtype_kind
+
+    schema = workload.make_schema()
+    cid = {c.name: c.col_id for c in schema.value_columns}
+    kinds = {c.col_id: dtype_kind(c.dtype) for c in schema.value_columns}
+    cols = tuple(S.ColSig(c, k) for c, k in kinds.items())
+    ps = tuple(S.PredSig(cid[c], kinds[cid[c]], op) for c, op, _v in preds)
+    outs = tuple(rg.OutCol(c, 2 if k in ("i64", "f64") else 1, i != 1)
+                 for i, (c, k) in enumerate(kinds.items()))
+    ints = [int(x) for c, _op, v in preds for x in np.atleast_1d(
+        agg_fold.pred_literal_host(kinds[cid[c]], v))]
+    return (rg.GatherSig(B=B, R=R, K=K, M=M, cols=cols, preds=ps,
+                         apply_preds=True, out_cols=outs, flat=flat,
+                         packed=packed),
+            S.ScanSig(B=B, R=R, K=K, cols=cols, preds=ps, aggs=(),
+                      apply_preds=apply_preds, flat=flat), ints)
+
+
+def rows_edges(device) -> dict:
+    """K7 (paged and chunks) and K9 on ``workload.row_edge_planes`` (groups
+    of 1 to R versions straddling warp steps, tombstone ties, cleared
+    groups, column d unset in each window's last block, stand-in rows with
+    their own planes) at each geometry of ROW_EDGE_CASES, under each
+    predicate set of ROW_EDGE_PREDS, each launch held byte for byte
+    against its plain version. K7 paged at M = 1, at the M whose M-th
+    match is the first window's last (in its last run block where that
+    block has a match) and at 104, over pages that walk several windows,
+    start and count (``scan_from``) inside windows, or walk one; chunks
+    mode on every window; K9 over every window and over the last alone,
+    predicates applied and not."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import row_gather as rg
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+    from yugabyte_db_tpu_torch.utils import planes as P
+
+    t0 = time.perf_counter()
+    launches, in_last_block, cases = 0, 0, {}
+
+    def params(pages, ints):
+        rows = [rg.pack_params(wf, wl, lo, hi, read_params(rd), ints, [],
+                               scan_from=sf)
+                for wf, wl, lo, hi, rd, sf in pages]
+        return (torch.from_numpy(np.stack([r[i] for r in rows])).to(device)
+                for i in (0, 1))
+
+    def held(got, want, what):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"rows edge {what}: kernel != plain version")
+
+    for label, R, K, windows, flat in ROW_EDGE_CASES:
+        n_rows, N = windows * K * R, K * R
+        B, last = n_rows // R, windows - 1
+        planes = workload.row_edge_planes(n_rows, R, K, seed=R + K,
+                                          flat=flat)
+        run = DeviceRun.from_reference_planes(planes, R, device).arrays
+        valid = planes["valid"]
+        ht = P.planes_to_u64(planes["ht_hi"][valid],
+                             planes["ht_lo"][valid]).astype(np.int64)
+        newest, mid = int(ht.max()) + 1, int(np.median(ht))
+        pages = [(0, last, 0, n_rows, newest, None),
+                 (0, last, 0, n_rows, mid, None),
+                 (0, last, R + 5, n_rows - 3, newest, N + R // 2 + 1),
+                 (min(1, last), last, N + 3, n_rows - R, mid, None),
+                 (last, last, last * N, n_rows, newest, None)]
+        m_last = {}
+        for k, preds in enumerate(ROW_EDGE_PREDS):
+            sig, _s, ints = edge_sigs(R, K, B, flat, preds, N)
+            ip, fp = params([(0, 0, 0, N, newest, None)], ints)
+            first = rg.gather_rows_plain(sig, run, ip, fp)
+            m = int(first[0, N, 0])
+            m_last[k] = m
+            if m and int(first[0, m - 1, 0]) >= (K - 1) * R:
+                in_last_block += 1
+            for M in sorted({1, max(m, 1), 104}):
+                sig = edge_sigs(R, K, B, flat, preds, M)[0]
+                ip, fp = params(pages, ints)
+                held([rg.gather_rows(sig, run, ip, fp)],
+                     [rg.gather_rows_plain(sig, run, ip, fp)],
+                     f"{label} paged M = {M}, preds {preds}")
+                launches += 1
+            sig = edge_sigs(R, K, B, flat, preds, N, packed=False)[0]
+            ip, fp = params([(w, w, 3, n_rows - 70, (newest, mid)[w % 2],
+                              None) for w in range(windows)], ints)
+            held([rg.gather_rows(sig, run, ip, fp)],
+                 [rg.gather_rows_plain(sig, run, ip, fp)],
+                 f"{label} chunks, preds {preds}")
+            launches += 1
+            for apply_preds in (True, False):
+                ssig, ints = edge_sigs(R, K, B, flat, preds, 1,
+                                       apply_preds=apply_preds)[1:]
+                for wf, n in ((0, windows), (last, 1)):
+                    ip, fp = (t[0] for t in params(
+                        [(wf, last, R + 9, n_rows - 17, mid, None)], ints))
+                    held(rg.scan_candidates(ssig, run, ip, fp, n),
+                         rg.scan_candidates_plain(ssig, run, ip, fp, n),
+                         f"{label} candidates of {n} windows, preds {preds}, "
+                         f"apply {apply_preds}")
+                    launches += 1
+        cases[label] = {"rows": n_rows, "R": R, "K": K, "flat": flat,
+                        "m_last": m_last}
+    check(in_last_block > 0, "no edge case put a page's M-th match in a "
+                             "window's last run block")
+    return {"cases": cases, "launches": launches,
+            "m_last_in_last_run_block": in_last_block,
+            "s": time.perf_counter() - t0}
 
 
 def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
@@ -2314,8 +2473,12 @@ def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
         full[label]["k7_chunks_launch"] = time_launch("gather", launch, bw,
                                                       rate)
     parts["k7_timing_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["edges"] = rows_edges(device)
+    print("rows_edges " + json.dumps(out["edges"]))
+    parts["rows_edges_s"] = time.perf_counter() - t0
     out["parts_s"] = parts
-    out["k7_ptxas"] = k7_ptxas()
+    out["row_ptxas"] = row_ptxas()
     for label in ycsb:
         print(f"rows_ycsb_e_{label} " + json.dumps(ycsb[label]))
     for label in full:
@@ -2326,7 +2489,7 @@ def rows_phase(device, bw: float, rate: float, flat, mvcc) -> dict:
     torch.cuda.synchronize() if torch.cuda.is_available() else None
     print("rows " + json.dumps({k: v for k, v in out.items()
                                 if k in ("card", "oracle_s", "parts_s", "held",
-                                         "k7", "k7_ptxas", "launches",
+                                         "k7", "row_ptxas", "launches",
                                          "phase_s")}))
     return out
 
@@ -2466,11 +2629,15 @@ def rows_sources_phase(device, bw: float, rate: float, flat,
                     "scan_candidates": rg.scan_candidates.launches}
         widths = sorted({c[4] for c in log.cands})
         widest = max(log.cands, key=lambda c: c[4])
+        narrow = {n: next(c for c in log.cands if c[4] == n)
+                  for n in (1, 4) if n in widths}
         held = log.verify()
     check(launches["scan_candidates"] > 0,
           "the row scan over several sources launched K9 0 times")
     check(widest[4] == 64, f"no 64-window K9 launch: widths {widths}")
     k9 = time_launch("cands", widest, bw, rate)
+    k9["narrow"] = {n: time_launch("cands", c, bw, rate)
+                    for n, c in narrow.items()}
     row = {"card": nvidia_smi(), "runs": len(eng.runs),
            "memtable_versions": eng.memtable.num_versions,
            "oracle_s": oracle_s, "pages": SOURCE_PAGES,
@@ -3033,6 +3200,112 @@ def group_ab(device, bw: float, others: list) -> None:
             "ops_ms": ops / int32_ops_per_s() * 1e3, "ms": times}))
 
 
+def rows_ab(device, bw: float, rate: float, others: list) -> None:
+    """This tree's K7 and K9 (A) against other sources of them (B1, B2,
+    ..., each with the same C interface, bound with ``row_gather.bind``),
+    on one card, on the launches the engine makes: a YCSB-E batch on the
+    multi-version run at the newest and a mid read point, the full scans'
+    chunks launches of the flat and the multi-version run, and K9 at 1, 4
+    and 64 windows (the wide scan over the multi-version table and a live
+    memtable). Each kernel held byte for byte against the plain version,
+    then timed in turns A B1 .. Bn Bn .. B1 A (``cuda_ms``)."""
+    import ctypes
+    from pathlib import Path
+
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import native
+    from yugabyte_db_tpu_torch.ops import row_gather as rg
+    from yugabyte_db_tpu_torch.storage import ScanSpec
+
+    procs = []
+    for k, other in enumerate(others):
+        lib = native.BUILD_DIR / f"librow_gather-other{k}.so"
+        procs.append((other, lib, subprocess.Popen(
+            [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
+             str(Path(other).resolve())], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    libs = {"A": rg._library()}
+    for other, lib, proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"building {other}: {log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {other}: {line.strip()}")
+        libs[other] = rg.bind(ctypes.CDLL(str(lib)))
+    own = rg._library
+
+    t0 = time.perf_counter()
+    flat = flat_engine(device)
+    schema, rows, _u, _l, max_ht, eng, _g, _a = mvcc_engine(device)
+    setup_s = time.perf_counter() - t0
+    newest = max_ht + 1
+    mid = (max(r.ht for r in rows) + max_ht) // 2
+    proj = ["k", "r", "a", "d"]
+    cases = {}
+    log = LaunchLog()
+    with log:
+        for label, rd in (("ycsb_e_newest", newest), ("ycsb_e_mid", mid)):
+            n0 = len(log.gathers)
+            eng.scan_batch(workload.ycsb_e_batch(schema, ENGINE_KEYS, rd,
+                                                 random.Random(11)))
+            cases[label] = ("gather", log.gathers[n0])
+        for label, e, rd in (("chunks_flat", flat.eng, flat.max_ht + 1),
+                             ("chunks_mv", eng, newest)):
+            e.scan(ScanSpec(read_ht=rd, projection=proj))
+            cases[label] = ("gather", log.gathers[-1])
+        eng.apply(workload.make_update_rows(schema, rows, max_ht,
+                                            MVCC_KEYS // 50)[0])
+        early = rows[len(rows) // WIDE_SCAN_SHARE].ht
+        eng.scan(ScanSpec(read_ht=early, projection=proj))
+        by_width = {c[4]: c for c in log.cands}
+        for n in (1, 4, 64):
+            check(n in by_width, f"no K9 launch of {n} windows: "
+                                 f"{sorted(by_width)}")
+            cases[f"k9_{n}"] = ("cands", by_width[n])
+
+    def call(kind, launch):
+        if kind == "gather":
+            sig, run, ip, fp, _out = launch
+            return [rg.gather_rows(sig, run, ip, fp)]
+        sig, run, ip, fp, n, _out = launch
+        return list(rg.scan_candidates(sig, run, ip, fp, n))
+
+    def plain(kind, launch):
+        if kind == "gather":
+            sig, run, ip, fp, _out = launch
+            return [rg.gather_rows_plain(sig, run, ip, fp)]
+        sig, run, ip, fp, n, _out = launch
+        return list(rg.scan_candidates_plain(sig, run, ip, fp, n))
+
+    order = ["A", *others, *others[::-1], "A"]
+    print("rows_ab_setup " + json.dumps({"card": nvidia_smi(),
+                                         "setup_s": setup_s}))
+    try:
+        for label, (kind, launch) in cases.items():
+            want = plain(kind, launch)
+            times = {name: [] for name in libs}
+            for name in order:
+                rg._library = lambda lib=libs[name]: lib
+                got = call(kind, launch)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"rows {name} on {label} != plain version")
+                del got
+                times[name].append(cuda_ms(lambda: call(kind, launch),
+                                           KERNEL_REPS, queue_ahead=True))
+            sig = launch[0]
+            shape = ({"pages": int(launch[2].shape[0]), "M": sig.M,
+                      "packed": sig.packed} if kind == "gather"
+                     else {"windows": launch[4]})
+            print("rows_ab " + json.dumps(dict(
+                {"case": label, "flat": sig.flat}, **shape,
+                **row_bound(kind, launch, bw, rate), ms=times)))
+    finally:
+        rg._library = own
+
+
 def ptxas_usage(name: str) -> list:
     """Each entry function of kernel ``name``'s build in this process, as
     ``nvcc -Xptxas -v`` reported it: registers, stack frame and spill
@@ -3129,7 +3402,9 @@ def row_path_entries(rows: dict, sources: dict) -> list:
     multi-version run (the newest read point; the mid one and the full
     scans' chunks launches beside it), K9 at the widest launch of the
     row scan over several sources; launches of the phases' counted runs,
-    the build's registers and stack."""
+    the build's registers and stack, the launch geometry, and the
+    launches held on the edge planes (every one byte for byte, or the
+    phase fails)."""
     usage = ptxas_usage("row_gather")
     err = max(h["max_abs_err"] for h in rows["held"] + [sources["held"]])
     k7, k9 = rows["k7"], sources["k9"]
@@ -3148,7 +3423,8 @@ def row_path_entries(rows: dict, sources: dict) -> list:
         "launches_by_path": gather_launches,
         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
-        "pages": k7["pages"], "M": k7["M"],
+        "pages": k7["pages"], "M": k7["M"], "geometry": k7["geometry"],
+        "edge_launches": rows["edges"]["launches"],
         "library_note": "no single PyTorch call resolves MVCC groups and "
                         "compacts the first M matches",
         "mid_ms": k7["mid"]["ms"], "mid_bound_ms": k7["mid"]["bound_ms"],
@@ -3162,7 +3438,9 @@ def row_path_entries(rows: dict, sources: dict) -> list:
             "launches_by_path": cand_launches,
             "ms": k9["ms"], "plain_ms": k9["plain_ms"],
             "bound_ms": k9["bound_ms"], "bound_by": k9["bound_by"],
-            "windows": k9["windows"],
+            "windows": k9["windows"], "geometry": k9["geometry"],
+            **{f"windows_{n}_{key}": t[key] for n, t in k9["narrow"].items()
+               for key in ("ms", "plain_ms", "bound_ms")},
             "library_note": "no single PyTorch call resolves MVCC groups "
                             "of a window"})]
 
@@ -3196,6 +3474,9 @@ def main() -> int:
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--group-ab":
         group_ab(device, bw, sys.argv[2].split(","))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--rows-ab":
+        rows_ab(device, bw, rate, sys.argv[2].split(","))
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--rows":
         rows_alone(device, bw, rate)

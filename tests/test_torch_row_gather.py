@@ -20,6 +20,8 @@ a launch and refuse what the kernels do not take, and ``out_layout`` /
 ``pack_params`` keep the JAX package's layouts.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +31,7 @@ from test_torch_data import (JAX, PORT, build_run, flat_rows, layered_rows,
                              make_schema, read_planes, reference_planes)
 from yugabyte_db_tpu.ops import row_gather as j_gather
 from yugabyte_db_tpu.ops import scan as j_scan
+from yugabyte_db_tpu_torch import workload
 from yugabyte_db_tpu_torch.ops import agg_fold
 from yugabyte_db_tpu_torch.ops import row_gather
 from yugabyte_db_tpu_torch.ops import scan as t_scan
@@ -334,3 +337,233 @@ def test_gather_bytes_charge_output_planes_per_row_written(run):
     assert charged["none"] == walked * N * per_row
     assert charged["a"] - charged["none"] == 8 * 2 * 4
     assert charged["d"] == charged["none"]
+
+
+# -- the kernels' cluster geometry and the planes built to break it ---------
+
+def bench_col_sigs(S):
+    schema = workload.make_schema()
+    return tuple(S.ColSig(c.col_id, dtype_kind(c.dtype))
+                 for c in schema.value_columns)
+
+
+def test_launch_geometry_fits_shared_memory():
+    """The bench table's signature (the main path's) and a MAX_COLS /
+    MAX_PREDS / MAX_OUT one both fit a block's shared memory, at R = 2048
+    (one piece a run block) and past it (pieces of PIECE_MAX rows); the
+    bench table's leaves room for 4 blocks an SM, the largest for 2."""
+    bench = row_gather.GatherSig(
+        B=64, R=2048, K=8, M=104, cols=bench_col_sigs(t_scan),
+        preds=(t_scan.PredSig(3, "i32", ">="),), apply_preds=True,
+        out_cols=(row_gather.OutCol(1, 2, False),
+                  row_gather.OutCol(3, 1, False)))
+    cols = tuple(t_scan.ColSig(i, "i64") for i in range(row_gather.MAX_COLS))
+    big = row_gather.GatherSig(
+        B=64, R=2048, K=8, M=4096, cols=cols,
+        preds=tuple(t_scan.PredSig(i, "i64", "<")
+                    for i in range(row_gather.MAX_PREDS)),
+        apply_preds=True,
+        out_cols=tuple(row_gather.OutCol(i, 2, True)
+                       for i in range(row_gather.MAX_OUT)))
+    sm_bytes = 233_472  # an SM's shared memory; each block reserves 1 KB
+    for sig, per_sm in ((bench, 4), (big, 2)):
+        for R in (64, 2048, 4096, 10_000):
+            geo = row_gather.launch_geometry(
+                dataclasses.replace(sig, R=R), 256)
+            assert geo["piece_rows"] == min(R, row_gather.PIECE_MAX)
+            assert geo["pieces_per_run_block"] * geo["piece_rows"] >= R
+            assert geo["shared_bytes"] <= row_gather.SHARED_LIMIT
+            assert geo["shared_bytes"] % 16 == 0
+        geo = row_gather.launch_geometry(sig, 256)
+        assert per_sm * (geo["shared_bytes"] + 1024) <= sm_bytes
+        assert geo["blocks"] == 256 * 8 and geo["cluster"] == 8
+
+
+@pytest.mark.parametrize("K", range(1, 17))
+def test_launch_geometry_covers_every_K_by_whole_clusters(K):
+    """Every K from 1 to 16: clusters of min(K, CLUSTER_MAX) blocks, each
+    block a contiguous share of the window's run blocks in rank order,
+    every run block taken exactly once."""
+    sig = t_scan.ScanSig(B=2 * K, R=64, K=K, cols=bench_col_sigs(t_scan),
+                         preds=(), aggs=(), apply_preds=True)
+    geo = row_gather.launch_geometry(sig, 5)
+    C, per = geo["cluster"], geo["run_blocks_per_block"]
+    assert C == min(K, row_gather.CLUSTER_MAX) and geo["blocks"] == 5 * C
+    taken = [b for r in range(C) for b in range(r * per, min(K, (r + 1) * per))]
+    assert taken == list(range(K))
+
+
+EDGE_R = 64
+EDGE_WINDOWS = 3
+EDGE_PREDS = {"none": [], "a": [("a", ">=", -10**11)],
+              "dca": [("d", "<", 300_000), ("c", "!=", 5.0),
+                      ("a", ">=", -10**11)]}
+_EDGE_RUNS: dict = {}
+
+
+def edge_run(K: int, flat: bool) -> dict:
+    """``workload.row_edge_planes`` at R = EDGE_R, EDGE_WINDOWS windows of
+    K blocks: the port's DeviceRun and the JAX program's planes."""
+    if (K, flat) not in _EDGE_RUNS:
+        n = EDGE_WINDOWS * K * EDGE_R
+        planes = workload.row_edge_planes(n, EDGE_R, K, seed=K, flat=flat)
+        valid = planes["valid"]
+        ht = P.planes_to_u64(planes["ht_hi"][valid],
+                             planes["ht_lo"][valid]).astype(np.int64)
+        _EDGE_RUNS[K, flat] = {
+            "K": K, "flat": flat, "B": n // EDGE_R,
+            "port": DeviceRun.from_reference_planes(planes, EDGE_R,
+                                                    "cpu").arrays,
+            "jax": {k: ({c: {m: jnp.asarray(a) for m, a in e.items()}
+                         for c, e in v.items()} if k == "cols"
+                        else jnp.asarray(v)) for k, v in planes.items()},
+            "reads": (int(ht.max()) + 1, int(np.median(ht)))}
+    return _EDGE_RUNS[K, flat]
+
+
+def edge_sigs(er, preds, M, packed=True, apply_preds=True):
+    """(JAX GatherSig, port GatherSig, JAX ScanSig, port ScanSig) over the
+    bench table's columns, every one an output (setter rows on two)."""
+    schema = workload.make_schema()
+    cid = {c.name: c.col_id for c in schema.value_columns}
+    kinds = {c.col_id: dtype_kind(c.dtype) for c in schema.value_columns}
+
+    def make(S, G):
+        cols = tuple(S.ColSig(c, k) for c, k in kinds.items())
+        ps = tuple(S.PredSig(cid[c], kinds[cid[c]], op) for c, op, _ in preds)
+        outs = tuple(G.OutCol(c, 2 if k in ("i64", "f64") else 1, i != 1)
+                     for i, (c, k) in enumerate(kinds.items()))
+        return (G.GatherSig(B=er["B"], R=EDGE_R, K=er["K"], M=M, cols=cols,
+                            preds=ps, apply_preds=True, out_cols=outs,
+                            flat=er["flat"], packed=packed),
+                S.ScanSig(B=er["B"], R=EDGE_R, K=er["K"], cols=cols,
+                          preds=ps, aggs=(), apply_preds=apply_preds,
+                          flat=er["flat"]))
+
+    jg, js_ = make(j_scan, j_gather)
+    tg, ts_ = make(t_scan, row_gather)
+    ints = [int(x) for c, _op, v in preds for x in np.atleast_1d(
+        agg_fold.pred_literal_host(kinds[cid[c]], v))]
+    return jg, tg, js_, ts_, ints
+
+
+def edge_pages(er, M_rows=None):
+    """Pages over the edge run: the whole run at both read points, a page
+    that starts inside a window and counts from a later ``scan_from``
+    inside the next, one bounded window range, and the last window."""
+    N = er["K"] * EDGE_R
+    n_rows = er["B"] * EDGE_R
+    last = EDGE_WINDOWS - 1
+    newest, mid = er["reads"]
+    return [(0, last, 0, n_rows, newest, None),
+            (0, last, 0, n_rows, mid, None),
+            (0, last, EDGE_R + 5, n_rows - 3, newest, N + EDGE_R // 2 + 1),
+            (1, 2, N + 3, 3 * N - EDGE_R, mid, None),
+            (last, last, last * N, n_rows, newest, None)]
+
+
+def edge_gather(er, preds, M, pages, packed=True):
+    jsig, tsig, _, _, ints = edge_sigs(er, preds, M, packed)
+    rows = [j_gather.pack_params(wf, wl, lo, hi, read_planes(P, rd), ints,
+                                 [], scan_from=sf)
+            for wf, wl, lo, hi, rd, sf in pages]
+    ip, fp = (np.stack([r[i] for r in rows]) for i in (0, 1))
+    want = np.asarray(j_gather.compiled_gather_batch(jsig, len(pages))(
+        er["jax"], ip, fp))
+    got = row_gather.gather_rows_plain(tsig, er["port"], torch.from_numpy(ip),
+                                       torch.from_numpy(fp)).numpy()
+    return want, got
+
+
+@pytest.mark.parametrize("K,flat", [(1, False), (2, False), (8, False),
+                                    (8, True)],
+                         ids=["K1", "K2", "K8", "K8-flat"])
+def test_edge_planes_paged_buffers_equal_the_jax_program(K, flat):
+    """K7's paged buffers on ``row_edge_planes`` (cleared groups, groups of
+    1 to R versions, tombstone ties, column d unset in each window's last
+    block, stand-in rows with their own planes): M = 1, and an M whose
+    M-th match is a window's last, which lies in its last run block."""
+    er = edge_run(K, flat)
+    N = K * EDGE_R
+    preds = EDGE_PREDS["a"]
+    # The matches of the first window: the M-th of a page that starts at
+    # row 0 is the window's last match.
+    _, first = edge_gather(er, preds, N, [(0, 0, 0, N, er["reads"][0], None)])
+    M_last = int(first[0, N, 0])
+    starts = first[0, :min(M_last, N), 0]
+    assert M_last >= 1 and starts[-1] >= (K - 1) * EDGE_R
+    for M in sorted({1, M_last}):
+        want, got = edge_gather(er, preds, M, edge_pages(er))
+        np.testing.assert_array_equal(got, want)
+    # The whole run's page at M_last stops after its first window, where
+    # count reached M.
+    assert got[0, M_last, 0] == M_last and got[0, M_last, 2] == 1
+
+
+@pytest.mark.parametrize("K,flat", [(2, False), (8, False), (8, True)],
+                         ids=["K2", "K8", "K8-flat"])
+def test_edge_planes_chunks_buffers_equal_the_jax_program(K, flat):
+    """K7's chunks mode on the edge planes under three predicates: every
+    window in place, groups past the window's (the stand-in row's planes,
+    NULL) included."""
+    er = edge_run(K, flat)
+    n_rows = er["B"] * EDGE_R
+    pg = [(w, w, 3, n_rows - 70, er["reads"][w % 2], None)
+          for w in range(EDGE_WINDOWS)]
+    want, got = edge_gather(er, EDGE_PREDS["dca"], K * EDGE_R, pg,
+                            packed=False)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("K,flat", [(1, False), (8, False), (8, True)],
+                         ids=["K1", "K8", "K8-flat"])
+def test_edge_planes_candidates_equal_the_jax_program(K, flat):
+    """K9 over every window of a bounded range of the edge planes, with
+    and without its predicates, against ``compiled_scan`` window by
+    window."""
+    er = edge_run(K, flat)
+    N = K * EDGE_R
+    n_rows = er["B"] * EDGE_R
+    row_lo, row_hi = EDGE_R + 9, n_rows - 17
+    for apply_preds in (True, False):
+        _, _, jsig, tsig, ints = edge_sigs(er, EDGE_PREDS["dca"], 1,
+                                           apply_preds=apply_preds)
+        rd = read_planes(P, er["reads"][1])
+        ip, fp = row_gather.pack_params(0, EDGE_WINDOWS - 1, row_lo, row_hi,
+                                        rd, ints, [])
+        res, start, ng = row_gather.scan_candidates_plain(
+            tsig, er["port"], torch.from_numpy(ip), torch.from_numpy(fp),
+            EDGE_WINDOWS)
+        fn = j_scan.compiled_scan(jsig)
+        lits = (jnp.int32(ints[0]), jnp.asarray(np.array(ints[1:3], np.int32)),
+                jnp.asarray(np.array(ints[3:5], np.int32)))
+        for w in range(EDGE_WINDOWS):
+            base = w * N
+            want = fn(er["jax"], jnp.int32(w * K), jnp.int32(row_lo - base),
+                      jnp.int32(row_hi - base), *map(jnp.int32, rd), lits)
+            np.testing.assert_array_equal(res[w].numpy(),
+                                          np.asarray(want["result"]))
+            np.testing.assert_array_equal(start[w].numpy(),
+                                          np.asarray(want["start_idx"]))
+            assert int(ng[w]) == int(want["num_groups"])
+
+
+def test_geometry_constants_mirror_the_kernel_source():
+    """``launch_geometry``'s constants are the CUDA source's (the kernel
+    cannot be built here, so its shape is held through its source)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(row_gather.__file__).resolve().parent.parent / "csrc"
+           / "row_gather.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("kMaxCluster") == row_gather.CLUSTER_MAX
+    assert const("kPieceMax") == row_gather.PIECE_MAX
+    assert const("kHeadBytes") == row_gather.HEAD_BYTES
+    assert const("kMaxCols") == row_gather.MAX_COLS
+    assert const("kMaxPreds") == row_gather.MAX_PREDS
+    assert const("kMaxOut") == row_gather.MAX_OUT
+    assert "(21 + 2 * s.n_cols)" in src  # bytes a staged row

@@ -28,7 +28,9 @@ tensors it runs the plain version (``gather_rows_plain``,
 ``scan_candidates_plain``). ``gather_rows.launches`` and
 ``scan_candidates.launches`` count launches. ``gather_bytes`` /
 ``candidates_bytes`` give the bytes each function must move, for the
-bound.
+bound. Both kernels run a window as a thread block cluster, one block a
+run block, each staging its run block in shared memory;
+``launch_geometry`` gives a launch's shape.
 """
 
 from __future__ import annotations
@@ -54,6 +56,13 @@ PARAM_FIXED = 9  # w_first, w_last, row_lo, row_hi, r_hi, r_lo, e_hi, e_lo,
 MAX_COLS = 16
 MAX_PREDS = 16
 MAX_OUT = 16
+# The launch geometry (csrc/row_gather.cu's kMaxCluster, kPieceMax,
+# kHeadBytes): blocks a cluster, rows a block stages at once, and the
+# bytes of shared memory before the staged rows.
+CLUSTER_MAX = 8
+PIECE_MAX = 2048
+HEAD_BYTES = 512
+SHARED_LIMIT = 232_448  # shared memory a block can have on Hopper (227 KB)
 KIND_CODES = {"i32": 0, "i64": 1, "f64": 2, "str": 3, "f32": 4}
 OP_CODES = {"=": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
 _RUN_PLANES = ("valid", "group_start", "tomb", "live", "ht_hi", "ht_lo",
@@ -99,6 +108,25 @@ def out_layout(sig: GatherSig):
         cols[oc.col_id] = (off, off + oc.planes, idx_off)
         off += oc.planes + 1 + (1 if oc.want_idx else 0)
     return max(off, 3), cols
+
+
+def launch_geometry(sig, G: int) -> dict:
+    """The shape of one launch of K7 over ``G`` pages (or of K9 over ``G``
+    windows) for ``sig`` (a ``GatherSig`` or a row-scan ``ScanSig``), as
+    ``csrc/row_gather.cu`` makes it: a cluster of ``cluster`` blocks a
+    window, block rank r taking run blocks [r * run_blocks_per_block, ...)
+    of it in order; each block stages ``piece_rows`` rows at a time
+    (``pieces_per_run_block`` pieces a run block) in ``shared_bytes`` of
+    dynamic shared memory: the head, then a byte a row of each flag plane,
+    the answer byte, 16 bytes of hybrid time and expiry, and a set and an
+    isnull byte a column."""
+    cluster = min(sig.K, CLUSTER_MAX)
+    piece = min(sig.R, PIECE_MAX)
+    shared = HEAD_BYTES + piece * (21 + 2 * len(sig.cols))
+    return {"cluster": cluster, "blocks": G * cluster,
+            "run_blocks_per_block": -(-sig.K // cluster),
+            "piece_rows": piece, "pieces_per_run_block": -(-sig.R // piece),
+            "shared_bytes": -(-shared // 16) * 16}
 
 
 def pack_params(w_first, w_last, row_lo, row_hi, read_planes, int_lits,

@@ -288,6 +288,42 @@ def long_group_planes(n_rows: int, R: int, seed: int = 7) -> dict:
     return planes
 
 
+def row_edge_planes(n_rows: int, R: int, K: int, seed: int = 7,
+                    flat: bool = False) -> dict:
+    """``long_group_planes`` laid out to break a window resolve that is
+    split across the blocks of a cluster (the row path's K7 and K9, K
+    blocks a window): about 10% of the key groups cleared (every version's
+    valid flag, as the delta overlay clears a dirty key); column ``d``
+    never set in the last block of each window, so that its groups there
+    read the stand-in row (the window's last row); and random order and
+    arithmetic planes on every row that is not valid (padding and cleared
+    rows), so that a wrong stand-in row shows. ``flat``: every row its own
+    group (a flat run's layout)."""
+    if n_rows % (R * K):
+        raise ValueError(f"{n_rows} rows are not whole windows of {K} x {R}")
+    planes = long_group_planes(n_rows, R, seed)
+    rng = np.random.default_rng(seed + 1)
+    valid = planes["valid"].reshape(-1).copy()
+    starts = planes["group_start"].reshape(-1)
+    gid = np.cumsum(starts) - 1
+    cleared = rng.random(int(gid[-1]) + 1) < 0.1
+    valid &= ~cleared[gid]
+    planes["valid"] = valid.reshape(planes["valid"].shape)
+    if flat:
+        planes["group_start"] = np.ones_like(planes["group_start"])
+    blocks = planes["valid"].shape[0]
+    last = np.arange(blocks) % K == K - 1
+    d = next(c.col_id for c in make_schema().value_columns if c.name == "d")
+    planes["cols"][d]["set"][last] = False
+    planes["cols"][d]["isnull"][last] = False
+    off = ~planes["valid"]
+    for col in planes["cols"].values():
+        col["cmp"][off] = rng.integers(-10**6, 10**6, col["cmp"][off].shape,
+                                       dtype=np.int32)
+        col["arith"][off] = rng.uniform(-1e6, 1e6, int(off.sum()))
+    return planes
+
+
 YCSB_E_LIMIT = 100    # bench.py:179 bench_ycsb_e: rows a page
 YCSB_E_PAGES = 256    # pages a batch
 
