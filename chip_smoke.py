@@ -938,7 +938,8 @@ class HistoryOracle:
             (r.columns[self.d], r.columns[self.a], r.columns[self.c])
             for r in single])
 
-    def at(self, read_ht: int) -> Oracle:
+    def merged(self, read_ht: int) -> tuple:
+        """``Oracle.arrays`` of the updated keys' rows at ``read_ht``."""
         from yugabyte_db_tpu_torch.storage.merge import merge_versions
 
         merged = []
@@ -947,9 +948,37 @@ class HistoryOracle:
             d = m.get(self.d)
             if d is not None:  # a non-NULL value: the row exists
                 merged.append((d, m.get(self.a), m.get(self.c)))
+        return Oracle.arrays(merged)
+
+    def at(self, read_ht: int, merged: tuple | None = None) -> Oracle:
+        if merged is None:
+            merged = self.merged(read_ht)
         vis = self.s_ht <= read_ht
-        parts = zip(Oracle.arrays(merged), (x[vis] for x in self.single))
+        parts = zip(merged, (x[vis] for x in self.single))
         return Oracle(*(np.concatenate(p) for p in parts))
+
+    def at_reads(self, reads: list) -> dict:
+        """``at`` for every read point of ``reads``, the merges (pure
+        Python, no device) spread over ORACLE_PROCS forked processes."""
+        import multiprocessing
+
+        global _FORKED_HISTORY
+        _FORKED_HISTORY = self
+        try:
+            with multiprocessing.get_context("fork").Pool(
+                    ORACLE_PROCS) as pool:
+                merged = pool.map(_forked_merge, reads, chunksize=1)
+        finally:
+            _FORKED_HISTORY = None
+        return {rd: self.at(rd, m) for rd, m in zip(reads, merged)}
+
+
+ORACLE_PROCS = 6  # processes that merge a history's read points
+_FORKED_HISTORY = None  # the history a forked merge reads (at_reads)
+
+
+def _forked_merge(read_ht: int) -> tuple:
+    return _FORKED_HISTORY.merged(read_ht)
 
 
 def view_planes(view: dict) -> dict:
@@ -1269,7 +1298,7 @@ def mvcc_phase(device, bw: float, rate: float) -> tuple:
             reads.add(r)
     reads = sorted(reads)
     oracle_s = time.perf_counter()
-    oracles = {rd: history.at(rd) for rd in [newest] + reads}
+    oracles = history.at_reads([newest] + reads)
     oracle_s = time.perf_counter() - oracle_s
 
     # The main path, counted.
@@ -1504,7 +1533,7 @@ def overlay_flat(ctx, device, bw: float, rate: float) -> dict:
     history = HistoryOracle(schema, rows, updates)
     newest, between, before = ends[WAVES - 1] + 1, ends[1] + 1, \
         ctx.max_ht + 1
-    oracles = {rd: history.at(rd) for rd in (newest, between, before)}
+    oracles = history.at_reads([newest, between, before])
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     for w in range(WAVES):
@@ -2069,29 +2098,34 @@ def time_launch(kind: str, launch, bw: float, rate: float) -> dict:
     """One recorded launch timed (CUDA events, median of 12, the calls
     queued behind a sleeping kernel: a launch of a few windows takes less
     device time than its wrapper takes on the host) beside its plain
-    version (median of 3) and its bound."""
+    version (median of 3) and its bound; ``geometry`` is the shape the
+    library reports for the timed launch, which must be the one
+    ``launch_geometry`` mirrors."""
     from yugabyte_db_tpu_torch.ops import row_gather as rg
 
     if kind == "gather":
         sig, run, ip, fp, _out = launch
         ms = cuda_ms(lambda: rg.gather_rows(sig, run, ip, fp), KERNEL_REPS,
                      queue_ahead=True)
+        launched, G = rg.last_launch(), int(ip.shape[0])
         plain = cuda_ms(lambda: rg.gather_rows_plain(sig, run, ip, fp),
                         PLAIN_REPS)
-        shape = {"pages": int(ip.shape[0]), "M": sig.M, "flat": sig.flat,
-                 "packed": sig.packed,
-                 "geometry": rg.launch_geometry(sig, int(ip.shape[0]))}
+        shape = {"pages": G, "M": sig.M, "flat": sig.flat,
+                 "packed": sig.packed}
     else:
-        sig, run, ip, fp, n, _out = launch
-        ms = cuda_ms(lambda: rg.scan_candidates(sig, run, ip, fp, n),
+        sig, run, ip, fp, G, _out = launch
+        ms = cuda_ms(lambda: rg.scan_candidates(sig, run, ip, fp, G),
                      KERNEL_REPS, queue_ahead=True)
+        launched = rg.last_launch()
         plain = cuda_ms(lambda: rg.scan_candidates_plain(sig, run, ip, fp,
-                                                         n), PLAIN_REPS)
-        shape = {"windows": n, "flat": sig.flat,
-                 "apply_preds": sig.apply_preds,
-                 "geometry": rg.launch_geometry(sig, n)}
-    return dict(shape, ms=ms, plain_ms=plain, library_ms=None,
-                **row_bound(kind, launch, bw, rate))
+                                                         G), PLAIN_REPS)
+        shape = {"windows": G, "flat": sig.flat,
+                 "apply_preds": sig.apply_preds}
+    check(launched == rg.launch_geometry(sig, G),
+          f"{kind} launched {launched}, launch_geometry says "
+          f"{rg.launch_geometry(sig, G)}")
+    return dict(shape, geometry=launched, ms=ms, plain_ms=plain,
+                library_ms=None, **row_bound(kind, launch, bw, rate))
 
 
 def pipelined_ms(eng, batches) -> tuple:
@@ -2236,28 +2270,13 @@ ROW_EDGE_PREDS = ((), (("a", ">=", -10**11),),
 
 def edge_sigs(R: int, K: int, B: int, flat: bool, preds, M: int,
               packed: bool = True, apply_preds: bool = True) -> tuple:
-    """(GatherSig, row-scan ScanSig, int literals) over the bench table's
-    value columns, every one an output (setter rows on two of them)."""
+    """``workload.row_edge_sigs`` with the port's signatures."""
     from yugabyte_db_tpu_torch import workload
-    from yugabyte_db_tpu_torch.ops import agg_fold
     from yugabyte_db_tpu_torch.ops import row_gather as rg
     from yugabyte_db_tpu_torch.ops import scan as S
-    from yugabyte_db_tpu_torch.ops.device_run import dtype_kind
 
-    schema = workload.make_schema()
-    cid = {c.name: c.col_id for c in schema.value_columns}
-    kinds = {c.col_id: dtype_kind(c.dtype) for c in schema.value_columns}
-    cols = tuple(S.ColSig(c, k) for c, k in kinds.items())
-    ps = tuple(S.PredSig(cid[c], kinds[cid[c]], op) for c, op, _v in preds)
-    outs = tuple(rg.OutCol(c, 2 if k in ("i64", "f64") else 1, i != 1)
-                 for i, (c, k) in enumerate(kinds.items()))
-    ints = [int(x) for c, _op, v in preds for x in np.atleast_1d(
-        agg_fold.pred_literal_host(kinds[cid[c]], v))]
-    return (rg.GatherSig(B=B, R=R, K=K, M=M, cols=cols, preds=ps,
-                         apply_preds=True, out_cols=outs, flat=flat,
-                         packed=packed),
-            S.ScanSig(B=B, R=R, K=K, cols=cols, preds=ps, aggs=(),
-                      apply_preds=apply_preds, flat=flat), ints)
+    return workload.row_edge_sigs(S, rg, B, R, K, flat, preds, M,
+                                  packed=packed, apply_preds=apply_preds)
 
 
 def rows_edges(device) -> dict:
@@ -2277,7 +2296,6 @@ def rows_edges(device) -> dict:
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.ops import row_gather as rg
     from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
-    from yugabyte_db_tpu_torch.utils import planes as P
 
     t0 = time.perf_counter()
     launches, in_last_block, cases = 0, 0, {}
@@ -2301,15 +2319,10 @@ def rows_edges(device) -> dict:
         planes = workload.row_edge_planes(n_rows, R, K, seed=R + K,
                                           flat=flat)
         run = DeviceRun.from_reference_planes(planes, R, device).arrays
-        valid = planes["valid"]
-        ht = P.planes_to_u64(planes["ht_hi"][valid],
-                             planes["ht_lo"][valid]).astype(np.int64)
-        newest, mid = int(ht.max()) + 1, int(np.median(ht))
-        pages = [(0, last, 0, n_rows, newest, None),
-                 (0, last, 0, n_rows, mid, None),
-                 (0, last, R + 5, n_rows - 3, newest, N + R // 2 + 1),
-                 (min(1, last), last, N + 3, n_rows - R, mid, None),
-                 (last, last, last * N, n_rows, newest, None)]
+        reads = workload.row_edge_reads(planes)
+        newest = reads[0]
+        pages = workload.row_edge_pages(R, K, windows, reads)
+        row_lo, row_hi, k9_read = pages["candidates"]
         m_last = {}
         for k, preds in enumerate(ROW_EDGE_PREDS):
             sig, _s, ints = edge_sigs(R, K, B, flat, preds, N)
@@ -2321,14 +2334,13 @@ def rows_edges(device) -> dict:
                 in_last_block += 1
             for M in sorted({1, max(m, 1), 104}):
                 sig = edge_sigs(R, K, B, flat, preds, M)[0]
-                ip, fp = params(pages, ints)
+                ip, fp = params(pages["paged"], ints)
                 held([rg.gather_rows(sig, run, ip, fp)],
                      [rg.gather_rows_plain(sig, run, ip, fp)],
                      f"{label} paged M = {M}, preds {preds}")
                 launches += 1
             sig = edge_sigs(R, K, B, flat, preds, N, packed=False)[0]
-            ip, fp = params([(w, w, 3, n_rows - 70, (newest, mid)[w % 2],
-                              None) for w in range(windows)], ints)
+            ip, fp = params(pages["chunks"], ints)
             held([rg.gather_rows(sig, run, ip, fp)],
                  [rg.gather_rows_plain(sig, run, ip, fp)],
                  f"{label} chunks, preds {preds}")
@@ -2338,7 +2350,7 @@ def rows_edges(device) -> dict:
                                        apply_preds=apply_preds)[1:]
                 for wf, n in ((0, windows), (last, 1)):
                     ip, fp = (t[0] for t in params(
-                        [(wf, last, R + 9, n_rows - 17, mid, None)], ints))
+                        [(wf, last, row_lo, row_hi, k9_read, None)], ints))
                     held(rg.scan_candidates(ssig, run, ip, fp, n),
                          rg.scan_candidates_plain(ssig, run, ip, fp, n),
                          f"{label} candidates of {n} windows, preds {preds}, "
@@ -3402,9 +3414,9 @@ def row_path_entries(rows: dict, sources: dict) -> list:
     multi-version run (the newest read point; the mid one and the full
     scans' chunks launches beside it), K9 at the widest launch of the
     row scan over several sources; launches of the phases' counted runs,
-    the build's registers and stack, the launch geometry, and the
-    launches held on the edge planes (every one byte for byte, or the
-    phase fails)."""
+    the build's registers and stack, the shape the library reports for
+    the timed launch, and the launches held on the edge planes (every one
+    byte for byte, or the phase fails)."""
     usage = ptxas_usage("row_gather")
     err = max(h["max_abs_err"] for h in rows["held"] + [sources["held"]])
     k7, k9 = rows["k7"], sources["k9"]
@@ -3461,9 +3473,10 @@ def main() -> int:
     print(f"bounds: {bw} bytes/s, {rate} int32 operations/s "
           f"(64 lanes x SMs x clocks.max.sm "
           f"{nvidia_smi('clocks.max.sm')})")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     native.build(KERNELS)
-    print(f"build: {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    walls = {"build": time.perf_counter() - t0}  # seconds of each phase
+    print(f"build: {', '.join(KERNELS)} in {walls['build']:.1f} s")
     for name in KERNELS:
         for line in native.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
@@ -3481,15 +3494,24 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--rows":
         rows_alone(device, bw, rate)
         return 0
-    kernel_err = kernel_phase(device, bw, rate)
-    eng, flat = engine_phase(device, bw, rate)
-    mv, mvcc = mvcc_phase(device, bw, rate)
-    rows = rows_phase(device, bw, rate, flat, mvcc)
-    ov = overlay_phase(device, bw, rate, flat, mvcc)
-    sources = rows_sources_phase(device, bw, rate, flat, mvcc)
+
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        result = phase(device, bw, rate, *args)
+        walls[name] = time.perf_counter() - t
+        return result
+
+    kernel_err = timed("kernel", kernel_phase)
+    eng, flat = timed("engine", engine_phase)
+    mv, mvcc = timed("mvcc", mvcc_phase)
+    rows = timed("rows", rows_phase, flat, mvcc)
+    ov = timed("overlay", overlay_phase, flat, mvcc)
+    sources = timed("rows_sources", rows_sources_phase, flat, mvcc)
     del flat, mvcc
     torch.cuda.empty_cache()
-    grp = grouped_phase(device, bw, rate)
+    grp = timed("grouped", grouped_phase)
+    walls["total"] = time.perf_counter() - t_start
+    print("phases_s " + json.dumps(walls))
     ovf, ovm = ov["flat"], ov["mvcc"]
     k = eng["kernel"]
     err = max(k["max_abs_err"], kernel_err, mv["kernel"]["max_abs_err"],

@@ -407,9 +407,7 @@ def edge_run(K: int, flat: bool) -> dict:
     if (K, flat) not in _EDGE_RUNS:
         n = EDGE_WINDOWS * K * EDGE_R
         planes = workload.row_edge_planes(n, EDGE_R, K, seed=K, flat=flat)
-        valid = planes["valid"]
-        ht = P.planes_to_u64(planes["ht_hi"][valid],
-                             planes["ht_lo"][valid]).astype(np.int64)
+        reads = workload.row_edge_reads(planes)
         _EDGE_RUNS[K, flat] = {
             "K": K, "flat": flat, "B": n // EDGE_R,
             "port": DeviceRun.from_reference_planes(planes, EDGE_R,
@@ -417,49 +415,21 @@ def edge_run(K: int, flat: bool) -> dict:
             "jax": {k: ({c: {m: jnp.asarray(a) for m, a in e.items()}
                          for c, e in v.items()} if k == "cols"
                         else jnp.asarray(v)) for k, v in planes.items()},
-            "reads": (int(ht.max()) + 1, int(np.median(ht)))}
+            "reads": reads,
+            "pages": workload.row_edge_pages(EDGE_R, K, EDGE_WINDOWS, reads)}
     return _EDGE_RUNS[K, flat]
 
 
 def edge_sigs(er, preds, M, packed=True, apply_preds=True):
-    """(JAX GatherSig, port GatherSig, JAX ScanSig, port ScanSig) over the
-    bench table's columns, every one an output (setter rows on two)."""
-    schema = workload.make_schema()
-    cid = {c.name: c.col_id for c in schema.value_columns}
-    kinds = {c.col_id: dtype_kind(c.dtype) for c in schema.value_columns}
-
-    def make(S, G):
-        cols = tuple(S.ColSig(c, k) for c, k in kinds.items())
-        ps = tuple(S.PredSig(cid[c], kinds[cid[c]], op) for c, op, _ in preds)
-        outs = tuple(G.OutCol(c, 2 if k in ("i64", "f64") else 1, i != 1)
-                     for i, (c, k) in enumerate(kinds.items()))
-        return (G.GatherSig(B=er["B"], R=EDGE_R, K=er["K"], M=M, cols=cols,
-                            preds=ps, apply_preds=True, out_cols=outs,
-                            flat=er["flat"], packed=packed),
-                S.ScanSig(B=er["B"], R=EDGE_R, K=er["K"], cols=cols,
-                          preds=ps, aggs=(), apply_preds=apply_preds,
-                          flat=er["flat"]))
-
-    jg, js_ = make(j_scan, j_gather)
-    tg, ts_ = make(t_scan, row_gather)
-    ints = [int(x) for c, _op, v in preds for x in np.atleast_1d(
-        agg_fold.pred_literal_host(kinds[cid[c]], v))]
+    """(JAX GatherSig, port GatherSig, JAX ScanSig, port ScanSig, int
+    literals): ``workload.row_edge_sigs`` with each side's signatures."""
+    args = (er["B"], EDGE_R, er["K"], er["flat"], preds, M)
+    jg, js_, _ = workload.row_edge_sigs(j_scan, j_gather, *args,
+                                        packed=packed, apply_preds=apply_preds)
+    tg, ts_, ints = workload.row_edge_sigs(t_scan, row_gather, *args,
+                                           packed=packed,
+                                           apply_preds=apply_preds)
     return jg, tg, js_, ts_, ints
-
-
-def edge_pages(er, M_rows=None):
-    """Pages over the edge run: the whole run at both read points, a page
-    that starts inside a window and counts from a later ``scan_from``
-    inside the next, one bounded window range, and the last window."""
-    N = er["K"] * EDGE_R
-    n_rows = er["B"] * EDGE_R
-    last = EDGE_WINDOWS - 1
-    newest, mid = er["reads"]
-    return [(0, last, 0, n_rows, newest, None),
-            (0, last, 0, n_rows, mid, None),
-            (0, last, EDGE_R + 5, n_rows - 3, newest, N + EDGE_R // 2 + 1),
-            (1, 2, N + 3, 3 * N - EDGE_R, mid, None),
-            (last, last, last * N, n_rows, newest, None)]
 
 
 def edge_gather(er, preds, M, pages, packed=True):
@@ -493,7 +463,7 @@ def test_edge_planes_paged_buffers_equal_the_jax_program(K, flat):
     starts = first[0, :min(M_last, N), 0]
     assert M_last >= 1 and starts[-1] >= (K - 1) * EDGE_R
     for M in sorted({1, M_last}):
-        want, got = edge_gather(er, preds, M, edge_pages(er))
+        want, got = edge_gather(er, preds, M, er["pages"]["paged"])
         np.testing.assert_array_equal(got, want)
     # The whole run's page at M_last stops after its first window, where
     # count reached M.
@@ -507,11 +477,8 @@ def test_edge_planes_chunks_buffers_equal_the_jax_program(K, flat):
     window in place, groups past the window's (the stand-in row's planes,
     NULL) included."""
     er = edge_run(K, flat)
-    n_rows = er["B"] * EDGE_R
-    pg = [(w, w, 3, n_rows - 70, er["reads"][w % 2], None)
-          for w in range(EDGE_WINDOWS)]
-    want, got = edge_gather(er, EDGE_PREDS["dca"], K * EDGE_R, pg,
-                            packed=False)
+    want, got = edge_gather(er, EDGE_PREDS["dca"], K * EDGE_R,
+                            er["pages"]["chunks"], packed=False)
     np.testing.assert_array_equal(got, want)
 
 
@@ -523,12 +490,11 @@ def test_edge_planes_candidates_equal_the_jax_program(K, flat):
     window."""
     er = edge_run(K, flat)
     N = K * EDGE_R
-    n_rows = er["B"] * EDGE_R
-    row_lo, row_hi = EDGE_R + 9, n_rows - 17
+    row_lo, row_hi, read = er["pages"]["candidates"]
     for apply_preds in (True, False):
         _, _, jsig, tsig, ints = edge_sigs(er, EDGE_PREDS["dca"], 1,
                                            apply_preds=apply_preds)
-        rd = read_planes(P, er["reads"][1])
+        rd = read_planes(P, read)
         ip, fp = row_gather.pack_params(0, EDGE_WINDOWS - 1, row_lo, row_hi,
                                         rd, ints, [])
         res, start, ng = row_gather.scan_candidates_plain(

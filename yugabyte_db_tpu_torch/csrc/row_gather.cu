@@ -1163,6 +1163,10 @@ int shared_bytes(const Sig& s) {
   return (kHeadBytes + s.piece * (21 + 2 * s.n_cols) + 15) / 16 * 16;
 }
 
+// The shape of this library's last launch: cluster, blocks, run blocks
+// a block, rows a piece, pieces a run block, shared bytes a block.
+int32_t g_last_launch[6];
+
 // Launches `kernel` as `n` clusters of s.cluster blocks.
 template <typename... Args>
 int launch_clusters(void (*kernel)(const Sig, Args...), const Sig& s, int n,
@@ -1185,7 +1189,13 @@ int launch_clusters(void (*kernel)(const Sig, Args...), const Sig& s, int n,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, s, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int32_t shape[6] = {s.cluster, static_cast<int32_t>(cfg.gridDim.x),
+                            s.per_block, s.piece,
+                            (s.R + s.piece - 1) / s.piece, bytes};
+  for (int i = 0; i < 6; ++i) g_last_launch[i] = shape[i];
+  return 0;
 }
 
 }  // namespace
@@ -1259,6 +1269,12 @@ int scan_window_launch(const void* const* run, const void* const* cols,
   return launch_clusters(candidates_kernel, s, n_windows,
                          static_cast<cudaStream_t>(stream), iparams, fparams,
                          result, start, num_groups);
+}
+
+// out[6]: the shape of the last launch that row_gather_launch or
+// scan_window_launch made (g_last_launch).
+void row_gather_last_launch(int32_t* out) {
+  for (int i = 0; i < 6; ++i) out[i] = g_last_launch[i];
 }
 
 const char* row_gather_error_string(int rc) {

@@ -129,6 +129,20 @@ def launch_geometry(sig, G: int) -> dict:
             "shared_bytes": -(-shared // 16) * 16}
 
 
+def last_launch() -> dict:
+    """The shape of this process's last K7 or K9 launch as the library
+    reports it (``launch_geometry``'s keys): what ``launch_geometry``
+    mirrors, read from the launch itself."""
+    lib = _library()
+    lib.row_gather_last_launch.argtypes = [ctypes.POINTER(ctypes.c_int32)]
+    lib.row_gather_last_launch.restype = None
+    out = (ctypes.c_int32 * 6)()
+    lib.row_gather_last_launch(out)
+    return dict(zip(("cluster", "blocks", "run_blocks_per_block",
+                     "piece_rows", "pieces_per_run_block", "shared_bytes"),
+                    out))
+
+
 def pack_params(w_first, w_last, row_lo, row_hi, read_planes, int_lits,
                 f32_lits, scan_from=None):
     """One page's params row -> (i32[P], f32[F]) numpy arrays."""

@@ -324,6 +324,64 @@ def row_edge_planes(n_rows: int, R: int, K: int, seed: int = 7,
     return planes
 
 
+def row_edge_reads(planes: dict) -> tuple:
+    """(newest, mid): the read points of ``row_edge_planes``' launches,
+    past every version and at the median version's hybrid time."""
+    valid = planes["valid"]
+    ht = P.planes_to_u64(planes["ht_hi"][valid],
+                         planes["ht_lo"][valid]).astype(np.int64)
+    return int(ht.max()) + 1, int(np.median(ht))
+
+
+def row_edge_pages(R: int, K: int, windows: int, reads: tuple) -> dict:
+    """The launches' parameters over ``row_edge_planes`` of ``windows``
+    windows of K blocks of R rows at ``reads`` (``row_edge_reads``), as
+    (w_first, w_last, row_lo, row_hi, read point, scan_from) pages.
+    ``paged``: K7's pages: the whole run at both read points, a page that
+    starts inside a window and counts from a later ``scan_from`` inside
+    the next, a bounded range from the second window, and the last window
+    alone. ``chunks``: K7's chunks mode, one page a window at alternating
+    read points. ``candidates``: K9's (row_lo, row_hi, read point), a
+    bounded row range over the windows it walks."""
+    N, n_rows, last = K * R, windows * K * R, windows - 1
+    newest, mid = reads
+    return {"paged": [(0, last, 0, n_rows, newest, None),
+                      (0, last, 0, n_rows, mid, None),
+                      (0, last, R + 5, n_rows - 3, newest, N + R // 2 + 1),
+                      (min(1, last), last, N + 3, n_rows - R, mid, None),
+                      (last, last, last * N, n_rows, newest, None)],
+            "chunks": [(w, w, 3, n_rows - 70, reads[w % 2], None)
+                       for w in range(windows)],
+            "candidates": (R + 9, n_rows - 17, mid)}
+
+
+def row_edge_sigs(S, G, B: int, R: int, K: int, flat: bool, preds, M: int,
+                  packed: bool = True, apply_preds: bool = True) -> tuple:
+    """(GatherSig, row-scan ScanSig, int literals) of a launch over
+    ``row_edge_planes``: the bench table's value columns, every one an
+    output (setter rows on two of them), under ``preds`` ((column, op,
+    value) triples). ``S`` holds ``ScanSig``, ``ColSig`` and ``PredSig``
+    and ``G`` holds ``GatherSig`` and ``OutCol``: the port's ``ops.scan``
+    and ``ops.row_gather``, or modules with the same signatures."""
+    from yugabyte_db_tpu_torch.ops.agg_fold import pred_literal_host
+    from yugabyte_db_tpu_torch.ops.device_run import dtype_kind
+
+    schema = make_schema()
+    cid = {c.name: c.col_id for c in schema.value_columns}
+    kinds = {c.col_id: dtype_kind(c.dtype) for c in schema.value_columns}
+    cols = tuple(S.ColSig(c, k) for c, k in kinds.items())
+    ps = tuple(S.PredSig(cid[c], kinds[cid[c]], op) for c, op, _v in preds)
+    outs = tuple(G.OutCol(c, 2 if k in ("i64", "f64") else 1, i != 1)
+                 for i, (c, k) in enumerate(kinds.items()))
+    ints = [int(x) for c, _op, v in preds
+            for x in np.atleast_1d(pred_literal_host(kinds[cid[c]], v))]
+    return (G.GatherSig(B=B, R=R, K=K, M=M, cols=cols, preds=ps,
+                        apply_preds=True, out_cols=outs, flat=flat,
+                        packed=packed),
+            S.ScanSig(B=B, R=R, K=K, cols=cols, preds=ps, aggs=(),
+                      apply_preds=apply_preds, flat=flat), ints)
+
+
 YCSB_E_LIMIT = 100    # bench.py:179 bench_ycsb_e: rows a page
 YCSB_E_PAGES = 256    # pages a batch
 
