@@ -23,8 +23,17 @@ line is printed:
    differ in read point, range and literal, literals at the i32/i64
    extremes, all-NULL columns, and a table of MAX_COLS value columns at
    1,048,576 rows;
+   Every flush of the phases below goes through ``flush``: it must take
+   the device route (``stats()["flush_paths"]``) and launch K12
+   (``ops.flush``, ``csrc/flush.cu``), whose launch is held byte for byte
+   against its plain version; a ``flush`` line prints its parts (staging,
+   sort, upload, K12, readback, the host scatter of keys and objects);
 3. engine: ``make_engine("gpu")`` on the bench table at 1,000,000 keys,
-   apply -> flush, the headline aggregate alone and as depth-pipelined
+   apply -> flush (the device route; the same versions built again by
+   the host route must give equal host and device planes, byte for
+   byte: ``flush_engine``, both flushes' parts; K12 timed beside its
+   plain version and bound: ``flush_kernel``), the headline aggregate
+   alone and as depth-pipelined
    ``scan_batch_async`` batches of 32 specs; every result must equal an
    exact Python-integer oracle over the generated rows, and the kernel's
    launch count must have advanced during that run; ``torch.profiler``
@@ -46,7 +55,7 @@ line is printed:
    engine: one scan, pipelined 32-spec batches at one read point (depth
    6), one batch at 32 distinct read points (six pairs across TTL
    expiries; checked once, with the device memory it takes beyond its
-   start held under two views, then timed as the median of 5 calls,
+   start held under two views, then timed as the median of 3 calls,
    each resolving its 32 views) and one float spec (the plain flat fold
    over the view);
    every result must equal an exact oracle built on the port's host merge
@@ -58,7 +67,7 @@ line is printed:
    ``bench.py:179 bench_ycsb_e``'s 256 LIMIT-100 pages from random keys
    under ``d >= -500000``, projecting k, r, a, d) on the flat run (host
    pages, no K7) and on the multi-version run through K7 at the newest
-   and a mid read point: 6 batches checked, then 5 pipelined runs of them
+   and a mid read point: 4 batches checked, then 3 pipelined runs of them
    at depth 6 timed (median ms a batch, pages a second, K7's share); a
    full range scan of each run (chunks mode, rows a second); a selective
    paged scan (~1% of the rows, several continuation rounds); pages with
@@ -96,7 +105,22 @@ line is printed:
    K9 gives; each result against a host oracle of every source
    (``SourcesOracle``), every K9 launch byte for byte against its plain
    version, K9 timed alone;
-8. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
+8. compact: compaction with history GC (``compact_phase``). The engine
+   phase's rows and 3 waves of 350,000 one-column updates (10% DELETEs,
+   ``bench.py:1458 bench_compact``'s shape), each flushed: 4 runs of
+   2,050,000 versions, past ``HOST_GC_MASK_MAX``, compacted at the newest
+   hybrid time through K11 (``ops.compact``, ``csrc/compact.cu``): its
+   launch against its plain version and the numpy twin, the merged
+   versions of 4,000 keys against ``gc_versions`` over their history,
+   the headline spec at and past the cutoff against ``HistoryOracle``, a
+   YCSB-E batch of 256 pages against the merged run's oracle; the
+   compaction's parts, K11 timed beside its plain version, the numpy
+   twin on the same union and its bound. Then the flat engine of the
+   overlay phase (after 7): its memtable flushed, its 5 runs compacted
+   at the newest hybrid time (the numpy twin's route), and 64 YCSB-E
+   pages against every source's history (``SourcesOracle``), on a route
+   that is no longer the row scan over several sources;
+9. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
    ``workload.generate_lineitem``) applied and flushed into one flat run
    (generation and load seconds printed). Q1 and Q6 through the engine
    must equal numpy oracles exactly; the single-scan latency (median of
@@ -114,7 +138,8 @@ line is printed:
    values (a collision, re-served on the host), negative bases (the
    same), COUNT(col), an empty range, and 8 specs of distinct literals
    and read points in one launch;
-9. one JSON line listing every kernel of the path, then as the last line
+10. ``phases_s`` (each phase's wall seconds), one JSON line listing every
+   kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a result when no CUDA device is visible.
@@ -132,6 +157,10 @@ table a block; ``pr6_geometry``), as the source of commit b104a1a is:
 build/k8_pr6.cu``. ``--rows`` builds the kernels, makes the flat and
 multi-version tables, runs the rows phase, applies the overlay phase's
 waves and runs the rows phase over several sources, and exits.
+``--compact`` builds the kernels, makes the engine phase's table (its
+flush held against the host build, K12 timed), applies the overlay
+phase's waves to it as there, runs the compact phase, prints the K12
+and K11 entries of the kernels line, and exits.
 ``--rows-ab OTHER.cu[,...]`` times this tree's K7 and K9 against other
 sources of them (the same C interface) in turns on one card, on the
 engine's own launches (``rows_ab`` lines), each held byte for byte;
@@ -165,7 +194,8 @@ PLAIN_REPS = 3
 
 TRACE_BATCHES = 4
 # The CUDA kernels of the main path.
-KERNELS = ("flat_agg", "mvcc_resolve", "group_agg", "row_gather")
+KERNELS = ("flat_agg", "mvcc_resolve", "group_agg", "row_gather", "compact",
+           "flush")
 
 # Device-memory bandwidth by card (NVIDIA data sheets), bytes/s.
 _BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -729,6 +759,19 @@ class Oracle:
                 float(self.max_c[i]), float(self.abs_c[i]))
 
 
+_BENCH_ROWS: dict = {}  # make_rows of the bench table, made once
+
+
+def bench_rows(schema, n: int) -> tuple:
+    """``workload.make_rows(schema, n)``, made once a process: the engine,
+    mvcc and compact phases' tables hold the same rows (same seed)."""
+    from yugabyte_db_tpu_torch import workload
+
+    if n not in _BENCH_ROWS:
+        _BENCH_ROWS[n] = workload.make_rows(schema, n)
+    return _BENCH_ROWS[n]
+
+
 def flat_engine(device) -> SimpleNamespace:
     """The bench table at ENGINE_KEYS keys, applied and flushed into one
     flat run of a ``gpu`` engine: schema, rows, max_ht, engine, generate
@@ -738,13 +781,13 @@ def flat_engine(device) -> SimpleNamespace:
 
     t0 = time.perf_counter()
     schema = workload.make_schema()
-    rows, max_ht = workload.make_rows(schema, ENGINE_KEYS)
+    rows, max_ht = bench_rows(schema, ENGINE_KEYS)
     gen_s = time.perf_counter() - t0
     eng = make_engine("gpu", schema, {"rows_per_block": 2048,
                                       "device": device})
     t0 = time.perf_counter()
     eng.apply(rows)
-    eng.flush()
+    flush(eng, "engine")
     return SimpleNamespace(schema=schema, rows=rows, max_ht=max_ht, eng=eng,
                            gen_s=gen_s, load_s=time.perf_counter() - t0)
 
@@ -759,6 +802,8 @@ def engine_phase(device, bw: float, rate: float) -> tuple:
 
     ctx = flat_engine(device)
     schema, rows, max_ht, eng = ctx.schema, ctx.rows, ctx.max_ht, ctx.eng
+    k12_launch = write_log().last_flush
+    flush_cmp = flush_against_host_build(ctx, device)
     t0 = time.perf_counter()
     oracle = Oracle.of_rows(schema, rows)
     gen_s = ctx.gen_s + time.perf_counter() - t0
@@ -848,6 +893,13 @@ def engine_phase(device, bw: float, rate: float) -> tuple:
     table = plan.plane_table(eng.runs[0].dev.arrays)
     eng_row["kernel"] = measure(plan, table, params, device, bw, rate)
     print("engine_kernel " + json.dumps(eng_row["kernel"]))
+    # K12 at the flush of this table, timed and held (outside the counted
+    # flush).
+    eng_row["k12"] = measure_k12(k12_launch, bw, rate)
+    eng_row["k12"]["edge"] = k12_wide_edge(k12_launch)
+    eng_row["flush"] = flush_cmp
+    del k12_launch
+    print("flush_kernel " + json.dumps(eng_row["k12"]))
     return eng_row, ctx
 
 
@@ -913,7 +965,7 @@ MVCC_UPDATES = 1_000_000
 # per column.
 RESOLVE_ROW_OPS = 2 + VISIBILITY_OPS + 2 + 2
 RESOLVE_COL_OPS = 2
-MIXED_REPS = 5  # timed calls of the 32-read-point batch
+MIXED_REPS = 3  # timed calls of the 32-read-point batch
 
 
 class HistoryOracle:
@@ -1136,7 +1188,7 @@ def mvcc_engine(device) -> tuple:
 
     t0 = time.perf_counter()
     schema = workload.make_schema()
-    rows, load_ht = workload.make_rows(schema, MVCC_KEYS)
+    rows, load_ht = bench_rows(schema, MVCC_KEYS)
     updates, max_ht = workload.make_update_rows(schema, rows, load_ht,
                                                 MVCC_UPDATES)
     gen_s = time.perf_counter() - t0
@@ -1145,7 +1197,7 @@ def mvcc_engine(device) -> tuple:
     t0 = time.perf_counter()
     eng.apply(rows)
     eng.apply(updates)
-    eng.flush()
+    flush(eng, "mvcc")
     return (schema, rows, updates, load_ht, max_ht, eng, gen_s,
             time.perf_counter() - t0)
 
@@ -1539,7 +1591,7 @@ def overlay_flat(ctx, device, bw: float, rate: float) -> dict:
     for w in range(WAVES):
         eng.apply(waves[w])
         if w < WAVES - 1:
-            eng.flush()
+            flush(eng, "overlay")
     apply_s = time.perf_counter() - t0
     versions = (sum(t.crun.num_versions for t in eng.runs)
                 + eng.memtable.num_versions)
@@ -1799,8 +1851,8 @@ def overlay_phase(device, bw: float, rate: float, flat=None,
 
 # -- phase 5 and 7: row scans (K7 and K9) ------------------------------------
 
-YCSB_BATCHES = 6     # batches a pipelined run (bench_ycsb_e: depth 6)
-YCSB_REPS = 5        # pipelined runs a configuration; the median is kept
+YCSB_BATCHES = 4     # batches a pipelined run, at depth 6 (bench_ycsb_e: 6)
+YCSB_REPS = 3        # pipelined runs a configuration; the median is kept
 SELECTIVE_LO = 980_000  # d >= this: about 1% of the rows
 SUPERSET_KEYS = 100_000
 SUPERSET_PAGES = 32
@@ -2225,7 +2277,7 @@ def superset_engine(device):
     eng = make_engine("gpu", schema, {"rows_per_block": 2048,
                                       "device": device})
     eng.apply(rows)
-    eng.flush()
+    flush(eng, "rows")
     return eng, 100 + SUPERSET_KEYS
 
 
@@ -2664,6 +2716,582 @@ def rows_sources_phase(device, bw: float, rate: float, flat,
     return row
 
 
+# -- the write side: K12 on every flush, K11 in compactions -----------------
+
+K12_LAUNCHES: dict = {}  # K12 launches of each path's flushes
+FLUSHES: list = []       # every flush of the smoke's tables, with its parts
+FLUSH_SLOT_OPS = 8       # integer operations an output slot needs (its
+# block's test, the inverted dst's lookup, the fill's selects)
+GC_ROW_OPS = 24          # integer operations a union row of the mask needs
+GC_COL_OPS = 2           # (visibility, shadowing, alive, the contributor
+# ballots, the span and keep tests; a set test and a select a column)
+COMPACT_WAVES = 3        # bench.py:1458 bench_compact: 3 update waves of
+COMPACT_SHARE = 0.35     # 35% of the keys each, 10% of them DELETEs
+COMPACT_SAMPLE = 4000    # keys whose merged versions are held against GC
+TWIN_REPS = 3            # timed runs of the numpy twin on the K11 union
+_WRITE_LOG = None
+
+
+class WriteLog:
+    """The engine's K12 and K11 launches, recorded (inputs and output)
+    through proxies of ``ops.flush`` / ``ops.compact`` that the engine
+    module reads, to be held byte for byte against the plain versions
+    after the flush or compaction that made them; ``last_flush`` keeps
+    the latest K12 launch for timing."""
+
+    def __init__(self):
+        from yugabyte_db_tpu_torch.ops import compact, flush as dflush
+        from yugabyte_db_tpu_torch.storage import gpu_engine
+
+        self.dflush, self.compact = dflush, compact
+        self.flushes, self.masks = [], []
+        self.last_flush = None
+
+        def replay(*args):
+            out = dflush.replay_flush(*args)
+            self.flushes.append((args, out))
+            self.last_flush = (args, out)
+            return out
+
+        def mask(*args):
+            keep = compact.resident_gc_mask(*args)
+            self.masks.append((args, keep))
+            return keep
+
+        fp = SimpleNamespace(**vars(dflush))
+        fp.replay_flush = replay
+        cp = SimpleNamespace(**vars(compact))
+        cp.resident_gc_mask = mask
+        gpu_engine.dflush, gpu_engine.dcompact = fp, cp
+
+    def verify_flushes(self) -> int:
+        """Every recorded K12 launch against ``replay_flush_plain`` on the
+        same inputs: the number held (the phase fails on any difference)."""
+        import torch
+
+        err = 0
+        for args, out in self.flushes:
+            err = max(err, view_diff(out, self.dflush.replay_flush_plain(
+                *args)))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        check(err == 0, f"K12 differs from its plain version by {err}")
+        n = len(self.flushes)
+        self.flushes = []
+        return n
+
+
+def write_log() -> WriteLog:
+    global _WRITE_LOG
+    if _WRITE_LOG is None:
+        _WRITE_LOG = WriteLog()
+    return _WRITE_LOG
+
+
+def flush(eng, path: str) -> dict:
+    """``eng.flush()`` of one of the smoke's tables: it must take the
+    device route and launch K12 (its count set to 0 just before, read
+    just after, added to ``K12_LAUNCHES[path]``), and the launch must equal
+    the plain version byte for byte. Prints the flush's parts (ms)."""
+    from yugabyte_db_tpu_torch.ops import flush as dflush
+
+    log = write_log()
+    before = dict(eng.flush_paths)
+    dflush.replay_flush.launches = 0
+    t0 = time.perf_counter()
+    eng.flush()
+    wall = time.perf_counter() - t0
+    n = dflush.replay_flush.launches
+    check(eng.flush_paths == {"device": before["device"] + 1,
+                              "host": before["host"]},
+          f"a flush of the {path} phase's table took the host route")
+    check(n > 0, f"a flush of the {path} phase's table launched K12 0 times")
+    K12_LAUNCHES[path] = K12_LAUNCHES.get(path, 0) + n
+    rec = {"path": path, "versions": eng.runs[-1].crun.num_versions,
+           "launches": n, "wall_ms": wall * 1e3,
+           **{k[:-2] + "_ms": v * 1e3 for k, v in eng.last_flush.items()
+              if k.endswith("_s")}}
+    t0 = time.perf_counter()
+    rec["held"] = log.verify_flushes()
+    rec["hold_ms"] = (time.perf_counter() - t0) * 1e3
+    FLUSHES.append(rec)
+    print("flush " + json.dumps(rec))
+    return rec
+
+
+def runs_differ(a, b) -> list:
+    """The fields in which two ColumnarRuns differ: every host plane, the
+    row keys and versions, the block bounds, the metadata."""
+    bad = []
+    for name in ("valid", "group_start", "tomb", "live", "ht_hi", "ht_lo",
+                 "exp_hi", "exp_lo", "key_planes", "row_keys"):
+        if not np.array_equal(getattr(a, name), getattr(b, name)):
+            bad.append(name)
+    if not all(x is y for x, y in zip(a.row_versions.ravel(),
+                                      b.row_versions.ravel())):
+        bad.append("row_versions")
+    for cid, ca in a.cols.items():
+        cb = b.cols[cid]
+        for f in ("set_", "isnull", "cmp_planes", "arith"):
+            x, y = getattr(ca, f), getattr(cb, f)
+            if (x is None) != (y is None) or (
+                    x is not None and not np.array_equal(x.view(np.uint8),
+                                                         y.view(np.uint8))):
+                bad.append(f"{cid}.{f}")
+        if ca.varlen != cb.varlen:
+            bad.append(f"{cid}.varlen")
+    if [(m.min_key, m.max_key, m.num_valid) for m in a.blocks] != \
+            [(m.min_key, m.max_key, m.num_valid) for m in b.blocks]:
+        bad.append("blocks")
+    for f in ("B", "R", "num_versions", "min_key", "max_key", "max_ht",
+              "max_group_versions", "max_key_len", "varlen_max_len"):
+        if getattr(a, f) != getattr(b, f):
+            bad.append(f)
+    return bad
+
+
+def flush_against_host_build(ctx, device) -> dict:
+    """The engine phase's table built again from the same versions by the
+    host route (``drain_sorted`` + ``ColumnarRun.build``, then the
+    upload): every host plane and every device plane of the two runs must
+    be equal byte for byte. Both flushes' parts (ms)."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+    from yugabyte_db_tpu_torch.storage.columnar import ColumnarRun
+    from yugabyte_db_tpu_torch.storage.gpu_engine import PAD_BLOCKS
+    from yugabyte_db_tpu_torch.storage.memtable import MemTable
+
+    trun = ctx.eng.runs[0]
+    mem = MemTable()
+    mem.apply(ctx.rows)
+    t0 = time.perf_counter()
+    entries = mem.drain_sorted()
+    t1 = time.perf_counter()
+    crun = ColumnarRun.build(ctx.schema, entries, trun.crun.R)
+    t2 = time.perf_counter()
+    dev = DeviceRun(crun, PAD_BLOCKS, device=device)
+    torch.cuda.synchronize() if torch.cuda.is_available() else None
+    t3 = time.perf_counter()
+    bad = runs_differ(trun.crun, crun)
+    check(not bad, f"the device flush's host planes differ from the host "
+                   f"build's: {bad}")
+    err = view_diff(trun.dev.arrays, dev.arrays)
+    check(err == 0, f"the device flush's device planes differ from the "
+                    f"host build's upload by {err}")
+    device_parts = next(f for f in FLUSHES if f["path"] == "engine")
+    out = {"versions": crun.num_versions, "device": device_parts,
+           "host": {"drain_ms": (t1 - t0) * 1e3, "build_ms": (t2 - t1) * 1e3,
+                    "upload_ms": (t3 - t2) * 1e3,
+                    "wall_ms": (t3 - t0) * 1e3},
+           "host_planes_equal": True, "device_planes_equal": True}
+    print("flush_engine " + json.dumps(out))
+    return out
+
+
+def measure_k12(launch, bw: float, rate: float) -> dict:
+    """One recorded K12 launch timed (CUDA events, median of KERNEL_REPS,
+    queued behind a sleeping kernel) beside its plain version and its
+    bound: ``replay_bytes`` over the bandwidth, or FLUSH_SLOT_OPS an
+    output slot over the integer rate, whichever is larger."""
+    from yugabyte_db_tpu_torch.ops import flush as dflush
+
+    args, _out = launch
+    staged, perm, dst, _gs, is_real, _eh, _el, R = args
+    Bp = int(is_real.shape[0])
+    n = int((dst < Bp * R).sum())
+    ms = cuda_ms(lambda: dflush.replay_flush(*args), KERNEL_REPS,
+                 queue_ahead=True)
+    plain = cuda_ms(lambda: dflush.replay_flush_plain(*args), PLAIN_REPS)
+    nbytes = dflush.replay_bytes(staged, n, int(perm.shape[0]), Bp, R)
+    ops = float(FLUSH_SLOT_OPS) * Bp * R
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / rate * 1e3
+    return {"rows": n, "slots": Bp * R, "columns": len(staged["cols"]),
+            "ms": ms, "plain_ms": plain, "library_ms": None,
+            "bytes": int(nbytes), "operations": ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": 0}
+
+
+def k12_wide_edge(launch) -> dict:
+    """K12 past MAX_COLS value columns (the recorded launch's columns
+    repeated under MAX_COLS + 2 ids: two launches, the second writing its
+    columns only), byte for byte against the plain version; untimed."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import flush as dflush
+
+    (staged, *rest), _out = launch
+    cids = list(staged["cols"])
+    wide = dict(staged, cols={100 + i: staged["cols"][cids[i % len(cids)]]
+                              for i in range(dflush.MAX_COLS + 2)})
+    before = dflush.replay_flush.launches
+    got = dflush.replay_flush(wide, *rest)
+    n = dflush.replay_flush.launches - before
+    err = view_diff(got, dflush.replay_flush_plain(wide, *rest))
+    torch.cuda.synchronize() if torch.cuda.is_available() else None
+    check(err == 0 and n == 2, f"K12 over {len(wide['cols'])} value "
+                               f"columns: {n} launches, difference {err}")
+    return {"columns": len(wide["cols"]), "launches": n, "max_abs_err": err}
+
+
+def k11_edges(launch) -> dict:
+    """K11 on the recorded launch's union with pad rows appended (idx -1,
+    a group of their own) and with its columns repeated to 42 (the
+    kernel's second word of column flags), each byte for byte against
+    the plain version and the numpy twin; untimed."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import compact
+
+    (runs, idx, new_group, starts, cut), _keep = launch
+    pads = 1000
+    dev = idx.device
+    padded = (runs, torch.cat([idx, torch.full((pads,), -1, dtype=idx.dtype,
+                                               device=dev)]),
+              torch.cat([new_group, torch.arange(pads, device=dev) == 0]),
+              torch.cat([starts, torch.tensor([idx.shape[0]],
+                                              dtype=starts.dtype,
+                                              device=dev)]), cut)
+    wide_runs = tuple(dict(r, sets=tuple(r["sets"][i % len(r["sets"])]
+                                         for i in range(42))) for r in runs)
+    out = {}
+    for label, args in (("pads", padded),
+                        ("cols42", (wide_runs, idx, new_group, starts, cut))):
+        before = compact.resident_gc_mask.launches
+        keep = compact.resident_gc_mask(*args)
+        check(compact.resident_gc_mask.launches - before == 1,
+              f"K11 edge {label}: not one launch")
+        out[label] = {"rows": int(args[1].shape[0]),
+                      "columns": len(args[0][0]["sets"]),
+                      "max_abs_err": hold_mask((args, keep))}
+    return out
+
+
+def hold_mask(launch) -> int:
+    """A recorded K11 launch against its plain version on the card and
+    against the numpy twin on the host: the largest difference (0 or the
+    phase fails)."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import compact
+
+    (runs_planes, idx, new_group, _starts, cut), keep = launch
+    s = compact.gather_union(runs_planes, idx)
+    s["new_group"] = new_group
+    num_cols = len(runs_planes[0]["sets"])
+    plain = compact.gc_mask_plain(num_cols, s, cut)
+    host = {k: (v.cpu().numpy() if k != "set_" else
+                [x.cpu().numpy() for x in v]) for k, v in s.items()}
+    twin = compact.gc_mask_host(num_cols, host, cut)
+    torch.cuda.synchronize() if torch.cuda.is_available() else None
+    got = keep.cpu().numpy()
+    err = int((got != plain.cpu().numpy()).sum()) + int((got != twin).sum())
+    check(err == 0, f"K11 differs from its plain version or the numpy twin "
+                    f"in {err} rows")
+    return err
+
+
+def measure_k11(launch, bw: float, rate: float) -> dict:
+    """One recorded K11 launch timed (CUDA events, median of KERNEL_REPS)
+    beside its plain version on the card, the numpy twin on the same
+    union (host clock, median of TWIN_REPS, the union's planes gathered
+    beforehand) and its bound: ``mask_bytes`` over the bandwidth, or the
+    integer operations over the rate, whichever is larger."""
+    from yugabyte_db_tpu_torch.ops import compact
+
+    (runs_planes, idx, new_group, starts, cut), _keep = launch
+    num_cols = len(runs_planes[0]["sets"])
+    N, G = int(idx.shape[0]), int(starts.shape[0])
+    ms = cuda_ms(lambda: compact.resident_gc_mask(*launch[0]), KERNEL_REPS,
+                 queue_ahead=True)
+
+    def plain():
+        s = compact.gather_union(runs_planes, idx)
+        s["new_group"] = new_group
+        return compact.gc_mask_plain(num_cols, s, cut)
+
+    plain_ms = cuda_ms(plain, PLAIN_REPS)
+    s = compact.gather_union(runs_planes, idx)
+    s["new_group"] = new_group
+    host = {k: (v.cpu().numpy() if k != "set_" else
+                [x.cpu().numpy() for x in v]) for k, v in s.items()}
+    twin = []
+    for _ in range(TWIN_REPS):
+        t0 = time.perf_counter()
+        compact.gc_mask_host(num_cols, host, cut)
+        twin.append((time.perf_counter() - t0) * 1e3)
+    nbytes = compact.mask_bytes(num_cols, N, G)
+    ops = float(N) * (GC_ROW_OPS + GC_COL_OPS * num_cols)
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / rate * 1e3
+    return {"rows": N, "groups": G, "columns": num_cols, "ms": ms,
+            "plain_ms": plain_ms, "twin_ms": statistics.median(twin),
+            "twin_ms_each": twin, "library_ms": None, "bytes": int(nbytes),
+            "operations": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": 0}
+
+
+def check_pages(eng, specs, oracle, route: str, label: str,
+                sources=None) -> dict:
+    """A batch of pages through the engine, each against the run oracle
+    (rows, resume key and ``rows_scanned`` on ``route``) and, given
+    ``sources`` (a SourcesOracle of the history), its rows and resume key
+    against that too. Returns the batch's ms and route."""
+    preds = [SmokePred("d", ">=", -500_000, "i32")]
+    t0 = time.perf_counter()
+    got = eng.scan_batch(specs)
+    ms = (time.perf_counter() - t0) * 1e3
+    for j, (s, r) in enumerate(zip(specs, got)):
+        check_page(r, oracle.page(s, preds, route, 104), f"{label} page {j}")
+        if sources is not None:
+            rows, resume, _scanned = sources.scan(s, preds)
+            check(r.rows == rows and r.resume_key == resume,
+                  f"{label} page {j}: rows differ from the history's")
+    return {"pages": len(specs), "batch_ms": ms, "route": route}
+
+
+def compact_phase(device, bw: float, rate: float, flat) -> dict:
+    """Compaction with history GC. First ``bench.py:1458 bench_compact``'s
+    shape on the bench table: ENGINE_KEYS keys (the engine phase's rows)
+    and COMPACT_WAVES waves of one-column updates (10% DELETEs), each
+    flushed by the device route: 4 runs past HOST_GC_MASK_MAX versions,
+    compacted at the newest hybrid time (full history GC) through K11.
+    K11's launch against its plain version and the numpy twin; the
+    merged entries of COMPACT_SAMPLE keys against ``gc_versions`` over
+    the history; the headline spec at read points at and past the cutoff
+    against the history oracle, a YCSB-E batch of 256 pages against the
+    merged run's oracle. Then the overlay phase's flat engine (4 runs and
+    a live memtable, after the rows over several sources): flushed,
+    compacted at its newest hybrid time (the numpy twin's route), and 64
+    YCSB-E pages against the history (``SourcesOracle``)."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import compact
+    from yugabyte_db_tpu_torch.storage import gpu_engine, make_engine
+    from yugabyte_db_tpu_torch.storage.cpu_engine import gc_versions
+
+    t_phase = time.perf_counter()
+    out = {"card": nvidia_smi()}
+    schema, rows = flat.schema, flat.rows
+    t0 = time.perf_counter()
+    waves, max_ht = workload.make_compact_waves(
+        [r.key for r in rows], schema, flat.max_ht, COMPACT_WAVES,
+        COMPACT_SHARE)
+    gen_s = time.perf_counter() - t0
+    eng = make_engine("gpu", schema, {"rows_per_block": 2048,
+                                      "device": device})
+    t0 = time.perf_counter()
+    eng.apply(rows)
+    flush(eng, "compact")
+    for wave in waves:
+        eng.apply(wave)
+        flush(eng, "compact")
+    load_s = time.perf_counter() - t0
+    N = sum(t.crun.num_versions for t in eng.runs)
+    check(len(eng.runs) == COMPACT_WAVES + 1 and
+          N > gpu_engine.HOST_GC_MASK_MAX,
+          f"{len(eng.runs)} runs of {N} versions: the union does not take "
+          "K11")
+    t0 = time.perf_counter()
+    updates = [r for wave in waves for r in wave]
+    history = HistoryOracle(schema, rows, updates)
+    cutoff = max_ht
+    reads = [cutoff, cutoff + 1 + (1 << 20)]
+    oracles = history.at_reads(reads)
+    oracle_s = time.perf_counter() - t0
+
+    log = write_log()
+    log.masks = []
+    compact.resident_gc_mask.launches = 0
+    t0 = time.perf_counter()
+    eng.compact(cutoff)
+    wall = time.perf_counter() - t0
+    launches = compact.resident_gc_mask.launches
+    check(launches > 0, "the compaction launched K11 0 times")
+    check(eng.compact_paths == {"k11": 1, "twin": 0, "host": 0},
+          f"compaction routes {eng.compact_paths}")
+    parts = {k[:-2] + "_ms": v * 1e3 for k, v in eng.last_compact.items()
+             if k.endswith("_s")}
+    launch = log.masks[-1]
+    log.masks = []
+    t0 = time.perf_counter()
+    held_err = hold_mask(launch)
+    crun = eng.runs[0].crun
+    steps = {"hold_k11_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+
+    # The merged entries of a sample of keys against the GC rule over
+    # each key's whole history.
+    by_key: dict = {}
+    for r in updates:
+        by_key.setdefault(r.key, []).append(r)
+    rng = random.Random(3)
+    sample = rng.sample(range(ENGINE_KEYS), COMPACT_SAMPLE)
+    for i in sample:
+        key = rows[i].key
+        versions = sorted([rows[i]] + by_key.get(key, []),
+                          key=lambda v: (-v.ht, -v.write_id))
+        want = gc_versions(key, versions, cutoff)
+        got = crun.find_versions(key)
+        check([id(v) for v in got] == [id(v) for v in want],
+              f"merged versions of key {i} differ from the GC rule's")
+    sizes = collections.Counter(
+        len(v) for v in (crun.find_versions(rows[i].key) for i in sample))
+    steps["sample_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+
+    # Reads at and past the cutoff.
+    route = eng._plan_scan(workload.headline_spec(cutoff)).route
+    for rd in reads:
+        for lo in (-500_000, 0, 400_000):
+            got = eng.scan(workload.headline_spec(rd, lo)).rows[0]
+            check(got == oracles[rd].headline(lo),
+                  f"compacted scan at {rd}, d >= {lo}: {got} != "
+                  f"{oracles[rd].headline(lo)}")
+    read = reads[-1]
+    steps["headline_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kv = {r.key: [f"user{i:06d}", i % 7] for i, r in enumerate(rows)}
+    r_oracle = RunOracle.at_reads(schema, crun, [read], ("a", "c", "d"),
+                                  kv)[0]
+    steps["run_oracle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    specs = workload.ycsb_e_batch(schema, ENGINE_KEYS, read,
+                                  random.Random(29))
+    page_route = eng._plan_scan(specs[0])[0]
+    ycsb = check_pages(eng, specs, r_oracle,
+                       "gather" if page_route == "gather" else "page",
+                       "compacted ycsb_e")
+    ycsb["route"] = page_route
+    steps["ycsb_e_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k11 = measure_k11(launch, bw, rate)
+    k11["edges"] = k11_edges(launch)
+    del launch
+    steps["k11_timing_s"] = time.perf_counter() - t0
+    out.update({
+        "keys": ENGINE_KEYS, "waves": COMPACT_WAVES,
+        "per_wave": len(waves[0]), "versions": N, "runs": COMPACT_WAVES + 1,
+        "cutoff": cutoff, "generate_s": gen_s, "apply_flush_s": load_s,
+        "oracle_s": oracle_s, "compact_wall_ms": wall * 1e3,
+        "compact_parts_ms": parts, "kept": crun.num_versions,
+        "merged_max_group_versions": crun.max_group_versions,
+        "merged_flat": crun.max_group_versions <= 1,
+        "sample_versions_per_key": dict(sorted(sizes.items())),
+        "headline_route": route, "ycsb_e": ycsb, "launches": launches,
+        "held_max_abs_err": held_err, "steps_s": steps, "k11": k11})
+    print("compact_k11 " + json.dumps({k: v for k, v in out.items()
+                                       if k != "k11"}))
+    print("compact_k11_kernel " + json.dumps(k11))
+    del eng, history, oracles, r_oracle
+    torch.cuda.empty_cache()
+
+    # The overlay phase's flat engine: its memtable flushed, then all its
+    # runs compacted at the newest hybrid time.
+    fe = flat.eng
+    read = flat.sources_read_ht
+    t0 = time.perf_counter()
+    sources = SourcesOracle(flat.schema, fe, flat.rows, read)
+    steps = {"sources_oracle_s": time.perf_counter() - t0}
+    before = {"runs": len(fe.runs),
+              "memtable_versions": fe.memtable.num_versions}
+    flush(fe, "compact")
+    N = sum(t.crun.num_versions for t in fe.runs)
+    t0 = time.perf_counter()
+    fe.compact(read - 1)
+    wall = time.perf_counter() - t0
+    check(fe.compact_paths["twin"] == 1 and fe.compact_paths["k11"] == 0,
+          f"the overlay engine's compaction took {fe.compact_paths}")
+    parts = {k[:-2] + "_ms": v * 1e3 for k, v in fe.last_compact.items()
+             if k.endswith("_s")}
+    crun = fe.runs[0].crun
+    t0 = time.perf_counter()
+    r_oracle = RunOracle.at_reads(flat.schema, crun, [read],
+                                  ("a", "c", "d"), kv)[0]
+    steps["run_oracle_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    specs = workload.ycsb_e_batch(flat.schema, ENGINE_KEYS, read,
+                                  random.Random(23), SOURCE_PAGES)
+    page_route = fe._plan_scan(specs[0])[0]
+    pages = check_pages(fe, specs, r_oracle,
+                        "gather" if page_route == "gather" else "page",
+                        "overlay engine compacted", sources)
+    pages["route"] = page_route
+    check(page_route != "host",
+          "the pages after compaction still take the row scan over "
+          "several sources")
+    steps["pages_s"] = time.perf_counter() - t0
+    out["overlay"] = dict(before, versions=N, cutoff=read - 1,
+                          steps_s=steps, compact_wall_ms=wall * 1e3,
+                          compact_parts_ms=parts, kept=crun.num_versions,
+                          merged_max_group_versions=crun.max_group_versions,
+                          pages=pages)
+    print("compact_overlay " + json.dumps(out["overlay"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def write_entries(eng_k12: dict, comp: dict) -> list:
+    """The kernels line's K12 and K11 entries: K12 at the engine phase's
+    flush (1,000,000 keys), its launches on every path's flushes (each
+    held byte for byte); K11 at the compact phase's 4-run union."""
+    k11 = comp["k11"]
+    held = sum(f["held"] for f in FLUSHES)
+    return [{
+        "name": "replay_flush", "route": "cuda",
+        "source": "yugabyte_db_tpu_torch/csrc/flush.cu",
+        "replaces": "yugabyte_db_tpu/ops/flush.py:38",
+        "launches": sum(K12_LAUNCHES.values()),
+        "launches_by_path": dict(K12_LAUNCHES), "held": held,
+        "max_abs_err": 0, "max_abs_diff": 0, "ms": eng_k12["ms"],
+        "plain_ms": eng_k12["plain_ms"], "bound_ms": eng_k12["bound_ms"],
+        "bound_by": eng_k12["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call writes every plane of a "
+                        "run from a permutation and its padding (an "
+                        "index_put_ a plane is the plain version)",
+        "rows": eng_k12["rows"], "slots": eng_k12["slots"]}, {
+        "name": "gc_mask", "route": "cuda",
+        "source": "yugabyte_db_tpu_torch/csrc/compact.cu",
+        "replaces": "yugabyte_db_tpu/ops/compact.py:166",
+        "launches": comp["launches"],
+        "launches_by_path": {"compact": comp["launches"]},
+        "max_abs_err": comp["held_max_abs_err"],
+        "max_abs_diff": comp["held_max_abs_err"], "ms": k11["ms"],
+        "plain_ms": k11["plain_ms"], "bound_ms": k11["bound_ms"],
+        "bound_by": k11["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call computes a segmented "
+                        "retention mask (a scatter_reduce and cumsum "
+                        "composite is the plain version)",
+        "twin_ms": k11["twin_ms"], "rows": k11["rows"]}]
+
+
+def compact_alone(device, bw: float, rate: float) -> None:
+    """The compact phase without the others: the engine phase's table
+    (flushed by K12, held against the host build), the overlay phase's
+    waves on it (applied and flushed as there), and the kernels line's
+    K12 and K11 entries."""
+    from yugabyte_db_tpu_torch import workload
+
+    flat = flat_engine(device)
+    flush_against_host_build(flat, device)
+    k12 = measure_k12(write_log().last_flush, bw, rate)
+    k12["edge"] = k12_wide_edge(write_log().last_flush)
+    print("flush_kernel " + json.dumps(k12))
+    ht = flat.max_ht
+    for w in range(WAVES + 1):
+        wave, ht = workload.make_wave_rows(flat.schema, ENGINE_KEYS,
+                                           ENGINE_KEYS // 50, ht, seed=21 + w)
+        flat.eng.apply(wave)
+        if w < WAVES - 1:
+            flush(flat.eng, "overlay")
+    flat.sources_read_ht = ht + 1
+    comp = compact_phase(device, bw, rate, flat)
+    print(json.dumps({"kernels": write_entries(k12, comp)}))
+
+
 # -- phase 6: GROUP BY and expression aggregates (TPC-H Q1/Q6, K8) -------
 
 LINEITEM_ROWS = 6_001_215  # TPC-H SF1 (workload.SF1_ROWS)
@@ -2673,6 +3301,7 @@ MV_LINEITEM_UPDATES = 1_000_000
 TPCH_BATCH = 8      # bench.py:1003 bench_tpch: 10 batches of 8 Q1 specs,
 TPCH_BATCHES = 10   # depth 4, after 4 warm-up batches
 TPCH_DEPTH = 4
+LATENCY_REPS = 3    # timed single Q1 / Q6 scans; the median is kept
 GROUP_EDGE_ROWS = 20_000
 # Integer operations per row that the function needs, beside each
 # column's set/isnull pair (decode_ops) and the read point's visibility
@@ -2766,7 +3395,7 @@ def lineitem_engine(device, n_rows: int, n_updates: int = 0):
                                           "device": device})
         t0 = time.perf_counter()
         eng.apply(rows)
-        eng.flush()
+        flush(eng, "grouped")
         load_s = time.perf_counter() - t0
         del rows
     finally:
@@ -2922,7 +3551,7 @@ def group_edges(device) -> dict:
         eng = make_engine("gpu", schema, {"rows_per_block": LINEITEM_R,
                                           "device": device})
         eng.apply(rs)
-        eng.flush()
+        flush(eng, "grouped")
         by_key = {r.key: [r] for r in rs}
         read = max_ht + 1
         cases = {"q1": [workload.q1_spec(read)]}
@@ -3016,7 +3645,7 @@ def grouped_phase(device, bw: float, rate: float) -> dict:
     lat = {}
     for name, spec in (("q1", q1), ("q6", q6)):
         ts = []
-        for _ in range(5):
+        for _ in range(LATENCY_REPS):
             t = time.perf_counter()
             eng.scan(spec)
             ts.append(time.perf_counter() - t)
@@ -3401,7 +4030,7 @@ def rows_alone(device, bw: float, rate: float) -> None:
                                            ENGINE_KEYS // 50, ht, seed=21 + w)
         flat.eng.apply(wave)
         if w < WAVES - 1:
-            flat.eng.flush()
+            flush(flat.eng, "overlay")
     flat.sources_read_ht = ht + 1
     eng.apply(workload.make_update_rows(schema, rows, max_ht,
                                         MVCC_KEYS // 50)[0])
@@ -3494,6 +4123,9 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--rows":
         rows_alone(device, bw, rate)
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--compact":
+        compact_alone(device, bw, rate)
+        return 0
 
     def timed(name, phase, *args):
         t = time.perf_counter()
@@ -3507,6 +4139,7 @@ def main() -> int:
     rows = timed("rows", rows_phase, flat, mvcc)
     ov = timed("overlay", overlay_phase, flat, mvcc)
     sources = timed("rows_sources", rows_sources_phase, flat, mvcc)
+    comp = timed("compact", compact_phase, flat)
     del flat, mvcc
     torch.cuda.empty_cache()
     grp = timed("grouped", grouped_phase)
@@ -3557,7 +4190,8 @@ def main() -> int:
         "overlay_mid_bound_ms": ovm["resolve"]["mid"]["bound_ms"],
         "overlay_long_group_ms": ovm["resolve"]["long"]["ms"],
         "overlay_long_group_bound_ms": ovm["resolve"]["long"]["bound_ms"]},
-        group_agg_entry(grp), *row_path_entries(rows, sources)]}))
+        group_agg_entry(grp), *row_path_entries(rows, sources),
+        *write_entries(eng["k12"], comp)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

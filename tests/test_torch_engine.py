@@ -464,4 +464,7 @@ def test_device_defaults_to_cuda():
     eng = T.make_engine("gpu", ps, {"device": "cpu"})
     assert eng.stats() == {"num_runs": 0, "memtable_versions": 0,
                            "run_versions": 0, "flushed_frontier_ht": 0,
-                           "device_bytes": 0}
+                           "device_bytes": 0,
+                           "flush_paths": {"device": 0, "host": 0},
+                           "compact_paths": {"k11": 0, "twin": 0,
+                                             "host": 0}}

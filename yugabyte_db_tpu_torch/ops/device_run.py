@@ -110,6 +110,20 @@ class DeviceRun:
         self._adopt(planes, R, resolve_device(device))
         return self
 
+    @classmethod
+    def from_arrays(cls, arrays: dict, R: int) -> "DeviceRun":
+        """Adopt planes made ON the device (``ops.flush.replay_flush``)
+        instead of uploading host planes: the arrays must already carry
+        this class's padding encoding, the block axis padded to the window
+        multiple. A flush seeds its run this way with no host-to-device
+        upload."""
+        self = cls.__new__(cls)
+        self.device = arrays["valid"].device
+        self.R = int(R)
+        self.arrays = arrays
+        self.B = int(arrays["valid"].shape[0])
+        return self
+
     def _adopt(self, planes: dict, R: int, device: torch.device) -> None:
         def up(arr):
             arr = np.ascontiguousarray(np.asarray(arr))

@@ -1,0 +1,268 @@
+"""Device memtable flush: the replay scatter K12, its plain version and the
+flushed planes' size.
+
+The JAX package's ``ops/flush.py``. The host stages the memtable's
+apply-order rows as flat planes through the columnar encoders, computes
+the flush sort permutation and the block packing over memcmp sort keys
+(exact whenever keys fit the 32-byte prefix planes), and one launch then
+writes the SORTED, BLOCK-PACKED run planes, already padded to the
+``DeviceRun`` block multiple:
+
+    out[dst[j]] = staged[perm[j]]
+
+for every fixed-width plane at once, and the padding and unfilled-row
+encoding everywhere else. The engine adopts the output as the run's
+device planes (no second upload) and reads the host planes back from it,
+so both are byte-identical by construction.
+
+- ``replay_flush``: the wrapper of the CUDA kernel ``csrc/flush.cu`` (K12)
+  for CUDA tensors; on CPU tensors it runs ``replay_flush_plain``.
+  ``replay_flush.launches`` counts launches;
+- ``replay_flush_plain``: the function in torch ops (an ``index_put_`` a
+  plane), the counterpart of the JAX ``replay_flush``;
+- ``flush_plane_nbytes``: the JAX function's device footprint estimate of
+  the replayed planes (its budget gate waits for the residency budget,
+  ROADMAP.md §1 item 11);
+- ``replay_bytes``: the bytes the function must move, for the bound.
+
+Only the plain ``cmp`` route: the dictionary ``codes`` route of string
+columns comes with the encoded planes (item 8).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from yugabyte_db_tpu_torch.ops import native
+
+MAX_COLS = 32  # value columns one launch writes; csrc/flush.cu kMaxCols
+# The staged planes every row has, and the output's, in the kernel's
+# order, with their types.
+_TOP = {"ht_hi": torch.int32, "ht_lo": torch.int32, "exp_hi": torch.int32,
+        "exp_lo": torch.int32, "tomb": torch.bool, "live": torch.bool}
+_OUT_TOP = {"valid": torch.bool, "group_start": torch.bool,
+            "tomb": torch.bool, "live": torch.bool, "ht_hi": torch.int32,
+            "ht_lo": torch.int32, "exp_hi": torch.int32,
+            "exp_lo": torch.int32}
+
+
+def _empty_tree(staged: dict, Bp: int, R: int, device) -> dict:
+    out = {name: torch.empty((Bp, R), dtype=dt, device=device)
+           for name, dt in _OUT_TOP.items()}
+    out["cols"] = {}
+    for cid, col in staged["cols"].items():
+        entry = {"set": torch.empty((Bp, R), dtype=torch.bool, device=device),
+                 "isnull": torch.empty((Bp, R), dtype=torch.bool,
+                                       device=device),
+                 "cmp": torch.empty((Bp, R, col["cmp"].shape[1]),
+                                    dtype=torch.int32, device=device)}
+        if "arith" in col:
+            entry["arith"] = torch.empty((Bp, R), dtype=torch.float32,
+                                         device=device)
+        out["cols"][cid] = entry
+    return out
+
+
+def replay_flush_plain(staged: dict, perm, dst, gs, is_real,
+                       exp_hi_default: int, exp_lo_default: int,
+                       R: int) -> dict:
+    """The JAX ``replay_flush`` in torch ops. ``staged``: {ht_hi, ht_lo,
+    exp_hi, exp_lo: [m] int32; tomb, live: [m] bool; cols: {cid: {set,
+    isnull: [m] bool, cmp: [m, P] int32, arith?: [m] float32}}}, the
+    apply-order rows; ``perm[j]``: the staged row of sorted position j;
+    ``dst[j]``: its flat output slot (out of range: dropped); ``gs[j]``:
+    its group-start bit; ``is_real`` [Bp] bool: the blocks the run owns
+    (padding blocks keep valid False, group_start True, expiry 0; a real
+    block's unfilled rows get the default expiry). Returns the
+    ``DeviceRun.arrays`` tree of [Bp, R] planes."""
+    Bp = is_real.shape[0]
+    S = Bp * R
+    device = is_real.device
+    ok = (dst >= 0) & (dst < S)
+    d = dst[ok].to(torch.int64)
+    src = perm[ok].to(torch.int64)
+
+    def scat(init, vals):
+        init[d] = vals[src]
+        return init.reshape((Bp, R) + tuple(init.shape[1:]))
+
+    def zeros(dtype, tail=()):
+        return torch.zeros((S,) + tuple(tail), dtype=dtype, device=device)
+
+    real_rows = is_real.repeat_interleave(R)
+    valid = zeros(torch.bool)
+    valid[d] = True
+    group_start = torch.ones(S, dtype=torch.bool, device=device)
+    group_start[d] = gs[ok]
+    out = {
+        "valid": valid.reshape(Bp, R),
+        "group_start": group_start.reshape(Bp, R),
+        "tomb": scat(zeros(torch.bool), staged["tomb"]),
+        "live": scat(zeros(torch.bool), staged["live"]),
+        "ht_hi": scat(zeros(torch.int32), staged["ht_hi"]),
+        "ht_lo": scat(zeros(torch.int32), staged["ht_lo"]),
+        "exp_hi": scat(torch.where(real_rows, exp_hi_default, 0).to(
+            torch.int32), staged["exp_hi"]),
+        "exp_lo": scat(torch.where(real_rows, exp_lo_default, 0).to(
+            torch.int32), staged["exp_lo"]),
+        "cols": {},
+    }
+    for cid, col in staged["cols"].items():
+        entry = {"set": scat(zeros(torch.bool), col["set"]),
+                 "isnull": scat(zeros(torch.bool), col["isnull"]),
+                 "cmp": scat(zeros(torch.int32, (col["cmp"].shape[1],)),
+                             col["cmp"])}
+        if "arith" in col:
+            entry["arith"] = scat(zeros(torch.float32), col["arith"])
+        out["cols"][cid] = entry
+    return out
+
+
+def _check(staged, perm, dst, gs, is_real) -> torch.device:
+    device = is_real.device
+    m = perm.shape[0]
+    for name, t, dt in (("perm", perm, torch.int32), ("dst", dst, torch.int32),
+                        ("gs", gs, torch.bool)):
+        if t.dtype != dt or tuple(t.shape) != (m,):
+            raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)}, want "
+                             f"[{m}] {dt}")
+    if is_real.dtype != torch.bool or is_real.dim() != 1:
+        raise ValueError("is_real: want [Bp] bool")
+    n = staged["ht_hi"].shape[0]
+    planes = [(name, staged[name], dt) for name, dt in _TOP.items()]
+    for cid, col in staged["cols"].items():
+        planes += [(f"col {cid} set", col["set"], torch.bool),
+                   (f"col {cid} isnull", col["isnull"], torch.bool)]
+        if "arith" in col:
+            planes.append((f"col {cid} arith", col["arith"], torch.float32))
+        cmp = col["cmp"]
+        if cmp.dtype != torch.int32 or cmp.dim() != 2 or \
+                cmp.shape[0] != n or cmp.shape[1] not in (1, 2) or \
+                not cmp.is_contiguous() or cmp.device != device:
+            raise ValueError(f"col {cid} cmp: {cmp.dtype} "
+                             f"{tuple(cmp.shape)}")
+    for name, t, dt in planes:
+        if t.dtype != dt or tuple(t.shape) != (n,):
+            raise ValueError(f"staged {name}: {t.dtype} {tuple(t.shape)}, "
+                             f"want [{n}] {dt}")
+    for name, t, _dt in planes + [("perm", perm, None), ("dst", dst, None),
+                                  ("gs", gs, None)]:
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{name} on {t.device} (want contiguous, on "
+                             f"{device})")
+    return device
+
+
+def replay_flush(staged: dict, perm, dst, gs, is_real, exp_hi_default: int,
+                 exp_lo_default: int, R: int) -> dict:
+    """``replay_flush_plain``'s function: K12 for CUDA tensors (one launch
+    for every plane, ``MAX_COLS`` value columns a launch), the plain
+    version for CPU tensors, and a raise for anything else. The kernel
+    inverts ``dst`` a tile of slots at a time, so it takes ``dst``
+    ascending, strictly over its in-range entries (the flush's packing
+    gives it so; entries past the last slot may repeat)."""
+    device = _check(staged, perm, dst, gs, is_real)
+    if device.type == "cpu":
+        return replay_flush_plain(staged, perm, dst, gs, is_real,
+                                  exp_hi_default, exp_lo_default, R)
+    if device.type != "cuda":
+        raise ValueError(f"replay_flush runs on cuda or cpu, not {device}")
+    out = _empty_tree(staged, is_real.shape[0], R, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        replay_flush.launches += launch(
+            _library(), staged, perm, dst, gs, is_real, exp_hi_default,
+            exp_lo_default, R, out, stream)
+    return out
+
+
+# Kernel launches since the count was last set to 0.
+replay_flush.launches = 0
+
+
+@functools.lru_cache(maxsize=1)
+def _library() -> ctypes.CDLL:
+    return bind(native.load_library("flush"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` with the argument and result types of the kernel's C
+    interface set."""
+    lib.replay_flush_launch.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p]
+    lib.replay_flush_launch.restype = ctypes.c_int
+    lib.replay_flush_error_string.argtypes = [ctypes.c_int]
+    lib.replay_flush_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(lib: ctypes.CDLL, staged: dict, perm, dst, gs, is_real,
+           exp_hi_default: int, exp_lo_default: int, R: int, out: dict,
+           stream: int) -> int:
+    """The launches of ``lib``'s ``replay_flush_launch`` (a bound library
+    of ``csrc/flush.cu``'s C interface) on ``stream`` that write ``out``
+    (``_empty_tree``'s layout), one a chunk of ``MAX_COLS`` value columns;
+    returns their count, raises on a refused launch."""
+    cids = list(staged["cols"])
+    count = 0
+    for k in range(0, max(len(cids), 1), MAX_COLS):
+        chunk = cids[k:k + MAX_COLS]
+        ins = [staged[name] for name in _TOP]
+        outs = [out[name] for name in _OUT_TOP]
+        for cid in chunk:
+            c, o = staged["cols"][cid], out["cols"][cid]
+            ins += [c["set"], c["isnull"], c["cmp"], c.get("arith")]
+            outs += [o["set"], o["isnull"], o["cmp"], o.get("arith")]
+        widths = (ctypes.c_int32 * MAX_COLS)(
+            *[staged["cols"][cid]["cmp"].shape[1] for cid in chunk])
+        in_ptrs = (ctypes.c_void_p * len(ins))(
+            *[None if t is None else t.data_ptr() for t in ins])
+        out_ptrs = (ctypes.c_void_p * len(outs))(
+            *[None if t is None else t.data_ptr() for t in outs])
+        rc = lib.replay_flush_launch(
+            in_ptrs, out_ptrs, widths, len(chunk), k == 0,
+            ctypes.c_void_p(perm.data_ptr()), ctypes.c_void_p(dst.data_ptr()),
+            ctypes.c_void_p(gs.data_ptr()),
+            ctypes.c_void_p(is_real.data_ptr()), perm.shape[0],
+            is_real.shape[0], R, exp_hi_default, exp_lo_default,
+            ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"replay_flush kernel launch failed ({rc}): "
+                               f"{lib.replay_flush_error_string(rc).decode()}")
+        count += 1
+    return count
+
+
+def flush_plane_nbytes(Bp: int, R: int, schema) -> int:
+    """Device bytes of the replayed planes (the plain plane format): the
+    JAX function's estimate, which its engine checks against the residency
+    budget before staging."""
+    per_slot = 4 * 1 + 4 * 4  # valid/group_start/tomb/live + ht/exp
+    for c in schema.value_columns:
+        planes = 2 if c.dtype.device_planes == 2 else 1
+        per_slot += 2 * 1 + 4 * planes  # set/isnull + cmp
+        if c.dtype.is_numeric:
+            per_slot += 4  # arith f32
+    return Bp * R * per_slot
+
+
+def replay_bytes(staged: dict, n: int, m: int, Bp: int, R: int) -> int:
+    """Bytes the function must move: the ``n`` gathered staged rows read
+    once (their hybrid time, expiry, flags and column planes), ``perm``
+    and ``gs`` of those rows, all ``m`` entries of ``dst`` and the
+    ``is_real`` flags read once, and every plane of the [Bp, R] output
+    written once."""
+    row = 8 + 8 + 2
+    out = 4 + 16
+    for col in staged["cols"].values():
+        width = 2 + 4 * col["cmp"].shape[1] + (4 if "arith" in col else 0)
+        row += width
+        out += width
+    return n * (row + 4 + 1) + 4 * m + Bp + Bp * R * out

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
+from operator import attrgetter
 
 import numpy as np
 
@@ -208,17 +209,6 @@ class ColumnarRun:
         keys_flat = [key for key, versions in group_list for _v in versions]
         gs = [i == 0 for _key, versions in group_list
               for i in range(len(versions))]
-        hts = [v.ht for v in vers_flat]
-        tombs = [v.tombstone for v in vers_flat]
-        lives = [v.liveness for v in vers_flat]
-        exp_idx = [r for r, v in enumerate(vers_flat) if v.has_ttl]
-        exp_hts = [vers_flat[r].expire_ht for r in exp_idx]
-        columns = [v.columns for v in vers_flat]
-        col_rows: dict[int, list[int]] = {}
-        col_vals: dict[int, list] = {}
-        for cid in self.cols:  # dropped columns: id retired, not read
-            col_rows[cid] = [r for r, c in enumerate(columns) if cid in c]
-            col_vals[cid] = [columns[r][cid] for r in col_rows[cid]]
         n = len(vers_flat)
         self.blocks[b] = BlockMeta(
             group_list[0][0] if group_list else b"",
@@ -229,10 +219,36 @@ class ColumnarRun:
             return
         self.valid[b, :n] = True
         self.group_start[b, :n] = gs
-        self.tomb[b, :n] = tombs
-        self.live[b, :n] = lives
         self.row_keys[b][:n] = keys_flat
         self.row_versions[b][:n] = vers_flat
+        self._fill_planes(b, vers_flat, keys_flat)
+
+    def stage_rows(self, rows: list[RowVersion]) -> None:
+        """Encode ``rows`` into block 0 in the order given, each row its
+        own key group, planes only (the device flush's staging): the same
+        encoders as ``_fill_block``; validity, group starts, the host
+        payloads and the block bounds stay unset."""
+        if rows:
+            self._fill_planes(0, rows, [r.key for r in rows])
+
+    def _fill_planes(self, b: int, vers_flat: list, keys_flat: list) -> None:
+        """The hybrid-time, expiry, flag, key and column planes of block
+        ``b``'s rows ``vers_flat`` (keys ``keys_flat``)."""
+        hts = list(map(attrgetter("ht"), vers_flat))
+        tombs = list(map(attrgetter("tombstone"), vers_flat))
+        lives = list(map(attrgetter("liveness"), vers_flat))
+        exps = list(map(attrgetter("expire_ht"), vers_flat))
+        exp_idx = [r for r, e in enumerate(exps) if e != MAX_HT]  # has_ttl
+        exp_hts = [exps[r] for r in exp_idx]
+        columns = list(map(attrgetter("columns"), vers_flat))
+        col_rows: dict[int, list[int]] = {}
+        col_vals: dict[int, list] = {}
+        for cid in self.cols:  # dropped columns: id retired, not read
+            col_rows[cid] = [r for r, c in enumerate(columns) if cid in c]
+            col_vals[cid] = [columns[r][cid] for r in col_rows[cid]]
+        n = len(vers_flat)
+        self.tomb[b, :n] = tombs
+        self.live[b, :n] = lives
         ht_arr = np.array(hts, dtype=np.int64)
         hi, lo = P.ht_to_planes(ht_arr)
         self.ht_hi[b, :n] = hi
@@ -252,7 +268,7 @@ class ColumnarRun:
                      vals: list) -> None:
         """Vectorized encode of one column's set values within a block."""
         col = self.cols[cid]
-        col.set_[b, rows] = True
+        col.set_[b, np.array(rows, dtype=np.intp)] = True
         nn_rows = rows
         nn_vals = vals
         if any(v is None for v in vals):
@@ -262,6 +278,7 @@ class ColumnarRun:
             nn_vals = [v for v in vals if v is not None]
             if not nn_rows:
                 return
+        idx = np.array(nn_rows, dtype=np.intp)  # converted once, used twice
         dt = col.dtype
         if dt.is_integer or dt == DataType.BOOL:
             if dt == DataType.BOOL:
@@ -271,27 +288,24 @@ class ColumnarRun:
                 arr = np.array(nn_vals, dtype=np.int64)
             if col.cmp_planes.shape[-1] == 2:
                 hi, lo = P.i64_to_ordered_planes(arr)
-                col.cmp_planes[b, nn_rows, 0] = hi
-                col.cmp_planes[b, nn_rows, 1] = lo
+                col.cmp_planes[b, idx] = np.stack([hi, lo], axis=-1)
             else:
-                col.cmp_planes[b, nn_rows, 0] = arr
+                col.cmp_planes[b, idx, 0] = arr
             if col.arith is not None:  # BOOL: orderable but not numeric
-                col.arith[b, nn_rows] = arr.astype(np.float32)
+                col.arith[b, idx] = arr.astype(np.float32)
         elif dt == DataType.FLOAT:
             arr = np.array(nn_vals, dtype=np.float32)
-            col.cmp_planes[b, nn_rows, 0] = arr.view(np.int32)
-            col.arith[b, nn_rows] = arr
+            col.cmp_planes[b, idx, 0] = arr.view(np.int32)
+            col.arith[b, idx] = arr
         elif dt == DataType.DOUBLE:
             arr = np.array(nn_vals, dtype=np.float64)
             hi, lo = P.f64_to_ordered_planes(arr)
-            col.cmp_planes[b, nn_rows, 0] = hi
-            col.cmp_planes[b, nn_rows, 1] = lo
-            col.arith[b, nn_rows] = arr.astype(np.float32)
+            col.cmp_planes[b, idx] = np.stack([hi, lo], axis=-1)
+            col.arith[b, idx] = arr.astype(np.float32)
         else:  # STRING / BINARY / opaque (collections, jsonb)
             raws = [_varlen_raw(v) for v in nn_vals]
             hi, lo = P.varlen_prefix_planes(raws)
-            col.cmp_planes[b, nn_rows, 0] = hi
-            col.cmp_planes[b, nn_rows, 1] = lo
+            col.cmp_planes[b, idx] = np.stack([hi, lo], axis=-1)
             vl = col.varlen[b]
             for r, v in zip(nn_rows, nn_vals):
                 vl[r] = v

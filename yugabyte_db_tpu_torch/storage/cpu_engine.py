@@ -2,10 +2,13 @@
 
 The port's copy of the JAX package's ``storage/cpu_engine.py``
 ``RowMaterializer`` and ``Aggregator`` (the exact per-key evaluation the
-CPU oracle and the row path run). The ``gpu`` engine's delta overlay
-folds its dirty keys with them, and so does its scan of a memtable before
-the first flush. ``CpuStorageEngine`` itself waits for the host layers
-(ROADMAP.md §1 item 16).
+CPU oracle and the row path run), and of its history GC
+(``CpuStorageEngine._gc_versions``, here the function ``gc_versions``:
+the retention rule every compaction route of the ``gpu`` engine is held
+to). The ``gpu`` engine's delta overlay folds its dirty keys with them,
+and so does its scan of a memtable before the first flush.
+``CpuStorageEngine`` itself waits for the host layers (ROADMAP.md §1
+item 16).
 
 Reference analog: the behavior of DocDB-on-RocksDB reads
 (DocRowwiseIterator + GetSubDocument, src/yb/docdb/doc_rowwise_iterator.cc)
@@ -18,8 +21,33 @@ from __future__ import annotations
 from yugabyte_db_tpu_torch.models.encoding import decode_doc_key
 from yugabyte_db_tpu_torch.models.schema import Schema
 from yugabyte_db_tpu_torch.storage.expr import eval_expr
-from yugabyte_db_tpu_torch.storage.merge import MergedRow
+from yugabyte_db_tpu_torch.storage.merge import MergedRow, merge_versions
+from yugabyte_db_tpu_torch.storage.row_version import RowVersion
 from yugabyte_db_tpu_torch.storage.scan_spec import AggSpec, ScanSpec
+
+
+def gc_versions(key: bytes, versions: list[RowVersion],
+                cutoff: int) -> list[RowVersion]:
+    """History GC: keep the versions any read at read_ht >= cutoff needs
+    (``versions`` ht-desc, as a merge gives them): every version newer
+    than the cutoff, and the versions at the hybrid times that contribute
+    to the key's merged state at the cutoff (each column's latest setter,
+    the liveness marker), unless a tombstone at or after them shadows
+    them. Tombstones at or below the cutoff drop: nothing older remains
+    to shadow.
+
+    Reference analog: DocDBCompactionFilter retention
+    (src/yb/docdb/docdb_compaction_filter.cc) driven by
+    TabletRetentionPolicy's history cutoff.
+    """
+    if cutoff <= 0:
+        return versions
+    state = merge_versions(key, versions, cutoff)
+    contributing = set(state.value_hts.values())
+    if state.live_ht:
+        contributing.add(state.live_ht)
+    return [v for v in versions
+            if v.ht > cutoff or (v.ht in contributing and v.ht > state.tomb_ht)]
 
 
 class RowMaterializer:

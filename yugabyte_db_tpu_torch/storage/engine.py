@@ -7,7 +7,9 @@ the engine selected where the tablet injects its storage
 
 The port keeps its own registry: ``make_engine("gpu", schema, options)``
 builds the PyTorch/CUDA engine (``storage/gpu_engine.py``). Options are read
-from the ``options`` dict; there is no process-wide flag registry here.
+from the ``options`` dict; there is no process-wide flag registry here, so
+each option's default is the JAX package's flag default
+(``compaction_trigger`` 4, ``memtable_flush_versions`` 1 << 60).
 """
 
 from __future__ import annotations
@@ -17,6 +19,10 @@ import abc
 from yugabyte_db_tpu_torch.models.schema import Schema
 from yugabyte_db_tpu_torch.storage.row_version import RowVersion
 from yugabyte_db_tpu_torch.storage.scan_spec import ScanResult, ScanSpec
+
+
+COMPACTION_TRIGGER = 4             # runs that start a compaction
+MEMTABLE_FLUSH_VERSIONS = 1 << 60  # memtable versions that start a flush
 
 
 class StorageEngine(abc.ABC):
@@ -47,8 +53,22 @@ class StorageEngine(abc.ABC):
         """Persist the memtable as a new sorted run."""
 
     @abc.abstractmethod
+    def compact(self, history_cutoff_ht: int = 0) -> None:
+        """Merge all sorted runs into one, GCing history older than cutoff."""
+
+    @abc.abstractmethod
     def stats(self) -> dict:
         """Observability counters (runs, rows, bytes, versions)."""
+
+    def maybe_compact(self, history_cutoff_ht: int = 0) -> bool:
+        """Universal-compaction trigger: compact when the run count reaches
+        the ``compaction_trigger`` option (reference: universal style with
+        num_levels=1, docdb_rocksdb_util.cc:476-482)."""
+        trigger = self.options.get("compaction_trigger", COMPACTION_TRIGGER)
+        if self.stats().get("num_runs", 0) >= trigger:
+            self.compact(history_cutoff_ht)
+            return True
+        return False
 
 
 _ENGINES: dict[str, type] = {}

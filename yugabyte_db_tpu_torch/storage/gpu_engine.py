@@ -1,10 +1,38 @@
 """GPU storage engine: the ``tablet_storage_engine=gpu`` data plane.
 
 A slice of the JAX package's ``storage/tpu_engine.py``: writes go to the
-host memtable, ``flush`` builds a columnar run on the host and uploads
-its planes to the engine's device, and aggregate scans fold on the
-device, over a flat run (one version per key, the post-compaction shape)
-or a multi-version one:
+host memtable, ``flush`` turns it into a columnar run resident on the
+engine's device, ``compact`` merges the runs into one with history GC,
+and aggregate scans fold on the device, over a flat run (one version per
+key) or a multi-version one.
+
+The write side takes the JAX engine's routes:
+
+- **flush**, the device route (its default): the memtable's versions are
+  staged in apply order through the columnar encoders, sorted and packed
+  into blocks on the host (one argsort over memcmp keys), and one launch
+  of K12 (``ops.flush``, a CUDA kernel) writes the run's padded planes on
+  the device; the run adopts them (no upload) and its host planes are
+  read back from them. A key longer than the prefix planes, a value the
+  encoders reject or a key group longer than a block takes the host
+  build (``drain_sorted`` + ``ColumnarRun.build``) and an upload.
+  ``stats()["flush_paths"]`` counts both;
+- **compact**: the merge order of the runs on the host (a k-way merge of
+  the presorted runs over memcmp keys), the retention mask over the
+  sorted union (K11, ``ops.compact``, a CUDA kernel reading the resident
+  planes, past ``HOST_GC_MASK_MAX`` rows; its numpy twin below), and a
+  gather of the survivors' planes into the merged run; keys past the
+  prefix planes take the host merge and a build. The old runs' device
+  planes, the overlay state and the plan caches go with them. ``apply``
+  flushes at ``memtable_flush_versions`` and then calls ``maybe_compact``.
+
+Not in this slice: the residency budget and its gates, run pinning and
+the breaker's host re-serve (ROADMAP.md §1 item 11: every run is
+resident, and a device error raises), the dictionary-coded flush columns
+(item 8), the native one-pass flush and persistence (item 16), and
+``restore_entries`` / ``dump_entries`` / ``alter_schema`` (item 12).
+
+The scans:
 
 - a multi-version run is first resolved at the spec's read point into a
   flat view (``ops.mvcc_resolve``, a CUDA kernel; the counterpart of the
@@ -62,7 +90,9 @@ item 7's remainder. There is no host re-serve: a device error raises.
 from __future__ import annotations
 
 import bisect
+import gc
 import operator
+import time
 import weakref
 from dataclasses import dataclass
 from types import SimpleNamespace
@@ -74,37 +104,55 @@ from yugabyte_db_tpu_torch.models.datatypes import DataType
 from yugabyte_db_tpu_torch.models.schema import Schema
 from yugabyte_db_tpu_torch.ops import (agg_fold, flat_agg, flat_fold,
                                       group_agg, mvcc_resolve)
+from yugabyte_db_tpu_torch.ops import compact as dcompact
+from yugabyte_db_tpu_torch.ops import flush as dflush
 from yugabyte_db_tpu_torch.ops import scan as dscan
 from yugabyte_db_tpu_torch.ops.device_run import (DeviceRun, dtype_kind,
+                                                  padded_blocks,
                                                   resolve_device)
 from yugabyte_db_tpu_torch.storage.columnar import (DEFAULT_ROWS_PER_BLOCK,
-                                                    ColumnarRun)
+                                                    KEY_WORDS, BlockMeta,
+                                                    ColumnarRun, _varlen_raw)
 from yugabyte_db_tpu_torch.storage.cpu_engine import (Aggregator,
-                                                      RowMaterializer)
+                                                      RowMaterializer,
+                                                      gc_versions)
 from yugabyte_db_tpu_torch.storage import expr as X
 from yugabyte_db_tpu_torch.storage import host_page
-from yugabyte_db_tpu_torch.storage.engine import (StorageEngine,
+from yugabyte_db_tpu_torch.storage.engine import (MEMTABLE_FLUSH_VERSIONS,
+                                                  StorageEngine,
                                                   register_engine)
 from yugabyte_db_tpu_torch.storage.gpu_rows import RowPath
 from yugabyte_db_tpu_torch.storage.memtable import MemTable
-from yugabyte_db_tpu_torch.storage.merge import merge_versions
+from yugabyte_db_tpu_torch.storage.merge import (merge_entry_streams,
+                                                 merge_versions)
 from yugabyte_db_tpu_torch.storage.row_version import MAX_HT, RowVersion
 from yugabyte_db_tpu_torch.storage.scan_spec import (ScanResult, ScanSpec,
                                                      point_key_of)
 from yugabyte_db_tpu_torch.utils import planes as P
 
 PAD_BLOCKS = 64  # run block-axis padding, as the JAX engine pads
+# Compaction unions of at most this many rows take the retention mask's
+# numpy twin, larger ones K11 (the JAX engine's constant, set for its
+# TPU's link; PERF.md records where the crossover lies on the card).
+HOST_GC_MASK_MAX = 2_000_000
+# The longest key the device routes take: its KEY_WORDS prefix planes
+# hold it whole, so plane order and equality are exact.
+MAX_DEVICE_KEY = 4 * KEY_WORDS
+
 
 class GpuRun:
     """A columnar run and its planes resident on the engine's device (no
-    residency budget yet: a run stays resident for its lifetime). A
-    multi-version run also holds its view's constant planes, the sorted
-    hybrid times of its versions and expiries (the view keys), and its
-    most recent resolved view."""
+    residency budget yet: a run stays resident until a compaction retires
+    it). ``dev`` adopts planes the device flush made; without it the
+    run's host planes are uploaded. A multi-version run also holds its
+    view's constant planes, the sorted hybrid times of its versions and
+    expiries (the view keys), and its most recent resolved view."""
 
-    def __init__(self, crun: ColumnarRun, device: torch.device):
+    def __init__(self, crun: ColumnarRun, device: torch.device,
+                 dev: DeviceRun | None = None):
         self.crun = crun
-        self.dev = DeviceRun(crun, PAD_BLOCKS, device=device)
+        self.dev = dev if dev is not None else DeviceRun(
+            crun, PAD_BLOCKS, device=device)
         self.flat = crun.max_group_versions <= 1
         self.host_index = None  # storage.host_page.HostPageIndex, lazy
         self._view = None  # (view key, view arrays)
@@ -124,6 +172,13 @@ class GpuRun:
     def source(self) -> "GpuRun":
         """The run whose planes these are."""
         return self
+
+    def retire(self) -> None:
+        """The run left the run set (a compaction merged it): let go of
+        its device planes, its view and its host page index."""
+        self.dev = self._view = self.host_index = None
+        if not self.flat:
+            self._const = None
 
     def view_key(self, read_ht: int) -> tuple:
         """Two read points resolve to one view exactly when they see the
@@ -274,11 +329,19 @@ class _GroupPrep:
 
 class GpuStorageEngine(RowPath, StorageEngine):
     """Options: ``device`` (default ``cuda``; raises when there is no
-    GPU) and ``rows_per_block`` (2048). The memtable flushes only when
-    ``flush`` is called. A run may hold any number of versions per key;
-    an aggregate over several runs or a live memtable beside them goes
-    through the delta overlay, and the rest over several sources through
-    the row scan (``storage.gpu_rows``)."""
+    GPU), ``rows_per_block`` (2048), ``memtable_flush_versions`` (the
+    memtable size at which ``apply`` flushes and then calls
+    ``maybe_compact``; 1 << 60) and ``compaction_trigger`` (the run count
+    at which ``maybe_compact`` compacts; 4). A run may hold any number of
+    versions per key; an aggregate over several runs or a live memtable
+    beside them goes through the delta overlay, and the rest over several
+    sources through the row scan (``storage.gpu_rows``).
+
+    ``stats()["flush_paths"]`` counts the flushes by route (``device``,
+    ``host``) and ``stats()["compact_paths"]`` the compactions by the
+    route of their retention mask (``k11``, ``twin``) or the host merge
+    (``host``); ``last_flush`` / ``last_compact`` hold the host-clock
+    seconds of the last one's parts."""
 
     def __init__(self, schema: Schema, options: dict | None = None):
         super().__init__(schema, options)
@@ -303,25 +366,493 @@ class GpuStorageEngine(RowPath, StorageEngine):
         self._key_col_names = {c.name for c in schema.key_columns}
         self._plan_cache: dict = {}        # gather plans by structure
         self._read_plane_cache: dict = {}  # read planes by read point
+        self.flush_paths = {"device": 0, "host": 0}
+        self.compact_paths = {"k11": 0, "twin": 0, "host": 0}
+        self.last_flush: dict = {}
+        self.last_compact: dict = {}
 
     # -- writes --------------------------------------------------------------
     def apply(self, rows: list[RowVersion]) -> None:
+        """Apply committed versions; once the memtable holds
+        ``memtable_flush_versions`` of them, flush and let the compaction
+        trigger decide (the JAX engine's ``_after_apply``)."""
         self.memtable.apply(rows)
+        limit = self.options.get("memtable_flush_versions",
+                                 MEMTABLE_FLUSH_VERSIONS)
+        if self.memtable.num_versions >= limit:
+            self.flush()
+            self.maybe_compact()
 
     def flush(self) -> None:
-        """Host build of the memtable into a columnar run (the JAX
-        engine's generic drain + build), uploaded to the device."""
+        """The memtable into a new run: the device flush (K12) when it is
+        eligible, else the host build (the JAX engine's generic drain +
+        build) and an upload."""
         if self.memtable.is_empty:
             return
         self.flushed_frontier_ht = max(self.flushed_frontier_ht,
                                        self.memtable.max_ht)
-        crun = ColumnarRun.build(self.schema, self.memtable.drain_sorted(),
-                                 self.rows_per_block)
-        self.runs.append(GpuRun(crun, self.device))
+        trun = self._device_flush()
+        if trun is not None:
+            self.flush_paths["device"] += 1
+        else:
+            t0 = time.perf_counter()
+            entries = self.memtable.drain_sorted()
+            t1 = time.perf_counter()
+            crun = ColumnarRun.build(self.schema, entries,
+                                     self.rows_per_block)
+            t2 = time.perf_counter()
+            trun = GpuRun(crun, self.device)
+            self.last_flush = {"route": "host", "drain_s": t1 - t0,
+                               "build_s": t2 - t1,
+                               "upload_s": time.perf_counter() - t2}
+            self.flush_paths["host"] += 1
+        self.runs.append(trun)
         self.memtable = MemTable()
         # The run set changed: the overlay is built anew at its next use
         # (the JAX engine's _drop_overlay_cache, with no pin to release).
         self._overlay_cache = None
+        self._plan_cache.clear()
+
+    def _device_flush(self) -> GpuRun | None:
+        """The JAX engine's ``_device_flush``: stage the memtable's
+        apply-order versions through the columnar encoders in one block of
+        m rows (the next power of two >= n, at least 1024), sort them
+        (key asc, hybrid time desc, write id desc: ``drain_sorted``'s
+        order) with one stable argsort over memcmp keys, pack the key
+        groups into blocks, and scatter the sorted planes on the device
+        (``_device_flush_dispatch``). None where the JAX engine takes the
+        host build: a key longer than the prefix planes hold, a value the
+        encoders reject, a key group longer than a block. (Its other
+        routes there, the residency budget and the breaker, wait for
+        ROADMAP.md §1 item 11: a device error raises.)"""
+        rows = self.memtable.versions_since(0)
+        if not rows:
+            return None
+        n = len(rows)
+        keys = [r.key for r in rows]
+        max_key_len = max(map(len, keys))
+        if max_key_len > MAX_DEVICE_KEY:
+            return None
+        t0 = time.perf_counter()
+        m = 1 << max(10, (n - 1).bit_length())
+        try:
+            staged = ColumnarRun(self.schema, rows_per_block=m)
+            staged.B = 1
+            staged._alloc(1)
+            staged.stage_rows(rows)
+        except (OverflowError, ValueError, TypeError):
+            return None  # a value shape the encoders reject: host build
+        t1 = time.perf_counter()
+        wid = np.fromiter((r.write_id for r in rows), np.int64, n)
+        sk = _flush_sortkey(staged.key_planes[0, :n], staged.ht_hi[0, :n],
+                            staged.ht_lo[0, :n], wid)
+        perm = np.argsort(sk, kind="stable").astype(np.int32)
+        kw_s = staged.key_planes[0][perm]
+        new_group = np.empty(n, dtype=bool)
+        new_group[0] = True
+        new_group[1:] = (kw_s[1:] != kw_s[:-1]).any(axis=1)
+        gstarts = np.flatnonzero(new_group)
+        sizes = np.diff(np.append(gstarts, n))
+        try:
+            ranges = ColumnarRun.pack_group_ranges(sizes.tolist(),
+                                                   self.rows_per_block)
+        except ValueError:
+            return None  # a key group longer than a block: host build
+        parts = {"route": "device", "staging_s": t1 - t0,
+                 "sort_s": time.perf_counter() - t1}
+        return self._device_flush_dispatch(rows, keys, staged, perm, kw_s,
+                                           new_group, gstarts, sizes,
+                                           ranges, max_key_len, parts)
+
+    def _device_flush_dispatch(self, rows, keys, staged, perm, kw_s,
+                               new_group, gstarts, sizes, ranges,
+                               max_key_len, parts) -> GpuRun:
+        """K12 over the staged planes; the run's host planes read back
+        from the very device planes it adopts; keys, row objects and
+        varlen payloads scattered on the host by the same packing."""
+        n = len(rows)
+        R = self.rows_per_block
+        B = len(ranges)
+        Bp = padded_blocks(B, PAD_BLOCKS)
+        dev = self.device
+        rows_per = np.array([nr for _g0, _gn, nr in ranges], np.int64)
+        offs = np.cumsum(rows_per) - rows_per
+        block_of = np.repeat(np.arange(B, dtype=np.int64), rows_per)
+        dst = (block_of * R + (np.arange(n, dtype=np.int64)
+                               - np.repeat(offs, rows_per))).astype(np.int32)
+        t0 = time.perf_counter()
+
+        def up(arr):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+
+        # Only the n staged rows travel: the block's pad rows are never
+        # gathered.
+        staged_tree = {name: up(getattr(staged, name)[0, :n])
+                       for name in ("ht_hi", "ht_lo", "exp_hi", "exp_lo",
+                                    "tomb", "live")}
+        staged_tree["cols"] = {}
+        for cid, col in staged.cols.items():
+            entry = {"set": up(col.set_[0, :n]),
+                     "isnull": up(col.isnull[0, :n]),
+                     "cmp": up(col.cmp_planes[0, :n])}
+            if col.arith is not None:
+                entry["arith"] = up(col.arith[0, :n])
+            staged_tree["cols"][cid] = entry
+        is_real = np.zeros(Bp, dtype=bool)
+        is_real[:B] = True
+        ehi, elo = P.scalar_ht_planes(MAX_HT)
+        perm_t, dst_t, gs_t, real_t = (up(perm), up(dst), up(new_group),
+                                       up(is_real))
+        t1 = time.perf_counter()
+        out = dflush.replay_flush(staged_tree, perm_t, dst_t, gs_t, real_t,
+                                  ehi, elo, R)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)  # the readback below waits anyway
+        t2 = time.perf_counter()
+        host = _tree_to_host(out)
+        t3 = time.perf_counter()
+
+        run = ColumnarRun(self.schema, R)
+        run.B = B
+        run._alloc(B)
+        for name in ("valid", "group_start", "tomb", "live", "ht_hi",
+                     "ht_lo", "exp_hi", "exp_lo"):
+            setattr(run, name, host[name][:B])
+        for cid, col in run.cols.items():
+            h = host["cols"][cid]
+            col.set_ = h["set"][:B]
+            col.isnull = h["isnull"][:B]
+            col.cmp_planes = h["cmp"][:B]
+            if col.arith is not None:
+                col.arith = h["arith"][:B]
+
+        # Keys and row payloads stay on the host: the same packing.
+        def scatter(dest, vals):
+            dest.reshape((B * R,) + dest.shape[2:])[dst] = vals
+
+        scatter(run.key_planes, kw_s)
+        keys_arr = np.empty(n, dtype=object)
+        keys_arr[:] = keys
+        keys_s = keys_arr[perm]
+        scatter(run.row_keys, keys_s)
+        vers_arr = np.empty(n, dtype=object)
+        vers_arr[:] = rows
+        scatter(run.row_versions, vers_arr[perm])
+        order = None
+        for cid, col in run.cols.items():
+            if col.varlen is None:
+                continue
+            if order is None:
+                order = perm.tolist()
+            src = staged.cols[cid].varlen[0]
+            vals = [src[i] for i in order]
+            for b, (o, nr) in enumerate(zip(offs.tolist(),
+                                            rows_per.tolist())):
+                col.varlen[b][:nr] = vals[o:o + nr]
+        group_keys = keys_s[gstarts]
+        for b, (g0, gn, nrows) in enumerate(ranges):
+            run.blocks[b] = BlockMeta(group_keys[g0],
+                                      group_keys[g0 + gn - 1], nrows)
+        run.min_key = group_keys[0]
+        run.max_key = run.blocks[B - 1].max_key
+        run.num_versions = n
+        run.max_ht = staged.max_ht
+        run.max_group_versions = int(sizes.max())
+        run.max_key_len = max_key_len
+        run.varlen_max_len = dict(staged.varlen_max_len)
+        t4 = time.perf_counter()
+        trun = GpuRun(run, dev, DeviceRun.from_arrays(out, R))
+        self.last_flush = dict(parts, upload_s=t1 - t0, k12_s=t2 - t1,
+                               readback_s=t3 - t2, host_scatter_s=t4 - t3,
+                               run_s=time.perf_counter() - t4)
+        return trun
+
+    # -- compaction ----------------------------------------------------------
+    def compact(self, history_cutoff_ht: int = 0) -> None:
+        """Merge every run into one, GCing history at the cutoff (the JAX
+        engine's ``compact``): when every key fits the prefix planes, the
+        merge order on the host, the retention mask (K11 over the resident
+        planes past ``HOST_GC_MASK_MAX`` rows, the numpy twin below) and a
+        gather of the survivors' planes into the merged run; else the host
+        merge (``merge_entry_streams`` + ``gc_versions``) and a build. The
+        memtable stays as it is. Reference hot loop: CompactionJob::Run
+        (src/yb/rocksdb/db/compaction_job.cc:622)."""
+        if len(self.runs) <= 1 and history_cutoff_ht == 0:
+            return
+        # Moving hundreds of thousands of row objects between containers
+        # makes the cyclic GC fire on allocation and rescan the heap;
+        # nothing here makes cycles, so it pauses for the compaction.
+        gc_was = gc.isenabled()
+        gc.disable()
+        try:
+            self._compact_locked(history_cutoff_ht)
+        finally:
+            if gc_was:
+                gc.enable()
+
+    def _compact_locked(self, cutoff: int) -> None:
+        self.last_compact = {}
+        result = None
+        if self.runs and all(t.crun.max_key_len <= MAX_DEVICE_KEY
+                             for t in self.runs) \
+                and sum(t.crun.num_versions for t in self.runs) > 0:
+            result = self._device_compact_entries(cutoff)
+        if result is None:
+            t0 = time.perf_counter()
+            merged = []
+            for key, versions in merge_entry_streams(
+                    [t.crun.iter_entries() for t in self.runs]):
+                kept = gc_versions(key, versions, cutoff)
+                if kept:
+                    merged.append((key, kept))
+            crun = (ColumnarRun.build(self.schema, merged,
+                                      self.rows_per_block)
+                    if merged else None)
+            self.compact_paths["host"] += 1
+            self.last_compact = {"route": "host",
+                                 "merge_build_s": time.perf_counter() - t0}
+        else:
+            (crun,) = result
+        t0 = time.perf_counter()
+        old_runs = self.runs
+        self.runs = [GpuRun(crun, self.device)] if crun is not None else []
+        self.last_compact["upload_s"] = time.perf_counter() - t0
+        # Everything that pointed at the old runs goes: the overlay state,
+        # the gather plans, the read planes, the runs' device planes.
+        self._overlay_cache = None
+        self._plan_cache.clear()
+        self._read_plane_cache.clear()
+        for t in old_runs:
+            t.retire()
+
+    def _device_compact_entries(self, cutoff: int):
+        """The JAX engine's ``_device_compact_entries``: ``(merged run or
+        None when nothing survives,)``, or None when the union is empty.
+        The union's planes are concatenated from the runs' valid rows, the
+        merge order is a k-way merge of the presorted runs over memcmp
+        keys (``_merge_sorted``), the retention mask runs over the sorted
+        union, and the merged run is assembled by gathering the
+        survivors' existing planes (``_gather_run``), with no re-encoding.
+        The union is not padded: nothing compiles per shape here."""
+        t0 = time.perf_counter()
+        crs = [t.crun for t in self.runs]
+        col_ids = [c.col_id for c in self.schema.value_columns]
+        parts_kw = []
+        parts = {k: [] for k in ("ht_hi", "ht_lo", "exp_hi", "exp_lo",
+                                 "tomb", "live")}
+        set_parts = {cid: [] for cid in col_ids}
+        null_parts = {cid: [] for cid in col_ids}
+        cmp_parts = {cid: [] for cid in col_ids}
+        arith_parts = {cid: [] for cid in col_ids}
+        varlen_all = {cid: [] for cid in col_ids}
+        src_parts = []  # each valid row's flat row in the resident planes
+        run_row_counts = []
+        off = 0
+        for t, cr in zip(self.runs, crs):
+            nrun = 0
+            for b in range(cr.B):
+                nv = cr.blocks[b].num_valid
+                if nv == 0:
+                    continue
+                nrun += nv
+                parts_kw.append(cr.key_planes[b, :nv])
+                for k, lst in parts.items():
+                    lst.append(getattr(cr, k)[b, :nv])
+                for cid in col_ids:
+                    col = cr.cols[cid]
+                    set_parts[cid].append(col.set_[b, :nv])
+                    null_parts[cid].append(col.isnull[b, :nv])
+                    cmp_parts[cid].append(col.cmp_planes[b, :nv])
+                    if col.arith is not None:
+                        arith_parts[cid].append(col.arith[b, :nv])
+                    if col.varlen is not None:
+                        varlen_all[cid].extend(col.varlen[b][:nv])
+                src_parts.append(np.arange(off + b * cr.R,
+                                           off + b * cr.R + nv,
+                                           dtype=np.int32))
+            run_row_counts.append(nrun)
+            off += t.dev.B * cr.R
+        if not parts_kw:
+            return None
+        N = sum(run_row_counts)
+        kw = np.concatenate(parts_kw)
+        ht_hi = np.concatenate(parts["ht_hi"])
+        ht_lo = np.concatenate(parts["ht_lo"])
+        exp_hi = np.concatenate(parts["exp_hi"])
+        exp_lo = np.concatenate(parts["exp_lo"])
+        tomb = np.concatenate(parts["tomb"])
+        live = np.concatenate(parts["live"])
+        cat_set = {cid: np.concatenate(set_parts[cid]) for cid in col_ids}
+        t1 = time.perf_counter()
+
+        # The merge ORDER on the host: each run is (key asc, ht desc)
+        # already, so a k-way merge of the runs over memcmp sort keys.
+        run_items = []
+        start = 0
+        for nrows in run_row_counts:
+            if nrows == 0:
+                continue
+            sk = _sortkey_bytes(kw[start:start + nrows],
+                                ht_hi[start:start + nrows],
+                                ht_lo[start:start + nrows])
+            run_items.append((np.arange(start, start + nrows,
+                                        dtype=np.int64), sk))
+            start += nrows
+        perm = _merge_sorted(run_items)
+        skw = kw[perm]
+        new_group = np.empty(N, dtype=bool)
+        new_group[0] = True
+        new_group[1:] = (skw[1:] != skw[:-1]).any(axis=1)
+        t2 = time.perf_counter()
+
+        c_hi, c_lo = P.scalar_ht_planes(max(cutoff, 0))
+        cutoff_planes = (c_hi, c_lo, c_hi, c_lo)
+        keep_host = None
+        if N > HOST_GC_MASK_MAX:
+            # K11 over the resident planes: only the sorted flat-index
+            # vector, the group bits and the group starts go up.
+            dev = self.device
+            idx = np.concatenate(src_parts)[perm]
+            runs_planes = tuple(
+                {"ht_hi": t.dev.arrays["ht_hi"],
+                 "ht_lo": t.dev.arrays["ht_lo"],
+                 "exp_hi": t.dev.arrays["exp_hi"],
+                 "exp_lo": t.dev.arrays["exp_lo"],
+                 "tomb": t.dev.arrays["tomb"],
+                 "live": t.dev.arrays["live"],
+                 "sets": tuple(t.dev.arrays["cols"][cid]["set"]
+                               for cid in col_ids)}
+                for t in self.runs)
+            keep_dev = dcompact.resident_gc_mask(
+                runs_planes, torch.from_numpy(idx).to(dev),
+                torch.from_numpy(new_group).to(dev),
+                torch.from_numpy(np.flatnonzero(new_group).astype(
+                    np.int32)).to(dev), cutoff_planes)
+            keep_host = _to_host(keep_dev)
+            event = None
+            if keep_dev.is_cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+            self.compact_paths["k11"] += 1
+        else:
+            keep = dcompact.gc_mask_host(
+                len(col_ids),
+                {"new_group": new_group, "ht_hi": ht_hi[perm],
+                 "ht_lo": ht_lo[perm], "exp_hi": exp_hi[perm],
+                 "exp_lo": exp_lo[perm], "tomb": tomb[perm],
+                 "live": live[perm],
+                 "set_": [cat_set[cid][perm] for cid in col_ids]},
+                cutoff_planes)
+            self.compact_paths["twin"] += 1
+        t3 = time.perf_counter()
+        # While the mask computes, the row payloads: block views of the
+        # runs' object planes, one pointer-copying concatenate each.
+        valid_blocks = [(cr, b, cr.blocks[b].num_valid)
+                        for cr in crs for b in range(cr.B)
+                        if cr.blocks[b].num_valid]
+        all_keys = np.concatenate([cr.row_keys[b, :nv]
+                                   for cr, b, nv in valid_blocks])
+        all_vers = np.concatenate([cr.row_versions[b, :nv]
+                                   for cr, b, nv in valid_blocks])
+        t4 = time.perf_counter()
+        if keep_host is not None:
+            if event is not None:
+                event.synchronize()
+            keep = keep_host.numpy()
+        t5 = time.perf_counter()
+        kept_pos = np.flatnonzero(keep)
+        kept_src = perm[kept_pos]
+        crun = None
+        if kept_src.size:
+            # Group boundaries among the kept rows (still key-sorted).
+            gid_sorted = np.cumsum(new_group.astype(np.int64)) - 1
+            kept_gids = gid_sorted[kept_pos]
+            kept_new_group = np.empty(kept_src.size, dtype=bool)
+            kept_new_group[0] = True
+            kept_new_group[1:] = kept_gids[1:] != kept_gids[:-1]
+            planes = {"ht_hi": ht_hi, "ht_lo": ht_lo, "exp_hi": exp_hi,
+                      "exp_lo": exp_lo, "tomb": tomb, "live": live,
+                      "set": cat_set}
+            crun = self._gather_run(kept_src, kept_new_group, all_keys,
+                                    all_vers, kw, planes, col_ids,
+                                    null_parts, cmp_parts, arith_parts,
+                                    varlen_all)
+        self.last_compact = {
+            "route": "k11" if keep_host is not None else "twin",
+            "rows": N, "kept": int(kept_src.size), "concat_s": t1 - t0,
+            "order_s": t2 - t1, "mask_s": t3 - t2 + t5 - t4,
+            "gather_s": t4 - t3 + time.perf_counter() - t5}
+        return (crun,)
+
+    def _gather_run(self, kept_src, kept_new_group, all_keys, all_vers, kw,
+                    planes, col_ids, null_parts, cmp_parts, arith_parts,
+                    varlen_all) -> ColumnarRun:
+        """The merged run, assembled by gathering the surviving rows'
+        planes (the JAX engine's ``_gather_run``): key groups packed by
+        ``pack_group_ranges``, one flat scatter a plane."""
+        R = self.rows_per_block
+        nk = kept_src.size
+        bounds = np.flatnonzero(kept_new_group).tolist() + [nk]
+        sizes = [bounds[gi + 1] - bounds[gi] for gi in range(len(bounds) - 1)]
+        ranges = [(bounds[g0], rows) for g0, _gn, rows
+                  in ColumnarRun.pack_group_ranges(sizes, R)]
+        run = ColumnarRun(self.schema, R)
+        B = len(ranges)
+        run.B = B
+        run._alloc(B)
+        starts = np.array([s0 for s0, _n in ranges], dtype=np.int64)
+        ns = np.array([n for _s0, n in ranges], dtype=np.int64)
+        block_of = np.repeat(np.arange(B, dtype=np.int64), ns)
+        dst = block_of * R + (np.arange(nk, dtype=np.int64)
+                              - np.repeat(starts, ns))
+
+        def scatter(dest, vals):
+            dest.reshape((B * R,) + dest.shape[2:])[dst] = vals
+
+        scatter(run.key_planes, kw[kept_src])
+        for name in ("ht_hi", "ht_lo", "exp_hi", "exp_lo", "tomb", "live"):
+            scatter(getattr(run, name), planes[name][kept_src])
+        run.valid.reshape(-1)[dst] = True
+        scatter(run.group_start, kept_new_group)
+        for cid in col_ids:
+            col = run.cols[cid]
+            scatter(col.set_, planes["set"][cid][kept_src])
+            scatter(col.isnull, np.concatenate(null_parts[cid])[kept_src])
+            scatter(col.cmp_planes, np.concatenate(cmp_parts[cid])[kept_src])
+            if col.arith is not None and arith_parts[cid]:
+                scatter(col.arith, np.concatenate(arith_parts[cid])[kept_src])
+        scatter(run.row_keys, all_keys[kept_src])
+        scatter(run.row_versions, all_vers[kept_src])
+        varlen_cols = [cid for cid in col_ids
+                       if run.cols[cid].varlen is not None]
+        for b, (s0, n) in enumerate(ranges):
+            if varlen_cols:
+                sel = kept_src[s0:s0 + n].tolist()
+                for cid in varlen_cols:
+                    vl = varlen_all[cid]
+                    run.cols[cid].varlen[b][:n] = [vl[i] for i in sel]
+            run.blocks[b] = BlockMeta(run.row_keys[b][0],
+                                      run.row_keys[b][n - 1], n)
+        run.min_key = run.row_keys[0][0]
+        run.max_key = run.blocks[B - 1].max_key
+        run.num_versions = nk
+        run.max_ht = int(P.planes_to_u64(planes["ht_hi"][kept_src],
+                                         planes["ht_lo"][kept_src]).max())
+        run.max_group_versions = max(sizes)
+        # Exact maxima over the SURVIVING rows, so that GC'd long keys or
+        # values do not turn the device routes off for good.
+        kept_keys = all_keys[kept_src]
+        run.max_key_len = int(np.fromiter(map(len, kept_keys), np.int64,
+                                          kept_keys.size).max())
+        for b in range(B):
+            n = run.blocks[b].num_valid
+            for cid in varlen_cols:
+                lens = [len(_varlen_raw(v)) for v in
+                        run.cols[cid].varlen[b][:n] if v is not None]
+                if lens:
+                    run.varlen_max_len[cid] = max(
+                        run.varlen_max_len.get(cid, 0), max(lens))
+        return run
 
     def stats(self) -> dict:
         return {
@@ -330,6 +861,8 @@ class GpuStorageEngine(RowPath, StorageEngine):
             "run_versions": sum(t.crun.num_versions for t in self.runs),
             "flushed_frontier_ht": self.flushed_frontier_ht,
             "device_bytes": sum(t.dev.nbytes for t in self.runs),
+            "flush_paths": dict(self.flush_paths),
+            "compact_paths": dict(self.compact_paths),
         }
 
     # -- reads ---------------------------------------------------------------
@@ -1043,6 +1576,76 @@ class _AsyncBatch:
         self._finishers = self._bufs = []
         self._done = True
         return self.results
+
+
+def _tree_to_host(tree: dict) -> dict:
+    """A plane tree's numpy copies (never a view of a device tensor, nor
+    of a CPU one the run's device planes keep)."""
+    def host(t):
+        return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
+
+    out = {k: host(v) for k, v in tree.items() if k != "cols"}
+    out["cols"] = {cid: {k: host(v) for k, v in c.items()}
+                   for cid, c in tree["cols"].items()}
+    return out
+
+
+def _flush_sortkey(kw_part, ht_hi_part, ht_lo_part, wid):
+    """``_sortkey_bytes`` plus a trailing inverted write id: the FLUSH
+    order (key asc, ht desc, write id desc; ``drain_sorted``'s order) as
+    ONE memcmp key a row."""
+    n, W = kw_part.shape
+    buf = np.empty((n, W + 4), dtype=np.uint32)
+    buf[:, :W] = (kw_part.view(np.uint32) ^ np.uint32(0x80000000)).byteswap()
+    buf[:, W] = (~(ht_hi_part.view(np.uint32)
+                   ^ np.uint32(0x80000000))).byteswap()
+    buf[:, W + 1] = (~(ht_lo_part.view(np.uint32)
+                       ^ np.uint32(0x80000000))).byteswap()
+    w = wid.view(np.uint64)
+    buf[:, W + 2] = (~(w >> np.uint64(32)).astype(np.uint32)).byteswap()
+    buf[:, W + 3] = (~(w & np.uint64(0xFFFFFFFF)).astype(np.uint32)).byteswap()
+    return np.ascontiguousarray(buf).view(f"S{4 * (W + 4)}").reshape(n)
+
+
+def _sortkey_bytes(kw_part, ht_hi_part, ht_lo_part):
+    """[n, W] int32 key planes + ht planes -> fixed-width big-endian byte
+    strings whose memcmp order is (key asc, ht desc): the merge order, as
+    ONE comparison a row."""
+    n, W = kw_part.shape
+    buf = np.empty((n, W + 2), dtype=np.uint32)
+    buf[:, :W] = (kw_part.view(np.uint32) ^ np.uint32(0x80000000)).byteswap()
+    buf[:, W] = (~(ht_hi_part.view(np.uint32)
+                   ^ np.uint32(0x80000000))).byteswap()
+    buf[:, W + 1] = (~(ht_lo_part.view(np.uint32)
+                       ^ np.uint32(0x80000000))).byteswap()
+    return np.ascontiguousarray(buf).view(f"S{4 * (W + 2)}").reshape(n)
+
+
+def _merge_sorted(items):
+    """Stable k-way merge of presorted (indices, sort keys) pairs by a
+    pairwise searchsorted tournament: O(N log K) comparisons, all
+    vectorized. Ties keep the earlier run's rows first."""
+    while len(items) > 1:
+        nxt = []
+        for i in range(0, len(items) - 1, 2):
+            a_idx, a_keys = items[i]
+            b_idx, b_keys = items[i + 1]
+            a_dst = np.arange(a_keys.size, dtype=np.int64) + \
+                np.searchsorted(b_keys, a_keys, side="left")
+            b_dst = np.arange(b_keys.size, dtype=np.int64) + \
+                np.searchsorted(a_keys, b_keys, side="right")
+            out_n = a_keys.size + b_keys.size
+            out_keys = np.empty(out_n, dtype=a_keys.dtype)
+            out_idx = np.empty(out_n, dtype=np.int64)
+            out_keys[a_dst] = a_keys
+            out_keys[b_dst] = b_keys
+            out_idx[a_dst] = a_idx
+            out_idx[b_dst] = b_idx
+            nxt.append((out_idx, out_keys))
+        if len(items) % 2:
+            nxt.append(items[-1])
+        items = nxt
+    return items[0][0]
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:

@@ -184,6 +184,32 @@ def make_wave_rows(schema: Schema, num_keys: int, count: int, ht: int,
     return rows, ht
 
 
+def make_compact_waves(keys: list, schema: Schema, ht: int,
+                       waves: int = 3, share: float = 0.35,
+                       seed: int = 9) -> tuple:
+    """([rows of each wave], max_ht): ``bench.py:1458`` ``bench_compact``'s
+    update waves over ``keys`` (those of ``make_rows``): each wave
+    ``share`` of the key count in operations, on keys drawn uniformly,
+    each at the next hybrid time after ``ht``; 10% are DELETEs, the rest
+    one-field updates of d to a value in [-10^6, 10^6)."""
+    rng = random.Random(seed)
+    d = next(c.col_id for c in schema.columns if c.name == "d")
+    per_wave = max(1, int(len(keys) * share))
+    out = []
+    for _ in range(waves):
+        rows = []
+        for _ in range(per_wave):
+            key = keys[rng.randrange(len(keys))]
+            ht += 1
+            if rng.random() < 0.1:
+                rows.append(RowVersion(key, ht=ht, tombstone=True))
+            else:
+                rows.append(RowVersion(key, ht=ht, columns={
+                    d: rng.randrange(-10**6, 10**6)}))
+        out.append(rows)
+    return out, ht
+
+
 LONG_GROUP_LENGTHS = (1, 2, 31, 32, 33, 256)  # and R: a key filling a block
 LONG_GROUP_HT0 = 1 << 40  # hybrid times of long_group_planes start here
 
