@@ -32,7 +32,10 @@ line is printed:
    apply -> flush (the device route; the same versions built again by
    the host route must give equal host and device planes, byte for
    byte: ``flush_engine``, both flushes' parts; K12 timed beside its
-   plain version and bound: ``flush_kernel``), the headline aggregate
+   plain version and bound: ``flush_kernel``; K12's edges held byte for
+   byte: 34 columns in two calls, and ``workload.replay_inputs`` at R =
+   100, at a slot count that is not a multiple of 4, at R = 8, and a
+   chunk of 32 columns with a 2-word order column), the headline aggregate
    alone and as depth-pipelined
    ``scan_batch_async`` batches of 32 specs; every result must equal an
    exact Python-integer oracle over the generated rows, and the kernel's
@@ -115,7 +118,11 @@ line is printed:
    the headline spec at and past the cutoff against ``HistoryOracle``, a
    YCSB-E batch of 256 pages against the merged run's oracle; the
    compaction's parts, K11 timed beside its plain version, the numpy
-   twin on the same union and its bound. Then the flat engine of the
+   twin on the same union and its bound; K11's edges held byte for byte
+   against its plain version and the twin (pad rows, 42 columns, a drawn
+   union with a group of 5,000 versions whose kept span of equal hybrid
+   time crosses a tile edge, 256 columns); K11's and K12's ptxas reports
+   must show no spill and no stack frame. Then the flat engine of the
    overlay phase (after 7): its memtable flushed, its 5 runs compacted
    at the newest hybrid time (the numpy twin's route), and 64 YCSB-E
    pages against every source's history (``SourcesOracle``), on a route
@@ -167,6 +174,17 @@ engine's own launches (``rows_ab`` lines), each held byte for byte;
 PR 9's source: ``git show
 37f133e:yugabyte_db_tpu_torch/csrc/row_gather.cu >
 build/row_gather_pr9.cu``.
+``--flush-ab OTHER.cu[,...]`` times this tree's K12 against other sources
+of it in turns on one card, on the engine phase's flush and on its
+columns repeated to 34 (``flush_ab`` lines), each call held byte for
+byte; a source whose C interface differs is called through the wrapper
+saved beside it as ``OTHER.py``. The first design's: ``git show
+51fb244:yugabyte_db_tpu_torch/csrc/flush.cu > build/ab/flush_first.cu``
+and ``git show 51fb244:yugabyte_db_tpu_torch/ops/flush.py >
+build/ab/flush_first.py``. ``--compact-ab OTHER.cu[,...]`` does the same
+for K11 on the compact phase's union and on it at 42 columns
+(``compact_ab`` lines); the first design's: ``git show
+51fb244:yugabyte_db_tpu_torch/csrc/compact.cu > build/ab/compact_first.cu``.
 """
 
 from __future__ import annotations
@@ -896,7 +914,7 @@ def engine_phase(device, bw: float, rate: float) -> tuple:
     # K12 at the flush of this table, timed and held (outside the counted
     # flush).
     eng_row["k12"] = measure_k12(k12_launch, bw, rate)
-    eng_row["k12"]["edge"] = k12_wide_edge(k12_launch)
+    eng_row["k12"]["edges"] = k12_edges(k12_launch)
     eng_row["flush"] = flush_cmp
     del k12_launch
     print("flush_kernel " + json.dumps(eng_row["k12"]))
@@ -1209,31 +1227,16 @@ def resolve_ab(device, bw: float, others: list) -> None:
     with CLEARED_SHARE of their groups cleared), each kernel held
     byte for byte against the plain version, then timed in turns A B1 ..
     Bn Bn .. B1 A (``cuda_ms``)."""
-    import ctypes
-    from pathlib import Path
-
     import torch
 
     from yugabyte_db_tpu_torch import workload
-    from yugabyte_db_tpu_torch.ops import mvcc_resolve, native
+    from yugabyte_db_tpu_torch.ops import mvcc_resolve
     from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
     from yugabyte_db_tpu_torch.utils import planes as P
 
-    procs = []
-    for k, other in enumerate(others):
-        lib = native.BUILD_DIR / f"libmvcc_resolve-other{k}.so"
-        procs.append((other, lib, subprocess.Popen(
-            [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
-             str(Path(other).resolve())], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
     libs = {"A": mvcc_resolve._library()}
-    for other, lib, proc in procs:
-        log, _ = proc.communicate(timeout=600)
-        check(proc.returncode == 0, f"building {other}: {log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {other}: {line.strip()}")
-        libs[other] = mvcc_resolve.bind(ctypes.CDLL(str(lib)))
+    for other, lib in build_libs("mvcc_resolve", others).items():
+        libs[other] = mvcc_resolve.bind(lib)
     own = mvcc_resolve._library
 
     *_, load_ht, max_ht, eng, _gen, _load = mvcc_engine(device)
@@ -2936,11 +2939,136 @@ def k12_wide_edge(launch) -> dict:
     return {"columns": len(wide["cols"]), "launches": n, "max_abs_err": err}
 
 
+# K12 on drawn inputs (label, staged rows, R, value columns, pad entries,
+# a 2-word order column last, an odd block count): R not a multiple of 4
+# and a slot count that is not either, R = 8, and a chunk of 32 columns
+# whose last has two order words.
+K12_EDGES = (("R100", 300_000, 100, 3, 4096, False, False),
+             ("R100_odd_blocks", 300_001, 100, 3, 0, False, True),
+             ("R8", 50_000, 8, 2, 100, False, False),
+             ("cols32_two_words", 100_000, 100, 32, 77, True, False))
+
+
+def k12_edges(launch) -> dict:
+    """K12 past MAX_COLS value columns (``k12_wide_edge``) and on
+    ``workload.replay_inputs`` at each of K12_EDGES, each byte for byte
+    against the plain version (one call each); untimed."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flush as dflush
+
+    out = {"cols34": k12_wide_edge(launch)}
+    dev = launch[0][1].device
+    for k, (label, n, R, cols, pads, two, odd) in enumerate(K12_EDGES):
+        staged, perm, dst, gs, real = workload.replay_inputs(
+            n, R, cols, pads, seed=31 + k, two_word_last=two,
+            odd_blocks=odd)
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        tree = {name: (up(v) if name != "cols" else
+                       {cid: {f: up(x) for f, x in c.items()}
+                        for cid, c in v.items()})
+                for name, v in staged.items()}
+        args = (tree, up(perm), up(dst), up(gs), up(real), 2**31 - 1, -1, R)
+        before = dflush.replay_flush.launches
+        got = dflush.replay_flush(*args)
+        calls = dflush.replay_flush.launches - before
+        err = view_diff(got, dflush.replay_flush_plain(*args))
+        torch.cuda.synchronize() if torch.cuda.is_available() else None
+        check(err == 0 and calls == 1, f"K12 edge {label}: {calls} calls, "
+                                       f"difference {err}")
+        out[label] = {"rows": n, "R": R, "columns": cols, "pads": pads,
+                      "slots": int(real.size) * R, "launches": calls,
+                      "max_abs_err": err}
+    return out
+
+
+# K11 on drawn unions: a key group of 5,000 versions that crosses tiles
+# (and the rows a block stages) with spans of 70 equal hybrid times, the
+# cutoff at the span over a tile edge; and 256 value columns.
+K11_LONG = 5000
+
+
+def k11_union(device, s: dict, pads: int, cut) -> tuple:
+    """``workload.gc_union``'s planes spread over 4 runs at R = 2048
+    (``scatter_union``) and uploaded: the arguments of
+    ``resident_gc_mask``."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+
+    runs, idx = workload.scatter_union(s, 4, 2048, pads)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    runs_t = tuple({k: (tuple(up(x) for x in v) if k == "sets" else up(v))
+                    for k, v in r.items()} for r in runs)
+    starts = np.flatnonzero(s["new_group"]).astype(np.int32)
+    return (runs_t, up(idx), up(s["new_group"]), up(starts), cut)
+
+
+def k11_drawn_edges(device) -> dict:
+    """K11 on drawn unions, byte for byte against its plain version and
+    the numpy twin: ``long_tile_edge`` (3 columns; a group of K11_LONG
+    versions from ~1,300 rows on, its span over the first tile edge
+    inside it made alive and holding a liveness contributor, the cutoff
+    at that span: the kept span is checked to cross the edge) and
+    ``cols256`` (256 columns, a group of 1,500 versions, the cutoff
+    mid-history); untimed."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import compact
+    from yugabyte_db_tpu_torch.utils import planes as P
+
+    out = {}
+    s, _top = workload.gc_union(150, 3, ((150, K11_LONG),), pads=50,
+                                seed=17)
+    starts = np.flatnonzero(s["new_group"])
+    g0 = int(starts[150])
+    tile = compact.tile_rows(3)[0]
+    edge = (g0 // tile + 1) * tile
+    check(g0 + 40 < edge < g0 + K11_LONG - 40,
+          f"the long group [{g0}, {g0 + K11_LONG}) holds no tile edge")
+    span = (s["ht_hi"] == s["ht_hi"][edge]) & (s["ht_lo"] == s["ht_lo"][edge])
+    span[:g0] = False
+    span[g0 + K11_LONG:] = False
+    s["tomb"] = s["tomb"] & ~span
+    first = int(np.flatnonzero(span)[0])
+    s["live"][first] = True
+    s["exp_hi"][first], s["exp_lo"][first] = P.scalar_ht_planes(
+        workload.MAX_HT)
+    cut = (int(s["ht_hi"][edge]), int(s["ht_lo"][edge]),
+           int(s["ht_hi"][edge]), int(s["ht_lo"][edge]))
+    keep = compact.gc_mask_host(3, s, cut)
+    check(bool(keep[edge - 1] and keep[edge] and span[edge - 1]),
+          "the drawn union's kept span does not cross the tile edge")
+    s256, top = workload.gc_union(2000, 256, ((500, 1500),), pads=10,
+                                  seed=19)
+    c_hi, c_lo = P.scalar_ht_planes(top // 2)
+    for label, (u, pads, c) in (("long_tile_edge", (s, 50, cut)),
+                                ("cols256", (s256, 10,
+                                             (c_hi, c_lo, c_hi, c_lo)))):
+        args = k11_union(device, u, pads, c)
+        before = compact.resident_gc_mask.launches
+        got = compact.resident_gc_mask(*args)
+        check(compact.resident_gc_mask.launches - before == 1,
+              f"K11 edge {label}: not one launch")
+        out[label] = {"rows": int(args[1].shape[0]),
+                      "groups": int(args[3].shape[0]),
+                      "columns": len(args[0][0]["sets"]),
+                      "max_abs_err": hold_mask((args, got))}
+    return out
+
+
 def k11_edges(launch) -> dict:
     """K11 on the recorded launch's union with pad rows appended (idx -1,
     a group of their own) and with its columns repeated to 42 (the
-    kernel's second word of column flags), each byte for byte against
-    the plain version and the numpy twin; untimed."""
+    kernel's second word of column flags), then ``k11_drawn_edges``,
+    each byte for byte against the plain version and the numpy twin;
+    untimed."""
     import torch
 
     from yugabyte_db_tpu_torch.ops import compact
@@ -2966,6 +3094,7 @@ def k11_edges(launch) -> dict:
         out[label] = {"rows": int(args[1].shape[0]),
                       "columns": len(args[0][0]["sets"]),
                       "max_abs_err": hold_mask((args, keep))}
+    out.update(k11_drawn_edges(dev))
     return out
 
 
@@ -3052,6 +3181,38 @@ def check_pages(eng, specs, oracle, route: str, label: str,
     return {"pages": len(specs), "batch_ms": ms, "route": route}
 
 
+def compact_table(device, flat) -> SimpleNamespace:
+    """``bench.py:1458 bench_compact``'s table: the engine phase's rows
+    (``flat``) and COMPACT_WAVES waves of one-column updates of
+    COMPACT_SHARE of the keys (10% DELETEs) on a new ``gpu`` engine, each
+    flushed by the device route: COMPACT_WAVES + 1 runs past
+    HOST_GC_MASK_MAX versions, whose compaction takes K11."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage import gpu_engine, make_engine
+
+    t0 = time.perf_counter()
+    waves, max_ht = workload.make_compact_waves(
+        [r.key for r in flat.rows], flat.schema, flat.max_ht, COMPACT_WAVES,
+        COMPACT_SHARE)
+    gen_s = time.perf_counter() - t0
+    eng = make_engine("gpu", flat.schema, {"rows_per_block": 2048,
+                                           "device": device})
+    t0 = time.perf_counter()
+    eng.apply(flat.rows)
+    flush(eng, "compact")
+    for wave in waves:
+        eng.apply(wave)
+        flush(eng, "compact")
+    load_s = time.perf_counter() - t0
+    N = sum(t.crun.num_versions for t in eng.runs)
+    check(len(eng.runs) == COMPACT_WAVES + 1 and
+          N > gpu_engine.HOST_GC_MASK_MAX,
+          f"{len(eng.runs)} runs of {N} versions: the union does not take "
+          "K11")
+    return SimpleNamespace(eng=eng, waves=waves, max_ht=max_ht, N=N,
+                           gen_s=gen_s, load_s=load_s)
+
+
 def compact_phase(device, bw: float, rate: float, flat) -> dict:
     """Compaction with history GC. First ``bench.py:1458 bench_compact``'s
     shape on the bench table: ENGINE_KEYS keys (the engine phase's rows)
@@ -3070,31 +3231,14 @@ def compact_phase(device, bw: float, rate: float, flat) -> dict:
 
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.ops import compact
-    from yugabyte_db_tpu_torch.storage import gpu_engine, make_engine
     from yugabyte_db_tpu_torch.storage.cpu_engine import gc_versions
 
     t_phase = time.perf_counter()
     out = {"card": nvidia_smi()}
     schema, rows = flat.schema, flat.rows
-    t0 = time.perf_counter()
-    waves, max_ht = workload.make_compact_waves(
-        [r.key for r in rows], schema, flat.max_ht, COMPACT_WAVES,
-        COMPACT_SHARE)
-    gen_s = time.perf_counter() - t0
-    eng = make_engine("gpu", schema, {"rows_per_block": 2048,
-                                      "device": device})
-    t0 = time.perf_counter()
-    eng.apply(rows)
-    flush(eng, "compact")
-    for wave in waves:
-        eng.apply(wave)
-        flush(eng, "compact")
-    load_s = time.perf_counter() - t0
-    N = sum(t.crun.num_versions for t in eng.runs)
-    check(len(eng.runs) == COMPACT_WAVES + 1 and
-          N > gpu_engine.HOST_GC_MASK_MAX,
-          f"{len(eng.runs)} runs of {N} versions: the union does not take "
-          "K11")
+    table = compact_table(device, flat)
+    eng, waves, max_ht, N = table.eng, table.waves, table.max_ht, table.N
+    gen_s, load_s = table.gen_s, table.load_s
     t0 = time.perf_counter()
     updates = [r for wave in waves for r in wave]
     history = HistoryOracle(schema, rows, updates)
@@ -3237,9 +3381,12 @@ def compact_phase(device, bw: float, rate: float, flat) -> dict:
 def write_entries(eng_k12: dict, comp: dict) -> list:
     """The kernels line's K12 and K11 entries: K12 at the engine phase's
     flush (1,000,000 keys), its launches on every path's flushes (each
-    held byte for byte); K11 at the compact phase's 4-run union."""
+    held byte for byte); K11 at the compact phase's 4-run union; the
+    launches held on the edges, and each build's registers and stack
+    (``write_ptxas``: no spill, no stack frame)."""
     k11 = comp["k11"]
     held = sum(f["held"] for f in FLUSHES)
+    usage = write_ptxas()
     return [{
         "name": "replay_flush", "route": "cuda",
         "source": "yugabyte_db_tpu_torch/csrc/flush.cu",
@@ -3252,7 +3399,10 @@ def write_entries(eng_k12: dict, comp: dict) -> list:
         "library_note": "no single PyTorch call writes every plane of a "
                         "run from a permutation and its padding (an "
                         "index_put_ a plane is the plain version)",
-        "rows": eng_k12["rows"], "slots": eng_k12["slots"]}, {
+        "rows": eng_k12["rows"], "slots": eng_k12["slots"],
+        "edge_launches": sum(e["launches"]
+                             for e in eng_k12["edges"].values()),
+        "ptxas": usage["flush"]}, {
         "name": "gc_mask", "route": "cuda",
         "source": "yugabyte_db_tpu_torch/csrc/compact.cu",
         "replaces": "yugabyte_db_tpu/ops/compact.py:166",
@@ -3265,7 +3415,202 @@ def write_entries(eng_k12: dict, comp: dict) -> list:
         "library_note": "no single PyTorch call computes a segmented "
                         "retention mask (a scatter_reduce and cumsum "
                         "composite is the plain version)",
-        "twin_ms": k11["twin_ms"], "rows": k11["rows"]}]
+        "twin_ms": k11["twin_ms"], "rows": k11["rows"],
+        "edge_launches": len(k11["edges"]), "ptxas": usage["compact"]}]
+
+
+def write_ptxas() -> dict:
+    """K12's and K11's entry functions (``pack_kernel``, ``tile_kernel``;
+    ``gc_mask_kernel``) as ptxas reported them in this process's build:
+    registers, stack frame and spills; fails on any spill or stack frame.
+    "not measured" where the library was built by an earlier process."""
+    out = {}
+    for lib, names in (("flush", ("pack_kernel", "tile_kernel")),
+                       ("compact", ("gc_mask_kernel",))):
+        usage = ptxas_usage(lib)
+        if not usage:
+            out[lib] = "not measured"
+            continue
+        for name in names:
+            found = [u for u in usage if name in u["function"]]
+            check(bool(found), f"ptxas reported no {name}: {usage}")
+            for u in found:
+                check(u.get("spill_store_bytes", 0) == 0 and
+                      u.get("spill_load_bytes", 0) == 0 and
+                      u.get("stack_bytes", 0) == 0,
+                      f"{name}'s build spills or has a stack frame: {u}")
+        out[lib] = usage
+    print("write_ptxas " + json.dumps(out))
+    return out
+
+
+def load_module(path):
+    """The Python module at ``path``, loaded under a name of its own."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"ab_{abs(hash(str(path)))}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def build_libs(kind: str, others: list) -> dict:
+    """Each other source of a kernel built with this tree's nvcc flags (all
+    at once; their ptxas lines printed) and loaded: {path: library}."""
+    import ctypes
+    from pathlib import Path
+
+    from yugabyte_db_tpu_torch.ops import native
+
+    native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for k, other in enumerate(others):
+        lib = native.BUILD_DIR / f"lib{kind}-other{k}.so"
+        procs.append((other, lib, subprocess.Popen(
+            [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
+             str(Path(other).resolve())], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    out = {}
+    for other, lib, proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        check(proc.returncode == 0, f"building {other}: {log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {other}: {line.strip()}")
+        out[other] = ctypes.CDLL(str(lib))
+    return out
+
+
+def wrapped_libs(kind: str, others: list, own) -> dict:
+    """``build_libs``'s libraries, each bound by the wrapper module that
+    speaks its C interface: the one saved beside the source under its
+    stem (``OTHER.py``), else ``own``: {name: (library, module)}, this
+    tree's as "A"."""
+    from pathlib import Path
+
+    libs = {"A": (own._library(), own)}
+    for other, lib in build_libs(kind, others).items():
+        path = Path(other).with_suffix(".py")
+        mod = load_module(path) if path.exists() else own
+        libs[other] = (mod.bind(lib), mod)
+    return libs
+
+
+def flush_ab(device, bw: float, rate: float, others: list) -> None:
+    """This tree's K12 (A) against other sources of it (B1, ...), in turns
+    A B1 .. Bn Bn .. B1 A on one card, on the engine phase's flush (the
+    recorded launch: 1,000,000 rows, 1,048,576 slots) and on its columns
+    repeated to MAX_COLS + 2 (two calls). Another source is bound and
+    launched by the wrapper saved beside it (``wrapped_libs``), so a
+    source with an older C interface is called as its own tree called
+    it; every call's planes are held byte for byte against the plain
+    version, then timed (``cuda_ms``, the output planes allocated in the
+    timed call, as the engine's call does)."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import flush as dflush
+
+    libs = wrapped_libs("flush", others, dflush)
+    t0 = time.perf_counter()
+    flat = flat_engine(device)
+    setup_s = time.perf_counter() - t0
+    args, _out = write_log().last_flush
+    staged, *rest = args
+    cids = list(staged["cols"])
+    wide = dict(staged, cols={100 + i: staged["cols"][cids[i % len(cids)]]
+                              for i in range(dflush.MAX_COLS + 2)})
+    cases = {"engine_flush": args, "cols34": (wide, *rest)}
+    order = ["A", *others, *others[::-1], "A"]
+    print("flush_ab_setup " + json.dumps({"card": nvidia_smi(),
+                                          "setup_s": setup_s,
+                                          "ptxas": write_ptxas()}))
+    for label, a in cases.items():
+        want = dflush.replay_flush_plain(*a)
+        tree, perm, dst, gs, is_real, eh, el, R = a
+        times = {name: [] for name in libs}
+
+        def call(lib, mod):
+            out = dflush._empty_tree(tree, is_real.shape[0], R, device)
+            mod.launch(lib, tree, perm, dst, gs, is_real, eh, el, R, out,
+                       torch.cuda.current_stream(device).cuda_stream)
+            return out
+
+        for name in order:
+            lib, mod = libs[name]
+            got = call(lib, mod)
+            torch.cuda.synchronize()
+            err = view_diff(got, want)
+            check(err == 0, f"K12 {name} on {label} differs from the plain "
+                            f"version by {err}")
+            del got
+            times[name].append(cuda_ms(lambda: call(lib, mod), KERNEL_REPS,
+                                       queue_ahead=True))
+        Bp = int(is_real.shape[0])
+        n = int((dst < Bp * R).sum())
+        nbytes = dflush.replay_bytes(tree, n, int(perm.shape[0]), Bp, R)
+        print("flush_ab " + json.dumps({
+            "case": label, "rows": n, "slots": Bp * R,
+            "columns": len(tree["cols"]), "bytes": int(nbytes),
+            "bound_ms": nbytes / bw * 1e3, "ms": times}))
+    del flat
+
+
+def compact_ab(device, bw: float, rate: float, others: list) -> None:
+    """This tree's K11 (A) against other sources of it (the same C
+    interface, or the wrapper saved beside one: ``wrapped_libs``), in
+    turns A B1 .. Bn Bn .. B1 A on one card, on the compact phase's union
+    (``compact_table``: 4 runs, 2,050,000 rows, compacted at the newest
+    hybrid time; the recorded launch) and on it with its columns repeated
+    to 42; every launch held byte for byte against the plain version and
+    the numpy twin, then timed (``cuda_ms``)."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import compact
+
+    libs = wrapped_libs("compact", others, compact)
+    t0 = time.perf_counter()
+    flat = flat_engine(device)
+    table = compact_table(device, flat)
+    log = write_log()
+    log.masks = []
+    table.eng.compact(table.max_ht)
+    check(table.eng.compact_paths["k11"] == 1,
+          f"compaction routes {table.eng.compact_paths}")
+    (runs, idx, new_group, starts, cut), _keep = log.masks[-1]
+    setup_s = time.perf_counter() - t0
+    wide = tuple(dict(r, sets=tuple(r["sets"][i % len(r["sets"])]
+                                    for i in range(42))) for r in runs)
+    cases = {"compact_union": (runs, idx, new_group, starts, cut),
+             "cols42": (wide, idx, new_group, starts, cut)}
+    order = ["A", *others, *others[::-1], "A"]
+    print("compact_ab_setup " + json.dumps({"card": nvidia_smi(),
+                                            "setup_s": setup_s,
+                                            "ptxas": write_ptxas()}))
+    for label, a in cases.items():
+        rp, ix, _ng, st, ct = a
+        times = {name: [] for name in libs}
+
+        def call(lib, mod):
+            keep = torch.empty(ix.shape[0], dtype=torch.bool, device=device)
+            mod.launch(lib, rp, ix, st, ct, keep,
+                       torch.cuda.current_stream(device).cuda_stream)
+            return keep
+
+        for name in order:
+            lib, mod = libs[name]
+            hold_mask((a, call(lib, mod)))
+            times[name].append(cuda_ms(lambda: call(lib, mod), KERNEL_REPS,
+                                       queue_ahead=True))
+        num_cols = len(rp[0]["sets"])
+        nbytes = compact.mask_bytes(num_cols, int(ix.shape[0]),
+                                    int(st.shape[0]))
+        print("compact_ab " + json.dumps({
+            "case": label, "rows": int(ix.shape[0]),
+            "groups": int(st.shape[0]), "columns": num_cols,
+            "bytes": int(nbytes), "bound_ms": nbytes / bw * 1e3,
+            "ms": times}))
+    del table, flat
 
 
 def compact_alone(device, bw: float, rate: float) -> None:
@@ -3278,7 +3623,7 @@ def compact_alone(device, bw: float, rate: float) -> None:
     flat = flat_engine(device)
     flush_against_host_build(flat, device)
     k12 = measure_k12(write_log().last_flush, bw, rate)
-    k12["edge"] = k12_wide_edge(write_log().last_flush)
+    k12["edges"] = k12_edges(write_log().last_flush)
     print("flush_kernel " + json.dumps(k12))
     ht = flat.max_ht
     for w in range(WAVES + 1):
@@ -3792,28 +4137,13 @@ def group_ab(device, bw: float, others: list) -> None:
     over GROUP_AB_ROWS lineitem rows, each kernel held byte for byte
     against the plain version, then timed in turns A B1 .. Bn Bn .. B1 A
     (``cuda_ms``)."""
-    import ctypes
-    from pathlib import Path
-
     import torch
 
-    from yugabyte_db_tpu_torch.ops import group_agg, native
+    from yugabyte_db_tpu_torch.ops import group_agg
 
-    procs = []
-    for k, other in enumerate(others):
-        lib = native.BUILD_DIR / f"libgroup_agg-other{k}.so"
-        procs.append((other, lib, subprocess.Popen(
-            [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
-             str(Path(other).resolve())], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
     libs = {}
-    for other, lib, proc in procs:
-        log, _ = proc.communicate(timeout=600)
-        check(proc.returncode == 0, f"building {other}: {log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {other}: {line.strip()}")
-        libs[other] = group_agg.bind(ctypes.CDLL(str(lib)))
+    for other, lib in build_libs("group_agg", others).items():
+        libs[other] = group_agg.bind(lib)
     ctx = lineitem_engine(device, GROUP_AB_ROWS)
     order = ["A", *others, *others[::-1], "A"]
     for label, specs in k8_cases(ctx.max_ht + 1, GROUP_AB_ROWS).items():
@@ -3850,31 +4180,15 @@ def rows_ab(device, bw: float, rate: float, others: list) -> None:
     and 64 windows (the wide scan over the multi-version table and a live
     memtable). Each kernel held byte for byte against the plain version,
     then timed in turns A B1 .. Bn Bn .. B1 A (``cuda_ms``)."""
-    import ctypes
-    from pathlib import Path
-
     import torch
 
     from yugabyte_db_tpu_torch import workload
-    from yugabyte_db_tpu_torch.ops import native
     from yugabyte_db_tpu_torch.ops import row_gather as rg
     from yugabyte_db_tpu_torch.storage import ScanSpec
 
-    procs = []
-    for k, other in enumerate(others):
-        lib = native.BUILD_DIR / f"librow_gather-other{k}.so"
-        procs.append((other, lib, subprocess.Popen(
-            [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
-             str(Path(other).resolve())], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
     libs = {"A": rg._library()}
-    for other, lib, proc in procs:
-        log, _ = proc.communicate(timeout=600)
-        check(proc.returncode == 0, f"building {other}: {log}")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {other}: {line.strip()}")
-        libs[other] = rg.bind(ctypes.CDLL(str(lib)))
+    for other, lib in build_libs("row_gather", others).items():
+        libs[other] = rg.bind(lib)
     own = rg._library
 
     t0 = time.perf_counter()
@@ -4119,6 +4433,12 @@ def main() -> int:
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--rows-ab":
         rows_ab(device, bw, rate, sys.argv[2].split(","))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--flush-ab":
+        flush_ab(device, bw, rate, sys.argv[2].split(","))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--compact-ab":
+        compact_ab(device, bw, rate, sys.argv[2].split(","))
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--rows":
         rows_alone(device, bw, rate)

@@ -25,6 +25,7 @@ import torch
 import yugabyte_db_tpu.storage as J
 import yugabyte_db_tpu.storage.tpu_engine as TE
 import yugabyte_db_tpu_torch.storage as T
+from yugabyte_db_tpu_torch import workload
 from test_torch_data import JAX, MAX_HT, PORT, jax_rows, plain_planes
 from yugabyte_db_tpu.ops import compact as j_compact
 from yugabyte_db_tpu_torch.ops import compact as t_compact
@@ -285,6 +286,95 @@ def test_resident_gc_mask_on_the_cpu_equals_jax():
         torch.from_numpy(np.flatnonzero(new_group).astype(np.int32)), cut)
     assert np.array_equal(got.numpy(), want)
     assert t_compact.resident_gc_mask.launches == 0  # CPU: no kernel
+
+
+# -- K11's edge shapes: a key group of ~5,000 versions, 40 columns ---------------
+
+LONG = 5000
+
+
+@pytest.fixture(scope="module")
+def long_union():
+    """``workload.gc_union``: 200 groups, 40 columns, a group of LONG
+    versions in spans of 70 equal hybrid times, 24 pad rows."""
+    return workload.gc_union(200, 40, ((50, LONG),), pads=24, seed=21)
+
+
+@pytest.mark.parametrize("where", ["zero", "mid", "newest"])
+def test_gc_mask_on_a_long_group_equals_jax_and_twins(long_union, where):
+    s, top = long_union
+    cutoff = {"zero": 0, "mid": top // 2, "newest": top}[where]
+    c_hi, c_lo = P.scalar_ht_planes(cutoff)
+    cut = (c_hi, c_lo, c_hi, c_lo)
+    N = s["ht_hi"].shape[0]
+    js = {k: jnp.asarray(np.stack(v) if k == "set_" else v)
+          for k, v in s.items()}
+    want = np.asarray(j_compact.compiled_gc_mask(40, N)(
+        js, tuple(jnp.int32(x) for x in cut)))
+    ts = {k: torch.from_numpy(np.stack(v) if k == "set_" else v)
+          for k, v in s.items()}
+    assert np.array_equal(t_compact.gc_mask_plain(40, ts, cut).numpy(), want)
+    assert np.array_equal(t_compact.gc_mask_host(40, s, cut), want)
+    assert np.array_equal(j_compact.gc_mask_host(40, s, cut), want)
+    if where == "mid":
+        assert not want.all() and want.any()
+
+
+def test_resident_gc_mask_on_a_long_group_equals_jax(long_union):
+    """The long union spread over 4 runs' [B, 64] planes
+    (``workload.scatter_union``): the wrapper on CPU tensors equals the
+    JAX ``resident_gc_mask``."""
+    s, top = long_union
+    runs, idx = workload.scatter_union(s, 4, 64, pads=24)
+    c_hi, c_lo = P.scalar_ht_planes(top // 2)
+    cut = (c_hi, c_lo, c_hi, c_lo)
+    want = np.asarray(j_compact.resident_gc_mask(
+        tuple({k: (tuple(jnp.asarray(x) for x in v) if k == "sets"
+                   else jnp.asarray(v)) for k, v in r.items()}
+              for r in runs),
+        jnp.asarray(idx), jnp.asarray(s["new_group"]),
+        tuple(jnp.int32(x) for x in cut)))
+    got = t_compact.resident_gc_mask(
+        tuple({k: (tuple(torch.from_numpy(x) for x in v) if k == "sets"
+                   else torch.from_numpy(v)) for k, v in r.items()}
+              for r in runs),
+        torch.from_numpy(idx), torch.from_numpy(s["new_group"]),
+        torch.from_numpy(np.flatnonzero(s["new_group"]).astype(np.int32)),
+        cut)
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(got.numpy(), t_compact.gc_mask_host(40, s, cut))
+
+
+@pytest.mark.parametrize("num_cols", [3, 40, 256])
+def test_tile_plan_owns_every_group_once(long_union, num_cols):
+    """K11's blocks: every key group is owned by exactly one tile, the
+    one holding its first row, and a block stages its groups' rows from
+    the first, at most ``tile_rows(...)[1]`` of them."""
+    tile, cap = t_compact.tile_rows(num_cols)
+    assert cap >= tile
+    for starts, N in ((np.flatnonzero(long_union[0]["new_group"]),
+                       long_union[0]["new_group"].shape[0]),
+                      (np.arange(0, 10_000, 3), 10_001),
+                      (np.array([0]), 3 * tile + 5)):
+        plan = t_compact.tile_plan(starts, N, num_cols)
+        assert len(plan) == -(-N // tile)
+        owned = []
+        for b, (ga, gb, lo, staged) in enumerate(plan):
+            owned += range(ga, gb)
+            if ga == gb:
+                continue
+            assert b * tile <= starts[ga] and starts[gb - 1] < (b + 1) * tile
+            end = starts[gb] if gb < starts.size else N
+            assert lo == starts[ga] and staged == min(cap, end - lo)
+        assert owned == list(range(starts.size))
+
+
+def test_shared_bytes_fit_a_block():
+    """K11's shared memory stays under a block's 227 KB at 256 columns
+    (two blocks an SM) and lets 4 blocks share an SM at 3 columns."""
+    assert 2 * t_compact.shared_bytes(256, 64) <= 232_448
+    assert 4 * t_compact.shared_bytes(3, 4) <= 232_448
+    assert t_compact.shared_bytes(3, 65) < t_compact.shared_bytes(3, 64)
 
 
 # -- the engine ----------------------------------------------------------------

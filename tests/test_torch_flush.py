@@ -27,6 +27,7 @@ import torch
 import yugabyte_db_tpu.storage as J
 import yugabyte_db_tpu.storage.tpu_engine  # noqa: F401  (registers 'tpu')
 import yugabyte_db_tpu_torch.storage as T
+from yugabyte_db_tpu_torch import workload
 from test_torch_data import (JAX, MAX_HT, PORT, build_run, jax_rows,
                              make_schema, plain_planes)
 from yugabyte_db_tpu.ops import flush as j_flush
@@ -169,7 +170,8 @@ def staged_inputs(schema, rows, R):
     return tree, perm, dst, gs, is_real
 
 
-@pytest.mark.parametrize("n,r", [(200, 64), (333, 16), (1500, 2048)])
+@pytest.mark.parametrize("n,r", [(200, 64), (333, 16), (1500, 2048),
+                                 (700, 100)])
 def test_replay_flush_plain_equals_jax(n, r):
     ps = make_schema(PORT, "mixed")
     rows, _ = sample_rows(ps, n=n, seed=n)
@@ -191,6 +193,85 @@ def test_replay_flush_plain_equals_jax(n, r):
     assert t_flush.flush_plane_nbytes(is_real.shape[0], r, ps) == \
         j_flush.flush_plane_nbytes(is_real.shape[0], r,
                                    make_schema(JAX, "mixed"))
+
+
+def to_torch_tree(tree):
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a))
+
+    return {k: (t(v) if k != "cols" else
+                {cid: {kk: t(vv) for kk, vv in c.items()}
+                 for cid, c in v.items()}) for k, v in tree.items()}
+
+
+# Drawn inputs (workload.replay_inputs): R, value columns, pad entries, a
+# 2-word order column last, an odd block count.
+DRAWN = [(100, 34, 30, True, False), (100, 3, 0, False, True),
+         (8, 5, 17, False, False), (2048, 32, 9, True, False)]
+
+
+@pytest.mark.parametrize("R,cols,pads,two,odd", DRAWN)
+def test_replay_flush_plain_equals_jax_on_drawn_inputs(R, cols, pads, two,
+                                                       odd):
+    """K12's edge shapes (R = 100 with a 2-word order column in a chunk of
+    32 and past it, a slot count that is not a multiple of 4, R = 8):
+    the plain version equals the JAX ``replay_flush``."""
+    staged, perm, dst, gs, is_real = workload.replay_inputs(
+        333, R, cols, pads, seed=R + cols, two_word_last=two, odd_blocks=odd)
+    want = jax.tree.map(np.asarray, jax.device_get(j_flush.replay_flush(
+        staged, perm, dst, gs, is_real, 2**31 - 1, -1, R=R)))
+    got = t_flush.replay_flush(
+        to_torch_tree(staged), *(torch.from_numpy(a) for a in
+                                 (perm, dst, gs, is_real)),
+        2**31 - 1, -1, R)
+    assert_trees_equal(got, want)
+
+
+@pytest.mark.parametrize("widths,ariths", [
+    ((), ()), ((1,), (True,)), ((2, 1, 2), (True, True, False)),
+    ((2,) * 32, (True,) * 32), ((1, 2) * 16, (False, True) * 16)])
+@pytest.mark.parametrize("top", [True, False])
+def test_record_layout_covers_every_plane(widths, ariths, top):
+    """K12's record: every plane of a staged row has its own words (the
+    hybrid time and expiry only in the first chunk's), the flag bytes
+    fit their words, and records are whole 16-byte units."""
+    lay = t_flush.record_layout(widths, ariths, top)
+    owner = {}
+
+    def take(word, what):
+        assert 0 <= word < lay["stride"] and word not in owner, (word, what)
+        owner[word] = what
+
+    for k in range(4 if top else 0):
+        take(k, f"top {k}")
+    n_flag_words = (2 + 2 * len(widths) + 3) // 4
+    assert 4 * n_flag_words >= 2 + 2 * len(widths)
+    for k in range(n_flag_words):
+        take(lay["flags"] + k, "flags")
+    for c, (w, a) in enumerate(zip(widths, ariths)):
+        for q in range(w):
+            take(lay["cmp"][c] + q, f"cmp {c}")
+        assert (lay["arith"][c] >= 0) == a
+        if a:
+            take(lay["arith"][c], f"arith {c}")
+    assert lay["stride"] % 4 == 0 and lay["stride"] - len(owner) < 4
+
+
+def test_scratch_words_is_the_widest_chunk():
+    """The scratch the calls of one flush share holds a record of the
+    widest chunk's layout for each staged row."""
+    staged, *_ = workload.replay_inputs(50, 64, 34, two_word_last=True)
+    cols = list(staged["cols"].values())
+
+    def stride(chunk, top):
+        return t_flush.record_layout([c["cmp"].shape[1] for c in chunk],
+                                     ["arith" in c for c in chunk],
+                                     top)["stride"]
+
+    want = 50 * max(stride(cols[:32], True), stride(cols[32:], False))
+    assert t_flush.scratch_words(staged) == want
+    one, *_ = workload.replay_inputs(7, 8, 0)
+    assert t_flush.scratch_words(one) == 7 * stride([], True)
 
 
 def test_device_flush_planes_identical_to_host_build():

@@ -23,7 +23,10 @@ exactly as ``storage.cpu_engine.gc_versions`` decides it key by key.
   bits and the group starts travel to the card. On CPU tensors it gathers
   the planes and runs ``gc_mask_plain``. ``resident_gc_mask.launches``
   counts launches;
-- ``mask_bytes``: the bytes the function must move, for the bound.
+- ``mask_bytes``: the bytes the function must move, for the bound;
+- ``tile_rows`` / ``tile_plan`` / ``shared_bytes``: the kernel's tiles of
+  union rows (a block owns the key groups that start in its tile and
+  stages them in shared memory), mirrored for the tests.
 
 Pad rows (``idx`` < 0) read as the JAX function fills them: hybrid time
 and expiry 0, no tombstone, no liveness, no column set; they never
@@ -45,6 +48,8 @@ from yugabyte_db_tpu_torch.ops import native
 _PAD_ZLO = -(1 << 31)  # low plane of hybrid time 0 (bias-flipped)
 _SENTINEL = -(1 << 31)  # no visible tombstone (a real hi plane is >= 0)
 MAX_COLS = 256  # value columns one launch takes; csrc/compact.cu kMaxCols
+_WARPS = 8  # csrc/compact.cu kWarps
+_SHARED_RUNS = 64  # csrc/compact.cu kSharedRuns
 # Planes of a run in the kernel's pointer table; each column's set plane
 # follows.
 _RUN_PLANES = ("ht_hi", "ht_lo", "exp_hi", "exp_lo", "tomb", "live")
@@ -304,6 +309,44 @@ def launch(lib: ctypes.CDLL, runs_planes, idx, group_starts,
     if rc != 0:
         raise RuntimeError(f"gc_mask kernel launch failed ({rc}): "
                            f"{lib.gc_mask_error_string(rc).decode()}")
+
+
+def tile_rows(num_cols: int) -> tuple:
+    """(union rows a tile, union rows a block stages) of
+    ``csrc/compact.cu`` at ``num_cols`` value columns."""
+    tile = 2048 if num_cols <= 32 else 1024
+    return tile, tile * 3 // 2
+
+
+def tile_plan(group_starts: np.ndarray, N: int, num_cols: int) -> list:
+    """The kernel's blocks over a union of N rows: for each, ``(ga, gb,
+    lo, staged)``: it owns the key groups [ga, gb), those whose first row
+    lies in its tile, and stages union rows [lo, lo + staged) (its groups'
+    rows, at most ``tile_rows(num_cols)[1]``; a group's rows past them are
+    read from the runs). A block that owns no group has gb == ga."""
+    tile, cap = tile_rows(num_cols)
+    starts = np.asarray(group_starts, dtype=np.int64)
+    out = []
+    for t0 in range(0, N, tile):
+        ga, gb = (int(x) for x in np.searchsorted(
+            starts, [t0, min(t0 + tile, N)], side="left"))
+        if ga == gb:
+            out.append((ga, gb, 0, 0))
+            continue
+        lo = int(starts[ga])
+        hi = int(starts[gb]) if gb < starts.size else N
+        out.append((ga, gb, lo, min(cap, hi - lo)))
+    return out
+
+
+def shared_bytes(num_cols: int, n_runs: int) -> int:
+    """Dynamic shared memory of a block of ``csrc/compact.cu``: each staged
+    row's key (8), set words (4 a 32 columns), flag and keep bytes; the run
+    offsets (8 a run, up to 64 runs); each warp's contributor spans."""
+    _tile, cap = tile_rows(num_cols)
+    words = (num_cols + 31) // 32
+    offs = 8 * (n_runs + 1) if n_runs <= _SHARED_RUNS else 0
+    return cap * (8 + 4 * words + 2) + offs + 4 * _WARPS * 2 * (num_cols + 1)
 
 
 def mask_bytes(num_cols: int, N: int, n_groups: int) -> int:

@@ -23,7 +23,9 @@ so both are byte-identical by construction.
 - ``flush_plane_nbytes``: the JAX function's device footprint estimate of
   the replayed planes (its budget gate waits for the residency budget,
   ROADMAP.md §1 item 11);
-- ``replay_bytes``: the bytes the function must move, for the bound.
+- ``replay_bytes``: the bytes the function must move, for the bound;
+- ``record_layout``: where each plane of a staged row lies in the record
+  that the kernel's first pass packs (its scratch is ``n`` records).
 
 Only the plain ``cmp`` route: the dictionary ``codes`` route of string
 columns comes with the encoded planes (item 8).
@@ -158,8 +160,8 @@ def _check(staged, perm, dst, gs, is_real) -> torch.device:
 
 def replay_flush(staged: dict, perm, dst, gs, is_real, exp_hi_default: int,
                  exp_lo_default: int, R: int) -> dict:
-    """``replay_flush_plain``'s function: K12 for CUDA tensors (one launch
-    for every plane, ``MAX_COLS`` value columns a launch), the plain
+    """``replay_flush_plain``'s function: K12 for CUDA tensors (one call
+    for every plane, ``MAX_COLS`` value columns a call), the plain
     version for CPU tensors, and a raise for anything else. The kernel
     inverts ``dst`` a tile of slots at a time, so it takes ``dst``
     ascending, strictly over its in-range entries (the flush's packing
@@ -195,25 +197,71 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
         ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_void_p]
     lib.replay_flush_launch.restype = ctypes.c_int
     lib.replay_flush_error_string.argtypes = [ctypes.c_int]
     lib.replay_flush_error_string.restype = ctypes.c_char_p
     return lib
 
 
+def record_layout(widths, has_arith, top: bool) -> dict:
+    """Where each plane of a staged row lies in the 32-bit words of its
+    record, as ``csrc/flush.cu`` packs it for a chunk of columns of order
+    widths ``widths`` (1 or 2) and arithmetic planes ``has_arith``:
+    ``top`` (the first chunk) leads with hybrid time and expiry (words
+    0-3); then the flag words (byte 0 tombstone, 1 liveness, 2 + 2c
+    column c's set, 3 + 2c its isnull); then each column's order words
+    (``cmp[c]``) and arithmetic word (``arith[c]``, -1: none).
+    ``stride``, the words a record, is a multiple of 4, so that every
+    record starts 16-byte aligned."""
+    words = 4 if top else 0
+    flags = words
+    words += (2 + 2 * len(widths) + 3) // 4
+    cmp, arith = [], []
+    for w, a in zip(widths, has_arith):
+        cmp.append(words)
+        words += w
+        arith.append(words if a else -1)
+        words += 1 if a else 0
+    return {"stride": (words + 3) // 4 * 4, "flags": flags, "cmp": cmp,
+            "arith": arith}
+
+
+def _chunks(staged: dict) -> list:
+    """The value columns' ids in chunks of ``MAX_COLS``, one a call (at
+    least one, which writes the planes every row has)."""
+    cids = list(staged["cols"])
+    return [cids[k:k + MAX_COLS] for k in range(0, max(len(cids), 1),
+                                                MAX_COLS)]
+
+
+def scratch_words(staged: dict) -> int:
+    """32-bit words of the records' scratch the calls share: a record of
+    the widest chunk's layout for each staged row."""
+    cols = staged["cols"]
+    return staged["ht_hi"].shape[0] * max(
+        record_layout([cols[cid]["cmp"].shape[1] for cid in chunk],
+                      ["arith" in cols[cid] for cid in chunk],
+                      k == 0)["stride"]
+        for k, chunk in enumerate(_chunks(staged)))
+
+
 def launch(lib: ctypes.CDLL, staged: dict, perm, dst, gs, is_real,
            exp_hi_default: int, exp_lo_default: int, R: int, out: dict,
            stream: int) -> int:
-    """The launches of ``lib``'s ``replay_flush_launch`` (a bound library
-    of ``csrc/flush.cu``'s C interface) on ``stream`` that write ``out``
-    (``_empty_tree``'s layout), one a chunk of ``MAX_COLS`` value columns;
-    returns their count, raises on a refused launch."""
-    cids = list(staged["cols"])
-    count = 0
-    for k in range(0, max(len(cids), 1), MAX_COLS):
-        chunk = cids[k:k + MAX_COLS]
+    """The calls of ``lib``'s ``replay_flush_launch`` (a bound library of
+    ``csrc/flush.cu``'s C interface) on ``stream`` that write ``out``
+    (``_empty_tree``'s layout), one a chunk of ``MAX_COLS`` value columns,
+    each packing the chunk's records into one scratch of the largest
+    chunk's size (``torch.empty``); returns their count, raises on a
+    refused launch."""
+    chunks = _chunks(staged)
+    n = staged["ht_hi"].shape[0]
+    scratch = torch.empty(max(1, scratch_words(staged)), dtype=torch.int32,
+                          device=perm.device)
+    for k, chunk in enumerate(chunks):
         ins = [staged[name] for name in _TOP]
         outs = [out[name] for name in _OUT_TOP]
         for cid in chunk:
@@ -230,14 +278,14 @@ def launch(lib: ctypes.CDLL, staged: dict, perm, dst, gs, is_real,
             in_ptrs, out_ptrs, widths, len(chunk), k == 0,
             ctypes.c_void_p(perm.data_ptr()), ctypes.c_void_p(dst.data_ptr()),
             ctypes.c_void_p(gs.data_ptr()),
-            ctypes.c_void_p(is_real.data_ptr()), perm.shape[0],
+            ctypes.c_void_p(is_real.data_ptr()), perm.shape[0], n,
             is_real.shape[0], R, exp_hi_default, exp_lo_default,
+            ctypes.c_void_p(scratch.data_ptr()), 4 * scratch.numel(),
             ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"replay_flush kernel launch failed ({rc}): "
                                f"{lib.replay_flush_error_string(rc).decode()}")
-        count += 1
-    return count
+    return len(chunks)
 
 
 def flush_plane_nbytes(Bp: int, R: int, schema) -> int:

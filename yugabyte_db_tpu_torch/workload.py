@@ -18,6 +18,12 @@ money), a seeded numpy generator with the same value distributions as
 ``generate_lineitem``, and the Q1/Q6 specs. ``make_lineitem_updates``
 rewrites single fields of zipfian keys, which makes the run
 multi-version.
+
+The write side's kernels get inputs laid out for their hard cases:
+``replay_inputs`` (the flush's staged planes, order and packing at any R
+and column mix) and ``gc_union`` / ``scatter_union`` (a sorted union with
+long key groups and spans of equal hybrid time, spread over several
+runs' resident planes).
 """
 
 from __future__ import annotations
@@ -312,6 +318,158 @@ def long_group_planes(n_rows: int, R: int, seed: int = 7) -> dict:
             "arith": plane(np.where(keep, values, 0).astype(np.float32), 0,
                            np.float32)}
     return planes
+
+
+def replay_inputs(n: int, R: int, num_cols: int, pads: int = 0,
+                  seed: int = 5, two_word_last: bool = False,
+                  odd_blocks: bool = False) -> tuple:
+    """Inputs of ``ops.flush.replay_flush`` as numpy, drawn rather than
+    flushed: ``(staged, perm, dst, gs, is_real)``. ``n`` staged rows in
+    apply order (random planes, ~30% tombstones, half with liveness;
+    each of ``num_cols`` columns of 1 or 2 order words, 60% with an
+    arithmetic plane, and the last of 2 words if ``two_word_last``), a
+    random flush order ``perm`` of them, then ``pads`` pad entries (perm
+    0, dst past the last slot) as the JAX engine pads to a power of two;
+    ``dst`` packs the sorted positions into blocks of at most R rows (a
+    block closed early now and then), ascending; Bp blocks: a multiple of
+    8 with padding blocks after the real ones, or the real ones rounded
+    up to an odd count (``odd_blocks``: a slot count that need not be a
+    multiple of 4)."""
+    rng = np.random.default_rng(seed)
+    perm = np.concatenate([rng.permutation(n), np.zeros(pads, np.int64)])
+    block = np.cumsum((rng.random(n) < 0.15) & (np.arange(n) > 0))
+    dst, b, off = np.empty(n, np.int64), 0, 0
+    for j in range(n):  # a new block when this one is full or closes early
+        if j and (off == R or block[j] != block[j - 1]):
+            b, off = b + 1, 0
+        dst[j] = b * R + off
+        off += 1
+    B = b + 1 if n else 0
+    Bp = (B | 1) if odd_blocks else (B + 7) // 8 * 8 + 8 * int(
+        rng.random() < 0.5)
+    dst = np.concatenate([dst, np.full(pads, Bp * R, np.int64)])
+    gs = rng.random(n + pads) < 0.4
+    is_real = np.arange(Bp) < B
+
+    def words(k):
+        return rng.integers(-2**31, 2**31, k, dtype=np.int64).astype(
+            np.int32)
+
+    staged = {"ht_hi": words(n), "ht_lo": words(n), "exp_hi": words(n),
+              "exp_lo": words(n), "tomb": rng.random(n) < 0.3,
+              "live": rng.random(n) < 0.5, "cols": {}}
+    for c in range(num_cols):
+        w = 2 if two_word_last and c == num_cols - 1 else int(
+            rng.integers(1, 3))
+        col = {"set": rng.random(n) < 0.6, "isnull": rng.random(n) < 0.2,
+               "cmp": words(n * w).reshape(n, w)}
+        if rng.random() < 0.6:
+            col["arith"] = rng.standard_normal(n).astype(np.float32)
+        staged["cols"][100 + c] = col
+    return (staged, perm.astype(np.int32), dst.astype(np.int32), gs,
+            is_real)
+
+
+GC_GROUP_LENGTHS = (1, 1, 2, 3, 5, 9, 40)
+
+
+def gc_union(n_groups: int, num_cols: int, long_groups=(), pads: int = 0,
+             seed: int = 1, span: int = 70) -> tuple:
+    """A sorted union (key groups, hybrid time not increasing inside
+    each) for the retention mask's hard cases, as numpy planes in the
+    form ``ops.compact.gc_mask_plain`` takes (``set_`` a list of
+    columns). ``n_groups`` groups of lengths drawn from
+    ``GC_GROUP_LENGTHS`` (about half of those past 2 rows with two equal
+    hybrid times side by side), and ``long_groups``, (position, length)
+    pairs, inserted at those positions: their hybrid times run in spans
+    of ``span`` equal ones, and each column is set on 2% of their rows.
+    ~12% tombstones; of the other rows ~30% carry the liveness marker and
+    each column is set on half (short groups); 15% of the rows expire.
+    Then ``pads`` pad rows in a group of their own (hybrid time and
+    expiry 0, no flag). Returns (planes, the newest hybrid time)."""
+    rng = np.random.default_rng(seed)
+    plan = [int(x) for x in rng.choice(GC_GROUP_LENGTHS, n_groups)]
+    for pos, length in sorted(long_groups, reverse=True):
+        plan.insert(pos, length)
+    hts, new_group = [], []
+    for n in plan:
+        if n > 100:
+            h = np.repeat(np.sort(rng.integers(1, 3000, -(-n // span)))[::-1],
+                          span)[:n]
+        else:
+            h = np.sort(rng.integers(1, 3000, n))[::-1]
+            if n > 2 and rng.random() < 0.5:
+                j = int(rng.integers(0, n - 1))
+                h[j + 1] = h[j]
+        hts.append(h)
+        new_group.append(np.arange(n) == 0)
+    sizes = np.array(plan, np.int64)
+    ht = np.concatenate(hts) if plan else np.zeros(0, np.int64)
+    N = ht.size
+    long_row = np.repeat(sizes > 100, sizes)
+    tomb = rng.random(N) < 0.12
+    live = ~tomb & (rng.random(N) < 0.3)
+    exp = np.where(rng.random(N) < 0.15, ht + rng.integers(1, 400, N),
+                   MAX_HT)
+    share = np.where(long_row, 0.02, 0.5)
+    sets = [~tomb & (rng.random(N) < share) for _ in range(num_cols)]
+    ht_hi, ht_lo = P.ht_to_planes(ht.astype(np.int64))
+    exp_hi, exp_lo = P.ht_to_planes(exp.astype(np.int64))
+    zlo = np.int32(-(1 << 31))
+
+    def padded(arr, fill):
+        return np.concatenate([arr, np.full(pads, fill, arr.dtype)])
+
+    s = {"ht_hi": padded(ht_hi, np.int32(0)), "ht_lo": padded(ht_lo, zlo),
+         "exp_hi": padded(exp_hi, np.int32(0)),
+         "exp_lo": padded(exp_lo, zlo), "tomb": padded(tomb, False),
+         "live": padded(live, False),
+         "new_group": np.concatenate(
+             new_group + [np.arange(pads) == 0]).astype(bool),
+         "set_": [padded(c, False) for c in sets]}
+    return s, int(ht.max()) if N else 0
+
+
+def scatter_union(s: dict, n_runs: int, R: int, pads: int = 0,
+                  seed: int = 3) -> tuple:
+    """The union ``s`` (``gc_union``'s planes, its last ``pads`` rows pad
+    rows) spread over ``n_runs`` runs of [B, R] resident planes, as a
+    compaction's merge order reads them: each row goes to a random run,
+    after that run's earlier rows with a gap now and then; a pad row goes
+    to none. Returns (runs: a dict of numpy planes a run, with ``sets`` a
+    list of columns; idx: int32 flat rows into the runs' concatenated
+    planes, -1 for a pad row)."""
+    rng = np.random.default_rng(seed)
+    real = np.arange(s["ht_hi"].size - pads)
+    run_of = rng.integers(0, n_runs, real.size)
+    pos = np.zeros(real.size, np.int64)
+    counts = []
+    for r in range(n_runs):
+        sel = run_of == r
+        steps = 1 + (rng.random(int(sel.sum())) < 0.1)
+        pos[sel] = np.cumsum(steps) - 1
+        counts.append(int(pos[sel].max()) + 1 if sel.any() else 0)
+    blocks = [max(1, -(-c // R)) for c in counts]
+    offsets = np.concatenate([[0], np.cumsum(blocks) * R])
+    idx = np.full(s["ht_hi"].size, -1, np.int64)
+    idx[real] = offsets[run_of] + pos
+    num_cols = len(s["set_"])
+    runs = []
+    for r, B in enumerate(blocks):
+        sel = real[run_of == r]
+        flat = pos[run_of == r]
+        run = {}
+        for k in ("ht_hi", "ht_lo", "exp_hi", "exp_lo", "tomb", "live"):
+            plane = np.zeros(B * R, s[k].dtype)
+            plane[flat] = s[k][sel]
+            run[k] = plane.reshape(B, R)
+        run["sets"] = []
+        for c in range(num_cols):
+            plane = np.zeros(B * R, bool)
+            plane[flat] = s["set_"][c][sel]
+            run["sets"].append(plane.reshape(B, R))
+        runs.append(run)
+    return runs, idx.astype(np.int32)
 
 
 def row_edge_planes(n_rows: int, R: int, K: int, seed: int = 7,
