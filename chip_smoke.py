@@ -127,7 +127,28 @@ line is printed:
    at the newest hybrid time (the numpy twin's route), and 64 YCSB-E
    pages against every source's history (``SourcesOracle``), on a route
    that is no longer the row scan over several sources;
-9. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
+9. full: the windowed fold K5 (``ops.full_agg``, ``csrc/full_agg.cu``)
+   past the flat fold's bounds. ``workload.flat_planes`` at 16,896
+   blocks of R = 2048 (34,603,008 rows: two i32, an i64, an f32, an f64
+   and a never-set column; made from a seed in numpy and uploaded,
+   seconds printed): COUNT(*), f64 and f32 SUM/MIN/MAX, an f64 range
+   predicate, 9 aggregates, a bounded range starting mid-window, a
+   mid-history read point and a 32-spec batch, each held against the
+   plain version (ivec exactly, float sums within 1e-5 x the sum of |x|,
+   f32 extremes exactly) and timed beside its bound
+   (``full_signature``); the launch shape the library reports must equal
+   ``full_agg.launch_geometry``. Edges, exact and untimed: an empty range
+   and a first window past 0, 18 value columns at 1,048,576 rows, and
+   the view of the mvcc phase's run at its newest read point. Then the
+   engine: the bench table at 1,100,000 keys and ``rows_per_block`` 64
+   (17,188 blocks), a float and an f64-predicate aggregate alone and in
+   a 32-spec batch on route ``full`` (``stats()["agg_routes"]``), equal
+   to an exact oracle; 1,000 rows written to the memtable, the overlay's
+   masked primary on the same route, equal to the history's oracle. K5's
+   launches are counted over that run; K5 is held and timed at the
+   engine's batch (``full_engine_kernel``); K5's ptxas report must show
+   no spill and no stack frame;
+10. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
    ``workload.generate_lineitem``) applied and flushed into one flat run
    (generation and load seconds printed). Q1 and Q6 through the engine
    must equal numpy oracles exactly; the single-scan latency (median of
@@ -145,7 +166,7 @@ line is printed:
    values (a collision, re-served on the host), negative bases (the
    same), COUNT(col), an empty range, and 8 specs of distinct literals
    and read points in one launch;
-10. ``phases_s`` (each phase's wall seconds), one JSON line listing every
+11. ``phases_s`` (each phase's wall seconds), one JSON line listing every
    kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -168,6 +189,9 @@ waves and runs the rows phase over several sources, and exits.
 flush held against the host build, K12 timed), applies the overlay
 phase's waves to it as there, runs the compact phase, prints the K12
 and K11 entries of the kernels line, and exits.
+``--full`` builds the kernels, makes a multi-version table of 200,000
+keys and 200,000 updates (for the view edge), runs the full phase,
+prints the K5 entry of the kernels line, and exits.
 ``--rows-ab OTHER.cu[,...]`` times this tree's K7 and K9 against other
 sources of them (the same C interface) in turns on one card, on the
 engine's own launches (``rows_ab`` lines), each held byte for byte;
@@ -213,7 +237,7 @@ PLAIN_REPS = 3
 TRACE_BATCHES = 4
 # The CUDA kernels of the main path.
 KERNELS = ("flat_agg", "mvcc_resolve", "group_agg", "row_gather", "compact",
-           "flush")
+           "flush", "full_agg")
 
 # Device-memory bandwidth by card (NVIDIA data sheets), bytes/s.
 _BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -1020,12 +1044,17 @@ class HistoryOracle:
                 merged.append((d, m.get(self.a), m.get(self.c)))
         return Oracle.arrays(merged)
 
-    def at(self, read_ht: int, merged: tuple | None = None) -> Oracle:
+    def arrays(self, read_ht: int, merged: tuple | None = None) -> tuple:
+        """``Oracle.arrays`` of every row with a non-NULL d at
+        ``read_ht``."""
         if merged is None:
             merged = self.merged(read_ht)
         vis = self.s_ht <= read_ht
         parts = zip(merged, (x[vis] for x in self.single))
-        return Oracle(*(np.concatenate(p) for p in parts))
+        return tuple(np.concatenate(p) for p in parts)
+
+    def at(self, read_ht: int, merged: tuple | None = None) -> Oracle:
+        return Oracle(*self.arrays(read_ht, merged))
 
     def at_reads(self, reads: list) -> dict:
         """``at`` for every read point of ``reads``, the merges (pure
@@ -3637,6 +3666,583 @@ def compact_alone(device, bw: float, rate: float) -> None:
     print(json.dumps({"kernels": write_entries(k12, comp)}))
 
 
+# -- phase 9: the windowed fold K5 past the flat fold's bounds ---------------
+
+FULL_BLOCKS = 16_896  # 34,603,008 rows at R = 2048: past flat_fold.MAX_B
+FULL_R = 2048
+# (col_id, kind, P(set), P(NULL | set), P(extreme | not NULL)): two i32,
+# an i64, an f32 and an f64 column, and a never-set i64 one. The floats
+# are positive (workload.FLOAT_RANGE), so a sum's sum of |x| is the sum.
+FULL_COLUMNS = ((1, "i32", 0.97, 0.03, 0.001), (2, "i32", 0.95, 0.05, 0.001),
+                (3, "i64", 0.99, 0.02, 0.001), (4, "f32", 0.95, 0.05, 0.0),
+                (5, "f64", 0.97, 0.03, 0.0), (6, "i64", 0.0, 0.0, 0.0))
+FULL_WIDE_BLOCKS = 512  # 1,048,576 rows of 18 value columns (an edge)
+FULL_KEYS = 1_100_000   # the bench table at rows_per_block 64: 17,188
+FULL_ENGINE_R = 64      # blocks, past flat_fold.MAX_B
+FULL_WRITES = 1_000     # rows written to the memtable over that run
+FULL_BATCH = 32
+FULL_SUM_TOL = 1e-5     # |float sum - plain's| <= this x sum of |x|
+# Float32 operations per second outside the tensor cores (H100 SXM data
+# sheet at 700 W): K5's float sums and f32 extremes are held against it.
+_F32_FLOPS = 67e12
+
+
+def full_int_ops(plan) -> float:
+    """K5's integer operations per row and spec in the spec's range, as
+    the function needs them: a compare per order plane of each predicate,
+    two adds per order-plane word of an integer SUM, one min/max op for an
+    i32 MIN/MAX and a 64-bit compare and select (4) for a two-plane one,
+    and the count slots' popcount and add per 32-row mask word."""
+    n = sum(1 if p.kind == "i32" else 2 for p in plan.preds)
+    for a in plan.aggs:
+        if a.fn == "count" or a.kind == "f32" or (
+                a.fn == "sum" and a.kind == "f64"):
+            continue
+        width = 1 if a.kind == "i32" else 2
+        n += 2 * width if a.fn == "sum" else (1 if width == 1 else 4)
+    return n + 2 * (1 + len(plan.aggs)) / 32
+
+
+def full_float_ops(plan) -> int:
+    """K5's float operations per row and spec: an add per float SUM, a
+    min/max per f32 MIN/MAX."""
+    return sum(1 for a in plan.aggs if a.fn != "count" and (
+        a.kind == "f32" or (a.fn == "sum" and a.kind == "f64")))
+
+
+def full_sums(plan, ivec, fvec) -> list:
+    """Each float SUM's fsum - fcomp of packed rows, [spec][sum]."""
+    from yugabyte_db_tpu_torch.ops import agg_fold
+
+    out = []
+    for iv, fv in zip(ivec.tolist(), fvec.tolist()):
+        acc, _n = agg_fold.unpack(plan.aggs, iv, fv)
+        out.append([a["fsum"] - a["fcomp"] for ag, a in zip(plan.aggs, acc)
+                    if ag.fn == "sum" and ag.kind in ("f32", "f64")])
+    return out
+
+
+def hold_full(plan, arrays, params: np.ndarray, signed: bool) -> dict:
+    """K5 against its plain version on the same inputs: the ivec exactly,
+    each float SUM within FULL_SUM_TOL x the sum of |x| (from the plain
+    version over |arith| where the values may be negative, else the
+    plain sum itself), the float extremes exactly."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import full_agg
+
+    got_i, got_f = full_agg.full_aggregate(plan, arrays, params)
+    geo = full_agg.last_launch()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want_i, want_f = full_agg.full_aggregate_plain(plan, arrays, params)
+    end.record()
+    torch.cuda.synchronize()
+    check(geo == full_agg.launch_geometry(plan, params,
+                                          arrays["valid"].shape[0] // plan.K),
+          f"K5's launch {geo} differs from launch_geometry")
+    diff = (got_i.long() - want_i.long()).abs()
+    err = int(diff.max()) if diff.numel() else 0
+    check(err == 0, f"K5 ivec != plain version (max |diff| {err}) for "
+                    f"{plan.aggs} {plan.preds}")
+    if signed:
+        absolute = dict(arrays, cols={
+            cid: dict(c, arith=c["arith"].abs()) if "arith" in c else c
+            for cid, c in arrays["cols"].items()})
+        scale = full_sums(plan, *full_agg.full_aggregate_plain(
+            plan, absolute, params))
+    else:
+        scale = [[abs(x) for x in row] for row in full_sums(plan, want_i,
+                                                           want_f)]
+    worst = 0.0
+    for g, w, sc in zip(full_sums(plan, got_i, got_f),
+                        full_sums(plan, want_i, want_f), scale):
+        for x, y, a in zip(g, w, sc):
+            check(abs(x - y) <= FULL_SUM_TOL * a,
+                  f"K5 float sum {x} vs plain {y} (sum of |x| {a})")
+            worst = max(worst, abs(x - y) / a if a else 0.0)
+    sums = [k for k, ag in enumerate(plan.aggs)
+            if ag.fn == "sum" and ag.kind in ("f32", "f64")]
+    ext_cols = [plan.foffs[k] for k, ag in enumerate(plan.aggs)
+                if ag.fn in ("min", "max") and ag.kind == "f32"]
+    for col in ext_cols:
+        check(torch.equal(got_f[:, col], want_f[:, col]),
+              "K5 f32 MIN/MAX != plain version")
+    return {"max_abs_err": err, "float_sums": len(sums) * params.shape[0],
+            "worst_sum_rel_err": worst, "geometry": geo,
+            "plain_once_ms": start.elapsed_time(end),
+            "ivec": got_i.cpu(), "fvec": got_f.cpu()}
+
+
+def measure_full(plan, arrays, params: np.ndarray, bw: float, rate: float,
+                 signed: bool = False, plain_reps: int = PLAIN_REPS) -> dict:
+    """K5 held against its plain version, then timed (CUDA events, median
+    of KERNEL_REPS launches; the plain version the median of
+    ``plain_reps``, or with 0 its one call of the hold) beside its bound:
+    bytes of the planes over the covered rows (each read once), the
+    parameter rows and the outputs; integer operations over the int32
+    rate and float ones over the f32 rate."""
+    from yugabyte_db_tpu_torch.ops import full_agg
+
+    held = hold_full(plan, arrays, params, signed)
+    ms = cuda_ms(lambda: full_agg.full_aggregate(plan, arrays, params),
+                 KERNEL_REPS)
+    plain_ms = held["plain_once_ms"] if not plain_reps else cuda_ms(
+        lambda: full_agg.full_aggregate_plain(plan, arrays, params),
+        plain_reps)
+    table = plan.plane_table(arrays)
+    n_rows = table[0].numel()
+    rows = covered_rows(params, n_rows)
+    n_reads, vis_rows = visibility_rows(params, n_rows)
+    in_ranges = rows_in_ranges(params, n_rows)
+    nbytes = (rows * plan.bytes_per_row(table) + params.nbytes
+              + params.shape[0] * (4 * plan.n_ints + 4 * plan.n_floats))
+    int_ops = (rows * (1 + len(plan.cols)) / 4 + vis_rows * VISIBILITY_OPS
+               + in_ranges * full_int_ops(plan))
+    bytes_ms = nbytes / bw * 1e3
+    ops_ms = max(int_ops / rate, in_ranges * full_float_ops(plan)
+                 / _F32_FLOPS) * 1e3
+    ivec = held.pop("ivec")
+    held.pop("fvec")
+    return {"specs": params.shape[0], "rows": rows, "read_points": n_reads,
+            "bytes_per_row": plan.bytes_per_row(table), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "scanned": int(ivec[:, 0].sum()), **held}
+
+
+def full_plan(aggs, preds, columns, R: int):
+    from yugabyte_db_tpu_torch.ops import agg_fold, full_agg
+    from yugabyte_db_tpu_torch.ops.scan import ColSig
+
+    return full_agg.make_plan(
+        tuple(aggs), tuple(preds),
+        tuple(ColSig(c[0], c[1]) for c in columns), R,
+        agg_fold.safe_window_blocks(R, agg_fold.FULL_WINDOW_BLOCKS))
+
+
+def lit_f64(v: float) -> np.ndarray:
+    from yugabyte_db_tpu_torch.utils import planes as P
+
+    hi, lo = P.f64_to_ordered_planes(np.array([v], np.float64))
+    return np.array([hi[0], lo[0]], np.int32)
+
+
+def full_params(plan, rows, W: int) -> np.ndarray:
+    """[N, P] parameter rows of (row_lo, row_hi, read_ht, literals), each
+    over the windows its rows cover."""
+    from yugabyte_db_tpu_torch.ops import agg_fold
+
+    return np.array([plan.param_row(
+        lo, hi, *agg_fold.window_bounds(lo, hi, plan.R, plan.K, W),
+        read_params(rd), lits) for lo, hi, rd, lits in rows], np.int32)
+
+
+def full_signatures(reads: dict, n_rows: int, W: int):
+    """(label, plan, [N, P] params) of every timed signature on the
+    full-width planes."""
+    from yugabyte_db_tpu_torch.ops.scan import AggSig, PredSig
+
+    kind = {c[0]: c[1] for c in FULL_COLUMNS}
+
+    def A(fn, c=None):
+        return AggSig(fn, c, kind.get(c))
+
+    cnt = A("count")
+    f64 = (cnt, A("sum", 5), A("min", 5), A("max", 5))
+    f32 = (A("count", 4), A("sum", 4), A("min", 4), A("max", 4))
+    rng_preds = (PredSig(5, "f64", ">="), PredSig(5, "f64", "<"))
+    rng_lits = (lit_f64(250.0), lit_f64(750.0))
+    nine = (cnt, A("count", 1), A("sum", 1), A("sum", 3), A("min", 3),
+            A("max", 3), A("sum", 5), A("min", 4), A("max", 2))
+    all_, mid = reads["all"], reads["mid"]
+    window = n_rows // W
+    sigs = [
+        ("f64_sum_min_max", f64, (), [(0, n_rows, all_, ())]),
+        ("f32_sum_min_max", f32, (), [(0, n_rows, all_, ())]),
+        ("count", (cnt,), (), [(0, n_rows, all_, ())]),
+        ("f64_range_pred", f64 + f32, rng_preds,
+         [(0, n_rows, all_, rng_lits)]),
+        ("nine_aggs", nine, rng_preds[:1], [(0, n_rows, all_, rng_lits[:1])]),
+        ("bounded_mid_window", f64, rng_preds[:1],
+         [((W // 4) * window + window // 2 + 3,
+           n_rows - (W // 4) * window - window // 3 - 11, all_,
+           rng_lits[:1])]),
+        ("mid_history_read", f64, rng_preds[:1],
+         [(0, n_rows, mid, rng_lits[:1])]),
+    ]
+    rng = np.random.default_rng(8)
+    batch = []
+    for i in range(FULL_BATCH):
+        lo = int(rng.integers(0, n_rows // 4)) if i % 4 == 1 else 0
+        hi = n_rows - int(rng.integers(0, n_rows // 4)) if i % 4 == 2 \
+            else n_rows
+        rd = mid if i % 4 == 3 else all_
+        batch.append((lo, hi, rd, (lit_f64(100.0 + 25.0 * i),)))
+    sigs.append(("batch32", f64, rng_preds[:1], batch))
+    out = []
+    for label, aggs, preds, rows in sigs:
+        plan = full_plan(aggs, preds, FULL_COLUMNS, FULL_R)
+        out.append((label, plan, full_params(plan, rows, W)))
+    return out
+
+
+def full_kernel(device, bw: float, rate: float) -> dict:
+    """K5 on ``workload.flat_planes`` at FULL_BLOCKS x FULL_R (made from a
+    seed in numpy, then uploaded): every signature held and timed, then
+    the edges on them (an empty range, a first window past 0), untimed."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_fold
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+
+    t0 = time.perf_counter()
+    planes, reads = workload.flat_planes(FULL_BLOCKS, FULL_R, FULL_COLUMNS,
+                                         seed=19)
+    gen_s = time.perf_counter() - t0
+    for cid, kind, *_rest in FULL_COLUMNS:
+        if kind in ("f32", "f64"):
+            check(float(planes["cols"][cid]["arith"].min()) >= 0.0,
+                  f"column {cid} holds a negative value")
+    t0 = time.perf_counter()
+    run = DeviceRun.from_reference_planes(planes, FULL_R, device)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    del planes
+    n_rows, W = run.B * FULL_R, run.B // 8
+    check(run.B > flat_fold.MAX_B, "the full-width planes are within the "
+                                   "flat fold's bounds")
+    print(f"full phase: {n_rows} rows ({run.B} blocks of {FULL_R}), "
+          f"{run.nbytes} bytes of planes, made in {gen_s:.1f} s, uploaded "
+          f"in {upload_s:.1f} s")
+    out = {"rows": n_rows, "blocks": run.B, "plane_bytes": run.nbytes,
+           "generate_s": gen_s, "upload_s": upload_s, "signatures": {}}
+    for label, plan, params in full_signatures(reads, n_rows, W):
+        # The batch's plain version (32 specs, one after another) is
+        # timed by its one call of the hold.
+        row = measure_full(plan, run.arrays, params, bw, rate,
+                           plain_reps=0 if label == "batch32" else PLAIN_REPS)
+        check(row["scanned"] > 0, f"{label}: no row in range")
+        out["signatures"][label] = row
+        print("full_signature " + json.dumps({"signature": label, **row}))
+    by = out["signatures"]
+    print("full_batch_vs_single " + json.dumps({
+        "batch32_ms": by["batch32"]["ms"],
+        "single_ms": by["f64_sum_min_max"]["ms"],
+        "batch32_over_32x_single":
+            by["batch32"]["ms"] / (FULL_BATCH * by["f64_sum_min_max"]["ms"])}))
+    _label, plan, params = full_signatures(reads, n_rows, W)[3]
+    edge_rows = [plan.param_row(5, 5, 0, 0, read_params(reads["all"]),
+                                (lit_f64(250.0), lit_f64(750.0))),
+                 plan.param_row(0, n_rows, max(1, W // 8),
+                                W - W // 16,
+                                read_params(reads["early"]),
+                                (lit_f64(100.0), lit_f64(900.0)))]
+    edge = hold_full(plan, run.arrays, np.array(edge_rows, np.int32), False)
+    check(int(edge["ivec"][0, 0]) == 0 and int(edge["ivec"][1, 0]) > 0,
+          "K5's empty-range / first-window edge")
+    out["edges"] = {"empty_range_and_first_window": edge["max_abs_err"]}
+    print("full_edge empty_range_and_first_window: exact")
+    return out
+
+
+def full_edges(device, mvcc) -> dict:
+    """K5 held exactly against its plain version, untimed: 18 value
+    columns at 1,048,576 rows (10 predicates, 12 aggregates, a bounded
+    range and a first window past 0), and the view that the resolve makes
+    of the mvcc phase's run at its newest read point."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import mvcc_resolve
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+    from yugabyte_db_tpu_torch.ops.scan import AggSig, PredSig
+
+    cols = tuple((c, ("i32", "i64", "f32", "f64")[c % 4], 0.9, 0.05,
+                  0.001 if c % 4 < 2 else 0.0) for c in range(1, 19))
+    kind = {c[0]: c[1] for c in cols}
+    planes, reads = workload.flat_planes(FULL_WIDE_BLOCKS, FULL_R, cols,
+                                         seed=23)
+    run = DeviceRun.from_reference_planes(planes, FULL_R, device)
+    del planes
+    exact_cols = [c for c in kind if kind[c] != "f32"]
+    ops = ("!=", ">=", "<=", ">", "<", "!=", ">=", "<=", ">", "<")
+    bound = {"i32": 10**6 + 1, "i64": 10**12 + 1, "f64": 2000.0}
+    lit = {"i32": np.int32, "i64": lit_i64, "f64": lit_f64}
+    preds, lits = [], []
+    for c, op in zip(exact_cols[:10], ops):
+        x = {"!=": 0, ">=": -bound[kind[c]], ">": -bound[kind[c]],
+             "<=": bound[kind[c]], "<": bound[kind[c]]}[op]
+        if kind[c] == "f64" and op == "!=":
+            x = 0.0
+        preds.append(PredSig(c, kind[c], op))
+        lits.append(lit[kind[c]](x))
+    aggs = tuple(AggSig(fn, c, kind[c]) for fn, c in zip(
+        ("sum", "min", "max", "count") * 3, range(7, 19)))
+    plan = full_plan(aggs, preds, cols, FULL_R)
+    n, W = run.B * FULL_R, run.B // plan.K
+    rows = [(0, n, reads["all"], tuple(lits)),
+            (FULL_R * 3 + 17, n - FULL_R * 9 - 1, reads["mid"], tuple(lits))]
+    params = full_params(plan, rows, W)
+    params = np.concatenate([params, np.array([plan.param_row(
+        0, n, max(1, W // 8), W - W // 16, read_params(reads["early"]),
+        tuple(lits))],
+        np.int32)])
+    wide = hold_full(plan, run.arrays, params, False)
+    check(int(wide["ivec"][:, 0].min()) > 0, "the 18-column edge is empty")
+    print(f"full_edge wide: {n} rows, {len(cols)} columns, {len(preds)} "
+          f"predicates, {len(aggs)} aggregates, exact")
+    del run
+
+    trun = mvcc.eng.runs[0]
+    view = mvcc_resolve.resolve_view(trun.dev.arrays,
+                                     *read_params(mvcc.max_ht + 1),
+                                     trun._const)
+    vkind = {c.col_id: ("f64" if c.name == "c" else
+                        "i64" if c.name == "a" else "i32")
+             for c in mvcc.schema.value_columns}
+    name = {c.name: c.col_id for c in mvcc.schema.value_columns}
+    a, c, d = name["a"], name["c"], name["d"]
+    vcols = tuple((cid, k) for cid, k in vkind.items())
+    vplan = full_plan(
+        (AggSig("count", None, None), AggSig("sum", a, "i64"),
+         AggSig("min", a, "i64"), AggSig("max", a, "i64"),
+         AggSig("sum", c, "f64"), AggSig("min", c, "f64"),
+         AggSig("max", c, "f64"), AggSig("sum", d, "i32")),
+        (PredSig(c, "f64", ">="),), vcols, trun.crun.R)
+    vn = view["valid"].numel()
+    vparams = full_params(vplan, [(0, vn, mvcc.max_ht + 1, (lit_f64(0.0),)),
+                                  (0, vn, mvcc.max_ht + 1,
+                                   (lit_f64(-5e5),))],
+                          view["valid"].shape[0] // vplan.K)
+    held = hold_full(vplan, view, vparams, True)
+    check(int(held["ivec"][:, 0].min()) > 0, "the view edge is empty")
+    print(f"full_edge view: {vn} rows, the mvcc run's view at its newest "
+          f"read point, exact; worst float sum {held['worst_sum_rel_err']}")
+    return {"wide": wide["max_abs_err"], "view": held["max_abs_err"]}
+
+
+def c_pred_answer(arrays: tuple, c_lo: float) -> tuple:
+    """Exact answers of ``count(*), sum(a), min(a), max(a), sum(d),
+    sum(c) where c >= c_lo and d >= -1000000`` over ``Oracle.arrays`` (the
+    rows with a non-NULL d): (the integer part, sum(c), sum of |c|)."""
+    d, a, a_ok, c, c_ok = arrays
+    m = c_ok & (c >= c_lo)
+    ma = m & a_ok
+    has = bool(ma.any())
+    ints = (int(m.sum()), int(a[ma].sum()) if has else None,
+            int(a[ma].min()) if has else None,
+            int(a[ma].max()) if has else None,
+            int(d[m].sum()) if m.any() else None)
+    return ints, float(c[m].sum()), float(np.abs(c[m]).sum())
+
+
+def full_engine(device, bw: float, rate: float) -> dict:
+    """The engine's route "full": the bench table at FULL_KEYS keys and
+    rows_per_block FULL_ENGINE_R (one flat run past flat_fold.MAX_B
+    blocks). A float spec and an f64-predicate spec, alone and in a
+    32-spec batch, must take route "full" (``stats()["agg_routes"]``) and
+    equal an exact oracle over the generated rows (integers exactly, float
+    sums within FULL_SUM_TOL x the sum of |c|); then FULL_WRITES rows go
+    to the memtable and the overlay's masked primary must take the same
+    route and equal the oracle of the history. K5's launches are counted
+    over that run; K5 is then held and timed at the engine's batch."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_fold, full_agg
+    from yugabyte_db_tpu_torch.storage import (AggSpec, Predicate, ScanSpec,
+                                               make_engine)
+
+    t0 = time.perf_counter()
+    schema = workload.make_schema()
+    # The engine phase's rows (made once a process), then the keys past
+    # them at later hybrid times.
+    rows, max_ht = bench_rows(schema, ENGINE_KEYS)
+    tail, max_ht = workload.make_rows(schema, FULL_KEYS - ENGINE_KEYS,
+                                      seed=4, first=ENGINE_KEYS, ht=max_ht)
+    rows = rows + tail
+    gen_s = time.perf_counter() - t0
+    eng = make_engine("gpu", schema, {"rows_per_block": FULL_ENGINE_R,
+                                      "device": device})
+    t0 = time.perf_counter()
+    eng.apply(rows)
+    flush(eng, "full")
+    load_s = time.perf_counter() - t0
+    check(eng.runs[0].crun.B > flat_fold.MAX_B,
+          f"{eng.runs[0].crun.B} blocks are within the flat fold's bounds")
+    cid = {c.name: c.col_id for c in schema.columns}
+    arrays = Oracle.arrays([(r.columns[cid["d"]], r.columns[cid["a"]],
+                             r.columns[cid["c"]])
+                            for r in rows if not r.tombstone])
+    oracle = Oracle(*arrays)
+    read = max_ht + 1
+
+    def float_spec(rd, lo):
+        return ScanSpec(read_ht=rd, predicates=[Predicate("d", ">=", lo)],
+                        aggregates=[AggSpec("sum", "c"), AggSpec("min", "c"),
+                                    AggSpec("max", "c")])
+
+    def pred_spec(rd, x):
+        return ScanSpec(read_ht=rd, predicates=[
+            Predicate("c", ">=", x), Predicate("d", ">=", -10**6)],
+            aggregates=[AggSpec("count", None), AggSpec("sum", "a"),
+                        AggSpec("min", "a"), AggSpec("max", "a"),
+                        AggSpec("sum", "d"), AggSpec("sum", "c")])
+
+    def check_float(got, orc, lo, label):
+        want_s, want_min, want_max, abs_sum = orc.c_aggs(lo)
+        check(abs(got[0] - want_s) <= FULL_SUM_TOL * abs_sum,
+              f"{label}: sum(c) {got[0]} vs {want_s}")
+        check(tuple(got[1:]) == (want_min, want_max),
+              f"{label}: min/max(c) {got[1:]} vs {(want_min, want_max)}")
+
+    def check_pred(got, arr, x, label):
+        ints, want_c, abs_c = c_pred_answer(arr, x)
+        check(tuple(got[:5]) == ints, f"{label}: {got[:5]} != {ints}")
+        check(abs(got[5] - want_c) <= FULL_SUM_TOL * abs_c,
+              f"{label}: sum(c) {got[5]} vs {want_c}")
+
+    los = [-900_000 + 61_357 * i for i in range(FULL_BATCH // 2)]
+    xs = [-9e5 + 1.2e5 * i for i in range(FULL_BATCH // 2)]
+    for spec in (float_spec(read, 0), pred_spec(read, 0.0)):
+        check(eng._plan_scan(spec).route == "full",
+              "a K5 spec does not take route full")
+    # The main path, counted.
+    full_agg.full_aggregate.launches = 0
+    routes0 = eng.stats()["agg_routes"]["full"]
+    lat = []
+    for _ in range(5):
+        t = time.perf_counter()
+        got = eng.scan(float_spec(read, 0)).rows[0]
+        lat.append((time.perf_counter() - t) * 1e3)
+    check_float(got, oracle, 0, "full float scan")
+    check_pred(eng.scan(pred_spec(read, 0.0)).rows[0], arrays, 0.0,
+               "full f64-predicate scan")
+    specs = [float_spec(read, lo) for lo in los] + \
+        [pred_spec(read, x) for x in xs]
+    t = time.perf_counter()
+    res = eng.scan_batch(specs)
+    batch_ms = (time.perf_counter() - t) * 1e3
+    for lo, r in zip(los, res):
+        check_float(r.rows[0], oracle, lo, f"full batch d >= {lo}")
+    for x, r in zip(xs, res[len(los):]):
+        check_pred(r.rows[0], arrays, x, f"full batch c >= {x}")
+    flat_scans = 5 + 1 + len(specs)
+    check(eng.stats()["agg_routes"]["full"] == routes0 + flat_scans,
+          "the K5 specs did not all take route full")
+    # The overlay: FULL_WRITES rows over the run, in the memtable.
+    wave, top = workload.make_wave_rows(schema, FULL_KEYS, FULL_WRITES,
+                                        max_ht, seed=31)
+    eng.apply(wave)
+    history = HistoryOracle(schema, rows, wave)
+    ov_arrays = history.arrays(top + 1)
+    ov_oracle = Oracle(*ov_arrays)
+    for spec in (float_spec(top + 1, 0), pred_spec(top + 1, 0.0)):
+        prep = eng._plan_scan(spec)
+        check(prep.overlay is not None and prep.route == "full",
+              "the overlay's masked primary does not take route full")
+    t = time.perf_counter()
+    got = eng.scan(float_spec(top + 1, 0)).rows[0]
+    overlay_first_ms = (time.perf_counter() - t) * 1e3
+    check_float(got, ov_oracle, 0, "full overlay float scan")
+    for x in (-5e5, 0.0, 7.5e5):
+        check_pred(eng.scan(pred_spec(top + 1, x)).rows[0], ov_arrays, x,
+                   f"full overlay c >= {x}")
+    check(eng.stats()["agg_routes"]["full"] == routes0 + flat_scans + 4,
+          "the overlay's K5 specs did not all take route full")
+    launches = full_agg.full_aggregate.launches
+    check(launches > 0, "the main path launched K5 0 times")
+    check(eng.stats()["full_launches"] == launches,
+          "the engine's K5 count differs from the wrapper's")
+    # K5 at the engine's shapes: the batch's K5 specs on the run, held
+    # and timed outside the counted run.
+    preps = [eng._plan_scan(float_spec(read, lo)) for lo in los]
+    p0 = preps[0]
+    check(p0.overlay is not None, "the engine's batch is not on the overlay")
+    plan = full_plan(p0.sig.aggs, p0.sig.preds,
+                     [(cs.col_id, cs.kind) for cs in p0.sig.cols],
+                     FULL_ENGINE_R)
+    masked = p0.trun.dev.arrays
+    W = masked["valid"].shape[0] // plan.K
+    params = full_params(plan, [(p.row_lo, p.row_hi, read, p.lits)
+                                for p in preps], W)
+    kernel = measure_full(plan, masked, params, bw, rate, signed=True)
+    print("full_engine_kernel " + json.dumps(kernel))
+    row = {"keys": FULL_KEYS, "blocks": eng.runs[0].crun.B,
+           "rows_per_block": FULL_ENGINE_R, "generate_s": gen_s,
+           "load_s": load_s, "single_scan_ms": statistics.median(lat),
+           "single_scan_ms_each": lat, "batch_ms": batch_ms,
+           "batch_specs": len(specs), "overlay_first_scan_ms":
+           overlay_first_ms, "memtable_rows": FULL_WRITES,
+           "agg_routes": eng.stats()["agg_routes"], "launches": launches}
+    print("full_engine " + json.dumps(row))
+    row["kernel"] = kernel
+    return row
+
+
+def full_phase(device, bw: float, rate: float, mvcc) -> dict:
+    """K5 at full width, its edges and the engine's route "full"."""
+    import torch
+
+    out = {"kernel": full_kernel(device, bw, rate)}
+    torch.cuda.empty_cache()
+    out["edges"] = full_edges(device, mvcc)
+    torch.cuda.empty_cache()
+    out["engine"] = full_engine(device, bw, rate)
+    return out
+
+
+def full_entry(full: dict) -> dict:
+    """The kernels line's K5 entry: the f64 SUM/MIN/MAX signature over the
+    full-width planes as the headline, the other signatures and the
+    engine's batch beside it, launches of the engine's counted run, the
+    build's registers (no spill, no stack frame)."""
+    usage = ptxas_usage("full_agg")
+    check(all(u.get("spill_store_bytes", 0) == 0 and
+              u.get("spill_load_bytes", 0) == 0 and
+              u.get("stack_bytes", 0) == 0 for u in usage),
+          f"K5's build spills or has a stack frame: {usage}")
+    sigs, eng = full["kernel"]["signatures"], full["engine"]
+    head = sigs["f64_sum_min_max"]
+    err = max([r["max_abs_err"] for r in sigs.values()]
+              + list(full["kernel"]["edges"].values())
+              + list(full["edges"].values())
+              + [eng["kernel"]["max_abs_err"]])
+    return {
+        "name": "full_agg", "route": "cuda",
+        "source": "yugabyte_db_tpu_torch/csrc/full_agg.cu",
+        "replaces": "yugabyte_db_tpu/ops/agg_fold.py:336",
+        "launches": eng["launches"],
+        "launches_by_path": {"full_engine": eng["launches"]},
+        "max_abs_err": err, "max_abs_diff": err, "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None,
+        "library_note": "no single PyTorch call folds windows into exact "
+                        "base-2^16 digits",
+        "rows": full["kernel"]["rows"],
+        **{f"{label}_{key}": r[key] for label, r in sigs.items()
+           if label != "f64_sum_min_max"
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "engine_batch_ms": eng["kernel"]["ms"],
+        "engine_batch_plain_ms": eng["kernel"]["plain_ms"],
+        "engine_batch_bound_ms": eng["kernel"]["bound_ms"],
+        "ptxas": usage if usage else "not measured"}
+
+
+def full_alone(device, bw: float, rate: float) -> None:
+    """The full phase without the others, over a multi-version run of
+    200,000 keys and 200,000 updates for its view edge; prints the
+    kernels line's K5 entry."""
+    global MVCC_KEYS, MVCC_UPDATES
+
+    MVCC_KEYS = MVCC_UPDATES = 200_000
+    schema, rows, updates, _l, max_ht, eng, _g, _a = mvcc_engine(device)
+    mvcc = SimpleNamespace(schema=schema, rows=rows, updates=updates,
+                           max_ht=max_ht, eng=eng)
+    full = full_phase(device, bw, rate, mvcc)
+    print(json.dumps({"kernels": [full_entry(full)]}))
+
+
 # -- phase 6: GROUP BY and expression aggregates (TPC-H Q1/Q6, K8) -------
 
 LINEITEM_ROWS = 6_001_215  # TPC-H SF1 (workload.SF1_ROWS)
@@ -4446,6 +5052,9 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--compact":
         compact_alone(device, bw, rate)
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--full":
+        full_alone(device, bw, rate)
+        return 0
 
     def timed(name, phase, *args):
         t = time.perf_counter()
@@ -4460,6 +5069,7 @@ def main() -> int:
     ov = timed("overlay", overlay_phase, flat, mvcc)
     sources = timed("rows_sources", rows_sources_phase, flat, mvcc)
     comp = timed("compact", compact_phase, flat)
+    full = timed("full", full_phase, mvcc)
     del flat, mvcc
     torch.cuda.empty_cache()
     grp = timed("grouped", grouped_phase)
@@ -4511,7 +5121,7 @@ def main() -> int:
         "overlay_long_group_ms": ovm["resolve"]["long"]["ms"],
         "overlay_long_group_bound_ms": ovm["resolve"]["long"]["bound_ms"]},
         group_agg_entry(grp), *row_path_entries(rows, sources),
-        *write_entries(eng["k12"], comp)]}))
+        *write_entries(eng["k12"], comp), full_entry(full)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,9 +24,11 @@ import torch
 import yugabyte_db_tpu.storage as J
 import yugabyte_db_tpu.storage.tpu_engine  # noqa: F401  (registers 'tpu')
 import yugabyte_db_tpu_torch.storage as T
+from yugabyte_db_tpu.ops import flat_fold as j_flat_fold
 from yugabyte_db_tpu.storage import expr as j_expr
 from yugabyte_db_tpu_torch.storage import expr as t_expr
-from yugabyte_db_tpu_torch.ops import flat_agg, flat_fold, mvcc_resolve
+from yugabyte_db_tpu_torch.ops import (flat_agg, flat_fold, full_agg,
+                                       mvcc_resolve)
 from test_torch_data import (JAX, MAX_HT, PORT, assert_same, encode_key,
                              flat_rows, make_schema, multiversion_rows,
                              plain_planes)
@@ -127,6 +129,95 @@ def test_async_batch_matches_cpu_and_tpu(engines, monkeypatch):
     for (label, kw), g, w in zip(cases, got, want_tpu):
         assert_same(w, g, label)
         assert_same(e["cpu"].scan(build(J, kw)), g, label, scanned=False)
+
+
+def test_flat_run_past_the_bounds_takes_the_windowed_fold(engines,
+                                                         monkeypatch):
+    """Past the flat fold's bounds the float and f64-predicate specs take
+    route "full" (K5) on the port and on the JAX ``tpu`` engine; one
+    ``scan_batch_async`` batch mixes them with K1 specs on one run: the
+    K1 specs keep K1, the K5 specs of one signature share one call, and
+    every answer equals both JAX engines'."""
+    e = engines
+    past_the_bounds(monkeypatch)
+    cases = spec_kwargs(e)
+    f64 = dict(cases)["f64_fold"]
+    cases += [(f"f64_fold_{lo}", dict(f64, predicates=[("c", ">=", lo)]))
+              for lo in (-1.0, 25.5, 99.0)]
+    cases += [("f64_bounded", dict(f64, lower=dict(cases)["bounded"]["lower"],
+                                   upper=dict(cases)["bounded"]["upper"]))]
+    routes = {label: e["gpu"]._plan_scan(build(T, kw))
+              for label, kw in cases}
+    assert routes.pop("past_the_end").rows == [(0, None, None, None, None)]
+    full = sorted(label for label, p in routes.items() if p.route == "full")
+    assert full == ["f64_bounded", "f64_fold", "f64_fold_-1.0",
+                    "f64_fold_25.5", "f64_fold_99.0"]
+    assert {p.route for label, p in routes.items()
+            if label not in full} == {"kernel"}
+    assert jax_route(e["tpu"], build(J, f64)) == "full"
+    calls, k1 = [], []
+    wrapper, k1_wrapper = full_agg.full_aggregate, flat_agg.flat_aggregate
+
+    def counted(plan, arrays, params):
+        calls.append(params.shape[0])
+        return wrapper(plan, arrays, params)
+
+    def counted_k1(plan, table, params):
+        k1.append(params.shape[0])
+        return k1_wrapper(plan, table, params)
+
+    monkeypatch.setattr(full_agg, "full_aggregate", counted)
+    monkeypatch.setattr(flat_agg, "flat_aggregate", counted_k1)
+    before = e["gpu"].stats()["agg_routes"]["full"]
+    batch = e["gpu"].scan_batch_async([build(T, kw) for _l, kw in cases])
+    got = batch.finish()
+    assert calls == [5]  # one launch for the five K5 specs
+    assert sum(k1) == len(cases) - 6  # the rest but past_the_end
+    assert e["gpu"].stats()["agg_routes"]["full"] == before + 5
+    for (label, kw), g in zip(cases, got):
+        assert_same(e["tpu"].scan(build(J, kw)), g, label)
+        assert_same(e["cpu"].scan(build(J, kw)), g, label, scanned=False)
+
+
+def test_overlay_past_the_bounds_takes_the_windowed_fold(monkeypatch):
+    """The delta overlay's masked primary past the flat fold's bounds: a
+    float spec takes route "full" on it, and the answer (the masked
+    primary's K5 partial and the dirty keys' host partial) equals both
+    JAX engines'."""
+    ps, js = make_schema(PORT, "mixed"), make_schema(JAX, "mixed")
+    rows, max_ht = flat_rows(PORT, ps, 600, seed=9)
+    jrows, _ = flat_rows(JAX, js, 600, seed=9)
+    sides = {"gpu": (T, T.make_engine("gpu", ps, {"rows_per_block": R,
+                                                   "device": "cpu"}),
+                     rows, PORT),
+             "tpu": (J, J.make_engine("tpu", js, {"rows_per_block": R}),
+                     jrows, JAX),
+             "cpu": (J, J.make_engine("cpu", js), jrows, JAX)}
+    for _S, eng, rs, side in sides.values():
+        eng.apply(rs)
+        eng.flush()
+        cid = {c.name: c.col_id for c in eng.schema.value_columns}
+        eng.apply([side.row_version.RowVersion(
+            rs[k].key, ht=max_ht + 1 + k, liveness=True,
+            columns={cid["c"]: 1000.0 + k}) for k in range(0, 600, 7)]
+            + [side.row_version.RowVersion(rs[k].key, ht=max_ht + 1 + k,
+                                           tombstone=True)
+               for k in range(3, 600, 41)])
+    past_the_bounds(monkeypatch)
+    kws = [dict(read_ht=max_ht + 700, aggregates=[
+                ("count", None), ("sum", "c"), ("min", "c"), ("max", "c"),
+                ("avg", "c"), ("sum", "a")], predicates=[("c", ">=", 40.0)]),
+           dict(read_ht=max_ht + 300, aggregates=[("max", "c"),
+                                                  ("count", "d")])]
+    gpu = sides["gpu"][1]
+    for i, kw in enumerate(kws):
+        prep = gpu._plan_scan(build(T, kw))
+        assert prep.overlay is not None and prep.route == "full", i
+        got = gpu.scan(build(T, kw))
+        assert_same(sides["tpu"][1].scan(build(J, kw)), got, i)
+        assert_same(sides["cpu"][1].scan(build(J, kw)), got, i,
+                    scanned=False)
+    assert gpu.stats()["agg_routes"]["full"] == len(kws)
 
 
 def test_out_of_slice_specs_raise(engines):
@@ -318,18 +409,40 @@ def test_multi_version_specs_alone_match_cpu_and_tpu(mv_engines):
         assert_same(e["cpu"].scan(build(J, kw)), got, label, scanned=False)
 
 
+def jax_route(eng, spec) -> str:
+    """The JAX ``tpu`` engine's fold route for a single-run aggregate."""
+    exact = eng._split_predicates(spec)[0]
+    return eng._device_agg_prep(eng.runs[0], spec, exact)[1]
+
+
+def past_the_bounds(monkeypatch):
+    """Every run past the flat fold's bounds, in both packages: the
+    signatures K1 does not take go to the windowed fold (K5)."""
+    monkeypatch.setattr(flat_fold, "MAX_B", 1)
+    monkeypatch.setattr(j_flat_fold, "MAX_B", 1)
+
+
 def test_multi_version_routes(mv_engines, monkeypatch):
     e = mv_engines
     routes = {label: e["gpu"]._plan_scan(build(T, kw)).route
               for label, kw in mv_cases(e)}
     assert routes.pop("floats") == "mv_flat"
     assert set(routes.values()) == {"mv_kernel"}
-    # Past the flat fold's bounds a non-kernel signature still raises,
-    # naming the windowed fold's place in ROADMAP.md.
-    monkeypatch.setattr(flat_fold, "MAX_B", 1)
-    with pytest.raises(NotImplementedError, match="item 7: the windowed"):
-        e["gpu"].scan(build(T, mv_cases(e)[2][1]))
-    e["gpu"].scan(build(T, mv_cases(e)[0][1]))  # the kernel has no bound
+    # Past the flat fold's bounds a non-kernel signature takes the
+    # windowed fold over the view (the JAX engine its own "full" route),
+    # and gives both JAX engines' answer.
+    past_the_bounds(monkeypatch)
+    label, kw = mv_cases(e)[2]
+    assert e["gpu"]._plan_scan(build(T, kw)).route == "mv_full"
+    assert jax_route(e["tpu"], build(J, kw)) == "full"
+    got = e["gpu"].scan(build(T, kw))
+    assert_same(e["tpu"].scan(build(J, kw)), got, label)
+    assert_same(e["cpu"].scan(build(J, kw)), got, label, scanned=False)
+    assert e["gpu"].stats()["agg_routes"]["mv_full"] >= 1
+    # The kernel has no bound.
+    assert e["gpu"]._plan_scan(build(T, mv_cases(e)[0][1])).route == \
+        "mv_kernel"
+    e["gpu"].scan(build(T, mv_cases(e)[0][1]))
 
 
 def test_multi_version_async_batch_mixed_read_points(mv_engines,
@@ -467,4 +580,8 @@ def test_device_defaults_to_cuda():
                            "device_bytes": 0,
                            "flush_paths": {"device": 0, "host": 0},
                            "compact_paths": {"k11": 0, "twin": 0,
-                                             "host": 0}}
+                                             "host": 0},
+                           "agg_routes": {r: 0 for r in (
+                               "kernel", "flat", "full", "mv_kernel",
+                               "mv_flat", "mv_full")},
+                           "full_launches": 0}

@@ -1,9 +1,20 @@
-"""Aggregate accumulators: the packed layout and the host-side finish.
+"""Aggregate accumulators: the packed layout, the windowed fold, and the
+host-side finish.
 
-The host pieces of the JAX package's ``ops/agg_fold.py``: the folds return
-their accumulators packed as ``(ivec int32, fvec float32)`` in the same
-layout, and ``unpack`` / ``merge_accs`` / ``finalize`` turn them into the
-values a ``ScanResult`` carries.
+The JAX package's ``ops/agg_fold.py``: the folds return their
+accumulators packed as ``(ivec int32, fvec float32)`` in the same layout,
+and ``unpack`` / ``merge_accs`` / ``finalize`` turn them into the values a
+``ScanResult`` carries.
+
+The windowed full-run aggregate (K5, the JAX ``compiled_full_aggregate``)
+is here too: ``full_aggregate_plain`` is its plain version, in the JAX
+program's order (per block, then per window, then a fold over the windows
+in window order with one ``carry_step`` a window), and
+``compiled_full_aggregate`` its entry, which launches the CUDA kernel
+``csrc/full_agg.cu`` (``ops.full_agg``) on CUDA tensors. The per-window
+partials are few (a handful of numbers a window and aggregate), so the
+plain version folds them on the host: digits in Python integers, the
+Kahan pair in numpy float32.
 
 Integer sums are exact at any scale: 16-bit-limb partials fold into a
 base-2^16 digit vector (``finalize`` recombines the digits in Python ints,
@@ -16,6 +27,8 @@ PgsqlReadOperation::EvalAggregate, src/yb/docdb/pgsql_operation.cc:473).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -84,6 +97,192 @@ def pack(sig_aggs, acc, scanned):
             if floats else torch.zeros((0,), dtype=torch.float32,
                                        device=device))
     return ivec, fvec
+
+
+# -- the windowed fold (K5's plain version) ---------------------------------
+
+def carry_step(digits: list) -> list:
+    """One base-2^16 carry propagation over a non-negative digit vector
+    (Python integers); the last digit's carry drops, as in the JAX
+    program (it is zero for any sum of fewer than 2^31 values)."""
+    return [digits[0] & 0xFFFF] + [(d & 0xFFFF) + (prev >> 16)
+                                   for prev, d in zip(digits, digits[1:])]
+
+
+def agg_init(sig_aggs) -> list:
+    """Host accumulators before the first window (the JAX ``agg_init``):
+    Python integers, numpy float32 for the f32 fields."""
+    acc = []
+    for ag in sig_aggs:
+        if ag.fn == "count":
+            acc.append({"count": 0})
+        elif ag.fn == "sum":
+            if ag.kind in ("f32", "f64"):
+                # A Kahan-compensated f32 pair, as the JAX program keeps it.
+                acc.append({"fsum": np.float32(0), "fcomp": np.float32(0),
+                            "n": 0})
+            else:
+                acc.append({"digits": [0] * DIGITS, "n": 0})
+        else:
+            is_max = ag.fn == "max"
+            fill = int(dscan.I32_MIN if is_max else dscan.I32_MAX)
+            if ag.kind == "f32":
+                acc.append({"fext": np.float32(-np.inf if is_max else np.inf),
+                            "n": 0})
+            elif ag.kind == "i32":
+                acc.append({"ext": fill, "n": 0})
+            else:
+                acc.append({"ext_hi": fill, "ext_lo": fill, "n": 0})
+    return acc
+
+
+def agg_fold(sig_aggs, acc, parts: dict) -> list:
+    """Fold one window's partials (``window_parts``: host values, the
+    block axis already summed) into the accumulators, as the JAX
+    ``agg_fold`` does: the window's limb sums into the digits and one
+    ``carry_step``; a Kahan add of the window's f32 sum; MIN/MAX by
+    lexicographic comparison of the order planes."""
+    out = []
+    for i, ag in enumerate(sig_aggs):
+        a = acc[i]
+
+        def p(name):
+            return parts[f"agg{i}_{name}"]
+
+        if ag.fn == "count":
+            out.append({"count": a["count"] + p("count")})
+            continue
+        n = a["n"] + p("n")
+        if ag.fn == "sum":
+            if ag.kind in ("f32", "f64"):
+                y = np.float32(p("fsum")) - a["fcomp"]
+                t = a["fsum"] + y
+                out.append({"fsum": t, "fcomp": (t - a["fsum"]) - y, "n": n})
+            else:
+                limbs = p("limbs")
+                widened = list(limbs) + [0] * (DIGITS - len(limbs))
+                out.append({"digits": carry_step(
+                    [d + x for d, x in zip(a["digits"], widened)]), "n": n})
+            continue
+        pick = max if ag.fn == "max" else min
+        if ag.kind == "f32":
+            out.append({"fext": pick(a["fext"], np.float32(p("fext"))),
+                        "n": n})
+        elif ag.kind == "i32":
+            out.append({"ext": pick(a["ext"], p("ext")), "n": n})
+        else:
+            hi, lo = pick((a["ext_hi"], a["ext_lo"]),
+                          (p("ext_hi"), p("ext_lo")))
+            out.append({"ext_hi": hi, "ext_lo": lo, "n": n})
+    return out
+
+
+# Rows of windows resolved at once by the plain version.
+_CHUNK_ROWS = 1 << 22
+
+
+def window_parts(sig: dscan.ScanSig, run: dict, w_first: int, w_last: int,
+                 row_lo: int, row_hi: int, read_planes, pred_lits):
+    """Yield each window's partials in window order, for the windows
+    [w_first, w_last) of ``run`` (``DeviceRun.arrays``), as host values:
+    ``scanned`` (rows that pass every predicate) and the ``agg<i>_*``
+    entries of ``scan._eval_agg`` with the block axis summed on the
+    device (limb sums exactly, f32 sums in f32). Windows are resolved
+    in chunks of about ``_CHUNK_ROWS`` rows with ``scan.resolve_windows``;
+    the window-local row bounds are clipped to +-2^30, as the JAX
+    ``fold_window`` clips them."""
+    device = run["valid"].device
+    N = sig.K * sig.R
+    step = max(1, _CHUNK_ROWS // N)
+    lits = dscan._scalar_lits(sig, pred_lits, device)
+    read = torch.tensor([[int(v) for v in read_planes]], dtype=torch.int64,
+                        device=device)
+    lim = 1 << 30
+    for c0 in range(w_first, w_last, step):
+        ws = torch.arange(c0, min(w_last, c0 + step), device=device)
+        G = ws.shape[0]
+        base = ws * N
+        r = dscan.resolve_windows(
+            sig, run, ws * sig.K, (row_lo - base).clamp(-lim, lim),
+            (row_hi - base).clamp(-lim, lim), read.expand(G, 4),
+            tuple(x.expand((G,) + tuple(x.shape[1:])) for x in lits))
+        block_of_group = r["start_idx"] // sig.R
+        vals = {"scanned": r["result"].sum(dim=1)}
+        for i, ag in enumerate(sig.aggs):
+            parts = dscan._eval_agg(f"agg{i}", ag, r["result"], r["col_idx"],
+                                    r["col_notnull"], r["cmp_w"],
+                                    r["arith_w"], block_of_group, sig.K)
+            for k, v in parts.items():
+                vals[k] = v.sum(dim=1) if k.endswith(("_fsum", "_limbs")) \
+                    else v
+        host = {k: v.tolist() for k, v in vals.items()}
+        for g in range(G):
+            yield {k: v[g] for k, v in host.items()}
+
+
+def fold_window(sig: dscan.ScanSig, run: dict, w: int, carry: tuple,
+                row_lo: int, row_hi: int, read_planes, pred_lits) -> tuple:
+    """Resolve window ``w`` of ``run`` and fold its partials into
+    ``carry`` = (accumulators, scanned): the JAX ``fold_window``, on host
+    values."""
+    acc, scanned = carry
+    parts = next(window_parts(sig, run, w, w + 1, row_lo, row_hi,
+                              read_planes, pred_lits))
+    return agg_fold(sig.aggs, acc, parts), scanned + parts["scanned"]
+
+
+def window_bounds(row_lo: int, row_hi: int, R: int, K: int, W: int):
+    """[w_first, w_last) window indices overlapping row range (host ints)."""
+    if row_hi <= row_lo:
+        return 0, 0
+    w_first = max(0, min(W, (row_lo // R) // K))
+    w_last = max(0, min(W, ((row_hi - 1) // R) // K + 1))
+    return w_first, w_last
+
+
+def full_aggregate_plain(sig: dscan.ScanSig, arrays: dict, row_lo: int,
+                         row_hi: int, w_first: int, w_last: int, read_hi: int,
+                         read_lo: int, rexp_hi: int, rexp_lo: int,
+                         lits) -> tuple:
+    """K5's plain version: fold the windows [w_first, w_last) of the run
+    (``DeviceRun.arrays``) in window order and return ``pack``'s (ivec
+    int32, fvec float32) on the run's device. Scalars are host ints and
+    ``lits`` host literals (``pred_literal_host``). The ivec equals the
+    JAX program's digit for digit: the same window limb sums go through
+    the same carry steps."""
+    check_limb_bound(sig.R, sig.K)
+    acc, scanned = agg_init(sig.aggs), 0
+    for parts in window_parts(sig, arrays, w_first, w_last, row_lo, row_hi,
+                              (read_hi, read_lo, rexp_hi, rexp_lo), lits):
+        acc = agg_fold(sig.aggs, acc, parts)
+        scanned += parts["scanned"]
+    ivec, fvec = pack(sig.aggs, acc, torch.tensor(scanned))
+    device = arrays["valid"].device
+    return ivec.to(device), fvec.to(device)
+
+
+@functools.lru_cache(maxsize=128)
+def compiled_full_aggregate(sig: dscan.ScanSig):
+    """fn(run, row_lo, row_hi, w_first, w_last, read_hi, read_lo, rexp_hi,
+    rexp_lo, pred_lits) -> (ivec, fvec) of one spec, named as in the JAX
+    package: K5 over a flat run or view (``ops.full_agg.supports``). On
+    CUDA tensors it launches the kernel, on CPU tensors it runs
+    ``full_aggregate_plain``; scalars are host ints, ``pred_lits`` host
+    literals. Nothing is compiled."""
+    from yugabyte_db_tpu_torch.ops import full_agg
+
+    check_limb_bound(sig.R, sig.K)
+    plan = full_agg.make_plan(sig.aggs, sig.preds, sig.cols, sig.R, sig.K)
+
+    def fn(run, row_lo, row_hi, w_first, w_last, read_hi, read_lo, rexp_hi,
+           rexp_lo, pred_lits):
+        params = np.array([plan.param_row(
+            row_lo, row_hi, w_first, w_last,
+            (read_hi, read_lo, rexp_hi, rexp_lo), pred_lits)], np.int32)
+        ivec, fvec = full_agg.full_aggregate(plan, run, params)
+        return ivec[0], fvec[0]
+
+    return fn
 
 
 def unpack(sig_aggs, ivec, fvec):

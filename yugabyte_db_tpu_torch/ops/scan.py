@@ -246,6 +246,91 @@ def _eval_pred(ps: PredSig, cmp, arith, idx, lit):
             ">": ~lt, ">=": ~lt}[ps.op]
 
 
+def _limbs16(u: torch.Tensor) -> tuple:
+    """The two 16-bit limbs of a 2^31-biased int32 plane (int64 values in
+    [0, 2^32))."""
+    return u & 0xFFFF, u >> 16
+
+
+def _eval_agg(name: str, ag: AggSig, result, col_idx, col_notnull, cmp_w,
+              arith_w, block_of_group, K: int) -> dict:
+    """Per-block partials of one aggregate over G resolved windows (the JAX
+    package's ``_eval_agg`` with a leading window axis): ``result``,
+    ``col_idx`` / ``col_notnull`` entries and ``block_of_group`` are
+    [G, N] (``resolve_windows``' output), ``cmp_w`` / ``arith_w`` its
+    row-indexed windowed planes.
+
+    Returns ``{name}_count`` [G]; for SUM ``{name}_n`` [G] and
+    ``{name}_limbs`` [G, K, 4] int64 (the 16-bit limbs of the biased
+    order planes, summed per block) or ``{name}_fsum`` [G, K] float32
+    (the ``arith`` plane summed per block); for MIN/MAX ``{name}_n`` and
+    ``{name}_fext`` (f32, on ``arith``), ``{name}_ext`` (i32) or
+    ``{name}_ext_hi`` / ``{name}_ext_lo`` (two order planes, the tie on
+    the high plane broken on the low one), [G] each, at the type's fill
+    where no row counts. Integer partials are int64 here, int32 in the
+    JAX program: the values are the same, none overflows int32."""
+    out = {}
+    if ag.fn == "count":
+        mask = (result if ag.col_id is None
+                else result & col_notnull[ag.col_id])
+        out[f"{name}_count"] = mask.sum(dim=1)
+        return out
+    mask = result & col_notnull[ag.col_id]
+    idx = col_idx[ag.col_id]
+    out[f"{name}_n"] = mask.sum(dim=1)
+    G = mask.shape[0]
+    # Garbage group ids (past the window's groups) never count: clamp
+    # their block so that the per-block scatter stays in range.
+    blocks = block_of_group.clamp(0, K - 1)
+
+    def per_block(v):
+        shape = (G, K) + tuple(v.shape[2:])
+        index = blocks.reshape(blocks.shape + (1,) * (v.dim() - 2)
+                               ).expand(v.shape)
+        return torch.zeros(shape, dtype=v.dtype,
+                           device=v.device).scatter_add_(1, index, v)
+
+    def plane(j):
+        return torch.gather(cmp_w[ag.col_id][..., j], 1, idx)
+
+    if ag.fn == "sum":
+        if ag.kind in ("f32", "f64"):
+            v = torch.gather(arith_w[ag.col_id], 1, idx)
+            out[f"{name}_fsum"] = per_block(torch.where(mask, v, 0.0))
+            return out
+        if ag.kind == "i32":
+            l0, l1 = _limbs16(plane(0).long() + (1 << 31))
+            zero = torch.zeros_like(l0)
+            limbs = (l0, l1, zero, zero)
+        else:  # i64: lo plane's limbs, then hi plane's
+            limbs = (*_limbs16(plane(1).long() + (1 << 31)),
+                     *_limbs16(plane(0).long() + (1 << 31)))
+        stacked = torch.stack([torch.where(mask, l, 0) for l in limbs], -1)
+        out[f"{name}_limbs"] = per_block(stacked)
+        return out
+    # MIN / MAX on the order planes (exact); f32 on the arith plane.
+    is_max = ag.fn == "max"
+
+    def red(v):
+        return v.amax(dim=1) if is_max else v.amin(dim=1)
+
+    if ag.kind == "f32":
+        v = torch.gather(arith_w[ag.col_id], 1, idx)
+        out[f"{name}_fext"] = red(torch.where(
+            mask, v, float("-inf") if is_max else float("inf")))
+        return out
+    ifill = int(I32_MIN) if is_max else int(I32_MAX)
+    hi = plane(0).long()
+    mhi = red(torch.where(mask, hi, ifill))
+    if ag.kind == "i32":
+        out[f"{name}_ext"] = mhi
+        return out
+    tie = mask & (hi == mhi[:, None])
+    out[f"{name}_ext_hi"] = mhi
+    out[f"{name}_ext_lo"] = red(torch.where(tie, plane(1).long(), ifill))
+    return out
+
+
 def _scalar_lits(sig, pred_literals, device) -> tuple:
     """One-window literal tensors ([1] or [1, 2]) of host literals."""
     out = []

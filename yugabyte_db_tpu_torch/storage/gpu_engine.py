@@ -46,10 +46,19 @@ The scans:
   ONE launch with an [N, P] parameter tensor (the counterpart of
   ``_batched_agg_fn``);
 - the other signatures (f64 predicates, float aggregates) go through
-  ``ops.flat_fold`` in plain PyTorch, one spec at a time.
+  ``ops.flat_fold`` in plain PyTorch, one spec at a time, within its
+  bounds (``flat_fold.MAX_B`` blocks, ``MAX_R`` rows a block);
+- past those bounds they go through the windowed fold K5
+  (``ops.full_agg``, a CUDA kernel; the JAX engine's ``full`` route,
+  ``agg_fold.compiled_full_aggregate``): the windows of K blocks that
+  the spec's rows cover, folded in window order into exact digits. The
+  specs of one batch that share a signature and a run (or view) go as
+  ONE launch, a spec a row of the grid's second axis.
 
-Both return ``agg_fold.pack``'s layout, which ``unpack`` / ``finalize``
-turn into a ``ScanResult``. ``rows_scanned`` is what the JAX ``tpu``
+All three return ``agg_fold.pack``'s layout, which ``unpack`` /
+``finalize`` turn into a ``ScanResult``; ``stats()["agg_routes"]``
+counts the specs each route served and ``stats()["full_launches"]`` the
+K5 launches. ``rows_scanned`` is what the JAX ``tpu``
 engine reports on these routes: the rows (key groups, on a multi-version
 run) that pass every predicate.
 
@@ -82,9 +91,7 @@ pages on a flat run, the gather through K7 (``ops.row_gather``, a CUDA
 kernel) on one run, and the row scan over several sources, whose
 candidates K9 gives (also a dirty set past half the primary, a grouped
 spec over several sources, and the memtable before the first flush).
-A run past the flat fold's limb bounds on a signature K1 does not take
-raises ``NotImplementedError``: the windowed fold (K5) is ROADMAP.md §1
-item 7's remainder. There is no host re-serve: a device error raises.
+There is no host re-serve: a device error raises.
 """
 
 from __future__ import annotations
@@ -103,7 +110,7 @@ import torch
 from yugabyte_db_tpu_torch.models.datatypes import DataType
 from yugabyte_db_tpu_torch.models.schema import Schema
 from yugabyte_db_tpu_torch.ops import (agg_fold, flat_agg, flat_fold,
-                                      group_agg, mvcc_resolve)
+                                      full_agg, group_agg, mvcc_resolve)
 from yugabyte_db_tpu_torch.ops import compact as dcompact
 from yugabyte_db_tpu_torch.ops import flush as dflush
 from yugabyte_db_tpu_torch.ops import scan as dscan
@@ -291,7 +298,9 @@ class _AggPrep:
     spec: ScanSpec
     trun: GpuRun
     sig: dscan.ScanSig    # the fold's signature (a view's is flat)
-    route: str            # "kernel" | "flat" | "mv_kernel" | "mv_flat"
+    route: str            # "kernel" (K1), "flat" (the plain flat fold) or
+                          # "full" (K5, past the flat fold's bounds); a
+                          # multi-version run's view: "mv_" + the same
     row_lo: int
     row_hi: int
     read_planes: tuple    # read hi/lo, expiry hi/lo
@@ -366,6 +375,10 @@ class GpuStorageEngine(RowPath, StorageEngine):
         self._key_col_names = {c.name for c in schema.key_columns}
         self._plan_cache: dict = {}        # gather plans by structure
         self._read_plane_cache: dict = {}  # read planes by read point
+        # Single-source aggregate specs served, by route (_AggPrep.route).
+        self.agg_routes = {r: 0 for r in ("kernel", "flat", "full",
+                                          "mv_kernel", "mv_flat", "mv_full")}
+        self.full_launches = 0  # K5 launches
         self.flush_paths = {"device": 0, "host": 0}
         self.compact_paths = {"k11": 0, "twin": 0, "host": 0}
         self.last_flush: dict = {}
@@ -863,6 +876,8 @@ class GpuStorageEngine(RowPath, StorageEngine):
             "device_bytes": sum(t.dev.nbytes for t in self.runs),
             "flush_paths": dict(self.flush_paths),
             "compact_paths": dict(self.compact_paths),
+            "agg_routes": dict(self.agg_routes),
+            "full_launches": self.full_launches,
         }
 
     # -- reads ---------------------------------------------------------------
@@ -877,11 +892,11 @@ class GpuStorageEngine(RowPath, StorageEngine):
         copies to the host without waiting, then fold the overlay specs'
         dirty keys on the host; ``.finish()`` waits and builds the
         results. A multi-version run (or a masked copy of it) is resolved
-        once per view key; same-signature kernel specs (K1 or K8) on one
-        run, masked run or view share one launch."""
+        once per view key; same-signature kernel specs (K1, K5 or K8) on
+        one run, masked run or view share one launch."""
         results: list = [None] * len(specs)
         # Per source, a run or one view of it: K1 specs by plan, the specs
-        # of the plain flat fold, and K8 specs by plan.
+        # of the plain flat fold, K8 specs by plan and K5 specs by plan.
         sources: dict = {}
         overlay = []
         rows = {"host": [], "page": [], "gather": []}  # the row path
@@ -895,11 +910,18 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 continue
             if prep.overlay is not None:
                 overlay.append(prep)
-            kernels, folds, grouped = sources.setdefault(
-                (id(prep.trun), prep.view_key), ({}, [], {}))
+            kernels, folds, grouped, fulls = sources.setdefault(
+                (id(prep.trun), prep.view_key), ({}, [], {}, {}))
             if isinstance(prep, _GroupPrep):
                 grouped.setdefault(group_agg.make_plan(prep.sig), []).append(
                     (i, prep))
+                continue
+            self.agg_routes[prep.route] += 1
+            if prep.route in ("full", "mv_full"):
+                sig = prep.sig
+                plan = full_agg.make_plan(sig.aggs, sig.preds, sig.cols,
+                                          sig.R, sig.K)
+                fulls.setdefault(plan, []).append((i, prep))
             elif prep.route in ("kernel", "mv_kernel"):
                 plan = flat_agg.make_plan(
                     prep.sig.aggs, prep.sig.preds,
@@ -909,8 +931,9 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 folds.append((i, prep))
 
         pending = []  # (device tensors, finish(host tensors))
-        for kernels, folds, grouped in sources.values():
-            pending += self._launch_source(kernels, folds, grouped, results)
+        for kernels, folds, grouped, fulls in sources.values():
+            pending += self._launch_source(kernels, folds, grouped, fulls,
+                                           results)
         # The gathers' first round: one K7 launch per (signature, run).
         states = dict(rows["gather"])
         round1 = {i: st.pending for i, st in rows["gather"] if st.pending}
@@ -920,12 +943,13 @@ class GpuStorageEngine(RowPath, StorageEngine):
         return _AsyncBatch(self, results, pending, rows, round1, dispatches)
 
     def _launch_source(self, kernels: dict, folds: list, grouped: dict,
-                       results: list) -> list:
+                       fulls: dict, results: list) -> list:
         """Queue every launch that reads one source. A view is held only
         here, so it is let go before the next source's view is resolved:
         a batch holds at most one view of a run at a time."""
         first = next(g[0] for g in (*kernels.values(), folds,
-                                    *grouped.values()) if g)
+                                    *grouped.values(), *fulls.values())
+                     if g)
         arrays = first[1].arrays()
         pending = []
         for plan, group in grouped.items():
@@ -944,6 +968,19 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 plan, plan.plane_table(arrays), params)
             folded = flat_agg.fold_partials(plan, partials)
             pending.append(([folded], _kernel_finish(plan, group, results)))
+        for plan, group in fulls.items():
+            # The windows each spec's rows cover (the JAX engine's
+            # _dispatch_prepped), one parameter row a spec.
+            W = arrays["valid"].shape[0] // plan.K
+            params = np.array([plan.param_row(
+                p.row_lo, p.row_hi,
+                *agg_fold.window_bounds(p.row_lo, p.row_hi, plan.R, plan.K,
+                                        W), p.read_planes, p.lits)
+                for _i, p in group], np.int32)
+            ivec, fvec = full_agg.full_aggregate(plan, arrays, params)
+            if ivec.is_cuda:
+                self.full_launches += 1
+            pending.append(([ivec, fvec], _full_finish(group, results)))
         for i, p in folds:
             fn = flat_fold.compiled_flat_aggregate(p.sig)
             ivec, fvec = fn(arrays, p.row_lo, p.row_hi, *p.read_planes,
@@ -1258,11 +1295,8 @@ class GpuStorageEngine(RowPath, StorageEngine):
             route = prefix + "kernel"
         elif flat_fold.supports(sig):
             route = prefix + "flat"
-        else:
-            raise NotImplementedError(
-                f"not in the port yet: a run of {sig.B} blocks x {sig.R} "
-                "rows exceeds the flat fold's exact-limb bounds "
-                "(ROADMAP.md §1 item 7: the windowed fold K5)")
+        else:  # past the flat fold's bounds: the windowed fold
+            route = prefix + "full"
         return _AggPrep(spec, trun, sig, route, crun.lower_row(spec.lower),
                         crun.upper_row(spec.upper), self._read_plane_ints(spec),
                         tuple(lits), dev_aggs, lowering, view_key)
@@ -1516,6 +1550,14 @@ def _kernel_finish(plan, group, results):
         folded = host[0].numpy()
         for n, (i, prep) in enumerate(group):
             results[i] = _agg_result(prep, *plan.to_packed(folded[n]))
+    return finish
+
+
+def _full_finish(group, results):
+    def finish(host):
+        ivecs, fvecs = host[0].numpy(), host[1].numpy()
+        for n, (i, prep) in enumerate(group):
+            results[i] = _agg_result(prep, ivecs[n], fvecs[n])
     return finish
 
 

@@ -19,6 +19,11 @@ money), a seeded numpy generator with the same value distributions as
 rewrites single fields of zipfian keys, which makes the run
 multi-version.
 
+``flat_planes`` draws a flat run's planes with integer and float
+columns (NULLs, unset values, tombstones, TTLs, invalid rows, values at
+the extremes) for the folds' kernels, at sizes past the flat fold's
+bounds.
+
 The write side's kernels get inputs laid out for their hard cases:
 ``replay_inputs`` (the flush's staged planes, order and packing at any R
 and column mix) and ``gc_union`` / ``scatter_union`` (a sorted union with
@@ -63,13 +68,15 @@ def bench_key(schema: Schema, i: int) -> bytes:
         compute_hash_code(schema, {"k": f"user{i:06d}"}))
 
 
-def make_rows(schema: Schema, num_keys: int, seed: int = 3):
-    """(rows, max_ht): one RowVersion per key, in key-generation order."""
+def make_rows(schema: Schema, num_keys: int, seed: int = 3,
+              first: int = 0, ht: int = 100):
+    """(rows, max_ht): one RowVersion per key of key numbers [first,
+    first + num_keys), in key-generation order, at hybrid times after
+    ``ht``."""
     rng = random.Random(seed)
     cid = {c.name: c.col_id for c in schema.columns}
-    ht = 100
     rows = []
-    for i in range(num_keys):
+    for i in range(first, first + num_keys):
         key = bench_key(schema, i)
         ht += rng.randrange(1, 4)
         if rng.random() < 0.05:
@@ -318,6 +325,90 @@ def long_group_planes(n_rows: int, R: int, seed: int = 7) -> dict:
             "arith": plane(np.where(keep, values, 0).astype(np.float32), 0,
                            np.float32)}
     return planes
+
+
+# A float column's values (well conditioned for sums: all positive).
+FLOAT_RANGE = {"f32": (0.5, 100.0), "f64": (0.5, 1000.0)}
+# Values at a kind's extremes (for the columns that take them).
+EXTREMES = {"i32": (-(1 << 31), (1 << 31) - 1),
+            "i64": (-(1 << 63), (1 << 63) - 1),
+            "f32": (-3.4028234663852886e38, 3.4028234663852886e38),
+            "f64": (-1.7976931348623157e308, 1.7976931348623157e308)}
+
+
+def flat_planes(n_blocks: int, R: int, columns, seed: int = 17) -> tuple:
+    """Flat-run planes (one version a key) in the ``DeviceRun.arrays``
+    layout, as numpy [n_blocks, R] (cmp [n_blocks, R, P]), drawn rather
+    than flushed, and read points: ``(planes, reads)``. ``columns`` lists
+    ``(col_id, kind, p_set, p_null, p_extreme)`` with kind ``i32``,
+    ``i64``, ``f32`` or ``f64``; each column has its order planes as the
+    columnar build writes them (i32 one word; i64 and f64 the two ordered
+    words; f32 the float's bits) and its ``arith`` plane (the value as
+    float32; 0 where unset or NULL). Integers are uniform in +-10^6
+    (i32) or +-10^12 (i64); floats uniform in ``FLOAT_RANGE`` (all
+    positive, so that sums are well conditioned); a share ``p_extreme``
+    of the set values sits at the kind's ``EXTREMES`` (a float's arith
+    plane then holds +-inf or +-FLT_MAX). A column of ``p_set`` 0 is never
+    set. About 0.2% of the rows are invalid, 5% of the valid ones
+    tombstones, 95% of the others carry the liveness marker (the rest
+    exist only through a set, non-NULL column), 3% have a TTL (expiring
+    inside the history). ``reads``: ``all`` (past every hybrid time),
+    ``mid`` (the median) and ``early`` (the 5th percentile)."""
+    rng = np.random.default_rng(seed)
+    n = n_blocks * R
+    ht = (10**15 + rng.integers(0, 10**7, n)) << 12
+    valid = rng.random(n, np.float32) > 0.002
+    tomb = valid & (rng.random(n, np.float32) < 0.05)
+    live = valid & ~tomb & (rng.random(n, np.float32) < 0.95)
+    has_ttl = ~tomb & (rng.random(n, np.float32) < 0.03)
+    exp = np.full(n, MAX_HT, np.int64)
+    exp[has_ttl] = ht[has_ttl] + (
+        rng.integers(1, 10**7, int(has_ttl.sum())) << 12)
+
+    def shaped(x, *extra):
+        return np.ascontiguousarray(x.reshape((n_blocks, R) + extra))
+
+    def column(kind, p_set, p_null, p_ext):
+        set_ = valid & ~tomb & (rng.random(n, np.float32) < p_set)
+        keep = set_ & (rng.random(n, np.float32) >= p_null)
+        ext = keep & (rng.random(n, np.float32) < p_ext)
+        lo, hi = EXTREMES[kind]
+        sign = rng.random(int(ext.sum()), np.float32) < 0.5
+        if kind in ("i32", "i64"):
+            bound = 10**6 if kind == "i32" else 10**12
+            values = rng.integers(-bound, bound, n, dtype=np.int64)
+            values[ext] = np.where(sign, lo, hi)
+        else:
+            values = rng.uniform(*FLOAT_RANGE[kind], n)
+            if kind == "f32":
+                values = values.astype(np.float32)
+            values[ext] = np.where(sign, lo, hi)
+        with np.errstate(over="ignore"):
+            arith = np.where(keep, values, 0).astype(np.float32)
+        if kind == "i32":
+            cmp = values.astype(np.int32)[:, None]
+        elif kind == "f32":
+            cmp = values.view(np.int32)[:, None]
+        else:
+            hi_p, lo_p = (P.i64_to_ordered_planes(values) if kind == "i64"
+                          else P.f64_to_ordered_planes(values))
+            cmp = np.stack([hi_p, lo_p], axis=-1)
+        cmp = np.where(keep[:, None], cmp, 0).astype(np.int32)
+        return {"set": shaped(set_), "isnull": shaped(set_ & ~keep),
+                "cmp": shaped(cmp, cmp.shape[1]), "arith": shaped(arith)}
+
+    ht_hi, ht_lo = P.ht_to_planes(ht)
+    exp_hi, exp_lo = P.ht_to_planes(exp)
+    planes = {
+        "valid": shaped(valid), "group_start": shaped(np.ones(n, bool)),
+        "tomb": shaped(tomb), "live": shaped(live),
+        "ht_hi": shaped(ht_hi), "ht_lo": shaped(ht_lo),
+        "exp_hi": shaped(exp_hi), "exp_lo": shaped(exp_lo),
+        "cols": {cid: column(kind, p_set, p_null, p_ext)
+                 for cid, kind, p_set, p_null, p_ext in columns}}
+    reads = {"all": int(ht.max()) + 1, "mid": int(np.median(ht)),
+             "early": int(np.percentile(ht, 5))}
+    return planes, reads
 
 
 def replay_inputs(n: int, R: int, num_cols: int, pads: int = 0,
