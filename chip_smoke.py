@@ -138,12 +138,21 @@ line is printed:
    f32 extremes exactly) and timed beside its bound
    (``full_signature``); the launch shape the library reports must equal
    ``full_agg.launch_geometry``. Edges, exact and untimed: an empty range
-   and a first window past 0, 18 value columns at 1,048,576 rows, and
-   the view of the mvcc phase's run at its newest read point. Then the
+   and a first window past 0; a batch of one spec chunk + 1 (65) specs
+   at 12 read points (more than a chunk stages), each with a range and a
+   literal of its own; 4 specs over disjoint window ranges; 18 value
+   columns at 1,048,576 rows, alone and with every SUM, MIN, MAX and
+   COUNT of 5 columns (several aggregates a pass, 5 passes); R = 64
+   planes of 524,288 rows (several windows a block); R = 33 planes of
+   540,672 rows (windows of 264 rows: plain loads, not the asynchronous
+   copy); and the view of the mvcc phase's run at its newest read
+   point. Then the
    engine: the bench table at 1,100,000 keys and ``rows_per_block`` 64
    (17,188 blocks), a float and an f64-predicate aggregate alone and in
    a 32-spec batch on route ``full`` (``stats()["agg_routes"]``), equal
-   to an exact oracle; 1,000 rows written to the memtable, the overlay's
+   to an exact oracle; the batch traced twice (``full_trace``: the
+   device's busy share, K5's device time and the host's time a batch);
+   1,000 rows written to the memtable, the overlay's
    masked primary on the same route, equal to the history's oracle. K5's
    launches are counted over that run; K5 is held and timed at the
    engine's batch (``full_engine_kernel``); K5's ptxas report must show
@@ -172,6 +181,15 @@ line is printed:
 
 Exits 2 without a result when no CUDA device is visible.
 
+``python3 chip_smoke.py --full-ab OTHER.cu[,...]`` times this tree's K5
+against other sources of it in turns on one card, on every
+``full_signature`` and on the engine's 16-spec launch (``full_ab``
+lines), each call held against the plain version; a source whose C
+interface differs is called through the wrapper saved beside it as
+``OTHER.py``. K5's first design (commit 4fa9bb3): ``git show
+4fa9bb3:yugabyte_db_tpu_torch/csrc/full_agg.cu > build/ab/full_first.cu``
+and ``git show 4fa9bb3:yugabyte_db_tpu_torch/ops/full_agg.py >
+build/ab/full_first.py``.
 ``python3 chip_smoke.py --resolve-ab OTHER.cu[,OTHER2.cu...]`` builds the
 kernels, then times this tree's resolve kernel against each other source
 of it (the same C interface) in turns on one card, on the mvcc run and
@@ -3677,6 +3695,8 @@ FULL_COLUMNS = ((1, "i32", 0.97, 0.03, 0.001), (2, "i32", 0.95, 0.05, 0.001),
                 (3, "i64", 0.99, 0.02, 0.001), (4, "f32", 0.95, 0.05, 0.0),
                 (5, "f64", 0.97, 0.03, 0.0), (6, "i64", 0.0, 0.0, 0.0))
 FULL_WIDE_BLOCKS = 512  # 1,048,576 rows of 18 value columns (an edge)
+FULL_R64_BLOCKS = 8192  # 524,288 rows at R = 64: 1,024 windows (an edge)
+FULL_R33_BLOCKS = 16384  # 540,672 rows at R = 33: 2,048 windows (an edge)
 FULL_KEYS = 1_100_000   # the bench table at rows_per_block 64: 17,188
 FULL_ENGINE_R = 64      # blocks, past flat_fold.MAX_B
 FULL_WRITES = 1_000     # rows written to the memtable over that run
@@ -3722,26 +3742,35 @@ def full_sums(plan, ivec, fvec) -> list:
     return out
 
 
-def hold_full(plan, arrays, params: np.ndarray, signed: bool) -> dict:
+def hold_full(plan, arrays, params: np.ndarray, signed: bool,
+              mod=None) -> dict:
     """K5 against its plain version on the same inputs: the ivec exactly,
     each float SUM within FULL_SUM_TOL x the sum of |x| (from the plain
     version over |arith| where the values may be negative, else the
-    plain sum itself), the float extremes exactly."""
+    plain sum itself), the float extremes exactly; this tree's launch
+    shape against ``launch_geometry``. ``mod``: another wrapper module
+    (``full_ab``) that launches its own source, shape unchecked."""
     import torch
 
     from yugabyte_db_tpu_torch.ops import full_agg
 
-    got_i, got_f = full_agg.full_aggregate(plan, arrays, params)
-    geo = full_agg.last_launch()
+    if mod is None:
+        got_i, got_f = full_agg.full_aggregate(plan, arrays, params)
+        geo = full_agg.last_launch()
+        check(geo == full_agg.launch_geometry(
+            plan, params, arrays["valid"].shape[0] // plan.K),
+            f"K5's launch {geo} differs from launch_geometry")
+    else:
+        got_i, got_f = mod.full_aggregate(mod.make_plan(
+            plan.aggs, plan.preds, plan.cols, plan.R, plan.K), arrays,
+            params)
+        geo = None
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     want_i, want_f = full_agg.full_aggregate_plain(plan, arrays, params)
     end.record()
     torch.cuda.synchronize()
-    check(geo == full_agg.launch_geometry(plan, params,
-                                          arrays["valid"].shape[0] // plan.K),
-          f"K5's launch {geo} differs from launch_geometry")
     diff = (got_i.long() - want_i.long()).abs()
     err = int(diff.max()) if diff.numel() else 0
     check(err == 0, f"K5 ivec != plain version (max |diff| {err}) for "
@@ -3778,7 +3807,8 @@ def hold_full(plan, arrays, params: np.ndarray, signed: bool) -> dict:
 def measure_full(plan, arrays, params: np.ndarray, bw: float, rate: float,
                  signed: bool = False, plain_reps: int = PLAIN_REPS) -> dict:
     """K5 held against its plain version, then timed (CUDA events, median
-    of KERNEL_REPS launches; the plain version the median of
+    of KERNEL_REPS calls queued behind a parked stream, and of calls
+    timed one by one; the plain version the median of
     ``plain_reps``, or with 0 its one call of the hold) beside its bound:
     bytes of the planes over the covered rows (each read once), the
     parameter rows and the outputs; integer operations over the int32
@@ -3786,15 +3816,37 @@ def measure_full(plan, arrays, params: np.ndarray, bw: float, rate: float,
     from yugabyte_db_tpu_torch.ops import full_agg
 
     held = hold_full(plan, arrays, params, signed)
+    # The device's time: the wrapper waits on nothing, so the calls queue
+    # behind a parked stream and run back to back. Beside it, CUDA events
+    # around each call, as K5's first design was timed (host work
+    # included).
     ms = cuda_ms(lambda: full_agg.full_aggregate(plan, arrays, params),
-                 KERNEL_REPS)
+                 KERNEL_REPS, queue_ahead=True)
+    event_ms = cuda_ms(lambda: full_agg.full_aggregate(plan, arrays, params),
+                       KERNEL_REPS)
     plain_ms = held["plain_once_ms"] if not plain_reps else cuda_ms(
         lambda: full_agg.full_aggregate_plain(plan, arrays, params),
         plain_reps)
+    ivec = held.pop("ivec")
+    held.pop("fvec")
+    return {"specs": params.shape[0], "ms": ms, "event_ms": event_ms,
+            "plain_ms": plain_ms,
+            **full_bound(plan, arrays, params, bw, rate),
+            "scanned": int(ivec[:, 0].sum()), **held}
+
+
+def full_bound(plan, arrays, params: np.ndarray, bw: float,
+               rate: float) -> dict:
+    """K5's bound on these inputs: bytes of the planes over the covered
+    rows (each read once), the parameter rows and the outputs; integer
+    operations over the int32 rate and float ones over the f32 rate."""
     table = plan.plane_table(arrays)
     n_rows = table[0].numel()
     rows = covered_rows(params, n_rows)
-    n_reads, vis_rows = visibility_rows(params, n_rows)
+    # A K5 row's read point follows its window range (row_lo, row_hi,
+    # w_first, w_last, read planes): K1's layout without the windows.
+    n_reads, vis_rows = visibility_rows(params[:, [0, 1, 4, 5, 6, 7]],
+                                        n_rows)
     in_ranges = rows_in_ranges(params, n_rows)
     nbytes = (rows * plan.bytes_per_row(table) + params.nbytes
               + params.shape[0] * (4 * plan.n_ints + 4 * plan.n_floats))
@@ -3803,14 +3855,11 @@ def measure_full(plan, arrays, params: np.ndarray, bw: float, rate: float,
     bytes_ms = nbytes / bw * 1e3
     ops_ms = max(int_ops / rate, in_ranges * full_float_ops(plan)
                  / _F32_FLOPS) * 1e3
-    ivec = held.pop("ivec")
-    held.pop("fvec")
-    return {"specs": params.shape[0], "rows": rows, "read_points": n_reads,
-            "bytes_per_row": plan.bytes_per_row(table), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "scanned": int(ivec[:, 0].sum()), **held}
+    return {"rows": rows, "read_points": n_reads,
+            "bytes_per_row": plan.bytes_per_row(table),
+            "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
 def full_plan(aggs, preds, columns, R: int):
@@ -3892,7 +3941,8 @@ def full_signatures(reads: dict, n_rows: int, W: int):
 def full_kernel(device, bw: float, rate: float) -> dict:
     """K5 on ``workload.flat_planes`` at FULL_BLOCKS x FULL_R (made from a
     seed in numpy, then uploaded): every signature held and timed, then
-    the edges on them (an empty range, a first window past 0), untimed."""
+    the edges on them, untimed: an empty range and a first window past
+    0, and ``full_batch_edges``."""
     import torch
 
     from yugabyte_db_tpu_torch import workload
@@ -3946,14 +3996,48 @@ def full_kernel(device, bw: float, rate: float) -> dict:
           "K5's empty-range / first-window edge")
     out["edges"] = {"empty_range_and_first_window": edge["max_abs_err"]}
     print("full_edge empty_range_and_first_window: exact")
+    # One spec chunk + 1 specs (two chunks), at more read points than a
+    # chunk stages, each with a range and a literal of its own; then specs
+    # over disjoint window ranges.
+    _label, plan, _params = full_signatures(reads, n_rows, W)[-1]
+    for label, rows in full_batch_edges(reads, n_rows, W).items():
+        edge = hold_full(plan, run.arrays, full_params(plan, rows, W), False)
+        check(int(edge["ivec"][:, 0].min()) > 0, f"K5's {label} edge is "
+                                                  f"empty")
+        out["edges"][label] = edge["max_abs_err"]
+        print(f"full_edge {label}: {len(rows)} specs, "
+              f"{edge['geometry']['chunks']} chunks, exact")
     return out
+
+
+def full_batch_edges(reads: dict, n_rows: int, W: int) -> dict:
+    """(row_lo, row_hi, read_ht, literals) rows of the batch edges: a
+    chunk + 1 specs at 12 read points with ranges from mid-window, and 4
+    specs over disjoint quarters of the run."""
+    from yugabyte_db_tpu_torch.ops import full_agg
+
+    rng = np.random.default_rng(29)
+    pts = [reads["early"] + (reads["all"] - reads["early"]) * i // 11
+           for i in range(12)]
+    chunk1 = [(int(rng.integers(0, n_rows // 3)),
+               n_rows - int(rng.integers(0, n_rows // 3)), pts[i % 12],
+               (lit_f64(100.0 + 7.0 * i),))
+              for i in range(full_agg.MAX_SPEC_CHUNK + 1)]
+    quarter = n_rows // 4
+    disjoint = [(k * quarter + 1000 + k, (k + 1) * quarter - 999 - k,
+                 pts[3 * k], (lit_f64(200.0 + 100.0 * k),))
+                for k in range(4)]
+    return {"chunk_plus_one": chunk1, "disjoint_windows": disjoint}
 
 
 def full_edges(device, mvcc) -> dict:
     """K5 held exactly against its plain version, untimed: 18 value
     columns at 1,048,576 rows (10 predicates, 12 aggregates, a bounded
-    range and a first window past 0), and the view that the resolve makes
-    of the mvcc phase's run at its newest read point."""
+    range and a first window past 0; then 21 aggregates in 5 passes),
+    R = 64 planes at FULL_R64_BLOCKS blocks (several windows a block),
+    R = 33 planes at FULL_R33_BLOCKS blocks (plain loads), and the view
+    that the resolve makes of the mvcc phase's run at its newest read
+    point."""
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.ops import mvcc_resolve
     from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
@@ -3993,6 +4077,55 @@ def full_edges(device, mvcc) -> dict:
     check(int(wide["ivec"][:, 0].min()) > 0, "the 18-column edge is empty")
     print(f"full_edge wide: {n} rows, {len(cols)} columns, {len(preds)} "
           f"predicates, {len(aggs)} aggregates, exact")
+    # The same columns with every SUM, MIN, MAX and COUNT of 5 columns
+    # (one of each kind, and a column a predicate also reads): several
+    # aggregates a pass and more passes than a column holds.
+    pplan = full_plan((AggSig("count", None, None),) + tuple(
+        AggSig(fn, c, kind[c]) for c in (1, 2, 3, 4, 8)
+        for fn in ("sum", "min", "max", "count")), preds[:3], cols, FULL_R)
+    passes = hold_full(pplan, run.arrays, full_params(pplan, [
+        (r[0], r[1], r[2], r[3][:3]) for r in rows], W), False)
+    check(passes["geometry"]["passes"] == 5, "the pass edge's passes")
+    print(f"full_edge passes: {len(pplan.aggs)} aggregates in "
+          f"{len(pplan.passes)} passes, exact")
+    del run
+    # R = 64: a run of windows a block.
+    planes, reads = workload.flat_planes(FULL_R64_BLOCKS, FULL_ENGINE_R,
+                                         FULL_COLUMNS, seed=37)
+    run = DeviceRun.from_reference_planes(planes, FULL_ENGINE_R, device)
+    del planes
+    kind64 = {c[0]: c[1] for c in FULL_COLUMNS}
+    rplan = full_plan((AggSig("count", None, None), AggSig("sum", 5, "f64"),
+                       AggSig("min", 5, "f64"), AggSig("max", 3, "i64"),
+                       AggSig("sum", 1, "i32")),
+                      (PredSig(2, kind64[2], ">="),), FULL_COLUMNS,
+                      FULL_ENGINE_R)
+    n, W = run.B * FULL_ENGINE_R, run.B // rplan.K
+    rparams = full_params(rplan, [
+        (0, n, reads["all"], (np.int32(-500_000),)),
+        (FULL_ENGINE_R * 5 + 3, n - 1001, reads["mid"], (np.int32(0),)),
+        (n // 3, n // 3 + 7 * FULL_ENGINE_R, reads["early"],
+         (np.int32(-10**6),))], W)
+    runs = hold_full(rplan, run.arrays, rparams, False)
+    check(runs["geometry"]["windows_per_block"] > 1,
+          "the R = 64 edge has one window a block")
+    print(f"full_edge r64_runs: {n} rows, "
+          f"{runs['geometry']['windows_per_block']} windows a block, exact")
+    del run
+    # R = 33: windows of 264 rows, not a multiple of 16, take plain loads
+    # in place of the asynchronous copy.
+    planes, reads = workload.flat_planes(FULL_R33_BLOCKS, 33, FULL_COLUMNS,
+                                         seed=41)
+    run = DeviceRun.from_reference_planes(planes, 33, device)
+    del planes
+    oplan = full_plan(rplan.aggs, rplan.preds, FULL_COLUMNS, 33)
+    n, W = run.B * 33, run.B // oplan.K
+    odd = hold_full(oplan, run.arrays, full_params(oplan, [
+        (0, n, reads["all"], (np.int32(-500_000),)),
+        (33 * 5 + 3, n - 1001, reads["mid"], (np.int32(0),))], W), False)
+    check(odd["geometry"]["async_copy"] == 0,
+          "the R = 33 edge took the asynchronous copy")
+    print(f"full_edge r33_plain_loads: {n} rows, exact")
     del run
 
     trun = mvcc.eng.runs[0]
@@ -4020,7 +4153,10 @@ def full_edges(device, mvcc) -> dict:
     check(int(held["ivec"][:, 0].min()) > 0, "the view edge is empty")
     print(f"full_edge view: {vn} rows, the mvcc run's view at its newest "
           f"read point, exact; worst float sum {held['worst_sum_rel_err']}")
-    return {"wide": wide["max_abs_err"], "view": held["max_abs_err"]}
+    return {"wide": wide["max_abs_err"], "passes": passes["max_abs_err"],
+            "r64_runs": runs["max_abs_err"],
+            "r33_plain_loads": odd["max_abs_err"],
+            "view": held["max_abs_err"]}
 
 
 def c_pred_answer(arrays: tuple, c_lo: float) -> tuple:
@@ -4049,45 +4185,16 @@ def full_engine(device, bw: float, rate: float) -> dict:
     route and equal the oracle of the history. K5's launches are counted
     over that run; K5 is then held and timed at the engine's batch."""
     from yugabyte_db_tpu_torch import workload
-    from yugabyte_db_tpu_torch.ops import flat_fold, full_agg
-    from yugabyte_db_tpu_torch.storage import (AggSpec, Predicate, ScanSpec,
-                                               make_engine)
+    from yugabyte_db_tpu_torch.ops import full_agg
 
-    t0 = time.perf_counter()
-    schema = workload.make_schema()
-    # The engine phase's rows (made once a process), then the keys past
-    # them at later hybrid times.
-    rows, max_ht = bench_rows(schema, ENGINE_KEYS)
-    tail, max_ht = workload.make_rows(schema, FULL_KEYS - ENGINE_KEYS,
-                                      seed=4, first=ENGINE_KEYS, ht=max_ht)
-    rows = rows + tail
-    gen_s = time.perf_counter() - t0
-    eng = make_engine("gpu", schema, {"rows_per_block": FULL_ENGINE_R,
-                                      "device": device})
-    t0 = time.perf_counter()
-    eng.apply(rows)
-    flush(eng, "full")
-    load_s = time.perf_counter() - t0
-    check(eng.runs[0].crun.B > flat_fold.MAX_B,
-          f"{eng.runs[0].crun.B} blocks are within the flat fold's bounds")
+    schema, rows, max_ht, eng, gen_s, load_s = full_engine_table(device)
+    float_spec, pred_spec = full_specs()
     cid = {c.name: c.col_id for c in schema.columns}
     arrays = Oracle.arrays([(r.columns[cid["d"]], r.columns[cid["a"]],
                              r.columns[cid["c"]])
                             for r in rows if not r.tombstone])
     oracle = Oracle(*arrays)
     read = max_ht + 1
-
-    def float_spec(rd, lo):
-        return ScanSpec(read_ht=rd, predicates=[Predicate("d", ">=", lo)],
-                        aggregates=[AggSpec("sum", "c"), AggSpec("min", "c"),
-                                    AggSpec("max", "c")])
-
-    def pred_spec(rd, x):
-        return ScanSpec(read_ht=rd, predicates=[
-            Predicate("c", ">=", x), Predicate("d", ">=", -10**6)],
-            aggregates=[AggSpec("count", None), AggSpec("sum", "a"),
-                        AggSpec("min", "a"), AggSpec("max", "a"),
-                        AggSpec("sum", "d"), AggSpec("sum", "c")])
 
     def check_float(got, orc, lo, label):
         want_s, want_min, want_max, abs_sum = orc.c_aggs(lo)
@@ -4102,8 +4209,7 @@ def full_engine(device, bw: float, rate: float) -> dict:
         check(abs(got[5] - want_c) <= FULL_SUM_TOL * abs_c,
               f"{label}: sum(c) {got[5]} vs {want_c}")
 
-    los = [-900_000 + 61_357 * i for i in range(FULL_BATCH // 2)]
-    xs = [-9e5 + 1.2e5 * i for i in range(FULL_BATCH // 2)]
+    los, xs = FULL_LOS, FULL_XS
     for spec in (float_spec(read, 0), pred_spec(read, 0.0)):
         check(eng._plan_scan(spec).route == "full",
               "a K5 spec does not take route full")
@@ -4127,7 +4233,16 @@ def full_engine(device, bw: float, rate: float) -> dict:
         check_float(r.rows[0], oracle, lo, f"full batch d >= {lo}")
     for x, r in zip(xs, res[len(los):]):
         check_pred(r.rows[0], arrays, x, f"full batch c >= {x}")
-    flat_scans = 5 + 1 + len(specs)
+    # The same batch traced: the device's busy share, K5's device time
+    # (its two kernels) and the host's time per batch.
+    trace = trace_batches(eng, [specs] * FULL_TRACE_BATCHES)
+    by = trace["device_ms_by_kernel"]
+    trace["k5_device_ms_per_batch"] = "not measured" if isinstance(
+        by, str) else sum(ms for name, ms in by.items()
+                          if "window_kernel" in name or "fold_kernel" in name
+                          ) / FULL_TRACE_BATCHES
+    print("full_trace " + json.dumps(trace))
+    flat_scans = 5 + 1 + len(specs) * (1 + FULL_TRACE_BATCHES)
     check(eng.stats()["agg_routes"]["full"] == routes0 + flat_scans,
           "the K5 specs did not all take route full")
     # The overlay: FULL_WRITES rows over the run, in the memtable.
@@ -4177,7 +4292,61 @@ def full_engine(device, bw: float, rate: float) -> dict:
            "agg_routes": eng.stats()["agg_routes"], "launches": launches}
     print("full_engine " + json.dumps(row))
     row["kernel"] = kernel
+    row["trace"] = trace
     return row
+
+
+FULL_LOS = [-900_000 + 61_357 * i for i in range(FULL_BATCH // 2)]
+FULL_XS = [-9e5 + 1.2e5 * i for i in range(FULL_BATCH // 2)]
+FULL_TRACE_BATCHES = 2
+
+
+def full_specs() -> tuple:
+    """The route's two spec makers: a float spec (SUM/MIN/MAX of c under
+    d >= lo) and an f64-predicate spec (c >= x), each of a read point."""
+    from yugabyte_db_tpu_torch.storage import AggSpec, Predicate, ScanSpec
+
+    def float_spec(rd, lo):
+        return ScanSpec(read_ht=rd, predicates=[Predicate("d", ">=", lo)],
+                        aggregates=[AggSpec("sum", "c"), AggSpec("min", "c"),
+                                    AggSpec("max", "c")])
+
+    def pred_spec(rd, x):
+        return ScanSpec(read_ht=rd, predicates=[
+            Predicate("c", ">=", x), Predicate("d", ">=", -10**6)],
+            aggregates=[AggSpec("count", None), AggSpec("sum", "a"),
+                        AggSpec("min", "a"), AggSpec("max", "a"),
+                        AggSpec("sum", "d"), AggSpec("sum", "c")])
+
+    return float_spec, pred_spec
+
+
+def full_engine_table(device) -> tuple:
+    """The bench table at FULL_KEYS keys in one flat run at rows_per_block
+    FULL_ENGINE_R, past flat_fold.MAX_B blocks: (schema, rows, max_ht,
+    engine, generation s, load s)."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_fold
+    from yugabyte_db_tpu_torch.storage import make_engine
+
+    t0 = time.perf_counter()
+    schema = workload.make_schema()
+    # The engine phase's rows (made once a process), then the keys past
+    # them at later hybrid times.
+    rows, max_ht = bench_rows(schema, ENGINE_KEYS)
+    tail, max_ht = workload.make_rows(schema, FULL_KEYS - ENGINE_KEYS,
+                                      seed=4, first=ENGINE_KEYS, ht=max_ht)
+    rows = rows + tail
+    gen_s = time.perf_counter() - t0
+    eng = make_engine("gpu", schema, {"rows_per_block": FULL_ENGINE_R,
+                                      "device": device})
+    t0 = time.perf_counter()
+    eng.apply(rows)
+    flush(eng, "full")
+    load_s = time.perf_counter() - t0
+    check(eng.runs[0].crun.B > flat_fold.MAX_B,
+          f"{eng.runs[0].crun.B} blocks are within the flat fold's bounds")
+    return schema, rows, max_ht, eng, gen_s, load_s
 
 
 def full_phase(device, bw: float, rate: float, mvcc) -> dict:
@@ -4241,6 +4410,80 @@ def full_alone(device, bw: float, rate: float) -> None:
                            max_ht=max_ht, eng=eng)
     full = full_phase(device, bw, rate, mvcc)
     print(json.dumps({"kernels": [full_entry(full)]}))
+
+
+def full_ab(device, bw: float, rate: float, others: list) -> None:
+    """This tree's K5 (A) against other sources of it (B1, ...), in turns
+    A B1 .. Bn Bn .. B1 A on one card, on every ``full_signature`` over
+    the full-width planes and on the engine's 16-spec launch (the route's
+    float specs on its run at R = 64). Another source is launched by the
+    wrapper saved beside it as ``OTHER.py`` (else by this tree's), bound
+    to that source's library; every call is held against the plain
+    version (ivec exactly, float sums within FULL_SUM_TOL, f32 extremes
+    exactly), then timed by CUDA events: ``ms`` around each call (as the
+    first design was timed: host work the call waits on included),
+    ``queued_ms`` with the calls queued behind a parked stream (the
+    device's time for a wrapper that waits on nothing; the first
+    design's waits on its pageable uploads, so its calls stay one by
+    one)."""
+    import torch
+    from pathlib import Path
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import full_agg
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+
+    mods = {"A": full_agg}
+    for other, lib in build_libs("full_agg", others).items():
+        path = Path(other).with_suffix(".py")
+        mod = load_module(path if path.exists() else full_agg.__file__)
+        mod.native = SimpleNamespace(load_library=lambda _name, lib=lib: lib)
+        bound = mod._library.__wrapped__()
+        mod._library = lambda bound=bound: bound
+        mods[other] = mod
+    order = ["A", *others, *others[::-1], "A"]
+    t0 = time.perf_counter()
+    planes, reads = workload.flat_planes(FULL_BLOCKS, FULL_R, FULL_COLUMNS,
+                                         seed=19)
+    run = DeviceRun.from_reference_planes(planes, FULL_R, device)
+    del planes
+    n_rows, W = run.B * FULL_R, run.B // 8
+    cases = [(label, plan, run.arrays, params) for label, plan, params in
+             full_signatures(reads, n_rows, W)]
+    _schema, _rows, max_ht, eng, _g, _l = full_engine_table(device)
+    float_spec, _pred = full_specs()
+    preps = [eng._plan_scan(float_spec(max_ht + 1, lo)) for lo in FULL_LOS]
+    p0 = preps[0]
+    plan = full_plan(p0.sig.aggs, p0.sig.preds,
+                     [(cs.col_id, cs.kind) for cs in p0.sig.cols],
+                     FULL_ENGINE_R)
+    arrays = p0.trun.dev.arrays
+    cases.append(("engine_batch16", plan, arrays, full_params(
+        plan, [(p.row_lo, p.row_hi, max_ht + 1, p.lits) for p in preps],
+        arrays["valid"].shape[0] // plan.K)))
+    print("full_ab_setup " + json.dumps({
+        "card": nvidia_smi(), "setup_s": time.perf_counter() - t0,
+        "ptxas": ptxas_usage("full_agg")}))
+    for label, plan, arrays, params in cases:
+        times = {name: [] for name in mods}
+        queued = {name: [] for name in mods}
+        for name in order:
+            mod = mods[name]
+            hold_full(plan, arrays, params, label == "engine_batch16",
+                      None if name == "A" else mod)
+            mplan = mod.make_plan(plan.aggs, plan.preds, plan.cols, plan.R,
+                                  plan.K)
+            times[name].append(cuda_ms(
+                lambda: mod.full_aggregate(mplan, arrays, params),
+                KERNEL_REPS))
+            queued[name].append(cuda_ms(
+                lambda: mod.full_aggregate(mplan, arrays, params),
+                KERNEL_REPS, queue_ahead=True))
+        print("full_ab " + json.dumps({
+            "case": label, "specs": params.shape[0],
+            **full_bound(plan, arrays, params, bw, rate), "ms": times,
+            "queued_ms": queued}))
+    del run, eng
 
 
 # -- phase 6: GROUP BY and expression aggregates (TPC-H Q1/Q6, K8) -------
@@ -5045,6 +5288,9 @@ def main() -> int:
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--compact-ab":
         compact_ab(device, bw, rate, sys.argv[2].split(","))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--full-ab":
+        full_ab(device, bw, rate, sys.argv[2].split(","))
         return 0
     if len(sys.argv) == 2 and sys.argv[1] == "--rows":
         rows_alone(device, bw, rate)

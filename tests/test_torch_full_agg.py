@@ -33,6 +33,7 @@ from yugabyte_db_tpu_torch.utils import planes as P
 
 K = 8
 BLOCKS = {8: 64, 48: 32, 64: 40}  # blocks of the planes at each R
+MODEL_BLOCKS = {33: 40, 100: 24}  # the partition model's other R
 # (col_id, kind, P(set), P(NULL | set), P(extreme | not NULL)): 17 value
 # columns; 1-2 take integer extremes, 5 and 7 float extremes (MIN/MAX
 # only: their arith planes hold +-inf / +-FLT_MAX), 6 is never set, 8 is
@@ -53,7 +54,8 @@ def planes_at(R: int) -> dict:
     if R not in _PLANES:
         import jax.numpy as jnp
 
-        planes, reads = workload.flat_planes(BLOCKS[R], R, COLUMNS, seed=R)
+        planes, reads = workload.flat_planes({**MODEL_BLOCKS, **BLOCKS}[R],
+                                             R, COLUMNS, seed=R)
         _PLANES[R] = {
             "planes": planes, "reads": reads,
             "jax": {k: ({c: {n: jnp.asarray(a) for n, a in e.items()}
@@ -295,17 +297,42 @@ def test_plan_layouts_match_pack():
     assert plan.foffs == [0, 0, 2, 2, 3, 3, 3]
     assert plan.lit_offsets == [8, 9, 11] and plan.n_params == 13
     assert plan.rec_words == 1 + 5 * 7
+    # One pass a column that an aggregate reads, in order of first use:
+    # SUM(3) f32 (arith), SUM(2) i64 (two order words), MIN(7) f32 (arith),
+    # MAX(1) i32 (one word), MIN(4) f64 (two words), COUNT(6) alone.
+    assert plan.agg_pass == [-1, 0, 1, 2, 3, 4, 5]
+    sl = plan.slot
+    assert plan.staged == [(sl[1], 0), (sl[4], 0), (sl[4], 1), (sl[2], 0),
+                           (sl[2], 1), (sl[3], -1), (sl[7], -1)]
+    assert plan.pred_staged == [(0, -1), (1, 2), (3, 4)]
+    assert plan.passes == [(sl[3], 2, 1, -1, -1, 5), (sl[2], 1, 1, 3, 4, -1),
+                           (sl[7], 2, 2, -1, -1, 6), (sl[1], 0, 4, 0, -1, -1),
+                           (sl[4], 3, 2, 1, 2, -1), (sl[6], 0, 0, -1, -1, -1)]
+    # The tile buffer holds each read column's order planes (all of its
+    # words) and arith plane once, as they lie.
+    assert plan.raw == [(sl[1], 0, 1, 0), (sl[4], 0, 2, 1), (sl[2], 0, 2, 3),
+                        (sl[3], 1, 1, 5), (sl[7], 1, 1, 6)]
+    assert plan.val_words == 7
+    assert plan.staged_at == [(0, 1, 0), (1, 2, 0), (1, 2, 1), (3, 2, 0),
+                              (3, 2, 1), (5, 1, 0), (6, 1, 0)]
     table = plan.plane_table(planes_at(64)["port"])
     words = plan.descriptor(table)
-    assert list(words[:8]) == [17, 3, 7, 13, plan.n_ints, plan.n_floats,
-                               64, 64 * K]
-    off_cols, off_preds, off_aggs, off_ptrs = words[8:12]
-    assert (off_preds - off_cols, off_aggs - off_preds,
-            off_ptrs - off_aggs) == (2 * 17, 4 * 3, 5 * 7)
-    assert list(words[off_cols:off_cols + 8]) == [1, 1, 2, 1, 1, 1, 2, 1]
-    assert list(words[off_preds + 4:off_preds + 8]) == [3, 3, 2, 9]
-    assert list(words[off_aggs + 15:off_aggs + 20]) == [2, 6, 2, 12, 2]
-    assert words.size == off_ptrs + 7 + 4 * 17
+    assert list(words[:11]) == [17, 3, 7, 13, plan.n_ints, plan.n_floats,
+                                64, 64 * K, 6, 7, 5]
+    off_preds, off_aggs, off_passes, off_staged, off_raw, off_ptrs = \
+        words[11:17]
+    assert (off_preds, off_aggs - off_preds, off_passes - off_aggs,
+            off_staged - off_passes, off_raw - off_staged,
+            off_ptrs - off_raw) == (17, 6 * 3, 6 * 7, 6 * 6, 5 * 7, 4 * 5)
+    assert list(words[off_staged + 10:off_staged + 15]) == [sl[4], 1, 1, 2,
+                                                            1]
+    assert list(words[off_raw + 4:off_raw + 8]) == [sl[4], 0, 2, 1]
+    # The f64 predicate: slot, kind, op, literal word 1, staged words.
+    assert list(words[off_preds + 6:off_preds + 12]) == [3, 3, 2, 1, 1, 2]
+    assert list(words[off_aggs + 18:off_aggs + 24]) == [2, 6, 2, 12, 2, 2]
+    assert list(words[off_passes + 24:off_passes + 30]) == [3, 3, 2, 1, 2,
+                                                            -1]
+    assert words.size == off_ptrs + 7 + 4 * 17 == plan.desc_words
     assert words[off_ptrs] == table[0].data_ptr()
 
 
@@ -318,21 +345,160 @@ def test_param_rows_and_literals_round_trip():
     assert int(back[0]) == -7 and np.array_equal(back[1], lits[1])
 
 
+def geo_rows(plan, spans, reads=(0, 0, 0, 0)):
+    return np.array([plan.param_row(0, 10, wf, wl, reads, ())
+                     for wf, wl in spans], np.int32)
+
+
 def test_launch_geometry():
     plan = plan_of([("sum", 4), ("count", None)], [])
-    rows = np.array([plan.param_row(0, 10, wf, wl, (0, 0, 0, 0), ())
-                     for wf, wl in ((3, 7), (5, 5), (1, 4), (6, 9))],
-                    np.int32)
+    rows = geo_rows(plan, ((3, 7), (5, 5), (1, 4), (6, 9)))
     geo = full_agg.launch_geometry(plan, rows, 12)
-    assert geo == {"w_base": 1, "windows": 8, "specs": 4, "threads": 256,
-                   "fold_threads": 96, "rec_words": 11}
+    assert tuple(geo) == full_agg.GEOMETRY
+    # 4 specs: one chunk, 2 warps a spec; 512-row windows (R = 64) under
+    # BLOCK_ROWS, but the grid is far below TARGET_BLOCKS: a window a block.
+    assert geo == dict(
+        geo, w_base=1, windows=8, specs=4, chunk=4, chunks=1, tile_rows=512,
+        windows_per_block=1, blocks=8, warps_per_spec=2, rows_per_load=2,
+        async_copy=1, passes=1, staged=1, threads=256, fold_threads=96,
+        rec_words=11)
+    assert geo["read_classes"] == 1
+    assert geo["shared_bytes"] == full_agg.shared_layout(plan, 4, 2, 512,
+                                                         True, 1)
     empty = full_agg.launch_geometry(plan, rows[1:2], 12)
-    assert (empty["w_base"], empty["windows"]) == (0, 0)
+    assert (empty["w_base"], empty["windows"], empty["blocks"]) == (0, 0, 0)
     with pytest.raises(ValueError, match="outside the run"):
         full_agg.launch_geometry(plan, rows, 8)
     wide = plan_of([("count", None)] * 40, [])
     assert full_agg.launch_geometry(wide, rows[:1], 12)["fold_threads"] \
-        == 1024
+        == 32 * full_agg.FOLD_WARPS
+    # One spec: every warp takes a slice of its tiles.
+    one = full_agg.launch_geometry(plan, rows[:1], 12)
+    assert (one["chunk"], one["warps_per_spec"]) == (1, 8)
+    # Many small windows: a run of them a block, as far as the grid still
+    # holds TARGET_BLOCKS blocks.
+    many = full_agg.launch_geometry(plan, geo_rows(plan, ((0, 2149),) * 16),
+                                    2149)
+    assert (many["chunk"], many["warps_per_spec"]) == (16, 1)
+    assert many["windows_per_block"] == -(-2149 // full_agg.TARGET_BLOCKS)
+    assert many["blocks"] == -(-2149 // many["windows_per_block"])
+    # 2048-row blocks: a 16,384-row window a block, in tiles of the
+    # largest power of two whose two buffers let 3 blocks share an SM.
+    big = plan_of([("sum", 4), ("count", None)], [], R=2048)
+    g2 = full_agg.launch_geometry(big, geo_rows(big, ((0, 2112),)), 2112)
+    assert (g2["tile_rows"], g2["windows_per_block"], g2["blocks"],
+            g2["rows_per_load"], g2["async_copy"]) == (512, 1, 2112, 2, 1)
+    assert full_agg.shared_layout(big, 1, 8, 1024, True, 1) > \
+        full_agg.SMEM_LIMIT // full_agg.FEW_BLOCKS_PER_SM >= g2["shared_bytes"]
+    # Planes off 16 bytes, or windows not a multiple of 16 rows: loaded
+    # one row a thread.
+    plain = full_agg.launch_geometry(big, geo_rows(big, ((0, 2112),)), 2112,
+                                     aligned=False)
+    assert (plain["rows_per_load"], plain["async_copy"]) == (1, 0)
+    odd = plan_of([("count", None)], [], R=33)
+    assert full_agg.launch_geometry(odd, geo_rows(odd, ((0, 5),)), 5)[
+        "async_copy"] == 0
+
+
+def test_launch_geometry_one_chunk_and_one_more_spec():
+    """MAX_SPEC_CHUNK + 1 specs: two chunks, the specs dealt evenly."""
+    plan = plan_of([("sum", 4), ("min", 4), ("max", 4)], [(4, ">=")])
+    n = full_agg.MAX_SPEC_CHUNK + 1
+    rows = geo_rows(plan, ((0, 5),) * n)
+    geo = full_agg.launch_geometry(plan, rows, 5)
+    assert (geo["specs"], geo["chunks"], geo["chunk"],
+            geo["warps_per_spec"]) == (n, 2, 33, 1)
+    assert geo["shared_bytes"] <= full_agg.SMEM_LIMIT
+    classes, table = full_agg.read_classes(rows, geo["chunk"])
+    assert table.shape == (2, full_agg.CLASS_WORDS)
+    assert list(table[:, 0]) == [1, 1] and not classes.any()
+
+
+def test_launch_geometry_more_aggregates_than_a_pass_holds():
+    """A pass holds one column's SUM, MIN, MAX and COUNT: 12 aggregates
+    over 3 columns are 3 passes, 12 over 12 columns 12 passes (the 18-column
+    edge of the card's run)."""
+    plan = plan_of([(fn, c) for c in (1, 2, 4) for fn in
+                    ("sum", "min", "max", "count")], [])
+    assert len(plan.passes) == 3
+    assert plan.agg_pass == [0] * 4 + [1] * 4 + [2] * 4
+    assert [p[2] for p in plan.passes] == [7, 7, 7]
+    spread = plan_of([(fn, c) for fn, c in zip(
+        ("sum", "min", "max", "count") * 3, range(6, 18))], [])
+    assert len(spread.passes) == 12
+    geo = full_agg.launch_geometry(spread, geo_rows(spread, ((0, 5),)), 5)
+    assert geo["passes"] == 12 and geo["shared_bytes"] <= full_agg.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("R", (8, 33, 64, 100, 2048))
+def test_shared_bytes_fit_a_block_at_every_window(R):
+    """The widest plans the card's run launches (18 value columns, 10
+    predicates, 12 aggregates; every column's order and arith planes
+    staged) at every R that ``safe_window_blocks`` admits, alone and in
+    batches of 1, 8, 65 and 512 specs."""
+    kinds = ("i32", "i64", "f32", "f64")
+    cols = tuple(t_scan.ColSig(c, kinds[c % 4]) for c in range(1, 19))
+    kind = {cs.col_id: cs.kind for cs in cols}
+    preds = tuple(t_scan.PredSig(c, kind[c], "<") for c in range(1, 19)
+                  if kind[c] != "f32")[:10]
+    aggs = tuple(t_scan.AggSig(fn, c, kind[c]) for c in range(1, 19)
+                 for fn in ("sum", "min", "max"))
+    Kr = agg_fold.safe_window_blocks(R, agg_fold.FULL_WINDOW_BLOCKS)
+    plan = full_agg.make_plan(aggs, preds, cols, R, Kr)
+    assert len(plan.staged) > 30
+    for n in (1, 8, 65, 512):
+        rows = np.array([plan.param_row(0, 10, 0, 3, (0, 0, 0, i), [
+            np.int32(0) if p.kind == "i32" else np.zeros(2, np.int32)
+            for p in preds]) for i in range(n)], np.int32)
+        geo = full_agg.launch_geometry(plan, rows, 3)
+        assert geo["shared_bytes"] <= 232448
+        assert geo["shared_bytes"] == full_agg.shared_layout(
+            plan, geo["chunk"], geo["warps_per_spec"], geo["tile_rows"],
+            geo["async_copy"], geo["read_classes"])
+        assert geo["chunk"] * geo["chunks"] >= n
+        assert 32 * geo["warps_per_spec"] <= geo["tile_rows"]
+
+
+def test_fold_digits_equal_one_carry_step_a_window():
+    """The fold's closed form gives the digits of one ``carry_step`` a
+    window, digit for digit: no window, fewer windows than it reads back,
+    limb sums at the limb bound, at the carries' edges and drawn."""
+    rng = np.random.default_rng(11)
+    top = agg_fold._LIMB_BUDGET - 1
+    for trial in range(400):
+        T = int(rng.choice([0, 1, 2, 6, 7, 8, 9, 31, 33, 300]))
+        pick = trial % 3
+        if pick == 0:
+            windows = rng.integers(0, top, (T, 4)).tolist()
+        elif pick == 1:
+            windows = rng.choice([0, 0xFFFF, 0x10000, top], (T, 4)).tolist()
+        else:
+            windows = rng.integers(0, 0xFFFF * 512, (T, 4)).tolist()
+        digits = [0] * agg_fold.DIGITS
+        for x in windows:
+            digits = agg_fold.carry_step(
+                [d + (x[k] if k < 4 else 0) for k, d in enumerate(digits)])
+        assert full_agg.fold_digits(windows) == digits, windows
+
+
+def test_read_classes():
+    """Each chunk stages its first READ_CLASSES distinct read points; a
+    spec past them gets -1."""
+    plan = plan_of([("count", None)], [])
+    reads = [(0, 0, 0, i % 11) for i in range(30)]
+    rows = np.array([plan.param_row(0, 10, 0, 1, r, ()) for r in reads],
+                    np.int32)
+    classes, table = full_agg.read_classes(rows, 20)
+    assert table.shape == (2, full_agg.CLASS_WORDS)
+    assert list(table[:, 0]) == [8, 8]
+    assert list(classes[:11]) == list(range(8)) + [-1, -1, -1]
+    assert list(classes[11:20]) == list(range(8)) + [-1]
+    assert list(classes[20:]) == list(range(8)) + [-1, -1]
+    for c, lo in ((0, 0), (1, 20)):
+        for s in range(lo, min(30, lo + 20)):
+            if classes[s] >= 0:
+                k = 1 + 4 * classes[s]
+                assert tuple(table[c, k:k + 4]) == tuple(rows[s, 4:8])
 
 
 def test_full_aggregate_runs_the_plain_version_on_cpu_only():
@@ -363,6 +529,247 @@ def test_full_aggregate_runs_the_plain_version_on_cpu_only():
             for k, v in side["port"].items()}
     with pytest.raises(ValueError, match="runs on cuda or cpu"):
         full_agg.full_aggregate(plan, meta, params)
+
+
+# -- a numpy model of the kernel's partition ---------------------------------
+
+def row_keys(hi, lo):
+    """int64 keys whose order is the (hi, lo) int32 planes' lexicographic
+    order."""
+    return hi.astype(np.int64) * (1 << 32) + (lo.astype(np.int64) + (1 << 31))
+
+
+def model_rows(plan, planes) -> dict:
+    """What the staging decodes once per row, as flat numpy arrays: the
+    candidate bit, each slot's set-and-not-NULL bit, the hybrid-time and
+    expiry keys, each column's order key (signed value for i32) and arith
+    plane."""
+    flat = {k: v.reshape(-1) for k, v in planes.items() if k != "cols"}
+    nn, key, arith, words = {}, {}, {}, {}
+    for cs in plan.cols:
+        c = planes["cols"][cs.col_id]
+        slot = plan.slot[cs.col_id]
+        nn[slot] = (c["set"] & ~c["isnull"]).reshape(-1)
+        cmp = c["cmp"].reshape(-1, c["cmp"].shape[-1])
+        words[slot] = cmp
+        key[slot] = (cmp[:, 0].astype(np.int64) if cmp.shape[1] == 1
+                     else row_keys(cmp[:, 0], cmp[:, 1]))
+        arith[slot] = c["arith"].reshape(-1)
+    exists = flat["live"] | np.logical_or.reduce(list(nn.values()))
+    return {"cand": flat["valid"] & ~flat["tomb"] & exists, "nn": nn,
+            "ht": row_keys(flat["ht_hi"], flat["ht_lo"]),
+            "exp": row_keys(flat["exp_hi"], flat["exp_lo"]), "key": key,
+            "arith": arith, "words": words}
+
+
+_CMP = {"=": np.equal, "!=": np.not_equal, "<": np.less, "<=": np.less_equal,
+        ">": np.greater, ">=": np.greater_equal}
+
+
+def model_resolve(plan, rows, spec, read, idx) -> np.ndarray:
+    """The rows ``idx`` that count for one spec at read planes ``read``."""
+    ok = rows["cand"][idx] & (rows["ht"][idx] <= row_keys(
+        np.int32(read[0]), np.int32(read[1]))) & ~(
+        rows["exp"][idx] <= row_keys(np.int32(read[2]), np.int32(read[3])))
+    for p, off in zip(plan.preds, plan.lit_offsets):
+        slot = plan.slot[p.col_id]
+        x = (np.int64(spec[off]) if p.kind == "i32"
+             else row_keys(np.int32(spec[off]), np.int32(spec[off + 1])))
+        ok &= rows["nn"][slot][idx] & _CMP[p.op](rows["key"][slot][idx], x)
+    return idx[ok]
+
+
+def model_record(plan, rows, sel) -> dict:
+    """One (spec, window)'s record from the rows ``sel`` that count, in
+    ``agg_fold.window_parts``' form."""
+    out = {"scanned": int(sel.size)}
+    for i, a in enumerate(plan.aggs):
+        if a.col_id is None:
+            out[f"agg{i}_count"] = int(sel.size)
+            continue
+        slot = plan.slot[a.col_id]
+        got = sel[rows["nn"][slot][sel]]
+        n = int(got.size)
+        if a.fn == "count":
+            out[f"agg{i}_count"] = n
+            continue
+        out[f"agg{i}_n"] = n
+        is_max = a.fn == "max"
+        if a.fn == "sum" and a.kind in ("f32", "f64"):
+            out[f"agg{i}_fsum"] = float(np.float32(
+                rows["arith"][slot][got].astype(np.float64).sum()))
+        elif a.fn == "sum":
+            w = rows["words"][slot][got].astype(np.int64) & 0xFFFFFFFF
+            u = w ^ 0x80000000
+            limbs = [u[:, -1] & 0xFFFF, u[:, -1] >> 16]
+            if u.shape[1] == 2:
+                limbs += [u[:, 0] & 0xFFFF, u[:, 0] >> 16]
+            out[f"agg{i}_limbs"] = [int(x.sum()) for x in limbs]
+        elif a.kind == "f32":
+            vals = rows["arith"][slot][got]
+            out[f"agg{i}_fext"] = (vals.max() if is_max else vals.min()) \
+                if n else np.float32(-np.inf if is_max else np.inf)
+        else:
+            keys = rows["key"][slot][got]
+            if a.kind == "i32":
+                fill = -(1 << 31) if is_max else (1 << 31) - 1
+                out[f"agg{i}_ext"] = int(keys.max() if is_max
+                                         else keys.min()) if n else fill
+            else:
+                fill = -(1 << 63) if is_max else (1 << 63) - 1
+                k = int(keys.max() if is_max else keys.min()) if n else fill
+                out[f"agg{i}_ext_hi"] = k >> 32
+                out[f"agg{i}_ext_lo"] = (k & 0xFFFFFFFF) - (1 << 31)
+    return out
+
+
+def model_partition(plan, planes, params, W) -> tuple:
+    """The kernel's partition in numpy: chunks of specs (grid.y), runs of
+    windows (grid.x), each window's tiles, each tile's rows dealt to warps
+    and lanes as ``csrc/full_agg.cu`` deals them, visibility from the
+    chunk's read classes; per (spec, window) one record summed over its
+    tiles and slices, then folded in window order (``agg_fold.agg_fold``:
+    one carry step a window) and packed. Every row of a spec's windows in
+    its range is counted exactly once. Returns (ivec [N, I], fvec [N, F],
+    the geometry)."""
+    geo = full_agg.launch_geometry(plan, params, W)
+    classes, table = full_agg.read_classes(params, geo["chunk"])
+    rows = model_rows(plan, planes)
+    N, T, G = plan.K * plan.R, geo["tile_rows"], geo["warps_per_spec"]
+    J = T // (32 * G)
+    lane_rows = {q: np.array([(j * G + q) * 32 + lane for j in range(J)
+                              for lane in range(32)]) for q in range(G)}
+    assert np.array_equal(np.sort(np.concatenate(list(lane_rows.values()))),
+                          np.arange(T))
+    records, seen = {}, {}
+    for c in range(geo["chunks"]):
+        chunk = range(c * geo["chunk"], min(len(params),
+                                            (c + 1) * geo["chunk"]))
+        live = [s for s in chunk if params[s, 2] < params[s, 3]]
+        if not live:
+            continue
+        uwf, uwl = min(params[s, 2] for s in live), max(params[s, 3]
+                                                        for s in live)
+        ulo, uhi = min(params[s, 0] for s in live), max(params[s, 1]
+                                                        for s in live)
+        for b in range(geo["blocks"]):
+            wb = geo["w_base"] + b * geo["windows_per_block"]
+            we = min(wb + geo["windows_per_block"],
+                     geo["w_base"] + geo["windows"])
+            for w in range(max(wb, uwf), min(we, uwl)):
+                acc = {s: [] for s in chunk
+                       if params[s, 2] <= w < params[s, 3]}
+                lo_s, hi_s = max(w * N, ulo), min((w + 1) * N, uhi)
+                # With the copy, tiles start on a multiple of 16 rows.
+                align = 16 if geo["async_copy"] else 1
+                for t0 in range(lo_s - lo_s % align, hi_s, T):
+                    nt = min(T, hi_s - t0)
+                    for s in acc:
+                        cls = classes[s]
+                        read = (table[c, 1 + 4 * cls:5 + 4 * cls] if cls >= 0
+                                else params[s, 4:8])
+                        for q in range(G):
+                            r = lane_rows[q]
+                            g = t0 + r[(r < nt) & (t0 + r >= params[s, 0])
+                                       & (t0 + r < params[s, 1])]
+                            for x in g:
+                                seen[s, int(x)] = seen.get((s, int(x)), 0) + 1
+                            acc[s].append(model_resolve(
+                                plan, rows, params[s], read, g))
+                for s, parts in acc.items():
+                    assert (s, w) not in records
+                    records[s, w] = model_record(
+                        plan, rows, np.concatenate(parts) if parts
+                        else np.zeros(0, np.int64))
+    ivecs, fvecs = [], []
+    for s, prm in enumerate(params):
+        lo, hi, wf, wl = (int(x) for x in prm[:4])
+        want = {(s, x) for w in range(wf, wl)
+                for x in range(max(lo, w * N), min(hi, (w + 1) * N))}
+        assert {k for k in seen if k[0] == s} == want
+        assert all(seen[k] == 1 for k in want)
+        acc, scanned = agg_fold.agg_init(plan.aggs), 0
+        for w in range(wf, wl):
+            parts = records[s, w]
+            acc = agg_fold.agg_fold(plan.aggs, acc, parts)
+            scanned += parts["scanned"]
+        iv, fv = agg_fold.pack(plan.aggs, acc, torch.tensor(scanned))
+        ivecs.append(iv.numpy())
+        fvecs.append(fv.numpy())
+    return np.stack(ivecs), np.stack(fvecs), geo
+
+
+def model_specs(plan, R: int, reads: dict, n_specs: int) -> np.ndarray:
+    """Parameter rows: ranges that start and end mid-window, an empty
+    range, a window range narrower than the rows, and read points at the
+    run's newest, mid, early and in between (more than READ_CLASSES
+    distinct ones when there are enough specs)."""
+    B = {**MODEL_BLOCKS, **BLOCKS}[R]
+    n, W, N = B * R, B // K, K * R
+    pts = [reads["all"], reads["mid"], reads["early"]] + [
+        reads["early"] + (reads["all"] - reads["early"]) * i // 9
+        for i in range(1, 9)]
+    lits = tuple(lit(KIND[c], v) for c, _op, v in plan.model_preds)
+    out = []
+    for i in range(n_specs):
+        lo, hi = [(0, n), (R + 3, n - 2 * R - 5), (N + 1, 2 * N - 1),
+                  (7, 7), (N // 2 + 5, n - N // 2 - 3), (3, n)][i % 6]
+        wf, wl = agg_fold.window_bounds(lo, hi, R, K, W)
+        if i % 6 == 5:
+            wf, wl = 1, W - 1
+        out.append(plan.param_row(lo, hi, wf, wl,
+                                  read_planes(pts[i % len(pts)]), lits))
+    return np.array(out, np.int32)
+
+
+@pytest.mark.parametrize("R", (8, 33, 64, 100))
+@pytest.mark.parametrize("name", ("ints", "floats"))
+@pytest.mark.parametrize("shape", ("one_spec", "specs", "small_chunks"))
+def test_partition_model_equals_plain_and_jax(R, name, shape, monkeypatch):
+    """The records that ``launch_geometry``'s partition sums, folded with
+    one carry step a window, equal the plain version and the JAX program
+    digit for digit. ``small_chunks`` shrinks MAX_SPEC_CHUNK to 4 and
+    TARGET_BLOCKS to 2, so that 13 specs take 4 chunks of 2 warps a spec
+    and a block runs several windows."""
+    import jax.numpy as jnp
+
+    if shape == "small_chunks":
+        monkeypatch.setattr(full_agg, "MAX_SPEC_CHUNK", 4)
+        monkeypatch.setattr(full_agg, "TARGET_BLOCKS", 2)
+    side = planes_at(R)
+    B = {**MODEL_BLOCKS, **BLOCKS}[R]
+    aggs, preds = SIGNATURES[name]
+    tsig = signature(t_scan, B, R, aggs, preds)
+    plan = full_agg.make_plan(tsig.aggs, tsig.preds, tsig.cols, R, K)
+    plan.model_preds = preds
+    params = model_specs(plan, R, side["reads"],
+                         {"one_spec": 1, "specs": 13, "small_chunks": 13}[
+                             shape])
+    ivec, fvec, geo = model_partition(plan, side["planes"], params, B // K)
+    if shape == "small_chunks":
+        assert geo["chunks"] == 4 and geo["warps_per_spec"] == 2
+        assert geo["windows_per_block"] > 1
+    if shape == "one_spec":
+        assert geo["warps_per_spec"] == 8
+    want_i, want_f = full_agg.full_aggregate(plan, side["port"], params)
+    assert np.array_equal(ivec, want_i.numpy())
+    assert ivec[:, 0].sum() > 0
+    jfn = j_agg_fold.compiled_full_aggregate(
+        signature(j_scan, B, R, aggs, preds))
+    for k, row in enumerate(params.tolist()):
+        ji, jf = jfn(side["jax"], *(jnp.int32(v) for v in row[:8]),
+                     tuple(jnp.asarray(x) for x in plan.literals(row)))
+        assert np.array_equal(ivec[k], np.asarray(ji)), k
+        got = agg_fold.unpack(plan.aggs, ivec[k], fvec[k])[0]
+        for ref in (want_f[k].numpy(), np.asarray(jf)):
+            for ag, x, y in zip(plan.aggs, got,
+                                agg_fold.unpack(plan.aggs, ivec[k], ref)[0]):
+                a = agg_fold.finalize(ag, x, ag.fn)
+                b = agg_fold.finalize(ag, y, ag.fn)
+                if ag.fn == "sum" and ag.kind in ("f32", "f64") and a:
+                    assert a == pytest.approx(b, rel=1e-5, abs=1e-3), ag
+                else:
+                    assert a == b, ag
 
 
 # -- the plane generator ------------------------------------------------------

@@ -13,14 +13,18 @@ K1's descriptor holds; this one has no such ceiling. Its kernel is
 - ``supports``: which signatures it takes (a flat run or a resolved view;
   i32, i64 and f64 predicates; COUNT, SUM, MIN, MAX);
 - ``make_plan``: a signature's plan (descriptor, parameter rows, window
-  records, output layout);
+  records, output layout, column passes, the planes a tile holds);
 - ``full_aggregate``: the wrapper. For N parameter rows (specs) it
   returns [N, I] int32 and [N, F] float32, each row in
   ``agg_fold.pack``'s layout. On a run whose planes are CUDA tensors it
   launches the kernel (or raises); on CPU tensors it runs the plain
   version, spec by spec. ``full_aggregate.launches`` counts launches;
-- ``launch_geometry`` / ``last_launch``: the launch shape, computed here
-  and reported by the library.
+- ``launch_geometry`` / ``last_launch``: the launch's partition (windows
+  to blocks, specs to chunks, aggregates to passes, tile rows and shared
+  bytes), computed here and reported by the library; ``read_classes``
+  the read points each chunk stages visibility for;
+- ``fold_digits``: the kernel's closed form of one carry step a window,
+  in Python, for the tests to hold against ``agg_fold.carry_step``.
 """
 
 from __future__ import annotations
@@ -35,14 +39,43 @@ from yugabyte_db_tpu_torch.ops import agg_fold, native
 from yugabyte_db_tpu_torch.ops import scan as dscan
 
 THREADS = 256           # threads of a window block; csrc/full_agg.cu kThreads
+WARPS = THREADS // 32
 MAX_WINDOW_ROWS = 32768  # K * R under the limb bound; kMaxWindowRows
-MAX_SPECS = 65535       # grid.y
-SLOTS = 5               # int64 words of a window record an aggregate
+MAX_SPECS = 65535       # fold grid
+SLOTS = 5               # int32 words of a window record an aggregate
 PARAM_HEAD = 8  # row_lo, row_hi, w_first, w_last, read hi/lo, expiry hi/lo
-_HEAD = 12              # descriptor header words (csrc/full_agg.cu Head)
+MAX_SPEC_CHUNK = 64     # specs a block serves; kMaxSpecChunk
+READ_CLASSES = 8        # read points a chunk stages visibility for
+CLASS_WORDS = 1 + 4 * READ_CLASSES
+MAX_TILE_ROWS = 1024    # rows a block stages at once (32 a lane at most)
+MIN_TILE_ROWS = 32
+SMEM_LIMIT = 232448     # shared bytes a block may use on Hopper
+FOLD_WARPS = 8          # warps of a fold block; kFoldWarps
+SPEC_HEAD = 6           # a staged spec: row_lo, row_hi, w_first, w_last, class
+SLOT_HEAD = 2           # a spec's accumulators: scanned, then 12 a pass
+PASS_WORDS = 12
+# Resident blocks an SM the tile's shared bytes aim for (csrc/full_agg.cu
+# kMinBlocks), and fewer for a chunk of fewer than 8 specs, whose warps
+# share a tile's rows: larger tiles, fewer barriers and reductions.
+BLOCKS_PER_SM = 3
+FEW_BLOCKS_PER_SM = 2
+# Blocks the grid aims for (one round of BLOCKS_PER_SM on each of the
+# H100's 132 SMs) and the rows a block takes at most when windows are
+# small.
+TARGET_BLOCKS = BLOCKS_PER_SM * 132
+BLOCK_ROWS = 8192
+_HEAD = 17              # descriptor header words (csrc/full_agg.cu Head)
 _TOP_PLANES = ("valid", "tomb", "live", "ht_hi", "ht_lo", "exp_hi",
                "exp_lo")
 _COL_PLANES = ("set", "isnull", "cmp", "arith")
+_SUM, _MIN, _MAX = 1, 2, 4  # a pass's flags
+# The launch's partition as launch_geometry gives it and the library
+# reports it (csrc/full_agg.cu g_last_launch).
+GEOMETRY = ("w_base", "windows", "specs", "chunk", "chunks", "tile_rows",
+            "windows_per_block", "blocks", "warps_per_spec",
+            "rows_per_load", "async_copy", "read_classes", "passes",
+            "staged",
+            "shared_bytes", "threads", "fold_threads", "rec_words")
 
 _FN = {"count": 0, "sum": 1, "min": 2, "max": 3}
 _KIND = {"i32": 0, "i64": 1, "f32": 2, "f64": 3, "str": 4}
@@ -78,9 +111,11 @@ def make_plan(aggs: tuple, preds: tuple, cols: tuple, R: int,
 
 class FullAggPlan:
     """Static layout of one signature: column slots, the parameter row,
-    the window record (``1 + SLOTS * n_aggs`` int64 words: scanned, then
-    per aggregate its count or limb sums or window sum or extreme, and
-    n) and the packed output offsets."""
+    the window record (``1 + SLOTS * n_aggs`` int32 words: scanned, then
+    per aggregate its n and its limb sums, window sum or extreme), the
+    packed output offsets, the passes (one a column that a SUM, MIN, MAX
+    or COUNT reads: which of them it holds) and the planes a tile stages
+    (order words and arith planes that a predicate or pass reads)."""
 
     def __init__(self, aggs: tuple, preds: tuple, cols: tuple, R: int,
                  K: int):
@@ -121,6 +156,79 @@ class FullAggPlan:
                 ni += 2 if a.kind == "i32" else 3
         self.n_ints, self.n_floats = ni, nf
         self.rec_words = 1 + SLOTS * len(self.aggs)
+        self._plan_passes()
+
+    def _plan_passes(self) -> None:
+        """``passes``: (slot, kind, flags, order word 0, order word 1,
+        arith), staged indices or -1, one a column an aggregate reads, in
+        order of first use; ``agg_pass``: each aggregate's pass (-1 for
+        COUNT(*)); ``staged``: the (slot, word or -1 for arith) planes a
+        tile holds; ``pred_staged``: each predicate's (word 0, word 1);
+        ``raw``: the planes a tile buffer holds as they lie, (slot, is
+        arith, words a row, word offset a row), ``val_words`` words a row
+        in all; ``staged_at``: each staged plane's (raw offset, words a
+        row, word)."""
+        self.staged = []
+        index = {}
+
+        def stage(slot, plane):
+            if (slot, plane) not in index:
+                index[slot, plane] = len(self.staged)
+                self.staged.append((slot, plane))
+            return index[slot, plane]
+
+        self.pred_staged = []
+        for p in self.preds:
+            slot = self.slot[p.col_id]
+            self.pred_staged.append(
+                (stage(slot, 0), -1 if p.kind == "i32" else stage(slot, 1)))
+        by_slot = {}
+        self.agg_pass = []
+        for a in self.aggs:
+            if a.col_id is None:
+                self.agg_pass.append(-1)
+                continue
+            slot = self.slot[a.col_id]
+            entry = by_slot.setdefault(slot, [len(by_slot), None, 0])
+            if a.fn != "count":
+                entry[1] = a.kind
+                entry[2] |= {"sum": _SUM, "min": _MIN, "max": _MAX}[a.fn]
+            self.agg_pass.append(entry[0])
+        self.passes = []
+        for slot, (_i, kind, flags) in by_slot.items():
+            vc0 = vc1 = va = -1
+            wide = kind in ("i64", "f64")
+            if flags & _SUM and kind in ("f32", "f64"):
+                va = stage(slot, -1)
+            elif flags & _SUM:
+                vc0 = stage(slot, 0)
+                vc1 = stage(slot, 1) if wide else -1
+            if flags & (_MIN | _MAX) and kind == "f32":
+                va = stage(slot, -1)
+            elif flags & (_MIN | _MAX):
+                vc0 = stage(slot, 0)
+                vc1 = stage(slot, 1) if wide else -1
+            self.passes.append((slot, _KIND[kind] if flags else 0, flags,
+                                vc0, vc1, va))
+        self.raw, raw_at = [], {}
+        self.val_words = 0
+        self.staged_at = []
+        for slot, plane in self.staged:
+            key = (slot, plane < 0)
+            if key not in raw_at:
+                width = 2 if plane >= 0 and self.cols[slot].kind in (
+                    "i64", "f64") else 1
+                raw_at[key] = len(self.raw)
+                self.raw.append((slot, int(plane < 0), width,
+                                 self.val_words))
+                self.val_words += width
+            _slot, _arith, width, off = self.raw[raw_at[key]]
+            self.staged_at.append((off, width, max(plane, 0)))
+        self.desc_words = (_HEAD + 6 * len(self.preds)
+                           + 6 * len(self.aggs) + 6 * len(self.passes)
+                           + 5 * len(self.staged) + 4 * len(self.raw)
+                           + len(_TOP_PLANES)
+                           + len(_COL_PLANES) * len(self.cols))
 
     def scan_sig(self, B: int) -> dscan.ScanSig:
         """The ``ScanSig`` of this plan over a run of ``B`` blocks."""
@@ -141,33 +249,46 @@ class FullAggPlan:
 
     def descriptor(self, table: list) -> np.ndarray:
         """int64 words: the header [n_cols, n_preds, n_aggs, n_params,
-        n_ints, n_floats, R, K * R, then the word offsets of the column,
-        predicate, aggregate and pointer tables]; per column slot (order
-        planes a row, has arith); per predicate (slot, kind, op, literal
-        offset); per aggregate (fn, slot or -1, kind, ivec offset, fvec
-        offset); then the planes' addresses (0 for a missing arith)."""
-        n_cols, n_preds, n_aggs = (len(self.cols), len(self.preds),
-                                   len(self.aggs))
-        off_cols = _HEAD
-        off_preds = off_cols + 2 * n_cols
-        off_aggs = off_preds + 4 * n_preds
-        off_ptrs = off_aggs + 5 * n_aggs
+        n_ints, n_floats, R, K * R, n_passes, n_staged, n_raw, then the
+        word offsets of the predicate, aggregate, pass, staged-plane,
+        raw-plane and pointer tables]; per predicate (slot, kind, op,
+        literal word after the parameter head, staged word 0, staged word
+        1 or -1); per aggregate (fn, slot or -1, kind, ivec offset, fvec
+        offset, pass or -1); per pass ``passes``' entry; per staged plane
+        (slot, order word or -1 for arith, then ``staged_at``'s entry);
+        per raw plane ``raw``'s entry; then the planes' addresses (0 for a
+        missing arith)."""
+        n_cols = len(self.cols)
+        off_preds = _HEAD
+        off_aggs = off_preds + 6 * len(self.preds)
+        off_passes = off_aggs + 6 * len(self.aggs)
+        off_staged = off_passes + 6 * len(self.passes)
+        off_raw = off_staged + 5 * len(self.staged)
+        off_ptrs = off_raw + 4 * len(self.raw)
         w = np.zeros(off_ptrs + len(table), np.int64)
-        w[:_HEAD] = (n_cols, n_preds, n_aggs, self.n_params, self.n_ints,
-                     self.n_floats, self.R, self.K * self.R, off_cols,
-                     off_preds, off_aggs, off_ptrs)
-        for k in range(n_cols):
-            cmp, arith = table[7 + 4 * k + 2], table[7 + 4 * k + 3]
-            w[off_cols + 2 * k: off_cols + 2 * k + 2] = (
-                cmp.shape[-1], arith is not None)
-        for q, (p, lit) in enumerate(zip(self.preds, self.lit_offsets)):
-            w[off_preds + 4 * q: off_preds + 4 * q + 4] = (
-                self.slot[p.col_id], _KIND[p.kind], _OP[p.op], lit)
+        w[:_HEAD] = (n_cols, len(self.preds), len(self.aggs), self.n_params,
+                     self.n_ints, self.n_floats, self.R, self.K * self.R,
+                     len(self.passes), len(self.staged), len(self.raw),
+                     off_preds, off_aggs, off_passes, off_staged, off_raw,
+                     off_ptrs)
+        for q, (p, lit, vs) in enumerate(zip(self.preds, self.lit_offsets,
+                                             self.pred_staged)):
+            w[off_preds + 6 * q: off_preds + 6 * q + 6] = (
+                self.slot[p.col_id], _KIND[p.kind], _OP[p.op],
+                lit - PARAM_HEAD, *vs)
         for i, a in enumerate(self.aggs):
-            w[off_aggs + 5 * i: off_aggs + 5 * i + 5] = (
+            w[off_aggs + 6 * i: off_aggs + 6 * i + 6] = (
                 _FN[a.fn], -1 if a.col_id is None else self.slot[a.col_id],
-                _KIND.get(a.kind, 0), self.ioffs[i], self.foffs[i])
+                _KIND.get(a.kind, 0), self.ioffs[i], self.foffs[i],
+                self.agg_pass[i])
+        for i, ps in enumerate(self.passes):
+            w[off_passes + 6 * i: off_passes + 6 * i + 6] = ps
+        for i, (st, at) in enumerate(zip(self.staged, self.staged_at)):
+            w[off_staged + 5 * i: off_staged + 5 * i + 5] = (*st, *at)
+        for i, raw in enumerate(self.raw):
+            w[off_raw + 4 * i: off_raw + 4 * i + 4] = raw
         w[off_ptrs:] = [0 if t is None else t.data_ptr() for t in table]
+        assert w.size == self.desc_words
         return w
 
     def param_row(self, row_lo: int, row_hi: int, w_first: int,
@@ -217,16 +338,58 @@ class FullAggPlan:
 
 # -- the wrapper -----------------------------------------------------------
 
-def launch_geometry(plan: FullAggPlan, params: np.ndarray, W: int) -> dict:
-    """The two launches for the parameter rows ``params`` over a run of
-    ``W`` windows, as ``csrc/full_agg.cu`` makes them: pass 1 a block of
-    ``THREADS`` threads a (window, spec), over the windows from the
-    smallest ``w_first`` to the largest ``w_last`` of the specs with a
-    window (``w_base``, ``windows``; a block outside its spec's range
-    returns at once), writing one record of ``rec_words`` int64 words;
-    pass 2 a block a spec of ``fold_threads`` threads, a warp a statistic
-    (scanned, then each aggregate) folding the spec's records in window
-    order."""
+def shared_layout(plan: FullAggPlan, chunk: int, G: int, tile: int,
+                  async_copy: bool, n_cls: int) -> int:
+    """Dynamic shared bytes of a window block (csrc/full_agg.cu layout):
+    the descriptor, each spec's accumulators (``G`` sets a spec), the
+    staged specs (head and biased literals), the read classes, each
+    staged plane's place in a tile buffer, each lane's row masks (``n_cls``
+    read classes, the candidates, each predicate and pass), the decoded
+    tile (class bits and column bits a row), and the tile buffers: one,
+    or two with the asynchronous copy, each the value planes of ``tile``
+    rows and with the copy their hybrid-time, expiry and bool planes
+    too."""
+    def align16(x):
+        return (x + 15) // 16 * 16
+
+    slot_words = SLOT_HEAD + PASS_WORDS * len(plan.passes)
+    head_words = SPEC_HEAD + plan.n_params - PARAM_HEAD
+    nnw = (len(plan.cols) + 31) // 32
+    buf = align16(plan.val_words * tile * 4)
+    if async_copy:
+        buf += 16 * tile + align16((3 + 2 * len(plan.cols)) * tile)
+    return (align16(plan.desc_words * 8) + align16(chunk * G * slot_words * 4)
+            + align16(chunk * head_words * 4) + align16(CLASS_WORDS * 4)
+            + align16(len(plan.staged) * 8)
+            + WARPS * 32 * 4 * (n_cls + 1 + len(plan.preds) + len(plan.passes))
+            + align16(tile * 4)
+            + align16(nnw * tile * 4) + (2 if async_copy else 1) * buf)
+
+
+def launch_geometry(plan: FullAggPlan, params: np.ndarray, W: int,
+                    aligned: bool = True) -> dict:
+    """The partition of a launch over the parameter rows ``params`` on a
+    run of ``W`` windows, as ``csrc/full_agg.cu`` takes it (``GEOMETRY``'s
+    keys). Pass 1 runs over the windows from the smallest ``w_first`` to
+    the largest ``w_last`` of the specs with a window (``w_base``,
+    ``windows``): grid.y over ``chunks`` chunks of at most ``chunk``
+    (<= MAX_SPEC_CHUNK) specs, dealt evenly; grid.x over ``blocks`` runs
+    of ``windows_per_block`` consecutive windows (more than one only for
+    windows under BLOCK_ROWS rows, and only as far as the grid keeps
+    TARGET_BLOCKS blocks); each window walked in tiles of ``tile_rows``
+    rows, served by ``warps_per_spec`` warps a spec (8 / the chunk
+    rounded up to a power of two, at least 1). A tile is copied with
+    cp.async one ahead of the tile being served (``async_copy``) when
+    every plane is ``aligned`` to 16 bytes and a window is a multiple of
+    16 rows, then decoded ``rows_per_load`` rows a thread (tile_rows /
+    THREADS in [1, 4]); else loaded and decoded one row a thread. The
+    tile is the largest power of two from the window's rows in [256,
+    1024] whose block fits BLOCKS_PER_SM to an SM (FEW_BLOCKS_PER_SM for
+    a chunk of fewer than 8 specs), else the largest in [32, 1024] that
+    fits SMEM_LIMIT (else the chunks shrink). The aggregates run in
+    ``passes`` column passes over ``staged`` staged planes;
+    ``read_classes`` is the most read points a chunk stages visibility
+    for. Pass 2 is a block of ``fold_threads`` a spec."""
     n = params.shape[0]
     spans = [(int(a), int(b)) for a, b in params[:, 2:4].tolist() if a < b]
     w_base = min((a for a, _b in spans), default=0)
@@ -234,10 +397,88 @@ def launch_geometry(plan: FullAggPlan, params: np.ndarray, W: int) -> dict:
     if spans and (w_base < 0 or w_end > W):
         raise ValueError(f"windows [{w_base}, {w_end}) outside the run's "
                          f"{W}")
+    windows = w_end - w_base
+    N = plan.K * plan.R
+    async_copy = bool(aligned and N % 16 == 0)
+    top = min(MAX_TILE_ROWS, max(256, 1 << (N.bit_length() - 1)))
+    chunks = -(-n // MAX_SPEC_CHUNK)
+    while True:
+        chunk = -(-n // chunks)
+        G8 = WARPS // (1 << (min(chunk, WARPS) - 1).bit_length())
+        n_cls = int(read_classes(params, chunk)[1][:, 0].max())
+
+        def smem(t):
+            return shared_layout(plan, chunk, min(G8, t // 32), t,
+                                 async_copy, n_cls)
+
+        tiles = [top >> k for k in range((top // MIN_TILE_ROWS)
+                                         .bit_length())]
+        per_sm = FEW_BLOCKS_PER_SM if chunk < WARPS else BLOCKS_PER_SM
+        fit = [t for t in tiles if t >= 256
+               and smem(t) <= SMEM_LIMIT // per_sm]
+        fit = fit or [t for t in tiles if smem(t) <= SMEM_LIMIT]
+        if fit:
+            tile = fit[0]
+            break
+        if chunk == 1:
+            raise ValueError(f"a K5 tile of {plan.desc_words} descriptor "
+                             f"words and {len(plan.staged)} staged planes "
+                             f"needs {smem(MIN_TILE_ROWS)} shared bytes")
+        chunks += 1
+    G = min(G8, tile // 32)
+    vec = max(1, min(4, tile // THREADS)) if async_copy else 1
+    wpb = max(1, min(BLOCK_ROWS // N, -(-windows * chunks // TARGET_BLOCKS)))
     items = 1 + len(plan.aggs)
-    return {"w_base": w_base, "windows": w_end - w_base, "specs": n,
-            "threads": THREADS, "fold_threads": 32 * min(items, 32),
-            "rec_words": plan.rec_words}
+    return dict(zip(GEOMETRY, (
+        w_base, windows, n, chunk, chunks, tile, wpb, -(-windows // wpb),
+        G, vec, int(async_copy), n_cls, len(plan.passes), len(plan.staged),
+        smem(tile), THREADS, 32 * min(items, FOLD_WARPS), plan.rec_words)))
+
+
+def fold_digits(windows) -> list:
+    """The digits of one ``agg_fold.carry_step`` a window over the
+    windows' limb sums (``windows``: [T][4] non-negative ints), in closed
+    form from the totals and the last 7 windows, as ``csrc/full_agg.cu``
+    fold_digits computes them. With S_k(t) the sum of limb k over the
+    first t windows and C_k(t) the carries digit k has passed on after
+    step t (C_-1 = 0; all 0 at t <= 0): C_k(t) = (S_k(t) + C_(k-1)(t-1))
+    >> 16, and digit k = ((S_k(T) + C_(k-1)(T-1)) mod 2^16) + C_(k-1)(T)
+    - C_(k-1)(T-1)."""
+    T = len(windows)
+    total = [sum(int(x[k]) for x in windows) for k in range(4)]
+    prev, out = [0] * 8, []
+    for k in range(agg_fold.DIGITS):
+        acc = total[k] if k < 4 else 0
+        s0 = acc if T > 0 else 0
+        cur = []
+        for j in range(8):
+            cin = prev[j + 1] if j + 1 < 8 else 0
+            cur.append((acc + cin) >> 16 if T - j > 0 else 0)
+            if k < 4 and j < 7 and T - 1 - j >= 0:
+                acc -= int(windows[T - 1 - j][k])
+        out.append(((s0 + prev[1]) & 0xFFFF) + prev[0] - prev[1])
+        prev = cur
+    return out
+
+
+def read_classes(params: np.ndarray, chunk: int) -> tuple:
+    """The read points each chunk of ``chunk`` specs stages visibility
+    for: (class [N] int32, each spec's index among its chunk's first
+    READ_CLASSES distinct read points or -1; [chunks, CLASS_WORDS] int32,
+    each chunk's count of classes, then their read planes)."""
+    n = params.shape[0]
+    classes = np.full(n, -1, np.int32)
+    table = np.zeros((-(-n // chunk), CLASS_WORDS), np.int32)
+    for c in range(table.shape[0]):
+        seen = {}
+        for s in range(c * chunk, min(n, (c + 1) * chunk)):
+            key = tuple(int(v) for v in params[s, 4:8])
+            if key not in seen and len(seen) < READ_CLASSES:
+                table[c, 1 + 4 * len(seen): 5 + 4 * len(seen)] = key
+                seen[key] = len(seen)
+            classes[s] = seen.get(key, -1)
+        table[c, 0] = len(seen)
+    return classes, table
 
 
 def _check(plan: FullAggPlan, arrays: dict, params: np.ndarray) -> tuple:
@@ -287,23 +528,37 @@ def full_aggregate(plan: FullAggPlan, arrays: dict,
         return full_aggregate_plain(plan, arrays, params)
     if device.type != "cuda":
         raise ValueError(f"full_aggregate runs on cuda or cpu, not {device}")
-    geo = launch_geometry(plan, params, B // plan.K)
+    aligned = all(t.data_ptr() % 16 == 0 for t in table if t is not None)
+    geo = launch_geometry(plan, params, B // plan.K, aligned)
     n = params.shape[0]
     lib = _library()
-    desc = torch.from_numpy(plan.descriptor(table)).to(device)
-    dparams = torch.from_numpy(np.ascontiguousarray(params)).to(device)
+    classes, creads = read_classes(params, geo["chunk"])
+    sched = np.concatenate([params.ravel(), classes, creads.ravel()])
+    if sched.size % 2:
+        sched = np.append(sched, np.int32(0))
+    # One upload from pinned memory, not waited for: the descriptor's
+    # int64 words, then the int32 schedule.
+    words = plan.descriptor(table)
+    buf = torch.from_numpy(np.concatenate([words, sched.view(np.int64)])
+                           ).pin_memory().to(device, non_blocking=True)
     rec = torch.empty((n, max(geo["windows"], 1), plan.rec_words),
-                      dtype=torch.int64, device=device)
+                      dtype=torch.int32, device=device)
     ivec = torch.empty((n, plan.n_ints), dtype=torch.int32, device=device)
     fvec = torch.empty((n, max(plan.n_floats, 1)), dtype=torch.float32,
                        device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.full_agg_launch(
-            ctypes.c_void_p(desc.data_ptr()),
-            ctypes.c_void_p(dparams.data_ptr()), n, plan.n_params,
-            len(plan.aggs), plan.K * plan.R, plan.rec_words, geo["w_base"],
-            geo["windows"], ctypes.c_void_p(rec.data_ptr()),
+            ctypes.c_void_p(buf.data_ptr()), words.size,
+            ctypes.c_void_p(buf.data_ptr() + 8 * words.size), n,
+            plan.n_params, len(plan.cols), len(plan.preds), len(plan.aggs),
+            len(plan.passes), len(plan.staged), plan.val_words,
+            geo["read_classes"], plan.K * plan.R,
+            plan.rec_words,
+            geo["w_base"], geo["windows"], geo["chunk"], geo["tile_rows"],
+            geo["windows_per_block"], geo["warps_per_spec"],
+            geo["rows_per_load"], geo["async_copy"],
+            ctypes.c_void_p(rec.data_ptr()),
             ctypes.c_void_p(ivec.data_ptr()), plan.n_ints,
             ctypes.c_void_p(fvec.data_ptr()), plan.n_floats,
             ctypes.c_void_p(stream))
@@ -334,23 +589,21 @@ def full_aggregate_plain(plan: FullAggPlan, arrays: dict,
 
 
 def last_launch() -> dict:
-    """The shape of this process's last K5 launch as the library reports
-    it (``launch_geometry``'s keys)."""
+    """The partition of this process's last K5 launch as the library
+    reports it (``launch_geometry``'s keys)."""
     lib = _library()
-    out = (ctypes.c_int32 * 6)()
+    out = (ctypes.c_int32 * len(GEOMETRY))()
     lib.full_agg_last_launch(out)
-    return dict(zip(("w_base", "windows", "specs", "threads",
-                     "fold_threads", "rec_words"), out))
+    return dict(zip(GEOMETRY, out))
 
 
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     lib = native.load_library("full_agg")
+    I, P = ctypes.c_int, ctypes.c_void_p
     lib.full_agg_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        P, I, P, I, I, I, I, I, I, I, I, I, ctypes.c_longlong, I, I, I, I,
+        I, I, I, I, I, P, P, I, P, I, P]
     lib.full_agg_launch.restype = ctypes.c_int
     lib.full_agg_error_string.argtypes = [ctypes.c_int]
     lib.full_agg_error_string.restype = ctypes.c_char_p
