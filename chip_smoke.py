@@ -250,12 +250,12 @@ BATCH = 32
 DEPTH = 6
 N_BATCHES = 12
 KERNEL_REPS = 12
-PLAIN_REPS = 3
+PLAIN_REPS = 1  # timed calls of a plain version (3 until PR 15)
 
 TRACE_BATCHES = 4
 # The CUDA kernels of the main path.
 KERNELS = ("flat_agg", "mvcc_resolve", "group_agg", "row_gather", "compact",
-           "flush", "full_agg")
+           "flush", "full_agg", "decode")
 
 # Device-memory bandwidth by card (NVIDIA data sheets), bytes/s.
 _BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -299,13 +299,14 @@ def int32_ops_per_s() -> float:
 
 def cuda_ms(fn, reps: int, queue_ahead: bool = False) -> float:
     """Median device time of ``fn`` over ``reps`` calls, each between its
-    own pair of CUDA events (two warm-up calls first). ``queue_ahead``
+    own pair of CUDA events (two warm-up calls first; one for a single
+    timed call, as the plain versions get). ``queue_ahead``
     parks the stream behind a sleeping kernel while the calls are
     enqueued, so that the host's launch overhead stays out of the device
     time (only for functions that do not synchronise)."""
     import torch
 
-    for _ in range(2):
+    for _ in range(2 if reps > 1 else 1):
         fn()
     torch.cuda.synchronize()
     if queue_ahead:
@@ -1090,7 +1091,7 @@ class HistoryOracle:
         return {rd: self.at(rd, m) for rd, m in zip(reads, merged)}
 
 
-ORACLE_PROCS = 6  # processes that merge a history's read points
+ORACLE_PROCS = 8  # processes that merge a history's read points
 _FORKED_HISTORY = None  # the history a forked merge reads (at_reads)
 
 
@@ -1099,10 +1100,18 @@ def _forked_merge(read_ht: int) -> tuple:
 
 
 def view_planes(view: dict) -> dict:
-    """A view's planes by name, flat."""
-    out = {k: v for k, v in view.items() if k != "cols"}
-    for cid, c in view["cols"].items():
-        out.update({f"{cid}.{k}": v for k, v in c.items()})
+    """A view's (or plane tree's) planes by name, flat; an encoded leaf's
+    arrays under the leaf's name and kind."""
+    out = {}
+
+    def walk(prefix, node):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(f"{prefix}{k}.", v)
+            else:
+                out[f"{prefix}{k}"] = v
+
+    walk("", view)
     return out
 
 
@@ -1504,13 +1513,14 @@ def mvcc_phase(device, bw: float, rate: float) -> tuple:
     row["resolve"] = resolve
     return row, SimpleNamespace(schema=schema, rows=rows, updates=updates,
                                 max_ht=max_ht, eng=eng, history=history,
-                                before=want)
+                                before=want, oracles=oracles,
+                                mid_read=reads[len(reads) // 2])
 
 
 # -- phase 5: post-write scans through the delta overlay ---------------------
 
 WAVES = 4  # update waves on the flat primary, flushed between the first 3
-OVERLAY_BATCH = 8  # specs of the batch that misses the host-partial cache
+OVERLAY_BATCH = 4  # specs of the batch that misses the host-partial cache
 CLEARED_SHARE = 0.2  # key groups cleared from the long-group planes
 
 
@@ -1763,6 +1773,8 @@ def overlay_mvcc(ctx, device, bw: float, rate: float) -> dict:
     want = HistoryOracle(schema, ctx.rows, ctx.updates + wave).at(newest)
     gen_s = time.perf_counter() - t0
     eng.apply(wave)
+    # The encoded phase compacts the run with the wave and reads it there.
+    ctx.wave, ctx.wave_newest, ctx.wave_oracle = wave, newest, want
     trun = eng.runs[0]
 
     def spec(read, lo):
@@ -1901,7 +1913,7 @@ def overlay_phase(device, bw: float, rate: float, flat=None,
 
 # -- phase 5 and 7: row scans (K7 and K9) ------------------------------------
 
-YCSB_BATCHES = 4     # batches a pipelined run, at depth 6 (bench_ycsb_e: 6)
+YCSB_BATCHES = 2     # batches a pipelined run, at depth 6 (bench_ycsb_e: 6)
 YCSB_REPS = 3        # pipelined runs a configuration; the median is kept
 SELECTIVE_LO = 980_000  # d >= this: about 1% of the rows
 SUPERSET_KEYS = 100_000
@@ -2778,7 +2790,7 @@ GC_COL_OPS = 2           # (visibility, shadowing, alive, the contributor
 COMPACT_WAVES = 3        # bench.py:1458 bench_compact: 3 update waves of
 COMPACT_SHARE = 0.35     # 35% of the keys each, 10% of them DELETEs
 COMPACT_SAMPLE = 4000    # keys whose merged versions are held against GC
-TWIN_REPS = 3            # timed runs of the numpy twin on the K11 union
+TWIN_REPS = 1            # timed runs of the numpy twin on the K11 union
 _WRITE_LOG = None
 
 
@@ -3277,7 +3289,7 @@ def compact_phase(device, bw: float, rate: float, flat) -> dict:
     import torch
 
     from yugabyte_db_tpu_torch import workload
-    from yugabyte_db_tpu_torch.ops import compact
+    from yugabyte_db_tpu_torch.ops import compact, decode
     from yugabyte_db_tpu_torch.storage.cpu_engine import gc_versions
 
     t_phase = time.perf_counter()
@@ -3297,6 +3309,7 @@ def compact_phase(device, bw: float, rate: float, flat) -> dict:
     log = write_log()
     log.masks = []
     compact.resident_gc_mask.launches = 0
+    decode.decode_tree.launches = 0  # the merged run's first reads: K10
     t0 = time.perf_counter()
     eng.compact(cutoff)
     wall = time.perf_counter() - t0
@@ -3344,6 +3357,10 @@ def compact_phase(device, bw: float, rate: float, flat) -> dict:
                   f"{oracles[rd].headline(lo)}")
     read = reads[-1]
     steps["headline_s"] = time.perf_counter() - t0
+    K10_LAUNCHES["compact"] = decode.decode_tree.launches
+    check(K10_LAUNCHES["compact"] == 1,
+          f"the merged run's reads launched K10 {K10_LAUNCHES['compact']} "
+          "times")
     t0 = time.perf_counter()
     kv = {r.key: [f"user{i:06d}", i % 7] for i, r in enumerate(rows)}
     r_oracle = RunOracle.at_reads(schema, crun, [read], ("a", "c", "d"),
@@ -3377,6 +3394,10 @@ def compact_phase(device, bw: float, rate: float, flat) -> dict:
     print("compact_k11 " + json.dumps({k: v for k, v in out.items()
                                        if k != "k11"}))
     print("compact_k11_kernel " + json.dumps(k11))
+    t0 = time.perf_counter()
+    out["encoded"] = ENCODED["compacted"] = encoded_compacted(
+        eng, updates, oracles, reads, schema, rows, max_ht, device, bw)
+    steps["encoded_s"] = time.perf_counter() - t0
     del eng, history, oracles, r_oracle
     torch.cuda.empty_cache()
 
@@ -3449,7 +3470,12 @@ def write_entries(eng_k12: dict, comp: dict) -> list:
         "rows": eng_k12["rows"], "slots": eng_k12["slots"],
         "edge_launches": sum(e["launches"]
                              for e in eng_k12["edges"].values()),
-        "ptxas": usage["flush"]}, {
+        "ptxas": usage["flush"],
+        **({"codes_route_ms": ENCODED["k12_codes"]["ms"],
+            "codes_route_plain_ms": ENCODED["k12_codes"]["plain_ms"],
+            "codes_route_bound_ms": ENCODED["k12_codes"]["bound_ms"],
+            "codes_route_rows": ENCODED["k12_codes"]["rows"]}
+           if "k12_codes" in ENCODED else {})}, {
         "name": "gc_mask", "route": "cuda",
         "source": "yugabyte_db_tpu_torch/csrc/compact.cu",
         "replaces": "yugabyte_db_tpu/ops/compact.py:166",
@@ -4614,7 +4640,7 @@ def k8_inputs(eng, specs: list) -> tuple:
     params = torch.tensor(
         [plan.param_row(p.row_lo, p.row_hi, p.read_planes, p.lits)
          for p in preps], dtype=torch.int32, device=eng.device)
-    return plan, plan.plane_table(preps[0].arrays()), params
+    return plan, plan.plane_table(preps[0].k8_arrays()), params
 
 
 def k8_exact(plan, table, params) -> int:
@@ -4642,7 +4668,7 @@ def group_ops(plan, table, params) -> float:
 
     from yugabyte_db_tpu_torch.ops import group_agg
 
-    flat = group_agg._flat(table)
+    flat = group_agg._flat(plan, table)
     n = flat[4].numel()
     p_np = params.cpu().numpy()
     decode = (1 + len(plan.col_ids)) / 4
@@ -4667,6 +4693,7 @@ def measure_k8(plan, table, params, bw: float, rate: float) -> dict:
     events), with its bound: the larger of ``group_bytes`` over the
     bandwidth and ``group_ops`` over the int32 rate."""
     from yugabyte_db_tpu_torch.ops import group_agg
+    from yugabyte_db_tpu_torch.ops.encodings import leaf_dims
 
     launches0 = group_agg.grouped_aggregate.launches
     err = k8_exact(plan, table, params)
@@ -4678,7 +4705,8 @@ def measure_k8(plan, table, params, bw: float, rate: float) -> dict:
     nbytes = group_agg.group_bytes(plan, table, params)
     ops = group_ops(plan, table, params)
     bytes_ms, ops_ms = nbytes / bw * 1e3, ops / rate * 1e3
-    return {"specs": params.shape[0], "rows": table[4].numel(),
+    return {"specs": params.shape[0],
+            "rows": int(np.prod(leaf_dims(table[4]))),
             "bytes": nbytes, "ops": ops, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
             "ops_ms": ops_ms,
@@ -4819,6 +4847,9 @@ def grouped_phase(device, bw: float, rate: float) -> dict:
     from yugabyte_db_tpu_torch.ops import flat_agg, group_agg, mvcc_resolve
 
     ctx = lineitem_engine(device, LINEITEM_ROWS)
+    # K12's codes route: the lineitem flush's launch, timed.
+    ENCODED["k12_codes"] = measure_k12(write_log().last_flush, bw, rate)
+    print("flush_kernel_codes " + json.dumps(ENCODED["k12_codes"]))
     eng, cols = ctx.eng, ctx.cols
     read = ctx.max_ht + 1
     q1, q6 = workload.q1_spec(read), workload.q6_spec(read)
@@ -4897,6 +4928,8 @@ def grouped_phase(device, bw: float, rate: float) -> dict:
                                          / trace["wall_ms_per_batch"])
     print("grouped_trace " + json.dumps(trace))
     row["trace"] = trace
+    row["encoded"] = ENCODED["lineitem"] = grouped_encoded(ctx, device, bw,
+                                                           rate)
     del ctx, eng, cols, batches, done
     torch.cuda.empty_cache()
 
@@ -5145,10 +5178,12 @@ def group_agg_entry(grp: dict) -> dict:
           f"K8's build spills: {usage}")
     q1, mv = k["q1"], grp["mvcc"]
     err = max([r["max_abs_err"] for r in k.values()]
+              + [r["max_abs_err"] for r in grp["encoded"]["k8"].values()]
               + [mv["kernel"]["max_abs_err"]]
               + [e["max_abs_err"] for e in grp["edges"].values()])
     launches = {"grouped": grp["launches"],
-                "grouped_mvcc": mv["launches"]["group_agg"]}
+                "grouped_mvcc": mv["launches"]["group_agg"],
+                "grouped_encoded": grp["encoded"]["launches"]["group_agg"]}
     return {
         "name": "group_agg", "route": "cuda",
         "source": "yugabyte_db_tpu_torch/csrc/group_agg.cu",
@@ -5172,7 +5207,11 @@ def group_agg_entry(grp: dict) -> dict:
         "q6_plain_ms": k["q6"]["plain_ms"],
         "ptxas": usage if usage else "not measured",
         "mvcc_view_ms": mv["kernel"]["ms"],
-        "mvcc_view_bound_ms": mv["kernel"]["bound_ms"]}
+        "mvcc_view_bound_ms": mv["kernel"]["bound_ms"],
+        **{f"encoded_{label}_{f}": v[f]
+           for label, v in grp["encoded"]["k8"].items()
+           for f in ("ms", "plain_ms", "bound_ms", "encoded_turns_ms",
+                     "plain_planes_turns_ms")}}
 
 
 def rows_alone(device, bw: float, rate: float) -> None:
@@ -5249,6 +5288,427 @@ def row_path_entries(rows: dict, sources: dict) -> list:
                             "of a window"})]
 
 
+# -- phase 10: encoded planes (K10, K13b, K12's codes route, K8's decode) -----
+
+ENCODED = {}  # the encoded phase's parts, by name (the kernels line reads it)
+K10_LAUNCHES: dict = {}  # K10 launches on each main path, by path
+ENCODED_WRITES = 1_000  # writes over the compacted run (the overlay, K13b)
+ENCODED_BATCH = 32      # specs of the batch over the compacted run
+K10_EDGE_B = 6          # blocks of an edge leaf (padded to 8)
+
+
+def plain_tree_diff(side: dict, plain: dict, B: int) -> int:
+    """Largest |difference| between K10's side-car and the plain upload of
+    the same run (``plane_encoding`` "off") over the planes both have and
+    the run's own blocks (a const leaf decodes its value into the pad
+    blocks too, where the plain upload pads zeros)."""
+    g, w = view_planes(side), view_planes(plain)
+    shared = [k for k in w if k in g]
+    check(len(shared) >= len(w) - sum(1 for k in w if k.endswith("arith")),
+          "the side-car lacks planes of the plain upload")
+    return view_diff({k: g[k][:B] for k in shared},
+                     {k: w[k][:B] for k in shared})
+
+
+def measure_k10(arrays: dict, bw: float) -> dict:
+    """K10 over a run's encoded tree held byte for byte against its plain
+    version, timed (CUDA events, calls queued) beside the plain version
+    and its bound: the encoded leaves read once and the plain planes
+    written once (``decode_bytes``) over the bandwidth."""
+    from yugabyte_db_tpu_torch.ops import decode
+
+    launches0 = decode.decode_tree.launches
+    err = view_diff(decode.decode_tree(arrays),
+                    decode.decode_tree_plain(arrays))
+    check(err == 0, f"K10 differs from its plain version by {err}")
+    ms = cuda_ms(lambda: decode.decode_tree(arrays), KERNEL_REPS,
+                 queue_ahead=True)
+    plain_ms = cuda_ms(lambda: decode.decode_tree_plain(arrays), PLAIN_REPS)
+    nbytes = decode.decode_bytes(arrays)
+    return {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": err,
+            "launches": decode.decode_tree.launches - launches0}
+
+
+def k10_edges(device) -> dict:
+    """K10 on edge leaves, each byte for byte against the plain version
+    (untimed): every kind at [B, R] and [B, R, 2], float rle and const
+    carrying NaN and -0.0, leaves padded past their blocks (bits of
+    group_start with all-ones words), and a dictionary with absent rows
+    in its last slot."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import decode
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+
+    rng = np.random.default_rng(31)
+    B, R = K10_EDGE_B, 64
+    row = np.arange(B * R).reshape(B, R)
+    nan_neg = np.array([np.nan, -0.0, 0.0, 1.5], np.float32)
+    planes = {
+        "bits": (rng.random((B, R)) < 0.4, "bits"),
+        "const": (np.full((B, R), -7, np.int32), "const"),
+        "const2": (np.full((B, R, 2), 3, np.int32), "const"),
+        "delta16": ((rng.integers(-(1 << 30), 1 << 30, (B, 1))
+                     + rng.integers(0, 60_000, (B, R))).astype(np.int32),
+                    "delta16"),
+        "delta16_2": ((rng.integers(-(1 << 30), 1 << 30, (B, 1, 2))
+                       + rng.integers(0, 60_000, (B, R, 2))).astype(np.int32),
+                      "delta16"),
+        "rle": ((row // 16 * 1_000_000).astype(np.int32), "rle"),
+        "rle2": (rng.integers(-9, 9, (B * R, 2))[(row // 8).reshape(-1)]
+                 .reshape(B, R, 2).astype(np.int32), "rle"),
+        "float_const_nan": (np.full((B, R), np.nan, np.float32), "const"),
+        "float_const_negzero": (np.full((B, R), -0.0, np.float32), "const"),
+        "float_rle": (nan_neg[row // 16 % 4], "rle"),
+    }
+    leaves, names = [], []
+    for name, (p, kind) in planes.items():
+        if p.dtype == bool:
+            leaf = enc.encode_bool_plane(p)
+        elif p.dtype == np.float32:
+            leaf = enc.encode_float_plane(p)
+        else:
+            leaf = enc.encode_int_plane(p)
+        check(enc.leaf_kind(leaf) == kind, f"K10 edge {name}: "
+                                           f"{enc.leaf_kind(leaf)}")
+        leaves.append(enc.pad_leaf(leaf, B + 2, ones=name == "bits"))
+        names.append(name)
+    codes = rng.integers(0, 5, (B, R)).astype(np.int64)
+    codes[1, 3:40] = 7  # absent rows: the last slot
+    dhi = np.array([1, 2, 3, 4, 5, 0, 0, 0], np.int32)
+    dlo = np.array([-1, -2, -3, -4, -5, 0, 0, 0], np.int32)
+    leaves.append(enc.pad_leaf(enc.dict_leaf(codes, dhi, dlo), B + 2))
+    names.append("dict_absent")
+
+    def up(a):
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint16:
+            a = a.view(np.int16)
+        return torch.from_numpy(a).to(device)
+
+    dev = [{k: {n: up(a) for n, a in leaf[k].items()}
+            for k in leaf} for leaf in leaves]
+    launches0 = decode.decode_tree.launches
+    got = decode.decode_leaves(dev, B + 2, R)
+    check(decode.decode_tree.launches - launches0 == 1,
+          "K10's edges are not one launch")
+    out = {}
+    for name, leaf, planes_got in zip(names, dev, got):
+        want = enc.decode_leaf(leaf, B + 2, R)
+        if name == "dict_absent":
+            want = [want[..., :2].contiguous(), want[..., 2].contiguous()]
+            absent = torch.from_numpy(
+                leaves[-1]["dict"]["codes"].reshape(-1) == 7).to(device)
+            check(bool((want[0].reshape(-1, 2)[absent] == 0).all()),
+                  "the absent slot does not decode to (0, 0)")
+        else:
+            want = [want]
+        err = max(view_diff({"p": g}, {"p": w})
+                  for g, w in zip(planes_got, want))
+        check(err == 0, f"K10 edge {name} differs by {err}")
+        out[name] = {"max_abs_err": err}
+    return out
+
+
+def encoded_compacted(eng, updates: list, oracles: dict, reads: list,
+                      schema, rows, max_ht: int, device, bw: float) -> dict:
+    """The compact phase's merged run, encoded: its bytes by encoding
+    (``stats()``), K10 held against its plain version and the plain
+    upload and timed, K10's edges; the headline spec alone and a batch of
+    ENCODED_BATCH through the side-car and K1 against the history; then
+    ENCODED_WRITES writes: the overlay's masked primary through K13b (the
+    bit-packed valid decoded by K10, then K13), exact again."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import decode, flat_agg, mvcc_resolve
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+    from yugabyte_db_tpu_torch.storage.gpu_engine import PAD_BLOCKS
+
+    t0 = time.perf_counter()
+    trun = eng.runs[0]
+    check(trun.dev.encoded, "the compacted run uploaded plain planes")
+    stats = eng.stats()["plane_encoding"]
+    print("encoded_stats_compacted " + json.dumps(stats))
+    out = {"versions": trun.crun.num_versions, "stats": stats,
+           "valid_kind": enc.leaf_kind(trun.dev.arrays["valid"])}
+    check(out["valid_kind"] == "bits", "the compacted run's valid is plain")
+    k10 = measure_k10(trun.dev.arrays, bw)
+    off = DeviceRun(trun.crun, PAD_BLOCKS, device=device, setting="off")
+    k10["off_upload_max_abs_err"] = plain_tree_diff(
+        trun.plain(), off.arrays, trun.crun.B)
+    check(k10["off_upload_max_abs_err"] == 0,
+          "K10's side-car differs from the plain upload")
+    k10["encoded_bytes"] = trun.dev.nbytes
+    k10["plain_upload_bytes"] = off.nbytes
+    del off
+    k10["edges"] = k10_edges(device)
+    out["k10"] = k10
+    print("encoded_k10 " + json.dumps(k10))
+
+    # K1 through the side-car (and the resolve: the run is multi-version).
+    read = reads[-1]
+    flat_agg.flat_aggregate.launches = 0
+    route = eng._plan_scan(workload.headline_spec(read)).route
+    got = eng.scan(workload.headline_spec(read)).rows[0]
+    check(got == oracles[read].headline(-500_000),
+          f"encoded compacted headline {got}")
+    los = [-500_000 + 31_250 * i for i in range(ENCODED_BATCH)]
+    batch = eng.scan_batch([workload.headline_spec(read, lo) for lo in los])
+    for lo, r in zip(los, batch):
+        check(r.rows[0] == oracles[read].headline(lo),
+              f"encoded compacted batch d >= {lo}: {r.rows[0]}")
+    out["k1"] = {"route": route, "batch": ENCODED_BATCH,
+                 "launches": flat_agg.flat_aggregate.launches}
+    check(out["k1"]["launches"] > 0, "K1 did not serve the encoded run")
+
+    # ENCODED_WRITES writes in the memtable: the overlay over the
+    # compacted primary, its valid bits decoded by K10 and cleared (K13b).
+    writes, ht = workload.make_update_rows(schema, rows, max_ht + 2,
+                                           ENCODED_WRITES, seed=41)
+    top = ht + 1
+    want = HistoryOracle(schema, rows, updates + writes).at(top)
+    eng.apply(writes)
+    decode.decode_tree.launches = 0
+    flat_agg.flat_aggregate.launches = 0
+    mvcc_resolve.resolve_view.launches = 0
+    t1 = time.perf_counter()
+    got = eng.scan(workload.headline_spec(top)).rows[0]
+    first_ms = (time.perf_counter() - t1) * 1e3
+    check(got == want.headline(-500_000), f"encoded overlay {got}")
+    ov = eng._overlay(eng.memtable)
+    check(ov is not None and ov.masked.dev.arrays["valid"].dtype ==
+          torch.bool, "the overlay over the encoded run has no masked "
+                      "primary")
+    for lo in (-900_000, 0, 400_000):
+        r = eng.scan(workload.headline_spec(top, lo)).rows[0]
+        check(r == want.headline(lo), f"encoded overlay d >= {lo}: {r}")
+    out["overlay"] = {
+        "writes": ENCODED_WRITES, "first_scan_ms": first_ms,
+        "dirty_rows": int(ov.idx.size),
+        "k13b_k10_launches": decode.decode_tree.launches,
+        "k1_launches": flat_agg.flat_aggregate.launches,
+        "resolve_launches": mvcc_resolve.resolve_view.launches}
+    check(decode.decode_tree.launches == 1,
+          f"K13b launched K10 {decode.decode_tree.launches} times")
+    K10_LAUNCHES["overlay"] = decode.decode_tree.launches
+    out["s"] = time.perf_counter() - t0
+    print("encoded_compacted " + json.dumps(
+        {k: v for k, v in out.items() if k != "k10"}))
+    return out
+
+
+def encoded_mvcc(mvcc, device) -> dict:
+    """The multi-version table of the mvcc phase (MVCC_KEYS keys,
+    MVCC_UPDATES zipfian updates, the overlay phase's live wave): the
+    wave flushed (K12), then the runs compacted with no history dropped
+    into one run of every version, which uploads encoded; the headline
+    spec at the newest and a mid read point through the resolve on K10's
+    side-car and K1, against the history."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import decode, flat_agg, mvcc_resolve
+
+    t0 = time.perf_counter()
+    eng = mvcc.eng
+    if eng.memtable.num_versions:
+        flush(eng, "encoded")
+    decode.decode_tree.launches = 0
+    flat_agg.flat_aggregate.launches = 0
+    mvcc_resolve.resolve_view.launches = 0
+    t1 = time.perf_counter()
+    eng.compact(1)  # a cutoff before every version: nothing is dropped
+    compact_s = time.perf_counter() - t1
+    trun = eng.runs[0]
+    updates = mvcc.updates + getattr(mvcc, "wave", [])
+    check(len(eng.runs) == 1 and trun.dev.encoded and not trun.flat and
+          trun.crun.num_versions == len(mvcc.rows) + len(updates),
+          "the compacted multi-version run is not one encoded run of every "
+          "version")
+    if hasattr(mvcc, "wave_oracle"):  # the mvcc and overlay phases' oracles
+        newest, mid = mvcc.wave_newest, mvcc.mid_read
+        oracles = {newest: mvcc.wave_oracle, mid: mvcc.oracles[mid]}
+    else:
+        newest = max(u.ht for u in updates) + 1
+        mid = updates[len(mvcc.updates) // 2].ht
+        oracles = HistoryOracle(mvcc.schema, mvcc.rows, updates).at_reads(
+            [newest, mid])
+    for rd in (newest, mid):
+        for lo in (-500_000, 0):
+            got = eng.scan(workload.headline_spec(rd, lo)).rows[0]
+            check(got == oracles[rd].headline(lo),
+                  f"encoded multi-version run at {rd}, d >= {lo}: {got}")
+    out = {"versions": trun.crun.num_versions, "compact_s": compact_s,
+           "route": eng._plan_scan(workload.headline_spec(newest)).route,
+           "stats": eng.stats()["plane_encoding"],
+           "launches": {"decode": decode.decode_tree.launches,
+                        "mvcc_resolve": mvcc_resolve.resolve_view.launches,
+                        "flat_agg": flat_agg.flat_aggregate.launches}}
+    check(out["launches"]["decode"] == 1 and
+          out["launches"]["mvcc_resolve"] > 0 and
+          out["launches"]["flat_agg"] > 0,
+          f"encoded multi-version launches {out['launches']}")
+    K10_LAUNCHES["mvcc"] = out["launches"]["decode"]
+    out["s"] = time.perf_counter() - t0
+    print("encoded_mvcc " + json.dumps(out))
+    return out
+
+
+def q1_promoted_spec(read: int):
+    """Q1 with ``l_returnflag >= 'N' and l_linestatus = 'O'``: string
+    predicates the engine promotes to dictionary-code compares."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage import Predicate
+
+    spec = workload.q1_spec(read)
+    spec.predicates = list(spec.predicates) + [
+        Predicate("l_returnflag", ">=", "N"),
+        Predicate("l_linestatus", "=", "O")]
+    return spec
+
+
+def grouped_encoded(ctx, device, bw: float, rate: float) -> dict:
+    """TPC-H lineitem at SF1, uncut, encoded. The flushed run's dictionary
+    columns (K12's codes route, held byte for byte by ``flush``) under Q1
+    and Q6 (K8 decoding the dictionary leaves, checked by the grouped
+    phase); then the run compacted (no history dropped) so that every
+    leaf kind is present: Q1 and Q6 exact, K8 on the encoded tree held
+    against its plain version and timed beside its bound and in turns
+    with the same planes uploaded plain; Q1 with string predicates
+    promoted to code compares, exact, with no gather and no host
+    verify."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import decode, group_agg, row_gather
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+    from yugabyte_db_tpu_torch.storage.gpu_engine import PAD_BLOCKS
+
+    t0 = time.perf_counter()
+    eng, cols = ctx.eng, ctx.cols
+    read = ctx.max_ht + 1
+    flag = ctx.schema.column("l_returnflag").col_id
+    out = {"flushed_stats": eng.stats()["plane_encoding"],
+           "flushed_flag_kind": enc.leaf_kind(
+               eng.runs[0].dev.arrays["cols"][flag]["cmp"])}
+    check(out["flushed_flag_kind"] == "dict",
+          "the flushed lineitem's l_returnflag is not dictionary codes")
+    t1 = time.perf_counter()
+    eng.compact(1)  # a cutoff before every version: nothing is dropped
+    out["compact_s"] = time.perf_counter() - t1
+    trun = eng.runs[0]
+    stats = eng.stats()["plane_encoding"]
+    out["compacted_stats"] = stats
+    print("encoded_stats_lineitem " + json.dumps(stats))
+    check(trun.dev.encoded and {"bits", "dict", "delta16"} <=
+          set(stats["by_encoding"]), f"the compacted lineitem's encodings "
+                                     f"{stats['by_encoding']}")
+    q1, q6 = workload.q1_spec(read), workload.q6_spec(read)
+    group_agg.grouped_aggregate.launches = 0
+    decode.decode_tree.launches = 0
+    for spec, want in ((q1, q1_oracle(cols)), (q6, q6_oracle(cols))):
+        got = eng.scan(spec).rows
+        check(got == want, f"encoded lineitem: {got} != {want}")
+    # Q1 promoted: no gather, no host verify round.
+    pq = q1_promoted_spec(read)
+    keep = (cols["l_returnflag"] >= "N") & (cols["l_linestatus"] == "O")
+    want = q1_oracle({k: v[keep] for k, v in cols.items()})
+    p0, g0 = eng.code_promotions, row_gather.gather_rows.launches
+    route = eng._plan_scan(pq).route
+    got = eng.scan(pq).rows
+    check(got == want, f"promoted Q1 {got} != {want}")
+    check(eng.code_promotions - p0 == 2 and route == "grouped" and
+          row_gather.gather_rows.launches == g0,
+          "the promoted Q1 was not served by K8 alone")
+    out["promoted_q1"] = {"route": route, "groups": len(got),
+                          "gather_launches": row_gather.gather_rows.launches
+                          - g0}
+    out["launches"] = {"group_agg": group_agg.grouped_aggregate.launches,
+                       "decode": decode.decode_tree.launches}
+    check(out["launches"]["group_agg"] >= 3 and
+          out["launches"]["decode"] == 0,
+          f"encoded lineitem launches {out['launches']}")
+    check(eng.grouped_host_folds == 0, "encoded Q1/Q6 re-served on host")
+
+    # K8 on the encoded tree, against the same planes uploaded plain.
+    off = DeviceRun(trun.crun, PAD_BLOCKS, device=device, setting="off")
+    kern = {}
+    for label, spec in (("q1", q1), ("q6", q6), ("q1_promoted", pq)):
+        plan, table, params = k8_inputs(eng, [spec])
+        check(any(enc.leaf_kind(t) is not None for t in table
+                  if t is not None), "K8's table holds no encoded leaf")
+        k = measure_k8(plan, table, params, bw, rate)
+        plain_table = plan.plane_table(
+            off.arrays if label != "q1_promoted" else trun.plain())
+        k8_exact(plan, plain_table, params)
+        a = lambda: group_agg.grouped_aggregate(plan, table, params)
+        b = lambda: group_agg.grouped_aggregate(plan, plain_table, params)
+        turns = [cuda_ms(f, KERNEL_REPS, queue_ahead=True)
+                 for f in (a, b, b, a)]
+        k["encoded_turns_ms"] = [turns[0], turns[3]]
+        k["plain_planes_turns_ms"] = [turns[1], turns[2]]
+        k["plain_planes_bytes"] = group_agg.group_bytes(plan, plain_table,
+                                                        params)
+        kern[label] = k
+        print(f"encoded_k8_{label} " + json.dumps(k))
+    out["k8"] = kern
+    out["device_bytes"] = {"encoded": trun.dev.nbytes,
+                           "plain_upload": off.nbytes}
+    del off
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    print("encoded_lineitem " + json.dumps(
+        {k: v for k, v in out.items() if k != "k8"}))
+    return out
+
+
+def decode_entry() -> dict:
+    """The kernels line's K10 entry: K10 over the compact phase's merged
+    run, its launches on the main paths (the compacted run's first reads,
+    the overlay's K13b, the encoded multi-version run)."""
+    comp = ENCODED["compacted"]["k10"]
+    err = max([comp["max_abs_err"], comp["off_upload_max_abs_err"]]
+              + [e["max_abs_err"] for e in comp["edges"].values()])
+    return {"name": "decode", "route": "cuda",
+            "source": "yugabyte_db_tpu_torch/csrc/decode.cu",
+            "replaces": "yugabyte_db_tpu/ops/encodings.py:435",
+            "launches": sum(K10_LAUNCHES.values()),
+            "launches_by_path": dict(K10_LAUNCHES),
+            "max_abs_err": err, "max_abs_diff": err, "ms": comp["ms"],
+            "plain_ms": comp["plain_ms"], "bound_ms": comp["bound_ms"],
+            "bound_by": "bytes", "library_ms": None,
+            "library_note": "no single PyTorch call decodes a run's leaf "
+                            "table",
+            "bytes": comp["bytes"]}
+
+
+def encoded_alone(device, bw: float, rate: float) -> None:
+    """The encoded phase without the others: the compact phase (on the
+    engine phase's table and the overlay phase's waves, as
+    ``compact_alone``), the mvcc table (MVCC_KEYS keys and updates, one
+    wave live) compacted encoded, and TPC-H lineitem at LINEITEM_ROWS;
+    prints the kernels line's K10 and K8 entries."""
+    global ENGINE_KEYS, MVCC_KEYS, MVCC_UPDATES
+
+    from yugabyte_db_tpu_torch import workload
+
+    compact_alone(device, bw, rate)
+    schema, rows, updates, _l, max_ht, eng, _g, _a = mvcc_engine(device)
+    wave, _ht = workload.make_update_rows(schema, rows, max_ht,
+                                          MVCC_KEYS // 50)
+    eng.apply(wave)
+    mvcc = SimpleNamespace(schema=schema, rows=rows, updates=updates,
+                           max_ht=max_ht, eng=eng, wave=wave)
+    ENCODED["mvcc"] = encoded_mvcc(mvcc, device)
+    del mvcc, eng
+    ctx = lineitem_engine(device, LINEITEM_ROWS)
+    ENCODED["lineitem"] = grouped_encoded(ctx, device, bw, rate)
+    print(json.dumps({"kernels": [decode_entry()]}))
+
+
 def main() -> int:
     import torch
 
@@ -5301,6 +5761,9 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--full":
         full_alone(device, bw, rate)
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--encoded":
+        encoded_alone(device, bw, rate)
+        return 0
 
     def timed(name, phase, *args):
         t = time.perf_counter()
@@ -5316,11 +5779,17 @@ def main() -> int:
     sources = timed("rows_sources", rows_sources_phase, flat, mvcc)
     comp = timed("compact", compact_phase, flat)
     full = timed("full", full_phase, mvcc)
+    ENCODED["mvcc"] = timed("encoded_mvcc",
+                            lambda d, _b, _r: encoded_mvcc(mvcc, d))
     del flat, mvcc
     torch.cuda.empty_cache()
     grp = timed("grouped", grouped_phase)
     walls["total"] = time.perf_counter() - t_start
     print("phases_s " + json.dumps(walls))
+    # The encoded phase's parts run inside the phases whose tables they
+    # reuse (compact, after full, grouped): their seconds.
+    print("encoded_s " + json.dumps({k: ENCODED[k]["s"] for k in (
+        "compacted", "mvcc", "lineitem")}))
     ovf, ovm = ov["flat"], ov["mvcc"]
     k = eng["kernel"]
     err = max(k["max_abs_err"], kernel_err, mv["kernel"]["max_abs_err"],
@@ -5367,7 +5836,8 @@ def main() -> int:
         "overlay_long_group_ms": ovm["resolve"]["long"]["ms"],
         "overlay_long_group_bound_ms": ovm["resolve"]["long"]["bound_ms"]},
         group_agg_entry(grp), *row_path_entries(rows, sources),
-        *write_entries(eng["k12"], comp), full_entry(full)]}))
+        *write_entries(eng["k12"], comp), full_entry(full),
+        decode_entry()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

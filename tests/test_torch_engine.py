@@ -584,4 +584,8 @@ def test_device_defaults_to_cuda():
                            "agg_routes": {r: 0 for r in (
                                "kernel", "flat", "full", "mv_kernel",
                                "mv_flat", "mv_full")},
-                           "full_launches": 0}
+                           "full_launches": 0, "code_promotions": 0,
+                           "plane_encoding": {
+                               "setting": "off", "by_encoding": {},
+                               "encoded_bytes": 0, "logical_bytes": 0,
+                               "sidecar_device_bytes": 0}}

@@ -49,6 +49,11 @@
 //      store: 16 bytes for a word plane, 4 for a flag plane, 32 for a
 //      two-word order plane. The fill and the scatter are one pass, so no
 //      slot is written twice.
+// A dictionary-encoded string column (the JAX function's codes route) is
+// staged as one u16 code a row: its record holds the code in one word, and
+// the tile pass writes the run's u16 code plane (8 bytes for four slots),
+// unfilled and padding slots taking the column's absent code, the
+// dictionary's last slot.
 // A random access now moves one whole record of a row, not a sector per
 // plane. dst must ascend strictly over its in-range entries (the flush's
 // packing gives it so; entries past the last slot may repeat): then the
@@ -121,7 +126,8 @@ struct Params {
   uint8_t* out_isnull[kMaxCols];
   int32_t* out_cmp[kMaxCols];
   uint32_t* out_arith[kMaxCols];
-  int32_t width[kMaxCols];  // order planes per row: 1 or 2
+  int32_t width[kMaxCols];  // order planes per row: 1 or 2; 0: u16 codes
+  int32_t absent[kMaxCols];  // a codes column's absent code
   Layout lay;
   int32_t* records;  // [n_staged, lay.stride] words of scratch
   const int32_t* perm;
@@ -149,7 +155,7 @@ Layout record_layout(const int32_t* width, const void* const* in, int n_cols,
   words += (2 + 2 * n_cols + 3) / 4;
   for (int c = 0; c < n_cols; ++c) {
     lay.cmp[c] = words;
-    words += width[c];
+    words += width[c] == 0 ? 1 : width[c];
     lay.arith[c] = -1;
     if (in[kTop + 4 * c + 3] != nullptr) lay.arith[c] = words++;
   }
@@ -200,6 +206,9 @@ __global__ void __launch_bounds__(kThreads)
       flag[2 + 2 * c] = p.set[c][r];
       flag[3 + 2 * c] = p.isnull[c][r];
       const int wd = p.width[c];
+      if (wd == 0) {
+        w[p.lay.cmp[c]] = reinterpret_cast<const uint16_t*>(p.cmp[c])[r];
+      }
       for (int q = 0; q < wd; ++q) w[p.lay.cmp[c] + q] = p.cmp[c][r * wd + q];
       if (p.lay.arith[c] >= 0) {
         w[p.lay.arith[c]] = static_cast<int32_t>(p.arith[c][r]);
@@ -238,6 +247,21 @@ __device__ __forceinline__ void put_bytes(uint8_t* plane, long long s, int n,
     *reinterpret_cast<uint32_t*>(plane + s) = v;
   } else {
     for (int k = 0; k < n; ++k) plane[s + k] = (v >> (8 * k)) & 0xffu;
+  }
+}
+
+// Slots [s, s + n) of a u16 plane: one 8-byte store for four slots.
+__device__ __forceinline__ void put_u16(void* plane, long long s, int n,
+                                        uint4 v) {
+  uint16_t* out = static_cast<uint16_t*>(plane);
+  if (n == 4) {
+    *reinterpret_cast<uint2*>(out + s) =
+        make_uint2((v.x & 0xffffu) | (v.y << 16), (v.z & 0xffffu) | (v.w << 16));
+  } else {
+    for (int k = 0; k < n; ++k) {
+      out[s + k] = static_cast<uint16_t>(k == 0 ? v.x : k == 1 ? v.y
+                                         : k == 2 ? v.z : v.w);
+    }
   }
 }
 
@@ -344,7 +368,13 @@ __global__ void __launch_bounds__(kThreads)
     put_bytes(p.out_set[c], s, n, bytes4(f, 8 * (b % 4)));
     put_bytes(p.out_isnull[c], s, n, bytes4(f, 8 * (b % 4) + 8));
     const uint4 a = row4(rows, pitch, p.lay.cmp[c], t);
-    if (p.width[c] == 1) {
+    if (p.width[c] == 0) {  // codes: a slot no row lands on is absent
+      const uint32_t ab = static_cast<uint32_t>(p.absent[c]);
+      put_u16(p.out_cmp[c], s, n,
+              make_uint4(src[t] >= 0 ? a.x : ab, src[t + 1] >= 0 ? a.y : ab,
+                         src[t + 2] >= 0 ? a.z : ab,
+                         src[t + 3] >= 0 ? a.w : ab));
+    } else if (p.width[c] == 1) {
       put_words(p.out_cmp[c], s, n, a);
     } else {
       const uint4 b2 = row4(rows, pitch, p.lay.cmp[c] + 1, t);
@@ -370,8 +400,9 @@ bool aligned16(const void* ptr) {
 extern "C" {
 
 // in: staged ht_hi, ht_lo, exp_hi, exp_lo, tomb, live, then per column:
-// set, isnull, cmp ([rows, width] int32), arith (float32, or null), each
-// of n_staged rows. out: valid, group_start, tomb, live, ht_hi, ht_lo,
+// set, isnull, cmp ([rows, width] int32, or [rows] u16 codes where width
+// is 0), arith (float32, or null), each of n_staged rows. absent: each
+// codes column's absent code. out: valid, group_start, tomb, live, ht_hi, ht_lo,
 // exp_hi, exp_lo, then per column: set, isnull, cmp, arith (null where the
 // input's is), each of n_blocks * rows_per_block slots, 16-byte aligned.
 // top: write the first eight outputs (a launch of a later column chunk
@@ -379,7 +410,8 @@ extern "C" {
 // [n_blocks] bool. scratch: 16-byte aligned, at least n_staged records of
 // the chunk's layout (ops/flush.py record_layout), scratch_bytes long.
 int replay_flush_launch(const void* const* in, void* const* out,
-                        const int32_t* width, int n_cols, int top,
+                        const int32_t* width, const int32_t* absent,
+                        int n_cols, int top,
                         const void* perm, const void* dst, const void* gs,
                         const void* is_real, long long m, long long n_staged,
                         long long n_blocks, int rows_per_block,
@@ -422,7 +454,10 @@ int replay_flush_launch(const void* const* in, void* const* out,
   for (int c = 0; c < n_cols; ++c) {
     const void* const* ci = in + kTop + 4 * c;
     void* const* co = out + kOutTop + 4 * c;
-    if (width[c] != 1 && width[c] != 2) return kErrWidth;
+    if (width[c] < 0 || width[c] > 2) return kErrWidth;
+    if (width[c] == 0 && (absent[c] < 0 || absent[c] > 0xffff)) {
+      return kErrWidth;
+    }
     if (ci[0] == nullptr || ci[1] == nullptr || ci[2] == nullptr ||
         co[0] == nullptr || co[1] == nullptr || co[2] == nullptr ||
         (ci[3] == nullptr) != (co[3] == nullptr)) {
@@ -440,6 +475,7 @@ int replay_flush_launch(const void* const* in, void* const* out,
     p.out_cmp[c] = static_cast<int32_t*>(co[2]);
     p.out_arith[c] = static_cast<uint32_t*>(co[3]);
     p.width[c] = width[c];
+    p.absent[c] = width[c] == 0 ? absent[c] : 0;
   }
   p.lay = record_layout(width, in, n_cols, top != 0);
   const int S = p.lay.stride;
@@ -491,7 +527,8 @@ const char* replay_flush_error_string(int code) {
     case kErrCols: return "column count out of range";
     case kErrRows: return "row or slot count out of range";
     case kErrPlane: return "a required plane is missing";
-    case kErrWidth: return "a column has neither 1 nor 2 order planes";
+    case kErrWidth:
+      return "a column has neither 1 nor 2 order planes nor u16 codes";
     case kErrScratch: return "the record scratch is missing or too small";
     case kErrAlign: return "an output plane is not 16-byte aligned";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));

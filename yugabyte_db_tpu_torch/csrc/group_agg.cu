@@ -82,6 +82,20 @@
 //   - registers: nothing a thread holds is indexed at run time (a
 //     factor's postfix stack lives in its sum's limb words until the limbs
 //     are written), so ptxas reports no stack frame.
+//   - encoded planes (the run's resident tree, ops/encodings.py): each
+//     plane comes with a leaf descriptor (kind, arrays, rle run slots),
+//     and the staging step decodes what it loads, so that no decoded
+//     plane is ever written: a bits plane's four rows from one word
+//     (shift and mask), const a broadcast, delta16 the block's base plus
+//     a u16 offset, rle the block's value at the row's run id, and a
+//     dictionary column its prefix planes dhi[code], dlo[code] (read
+//     through the read-only cache: lineitem's dictionaries hold 4 entries)
+//     or, for a promoted string predicate (a "code" predicate), the code
+//     itself, staged as a word of its own. On a plain tree (a view) a
+//     code predicate reads the code plane beside the column's planes.
+//     The kernel comes in two builds: a table of plain planes takes the
+//     plain one (kEnc false: the vector loads, no leaf dispatch, the
+//     staging loop unrolled), one with an encoded leaf the other.
 
 // One build serves every signature: a descriptor (kernel parameter, read
 // from the constant bank; loops unrolled to its maxima with block-uniform
@@ -110,6 +124,9 @@ constexpr int kMaxAggs = 8;
 constexpr int kMaxFactors = 2;
 constexpr int kMaxNodes = 8;
 constexpr int kMaxKeyPlanes = 3 * kMaxGroup;  // per group: 2 planes + null
+constexpr int kMaxStaged = kMaxCols + kMaxPreds;  // order and code entries
+constexpr int kCodePlanes = 3;   // a code predicate's planes in the descriptor
+constexpr int kLeafWords = 4;    // kind, run slots, second and third array
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMinBlocks = 4;      // blocks an SM's registers hold (__launch_bounds__)
@@ -145,6 +162,8 @@ enum Op : int32_t { kEq = 0, kNe = 1, kLt = 2, kLe = 3, kGt = 4, kGe = 5 };
 enum AggKind : int32_t { kCount = 0, kSum = 1 };
 enum Node : int32_t { kEnd = 0, kConst = 1, kColumn = 2, kAdd = 3, kSub = 4,
                       kMul = 5 };
+enum LeafKind : int32_t { kPlain = 0, kBits = 1, kConstLeaf = 2, kDelta16 = 3,
+                          kRle = 4, kDict = 5 };
 
 enum Err : int {
   kErrDescWords = -1,
@@ -159,25 +178,38 @@ enum Err : int {
   kErrAlign = -10,
 };
 
+// An int plane: plain (a), const (a: the value's words), delta16 (a: the
+// blocks' bases [B, P], b: u16 offsets [B, R, P]), rle (a: int16 run ids
+// [B, R], b: values [B, Rc, P], rc: Rc) or a dictionary (a: u16 codes
+// [B, R], b: dhi, c: dlo); a plain cmp's c is its code plane, if any.
+struct Leaf {
+  const void* a;
+  const void* b;
+  const void* c;
+  int32_t kind, rc;
+};
+
 struct Desc {
-  const int32_t* ht_hi;
-  const int32_t* ht_lo;
-  const int32_t* exp_hi;
-  const int32_t* exp_lo;
-  const uint8_t* valid;
+  Leaf ht_hi, ht_lo, exp_hi, exp_lo;
+  const uint8_t* valid;  // bool planes: one byte a row, or bits words
   const uint8_t* tomb;
   const uint8_t* live;
   const uint8_t* set[kMaxCols];  // slots past n_cols: the valid plane
   const uint8_t* isnull[kMaxCols];
-  const int32_t* cmp[kMaxCols];
+  uint32_t bits_top;   // bit 0 valid, 1 tomb, 2 live: a bits leaf
+  uint32_t bits_set, bits_null;  // bit c: slot c's set / isnull is bits
+  Leaf col[kMaxCols];   // each slot's order planes
   int32_t width[kMaxCols];  // order planes a row: 1 or 2
+  int32_t rows_per_block;
   uint32_t col_mask;        // bits of the slots 0..n_cols-1
   int32_t n_cols, n_preds, n_group, n_aggs, n_params, kp, n_out;
-  // Staged columns (those predicates and group columns read), in slot
-  // order: plane, slot, words a row, first staged word.
+  // Staged entries (the order words of the columns predicates and group
+  // columns read, in slot order, then the code word of each column a code
+  // predicate reads): slot, words a row (1 for a code), whether it is a
+  // code, first staged word.
   int32_t n_staged;
-  const int32_t* stg_ptr[kMaxCols];
-  int32_t stg_col[kMaxCols], stg_width[kMaxCols], stg_word[kMaxCols];
+  int32_t stg_col[kMaxStaged], stg_width[kMaxStaged], stg_code[kMaxStaged],
+      stg_word[kMaxStaged];
   int32_t pred_col[kMaxPreds], pred_planes[kMaxPreds], pred_op[kMaxPreds],
       pred_lit[kMaxPreds], pred_word[kMaxPreds];
   int32_t grp_col[kMaxGroup], grp_planes[kMaxGroup], grp_word[kMaxGroup];
@@ -188,8 +220,7 @@ struct Desc {
   int32_t agg_w64[kMaxAggs];   // its sum's low word in a slot's 64-bit words
   int32_t agg_sum[kMaxAggs];   // a sum's index among the sums
   int32_t limb_word[kMaxAggs];  // a sum's first staged limb
-  const int32_t* agg_ptr[kMaxAggs];  // a sum's base column and its width
-  int32_t agg_width[kMaxAggs];
+  int32_t agg_width[kMaxAggs];  // a sum's base column's width
   int8_t node_op[kMaxAggs][kMaxFactors][kMaxNodes];
   int32_t node_arg[kMaxAggs][kMaxFactors][kMaxNodes];
   // A factor affine in one column (k, c, k + c, k - c, c - k, k * c...):
@@ -197,7 +228,6 @@ struct Desc {
   int8_t fac_affine[kMaxAggs][kMaxFactors];
   int32_t fac_k0[kMaxAggs][kMaxFactors], fac_k1[kMaxAggs][kMaxFactors],
       fac_col[kMaxAggs][kMaxFactors];
-  const int32_t* fac_ptr[kMaxAggs][kMaxFactors];
   int32_t fac_width[kMaxAggs][kMaxFactors];
   // Key plane k: its staged word, or -1 for a null flag of column
   // key_col[k]; n_kpl planes (0 without group columns).
@@ -245,6 +275,36 @@ __device__ __forceinline__ bool pred_ok(int op, int planes, const int32_t* v,
   }
 }
 
+// Word p (of P) of row r of an encoded int leaf (not plain).
+__device__ __forceinline__ int32_t leaf_word(const Leaf& L, long long r, int p,
+                                             int P, int R) {
+  if (L.kind == kConstLeaf) return __ldg(static_cast<const int32_t*>(L.a) + p);
+  if (L.kind == kDelta16) {
+    const long long blk = r / R;
+    return static_cast<int32_t>(
+        static_cast<uint32_t>(
+            __ldg(static_cast<const int32_t*>(L.a) + blk * P + p)) +
+        static_cast<uint32_t>(
+            __ldg(static_cast<const uint16_t*>(L.b) + r * P + p)));
+  }
+  if (L.kind == kRle) {
+    const long long blk = r / R;
+    const int id = __ldg(static_cast<const int16_t*>(L.a) + r);
+    return __ldg(static_cast<const int32_t*>(L.b) + (blk * L.rc + id) * P + p);
+  }
+  const int code = __ldg(static_cast<const uint16_t*>(L.a) + r);  // kDict
+  return __ldg(static_cast<const int32_t*>(p == 0 ? L.b : L.c) + code);
+}
+
+// Word 0 of row r of a slot's order planes (a factor's column).
+__device__ __forceinline__ int32_t col_word(const Desc& d, int c, long long r) {
+  const Leaf& L = d.col[c];
+  if (L.kind == kPlain) {
+    return __ldg(static_cast<const int32_t*>(L.a) + r * d.width[c]);
+  }
+  return leaf_word(L, r, 0, d.width[c], d.rows_per_block);
+}
+
 // A factor's postfix program at row r, in wrapping int32 arithmetic (as
 // the JAX program's int32 ops). Its columns' words are loaded as the
 // program reaches them; its stack is kept in shared memory, entry k at
@@ -261,7 +321,7 @@ __device__ int32_t eval_factor(const Desc& d, int a, int f, long long r,
     if (op == kConst) {
       *stk(sp++) = static_cast<uint32_t>(arg);
     } else if (op == kColumn) {
-      *stk(sp++) = static_cast<uint32_t>(__ldg(d.cmp[arg] + r * d.width[arg]));
+      *stk(sp++) = static_cast<uint32_t>(col_word(d, arg, r));
     } else {
       const uint32_t rt = *stk(--sp);
       const uint32_t l = *stk(--sp);
@@ -447,23 +507,135 @@ __device__ __forceinline__ uint4 ld_narrow(const int32_t* p) {
   return make_uint4(a.x, a.y, a.z, a.w);
 }
 
+// Byte k of the result is bit k of the nibble (4 bool bytes).
+__device__ __forceinline__ uint32_t spread4(uint32_t nib) {
+  return (nib & 1u) | ((nib & 2u) << 7) | ((nib & 4u) << 14) |
+         ((nib & 8u) << 21);
+}
+
+// A bool plane's kRows rows from row `at` (a multiple of 4): bytes, or the
+// four bits of a bits leaf's word.
+__device__ __forceinline__ uint32_t ld_flags(const uint8_t* p, bool bits,
+                                             int at) {
+  if (!bits) return ldb(p + at);
+  const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(p) + (at >> 5));
+  return spread4((w >> (at & 31)) & 15u);
+}
+
+// Four rows from `at` of a one-plane int leaf.
+__device__ __forceinline__ uint4 ld_narrow_leaf(const Leaf& L, int at, int R) {
+  if (L.kind == kPlain) return ld_narrow(static_cast<const int32_t*>(L.a) + at);
+  return make_uint4(leaf_word(L, at, 0, 1, R), leaf_word(L, at + 1, 0, 1, R),
+                    leaf_word(L, at + 2, 0, 1, R),
+                    leaf_word(L, at + 3, 0, 1, R));
+}
+
+// Four rows from `at` of a two-plane leaf: the hi plane and the lo plane.
+__device__ __forceinline__ void ld_wide_leaf(const Leaf& L, int at, int R,
+                                             uint4& hi, uint4& lo) {
+  if (L.kind == kPlain) {
+    ld_wide(static_cast<const int32_t*>(L.a) + 2 * at, hi, lo);
+  } else if (L.kind == kDict) {
+    const uint2 cw =
+        __ldg(reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(L.a) +
+                                             at));
+    const int c0 = cw.x & 0xffffu, c1 = cw.x >> 16, c2 = cw.y & 0xffffu,
+              c3 = cw.y >> 16;
+    const int32_t* dh = static_cast<const int32_t*>(L.b);
+    const int32_t* dl = static_cast<const int32_t*>(L.c);
+    hi = make_uint4(__ldg(dh + c0), __ldg(dh + c1), __ldg(dh + c2),
+                    __ldg(dh + c3));
+    lo = make_uint4(__ldg(dl + c0), __ldg(dl + c1), __ldg(dl + c2),
+                    __ldg(dl + c3));
+  } else {
+    hi = make_uint4(leaf_word(L, at, 0, 2, R), leaf_word(L, at + 1, 0, 2, R),
+                    leaf_word(L, at + 2, 0, 2, R),
+                    leaf_word(L, at + 3, 0, 2, R));
+    lo = make_uint4(leaf_word(L, at, 1, 2, R), leaf_word(L, at + 1, 1, 2, R),
+                    leaf_word(L, at + 2, 1, 2, R),
+                    leaf_word(L, at + 3, 1, 2, R));
+  }
+}
+
+// Four rows from `at` of a slot's order planes (width 1 or 2).
+__device__ __forceinline__ void ld_col(const Desc& d, int c, int at, uint4& hi,
+                                       uint4& lo) {
+  if (d.width[c] == 2) {
+    ld_wide_leaf(d.col[c], at, d.rows_per_block, hi, lo);
+  } else {
+    hi = lo = ld_narrow_leaf(d.col[c], at, d.rows_per_block);
+  }
+}
+
+// Four codes from `at` of a slot a code predicate reads: the dictionary
+// leaf's codes, or the code plane beside a plain column's planes.
+__device__ __forceinline__ uint4 ld_code(const Leaf& L, int at) {
+  if (L.kind == kDict) {
+    const uint2 cw =
+        __ldg(reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(L.a) +
+                                             at));
+    return make_uint4(cw.x & 0xffffu, cw.x >> 16, cw.y & 0xffffu, cw.y >> 16);
+  }
+  return ld_narrow(static_cast<const int32_t*>(L.c) + at);
+}
+
+// The loads of the two builds: kEnc decodes leaves, the plain build reads
+// plain planes only.
+template <bool kEnc>
+__device__ __forceinline__ uint32_t load_flags(const uint8_t* p, bool bits,
+                                               int at) {
+  if constexpr (kEnc) {
+    return ld_flags(p, bits, at);
+  } else {
+    return ldb(p + at);
+  }
+}
+
+template <bool kEnc>
+__device__ __forceinline__ uint4 load_int(const Leaf& L, int at, int R) {
+  if constexpr (kEnc) {
+    return ld_narrow_leaf(L, at, R);
+  } else {
+    return ld_narrow(static_cast<const int32_t*>(L.a) + at);
+  }
+}
+
+template <bool kEnc>
+__device__ __forceinline__ void load_col(const Desc& d, int c, int at,
+                                         uint4& hi, uint4& lo) {
+  if constexpr (kEnc) {
+    ld_col(d, c, at, hi, lo);
+  } else {
+    const int32_t* p = static_cast<const int32_t*>(d.col[c].a);
+    if (d.width[c] == 2) {
+      ld_wide(p + 2 * at, hi, lo);
+    } else {
+      hi = lo = ld_narrow(p + at);
+    }
+  }
+}
+
 // Stages a warp's piece: every plane of the lane's kRows rows from row0
 // loaded once, and what no spec changes decoded into `my` (word k of the
 // lane's rows at my + k * kPieceRows). Returns the lane's candidate bits.
-template <int kCols>
+template <int kCols, bool kEnc>
 __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
                                                 int row0) {
   const bool in = row0 < d.n_rows;  // n_rows is a multiple of kRows
   const int at = in ? row0 : 0;     // past the end: row 0, no candidate
-  const uint32_t vb = ldb(d.valid + at), tb = ldb(d.tomb + at),
-                 lb = ldb(d.live + at);
-  const uint4 hh = ld_narrow(d.ht_hi + at), hl = ld_narrow(d.ht_lo + at);
-  const uint4 eh = ld_narrow(d.exp_hi + at), el = ld_narrow(d.exp_lo + at);
+  const int R = d.rows_per_block;
+  const uint32_t vb = load_flags<kEnc>(d.valid, d.bits_top & 1u, at),
+                 tb = load_flags<kEnc>(d.tomb, d.bits_top & 2u, at),
+                 lb = load_flags<kEnc>(d.live, d.bits_top & 4u, at);
+  const uint4 hh = load_int<kEnc>(d.ht_hi, at, R),
+              hl = load_int<kEnc>(d.ht_lo, at, R);
+  const uint4 eh = load_int<kEnc>(d.exp_hi, at, R),
+              el = load_int<kEnc>(d.exp_lo, at, R);
   uint32_t sb[kCols], nb[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
-    sb[c] = ldb(d.set[c] + at);
-    nb[c] = ldb(d.isnull[c] + at);
+    sb[c] = load_flags<kEnc>(d.set[c], (d.bits_set >> c) & 1u, at);
+    nb[c] = load_flags<kEnc>(d.isnull[c], (d.bits_null >> c) & 1u, at);
   }
   uint32_t nn[kRows];  // bit c: slot c set and not NULL
 #pragma unroll
@@ -487,17 +659,16 @@ __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
   sst(my + kExpHi * kPieceRows, eh);
   sst(my + kExpLo * kPieceRows, el);
 
-  // The predicate and group columns' order words, zeroed where NULL.
-#pragma unroll
-  for (int v = 0; v < kMaxCols; ++v) {
-    if (v >= d.n_staged) break;
+  // The predicate and group columns' order words (or a code predicate's
+  // code), zeroed where NULL: the plain build unrolls the loop, the
+  // encoded one keeps it rolled (each entry's leaf dispatch is long).
+  auto stage = [&](int v) {
     const int c = d.stg_col[v];
     uint4 hi, lo;
-    if (d.stg_width[v] == 2) {
-      ld_wide(d.stg_ptr[v] + 2 * at, hi, lo);
+    if (d.stg_code[v]) {
+      hi = lo = ld_code(d.col[c], at);
     } else {
-      hi = ld_narrow(d.stg_ptr[v] + at);
-      lo = hi;
+      load_col<kEnc>(d, c, at, hi, lo);
     }
     const uint32_t z0 = (nn[0] >> c) & 1, z1 = (nn[1] >> c) & 1,
                    z2 = (nn[2] >> c) & 1, z3 = (nn[3] >> c) & 1;
@@ -507,6 +678,19 @@ __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
     if (d.stg_width[v] == 2) {
       sst(dst + kPieceRows, make_uint4(z0 ? lo.x : 0, z1 ? lo.y : 0,
                                        z2 ? lo.z : 0, z3 ? lo.w : 0));
+    }
+  };
+  if constexpr (kEnc) {
+#pragma unroll 1
+    for (int v = 0; v < kMaxStaged; ++v) {
+      if (v >= d.n_staged) break;
+      stage(v);
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < kMaxStaged; ++v) {
+      if (v >= d.n_staged) break;
+      stage(v);
     }
   }
 
@@ -546,11 +730,7 @@ __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
     if (d.agg_kind[a] != kSum) continue;
     const uint32_t need = d.agg_need[a];
     uint4 bh, bl;
-    if (d.agg_width[a] == 2) {
-      ld_wide(d.agg_ptr[a] + 2 * at, bh, bl);
-    } else {
-      bh = bl = ld_narrow(d.agg_ptr[a] + at);
-    }
+    load_col<kEnc>(d, d.agg_col[a], at, bh, bl);
     // Each factor's value a row: affine ones from the column's words,
     // the others by their postfix program, one row at a time, with the
     // sum's limb words (not yet written) as the stack and the results.
@@ -566,11 +746,7 @@ __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
       if (k >= d.agg_nf[a]) continue;
       if (d.fac_affine[a][k]) {
         uint4 col, unused;
-        if (d.fac_width[a][k] == 2) {
-          ld_wide(d.fac_ptr[a][k] + 2 * at, col, unused);
-        } else {
-          col = ld_narrow(d.fac_ptr[a][k] + at);
-        }
+        load_col<kEnc>(d, d.fac_col[a][k], at, col, unused);
         const uint32_t k0 = static_cast<uint32_t>(d.fac_k0[a][k]),
                        k1 = static_cast<uint32_t>(d.fac_k1[a][k]);
         fc[k] = make_uint4(k0 + k1 * col.x, k0 + k1 * col.y, k0 + k1 * col.z,
@@ -840,8 +1016,9 @@ __device__ __forceinline__ void fold_spec(const Desc& d, const Spec& sp,
 }
 
 // kCols: the column slots whose set/isnull a row loads (8 or kMaxCols, the
-// least that holds n_cols), so that a narrow table issues no padding loads.
-template <int kCols>
+// least that holds n_cols), so that a narrow table issues no padding loads;
+// kEnc: some plane is an encoded leaf.
+template <int kCols, bool kEnc>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     group_agg_kernel(const __grid_constant__ Desc d,
                      const int32_t* __restrict__ params,
@@ -909,7 +1086,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
     const int piece0 = piece * kPieceRows;
     const int row0 = piece0 + kRows * lane;
     __syncwarp();  // the previous piece's folds are done with the area
-    const uint32_t cand = stage_piece<kCols>(d, area + kRows * lane, row0);
+    const uint32_t cand =
+        stage_piece<kCols, kEnc>(d, area + kRows * lane, row0);
     __syncwarp();
     if (!__any_sync(kFull, cand != 0)) continue;
     uint32_t st;
@@ -1057,15 +1235,20 @@ void affine(Desc& d, int a, int f) {
 extern "C" {
 
 // planes: ht_hi, ht_lo, exp_hi, exp_lo, valid, tomb, live, then per column
-// slot: set, isnull, cmp; each 16-byte aligned, over an even number of
-// rows. desc: kDescWords int32 words (layout in ops/group_agg.py
+// slot: set, isnull, cmp; each plane's first array, 16-byte aligned, over
+// a number of rows that is a multiple of 4. leaves: kLeafWords int64 words
+// a plane: its kind (LeafKind), an rle leaf's run slots, its second and
+// third array (a plain cmp's third: its code plane, or 0); flag planes are
+// plain or bits, the others any int kind, a cmp also a dictionary.
+// rows_per_block: R (a delta16 or rle leaf's block of a row). desc: kDescWords int32 words (layout in ops/group_agg.py
 // GroupAggPlan.descriptor). params: [n_specs, n_params] int32 on the
 // device. out: [n_specs, kNumBuckets + 1, n_out] int64 on the device.
 // grid_x (blocks a spec chunk) and smem_bytes: ops/group_agg.py
 // launch_geometry.
-int group_agg_launch(const void* const* planes, int n_planes,
-                     const int32_t* desc, int n_desc, const int32_t* params,
-                     int n_specs, long long n_rows, long long* out, int grid_x,
+int group_agg_launch(const void* const* planes, const long long* leaves,
+                     int n_planes, const int32_t* desc, int n_desc,
+                     const int32_t* params, int n_specs, long long n_rows,
+                     int rows_per_block, long long* out, int grid_x,
                      int smem_bytes, void* stream) {
   if (n_desc != kDescWords) return kErrDescWords;
   Desc d{};
@@ -1081,29 +1264,68 @@ int group_agg_launch(const void* const* planes, int n_planes,
       d.n_aggs < 0 || d.n_aggs > kMaxAggs || d.n_params < kParamHead) {
     return kErrCounts;
   }
-  if (n_planes != 7 + 3 * d.n_cols) return kErrPlanes;
+  if (n_planes != 7 + 3 * d.n_cols || leaves == nullptr) return kErrPlanes;
+  if (rows_per_block < 1) return kErrPlanes;
+  // Each plane's leaf: kind, run slots, second and third array.
+  auto leaf = [&](int k) {
+    const long long* lw = leaves + kLeafWords * k;
+    Leaf L{planes[k], reinterpret_cast<const void*>(lw[2]),
+           reinterpret_cast<const void*>(lw[3]), static_cast<int32_t>(lw[0]),
+           static_cast<int32_t>(lw[1])};
+    return L;
+  };
+  for (int k = 0; k < n_planes; ++k) {
+    const Leaf L = leaf(k);
+    const bool flag = (k >= 4 && k < 7) || (k >= 7 && (k - 7) % 3 != 2);
+    if (flag ? (L.kind != kPlain && L.kind != kBits)
+             : (L.kind < kPlain || L.kind > kDict || L.kind == kBits ||
+                (k < 4 && L.kind == kDict))) {
+      return kErrPlanes;
+    }
+    if ((L.kind == kBits && rows_per_block % 32) ||
+        (L.kind == kRle && L.rc < 1) ||
+        ((L.kind == kDelta16 || L.kind == kRle) && L.b == nullptr) ||
+        (L.kind == kDict && (L.b == nullptr || L.c == nullptr))) {
+      return kErrPlanes;
+    }
+  }
   const int32_t* w = desc + kHead;
   for (int c = 0; c < d.n_cols; ++c) {
     if (w[c] != 1 && w[c] != 2) return kErrPlanes;
     d.width[c] = w[c];
     d.set[c] = static_cast<const uint8_t*>(planes[7 + 3 * c]);
     d.isnull[c] = static_cast<const uint8_t*>(planes[8 + 3 * c]);
-    d.cmp[c] = static_cast<const int32_t*>(planes[9 + 3 * c]);
+    d.bits_set |= static_cast<uint32_t>(leaf(7 + 3 * c).kind == kBits) << c;
+    d.bits_null |= static_cast<uint32_t>(leaf(8 + 3 * c).kind == kBits) << c;
+    d.col[c] = leaf(9 + 3 * c);
+    if (d.col[c].kind == kDict && w[c] != 2) return kErrPlanes;
   }
   w += kMaxCols;
   uint32_t staged = 0;  // column slots predicates and group columns read
+  uint32_t coded = 0;   // column slots code predicates read
   for (int q = 0; q < kMaxPreds; ++q, w += 4) {
     if (q >= d.n_preds) continue;
-    if (w[0] < 0 || w[0] >= d.n_cols || (w[1] != 1 && w[1] != 2) ||
-        d.width[w[0]] < w[1] || w[2] < kEq || w[2] > kGe ||
-        w[3] < kParamHead || w[3] + w[1] > d.n_params) {
+    const bool code = w[1] == kCodePlanes;
+    const int planes_q = code ? 1 : w[1];
+    if (w[0] < 0 || w[0] >= d.n_cols ||
+        (!code && w[1] != 1 && w[1] != 2) ||
+        (!code && d.width[w[0]] < w[1]) || w[2] < kEq || w[2] > kGe ||
+        w[3] < kParamHead || w[3] + planes_q > d.n_params) {
       return kErrPred;
     }
+    if (code && d.col[w[0]].kind != kDict &&
+        (d.col[w[0]].kind != kPlain || d.col[w[0]].c == nullptr)) {
+      return kErrPred;  // no code plane to compare
+    }
     d.pred_col[q] = w[0];
-    d.pred_planes[q] = w[1];
+    d.pred_planes[q] = planes_q;
     d.pred_op[q] = w[2];
     d.pred_lit[q] = w[3];
-    staged |= 1u << w[0];
+    if (code) {
+      coded |= 1u << w[0];
+    } else {
+      staged |= 1u << w[0];
+    }
   }
   int kp = 0;
   for (int g = 0; g < kMaxGroup; ++g, w += 2) {
@@ -1167,16 +1389,34 @@ int group_agg_launch(const void* const* planes, int n_planes,
   // Staged words a row: the header, the staged columns' order words in
   // slot order, each sum's four limbs.
   int words = kHeadWords;
-  int col_word[kMaxCols] = {};
+  int col_word[kMaxCols] = {}, code_word[kMaxCols] = {};
   for (int c = 0; c < d.n_cols; ++c) {
     if (!((staged >> c) & 1)) continue;
-    d.stg_ptr[d.n_staged] = d.cmp[c];
     d.stg_col[d.n_staged] = c;
     d.stg_width[d.n_staged] = d.width[c];
+    d.stg_code[d.n_staged] = 0;
     d.stg_word[d.n_staged++] = col_word[c] = words;
     words += d.width[c];
   }
-  for (int q = 0; q < d.n_preds; ++q) d.pred_word[q] = col_word[d.pred_col[q]];
+  // Code words in the order of the predicates that first read them
+  // (ops/group_agg.py code_cols).
+  for (int q = 0; q < d.n_preds; ++q) {
+    const int c = d.pred_col[q];
+    if (!((coded >> c) & 1)) continue;
+    coded &= ~(1u << c);
+    d.stg_col[d.n_staged] = c;
+    d.stg_width[d.n_staged] = 1;
+    d.stg_code[d.n_staged] = 1;
+    d.stg_word[d.n_staged++] = code_word[c] = words;
+    words += 1;
+  }
+  {
+    const int32_t* pw = desc + kHead + kMaxCols;
+    for (int q = 0; q < d.n_preds; ++q, pw += 4) {
+      d.pred_word[q] = pw[1] == kCodePlanes ? code_word[d.pred_col[q]]
+                                            : col_word[d.pred_col[q]];
+    }
+  }
   for (int g = 0; g < d.n_group; ++g) {
     d.grp_word[g] = col_word[d.grp_col[g]];
     for (int k = 0; k <= d.grp_planes[g]; ++k, ++d.n_kpl) {
@@ -1188,10 +1428,8 @@ int group_agg_launch(const void* const* planes, int n_planes,
     if (d.agg_kind[a] != kSum) continue;
     d.limb_word[a] = words;
     words += 4;
-    d.agg_ptr[a] = d.cmp[d.agg_col[a]];
     d.agg_width[a] = d.width[d.agg_col[a]];
     for (int f = 0; f < d.agg_nf[a]; ++f) {
-      d.fac_ptr[a][f] = d.cmp[d.fac_col[a][f]];
       d.fac_width[a][f] = d.width[d.fac_col[a][f]];
     }
   }
@@ -1209,18 +1447,37 @@ int group_agg_launch(const void* const* planes, int n_planes,
     if (reinterpret_cast<uintptr_t>(planes[k]) & 15u) return kErrAlign;
   }
   if (n_rows % kRows) return kErrAlign;
-  d.ht_hi = static_cast<const int32_t*>(planes[0]);
-  d.ht_lo = static_cast<const int32_t*>(planes[1]);
-  d.exp_hi = static_cast<const int32_t*>(planes[2]);
-  d.exp_lo = static_cast<const int32_t*>(planes[3]);
+  for (int c = 0; c < d.n_cols; ++c) {
+    if (d.col[c].c != nullptr && d.col[c].kind == kPlain &&
+        (reinterpret_cast<uintptr_t>(d.col[c].c) & 15u)) {
+      return kErrAlign;
+    }
+  }
+  d.ht_hi = leaf(0);
+  d.ht_lo = leaf(1);
+  d.exp_hi = leaf(2);
+  d.exp_lo = leaf(3);
   d.valid = static_cast<const uint8_t*>(planes[4]);
   d.tomb = static_cast<const uint8_t*>(planes[5]);
   d.live = static_cast<const uint8_t*>(planes[6]);
+  d.bits_top = static_cast<uint32_t>(leaf(4).kind == kBits) |
+               static_cast<uint32_t>(leaf(5).kind == kBits) << 1 |
+               static_cast<uint32_t>(leaf(6).kind == kBits) << 2;
+  d.rows_per_block = rows_per_block;
   d.n_rows = static_cast<int32_t>(n_rows);
   for (int c = d.n_cols; c < kMaxCols; ++c) d.set[c] = d.isnull[c] = d.valid;
+  for (int c = d.n_cols; c < kMaxCols; ++c) {
+    d.bits_set |= (d.bits_top & 1u) << c;
+    d.bits_null |= (d.bits_top & 1u) << c;
+  }
   d.col_mask = (1u << d.n_cols) - 1;
+  bool enc = false;
+  for (int k = 0; k < n_planes; ++k) enc = enc || leaf(k).kind != kPlain;
   const auto kernel =
-      d.n_cols <= 8 ? group_agg_kernel<8> : group_agg_kernel<kMaxCols>;
+      enc ? (d.n_cols <= 8 ? group_agg_kernel<8, true>
+                           : group_agg_kernel<kMaxCols, true>)
+          : (d.n_cols <= 8 ? group_agg_kernel<8, false>
+                           : group_agg_kernel<kMaxCols, false>);
   if (smem_bytes > kSmemDefault) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -1240,10 +1497,12 @@ int group_agg_launch(const void* const* planes, int n_planes,
 
 // Blocks of the kernel one SM holds at once for a table of n_cols value
 // columns and smem_bytes of dynamic shared memory (registers, threads and
-// shared memory all counted), or a negative CUDA error code.
+// shared memory all counted), or a negative CUDA error code. Both builds
+// are capped at the same registers (__launch_bounds__); the plain one is
+// asked.
 int group_agg_occupancy(int n_cols, int smem_bytes) {
-  const auto kernel =
-      n_cols <= 8 ? group_agg_kernel<8> : group_agg_kernel<kMaxCols>;
+  const auto kernel = n_cols <= 8 ? group_agg_kernel<8, false>
+                                  : group_agg_kernel<kMaxCols, false>;
   if (smem_bytes > kSmemDefault) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);

@@ -9,7 +9,10 @@
 - ``group_agg``: GROUP BY and expression aggregates, the bucket-table
   fold as a CUDA kernel (``csrc/group_agg.cu``) with its plain version;
 - ``native``: builds and loads the CUDA kernels;
-- ``device_run``: a run's planes resident on the engine's device;
+- ``device_run``: a run's planes resident on the engine's device, plain
+  or as the encoded tree of ``encodings`` (the JAX package's compressed
+  leaf forms), which ``decode`` (K10, ``csrc/decode.cu``) turns into the
+  plain planes the other kernels read;
 - ``scan`` / ``agg_fold``: the static signatures and the host-side
   packing/finalize shared with the JAX package's layout.
 """

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from yugabyte_db_tpu_torch.ops import native
+from yugabyte_db_tpu_torch.ops.encodings import require_plain
 from yugabyte_db_tpu_torch.ops.agg_fold import DIGITS
 from yugabyte_db_tpu_torch.ops.scan import I32_MAX, I32_MIN, le2
 from yugabyte_db_tpu_torch.utils import planes as PL
@@ -132,6 +133,7 @@ class FlatAggPlan:
         """The run's planes in the kernel's table order: ht_hi, ht_lo,
         exp_hi, exp_lo, valid, tomb, live, then per column slot set,
         isnull, cmp ([B, R, P] int32, read with stride P)."""
+        require_plain(arrays, "K1")
         out = [arrays[n] for n in ("ht_hi", "ht_lo", "exp_hi", "exp_lo",
                                    "valid", "tomb", "live")]
         for cid in self.col_ids:

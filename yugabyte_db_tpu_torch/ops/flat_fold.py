@@ -24,6 +24,7 @@ import torch
 
 from yugabyte_db_tpu_torch.ops import agg_fold
 from yugabyte_db_tpu_torch.ops import scan as dscan
+from yugabyte_db_tpu_torch.ops.encodings import require_plain
 from yugabyte_db_tpu_torch.ops.scan import I32_MAX, I32_MIN, le2
 
 MAX_R = (1 << 15) - 1   # the JAX program's int32 block limb-sum bound
@@ -32,11 +33,11 @@ MAX_B = 1 << 14         # and its second-stage bound
 
 def supports(sig: dscan.ScanSig) -> bool:
     """Eligibility: flat run within the JAX program's shape bounds, exact
-    predicate kinds only. (The JAX program also takes dictionary-code
-    predicates; encoded planes are not in the port yet.)"""
+    predicate kinds only (dictionary-code predicates among them)."""
     if not sig.flat or sig.R > MAX_R or sig.B > MAX_B:
         return False
-    if any(ps.kind not in ("i32", "i64", "f64") for ps in sig.preds):
+    if any(ps.kind not in ("i32", "i64", "f64", "code")
+           for ps in sig.preds):
         return False
     return all(ag.fn in ("count", "sum", "min", "max") for ag in sig.aggs)
 
@@ -57,10 +58,13 @@ def _masked_plane_limbs(plane, m, digits, base_pos):
     _limb_scalars(torch.where(m, u >> 16, 0), base_pos + 1, digits)
 
 
-def _eval_pred_flat(ps: dscan.PredSig, cmp, lit):
-    """Elementwise exact predicate over full planes (i32/i64/f64)."""
-    if ps.kind == "i32":
-        v, x = cmp[..., 0], int(lit)
+def _eval_pred_flat(ps: dscan.PredSig, col: dict, lit):
+    """Elementwise exact predicate over a column's full planes (i32 / i64 /
+    f64, or a promoted string predicate on its code plane)."""
+    cmp = col["cmp"]
+    if ps.kind in ("i32", "code"):
+        v = col["code"] if ps.kind == "code" else cmp[..., 0]
+        x = int(lit)
         return {"=": v == x, "!=": v != x, "<": v < x, "<=": v <= x,
                 ">": v > x, ">=": v >= x}[ps.op]
     hi, lo = cmp[..., 0], cmp[..., 1]
@@ -84,6 +88,7 @@ def compiled_flat_aggregate(sig: dscan.ScanSig):
 
 def _flat_aggregate(sig, run, row_lo, row_hi, read_hi, read_lo, rexp_hi,
                     rexp_lo, pred_lits):
+    require_plain(run, "the flat fold")
     valid = run["valid"]
     device = valid.device
     visible = valid & le2(run["ht_hi"], run["ht_lo"], read_hi, read_lo)
@@ -103,7 +108,7 @@ def _flat_aggregate(sig, run, row_lo, row_hi, read_hi, read_lo, rexp_hi,
     for i, ps in enumerate(sig.preds):
         c = run["cols"][ps.col_id]
         result = result & notnull[ps.col_id] & _eval_pred_flat(
-            ps, c["cmp"], pred_lits[i])
+            ps, c, pred_lits[i])
 
     # The windowed fold's statistic: result rows.
     scanned = result.sum()

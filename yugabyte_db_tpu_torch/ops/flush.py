@@ -27,8 +27,13 @@ so both are byte-identical by construction.
 - ``record_layout``: where each plane of a staged row lies in the record
   that the kernel's first pass packs (its scratch is ``n`` records).
 
-Only the plain ``cmp`` route: the dictionary ``codes`` route of string
-columns comes with the encoded planes (item 8).
+A string column the engine dictionary-encodes (its ``plane_encoding``
+``"auto"``) is staged as ``codes`` ([n] u16, held as int16) with its
+sorted dictionary's ``dhi`` / ``dlo`` instead of ``cmp``: the JAX
+function's ``codes`` route. Its output is the encoded leaf
+``{"dict": {codes [Bp, R], dhi, dlo}}``, unfilled and padding slots
+holding the absent code (the dictionary's last slot), which decodes to
+the plain format's zero prefix planes.
 """
 
 from __future__ import annotations
@@ -51,6 +56,17 @@ _OUT_TOP = {"valid": torch.bool, "group_start": torch.bool,
             "exp_lo": torch.int32}
 
 
+def _width(col: dict) -> int:
+    """Order words a staged row of the column holds in the kernel's
+    record layout: 1 or 2, or 0 for a dictionary column's code."""
+    return 0 if "codes" in col else col["cmp"].shape[1]
+
+
+def _absent(col: dict) -> int:
+    """A dictionary column's absent code (its last slot), else 0."""
+    return col["dhi"].shape[0] - 1 if "codes" in col else 0
+
+
 def _empty_tree(staged: dict, Bp: int, R: int, device) -> dict:
     out = {name: torch.empty((Bp, R), dtype=dt, device=device)
            for name, dt in _OUT_TOP.items()}
@@ -58,9 +74,15 @@ def _empty_tree(staged: dict, Bp: int, R: int, device) -> dict:
     for cid, col in staged["cols"].items():
         entry = {"set": torch.empty((Bp, R), dtype=torch.bool, device=device),
                  "isnull": torch.empty((Bp, R), dtype=torch.bool,
-                                       device=device),
-                 "cmp": torch.empty((Bp, R, col["cmp"].shape[1]),
-                                    dtype=torch.int32, device=device)}
+                                       device=device)}
+        if "codes" in col:
+            entry["cmp"] = {"dict": {
+                "codes": torch.empty((Bp, R), dtype=torch.int16,
+                                     device=device),
+                "dhi": col["dhi"], "dlo": col["dlo"]}}
+        else:
+            entry["cmp"] = torch.empty((Bp, R, col["cmp"].shape[1]),
+                                       dtype=torch.int32, device=device)
         if "arith" in col:
             entry["arith"] = torch.empty((Bp, R), dtype=torch.float32,
                                          device=device)
@@ -73,8 +95,8 @@ def replay_flush_plain(staged: dict, perm, dst, gs, is_real,
                        R: int) -> dict:
     """The JAX ``replay_flush`` in torch ops. ``staged``: {ht_hi, ht_lo,
     exp_hi, exp_lo: [m] int32; tomb, live: [m] bool; cols: {cid: {set,
-    isnull: [m] bool, cmp: [m, P] int32, arith?: [m] float32}}}, the
-    apply-order rows; ``perm[j]``: the staged row of sorted position j;
+    isnull: [m] bool, cmp: [m, P] int32 or codes: [m] int16 (u16) with
+    dhi, dlo: [D] int32, arith?: [m] float32}}}, the apply-order rows; ``perm[j]``: the staged row of sorted position j;
     ``dst[j]``: its flat output slot (out of range: dropped); ``gs[j]``:
     its group-start bit; ``is_real`` [Bp] bool: the blocks the run owns
     (padding blocks keep valid False, group_start True, expiry 0; a real
@@ -114,9 +136,15 @@ def replay_flush_plain(staged: dict, perm, dst, gs, is_real,
     }
     for cid, col in staged["cols"].items():
         entry = {"set": scat(zeros(torch.bool), col["set"]),
-                 "isnull": scat(zeros(torch.bool), col["isnull"]),
-                 "cmp": scat(zeros(torch.int32, (col["cmp"].shape[1],)),
-                             col["cmp"])}
+                 "isnull": scat(zeros(torch.bool), col["isnull"])}
+        if "codes" in col:
+            codes = torch.full((S,), _absent(col), dtype=torch.int16,
+                               device=device)
+            entry["cmp"] = {"dict": {"codes": scat(codes, col["codes"]),
+                                     "dhi": col["dhi"], "dlo": col["dlo"]}}
+        else:
+            entry["cmp"] = scat(zeros(torch.int32, (col["cmp"].shape[1],)),
+                                col["cmp"])
         if "arith" in col:
             entry["arith"] = scat(zeros(torch.float32), col["arith"])
         out["cols"][cid] = entry
@@ -140,6 +168,15 @@ def _check(staged, perm, dst, gs, is_real) -> torch.device:
                    (f"col {cid} isnull", col["isnull"], torch.bool)]
         if "arith" in col:
             planes.append((f"col {cid} arith", col["arith"], torch.float32))
+        if "codes" in col:
+            planes.append((f"col {cid} codes", col["codes"], torch.int16))
+            for name in ("dhi", "dlo"):
+                d = col[name]
+                if d.dtype != torch.int32 or d.dim() != 1 or \
+                        d.shape[0] < 1 or d.device != device:
+                    raise ValueError(f"col {cid} {name}: {d.dtype} "
+                                     f"{tuple(d.shape)}")
+            continue
         cmp = col["cmp"]
         if cmp.dtype != torch.int32 or cmp.dim() != 2 or \
                 cmp.shape[0] != n or cmp.shape[1] not in (1, 2) or \
@@ -195,7 +232,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     interface set."""
     lib.replay_flush_launch.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+        ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
@@ -209,7 +247,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def record_layout(widths, has_arith, top: bool) -> dict:
     """Where each plane of a staged row lies in the 32-bit words of its
     record, as ``csrc/flush.cu`` packs it for a chunk of columns of order
-    widths ``widths`` (1 or 2) and arithmetic planes ``has_arith``:
+    widths ``widths`` (1 or 2, or 0 for a dictionary column, whose u16
+    code takes one word) and arithmetic planes ``has_arith``:
     ``top`` (the first chunk) leads with hybrid time and expiry (words
     0-3); then the flag words (byte 0 tombstone, 1 liveness, 2 + 2c
     column c's set, 3 + 2c its isnull); then each column's order words
@@ -222,7 +261,7 @@ def record_layout(widths, has_arith, top: bool) -> dict:
     cmp, arith = [], []
     for w, a in zip(widths, has_arith):
         cmp.append(words)
-        words += w
+        words += max(w, 1)
         arith.append(words if a else -1)
         words += 1 if a else 0
     return {"stride": (words + 3) // 4 * 4, "flags": flags, "cmp": cmp,
@@ -242,7 +281,7 @@ def scratch_words(staged: dict) -> int:
     the widest chunk's layout for each staged row."""
     cols = staged["cols"]
     return staged["ht_hi"].shape[0] * max(
-        record_layout([cols[cid]["cmp"].shape[1] for cid in chunk],
+        record_layout([_width(cols[cid]) for cid in chunk],
                       ["arith" in cols[cid] for cid in chunk],
                       k == 0)["stride"]
         for k, chunk in enumerate(_chunks(staged)))
@@ -266,16 +305,22 @@ def launch(lib: ctypes.CDLL, staged: dict, perm, dst, gs, is_real,
         outs = [out[name] for name in _OUT_TOP]
         for cid in chunk:
             c, o = staged["cols"][cid], out["cols"][cid]
-            ins += [c["set"], c["isnull"], c["cmp"], c.get("arith")]
-            outs += [o["set"], o["isnull"], o["cmp"], o.get("arith")]
+            if "codes" in c:
+                cmp_in, cmp_out = c["codes"], o["cmp"]["dict"]["codes"]
+            else:
+                cmp_in, cmp_out = c["cmp"], o["cmp"]
+            ins += [c["set"], c["isnull"], cmp_in, c.get("arith")]
+            outs += [o["set"], o["isnull"], cmp_out, o.get("arith")]
         widths = (ctypes.c_int32 * MAX_COLS)(
-            *[staged["cols"][cid]["cmp"].shape[1] for cid in chunk])
+            *[_width(staged["cols"][cid]) for cid in chunk])
+        absent = (ctypes.c_int32 * MAX_COLS)(
+            *[_absent(staged["cols"][cid]) for cid in chunk])
         in_ptrs = (ctypes.c_void_p * len(ins))(
             *[None if t is None else t.data_ptr() for t in ins])
         out_ptrs = (ctypes.c_void_p * len(outs))(
             *[None if t is None else t.data_ptr() for t in outs])
         rc = lib.replay_flush_launch(
-            in_ptrs, out_ptrs, widths, len(chunk), k == 0,
+            in_ptrs, out_ptrs, widths, absent, len(chunk), k == 0,
             ctypes.c_void_p(perm.data_ptr()), ctypes.c_void_p(dst.data_ptr()),
             ctypes.c_void_p(gs.data_ptr()),
             ctypes.c_void_p(is_real.data_ptr()), perm.shape[0], n,
@@ -310,7 +355,8 @@ def replay_bytes(staged: dict, n: int, m: int, Bp: int, R: int) -> int:
     row = 8 + 8 + 2
     out = 4 + 16
     for col in staged["cols"].values():
-        width = 2 + 4 * col["cmp"].shape[1] + (4 if "arith" in col else 0)
+        order = 2 if "codes" in col else 4 * col["cmp"].shape[1]
+        width = 2 + order + (4 if "arith" in col else 0)
         row += width
         out += width
     return n * (row + 4 + 1) + 4 * m + Bp + Bp * R * out

@@ -37,6 +37,7 @@ import torch
 
 from yugabyte_db_tpu_torch.ops import agg_fold, native
 from yugabyte_db_tpu_torch.ops import scan as dscan
+from yugabyte_db_tpu_torch.ops.encodings import require_plain
 
 THREADS = 256           # threads of a window block; csrc/full_agg.cu kThreads
 WARPS = THREADS // 32
@@ -522,6 +523,7 @@ def full_aggregate(plan: FullAggPlan, arrays: dict,
     the run ``arrays`` (``DeviceRun.arrays``). Launches the CUDA kernel
     for CUDA planes, runs the plain version for CPU planes, and raises
     for anything else."""
+    require_plain(arrays, "K5")
     table, B = _check(plan, arrays, params)
     device = table[0].device
     if device.type == "cpu":

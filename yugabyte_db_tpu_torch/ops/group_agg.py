@@ -39,6 +39,14 @@ murmur3 fmix step, modulo ``NUM_BUCKETS``.
   wave of blocks walking 128-row pieces on grid.x) and the shared bytes
   (``tile_bytes``, ``spec_bytes``), pure Python;
 - ``group_bytes``: the bytes the function must move, for the bound.
+
+The planes may be a run's encoded leaves (``ops.encodings``): K8 decodes
+them as it stages its tiles, a leaf descriptor a plane (kind, arrays,
+run slots), so a run's encoded tree is read as it is resident. A
+promoted string predicate (kind ``"code"``) compares its dictionary
+column's code plane: the dictionary leaf's codes, or on a plain tree
+(a view, a side-car) the ``code`` plane beside the column's ``cmp``,
+which ``plane_table`` appends after the columns' planes.
 """
 
 from __future__ import annotations
@@ -51,7 +59,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from yugabyte_db_tpu_torch.ops import flat_agg, native
+from yugabyte_db_tpu_torch.ops import encodings as enc
+from yugabyte_db_tpu_torch.ops import native
 from yugabyte_db_tpu_torch.ops.scan import I32_MAX, I32_MIN, le2
 
 NUM_BUCKETS = 512
@@ -80,7 +89,12 @@ DESC_WORDS = (_HEAD + MAX_COLS + 4 * MAX_PREDS + 2 * MAX_GROUP + 6 * MAX_AGGS
 PARAM_HEAD = 6  # row_lo, row_hi, read_hi, read_lo, rexp_hi, rexp_lo
 
 _OP = {"=": 0, "!=": 1, "<": 2, "<=": 3, ">": 4, ">=": 5}
-_PLANES = {"i32": 1, "i64": 2, "f64": 2}  # predicate kinds the kernel takes
+# Predicate kinds the kernel takes, and the literal words each reads.
+_PLANES = {"i32": 1, "i64": 2, "f64": 2, "code": 1}
+CODE_PLANES = 3  # a code predicate's planes word in the descriptor
+# Leaf kinds of csrc/group_agg.cu's leaf table.
+_LEAF = {None: 0, "bits": 1, "const": 2, "delta16": 3, "rle": 4, "dict": 5}
+LEAF_WORDS = 4  # kind, run slots, second and third array of a leaf
 # Factor nodes (postfix): end, constant, column, +, -, *.
 _NODE = {"k": 1, "c": 2, "+": 3, "-": 4, "*": 5}
 # Hash constants of the JAX program, as uint32.
@@ -141,9 +155,18 @@ def staged_words(sig: GroupAggSig) -> int:
     hybrid time, expiry and row word, the order planes of each column a
     predicate or group column reads, and four limbs a sum."""
     two = {c.col_id: c.two_plane for c in sig.cols}
-    staged = {p.col_id for p in sig.preds} | {c for c, _p in sig.group_cols}
+    staged = ({p.col_id for p in sig.preds if p.kind != "code"}
+              | {c for c, _p in sig.group_cols})
     n_sums = sum(1 for a in sig.aggs if a.kind != "count")
-    return HEAD_WORDS + sum(1 + two[c] for c in staged) + 4 * n_sums
+    return (HEAD_WORDS + sum(1 + two[c] for c in staged)
+            + len(code_cols(sig)) + 4 * n_sums)
+
+
+def code_cols(sig: GroupAggSig) -> tuple:
+    """The columns a code predicate reads, in first-use order (each
+    stages its code word; ``plane_table`` appends their code planes)."""
+    return tuple(dict.fromkeys(p.col_id for p in sig.preds
+                               if p.kind == "code"))
 
 
 def tile_bytes(sig: GroupAggSig) -> int:
@@ -185,6 +208,7 @@ class GroupAggPlan:
         self.sig = sig
         self.col_ids = tuple(cs.col_id for cs in sig.cols)
         self.slot = {cid: i for i, cid in enumerate(self.col_ids)}
+        self.code_cols = code_cols(sig)
         used = [p.col_id for p in sig.preds] + [c for c, _p in sig.group_cols]
         for a in sig.aggs:
             used += list(a.need_cols) + ([a.col_id] if a.col_id is not None
@@ -209,14 +233,26 @@ class GroupAggPlan:
         self.spec_bytes = spec_bytes(sig, self.n_params)
 
     # -- what the kernel is given ------------------------------------------
-    def plane_table(self, arrays: dict) -> list[torch.Tensor]:
-        """The planes in the kernel's order: ht_hi, ht_lo, exp_hi, exp_lo,
-        valid, tomb, live, then per column slot set, isnull, cmp."""
+    def plane_table(self, arrays: dict) -> list:
+        """The planes (tensors or encoded leaves) in the kernel's order:
+        ht_hi, ht_lo, exp_hi, exp_lo, valid, tomb, live, then per column
+        slot set, isnull, cmp; then per code column (``code_cols``) its
+        code plane where the tree is plain (None where its ``cmp`` is a
+        dictionary leaf, whose codes it reads)."""
         out = [arrays[n] for n in ("ht_hi", "ht_lo", "exp_hi", "exp_lo",
                                    "valid", "tomb", "live")]
         for cid in self.col_ids:
             c = arrays["cols"][cid]
             out.extend((c["set"], c["isnull"], c["cmp"]))
+        for cid in self.code_cols:
+            c = arrays["cols"][cid]
+            if enc.leaf_kind(c["cmp"]) == "dict":
+                out.append(None)
+            elif "code" in c:
+                out.append(c["code"])
+            else:
+                raise ValueError(f"column {cid} has no code plane for a "
+                                 "code predicate")
         return out
 
     def descriptor(self, table: list[torch.Tensor]) -> np.ndarray:
@@ -231,11 +267,13 @@ class GroupAggPlan:
         w[:_HEAD] = (len(self.col_ids), len(sig.preds), len(sig.group_cols),
                      len(sig.aggs), self.n_params, self.kp, self.n_out)
         for k in range(len(self.col_ids)):
-            w[_HEAD + k] = table[9 + 3 * k].shape[-1]
+            w[_HEAD + k] = plane_width(table[9 + 3 * k])
         base = _HEAD + MAX_COLS
         for q, (p, lit) in enumerate(zip(sig.preds, self.lit_offsets)):
             w[base + 4 * q: base + 4 * q + 4] = (
-                self.slot[p.col_id], _PLANES[p.kind], _OP[p.op], lit)
+                self.slot[p.col_id],
+                CODE_PLANES if p.kind == "code" else _PLANES[p.kind],
+                _OP[p.op], lit)
         base += 4 * MAX_PREDS
         for g, (cid, planes) in enumerate(sig.group_cols):
             w[base + 2 * g: base + 2 * g + 2] = (self.slot[cid], planes)
@@ -282,6 +320,59 @@ class GroupAggPlan:
         return (lo & ((1 << 64) - 1)) | ((hi & ((1 << 64) - 1)) << 64)
 
 
+def plane_width(entry) -> int:
+    """Order planes a row of a cmp entry (a tensor or an encoded leaf):
+    1 or 2 (a dictionary's: its two prefix planes)."""
+    k = enc.leaf_kind(entry)
+    if k is None:
+        return entry.shape[-1]
+    e = entry[k]
+    if k == "dict":
+        return 2
+    arr = {"const": e.get("cval"), "delta16": e.get("doff"),
+           "rle": e.get("rvals")}[k]
+    return int(np.prod(arr.shape[2:], dtype=np.int64)) if arr.dim() > 2 \
+        else 1
+
+
+def _leaf_arrays(entry) -> list:
+    """An entry's arrays in the kernel's order (a, b, c): a plain plane;
+    bits bw; const cval; delta16 dbase, doff; rle rid, rvals; dict codes,
+    dhi, dlo."""
+    k = enc.leaf_kind(entry)
+    if k is None:
+        return [entry]
+    e = entry[k]
+    return [e[n] for n in {"bits": ("bw",), "const": ("cval",),
+                           "delta16": ("dbase", "doff"),
+                           "rle": ("rid", "rvals"),
+                           "dict": ("codes", "dhi", "dlo")}[k]]
+
+
+def leaf_table(plan: GroupAggPlan, table: list) -> tuple:
+    """(pointers, leaf words) of a plane table for the kernel: each
+    plane's first array, and per plane LEAF_WORDS int64 words (kind, rle
+    run slots, second and third array; a plain cmp's third is its code
+    plane)."""
+    n = 7 + 3 * len(plan.col_ids)
+    code_at = {cid: table[n + j] for j, cid in enumerate(plan.code_cols)}
+    ptrs, words = [], np.zeros((n, LEAF_WORDS), np.int64)
+    for k, entry in enumerate(table[:n]):
+        arrays = _leaf_arrays(entry)
+        kind = enc.leaf_kind(entry)
+        ptrs.append(arrays[0].data_ptr())
+        words[k, 0] = _LEAF[kind]
+        if kind == "rle":
+            words[k, 1] = arrays[1].shape[1]
+        for j, a in enumerate(arrays[1:3]):
+            words[k, 2 + j] = a.data_ptr()
+        if k >= 7 and (k - 7) % 3 == 2 and kind is None:
+            code = code_at.get(plan.col_ids[(k - 7) // 3])
+            if code is not None:
+                words[k, 3] = code.data_ptr()
+    return ptrs, words
+
+
 # -- the wrapper --------------------------------------------------------------
 
 class Geometry(NamedTuple):
@@ -315,28 +406,59 @@ def launch_geometry(n_specs: int, n_rows: int, tile: int, spec: int,
     return Geometry(THREADS, blocks, chunk, chunks, smem)
 
 
-def _check(plan: GroupAggPlan, table, params: torch.Tensor) -> None:
+_INT_KINDS = (None, "const", "delta16", "rle")
+
+
+def _check(plan: GroupAggPlan, table, params: torch.Tensor) -> tuple:
+    """(B, R) of a valid plane table; raises on anything else."""
     device = params.device
-    if len(table) != 7 + 3 * len(plan.col_ids):
+    n = 7 + 3 * len(plan.col_ids)
+    if len(table) != n + len(plan.code_cols):
         raise ValueError("plane table does not match the plan's columns")
-    B, R = table[0].shape
+    B, R = enc.leaf_dims(table[4])
     if B * R > (1 << 31) - 1 - PIECE_ROWS:
         raise ValueError(f"{B * R} rows exceed the kernel's int32 row range")
     for k, t in enumerate(table):
-        cmp = k >= 7 and (k - 7) % 3 == 2
-        want = torch.int32 if (k < 4 or cmp) else torch.bool
-        if t.device != device:
-            raise ValueError(f"plane {k} on {t.device}, params on {device}")
-        if not t.is_contiguous():
-            raise ValueError(f"plane {k} is not contiguous")
-        if t.dtype != want:
-            raise ValueError(f"plane {k} is {t.dtype}, want {want}")
-        if tuple(t.shape[:2]) != (B, R) or t.dim() != (3 if cmp else 2):
-            raise ValueError(f"plane {k} has shape {tuple(t.shape)}")
-        if cmp and t.shape[2] not in (1, 2):
-            raise ValueError(f"plane {k}: {t.shape[2]} order planes")
+        if t is None:
+            cid = plan.code_cols[k - n] if k >= n else None
+            if cid is None or enc.leaf_kind(
+                    table[9 + 3 * plan.slot[cid]]) != "dict":
+                raise ValueError(f"plane {k} is missing")
+            continue
+        cmp = k >= 7 and k < n and (k - 7) % 3 == 2
+        flag = 4 <= k < 7 or (7 <= k < n and not cmp)
+        kind = enc.leaf_kind(t)
+        allowed = (("bits", None) if flag else
+                   _INT_KINDS + ("dict",) if cmp else
+                   _INT_KINDS if k < 4 else (None,))
+        if kind not in allowed:
+            raise ValueError(f"plane {k}: a {kind} leaf where the kernel "
+                             "takes none")
+        for a in _leaf_arrays(t):
+            if a.device != device:
+                raise ValueError(f"plane {k} on {a.device}, params on "
+                                 f"{device}")
+            if not a.is_contiguous():
+                raise ValueError(f"plane {k} is not contiguous")
+        if enc.leaf_dims(t) not in (None, (B, R)):
+            raise ValueError(f"plane {k} has dims {enc.leaf_dims(t)}")
+        if kind is None:
+            want = torch.bool if flag else torch.int32
+            if t.dtype != want:
+                raise ValueError(f"plane {k} is {t.dtype}, want {want}")
+            if t.dim() != (3 if cmp else 2):
+                raise ValueError(f"plane {k} has shape {tuple(t.shape)}")
+        elif kind in ("const", "rle") and \
+                _leaf_arrays(t)[-1].dtype != torch.int32:
+            raise ValueError(f"plane {k}: a {kind} leaf of "
+                             f"{_leaf_arrays(t)[-1].dtype}")
+        if cmp and plane_width(t) not in (1, 2):
+            raise ValueError(f"plane {k}: {plane_width(t)} order planes")
+        if k < 4 and kind is not None and plane_width(t) != 1:
+            raise ValueError(f"plane {k}: more than one plane")
     for p in plan.sig.preds:
-        if table[9 + 3 * plan.slot[p.col_id]].shape[2] < _PLANES[p.kind]:
+        if p.kind != "code" and plane_width(
+                table[9 + 3 * plan.slot[p.col_id]]) < _PLANES[p.kind]:
             raise ValueError(f"predicate on column {p.col_id} needs "
                              f"{_PLANES[p.kind]} order planes")
     if params.dtype != torch.int32 or params.dim() != 2 or \
@@ -346,6 +468,21 @@ def _check(plan: GroupAggPlan, table, params: torch.Tensor) -> None:
     if not 1 <= params.shape[0] <= 65535:
         raise ValueError(f"{params.shape[0]} specs; the kernel takes "
                          "1..65535")
+    return B, R
+
+
+def _check_launchable(plan: GroupAggPlan, table, n_rows: int) -> None:
+    """What the CUDA kernel needs beyond the function: 16-byte aligned
+    first arrays (it loads four rows of a plane at once) and a row count
+    that is a multiple of 4."""
+    if n_rows % 4:
+        raise ValueError(f"{n_rows} rows: the kernel takes a multiple of 4")
+    n = 7 + 3 * len(plan.col_ids)
+    for k, t in enumerate(table):
+        if t is None:
+            continue
+        if _leaf_arrays(t)[0].data_ptr() % 16:
+            raise ValueError(f"plane {k} is not 16-byte aligned")
 
 
 def grouped_aggregate(plan: GroupAggPlan, table: list[torch.Tensor],
@@ -355,7 +492,7 @@ def grouped_aggregate(plan: GroupAggPlan, table: list[torch.Tensor],
     (``plan.plane_table``). Launches the CUDA kernel for CUDA tensors,
     runs the plain version for CPU tensors, and raises for anything
     else."""
-    _check(plan, table, params)
+    B, R = _check(plan, table, params)
     device = params.device
     if device.type == "cpu":
         return grouped_aggregate_plain(plan, table, params)
@@ -364,9 +501,9 @@ def grouped_aggregate(plan: GroupAggPlan, table: list[torch.Tensor],
                          f"{device}")
     lib = _library()
     n_specs = params.shape[0]
-    flat_agg.check_launchable(table)
+    _check_launchable(plan, table, B * R)
     geo = launch_geometry(
-        n_specs, table[0].numel(), plan.tile_bytes, plan.spec_bytes,
+        n_specs, B * R, plan.tile_bytes, plan.spec_bytes,
         torch.cuda.get_device_properties(device).multi_processor_count,
         lambda smem: _occupancy(lib, len(plan.col_ids), smem))
     out = launch(lib, plan, table, params, geo.blocks, geo.smem_bytes)
@@ -384,14 +521,16 @@ def launch(lib: ctypes.CDLL, plan: GroupAggPlan, table: list[torch.Tensor],
     out = torch.empty((n_specs, NUM_BUCKETS + 1, plan.n_out),
                       dtype=torch.int64, device=device)
     desc = plan.descriptor(table)
-    ptrs = (ctypes.c_void_p * len(table))(*[t.data_ptr() for t in table])
+    B, R = enc.leaf_dims(table[4])
+    first, words = leaf_table(plan, table)
+    ptrs = (ctypes.c_void_p * len(first))(*first)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.group_agg_launch(
-            ptrs, len(table),
-            desc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), len(desc),
-            ctypes.c_void_p(params.data_ptr()), n_specs, table[0].numel(),
-            ctypes.c_void_p(out.data_ptr()), grid, smem,
+            ptrs, words.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+            len(first), desc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+            len(desc), ctypes.c_void_p(params.data_ptr()), n_specs, B * R,
+            R, ctypes.c_void_p(out.data_ptr()), grid, smem,
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"group_agg kernel launch failed ({rc}): "
@@ -425,10 +564,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of the kernel's C
     interface set."""
     lib.group_agg_launch.argtypes = [
-        ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int32), ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.group_agg_launch.restype = ctypes.c_int
     lib.group_agg_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.group_agg_occupancy.restype = ctypes.c_int
@@ -439,9 +578,25 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 # -- the plain version ----------------------------------------------------------
 
-def _flat(table: list[torch.Tensor]) -> list[torch.Tensor]:
-    n = table[0].numel()
-    return [t.reshape(n, -1) if t.dim() == 3 else t.reshape(n) for t in table]
+def _flat(plan: GroupAggPlan, table: list) -> list[torch.Tensor]:
+    """The table's planes decoded (``ops.encodings.decode_leaf``) and
+    flattened to rows: [n] or [n, P] (a dictionary ``cmp``: its two
+    prefix planes), each code column's code plane [n] after the
+    columns' planes."""
+    B, R = enc.leaf_dims(table[4])
+    n = B * R
+    ncol = 7 + 3 * len(plan.col_ids)
+    codes = {}
+    out = []
+    for k, t in enumerate(table[:ncol]):
+        d = enc.decode_leaf(t, B, R)
+        if enc.leaf_kind(t) == "dict":
+            codes[plan.col_ids[(k - 7) // 3]] = d[..., 2]
+            d = d[..., :2]
+        out.append(d.reshape(n, -1) if d.dim() == 3 else d.reshape(n))
+    for cid, t in zip(plan.code_cols, table[ncol:]):
+        out.append((codes[cid] if t is None else t).reshape(n))
+    return out
 
 
 def _wrap32(v: torch.Tensor) -> torch.Tensor:
@@ -488,11 +643,16 @@ def _row_masks(plan: GroupAggPlan, flat: list, p: list) -> dict:
         exists = exists | notnull[cid]
     m = exists
     pred = []
+    ncol = 7 + 3 * len(plan.col_ids)
     for ps, off in zip(plan.sig.preds, plan.lit_offsets):
         pred.append(m)
-        cmp = flat[9 + 3 * plan.slot[ps.col_id]]
+        if ps.kind == "code":  # the column's code plane, as an i32 plane
+            cmp = flat[ncol + plan.code_cols.index(ps.col_id)][:, None]
+        else:
+            cmp = flat[9 + 3 * plan.slot[ps.col_id]]
         m = m & notnull[ps.col_id] & _pred_mask(
-            ps.kind, ps.op, cmp, p[off:off + _PLANES[ps.kind]])
+            "i32" if ps.kind == "code" else ps.kind, ps.op, cmp,
+            p[off:off + _PLANES[ps.kind]])
     return {"in_range": in_range, "visible": visible, "alive": alive,
             "notnull": notnull, "pre": exists, "pred": pred, "m": m}
 
@@ -555,7 +715,7 @@ def grouped_aggregate_plain(plan: GroupAggPlan, table: list[torch.Tensor],
     """The kernel's function in torch ops, one spec at a time over every
     row: the same [N, NUM_BUCKETS + 1, S] int64 tables, byte for byte."""
     sig, kp, nb = plan.sig, plan.kp, NUM_BUCKETS
-    flat = _flat(table)
+    flat = _flat(plan, table)
     device = flat[4].device
     cmps = {cid: flat[9 + 3 * k] for k, cid in enumerate(plan.col_ids)}
     rows = torch.arange(flat[4].numel(), device=device)
@@ -634,8 +794,11 @@ def group_bytes(plan: GroupAggPlan, table: list[torch.Tensor],
       where the predicates before it passed and it is not NULL;
     - at matching rows: the group columns' planes where not NULL, and
       each sum's base and factor columns' planes where its inputs are all
-      non-NULL."""
-    flat = _flat(table)
+      non-NULL.
+
+    An encoded leaf is charged its own bytes a row (a bits leaf one bit,
+    delta16 two bytes a plane, rle and dictionary two, const nothing)."""
+    flat = _flat(plan, table)
     n = flat[4].numel()
     zero = torch.zeros(n, dtype=torch.bool, device=flat[4].device)
     need = {k: zero.clone() for k in ("in_range", "valid", "visible",
@@ -664,10 +827,33 @@ def group_bytes(plan: GroupAggPlan, table: list[torch.Tensor],
             for cid in ag.need_cols:
                 cmp_rows[cid] |= ok
     count = {k: int(v.sum()) for k, v in need.items()}
-    total = (count["in_range"] + 8 * count["valid"] + count["visible"]
-             + (1 + 8) * count["alive"])
+    rb = [row_bytes(t) for t in table]
+    total = (rb[4] * count["in_range"] + (rb[0] + rb[1]) * count["valid"]
+             + rb[5] * count["visible"]
+             + (rb[6] + rb[2] + rb[3]) * count["alive"])
     for k, cid in enumerate(plan.col_ids):
-        total += count["alive"] + int(set_rows[cid].sum())
-        total += 4 * table[9 + 3 * k].shape[-1] * int(cmp_rows[cid].sum())
-    return (total + params.numel() * 4
-            + params.shape[0] * (NUM_BUCKETS + 1) * plan.n_out * 8)
+        total += rb[7 + 3 * k] * count["alive"]
+        total += rb[8 + 3 * k] * int(set_rows[cid].sum())
+        total += rb[9 + 3 * k] * int(cmp_rows[cid].sum())
+    return int(total + params.numel() * 4
+               + params.shape[0] * (NUM_BUCKETS + 1) * plan.n_out * 8)
+
+
+def row_bytes(entry) -> float:
+    """Bytes a row of a plane table entry: a plain plane's element bytes
+    a row; an encoded leaf's per-row arrays (bits 1/8, delta16 2 a plane,
+    rle's and a dictionary's 2-byte index); a code plane read beside a
+    dictionary's codes (None) nothing."""
+    if entry is None:
+        return 0.0
+    k = enc.leaf_kind(entry)
+    if k is None:
+        return entry.element_size() * (entry.shape[2] if entry.dim() == 3
+                                       else 1)
+    if k == "bits":
+        return 1 / 8
+    if k == "const":
+        return 0.0
+    if k == "delta16":
+        return 2.0 * plane_width(entry)
+    return 2.0

@@ -39,6 +39,7 @@ import functools
 import torch
 
 from yugabyte_db_tpu_torch.ops import native, seg_fold
+from yugabyte_db_tpu_torch.ops.encodings import require_plain
 from yugabyte_db_tpu_torch.utils import planes as PL
 
 MAX_COLS = 16   # value columns one launch resolves; csrc/mvcc_resolve.cu
@@ -126,6 +127,7 @@ def resolve_view(run: dict, read_hi: int, read_lo: int, rexp_hi: int,
     ``const`` (``constant_planes``). Launches the CUDA kernel for CUDA
     tensors (one launch per ``MAX_COLS`` value columns), runs the plain
     version for CPU tensors, and raises for anything else."""
+    require_plain(run, "the resolve")
     B, R = _check(run, const)
     device = run["valid"].device
     if device.type == "cpu":

@@ -42,7 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from yugabyte_db_tpu_torch.ops import native
+from yugabyte_db_tpu_torch.ops import decode, encodings, native
 from yugabyte_db_tpu_torch.ops.scan import I32_MAX, resolve_windows
 
 # Fixed slots at the head of the int32 params row; predicate literal
@@ -163,7 +163,7 @@ def _unpack_literals(sig, iparams: torch.Tensor, fparams: torch.Tensor):
         if ps.kind == "f32":
             lits.append(fparams[:, foff])
             foff += 1
-        elif ps.kind == "i32":
+        elif ps.kind in ("i32", "code"):
             lits.append(iparams[:, off])
             off += 1
         else:
@@ -356,6 +356,7 @@ def gather_rows(sig: GatherSig, run: dict, iparams: torch.Tensor,
     the run's device -> int32 [G, M+1, W]. Launches the CUDA kernel for
     CUDA tensors, runs ``gather_rows_plain`` for CPU tensors, and raises
     for anything else."""
+    encodings.require_plain(run, "K7")
     device = run["valid"].device
     if iparams.dim() != 2:
         raise ValueError(f"iparams of shape {tuple(iparams.shape)}")
@@ -369,6 +370,9 @@ def gather_rows(sig: GatherSig, run: dict, iparams: torch.Tensor,
         return gather_rows_plain(sig, run, iparams, fparams)
     if device.type != "cuda":
         raise ValueError(f"gather_rows runs on cuda or cpu, not {device}")
+    # A promoted predicate compares its column's code plane as an i32
+    # column of its own (the output columns stay the run's).
+    sig, run = decode.lower_code_preds(sig, run)
     top, cols, widths = _check_run(sig, run)
     preds = _pred_table(sig)
     slot = {cs.col_id: i for i, cs in enumerate(sig.cols)}
@@ -411,12 +415,14 @@ def scan_candidates(sig, run: dict, iparams: torch.Tensor,
     tensors, and raises for anything else."""
     if sig.aggs:
         raise ValueError("scan_candidates is the row-scan form (aggs=())")
+    encodings.require_plain(run, "K9")
     device = run["valid"].device
     _check_params(iparams, fparams, device, None)
     if iparams.dim() != 1 or fparams.dim() != 1:
         raise ValueError("one params row: iparams [P], fparams [F]")
     if device.type == "cpu":
         return scan_candidates_plain(sig, run, iparams, fparams, n_windows)
+    sig, run = decode.lower_code_preds(sig, run)
     if device.type != "cuda":
         raise ValueError(f"scan_candidates runs on cuda or cpu, not {device}")
     top, cols, widths = _check_run(sig, run)
@@ -488,7 +494,7 @@ def _resolve_bytes(sig, with_preds: bool) -> tuple:
         for ps in sig.preds:
             key = (ps.col_id, ps.kind == "f32")
             planes[key] = max(planes.get(key, 0), 1 if ps.kind in (
-                "f32", "i32") else 2)
+                "f32", "i32", "code") else 2)
     total += 4 * sum(planes.values())
     return total, {c for (c, arith), n in planes.items() if not arith}
 

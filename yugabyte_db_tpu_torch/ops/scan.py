@@ -144,7 +144,7 @@ def resolve_windows(sig, run: dict, b0: torch.Tensor, row_lo: torch.Tensor,
     row_hi = row_hi.to(torch.int64)[:, None]
     ridx_g = ridx.expand(G, N)
 
-    cmp_w, arith_w, set_w, null_w = {}, {}, {}, {}
+    cmp_w, arith_w, code_w, set_w, null_w = {}, {}, {}, {}, {}
     for cs in sig.cols:
         c = run["cols"][cs.col_id]
         set_w[cs.col_id] = wp(c["set"])
@@ -152,6 +152,8 @@ def resolve_windows(sig, run: dict, b0: torch.Tensor, row_lo: torch.Tensor,
         cmp_w[cs.col_id] = wp(c["cmp"])
         if "arith" in c:
             arith_w[cs.col_id] = wp(c["arith"])
+        if "code" in c:  # a dictionary column's code plane
+            code_w[cs.col_id] = wp(c["code"])
 
     col_idx, col_has, col_notnull = {}, {}, {}
     if sig.flat:
@@ -209,19 +211,28 @@ def resolve_windows(sig, run: dict, b0: torch.Tensor, row_lo: torch.Tensor,
         for ps, lit in zip(sig.preds, lits):
             cid = ps.col_id
             result = result & col_notnull[cid] & _eval_pred(
-                ps, cmp_w.get(cid), arith_w.get(cid), col_idx[cid], lit)
+                ps, cmp_w.get(cid), arith_w.get(cid), col_idx[cid], lit,
+                code_w.get(cid))
     return {"result": result, "pre_pred": pre_pred, "start_idx": start_idx,
             "num_groups": num_groups, "ridx": ridx_g, "col_idx": col_idx,
             "col_has": col_has, "col_notnull": col_notnull, "cmp_w": cmp_w,
-            "arith_w": arith_w}
+            "arith_w": arith_w, "code_w": code_w}
 
 
-def _eval_pred(ps: PredSig, cmp, arith, idx, lit):
+def _eval_pred(ps: PredSig, cmp, arith, idx, lit, code=None):
     """Predicate mask over the merged values at ``idx`` [G, N] (the JAX
     package's ``_eval_pred``). For 'str' AND 'f32', a SUPERSET mask (ties
     count as maybe-match; the host verifies): f32 rounding is monotone
     but not injective, so equal-after-rounding comparisons are ambiguous
-    just like equal string prefixes. ``lit``: [G] (i32, f32) or [G, 2]."""
+    just like equal string prefixes. A promoted 'code' predicate compares
+    the dictionary column's code plane ``code`` exactly (the sorted
+    dictionary makes code order value order). ``lit``: [G] (i32, f32,
+    code) or [G, 2]."""
+    if ps.kind == "code":
+        v = torch.gather(code, 1, idx)
+        x = lit.to(torch.int64)[:, None]
+        return {"=": v == x, "!=": v != x, "<": v < x, "<=": v <= x,
+                ">": v > x, ">=": v >= x}[ps.op]
     if ps.kind == "f32":
         v = torch.gather(arith, 1, idx)
         x = lit.to(torch.float32)[:, None]
@@ -338,7 +349,7 @@ def _scalar_lits(sig, pred_literals, device) -> tuple:
         if ps.kind == "f32":
             out.append(torch.tensor([float(lit)], dtype=torch.float32,
                                     device=device))
-        elif ps.kind == "i32":
+        elif ps.kind in ("i32", "code"):
             out.append(torch.tensor([int(lit)], dtype=torch.int64,
                                     device=device))
         else:

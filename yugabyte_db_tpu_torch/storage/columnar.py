@@ -16,9 +16,12 @@ port's kernels in the differential tests.
 
 Also copied: the row path's host helpers (``key_vals_at``,
 ``key_col_arrays``) and the hashed-prefix bloom
-(``bloom_ready``, ``may_contain_hashed``). Not in this slice: the native
-one-pass flush (``build_from_memtable``) and the compressed plane
-encodings (``encoded_arrays`` returns None: runs upload plain planes).
+(``bloom_ready``, ``may_contain_hashed``), and the compressed plane
+encodings (``encoded_arrays``, ``_encode_planes``, ``_encode_dict_col``,
+with ``enc_dicts`` and ``enc_stats``): the tree is the JAX package's leaf
+for leaf, its dictionaries built over the distinct values rather than row
+by row. Not in this slice: the native one-pass flush
+(``build_from_memtable``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import numpy as np
 
 from yugabyte_db_tpu_torch.models.datatypes import DataType
 from yugabyte_db_tpu_torch.models.schema import Schema
+from yugabyte_db_tpu_torch.ops import encodings as enc
 from yugabyte_db_tpu_torch.storage.row_version import MAX_HT, RowVersion
 from yugabyte_db_tpu_torch.utils import planes as P
 
@@ -48,6 +52,35 @@ def _varlen_raw(v) -> bytes:
     if isinstance(v, (bytes, bytearray)):
         return bytes(v)
     return repr(v).encode("utf-8", "surrogateescape")
+
+
+def sorted_dictionary(vals: list):
+    """(sorted unique raw values, int64 codes of ``vals``) of a string or
+    binary column's non-NULL values, or None past ``DICT_MAX_VALUES``
+    distinct raw values: the JAX package's ``sorted(set(raws))`` and
+    ``code_of`` lookup, with the raw bytes taken once per distinct value
+    instead of once per row."""
+    raw_of = {v: _varlen_raw(v) for v in set(vals)}
+    uniq = sorted(set(raw_of.values()))
+    if len(uniq) > enc.DICT_MAX_VALUES:
+        return None
+    code_of_raw = {r: i for i, r in enumerate(uniq)}
+    code_of = {v: code_of_raw[r] for v, r in raw_of.items()}
+    return uniq, np.fromiter(map(code_of.__getitem__, vals), np.int64,
+                             len(vals))
+
+
+def dictionary_planes(uniq: list) -> tuple:
+    """The dictionary's prefix planes (dhi, dlo), padded to
+    ``pow2_bucket(len + 1)`` with the last (absent) slot zero."""
+    cap = enc.pow2_bucket(len(uniq) + 1)
+    dhi = np.zeros(cap, np.int32)
+    dlo = np.zeros(cap, np.int32)
+    if uniq:
+        hi, lo = P.varlen_prefix_planes(uniq)
+        dhi[:len(uniq)] = hi
+        dlo[:len(uniq)] = lo
+    return dhi, dlo
 
 
 @dataclass
@@ -115,6 +148,14 @@ class ColumnarRun:
         # True = inapplicable (range-partitioned keys present).
         self._hash_bloom = None
         self._kv_lock = threading.Lock()
+        # The compressed device plane tree, cached with the setting and
+        # column count it was built for; ``enc_dicts`` holds each
+        # dictionary column's sorted raw values (code -> value, what
+        # string predicates promote against) and ``enc_stats`` the tree's
+        # byte accounting, both set when the tree is built.
+        self._enc_cache: tuple | None = None
+        self.enc_dicts: dict[int, list[bytes]] = {}
+        self.enc_stats: dict | None = None
 
     # -- construction ------------------------------------------------------
     @staticmethod
@@ -313,10 +354,77 @@ class ColumnarRun:
             if longest > self.varlen_max_len.get(cid, 0):
                 self.varlen_max_len[cid] = longest
 
-    def encoded_arrays(self):
-        """The compressed device plane tree: not in this slice, so runs
-        always upload their plain planes."""
-        return None
+    def encoded_arrays(self, setting: str = "auto"):
+        """The compressed device plane tree for this run, or None when
+        ``setting`` (the engine's ``plane_encoding``) is ``"off"`` or the
+        run is empty: upload the plain planes instead. Encoded once per
+        run and setting, and cached."""
+        key = (setting, len(self.cols))
+        if self._enc_cache is not None and self._enc_cache[0] == key:
+            return self._enc_cache[1]
+        tree = None
+        if setting != "off" and self.num_versions:
+            tree = self._encode_planes()
+        self._enc_cache = (key, tree)
+        return tree
+
+    def _encode_planes(self):
+        """One stats pass per plane picks its encoding; every fallback is
+        per plane (a pathological column stays plain while its neighbours
+        compress)."""
+        tree = {
+            "valid": enc.encode_bool_plane(self.valid),
+            "group_start": enc.encode_bool_plane(self.group_start),
+            "tomb": enc.encode_bool_plane(self.tomb),
+            "live": enc.encode_bool_plane(self.live),
+            "ht_hi": enc.encode_int_plane(self.ht_hi),
+            "ht_lo": enc.encode_int_plane(self.ht_lo),
+            "exp_hi": enc.encode_int_plane(self.exp_hi),
+            "exp_lo": enc.encode_int_plane(self.exp_lo),
+            "cols": {},
+        }
+        self.enc_dicts = {}
+        for cid, col in self.cols.items():
+            entry = {"set": enc.encode_bool_plane(col.set_),
+                     "isnull": enc.encode_bool_plane(col.isnull)}
+            cmp_leaf = None
+            if col.dtype in (DataType.STRING, DataType.BINARY):
+                cmp_leaf = self._encode_dict_col(cid, col)
+            if cmp_leaf is None:
+                cmp_leaf = enc.encode_int_plane(col.cmp_planes)
+            entry["cmp"] = cmp_leaf
+            if col.arith is not None and col.dtype in (
+                    DataType.FLOAT, DataType.DOUBLE):
+                # Float arithmetic planes are the value itself and upload;
+                # every other numeric kind aggregates exactly from its
+                # order planes, so its arithmetic plane is left out.
+                entry["arith"] = enc.encode_float_plane(col.arith)
+            tree["cols"][cid] = entry
+        self.enc_stats = enc.tree_stats(tree)
+        return tree
+
+    def _encode_dict_col(self, cid: int, col: ColumnData):
+        """The sorted per-run dictionary leaf of a string or binary
+        column, or None (overflow, or no set non-NULL row): the caller
+        falls back to the prefix planes' int encodings. Codes order as
+        the values do, and the last (absent) slot decodes the zero
+        prefix planes that unset and NULL rows hold."""
+        if col.varlen is None:
+            return None
+        nn = col.set_ & ~col.isnull
+        bi, ri = np.nonzero(nn)
+        if bi.size == 0:
+            return None
+        vals = [col.varlen[b][r] for b, r in zip(bi.tolist(), ri.tolist())]
+        built = sorted_dictionary(vals)
+        if built is None:
+            return None
+        uniq, row_codes = built
+        dhi, dlo = dictionary_planes(uniq)
+        codes = np.full((self.B, self.R), dhi.shape[0] - 1, np.int64)
+        codes[bi, ri] = row_codes
+        self.enc_dicts[cid] = uniq
+        return enc.dict_leaf(codes, dhi, dlo)
 
     # -- host-side access (the delta overlay's dirty keys) ------------------
     def iter_entries(self):

@@ -26,11 +26,19 @@ The write side takes the JAX engine's routes:
   planes, the overlay state and the plan caches go with them. ``apply``
   flushes at ``memtable_flush_versions`` and then calls ``maybe_compact``.
 
+Runs keep their planes compressed (``plane_encoding`` "auto", the JAX
+flag's default): host-built and compacted runs upload their encoded
+tree, the flush writes string columns as dictionary codes (K12's codes
+route), the kernels that read plain planes read the run's side-car
+(``GpuRun.plain``: K10, ``ops.decode``), K8 decodes the encoded leaves
+itself, and a single-run aggregate's string predicates on a dictionary
+column are promoted to exact code compares (``_promote_code_preds``).
+
 Not in this slice: the residency budget and its gates, run pinning and
 the breaker's host re-serve (ROADMAP.md §1 item 11: every run is
-resident, and a device error raises), the dictionary-coded flush columns
-(item 8), the native one-pass flush and persistence (item 16), and
-``restore_entries`` / ``dump_entries`` / ``alter_schema`` (item 12).
+resident, and a device error raises), the native one-pass flush and
+persistence (item 16), and ``restore_entries`` / ``dump_entries`` /
+``alter_schema`` (item 12).
 
 The scans:
 
@@ -112,14 +120,20 @@ from yugabyte_db_tpu_torch.models.schema import Schema
 from yugabyte_db_tpu_torch.ops import (agg_fold, flat_agg, flat_fold,
                                       full_agg, group_agg, mvcc_resolve)
 from yugabyte_db_tpu_torch.ops import compact as dcompact
+from yugabyte_db_tpu_torch.ops import decode
+from yugabyte_db_tpu_torch.ops import encodings as enc
 from yugabyte_db_tpu_torch.ops import flush as dflush
 from yugabyte_db_tpu_torch.ops import scan as dscan
-from yugabyte_db_tpu_torch.ops.device_run import (DeviceRun, dtype_kind,
+from yugabyte_db_tpu_torch.ops.device_run import (PLANE_ENCODINGS,
+                                                  DeviceRun, dtype_kind,
                                                   padded_blocks,
-                                                  resolve_device)
+                                                  resolve_device,
+                                                  tree_nbytes)
 from yugabyte_db_tpu_torch.storage.columnar import (DEFAULT_ROWS_PER_BLOCK,
                                                     KEY_WORDS, BlockMeta,
-                                                    ColumnarRun, _varlen_raw)
+                                                    ColumnarRun, _varlen_raw,
+                                                    dictionary_planes,
+                                                    sorted_dictionary)
 from yugabyte_db_tpu_torch.storage.cpu_engine import (Aggregator,
                                                       RowMaterializer,
                                                       gc_versions)
@@ -138,6 +152,8 @@ from yugabyte_db_tpu_torch.storage.scan_spec import (ScanResult, ScanSpec,
 from yugabyte_db_tpu_torch.utils import planes as P
 
 PAD_BLOCKS = 64  # run block-axis padding, as the JAX engine pads
+# The plane_encoding option's default (the JAX flag's: "auto").
+DEFAULT_PLANE_ENCODING = "auto"
 # Compaction unions of at most this many rows take the retention mask's
 # numpy twin, larger ones K11 (the JAX engine's constant, set for its
 # TPU's link; PERF.md records where the crossover lies on the card).
@@ -151,15 +167,20 @@ class GpuRun:
     """A columnar run and its planes resident on the engine's device (no
     residency budget yet: a run stays resident until a compaction retires
     it). ``dev`` adopts planes the device flush made; without it the
-    run's host planes are uploaded. A multi-version run also holds its
-    view's constant planes, the sorted hybrid times of its versions and
-    expiries (the view keys), and its most recent resolved view."""
+    run's host planes are uploaded, encoded under ``setting`` ``"auto"``.
+    ``plain()`` is the plain tree the kernels that read plain planes take:
+    ``dev.arrays`` of a plain run, else K10's decode of the encoded tree
+    (``ops.decode``), made at first use and kept for the run's life. A
+    multi-version run also holds its view's constant planes, the sorted
+    hybrid times of its versions and expiries (the view keys), and its
+    most recent resolved view."""
 
     def __init__(self, crun: ColumnarRun, device: torch.device,
-                 dev: DeviceRun | None = None):
+                 dev: DeviceRun | None = None, setting: str = "auto"):
         self.crun = crun
         self.dev = dev if dev is not None else DeviceRun(
-            crun, PAD_BLOCKS, device=device)
+            crun, PAD_BLOCKS, device=device, setting=setting)
+        self._plain = None  # K10's decode of an encoded run
         self.flat = crun.max_group_versions <= 1
         self.host_index = None  # storage.host_page.HostPageIndex, lazy
         self._view = None  # (view key, view arrays)
@@ -180,10 +201,24 @@ class GpuRun:
         """The run whose planes these are."""
         return self
 
+    def plain(self) -> dict:
+        """The run's plain plane tree (its side-car when it is encoded)."""
+        if not self.dev.encoded:
+            return self.dev.arrays
+        if self._plain is None:
+            self._plain = decode.decode_tree(self.dev.arrays)
+        return self._plain
+
+    @property
+    def sidecar_nbytes(self) -> int:
+        """Device bytes of K10's side-car (0 until it is decoded)."""
+        return 0 if self._plain is None else tree_nbytes(self._plain)
+
     def retire(self) -> None:
         """The run left the run set (a compaction merged it): let go of
-        its device planes, its view and its host page index."""
-        self.dev = self._view = self.host_index = None
+        its device planes, its side-car, its view and its host page
+        index."""
+        self.dev = self._plain = self._view = self.host_index = None
         if not self.flat:
             self._const = None
 
@@ -207,8 +242,11 @@ class GpuRun:
             if holder is not None:
                 holder._view = None
             self._view = None
-            self._view = (key, mvcc_resolve.resolve_view(
-                self.dev.arrays, *read_planes, self._const))
+            # A dictionary column's code plane is resolved as a column of
+            # its own and comes back as the view column's code plane.
+            self._view = (key, decode.fold_code_columns(
+                mvcc_resolve.resolve_view(decode.code_columns(self.plain()),
+                                          *read_planes, self._const)))
             source._view_holder = weakref.ref(self)
         return self._view[1]
 
@@ -217,14 +255,17 @@ class _MaskedRun(GpuRun):
     """The delta overlay's primary with its dirty keys' rows cleared from
     ``valid`` (the JAX engine's ``_MaskedRun``). It shares the source's
     ``ColumnarRun``, view keys and constant view planes, and has a view
-    slot of its own: a masked view is never taken for the plain run's."""
+    slot of its own: a masked view is never taken for the plain run's.
+    Its planes are the source's plain tree with the masked ``valid``."""
 
     def __init__(self, source: GpuRun, valid: torch.Tensor):
         self.crun = source.crun
         self._source = source
         self.flat = source.flat
+        self._plain = None
         self.dev = SimpleNamespace(
-            B=source.dev.B, arrays=dict(source.dev.arrays, valid=valid))
+            B=source.dev.B, arrays=dict(source.plain(), valid=valid),
+            encoded=False, device=source.dev.device)
         self._view = None
         if not self.flat:
             self._hts, self._exps = source._hts, source._exps
@@ -235,16 +276,46 @@ class _MaskedRun(GpuRun):
         return self._source
 
 
-def scatter_invalid(valid: torch.Tensor, idx: np.ndarray) -> torch.Tensor:
+def masked_valid(primary: GpuRun, idx: np.ndarray) -> torch.Tensor:
+    """The primary's ``valid`` with the flattened rows ``idx`` cleared: K13
+    on the plain plane, or, where the resident leaf is bit-packed, K13b
+    (the JAX engine's ``_scatter_invalid_bits``): K10's decode of that one
+    leaf, then K13."""
+    leaf = primary.dev.arrays["valid"]
+    if enc.leaf_kind(leaf) == "bits":
+        B, R = enc.tree_dims(primary.dev.arrays)
+        (plane,), = decode.decode_leaves([leaf], B, R)
+        return scatter_invalid(plane, idx, copy=False)
+    return scatter_invalid(primary.plain()["valid"], idx)
+
+
+def scatter_invalid(valid: torch.Tensor, idx: np.ndarray,
+                    copy: bool = True) -> torch.Tensor:
     """K13 (the JAX engine's ``_scatter_invalid``) as a torch op: a copy of
     ``valid`` with the flattened rows ``idx`` (int64) cleared. The copy is
     made from the source every time, so a plane that an in-flight batch
     may read is never written. The JAX engine pads ``idx`` to a few bucket
     sizes to bound its compiles; nothing compiles here, so it goes as it
-    is."""
-    out = valid.clone()
+    is. ``copy`` False clears, in place, a plane no one else holds."""
+    out = valid.clone() if copy else valid
     out.view(-1).index_fill_(0, torch.from_numpy(idx).to(out.device), False)
     return out
+
+
+class _CodePred:
+    """A string predicate promoted to an exact int32 compare against a
+    dictionary column's code plane (the JAX engine's ``_CodePred``): the
+    run's dictionary is sorted, so the engine bisects the literal into a
+    code bound and the kernels compare codes, with no host verify round.
+    ``value`` is the code bound, ``op`` the (possibly rewritten) compare."""
+
+    __slots__ = ("column", "op", "value")
+    promoted = True
+
+    def __init__(self, column: str, op: str, value: int):
+        self.column = column
+        self.op = op
+        self.value = value
 
 
 class _OverlayState:
@@ -312,9 +383,10 @@ class _AggPrep:
     host: tuple | None = None  # its dirty keys' host partial, once folded
 
     def arrays(self) -> dict:
-        """The planes the fold reads: the run's, or its resolved view."""
+        """The plain planes the fold reads: the run's (its side-car when it
+        is encoded), or its resolved view."""
         if self.view_key is None:
-            return self.trun.dev.arrays
+            return self.trun.plain()
         return self.trun.view(self.view_key, self.read_planes)
 
 
@@ -335,6 +407,13 @@ class _GroupPrep:
 
     arrays = _AggPrep.arrays
 
+    def k8_arrays(self) -> dict:
+        """The planes K8 reads: a flat run's resident tree, encoded leaves
+        and all (K8 decodes them as it stages its tiles), or the view."""
+        if self.view_key is None:
+            return self.trun.dev.arrays
+        return self.arrays()
+
 
 class GpuStorageEngine(RowPath, StorageEngine):
     """Options: ``device`` (default ``cuda``; raises when there is no
@@ -346,15 +425,30 @@ class GpuStorageEngine(RowPath, StorageEngine):
     beside them goes through the delta overlay, and the rest over several
     sources through the row scan (``storage.gpu_rows``).
 
+    ``plane_encoding`` (``"auto"``, the default as in the JAX package, or
+    ``"off"``) is the JAX flag ``tpu_plane_encoding``'s counterpart: under
+    ``"auto"`` host-built and compacted runs upload their encoded tree,
+    flushed string columns are written as dictionary codes, and string
+    predicates of a single-run aggregate are promoted to exact code
+    compares (``stats()["code_promotions"]``); under ``"off"`` every run
+    uploads its plain planes, as before.
+
     ``stats()["flush_paths"]`` counts the flushes by route (``device``,
     ``host``) and ``stats()["compact_paths"]`` the compactions by the
     route of their retention mask (``k11``, ``twin``) or the host merge
     (``host``); ``last_flush`` / ``last_compact`` hold the host-clock
-    seconds of the last one's parts."""
+    seconds of the last one's parts. ``stats()["plane_encoding"]`` holds
+    the runs' bytes by encoding (the JAX engine's ``plane_stats``) and
+    the K10 side-cars' device bytes."""
 
     def __init__(self, schema: Schema, options: dict | None = None):
         super().__init__(schema, options)
         self.device = resolve_device(self.options.get("device"))
+        self.plane_encoding = self.options.get("plane_encoding",
+                                               DEFAULT_PLANE_ENCODING)
+        if self.plane_encoding not in PLANE_ENCODINGS:
+            raise ValueError(f"plane_encoding {self.plane_encoding!r}: want "
+                             f"one of {PLANE_ENCODINGS}")
         self.memtable = MemTable()
         self.runs: list[GpuRun] = []
         self.flushed_frontier_ht = 0
@@ -379,6 +473,8 @@ class GpuStorageEngine(RowPath, StorageEngine):
         self.agg_routes = {r: 0 for r in ("kernel", "flat", "full",
                                           "mv_kernel", "mv_flat", "mv_full")}
         self.full_launches = 0  # K5 launches
+        # Aggregates whose string predicates were promoted to code compares.
+        self.code_promotions = 0
         self.flush_paths = {"device": 0, "host": 0}
         self.compact_paths = {"k11": 0, "twin": 0, "host": 0}
         self.last_flush: dict = {}
@@ -414,7 +510,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
             crun = ColumnarRun.build(self.schema, entries,
                                      self.rows_per_block)
             t2 = time.perf_counter()
-            trun = GpuRun(crun, self.device)
+            trun = GpuRun(crun, self.device, setting=self.plane_encoding)
             self.last_flush = {"route": "host", "drain_s": t1 - t0,
                                "build_s": t2 - t1,
                                "upload_s": time.perf_counter() - t2}
@@ -504,10 +600,16 @@ class GpuStorageEngine(RowPath, StorageEngine):
                        for name in ("ht_hi", "ht_lo", "exp_hi", "exp_lo",
                                     "tomb", "live")}
         staged_tree["cols"] = {}
+        dict_cols = self._flush_dict_cols(staged, n)
         for cid, col in staged.cols.items():
             entry = {"set": up(col.set_[0, :n]),
-                     "isnull": up(col.isnull[0, :n]),
-                     "cmp": up(col.cmp_planes[0, :n])}
+                     "isnull": up(col.isnull[0, :n])}
+            if cid in dict_cols:
+                codes, dhi, dlo, _uniq = dict_cols[cid]
+                entry.update(codes=up(codes.view(np.int16)), dhi=up(dhi),
+                             dlo=up(dlo))
+            else:
+                entry["cmp"] = up(col.cmp_planes[0, :n])
             if col.arith is not None:
                 entry["arith"] = up(col.arith[0, :n])
             staged_tree["cols"][cid] = entry
@@ -535,9 +637,20 @@ class GpuStorageEngine(RowPath, StorageEngine):
             h = host["cols"][cid]
             col.set_ = h["set"][:B]
             col.isnull = h["isnull"][:B]
-            col.cmp_planes = h["cmp"][:B]
+            if cid in dict_cols:
+                # The host planes decode the codes through the dictionary
+                # (a numpy gather: what the kernels decode).
+                e = h["cmp"]["dict"]
+                codes = e["codes"][:B].view(np.uint16).astype(np.int64)
+                col.cmp_planes = np.ascontiguousarray(np.stack(
+                    [e["dhi"][codes], e["dlo"][codes]], axis=-1))
+            else:
+                col.cmp_planes = h["cmp"][:B]
             if col.arith is not None:
                 col.arith = h["arith"][:B]
+        # The run's dictionaries are the flush's (the ones its encoded
+        # tree would build): string predicates promote against them.
+        run.enc_dicts = {cid: d[3] for cid, d in dict_cols.items()}
 
         # Keys and row payloads stay on the host: the same packing.
         def scatter(dest, vals):
@@ -579,6 +692,34 @@ class GpuStorageEngine(RowPath, StorageEngine):
                                readback_s=t3 - t2, host_scatter_s=t4 - t3,
                                run_s=time.perf_counter() - t4)
         return trun
+
+    def _flush_dict_cols(self, staged, n: int) -> dict:
+        """The JAX engine's ``_flush_dict_cols``: under ``plane_encoding``
+        ``"auto"``, each string or binary column's dictionary over its
+        staged set non-NULL values, ``{cid: (codes [m] u16, dhi, dlo,
+        sorted raw values)}``, built as ``ColumnarRun._encode_dict_col``
+        builds a run's (same dictionary, same codes); a column past
+        ``DICT_MAX_VALUES`` values keeps its prefix planes."""
+        if self.plane_encoding == "off":
+            return {}
+        out = {}
+        m = staged.R
+        for cid, col in staged.cols.items():
+            if col.varlen is None:
+                continue
+            idxs = np.flatnonzero(col.set_[0, :n] & ~col.isnull[0, :n])
+            if idxs.size == 0:
+                continue
+            src = col.varlen[0]
+            built = sorted_dictionary([src[i] for i in idxs.tolist()])
+            if built is None:
+                continue
+            uniq, row_codes = built
+            dhi, dlo = dictionary_planes(uniq)
+            codes = np.full(m, dhi.shape[0] - 1, np.int64)
+            codes[idxs] = row_codes
+            out[cid] = (codes.astype(np.uint16)[:n], dhi, dlo, uniq)
+        return out
 
     # -- compaction ----------------------------------------------------------
     def compact(self, history_cutoff_ht: int = 0) -> None:
@@ -628,7 +769,8 @@ class GpuStorageEngine(RowPath, StorageEngine):
             (crun,) = result
         t0 = time.perf_counter()
         old_runs = self.runs
-        self.runs = [GpuRun(crun, self.device)] if crun is not None else []
+        self.runs = ([GpuRun(crun, self.device, setting=self.plane_encoding)]
+                     if crun is not None else [])
         self.last_compact["upload_s"] = time.perf_counter() - t0
         # Everything that pointed at the old runs goes: the overlay state,
         # the gather plans, the read planes, the runs' device planes.
@@ -727,13 +869,13 @@ class GpuStorageEngine(RowPath, StorageEngine):
             dev = self.device
             idx = np.concatenate(src_parts)[perm]
             runs_planes = tuple(
-                {"ht_hi": t.dev.arrays["ht_hi"],
-                 "ht_lo": t.dev.arrays["ht_lo"],
-                 "exp_hi": t.dev.arrays["exp_hi"],
-                 "exp_lo": t.dev.arrays["exp_lo"],
-                 "tomb": t.dev.arrays["tomb"],
-                 "live": t.dev.arrays["live"],
-                 "sets": tuple(t.dev.arrays["cols"][cid]["set"]
+                {"ht_hi": t.plain()["ht_hi"],
+                 "ht_lo": t.plain()["ht_lo"],
+                 "exp_hi": t.plain()["exp_hi"],
+                 "exp_lo": t.plain()["exp_lo"],
+                 "tomb": t.plain()["tomb"],
+                 "live": t.plain()["live"],
+                 "sets": tuple(t.plain()["cols"][cid]["set"]
                                for cid in col_ids)}
                 for t in self.runs)
             keep_dev = dcompact.resident_gc_mask(
@@ -878,7 +1020,31 @@ class GpuStorageEngine(RowPath, StorageEngine):
             "compact_paths": dict(self.compact_paths),
             "agg_routes": dict(self.agg_routes),
             "full_launches": self.full_launches,
+            "code_promotions": self.code_promotions,
+            "plane_encoding": self.plane_stats(),
         }
+
+    def plane_stats(self) -> dict:
+        """The JAX engine's ``plane_stats``: bytes per encoding kind as the
+        runs store them (a run's encoded tree's, once built; else its
+        plain planes') against the logical (plain-format) bytes they
+        replace, plus the K10 side-cars' device bytes on their own."""
+        by: dict[str, int] = {}
+        logical = 0
+        for t in self.runs:
+            st = t.crun.enc_stats
+            if st is not None:
+                for k, v in st["by_encoding"].items():
+                    by[k] = by.get(k, 0) + int(v)
+                logical += int(st["logical_bytes"])
+            else:
+                nb = _plain_run_nbytes(t.crun)
+                by["plain"] = by.get("plain", 0) + nb
+                logical += nb
+        return {"setting": self.plane_encoding, "by_encoding": by,
+                "encoded_bytes": sum(by.values()), "logical_bytes": logical,
+                "sidecar_device_bytes": sum(t.sidecar_nbytes
+                                            for t in self.runs)}
 
     # -- reads ---------------------------------------------------------------
     def scan(self, spec: ScanSpec) -> ScanResult:
@@ -918,7 +1084,9 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 continue
             self.agg_routes[prep.route] += 1
             if prep.route in ("full", "mv_full"):
-                sig = prep.sig
+                # K5 compares a promoted predicate's code plane as an i32
+                # column of its own.
+                sig = decode.lower_code_preds(prep.sig, {"cols": {}})[0]
                 plan = full_agg.make_plan(sig.aggs, sig.preds, sig.cols,
                                           sig.R, sig.K)
                 fulls.setdefault(plan, []).append((i, prep))
@@ -950,14 +1118,17 @@ class GpuStorageEngine(RowPath, StorageEngine):
         first = next(g[0] for g in (*kernels.values(), folds,
                                     *grouped.values(), *fulls.values())
                      if g)
-        arrays = first[1].arrays()
+        # The plain planes (an encoded run's side-car), unless K8 alone
+        # reads this source: K8 takes the resident tree itself.
+        arrays = (first[1].arrays() if kernels or folds or fulls
+                  or first[1].view_key is not None else None)
         pending = []
         for plan, group in grouped.items():
             params = torch.tensor(
                 [plan.param_row(p.row_lo, p.row_hi, p.read_planes, p.lits)
                  for _i, p in group], dtype=torch.int32).to(self.device)
             tables = group_agg.grouped_aggregate(
-                plan, plan.plane_table(arrays), params)
+                plan, plan.plane_table(group[0][1].k8_arrays()), params)
             pending.append(([tables], self._grouped_finish(plan, group,
                                                            results)))
         for plan, group in kernels.items():
@@ -977,7 +1148,8 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 *agg_fold.window_bounds(p.row_lo, p.row_hi, plan.R, plan.K,
                                         W), p.read_planes, p.lits)
                 for _i, p in group], np.int32)
-            ivec, fvec = full_agg.full_aggregate(plan, arrays, params)
+            ivec, fvec = full_agg.full_aggregate(
+                plan, decode.code_columns(arrays), params)
             if ivec.is_cuda:
                 self.full_launches += 1
             pending.append(([ivec, fvec], _full_finish(group, results)))
@@ -1038,6 +1210,48 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 exact.append(p)
         return exact, superset, host_only
 
+    def _promote_code_preds(self, trun: GpuRun, preds):
+        """The JAX engine's ``_promote_code_preds``: ``preds`` (superset
+        string predicates) as exact ``_CodePred`` compares against
+        ``trun``'s sorted per-run dictionaries, or None where any of them
+        cannot promote (encoding off, a column not dictionary-encoded on
+        this run, another operator) or the run's resident planes are
+        plain. A bisect translates each literal: '<' v -> code <
+        bisect_left, '<=' v -> code < bisect_right, '>' v -> code >=
+        bisect_right, '>=' v -> code >= bisect_left; '=' / '!=' take the
+        exact code, or -1 for a literal not in the dictionary (it matches
+        no set row: every fold ANDs the column's not-NULL mask)."""
+        dicts = trun.crun.enc_dicts
+        if not dicts or self.plane_encoding == "off" or \
+                not trun.crun.num_versions:
+            return None
+        out = []
+        for p in preds:
+            d = dicts.get(self._name_to_id[p.column])
+            if d is None or p.op not in ("=", "!=", "<", "<=", ">", ">="):
+                return None
+            raw = (p.value.encode("utf-8", "surrogateescape")
+                   if isinstance(p.value, str) else bytes(p.value))
+            if p.op in ("=", "!="):
+                i = bisect.bisect_left(d, raw)
+                code = i if i < len(d) and d[i] == raw else -1
+                out.append(_CodePred(p.column, p.op, code))
+            elif p.op == "<":
+                out.append(_CodePred(p.column, "<",
+                                     bisect.bisect_left(d, raw)))
+            elif p.op == "<=":
+                out.append(_CodePred(p.column, "<",
+                                     bisect.bisect_right(d, raw)))
+            elif p.op == ">":
+                out.append(_CodePred(p.column, ">=",
+                                     bisect.bisect_right(d, raw)))
+            else:  # >=
+                out.append(_CodePred(p.column, ">=",
+                                     bisect.bisect_left(d, raw)))
+        if not trun.dev.encoded:
+            return None  # the resident planes are plain
+        return out
+
     def _aggs_device_eligible(self, spec: ScanSpec) -> bool:
         """Every aggregate column must be a value column (key columns live
         in the encoded key), and strings only COUNT on the device."""
@@ -1078,6 +1292,16 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 spec, runs, mem_live, pred_split, aggregate, mem))
 
         if spec.is_aggregate:
+            if single and superset and not host_only:
+                # Dictionary-encoded string predicates promote to exact
+                # code compares: the aggregate stays a device fold instead
+                # of the gather and its host verify.
+                promoted = self._promote_code_preds(runs[0], superset)
+                if promoted is not None:
+                    exact = exact + promoted
+                    superset = []
+                    pred_split = (exact, superset, host_only)
+                    self.code_promotions += 1
             grouped = bool(spec.group_by) or any(a.expr is not None
                                                  for a in spec.aggregates)
             if single and grouped and not superset and not host_only:
@@ -1160,8 +1384,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 counts.append(n)
             idx = _row_spans(starts, counts)
             state = _OverlayState(
-                _MaskedRun(primary, scatter_invalid(
-                    primary.dev.arrays["valid"], idx)),
+                _MaskedRun(primary, masked_valid(primary, idx)),
                 rows, [e[0] for e in rows], {e[0]: e for e in rows}, idx,
                 ver0)
             self._overlay_cache = (runs, mem, ver0, state)
@@ -1218,8 +1441,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
             new_idx = _row_spans(starts, counts)
             if new_idx.size:
                 idx = np.concatenate([idx, new_idx])
-                masked = _MaskedRun(primary, scatter_invalid(
-                    primary.dev.arrays["valid"], idx))
+                masked = _MaskedRun(primary, masked_valid(primary, idx))
         return _OverlayState(masked, rows, keys, by_key, idx,
                              since + len(delta))
 
@@ -1273,7 +1495,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
         pred_sigs, lits = [], []
         for p in exact_preds:
             cid = self._name_to_id[p.column]
-            kind = self._kinds[cid]
+            kind = self._pred_kind(p)
             pred_sigs.append(dscan.PredSig(cid, kind, p.op))
             lits.append(agg_fold.pred_literal_host(kind, p.value))
         dev_aggs, lowering = agg_fold.lower_aggs(
@@ -1381,7 +1603,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
         pred_sigs, lits = [], []
         for p in exact_preds:
             cid = self._name_to_id[p.column]
-            kind = self._kinds[cid]
+            kind = self._pred_kind(p)
             pred_sigs.append(dscan.PredSig(cid, kind, p.op))
             lits.append(agg_fold.pred_literal_host(kind, p.value))
         sig = group_agg.GroupAggSig(
@@ -1505,6 +1727,18 @@ class GpuStorageEngine(RowPath, StorageEngine):
         return ScanResult(agg.column_names(), agg.results(), None, scanned)
 
 
+def _plain_run_nbytes(crun: ColumnarRun) -> int:
+    """A run's plain plane bytes (the JAX engine's ``_plain_run_nbytes``)."""
+    total = sum(a.nbytes for a in (
+        crun.valid, crun.group_start, crun.tomb, crun.live,
+        crun.ht_hi, crun.ht_lo, crun.exp_hi, crun.exp_lo))
+    for col in crun.cols.values():
+        total += col.set_.nbytes + col.isnull.nbytes + col.cmp_planes.nbytes
+        if col.arith is not None:
+            total += col.arith.nbytes
+    return total
+
+
 def _agg_name(a) -> str:
     return f"{a.fn}({a.column or '*'})"
 
@@ -1624,6 +1858,8 @@ def _tree_to_host(tree: dict) -> dict:
     """A plane tree's numpy copies (never a view of a device tensor, nor
     of a CPU one the run's device planes keep)."""
     def host(t):
+        if isinstance(t, dict):  # an encoded leaf
+            return {k: host(v) for k, v in t.items()}
         return t.numpy().copy() if t.device.type == "cpu" else t.cpu().numpy()
 
     out = {k: host(v) for k, v in tree.items() if k != "cols"}

@@ -77,19 +77,25 @@ class RowPath:
         return tuple(dscan.ColSig(c.col_id, self._kinds[c.col_id])
                      for c in self.schema.value_columns)
 
+    def _pred_kind(self, p) -> str:
+        """The device plane kind a predicate compares: ``"code"`` for a
+        promoted dictionary-code predicate, else its column's kind."""
+        if getattr(p, "promoted", False):
+            return "code"
+        return self._kinds[self._name_to_id[p.column]]
+
     def _pred_sigs_only(self, preds) -> tuple:
         return tuple(dscan.PredSig(self._name_to_id[p.column],
-                                   self._kinds[self._name_to_id[p.column]],
-                                   p.op) for p in preds)
+                                   self._pred_kind(p), p.op) for p in preds)
 
     def _pred_host_literals(self, preds):
         """Predicate literals -> (int32 plane list, f32 list), host values."""
         int_lits, f32_lits = [], []
         for p in preds:
-            kind = self._kinds[self._name_to_id[p.column]]
+            kind = self._pred_kind(p)
             if kind == "f32":
                 f32_lits.append(float(p.value))
-            elif kind == "i32":
+            elif kind in ("i32", "code"):
                 int_lits.append(int(p.value))
             elif kind == "i64":
                 hi, lo = P.i64_to_ordered_planes(
@@ -166,14 +172,14 @@ class RowPath:
                             apply_preds=apply_preds, flat=trun.flat)
         int_lits, f32_lits = self._pred_host_literals(preds)
         read = self._read_plane_ints(spec)
-        device = trun.dev.arrays["valid"].device
+        device = trun.dev.device
         w, n = w_first, 1
         while w <= w_last:
             n = min(n, w_last - w + 1)
             ip, fp = row_gather.pack_params(w, w + n - 1, row_lo, row_hi,
                                             read, int_lits, f32_lits)
             res, start, ng = row_gather.scan_candidates(
-                sig, trun.dev.arrays, torch.from_numpy(ip).to(device),
+                sig, trun.plain(), torch.from_numpy(ip).to(device),
                 torch.from_numpy(fp).to(device), n)
             res, start, ng = res.cpu().numpy(), start.cpu().numpy(), \
                 ng.cpu().numpy()
@@ -396,10 +402,10 @@ class RowPath:
                                   (st.trun, []))[1].append((pi, ri, ip, fp))
         dispatches = []
         for (sig, _tid), (trun, members) in by_sig.items():
-            device = trun.dev.arrays["valid"].device
+            device = trun.dev.device
             ip = torch.from_numpy(np.stack([m[2] for m in members]))
             fp = torch.from_numpy(np.stack([m[3] for m in members]))
-            out = row_gather.gather_rows(sig, trun.dev.arrays, ip.to(device),
+            out = row_gather.gather_rows(sig, trun.plain(), ip.to(device),
                                          fp.to(device))
             dispatches.append((members, out))
         return dispatches
