@@ -167,14 +167,22 @@ line is printed:
    of one Q1 spec, 8 Q1 specs at distinct cut-offs and read points, Q1
    grouped by tax and return flag past a block's slots, Q6) beside its
    bound; no Q1/Q6 spec may be re-served on the host. Then
-   1,000,000 rows and 1,000,000 zipfian one-field updates in one
+   500,000 rows and 500,000 zipfian one-field updates in one
    multi-version run: Q1 exact at the newest and a mid read point
    through the resolve and K8. Then K8's edges at 20,000 rows, each
    result against the port's host oracle and each launch against the
    plain version: NULL group values, a group column of more than 512
    values (a collision, re-served on the host), negative bases (the
    same), COUNT(col), an empty range, and 8 specs of distinct literals
-   and read points in one launch;
+   and read points in one launch; then ``group_enc_edges``: K8's encoded
+   build over lineitem edge tables whose leaves take every kind in every
+   staged role (bits flags; const, delta16 of one and two planes and rle
+   predicate, group and sum columns; dictionaries as predicate, group
+   column and promoted code predicate; delta16 hybrid times) at R = 64,
+   96 and 2048, a dictionary past the shared cap (read through the
+   read-only cache, as the launch reports) and a delta16 leaf whose
+   offsets are not 16-byte aligned (loaded, not copied); every K8
+   launch's reported shape must equal ``group_agg.launch_geometry``;
 11. ``phases_s`` (each phase's wall seconds), one JSON line listing every
    kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -195,12 +203,22 @@ kernels, then times this tree's resolve kernel against each other source
 of it (the same C interface) in turns on one card, on the mvcc run and
 the long-group planes (also with 20% of their groups cleared), each held
 byte for byte against the plain version (``resolve_ab`` lines), and
-exits. ``--group-ab OTHER.cu[,...]`` does the same for K8 on every case
-of ``k8_cases`` at 2,000,000 lineitem rows (``group_ab`` lines), each
-other source launched at the geometry of K8's first design (a 512-bucket
-table a block; ``pr6_geometry``), as the source of commit b104a1a is:
-``git show b104a1a:yugabyte_db_tpu_torch/csrc/group_agg.cu >
-build/k8_pr6.cu``. ``--rows`` builds the kernels, makes the flat and
+exits. ``--group-enc-ab OTHER.cu[,...]`` times this tree's K8 against
+other sources of it in turns on one card (``group_enc_ab`` lines): every
+``k8_cases`` case on the flushed SF1 lineitem (dictionary leaves: the
+encoded build), Q1, Q6 and a promoted Q1 on it compacted (every leaf
+kind), each beside the same planes uploaded plain (the plain build), and
+Q1 on a multi-version lineitem's view; ``--decode-ab OTHER.cu[,...]``
+does the same for K10 on the compact phase's merged run and the
+compacted SF1 lineitem (``decode_ab`` lines). Each call is held byte for
+byte against the plain version; a source whose C interface differs is
+called through the wrapper saved beside it as ``OTHER.py``: the first
+encoded design's sources are ``git show
+3550883:yugabyte_db_tpu_torch/csrc/group_agg.cu >
+build/ab/group_agg_enc_first.cu`` with ``ops/group_agg.py`` as
+``build/ab/group_agg_enc_first.py``, and ``csrc/decode.cu`` /
+``ops/decode.py`` as ``build/ab/decode_first.cu`` / ``.py``. ``--rows``
+builds the kernels, makes the flat and
 multi-version tables, runs the rows phase, applies the overlay phase's
 waves and runs the rows phase over several sources, and exits.
 ``--compact`` builds the kernels, makes the engine phase's table (its
@@ -1051,23 +1069,48 @@ class HistoryOracle:
             (r.columns[self.d], r.columns[self.a], r.columns[self.c])
             for r in single])
 
-    def merged(self, read_ht: int) -> tuple:
-        """``Oracle.arrays`` of the updated keys' rows at ``read_ht``."""
+    def merged(self, reads: list, part: int = 0, parts: int = 1) -> list:
+        """For each read point of ``reads``, ``Oracle.arrays`` of the rows
+        there of the ``part``-th of ``parts`` slices of the updated keys. A
+        key none of whose versions has a TTL merges to the same row at
+        every read point that sees the same versions: merged once for
+        each."""
+        from bisect import bisect_right
+
         from yugabyte_db_tpu_torch.storage.merge import merge_versions
 
-        merged = []
-        for key, versions in self.multi:
+        def row(key, versions, read_ht):
             m = merge_versions(key, versions, read_ht)
             d = m.get(self.d)
-            if d is not None:  # a non-NULL value: the row exists
-                merged.append((d, m.get(self.a), m.get(self.c)))
-        return Oracle.arrays(merged)
+            if d is None:  # a NULL value: the row does not exist
+                return None
+            return (d, m.get(self.a), m.get(self.c))
+
+        out = [[] for _ in reads]
+        n = len(self.multi)
+        for key, versions in self.multi[part * n // parts:
+                                        (part + 1) * n // parts]:
+            ttl = any(v.has_ttl for v in versions)
+            hts = sorted(v.ht for v in versions)
+            seen = {}
+            for j, rd in enumerate(reads):
+                if ttl:
+                    got = row(key, versions, rd)
+                else:
+                    c = bisect_right(hts, rd)
+                    if c not in seen:
+                        seen[c] = row(key, versions, rd)
+                    got = seen[c]
+                if got is not None:
+                    out[j].append(got)
+        return [Oracle.arrays(rows) for rows in out]
 
     def arrays(self, read_ht: int, merged: tuple | None = None) -> tuple:
-        """``Oracle.arrays`` of every row with a non-NULL d at
-        ``read_ht``."""
+        """``Oracle.arrays`` of every row with a non-NULL d at ``read_ht``
+        (``merged``: the updated keys' arrays, ``merge_reads``' when
+        None)."""
         if merged is None:
-            merged = self.merged(read_ht)
+            merged = self.merge_reads([read_ht])[0]
         vis = self.s_ht <= read_ht
         parts = zip(merged, (x[vis] for x in self.single))
         return tuple(np.concatenate(p) for p in parts)
@@ -1075,28 +1118,36 @@ class HistoryOracle:
     def at(self, read_ht: int, merged: tuple | None = None) -> Oracle:
         return Oracle(*self.arrays(read_ht, merged))
 
-    def at_reads(self, reads: list) -> dict:
-        """``at`` for every read point of ``reads``, the merges (pure
-        Python, no device) spread over ORACLE_PROCS forked processes."""
+    def merge_reads(self, reads: list) -> list:
+        """``merged`` at every read point of ``reads``, the updated keys
+        in ORACLE_PROCS slices, each merged (pure Python, no device) at
+        every read point in a forked process of its own."""
         import multiprocessing
 
         global _FORKED_HISTORY
+        jobs = [(list(reads), k, ORACLE_PROCS) for k in range(ORACLE_PROCS)]
         _FORKED_HISTORY = self
         try:
             with multiprocessing.get_context("fork").Pool(
                     ORACLE_PROCS) as pool:
-                merged = pool.map(_forked_merge, reads, chunksize=1)
+                done = pool.map(_forked_merge, jobs, chunksize=1)
         finally:
             _FORKED_HISTORY = None
-        return {rd: self.at(rd, m) for rd, m in zip(reads, merged)}
+        return [tuple(np.concatenate([part[j][i] for part in done])
+                      for i in range(5)) for j in range(len(reads))]
+
+    def at_reads(self, reads: list) -> dict:
+        """``at`` for every read point of ``reads`` (``merge_reads``)."""
+        return {rd: self.at(rd, m)
+                for rd, m in zip(reads, self.merge_reads(reads))}
 
 
 ORACLE_PROCS = 8  # processes that merge a history's read points
-_FORKED_HISTORY = None  # the history a forked merge reads (at_reads)
+_FORKED_HISTORY = None  # the history a forked merge reads (merge_reads)
 
 
-def _forked_merge(read_ht: int) -> tuple:
-    return _FORKED_HISTORY.merged(read_ht)
+def _forked_merge(job: tuple) -> list:
+    return _FORKED_HISTORY.merged(*job)
 
 
 def view_planes(view: dict) -> dict:
@@ -1962,43 +2013,75 @@ class SmokePred:
         return self.real(v)
 
 
+def merge_groups(schema, groups, read_ht: int, columns, part: int,
+                 parts: int) -> tuple:
+    """The ``part``-th of ``parts`` slices of a run's single-version and
+    multi-version key groups (``RunOracle.at_reads``' ``groups``) merged
+    at ``read_ht``: (exists of the singles, their values by column name,
+    exists of the others, their values by column name)."""
+    from yugabyte_db_tpu_torch.storage.merge import merge_versions
+
+    cid = {c.name: c.col_id for c in schema.value_columns}
+    _keys, _starts, (_idx, vs), multis = groups
+    vs = vs[part * len(vs) // parts:(part + 1) * len(vs) // parts]
+    multis = multis[part * len(multis) // parts:
+                    (part + 1) * len(multis) // parts]
+    # One version and no TTL: the merge's rule inline.
+    ok = [not v.tombstone and v.ht <= read_ht and
+          (v.liveness or any(x is not None for x in v.columns.values()))
+          for v in vs]
+    vals = {name: [v.columns.get(cid[name]) if o else None
+                   for v, o in zip(vs, ok)] for name in columns}
+    exists, mvals = [], {name: [] for name in columns}
+    for _i, key, versions in multis:
+        m = merge_versions(key, versions, read_ht)
+        exists.append(m.exists)
+        for name in columns:
+            mvals[name].append(m.get(cid[name]) if m.exists else None)
+    return ok, vals, exists, mvals
+
+
+_FORKED_GROUPS = None  # (schema, groups, columns) a forked merge reads
+
+
+def _forked_groups(job: tuple) -> tuple:
+    read_ht, part = job
+    schema, groups, columns = _FORKED_GROUPS
+    return merge_groups(schema, groups, read_ht, columns, part,
+                        ORACLE_PROCS)
+
+
 class RunOracle:
     """A run's key groups merged at one read point, from the run's own
     host rows (key, versions) with the port's ``merge_versions`` (a
     single version without a TTL merged inline, by the same rule) and
     ``RowMaterializer``: each group's key, first row, whether it exists,
     and its values by column name. ``key_vals``: each key's key-column
-    values as the generator wrote them (else decoded)."""
+    values as the generator wrote them (else decoded). ``merged``: the
+    groups' (exists, values by column name), ``merge_groups``' parts."""
 
     def __init__(self, schema, crun, groups, read_ht: int, columns,
-                 key_vals=None):
+                 key_vals=None, merged=None):
         from yugabyte_db_tpu_torch.storage.cpu_engine import RowMaterializer
-        from yugabyte_db_tpu_torch.storage.merge import merge_versions
 
         self.schema, self.crun, self.R = schema, crun, crun.R
         self.mat = RowMaterializer(schema)
         self.key_vals = key_vals
         self.key_pos = {c.name: j for j, c in enumerate(schema.key_columns)}
-        cid = {c.name: c.col_id for c in schema.value_columns}
         self.keys, self.starts, singles, multis = groups
+        if merged is None:
+            merged = [merge_groups(schema, groups, read_ht, columns, 0, 1)]
         exists = np.zeros(len(self.keys), bool)
-        self.vals = {}
-        # One version and no TTL: the merge's rule inline.
-        idx, vs = singles
-        ok = [not v.tombstone and v.ht <= read_ht and
-              (v.liveness or any(x is not None for x in v.columns.values()))
-              for v in vs]
-        exists[idx] = ok
         cols = {name: np.empty(len(self.keys), object) for name in columns}
+        one = np.asarray(singles[0], np.int64)
+        many = np.fromiter((i for i, _k, _v in multis), np.int64,
+                           len(multis))
+        exists[one] = [o for part in merged for o in part[0]]
+        exists[many] = [e for part in merged for e in part[2]]
         for name in columns:
-            c = cid[name]
-            cols[name][idx] = [v.columns.get(c) if o else None
-                               for v, o in zip(vs, ok)]
-        for i, key, versions in multis:
-            m = merge_versions(key, versions, read_ht)
-            exists[i] = m.exists
-            for name in columns:
-                cols[name][i] = m.get(cid[name]) if m.exists else None
+            cols[name][one] = [v for part in merged for v in part[1][name]]
+            cols[name][many] = [v for part in merged
+                                for v in part[3][name]]
         self.vals = {name: v.tolist() for name, v in cols.items()}
         self.exists = exists
         self.cum_exists = np.concatenate([[0], np.cumsum(self.exists)])
@@ -2008,7 +2091,12 @@ class RunOracle:
     def at_reads(cls, schema, crun, reads, columns, key_vals=None) -> list:
         """One oracle a read point of ``reads``, the run's key groups
         read once: every valid row's key and version in run order, a
-        group wherever the key changes."""
+        group wherever the key changes; each read point's merges (pure
+        Python, no device) in ORACLE_PROCS slices of the groups, spread
+        over as many forked processes."""
+        import multiprocessing
+
+        global _FORKED_GROUPS
         keys, versions, rows = [], [], []
         for b in range(crun.B):
             n = crun.blocks[b].num_valid
@@ -2031,8 +2119,17 @@ class RunOracle:
                   for i in np.nonzero(~(one & ~ttl))[0]]
         groups = (keys[starts].tolist(), rows[starts],
                   (single, versions[starts[single]].tolist()), multis)
-        return [cls(schema, crun, groups, rd, columns, key_vals)
-                for rd in reads]
+        jobs = [(rd, k) for rd in reads for k in range(ORACLE_PROCS)]
+        _FORKED_GROUPS = (schema, groups, tuple(columns))
+        try:
+            with multiprocessing.get_context("fork").Pool(
+                    ORACLE_PROCS) as pool:
+                parts = pool.map(_forked_groups, jobs, chunksize=1)
+        finally:
+            _FORKED_GROUPS = None
+        return [cls(schema, crun, groups, rd, columns, key_vals,
+                    parts[j * ORACLE_PROCS:(j + 1) * ORACLE_PROCS])
+                for j, rd in enumerate(reads)]
 
     def row(self, i: int, projection) -> tuple:
         key = self.keys[i]
@@ -3524,6 +3621,7 @@ def load_module(path):
     spec = importlib.util.spec_from_file_location(
         f"ab_{abs(hash(str(path)))}", path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # dataclasses look their module up
     spec.loader.exec_module(mod)
     return mod
 
@@ -3539,7 +3637,7 @@ def build_libs(kind: str, others: list) -> dict:
     native.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for k, other in enumerate(others):
-        lib = native.BUILD_DIR / f"lib{kind}-other{k}.so"
+        lib = native.BUILD_DIR / f"lib{kind}-other{k}-{Path(other).stem}.so"
         procs.append((other, lib, subprocess.Popen(
             [native._nvcc(), *native.NVCC_FLAGS, "-o", str(lib),
              str(Path(other).resolve())], stdout=subprocess.PIPE,
@@ -4453,20 +4551,12 @@ def full_ab(device, bw: float, rate: float, others: list) -> None:
     design's waits on its pageable uploads, so its calls stay one by
     one)."""
     import torch
-    from pathlib import Path
 
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.ops import full_agg
     from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
 
-    mods = {"A": full_agg}
-    for other, lib in build_libs("full_agg", others).items():
-        path = Path(other).with_suffix(".py")
-        mod = load_module(path if path.exists() else full_agg.__file__)
-        mod.native = SimpleNamespace(load_library=lambda _name, lib=lib: lib)
-        bound = mod._library.__wrapped__()
-        mod._library = lambda bound=bound: bound
-        mods[other] = mod
+    mods = other_modules("full_agg", full_agg, others)
     order = ["A", *others, *others[::-1], "A"]
     t0 = time.perf_counter()
     planes, reads = workload.flat_planes(FULL_BLOCKS, FULL_R, FULL_COLUMNS,
@@ -4516,8 +4606,8 @@ def full_ab(device, bw: float, rate: float, others: list) -> None:
 
 LINEITEM_ROWS = 6_001_215  # TPC-H SF1 (workload.SF1_ROWS)
 LINEITEM_R = 2048
-MV_LINEITEM_ROWS = 1_000_000
-MV_LINEITEM_UPDATES = 1_000_000
+MV_LINEITEM_ROWS = 500_000  # the multi-version lineitem: rows, updates
+MV_LINEITEM_UPDATES = 500_000
 TPCH_BATCH = 8      # bench.py:1003 bench_tpch: 10 batches of 8 Q1 specs,
 TPCH_BATCHES = 10   # depth 4, after 4 warm-up batches
 TPCH_DEPTH = 4
@@ -4645,18 +4735,58 @@ def k8_inputs(eng, specs: list) -> tuple:
 
 def k8_exact(plan, table, params) -> int:
     """K8 against its plain version on the same inputs, every output
-    byte for byte: 0, or the check fails."""
+    byte for byte, and the launch the library reports equal to
+    ``launch_geometry``'s: 0, or the check fails."""
     import torch
 
     from yugabyte_db_tpu_torch.ops import group_agg
 
     got = group_agg.grouped_aggregate(plan, table, params)
+    launched = group_agg.last_launch()
     want = group_agg.grouped_aggregate_plain(plan, table, params)
     torch.cuda.synchronize()
     err = int((got - want).abs().max())
     check(torch.equal(got, want), f"K8 != plain version (max |diff| {err}) "
                                   f"for {plan.sig.aggs}")
+    geo = group_agg.device_launch(group_agg._library(), plan, table,
+                                  params)[1]
+    check(launched == geo, f"K8 launched {launched}, launch_geometry says "
+                           f"{geo}")
     return err
+
+
+def k8_builds(plan, table, params) -> dict:
+    """K8's two encoded builds on the same inputs whatever ``plan_launch``
+    would pick: with the copies (``copy_layout``'s, at the geometry of
+    the copy build) and without, each byte for byte against the plain
+    version (or the check fails) and each reported launch equal to the
+    geometry it was given: {copies: geometry}."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+    from yugabyte_db_tpu_torch.ops import group_agg
+
+    lib = group_agg._library()
+    want = group_agg.grouped_aggregate_plain(plan, table, params)
+    sms = torch.cuda.get_device_properties(params.device).multi_processor_count
+    n_rows = int(np.prod(enc.leaf_dims(table[4])))
+    out = {}
+    for copies in (True, False):
+        layout = group_agg.copy_layout(plan, table, copies=copies)
+        build = group_agg.build_of(layout)
+        geo = group_agg.launch_geometry(
+            params.shape[0], n_rows, plan.tile_bytes, plan.spec_bytes, sms,
+            lambda smem: group_agg._occupancy(lib, len(plan.col_ids), smem,
+                                              build), layout)
+        got = group_agg.launch(lib, plan, table, params, geo, layout)
+        launched = group_agg.last_launch()
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K8's build {build} != plain version "
+                                      f"for {plan.sig.aggs}")
+        check(launched == geo, f"K8 launched {launched}, launch_geometry "
+                               f"says {geo}")
+        out[copies] = geo
+    return out
 
 
 def group_ops(plan, table, params) -> float:
@@ -4836,6 +4966,318 @@ def group_edges(device) -> dict:
     return out
 
 
+# K8's encoded edges: (variant, R) tables whose numeric order planes take
+# the variant's leaf kind (const data for "const"), at R = 64 and 96 (R
+# not a multiple of 128: each row's block from a division) and the
+# "delta16" one at R = 2048 too (a piece in one block).
+GROUP_ENC_EDGE_ROWS = 6_144  # whole blocks at every R below
+GROUP_ENC_VARIANTS = (("delta16", 64), ("delta16", 2048), ("rle", 96),
+                      ("plain", 64), ("const", 96), ("cap", 64))
+_NUMERIC = ("l_quantity", "l_extendedprice", "l_discount", "l_tax",
+            "l_shipdate")
+
+
+def group_enc_rows(schema, variant: str, seed: int) -> tuple:
+    """(rows, max_ht) of a lineitem edge table: runs of 16 rows of one
+    value (NULL runs of l_quantity, rows without liveness, TTLs on some
+    runs; l_extendedprice within a 16-bit span, so that its two order
+    planes take delta16 with the empty rows' zeros; whole blocks, so
+    that the hybrid-time planes take delta16); ``const``: every
+    numeric column the value of the rows past the run's end (0, and
+    2^31 for l_extendedprice); ``cap``: 600 distinct return flags (a
+    dictionary past the shared cap); ``plain``: DELETEs of 2% of the
+    keys too (tombstones)."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+
+    n = GROUP_ENC_EDGE_ROWS
+    rng = np.random.default_rng(seed)
+    cols = workload.generate_lineitem(n, seed=seed)
+    # Runs of 16 rows in the run's (key) order: each row takes the value
+    # of its run's first row.
+    keys = workload.lineitem_keys(schema, cols)
+    order = np.array(sorted(range(n), key=keys.__getitem__))
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n)
+    run = order[rank // 16 * 16]
+    for name in _NUMERIC:
+        cols[name] = cols[name][run]
+    # Prices from 2^31 on: the low order plane (the low word with its top
+    # bit flipped) then spans 0 (the rows past the run's end) to 60,000.
+    cols["l_extendedprice"] = (1 << 31) + cols["l_extendedprice"] % 60_000
+    if variant == "const":  # the values the rows past the end hold
+        for name in _NUMERIC:
+            cols[name] = np.full(n, 1 << 31 if name == "l_extendedprice"
+                                 else 0)
+    if variant == "cap":
+        cols["l_returnflag"] = np.array(
+            [f"r{v:03d}" for v in rng.integers(0, 600, n)])
+    rows, max_ht = workload.lineitem_rows(schema, cols)
+    qty = schema.column("l_quantity").col_id
+    null_runs = rng.random(n // 16 + 1) < 0.05
+    ttl_runs = rng.random(n // 16 + 1) < 0.05
+    for i, r in enumerate(rows):
+        if null_runs[rank[i] // 16] and variant != "const":
+            r.columns[qty] = None
+        if i % 10 == 3:
+            r.liveness = False
+        if ttl_runs[rank[i] // 16]:
+            r.expire_ht = max_ht - 50 + rank[i] // 16 % 100
+    if variant == "plain":
+        dead = rng.choice(n, n // 50, replace=False)
+        rows += [RowVersion(rows[i].key, ht=max_ht + 1 + k, tombstone=True)
+                 for k, i in enumerate(sorted(dead))]
+        max_ht += len(dead)
+    return rows, max_ht
+
+
+def group_enc_sigs(schema) -> list:
+    """(name, signature) of the edges' K8 signatures, between them every
+    staged role: a predicate on each numeric column (l_extendedprice's
+    two planes among them), on a dictionary's prefix planes and on its
+    codes; group columns of one and two planes and dictionaries; sums of
+    one- and two-plane bases with affine and postfix factors; COUNT(*)
+    and COUNT(col)."""
+    from yugabyte_db_tpu_torch.ops.group_agg import GAgg, GroupAggSig
+    from yugabyte_db_tpu_torch.ops.scan import ColSig, PredSig
+
+    c = {col.name: col.col_id for col in schema.value_columns}
+    kinds = {"l_extendedprice": "i64", "l_returnflag": "str",
+             "l_linestatus": "str"}
+    cols = tuple(ColSig(c[n], kinds.get(n, "i32")) for n in c)
+    qty, price, disc, tax, ship = (c[n] for n in _NUMERIC)
+    flag, status = c["l_returnflag"], c["l_linestatus"]
+
+    def sig(preds, group, aggs):
+        return GroupAggSig(512, cols, tuple(PredSig(*p) for p in preds),
+                           tuple(group), tuple(aggs))
+
+    disc_price = ("*", ("c", price), ("-", ("k", 100), ("c", disc)))
+    return [
+        ("q1", sig([(ship, "i32", "<=")], [(flag, 2), (status, 2)], [
+            GAgg("sum_prod", qty, 1, (), (qty,)),
+            GAgg("sum_prod", price, 2, (), (price,)),
+            GAgg("sum_prod", price, 2, (("-", ("k", 100), ("c", disc)),),
+                 (price, disc)),
+            GAgg("sum_prod", price, 2, (("-", ("k", 100), ("c", disc)),
+                                        ("+", ("k", 100), ("c", tax))),
+                 (price, disc, tax)),
+            GAgg("count", None)])),
+        ("narrow_groups", sig(
+            [(qty, "i32", ">="), (price, "i64", "<"), (tax, "i32", "!=")],
+            [(tax, 1), (disc, 1)], [
+                GAgg("sum_prod", qty, 1, (("*", ("c", disc),
+                                           ("+", ("c", tax), ("k", 1))),),
+                     (qty, disc, tax)),
+                GAgg("count", qty, 1, (), (qty,))])),
+        ("wide_group", sig(
+            [(flag, "i64", ">="), (status, "code", "="), (disc, "i32", "<")],
+            [(price, 2), (ship, 1)], [
+                GAgg("sum_prod", tax, 1, (("c", qty),), (tax, qty)),
+                GAgg("count", None)])),
+        ("expr", sig([(ship, "i32", ">"), (flag, "code", "!=")],
+                     [(status, 2)], [
+            GAgg("sum_prod", qty, 1, (disc_price[2],), (qty, disc)),
+            GAgg("count", status, 1, (), (status,))])),
+    ]
+
+
+def group_enc_params(plan, table, max_ht: int, n_rows: int, device):
+    """Three parameter rows: the whole run at the newest read point, a
+    mid read point over a middle range, and a late one past the TTLs;
+    literals drawn from the table's own values (a dictionary literal is
+    one of its entries, or a code)."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+    from yugabyte_db_tpu_torch.ops import group_agg
+
+    flat = group_agg._flat(plan, table)
+    rows = []
+    for k, (lo, hi, read) in enumerate(((0, n_rows, max_ht + 1),
+                                        (n_rows // 5, n_rows // 2,
+                                         max_ht - GROUP_ENC_EDGE_ROWS // 3),
+                                        (n_rows // 3, n_rows,
+                                         max_ht + 10_000))):
+        lits = []
+        for p in plan.sig.preds:
+            slot = plan.slot[p.col_id]
+            leaf = table[9 + 3 * slot]
+            if p.kind == "code":
+                lits.append(k % 2)
+            elif enc.leaf_kind(leaf) == "dict":
+                e = leaf["dict"]
+                at = k % max(1, e["dhi"].numel() - 1)
+                lits.append(np.array([int(e["dhi"][at]), int(e["dlo"][at])],
+                                     np.int32))
+            else:
+                v = flat[9 + 3 * slot][(lo + hi) // 2 + 7 * k]
+                lits.append(v.cpu().numpy().astype(np.int32)
+                            if v.numel() > 1 else int(v))
+        rows.append(plan.param_row(lo, hi, read_params(read), lits))
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def force_leaf(plane: np.ndarray, kind: str):
+    """``plane`` (a host order plane) as a ``kind`` leaf where the encoder
+    takes it, else None."""
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+
+    if kind == "plain":
+        return plane
+    return {"const": enc.encode_const, "delta16": enc.encode_delta16,
+            "rle": enc.encode_rle}[kind](plane)
+
+
+def group_enc_edges(device) -> dict:
+    """K8's encoded build on edge tables (GROUP_ENC_VARIANTS), every launch
+    byte for byte against its plain version and its reported launch equal
+    to ``launch_geometry``: each of ``group_enc_sigs`` over the variant's
+    encoded tree (flags bit-packed, strings dictionaries, the numeric
+    order planes of the variant's kind, the hybrid-time planes delta16
+    where they fit and the expiries rle where they fit), three specs a
+    launch. Then the roles each kind took must cover every staged role;
+    the ``cap`` table's 600-entry dictionary must be read through the
+    read-only cache and the status dictionary from shared memory; and a
+    delta16 leaf whose offsets are not 16-byte aligned must be loaded
+    from the run, not copied."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+    from yugabyte_db_tpu_torch.ops import group_agg
+    from yugabyte_db_tpu_torch.ops.device_run import (
+        DeviceRun, _encoded_padded_tree, padded_blocks)
+    from yugabyte_db_tpu_torch.storage import make_engine
+    from yugabyte_db_tpu_torch.storage.gpu_engine import PAD_BLOCKS
+
+    schema = workload.lineitem_schema()
+    sigs = group_enc_sigs(schema)
+    roles = set()
+    out = {}
+    for v, (variant, R) in enumerate(GROUP_ENC_VARIANTS):
+        rows, max_ht = group_enc_rows(schema, variant, 100 + v)
+        eng = make_engine("gpu", schema, {"rows_per_block": R,
+                                          "device": device})
+        eng.apply(rows)
+        flush(eng, "grouped")
+        crun = eng.runs[0].crun
+        tree = dict(crun.encoded_arrays("auto"))
+        tree["cols"] = {cid: dict(col) for cid, col in tree["cols"].items()}
+        for name, kinds in (("ht_lo", ("delta16",)),
+                            ("exp_hi", ("rle", "const")),
+                            ("exp_lo", ("rle", "delta16"))):
+            for kind in kinds:
+                leaf = force_leaf(getattr(crun, name), kind)
+                if leaf is not None:
+                    tree[name] = leaf
+                    break
+        want = "const" if variant == "const" else \
+            "delta16" if variant in ("delta16", "cap") else variant
+        for name in _NUMERIC:
+            cid = schema.column(name).col_id
+            leaf = force_leaf(crun.cols[cid].cmp_planes, want)
+            check(leaf is not None, f"K8 edge {variant}: {name} takes no "
+                                    f"{want} leaf")
+            tree["cols"][cid]["cmp"] = leaf
+        arrays = DeviceRun.from_reference_planes(
+            _encoded_padded_tree(tree, padded_blocks(crun.B, PAD_BLOCKS)),
+            R, device).arrays
+        n_rows = int(np.prod(enc.tree_dims(arrays)))
+        for label, sig in sigs:
+            plan = group_agg.make_plan(sig)
+            table = plan.plane_table(arrays)
+            params = group_enc_params(plan, table, max_ht, n_rows, device)
+            copy_geo = k8_builds(plan, table, params)[True]
+            err = k8_exact(plan, table, params)
+            geo = group_agg.last_launch()
+            check(geo.encoded == 1, f"K8 edge {variant}/{label}: plain build")
+            roles |= k8_roles(plan, table)
+            if variant == "cap":
+                flag = plan.slot[schema.column("l_returnflag").col_id]
+                status = plan.slot[schema.column("l_linestatus").col_id]
+                value = group_agg.value_cols(plan)
+                check(((geo.dict_cached >> flag) & 1) == (flag in value) and
+                      ((geo.dict_shared >> status) & 1) == (status in value),
+                      f"K8 edge cap/{label}: dictionaries {geo}")
+                if flag in value:
+                    roles.add(("dict", "cached"))
+            out[f"{variant}_R{R}_{label}"] = {
+                "max_abs_err": err, "buffers": geo.buffers,
+                "copy_buffers": copy_geo.buffers,
+                "raw_bytes": copy_geo.raw_bytes,
+                "dict_shared": geo.dict_shared,
+                "dict_cached": geo.dict_cached}
+        if variant == "delta16" and R == 64:
+            # l_quantity's offsets 2 bytes past a 16-byte boundary: loaded
+            # from the run with scalar loads, not copied.
+            cid = schema.column("l_quantity").col_id
+            doff = arrays["cols"][cid]["cmp"]["delta16"]["doff"]
+            moved = torch.empty(doff.numel() + 8, dtype=doff.dtype,
+                                device=device)[1:1 + doff.numel()]
+            moved.copy_(doff.reshape(-1))
+            odd = dict(arrays, cols=dict(arrays["cols"]))
+            odd["cols"][cid] = dict(odd["cols"][cid], cmp={"delta16": dict(
+                arrays["cols"][cid]["cmp"]["delta16"],
+                doff=moved.view(doff.shape))})
+            plan = group_agg.make_plan(sigs[0][1])
+            table = plan.plane_table(odd)
+            params = group_enc_params(plan, table, max_ht, n_rows, device)
+            err = k8_exact(plan, table, params[:1])
+            geo = k8_builds(plan, table, params)[True]
+            k = 9 + 3 * plan.slot[cid]
+            copied = (geo.copied_lo & 0xFFFFFFFF) | geo.copied_hi << 32
+            check(not (copied >> k) & 1 and geo.raw_bytes > 0,
+                  f"K8 edge: the unaligned delta16 leaf was copied ({geo})")
+            roles.add(("delta16", "loaded"))
+            out["delta16_unaligned"] = {"max_abs_err": err}
+        del eng, arrays
+    need = {(kind, role) for kind in ("const", "delta16", "delta16_wide",
+                                      "rle", "dict")
+            for role in ("pred", "group", "agg") if kind != "dict" or
+            role != "agg"} | {("dict", "code"), ("dict", "cached"),
+                              ("delta16", "loaded"), ("delta16", "time")} | {
+        ("bits", f) for f in ("valid", "tomb", "live", "set", "isnull")}
+    check(need <= roles, f"K8 edges miss roles {sorted(need - roles)}")
+    return out
+
+
+def k8_roles(plan, table) -> set:
+    """The (leaf kind, staged role) pairs a K8 launch over ``table``
+    stages: the bool planes' kinds, the hybrid-time planes', and each
+    predicate, group and sum column's."""
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+    from yugabyte_db_tpu_torch.ops import group_agg
+
+    roles = set()
+    for k, name in ((4, "valid"), (5, "tomb"), (6, "live")):
+        roles.add((enc.leaf_kind(table[k]) or "plain", name))
+    for slot in range(len(plan.col_ids)):
+        roles.add((enc.leaf_kind(table[7 + 3 * slot]) or "plain", "set"))
+        roles.add((enc.leaf_kind(table[8 + 3 * slot]) or "plain", "isnull"))
+    if any(enc.leaf_kind(table[k]) == "delta16" for k in range(4)):
+        roles.add(("delta16", "time"))
+
+    def kind_of(cid):
+        leaf = table[9 + 3 * plan.slot[cid]]
+        kind = enc.leaf_kind(leaf) or "plain"
+        if kind == "delta16" and group_agg.plane_width(leaf) == 2:
+            return "delta16_wide"
+        return kind
+
+    for p in plan.sig.preds:
+        roles.add((kind_of(p.col_id), "code" if p.kind == "code" else "pred"))
+    for cid, _planes in plan.sig.group_cols:
+        roles.add((kind_of(cid), "group"))
+    for a in plan.sig.aggs:
+        if a.kind != "count":
+            for cid in [a.col_id] + [n[1] for f in a.factors
+                                     for n in group_agg._nodes(f)
+                                     if n[0] == "c"]:
+                roles.add((kind_of(cid), "agg"))
+    return roles
+
+
 def grouped_phase(device, bw: float, rate: float) -> dict:
     """TPC-H lineitem at LINEITEM_ROWS (SF1) in one flat run, and at
     MV_LINEITEM_ROWS with MV_LINEITEM_UPDATES zipfian one-field updates in
@@ -4967,10 +5409,11 @@ def grouped_phase(device, bw: float, rate: float) -> dict:
     group_agg.grouped_aggregate.launches = 0
     row["edges"] = group_edges(device)
     print("grouped_edges " + json.dumps(row["edges"]))
+    t0 = time.perf_counter()
+    row["enc_edges"] = group_enc_edges(device)
+    print("grouped_enc_edges " + json.dumps(row["enc_edges"]))
+    print(f"grouped_enc_edges_s {time.perf_counter() - t0}")
     return row
-
-
-GROUP_AB_ROWS = 2_000_000  # lineitem rows of the --group-ab comparison
 
 
 def k8_cases(read: int, n_rows: int) -> dict:
@@ -4994,63 +5437,175 @@ def k8_cases(read: int, n_rows: int) -> dict:
             "q6": [workload.q6_spec(read)]}
 
 
-def pr6_geometry(lib, plan, n_specs: int, n_rows: int) -> tuple:
-    """(grid, shared bytes) of K8's first design (a 512-bucket table in
-    shared memory; specs on grid.x, each spec's rows in one wave of
-    ``group_agg_occupancy`` blocks on grid.y), for --group-ab."""
+def other_modules(kind: str, own, others: list) -> dict:
+    """This tree's wrapper module ``own`` as "A", then each other source
+    of kernel ``kind`` built (``build_libs``) and bound to the wrapper
+    saved beside it as ``OTHER.py`` (else a copy of ``own``), whose
+    ``native`` loads that library: {name: module}."""
+    from pathlib import Path
+
+    mods = {"A": own}
+    for other, lib in build_libs(kind, others).items():
+        path = Path(other).with_suffix(".py")
+        mod = load_module(path if path.exists() else own.__file__)
+        mod.native = SimpleNamespace(load_library=lambda _name, lib=lib: lib)
+        bound = mod._library.__wrapped__()
+        mod._library = lambda bound=bound: bound
+        mods[other] = mod
+    return mods
+
+
+def in_turns(mods: dict, others: list, run, held) -> dict:
+    """Each module's calls timed in turns A B1 .. Bn Bn .. B1 A
+    (``cuda_ms`` over KERNEL_REPS calls queued behind a parked stream),
+    each turn's first call held by ``held``: {name: [ms, ...]}."""
+    times = {name: [] for name in mods}
+    for name in ["A", *others, *others[::-1], "A"]:
+        held(name, run(name))
+        times[name].append(cuda_ms(lambda: run(name), KERNEL_REPS,
+                                   queue_ahead=True))
+    return times
+
+
+def group_enc_ab(device, bw: float, rate: float, others: list) -> None:
+    """This tree's K8 (A) against other sources of it (B1, ...; the first
+    encoded design's:
+    ``git show 3550883:yugabyte_db_tpu_torch/csrc/group_agg.cu >
+    build/ab/group_agg_enc_first.cu`` and its ``ops/group_agg.py`` beside it
+    as ``build/ab/group_agg_enc_first.py``), in turns on one card, each call
+    held byte for byte against the plain version: TPC-H lineitem at SF1
+    flushed (``k8_cases`` over its dictionary leaves: the encoded build),
+    then compacted (Q1, Q6 and a promoted Q1 over every leaf kind), each
+    beside the same planes uploaded plain (the plain build), and Q1 on
+    the view of a multi-version lineitem (MV_LINEITEM_ROWS rows and
+    updates: the plain build). Prints ``group_enc_ab`` lines (ms by
+    source, bytes and operations bounds, the build)."""
     import torch
 
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import encodings as enc
     from yugabyte_db_tpu_torch.ops import group_agg
+    from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
+    from yugabyte_db_tpu_torch.storage.gpu_engine import PAD_BLOCKS
 
-    n_sums = sum(1 for a in plan.sig.aggs if a.kind != "count")
-    n32 = 2 + 2 * plan.kp + len(plan.sig.aggs)
-    table = group_agg.NUM_BUCKETS * (16 * n_sums + 4 * n32)
-    per_sm = lib.group_agg_occupancy(len(plan.col_ids), table)
-    check(per_sm > 0, f"occupancy of the other K8: {per_sm}")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    slices = max(1, min(per_sm * sms // n_specs, -(-n_rows // 4096), 65535))
-    return slices, table
+    mods = other_modules("group_agg", group_agg, others)
 
-
-def group_ab(device, bw: float, others: list) -> None:
-    """This tree's K8 (A) against sources of K8's first design (B1, B2,
-    ..., each with the same C interface, launched at that design's
-    geometry, ``pr6_geometry``), on one card: every case of ``k8_cases``
-    over GROUP_AB_ROWS lineitem rows, each kernel held byte for byte
-    against the plain version, then timed in turns A B1 .. Bn Bn .. B1 A
-    (``cuda_ms``)."""
-    import torch
-
-    from yugabyte_db_tpu_torch.ops import group_agg
-
-    libs = {}
-    for other, lib in build_libs("group_agg", others).items():
-        libs[other] = group_agg.bind(lib)
-    ctx = lineitem_engine(device, GROUP_AB_ROWS)
-    order = ["A", *others, *others[::-1], "A"]
-    for label, specs in k8_cases(ctx.max_ht + 1, GROUP_AB_ROWS).items():
-        plan, table, params = k8_inputs(ctx.eng, specs)
+    def case(label, sig, arrays, params):
+        plans = {n: m.make_plan(sig) for n, m in mods.items()}
+        tables = {n: plans[n].plane_table(arrays) for n in mods}
+        plan, table = plans["A"], tables["A"]
         want = group_agg.grouped_aggregate_plain(plan, table, params)
-        runs = {"A": lambda: group_agg.grouped_aggregate(plan, table, params)}
-        for name, lib in libs.items():
-            geo = pr6_geometry(lib, plan, params.shape[0], table[4].numel())
-            runs[name] = (lambda lib=lib, geo=geo: group_agg.launch(
-                lib, plan, table, params, *geo))
-        times = {name: [] for name in runs}
-        for name in order:
-            got = runs[name]()
+
+        def held(name, got):
             torch.cuda.synchronize()
             check(torch.equal(got, want), f"K8 {name} on {label} != plain "
                                           f"version")
-            times[name].append(cuda_ms(runs[name], KERNEL_REPS,
-                                       queue_ahead=True))
+
+        times = in_turns(mods, others, lambda n: mods[n].grouped_aggregate(
+            plans[n], tables[n], params), held)
         nbytes = group_agg.group_bytes(plan, table, params)
         ops = group_ops(plan, table, params)
-        print("group_ab " + json.dumps({
-            "case": label, "rows": table[4].numel(), "specs": len(specs),
-            "groups": int((want[0, :group_agg.NUM_BUCKETS, 0] > 0).sum()),
+        print("group_enc_ab " + json.dumps({
+            "case": label, "card": nvidia_smi(), "rows": int(np.prod(
+                enc.leaf_dims(table[4]))), "specs": params.shape[0],
+            "build": group_agg.build_of(group_agg.device_launch(
+                group_agg._library(), plan, table, params)[0]),
             "bytes": nbytes, "bytes_ms": nbytes / bw * 1e3,
-            "ops_ms": ops / int32_ops_per_s() * 1e3, "ms": times}))
+            "ops_ms": ops / rate * 1e3, "ms": times}))
+
+    ctx = lineitem_engine(device, LINEITEM_ROWS)
+    eng, read = ctx.eng, ctx.max_ht + 1
+    trun = eng.runs[0]
+    off = DeviceRun(trun.crun, PAD_BLOCKS, device=device, setting="off")
+    for label, specs in k8_cases(read, LINEITEM_ROWS).items():
+        _plan, table, params = k8_inputs(eng, specs)
+        sig = eng._plan_scan(specs[0]).sig
+        case(f"flushed_{label}", sig, trun.dev.arrays, params)
+        case(f"flushed_{label}_plain_upload", sig, off.arrays, params)
+    del off
+    eng.compact(1)  # a cutoff before every version: nothing is dropped
+    trun = eng.runs[0]
+    off = DeviceRun(trun.crun, PAD_BLOCKS, device=device, setting="off")
+    for label, spec in (("q1", workload.q1_spec(read)),
+                        ("q6", workload.q6_spec(read)),
+                        ("q1_promoted", q1_promoted_spec(read))):
+        _plan, _table, params = k8_inputs(eng, [spec])
+        sig = eng._plan_scan(spec).sig
+        case(f"compacted_{label}", sig, trun.dev.arrays, params)
+        # The plain upload holds no code plane: the promoted Q1 reads the
+        # side-car's, as the engine's plain readers do.
+        case(f"compacted_{label}_plain_upload", sig,
+             trun.plain() if label == "q1_promoted" else off.arrays, params)
+    del ctx, eng, trun, off
+    torch.cuda.empty_cache()
+    ctx = lineitem_engine(device, MV_LINEITEM_ROWS, MV_LINEITEM_UPDATES)
+    spec = workload.q1_spec(ctx.max_ht + 1)
+    prep = ctx.eng._plan_scan(spec)
+    _plan, _table, params = k8_inputs(ctx.eng, [spec])
+    case("view", prep.sig, prep.k8_arrays(), params)
+
+
+def decode_ab(device, bw: float, others: list) -> None:
+    """This tree's K10 (A) against other sources of it (B1, ...; the first
+    design's:
+    ``git show 3550883:yugabyte_db_tpu_torch/csrc/decode.cu >
+    build/ab/decode_first.cu`` and its ``ops/decode.py`` as
+    ``build/ab/decode_first.py``), in turns on one card, each call held
+    byte for byte against the plain version: the compact phase's merged
+    run (the engine phase's table and COMPACT_WAVES waves, compacted at
+    the newest hybrid time through K11) and TPC-H lineitem at SF1
+    compacted with every version (every leaf kind). A call is the decode
+    a run's first read makes with that source's wrapper: ``decode_tree``
+    over the part table the run laid out when it was uploaded, where the
+    wrapper has ``plan_tree`` (this tree's), else a whole ``decode_tree``
+    (the first design lays out and copies its leaf table in each call).
+    This tree's launch alone is ``launch_ms``, its ``decode_tree`` that
+    lays out and uploads the table in the call ``tree_ms``. Prints
+    ``decode_ab`` lines (ms by source, the bytes bound)."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import decode
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+
+    mods = other_modules("decode", decode, others)
+
+    def case(label, arrays):
+        want = decode.decode_tree_plain(arrays)
+
+        def held(name, got):
+            torch.cuda.synchronize()
+            check(view_diff(got, want) == 0, f"K10 {name} on {label} != "
+                                             "plain version")
+
+        plans = {n: m.plan_tree(arrays) for n, m in mods.items()
+                 if hasattr(m, "plan_tree")}
+        times = in_turns(mods, others, lambda n: mods[n].decode_tree(
+            arrays, plans[n]) if n in plans else mods[n].decode_tree(arrays),
+            held)
+        plan = plans["A"]
+        out = torch.empty(plan.out_bytes, dtype=torch.uint8, device=device)
+        launch_ms = cuda_ms(lambda: decode.launch(plan, out), KERNEL_REPS,
+                            queue_ahead=True)
+        tree_ms = cuda_ms(lambda: decode.decode_tree(arrays), KERNEL_REPS,
+                          queue_ahead=True)
+        nbytes = decode.decode_bytes(arrays)
+        B, R = enc.tree_dims(arrays)
+        print("decode_ab " + json.dumps({
+            "case": label, "card": nvidia_smi(), "rows": B * R,
+            "parts": int(plan.rows.shape[0]), "items": plan.n_items,
+            "bytes": nbytes, "bound_ms": nbytes / bw * 1e3,
+            "launch_ms": launch_ms, "tree_ms": tree_ms, "ms": times}))
+
+    flat = flat_engine(device)
+    table = compact_table(device, flat)
+    del flat
+    table.eng.compact(table.max_ht)
+    case("merged_run", table.eng.runs[0].dev.arrays)
+    del table
+    torch.cuda.empty_cache()
+    ctx = lineitem_engine(device, LINEITEM_ROWS)
+    ctx.eng.compact(1)
+    case("lineitem_compacted", ctx.eng.runs[0].dev.arrays)
 
 
 def rows_ab(device, bw: float, rate: float, others: list) -> None:
@@ -5174,13 +5729,15 @@ def group_agg_entry(grp: dict) -> dict:
     k = grp["kernel"]
     usage = ptxas_usage("group_agg")
     check(all(u.get("spill_store_bytes", 0) == 0 and
-              u.get("spill_load_bytes", 0) == 0 for u in usage),
-          f"K8's build spills: {usage}")
+              u.get("spill_load_bytes", 0) == 0 and
+              u.get("stack_bytes", 0) == 0 for u in usage),
+          f"K8's builds spill or have a stack frame: {usage}")
     q1, mv = k["q1"], grp["mvcc"]
     err = max([r["max_abs_err"] for r in k.values()]
               + [r["max_abs_err"] for r in grp["encoded"]["k8"].values()]
               + [mv["kernel"]["max_abs_err"]]
-              + [e["max_abs_err"] for e in grp["edges"].values()])
+              + [e["max_abs_err"] for e in grp["edges"].values()]
+              + [e["max_abs_err"] for e in grp["enc_edges"].values()])
     launches = {"grouped": grp["launches"],
                 "grouped_mvcc": mv["launches"]["group_agg"],
                 "grouped_encoded": grp["encoded"]["launches"]["group_agg"]}
@@ -5310,44 +5867,67 @@ def plain_tree_diff(side: dict, plain: dict, B: int) -> int:
                      {k: w[k][:B] for k in shared})
 
 
-def measure_k10(arrays: dict, bw: float) -> dict:
+def measure_k10(arrays: dict, bw: float, plan) -> dict:
     """K10 over a run's encoded tree held byte for byte against its plain
     version, timed (CUDA events, calls queued) beside the plain version
     and its bound: the encoded leaves read once and the plain planes
-    written once (``decode_bytes``) over the bandwidth."""
-    from yugabyte_db_tpu_torch.ops import decode
-
-    launches0 = decode.decode_tree.launches
-    err = view_diff(decode.decode_tree(arrays),
-                    decode.decode_tree_plain(arrays))
-    check(err == 0, f"K10 differs from its plain version by {err}")
-    ms = cuda_ms(lambda: decode.decode_tree(arrays), KERNEL_REPS,
-                 queue_ahead=True)
-    plain_ms = cuda_ms(lambda: decode.decode_tree_plain(arrays), PLAIN_REPS)
-    nbytes = decode.decode_bytes(arrays)
-    return {"ms": ms, "plain_ms": plain_ms, "bytes": nbytes,
-            "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
-            "library_ms": None, "max_abs_err": err,
-            "launches": decode.decode_tree.launches - launches0}
-
-
-def k10_edges(device) -> dict:
-    """K10 on edge leaves, each byte for byte against the plain version
-    (untimed): every kind at [B, R] and [B, R, 2], float rle and const
-    carrying NaN and -0.0, leaves padded past their blocks (bits of
-    group_start with all-ones words), and a dictionary with absent rows
-    in its last slot."""
+    written once (``decode_bytes``) over the bandwidth. ``plan`` is the
+    part table the run laid out when it was uploaded (``GpuRun``), which
+    must equal ``plan_tree``'s. ``ms`` is the decode a run's first read
+    makes (``GpuRun.plain``: ``decode_tree`` over ``plan``, the output
+    allocated, one launch); ``launch_ms`` the launch alone into an
+    allocation made once; ``tree_ms`` a ``decode_tree`` without the run's
+    table, which lays one out and uploads it in the call."""
     import torch
 
     from yugabyte_db_tpu_torch.ops import decode
     from yugabyte_db_tpu_torch.ops import encodings as enc
 
-    rng = np.random.default_rng(31)
-    B, R = K10_EDGE_B, 64
+    check(plan is not None and plan.table is not None and np.array_equal(
+        plan.rows, decode.plan_tree(arrays).rows),
+          "the run holds no part table of its upload, or another one")
+    launches0 = decode.decode_tree.launches
+    err = view_diff(decode.decode_tree(arrays, plan),
+                    decode.decode_tree_plain(arrays))
+    check(err == 0, f"K10 differs from its plain version by {err}")
+    out = torch.empty(plan.out_bytes, dtype=torch.uint8,
+                      device=plan.table.device)
+    ms = cuda_ms(lambda: decode.decode_tree(arrays, plan), KERNEL_REPS,
+                 queue_ahead=True)
+    launch_ms = cuda_ms(lambda: decode.launch(plan, out), KERNEL_REPS,
+                        queue_ahead=True)
+    tree_ms = cuda_ms(lambda: decode.decode_tree(arrays), KERNEL_REPS,
+                      queue_ahead=True)
+    plain_ms = cuda_ms(lambda: decode.decode_tree_plain(arrays), PLAIN_REPS)
+    nbytes = decode.decode_bytes(arrays)
+    B, R = enc.tree_dims(arrays)
+    return {"ms": ms, "launch_ms": launch_ms, "tree_ms": tree_ms,
+            "plain_ms": plain_ms, "bytes": nbytes,
+            "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
+            "library_ms": None, "max_abs_err": err, "rows": B * R,
+            "parts": int(plan.rows.shape[0]), "items": plan.n_items,
+            "launches": decode.decode_tree.launches - launches0}
+
+
+# K10's edge geometries beside [K10_EDGE_B + 2, 64]: (blocks, R), each
+# decoded in one launch. R = 7 and 9 end parts inside a 16-byte unit
+# (tails) and put a unit's words in two blocks of R rows; (1, 1) is a part
+# of one unit; R = 2048 puts several work items in a block.
+K10_EDGE_GEOMETRIES = ((3, 7), (5, 9), (1, 1), (2, 2048))
+
+
+def k10_edge_leaves(rng, B: int, R: int) -> dict:
+    """Edge leaves of a [B, R] run, numpy (K10_EDGE_B's names): every kind
+    at [B, R] and [B, R, 2] (bits where R is a multiple of 32), float rle
+    and const carrying NaN and -0.0, a dictionary with absent rows in its
+    last slot, and one past the shared-memory cap (``dict_cached``)."""
+    from yugabyte_db_tpu_torch.ops import decode
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+
     row = np.arange(B * R).reshape(B, R)
+    run = R if R < 32 else 16  # rows a run (one a block at small R)
     nan_neg = np.array([np.nan, -0.0, 0.0, 1.5], np.float32)
     planes = {
-        "bits": (rng.random((B, R)) < 0.4, "bits"),
         "const": (np.full((B, R), -7, np.int32), "const"),
         "const2": (np.full((B, R, 2), 3, np.int32), "const"),
         "delta16": ((rng.integers(-(1 << 30), 1 << 30, (B, 1))
@@ -5356,31 +5936,48 @@ def k10_edges(device) -> dict:
         "delta16_2": ((rng.integers(-(1 << 30), 1 << 30, (B, 1, 2))
                        + rng.integers(0, 60_000, (B, R, 2))).astype(np.int32),
                       "delta16"),
-        "rle": ((row // 16 * 1_000_000).astype(np.int32), "rle"),
-        "rle2": (rng.integers(-9, 9, (B * R, 2))[(row // 8).reshape(-1)]
+        "rle": ((row // run * 1_000_000).astype(np.int32), "rle"),
+        "rle2": (rng.integers(-9, 9, (B * R, 2))[(row // run).reshape(-1)]
                  .reshape(B, R, 2).astype(np.int32), "rle"),
         "float_const_nan": (np.full((B, R), np.nan, np.float32), "const"),
         "float_const_negzero": (np.full((B, R), -0.0, np.float32), "const"),
-        "float_rle": (nan_neg[row // 16 % 4], "rle"),
+        "float_rle": (nan_neg[row // run % 4], "rle"),
     }
-    leaves, names = [], []
+    if R % 32 == 0:
+        planes["bits"] = (rng.random((B, R)) < 0.4, "bits")
+    encoders = {"bits": enc.encode_bits, "const": enc.encode_const,
+                "delta16": enc.encode_delta16, "rle": enc.encode_rle}
+    leaves = {}
     for name, (p, kind) in planes.items():
-        if p.dtype == bool:
-            leaf = enc.encode_bool_plane(p)
-        elif p.dtype == np.float32:
-            leaf = enc.encode_float_plane(p)
-        else:
-            leaf = enc.encode_int_plane(p)
-        check(enc.leaf_kind(leaf) == kind, f"K10 edge {name}: "
+        leaf = encoders[kind](p)
+        check(enc.leaf_kind(leaf) == kind, f"K10 edge {name} at [{B}, {R}]: "
                                            f"{enc.leaf_kind(leaf)}")
-        leaves.append(enc.pad_leaf(leaf, B + 2, ones=name == "bits"))
-        names.append(name)
+        leaves[name] = leaf
     codes = rng.integers(0, 5, (B, R)).astype(np.int64)
-    codes[1, 3:40] = 7  # absent rows: the last slot
-    dhi = np.array([1, 2, 3, 4, 5, 0, 0, 0], np.int32)
-    dlo = np.array([-1, -2, -3, -4, -5, 0, 0, 0], np.int32)
-    leaves.append(enc.pad_leaf(enc.dict_leaf(codes, dhi, dlo), B + 2))
-    names.append("dict_absent")
+    codes.reshape(-1)[3:40] = 7  # absent rows: the last slot
+    leaves["dict_absent"] = enc.dict_leaf(
+        codes, np.array([1, 2, 3, 4, 5, 0, 0, 0], np.int32),
+        np.array([-1, -2, -3, -4, -5, 0, 0, 0], np.int32))
+    big = 2 * decode.DICT_SMEM_CAP // 8  # entries past the cap
+    leaves["dict_cached"] = enc.dict_leaf(
+        rng.integers(0, big, (B, R)).astype(np.int64),
+        rng.integers(-(1 << 30), 1 << 30, big).astype(np.int32),
+        rng.integers(-(1 << 30), 1 << 30, big).astype(np.int32))
+    return leaves
+
+
+def k10_edges(device) -> dict:
+    """K10 on edge leaves, each byte for byte against the plain version
+    (untimed), one launch a geometry: ``k10_edge_leaves`` at [K10_EDGE_B,
+    64] padded past their blocks (bits of group_start with all-ones
+    words), then at each of K10_EDGE_GEOMETRIES; the dictionary past the
+    shared-memory cap must be read through the read-only cache."""
+    import torch
+
+    from yugabyte_db_tpu_torch.ops import decode
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+
+    rng = np.random.default_rng(31)
 
     def up(a):
         a = np.ascontiguousarray(a)
@@ -5388,27 +5985,41 @@ def k10_edges(device) -> dict:
             a = a.view(np.int16)
         return torch.from_numpy(a).to(device)
 
-    dev = [{k: {n: up(a) for n, a in leaf[k].items()}
-            for k in leaf} for leaf in leaves]
-    launches0 = decode.decode_tree.launches
-    got = decode.decode_leaves(dev, B + 2, R)
-    check(decode.decode_tree.launches - launches0 == 1,
-          "K10's edges are not one launch")
     out = {}
-    for name, leaf, planes_got in zip(names, dev, got):
-        want = enc.decode_leaf(leaf, B + 2, R)
-        if name == "dict_absent":
-            want = [want[..., :2].contiguous(), want[..., 2].contiguous()]
-            absent = torch.from_numpy(
-                leaves[-1]["dict"]["codes"].reshape(-1) == 7).to(device)
-            check(bool((want[0].reshape(-1, 2)[absent] == 0).all()),
-                  "the absent slot does not decode to (0, 0)")
-        else:
-            want = [want]
-        err = max(view_diff({"p": g}, {"p": w})
-                  for g, w in zip(planes_got, want))
-        check(err == 0, f"K10 edge {name} differs by {err}")
-        out[name] = {"max_abs_err": err}
+    for B, R in ((K10_EDGE_B, 64),) + K10_EDGE_GEOMETRIES:
+        leaves = k10_edge_leaves(rng, B, R)
+        if R == 64:  # padded past the run's blocks
+            leaves = {n: enc.pad_leaf(leaf, B + 2, ones=n == "bits")
+                      for n, leaf in leaves.items()}
+            B += 2
+        names = list(leaves)
+        dev = [{k: {n: up(a) for n, a in leaf[k].items()} for k in leaf}
+               for leaf in leaves.values()]
+        plan = decode.plan_leaves(dev, B, R)
+        pair = [r for r in plan.rows if r[0] == decode._KIND["pair"]]
+        check([int(r[6]) >= 0 for r in pair] == [True, False],
+              "K10's dictionaries: the small one in shared memory, the "
+              "one past the cap through the cache")
+        launches0 = decode.decode_tree.launches
+        got = decode.decode_leaves(dev, B, R, plan)
+        check(decode.decode_tree.launches - launches0 == 1,
+              "K10's edges are not one launch")
+        for name, leaf, planes_got in zip(names, dev, got):
+            want = enc.decode_leaf(leaf, B, R)
+            if enc.leaf_kind(leaf) == "dict":
+                want = [want[..., :2].contiguous(), want[..., 2].contiguous()]
+            else:
+                want = [want]
+            if name == "dict_absent":
+                absent = torch.from_numpy(
+                    leaves[name]["dict"]["codes"].reshape(-1) == 7).to(device)
+                check(bool((want[0].reshape(-1, 2)[absent] == 0).all()),
+                      "the absent slot does not decode to (0, 0)")
+            err = max(view_diff({"p": g}, {"p": w})
+                      for g, w in zip(planes_got, want))
+            check(err == 0, f"K10 edge {name} at [{B}, {R}] differs by "
+                            f"{err}")
+            out[f"{name}_{B}x{R}"] = {"max_abs_err": err}
     return out
 
 
@@ -5436,7 +6047,7 @@ def encoded_compacted(eng, updates: list, oracles: dict, reads: list,
     out = {"versions": trun.crun.num_versions, "stats": stats,
            "valid_kind": enc.leaf_kind(trun.dev.arrays["valid"])}
     check(out["valid_kind"] == "bits", "the compacted run's valid is plain")
-    k10 = measure_k10(trun.dev.arrays, bw)
+    k10 = measure_k10(trun.dev.arrays, bw, trun._decode_plan)
     off = DeviceRun(trun.crun, PAD_BLOCKS, device=device, setting="off")
     k10["off_upload_max_abs_err"] = plain_tree_diff(
         trun.plain(), off.arrays, trun.crun.B)
@@ -5659,6 +6270,10 @@ def grouped_encoded(ctx, device, bw: float, rate: float) -> dict:
                            "plain_upload": off.nbytes}
     del off
     torch.cuda.empty_cache()
+    # K10 over the compacted tree (every leaf kind at SF1), timed.
+    out["k10"] = measure_k10(trun.dev.arrays, bw, trun._decode_plan)
+    print("encoded_k10_lineitem " + json.dumps(out["k10"]))
+    torch.cuda.empty_cache()
     out["s"] = time.perf_counter() - t0
     print("encoded_lineitem " + json.dumps(
         {k: v for k, v in out.items() if k != "k8"}))
@@ -5667,10 +6282,19 @@ def grouped_encoded(ctx, device, bw: float, rate: float) -> dict:
 
 def decode_entry() -> dict:
     """The kernels line's K10 entry: K10 over the compact phase's merged
-    run, its launches on the main paths (the compacted run's first reads,
-    the overlay's K13b, the encoded multi-version run)."""
+    run (and over the compacted SF1 lineitem beside it), its launches on
+    the main paths (the compacted run's first reads, the overlay's K13b,
+    the encoded multi-version run), and the build's registers and stack
+    (no spill, no stack frame)."""
+    usage = ptxas_usage("decode")
+    check(all(u.get("spill_store_bytes", 0) == 0 and
+              u.get("spill_load_bytes", 0) == 0 and
+              u.get("stack_bytes", 0) == 0 for u in usage),
+          f"K10's build spills or has a stack frame: {usage}")
     comp = ENCODED["compacted"]["k10"]
-    err = max([comp["max_abs_err"], comp["off_upload_max_abs_err"]]
+    line = ENCODED["lineitem"]["k10"]
+    err = max([comp["max_abs_err"], comp["off_upload_max_abs_err"],
+               line["max_abs_err"]]
               + [e["max_abs_err"] for e in comp["edges"].values()])
     return {"name": "decode", "route": "cuda",
             "source": "yugabyte_db_tpu_torch/csrc/decode.cu",
@@ -5682,7 +6306,13 @@ def decode_entry() -> dict:
             "bound_by": "bytes", "library_ms": None,
             "library_note": "no single PyTorch call decodes a run's leaf "
                             "table",
-            "bytes": comp["bytes"]}
+            "bytes": comp["bytes"], "launch_ms": comp["launch_ms"],
+            "tree_ms": comp["tree_ms"],
+            "lineitem_ms": line["ms"], "lineitem_bound_ms": line["bound_ms"],
+            "lineitem_launch_ms": line["launch_ms"],
+            "lineitem_plain_ms": line["plain_ms"],
+            "lineitem_bytes": line["bytes"],
+            "ptxas": usage if usage else "not measured"}
 
 
 def encoded_alone(device, bw: float, rate: float) -> None:
@@ -5737,8 +6367,11 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--resolve-ab":
         resolve_ab(device, bw, sys.argv[2].split(","))
         return 0
-    if len(sys.argv) == 3 and sys.argv[1] == "--group-ab":
-        group_ab(device, bw, sys.argv[2].split(","))
+    if len(sys.argv) == 3 and sys.argv[1] == "--group-enc-ab":
+        group_enc_ab(device, bw, rate, sys.argv[2].split(","))
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == "--decode-ab":
+        decode_ab(device, bw, sys.argv[2].split(","))
         return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--rows-ab":
         rows_ab(device, bw, rate, sys.argv[2].split(","))

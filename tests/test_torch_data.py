@@ -249,22 +249,28 @@ def build_run(side, schema, rows, rows_per_block: int):
 
 
 @contextlib.contextmanager
-def plain_planes():
-    """The JAX package's runs upload plain (unencoded) planes inside, and
-    the port's engines made inside default to ``plane_encoding`` "off":
-    both packages run the plain deployment."""
+def plane_encoding(setting: str):
+    """The JAX package's runs upload under ``tpu_plane_encoding``
+    ``setting`` inside, and the port's engines made inside default to
+    ``plane_encoding`` ``setting``: both packages run one deployment
+    ("off": plain planes; "auto": each package's default, encoded)."""
     from yugabyte_db_tpu.utils.flags import FLAGS
     from yugabyte_db_tpu_torch.storage import gpu_engine
 
     old = FLAGS.get("tpu_plane_encoding")
     old_port = gpu_engine.DEFAULT_PLANE_ENCODING
-    FLAGS.set("tpu_plane_encoding", "off")
-    gpu_engine.DEFAULT_PLANE_ENCODING = "off"
+    FLAGS.set("tpu_plane_encoding", setting)
+    gpu_engine.DEFAULT_PLANE_ENCODING = setting
     try:
         yield
     finally:
         FLAGS.set("tpu_plane_encoding", old)
         gpu_engine.DEFAULT_PLANE_ENCODING = old_port
+
+
+def plain_planes():
+    """Both packages run the plain deployment (``plane_encoding("off")``)."""
+    return plane_encoding("off")
 
 
 def reference_planes(jax_crun, window_blocks: int) -> dict:

@@ -246,6 +246,146 @@ def test_k10_plain_version_is_decode_run_and_the_plain_upload():
         assert decode.decode_bytes(enc_arrays) > 0
 
 
+def k10_leaves(rng, B: int, R: int) -> dict:
+    """Numpy leaves of a [B, R] run for K10's partition: every kind at
+    [B, R] and [B, R, 2] (bits where R is a multiple of 32), floats, a
+    dictionary with absent rows and one past K10's shared cap."""
+    row = np.arange(B * R).reshape(B, R)
+    run = R if R < 32 else 16
+    leaves = {
+        "const": j_enc.encode_int_plane(np.full((B, R), -7, np.int32)),
+        "const2": j_enc.encode_int_plane(np.full((B, R, 2), 3, np.int32)),
+        "delta16": j_enc.encode_delta16(
+            (rng.integers(-(1 << 30), 1 << 30, (B, 1))
+             + rng.integers(0, 60_000, (B, R))).astype(np.int32)),
+        "delta16_2": j_enc.encode_delta16(
+            (rng.integers(-(1 << 30), 1 << 30, (B, 1, 2))
+             + rng.integers(0, 60_000, (B, R, 2))).astype(np.int32)),
+        "rle": j_enc.encode_rle((row // run * 1_000_000).astype(np.int32)),
+        "rle2": j_enc.encode_rle(rng.integers(-9, 9, (B * R, 2))[
+            (row // run).reshape(-1)].reshape(B, R, 2).astype(np.int32)),
+        "float_rle": j_enc.encode_rle(
+            np.array([np.nan, -0.0, 0.0, 1.5], np.float32)[row // run % 4]),
+        "dict": j_enc.dict_leaf(rng.integers(0, 4, (B, R)),
+                                np.array([5, 6, 7, 0], np.int32),
+                                np.array([-1, -2, -3, 0], np.int32)),
+        "dict_big": j_enc.dict_leaf(
+            rng.integers(0, 2048, (B, R)),
+            rng.integers(-9, 9, 2048).astype(np.int32),
+            rng.integers(-9, 9, 2048).astype(np.int32)),
+    }
+    if R % 32 == 0:
+        leaves["bits"] = j_enc.encode_bool_plane(rng.random((B, R)) < 0.4)
+    for name, leaf in leaves.items():
+        assert j_enc.leaf_kind(leaf) == name.split("_")[0].rstrip("2") or \
+            name == "float_rle", name
+    return leaves
+
+
+def item_units(first: list, units, item: int) -> tuple:
+    """The part and the units [lo, hi) that work item ``item`` decodes,
+    as csrc/decode.cu finds them (the last part whose first item is at or
+    before it)."""
+    part = max(p for p in range(len(units)) if first[p] <= item)
+    lo = (item - first[part]) * decode.ITEM_UNITS
+    return part, lo, min(lo + decode.ITEM_UNITS, int(units[part]))
+
+
+# (blocks, R, padded blocks): a part of one unit; parts that end inside a
+# 16-byte unit (tails) with a unit's words in two blocks of R rows; pad
+# blocks; several work items a block of R rows.
+K10_GEOMETRIES = ((1, 1, 1), (3, 7, 3), (5, 9, 5), (6, 64, 8), (2, 2048, 2))
+
+
+@pytest.mark.parametrize("B,R,pad_b", K10_GEOMETRIES)
+def test_k10_work_items_cover_each_unit_once(B, R, pad_b):
+    """K10's partition: each part's 16-byte output units (a dictionary is
+    two parts, its prefix pairs and its codes) are covered by exactly one
+    work item, no item is empty, the outputs are 16-byte aligned and
+    disjoint in one allocation, and only the dictionary within the cap
+    goes to shared memory."""
+    rng = np.random.default_rng(B * 1000 + R)
+    leaves = [to_torch(j_enc.pad_leaf(leaf, pad_b, ones=name == "bits"))
+              for name, leaf in k10_leaves(rng, B, R).items()]
+    rows, outs, out_bytes, dict_bytes = decode.part_rows(leaves, pad_b, R)
+    assert rows.shape == (len(leaves) + 2, decode.PART_WORDS)
+    n = pad_b * R
+    units = []
+    for leaf in leaves:
+        kind = t_enc.leaf_kind(leaf)
+        if kind == "bits":
+            units.append(n // 16)
+        elif kind == "dict":
+            units += [-(-2 * n // 4), -(-n // 4)]
+        else:
+            P = 2 if leaf[kind][{"const": "cval", "delta16": "doff",
+                                  "rle": "rvals"}[kind]].dim() == 3 else 1
+            units.append(-(-n * P // 4))
+    assert list(rows[:, 1]) == units
+    first = decode.work_items(rows[:, 1])
+    assert list(rows[:, 5]) == first[:-1]
+    seen = [np.zeros(u, np.int64) for u in units]
+    for item in range(first[-1]):
+        part, lo, hi = item_units(first, rows[:, 1], item)
+        assert lo < hi <= units[part] and hi - lo <= decode.ITEM_UNITS
+        seen[part][lo:hi] += 1
+    assert all((s == 1).all() for s in seen)
+    spans = sorted((o, o + int(np.prod(shape)) * torch.empty(
+        0, dtype=dtype).element_size()) for planes in outs
+        for o, shape, dtype in planes)
+    assert all(a % 16 == 0 for a, _b in spans)
+    assert all(b <= c for (_a, b), (c, _d) in zip(spans, spans[1:]))
+    assert spans[-1][1] <= out_bytes
+    pairs = rows[rows[:, 0] == 4]
+    assert [int(r[6]) for r in pairs] == [0, -1]  # small: shared; big: not
+    assert dict_bytes == 32
+    # The allocation's views carry each leaf's plain planes.
+    out = torch.zeros(out_bytes, dtype=torch.uint8)
+    plan = decode.DecodePlan(pad_b, R, rows, None, first[-1], outs,
+                             out_bytes, dict_bytes)
+    for got, want in zip(decode.planes_of(plan, out),
+                         decode.decode_leaves(leaves, pad_b, R)):
+        assert [(g.shape, g.dtype) for g in got] == \
+            [(w.shape, w.dtype) for w in want]
+
+
+@pytest.mark.parametrize("kind", ["bits", "const", "const2", "delta16",
+                                  "delta16_2", "rle", "rle2", "float_rle",
+                                  "dict", "dict_big"])
+def test_decode_tree_matches_jax_decode_run(kind):
+    """``decode_tree`` on CPU tensors (K10's plain version) against the
+    JAX ``decode_run`` on a run tree whose column holds a ``kind`` leaf,
+    padded past its blocks: the same planes byte for byte (a dictionary's
+    three JAX planes as the prefix pair and the code plane)."""
+    rng = np.random.default_rng(11)
+    B, R, pad_b = 6, 64, 8
+    leaves = k10_leaves(rng, B, R)
+    flags = {n: j_enc.pad_leaf(j_enc.encode_bool_plane(
+        rng.random((B, R)) < 0.5), pad_b, ones=n == "group_start")
+        for n in ("valid", "group_start", "tomb", "live")}
+    tree = {**flags, "ht_hi": j_enc.encode_int_plane(
+        np.zeros((B, R), np.int32)),
+        "ht_lo": j_enc.pad_leaf(j_enc.encode_delta16(
+            np.arange(B * R, dtype=np.int32).reshape(B, R)), pad_b),
+        "exp_hi": np.zeros((pad_b, R), np.int32),
+        "exp_lo": np.zeros((pad_b, R), np.int32),
+        "cols": {3: {"set": flags["valid"], "isnull": flags["tomb"],
+                     "cmp": j_enc.pad_leaf(leaves[kind], pad_b)}}}
+    got = decode.decode_tree(to_torch(tree))
+    want = jax.device_get(j_enc.decode_run(to_jax(tree)))
+    for name in ("valid", "group_start", "tomb", "live", "ht_hi", "ht_lo",
+                 "exp_hi", "exp_lo"):
+        same_bytes(got[name], want[name], name)
+    col, w = got["cols"][3], want["cols"][3]
+    if kind.startswith("dict"):
+        same_bytes(col["cmp"], np.ascontiguousarray(w["cmp"][..., :2]))
+        same_bytes(col["code"], np.ascontiguousarray(w["cmp"][..., 2]))
+    else:
+        same_bytes(col["cmp"], w["cmp"])
+    same_bytes(col["set"], w["set"])
+    assert decode.decode_bytes(to_torch(tree)) > 0
+
+
 def test_flush_codes_route_matches_jax():
     rng = np.random.default_rng(8)
     m, n, R, Bp = 256, 200, 32, 16

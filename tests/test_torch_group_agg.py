@@ -32,7 +32,7 @@ from yugabyte_db_tpu.models.datatypes import DataType as JDT
 from yugabyte_db_tpu.ops import group_agg as j_group_agg
 from yugabyte_db_tpu.storage import expr as JX
 from yugabyte_db_tpu_torch.models.datatypes import DataType as TDT
-from yugabyte_db_tpu_torch.ops import group_agg, mvcc_resolve
+from yugabyte_db_tpu_torch.ops import decode, group_agg, mvcc_resolve
 from yugabyte_db_tpu_torch.ops.device_run import DeviceRun
 from yugabyte_db_tpu_torch.storage import expr as TX
 
@@ -462,6 +462,14 @@ Q1_TILE = 4 * 128 * 4 * (5 + 1 + 2 + 2 + 4 * 4)
 Q1_SPEC = 16 * -(-(16 * (8 * 8 + 4 * 19) + 4 * 7) // 16)
 
 
+def plain_geometry(blocks, chunks, chunk, smem):
+    """The Geometry of a launch over plain planes (the plain build)."""
+    return group_agg.Geometry(
+        encoded=0, threads=128, blocks=blocks, chunks=chunks, chunk=chunk,
+        smem_bytes=smem, raw_bytes=0, buffers=0, dict_bytes=0, copied_lo=0,
+        copied_hi=0, dict_shared=0, dict_cached=0)
+
+
 def test_launch_geometry():
     assert (Q1_TILE, Q1_SPEC) == (53_248, 2_272)
     seen = []
@@ -472,12 +480,12 @@ def test_launch_geometry():
 
     geo = group_agg.launch_geometry(1, 6_001_215, Q1_TILE, Q1_SPEC, 132,
                                     per_sm)
-    assert geo == group_agg.Geometry(128, 3 * 132, 1, 1, Q1_TILE + Q1_SPEC)
+    assert geo == plain_geometry(3 * 132, 1, 1, Q1_TILE + Q1_SPEC)
     assert seen == [Q1_TILE + Q1_SPEC]  # the occupancy of this block
     # 8 specs: one chunk, one wave of 396 blocks reading the planes once.
     geo = group_agg.launch_geometry(8, 6_001_215, Q1_TILE, Q1_SPEC, 132,
                                     per_sm)
-    assert geo == group_agg.Geometry(128, 396, 8, 1, Q1_TILE + 8 * Q1_SPEC)
+    assert geo == plain_geometry(396, 1, 8, Q1_TILE + 8 * Q1_SPEC)
     # 37 specs: 3 balanced chunks of 13 share the wave.
     geo = group_agg.launch_geometry(37, 6_001_215, Q1_TILE, Q1_SPEC, 132,
                                     per_sm)
@@ -499,8 +507,8 @@ def test_launch_geometry():
             1, 100, group_agg.SMEM_LIMIT - group_agg.STATIC_SMEM, Q1_SPEC,
             132, per_sm)
     with pytest.raises(ValueError):
-        group_agg.launch_geometry(1, 100, Q1_TILE, Q1_SPEC, 132,
-                                  lambda smem: 0)
+        group_agg.launch_geometry(1, 100, Q1_TILE, Q1_SPEC,
+                                  132, lambda smem: 0)
 
 
 def _signature(n_cols: int, kind: str, n_preds: int, n_group: int,
@@ -573,3 +581,323 @@ def test_plan_layout_and_descriptor(tables):
     assert not group_agg.eligible(group_agg.GroupAggSig(
         NB, prep.sig.cols, prep.sig.preds, prep.sig.group_cols * 3,
         prep.sig.aggs))  # more group columns than the descriptor holds
+
+
+
+def _encoded_table(plan, variant: str, B: int = 2, R: int = 128) -> list:
+    """A plane table for ``plan`` whose planes are all encoded: delta16
+    hybrid times, bits flags, each group column a 2-entry dictionary and
+    every other order plane delta16 (``"copies"``: the largest copy of a
+    piece) or, for the staged columns, a dictionary, their entries
+    together DICT_SMEM_CAP bytes (``"dicts"``)."""
+    i16 = lambda *s: torch.zeros(s, dtype=torch.int16)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    bits = lambda: {"bits": {"bw": i32(B, R // 32)}}
+    dct = lambda d: {"dict": {"codes": i16(B, R), "dhi": i32(d),
+                              "dlo": i32(d)}}
+
+    def delta(width):
+        return {"delta16": {"dbase": i32(B, 1, *([width] * (width > 1))),
+                            "doff": i16(B, R, *([width] * (width > 1)))}}
+
+    group = {plan.slot[c] for c, _p in plan.sig.group_cols}
+    values = sorted(group_agg.value_cols(plan) - group)
+    rest = group_agg.DICT_SMEM_CAP // 8 - 2 * len(group)
+    entries = {c: rest // len(values) + (c == values[-1]) * (
+        rest % len(values)) for c in values} if variant == "dicts" else {}
+    two = {c.col_id: c.two_plane for c in plan.sig.cols}
+    table = [delta(1) for _ in range(4)] + [bits() for _ in range(3)]
+    for k, cid in enumerate(plan.col_ids):
+        cmp = (dct(2) if k in group else dct(entries[k]) if k in entries
+               else delta(1 + two[cid]))
+        table += [bits(), bits(), cmp]
+    return table
+
+
+@pytest.mark.parametrize("variant", ["copies", "dicts"])
+@pytest.mark.parametrize("n_specs", [1, 8, 64, 65_535])
+@pytest.mark.parametrize("name", list(SIGNATURES))
+def test_every_eligible_signature_fits_a_block_encoded(name, n_specs,
+                                                       variant):
+    """Every signature the descriptor takes, over planes that are all
+    encoded, gets a launch within the block's shared bytes: the copies
+    (one spec a chunk) beside the dictionaries, or the dictionaries at
+    DICT_SMEM_CAP, all in shared memory; its chunks cover every spec
+    once."""
+    sig = _signature(*SIGNATURES[name])
+    assert group_agg.eligible(sig)
+    plan = group_agg.make_plan(sig)
+    table = _encoded_table(plan, variant)
+    layout, geo = group_agg.plan_launch(plan, table, n_specs, 132,
+                                        lambda smem, build: 1)
+    assert geo.smem_bytes == (plan.tile_bytes + geo.chunk * plan.spec_bytes
+                              + group_agg.WARPS * geo.buffers
+                              * layout.raw_bytes + layout.dict_bytes
+                              + group_agg.copy_table_bytes(layout))
+    assert geo.smem_bytes + group_agg.STATIC_SMEM <= group_agg.SMEM_LIMIT
+    n_group = len(sig.group_cols)
+    assert layout.dict_bytes == (group_agg.DICT_SMEM_CAP if variant == "dicts"
+                                 else -(-16 * n_group // 16) * 16)
+    assert layout.dict_cached == 0
+    assert (geo.buffers > 0) == (n_specs == 1)  # copies for one spec
+    assert layout.raw_bytes == (geo.raw_bytes if geo.buffers else 0)
+    covered = [s for c in range(geo.chunks)
+               for s in range(c * geo.chunk, min(n_specs, (c + 1) * geo.chunk))]
+    assert covered == list(range(n_specs))
+    assert geo.blocks * geo.chunks <= max(132, geo.chunks)  # one wave
+
+
+# Encoded layouts on Q1's shape: a piece's copy of the compacted SF1
+# lineitem's copied leaves (17 bits planes, five u16 planes), lineitem's
+# two 4-entry dictionaries, a dictionary-only layout and one whose copy
+# is too large for two buffers of this tile.
+LAYOUTS = {
+    "compacted": (1808, 64),
+    "dicts_only": (0, 64),
+    "big_copy": (9_792, 0),
+}
+
+
+@pytest.mark.parametrize("drop_at", [None, 70_000])
+@pytest.mark.parametrize("name", list(LAYOUTS))
+def test_launch_geometry_with_copies_and_dictionaries(name, drop_at):
+    """An encoded layout adds each warp's buffers (two where the SM holds
+    as many blocks as with one, else one; none without a copy), the
+    dictionaries and the copy's tables (16 bytes a copied plane, 2 a
+    16-byte chunk) to the block's shared bytes, and the geometry reports
+    the layout."""
+    raw, dicts = LAYOUTS[name]
+    layout = group_agg.CopyLayout(True, (), (), raw, dicts, (1 << 40) | 7,
+                                  0b110000, 0b1)
+    per_sm = (lambda smem: 3) if drop_at is None else (
+        lambda smem: 3 if smem <= drop_at else 2)
+    geo = group_agg.launch_geometry(1, 6_001_215, Q1_TILE, Q1_SPEC, 132,
+                                    per_sm, layout)
+    # The copy's tables: 16 bytes a copied plane (4 here), 2 a chunk.
+    base = Q1_TILE + Q1_SPEC + dicts + -(-(64 + raw // 8) // 16) * 16
+    want = 0 if not raw else 2 if per_sm(base + 8 * raw) >= per_sm(
+        base + 4 * raw) else 1
+    assert geo.buffers == want
+    assert geo.smem_bytes == base + group_agg.WARPS * want * raw
+    assert geo.blocks == per_sm(geo.smem_bytes) * 132
+    assert (geo.encoded, geo.raw_bytes, geo.dict_bytes) == (1, raw, dicts)
+    assert (geo.copied_lo, geo.copied_hi) == (7, 1 << 8)
+    assert (geo.dict_shared, geo.dict_cached) == (0b110000, 0b1)
+    if name == "compacted" and drop_at is not None:
+        assert geo.buffers == 1  # two would cost a block an SM
+    with pytest.raises(ValueError):  # no buffer fits this tile
+        group_agg.launch_geometry(
+            1, 100, group_agg.SMEM_LIMIT - group_agg.STATIC_SMEM - 4 * raw
+            - base + Q1_TILE + 16, Q1_SPEC, 132, lambda smem: 1,
+            layout._replace(raw_bytes=raw or 16))
+
+
+@pytest.fixture(scope="module")
+def encoded_table():
+    """The port's ``gpu`` engine (CPU tensors, ``plane_encoding``
+    "auto") on the grouped table, flushed and compacted (bits flags,
+    dictionaries, delta16 and const leaves), and Q1's plan over it."""
+    rows, ht = group_rows(PORT, group_schema(PORT), 3000, seed=5)
+    eng = T.make_engine("gpu", group_schema(PORT), {
+        "rows_per_block": R, "device": "cpu", "plane_encoding": "auto"})
+    eng.apply(rows)
+    eng.flush()
+    eng.compact(1)
+    spec = build(T, TX, dict(read_ht=ht + 1, aggregates=Q1_AGGS,
+                             group_by=["flag", "status"],
+                             predicates=[("d", "<", 900)]))
+    plan = group_agg.make_plan(eng._plan_scan(spec).sig)
+    return plan, eng.runs[0].dev.arrays
+
+
+@pytest.mark.parametrize("reads_dict", [False, True])
+def test_unread_encoded_leaves_take_the_plain_build(reads_dict):
+    """A flushed run encodes only its string columns (dictionaries): a
+    signature that reads none of them takes the plain build (no layout),
+    one grouped by them the encoded build."""
+    rows, ht = group_rows(PORT, group_schema(PORT), 600, seed=9)
+    eng = T.make_engine("gpu", group_schema(PORT), {
+        "rows_per_block": R, "device": "cpu", "plane_encoding": "auto"})
+    eng.apply(rows)
+    eng.flush()
+    kw = dict(read_ht=ht + 1, aggregates=Q1_AGGS, predicates=[("d", "<", 900)])
+    if reads_dict:
+        kw["group_by"] = ["flag", "status"]
+    plan = group_agg.make_plan(eng._plan_scan(build(T, TX, kw)).sig)
+    table = plan.plane_table(eng.runs[0].dev.arrays)
+    assert any(group_agg.enc.leaf_kind(t) == "dict" for t in table)
+    assert group_agg.copy_layout(plan, table).encoded == reads_dict
+    # The dictionaries' codes are a small share of a piece: not copied.
+    layout, geo = group_agg.plan_launch(plan, table, 1, 132,
+                                        lambda smem, build: 2)
+    assert group_agg.build_of(layout) == (1 if reads_dict else 0)
+    assert (geo.encoded, geo.buffers) == (int(reads_dict), 0)
+
+
+def _misaligned(arrays: dict, cid: int) -> dict:
+    """``arrays`` with column ``cid``'s delta16 offsets moved 2 bytes past
+    a 16-byte boundary."""
+    leaf = arrays["cols"][cid]["cmp"]["delta16"]
+    doff = leaf["doff"]
+    moved = torch.empty(doff.numel() + 8, dtype=doff.dtype)[1:][
+        :doff.numel()].view(doff.shape)
+    moved.copy_(doff)
+    cols = dict(arrays["cols"])
+    cols[cid] = dict(cols[cid], cmp={"delta16": dict(leaf, doff=moved)})
+    return dict(arrays, cols=cols)
+
+
+COPY_CASES = ("plain", "encoded", "misaligned", "dict_cap", "no_copies")
+
+
+@pytest.mark.parametrize("case", COPY_CASES)
+def test_copy_layout(encoded_table, case):
+    """Which planes the encoded build copies (the 16-byte aligned per-row
+    arrays of the planes the staging reads, back to back in plane order:
+    a bits plane's 16 bytes a piece, 256 a u16 array a plane word), which
+    it loads from the run (a misaligned array, every plain plane), and
+    which dictionaries it keeps in shared memory (the staged columns',
+    within DICT_SMEM_CAP) or reads through the read-only cache; the leaf
+    words carry the same offsets."""
+    from yugabyte_db_tpu_torch.ops import encodings as enc
+
+    plan, arrays = encoded_table
+    schema = group_schema(PORT)
+    kw = {}
+    if case == "plain":
+        arrays = decode.decode_tree_plain(arrays)
+    elif case == "misaligned":
+        disc = schema.column("disc").col_id
+        assert enc.leaf_kind(arrays["cols"][disc]["cmp"]) == "delta16"
+        arrays = _misaligned(arrays, disc)
+    elif case == "dict_cap":
+        kw["dict_cap"] = 0
+    elif case == "no_copies":
+        kw["copies"] = False
+    table = plan.plane_table(arrays)
+    layout = group_agg.copy_layout(plan, table, **kw)
+    n = 7 + 3 * len(plan.col_ids)
+    _ptrs, words = group_agg.leaf_table(plan, table, layout)
+    assert list(words[:, 4]) == list(layout.raw)
+    assert list(words[:, 5]) == list(layout.dsh)
+    if case == "plain":
+        assert layout == group_agg.CopyLayout(False, (-1,) * n, (-1,) * n,
+                                              0, 0, 0, 0, 0)
+        return
+    values = group_agg.value_cols(plan)
+    read_cols = values | {plan.slot[c] for c in plan.code_cols}
+    off = 0
+    for k in range(n):
+        kind = enc.leaf_kind(table[k])
+        slot = (k - 7) // 3 if k >= 7 else None
+        read = k < 9 or (k - 7) % 3 != 2 or slot in read_cols
+        array = {"bits": "bw", "delta16": "doff", "rle": "rid",
+                 "dict": "codes"}.get(kind)
+        copy = (case != "no_copies" and read and array is not None and
+                table[k][kind][array].data_ptr() % 16 == 0)
+        assert (layout.raw[k] >= 0) == copy, (k, kind)
+        assert bool(layout.copied >> k & 1) == copy
+        if copy:
+            assert layout.raw[k] == off
+            off += 16 if kind == "bits" else 256 * (
+                group_agg.plane_width(table[k]) if kind == "delta16" else 1)
+        if case == "misaligned" and slot == plan.slot[
+                schema.column("disc").col_id] and (k - 7) % 3 == 2:
+            assert layout.raw[k] == -1  # loaded from the run
+    assert layout.raw_bytes == off > 0 if case != "no_copies" else \
+        layout.raw_bytes == 0
+    # The two string group columns' 4-entry dictionaries: in shared
+    # memory in plane order, or, past the cap, through the cache.
+    flag, status = (plan.slot[schema.column(c).col_id]
+                    for c in ("flag", "status"))
+    dict_slots = {slot for slot in range(len(plan.col_ids))
+                  if enc.leaf_kind(table[9 + 3 * slot]) == "dict"}
+    assert {flag, status} <= dict_slots & values
+    want = sum(1 << c for c in dict_slots & values)
+    if case == "dict_cap":
+        assert (layout.dict_shared, layout.dict_cached) == (0, want)
+        assert layout.dict_bytes == 0 and set(layout.dsh) == {-1}
+    else:
+        assert (layout.dict_shared, layout.dict_cached) == (want, 0)
+        entries = [table[9 + 3 * c]["dict"]["dhi"].numel()
+                   for c in sorted(dict_slots & values)]
+        assert [layout.dsh[9 + 3 * c] for c in sorted(dict_slots & values)] \
+            == [sum(entries[:i]) for i in range(len(entries))]
+        assert layout.dict_bytes == -(-8 * sum(entries) // 16) * 16
+    geo = group_agg.launch_geometry(1, 6_001_215, plan.tile_bytes,
+                                    plan.spec_bytes, 132, lambda smem: 2,
+                                    layout)
+    tables = 16 * bin(layout.copied).count("1") + layout.raw_bytes // 8
+    assert geo.smem_bytes == (plan.tile_bytes + plan.spec_bytes
+                              + group_agg.WARPS * geo.buffers
+                              * layout.raw_bytes + layout.dict_bytes
+                              + -(-tables // 16) * 16)
+
+
+@pytest.mark.parametrize("case", ["q1", "batch", "wide_groups",
+                                  "small_share"])
+def test_copies_pay(encoded_table, case):
+    """The copies go to a chunk of one spec whose groups fit a block's
+    slots (dictionary group columns) and whose copied bytes are at least
+    a quarter of a piece's staged bytes."""
+    plan, arrays = encoded_table
+    table = plan.plane_table(arrays)
+    layout = group_agg.copy_layout(plan, table)
+    assert layout.raw_bytes and layout.loaded_bytes  # both kinds of plane
+    chunk = 2 if case == "batch" else 1
+    if case == "wide_groups":  # grouped by a numeric column too
+        qty = group_schema(PORT).column("qty").col_id
+        sig = plan.sig
+        plan = group_agg.make_plan(group_agg.GroupAggSig(
+            NB, sig.cols, sig.preds, sig.group_cols + ((qty, 2),),
+            sig.aggs))
+        table = plan.plane_table(arrays)
+        layout = group_agg.copy_layout(plan, table)
+    if case == "small_share":
+        layout = layout._replace(loaded_bytes=3 * layout.raw_bytes + 16)
+    assert group_agg.copies_pay(plan, table, layout, chunk) == (case == "q1")
+    geo_want = 2 if case == "q1" else 0
+    if case != "small_share":
+        _layout, geo = group_agg.plan_launch(
+            plan, table, chunk, 132, lambda smem, build: 2)
+        assert geo.buffers == geo_want
+
+
+@pytest.mark.parametrize("what", ["copies", "dicts", "none", "occupancy"])
+def test_plan_launch_drops_what_does_not_fit(encoded_table, what):
+    """Where a block with the copies does not fit shared memory, or holds
+    fewer blocks an SM than the same layout without them, the launch
+    goes without them (the pieces loaded from the run); where even that
+    does not fit (which ``eligible`` rules out for a real block), the
+    launch is refused."""
+    plan, arrays = encoded_table
+    table = plan.plane_table(arrays)
+    full = group_agg.copy_layout(plan, table)
+    layout, geo = group_agg.plan_launch(plan, table, 1, 132,
+                                        lambda s, build: 2)
+    assert layout == full and geo.buffers == 2
+    base = plan.tile_bytes + plan.spec_bytes + group_agg.STATIC_SMEM
+    limit = {"copies": base + full.dict_bytes + 4 * full.raw_bytes
+             + group_agg.copy_table_bytes(full) + 16,
+             "dicts": base + full.dict_bytes, "none": base,
+             "occupancy": group_agg.SMEM_LIMIT}[what]
+    bare = base - group_agg.STATIC_SMEM + full.dict_bytes
+
+    def per_sm(smem, build):  # the copies cost a block: "occupancy"
+        assert build == (2 if smem > bare else 1)
+        return 2 if what != "occupancy" or smem <= bare else 1
+
+    old = group_agg.SMEM_LIMIT
+    group_agg.SMEM_LIMIT = limit
+    try:
+        if what == "none":  # not even the dictionaries fit
+            with pytest.raises(ValueError, match="does not fit shared"):
+                group_agg.plan_launch(plan, table, 1, 132, per_sm)
+            return
+        layout, geo = group_agg.plan_launch(plan, table, 1, 132, per_sm)
+    finally:
+        group_agg.SMEM_LIMIT = old
+    assert (layout.raw_bytes > 0) == (what == "copies")
+    assert layout.dict_bytes == full.dict_bytes > 0
+    assert geo.buffers == (1 if what == "copies" else 0)
+    assert geo.raw_bytes == layout.raw_bytes

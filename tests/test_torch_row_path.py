@@ -9,9 +9,12 @@ their resume keys, exact-key reads, key-column / IN / string / float
 predicates, projections of key columns) and the aggregates the device
 folds do not take (through the gather on one run, through the row scan
 over several sources) must give the ``tpu`` engine's rows, resume key
-and ``rows_scanned``, and the ``cpu`` engine's rows and resume key. The
-JAX engines upload plain planes (the port has no plane encodings yet, so
-string predicates take the same routes on both sides).
+and ``rows_scanned``, and the ``cpu`` engine's rows and resume key.
+Both packages upload plain planes ("off"); the range scans and the
+LIMIT pages run again with both under their default "auto" (encoded
+runs: K7 and K9 read K10's side-car; over several sources, the row scan
+and K9), each JAX run touched once by a COUNT(*) first (the JAX engine
+builds a run's dictionaries at its first device access).
 
 Also: each route is the JAX engine's (host page, gather, exact-key read,
 row scan), and a batch of pages goes to K7 as one launch a (signature,
@@ -25,7 +28,7 @@ import yugabyte_db_tpu.storage.tpu_engine  # noqa: F401  (registers 'tpu')
 import yugabyte_db_tpu_torch.storage as T
 from test_torch_data import (FLOATS, JAX, MAX_HT, PORT, encode_key,
                              flat_rows, layered_rows, make_schema,
-                             plain_planes)
+                             plane_encoding)
 from yugabyte_db_tpu_torch.ops import row_gather
 
 R = 64
@@ -34,7 +37,7 @@ N_KEYS = 800
 
 @pytest.fixture(scope="module", autouse=True)
 def _plain_planes():
-    with plain_planes():
+    with plane_encoding("off"):
         yield
 
 
@@ -66,7 +69,27 @@ def make_engines(kind: str) -> dict:
         else:
             eng.apply(rows)
             eng.flush()
+    # Every JAX run's first device access (see above).
+    e["tpu"].scan(J.ScanSpec(read_ht=ht + 1,
+                             aggregates=[J.AggSpec("count", None)]))
     return e
+
+
+@pytest.fixture(scope="module", params=["flat", "mv", "sources"])
+def eng_auto(request):
+    """``eng``'s engines with both packages under "auto" (encoded runs)."""
+    with plane_encoding("auto"):
+        e = make_engines(request.param)
+    assert all(run.dev.encoded for run in e["gpu"].runs)
+    return e
+
+
+@pytest.fixture
+def auto(eng_auto):
+    """``eng_auto`` with "auto" set for the test (the JAX engine reads
+    the flag at its runs' device accesses)."""
+    with plane_encoding("auto"):
+        yield eng_auto
 
 
 @pytest.fixture(scope="module", params=["flat", "mv", "sources"])
@@ -104,8 +127,8 @@ def key(e, i):
     return encode_key(PORT, e["ps"], i)
 
 
-def test_full_and_bounded_scans(eng):
-    e, ht = eng, eng["ht"]
+def full_and_bounded_scans(e):
+    ht = e["ht"]
     lo, hi = key(e, 120), key(e, 610)
     if lo > hi:
         lo, hi = hi, lo
@@ -120,6 +143,14 @@ def test_full_and_bounded_scans(eng):
     ]:
         got = check(e, kw, label)
         assert label == "past_the_end" or got.rows
+
+
+def test_full_and_bounded_scans(eng):
+    full_and_bounded_scans(eng)
+
+
+def test_full_and_bounded_scans_encoded(auto):
+    full_and_bounded_scans(auto)
 
 
 PAGES = [
@@ -138,9 +169,17 @@ PAGES = [
 
 @pytest.mark.parametrize("label,kw", PAGES, ids=[p[0] for p in PAGES])
 def test_limit_pages_walked_by_resume_key(eng, label, kw):
+    walk_pages(eng, label, kw)
+
+
+@pytest.mark.parametrize("label,kw", PAGES, ids=[p[0] for p in PAGES])
+def test_limit_pages_walked_by_resume_key_encoded(auto, label, kw):
+    walk_pages(auto, label, kw)
+
+
+def walk_pages(e, label, kw):
     """``tests/test_engine_diff.py::test_diff_paging``'s walk: each page
     resumes at the previous page's resume key until there is none."""
-    e = eng
     kw = dict(kw, read_ht=e["ht"] + 1)
     pages = 0
     while True:

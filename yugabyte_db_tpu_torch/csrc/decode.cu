@@ -5,15 +5,16 @@
 // into plain planes for the kernels that read whole plain planes (the
 // JAX package materialises it as K1's side-car in ops/pallas_agg.py
 // gather_tensors). Here one launch decodes every encoded leaf of a run,
-// each described by a row of a leaf table in device memory:
+// each described by rows of a part table in device memory:
 //   - bits:    bw int32 [B, R/32]               -> bool [B, R] (a byte a row)
 //   - const:   cval 4-byte words [P]            -> [B, R, P]
 //   - delta16: dbase int32 [B, P], doff u16 [B, R, P] -> int32 [B, R, P]
 //   - rle:     rid int16 [B, R], rvals 4-byte [B, Rc, P] -> [B, R, P]
 //   - dict:    codes u16 [B, R], dhi, dlo int32 [D]
-//              -> the prefix planes int32 [B, R, 2] and the code plane
-//                 int32 [B, R] (the JAX decode's plane 2, kept beside the
-//                 two prefix planes so that no reader's strides change)
+//              -> the prefix planes int32 [B, R, 2] (one part) and the
+//                 code plane int32 [B, R] (a second part; the JAX
+//                 decode's plane 2, kept beside the two prefix planes so
+//                 that no reader's strides change)
 // Floats (const and rle of an arithmetic plane) are copied as their bit
 // patterns, so the decode is byte for byte the plain planes.
 //
@@ -21,11 +22,26 @@
 // plane written once (ops/decode.py decode_bytes); the output is the
 // larger part (a bits word becomes 32 bytes, a u16 offset 4).
 //
-// Design: grid.y runs the leaves, grid.x a grid-stride loop over a leaf's
-// units; a thread writes contiguous output: a bits word's 32 bool bytes as
-// two 16-byte stores, one row's P words of an int plane, a dictionary
-// row's two prefix words and its code. Small leaves (a dictionary's
-// table, an rle block's values) are read through the read-only cache.
+// Design (ops/decode.py plan_leaves builds the part table once a run and
+// keeps it on the device; a launch copies nothing from the host):
+//   - every output plane is cut into 16-byte units, and a thread writes
+//     one unit with one 16-byte store: 16 rows of a bits plane (half a
+//     word), four words of an int plane (four u16 offsets or run ids from
+//     one 8-byte load), two rows of a dictionary's prefix planes, four
+//     codes. A part's last unit may be short: its words are stored one by
+//     one;
+//   - one flat grid over work items of equal output bytes (kThreads units
+//     each, a part's items numbered after the previous parts' in the
+//     table's prefix), walked by a persistent grid of the resident
+//     blocks: no block is empty, a bits leaf takes as many items as its
+//     bytes and no more;
+//   - index math is 32-bit inside a part; a unit's four words lie in one
+//     block of R rows where R * P is a multiple of 4 (the base and the
+//     block's run values then come from one division a unit), else each
+//     word finds its own block;
+//   - dictionaries up to ops/decode.py's DICT_SMEM_CAP bytes are copied
+//     into shared memory once a block (int2 entries); a larger one is read
+//     through the read-only cache.
 //
 // Interface: plain C, for ctypes. decode_launch returns 0, a negative code
 // for an argument it refuses, or the launch's cudaGetLastError().
@@ -36,29 +52,22 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kLeafWords = 10;  // long long words of a leaf table row
-constexpr long long kMaxBlocksX = 4096;
+constexpr int kThreads = 256;      // units an item: one a thread
+constexpr int kPartWords = 12;     // long long words of a part table row
+constexpr int kSmemDefault = 48 * 1024;
+constexpr int kSmemLimit = 232448;
 
 enum Kind : long long { kBits = 0, kConst = 1, kDelta16 = 2, kRle = 3,
-                        kDict = 4 };
+                        kDictPair = 4, kDictCode = 5 };
+
+// A part table row's words.
+enum Word : int { kKind = 0, kUnits = 1, kP = 2, kR = 3, kRc = 4, kItem0 = 5,
+                  kDsh = 6, kOut = 7, kA = 8, kB = 9, kC = 10, kWords = 11 };
 
 enum Err : int {
-  kErrLeaves = -1,
+  kErrParts = -1,
   kErrTable = -2,
-};
-
-// A row of the leaf table: kind, units (bits: words, else rows), P (words a
-// row of the output), R (rows a block), Rc (rle: run slots a block), then
-// the pointers a, b, c (the leaf's arrays in the order above), out and out2
-// (a dictionary's code plane).
-struct Leaf {
-  long long kind, units, P, R, Rc;
-  const void* a;
-  const void* b;
-  const void* c;
-  void* out;
-  void* out2;
+  kErrShared = -3,
 };
 
 // Byte k of the result is bit k of the nibble (4 bool bytes).
@@ -67,63 +76,183 @@ __device__ __forceinline__ uint32_t spread4(uint32_t nib) {
          ((nib & 8u) << 21);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    decode_kernel(const Leaf* __restrict__ leaves) {
-  const Leaf L = leaves[blockIdx.y];
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  const long long first =
-      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (L.kind == kBits) {
-    const int32_t* bw = static_cast<const int32_t*>(L.a);
-    uint4* out = static_cast<uint4*>(L.out);
-    for (long long u = first; u < L.units; u += stride) {
-      const uint32_t w = static_cast<uint32_t>(__ldg(bw + u));
-      out[2 * u] = make_uint4(spread4(w & 15u), spread4((w >> 4) & 15u),
-                              spread4((w >> 8) & 15u),
-                              spread4((w >> 12) & 15u));
-      out[2 * u + 1] = make_uint4(spread4((w >> 16) & 15u),
-                                  spread4((w >> 20) & 15u),
-                                  spread4((w >> 24) & 15u), spread4(w >> 28));
-    }
+__device__ __forceinline__ uint32_t at4(const uint4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// Stores unit u's words: one 16-byte store, or word by word where the
+// part ends inside the unit (n words of it left).
+__device__ __forceinline__ void put(uint32_t* out, uint32_t u, uint4 v,
+                                    uint32_t n) {
+  if (n >= 4) {
+    reinterpret_cast<uint4*>(out)[u] = v;
     return;
   }
-  const int P = static_cast<int>(L.P);
-  uint32_t* out = static_cast<uint32_t*>(L.out);
-  if (L.kind == kConst) {
-    const uint32_t* cval = static_cast<const uint32_t*>(L.a);
-    for (long long u = first; u < L.units; u += stride) {
-      for (int p = 0; p < P; ++p) out[u * P + p] = __ldg(cval + p);
+  for (uint32_t j = 0; j < n; ++j) out[4 * u + j] = at4(v, static_cast<int>(j));
+}
+
+// Four u16 words from word w0 of a u16 array (one 8-byte load), or the n
+// that are left.
+__device__ __forceinline__ uint4 u16x4(const void* arr, uint32_t w0,
+                                       uint32_t n) {
+  const unsigned short* p = static_cast<const unsigned short*>(arr) + w0;
+  if (n >= 4) {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_uint4(v.x & 0xffffu, v.x >> 16, v.y & 0xffffu, v.y >> 16);
+  }
+  return make_uint4(n > 0 ? __ldg(p) : 0u, n > 1 ? __ldg(p + 1) : 0u,
+                    n > 2 ? __ldg(p + 2) : 0u, 0u);
+}
+
+// The block of R rows of each of unit w0's four words (P words a row).
+__device__ __forceinline__ void word_blocks(uint32_t w0, uint32_t P,
+                                            uint32_t R, uint32_t (&blk)[4],
+                                            uint32_t (&p)[4]) {
+  const uint32_t rpw = R * P;
+  if (rpw % 4 == 0) {
+    const uint32_t b = w0 / rpw, p0 = (w0 - b * rpw) % P;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      blk[j] = b;
+      p[j] = P == 1 ? 0 : P == 2 ? (p0 + j) & 1 : (p0 + j) % P;
     }
-  } else if (L.kind == kDelta16) {
-    const int32_t* base = static_cast<const int32_t*>(L.a);
-    const uint16_t* off = static_cast<const uint16_t*>(L.b);
-    for (long long u = first; u < L.units; u += stride) {
-      const long long blk = u / L.R;
-      for (int p = 0; p < P; ++p) {
-        out[u * P + p] =
-            static_cast<uint32_t>(__ldg(base + blk * P + p)) +
-            static_cast<uint32_t>(__ldg(off + u * P + p));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t w = w0 + j, row = w / P;
+      blk[j] = row / R;
+      p[j] = w - row * P;
+    }
+  }
+}
+
+// Unit u of one part (row `t` of the part table).
+__device__ __forceinline__ void decode_unit(const long long* t, uint32_t u,
+                                            unsigned char* out_base,
+                                            const int2* dicts) {
+  const long long kind = __ldg(t + kKind);
+  unsigned char* out = out_base + __ldg(t + kOut);
+  const void* a = reinterpret_cast<const void*>(__ldg(t + kA));
+  const void* b = reinterpret_cast<const void*>(__ldg(t + kB));
+  if (kind == kBits) {
+    const uint32_t w =
+        static_cast<uint32_t>(__ldg(static_cast<const int32_t*>(a) + (u >> 1))) >>
+        ((u & 1) * 16);
+    reinterpret_cast<uint4*>(out)[u] =
+        make_uint4(spread4(w & 15u), spread4((w >> 4) & 15u),
+                   spread4((w >> 8) & 15u), spread4((w >> 12) & 15u));
+    return;
+  }
+  const uint32_t words = static_cast<uint32_t>(__ldg(t + kWords));
+  uint32_t* o = reinterpret_cast<uint32_t*>(out);
+  if (kind == kDictPair || kind == kDictCode) {
+    const int dsh = static_cast<int>(__ldg(t + kDsh));
+    const int32_t* dhi = static_cast<const int32_t*>(b);
+    const int32_t* dlo =
+        reinterpret_cast<const int32_t*>(__ldg(t + kC));
+    if (kind == kDictCode) {
+      const uint32_t w0 = 4 * u;
+      put(o, u, u16x4(a, w0, words - w0), words - w0);
+      return;
+    }
+    // Two rows' prefix pairs (rows 2u, 2u + 1; words = 2 a row).
+    const uint32_t w0 = 4 * u, rows = (words - w0) / 2;
+    const unsigned short* c = static_cast<const unsigned short*>(a) + 2 * u;
+    const uint32_t c0 = __ldg(c), c1 = rows > 1 ? __ldg(c + 1) : 0u;
+    int2 e0, e1;
+    if (dsh >= 0) {
+      e0 = dicts[dsh + c0];
+      e1 = dicts[dsh + c1];
+    } else {
+      e0 = make_int2(__ldg(dhi + c0), __ldg(dlo + c0));
+      e1 = make_int2(__ldg(dhi + c1), __ldg(dlo + c1));
+    }
+    put(o, u, make_uint4(e0.x, e0.y, e1.x, e1.y), words - w0);
+    return;
+  }
+  const uint32_t P = static_cast<uint32_t>(__ldg(t + kP));
+  const uint32_t w0 = 4 * u, n = words - w0;
+  uint4 v;
+  if (kind == kConst) {
+    const uint32_t* cval = static_cast<const uint32_t*>(a);
+    if (P == 1) {
+      const uint32_t x = __ldg(cval);
+      v = make_uint4(x, x, x, x);
+    } else {
+      v = make_uint4(__ldg(cval + w0 % P), __ldg(cval + (w0 + 1) % P),
+                     __ldg(cval + (w0 + 2) % P), __ldg(cval + (w0 + 3) % P));
+    }
+  } else {
+    const uint32_t R = static_cast<uint32_t>(__ldg(t + kR));
+    uint32_t blk[4], p[4];
+    word_blocks(w0, P, R, blk, p);
+    if (kind == kDelta16) {
+      const uint4 off = u16x4(b, w0, n);
+      const uint32_t* base = static_cast<const uint32_t*>(a);
+      v = make_uint4(__ldg(base + blk[0] * P + p[0]) + off.x,
+                     __ldg(base + blk[1] * P + p[1]) + off.y,
+                     __ldg(base + blk[2] * P + p[2]) + off.z,
+                     __ldg(base + blk[3] * P + p[3]) + off.w);
+    } else {  // kRle: each word's row's run id, then its block's value
+      const uint32_t Rc = static_cast<uint32_t>(__ldg(t + kRc));
+      const uint32_t* vals = static_cast<const uint32_t*>(b);
+      uint4 id;
+      if (P == 1) {
+        id = u16x4(a, w0, n);
+      } else {
+        const unsigned short* r = static_cast<const unsigned short*>(a);
+        uint32_t k[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          k[j] = j < static_cast<int>(n) ? __ldg(r + (w0 + j) / P) : 0u;
+        }
+        id = make_uint4(k[0], k[1], k[2], k[3]);
       }
+      v = make_uint4(__ldg(vals + (blk[0] * Rc + id.x) * P + p[0]),
+                     __ldg(vals + (blk[1] * Rc + id.y) * P + p[1]),
+                     __ldg(vals + (blk[2] * Rc + id.z) * P + p[2]),
+                     __ldg(vals + (blk[3] * Rc + id.w) * P + p[3]));
     }
-  } else if (L.kind == kRle) {
-    const int16_t* rid = static_cast<const int16_t*>(L.a);
-    const uint32_t* vals = static_cast<const uint32_t*>(L.b);
-    for (long long u = first; u < L.units; u += stride) {
-      const long long blk = u / L.R;
-      const long long at = (blk * L.Rc + __ldg(rid + u)) * P;
-      for (int p = 0; p < P; ++p) out[u * P + p] = __ldg(vals + at + p);
+  }
+  put(o, u, v, n);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    decode_kernel(const long long* __restrict__ table, int n_parts,
+                  int n_items, unsigned char* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // Each part's first item (n_parts + 1 entries), then the dictionaries.
+  int* first = reinterpret_cast<int*>(smem);
+  int2* dicts = reinterpret_cast<int2*>(smem + ((4 * (n_parts + 1) + 15) & ~15));
+  for (int i = threadIdx.x; i <= n_parts; i += kThreads) {
+    first[i] = i < n_parts ? static_cast<int>(__ldg(table + i * kPartWords + kItem0))
+                           : n_items;
+  }
+  for (int q = 0; q < n_parts; ++q) {
+    const long long* t = table + q * kPartWords;
+    const int dsh = static_cast<int>(__ldg(t + kDsh));
+    if (__ldg(t + kKind) != kDictPair || dsh < 0) continue;
+    const int d = static_cast<int>(__ldg(t + kRc));
+    const int32_t* dhi = reinterpret_cast<const int32_t*>(__ldg(t + kB));
+    const int32_t* dlo = reinterpret_cast<const int32_t*>(__ldg(t + kC));
+    for (int i = threadIdx.x; i < d; i += kThreads) {
+      dicts[dsh + i] = make_int2(__ldg(dhi + i), __ldg(dlo + i));
     }
-  } else if (L.kind == kDict) {
-    const uint16_t* codes = static_cast<const uint16_t*>(L.a);
-    const int32_t* dhi = static_cast<const int32_t*>(L.b);
-    const int32_t* dlo = static_cast<const int32_t*>(L.c);
-    int32_t* code_out = static_cast<int32_t*>(L.out2);
-    uint2* pair = static_cast<uint2*>(L.out);
-    for (long long u = first; u < L.units; u += stride) {
-      const int code = __ldg(codes + u);
-      pair[u] = make_uint2(static_cast<uint32_t>(__ldg(dhi + code)),
-                           static_cast<uint32_t>(__ldg(dlo + code)));
-      code_out[u] = code;
+  }
+  __syncthreads();
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    // The item's part: the last whose first item is at or before it.
+    int lo = 0, hi = n_parts - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (first[mid] <= item) lo = mid;
+      else hi = mid - 1;
+    }
+    const long long* t = table + lo * kPartWords;
+    const uint32_t u =
+        static_cast<uint32_t>(item - first[lo]) * kThreads + threadIdx.x;
+    if (u < static_cast<uint32_t>(__ldg(t + kUnits))) {
+      decode_unit(t, u, out, dicts);
     }
   }
 }
@@ -132,30 +261,53 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// table: n_leaves rows of kLeafWords long long words in device memory (the
-// Leaf layout above); max_units: the most units of any leaf (it sizes
-// grid.x). Every output plane is 16-byte aligned (bits leaves write 16
-// bytes at a time; the others need 4- or 8-byte alignment).
-int decode_launch(const void* table, int n_leaves, long long max_units,
-                  void* stream) {
-  if (n_leaves < 0 || n_leaves > 65535) return kErrLeaves;
-  if (n_leaves == 0 || max_units <= 0) return 0;
-  if (table == nullptr) return kErrTable;
-  long long blocks = (max_units + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocksX) blocks = kMaxBlocksX;
-  const dim3 grid(static_cast<unsigned>(blocks),
-                  static_cast<unsigned>(n_leaves));
-  decode_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const Leaf*>(table));
+// table: n_parts rows of kPartWords long long words in device memory
+// (ops/decode.py part_rows: kind, 16-byte units, P, R, Rc or dictionary
+// entries, first item, dictionary's first entry in shared memory or -1,
+// output offset in bytes (16-byte aligned), the leaf's arrays a, b, c,
+// output words); n_items: the items of every part; out: the output
+// allocation. grid and smem_bytes: ops/decode.py launch_geometry (the
+// parts' first items, 16-byte aligned, then the shared dictionaries).
+int decode_launch(const void* table, int n_parts, int n_items, void* out,
+                  int grid, int smem_bytes, void* stream) {
+  if (n_parts < 0 || n_items < 0 || grid < 0) return kErrParts;
+  if (n_parts == 0 || n_items == 0) return 0;
+  if (table == nullptr || out == nullptr || grid < 1) return kErrTable;
+  if (smem_bytes < ((4 * (n_parts + 1) + 15) & ~15) || smem_bytes > kSmemLimit) {
+    return kErrShared;
+  }
+  if (smem_bytes > kSmemDefault) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  decode_kernel<<<grid, kThreads, smem_bytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(table), n_parts, n_items,
+      static_cast<unsigned char*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
-int decode_leaf_words() { return kLeafWords; }
+// Blocks of the kernel one SM holds at once with smem_bytes of dynamic
+// shared memory, or a negative CUDA error code.
+int decode_occupancy(int smem_bytes) {
+  if (smem_bytes > kSmemDefault) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (rc != cudaSuccess) return -static_cast<int>(rc);
+  }
+  int blocks = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, decode_kernel, kThreads, smem_bytes);
+  return rc == cudaSuccess ? blocks : -static_cast<int>(rc);
+}
+
+int decode_part_words() { return kPartWords; }
 
 const char* decode_error_string(int code) {
   switch (code) {
-    case kErrLeaves: return "leaf count out of range";
-    case kErrTable: return "the leaf table is missing";
+    case kErrParts: return "part or item count out of range";
+    case kErrTable: return "the part table or the output is missing";
+    case kErrShared: return "shared bytes out of range for the part table";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

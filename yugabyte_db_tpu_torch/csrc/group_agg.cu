@@ -83,19 +83,50 @@
 //     factor's postfix stack lives in its sum's limb words until the limbs
 //     are written), so ptxas reports no stack frame.
 //   - encoded planes (the run's resident tree, ops/encodings.py): each
-//     plane comes with a leaf descriptor (kind, arrays, rle run slots),
-//     and the staging step decodes what it loads, so that no decoded
-//     plane is ever written: a bits plane's four rows from one word
-//     (shift and mask), const a broadcast, delta16 the block's base plus
-//     a u16 offset, rle the block's value at the row's run id, and a
-//     dictionary column its prefix planes dhi[code], dlo[code] (read
-//     through the read-only cache: lineitem's dictionaries hold 4 entries)
-//     or, for a promoted string predicate (a "code" predicate), the code
-//     itself, staged as a word of its own. On a plain tree (a view) a
-//     code predicate reads the code plane beside the column's planes.
-//     The kernel comes in two builds: a table of plain planes takes the
-//     plain one (kEnc false: the vector loads, no leaf dispatch, the
-//     staging loop unrolled), one with an encoded leaf the other.
+//     plane comes with a leaf descriptor (kind, arrays, rle run slots or
+//     dictionary entries, where its piece lies in the warp's copy), and
+//     the staging step decodes what it loads, so that no decoded plane is
+//     ever written: a bits plane's four rows from one word (shift and
+//     mask), const a broadcast, delta16 the block's base plus a u16
+//     offset, rle the block's value at the row's run id, and a dictionary
+//     column its prefix planes dhi[code], dlo[code] or, for a promoted
+//     string predicate (a "code" predicate), the code itself, staged as a
+//     word of its own. On a plain tree (a view) a code predicate reads
+//     the code plane beside the column's planes. The kernel comes in
+//     three builds: a table of plain planes takes the plain one (kEnc
+//     false: the vector loads, no leaf dispatch), one with an encoded
+//     leaf an encoded one (kEnc true), with or without the copies
+//     (kCopy), designed so that decoding costs little beside the plain
+//     build's loads:
+//       * with the copies, the leaves' per-row arrays (bits words, u16
+//         offsets, run ids and codes: 16 bytes of a bits plane a piece,
+//         256 of a u16 array a plane word) are copied into the warp's
+//         buffer in shared memory with cp.async, 16 bytes a lane at a
+//         time, one piece ahead: the next piece's copy is issued before
+//         this piece folds (with two buffers, before it stages) and
+//         waited for before that piece stages, so it overlaps the fold.
+//         Plain planes are loaded as the plain build loads them (copying
+//         them too would cost Q1 a block an SM), and so is a leaf whose
+//         array is not 16-byte aligned. ops/group_agg.py copies_pay
+//         chooses the copies only where they pay: the copy build folds a
+//         batch, or groups past a block's slots, more slowly;
+//       * without them, each lane loads its rows' offsets, ids or codes
+//         from the run, one 8-byte load where the array is aligned;
+//       * the leaf kind is dispatched once a (piece, staged entry), and
+//         the staged-entry loop is unrolled; each lane reads its four
+//         rows' offsets, ids or codes as one 8-byte load (16 for a
+//         two-plane delta16), and no index is divided in 64 bits:
+//         where R is a multiple of kPieceRows a piece lies in one block
+//         of R rows and delta16's base and rle's block offset are read
+//         once a piece, elsewhere each row's block comes from one 32-bit
+//         division a row a piece, shared by every leaf;
+//       * dictionaries the staging reads are copied into shared memory
+//         once a block (int2 entries), up to ops/group_agg.py's
+//         DICT_SMEM_CAP bytes; a dictionary past the cap is read through
+//         the read-only cache: the leaf table says which, and
+//         group_agg_last_launch reports it.
+//     ops/group_agg.py launch_geometry gives the buffers' and the
+//     dictionaries' shared bytes; the launch checks the same sum.
 
 // One build serves every signature: a descriptor (kernel parameter, read
 // from the constant bank; loops unrolled to its maxima with block-uniform
@@ -126,7 +157,12 @@ constexpr int kMaxNodes = 8;
 constexpr int kMaxKeyPlanes = 3 * kMaxGroup;  // per group: 2 planes + null
 constexpr int kMaxStaged = kMaxCols + kMaxPreds;  // order and code entries
 constexpr int kCodePlanes = 3;   // a code predicate's planes in the descriptor
-constexpr int kLeafWords = 4;    // kind, run slots, second and third array
+// A leaf's words: kind, rle run slots or dictionary entries, second and
+// third array, its offset in a piece's copy (-1: not copied), its
+// dictionary's offset in shared memory in entries (-1: read-only cache).
+constexpr int kLeafWords = 6;
+constexpr int kMaxPlanes = 7 + 3 * kMaxCols;
+constexpr int kGeoWords = 13;    // group_agg_last_launch's words
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kMinBlocks = 4;      // blocks an SM's registers hold (__launch_bounds__)
@@ -176,17 +212,29 @@ enum Err : int {
   kErrGrid = -8,
   kErrShared = -9,
   kErrAlign = -10,
+  kErrCopy = -11,
 };
+
+// The last launch's shape (group_agg_last_launch; ops/group_agg.py
+// GEOMETRY): the build (1 encoded), threads, grid.x, grid.y (chunks),
+// specs a chunk, dynamic shared bytes, a piece's copy in bytes, buffers a
+// warp, the dictionaries' shared bytes, the copied planes (bit k of the
+// two words: plane k), the dictionary columns in shared memory and those
+// read through the read-only cache (bit c: slot c).
+int32_t g_last_launch[kGeoWords] = {};
 
 // An int plane: plain (a), const (a: the value's words), delta16 (a: the
 // blocks' bases [B, P], b: u16 offsets [B, R, P]), rle (a: int16 run ids
 // [B, R], b: values [B, Rc, P], rc: Rc) or a dictionary (a: u16 codes
-// [B, R], b: dhi, c: dlo); a plain cmp's c is its code plane, if any.
+// [B, R], b: dhi, c: dlo, rc: its entries); a plain cmp's c is its code
+// plane, if any. raw: where a piece of its per-row array lies in the
+// warp's copy (-1: loaded from the run); dsh: a dictionary's first entry
+// in shared memory (-1: read through the read-only cache).
 struct Leaf {
   const void* a;
   const void* b;
   const void* c;
-  int32_t kind, rc;
+  int32_t kind, rc, raw, dsh;
 };
 
 struct Desc {
@@ -235,6 +283,17 @@ struct Desc {
   int32_t n32, n64;  // a slot's 32-bit and 64-bit words
   int32_t words;     // staged words a row
   int32_t spec_bytes, chunk, n_specs, n_rows;
+  // The encoded build's copies: each bits flag plane's offset in a
+  // piece's copy (valid, tomb, live, then set and isnull a slot; -1: not
+  // copied), whether a piece lies in one block of R rows, a piece's copy
+  // (bytes, 16-byte chunks), the buffers a warp holds (0: no copy), the
+  // dictionaries' shared bytes, and the copied planes (plane index and
+  // first chunk each, in chunk order; cp_first[n_copies] = raw_chunks).
+  int16_t flag_raw[3 + 2 * kMaxCols];
+  int32_t one_block;
+  int32_t raw_bytes, raw_chunks, buffers, dict_bytes, n_copies;
+  int8_t cp_plane[kMaxPlanes];
+  int16_t cp_first[kMaxPlanes + 1];
 };
 
 // (a_hi, a_lo) <= (b_hi, b_lo) and <, lexicographic on signed planes.
@@ -275,42 +334,46 @@ __device__ __forceinline__ bool pred_ok(int op, int planes, const int32_t* v,
   }
 }
 
-// Word p (of P) of row r of an encoded int leaf (not plain).
-__device__ __forceinline__ int32_t leaf_word(const Leaf& L, long long r, int p,
-                                             int P, int R) {
+// Word p (of P) of row r, in block blk of R rows, of an encoded int leaf
+// (not plain): 32-bit block arithmetic, no division.
+__device__ __forceinline__ int32_t leaf_word(const Leaf& L, int r, int blk,
+                                             int p, int P) {
   if (L.kind == kConstLeaf) return __ldg(static_cast<const int32_t*>(L.a) + p);
   if (L.kind == kDelta16) {
-    const long long blk = r / R;
     return static_cast<int32_t>(
         static_cast<uint32_t>(
             __ldg(static_cast<const int32_t*>(L.a) + blk * P + p)) +
-        static_cast<uint32_t>(
-            __ldg(static_cast<const uint16_t*>(L.b) + r * P + p)));
+        static_cast<uint32_t>(__ldg(static_cast<const uint16_t*>(L.b) +
+                                    static_cast<size_t>(r) * P + p)));
   }
   if (L.kind == kRle) {
-    const long long blk = r / R;
     const int id = __ldg(static_cast<const int16_t*>(L.a) + r);
-    return __ldg(static_cast<const int32_t*>(L.b) + (blk * L.rc + id) * P + p);
+    return __ldg(static_cast<const int32_t*>(L.b) +
+                 (static_cast<size_t>(blk) * L.rc + id) * P + p);
   }
   const int code = __ldg(static_cast<const uint16_t*>(L.a) + r);  // kDict
   return __ldg(static_cast<const int32_t*>(p == 0 ? L.b : L.c) + code);
 }
 
-// Word 0 of row r of a slot's order planes (a factor's column).
-__device__ __forceinline__ int32_t col_word(const Desc& d, int c, long long r) {
+// Word 0 of row r (in block blk) of a slot's order planes (a factor's
+// column); the plain build reads plain planes only.
+template <bool kEnc>
+__device__ __forceinline__ int32_t col_word(const Desc& d, int c, int r,
+                                            int blk) {
   const Leaf& L = d.col[c];
-  if (L.kind == kPlain) {
-    return __ldg(static_cast<const int32_t*>(L.a) + r * d.width[c]);
+  if (!kEnc || L.kind == kPlain) {
+    return __ldg(static_cast<const int32_t*>(L.a) +
+                 static_cast<size_t>(r) * d.width[c]);
   }
-  return leaf_word(L, r, 0, d.width[c], d.rows_per_block);
+  return leaf_word(L, r, blk, 0, d.width[c]);
 }
 
-// A factor's postfix program at row r, in wrapping int32 arithmetic (as
-// the JAX program's int32 ops). Its columns' words are loaded as the
-// program reaches them; its stack is kept in shared memory, entry k at
-// stk(k).
-template <class Slot>
-__device__ int32_t eval_factor(const Desc& d, int a, int f, long long r,
+// A factor's postfix program at row r (in block blk), in wrapping int32
+// arithmetic (as the JAX program's int32 ops). Its columns' words are
+// loaded as the program reaches them; its stack is kept in shared memory,
+// entry k at stk(k).
+template <bool kEnc, class Slot>
+__device__ int32_t eval_factor(const Desc& d, int a, int f, int r, int blk,
                                Slot stk) {
   int sp = 0;
 #pragma unroll 1
@@ -321,7 +384,7 @@ __device__ int32_t eval_factor(const Desc& d, int a, int f, long long r,
     if (op == kConst) {
       *stk(sp++) = static_cast<uint32_t>(arg);
     } else if (op == kColumn) {
-      *stk(sp++) = static_cast<uint32_t>(col_word(d, arg, r));
+      *stk(sp++) = static_cast<uint32_t>(col_word<kEnc>(d, arg, r, blk));
     } else {
       const uint32_t rt = *stk(--sp);
       const uint32_t l = *stk(--sp);
@@ -513,129 +576,240 @@ __device__ __forceinline__ uint32_t spread4(uint32_t nib) {
          ((nib & 8u) << 21);
 }
 
-// A bool plane's kRows rows from row `at` (a multiple of 4): bytes, or the
-// four bits of a bits leaf's word.
-__device__ __forceinline__ uint32_t ld_flags(const uint8_t* p, bool bits,
-                                             int at) {
-  if (!bits) return ldb(p + at);
-  const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(p) + (at >> 5));
-  return spread4((w >> (at & 31)) & 15u);
+// The encoded build's view of a warp's piece for one lane: the warp's
+// copy of the piece's copied leaves, the lane, its first row (row 0 past
+// the run's end) and each of its rows' block of R rows (all equal where
+// the piece lies in one block: `one`), the block's shared dictionaries.
+struct Piece {
+  const unsigned char* raw;
+  const int2* dicts;
+  int lane, at;
+  int blk[kRows];
+  bool one;
+};
+
+// A bool plane's kRows rows as 0/1 bytes: bytes from the run, or the
+// four bits of a bits leaf's word, from the warp's copy (raw >= 0) or the
+// run.
+__device__ __forceinline__ uint32_t enc_flags(const uint8_t* p, bool bits,
+                                              int raw, const Piece& pc) {
+  if (!bits) return ldb(p + pc.at);
+  const uint32_t w =
+      raw >= 0 ? *reinterpret_cast<const uint32_t*>(pc.raw + raw +
+                                                    4 * (pc.lane >> 3))
+               : __ldg(reinterpret_cast<const uint32_t*>(p) + (pc.at >> 5));
+  return spread4((w >> (pc.at & 31)) & 15u);
 }
 
-// Four rows from `at` of a one-plane int leaf.
-__device__ __forceinline__ uint4 ld_narrow_leaf(const Leaf& L, int at, int R) {
-  if (L.kind == kPlain) return ld_narrow(static_cast<const int32_t*>(L.a) + at);
-  return make_uint4(leaf_word(L, at, 0, 1, R), leaf_word(L, at + 1, 0, 1, R),
-                    leaf_word(L, at + 2, 0, 1, R),
-                    leaf_word(L, at + 3, 0, 1, R));
+// The kRows u16 words (offsets, run ids or codes) of a one-plane per-row
+// array: one 8-byte load from the copy, else from the run (one 8-byte
+// load where the array is 8-byte aligned, else four).
+__device__ __forceinline__ uint2 u16x4(const void* arr, int raw,
+                                       const Piece& pc) {
+  if (raw >= 0) {
+    return *reinterpret_cast<const uint2*>(pc.raw + raw + 8 * pc.lane);
+  }
+  const unsigned short* p = static_cast<const unsigned short*>(arr) + pc.at;
+  if ((reinterpret_cast<uintptr_t>(p) & 7u) == 0) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  return make_uint2(__ldg(p) | static_cast<uint32_t>(__ldg(p + 1)) << 16,
+                    __ldg(p + 2) | static_cast<uint32_t>(__ldg(p + 3)) << 16);
 }
 
-// Four rows from `at` of a two-plane leaf: the hi plane and the lo plane.
-__device__ __forceinline__ void ld_wide_leaf(const Leaf& L, int at, int R,
-                                             uint4& hi, uint4& lo) {
+__device__ __forceinline__ uint32_t lo16(uint32_t x) { return x & 0xffffu; }
+__device__ __forceinline__ uint32_t hi16(uint32_t x) { return x >> 16; }
+
+// Four rows of a one-plane int leaf (plain, const, delta16 or rle).
+__device__ __forceinline__ uint4 enc_narrow(const Leaf& L, const Piece& pc) {
+  if (L.kind == kPlain) return ld_narrow(static_cast<const int32_t*>(L.a) + pc.at);
+  if (L.kind == kConstLeaf) {
+    const uint32_t v = __ldg(static_cast<const uint32_t*>(L.a));
+    return make_uint4(v, v, v, v);
+  }
+  const uint2 w = u16x4(L.kind == kDelta16 ? L.b : L.a, L.raw, pc);
+  const uint32_t o0 = lo16(w.x), o1 = hi16(w.x), o2 = lo16(w.y),
+                 o3 = hi16(w.y);
+  if (L.kind == kDelta16) {
+    const uint32_t* base = static_cast<const uint32_t*>(L.a);
+    if (pc.one) {
+      const uint32_t b = __ldg(base + pc.blk[0]);
+      return make_uint4(b + o0, b + o1, b + o2, b + o3);
+    }
+    return make_uint4(__ldg(base + pc.blk[0]) + o0,
+                      __ldg(base + pc.blk[1]) + o1,
+                      __ldg(base + pc.blk[2]) + o2,
+                      __ldg(base + pc.blk[3]) + o3);
+  }
+  const uint32_t* vals = static_cast<const uint32_t*>(L.b);  // kRle
+  if (pc.one) {
+    const uint32_t* v = vals + static_cast<size_t>(pc.blk[0]) * L.rc;
+    return make_uint4(__ldg(v + o0), __ldg(v + o1), __ldg(v + o2),
+                      __ldg(v + o3));
+  }
+  return make_uint4(__ldg(vals + static_cast<size_t>(pc.blk[0]) * L.rc + o0),
+                    __ldg(vals + static_cast<size_t>(pc.blk[1]) * L.rc + o1),
+                    __ldg(vals + static_cast<size_t>(pc.blk[2]) * L.rc + o2),
+                    __ldg(vals + static_cast<size_t>(pc.blk[3]) * L.rc + o3));
+}
+
+// A dictionary entry: (dhi, dlo) of code k, from shared memory or through
+// the read-only cache.
+__device__ __forceinline__ int2 dict_entry(const Leaf& L, const Piece& pc,
+                                           uint32_t k) {
+  if (L.dsh >= 0) return pc.dicts[L.dsh + k];
+  return make_int2(__ldg(static_cast<const int32_t*>(L.b) + k),
+                   __ldg(static_cast<const int32_t*>(L.c) + k));
+}
+
+// Four rows of a two-plane leaf: the hi plane and the lo plane.
+__device__ __forceinline__ void enc_wide(const Leaf& L, const Piece& pc,
+                                         uint4& hi, uint4& lo) {
   if (L.kind == kPlain) {
-    ld_wide(static_cast<const int32_t*>(L.a) + 2 * at, hi, lo);
-  } else if (L.kind == kDict) {
-    const uint2 cw =
-        __ldg(reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(L.a) +
-                                             at));
-    const int c0 = cw.x & 0xffffu, c1 = cw.x >> 16, c2 = cw.y & 0xffffu,
-              c3 = cw.y >> 16;
-    const int32_t* dh = static_cast<const int32_t*>(L.b);
-    const int32_t* dl = static_cast<const int32_t*>(L.c);
-    hi = make_uint4(__ldg(dh + c0), __ldg(dh + c1), __ldg(dh + c2),
-                    __ldg(dh + c3));
-    lo = make_uint4(__ldg(dl + c0), __ldg(dl + c1), __ldg(dl + c2),
-                    __ldg(dl + c3));
-  } else {
-    hi = make_uint4(leaf_word(L, at, 0, 2, R), leaf_word(L, at + 1, 0, 2, R),
-                    leaf_word(L, at + 2, 0, 2, R),
-                    leaf_word(L, at + 3, 0, 2, R));
-    lo = make_uint4(leaf_word(L, at, 1, 2, R), leaf_word(L, at + 1, 1, 2, R),
-                    leaf_word(L, at + 2, 1, 2, R),
-                    leaf_word(L, at + 3, 1, 2, R));
+    ld_wide(static_cast<const int32_t*>(L.a) + 2 * pc.at, hi, lo);
+  } else if (L.kind == kConstLeaf) {
+    const uint32_t* v = static_cast<const uint32_t*>(L.a);
+    const uint32_t h = __ldg(v), l = __ldg(v + 1);
+    hi = make_uint4(h, h, h, h);
+    lo = make_uint4(l, l, l, l);
+  } else if (L.kind == kDelta16) {
+    // Each row's two offsets as one word: plane 0 low, plane 1 high.
+    uint4 w;
+    const unsigned short* p =
+        static_cast<const unsigned short*>(L.b) + 2 * pc.at;
+    if (L.raw >= 0) {
+      w = *reinterpret_cast<const uint4*>(pc.raw + L.raw + 16 * pc.lane);
+    } else if ((reinterpret_cast<uintptr_t>(p) & 15u) == 0) {
+      w = __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+      w = make_uint4(__ldg(p) | static_cast<uint32_t>(__ldg(p + 1)) << 16,
+                     __ldg(p + 2) | static_cast<uint32_t>(__ldg(p + 3)) << 16,
+                     __ldg(p + 4) | static_cast<uint32_t>(__ldg(p + 5)) << 16,
+                     __ldg(p + 6) | static_cast<uint32_t>(__ldg(p + 7)) << 16);
+    }
+    const uint2* base = static_cast<const uint2*>(L.a);
+    if (pc.one) {
+      const uint2 b = __ldg(base + pc.blk[0]);
+      hi = make_uint4(b.x + lo16(w.x), b.x + lo16(w.y), b.x + lo16(w.z),
+                      b.x + lo16(w.w));
+      lo = make_uint4(b.y + hi16(w.x), b.y + hi16(w.y), b.y + hi16(w.z),
+                      b.y + hi16(w.w));
+    } else {
+      const uint2 b0 = __ldg(base + pc.blk[0]), b1 = __ldg(base + pc.blk[1]),
+                  b2 = __ldg(base + pc.blk[2]), b3 = __ldg(base + pc.blk[3]);
+      hi = make_uint4(b0.x + lo16(w.x), b1.x + lo16(w.y), b2.x + lo16(w.z),
+                      b3.x + lo16(w.w));
+      lo = make_uint4(b0.y + hi16(w.x), b1.y + hi16(w.y), b2.y + hi16(w.z),
+                      b3.y + hi16(w.w));
+    }
+  } else if (L.kind == kRle) {
+    const uint2 w = u16x4(L.a, L.raw, pc);
+    const uint2* vals = static_cast<const uint2*>(L.b);
+    const size_t r0 = static_cast<size_t>(pc.blk[0]) * L.rc;
+    const size_t r1 = pc.one ? r0 : static_cast<size_t>(pc.blk[1]) * L.rc;
+    const size_t r2 = pc.one ? r0 : static_cast<size_t>(pc.blk[2]) * L.rc;
+    const size_t r3 = pc.one ? r0 : static_cast<size_t>(pc.blk[3]) * L.rc;
+    const uint2 v0 = __ldg(vals + r0 + lo16(w.x)),
+                v1 = __ldg(vals + r1 + hi16(w.x)),
+                v2 = __ldg(vals + r2 + lo16(w.y)),
+                v3 = __ldg(vals + r3 + hi16(w.y));
+    hi = make_uint4(v0.x, v1.x, v2.x, v3.x);
+    lo = make_uint4(v0.y, v1.y, v2.y, v3.y);
+  } else {  // kDict
+    const uint2 w = u16x4(L.a, L.raw, pc);
+    const int2 e0 = dict_entry(L, pc, lo16(w.x)),
+               e1 = dict_entry(L, pc, hi16(w.x)),
+               e2 = dict_entry(L, pc, lo16(w.y)),
+               e3 = dict_entry(L, pc, hi16(w.y));
+    hi = make_uint4(e0.x, e1.x, e2.x, e3.x);
+    lo = make_uint4(e0.y, e1.y, e2.y, e3.y);
   }
 }
 
-// Four rows from `at` of a slot's order planes (width 1 or 2).
-__device__ __forceinline__ void ld_col(const Desc& d, int c, int at, uint4& hi,
-                                       uint4& lo) {
-  if (d.width[c] == 2) {
-    ld_wide_leaf(d.col[c], at, d.rows_per_block, hi, lo);
-  } else {
-    hi = lo = ld_narrow_leaf(d.col[c], at, d.rows_per_block);
-  }
-}
-
-// Four codes from `at` of a slot a code predicate reads: the dictionary
-// leaf's codes, or the code plane beside a plain column's planes.
-__device__ __forceinline__ uint4 ld_code(const Leaf& L, int at) {
+// Four codes of a slot a code predicate reads: the dictionary leaf's
+// codes, or the code plane beside a plain column's planes.
+__device__ __forceinline__ uint4 enc_code(const Leaf& L, const Piece& pc) {
   if (L.kind == kDict) {
-    const uint2 cw =
-        __ldg(reinterpret_cast<const uint2*>(static_cast<const uint16_t*>(L.a) +
-                                             at));
-    return make_uint4(cw.x & 0xffffu, cw.x >> 16, cw.y & 0xffffu, cw.y >> 16);
+    const uint2 w = u16x4(L.a, L.raw, pc);
+    return make_uint4(lo16(w.x), hi16(w.x), lo16(w.y), hi16(w.y));
   }
-  return ld_narrow(static_cast<const int32_t*>(L.c) + at);
+  return ld_narrow(static_cast<const int32_t*>(L.c) + pc.at);
 }
 
-// The loads of the two builds: kEnc decodes leaves, the plain build reads
-// plain planes only.
+// The loads of the two builds: kEnc decodes leaves (from the warp's copy
+// where the piece was copied), the plain build reads plain planes only.
 template <bool kEnc>
 __device__ __forceinline__ uint32_t load_flags(const uint8_t* p, bool bits,
-                                               int at) {
+                                               int raw, const Piece& pc) {
   if constexpr (kEnc) {
-    return ld_flags(p, bits, at);
+    return enc_flags(p, bits, raw, pc);
   } else {
-    return ldb(p + at);
+    return ldb(p + pc.at);
   }
 }
 
 template <bool kEnc>
-__device__ __forceinline__ uint4 load_int(const Leaf& L, int at, int R) {
+__device__ __forceinline__ uint4 load_int(const Leaf& L, const Piece& pc) {
   if constexpr (kEnc) {
-    return ld_narrow_leaf(L, at, R);
+    return enc_narrow(L, pc);
   } else {
-    return ld_narrow(static_cast<const int32_t*>(L.a) + at);
+    return ld_narrow(static_cast<const int32_t*>(L.a) + pc.at);
   }
 }
 
 template <bool kEnc>
-__device__ __forceinline__ void load_col(const Desc& d, int c, int at,
-                                         uint4& hi, uint4& lo) {
+__device__ __forceinline__ void load_col(const Desc& d, int c,
+                                         const Piece& pc, uint4& hi,
+                                         uint4& lo) {
   if constexpr (kEnc) {
-    ld_col(d, c, at, hi, lo);
+    if (d.width[c] == 2) {
+      enc_wide(d.col[c], pc, hi, lo);
+    } else {
+      hi = lo = enc_narrow(d.col[c], pc);
+    }
   } else {
     const int32_t* p = static_cast<const int32_t*>(d.col[c].a);
     if (d.width[c] == 2) {
-      ld_wide(p + 2 * at, hi, lo);
+      ld_wide(p + 2 * pc.at, hi, lo);
     } else {
-      hi = lo = ld_narrow(p + at);
+      hi = lo = ld_narrow(p + pc.at);
     }
   }
 }
 
-// Stages a warp's piece: every plane of the lane's kRows rows from row0
+template <bool kEnc>
+__device__ __forceinline__ uint4 load_code(const Leaf& L, const Piece& pc) {
+  if constexpr (kEnc) {
+    return enc_code(L, pc);
+  } else {
+    return ld_narrow(static_cast<const int32_t*>(L.c) + pc.at);
+  }
+}
+
+// Stages a warp's piece: every plane of the lane's kRows rows (pc.at on)
 // loaded once, and what no spec changes decoded into `my` (word k of the
-// lane's rows at my + k * kPieceRows). Returns the lane's candidate bits.
+// lane's rows at my + k * kPieceRows). `in`: the rows lie in the run.
+// Returns the lane's candidate bits.
 template <int kCols, bool kEnc>
 __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
-                                                int row0) {
-  const bool in = row0 < d.n_rows;  // n_rows is a multiple of kRows
-  const int at = in ? row0 : 0;     // past the end: row 0, no candidate
-  const int R = d.rows_per_block;
-  const uint32_t vb = load_flags<kEnc>(d.valid, d.bits_top & 1u, at),
-                 tb = load_flags<kEnc>(d.tomb, d.bits_top & 2u, at),
-                 lb = load_flags<kEnc>(d.live, d.bits_top & 4u, at);
-  const uint4 hh = load_int<kEnc>(d.ht_hi, at, R),
-              hl = load_int<kEnc>(d.ht_lo, at, R);
-  const uint4 eh = load_int<kEnc>(d.exp_hi, at, R),
-              el = load_int<kEnc>(d.exp_lo, at, R);
+                                                const Piece& pc, bool in) {
+  const uint32_t vb = load_flags<kEnc>(d.valid, d.bits_top & 1u,
+                                       d.flag_raw[0], pc),
+                 tb = load_flags<kEnc>(d.tomb, d.bits_top & 2u,
+                                       d.flag_raw[1], pc),
+                 lb = load_flags<kEnc>(d.live, d.bits_top & 4u,
+                                       d.flag_raw[2], pc);
+  const uint4 hh = load_int<kEnc>(d.ht_hi, pc),
+              hl = load_int<kEnc>(d.ht_lo, pc);
+  const uint4 eh = load_int<kEnc>(d.exp_hi, pc),
+              el = load_int<kEnc>(d.exp_lo, pc);
   uint32_t sb[kCols], nb[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
-    sb[c] = load_flags<kEnc>(d.set[c], (d.bits_set >> c) & 1u, at);
-    nb[c] = load_flags<kEnc>(d.isnull[c], (d.bits_null >> c) & 1u, at);
+    sb[c] = load_flags<kEnc>(d.set[c], (d.bits_set >> c) & 1u,
+                             d.flag_raw[3 + 2 * c], pc);
+    nb[c] = load_flags<kEnc>(d.isnull[c], (d.bits_null >> c) & 1u,
+                             d.flag_raw[4 + 2 * c], pc);
   }
   uint32_t nn[kRows];  // bit c: slot c set and not NULL
 #pragma unroll
@@ -660,15 +834,17 @@ __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
   sst(my + kExpLo * kPieceRows, el);
 
   // The predicate and group columns' order words (or a code predicate's
-  // code), zeroed where NULL: the plain build unrolls the loop, the
-  // encoded one keeps it rolled (each entry's leaf dispatch is long).
-  auto stage = [&](int v) {
+  // code), zeroed where NULL; both builds unroll the loop (the encoded
+  // one dispatches on the leaf kind once an entry).
+#pragma unroll
+  for (int v = 0; v < kMaxStaged; ++v) {
+    if (v >= d.n_staged) break;
     const int c = d.stg_col[v];
     uint4 hi, lo;
     if (d.stg_code[v]) {
-      hi = lo = ld_code(d.col[c], at);
+      hi = lo = load_code<kEnc>(d.col[c], pc);
     } else {
-      load_col<kEnc>(d, c, at, hi, lo);
+      load_col<kEnc>(d, c, pc, hi, lo);
     }
     const uint32_t z0 = (nn[0] >> c) & 1, z1 = (nn[1] >> c) & 1,
                    z2 = (nn[2] >> c) & 1, z3 = (nn[3] >> c) & 1;
@@ -678,19 +854,6 @@ __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
     if (d.stg_width[v] == 2) {
       sst(dst + kPieceRows, make_uint4(z0 ? lo.x : 0, z1 ? lo.y : 0,
                                        z2 ? lo.z : 0, z3 ? lo.w : 0));
-    }
-  };
-  if constexpr (kEnc) {
-#pragma unroll 1
-    for (int v = 0; v < kMaxStaged; ++v) {
-      if (v >= d.n_staged) break;
-      stage(v);
-    }
-  } else {
-#pragma unroll
-    for (int v = 0; v < kMaxStaged; ++v) {
-      if (v >= d.n_staged) break;
-      stage(v);
     }
   }
 
@@ -730,7 +893,7 @@ __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
     if (d.agg_kind[a] != kSum) continue;
     const uint32_t need = d.agg_need[a];
     uint4 bh, bl;
-    load_col<kEnc>(d, d.agg_col[a], at, bh, bl);
+    load_col<kEnc>(d, d.agg_col[a], pc, bh, bl);
     // Each factor's value a row: affine ones from the column's words,
     // the others by their postfix program, one row at a time, with the
     // sum's limb words (not yet written) as the stack and the results.
@@ -746,7 +909,7 @@ __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
       if (k >= d.agg_nf[a]) continue;
       if (d.fac_affine[a][k]) {
         uint4 col, unused;
-        load_col<kEnc>(d, d.fac_col[a][k], at, col, unused);
+        load_col<kEnc>(d, d.fac_col[a][k], pc, col, unused);
         const uint32_t k0 = static_cast<uint32_t>(d.fac_k0[a][k]),
                        k1 = static_cast<uint32_t>(d.fac_k1[a][k]);
         fc[k] = make_uint4(k0 + k1 * col.x, k0 + k1 * col.y, k0 + k1 * col.z,
@@ -754,8 +917,12 @@ __device__ __forceinline__ uint32_t stage_piece(const Desc& d, uint32_t* my,
       } else {
 #pragma unroll 1
         for (int j = 0; j < kRows; ++j) {
+          // The row's block (not indexed from pc.blk: j is not unrolled).
+          const int blk = !kEnc ? 0
+                          : pc.one ? pc.blk[0]
+                                   : (pc.at + j) / d.rows_per_block;
           *slot(kMaxNodes + j) = static_cast<uint32_t>(
-              eval_factor(d, a, k, at + j, slot));
+              eval_factor<kEnc>(d, a, k, pc.at + j, blk, slot));
         }
         fc[k] = make_uint4(*slot(kMaxNodes), *slot(kMaxNodes + 1),
                            *slot(kMaxNodes + 2), *slot(kMaxNodes + 3));
@@ -1015,10 +1182,96 @@ __device__ __forceinline__ void fold_spec(const Desc& d, const Spec& sp,
   }
 }
 
+// A 16-byte copy into shared memory that bypasses the registers; bytes
+// past `bytes` (of 16) are zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending));
+}
+
+// The per-row array of copied plane k (ops/group_agg.py plane_table's
+// order) and its bytes a piece: a bits plane's words (16), a delta16
+// leaf's offsets (256 a plane word), an rle leaf's run ids or a
+// dictionary's codes (256).
+__device__ __forceinline__ const char* copy_source(const Desc& d, int k,
+                                                   int& piece_bytes) {
+  const void* src;
+  int width = 1;
+  const Leaf* L = nullptr;
+  if (k < 4) {
+    L = &d.ht_hi + k;
+  } else if (k < 7) {
+    src = (&d.valid)[k - 4];
+  } else {
+    const int c = (k - 7) / 3, r = k - 7 - 3 * c;
+    if (r == 2) {
+      L = &d.col[c];
+      width = d.width[c];
+    } else {
+      src = r == 0 ? d.set[c] : d.isnull[c];
+    }
+  }
+  if (L == nullptr) {
+    piece_bytes = kPieceRows / 8;
+    return static_cast<const char*>(src);
+  }
+  piece_bytes = 2 * kPieceRows * (L->kind == kDelta16 ? width : 1);
+  return static_cast<const char*>(L->kind == kDelta16 ? L->b : L->a);
+}
+
+// A copied plane's per-row array and its bytes a piece, resolved once a
+// block (copy_source): looked up in the descriptor by plane index inside
+// the piece loop, they cost the copy build ~5%.
+struct CopySrc {
+  const char* src;
+  int32_t piece_bytes, unused;
+};
+
+// Starts copying piece `piece`'s copied leaves into `buf`, chunk i (16
+// bytes) by lane i mod 32: the chunk table `ctab` gives each chunk's
+// copied plane (low byte, an index into `rtab`) and its index in the
+// plane's piece (high byte). In the run's last piece, bytes past a
+// plane's end are zero-filled.
+__device__ __forceinline__ void copy_piece(const Desc& d,
+                                           const CopySrc* rtab,
+                                           const uint16_t* ctab,
+                                           unsigned char* buf, int piece,
+                                           int lane) {
+  const bool tail = (piece + 1) * kPieceRows > d.n_rows;
+  for (int i = lane; i < d.raw_chunks; i += 32) {
+    const int e = ctab[i];
+    const CopySrc cs = rtab[e & 0xff];
+    const long long at =
+        static_cast<long long>(piece) * cs.piece_bytes + 16 * (e >> 8);
+    int bytes = 16;
+    if (tail) {
+      const long long left =
+          ((static_cast<long long>(d.n_rows) * cs.piece_bytes) / kPieceRows) -
+          at;
+      bytes = left < 0 ? 0 : left < 16 ? static_cast<int>(left) : 16;
+    }
+    cp_async16(buf + 16 * i, bytes ? cs.src + at : cs.src, bytes);
+  }
+}
+
 // kCols: the column slots whose set/isnull a row loads (8 or kMaxCols, the
 // least that holds n_cols), so that a narrow table issues no padding loads;
-// kEnc: some plane is an encoded leaf.
-template <int kCols, bool kEnc>
+// kEnc: some plane is an encoded leaf; kCopy (with kEnc): the pieces'
+// per-row arrays are copied into the warps' buffers. The copy is a build
+// of its own: a launch that copies nothing takes the build without the
+// copy's code.
+template <int kCols, bool kEnc, bool kCopy>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     group_agg_kernel(const __grid_constant__ Desc d,
                      const int32_t* __restrict__ params,
@@ -1036,6 +1289,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   const int ns = min(d.chunk, d.n_specs - s0);
   uint32_t* area = reinterpret_cast<uint32_t*>(smem + d.chunk * d.spec_bytes) +
                    warp * d.words * kPieceRows;
+  // The encoded build's regions after the warps' areas: each warp's
+  // buffers of a piece's copy, the dictionaries, the copied planes'
+  // sources and the chunk table.
+  unsigned char* bufs = smem + d.chunk * d.spec_bytes +
+                        4 * kWarps * kPieceRows * d.words;
+  unsigned char* my_buf = bufs + warp * d.buffers * d.raw_bytes;
+  int2* dicts =
+      reinterpret_cast<int2*>(bufs + kWarps * d.buffers * d.raw_bytes);
+  CopySrc* rtab = reinterpret_cast<CopySrc*>(
+      reinterpret_cast<unsigned char*>(dicts) + d.dict_bytes);
+  uint16_t* ctab = reinterpret_cast<uint16_t*>(rtab + d.n_copies);
 
   // The chunk's records: parameter rows, empty slot tables, zero counts.
   for (int s = 0; s < ns; ++s) {
@@ -1055,6 +1319,32 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   if (tid < d.n_kpl) keymap[tid] = make_int2(d.key_word[tid], d.key_col[tid]);
   for (int i = tid; i < kWarps * kMaxSpecChunk * 2; i += kThreads) {
     (&counts[0][0][0])[i] = 0;
+  }
+  if constexpr (kEnc) {
+    // The copied planes' sources, the chunk table, and the dictionaries
+    // that live in shared memory.
+    if constexpr (kCopy) {
+      for (int r = tid; r < d.n_copies; r += kThreads) {
+        int pb;
+        const char* src = copy_source(d, d.cp_plane[r], pb);
+        rtab[r] = CopySrc{src, pb, 0};
+      }
+      for (int r = 0; r < d.n_copies; ++r) {
+        const int c0 = d.cp_first[r], n = d.cp_first[r + 1] - c0;
+        for (int i = tid; i < n; i += kThreads) {
+          ctab[c0 + i] = static_cast<uint16_t>(r | i << 8);
+        }
+      }
+    }
+    for (int c = 0; c < d.n_cols; ++c) {
+      const Leaf& L = d.col[c];
+      if (L.kind != kDict || L.dsh < 0) continue;
+      for (int i = tid; i < L.rc; i += kThreads) {
+        dicts[L.dsh + i] =
+            make_int2(__ldg(static_cast<const int32_t*>(L.b) + i),
+                      __ldg(static_cast<const int32_t*>(L.c) + i));
+      }
+    }
   }
   __syncthreads();
   if (tid == 0) {
@@ -1081,14 +1371,68 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   long long* tables = out + static_cast<long long>(s0) * (kNumBuckets + 1) *
                                 d.n_out;
   const uint32_t* my = area + kRows * lane;
-  for (int piece = first + blockIdx.x * kWarps + warp; piece < end;
-       piece += gridDim.x * kWarps) {
+  const int stride = gridDim.x * kWarps;
+  int piece = first + blockIdx.x * kWarps + warp;
+  constexpr bool copies = kEnc && kCopy;
+  if constexpr (copies) {
+    if (piece < end) copy_piece(d, rtab, ctab, my_buf, piece, lane);
+    cp_async_commit();
+  }
+  for (int it = 0; piece < end; piece += stride, ++it) {
     const int piece0 = piece * kPieceRows;
     const int row0 = piece0 + kRows * lane;
+    const bool in = row0 < d.n_rows;  // n_rows is a multiple of kRows
+    Piece pc;
+    pc.at = in ? row0 : 0;  // past the end: row 0, no candidate
+    pc.lane = lane;
+    unsigned char* cur = my_buf;
+    if constexpr (kEnc) {
+      pc.one = d.one_block;
+      if (pc.one) {
+        pc.blk[0] = pc.blk[1] = pc.blk[2] = pc.blk[3] =
+            static_cast<int>(static_cast<unsigned>(pc.at) /
+                             static_cast<unsigned>(d.rows_per_block));
+      } else {
+#pragma unroll
+        for (int j = 0; j < kRows; ++j) {
+          pc.blk[j] = static_cast<int>(static_cast<unsigned>(pc.at + j) /
+                                       static_cast<unsigned>(d.rows_per_block));
+        }
+      }
+      pc.dicts = dicts;
+      if constexpr (copies) {
+        // Two buffers: the next piece's copy goes out before this piece
+        // stages; one: after, before it folds.
+        if (d.buffers == 2) {
+          cur = my_buf + (it & 1) * d.raw_bytes;
+          if (piece + stride < end) {
+            copy_piece(d, rtab, ctab, my_buf + ((it + 1) & 1) * d.raw_bytes,
+                       piece + stride, lane);
+          }
+          cp_async_commit();
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+      }
+    } else {
+      pc.one = true;
+      pc.blk[0] = pc.blk[1] = pc.blk[2] = pc.blk[3] = 0;
+      pc.dicts = nullptr;
+    }
+    pc.raw = cur;
     __syncwarp();  // the previous piece's folds are done with the area
     const uint32_t cand =
-        stage_piece<kCols, kEnc>(d, area + kRows * lane, row0);
+        stage_piece<kCols, kEnc>(d, area + kRows * lane, pc, in);
     __syncwarp();
+    if constexpr (copies) {
+      if (d.buffers == 1) {
+        if (piece + stride < end) {
+          copy_piece(d, rtab, ctab, cur, piece + stride, lane);
+        }
+        cp_async_commit();
+      }
+    }
     if (!__any_sync(kFull, cand != 0)) continue;
     uint32_t st;
     bool collide;
@@ -1230,6 +1574,21 @@ void affine(Desc& d, int a, int f) {
   d.fac_col[a][f] = col;
 }
 
+// The kernel of a table of n_cols value columns for a build (0 plain, 1
+// encoded, 2 encoded with the copies).
+using Kernel = void (*)(const Desc, const int32_t*, long long*);
+
+Kernel pick_kernel(int n_cols, int build) {
+  if (n_cols <= 8) {
+    return build == 0   ? group_agg_kernel<8, false, false>
+           : build == 1 ? group_agg_kernel<8, true, false>
+                        : group_agg_kernel<8, true, true>;
+  }
+  return build == 0   ? group_agg_kernel<kMaxCols, false, false>
+         : build == 1 ? group_agg_kernel<kMaxCols, true, false>
+                      : group_agg_kernel<kMaxCols, true, true>;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1237,19 +1596,26 @@ extern "C" {
 // planes: ht_hi, ht_lo, exp_hi, exp_lo, valid, tomb, live, then per column
 // slot: set, isnull, cmp; each plane's first array, 16-byte aligned, over
 // a number of rows that is a multiple of 4. leaves: kLeafWords int64 words
-// a plane: its kind (LeafKind), an rle leaf's run slots, its second and
-// third array (a plain cmp's third: its code plane, or 0); flag planes are
+// a plane: its kind (LeafKind), an rle leaf's run slots or a dictionary's
+// entries, its second and third array (a plain cmp's third: its code
+// plane, or 0), the offset of its piece in a warp's copy (-1: not copied;
+// the copied planes' pieces lie back to back in plane order, each copied
+// array 16-byte aligned) and its dictionary's first entry in shared memory
+// (-1: the read-only cache; back to back in plane order); flag planes are
 // plain or bits, the others any int kind, a cmp also a dictionary.
-// rows_per_block: R (a delta16 or rle leaf's block of a row). desc: kDescWords int32 words (layout in ops/group_agg.py
+// rows_per_block: R (a delta16 or rle leaf's block of a row). desc:
+// kDescWords int32 words (layout in ops/group_agg.py
 // GroupAggPlan.descriptor). params: [n_specs, n_params] int32 on the
 // device. out: [n_specs, kNumBuckets + 1, n_out] int64 on the device.
-// grid_x (blocks a spec chunk) and smem_bytes: ops/group_agg.py
-// launch_geometry.
+// grid_x (blocks a spec chunk), smem_bytes, raw_bytes (a piece's copy),
+// buffers (a warp's copies: 0 without any, else 1 or 2) and dict_bytes:
+// ops/group_agg.py launch_geometry.
 int group_agg_launch(const void* const* planes, const long long* leaves,
                      int n_planes, const int32_t* desc, int n_desc,
                      const int32_t* params, int n_specs, long long n_rows,
                      int rows_per_block, long long* out, int grid_x,
-                     int smem_bytes, void* stream) {
+                     int smem_bytes, int raw_bytes, int buffers,
+                     int dict_bytes, void* stream) {
   if (n_desc != kDescWords) return kErrDescWords;
   Desc d{};
   d.n_cols = desc[0];
@@ -1271,7 +1637,8 @@ int group_agg_launch(const void* const* planes, const long long* leaves,
     const long long* lw = leaves + kLeafWords * k;
     Leaf L{planes[k], reinterpret_cast<const void*>(lw[2]),
            reinterpret_cast<const void*>(lw[3]), static_cast<int32_t>(lw[0]),
-           static_cast<int32_t>(lw[1])};
+           static_cast<int32_t>(lw[1]), static_cast<int32_t>(lw[4]),
+           static_cast<int32_t>(lw[5])};
     return L;
   };
   for (int k = 0; k < n_planes; ++k) {
@@ -1283,7 +1650,7 @@ int group_agg_launch(const void* const* planes, const long long* leaves,
       return kErrPlanes;
     }
     if ((L.kind == kBits && rows_per_block % 32) ||
-        (L.kind == kRle && L.rc < 1) ||
+        ((L.kind == kRle || L.kind == kDict) && L.rc < 1) ||
         ((L.kind == kDelta16 || L.kind == kRle) && L.b == nullptr) ||
         (L.kind == kDict && (L.b == nullptr || L.c == nullptr))) {
       return kErrPlanes;
@@ -1400,6 +1767,7 @@ int group_agg_launch(const void* const* planes, const long long* leaves,
   }
   // Code words in the order of the predicates that first read them
   // (ops/group_agg.py code_cols).
+  const uint32_t code_cols = coded;
   for (int q = 0; q < d.n_preds; ++q) {
     const int c = d.pred_col[q];
     if (!((coded >> c) & 1)) continue;
@@ -1440,8 +1808,70 @@ int group_agg_launch(const void* const* planes, const long long* leaves,
   d.n_specs = n_specs;
   d.spec_bytes = (kSlots * (8 * d.n64 + 4 * d.n32) +
                   4 * d.n_params + 15) & ~15;
+  uint32_t value_cols = staged;  // slots whose order planes staging reads
+  for (int a = 0; a < d.n_aggs; ++a) {
+    if (d.agg_kind[a] != kSum) continue;
+    value_cols |= 1u << d.agg_col[a];
+    for (int f = 0; f < d.agg_nf[a]; ++f) {
+      for (int k = 0; k < kMaxNodes; ++k) {
+        if (d.node_op[a][f][k] == kColumn) value_cols |= 1u << d.node_arg[a][f][k];
+      }
+    }
+  }
+  // The encoded build where a plane the staging reads (every flag and
+  // time plane, the order planes of value_cols and code_cols) is encoded:
+  // a table whose encoded leaves the staging never reads takes the plain
+  // build.
+  bool enc = false;
+  for (int k = 0; k < n_planes; ++k) {
+    const bool read = k < 9 || (k - 7) % 3 != 2 ||
+                      (((value_cols | code_cols) >> ((k - 7) / 3)) & 1u);
+    enc = enc || (read && leaf(k).kind != kPlain);
+  }
+  // The copied planes and the shared dictionaries, back to back in plane
+  // order; every copied array 16-byte aligned.
+  int copied = 0, dict_entries = 0;
+  uint32_t copied_mask[2] = {0, 0}, dict_shared = 0, dict_cached = 0;
+  for (int k = 0; k < n_planes; ++k) {
+    const Leaf L = leaf(k);
+    const bool cmp = k >= 7 && (k - 7) % 3 == 2;
+    if (L.dsh >= 0) {
+      if (L.kind != kDict || L.dsh != dict_entries) return kErrCopy;
+      dict_entries += L.rc;
+      dict_shared |= 1u << ((k - 7) / 3);
+    } else if (L.kind == kDict && ((value_cols >> ((k - 7) / 3)) & 1u)) {
+      dict_cached |= 1u << ((k - 7) / 3);
+    }
+    if (L.raw < 0) continue;
+    if (!enc || L.kind == kPlain || L.kind == kConstLeaf ||
+        L.raw != 16 * copied || d.n_copies >= kMaxPlanes) {
+      return kErrCopy;
+    }
+    const void* src = L.kind == kDelta16 ? L.b : L.a;
+    if (reinterpret_cast<uintptr_t>(src) & 15u) return kErrCopy;
+    const int width = cmp ? d.width[(k - 7) / 3] : 1;
+    const int chunks = L.kind == kBits ? 1
+                       : L.kind == kDelta16 ? 16 * width
+                                            : 16;
+    d.cp_plane[d.n_copies] = static_cast<int8_t>(k);
+    d.cp_first[d.n_copies++] = static_cast<int16_t>(copied);
+    copied += chunks;
+    copied_mask[k >> 5] |= 1u << (k & 31);
+  }
+  d.cp_first[d.n_copies] = static_cast<int16_t>(copied);
+  d.raw_chunks = copied;
+  d.raw_bytes = 16 * copied;
+  d.buffers = buffers;
+  d.dict_bytes = (8 * dict_entries + 15) & ~15;
+  if (d.raw_bytes != raw_bytes || d.dict_bytes != dict_bytes ||
+      buffers < 0 || buffers > 2 || (buffers == 0) != (copied == 0)) {
+    return kErrCopy;
+  }
   const long long need = static_cast<long long>(d.chunk) * d.spec_bytes +
-                         4ll * kWarps * kPieceRows * words;
+                         4ll * kWarps * kPieceRows * words +
+                         static_cast<long long>(kWarps) * buffers * raw_bytes +
+                         dict_bytes +
+                         ((16 * d.n_copies + 2 * copied + 15) & ~15);
   if (need != smem_bytes || need + kStaticBytes > kSmemLimit) return kErrShared;
   for (int k = 0; k < n_planes; ++k) {
     if (reinterpret_cast<uintptr_t>(planes[k]) & 15u) return kErrAlign;
@@ -1471,13 +1901,15 @@ int group_agg_launch(const void* const* planes, const long long* leaves,
     d.bits_null |= (d.bits_top & 1u) << c;
   }
   d.col_mask = (1u << d.n_cols) - 1;
-  bool enc = false;
-  for (int k = 0; k < n_planes; ++k) enc = enc || leaf(k).kind != kPlain;
-  const auto kernel =
-      enc ? (d.n_cols <= 8 ? group_agg_kernel<8, true>
-                           : group_agg_kernel<kMaxCols, true>)
-          : (d.n_cols <= 8 ? group_agg_kernel<8, false>
-                           : group_agg_kernel<kMaxCols, false>);
+  // Each bits flag plane's offset in a piece's copy (slots past n_cols
+  // read the valid plane).
+  for (int i = 0; i < 3 + 2 * kMaxCols; ++i) {
+    const int k = i < 3 + 2 * d.n_cols ? 4 + i + (i >= 3 ? (i - 3) / 2 : 0)
+                                       : 4;
+    d.flag_raw[i] = static_cast<int16_t>(leaf(k).raw);
+  }
+  d.one_block = rows_per_block % kPieceRows == 0;
+  const auto kernel = pick_kernel(d.n_cols, enc ? (buffers ? 2 : 1) : 0);
   if (smem_bytes > kSmemDefault) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -1492,17 +1924,28 @@ int group_agg_launch(const void* const* planes, const long long* leaves,
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess) return static_cast<int>(rc);
   kernel<<<dim3(grid_x, chunks), kThreads, smem_bytes, s>>>(d, params, out);
+  const int32_t geo[kGeoWords] = {
+      enc, kThreads, grid_x, chunks, d.chunk, smem_bytes, raw_bytes, buffers,
+      dict_bytes, static_cast<int32_t>(copied_mask[0]),
+      static_cast<int32_t>(copied_mask[1]), static_cast<int32_t>(dict_shared),
+      static_cast<int32_t>(dict_cached)};
+  for (int i = 0; i < kGeoWords; ++i) g_last_launch[i] = geo[i];
   return static_cast<int>(cudaGetLastError());
 }
 
-// Blocks of the kernel one SM holds at once for a table of n_cols value
-// columns and smem_bytes of dynamic shared memory (registers, threads and
-// shared memory all counted), or a negative CUDA error code. Both builds
-// are capped at the same registers (__launch_bounds__); the plain one is
-// asked.
-int group_agg_occupancy(int n_cols, int smem_bytes) {
-  const auto kernel = n_cols <= 8 ? group_agg_kernel<8, false>
-                                  : group_agg_kernel<kMaxCols, false>;
+// The shape of this process's last launch (kGeoWords words, as
+// g_last_launch says).
+void group_agg_last_launch(int32_t* out) {
+  for (int i = 0; i < kGeoWords; ++i) out[i] = g_last_launch[i];
+}
+
+// Blocks of the kernel's build (0 plain, 1 encoded, 2 encoded with the
+// copies) one SM holds at once for a table of n_cols value columns and
+// smem_bytes of dynamic shared memory (registers, threads and shared
+// memory all counted), or a negative CUDA error code.
+int group_agg_occupancy(int n_cols, int smem_bytes, int build) {
+  if (build < 0 || build > 2) return -static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = pick_kernel(n_cols, build);
   if (smem_bytes > kSmemDefault) {
     const cudaError_t rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -1527,6 +1970,8 @@ const char* group_agg_error_string(int code) {
     case kErrShared: return "shared-memory bytes disagree with the layout";
     case kErrAlign:
       return "a plane is not 16-byte aligned or the rows are not a multiple of 4";
+    case kErrCopy:
+      return "the copied planes or shared dictionaries disagree with the leaves";
     default: return cudaGetErrorString(static_cast<cudaError_t>(code));
   }
 }

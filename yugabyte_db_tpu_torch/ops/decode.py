@@ -14,6 +14,11 @@ as ``cmp`` [B, R, 2] and its int32 code plane beside them as ``code``
 - ``decode_tree`` / ``decode_leaves``: the wrapper. On CUDA tensors one
   launch of the kernel decodes every encoded leaf (``decode_tree.launches``
   counts launches); on CPU tensors it runs ``decode_tree_plain``;
+- ``plan_leaves`` / ``plan_tree``: the launch's part table (``part_rows``:
+  each leaf's 16-byte output units, numbered into work items of
+  ITEM_UNITS units by ``work_items``, its outputs' places in one
+  allocation, its dictionary in shared memory or not), laid out and
+  uploaded once; ``launch`` then copies nothing from the host;
 - ``decode_tree_plain``: the function in torch ops (``ops.encodings``
   ``decode_leaf``, a dictionary's three planes split as above);
 - ``decode_bytes``: the bytes the function must move, for the bound;
@@ -30,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,8 +45,14 @@ from yugabyte_db_tpu_torch.ops import native
 
 # A code plane's column id in a lowered signature: CODE_COL + the column's.
 CODE_COL = 1 << 20
-_KIND = {"bits": 0, "const": 1, "delta16": 2, "rle": 3, "dict": 4}
-LEAF_WORDS = 10  # csrc/decode.cu kLeafWords
+# Part kinds of csrc/decode.cu (a dictionary is two parts: its prefix
+# planes, then its codes), and the words of a part table row.
+_KIND = {"bits": 0, "const": 1, "delta16": 2, "rle": 3, "pair": 4, "code": 5}
+PART_WORDS = 12
+ITEM_UNITS = 256  # 16-byte output units a work item: one a thread
+# Shared bytes a block gives the dictionaries (int2 entries); a larger
+# dictionary is read through the read-only cache.
+DICT_SMEM_CAP = 8192
 
 
 def _split(decoded: torch.Tensor, kind: str) -> dict:
@@ -70,57 +82,181 @@ def decode_tree_plain(tree: dict) -> dict:
     return out
 
 
-def _out_planes(leaf, B: int, R: int, device) -> list[torch.Tensor]:
-    """The empty plain planes an encoded leaf decodes into."""
+def _out_shapes(leaf, B: int, R: int) -> list[tuple]:
+    """(shape, dtype) of each plain plane an encoded leaf decodes into: a
+    dictionary's prefix planes and its code plane, else one plane."""
     k = enc.leaf_kind(leaf)
     e = leaf[k]
     if k == "bits":
-        return [torch.empty((B, R), dtype=torch.bool, device=device)]
+        return [((B, R), torch.bool)]
     if k == "dict":
-        return [torch.empty((B, R, 2), dtype=torch.int32, device=device),
-                torch.empty((B, R), dtype=torch.int32, device=device)]
+        return [((B, R, 2), torch.int32), ((B, R), torch.int32)]
     src = {"const": "cval", "delta16": "doff", "rle": "rvals"}[k]
     tail = tuple(e[src].shape[2:])
     dtype = torch.int32 if k == "delta16" else e[src].dtype
-    return [torch.empty((B, R) + tail, dtype=dtype, device=device)]
+    return [((B, R) + tail, dtype)]
 
 
-def _leaf_row(leaf, outs: list, B: int, R: int) -> list[int]:
-    """A leaf table row (csrc/decode.cu ``Leaf``): kind, units, P, R, Rc,
-    the leaf's arrays, the output planes."""
-    k = enc.leaf_kind(leaf)
-    e = leaf[k]
-    for a in e.values():
-        if not a.is_contiguous():
-            raise ValueError(f"{k} leaf array is not contiguous")
-    P = 1
-    for d in outs[0].shape[2:]:
-        P *= int(d)
-    if k == "bits":
-        arrays, units = [e["bw"]], B * R // 32
-    elif k == "const":
-        arrays, units = [e["cval"]], B * R
-    elif k == "delta16":
-        arrays, units = [e["dbase"], e["doff"]], B * R
-    elif k == "rle":
-        arrays, units = [e["rid"], e["rvals"]], B * R
-    else:
-        arrays, units = [e["codes"], e["dhi"], e["dlo"]], B * R
-        P = 2
-    if k in ("const", "rle") and outs[0].element_size() != 4:
-        raise ValueError(f"{k} leaf of {outs[0].dtype}: the kernel copies "
-                         "4-byte words")
-    Rc = e["rvals"].shape[1] if k == "rle" else 0
-    ptrs = [a.data_ptr() for a in arrays] + [0] * (3 - len(arrays))
-    ptrs += [o.data_ptr() for o in outs] + [0] * (2 - len(outs))
-    return [_KIND[k], units, P, R, Rc, *ptrs]
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
-def decode_leaves(leaves: list, B: int, R: int) -> list[list[torch.Tensor]]:
+def _nbytes(shape, dtype) -> int:
+    return int(np.prod(shape, dtype=np.int64)) * torch.empty(
+        0, dtype=dtype).element_size()
+
+
+class DecodePlan(NamedTuple):
+    """A decode of ``leaves`` (of a [B, R] run) laid out for the kernel:
+    the part table's rows (``rows``, PART_WORDS int64 words a part; on
+    the device as ``table``, None on the CPU), the work items, each
+    leaf's output planes as (byte offset, shape, dtype) in one allocation
+    of ``out_bytes``, and the dictionaries' shared bytes."""
+    B: int
+    R: int
+    rows: np.ndarray
+    table: torch.Tensor | None
+    n_items: int
+    outs: tuple
+    out_bytes: int
+    dict_bytes: int
+
+
+def work_items(units) -> list[int]:
+    """Each part's first work item (ITEM_UNITS units an item, a part's
+    items after the previous parts'), then the item count."""
+    first = [0]
+    for u in units:
+        first.append(first[-1] + -(-int(u) // ITEM_UNITS))
+    return first
+
+
+def part_rows(leaves: list, B: int, R: int,
+              dict_cap: int = DICT_SMEM_CAP) -> tuple:
+    """(rows, outs, out_bytes, dict_bytes): the part table of ``leaves``
+    (csrc/decode.cu's row layout; a dictionary is two parts, its prefix
+    planes then its codes), each leaf's output planes as (byte offset,
+    shape, dtype) in one allocation (each 16-byte aligned), the
+    allocation's bytes, and the dictionaries in shared memory (in leaf
+    order while their int2 entries stay within ``dict_cap`` bytes; the
+    others are read through the read-only cache)."""
+    rows, outs = [], []
+    off = entries = 0
+    if B * R * 8 >= 1 << 34:
+        raise ValueError(f"a [{B}, {R}] run exceeds the decode's 32-bit "
+                         "word index")
+    for leaf in leaves:
+        k = enc.leaf_kind(leaf)
+        e = leaf[k]
+        for name, a in e.items():
+            if not a.is_contiguous():
+                raise ValueError(f"{k} leaf array {name} is not contiguous")
+        shapes = _out_shapes(leaf, B, R)
+        planes = []
+        for shape, dtype in shapes:
+            planes.append((off, shape, dtype))
+            off = _align16(off + _nbytes(shape, dtype))
+        outs.append(tuple(planes))
+        P = int(np.prod(shapes[0][0][2:], dtype=np.int64))
+        n_rows = B * R
+        if k in ("const", "rle") and _nbytes((), shapes[0][1]) != 4:
+            raise ValueError(f"{k} leaf of {shapes[0][1]}: the kernel copies "
+                             "4-byte words")
+        if k == "bits":
+            arrays, units, words = [e["bw"]], n_rows // 16, n_rows // 4
+        elif k == "dict":
+            arrays = [e["codes"], e["dhi"], e["dlo"]]
+        else:
+            arrays = [e[n] for n in {"const": ("cval",),
+                                     "delta16": ("dbase", "doff"),
+                                     "rle": ("rid", "rvals")}[k]]
+            words = n_rows * P
+            units = -(-words // 4)
+        for a in arrays:
+            if a.data_ptr() % (8 if a.element_size() == 2 else 4):
+                raise ValueError(f"{k} leaf array is not aligned for the "
+                                 "kernel's vector loads")
+        ptrs = [a.data_ptr() for a in arrays] + [0] * (3 - len(arrays))
+        if k != "dict":
+            rows.append([_KIND[k], units, P, R,
+                         e["rvals"].shape[1] if k == "rle" else 0, 0, -1,
+                         planes[0][0], *ptrs, words])
+            continue
+        d = e["dhi"].numel()
+        dsh = -1
+        if 8 * (entries + d) <= dict_cap:
+            dsh, entries = entries, entries + d
+        rows.append([_KIND["pair"], -(-2 * n_rows // 4), 2, R, d, 0, dsh,
+                     planes[0][0], *ptrs, 2 * n_rows])
+        rows.append([_KIND["code"], -(-n_rows // 4), 1, R, d, 0, -1,
+                     planes[1][0], *ptrs, n_rows])
+    table = np.array(rows, dtype=np.int64).reshape(-1, PART_WORDS)
+    table[:, 5] = work_items(table[:, 1])[:-1]
+    return table, tuple(outs), off, _align16(8 * entries)
+
+
+def plan_leaves(leaves: list, B: int, R: int) -> DecodePlan:
+    """The decode of ``leaves`` laid out once (``part_rows``), its part
+    table uploaded to the leaves' device (there, a launch copies nothing
+    from the host)."""
+    rows, outs, out_bytes, dict_bytes = part_rows(leaves, B, R)
+    device = next(iter(leaves[0][enc.leaf_kind(leaves[0])].values())).device
+    table = None
+    if device.type == "cuda":  # pinned, and not waited for
+        table = torch.from_numpy(rows).pin_memory().to(device,
+                                                       non_blocking=True)
+    return DecodePlan(B, R, rows, table, work_items(rows[:, 1])[-1], outs,
+                      out_bytes, dict_bytes)
+
+
+def planes_of(plan: DecodePlan, out: torch.Tensor) -> list:
+    """Each leaf's plain planes as views into the allocation ``out``."""
+    return [[out[o:o + _nbytes(shape, dtype)].view(dtype).view(shape)
+             for o, shape, dtype in planes] for planes in plan.outs]
+
+
+def launch_geometry(n_items: int, n_parts: int, dict_bytes: int, sms: int,
+                    per_sm) -> tuple:
+    """(grid, shared bytes) of a launch: the parts' first items (16-byte
+    aligned) and the shared dictionaries; a persistent grid of the
+    blocks ``per_sm(shared bytes)`` holds on each of ``sms`` SMs, but no
+    more than the items."""
+    smem = _align16(4 * (n_parts + 1)) + dict_bytes
+    return max(1, min(n_items, sms * per_sm(smem))), smem
+
+
+def launch(plan: DecodePlan, out: torch.Tensor) -> None:
+    """One launch of K10 writing ``plan``'s planes into ``out`` (a uint8
+    allocation of ``plan.out_bytes`` on the plan's device)."""
+    device = out.device
+    if out.dtype != torch.uint8 or out.numel() < plan.out_bytes or \
+            out.data_ptr() % 16:
+        raise ValueError("the output must be a 16-byte aligned uint8 "
+                         f"allocation of {plan.out_bytes} bytes")
+    lib = _library()
+    grid, smem = launch_geometry(
+        plan.n_items, plan.rows.shape[0], plan.dict_bytes,
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        lambda s: _occupancy(lib, s))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.decode_launch(ctypes.c_void_p(plan.table.data_ptr()),
+                               plan.rows.shape[0], plan.n_items,
+                               ctypes.c_void_p(out.data_ptr()), grid, smem,
+                               ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"decode kernel launch failed ({rc}): "
+                           f"{lib.decode_error_string(rc).decode()}")
+    decode_tree.launches += 1
+
+
+def decode_leaves(leaves: list, B: int, R: int,
+                  plan: DecodePlan | None = None) -> list[list[torch.Tensor]]:
     """Each encoded leaf of ``leaves`` (of a [B, R] run) decoded: a list of
     its plain planes (a dictionary's: the prefix planes and the code
-    plane). One launch of the kernel for CUDA tensors, the plain version
-    for CPU tensors, a raise for anything else."""
+    plane). On CUDA tensors one launch of the kernel, into a new
+    allocation, over ``plan`` (``plan_leaves``, made here when None);
+    the plain version for CPU tensors; a raise for anything else."""
     if not leaves:
         return []
     first = next(iter(leaves[0][enc.leaf_kind(leaves[0])].values()))
@@ -133,58 +269,59 @@ def decode_leaves(leaves: list, B: int, R: int) -> list[list[torch.Tensor]]:
         return out
     if device.type != "cuda":
         raise ValueError(f"decode runs on cuda or cpu, not {device}")
-    outs = [_out_planes(leaf, B, R, device) for leaf in leaves]
-    table = np.array([_leaf_row(leaf, o, B, R)
-                      for leaf, o in zip(leaves, outs)], dtype=np.int64)
-    lib = _library()
-    # Pinned and not waited for: the launch queues behind the copy.
-    dev_table = torch.from_numpy(table).pin_memory().to(device,
-                                                        non_blocking=True)
-    max_units = int(table[:, 1].max())
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.decode_launch(ctypes.c_void_p(dev_table.data_ptr()),
-                               len(leaves), max_units,
-                               ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"decode kernel launch failed ({rc}): "
-                           f"{lib.decode_error_string(rc).decode()}")
-    decode_tree.launches += 1
-    return outs
+    plan = plan or plan_leaves(leaves, B, R)
+    out = torch.empty(plan.out_bytes, dtype=torch.uint8, device=device)
+    launch(plan, out)
+    return planes_of(plan, out)
 
 
-def decode_tree(tree: dict) -> dict:
-    """The plain tree of an encoded run tree (``decode_tree_plain``'s
-    function): every encoded leaf decoded by one launch of K10 on CUDA
-    tensors, by the plain version on CPU tensors; plain leaves are the
-    tree's own tensors."""
-    B, R = enc.tree_dims(tree)
+def tree_leaves(tree: dict) -> tuple:
+    """(where, leaves): the encoded leaves of a run tree and where each
+    sits ((None, name) or (column id, name))."""
     where, leaves = [], []
-    out = {"cols": {}}
     for name, leaf in tree.items():
-        if name == "cols":
-            continue
-        if enc.leaf_kind(leaf) is None:
-            out[name] = leaf
-        else:
+        if name != "cols" and enc.leaf_kind(leaf) is not None:
             where.append((None, name))
             leaves.append(leaf)
     for cid, col in tree["cols"].items():
-        out["cols"][cid] = {}
         for n, leaf in col.items():
-            if enc.leaf_kind(leaf) is None:
-                out["cols"][cid][n] = leaf
-            else:
+            if enc.leaf_kind(leaf) is not None:
                 where.append((cid, n))
                 leaves.append(leaf)
-    for (cid, n), planes in zip(where, decode_leaves(leaves, B, R)):
+    return where, leaves
+
+
+def plan_tree(tree: dict) -> DecodePlan:
+    """``plan_leaves`` over a run tree's encoded leaves (``tree_leaves``'
+    order)."""
+    B, R = enc.tree_dims(tree)
+    return plan_leaves(tree_leaves(tree)[1], B, R)
+
+
+def assemble(tree: dict, planes: list) -> dict:
+    """The plain tree of ``tree`` with its encoded leaves replaced by
+    their decoded ``planes`` (``tree_leaves``' order)."""
+    out = {name: leaf for name, leaf in tree.items() if name != "cols"}
+    out["cols"] = {cid: dict(col) for cid, col in tree["cols"].items()}
+    for (cid, n), got in zip(tree_leaves(tree)[0], planes):
         if cid is None:
-            out[n] = planes[0]
-        elif len(planes) == 2:
-            out["cols"][cid].update(cmp=planes[0], code=planes[1])
+            out[n] = got[0]
+        elif len(got) == 2:
+            out["cols"][cid].update(cmp=got[0], code=got[1])
         else:
-            out["cols"][cid][n] = planes[0]
+            out["cols"][cid][n] = got[0]
     return out
+
+
+def decode_tree(tree: dict, plan: DecodePlan | None = None) -> dict:
+    """The plain tree of an encoded run tree (``decode_tree_plain``'s
+    function): every encoded leaf decoded by one launch of K10 on CUDA
+    tensors (over ``plan``, ``plan_tree``'s, made here when None), by the
+    plain version on CPU tensors; plain leaves are the tree's own
+    tensors."""
+    B, R = enc.tree_dims(tree)
+    _where, leaves = tree_leaves(tree)
+    return assemble(tree, decode_leaves(leaves, B, R, plan))
 
 
 # Kernel launches since the count was last set to 0.
@@ -197,23 +334,11 @@ def decode_bytes(tree: dict) -> int:
     nothing)."""
     B, R = enc.tree_dims(tree)
     total = 0
-
-    def one(leaf):
-        nonlocal total
-        k = enc.leaf_kind(leaf)
-        if k is None:
-            return
-        total += sum(a.numel() * a.element_size() for a in leaf[k].values())
-        total += sum(o.numel() * o.element_size()
-                     for o in _out_planes(leaf, B, R, "meta"))
-
-    for name, leaf in tree.items():
-        if name == "cols":
-            for col in leaf.values():
-                for p in col.values():
-                    one(p)
-        else:
-            one(leaf)
+    for leaf in tree_leaves(tree)[1]:
+        total += sum(a.numel() * a.element_size()
+                     for a in leaf[enc.leaf_kind(leaf)].values())
+        total += sum(_nbytes(shape, dtype)
+                     for shape, dtype in _out_shapes(leaf, B, R))
     return total
 
 
@@ -222,18 +347,28 @@ def _library() -> ctypes.CDLL:
     return bind(native.load_library("decode"))
 
 
+@functools.lru_cache(maxsize=16)
+def _occupancy(lib: ctypes.CDLL, smem_bytes: int) -> int:
+    blocks = lib.decode_occupancy(smem_bytes)
+    if blocks < 1:
+        raise RuntimeError(f"decode occupancy query failed ({blocks})")
+    return blocks
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of the kernel's C
     interface set."""
-    lib.decode_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                  ctypes.c_longlong, ctypes.c_void_p]
-    lib.decode_launch.restype = ctypes.c_int
-    lib.decode_leaf_words.argtypes = []
-    lib.decode_leaf_words.restype = ctypes.c_int
-    lib.decode_error_string.argtypes = [ctypes.c_int]
+    I, P = ctypes.c_int, ctypes.c_void_p
+    lib.decode_launch.argtypes = [P, I, I, P, I, I, P]
+    lib.decode_launch.restype = I
+    lib.decode_occupancy.argtypes = [I]
+    lib.decode_occupancy.restype = I
+    lib.decode_part_words.argtypes = []
+    lib.decode_part_words.restype = I
+    lib.decode_error_string.argtypes = [I]
     lib.decode_error_string.restype = ctypes.c_char_p
-    if lib.decode_leaf_words() != LEAF_WORDS:
-        raise RuntimeError("csrc/decode.cu's leaf table differs from "
+    if lib.decode_part_words() != PART_WORDS:
+        raise RuntimeError("csrc/decode.cu's part table differs from "
                            "ops/decode.py's")
     return lib
 

@@ -37,12 +37,21 @@ murmur3 fmix step, modulo ``NUM_BUCKETS``.
   launches;
 - ``launch_geometry``: the launch shape (chunks of specs on grid.y, one
   wave of blocks walking 128-row pieces on grid.x) and the shared bytes
-  (``tile_bytes``, ``spec_bytes``), pure Python;
+  (``tile_bytes``, ``spec_bytes``, and an encoded table's copies and
+  dictionaries: ``copy_layout``), pure Python and the single source of
+  the partition; ``plan_launch`` picks the layout that fits, and
+  ``last_launch`` is the shape the library reports for its last launch;
 - ``group_bytes``: the bytes the function must move, for the bound.
 
 The planes may be a run's encoded leaves (``ops.encodings``): K8 decodes
 them as it stages its tiles, a leaf descriptor a plane (kind, arrays,
-run slots), so a run's encoded tree is read as it is resident. A
+run slots or dictionary entries), so a run's encoded tree is read as it
+is resident. The encoded build copies each piece's per-row arrays (bits
+words, u16 offsets, run ids, codes) into its warp's buffer in shared
+memory one piece ahead (``copy_layout``: a 16-byte aligned array of a
+plane the staging reads; the others are loaded from the run), and keeps
+the dictionaries the staging reads in shared memory up to
+``DICT_SMEM_CAP`` bytes (past it, through the read-only cache). A
 promoted string predicate (kind ``"code"``) compares its dictionary
 column's code plane: the dictionary leaf's codes, or on a plain tree
 (a view, a side-car) the ``code`` plane beside the column's ``cmp``,
@@ -94,7 +103,18 @@ _PLANES = {"i32": 1, "i64": 2, "f64": 2, "code": 1}
 CODE_PLANES = 3  # a code predicate's planes word in the descriptor
 # Leaf kinds of csrc/group_agg.cu's leaf table.
 _LEAF = {None: 0, "bits": 1, "const": 2, "delta16": 3, "rle": 4, "dict": 5}
-LEAF_WORDS = 4  # kind, run slots, second and third array of a leaf
+# A leaf's words: kind, rle run slots or dictionary entries, second and
+# third array, its piece's offset in a warp's copy, its dictionary's first
+# entry in shared memory (-1: none).
+LEAF_WORDS = 6
+# Shared bytes a block gives the dictionaries the encoded build stages
+# (int2 entries); a dictionary past them is read through the read-only
+# cache. Lineitem's hold 4 entries each (32 bytes).
+DICT_SMEM_CAP = 2048
+# The per-row array of a leaf kind that the encoded build copies, and its
+# bytes a piece (PIECE_ROWS rows) a plane word.
+_COPIED = {"bits": ("bw", PIECE_ROWS // 8), "delta16": ("doff", 2 * PIECE_ROWS),
+           "rle": ("rid", 2 * PIECE_ROWS), "dict": ("codes", 2 * PIECE_ROWS)}
 # Factor nodes (postfix): end, constant, column, +, -, *.
 _NODE = {"k": 1, "c": 2, "+": 3, "-": 4, "*": 5}
 # Hash constants of the JAX program, as uint32.
@@ -129,7 +149,9 @@ def _nodes(expr) -> list:
 
 
 def eligible(sig: GroupAggSig) -> bool:
-    """Whether the kernel's descriptor takes ``sig``."""
+    """Whether the kernel's descriptor takes ``sig`` and a block holds
+    its warps' areas, a chunk of specs and DICT_SMEM_CAP bytes of
+    dictionaries."""
     if len(sig.cols) > MAX_COLS or len(sig.preds) > MAX_PREDS or \
             len(sig.group_cols) > MAX_GROUP or len(sig.aggs) > MAX_AGGS:
         return False
@@ -141,7 +163,7 @@ def eligible(sig: GroupAggSig) -> bool:
             return False
     n_params = PARAM_HEAD + sum(_PLANES[p.kind] for p in sig.preds)
     return (tile_bytes(sig) + SPEC_CHUNK * spec_bytes(sig, n_params)
-            + STATIC_SMEM <= SMEM_LIMIT)
+            + DICT_SMEM_CAP + STATIC_SMEM <= SMEM_LIMIT)
 
 
 def key_planes(sig: GroupAggSig) -> int:
@@ -349,11 +371,129 @@ def _leaf_arrays(entry) -> list:
                            "dict": ("codes", "dhi", "dlo")}[k]]
 
 
-def leaf_table(plan: GroupAggPlan, table: list) -> tuple:
+class CopyLayout(NamedTuple):
+    """What the encoded build keeps in shared memory for a plane table
+    (``copy_layout``): per plane of the table's columns (the first 7 + 3
+    n_cols), the offset of its piece in a warp's copy (``raw``) and its
+    dictionary's first entry (``dsh``), -1 where none; the bytes of a
+    piece's copy and of the dictionaries; and masks: ``copied`` (bit k:
+    plane k), ``dict_shared`` and ``dict_cached`` (bit c: slot c's
+    dictionary in shared memory, or read through the read-only cache)."""
+    encoded: bool
+    raw: tuple
+    dsh: tuple
+    raw_bytes: int
+    dict_bytes: int
+    copied: int
+    dict_shared: int
+    dict_cached: int
+    loaded_bytes: int = 0  # a piece's bytes the staging loads from the run
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def value_cols(plan: GroupAggPlan) -> set:
+    """The column slots whose order planes the staging reads (predicates
+    other than code ones, group columns, each sum's base and its factors'
+    columns)."""
+    sig = plan.sig
+    cids = {p.col_id for p in sig.preds if p.kind != "code"}
+    cids |= {c for c, _p in sig.group_cols}
+    for a in sig.aggs:
+        if a.kind == "count":
+            continue
+        cids.add(a.col_id)
+        for f in a.factors:
+            cids |= {n[1] for n in _nodes(f) if n[0] == "c"}
+    return {plan.slot[c] for c in cids}
+
+
+def copy_layout(plan: GroupAggPlan, table: list, copies: bool = True,
+                dict_cap: int = DICT_SMEM_CAP) -> CopyLayout:
+    """The shared-memory layout of the encoded build over ``table``:
+
+    - copied, in plane order, each plane the staging reads (every flag
+      and time plane, the order planes of ``value_cols`` and of the code
+      predicates' columns) whose leaf has a per-row array (``_COPIED``)
+      that is 16-byte aligned, its pieces back to back; the others are
+      loaded from the run (``copies`` False: none is copied);
+    - in shared memory, in plane order, each dictionary of a
+      ``value_cols`` column while the entries (8 bytes each) stay within
+      ``dict_cap`` bytes; past it, read through the read-only cache.
+
+    A table whose planes the staging reads are all plain takes the plain
+    build: nothing of this."""
+    n = 7 + 3 * len(plan.col_ids)
+    raw, dsh = [-1] * n, [-1] * n
+    values = value_cols(plan)
+    read = set(range(7))
+    for k, cid in enumerate(plan.col_ids):
+        read |= {7 + 3 * k, 8 + 3 * k}
+        if k in values or cid in plan.code_cols:
+            read.add(9 + 3 * k)
+    if not any(enc.leaf_kind(table[k]) is not None for k in read):
+        return CopyLayout(False, tuple(raw), tuple(dsh), 0, 0, 0, 0, 0)
+    off = entries = copied = shared = cached = loaded = 0
+    for k in range(n):
+        kind = enc.leaf_kind(table[k])
+        if k in read and not (copies and kind in _COPIED and table[k][kind][
+                _COPIED[kind][0]].data_ptr() % 16 == 0):
+            loaded += piece_bytes(table[k])
+        if kind == "dict" and (k - 7) // 3 in values:
+            d = table[k]["dict"]["dhi"].numel()
+            if 8 * (entries + d) <= dict_cap:
+                dsh[k] = entries
+                entries += d
+                shared |= 1 << (k - 7) // 3
+            else:
+                cached |= 1 << (k - 7) // 3
+        if not copies or k not in read or kind not in _COPIED:
+            continue
+        name, per_word = _COPIED[kind]
+        if table[k][kind][name].data_ptr() % 16:
+            continue
+        raw[k] = off
+        off += per_word * (plane_width(table[k]) if kind == "delta16" else 1)
+        copied |= 1 << k
+    return CopyLayout(True, tuple(raw), tuple(dsh), off,
+                      _align16(8 * entries), copied, shared, cached, loaded)
+
+
+def piece_bytes(entry) -> int:
+    """Bytes of a piece (PIECE_ROWS rows) of a plane table entry's per-row
+    arrays: ``row_bytes`` a row."""
+    return int(row_bytes(entry) * PIECE_ROWS)
+
+
+def copies_pay(plan: GroupAggPlan, table: list, layout: CopyLayout,
+               chunk: int) -> bool:
+    """Whether a launch's copies pay for themselves. The build with the
+    copy's code folds more slowly than the build without it: a spec
+    whose groups overflow a block's slots ~20% slower, a batch of specs
+    too (PERF.md §6); and a copy that is a small part of a piece saves
+    little. So the copies go to a chunk of one spec whose groups all fit
+    the slots (its group columns dictionaries whose entries multiply to
+    at most SLOTS) and whose copied bytes are at least a quarter of a
+    piece's staged bytes."""
+    groups = 1
+    for cid, _planes in plan.sig.group_cols:
+        leaf = table[9 + 3 * plan.slot[cid]]
+        if enc.leaf_kind(leaf) != "dict":
+            return False
+        groups *= leaf["dict"]["dhi"].numel()
+    return (chunk == 1 and groups <= SLOTS and
+            4 * layout.raw_bytes >= layout.raw_bytes + layout.loaded_bytes)
+
+
+def leaf_table(plan: GroupAggPlan, table: list,
+               layout: CopyLayout | None = None) -> tuple:
     """(pointers, leaf words) of a plane table for the kernel: each
     plane's first array, and per plane LEAF_WORDS int64 words (kind, rle
-    run slots, second and third array; a plain cmp's third is its code
-    plane)."""
+    run slots or dictionary entries, second and third array, a plain
+    cmp's third being its code plane; then ``layout``'s copy offset and
+    dictionary entry, -1 without a layout)."""
     n = 7 + 3 * len(plan.col_ids)
     code_at = {cid: table[n + j] for j, cid in enumerate(plan.code_cols)}
     ptrs, words = [], np.zeros((n, LEAF_WORDS), np.int64)
@@ -364,38 +504,73 @@ def leaf_table(plan: GroupAggPlan, table: list) -> tuple:
         words[k, 0] = _LEAF[kind]
         if kind == "rle":
             words[k, 1] = arrays[1].shape[1]
+        elif kind == "dict":
+            words[k, 1] = arrays[1].numel()
         for j, a in enumerate(arrays[1:3]):
             words[k, 2 + j] = a.data_ptr()
         if k >= 7 and (k - 7) % 3 == 2 and kind is None:
             code = code_at.get(plan.col_ids[(k - 7) // 3])
             if code is not None:
                 words[k, 3] = code.data_ptr()
+        words[k, 4] = layout.raw[k] if layout else -1
+        words[k, 5] = layout.dsh[k] if layout else -1
     return ptrs, words
 
 
 # -- the wrapper --------------------------------------------------------------
 
 class Geometry(NamedTuple):
+    """The launch's shape as launch_geometry gives it and the library
+    reports it (csrc/group_agg.cu g_last_launch, these fields in order)."""
+    encoded: int      # the build: 1 encoded, 0 plain
     threads: int      # threads a block
     blocks: int       # grid.x: blocks walking a chunk's row pieces
-    chunk: int        # specs a block serves
     chunks: int       # grid.y: spec chunks, each reading the planes once
+    chunk: int        # specs a block serves
     smem_bytes: int   # dynamic shared memory of a block
+    raw_bytes: int    # a piece's copy (the encoded build)
+    buffers: int      # copies a warp holds: 0 (none), 1 or 2
+    dict_bytes: int   # the dictionaries in shared memory
+    copied_lo: int    # copied planes 0..31 (bits, as int32)
+    copied_hi: int    # copied planes 32..
+    dict_shared: int  # slots whose dictionary is in shared memory
+    dict_cached: int  # slots whose dictionary is read through the cache
+
+
+def _i32(x: int) -> int:
+    """A 32-bit mask as the int32 the library reports."""
+    return x - (1 << 32) if x >= 1 << 31 else x
 
 
 def launch_geometry(n_specs: int, n_rows: int, tile: int, spec: int,
-                    sms: int, per_sm) -> Geometry:
+                    sms: int, per_sm, layout: CopyLayout | None = None
+                    ) -> Geometry:
     """The kernel's launch shape: the specs in balanced chunks of at most
     SPEC_CHUNK (grid.y), each block holding its chunk's records (``spec``
-    bytes a spec) beside its warps' areas (``tile`` bytes); grid.x as many
-    blocks as one wave of ``per_sm(smem_bytes)`` resident blocks on each of
-    ``sms`` SMs holds beside the other chunks (a second, partial wave would
-    double the time of its blocks' rows), but no more than the row pieces
-    need. csrc/group_agg.cu checks the same sum."""
+    bytes a spec) beside its warps' areas (``tile`` bytes) and, for an
+    encoded ``layout``, each warp's copies of a piece (two buffers where
+    ``per_sm`` holds as many blocks an SM as with one, else one), the
+    shared dictionaries and the copy's tables (``copy_table_bytes``);
+    grid.x as many blocks as one wave of ``per_sm(smem_bytes)``
+    resident blocks on each of ``sms`` SMs holds beside the other chunks
+    (a second, partial wave would double the time of its blocks' rows),
+    but no more than the row pieces need. csrc/group_agg.cu checks the
+    same sum."""
     if not 1 <= n_specs <= 65535:
         raise ValueError(f"{n_specs} specs; the kernel takes 1..65535")
     chunk, chunks = spec_chunks(n_specs)
-    smem = tile + chunk * spec
+    lay = layout or CopyLayout(False, (), (), 0, 0, 0, 0, 0)
+    raw = lay.raw_bytes
+    extra = lay.dict_bytes + copy_table_bytes(lay)
+
+    def smem_of(buffers):
+        return tile + chunk * spec + WARPS * buffers * raw + extra
+
+    buffers = 0
+    if raw:
+        buffers = 2 if (smem_of(2) + STATIC_SMEM <= SMEM_LIMIT and
+                        per_sm(smem_of(2)) >= per_sm(smem_of(1))) else 1
+    smem = smem_of(buffers)
     if smem + STATIC_SMEM > SMEM_LIMIT:
         raise ValueError(f"a {smem}-byte block does not fit shared memory")
     resident = per_sm(smem)
@@ -403,7 +578,52 @@ def launch_geometry(n_specs: int, n_rows: int, tile: int, spec: int,
         raise ValueError("a block does not fit an SM")
     pieces = -(-n_rows // PIECE_ROWS)
     blocks = max(1, min(resident * sms // chunks, -(-pieces // WARPS)))
-    return Geometry(THREADS, blocks, chunk, chunks, smem)
+    return Geometry(int(lay.encoded), THREADS, blocks, chunks, chunk, smem,
+                    raw, buffers, lay.dict_bytes,
+                    _i32(lay.copied & 0xFFFFFFFF), _i32(lay.copied >> 32),
+                    lay.dict_shared, lay.dict_cached)
+
+
+def build_of(layout: CopyLayout) -> int:
+    """The kernel's build a layout takes: 0 plain, 1 encoded, 2 encoded
+    with the copies."""
+    return 0 if not layout.encoded else 2 if layout.raw_bytes else 1
+
+
+def copy_table_bytes(layout: CopyLayout) -> int:
+    """Shared bytes of a layout's copy tables: each copied plane's source
+    (16 bytes) and each 16-byte chunk of a piece's copy (2 bytes)."""
+    return _align16(16 * bin(layout.copied).count("1")
+                    + 2 * (layout.raw_bytes // 16))
+
+
+def plan_launch(plan: GroupAggPlan, table: list, n_specs: int, sms: int,
+                per_sm) -> tuple:
+    """(layout, geometry) of a launch over ``table``, ``per_sm(smem,
+    build)`` the blocks an SM holds: ``copy_layout``'s where its copies
+    pay (``copies_pay``), cost no SM a block beside the same layout
+    without copies and fit shared memory; else that layout without copies
+    (the pieces loaded from the run, by the build without the copy's
+    code), which always fits: ``eligible`` keeps DICT_SMEM_CAP bytes free
+    for its dictionaries."""
+    B, R = enc.leaf_dims(table[4])
+
+    def geometry(layout):
+        return launch_geometry(
+            n_specs, B * R, plan.tile_bytes, plan.spec_bytes, sms,
+            lambda smem: per_sm(smem, build_of(layout)), layout)
+
+    bare = copy_layout(plan, table, copies=False)
+    bare_geo = geometry(bare)
+    full = copy_layout(plan, table)
+    if full.raw_bytes and copies_pay(plan, table, full, bare_geo.chunk):
+        try:
+            geo = geometry(full)
+        except ValueError:
+            return bare, bare_geo
+        if per_sm(geo.smem_bytes, 2) >= per_sm(bare_geo.smem_bytes, 1):
+            return full, geo
+    return bare, bare_geo
 
 
 _INT_KINDS = (None, "const", "delta16", "rle")
@@ -492,7 +712,7 @@ def grouped_aggregate(plan: GroupAggPlan, table: list[torch.Tensor],
     (``plan.plane_table``). Launches the CUDA kernel for CUDA tensors,
     runs the plain version for CPU tensors, and raises for anything
     else."""
-    B, R = _check(plan, table, params)
+    _check(plan, table, params)
     device = params.device
     if device.type == "cpu":
         return grouped_aggregate_plain(plan, table, params)
@@ -500,29 +720,39 @@ def grouped_aggregate(plan: GroupAggPlan, table: list[torch.Tensor],
         raise ValueError(f"grouped_aggregate runs on cuda or cpu, not "
                          f"{device}")
     lib = _library()
-    n_specs = params.shape[0]
-    _check_launchable(plan, table, B * R)
-    geo = launch_geometry(
-        n_specs, B * R, plan.tile_bytes, plan.spec_bytes,
-        torch.cuda.get_device_properties(device).multi_processor_count,
-        lambda smem: _occupancy(lib, len(plan.col_ids), smem))
-    out = launch(lib, plan, table, params, geo.blocks, geo.smem_bytes)
+    layout, geo = device_launch(lib, plan, table, params)
+    out = launch(lib, plan, table, params, geo, layout)
     grouped_aggregate.launches += 1
     return out
 
 
+def device_launch(lib: ctypes.CDLL, plan: GroupAggPlan, table: list,
+                  params: torch.Tensor) -> tuple:
+    """(layout, geometry) of ``lib``'s launch over ``table`` on the
+    parameter rows' card (``plan_launch`` with its SMs and the build's
+    occupancy); raises where the kernel cannot take the table."""
+    B, R = enc.leaf_dims(table[4])
+    _check_launchable(plan, table, B * R)
+    return plan_launch(
+        plan, table, params.shape[0],
+        torch.cuda.get_device_properties(params.device).multi_processor_count,
+        lambda smem, build: _occupancy(lib, len(plan.col_ids), smem, build))
+
+
 def launch(lib: ctypes.CDLL, plan: GroupAggPlan, table: list[torch.Tensor],
-           params: torch.Tensor, grid: int, smem: int) -> torch.Tensor:
+           params: torch.Tensor, geo: Geometry,
+           layout: CopyLayout | None = None) -> torch.Tensor:
     """One launch of ``lib``'s kernel (any source with the C interface of
-    csrc/group_agg.cu) at the given grid and shared bytes: the output
-    tables, or a RuntimeError naming the code the launch returned."""
+    csrc/group_agg.cu) at ``geo`` with ``layout``'s copies and shared
+    dictionaries (none without it): the output tables, or a RuntimeError
+    naming the code the launch returned."""
     device = params.device
     n_specs = params.shape[0]
     out = torch.empty((n_specs, NUM_BUCKETS + 1, plan.n_out),
                       dtype=torch.int64, device=device)
     desc = plan.descriptor(table)
     B, R = enc.leaf_dims(table[4])
-    first, words = leaf_table(plan, table)
+    first, words = leaf_table(plan, table, layout)
     ptrs = (ctypes.c_void_p * len(first))(*first)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -530,7 +760,8 @@ def launch(lib: ctypes.CDLL, plan: GroupAggPlan, table: list[torch.Tensor],
             ptrs, words.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
             len(first), desc.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             len(desc), ctypes.c_void_p(params.data_ptr()), n_specs, B * R,
-            R, ctypes.c_void_p(out.data_ptr()), grid, smem,
+            R, ctypes.c_void_p(out.data_ptr()), geo.blocks, geo.smem_bytes,
+            geo.raw_bytes, geo.buffers, geo.dict_bytes,
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"group_agg kernel launch failed ({rc}): "
@@ -542,16 +773,27 @@ def launch(lib: ctypes.CDLL, plan: GroupAggPlan, table: list[torch.Tensor],
 grouped_aggregate.launches = 0
 
 
+def last_launch(lib: ctypes.CDLL | None = None) -> Geometry:
+    """The shape of this process's last launch of ``lib`` (this tree's
+    library by default) as the library reports it."""
+    lib = lib or _library()
+    out = (ctypes.c_int32 * len(Geometry._fields))()
+    lib.group_agg_last_launch(out)
+    return Geometry(*out)
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     return bind(native.load_library("group_agg"))
 
 
 @functools.lru_cache(maxsize=64)
-def _occupancy(lib: ctypes.CDLL, n_cols: int, smem_bytes: int) -> int:
-    """Blocks of the kernel an SM holds at once (the CUDA occupancy
-    calculator: registers, threads and shared memory counted)."""
-    blocks = lib.group_agg_occupancy(n_cols, smem_bytes)
+def _occupancy(lib: ctypes.CDLL, n_cols: int, smem_bytes: int,
+               build: int) -> int:
+    """Blocks of the kernel's ``build`` (``build_of``) an SM holds at once
+    (the CUDA occupancy calculator: registers, threads and shared memory
+    counted)."""
+    blocks = lib.group_agg_occupancy(n_cols, smem_bytes, build)
     if blocks < 1:
         raise RuntimeError(f"group_agg occupancy query failed ({blocks}): "
                            f"{lib.group_agg_error_string(-blocks).decode()}"
@@ -563,15 +805,18 @@ def _occupancy(lib: ctypes.CDLL, n_cols: int, smem_bytes: int) -> int:
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """``lib`` with the argument and result types of the kernel's C
     interface set."""
+    I = ctypes.c_int
     lib.group_agg_launch.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
-        ctypes.c_int, ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.group_agg_launch.restype = ctypes.c_int
-    lib.group_agg_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.group_agg_occupancy.restype = ctypes.c_int
-    lib.group_agg_error_string.argtypes = [ctypes.c_int]
+        I, ctypes.POINTER(ctypes.c_int32), I, ctypes.c_void_p, I,
+        ctypes.c_longlong, I, ctypes.c_void_p, I, I, I, I, I,
+        ctypes.c_void_p]
+    lib.group_agg_launch.restype = I
+    lib.group_agg_occupancy.argtypes = [I, I, I]
+    lib.group_agg_occupancy.restype = I
+    lib.group_agg_last_launch.argtypes = [ctypes.POINTER(ctypes.c_int32)]
+    lib.group_agg_last_launch.restype = None
+    lib.group_agg_error_string.argtypes = [I]
     lib.group_agg_error_string.restype = ctypes.c_char_p
     return lib
 

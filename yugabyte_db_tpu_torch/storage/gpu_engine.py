@@ -170,7 +170,8 @@ class GpuRun:
     run's host planes are uploaded, encoded under ``setting`` ``"auto"``.
     ``plain()`` is the plain tree the kernels that read plain planes take:
     ``dev.arrays`` of a plain run, else K10's decode of the encoded tree
-    (``ops.decode``), made at first use and kept for the run's life. A
+    (``ops.decode``), made at first use by one launch over the part table
+    laid out when the run is uploaded, and kept for the run's life. A
     multi-version run also holds its view's constant planes, the sorted
     hybrid times of its versions and expiries (the view keys), and its
     most recent resolved view."""
@@ -181,6 +182,12 @@ class GpuRun:
         self.dev = dev if dev is not None else DeviceRun(
             crun, PAD_BLOCKS, device=device, setting=setting)
         self._plain = None  # K10's decode of an encoded run
+        # K10's part table of the run, laid out and uploaded with the run
+        # so that its first decode is one launch.
+        self._decode_plan = None
+        if self.dev.encoded and self.dev.device.type == "cuda":
+            self._decode_plan = decode.plan_tree(self.dev.arrays)
+        self._valid_plan = None  # K10's plan of a bit-packed valid (K13b)
         self.flat = crun.max_group_versions <= 1
         self.host_index = None  # storage.host_page.HostPageIndex, lazy
         self._view = None  # (view key, view arrays)
@@ -206,7 +213,8 @@ class GpuRun:
         if not self.dev.encoded:
             return self.dev.arrays
         if self._plain is None:
-            self._plain = decode.decode_tree(self.dev.arrays)
+            self._plain = decode.decode_tree(self.dev.arrays,
+                                             self._decode_plan)
         return self._plain
 
     @property
@@ -219,6 +227,7 @@ class GpuRun:
         its device planes, its side-car, its view and its host page
         index."""
         self.dev = self._plain = self._view = self.host_index = None
+        self._decode_plan = self._valid_plan = None
         if not self.flat:
             self._const = None
 
@@ -262,7 +271,7 @@ class _MaskedRun(GpuRun):
         self.crun = source.crun
         self._source = source
         self.flat = source.flat
-        self._plain = None
+        self._plain = self._decode_plan = self._valid_plan = None
         self.dev = SimpleNamespace(
             B=source.dev.B, arrays=dict(source.plain(), valid=valid),
             encoded=False, device=source.dev.device)
@@ -280,11 +289,14 @@ def masked_valid(primary: GpuRun, idx: np.ndarray) -> torch.Tensor:
     """The primary's ``valid`` with the flattened rows ``idx`` cleared: K13
     on the plain plane, or, where the resident leaf is bit-packed, K13b
     (the JAX engine's ``_scatter_invalid_bits``): K10's decode of that one
-    leaf, then K13."""
+    leaf into a new plane (its part table made once and kept by the run),
+    then K13."""
     leaf = primary.dev.arrays["valid"]
     if enc.leaf_kind(leaf) == "bits":
         B, R = enc.tree_dims(primary.dev.arrays)
-        (plane,), = decode.decode_leaves([leaf], B, R)
+        if primary._valid_plan is None and primary.dev.device.type == "cuda":
+            primary._valid_plan = decode.plan_leaves([leaf], B, R)
+        (plane,), = decode.decode_leaves([leaf], B, R, primary._valid_plan)
         return scatter_invalid(plane, idx, copy=False)
     return scatter_invalid(primary.plain()["valid"], idx)
 
