@@ -157,7 +157,28 @@ line is printed:
    launches are counted over that run; K5 is held and timed at the
    engine's batch (``full_engine_kernel``); K5's ptxas report must show
    no spill and no stack frame;
-10. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
+10. residency: the residency budget and the fault domain
+   (``residency_phase``) on the flat table (compacted, encoded, read at
+   the fifth wave's read point) and the multi-version one (one encoded run
+   of every version, read at the newest and a mid read point). The
+   budget (``gpu_hbm_budget_bytes``) is 1.25 x the larger run's entry
+   (payload, K10's side-car, a view), so 4 rounds of the headline 32-spec
+   batch and of a 32-spec mvcc batch at two read points evict each
+   other's run: every result against the earlier phases' oracles, each
+   miss's upload timed beside a pinned host-to-device copy of the same
+   bytes, each re-read run's side-car rebuilt by one K10 launch (held byte
+   for byte against its plain version once); then both runs resident and
+   evicted, ``torch.cuda.memory_allocated()`` against the allocator's
+   blocks of the bytes the cache released (exact) and every evicted
+   tensor freed. Then faults on a range of 20,000 keys of the flat table: an
+   armed ``fault.gpu_dispatch`` and one real ``torch.cuda.OutOfMemoryError``
+   (K1's wrapper wrapped here to allocate past the free device memory);
+   each faulted batch re-served on the host equal to the oracle, the
+   breaker (threshold 1, from the flag the smoke sets before it builds
+   an engine) open, then closed by the probe, no pin leaked.
+   Every other phase must end with no host re-serve and every breaker
+   closed and never tripped;
+11. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
    ``workload.generate_lineitem``) applied and flushed into one flat run
    (generation and load seconds printed). Q1 and Q6 through the engine
    must equal numpy oracles exactly; the single-scan latency (median of
@@ -183,7 +204,7 @@ line is printed:
    read-only cache, as the launch reports) and a delta16 leaf whose
    offsets are not 16-byte aligned (loaded, not copied); every K8
    launch's reported shape must equal ``group_agg.launch_geometry``;
-11. ``phases_s`` (each phase's wall seconds), one JSON line listing every
+12. ``phases_s`` (each phase's wall seconds), one JSON line listing every
    kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -225,6 +246,9 @@ waves and runs the rows phase over several sources, and exits.
 flush held against the host build, K12 timed), applies the overlay
 phase's waves to it as there, runs the compact phase, prints the K12
 and K11 entries of the kernels line, and exits.
+``--residency`` builds the kernels, makes the engine phase's flat table
+and the mvcc phase's multi-version one, compacts each into one encoded
+run, runs the residency phase and exits.
 ``--full`` builds the kernels, makes a multi-version table of 200,000
 keys and 200,000 updates (for the view edge), runs the full phase,
 prints the K5 entry of the kernels line, and exits.
@@ -1356,8 +1380,9 @@ def resolve_ab(device, bw: float, others: list) -> None:
     cleared = DeviceRun.from_reference_planes(
         clear_groups(planes, CLEARED_SHARE)[0], LONG_R, device)
     long_const = mvcc_resolve.constant_planes(long_run.B, LONG_R, device)
-    cases = {"newest": (trun.dev.arrays, trun._const, max_ht + 1),
-             "mid": (trun.dev.arrays, trun._const, (load_ht + max_ht) // 2),
+    const = trun.resident().const
+    cases = {"newest": (trun.dev.arrays, const, max_ht + 1),
+             "mid": (trun.dev.arrays, const, (load_ht + max_ht) // 2),
              "long": (long_run.arrays, long_const, long_read),
              "long_cleared": (cleared.arrays, long_const, long_read)}
     order = ["A", *others, *others[::-1], "A"]
@@ -1423,7 +1448,8 @@ def mvcc_phase(device, bw: float, rate: float) -> tuple:
     resolve = {}
     for label, rd in (("newest", newest), ("mid", mid)):
         resolve[label] = dict(
-            measure_resolve(trun.dev.arrays, trun._const, rd, bw, rate),
+            measure_resolve(trun.dev.arrays, trun.resident().const, rd, bw,
+                            rate),
             view_key=list(trun.view_key(rd)))
         print(f"mvcc_resolve_{label} " + json.dumps(resolve[label]))
     resolve["long"] = long_group_resolve(device, bw, rate)
@@ -1434,9 +1460,10 @@ def mvcc_phase(device, bw: float, rate: float) -> tuple:
     wide = dict(arrays, cols={100 + i: arrays["cols"][cids[i % len(cids)]]
                               for i in range(mvcc_resolve.MAX_COLS + 2)})
     launches0 = mvcc_resolve.resolve_view.launches
-    got = mvcc_resolve.resolve_view(wide, *read_params(mid), trun._const)
+    got = mvcc_resolve.resolve_view(wide, *read_params(mid),
+                                    trun.resident().const)
     want = mvcc_resolve.resolve_view_plain(wide, *read_params(mid),
-                                           trun._const)
+                                           trun.resident().const)
     torch.cuda.synchronize()
     check(view_diff(got, want) == 0, "resolve over 18 value columns")
     n = mvcc_resolve.resolve_view.launches - launches0
@@ -1466,7 +1493,7 @@ def mvcc_phase(device, bw: float, rate: float) -> tuple:
     # The main path, counted.
     mvcc_resolve.resolve_view.launches = 0
     flat_agg.flat_aggregate.launches = 0
-    trun._view = None
+    trun.drop_view()
     want = oracles[newest]
     got = eng.scan(spec(newest, -500_000)).rows[0]
     check(got == want.headline(-500_000),
@@ -1613,18 +1640,22 @@ def scatter_ms(valid, idx, bw: float) -> dict:
 
 def host_fold_ms(eng, spec_of) -> dict:
     """The dirty keys' host fold (``_overlay_host_partial``) on the engine's
-    overlay state: a miss (a literal not folded before) and a hit (the
-    same spec again), medians of 3, in ms."""
+    overlay state, in ms: the first miss at the read point (the dirty keys
+    merged there, after the state's merges are dropped), then a miss (a
+    literal not folded before, the keys already merged) and a hit (the
+    same spec again), medians of 3."""
     ov = eng._overlay(eng.memtable)
+    ov.merged.clear()
     miss, hit = [], []
-    for k in range(3):
+    for k in range(4):
         spec = spec_of(-123_457 - 1_001 * k)
         for out in (miss, hit):
             t = time.perf_counter()
             eng._overlay_host_partial(ov, spec)
             out.append((time.perf_counter() - t) * 1e3)
-    return {"dirty_keys": len(ov.rows), "miss_ms": statistics.median(miss),
-            "hit_ms": statistics.median(hit)}
+    return {"dirty_keys": len(ov.rows), "merge_miss_ms": miss[0],
+            "miss_ms": statistics.median(miss[1:]),
+            "hit_ms": statistics.median(hit[1:])}
 
 
 def timed_overlay_batch(eng, specs) -> dict:
@@ -1767,6 +1798,8 @@ def overlay_flat(ctx, device, bw: float, rate: float) -> dict:
     check_overlay_scan(eng, spec(newest5, -500_000),
                        want5.headline(-500_000), "flat after the fifth wave")
     ctx.sources_read_ht = newest5  # the rows phase's several sources
+    # The residency phase reads the compacted table at newest5.
+    ctx.updates5, ctx.oracle5 = updates + waves[WAVES], want5
     lits = [-400_000 + 97_531 * i for i in range(OVERLAY_BATCH)]
     batch_trace = timed_overlay_batch(eng, [spec(newest5, lo)
                                             for lo in lits])
@@ -1874,8 +1907,9 @@ def overlay_mvcc(ctx, device, bw: float, rate: float) -> dict:
     hot_rows = [k for k, v in ov.rows if len(v) > 32]
     resolve = {}
     for label, rd in (("newest", newest), ("mid", (before + newest) // 2)):
-        resolve[label] = measure_resolve(masked.dev.arrays, masked._const,
-                                         rd, bw, rate)
+        resolve[label] = measure_resolve(masked.dev.arrays,
+                                         masked.resident().const, rd, bw,
+                                         rate)
         print(f"overlay_resolve_{label} " + json.dumps(resolve[label]))
     planes = workload.long_group_planes(LONG_ROWS, LONG_R, 7)
     planes, cleared, whole = clear_groups(planes, CLEARED_SHARE)
@@ -4255,7 +4289,7 @@ def full_edges(device, mvcc) -> dict:
     trun = mvcc.eng.runs[0]
     view = mvcc_resolve.resolve_view(trun.dev.arrays,
                                      *read_params(mvcc.max_ht + 1),
-                                     trun._const)
+                                     trun.resident().const)
     vkind = {c.col_id: ("f64" if c.name == "c" else
                         "i64" if c.name == "a" else "i32")
              for c in mvcc.schema.value_columns}
@@ -6047,7 +6081,7 @@ def encoded_compacted(eng, updates: list, oracles: dict, reads: list,
     out = {"versions": trun.crun.num_versions, "stats": stats,
            "valid_kind": enc.leaf_kind(trun.dev.arrays["valid"])}
     check(out["valid_kind"] == "bits", "the compacted run's valid is plain")
-    k10 = measure_k10(trun.dev.arrays, bw, trun._decode_plan)
+    k10 = measure_k10(trun.dev.arrays, bw, trun.resident().decode_plan)
     off = DeviceRun(trun.crun, PAD_BLOCKS, device=device, setting="off")
     k10["off_upload_max_abs_err"] = plain_tree_diff(
         trun.plain(), off.arrays, trun.crun.B)
@@ -6211,10 +6245,11 @@ def grouped_encoded(ctx, device, bw: float, rate: float) -> dict:
     eng.compact(1)  # a cutoff before every version: nothing is dropped
     out["compact_s"] = time.perf_counter() - t1
     trun = eng.runs[0]
+    encoded = trun.dev.encoded  # the merged run's upload: its first access
     stats = eng.stats()["plane_encoding"]
     out["compacted_stats"] = stats
     print("encoded_stats_lineitem " + json.dumps(stats))
-    check(trun.dev.encoded and {"bits", "dict", "delta16"} <=
+    check(encoded and {"bits", "dict", "delta16"} <=
           set(stats["by_encoding"]), f"the compacted lineitem's encodings "
                                      f"{stats['by_encoding']}")
     q1, q6 = workload.q1_spec(read), workload.q6_spec(read)
@@ -6271,7 +6306,7 @@ def grouped_encoded(ctx, device, bw: float, rate: float) -> dict:
     del off
     torch.cuda.empty_cache()
     # K10 over the compacted tree (every leaf kind at SF1), timed.
-    out["k10"] = measure_k10(trun.dev.arrays, bw, trun._decode_plan)
+    out["k10"] = measure_k10(trun.dev.arrays, bw, trun.resident().decode_plan)
     print("encoded_k10_lineitem " + json.dumps(out["k10"]))
     torch.cuda.empty_cache()
     out["s"] = time.perf_counter() - t0
@@ -6339,6 +6374,415 @@ def encoded_alone(device, bw: float, rate: float) -> None:
     print(json.dumps({"kernels": [decode_entry()]}))
 
 
+# -- the residency budget and the fault domain (storage.residency, breaker) --
+
+RESIDENCY_ROUNDS = 4     # alternating batches on the two tables
+RESIDENCY_HEADROOM = 1.25  # the budget over the larger run's entry bytes
+MV_RESIDENCY_BATCH = 16  # specs at each of the mvcc table's two read points
+FAULT_KEYS = 20_000      # keys of the range the faulted batches read
+FAULT_SPECS = 2          # specs of a faulted batch (host re-serve: Python)
+BREAKER_COOLDOWN_S = 0.05  # the engines' breakers' cooldown
+_HOST_RESERVES = [0]     # batches re-served from the host, by any engine
+_FAULT_ENGINES: set = set()  # breakers the residency phase faults
+
+
+def configure_breakers() -> None:
+    """Every engine the smoke builds gets a breaker that opens on its
+    first device fault and admits a probe after BREAKER_COOLDOWN_S (the
+    flags ``gpu_breaker_failure_threshold`` / ``gpu_breaker_cooldown_s``,
+    set before any engine is built): the fault phase opens one with a
+    single fault, and a fault in any other phase trips its engine's
+    breaker, which ``check_no_fault`` fails on."""
+    from yugabyte_db_tpu_torch.utils.flags import FLAGS
+
+    FLAGS.set("gpu_breaker_failure_threshold", 1)
+    FLAGS.set("gpu_breaker_cooldown_s", BREAKER_COOLDOWN_S)
+
+
+def watch_host_reserves() -> None:
+    """Count every host re-serve of every ``gpu`` engine (the smoke's
+    proxy of ``GpuStorageEngine._serve_host_batch``), so that a phase can
+    fail on one it did not ask for."""
+    from yugabyte_db_tpu_torch.storage import gpu_engine
+
+    cls = gpu_engine.GpuStorageEngine
+    if getattr(cls._serve_host_batch, "watched", False):
+        return
+    serve = cls._serve_host_batch
+
+    def counted(self, specs):
+        _HOST_RESERVES[0] += 1
+        return serve(self, specs)
+
+    counted.watched = True
+    cls._serve_host_batch = counted
+
+
+def check_no_fault(phase: str, reserves0: int) -> None:
+    """A phase other than ``residency`` ends with no host re-serve and with
+    every live engine's breaker closed and never tripped (the residency
+    phase's faulted engines aside): a device fault there fails the smoke
+    instead of being re-served."""
+    from yugabyte_db_tpu_torch.storage import breaker
+
+    check(_HOST_RESERVES[0] == reserves0,
+          f"phase {phase}: {_HOST_RESERVES[0] - reserves0} batches were "
+          "re-served from the host")
+    for b in list(breaker._BREAKERS):
+        if b.name in _FAULT_ENGINES:
+            continue
+        check(b.state == breaker.CLOSED and b.trips == 0,
+              f"phase {phase}: breaker {b.name} is {b.state} after "
+              f"{b.trips} trips ({b.last_error!r})")
+
+
+def entry_bytes(trun) -> int:
+    """Bytes the residency cache charges a run now (payload and aux)."""
+    from yugabyte_db_tpu_torch.storage.residency import hbm_cache
+
+    e = hbm_cache()._entries.get(trun._res_key)
+    return 0 if e is None or e.payload is None else e.total_bytes
+
+
+def resident_tensors(cache) -> list:
+    """Every device tensor the cache holds: payloads and aux values."""
+    import torch
+
+    out = []
+    stack = [[e.payload for e in cache._entries.values()
+              if e.payload is not None and not e.external],
+             [v for e in cache._entries.values() for v, _n in e.aux.values()]]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend(node.values())
+        elif isinstance(node, (list, tuple)):
+            stack.extend(node)
+        elif isinstance(node, torch.Tensor):
+            out.append(node)
+        elif hasattr(node, "dev"):  # a run's payload
+            stack.append([node.dev.arrays, node.const,
+                          node.decode_plan.table if node.decode_plan
+                          else None])
+        elif hasattr(node, "table"):  # a decode plan
+            stack.append(node.table)
+    return out
+
+
+def allocator_blocks() -> dict:
+    """{address: bytes} of every allocated block of the caching allocator
+    (``torch.cuda.memory_snapshot``): what ``memory_allocated`` sums."""
+    import torch
+
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for blk in seg["blocks"]:
+            if blk["state"] == "active_allocated":
+                out[blk.get("address", addr)] = blk["size"]
+            addr += blk["size"]
+    return out
+
+
+def release_check(cache) -> dict:
+    """After ``evict_unpinned()``, ``torch.cuda.memory_allocated()`` falls
+    by exactly the allocator's blocks of the allocations the cache held
+    (``torch.cuda.memory_snapshot``: a block is its request rounded up,
+    and one of 1 MiB or more may keep an unsplit remainder), and the cache
+    released exactly the bytes of those allocations: tolerance 0 on both.
+    Every tensor the cache held must be freed (weak references): none
+    outlives its entry."""
+    import gc
+    import weakref
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    held = [weakref.ref(t) for t in resident_tensors(cache)]
+    storages = {s.data_ptr(): s.nbytes() for s in
+                (r().untyped_storage() for r in held) if s.nbytes()}
+    blocks = allocator_blocks()
+    missing = [p for p in storages if p not in blocks]
+    block_bytes = sum(blocks.get(p, 0) for p in storages)
+    del blocks
+    before, res0 = torch.cuda.memory_allocated(), cache.resident_bytes()
+    evicted = cache.evict_unpinned()
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    released = res0 - cache.resident_bytes()
+    alive = sum(1 for r in held if r() is not None)
+    out = {"evicted_entries": evicted, "released_bytes": released,
+           "allocation_bytes": sum(storages.values()),
+           "allocator_block_bytes": block_bytes,
+           "allocated_fell_bytes": before - after, "tolerance_bytes": 0,
+           "allocations": len(storages), "tensors_alive": alive}
+    check(not missing, f"{len(missing)} allocations the cache holds are "
+          "not blocks of the caching allocator")
+    check(released > 0 and released == out["allocation_bytes"],
+          f"the cache released {released} bytes where its allocations "
+          f"hold {out['allocation_bytes']}: a charge is not what it holds")
+    check(before - after == block_bytes,
+          f"memory_allocated fell by {before - after} bytes where the "
+          f"cache's allocations are {block_bytes} bytes of blocks: a "
+          "reference outlives its entry, or an uncharged one died with it")
+    check(alive == 0, f"{alive} device tensors outlive their evicted entry")
+    return out
+
+
+def range_oracle(schema, rows, updates, keys: set, read_ht: int) -> Oracle:
+    """The headline oracle over the keys of ``keys`` only (their rows and
+    updates merged in this process: a small slice)."""
+    sub = HistoryOracle(schema, [r for r in rows if r.key in keys],
+                        [u for u in updates if u.key in keys])
+    return sub.at(read_ht, sub.merged([read_ht])[0])
+
+
+def fault_phase(flat, device) -> dict:
+    """Faults on a bounded range of FAULT_KEYS keys of the flat table (the
+    host re-serve is Python): an armed ``fault.gpu_dispatch``, then one
+    real device error (K1's wrapper wrapped here to allocate past the free
+    device memory first, which raises ``torch.cuda.OutOfMemoryError``).
+    Each faulted batch is re-served from the host equal to the oracle, the
+    breaker (threshold 1) opens, and the next batch after the cooldown is
+    the probe: served on the device, equal to the oracle, the breaker
+    closed; no pin leaks."""
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import flat_agg
+    from yugabyte_db_tpu_torch.storage import breaker
+    from yugabyte_db_tpu_torch.storage.residency import hbm_cache
+    from yugabyte_db_tpu_torch.utils.fault_injection import arm_fault_once
+
+    eng, read = flat.eng, flat.read
+    cache = hbm_cache()
+    t0 = time.perf_counter()
+    keys = sorted(r.key for r in flat.rows)
+    first = len(keys) // 3
+    lower, upper = keys[first], keys[first + FAULT_KEYS]
+    oracle = range_oracle(flat.schema, flat.rows, flat.updates,
+                          set(keys[first:first + FAULT_KEYS]), read)
+    oracle_s = time.perf_counter() - t0
+    lits = [-500_000 + 400_000 * i for i in range(FAULT_SPECS)]
+
+    def batch():
+        specs = []
+        for lo in lits:
+            s = workload.headline_spec(read, lo)
+            s.lower, s.upper = lower, upper
+            specs.append(s)
+        return specs
+
+    def run(label):
+        t = time.perf_counter()
+        got = eng.scan_batch(batch())
+        ms = (time.perf_counter() - t) * 1e3
+        for lo, r in zip(lits, got):
+            check(r.rows[0] == oracle.headline(lo),
+                  f"{label}, d >= {lo}: {r.rows[0]} != {oracle.headline(lo)}")
+        return ms
+
+    br = eng.breaker
+    check(br.failure_threshold == 1,
+          f"the engine's breaker opens after {br.failure_threshold} faults")
+    _FAULT_ENGINES.add(br.name)
+    out = {"keys": FAULT_KEYS, "specs": FAULT_SPECS, "oracle_s": oracle_s}
+    device_ms = run("the range on the device")
+    pins0 = cache.pinned_bytes()
+    tracker0 = eng.device_tracker.consumption
+    reserves0 = eng.host_reserves
+    cases = {}
+    real = flat_agg.flat_aggregate
+
+    def exhaust(*args, **kwargs):
+        free, _total = torch.cuda.mem_get_info(device)
+        torch.empty(free + (1 << 30), dtype=torch.uint8, device=device)
+        return real(*args, **kwargs)
+
+    for kind in ("injected", "out_of_memory"):
+        trips0 = br.trips
+        if kind == "injected":
+            arm_fault_once("fault.gpu_dispatch")
+        else:
+            flat_agg.flat_aggregate = exhaust
+        try:
+            reserve_ms = run(f"{kind}: the host re-serve")
+        finally:
+            flat_agg.flat_aggregate = real
+        check(br.state == breaker.OPEN and br.trips == trips0 + 1,
+              f"{kind}: the breaker is {br.state} after the fault")
+        check(eng.host_reserves == reserves0 + 1,
+              f"{kind}: the batch was not re-served from the host")
+        error = repr(br.last_error)
+        time.sleep(br.cooldown_s * 1.5)
+        probe_ms = run(f"{kind}: the probe")
+        check(br.state == breaker.CLOSED,
+              f"{kind}: the breaker is {br.state} after the probe")
+        check(eng.host_reserves == reserves0 + 1,
+              f"{kind}: the probe was re-served from the host")
+        reserves0 = eng.host_reserves
+        check(cache.pinned_bytes() == pins0,
+              f"{kind}: {cache.pinned_bytes() - pins0} pinned bytes "
+              "leaked")
+        cases[kind] = {"host_reserve_ms": reserve_ms,
+                       "probe_ms": probe_ms, "error": error[:120]}
+    out.update(device_ms=device_ms, cases=cases,
+               breaker=eng.stats()["breaker"],
+               host_reserves=eng.host_reserves,
+               tracker_bytes=(tracker0, eng.device_tracker.consumption))
+    return out
+
+
+def residency_phase(device, bw: float, rate: float, flat, mv) -> dict:
+    """The residency budget on the card: the flat table (``flat``: its
+    compacted, encoded run; ``read``, ``oracle``) and the multi-version
+    one (``mv``: its encoded run of every version; ``reads``, ``oracles``)
+    under a budget of RESIDENCY_HEADROOM x the larger run's entry bytes
+    (payload, K10's side-car, a view), so that batches alternating between
+    them evict each other's run. RESIDENCY_ROUNDS rounds of the headline
+    32-spec batch and of an mvcc batch at two read points, each result
+    against the oracles the earlier phases computed; each miss's upload
+    timed beside a pinned host-to-device copy of the same bytes; each
+    re-read encoded run's side-car rebuilt by one K10 launch and held byte
+    for byte against its plain version; then both runs resident and
+    evicted, ``memory_allocated`` against the released bytes
+    (``release_check``); then the faults (``fault_phase``). No batch but
+    the faulted ones is re-served from the host."""
+    import gc
+
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.ops import decode
+    from yugabyte_db_tpu_torch.storage.residency import hbm_cache
+    from yugabyte_db_tpu_torch.utils.flags import FLAGS
+
+    t_phase = time.perf_counter()
+    cache = hbm_cache()
+    fr, mr = flat.eng.runs[0], mv.eng.runs[0]
+    check(len(flat.eng.runs) == 1 and len(mv.eng.runs) == 1 and
+          fr.dev.encoded and mr.dev.encoded and not mr.flat,
+          "the residency phase wants one encoded run in each table")
+    newest, mid = mv.reads
+
+    def flat_batch(r):
+        los = [-500_000 - 7 * (r * BATCH + i) for i in range(BATCH)]
+        got = flat.eng.scan_batch([workload.headline_spec(flat.read, lo)
+                                   for lo in los])
+        for lo, res in zip(los, got):
+            check(res.rows[0] == flat.oracle.headline(lo),
+                  f"residency flat batch d >= {lo}: {res.rows[0]}")
+
+    def mv_batch(r):
+        los = [-500_000 - 11 * (r * MV_RESIDENCY_BATCH + i)
+               for i in range(MV_RESIDENCY_BATCH)]
+        specs = [(rd, lo) for rd in (newest, mid) for lo in los]
+        got = mv.eng.scan_batch([workload.headline_spec(rd, lo)
+                                 for rd, lo in specs])
+        for (rd, lo), res in zip(specs, got):
+            check(res.rows[0] == mv.oracles[rd].headline(lo),
+                  f"residency mvcc batch at {rd}, d >= {lo}: {res.rows[0]}")
+
+    # The entries' bytes with no budget: payload, side-car and a view.
+    gc.collect()
+    cache.evict_unpinned()
+    flat_batch(0)
+    mv_batch(0)
+    sizes = {"flat": entry_bytes(fr), "mvcc": entry_bytes(mr)}
+    budget = int(RESIDENCY_HEADROOM * max(sizes.values()))
+    FLAGS.set("gpu_hbm_budget_bytes", budget)
+    cache.evict_unpinned()  # start cold: every round reads an evicted run
+    st0 = cache.stats()
+    miss_ms, k10, sidecar_err, payload = [], 0, 0, {}
+    try:
+        for r in range(RESIDENCY_ROUNDS):
+            for trun, run_batch in ((fr, flat_batch), (mr, mv_batch)):
+                check(trun.peek_device() is None,
+                      f"round {r}: the run was not evicted by the other")
+                launches0 = decode.decode_tree.launches
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = trun.resident()  # the miss: the run's upload
+                torch.cuda.synchronize()
+                miss_ms.append((time.perf_counter() - t) * 1e3)
+                payload[trun is fr and "flat" or "mvcc"] = res.nbytes
+                del res
+                run_batch(r + 1)
+                k10 += decode.decode_tree.launches - launches0
+                check(decode.decode_tree.launches - launches0 == 1,
+                      f"round {r}: the side-car took "
+                      f"{decode.decode_tree.launches - launches0} K10 "
+                      "launches")
+                if r == 0:  # the rebuilt side-car against its plain version
+                    side = trun.plain()
+                    sidecar_err = max(sidecar_err, view_diff(
+                        side, decode.decode_tree_plain(trun.dev.arrays)))
+                    del side
+        check(sidecar_err == 0,
+              f"the rebuilt side-car differs from K10's plain version by "
+              f"{sidecar_err}")
+        st1 = cache.stats()
+    finally:
+        FLAGS.set("gpu_hbm_budget_bytes", 0)
+    nbytes = payload["flat"]  # a miss of the flat run uploads these
+    src = torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    copy_ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 5)
+    del src, dst
+    out = {"card": nvidia_smi(), "budget_bytes": budget,
+           "entry_bytes": sizes, "payload_bytes": payload,
+           "rounds": RESIDENCY_ROUNDS,
+           "hits": st1["hits"] - st0["hits"],
+           "misses": st1["misses"] - st0["misses"],
+           "evictions": st1["evictions"] - st0["evictions"],
+           "demand_upload_bytes": (st1["demand_upload_bytes"]
+                                   - st0["demand_upload_bytes"]),
+           "peak_resident_bytes": st1["peak_resident_bytes"],
+           "miss_upload_ms": statistics.median(miss_ms),
+           "miss_upload_ms_all": miss_ms,
+           "pinned_copy_bytes": nbytes, "pinned_copy_ms": copy_ms,
+           "pinned_copy_bound_ms": nbytes / bw * 1e3,
+           "sidecar_k10_launches": k10, "sidecar_max_abs_err": sidecar_err}
+    check(out["misses"] >= 2 * RESIDENCY_ROUNDS and out["evictions"] > 0,
+          f"the budget did not evict: {out}")
+    # Both runs resident, then evicted: the allocator frees what the cache
+    # released.
+    flat_batch(RESIDENCY_ROUNDS + 1)
+    mv_batch(RESIDENCY_ROUNDS + 1)
+    out["release"] = release_check(cache)
+    check(flat.eng.host_reserves == 0 and mv.eng.host_reserves == 0,
+          "a batch under the budget was re-served from the host")
+    out["host_reserves"] = flat.eng.host_reserves + mv.eng.host_reserves
+    print("residency " + json.dumps(out))
+    t0 = time.perf_counter()
+    faults = fault_phase(flat, device)
+    faults["s"] = time.perf_counter() - t0
+    print("breaker " + json.dumps(faults))
+    out["faults"] = faults
+    out["s"] = time.perf_counter() - t_phase
+    return out
+
+
+def residency_alone(device, bw: float, rate: float) -> None:
+    """``--residency``: the engine phase's flat table and the mvcc phase's
+    multi-version one, each compacted into one encoded run (a cutoff
+    before every version), then the residency phase."""
+    ctx = flat_engine(device)
+    ctx.eng.compact(1)
+    read = ctx.max_ht + 1
+    flat = SimpleNamespace(eng=ctx.eng, schema=ctx.schema, rows=ctx.rows,
+                           updates=[], read=read,
+                           oracle=Oracle.of_rows(ctx.schema, ctx.rows))
+    schema, rows, updates, load_ht, max_ht, eng, _g, _l = mvcc_engine(device)
+    eng.compact(1)
+    reads = (max_ht + 1, (load_ht + max_ht) // 2)
+    mv = SimpleNamespace(eng=eng, reads=reads, oracles=HistoryOracle(
+        schema, rows, updates).at_reads(list(reads)))
+    residency_phase(device, bw, rate, flat, mv)
+
+
 def main() -> int:
     import torch
 
@@ -6397,11 +6841,20 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--encoded":
         encoded_alone(device, bw, rate)
         return 0
+    configure_breakers()
+    watch_host_reserves()
+    if len(sys.argv) == 2 and sys.argv[1] == "--residency":
+        residency_alone(device, bw, rate)
+        return 0
 
     def timed(name, phase, *args):
+        reserves0 = _HOST_RESERVES[0]
         t = time.perf_counter()
         result = phase(device, bw, rate, *args)
         walls[name] = time.perf_counter() - t
+        print(f"phase {name}: {walls[name]:.1f} s", flush=True)
+        if name != "residency":
+            check_no_fault(name, reserves0)
         return result
 
     kernel_err = timed("kernel", kernel_phase)
@@ -6414,6 +6867,13 @@ def main() -> int:
     full = timed("full", full_phase, mvcc)
     ENCODED["mvcc"] = timed("encoded_mvcc",
                             lambda d, _b, _r: encoded_mvcc(mvcc, d))
+    timed("residency", residency_phase, SimpleNamespace(
+        eng=flat.eng, schema=flat.schema, rows=flat.rows,
+        updates=flat.updates5, read=flat.sources_read_ht,
+        oracle=flat.oracle5), SimpleNamespace(
+        eng=mvcc.eng, reads=(mvcc.wave_newest, mvcc.mid_read),
+        oracles={mvcc.wave_newest: mvcc.wave_oracle,
+                 mvcc.mid_read: mvcc.oracles[mvcc.mid_read]}))
     del flat, mvcc
     torch.cuda.empty_cache()
     grp = timed("grouped", grouped_phase)

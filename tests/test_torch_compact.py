@@ -32,6 +32,7 @@ from yugabyte_db_tpu_torch.ops import compact as t_compact
 from yugabyte_db_tpu_torch.storage import cpu_engine as t_cpu_engine
 from yugabyte_db_tpu_torch.storage import gpu_engine
 from yugabyte_db_tpu_torch.storage.merge import merge_entry_streams
+from yugabyte_db_tpu_torch.storage.residency import hbm_cache
 from yugabyte_db_tpu_torch.utils import planes as P
 
 # tests/test_device_compact.py's table.
@@ -452,7 +453,11 @@ def test_compaction_drops_what_pointed_at_the_old_runs():
     assert e["gpu"]._overlay_cache is not None
     e["gpu"].compact(ht)
     assert e["gpu"]._overlay_cache is None and not e["gpu"]._plan_cache
-    assert all(t.dev is None for t in old)
+    # The old runs' residency entries are gone, and so is the overlay's
+    # pin on its primary.
+    assert all(t.peek_device() is None and
+               t._res_key not in hbm_cache()._entries for t in old)
+    assert e["gpu"]._overlay_pinned is None
     assert e["gpu"].memtable.num_versions == len(segments[-1])
     for name in ("cpu", "tpu"):
         e[name].apply(jax_rows(segments[-1]))

@@ -56,6 +56,12 @@ TABLES = {
              ("a", "INT64", "REGULAR"), ("b", "STRING", "REGULAR"),
              ("c", "DOUBLE", "REGULAR"), ("d", "INT32", "REGULAR"),
              ("f", "FLOAT", "REGULAR")],
+    # tests/test_breaker.py's and tests/test_residency.py's tables.
+    "breaker": [("k", "STRING", "HASH"), ("r", "INT64", "RANGE"),
+                ("a", "INT64", "REGULAR"), ("b", "STRING", "REGULAR")],
+    "residency": [("k", "STRING", "HASH"), ("r", "INT64", "RANGE"),
+                  ("a", "INT64", "REGULAR"), ("b", "STRING", "REGULAR"),
+                  ("c", "DOUBLE", "REGULAR")],
 }
 
 # FLOAT values: signed zeros, and pairs that are equal once rounded to

@@ -10,11 +10,11 @@ predicates promoted to code compares, the delta overlay on a run whose
 ``valid`` is bit-packed (K13b), TPC-H Q1 and Q6 at 20,000 rows with and
 without promoted predicates, and ``"off"`` against ``"auto"``.
 
-The JAX engine builds a host-built run's dictionaries at the run's first
-device access (its residency cache uploads on demand), so its first
-string aggregate over a fresh run is not promoted; the port's runs are
-resident from the start. Each JAX run is touched once by a COUNT(*)
-before the comparisons, so that both engines serve the same routes.
+Both engines build a host-built run's dictionaries at the run's first
+device access (their residency caches upload on demand), so a first
+string aggregate over a fresh run is not promoted. Each run is touched
+once by a COUNT(*) before the comparisons, so that both engines serve
+the same routes.
 """
 
 import pytest
@@ -53,9 +53,11 @@ def each(e, fn):
 
 
 def touch(e, read_ht):
-    """Every run's first device access on the JAX engine (see above)."""
+    """Every run's first device access on both engines (see above)."""
     e["tpu"].scan(J.ScanSpec(read_ht=read_ht,
                              aggregates=[J.AggSpec("count", None)]))
+    e["gpu"].scan(T.ScanSpec(read_ht=read_ht,
+                             aggregates=[T.AggSpec("count", None)]))
 
 
 def specs(read_ht: int) -> list:

@@ -472,7 +472,7 @@ def test_multi_version_async_batch_mixed_read_points(mv_engines,
 
     monkeypatch.setattr(mvcc_resolve, "resolve_view", counted_resolve)
     monkeypatch.setattr(flat_agg, "flat_aggregate", counted_fold)
-    trun._view = None
+    trun.drop_view()
     batch = e["gpu"].scan_batch_async([build(T, kw) for _l, kw in cases])
     got = batch.finish()
     assert len(resolves) == len(keys) < len(cases)
@@ -483,7 +483,7 @@ def test_multi_version_async_batch_mixed_read_points(mv_engines,
         assert_same(e["cpu"].scan(build(J, kw)), g, label, scanned=False)
     # The run keeps its latest view: a batch at that key resolves nothing.
     resolves.clear()
-    last = trun._view[0]
+    last = trun.held_view()[0]
     again = [kw for _l, kw in cases if trun.view_key(kw["read_ht"]) == last]
     e["gpu"].scan_batch([build(T, kw) for kw in again])
     assert resolves == []
@@ -509,11 +509,11 @@ def test_a_batch_holds_one_view_of_a_run_at_a_time(mv_engines,
         return view
 
     monkeypatch.setattr(mvcc_resolve, "resolve_view", watched)
-    trun._view = None
+    trun.drop_view()
     got = e["gpu"].scan_batch([build(T, kw) for kw in kws])
     assert len(held) == len({trun.view_key(kw["read_ht"]) for kw in kws}) \
         == 6
-    assert held[-1]() is trun._view[1]["valid"]
+    assert held[-1]() is trun.held_view()[1]["valid"]
     for kw, g in zip(kws, got):
         assert_same(e["tpu"].scan(build(J, kw)), g, kw["read_ht"])
 
@@ -575,7 +575,12 @@ def test_device_defaults_to_cuda():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.make_engine("gpu", ps)
     eng = T.make_engine("gpu", ps, {"device": "cpu"})
-    assert eng.stats() == {"num_runs": 0, "memtable_versions": 0,
+    stats = eng.stats()
+    # The process-wide residency cache's stats (storage.residency).
+    assert {"budget_bytes", "resident_bytes", "pinned_bytes", "hits",
+            "misses", "evictions", "demand_upload_bytes"} <= \
+        set(stats.pop("residency"))
+    assert stats == {"num_runs": 0, "memtable_versions": 0,
                            "run_versions": 0, "flushed_frontier_ht": 0,
                            "device_bytes": 0,
                            "flush_paths": {"device": 0, "host": 0},
@@ -588,4 +593,6 @@ def test_device_defaults_to_cuda():
                            "plane_encoding": {
                                "setting": "off", "by_encoding": {},
                                "encoded_bytes": 0, "logical_bytes": 0,
-                               "sidecar_device_bytes": 0}}
+                               "sidecar_device_bytes": 0},
+                           "breaker": {"state": "closed", "trips": 0},
+                           "host_reserves": 0}

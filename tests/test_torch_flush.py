@@ -9,12 +9,13 @@ JAX ``cpu`` engine's answers; same-hybrid-time writes must order by write
 id; and the ineligible flushes (a key past the prefix planes, a key group
 longer than a block, a value the encoders reject) must take the host
 route as the JAX engine's do. Mirrors ``tests/test_device_flush.py``
-(:139, :162, :176, :217).
-
-Not mirrored, each for its reason: the budget gate (:199) and eviction
-(:261) wait for the residency budget (ROADMAP.md §1 item 11); the fault
-fallback (:236) has no counterpart: the port raises on a device error by
-design.
+(:139, :162, :176, :217), and its residency and fault tests: the budget
+gate (:199: planes past ``gpu_hbm_budget_bytes`` take the host build),
+a device fault mid-flush (:236: recorded on the breaker, the flush built
+on the host, the next flush back on the device route) and a seeded run's
+eviction round trip (:261: the flush's planes are resident without an
+upload, evictable, and uploaded again from the host planes with the same
+answers).
 """
 
 import random
@@ -36,7 +37,11 @@ from yugabyte_db_tpu_torch.ops import flush as t_flush
 from yugabyte_db_tpu_torch.ops.device_run import DeviceRun, padded_blocks
 from yugabyte_db_tpu_torch.storage import gpu_engine
 from yugabyte_db_tpu_torch.storage.columnar import ColumnarRun
+from yugabyte_db_tpu_torch.storage.residency import hbm_cache
 from yugabyte_db_tpu_torch.utils import planes as P
+from yugabyte_db_tpu_torch.utils.fault_injection import (arm_fault_once,
+                                                         clear_faults)
+from yugabyte_db_tpu_torch.utils.flags import FLAGS
 
 R = 64
 
@@ -423,3 +428,116 @@ def test_multi_version_and_flat_runs_after_device_flushes():
     gpu.compact(max_ht // 2)
     cpu.compact(max_ht // 2)
     assert scan(gpu, T).rows == scan(cpu, J).rows
+
+
+@pytest.fixture
+def budget_flag():
+    """The port's budget flag restored, stray residents drained and armed
+    faults cleared around a test."""
+    old = FLAGS.get("gpu_hbm_budget_bytes")
+    hbm_cache().evict_unpinned()
+    yield lambda v: FLAGS.set("gpu_hbm_budget_bytes", int(v))
+    FLAGS.set("gpu_hbm_budget_bytes", old)
+    clear_faults()
+    hbm_cache().evict_unpinned()
+
+
+def assert_same_scan(cpu, gpu, kw):
+    """The rows and resume key of ``gpu`` equal the JAX ``cpu`` engine's;
+    ``kw``'s aggregates are (fn, column) pairs."""
+    def spec(S):
+        return S.ScanSpec(**dict(kw, aggregates=[
+            S.AggSpec(*a) for a in kw.get("aggregates", [])]))
+
+    a = cpu.scan(spec(J))
+    b = gpu.scan(spec(T))
+    assert a.columns == b.columns and len(a.rows) == len(b.rows)
+    for ra, rb in zip(a.rows, b.rows):
+        for va, vb in zip(ra, rb):
+            if isinstance(va, float):
+                assert vb == pytest.approx(va, rel=1e-4, abs=1e-4)
+            else:
+                assert va == vb, kw
+    assert a.resume_key == b.resume_key
+
+
+def engines(R=64):
+    ps, js = make_schema(PORT, "mixed"), make_schema(JAX, "mixed")
+    return ps, J.make_engine("cpu", js, {}), T.make_engine(
+        "gpu", ps, {"rows_per_block": R, "device": "cpu"})
+
+
+def test_budget_gate_takes_the_host_route(budget_flag):
+    """``tests/test_device_flush.py:199``: a flush whose padded planes
+    exceed the budget takes the host build (seeding them would thrash the
+    cache)."""
+    budget_flag(1000)
+    ps, cpu, gpu = engines()
+    rows, _ = sample_rows(ps, n=100, seed=3)
+    cpu.apply(jax_rows(rows))
+    gpu.apply(rows)
+    assert t_flush.flush_plane_nbytes(gpu_engine.PAD_BLOCKS, R, ps) > 1000
+    cpu.flush()
+    gpu.flush()
+    assert gpu.stats()["flush_paths"] == {"device": 0, "host": 1}
+    assert gpu.last_flush["route"] == "host"
+    budget_flag(0)
+    assert_same_scan(cpu, gpu, dict(read_ht=MAX_HT))
+    assert gpu.stats()["host_reserves"] == 0
+    gpu.close()
+
+
+def test_dispatch_fault_takes_the_host_route_then_recovers(budget_flag):
+    """``tests/test_device_flush.py:236``: a device fault mid-flush lands
+    on the breaker and the flush is built on the host, with no row lost;
+    the next flush (fault cleared, breaker closed) takes the device
+    route."""
+    ps, cpu, gpu = engines()
+    cids = {c.name: c.col_id for c in ps.value_columns}
+    rows1, _ = sample_rows(ps, n=60, seed=1)
+    cpu.apply(jax_rows(rows1))
+    gpu.apply(rows1)
+    arm_fault_once("fault.gpu_dispatch")
+    cpu.flush()
+    gpu.flush()
+    assert gpu.stats()["flush_paths"] == {"device": 0, "host": 1}
+    assert gpu.breaker.consecutive_failures == 1
+    assert gpu.breaker.state == "closed"  # threshold 3
+    RowVersion = PORT.row_version.RowVersion
+    rows2 = [RowVersion(enc(ps, "z", i), ht=10_000 + i, liveness=True,
+                        columns={cids["a"]: i}) for i in range(20)]
+    cpu.apply(jax_rows(rows2))
+    gpu.apply(rows2)
+    cpu.flush()
+    gpu.flush()
+    assert gpu.stats()["flush_paths"] == {"device": 1, "host": 1}
+    assert gpu.breaker.consecutive_failures == 0
+    assert_same_scan(cpu, gpu, dict(read_ht=MAX_HT))
+    gpu.close()
+
+
+def test_seeded_run_survives_eviction_roundtrip(budget_flag):
+    """``tests/test_device_flush.py:261``: the device flush's planes are
+    the run's resident payload with no upload, evictable like any upload,
+    and the upload after the eviction (from the host planes read back
+    from them) scans the same."""
+    ps, cpu, gpu = engines()
+    rows, _ = sample_rows(ps, n=150, seed=9)
+    cpu.apply(jax_rows(rows))
+    gpu.apply(rows)
+    cpu.flush()
+    gpu.flush()
+    assert gpu.stats()["flush_paths"]["device"] == 1
+    cache = hbm_cache()
+    up0 = cache.stats()["demand_upload_bytes"]
+    assert_same_scan(cpu, gpu, dict(read_ht=MAX_HT))
+    assert cache.stats()["demand_upload_bytes"] == up0
+    assert gpu.runs[0].peek_device() is not None
+    assert cache.evict_unpinned() > 0
+    assert gpu.runs[0].peek_device() is None
+    assert_same_scan(cpu, gpu, dict(read_ht=MAX_HT))
+    assert_same_scan(cpu, gpu, dict(read_ht=MAX_HT, aggregates=[
+        ("count", None), ("sum", "a")]))
+    assert cache.stats()["demand_upload_bytes"] > up0
+    assert gpu.stats()["host_reserves"] == 0
+    gpu.close()

@@ -184,7 +184,8 @@ def test_a_batch_mixes_overlay_and_single_run_specs(mv, monkeypatch):
     monkeypatch.setattr(flat_agg, "flat_aggregate", counted_fold)
     monkeypatch.setattr(mvcc_resolve, "resolve_view", counted_resolve)
     masked = gpu._overlay_cache[3].masked
-    gpu.runs[0]._view = masked._view = None
+    gpu.runs[0].drop_view()
+    masked.drop_view()
     got = gpu.scan_batch([build_spec(T, kw) for _l, kw in kws])
     views = {(id(p.trun), p.view_key) for p in preps}
     assert len(resolves) == len(views) < len(kws)
@@ -192,7 +193,8 @@ def test_a_batch_mixes_overlay_and_single_run_specs(mv, monkeypatch):
     assert any(v is masked.dev.arrays["valid"] for v in resolves)
     assert any(v is gpu.runs[0].dev.arrays["valid"] for v in resolves)
     # One view of the run is alive: the last one made, run or masked.
-    assert (gpu.runs[0]._view is None) != (masked._view is None)
+    assert (gpu.runs[0].held_view() is None) != \
+        (masked.held_view() is None)
     for (lab, kw), g in zip(kws, got):
         assert_same(e["tpu"].scan(build_spec(J, kw)), g, lab)
 

@@ -31,8 +31,10 @@ exactly as ``storage.cpu_engine.gc_versions`` decides it key by key.
 Pad rows (``idx`` < 0) read as the JAX function fills them: hybrid time
 and expiry 0, no tombstone, no liveness, no column set; they never
 contribute. Not here: encoded resident planes (the JAX function decodes
-them inline; ROADMAP.md §1 item 8) and the residency budget's gate
-(``_device_gc_fits_budget``; item 11): every run is resident.
+them inline; ROADMAP.md §1 item 8): the engine passes each run's plain
+planes (an encoded run's side-car), pins every run across the launch, and
+takes the numpy twin where the runs would not fit the residency budget
+together (``_device_gc_fits_budget``).
 """
 
 from __future__ import annotations

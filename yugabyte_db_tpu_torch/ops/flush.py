@@ -21,8 +21,8 @@ so both are byte-identical by construction.
 - ``replay_flush_plain``: the function in torch ops (an ``index_put_`` a
   plane), the counterpart of the JAX ``replay_flush``;
 - ``flush_plane_nbytes``: the JAX function's device footprint estimate of
-  the replayed planes (its budget gate waits for the residency budget,
-  ROADMAP.md §1 item 11);
+  the replayed planes, which the engine's budget gate checks against the
+  residency budget (``gpu_hbm_budget_bytes``);
 - ``replay_bytes``: the bytes the function must move, for the bound;
 - ``record_layout``: where each plane of a staged row lies in the record
   that the kernel's first pass packs (its scratch is ``n`` records).

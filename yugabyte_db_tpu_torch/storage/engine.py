@@ -7,9 +7,10 @@ the engine selected where the tablet injects its storage
 
 The port keeps its own registry: ``make_engine("gpu", schema, options)``
 builds the PyTorch/CUDA engine (``storage/gpu_engine.py``). Options are read
-from the ``options`` dict; there is no process-wide flag registry here, so
-each option's default is the JAX package's flag default
-(``compaction_trigger`` 4, ``memtable_flush_versions`` 1 << 60).
+from the ``options`` dict, each defaulting to the JAX package's flag default
+(``compaction_trigger`` 4, ``memtable_flush_versions`` 1 << 60); the port's
+few process-wide flags (the residency budget, the breaker's defaults) are
+in ``utils/flags.py``.
 """
 
 from __future__ import annotations

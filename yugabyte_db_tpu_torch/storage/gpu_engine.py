@@ -34,10 +34,27 @@ route), the kernels that read plain planes read the run's side-car
 itself, and a single-run aggregate's string predicates on a dictionary
 column are promoted to exact code compares (``_promote_code_preds``).
 
-Not in this slice: the residency budget and its gates, run pinning and
-the breaker's host re-serve (ROADMAP.md §1 item 11: every run is
-resident, and a device error raises), the native one-pass flush and
-persistence (item 16), and ``restore_entries`` / ``dump_entries`` /
+Runs are resident through the process-wide residency cache
+(``storage.residency``, the JAX engine's): a run uploads on demand, a
+budget a device (the ``gpu_hbm_budget_bytes`` flag) evicts the least
+recently used unpinned runs with their side-cars and views, a batch pins
+the runs it launches on until it finishes, and the cached overlay pins
+its primary. The flush takes the host build when its planes would exceed
+the budget, and compaction takes the numpy twin of the mask when the
+runs would not fit it together.
+
+The fault domain is the JAX engine's circuit breaker
+(``storage.breaker``): a device fault while a batch is planned, launched
+or finished (``breaker.is_device_fault``: device memory exhausted, an
+injected ``fault.gpu_dispatch``) is recorded, and the batch is re-served
+from the host structures (``_serve_host_batch``: the row scan with host
+candidates); while the breaker is open every batch is, until a half-open
+probe succeeds. A fault in the device flush sends it to the host build.
+Any other raise, a CUDA runtime error of a faulty kernel included, is
+recorded on the breaker and propagates.
+
+Not in this slice: the native one-pass flush and persistence (ROADMAP.md
+§1 item 16), and ``restore_entries`` / ``dump_entries`` /
 ``alter_schema`` (item 12).
 
 The scans:
@@ -99,16 +116,15 @@ pages on a flat run, the gather through K7 (``ops.row_gather``, a CUDA
 kernel) on one run, and the row scan over several sources, whose
 candidates K9 gives (also a dirty set past half the primary, a grouped
 spec over several sources, and the memtable before the first flush).
-There is no host re-serve: a device error raises.
 """
 
 from __future__ import annotations
 
 import bisect
+import functools
 import gc
 import operator
 import time
-import weakref
 from dataclasses import dataclass
 from types import SimpleNamespace
 
@@ -127,8 +143,8 @@ from yugabyte_db_tpu_torch.ops import scan as dscan
 from yugabyte_db_tpu_torch.ops.device_run import (PLANE_ENCODINGS,
                                                   DeviceRun, dtype_kind,
                                                   padded_blocks,
-                                                  resolve_device,
-                                                  tree_nbytes)
+                                                  plane_nbytes,
+                                                  resolve_device)
 from yugabyte_db_tpu_torch.storage.columnar import (DEFAULT_ROWS_PER_BLOCK,
                                                     KEY_WORDS, BlockMeta,
                                                     ColumnarRun, _varlen_raw,
@@ -139,6 +155,8 @@ from yugabyte_db_tpu_torch.storage.cpu_engine import (Aggregator,
                                                       gc_versions)
 from yugabyte_db_tpu_torch.storage import expr as X
 from yugabyte_db_tpu_torch.storage import host_page
+from yugabyte_db_tpu_torch.storage.breaker import (CircuitBreaker,
+                                                   is_device_fault)
 from yugabyte_db_tpu_torch.storage.engine import (MEMTABLE_FLUSH_VERSIONS,
                                                   StorageEngine,
                                                   register_engine)
@@ -146,10 +164,17 @@ from yugabyte_db_tpu_torch.storage.gpu_rows import RowPath
 from yugabyte_db_tpu_torch.storage.memtable import MemTable
 from yugabyte_db_tpu_torch.storage.merge import (merge_entry_streams,
                                                  merge_versions)
+from yugabyte_db_tpu_torch.storage.residency import (device_nbytes,
+                                                     hbm_cache)
 from yugabyte_db_tpu_torch.storage.row_version import MAX_HT, RowVersion
 from yugabyte_db_tpu_torch.storage.scan_spec import (ScanResult, ScanSpec,
                                                      point_key_of)
 from yugabyte_db_tpu_torch.utils import planes as P
+from yugabyte_db_tpu_torch.utils.fault_injection import (FaultInjected,
+                                                         maybe_fault)
+from yugabyte_db_tpu_torch.utils.flags import FLAGS
+from yugabyte_db_tpu_torch.utils.memtracker import root_tracker
+from yugabyte_db_tpu_torch.utils.sync_point import sync_point
 
 PAD_BLOCKS = 64  # run block-axis padding, as the JAX engine pads
 # The plane_encoding option's default (the JAX flag's: "auto").
@@ -163,36 +188,72 @@ HOST_GC_MASK_MAX = 2_000_000
 MAX_DEVICE_KEY = 4 * KEY_WORDS
 
 
+def device_label(device: torch.device) -> str:
+    """The residency cache's budget bucket of ``device`` ("cuda:0")."""
+    return f"{device.type}:{device.index or 0}"
+
+
+class _Resident:
+    """A run's payload in the residency cache: its planes (``dev``, a
+    DeviceRun), K10's part table of an encoded tree (``decode_plan``,
+    laid out and uploaded with the planes so that the run's first decode
+    is one launch) and a multi-version run's constant view planes
+    (``const``). Built together, charged together, dropped together."""
+
+    __slots__ = ("dev", "decode_plan", "const", "nbytes")
+
+    def __init__(self, dev: DeviceRun, const: dict | None):
+        self.dev = dev
+        self.const = const
+        self.decode_plan = None
+        if dev.encoded and dev.device.type == "cuda":
+            self.decode_plan = decode.plan_tree(dev.arrays)
+        self.nbytes = device_nbytes(
+            [dev.arrays, const,
+             self.decode_plan.table if self.decode_plan else None])
+
+    @property
+    def encoded(self) -> bool:
+        return self.dev.encoded
+
+
 class GpuRun:
-    """A columnar run and its planes resident on the engine's device (no
-    residency budget yet: a run stays resident until a compaction retires
-    it). ``dev`` adopts planes the device flush made; without it the
-    run's host planes are uploaded, encoded under ``setting`` ``"auto"``.
+    """A columnar run and its device residency (the JAX engine's
+    ``TpuRun``). ``dev`` demand-uploads the run's planes through the
+    process-wide residency cache (``storage.residency``) and may be
+    evicted once the access returns when ``gpu_hbm_budget_bytes`` is under
+    pressure; the host ``ColumnarRun`` stays authoritative and the next
+    access uploads again, encoded under ``setting`` ``"auto"``. A run the
+    device flush made is seeded with the planes it adopts
+    (``seed_device``). Hold a ``pin`` across a batch's launches and its
+    finish so that eviction cannot drop planes a launch still reads.
+
     ``plain()`` is the plain tree the kernels that read plain planes take:
-    ``dev.arrays`` of a plain run, else K10's decode of the encoded tree
-    (``ops.decode``), made at first use by one launch over the part table
-    laid out when the run is uploaded, and kept for the run's life. A
-    multi-version run also holds its view's constant planes, the sorted
-    hybrid times of its versions and expiries (the view keys), and its
-    most recent resolved view."""
+    the resident arrays of a plain run, else K10's decode of the encoded
+    tree (``ops.decode``), made at first use by one launch over the part
+    table laid out at upload. The decode is an aux entry of the run's
+    cache entry: charged with it and evicted with it, as the JAX engine
+    charges K1's tensors (``pallas_tensors``). So are a multi-version
+    run's resolved view (``view``; one at a time, held by the run or by
+    one masked copy of it) and K13b's plan of a bit-packed ``valid``. A
+    multi-version run also holds, on the host, the sorted hybrid times of
+    its versions and expiries (the view keys). Every device tensor of a
+    run is reachable only through its cache entry, so that an eviction
+    frees what it releases."""
 
     def __init__(self, crun: ColumnarRun, device: torch.device,
-                 dev: DeviceRun | None = None, setting: str = "auto"):
+                 dev: DeviceRun | None = None, setting: str = "auto",
+                 tracker=None):
         self.crun = crun
-        self.dev = dev if dev is not None else DeviceRun(
-            crun, PAD_BLOCKS, device=device, setting=setting)
-        self._plain = None  # K10's decode of an encoded run
-        # K10's part table of the run, laid out and uploaded with the run
-        # so that its first decode is one launch.
-        self._decode_plan = None
-        if self.dev.encoded and self.dev.device.type == "cuda":
-            self._decode_plan = decode.plan_tree(self.dev.arrays)
-        self._valid_plan = None  # K10's plan of a bit-packed valid (K13b)
+        self.device = device
+        self.setting = setting
+        self.B = padded_blocks(crun.B, PAD_BLOCKS)  # the planes' blocks
         self.flat = crun.max_group_versions <= 1
         self.host_index = None  # storage.host_page.HostPageIndex, lazy
-        self._view = None  # (view key, view arrays)
-        # This run or a masked copy of it: whichever holds a view.
-        self._view_holder = None
+        self._dev_nbytes_hint: int | None = None
+        # This run's mark in the "view" aux slot (never the run itself:
+        # the cache must not keep its owner alive).
+        self._token = object()
         if not self.flat:
             v = crun.valid
             self._hts = np.sort(P.planes_to_u64(
@@ -200,37 +261,124 @@ class GpuRun:
             exps = P.planes_to_u64(crun.exp_hi[v],
                                    crun.exp_lo[v]).astype(np.int64)
             self._exps = np.sort(exps[exps != MAX_HT])
-            self._const = mvcc_resolve.constant_planes(self.dev.B, crun.R,
-                                                       device)
+        self._res_key = hbm_cache().register(self, tracker, "run",
+                                             device=device_label(device))
+        if dev is not None:
+            self.seed_device(dev)
 
     @property
     def source(self) -> "GpuRun":
         """The run whose planes these are."""
         return self
 
+    # -- residency (the JAX engine's TpuRun) ---------------------------------
+    def _const_planes(self) -> dict | None:
+        if self.flat:
+            return None
+        return mvcc_resolve.constant_planes(self.B, self.crun.R,
+                                            self.device)
+
+    def _build_dev(self):
+        res = _Resident(DeviceRun(self.crun, PAD_BLOCKS, device=self.device,
+                                  setting=self.setting),
+                        self._const_planes())
+        return res, res.nbytes
+
+    def _nbytes_hint(self) -> int:
+        """The payload's predicted bytes, from the host planes' shapes."""
+        if self._dev_nbytes_hint is None:
+            const = 0 if self.flat else self.B * self.crun.R * 18
+            self._dev_nbytes_hint = const + plane_nbytes(
+                self.crun, PAD_BLOCKS, self.setting)
+        return self._dev_nbytes_hint
+
+    def resident(self, priority: str | None = None) -> _Resident:
+        """The run's payload, uploaded on a miss."""
+        return hbm_cache().acquire(self._res_key, self._build_dev,
+                                   nbytes_hint=self._nbytes_hint(),
+                                   priority=priority)
+
+    @property
+    def dev(self) -> DeviceRun:
+        return self.resident().dev
+
+    def pin(self, priority: str | None = None) -> _Resident:
+        """Acquire + pin the payload until ``unpin``: the guard of a
+        batch's launches, a compaction's mask and the overlay's primary."""
+        return hbm_cache().pin(self._res_key, self._build_dev,
+                               nbytes_hint=self._nbytes_hint(),
+                               priority=priority)
+
+    def unpin(self) -> None:
+        hbm_cache().unpin(self._res_key)
+
+    def peek_device(self) -> DeviceRun | None:
+        """The resident planes, or None: no upload, no LRU touch."""
+        res = hbm_cache().peek(self._res_key)
+        return None if res is None else res.dev
+
+    def seed_device(self, dev: DeviceRun) -> None:
+        """Admit planes built on the device (the device flush's) as the
+        run's payload, budgeted and tracker-charged like an upload; the
+        next access after an eviction uploads the host planes. The hint is
+        the payload's own bytes (no host encoding on the flush's path)."""
+        res = _Resident(dev, self._const_planes())
+        hbm_cache().acquire(self._res_key, lambda: (res, res.nbytes),
+                            nbytes_hint=res.nbytes)
+
+    def retire(self) -> None:
+        """The run left the run set for good (a compaction merged it, or
+        the engine closed): its payload, its aux tensors and its
+        registration go; so does its host page index."""
+        hbm_cache().invalidate(self._res_key)
+        self.host_index = None
+
+    def _aux(self, name: str, make):
+        """The aux value ``name`` of the resident payload, made by
+        ``make(payload) -> (value, bytes)`` on a miss and charged to the
+        run's entry (not kept where the entry was evicted meanwhile)."""
+        cache = hbm_cache()
+        res = self.resident()
+        value = cache.aux_get(self._res_key, name)
+        if value is None:
+            value, nbytes = make(res)
+            cache.aux_put(self._res_key, name, value, nbytes)
+        return value
+
+    # -- the planes the kernels read -----------------------------------------
     def plain(self) -> dict:
         """The run's plain plane tree (its side-car when it is encoded)."""
-        if not self.dev.encoded:
-            return self.dev.arrays
-        if self._plain is None:
-            self._plain = decode.decode_tree(self.dev.arrays,
-                                             self._decode_plan)
-        return self._plain
+        res = self.resident()
+        if not res.dev.encoded:
+            return res.dev.arrays
+
+        def make(r):
+            side = decode.decode_tree(r.dev.arrays, r.decode_plan)
+            return side, device_nbytes(side, r.dev.arrays)
+
+        return self._aux("plain", make)
 
     @property
     def sidecar_nbytes(self) -> int:
-        """Device bytes of K10's side-car (0 until it is decoded)."""
-        return 0 if self._plain is None else tree_nbytes(self._plain)
+        """Device bytes of K10's side-car (0 while it is not resident)."""
+        cache = hbm_cache()
+        res = cache.peek(self._res_key)
+        side = cache.aux_get(self._res_key, "plain")
+        return 0 if side is None else device_nbytes(side, res.dev.arrays)
 
-    def retire(self) -> None:
-        """The run left the run set (a compaction merged it): let go of
-        its device planes, its side-car, its view and its host page
-        index."""
-        self.dev = self._plain = self._view = self.host_index = None
-        self._decode_plan = self._valid_plan = None
-        if not self.flat:
-            self._const = None
+    def valid_plan(self, leaf, B: int, R: int):
+        """K10's plan of the bit-packed ``valid`` leaf (K13b), laid out
+        once and kept as an aux entry; None on the CPU."""
+        if self.device.type != "cuda":
+            return None
 
+        def make(_r):
+            plan = decode.plan_leaves([leaf], B, R)
+            return plan, device_nbytes(plan.table)
+
+        return self._aux("valid_plan", make)
+
+    # -- the resolved view ---------------------------------------------------
     def view_key(self, read_ht: int) -> tuple:
         """Two read points resolve to one view exactly when they see the
         same versions (commit time <= read point) and the same expiries
@@ -242,61 +390,89 @@ class GpuRun:
 
     def view(self, key: tuple, read_planes: tuple) -> dict:
         """The resolved view of ``key`` (``read_planes``: those of any read
-        point of that key). Only the latest view of a run is kept, by the
-        run or by one masked copy of it: the previous one is let go
-        before the new one is made."""
-        if self._view is None or self._view[0] != key:
-            source = self.source
-            holder = source._view_holder and source._view_holder()
-            if holder is not None:
-                holder._view = None
-            self._view = None
-            # A dictionary column's code plane is resolved as a column of
-            # its own and comes back as the view column's code plane.
-            self._view = (key, decode.fold_code_columns(
-                mvcc_resolve.resolve_view(decode.code_columns(self.plain()),
-                                          *read_planes, self._const)))
-            source._view_holder = weakref.ref(self)
-        return self._view[1]
+        point of that key). The source run's entry keeps one view, in its
+        "view" aux slot, made by the run or by one masked copy of it: the
+        previous one is let go before the new one is made."""
+        cached = self.held_view()
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        del cached
+        source = self.source
+        cache = hbm_cache()
+        cache.aux_pop(source._res_key, "view")
+        res = source.resident()
+        plain = self.plain()
+        # A dictionary column's code plane is resolved as a column of its
+        # own and comes back as the view column's code plane.
+        arrays = decode.fold_code_columns(mvcc_resolve.resolve_view(
+            decode.code_columns(plain), *read_planes, res.const))
+        cache.aux_put(source._res_key, "view", (self._token, key, arrays),
+                      device_nbytes(arrays, plain, res.dev.arrays,
+                                     res.const))
+        return arrays
+
+    def held_view(self) -> tuple | None:
+        """(view key, view arrays) when the view slot holds this run's
+        (or this masked copy's) view, else None."""
+        slot = hbm_cache().aux_get(self.source._res_key, "view")
+        if slot is None or slot[0] is not self._token:
+            return None
+        return slot[1], slot[2]
+
+    def drop_view(self) -> None:
+        """Let this run's (or this masked copy's) view go."""
+        if self.held_view() is not None:
+            hbm_cache().aux_pop(self.source._res_key, "view")
 
 
 class _MaskedRun(GpuRun):
     """The delta overlay's primary with its dirty keys' rows cleared from
     ``valid`` (the JAX engine's ``_MaskedRun``). It shares the source's
-    ``ColumnarRun``, view keys and constant view planes, and has a view
-    slot of its own: a masked view is never taken for the plain run's.
-    Its planes are the source's plain tree with the masked ``valid``."""
+    ``ColumnarRun``, residency entry, view keys and constant view planes,
+    and takes the source's view slot with a mark of its own: a masked
+    view is never taken for the plain run's. Its planes are the source's
+    plain tree with the masked ``valid``, assembled at each use, so that
+    it holds no reference to the source's tensors; the masked plane is
+    charged as an external entry while the overlay cache holds it."""
 
     def __init__(self, source: GpuRun, valid: torch.Tensor):
         self.crun = source.crun
         self._source = source
         self.flat = source.flat
-        self._plain = self._decode_plan = self._valid_plan = None
-        self.dev = SimpleNamespace(
-            B=source.dev.B, arrays=dict(source.plain(), valid=valid),
-            encoded=False, device=source.dev.device)
-        self._view = None
+        self.B = source.B
+        self.device = source.device
+        self.valid = valid
+        self._token = object()
         if not self.flat:
             self._hts, self._exps = source._hts, source._exps
-            self._const = source._const
 
     @property
     def source(self) -> GpuRun:
         return self._source
+
+    def resident(self, priority: str | None = None) -> _Resident:
+        return self._source.resident(priority)
+
+    def plain(self) -> dict:
+        return dict(self._source.plain(), valid=self.valid)
+
+    @property
+    def dev(self) -> SimpleNamespace:
+        return SimpleNamespace(B=self.B, arrays=self.plain(), encoded=False,
+                               device=self.device)
 
 
 def masked_valid(primary: GpuRun, idx: np.ndarray) -> torch.Tensor:
     """The primary's ``valid`` with the flattened rows ``idx`` cleared: K13
     on the plain plane, or, where the resident leaf is bit-packed, K13b
     (the JAX engine's ``_scatter_invalid_bits``): K10's decode of that one
-    leaf into a new plane (its part table made once and kept by the run),
-    then K13."""
+    leaf into a new plane (its part table made once and kept as an aux
+    entry of the run), then K13."""
     leaf = primary.dev.arrays["valid"]
     if enc.leaf_kind(leaf) == "bits":
         B, R = enc.tree_dims(primary.dev.arrays)
-        if primary._valid_plan is None and primary.dev.device.type == "cuda":
-            primary._valid_plan = decode.plan_leaves([leaf], B, R)
-        (plane,), = decode.decode_leaves([leaf], B, R, primary._valid_plan)
+        (plane,), = decode.decode_leaves([leaf], B, R,
+                                         primary.valid_plan(leaf, B, R))
         return scatter_invalid(plane, idx, copy=False)
     return scatter_invalid(primary.plain()["valid"], idx)
 
@@ -335,11 +511,12 @@ class _OverlayState:
     masked primary, the key-sorted dirty rows ``(key, versions ht-desc
     across every source)`` with a parallel key list and a by-key map
     (what the incremental copy-on-write update bisects into), the cleared
-    primary rows, the memtable version count the state includes, and the
-    host-partial cache."""
+    primary rows, the memtable version count the state includes, the
+    host-partial cache, and the dirty rows merged and read at each of the
+    last 8 read points (``_overlay_columns_at``)."""
 
     __slots__ = ("masked", "rows", "keys", "by_key", "idx", "mem_count",
-                 "partial")
+                 "partial", "merged")
 
     def __init__(self, masked, rows, keys, by_key, idx, mem_count):
         self.masked = masked
@@ -349,7 +526,11 @@ class _OverlayState:
         self.idx = idx
         self.mem_count = mem_count
         self.partial: dict = {}
+        self.merged: dict = {}
 
+
+# A dirty row's column not read yet at a read point (_overlay_columns_at).
+_UNREAD = object()
 
 # _overlay_apply_delta verdict: the delta can't be applied (no memtable
 # log) and the caller must rebuild from scratch.
@@ -451,11 +632,39 @@ class GpuStorageEngine(RowPath, StorageEngine):
     (``host``); ``last_flush`` / ``last_compact`` hold the host-clock
     seconds of the last one's parts. ``stats()["plane_encoding"]`` holds
     the runs' bytes by encoding (the JAX engine's ``plane_stats``) and
-    the K10 side-cars' device bytes."""
+    the K10 side-cars' device bytes.
+
+    ``breaker_failure_threshold`` and ``breaker_cooldown_s`` (defaults:
+    the flags ``gpu_breaker_failure_threshold`` / ``gpu_breaker_cooldown_s``,
+    3 and 1.0 s) configure the circuit breaker; ``stats()["breaker"]``
+    gives its state and trips, ``stats()["host_reserves"]`` the batches
+    re-served from the host, and ``stats()["residency"]`` the residency
+    cache's stats. The runs' resident bytes are charged to the engine's
+    ``device_tracker`` (a child of the root tracker's ``device``);
+    ``close()`` retires the runs and detaches it."""
 
     def __init__(self, schema: Schema, options: dict | None = None):
         super().__init__(schema, options)
         self.device = resolve_device(self.options.get("device"))
+        # The runs' resident bytes, charged and released entry by entry
+        # by the residency cache.
+        self.device_tracker = root_tracker().child("device").child(
+            f"engine-{id(self):x}")
+        # Fault domain: the breaker quarantines the device path after
+        # repeated device faults; meanwhile every batch is re-served from
+        # the host structures (_serve_host_batch).
+        self.breaker = CircuitBreaker(
+            f"gpu_engine:{self.device_tracker.name}",
+            failure_threshold=int(self.options.get(
+                "breaker_failure_threshold",
+                FLAGS.get("gpu_breaker_failure_threshold"))),
+            cooldown_s=float(self.options.get(
+                "breaker_cooldown_s", FLAGS.get("gpu_breaker_cooldown_s"))))
+        self.host_reserves = 0  # batches re-served from the host
+        # The cached overlay's pin on its primary and the residency entry
+        # of its masked valid plane (_cache_overlay / _drop_overlay_cache).
+        self._overlay_pinned: GpuRun | None = None
+        self._overlay_ext_key: int | None = None
         self.plane_encoding = self.options.get("plane_encoding",
                                                DEFAULT_PLANE_ENCODING)
         if self.plane_encoding not in PLANE_ENCODINGS:
@@ -521,17 +730,16 @@ class GpuStorageEngine(RowPath, StorageEngine):
             t1 = time.perf_counter()
             crun = ColumnarRun.build(self.schema, entries,
                                      self.rows_per_block)
-            t2 = time.perf_counter()
-            trun = GpuRun(crun, self.device, setting=self.plane_encoding)
+            trun = GpuRun(crun, self.device, setting=self.plane_encoding,
+                          tracker=self.device_tracker)
+            # The run uploads at its first access, through the cache.
             self.last_flush = {"route": "host", "drain_s": t1 - t0,
-                               "build_s": t2 - t1,
-                               "upload_s": time.perf_counter() - t2}
+                               "build_s": time.perf_counter() - t1}
             self.flush_paths["host"] += 1
         self.runs.append(trun)
         self.memtable = MemTable()
-        # The run set changed: the overlay is built anew at its next use
-        # (the JAX engine's _drop_overlay_cache, with no pin to release).
-        self._overlay_cache = None
+        # The run set changed: the overlay is built anew at its next use.
+        self._drop_overlay_cache()
         self._plan_cache.clear()
 
     def _device_flush(self) -> GpuRun | None:
@@ -543,9 +751,9 @@ class GpuStorageEngine(RowPath, StorageEngine):
         groups into blocks, and scatter the sorted planes on the device
         (``_device_flush_dispatch``). None where the JAX engine takes the
         host build: a key longer than the prefix planes hold, a value the
-        encoders reject, a key group longer than a block. (Its other
-        routes there, the residency budget and the breaker, wait for
-        ROADMAP.md §1 item 11: a device error raises.)"""
+        encoders reject, a key group longer than a block, planes past the
+        residency budget, the breaker open, or a device fault in the
+        dispatch (recorded on the breaker)."""
         rows = self.memtable.versions_since(0)
         if not rows:
             return None
@@ -579,11 +787,26 @@ class GpuStorageEngine(RowPath, StorageEngine):
                                                    self.rows_per_block)
         except ValueError:
             return None  # a key group longer than a block: host build
+        budget = hbm_cache().budget()
+        if budget and dflush.flush_plane_nbytes(
+                padded_blocks(len(ranges), PAD_BLOCKS), self.rows_per_block,
+                self.schema) > budget:
+            return None  # the run exceeds the residency budget: host build
+        if not self.breaker.allow():
+            return None
         parts = {"route": "device", "staging_s": t1 - t0,
                  "sort_s": time.perf_counter() - t1}
-        return self._device_flush_dispatch(rows, keys, staged, perm, kw_s,
-                                           new_group, gstarts, sizes,
-                                           ranges, max_key_len, parts)
+        try:
+            return self._device_flush_dispatch(
+                rows, keys, staged, perm, kw_s, new_group, gstarts, sizes,
+                ranges, max_key_len, parts)
+        except BaseException as e:
+            # Any raise retires the probe allow() admitted; a device fault
+            # sends the flush to the host build, anything else propagates.
+            self.breaker.record_failure(e)
+            if is_device_fault(e):
+                return None
+            raise
 
     def _device_flush_dispatch(self, rows, keys, staged, perm, kw_s,
                                new_group, gstarts, sizes, ranges,
@@ -591,6 +814,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
         """K12 over the staged planes; the run's host planes read back
         from the very device planes it adopts; keys, row objects and
         varlen payloads scattered on the host by the same packing."""
+        self._device_fault_point()
         n = len(rows)
         R = self.rows_per_block
         B = len(ranges)
@@ -699,10 +923,14 @@ class GpuStorageEngine(RowPath, StorageEngine):
         run.max_key_len = max_key_len
         run.varlen_max_len = dict(staged.varlen_max_len)
         t4 = time.perf_counter()
-        trun = GpuRun(run, dev, DeviceRun.from_arrays(out, R))
+        trun = GpuRun(run, dev, DeviceRun.from_arrays(out, R),
+                      setting=self.plane_encoding,
+                      tracker=self.device_tracker)
+        del out
         self.last_flush = dict(parts, upload_s=t1 - t0, k12_s=t2 - t1,
                                readback_s=t3 - t2, host_scatter_s=t4 - t3,
                                run_s=time.perf_counter() - t4)
+        self.breaker.record_success()
         return trun
 
     def _flush_dict_cols(self, staged, n: int) -> dict:
@@ -779,18 +1007,57 @@ class GpuStorageEngine(RowPath, StorageEngine):
                                  "merge_build_s": time.perf_counter() - t0}
         else:
             (crun,) = result
-        t0 = time.perf_counter()
         old_runs = self.runs
-        self.runs = ([GpuRun(crun, self.device, setting=self.plane_encoding)]
+        # The merged run uploads at its first access, as any host-built
+        # run.
+        self.runs = ([GpuRun(crun, self.device, setting=self.plane_encoding,
+                             tracker=self.device_tracker)]
                      if crun is not None else [])
-        self.last_compact["upload_s"] = time.perf_counter() - t0
-        # Everything that pointed at the old runs goes: the overlay state,
-        # the gather plans, the read planes, the runs' device planes.
-        self._overlay_cache = None
+        # Everything that pointed at the old runs goes: the overlay state
+        # and its pin, the gather plans, the read planes, the runs'
+        # residency entries.
+        self._drop_overlay_cache()
         self._plan_cache.clear()
         self._read_plane_cache.clear()
         for t in old_runs:
             t.retire()
+
+    def _drop_overlay_cache(self) -> None:
+        """Forget the cached delta-overlay state, releasing its pin on
+        the primary run and its masked-valid residency entry (the JAX
+        engine's). Must run whenever the run set changes (flush, compact,
+        close): validity checks alone would leak the pin."""
+        self._overlay_cache = None
+        if self._overlay_pinned is not None:
+            self._overlay_pinned.unpin()
+            self._overlay_pinned = None
+        if self._overlay_ext_key is not None:
+            hbm_cache().invalidate(self._overlay_ext_key)
+            self._overlay_ext_key = None
+
+    def close(self) -> None:
+        """Let go of the device: the overlay, every run's residency entry,
+        and the engine's device tracker."""
+        self._drop_overlay_cache()
+        for t in self.runs:
+            t.retire()
+        self._plan_cache.clear()
+        self.device_tracker.detach()
+
+    def _device_gc_fits_budget(self) -> bool:
+        """The retention mask K11 needs every run pinned at once, with
+        its plain planes (an encoded run's side-car); under a budget
+        smaller than those bytes that would force a pinned overflow, so
+        the caller takes the numpy twin instead (the JAX engine's)."""
+        b = hbm_cache().budget()
+        if not b:
+            return True
+        need = 0
+        for t in self.runs:
+            plain = plane_nbytes(t.crun, PAD_BLOCKS, "off")
+            hint = t._nbytes_hint()
+            need += hint if hint == plain else hint + plain
+        return need <= b
 
     def _device_compact_entries(self, cutoff: int):
         """The JAX engine's ``_device_compact_entries``: ``(merged run or
@@ -838,7 +1105,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
                                            off + b * cr.R + nv,
                                            dtype=np.int32))
             run_row_counts.append(nrun)
-            off += t.dev.B * cr.R
+            off += t.B * cr.R
         if not parts_kw:
             return None
         N = sum(run_row_counts)
@@ -875,31 +1142,42 @@ class GpuStorageEngine(RowPath, StorageEngine):
         c_hi, c_lo = P.scalar_ht_planes(max(cutoff, 0))
         cutoff_planes = (c_hi, c_lo, c_hi, c_lo)
         keep_host = None
-        if N > HOST_GC_MASK_MAX:
+        gc_pins: list[GpuRun] = []
+        if N > HOST_GC_MASK_MAX and self._device_gc_fits_budget():
             # K11 over the resident planes: only the sorted flat-index
-            # vector, the group bits and the group starts go up.
+            # vector, the group bits and the group starts go up. Every run
+            # is pinned until the mask is on the host, so that no eviction
+            # drops planes the launch reads.
             dev = self.device
             idx = np.concatenate(src_parts)[perm]
-            runs_planes = tuple(
-                {"ht_hi": t.plain()["ht_hi"],
-                 "ht_lo": t.plain()["ht_lo"],
-                 "exp_hi": t.plain()["exp_hi"],
-                 "exp_lo": t.plain()["exp_lo"],
-                 "tomb": t.plain()["tomb"],
-                 "live": t.plain()["live"],
-                 "sets": tuple(t.plain()["cols"][cid]["set"]
-                               for cid in col_ids)}
-                for t in self.runs)
-            keep_dev = dcompact.resident_gc_mask(
-                runs_planes, torch.from_numpy(idx).to(dev),
-                torch.from_numpy(new_group).to(dev),
-                torch.from_numpy(np.flatnonzero(new_group).astype(
-                    np.int32)).to(dev), cutoff_planes)
-            keep_host = _to_host(keep_dev)
-            event = None
-            if keep_dev.is_cuda:
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(dev))
+            try:
+                for t in self.runs:
+                    t.pin("low")
+                    gc_pins.append(t)
+                plains = [t.plain() for t in self.runs]
+                runs_planes = tuple(
+                    {"ht_hi": p["ht_hi"], "ht_lo": p["ht_lo"],
+                     "exp_hi": p["exp_hi"], "exp_lo": p["exp_lo"],
+                     "tomb": p["tomb"], "live": p["live"],
+                     "sets": tuple(p["cols"][cid]["set"]
+                                   for cid in col_ids)}
+                    for p in plains)
+                del plains
+                keep_dev = dcompact.resident_gc_mask(
+                    runs_planes, torch.from_numpy(idx).to(dev),
+                    torch.from_numpy(new_group).to(dev),
+                    torch.from_numpy(np.flatnonzero(new_group).astype(
+                        np.int32)).to(dev), cutoff_planes)
+                del runs_planes
+                keep_host = _to_host(keep_dev)
+                event = None
+                if keep_dev.is_cuda:
+                    event = torch.cuda.Event()
+                    event.record(torch.cuda.current_stream(dev))
+            except BaseException:
+                for t in gc_pins:
+                    t.unpin()
+                raise
             self.compact_paths["k11"] += 1
         else:
             keep = dcompact.gc_mask_host(
@@ -923,8 +1201,12 @@ class GpuStorageEngine(RowPath, StorageEngine):
                                    for cr, b, nv in valid_blocks])
         t4 = time.perf_counter()
         if keep_host is not None:
-            if event is not None:
-                event.synchronize()
+            try:
+                if event is not None:
+                    event.synchronize()
+            finally:
+                for t in gc_pins:
+                    t.unpin()
             keep = keep_host.numpy()
         t5 = time.perf_counter()
         kept_pos = np.flatnonzero(keep)
@@ -1022,18 +1304,26 @@ class GpuStorageEngine(RowPath, StorageEngine):
         return run
 
     def stats(self) -> dict:
+        """Counters; ``device_bytes`` are the runs' planes resident now
+        (a run evicted or not yet uploaded counts 0: nothing uploads
+        here)."""
+        resident = [t.peek_device() for t in self.runs]
         return {
             "num_runs": len(self.runs),
             "memtable_versions": self.memtable.num_versions,
             "run_versions": sum(t.crun.num_versions for t in self.runs),
             "flushed_frontier_ht": self.flushed_frontier_ht,
-            "device_bytes": sum(t.dev.nbytes for t in self.runs),
+            "device_bytes": sum(d.nbytes for d in resident if d is not None),
             "flush_paths": dict(self.flush_paths),
             "compact_paths": dict(self.compact_paths),
             "agg_routes": dict(self.agg_routes),
             "full_launches": self.full_launches,
             "code_promotions": self.code_promotions,
             "plane_encoding": self.plane_stats(),
+            "residency": hbm_cache().stats(),
+            "breaker": {"state": self.breaker.state,
+                        "trips": self.breaker.trips},
+            "host_reserves": self.host_reserves,
         }
 
     def plane_stats(self) -> dict:
@@ -1065,13 +1355,46 @@ class GpuStorageEngine(RowPath, StorageEngine):
     def scan_batch(self, specs: list[ScanSpec]) -> list[ScanResult]:
         return self.scan_batch_async(specs).finish()
 
-    def scan_batch_async(self, specs: list[ScanSpec]) -> "_AsyncBatch":
+    def _device_fault_point(self) -> None:
+        """The fault point of the device dispatch path (flag and armed
+        fault ``fault.gpu_dispatch``): it raises as a device fault, which
+        the breaker quarantines."""
+        if maybe_fault("fault.gpu_dispatch"):
+            raise FaultInjected("injected device dispatch fault")
+
+    @staticmethod
+    def _scan_priority(spec: ScanSpec) -> str:
+        """Residency-pool priority of a scan: unbounded full-table traffic
+        is admitted low-pri (scan-resistant), bounded ranges and point
+        shapes protect their runs in the high-pri pool."""
+        return "low" if (not spec.lower and not spec.upper) else "high"
+
+    def scan_batch_async(self, specs: list[ScanSpec]):
         """Plan every scan, launch all device work and start the results'
         copies to the host without waiting, then fold the overlay specs'
         dirty keys on the host; ``.finish()`` waits and builds the
         results. A multi-version run (or a masked copy of it) is resolved
         once per view key; same-signature kernel specs (K1, K5 or K8) on
-        one run, masked run or view share one launch."""
+        one run, masked run or view share one launch.
+
+        Fault containment (the JAX engine's): while the breaker
+        quarantines the device path, or when a device fault strikes while
+        the batch is planned or launched, the batch is served from the
+        host structures instead (``_HostServeBatch``); any other raise is
+        recorded on the breaker (it retires an admitted probe) and
+        propagates."""
+        if not self.breaker.allow():
+            return _HostServeBatch(self, specs)
+        try:
+            return self._scan_batch_async_device(specs)
+        except BaseException as e:
+            self.breaker.record_failure(e)
+            if is_device_fault(e):
+                return _HostServeBatch(self, specs)
+            raise
+
+    def _scan_batch_async_device(self, specs: list[ScanSpec]) -> "_AsyncBatch":
+        self._device_fault_point()
         results: list = [None] * len(specs)
         # Per source, a run or one view of it: K1 specs by plan, the specs
         # of the plain flat fold, K8 specs by plan and K5 specs by plan.
@@ -1110,17 +1433,52 @@ class GpuStorageEngine(RowPath, StorageEngine):
             else:
                 folds.append((i, prep))
 
-        pending = []  # (device tensors, finish(host tensors))
-        for kernels, folds, grouped, fulls in sources.values():
-            pending += self._launch_source(kernels, folds, grouped, fulls,
-                                           results)
-        # The gathers' first round: one K7 launch per (signature, run).
-        states = dict(rows["gather"])
-        round1 = {i: st.pending for i, st in rows["gather"] if st.pending}
-        dispatches = self._issue_round(states, round1) if round1 else []
-        for prep in overlay:  # while the device works
-            prep.host = self._overlay_host_partial(prep.overlay, prep.spec)
-        return _AsyncBatch(self, results, pending, rows, round1, dispatches)
+        # Residency pins from the launches to the end of finish(): every
+        # run a launch reads stays resident until the batch lets it go.
+        # Unbounded full scans pin at low priority, so that they stream
+        # through the low-pri pool (the overlay's primary is pinned by the
+        # overlay cache).
+        want_pins: dict[int, tuple] = {}
+
+        def want_pin(trun, priority):
+            if isinstance(trun, _MaskedRun):
+                return
+            prev = want_pins.get(id(trun))
+            if prev is None or priority == "high":
+                want_pins[id(trun)] = (trun, priority)
+
+        for srcs in sources.values():
+            for group in (*srcs[0].values(), srcs[1], *srcs[2].values(),
+                          *srcs[3].values()):
+                for _i, prep in group:
+                    want_pin(prep.trun, self._scan_priority(prep.spec))
+        for _i, st in rows["gather"]:
+            want_pin(st.trun, "low" if st.mode == "chunks" else "high")
+        # Until the _AsyncBatch takes them (its finish unpins), any raise
+        # while pinning or launching lets the pins taken so far go.
+        pins = []
+        try:
+            for trun, priority in want_pins.values():
+                trun.pin(priority)
+                pins.append(trun)
+            pending = []  # (device tensors, finish(host tensors))
+            for kernels, folds, grouped, fulls in sources.values():
+                pending += self._launch_source(kernels, folds, grouped,
+                                               fulls, results)
+            # The gathers' first round: one K7 launch per (signature, run).
+            states = dict(rows["gather"])
+            round1 = {i: st.pending for i, st in rows["gather"]
+                      if st.pending}
+            dispatches = self._issue_round(states, round1) if round1 else []
+            for prep in overlay:  # while the device works
+                prep.host = self._overlay_host_partial(prep.overlay,
+                                                       prep.spec)
+            return _AsyncBatch(self, results, pending, rows, round1,
+                               dispatches, pins, specs)
+        except BaseException:
+            for trun in pins:
+                trun.unpin()
+            raise
 
     def _launch_source(self, kernels: dict, folds: list, grouped: dict,
                        fulls: dict, results: list) -> list:
@@ -1288,6 +1646,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
         # does): a concurrent flush appends its run before swapping in an
         # empty memtable.
         mem = self.memtable
+        sync_point("gpu_engine:plan:mem_snapshotted")
         runs = self._overlapping_runs(spec)
         mem_live = not mem.is_empty and mem.has_keys(spec.lower, spec.upper)
         pred_split = self._split_predicates(spec)
@@ -1373,7 +1732,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
                     if inc is not _OVERLAY_REBUILD:
                         ver = (inc.mem_count if inc is not None
                                else mem.num_versions)
-                        self._overlay_cache = (runs, mem, ver, inc)
+                        self._cache_overlay(runs, mem, inc, ver)
                         return inc
         primary = max(runs, key=lambda t: t.crun.total_rows())
         # Snapshot the counter BEFORE collecting: rows racing in during
@@ -1388,21 +1747,48 @@ class GpuStorageEngine(RowPath, StorageEngine):
             dirty.setdefault(key, []).extend(mem.versions(key))
         state = None
         if dirty and len(dirty) * 2 <= max(primary.crun.total_rows(), 64):
-            rows, starts, counts = [], [], []
-            for key in sorted(dirty):
-                entry, start, n = _dirty_entry(primary.crun, key, dirty[key])
-                rows.append(entry)
-                starts.append(start)
-                counts.append(n)
-            idx = _row_spans(starts, counts)
-            state = _OverlayState(
-                _MaskedRun(primary, masked_valid(primary, idx)),
-                rows, [e[0] for e in rows], {e[0]: e for e in rows}, idx,
-                ver0)
-            self._overlay_cache = (runs, mem, ver0, state)
+            primary.pin("high")
+            try:
+                rows, starts, counts = [], [], []
+                for key in sorted(dirty):
+                    entry, start, n = _dirty_entry(primary.crun, key,
+                                                   dirty[key])
+                    rows.append(entry)
+                    starts.append(start)
+                    counts.append(n)
+                idx = _row_spans(starts, counts)
+                state = _OverlayState(
+                    _MaskedRun(primary, masked_valid(primary, idx)),
+                    rows, [e[0] for e in rows], {e[0]: e for e in rows},
+                    idx, ver0)
+                self._cache_overlay(runs, mem, state, ver0)
+            finally:
+                primary.unpin()
         else:
-            self._overlay_cache = (runs, mem, mem.num_versions, None)
+            self._cache_overlay(runs, mem, None, mem.num_versions)
         return state
+
+    def _cache_overlay(self, runs, mem, state, ver) -> None:
+        """Publish an overlay cache entry, moving the pin on the primary
+        run and the masked valid plane's residency entry with it (the JAX
+        engine's ``_cache_overlay``)."""
+        new_primary = state.masked.source if state is not None else None
+        old = self._overlay_pinned
+        if old is not new_primary:
+            if new_primary is not None:
+                new_primary.pin("high")
+            if old is not None:
+                old.unpin()
+            self._overlay_pinned = new_primary
+            if self._overlay_ext_key is not None:
+                hbm_cache().invalidate(self._overlay_ext_key)
+                self._overlay_ext_key = None
+            if state is not None:
+                self._overlay_ext_key = hbm_cache().add_external(
+                    None, device_nbytes(state.masked.valid),
+                    self.device_tracker, "overlay_mask",
+                    device=device_label(self.device))
+        self._overlay_cache = (runs, mem, ver, state)
 
     def _overlay_apply_delta(self, state: _OverlayState, mem: MemTable,
                              since: int):
@@ -1457,12 +1843,42 @@ class GpuStorageEngine(RowPath, StorageEngine):
         return _OverlayState(masked, rows, keys, by_key, idx,
                              since + len(delta))
 
+    def _overlay_columns_at(self, ov: _OverlayState, read_ht: int,
+                            names: list, lo: int, hi: int) -> tuple:
+        """The dirty rows ``lo:hi`` at ``read_ht``: (whether each key
+        exists there, and for each column of ``names`` its values there,
+        None where the key or the value is absent). Each row is merged
+        once and each column read once per read point, however many specs
+        of a batch read them; the last 8 read points are kept."""
+        at = ov.merged.get(read_ht)
+        if at is None:
+            if len(ov.merged) >= 8:
+                ov.merged.pop(next(iter(ov.merged)))
+            at = ov.merged[read_ht] = ([None] * len(ov.rows), {})
+        merged, columns = at
+        for i in range(lo, hi):
+            if merged[i] is None:
+                rkey, versions = ov.rows[i]
+                m = merge_versions(rkey, versions, read_ht)
+                merged[i] = m if m.exists else False
+        out = []
+        for name in names:
+            col = columns.get(name)
+            if col is None:
+                col = columns[name] = [_UNREAD] * len(ov.rows)
+            for i in range(lo, hi):
+                if col[i] is _UNREAD:
+                    m = merged[i]
+                    col[i] = self.mat.value(name, None, m) if m else None
+            out.append(col[lo:hi])
+        return [bool(m) for m in merged[lo:hi]], out
+
     def _overlay_host_partial(self, ov: _OverlayState, spec: ScanSpec):
         """Exact host fold of the dirty keys in the spec's range at its
         read point: (keys that exist, before predicates; per aggregate
-        (n, value)), the value being the sum, min or max (COUNT rides n).
-        The last 8 (read point, bounds, predicates, aggregates) are cached
-        on the state."""
+        (n, value)), the value being the sum (a left fold in key order),
+        min or max (COUNT rides n). The last 8 (read point, bounds,
+        predicates, aggregates) are cached on the state."""
         key = (self._read_plane_ints(spec), spec.lower, spec.upper,
                tuple((p.column, p.op, p.value) for p in spec.predicates),
                tuple((a.fn, a.column) for a in spec.aggregates))
@@ -1472,30 +1888,28 @@ class GpuStorageEngine(RowPath, StorageEngine):
         lo = bisect.bisect_left(ov.keys, spec.lower)
         hi = (bisect.bisect_left(ov.keys, spec.upper) if spec.upper
               else len(ov.keys))
-        scanned = 0
-        parts = [[0, None] for _ in spec.aggregates]
-        for rkey, versions in ov.rows[lo:hi]:
-            merged = merge_versions(rkey, versions, spec.read_ht)
-            if not merged.exists:
+        names = [p.column for p in spec.predicates] + \
+            [a.column for a in spec.aggregates if a.column is not None]
+        ok, cols = self._overlay_columns_at(ov, spec.read_ht, names, lo, hi)
+        scanned = sum(ok)
+        cols = iter(cols)
+        for p in spec.predicates:
+            ok = [o and p.matches(v) for o, v in zip(ok, next(cols))]
+        parts = []
+        for a in spec.aggregates:
+            if a.column is None:
+                parts.append((sum(ok), None))
                 continue
-            scanned += 1
-            if not self.mat.matches(spec, None, merged):
-                continue
-            for p, a in zip(parts, spec.aggregates):
-                if a.column is None:
-                    p[0] += 1
-                    continue
-                v = self.mat.value(a.column, None, merged)
-                if v is None:
-                    continue
-                p[0] += 1
-                if a.fn in ("sum", "avg"):
-                    p[1] = v if p[1] is None else p[1] + v
-                elif a.fn == "min":
-                    p[1] = v if p[1] is None else min(p[1], v)
-                elif a.fn == "max":
-                    p[1] = v if p[1] is None else max(p[1], v)
-        result = (scanned, [tuple(p) for p in parts])
+            vals = [v for o, v in zip(ok, next(cols)) if o and v is not None]
+            if not vals or a.fn == "count":
+                parts.append((len(vals), None))
+            elif a.fn in ("sum", "avg"):
+                parts.append((len(vals), functools.reduce(operator.add,
+                                                          vals)))
+            else:
+                parts.append((len(vals), min(vals) if a.fn == "min"
+                              else max(vals)))
+        result = (scanned, parts)
         if len(ov.partial) >= 8:
             ov.partial.pop(next(iter(ov.partial)))
         ov.partial[key] = result
@@ -1516,7 +1930,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
         # The fold's signature: a multi-version run is folded through its
         # resolved view, which is flat.
         sig = dscan.ScanSig(
-            B=trun.dev.B, R=R,
+            B=trun.B, R=R,
             K=agg_fold.safe_window_blocks(R, agg_fold.FULL_WINDOW_BLOCKS),
             cols=tuple(dscan.ColSig(c.col_id, self._kinds[c.col_id])
                        for c in self.schema.value_columns),
@@ -1817,14 +2231,20 @@ class _AsyncBatch:
     """An in-flight scan batch: the device work is launched and its
     results are on their way to host memory; ``finish()`` serves the
     batch's host plans and pages while the device works, waits, builds
-    the fold results, and drives the gathers' continuation rounds."""
+    the fold results, and drives the gathers' continuation rounds. It
+    owns the batch's residency pins: ``finish`` lets them go after the
+    continuation rounds, and so does an abandoned batch when it is
+    collected. A device fault in ``finish`` re-serves the whole batch
+    from the host (the specs' read points make the answers the same)."""
 
     def __init__(self, eng, results: list, pending: list, rows: dict,
-                 round1: dict, dispatches: list):
+                 round1: dict, dispatches: list, pins: list, specs: list):
+        self.pins: list = []
         self.eng = eng
         self.results = results
         self.rows = rows
         self.round1 = round1
+        self.specs = list(specs)
         self._finishers = [([_to_host(t) for t in outs], fin)
                            for outs, fin in pending]
         self._members = [m for m, _out in dispatches]
@@ -1836,10 +2256,43 @@ class _AsyncBatch:
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(cuda[0].device))
         self._done = False
+        self.pins = list(pins)  # last: a raise above leaves them to the caller
+
+    def _release_pins(self) -> None:
+        pins, self.pins = self.pins, []
+        for trun in pins:
+            trun.unpin()
+
+    def __del__(self):
+        # An abandoned batch (never finished) still lets its pins go.
+        try:
+            self._release_pins()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
 
     def finish(self) -> list[ScanResult]:
         if self._done:
             return self.results
+        try:
+            out = self._finish()
+        except BaseException as e:
+            self._release_pins()
+            # Recorded either way: a raise out of an admitted half-open
+            # probe must retire it, or the breaker stays half-open.
+            self.eng.breaker.record_failure(e)
+            if not is_device_fault(e):
+                raise
+            # A device fault in flight: re-serve the whole batch from the
+            # host.
+            self._finishers = self._bufs = []
+            self.results = self.eng._serve_host_batch(self.specs)
+            self._done = True
+            return self.results
+        self._release_pins()
+        self.eng.breaker.record_success()
+        return out
+
+    def _finish(self) -> list[ScanResult]:
         eng, results, rows = self.eng, self.results, self.rows
         for i, fin in rows["host"]:
             results[i] = fin()
@@ -1863,6 +2316,23 @@ class _AsyncBatch:
             results[i] = st.result()
         self._finishers = self._bufs = []
         self._done = True
+        return self.results
+
+
+class _HostServeBatch:
+    """The stand-in for ``_AsyncBatch`` while the breaker quarantines the
+    device path, or after a device fault while the batch was planned or
+    launched (the JAX engine's): nothing was launched and no pin is held;
+    ``finish()`` serves the whole batch from the host."""
+
+    def __init__(self, eng, specs: list):
+        self.eng = eng
+        self.specs = list(specs)
+        self.results: list | None = None
+
+    def finish(self) -> list[ScanResult]:
+        if self.results is None:
+            self.results = self.eng._serve_host_batch(self.specs)
         return self.results
 
 

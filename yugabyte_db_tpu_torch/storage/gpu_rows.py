@@ -29,6 +29,14 @@ and so is each route's ``rows_scanned``:
    ``rows_scanned`` counts the distinct candidate keys examined (for the
    memtable, every key in range, existing or not).
 
+The host re-serve behind the circuit breaker (``_serve_host_batch``, the
+JAX engine's) serves a whole batch without the device: exact-key reads as
+in 1, everything else through ``_row_scan`` with ``device_ok`` False,
+whose candidates are every valid key in range of each run's host planes
+(``_host_candidates``), all predicates applied on the host. Its rows and
+resume keys are the device routes'; its ``rows_scanned`` counts the
+distinct keys examined.
+
 Every gather params row of a batch that shares a signature and a run goes
 in one K7 launch a round: the first round is launched in
 ``scan_batch_async``, continuation rounds in ``_AsyncBatch.finish``.
@@ -48,7 +56,8 @@ from yugabyte_db_tpu_torch.storage.cpu_engine import Aggregator
 from yugabyte_db_tpu_torch.storage.expr import columns_of
 from yugabyte_db_tpu_torch.storage.merge import merge_versions
 from yugabyte_db_tpu_torch.storage.row_version import MAX_HT
-from yugabyte_db_tpu_torch.storage.scan_spec import ScanResult, ScanSpec
+from yugabyte_db_tpu_torch.storage.scan_spec import (ScanResult, ScanSpec,
+                                                     point_key_of)
 from yugabyte_db_tpu_torch.utils import planes as P
 
 WINDOW_BLOCKS = 8   # blocks per window on the row path (the JAX engine's)
@@ -154,12 +163,49 @@ class RowPath:
         return ScanResult(list(projection), rows, resume,
                           1 if versions else 0)
 
+    # -- the host re-serve (the breaker's fallback) -------------------------
+    def _serve_host_batch(self, specs: list[ScanSpec]) -> list[ScanResult]:
+        """Serve a whole batch WITHOUT the device: candidate keys from the
+        authoritative host runs, the shared merge and materialize loop
+        applying every predicate on the host, so the rows equal the
+        device routes' (and the CPU oracle's)."""
+        self.host_reserves += 1
+        return [self._host_scan(spec) for spec in specs]
+
+    def _host_scan(self, spec: ScanSpec) -> ScanResult:
+        mem = self.memtable
+        runs = self._overlapping_runs(spec)
+        mem_live = not mem.is_empty and mem.has_keys(spec.lower, spec.upper)
+        if not spec.is_aggregate:
+            pk = point_key_of(spec, self.schema)
+            if pk is not None:
+                return self._point_get_row(spec, mem, pk)
+        return self._row_scan(spec, runs, mem_live,
+                              self._split_predicates(spec),
+                              spec.is_aggregate, mem, device_ok=False)
+
+    @staticmethod
+    def _host_candidates(trun, spec: ScanSpec):
+        """Every valid key of one run in the range, from its host planes
+        (a key's versions adjacent: the merge loop dedups them), the
+        device-free twin of ``_device_candidates``. Pad rows past a
+        block's valid prefix hold no key and are skipped."""
+        crun = trun.crun
+        row_lo = crun.lower_row(spec.lower)
+        row_hi = crun.upper_row(spec.upper)
+        R = crun.R
+        for row in range(row_lo, row_hi):
+            b, r = divmod(row, R)
+            if r < crun.blocks[b].num_valid:
+                yield crun.row_keys[b][r]
+
     # -- route 4: several sources -----------------------------------------
     def _device_candidates(self, trun, spec: ScanSpec, preds,
                            apply_preds: bool):
         """The run's candidate keys in the range, in key order: K9 over
         the range's windows, launched in batches of 1, 4, 16, then 64
         windows, so that a LIMIT scan that stops early launches little."""
+        self._device_fault_point()
         crun = trun.crun
         row_lo = crun.lower_row(spec.lower)
         row_hi = crun.upper_row(spec.upper)
@@ -167,12 +213,12 @@ class RowPath:
             return
         R, K = crun.R, WINDOW_BLOCKS
         w_first, w_last = row_lo // (K * R), (row_hi - 1) // (K * R)
-        sig = dscan.ScanSig(B=trun.dev.B, R=R, K=K, cols=self._col_sigs(),
+        sig = dscan.ScanSig(B=trun.B, R=R, K=K, cols=self._col_sigs(),
                             preds=self._pred_sigs_only(preds), aggs=(),
                             apply_preds=apply_preds, flat=trun.flat)
         int_lits, f32_lits = self._pred_host_literals(preds)
         read = self._read_plane_ints(spec)
-        device = trun.dev.device
+        device = trun.device
         w, n = w_first, 1
         while w <= w_last:
             n = min(n, w_last - w + 1)
@@ -191,14 +237,16 @@ class RowPath:
             n = min(4 * n, CANDIDATE_BATCH_MAX)
 
     def _row_scan(self, spec: ScanSpec, runs, mem_live, pred_split,
-                  aggregate: bool, mem) -> ScanResult:
+                  aggregate: bool, mem, device_ok: bool = True) -> ScanResult:
         """The JAX engine's ``_row_scan``: candidates from every source in
-        key order, each key merged across sources, predicates and the
-        aggregate (or the projection) on the host."""
+        key order (K9's, or with ``device_ok`` False the host planes'),
+        each key merged across sources, predicates and the aggregate (or
+        the projection) on the host."""
         exact, superset, _host_only = pred_split
-        apply_preds = len(runs) == 1 and not mem_live
+        apply_preds = len(runs) == 1 and not mem_live and device_ok
         preds = exact + superset if apply_preds else []
         key_streams = [self._device_candidates(t, spec, preds, apply_preds)
+                       if device_ok else self._host_candidates(t, spec)
                        for t in runs]
         if mem_live or not mem.is_empty:
             key_streams.append(mem.scan_keys(spec.lower, spec.upper))
@@ -387,13 +435,14 @@ class RowPath:
 
     def _gather_sig(self, ctx, M, packed=True) -> row_gather.GatherSig:
         return row_gather.GatherSig(
-            B=ctx["trun"].dev.B, R=ctx["crun"].R, K=WINDOW_BLOCKS, M=M,
+            B=ctx["trun"].B, R=ctx["crun"].R, K=WINDOW_BLOCKS, M=M,
             cols=self._col_sigs(), preds=ctx["pred_sigs"], apply_preds=True,
             out_cols=ctx["out_cols"], flat=ctx["trun"].flat, packed=packed)
 
     def _issue_round(self, states, pending) -> list:
         """One K7 launch per (signature, run) of every pending params row
         of the round, all pages on its grid: [(members, device output)]."""
+        self._device_fault_point()
         by_sig: dict = {}
         for pi, rows in pending.items():
             st = states[pi]
@@ -402,7 +451,7 @@ class RowPath:
                                   (st.trun, []))[1].append((pi, ri, ip, fp))
         dispatches = []
         for (sig, _tid), (trun, members) in by_sig.items():
-            device = trun.dev.device
+            device = trun.device
             ip = torch.from_numpy(np.stack([m[2] for m in members]))
             fp = torch.from_numpy(np.stack([m[3] for m in members]))
             out = row_gather.gather_rows(sig, trun.plain(), ip.to(device),
