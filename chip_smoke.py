@@ -7,7 +7,21 @@ line is printed:
 
 1. build: prints the card (``nvidia-smi`` name and power limit) and
    compiles every CUDA kernel of the main path from ``csrc/``, one
-   ``nvcc`` each, all at once (``ptxas:`` lines: registers and spills);
+   ``nvcc`` each, all at once (``ptxas:`` lines: registers and spills),
+   while the tablet phase (run first) generates its rows and writes its
+   WAL;
+1b. tablet (``tablet_phase``): the port's ``Tablet`` on the ``gpu``
+   engine at 1,000,000 keys of the bench table in a temporary data
+   directory (fsync on, the default plane encoding): 100
+   ``Tablet.write`` batches of 10,000 rows, the device flush (K12) with
+   its run saved, 20,000 zipfian updates left in the WAL, ``close()``
+   (the device bytes released, no cache entry left), ``Tablet.open``
+   (the run loaded from disk, the WAL replayed), the headline 32-spec
+   batch, 256 YCSB-E pages in "cql" and "pg" (bytes) and 1,000 point
+   reads against an exact oracle, ALTER ADD COLUMN (a counted
+   re-upload), a snapshot around 1,000 deletes and its restore, and
+   compaction (K11); every launch counted, K12, K7 and K9 held against
+   their plain versions (``tablet`` line, ``--tablet`` alone);
 2. kernel: 16,777,216 rows at R = 2048 of flat-run planes made from a
    numpy seed (~5% tombstones, NULLs, unset values, expired TTLs, invalid
    rows, values at the i32 and i64 extremes, an all-NULL and a never-set
@@ -178,7 +192,7 @@ line is printed:
    an engine) open, then closed by the probe, no pin leaked.
    Every other phase must end with no host re-serve and every breaker
    closed and never tripped;
-11. grouped: TPC-H lineitem at SF1 (6,001,215 rows of
+11. grouped: TPC-H lineitem at SF1 / 4 (1,500,303 rows of
    ``workload.generate_lineitem``) applied and flushed into one flat run
    (generation and load seconds printed). Q1 and Q6 through the engine
    must equal numpy oracles exactly; the single-scan latency (median of
@@ -188,7 +202,7 @@ line is printed:
    of one Q1 spec, 8 Q1 specs at distinct cut-offs and read points, Q1
    grouped by tax and return flag past a block's slots, Q6) beside its
    bound; no Q1/Q6 spec may be re-served on the host. Then
-   500,000 rows and 500,000 zipfian one-field updates in one
+   250,000 rows and 250,000 zipfian one-field updates in one
    multi-version run: Q1 exact at the newest and a mid read point
    through the resolve and K8. Then K8's edges at 20,000 rows, each
    result against the port's host oracle and each launch against the
@@ -226,12 +240,12 @@ the long-group planes (also with 20% of their groups cleared), each held
 byte for byte against the plain version (``resolve_ab`` lines), and
 exits. ``--group-enc-ab OTHER.cu[,...]`` times this tree's K8 against
 other sources of it in turns on one card (``group_enc_ab`` lines): every
-``k8_cases`` case on the flushed SF1 lineitem (dictionary leaves: the
+``k8_cases`` case on the flushed lineitem (dictionary leaves: the
 encoded build), Q1, Q6 and a promoted Q1 on it compacted (every leaf
 kind), each beside the same planes uploaded plain (the plain build), and
 Q1 on a multi-version lineitem's view; ``--decode-ab OTHER.cu[,...]``
 does the same for K10 on the compact phase's merged run and the
-compacted SF1 lineitem (``decode_ab`` lines). Each call is held byte for
+compacted lineitem (``decode_ab`` lines). Each call is held byte for
 byte against the plain version; a source whose C interface differs is
 called through the wrapper saved beside it as ``OTHER.py``: the first
 encoded design's sources are ``git show
@@ -269,6 +283,13 @@ build/ab/flush_first.py``. ``--compact-ab OTHER.cu[,...]`` does the same
 for K11 on the compact phase's union and on it at 42 columns
 (``compact_ab`` lines); the first design's: ``git show
 51fb244:yugabyte_db_tpu_torch/csrc/compact.cu > build/ab/compact_first.cu``.
+``--run-io`` builds no kernel: on the card's host it times a run file of
+the bench table's TABLET_KEYS rows (one version each, as the tablet's
+flush saves them) written and read by the codec's record functions
+(``codec.encode_run`` / ``decode_run``) against the generic codec over
+the record lists (``codec.encode`` / ``decode`` and the RowVersion
+constructor, the JAX module's way), each in turns, the bytes and the
+versions equal (``run_io`` line), and exits.
 """
 
 from __future__ import annotations
@@ -280,6 +301,7 @@ import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from types import SimpleNamespace
 
@@ -4638,10 +4660,10 @@ def full_ab(device, bw: float, rate: float, others: list) -> None:
 
 # -- phase 6: GROUP BY and expression aggregates (TPC-H Q1/Q6, K8) -------
 
-LINEITEM_ROWS = 6_001_215  # TPC-H SF1 (workload.SF1_ROWS)
+LINEITEM_ROWS = 1_500_303  # TPC-H SF1 / 4 (workload.SF1_ROWS 6,001,215)
 LINEITEM_R = 2048
-MV_LINEITEM_ROWS = 500_000  # the multi-version lineitem: rows, updates
-MV_LINEITEM_UPDATES = 500_000
+MV_LINEITEM_ROWS = 250_000  # the multi-version lineitem: rows, updates
+MV_LINEITEM_UPDATES = 250_000
 TPCH_BATCH = 8      # bench.py:1003 bench_tpch: 10 batches of 8 Q1 specs,
 TPCH_BATCHES = 10   # depth 4, after 4 warm-up batches
 TPCH_DEPTH = 4
@@ -5313,7 +5335,7 @@ def k8_roles(plan, table) -> set:
 
 
 def grouped_phase(device, bw: float, rate: float) -> dict:
-    """TPC-H lineitem at LINEITEM_ROWS (SF1) in one flat run, and at
+    """TPC-H lineitem at LINEITEM_ROWS (SF1 / 4) in one flat run, and at
     MV_LINEITEM_ROWS with MV_LINEITEM_UPDATES zipfian one-field updates in
     one multi-version run: Q1 and Q6 through the engine against numpy
     oracles, K8 held against its plain version and timed, its edges."""
@@ -5507,7 +5529,7 @@ def group_enc_ab(device, bw: float, rate: float, others: list) -> None:
     ``git show 3550883:yugabyte_db_tpu_torch/csrc/group_agg.cu >
     build/ab/group_agg_enc_first.cu`` and its ``ops/group_agg.py`` beside it
     as ``build/ab/group_agg_enc_first.py``), in turns on one card, each call
-    held byte for byte against the plain version: TPC-H lineitem at SF1
+    held byte for byte against the plain version: TPC-H lineitem at SF1 / 4
     flushed (``k8_cases`` over its dictionary leaves: the encoded build),
     then compacted (Q1, Q6 and a promoted Q1 over every leaf kind), each
     beside the same planes uploaded plain (the plain build), and Q1 on
@@ -5587,7 +5609,7 @@ def decode_ab(device, bw: float, others: list) -> None:
     ``build/ab/decode_first.py``), in turns on one card, each call held
     byte for byte against the plain version: the compact phase's merged
     run (the engine phase's table and COMPACT_WAVES waves, compacted at
-    the newest hybrid time through K11) and TPC-H lineitem at SF1
+    the newest hybrid time through K11) and TPC-H lineitem at SF1 / 4
     compacted with every version (every leaf kind). A call is the decode
     a run's first read makes with that source's wrapper: ``decode_tree``
     over the part table the run laid out when it was uploaded, where the
@@ -5757,7 +5779,7 @@ def ptxas_usage(name: str) -> list:
 
 
 def group_agg_entry(grp: dict) -> dict:
-    """The kernels line's K8 entry: the single Q1 launch at SF1 as the
+    """The kernels line's K8 entry: the single Q1 launch at SF1 / 4 as the
     headline, the other shapes beside it, and the build's registers and
     stack (no spills)."""
     k = grp["kernel"]
@@ -6215,7 +6237,7 @@ def q1_promoted_spec(read: int):
 
 
 def grouped_encoded(ctx, device, bw: float, rate: float) -> dict:
-    """TPC-H lineitem at SF1, uncut, encoded. The flushed run's dictionary
+    """TPC-H lineitem at LINEITEM_ROWS, encoded. The flushed run's dictionary
     columns (K12's codes route, held byte for byte by ``flush``) under Q1
     and Q6 (K8 decoding the dictionary leaves, checked by the grouped
     phase); then the run compacted (no history dropped) so that every
@@ -6305,7 +6327,7 @@ def grouped_encoded(ctx, device, bw: float, rate: float) -> dict:
                            "plain_upload": off.nbytes}
     del off
     torch.cuda.empty_cache()
-    # K10 over the compacted tree (every leaf kind at SF1), timed.
+    # K10 over the compacted tree (every leaf kind), timed.
     out["k10"] = measure_k10(trun.dev.arrays, bw, trun.resident().decode_plan)
     print("encoded_k10_lineitem " + json.dumps(out["k10"]))
     torch.cuda.empty_cache()
@@ -6317,7 +6339,7 @@ def grouped_encoded(ctx, device, bw: float, rate: float) -> dict:
 
 def decode_entry() -> dict:
     """The kernels line's K10 entry: K10 over the compact phase's merged
-    run (and over the compacted SF1 lineitem beside it), its launches on
+    run (and over the compacted lineitem beside it), its launches on
     the main paths (the compacted run's first reads, the overlay's K13b,
     the encoded multi-version run), and the build's registers and stack
     (no spill, no stack frame)."""
@@ -6410,9 +6432,9 @@ def watch_host_reserves() -> None:
         return
     serve = cls._serve_host_batch
 
-    def counted(self, specs):
+    def counted(self, specs, deadline=None):
         _HOST_RESERVES[0] += 1
-        return serve(self, specs)
+        return serve(self, specs, deadline)
 
     counted.watched = True
     cls._serve_host_batch = counted
@@ -6783,6 +6805,497 @@ def residency_alone(device, bw: float, rate: float) -> None:
     residency_phase(device, bw, rate, flat, mv)
 
 
+# -- the tablet phase: the port's Tablet on the gpu engine ------------------
+
+TABLET_KEYS = 1_000_000       # the bench table, as the engine phase's
+TABLET_BATCH = 10_000         # rows a Tablet.write: one WAL append + sync
+TABLET_UPDATES = 20_000       # zipfian one-field updates, left unflushed
+TABLET_UPDATE_BATCH = 100     # updates a Tablet.write (a group commit)
+TABLET_PAGES = 256            # YCSB-E LIMIT-100 pages a wire format
+TABLET_POINTS = 1_000         # current_row_values point reads
+TABLET_DELETES = 1_000        # deletes between a snapshot and its restore
+TABLET_LAUNCHES: dict = {}    # the phase's kernel launches, by entry name
+
+# The kernels line's entries and the wrappers whose ``.launches`` count
+# their launches (K12 is counted by ``replay_flush.launches`` too).
+_COUNTERS = (("flat_agg", "flat_agg", "flat_aggregate"),
+             ("mvcc_resolve", "mvcc_resolve", "resolve_view"),
+             ("group_agg", "group_agg", "grouped_aggregate"),
+             ("row_gather", "row_gather", "gather_rows"),
+             ("scan_window", "row_gather", "scan_candidates"),
+             ("replay_flush", "flush", "replay_flush"),
+             ("gc_mask", "compact", "resident_gc_mask"),
+             ("full_agg", "full_agg", "full_aggregate"),
+             ("decode", "decode", "decode_tree"))
+
+
+def launch_counters() -> dict:
+    """{entry name: the wrapper function whose ``.launches`` counts}."""
+    import importlib
+
+    return {name: getattr(importlib.import_module(
+        f"yugabyte_db_tpu_torch.ops.{mod}"), fn)
+        for name, mod, fn in _COUNTERS}
+
+
+class TabletOracle:
+    """The bench table's merged state at a read point that sees every
+    version, from the rows as the tablet stamped them: each key's
+    existence and a, c, d (``merge_versions`` for a key with more than
+    one version, its one row otherwise), in key order, for LIMIT pages,
+    point reads and the headline aggregates."""
+
+    def __init__(self, schema, rows, more):
+        from yugabyte_db_tpu_torch.storage.merge import merge_versions
+
+        cid = {c.name: c.col_id for c in schema.columns}
+        self.cid = cid
+        by_key: dict = {}
+        for u in more:
+            by_key.setdefault(u.key, []).append(u)
+        self.keys = sorted(r.key for r in rows)
+        self.pos = {k: i for i, k in enumerate(self.keys)}
+        self.kv = {r.key: i for i, r in enumerate(rows)}
+        n = len(self.keys)
+        self.exists = np.zeros(n, bool)
+        self.vals = {name: [None] * n for name in ("a", "c", "d")}
+        for r in rows:
+            i = self.pos[r.key]
+            vs = by_key.get(r.key)
+            if vs is None:
+                if r.tombstone:
+                    continue
+                self.exists[i] = True
+                for name in ("a", "c", "d"):
+                    self.vals[name][i] = r.columns.get(cid[name])
+                continue
+            m = merge_versions(r.key, [r] + vs, MAX_HT_READ)
+            self.exists[i] = m.exists
+            for name in ("a", "c", "d"):
+                self.vals[name][i] = m.get(cid[name])
+        d = self.vals["d"]
+        self.match = np.nonzero(self.exists & np.fromiter(
+            (v is not None and v >= -500_000 for v in d), bool, n))[0]
+
+    def key_values(self, key: bytes) -> tuple:
+        i = self.kv[key]
+        return (f"user{i:06d}", i % 7)
+
+    def headline(self, gone=frozenset()) -> Oracle:
+        """The headline aggregates' ``Oracle`` over the rows that exist
+        with a non-NULL d, the keys ``gone`` deleted after every version."""
+        a, c, d = self.vals["a"], self.vals["c"], self.vals["d"]
+        drop = {self.pos[k] for k in gone}
+        return Oracle(*Oracle.arrays([
+            (d[i], a[i], c[i]) for i in np.nonzero(self.exists)[0].tolist()
+            if d[i] is not None and i not in drop]))
+
+    def page(self, spec, extra=()) -> tuple:
+        """(rows, resume key) of a YCSB-E page (``d >= -500000``,
+        LIMIT 100, projecting k, r, a, d and the all-NULL ``extra``)."""
+        p = bisect.bisect_left(self.keys, spec.lower)
+        j = int(np.searchsorted(self.match, p))
+        take = self.match[j:j + spec.limit].tolist()
+        rows = [self.key_values(self.keys[i])
+                + (self.vals["a"][i], self.vals["d"][i])
+                + (None,) * len(extra) for i in take]
+        hit = len(take) >= spec.limit
+        return rows, (self.keys[take[-1]] + b"\0" if hit else None)
+
+    def point(self, key: bytes, extra=()):
+        """``current_row_values`` (with the all-NULL columns ``extra``):
+        None for a key that does not exist."""
+        i = self.pos[key]
+        if not self.exists[i]:
+            return None
+        return {**{name: self.vals[name][i] for name in ("a", "c", "d")},
+                **{name: None for name in extra}}
+
+
+MAX_HT_READ = (1 << 63) - 2  # a read point after every version
+
+
+def stamped_batch(rows, ht: int) -> list:
+    """``Tablet.write``'s stamping of one batch: every row at the batch's
+    hybrid time, TTLs resolved against it, the row's place as its write
+    id."""
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+
+    return [RowVersion(r.key, ht=ht, tombstone=r.tombstone,
+                       liveness=r.liveness, columns=r.columns,
+                       expire_ht=r.resolve_ttl(ht), write_id=i)
+            for i, r in enumerate(rows)]
+
+
+def run_io_speed(reps: int = 2) -> dict:
+    """A run file of the bench table's TABLET_KEYS rows (one version a
+    key), encoded and decoded by the codec's record functions and by the
+    generic codec over the record lists, in turns (``reps`` each, GC
+    paused as ``run_io.load_run`` pauses it); the bytes and the versions
+    must be equal. Host seconds, no fsync."""
+    import gc
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+    from yugabyte_db_tpu_torch.utils import codec
+
+    schema = workload.make_schema()
+    rows, _ = bench_rows(schema, TABLET_KEYS)
+    entries = sorted(((r.key, [r]) for r in rows), key=lambda e: e[0])
+
+    def generic_encode():
+        return codec.encode(["run1", [
+            [k, [[v.ht, v.tombstone, v.liveness,
+                  {str(c): x for c, x in v.columns.items()}, v.expire_ht,
+                  v.write_id] for v in vs]] for k, vs in entries]])
+
+    def generic_decode(buf):
+        _magic, payload = codec.decode(buf)
+        return [(k, [RowVersion(k, ht=r[0], tombstone=r[1], liveness=r[2],
+                                columns={int(c): x
+                                         for c, x in r[3].items()},
+                                expire_ht=r[4], write_id=r[5])
+                     for r in recs]) for k, recs in payload]
+
+    times: dict = {"encode_run": [], "encode": [], "decode_run": [],
+                   "decode": []}
+    gc.collect()
+    gc.disable()
+    try:
+        for _ in range(reps):
+            for name, fn in (("encode_run",
+                              lambda: codec.encode_run("run1", entries)),
+                             ("encode", generic_encode)):
+                t = time.perf_counter()
+                buf = fn()
+                times[name].append(time.perf_counter() - t)
+            check(buf == codec.encode_run("run1", entries),
+                  "encode_run's bytes differ from the generic codec's")
+            for name, fn in (("decode_run", lambda: codec.decode_run(
+                    buf, "run1", RowVersion.stored)),
+                             ("decode", lambda: generic_decode(buf))):
+                t = time.perf_counter()
+                got = fn()
+                times[name].append(time.perf_counter() - t)
+                check(len(got) == len(entries)
+                      and got[0][1][0] == entries[0][1][0]
+                      and got[-1][1][0] == entries[-1][1][0],
+                      f"{name}: the versions differ")
+                del got
+    finally:
+        gc.enable()
+    best = {k: min(v) for k, v in times.items()}
+    out = {"card": nvidia_smi(), "versions": len(entries),
+           "bytes": len(buf), "s_each": times,
+           "encode_speedup": best["encode"] / best["encode_run"],
+           "decode_speedup": best["decode"] / best["decode_run"]}
+    print("run_io " + json.dumps(out))
+    return out
+
+
+def tablet_write(tablet, rows, batch: int, out: list) -> float:
+    """``rows`` through ``Tablet.write`` in batches of ``batch`` (each one
+    WAL append and one sync), their stamped versions appended to ``out``:
+    the seconds it took."""
+    t0 = time.perf_counter()
+    hts = []
+    for i in range(0, len(rows), batch):
+        hts.append(tablet.write(rows[i:i + batch]).value)
+    wall = time.perf_counter() - t0
+    for j, ht in enumerate(hts):
+        out.extend(stamped_batch(rows[j * batch:(j + 1) * batch], ht))
+    return wall
+
+
+def timed_call(fn) -> tuple:
+    """(fn()'s result, its wall ms), the device synchronised first."""
+    import torch
+
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def tablet_headline(tablet, oracle, label: str) -> dict:
+    """The engine phase's 32-spec headline batch through ``scan_many`` at
+    the tablet's read point, each answer held against ``oracle`` (a
+    HistoryOracle's ``Oracle``), and timed; the same batch on the engine
+    beside it."""
+    from yugabyte_db_tpu_torch import workload
+
+    read = tablet.read_time().value
+    lits = [-500_000 - 7 * i for i in range(BATCH)]
+    specs = [workload.headline_spec(read, lo) for lo in lits]
+    got, ms = timed_call(lambda: tablet.scan_many(specs))
+    for lo, r in zip(lits, got):
+        check(r.rows[0] == oracle.headline(lo),
+              f"tablet {label}: headline d >= {lo}: {r.rows[0]} != "
+              f"{oracle.headline(lo)}")
+    _r, eng_ms = timed_call(lambda: tablet.engine.scan_batch(specs))
+    return {"batch_ms": ms, "engine_batch_ms": eng_ms, "specs": BATCH}
+
+
+def tablet_pages(tablet, oracle, label: str, seed: int,
+                 extra=()) -> dict:
+    """TABLET_PAGES YCSB-E pages through ``scan_wire_many`` in "cql" and
+    in "pg", each page's bytes equal to ``models.wirefmt``'s serialization
+    of the oracle's rows, and its resume key the oracle's; timed."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.models import wirefmt
+    from yugabyte_db_tpu_torch.storage import ScanSpec
+
+    schema = tablet.meta.schema
+    read = tablet.read_time().value
+    specs = workload.ycsb_e_batch(schema, TABLET_KEYS, read,
+                                  random.Random(seed), TABLET_PAGES)
+    proj = ["k", "r", "a", "d", *extra]
+    specs = [ScanSpec(lower=s.lower, read_ht=read, predicates=s.predicates,
+                      projection=proj, limit=s.limit) for s in specs]
+    dts = [schema.column(n).dtype for n in proj]
+    wants = [oracle.page(s, extra) for s in specs]
+    out = {}
+    for fmt in ("cql", "pg"):
+        pages, ms = timed_call(lambda: tablet.scan_wire_many(specs, fmt))
+        for j, (pg, (rows, resume)) in enumerate(zip(pages, wants)):
+            check(pg.nrows == len(rows) and pg.resume == resume,
+                  f"tablet {label} {fmt} page {j}: {pg.nrows} rows, "
+                  f"resume {pg.resume!r}; oracle {len(rows)}, {resume!r}")
+            check(bytes(pg.data) == wirefmt.serialize_rows(fmt, dts, rows),
+                  f"tablet {label} {fmt} page {j}: bytes differ from the "
+                  "oracle's")
+        out[f"{fmt}_batch_ms"] = ms
+    out["pages"] = len(specs)
+    out["rows_per_page"] = statistics.mean(len(w[0]) for w in wants)
+    return out
+
+
+def tablet_points(tablet, oracle, keys, label: str, extra=()) -> dict:
+    """``current_row_values`` of ``keys``, each held against the oracle;
+    the mean ms a read."""
+    t0 = time.perf_counter()
+    for k in keys:
+        got = tablet.current_row_values(k)
+        want = oracle.point(k, extra)
+        check(got == want, f"tablet {label}: current_row_values "
+                           f"{got} != {want}")
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"reads": len(keys), "ms_each": ms / len(keys)}
+
+
+def tablet_phase(device, bw: float, rate: float, ready=None) -> dict:
+    """The port's ``Tablet`` on the ``gpu`` engine at TABLET_KEYS keys of
+    the bench table, in a data directory on the host's disk (fsync on,
+    the default plane encoding): bulk writes through the WAL, the device
+    flush with its run saved, unflushed updates, close, reopen (the run
+    loaded from disk, the WAL replayed), reads against an exact oracle,
+    ALTER ADD COLUMN, a snapshot around deletes and its restore, and
+    compaction (K11). Every kernel launch of the phase is counted (zeroed
+    just before, read just after) and held against the plain versions
+    (K12 by the WriteLog, K7 and K9 by a LaunchLog). ``ready()``, when
+    given, is called before the first kernel is needed (the whole smoke
+    builds the kernels meanwhile)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.models.datatypes import DataType
+    from yugabyte_db_tpu_torch.storage import gpu_engine
+    from yugabyte_db_tpu_torch.storage.residency import hbm_cache
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+    from yugabyte_db_tpu_torch.tablet import Tablet, TabletMetadata
+
+    parts: dict = {}
+    steps: dict = {}  # wall seconds of each step, in order
+    mark = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - mark[0]
+        mark[0] = now
+
+    card = nvidia_smi()
+    schema = workload.make_schema()
+    rows, max_ht = bench_rows(schema, TABLET_KEYS)
+    updates, _ = workload.make_update_rows(schema, rows, max_ht,
+                                           TABLET_UPDATES)
+    root = tempfile.mkdtemp(prefix="tablet-")
+    step("generate")
+    opts = {"rows_per_block": 2048, "device": device}
+    wlog = write_log()
+    wlog.verify_flushes()  # an earlier phase's records are not ours
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    cache = hbm_cache()
+    try:
+        with LaunchLog() as rlog:
+            meta = TabletMetadata("bench-0001", "bench", schema, 0, 65536,
+                                  engine="gpu")
+            tablet = Tablet.create(meta, root, engine_options=opts)
+            stamped: list = []
+            s = tablet_write(tablet, rows, TABLET_BATCH, stamped)
+            parts["write"] = {"rows": len(rows), "batches": len(rows)
+                              // TABLET_BATCH, "s": s,
+                              "rows_per_s": len(rows) / s}
+            step("write")
+            eng = tablet.engine
+            if ready is not None:
+                ready()
+            step("build_wait")
+            t0 = time.perf_counter()
+            tablet.flush()
+            parts["flush"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                              **{k[:-2] + "_ms": v * 1e3 for k, v in
+                                 eng.last_flush.items() if k.endswith("_s")}}
+            check(eng.flush_paths == {"device": 1, "host": 0},
+                  "the tablet's flush took the host route")
+            check(len(eng.persist.files) == 1
+                  and tablet.meta.flushed_op_index == len(rows)
+                  // TABLET_BATCH, "the flush saved no run or frontier")
+            step("flush")
+            ups: list = []
+            s = tablet_write(tablet, updates, TABLET_UPDATE_BATCH, ups)
+            parts["updates"] = {"rows": len(updates), "s": s,
+                                "rows_per_s": len(updates) / s}
+            step("updates")
+            # close(): the device bytes go, and the cache forgets the runs.
+            keys = [t._res_key for t in eng.runs]
+            charged = eng.device_tracker.consumption
+            resident0 = cache.resident_bytes()
+            t0 = time.perf_counter()
+            tablet.close()
+            parts["close_ms"] = (time.perf_counter() - t0) * 1e3
+            check(charged > 0 and cache.resident_bytes() == resident0
+                  - charged and eng.stats()["device_bytes"] == 0
+                  and not any(k in cache._entries for k in keys),
+                  f"close() left device bytes: {charged} charged, "
+                  f"{resident0 - cache.resident_bytes()} released")
+            del eng
+            t0 = time.perf_counter()
+            tablet = Tablet.open("bench-0001", root, engine_options=opts)
+            wall = time.perf_counter() - t0
+            eng = tablet.engine
+            n_entries = -(-TABLET_UPDATES // TABLET_UPDATE_BATCH)
+            parts["reopen"] = {"ms": wall * 1e3,
+                               "load_ms": eng.last_load["load_s"] * 1e3,
+                               "build_ms": eng.last_load["build_s"] * 1e3,
+                               "replayed_entries":
+                               tablet._replayed_on_bootstrap}
+            check(tablet._replayed_on_bootstrap == n_entries
+                  and eng.memtable.num_versions == TABLET_UPDATES
+                  and eng.stats()["num_runs"] == 1,
+                  f"the reopen replayed {tablet._replayed_on_bootstrap} "
+                  f"entries, {eng.memtable.num_versions} versions")
+            step("close_reopen")
+            # Reads against the exact oracle, none re-served.
+            t0 = time.perf_counter()
+            oracle = TabletOracle(schema, stamped, ups)
+            before = oracle.headline()
+            parts["oracle_s"] = time.perf_counter() - t0
+            step("oracle")
+            parts["headline"] = tablet_headline(tablet, before, "reopened")
+            parts["pages"] = tablet_pages(tablet, oracle, "reopened", 31)
+            # Held against the plain versions: the launches of this one
+            # batch of pages (K9) and of the restored table's (K7).
+            rlog.record = False
+            rng = random.Random(37)
+            point_keys = [rows[rng.randrange(len(rows))].key
+                          for _ in range(TABLET_POINTS // 2)] + [
+                u.key for u in rng.sample(updates, TABLET_POINTS // 2)]
+            parts["points"] = tablet_points(tablet, oracle, point_keys,
+                                            "reopened")
+            step("reads")
+            # ALTER: the runs' payloads go, the re-upload is a counted miss.
+            new_schema = schema.with_added_column("e", DataType.INT64)
+            t0 = time.perf_counter()
+            tablet.alter_schema(new_schema)
+            parts["alter_ms"] = (time.perf_counter() - t0) * 1e3
+            check(all(cache._entries[t._res_key].payload is None
+                      for t in eng.runs), "ALTER left a run's payload")
+            misses = cache.stats()["misses"]
+            parts["alter_headline"] = tablet_headline(tablet, before,
+                                                      "altered")
+            parts["alter_pages"] = tablet_pages(tablet, oracle, "altered",
+                                                41, extra=("e",))
+            check(cache.stats()["misses"] >= misses + len(eng.runs),
+                  "the re-upload after ALTER was not a counted miss")
+            step("alter")
+            # A snapshot, deletes, and the restore.
+            tablet.snapshot_op("create_snapshot", "s1")
+            victims = [rows[i] for i in random.Random(43).sample(
+                range(len(rows)), TABLET_DELETES)]
+            tablet_write(tablet, [RowVersion(r.key, ht=0, tombstone=True)
+                                  for r in victims], TABLET_DELETES, [])
+            deleted = oracle.headline({r.key for r in victims})
+            parts["deleted_headline"] = tablet_headline(tablet, deleted,
+                                                        "deleted")
+            for r in victims[:100]:
+                check(tablet.current_row_values(r.key) is None,
+                      "a deleted row still reads")
+            step("snapshot_deletes")
+            t0 = time.perf_counter()
+            tablet.snapshot_op("restore_snapshot", "s1")
+            parts["restore_ms"] = (time.perf_counter() - t0) * 1e3
+            step("restore")
+            parts["restored_headline"] = tablet_headline(tablet, before,
+                                                         "restored")
+            rlog.record = True
+            parts["restored_pages"] = tablet_pages(tablet, oracle,
+                                                   "restored", 47,
+                                                   extra=("e",))
+            rlog.record = False
+            tablet_points(tablet, oracle, [r.key for r in victims[:100]],
+                          "restored", extra=("e",))
+            step("restored_reads")
+            # Compaction: K11 over the run (the union of ~1.02M rows is
+            # under the engine's numpy-twin crossover, HOST_GC_MASK_MAX,
+            # which the phase lowers so that the mask is K11's).
+            mask_max = gpu_engine.HOST_GC_MASK_MAX
+            gpu_engine.HOST_GC_MASK_MAX = 0
+            t0 = time.perf_counter()
+            try:
+                tablet.compact(tablet.read_time().value)
+            finally:
+                gpu_engine.HOST_GC_MASK_MAX = mask_max
+            parts["compact"] = {"ms": (time.perf_counter() - t0) * 1e3,
+                                **{k[:-2] + "_ms": v * 1e3 for k, v in
+                                   eng.last_compact.items()
+                                   if k.endswith("_s")}}
+            check(eng.compact_paths["k11"] == 1,
+                  f"the tablet's compaction took {eng.compact_paths}")
+            parts["compacted_headline"] = tablet_headline(tablet, before,
+                                                          "compacted")
+            step("compact")
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        for fn in counters.values():  # the later phases count their own
+            fn.launches = 0
+        parts["held"] = {"replay_flush": wlog.verify_flushes(),
+                         **rlog.verify()}
+        tablet.close()
+        step("hold_close")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    TABLET_LAUNCHES.update(launches)
+    for name in ("flat_agg", "mvcc_resolve", "row_gather", "scan_window",
+                 "replay_flush", "gc_mask", "decode"):
+        check(launches[name] > 0,
+              f"the tablet phase launched {name} 0 times")
+    check(eng.stats()["host_reserves"] == 0, "a tablet batch was re-served")
+    parts["launches"] = launches
+    parts["steps_s"] = steps
+    parts["card"] = card
+    print("tablet " + json.dumps(parts))
+    return parts
+
+
 def main() -> int:
     import torch
 
@@ -6800,13 +7313,42 @@ def main() -> int:
           f"(64 lanes x SMs x clocks.max.sm "
           f"{nvidia_smi('clocks.max.sm')})")
     t_start = t0 = time.perf_counter()
-    native.build(KERNELS)
-    walls = {"build": time.perf_counter() - t0}  # seconds of each phase
-    print(f"build: {', '.join(KERNELS)} in {walls['build']:.1f} s")
-    for name in KERNELS:
-        for line in native.build_logs.get(name, "").splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas: {name}: {line.strip()}")
+    walls = {}  # seconds of each phase
+    built: list = []  # the build's error, if any, then True once printed
+
+    def build_kernels():
+        try:
+            native.build(KERNELS)
+        except BaseException as e:  # noqa: BLE001 — raised by kernels_built
+            built.append(e)
+        walls["build"] = time.perf_counter() - t0
+
+    # The whole smoke builds the kernels (one nvcc a source, all started
+    # together) while the tablet phase does its first host work; every
+    # other mode waits for the build first.
+    build_thread = threading.Thread(target=build_kernels)
+    build_thread.start()
+
+    def kernels_built():
+        """Wait for the build, raise its error, print its ptxas lines."""
+        build_thread.join()
+        if built and built[0] is True:
+            return
+        if built:
+            raise built[0]
+        built.append(True)
+        print(f"build: {', '.join(KERNELS)} in {walls['build']:.1f} s")
+        for name in KERNELS:
+            for line in native.build_logs.get(name, "").splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas: {name}: {line.strip()}")
+
+    if len(sys.argv) == 2 and sys.argv[1] == "--run-io":
+        build_thread.join()
+        run_io_speed()
+        return 0
+    if len(sys.argv) > 1:
+        kernels_built()
 
     if len(sys.argv) == 3 and sys.argv[1] == "--resolve-ab":
         resolve_ab(device, bw, sys.argv[2].split(","))
@@ -6846,6 +7388,9 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--residency":
         residency_alone(device, bw, rate)
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--tablet":
+        tablet_phase(device, bw, rate)
+        return 0
 
     def timed(name, phase, *args):
         reserves0 = _HOST_RESERVES[0]
@@ -6856,6 +7401,9 @@ def main() -> int:
         if name != "residency":
             check_no_fault(name, reserves0)
         return result
+
+    tab = timed("tablet", tablet_phase, kernels_built)
+    kernels_built()
 
     kernel_err = timed("kernel", kernel_phase)
     eng, flat = timed("engine", engine_phase)
@@ -6891,7 +7439,7 @@ def main() -> int:
     res_err = max(r["max_abs_err"] for r in list(mv["resolve"].values())
                   + list(ovm["resolve"].values()))
     overlay_k1 = ovf["launches"] + ovm["launches"]["flat_agg"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "flat_agg", "route": "cuda",
         "source": "yugabyte_db_tpu_torch/csrc/flat_agg.cu",
         "replaces": "yugabyte_db_tpu/ops/pallas_agg.py:76",
@@ -6930,7 +7478,14 @@ def main() -> int:
         "overlay_long_group_bound_ms": ovm["resolve"]["long"]["bound_ms"]},
         group_agg_entry(grp), *row_path_entries(rows, sources),
         *write_entries(eng["k12"], comp), full_entry(full),
-        decode_entry()]}))
+        decode_entry()]
+    # The tablet phase's launches, on its own path.
+    for entry in kernels:
+        n = tab["launches"].get(entry["name"], 0)
+        if n:
+            entry["launches"] += n
+            entry.setdefault("launches_by_path", {})["tablet"] = n
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,8 +22,10 @@ against the JAX package's.
   closed, and the first that no device tensor outlives its entry and
   that the cache releases the bytes of the allocations it held.
 
-Not mirrored: ``tests/test_residency.py:251`` (``alter_schema``, ROADMAP.md
-§1 item 12, which also brings the cache's ``release``) and ``:366`` (the metrics registry and ``/memz``, item 16).
+``tests/test_residency.py:251`` (``alter_schema`` and the cache's
+``release``) is mirrored in ``tests/test_torch_engine_seam.py``. Not
+mirrored: ``:366`` (the metrics registry and ``/memz``, ROADMAP.md §1 item
+16).
 """
 
 import gc

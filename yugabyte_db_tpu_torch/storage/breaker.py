@@ -160,6 +160,14 @@ class CircuitBreaker:
                 self._opened_at = self._clock()
                 self.trips += 1
 
+    def release_probe(self) -> None:
+        """An admitted call ended without a verdict on the protected path
+        (its caller's deadline ran out): free the half-open probe slot so
+        the next call probes, and leave CLOSED's failure count alone."""
+        with self._lock:
+            if self._state == HALF_OPEN:
+                self._probe_inflight = False
+
     def trip(self, exc: BaseException | None = None) -> None:
         """Open immediately regardless of the threshold (a fault the
         caller knows is structural)."""

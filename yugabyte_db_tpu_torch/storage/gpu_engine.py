@@ -53,9 +53,23 @@ probe succeeds. A fault in the device flush sends it to the host build.
 Any other raise, a CUDA runtime error of a faulty kernel included, is
 recorded on the breaker and propagates.
 
-Not in this slice: the native one-pass flush and persistence (ROADMAP.md
-§1 item 16), and ``restore_entries`` / ``dump_entries`` /
-``alter_schema`` (item 12).
+The rest of the JAX engine's seam, which the tablet (``tablet.Tablet``)
+calls: runs are saved on disk under the ``data_dir`` option
+(``storage.run_io.RunPersistence``, the JAX engine's files byte for byte):
+each flush saves its run's entries, a compaction replaces every file with
+the merged run's, and a new engine on the directory loads them at
+construction (they upload on demand through the cache).
+``apply_block`` decodes a row block (``storage.rowblock``);
+``restore_entries`` replaces everything with a snapshot's entries and
+``dump_entries`` gives every run's entries key-merged; ``alter_schema``
+flushes, gives every run all-unset planes for each added column and
+drops each grown run's device payload (``GpuRun.invalidate_device``: the
+next access re-uploads, a counted miss); ``scan_batch`` /
+``scan_batch_async`` check a ``deadline`` (``utils.retry.Deadline``) where
+the JAX engine does, and an expired one raises ``Code.TIMED_OUT`` without
+a host re-serve and without counting as a breaker failure. ``point_serve`` answers ``None`` (the seam's default: the
+port's memtable has no native lookup). Not in this slice: the native
+one-pass flush and the native wire page server (ROADMAP.md §1 item 16).
 
 The scans:
 
@@ -147,7 +161,8 @@ from yugabyte_db_tpu_torch.ops.device_run import (PLANE_ENCODINGS,
                                                   resolve_device)
 from yugabyte_db_tpu_torch.storage.columnar import (DEFAULT_ROWS_PER_BLOCK,
                                                     KEY_WORDS, BlockMeta,
-                                                    ColumnarRun, _varlen_raw,
+                                                    ColumnarRun, ColumnData,
+                                                    _varlen_raw,
                                                     dictionary_planes,
                                                     sorted_dictionary)
 from yugabyte_db_tpu_torch.storage.cpu_engine import (Aggregator,
@@ -167,6 +182,7 @@ from yugabyte_db_tpu_torch.storage.merge import (merge_entry_streams,
 from yugabyte_db_tpu_torch.storage.residency import (device_nbytes,
                                                      hbm_cache)
 from yugabyte_db_tpu_torch.storage.row_version import MAX_HT, RowVersion
+from yugabyte_db_tpu_torch.storage.run_io import RunPersistence, load_run
 from yugabyte_db_tpu_torch.storage.scan_spec import (ScanResult, ScanSpec,
                                                      point_key_of)
 from yugabyte_db_tpu_torch.utils import planes as P
@@ -174,6 +190,7 @@ from yugabyte_db_tpu_torch.utils.fault_injection import (FaultInjected,
                                                          maybe_fault)
 from yugabyte_db_tpu_torch.utils.flags import FLAGS
 from yugabyte_db_tpu_torch.utils.memtracker import root_tracker
+from yugabyte_db_tpu_torch.utils.retry import DeadlineExpired
 from yugabyte_db_tpu_torch.utils.sync_point import sync_point
 
 PAD_BLOCKS = 64  # run block-axis padding, as the JAX engine pads
@@ -325,6 +342,17 @@ class GpuRun:
         res = _Resident(dev, self._const_planes())
         hbm_cache().acquire(self._res_key, lambda: (res, res.nbytes),
                             nbytes_hint=res.nbytes)
+
+    def invalidate_device(self) -> None:
+        """Drop the resident payload of a run that stays live (its host
+        planes grew in place: ALTER added columns): the planes, adopted
+        ones included, K10's part table, and every aux entry (the
+        side-car, the view, K13b's plan). The registration survives, so
+        the next access uploads the grown host planes through the cache,
+        budgeted and charged, as a counted miss (the JAX ``TpuRun``'s)."""
+        hbm_cache().release(self._res_key)
+        self.host_index = None
+        self._dev_nbytes_hint = None
 
     def retire(self) -> None:
         """The run left the run set for good (a compaction merged it, or
@@ -634,6 +662,12 @@ class GpuStorageEngine(RowPath, StorageEngine):
     the runs' bytes by encoding (the JAX engine's ``plane_stats``) and
     the K10 side-cars' device bytes.
 
+    ``tracker_name`` names the engine's device tracker (the tablet passes
+    its id). ``data_dir`` (default None: nothing on disk) is the directory
+    of the engine's run files (``storage.run_io.RunPersistence``): the
+    runs found there are loaded at construction, each flush saves its
+    run, and a compaction or ``restore_entries`` replaces every file.
+
     ``breaker_failure_threshold`` and ``breaker_cooldown_s`` (defaults:
     the flags ``gpu_breaker_failure_threshold`` / ``gpu_breaker_cooldown_s``,
     3 and 1.0 s) configure the circuit breaker; ``stats()["breaker"]``
@@ -649,7 +683,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
         # The runs' resident bytes, charged and released entry by entry
         # by the residency cache.
         self.device_tracker = root_tracker().child("device").child(
-            f"engine-{id(self):x}")
+            self.options.get("tracker_name", f"engine-{id(self):x}"))
         # Fault domain: the breaker quarantines the device path after
         # repeated device faults; meanwhile every batch is re-served from
         # the host structures (_serve_host_batch).
@@ -700,6 +734,25 @@ class GpuStorageEngine(RowPath, StorageEngine):
         self.compact_paths = {"k11": 0, "twin": 0, "host": 0}
         self.last_flush: dict = {}
         self.last_compact: dict = {}
+        # The runs saved on disk (the JAX engine's): loaded here, built on
+        # the host, uploaded at their first access through the cache.
+        # ``last_load`` holds the host-clock seconds of reading the files
+        # and of building their runs.
+        self.persist = RunPersistence(self.options.get("data_dir"))
+        self.last_load = {"load_s": 0.0, "build_s": 0.0}
+        for path in self.persist.files:
+            t0 = time.perf_counter()
+            entries = load_run(path)
+            t1 = time.perf_counter()
+            crun = ColumnarRun.build(self.schema, entries,
+                                     self.rows_per_block)
+            self.last_load["load_s"] += t1 - t0
+            self.last_load["build_s"] += time.perf_counter() - t1
+            self.runs.append(GpuRun(crun, self.device,
+                                    setting=self.plane_encoding,
+                                    tracker=self.device_tracker))
+            self.flushed_frontier_ht = max(self.flushed_frontier_ht,
+                                           crun.max_ht)
 
     # -- writes --------------------------------------------------------------
     def apply(self, rows: list[RowVersion]) -> None:
@@ -724,6 +777,13 @@ class GpuStorageEngine(RowPath, StorageEngine):
         trun = self._device_flush()
         if trun is not None:
             self.flush_paths["device"] += 1
+            if self.persist.enabled:
+                # The run's own entries: its row objects are the memtable's
+                # versions, so the file is the JAX engine's for the same
+                # memtable.
+                t0 = time.perf_counter()
+                self.persist.save_new(list(trun.crun.iter_entries()))
+                self.last_flush["persist_s"] = time.perf_counter() - t0
         else:
             t0 = time.perf_counter()
             entries = self.memtable.drain_sorted()
@@ -733,8 +793,11 @@ class GpuStorageEngine(RowPath, StorageEngine):
             trun = GpuRun(crun, self.device, setting=self.plane_encoding,
                           tracker=self.device_tracker)
             # The run uploads at its first access, through the cache.
+            t2 = time.perf_counter()
+            self.persist.save_new(entries)
             self.last_flush = {"route": "host", "drain_s": t1 - t0,
-                               "build_s": time.perf_counter() - t1}
+                               "build_s": t2 - t1,
+                               "persist_s": time.perf_counter() - t2}
             self.flush_paths["host"] += 1
         self.runs.append(trun)
         self.memtable = MemTable()
@@ -1005,8 +1068,14 @@ class GpuStorageEngine(RowPath, StorageEngine):
             self.compact_paths["host"] += 1
             self.last_compact = {"route": "host",
                                  "merge_build_s": time.perf_counter() - t0}
+            self.persist.replace_all(merged)
         else:
             (crun,) = result
+            if self.persist.enabled:
+                t0 = time.perf_counter()
+                self.persist.replace_all(list(crun.iter_entries())
+                                         if crun is not None else [])
+                self.last_compact["persist_s"] = time.perf_counter() - t0
         old_runs = self.runs
         # The merged run uploads at its first access, as any host-built
         # run.
@@ -1043,6 +1112,85 @@ class GpuStorageEngine(RowPath, StorageEngine):
             t.retire()
         self._plan_cache.clear()
         self.device_tracker.detach()
+
+    # -- the rest of the tablet's seam (the JAX engine's) --------------------
+    def restore_entries(self, entries) -> None:
+        """Replace everything (memtable, runs, files) with ``entries``
+        (key asc, versions ht-desc): the snapshot-restore primitive. The
+        new run uploads at its first access."""
+        self.memtable = MemTable()
+        self.persist.replace_all(entries)
+        old_runs = list(self.runs)
+        if entries:
+            crun = ColumnarRun.build(self.schema, entries,
+                                     self.rows_per_block)
+            self.runs = [GpuRun(crun, self.device,
+                                setting=self.plane_encoding,
+                                tracker=self.device_tracker)]
+            self.flushed_frontier_ht = max(self.flushed_frontier_ht,
+                                           crun.max_ht)
+        else:
+            self.runs = []
+        self._plan_cache.clear()
+        self._read_plane_cache.clear()
+        self._drop_overlay_cache()
+        for t in old_runs:
+            t.retire()
+
+    def dump_entries(self) -> list:
+        """Every run's (key, versions ht-desc) pairs, key-merged across
+        runs: the storage payload of a remote-bootstrap session."""
+        return list(merge_entry_streams(
+            [t.crun.iter_entries() for t in self.runs]))
+
+    def alter_schema(self, new_schema: Schema) -> None:
+        """Adopt an evolved schema (the JAX engine's): the memtable flushes
+        first, so that no old-schema rows build a run after the switch;
+        every run gets all-unset planes for each ADDED column (its rows
+        read NULL there) and drops its device payload and everything
+        derived from the old column set (``invalidate_device``: planes,
+        K10's part table, side-car, view, K13b's plan; and the encoded
+        tree with its byte accounting), so that the next access re-uploads
+        the grown planes through the cache; dropped columns keep their
+        (now unreachable) planes. Then the overlay and the plan caches
+        go."""
+        self.flush()
+        super().alter_schema(new_schema)
+        self.mat = RowMaterializer(new_schema)
+        self._kinds = {c.col_id: dtype_kind(c.dtype)
+                       for c in new_schema.value_columns}
+        self._dtypes = {c.col_id: c.dtype for c in new_schema.value_columns}
+        self._name_to_id = {c.name: c.col_id
+                            for c in new_schema.value_columns}
+        self._key_col_names = {c.name for c in new_schema.key_columns}
+        self._drop_overlay_cache()
+        self._plan_cache.clear()
+        self._read_plane_cache.clear()
+        for trun in self.runs:
+            crun = trun.crun
+            B, R = crun.key_planes.shape[0], crun.R
+            changed = False
+            for c in new_schema.value_columns:
+                if c.col_id in crun.cols:
+                    continue
+                planes = 2 if c.dtype.device_planes == 2 else 1
+                crun.cols[c.col_id] = ColumnData(
+                    dtype=c.dtype,
+                    set_=np.zeros((B, R), dtype=bool),
+                    isnull=np.zeros((B, R), dtype=bool),
+                    cmp_planes=np.zeros((B, R, planes), dtype=np.int32),
+                    arith=(np.zeros((B, R), dtype=np.float32)
+                           if c.dtype.is_numeric else None),
+                    varlen=([[None] * R for _ in range(B)]
+                            if not c.dtype.is_fixed_width else None),
+                )
+                changed = True
+            crun.schema = new_schema
+            trun.host_index = None  # column planes changed shape or set
+            if changed:
+                crun._enc_cache = None
+                crun.enc_stats = None
+                trun.invalidate_device()
 
     def _device_gc_fits_budget(self) -> bool:
         """The retention mask K11 needs every run pinned at once, with
@@ -1352,8 +1500,9 @@ class GpuStorageEngine(RowPath, StorageEngine):
     def scan(self, spec: ScanSpec) -> ScanResult:
         return self.scan_batch([spec])[0]
 
-    def scan_batch(self, specs: list[ScanSpec]) -> list[ScanResult]:
-        return self.scan_batch_async(specs).finish()
+    def scan_batch(self, specs: list[ScanSpec],
+                   deadline=None) -> list[ScanResult]:
+        return self.scan_batch_async(specs, deadline=deadline).finish()
 
     def _device_fault_point(self) -> None:
         """The fault point of the device dispatch path (flag and armed
@@ -1369,7 +1518,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
         shapes protect their runs in the high-pri pool."""
         return "low" if (not spec.lower and not spec.upper) else "high"
 
-    def scan_batch_async(self, specs: list[ScanSpec]):
+    def scan_batch_async(self, specs: list[ScanSpec], deadline=None):
         """Plan every scan, launch all device work and start the results'
         copies to the host without waiting, then fold the overlay specs'
         dirty keys on the host; ``.finish()`` waits and builds the
@@ -1382,18 +1531,32 @@ class GpuStorageEngine(RowPath, StorageEngine):
         the batch is planned or launched, the batch is served from the
         host structures instead (``_HostServeBatch``); any other raise is
         recorded on the breaker (it retires an admitted probe) and
-        propagates."""
+        propagates. An expired deadline is not recorded as a failure: it
+        only frees an admitted probe's slot.
+
+        ``deadline`` (``utils.retry.Deadline``) is the propagated budget:
+        an expired one raises ``DeadlineExpired`` (``Code.TIMED_OUT``)
+        before any work is issued, between the host re-serve's specs, and
+        in ``finish`` before the results are built and between the
+        gathers' rounds, letting the batch's pins go. It is not a device
+        fault: nothing is re-served."""
+        if deadline is not None:
+            deadline.check("gpu_engine.scan_batch")
         if not self.breaker.allow():
-            return _HostServeBatch(self, specs)
+            return _HostServeBatch(self, specs, deadline)
         try:
-            return self._scan_batch_async_device(specs)
+            return self._scan_batch_async_device(specs, deadline)
+        except DeadlineExpired:
+            self.breaker.release_probe()
+            raise
         except BaseException as e:
             self.breaker.record_failure(e)
             if is_device_fault(e):
-                return _HostServeBatch(self, specs)
+                return _HostServeBatch(self, specs, deadline)
             raise
 
-    def _scan_batch_async_device(self, specs: list[ScanSpec]) -> "_AsyncBatch":
+    def _scan_batch_async_device(self, specs: list[ScanSpec],
+                                 deadline=None) -> "_AsyncBatch":
         self._device_fault_point()
         results: list = [None] * len(specs)
         # Per source, a run or one view of it: K1 specs by plan, the specs
@@ -1474,7 +1637,7 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 prep.host = self._overlay_host_partial(prep.overlay,
                                                        prep.spec)
             return _AsyncBatch(self, results, pending, rows, round1,
-                               dispatches, pins, specs)
+                               dispatches, pins, specs, deadline)
         except BaseException:
             for trun in pins:
                 trun.unpin()
@@ -2238,9 +2401,11 @@ class _AsyncBatch:
     from the host (the specs' read points make the answers the same)."""
 
     def __init__(self, eng, results: list, pending: list, rows: dict,
-                 round1: dict, dispatches: list, pins: list, specs: list):
+                 round1: dict, dispatches: list, pins: list, specs: list,
+                 deadline=None):
         self.pins: list = []
         self.eng = eng
+        self.deadline = deadline
         self.results = results
         self.rows = rows
         self.round1 = round1
@@ -2275,6 +2440,12 @@ class _AsyncBatch:
             return self.results
         try:
             out = self._finish()
+        except DeadlineExpired:
+            # The caller's budget, not a fault of the device: the failure
+            # count stays, and an admitted half-open probe frees its slot.
+            self._release_pins()
+            self.eng.breaker.release_probe()
+            raise
         except BaseException as e:
             self._release_pins()
             # Recorded either way: a raise out of an admitted half-open
@@ -2285,15 +2456,21 @@ class _AsyncBatch:
             # A device fault in flight: re-serve the whole batch from the
             # host.
             self._finishers = self._bufs = []
-            self.results = self.eng._serve_host_batch(self.specs)
+            self.results = self.eng._serve_host_batch(self.specs,
+                                                      self.deadline)
             self._done = True
             return self.results
         self._release_pins()
         self.eng.breaker.record_success()
         return out
 
+    def _check_deadline(self) -> None:
+        if self.deadline is not None:
+            self.deadline.check("gpu_engine.scan_batch.finish")
+
     def _finish(self) -> list[ScanResult]:
         eng, results, rows = self.eng, self.results, self.rows
+        self._check_deadline()
         for i, fin in rows["host"]:
             results[i] = fin()
         if rows["page"]:
@@ -2308,6 +2485,7 @@ class _AsyncBatch:
         pending = eng._feed_round(states, self.round1, self._members,
                                   [b.numpy() for b in self._bufs])
         while pending:  # continuation rounds: synchronous
+            self._check_deadline()
             dispatches = eng._issue_round(states, pending)
             pending = eng._feed_round(
                 states, pending, [m for m, _o in dispatches],
@@ -2325,14 +2503,16 @@ class _HostServeBatch:
     launched (the JAX engine's): nothing was launched and no pin is held;
     ``finish()`` serves the whole batch from the host."""
 
-    def __init__(self, eng, specs: list):
+    def __init__(self, eng, specs: list, deadline=None):
         self.eng = eng
         self.specs = list(specs)
+        self.deadline = deadline
         self.results: list | None = None
 
     def finish(self) -> list[ScanResult]:
         if self.results is None:
-            self.results = self.eng._serve_host_batch(self.specs)
+            self.results = self.eng._serve_host_batch(self.specs,
+                                                      self.deadline)
         return self.results
 
 

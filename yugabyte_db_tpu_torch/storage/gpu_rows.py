@@ -164,13 +164,20 @@ class RowPath:
                           1 if versions else 0)
 
     # -- the host re-serve (the breaker's fallback) -------------------------
-    def _serve_host_batch(self, specs: list[ScanSpec]) -> list[ScanResult]:
+    def _serve_host_batch(self, specs: list[ScanSpec],
+                          deadline=None) -> list[ScanResult]:
         """Serve a whole batch WITHOUT the device: candidate keys from the
         authoritative host runs, the shared merge and materialize loop
         applying every predicate on the host, so the rows equal the
-        device routes' (and the CPU oracle's)."""
+        device routes' (and the CPU oracle's). ``deadline`` is checked
+        before each spec."""
         self.host_reserves += 1
-        return [self._host_scan(spec) for spec in specs]
+        out = []
+        for spec in specs:
+            if deadline is not None:
+                deadline.check("gpu_engine.host_serve")
+            out.append(self._host_scan(spec))
+        return out
 
     def _host_scan(self, spec: ScanSpec) -> ScanResult:
         mem = self.memtable

@@ -3,8 +3,11 @@ host mirror instead of a device round trip.
 
 The port's copy of the JAX package's ``storage/host_page.py``, its numpy
 path: ``HostPageIndex``, ``encode_pred_items``, ``plan_pages`` /
-``decode_pages`` and ``serve_pages`` over them. The native page server
-and the wire paths wait for the tablet (ROADMAP.md §1 item 12).
+``decode_pages`` and ``serve_pages`` over them, and the wire page
+(``WirePage``, ``wire_from_result``: the Python serializer the engine
+seam's ``scan_batch_wire`` uses, ``models.wirefmt``'s bytes). The native
+page server (the JAX ``serve_pages_wire``) waits for ROADMAP.md §1 item
+16; the JAX engine's native and Python paths produce the same bytes.
 
 Why this exists (the latency story): a LIMIT-k page is *result-bound* —
 it returns ~k rows no matter how large the table. On the serving
@@ -347,3 +350,58 @@ def _decode_value_col(engine, trun, name, sel, notnull):
     for i in np.nonzero(~nn)[0].tolist():
         raw[i] = None
     return raw
+
+
+# -- wire pages -------------------------------------------------------------
+# A wire page is a result page serialized once into protocol bytes (CQL
+# binary cells or PG DataRow messages). Reference contract:
+# QLRowBlock::Serialize rows_data (src/yb/common/ql_rowblock.h:66),
+# forwarded untouched by the CQL service (cql_processor.cc).
+
+WIRE_CQL = 0
+WIRE_PG = 1
+
+
+class WirePage:
+    """One serialized result page (scan_batch_wire output)."""
+
+    __slots__ = ("columns", "data", "nrows", "resume", "scanned",
+                 "read_ht")
+
+    def __init__(self, columns, data, nrows, resume, scanned,
+                 read_ht=None):
+        self.columns = columns
+        self.data = data
+        self.nrows = nrows
+        self.resume = resume
+        self.scanned = scanned
+        self.read_ht = read_ht
+
+
+def wire_from_result(engine, res: ScanResult, fmt) -> WirePage:
+    """ScanResult -> WirePage via the Python serializer (models.wirefmt
+    defines the bytes)."""
+    from yugabyte_db_tpu_torch.models import wirefmt
+
+    fmt_name = "cql" if fmt in (WIRE_CQL, "cql") else "pg"
+    by_name = {c.name: c.dtype for c in engine.schema.columns}
+    dts = []
+    for i, nm in enumerate(res.columns):
+        dt = by_name.get(nm)
+        if dt is None:  # computed column (aggregate): infer from values
+            dt = DataType.INT64
+            for row in res.rows:
+                v = row[i]
+                if v is None:
+                    continue
+                dt = (DataType.BOOL if isinstance(v, bool)
+                      else DataType.INT64 if isinstance(v, int)
+                      else DataType.DOUBLE if isinstance(v, float)
+                      else DataType.BINARY
+                      if isinstance(v, (bytes, bytearray))
+                      else DataType.STRING)
+                break
+        dts.append(dt)
+    data = wirefmt.serialize_rows(fmt_name, dts, res.rows)
+    return WirePage(list(res.columns), data, len(res.rows),
+                    res.resume_key, res.rows_scanned)

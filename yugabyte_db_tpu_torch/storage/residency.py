@@ -17,10 +17,10 @@ tensors: charged with it and dropped with it.
 The budget is a per-device map: every entry belongs to exactly one
 owning device (demand re-uploads go back to it). Admission and eviction
 are scoped to the admitting device. On one card the map has one bucket.
-The JAX cache's per-device byte map of an external registration (a
-sharded upload) and its ``release`` (planes rebuilt in place by
-``alter_schema``) come with the port's paths that need them (ROADMAP.md
-§1 items 14 and 12).
+``release`` drops an entry's payload and keeps its registration (planes
+rebuilt in place by ``alter_schema``). The JAX cache's per-device byte
+map of an external registration (a sharded upload) comes with the port's
+path that needs it (ROADMAP.md §1 item 14).
 
 Scan resistance mirrors the reference's two-pool policy: point-get and
 bounded-scan traffic is admitted to (or promoted into) the protected
@@ -195,6 +195,18 @@ class HbmCache:
         with self._lock:
             self._drain_dead()
             e = self._entries.pop(key, None)
+            if e is not None and e.payload is not None:
+                self._release_entry(e, evicted=False)
+
+    def release(self, key: int) -> None:
+        """Drop the entry's resident payload (and its aux values) but keep
+        the registration: the next acquire() demand-rebuilds through the
+        cache, still budgeted and tracker-charged, and counts a miss. The
+        call for an owner that outlives its current upload (ALTER grows
+        the host planes and the stale device copy must go)."""
+        with self._lock:
+            self._drain_dead()
+            e = self._entries.get(key)
             if e is not None and e.payload is not None:
                 self._release_entry(e, evicted=False)
 

@@ -57,6 +57,22 @@ class RowVersion:
                                or self.increments):
             raise ValueError("tombstone carries no columns or liveness")
 
+    @classmethod
+    def stored(cls, key: bytes, ht: int, tombstone: bool, liveness: bool,
+               columns: dict, expire_ht: int, write_id: int) -> "RowVersion":
+        """A version as a run file stores it (no relative TTL, no pending
+        increments), built without ``__init__``: a run load makes a
+        million of them, and the dataclass's ``__init__`` costs more than
+        the parse. It sets every field and keeps ``__post_init__``'s rule."""
+        if tombstone and (liveness or columns):
+            raise ValueError("tombstone carries no columns or liveness")
+        rv = object.__new__(cls)
+        rv.__dict__ = {"key": key, "ht": ht, "tombstone": tombstone,
+                       "liveness": liveness, "columns": columns,
+                       "expire_ht": expire_ht, "ttl_us": None,
+                       "write_id": write_id, "increments": {}}
+        return rv
+
     def resolve_ttl(self, ht: int) -> int:
         """Absolute expire_ht for a write stamped at ``ht``."""
         if self.ttl_us is not None:

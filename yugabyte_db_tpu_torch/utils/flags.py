@@ -14,6 +14,9 @@ modules read. Each is a JAX flag with the device's name changed
 - ``fault.gpu_dispatch`` (JAX ``fault.tpu_dispatch``) and ``fault.seed``:
   the probability that a device dispatch raises an injected fault, and
   the seed of that draw (``utils.fault_injection``).
+
+And one the JAX package names the same way: ``txn_expiry_s``, the
+default expiry of a silent transaction (``txn.coordinator``).
 """
 
 from __future__ import annotations
@@ -69,3 +72,6 @@ FLAGS.define("fault.gpu_dispatch", 0.0,
              "(exercises the circuit breaker and the host re-serve)")
 FLAGS.define("fault.seed", 0,
              "seed of the fault probabilities' draw; 0 = unseeded")
+FLAGS.define("txn_expiry_s", 10.0,
+             "seconds without a client heartbeat after which a transaction "
+             "coordinator aborts a pending transaction")
