@@ -9,10 +9,10 @@ line is printed:
    compiles every CUDA kernel of the main path from ``csrc/``, one
    ``nvcc`` each, all at once (``ptxas:`` lines: registers and spills),
    while the tablet phase (run first) generates its rows and writes its
-   WAL;
+   WAL; every phase after it runs alone, one after another;
 1b. tablet (``tablet_phase``): the port's ``Tablet`` on the ``gpu``
-   engine at 1,000,000 keys of the bench table in a temporary data
-   directory (fsync on, the default plane encoding): 100
+   engine at TABLET_KEYS (500,000) keys of the bench table in a
+   temporary data directory (fsync on, the default plane encoding): 50
    ``Tablet.write`` batches of 10,000 rows, the device flush (K12) with
    its run saved, 20,000 zipfian updates left in the WAL, ``close()``
    (the device bytes released, no cache entry left), ``Tablet.open``
@@ -22,6 +22,23 @@ line is printed:
    re-upload), a snapshot around 1,000 deletes and its restore, and
    compaction (K11); every launch counted, K12, K7 and K9 held against
    their plain versions (``tablet`` line, ``--tablet`` alone);
+1c. raft (``raft_phase``): three ``TabletPeer``s (``node-0..2``) of the
+   port over its ``LocalTransport``, each its own ``gpu`` engine in a
+   temporary data directory (fsync on, the default ``RaftOptions``), on
+   the tablet phase's rows, updates and oracle: a leader elected with a
+   lease, 50 writes of 10,000 rows and the 20,000 updates (100 a write)
+   through it, retried on ``NotLeader`` as a client does (rows/s, the
+   commit latency's p50 and p99), each replica's ``TabletPeer.flush``
+   (the device route, its run saved), the headline batch and 256 YCSB-E
+   pages in "cql" and "pg" on the leader (lease), the headline batch on
+   each follower (stale, once it applied the leader's commit index), the
+   leader isolated (ms to a new lease), 1,000 unflushed writes and reads
+   (the overlay) through the new leader, the heal (the old leader's
+   catch-up and stale read), ``snapshot_for_bootstrap``'s entries
+   restored into a fresh engine; every answer equal to the exact oracle,
+   the terms and any election besides the deliberate one printed, every
+   launch counted, K12, K7 and K9 held against their plain versions
+   (``raft`` line, ``--raft`` alone);
 2. kernel: 16,777,216 rows at R = 2048 of flat-run planes made from a
    numpy seed (~5% tombstones, NULLs, unset values, expired TTLs, invalid
    rows, values at the i32 and i64 extremes, an all-NULL and a never-set
@@ -6807,7 +6824,9 @@ def residency_alone(device, bw: float, rate: float) -> None:
 
 # -- the tablet phase: the port's Tablet on the gpu engine ------------------
 
-TABLET_KEYS = 1_000_000       # the bench table, as the engine phase's
+TABLET_KEYS = 500_000         # the bench table at half the engine phase's
+                              # keys (the raft phase reuses them): the
+                              # smoke's time budget
 TABLET_BATCH = 10_000         # rows a Tablet.write: one WAL append + sync
 TABLET_UPDATES = 20_000       # zipfian one-field updates, left unflushed
 TABLET_UPDATE_BATCH = 100     # updates a Tablet.write (a group commit)
@@ -7086,7 +7105,7 @@ def tablet_points(tablet, oracle, keys, label: str, extra=()) -> dict:
     return {"reads": len(keys), "ms_each": ms / len(keys)}
 
 
-def tablet_phase(device, bw: float, rate: float, ready=None) -> dict:
+def tablet_phase(device, bw: float, rate: float, ready=None) -> tuple:
     """The port's ``Tablet`` on the ``gpu`` engine at TABLET_KEYS keys of
     the bench table, in a data directory on the host's disk (fsync on,
     the default plane encoding): bulk writes through the WAL, the device
@@ -7097,7 +7116,8 @@ def tablet_phase(device, bw: float, rate: float, ready=None) -> dict:
     just before, read just after) and held against the plain versions
     (K12 by the WriteLog, K7 and K9 by a LaunchLog). ``ready()``, when
     given, is called before the first kernel is needed (the whole smoke
-    builds the kernels meanwhile)."""
+    builds the kernels meanwhile). Returns the phase's line and its
+    table (schema, rows, updates, oracle), which the raft phase reuses."""
     import shutil
     import tempfile
 
@@ -7293,6 +7313,431 @@ def tablet_phase(device, bw: float, rate: float, ready=None) -> dict:
     parts["steps_s"] = steps
     parts["card"] = card
     print("tablet " + json.dumps(parts))
+    return parts, SimpleNamespace(schema=schema, rows=rows, updates=updates,
+                                  oracle=oracle)
+
+
+# -- the raft phase: a three-replica Raft group of TabletPeers on gpu ---------
+
+RAFT_NODES = ("node-0", "node-1", "node-2")
+RAFT_FAILOVER_KEYS = 1_000    # keys written through the new leader, unflushed
+RAFT_WAIT_S = 60.0            # the longest wait for a leader, lease or apply
+
+
+def wait_until(pred, what: str, timeout: float = RAFT_WAIT_S):
+    """Poll ``pred`` until it returns something true: that value."""
+    t_end = time.monotonic() + timeout
+    while True:
+        v = pred()
+        if v:
+            return v
+        check(time.monotonic() < t_end, f"raft: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+class RaftGroup:
+    """Three ``TabletPeer``s of the bench table over the port's
+    ``LocalTransport``, each its own ``gpu`` engine on ``device`` in a
+    data directory under ``root`` (fsync on), with the default
+    ``RaftOptions``. Writes and reads go through the leader and retry a
+    ``NotLeader`` as a client does; ``retries`` counts them."""
+
+    def __init__(self, schema, root: str, opts: dict):
+        import os
+
+        from yugabyte_db_tpu_torch.consensus import LocalTransport
+        from yugabyte_db_tpu_torch.tablet import TabletMetadata, TabletPeer
+
+        self.transport = LocalTransport()
+        self.peers = {}
+        self.retries = 0
+        for uuid in RAFT_NODES:
+            meta = TabletMetadata("bench-raft", "bench", schema, 0, 65536,
+                                  engine="gpu")
+            peer = TabletPeer(uuid, meta, os.path.join(root, uuid),
+                              self.transport.bind(uuid), list(RAFT_NODES),
+                              engine_options=opts, fsync=True)
+            self.transport.register(
+                uuid, lambda m, p, _pr=peer: _pr.raft.handle(m, p))
+            self.peers[uuid] = peer
+        for peer in self.peers.values():
+            peer.start()
+
+    def leader(self, exclude=None):
+        """The peer that leads with a lease and has applied its own
+        term's no_op (it takes writes)."""
+        def ready():
+            return next((p for u, p in self.peers.items() if u != exclude
+                         and p.raft.is_leader() and p.raft.has_lease()
+                         and p.raft.leader_ready()), None)
+        return wait_until(ready, "a leader with a lease")
+
+    def write(self, rows, exclude=None):
+        """One write through the leader: its hybrid time."""
+        from yugabyte_db_tpu_torch.consensus import NotLeader
+
+        while True:
+            leader = self.leader(exclude)
+            try:
+                return leader.write(rows, timeout=RAFT_WAIT_S)
+            except NotLeader:
+                self.retries += 1
+
+    def on_leader(self, fn, exclude=None):
+        """``fn(leader)`` for a read that needs the lease, retried on
+        ``NotLeader``."""
+        from yugabyte_db_tpu_torch.consensus import NotLeader
+
+        while True:
+            leader = self.leader(exclude)
+            try:
+                return fn(leader)
+            except NotLeader:
+                self.retries += 1
+
+    def caught_up(self, peer, leader) -> float:
+        """Seconds until ``peer`` has applied the leader's commit index."""
+        t0 = time.perf_counter()
+        target = leader.raft.stats()["commit_index"]
+        wait_until(lambda: peer.raft.stats()["applied_index"] >= target,
+                   f"{peer.node_uuid} to apply index {target}")
+        return time.perf_counter() - t0
+
+    def terms(self) -> dict:
+        return {u: p.raft.stats()["term"] for u, p in self.peers.items()}
+
+    def shutdown(self):
+        for p in self.peers.values():
+            p.shutdown()
+
+
+class GcPauses:
+    """The cyclic GC's full (generation 2) collections while the context
+    is open, through ``gc.callbacks``: each holds the interpreter lock,
+    so every Raft thread of the process waits it out."""
+
+    def __enter__(self):
+        import gc
+
+        self.pauses, self._t0 = [], None
+        gc.callbacks.append(self._cb)
+        return self
+
+    def _cb(self, phase, info):
+        if info.get("generation") != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            self.pauses.append((time.perf_counter() - self._t0) * 1e3)
+            self._t0 = None
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+    def summary(self) -> dict:
+        p = self.pauses
+        return {"full_collections": len(p), "max_ms": max(p, default=0.0),
+                "total_ms": sum(p)}
+
+
+def peer_reader(peer, stale: bool):
+    """``peer`` shaped as the tablet the tablet phase's readers take: its
+    scans through ``TabletPeer`` (the lease gate, or a stale follower
+    read)."""
+    return SimpleNamespace(
+        read_time=peer.read_time, engine=peer.tablet.engine,
+        meta=peer.tablet.meta,
+        scan_many=lambda specs: peer.scan_many(specs, allow_stale=stale),
+        scan_wire_many=lambda specs, fmt: peer.scan_wire_many(
+            specs, fmt, allow_stale=stale))
+
+
+def stamped_oracle(schema, rows, updates) -> "TabletOracle":
+    """The oracle of ``rows`` written TABLET_BATCH a write, then
+    ``updates`` TABLET_UPDATE_BATCH a write, each write stamped by
+    ``stamped_batch`` at its own hybrid time after every generated one:
+    what the leader stamps, up to the times' values (the oracle reads
+    after every version, and a generated expiry precedes every stamp)."""
+    ht = int(time.time() * 1e6) << 12
+    stamped, ups = [], []
+    for out, src, n in ((stamped, rows, TABLET_BATCH),
+                        (ups, updates, TABLET_UPDATE_BATCH)):
+        for i in range(0, len(src), n):
+            ht += 1 << 12
+            out.extend(stamped_batch(src[i:i + n], ht))
+    return TabletOracle(schema, stamped, ups)
+
+
+def failover_rows(schema, rows, oracle, seed: int = 59) -> tuple:
+    """RAFT_FAILOVER_KEYS whole-row writes to existing keys of ``rows``
+    (new a, c and d), and ``oracle`` with them applied (a copy)."""
+    import copy
+
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+
+    rng = random.Random(seed)
+    cid = oracle.cid
+    picks = rng.sample(range(len(rows)), RAFT_FAILOVER_KEYS)
+    writes = [RowVersion(rows[i].key, ht=0, liveness=True, columns={
+        cid["a"]: rng.randrange(-10**12, 10**12),
+        cid["c"]: rng.uniform(-1e6, 1e6),
+        cid["d"]: rng.randrange(-1_000_000, 1_000_000)}) for i in picks]
+    after = copy.copy(oracle)
+    after.exists = oracle.exists.copy()
+    after.vals = {n: list(v) for n, v in oracle.vals.items()}
+    for w in writes:
+        i = oracle.pos[w.key]
+        after.exists[i] = True
+        for name in ("a", "c", "d"):
+            after.vals[name][i] = w.columns[cid[name]]
+    d = after.vals["d"]
+    after.match = np.nonzero(after.exists & np.fromiter(
+        (v is not None and v >= -500_000 for v in d), bool, len(d)))[0]
+    return writes, after
+
+
+def raft_phase(device, bw: float, rate: float, table=None) -> dict:
+    """A three-replica Raft group (``RaftGroup``) of the port's
+    ``TabletPeer``s on the ``gpu`` engine on ``table``, the tablet
+    phase's schema, rows, updates and oracle (made here, the oracle by
+    ``stamped_oracle``, when it is None: the phase alone): an election
+    with a lease, the writes of 10,000 rows (TABLET_BATCH) and the
+    zipfian updates (100 a write) through the leader, each replica's
+    flush (the device route, its run saved), the headline batch
+    and YCSB-E pages on the leader (lease) and the headline batch on each
+    follower (stale, once it applied the leader's commit index), the
+    leader isolated (the time to a new lease), 1,000 unflushed writes
+    through the new leader and its reads (the overlay), the heal (the old
+    leader's catch-up and its stale read), and ``snapshot_for_bootstrap``
+    on the leader restored into a fresh engine. Every answer equals the
+    exact oracle; every kernel launch is counted (zeroed just before, read
+    just after) and K12, K7 and K9 are held against their plain versions
+    (the WriteLog, a LaunchLog)."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage.engine import make_engine
+
+    parts: dict = {}
+    steps: dict = {}
+    mark = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - mark[0]
+        mark[0] = now
+        if group is not None:
+            terms_at[name] = max(group.terms().values())
+        print(f"raft step {name}: {steps[name]:.1f} s, terms "
+              f"{terms_at.get(name)}, gc {gcp.summary()}", flush=True)
+
+    terms_at: dict = {}  # the highest term after each step
+    group = None
+    gc.collect()  # an earlier phase's garbage, not frozen below
+    gcp = GcPauses().__enter__()
+    card = nvidia_smi()
+    if table is not None:
+        schema, rows, updates, oracle = (
+            table.schema, table.rows, table.updates, table.oracle)
+    else:
+        schema = workload.make_schema()
+        rows, max_ht = bench_rows(schema, TABLET_KEYS)
+        updates, _ = workload.make_update_rows(schema, rows, max_ht,
+                                               TABLET_UPDATES)
+        oracle = stamped_oracle(schema, rows, updates)
+    writes, after = failover_rows(schema, rows, oracle)
+    # The client's rows and the oracle stand for another process: out of
+    # the cyclic GC's full collections, which stop every Raft thread.
+    gc.freeze()
+    root = tempfile.mkdtemp(prefix="raft-")
+    step("setup")
+    opts = {"rows_per_block": 2048, "device": device}
+    wlog = write_log()
+    wlog.verify_flushes()  # an earlier phase's records are not ours
+    reserves0 = _HOST_RESERVES[0]
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    try:
+        with LaunchLog() as rlog:
+            t0 = time.perf_counter()
+            group = RaftGroup(schema, root, opts)
+            leader = group.leader()
+            parts["election_ms"] = (time.perf_counter() - t0) * 1e3
+            terms0 = group.terms()
+            step("elect")
+            # Writes of 10,000 rows, then the updates, 100 a write.
+            t0 = time.perf_counter()
+            for i in range(0, len(rows), TABLET_BATCH):
+                group.write(rows[i:i + TABLET_BATCH])
+            s = time.perf_counter() - t0
+            parts["write"] = {"rows": len(rows), "batches": -(-len(rows)
+                              // TABLET_BATCH), "s": s,
+                              "rows_per_s": len(rows) / s}
+            step("write")
+            lat = []
+            t0 = time.perf_counter()
+            for i in range(0, len(updates), TABLET_UPDATE_BATCH):
+                t1 = time.perf_counter()
+                group.write(updates[i:i + TABLET_UPDATE_BATCH])
+                lat.append((time.perf_counter() - t1) * 1e3)
+            s = time.perf_counter() - t0
+            q = statistics.quantiles(lat, n=100)
+            parts["updates"] = {"rows": len(updates), "writes": len(lat),
+                                "s": s, "rows_per_s": len(updates) / s,
+                                "commit_p50_ms": statistics.median(lat),
+                                "commit_p99_ms": q[98],
+                                "commit_max_ms": max(lat)}
+            step("updates")
+            # Each replica flushes (the leader's apply is drained first).
+            parts["flush"] = {}
+            for uuid, peer in group.peers.items():
+                eng = peer.tablet.engine
+                t0 = time.perf_counter()
+                peer.flush()
+                parts["flush"][uuid] = {
+                    "ms": (time.perf_counter() - t0) * 1e3,
+                    **{k[:-2] + "_ms": v * 1e3 for k, v in
+                       eng.last_flush.items() if k.endswith("_s")}}
+                check(eng.flush_paths == {"device": 1, "host": 0},
+                      f"raft: {uuid}'s flush took {eng.flush_paths}")
+                check(len(eng.persist.files) == 1
+                      and eng.stats()["num_runs"] == 1
+                      and eng.memtable.num_versions == 0,
+                      f"raft: {uuid}'s flush saved no run file")
+            parts["flush_held"] = wlog.verify_flushes()
+            step("flush")
+            # Reads: the leader under its lease, each follower stale.
+            headline = oracle.headline()
+            parts["leader_headline"] = group.on_leader(
+                lambda p: tablet_headline(peer_reader(p, False), headline,
+                                          "raft leader"))
+            parts["leader_pages"] = group.on_leader(
+                lambda p: tablet_pages(peer_reader(p, False), oracle,
+                                       "raft leader", 31))
+            rlog.record = False
+            leader = group.leader()
+            parts["followers"] = {}
+            for uuid, peer in group.peers.items():
+                if peer is leader:
+                    continue
+                wait_s = group.caught_up(peer, leader)
+                got = tablet_headline(peer_reader(peer, True), headline,
+                                      f"raft follower {uuid}")
+                parts["followers"][uuid] = {"apply_wait_ms": wait_s * 1e3,
+                                            **got}
+            step("reads")
+            # Failover: the leader isolated, a new lease, writes and reads
+            # through the new leader (the unflushed writes: the overlay).
+            old = leader
+            terms1 = group.terms()
+            t0 = time.perf_counter()
+            group.transport.isolate(old.node_uuid)
+            new = group.leader(exclude=old.node_uuid)
+            parts["failover_ms"] = (time.perf_counter() - t0) * 1e3
+            terms2 = group.terms()
+            t0 = time.perf_counter()
+            for i in range(0, len(writes), TABLET_UPDATE_BATCH):
+                group.write(writes[i:i + TABLET_UPDATE_BATCH],
+                            exclude=old.node_uuid)
+            parts["failover_writes_s"] = time.perf_counter() - t0
+            moved = after.headline()
+            parts["failover_headline"] = group.on_leader(
+                lambda p: tablet_headline(peer_reader(p, False), moved,
+                                          "raft new leader"),
+                exclude=old.node_uuid)
+            rlog.record = True
+            parts["failover_pages"] = group.on_leader(
+                lambda p: tablet_pages(peer_reader(p, False), after,
+                                       "raft new leader", 47),
+                exclude=old.node_uuid)
+            rlog.record = False
+            check(new.tablet.engine.memtable.num_versions
+                  >= RAFT_FAILOVER_KEYS,
+                  "raft: the failover writes are not in the new leader's "
+                  "memtable")
+            step("failover")
+            t0 = time.perf_counter()
+            group.transport.heal(old.node_uuid)
+            wait_until(lambda: not old.raft.is_leader(),
+                       "the old leader to step down")
+            leader = group.leader()
+            group.caught_up(old, leader)
+            parts["catch_up_ms"] = (time.perf_counter() - t0) * 1e3
+            parts["old_leader_headline"] = tablet_headline(
+                peer_reader(old, True), moved, "raft old leader")
+            terms3 = group.terms()
+            step("heal")
+            # The remote-bootstrap payload, restored into a fresh engine.
+            leader = group.leader()
+            t0 = time.perf_counter()
+            snap = leader.snapshot_for_bootstrap()
+            parts["bootstrap_snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+            check(leader.tablet.engine.flush_paths["host"] == 0,
+                  "raft: the bootstrap snapshot's flush took the host route")
+            check(len(snap["entries"]) == len(rows)
+                  and snap["tail"]["term"] == leader.raft.stats()["term"],
+                  f"raft: the bootstrap payload holds "
+                  f"{len(snap['entries'])} keys")
+            t0 = time.perf_counter()
+            fresh = make_engine("gpu", schema, opts)
+            fresh.restore_entries(snap["entries"])
+            parts["bootstrap_restore_ms"] = (time.perf_counter() - t0) * 1e3
+            del snap
+            parts["bootstrap_headline"] = tablet_headline(
+                SimpleNamespace(read_time=leader.read_time, engine=fresh,
+                                scan_many=fresh.scan_batch), moved,
+                "raft bootstrap restore")
+            fresh.close()
+            parts["bootstrap_held"] = wlog.verify_flushes()
+            step("bootstrap")
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        for fn in counters.values():  # the later phases count their own
+            fn.launches = 0
+        parts["held"] = rlog.verify()
+        reserves = sum(p.tablet.engine.stats()["host_reserves"]
+                       for p in group.peers.values())
+        check_no_fault("raft", reserves0)
+        step("hold")
+    finally:
+        gcp.__exit__()
+        gc.unfreeze()
+        if group is not None:
+            group.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    for name in ("flat_agg", "mvcc_resolve", "row_gather", "scan_window",
+                 "replay_flush", "decode"):
+        check(launches[name] > 0, f"the raft phase launched {name} 0 times")
+    check(reserves == 0, "a raft batch was re-served from the host")
+    # Elections: the first, the deliberate one after the isolation, and
+    # any other (reported by step, not hidden).
+    grew, prev = {}, terms_at["elect"]
+    for name, term in terms_at.items():
+        grew[name], prev = term - prev, term
+    grew["failover"] -= 1  # the deliberate one
+    check(terms2[new.node_uuid] > terms1[old.node_uuid],
+          "raft: no new term after the leader was isolated")
+    parts["terms"] = {"elected": terms0, "before_isolation": terms1,
+                      "after_failover": terms2, "after_heal": terms3}
+    parts["elections_besides_the_deliberate"] = {
+        "total": sum(grew.values()),
+        "by_step": {k: v for k, v in grew.items() if v}}
+    parts["terms_after_step"] = terms_at
+    parts["gc"] = gcp.summary()
+    parts["not_leader_retries"] = group.retries
+    parts["launches"] = launches
+    parts["steps_s"] = steps
+    parts["card"] = card
+    print("raft " + json.dumps(parts))
     return parts
 
 
@@ -7391,6 +7836,9 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--tablet":
         tablet_phase(device, bw, rate)
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--raft":
+        raft_phase(device, bw, rate)
+        return 0
 
     def timed(name, phase, *args):
         reserves0 = _HOST_RESERVES[0]
@@ -7402,8 +7850,10 @@ def main() -> int:
             check_no_fault(name, reserves0)
         return result
 
-    tab = timed("tablet", tablet_phase, kernels_built)
+    tab, table = timed("tablet", tablet_phase, kernels_built)
     kernels_built()
+    raft = timed("raft", raft_phase, table)
+    del table
 
     kernel_err = timed("kernel", kernel_phase)
     eng, flat = timed("engine", engine_phase)
@@ -7479,12 +7929,14 @@ def main() -> int:
         group_agg_entry(grp), *row_path_entries(rows, sources),
         *write_entries(eng["k12"], comp), full_entry(full),
         decode_entry()]
-    # The tablet phase's launches, on its own path.
+    # The tablet and raft phases' launches, each on its own path.
     for entry in kernels:
-        n = tab["launches"].get(entry["name"], 0)
-        if n:
-            entry["launches"] += n
-            entry.setdefault("launches_by_path", {})["tablet"] = n
+        for path, counts in (("tablet", tab["launches"]),
+                             ("raft", raft["launches"])):
+            n = counts.get(entry["name"], 0)
+            if n:
+                entry["launches"] += n
+                entry.setdefault("launches_by_path", {})[path] = n
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,9 @@ recovers by operator action; the breaker automates the quarantine and
 the recovery probe.
 
 ``degraded()`` and ``health_report()`` give the breakers currently not
-CLOSED; the JAX module's ``yb_engine_degraded`` gauge waits for the
-port's metrics registry (ROADMAP.md §1 item 16).
+CLOSED; the JAX module's ``yb_engine_degraded`` gauge is not wired to
+the port's metrics registry (``utils.metrics``) yet (ROADMAP.md §1 item
+16).
 
 What counts as a device fault is the caller's decision
 (``is_device_fault``): the JAX engine's tuple is ``(FaultInjected,

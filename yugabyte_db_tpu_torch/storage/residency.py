@@ -36,9 +36,9 @@ larger than the budget overflows it rather than failing the dispatch.
 
 This module imports no device framework: payloads are built by
 caller-supplied closures. The JAX module's Prometheus series
-(``yb_hbm_*``) and its resource-witness hooks wait for the port's metrics
-registry and analysis tools (ROADMAP.md §1 item 16); every number of
-those series is in ``stats()``.
+(``yb_hbm_*``) and its resource-witness pin hooks are not wired to the
+port's ``utils.metrics`` and ``utils.resources`` yet (ROADMAP.md §1 item
+16); every number of those series is in ``stats()``.
 """
 
 from __future__ import annotations

@@ -8,9 +8,9 @@ the storage engine has no WAL of its own, matching the reference's
 disabled-rocksdb-WAL design (consensus/README).
 
 The port's copy of the JAX package's ``tablet`` package: ``Tablet`` on the
-``gpu`` engine, its WAL, MVCC manager and retryable-request registry.
-Left out: ``TabletPeer`` and the consensus it drives, which come in later
-slices (ROADMAP.md §1 item 12).
+``gpu`` engine, its WAL, MVCC manager and retryable-request registry, and
+``TabletPeer``, one replica of a Raft group (``consensus``) over a
+``Tablet``.
 """
 
 from yugabyte_db_tpu_torch.tablet.mvcc import MvccManager
@@ -18,4 +18,13 @@ from yugabyte_db_tpu_torch.tablet.tablet import Tablet, TabletMetadata
 from yugabyte_db_tpu_torch.tablet.wal import Log, LogEntry, OpId
 
 __all__ = ["Log", "LogEntry", "MvccManager", "OpId", "Tablet",
-           "TabletMetadata"]
+           "TabletMetadata", "TabletPeer"]
+
+
+def __getattr__(name):
+    # Lazy: tablet_peer pulls in consensus, which itself builds on the WAL
+    # defined here — importing it eagerly would be a cycle.
+    if name == "TabletPeer":
+        from yugabyte_db_tpu_torch.tablet.tablet_peer import TabletPeer
+        return TabletPeer
+    raise AttributeError(name)

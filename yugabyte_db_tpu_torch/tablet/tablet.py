@@ -16,8 +16,9 @@ byte: the WAL segments, the run files, ``tablet-meta.json`` and the
 sidecars, so the port opens a directory the JAX tablet wrote (after its
 metadata names the ``gpu`` engine). ``TabletMetadata.engine`` defaults
 to ``"gpu"``: the JAX default, ``"cpu"``, is an engine the port does not
-register, and the field is always written out. ``TabletPeer`` (consensus) is not
-part of this slice (ROADMAP.md §1 item 12).
+register, and the field is always written out. A replicated tablet runs
+under ``TabletPeer`` (``tablet_peer.py``), whose ``consensus.RaftConsensus``
+owns the log (``consensus_managed``).
 """
 
 from __future__ import annotations

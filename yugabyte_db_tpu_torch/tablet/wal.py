@@ -13,11 +13,12 @@ Group commit: append() buffers; sync() writes+fsyncs once per batch —
 callers (the tablet's operation pipeline / Raft) batch many operations per
 sync, the reference's Log::AsyncAppend + TaskStream pattern.
 
-The port's copy of the JAX package's ``tablet/wal.py``: the segments are
-the JAX WAL's byte for byte (``utils.codec``), so either package replays
-the other's log. Left out: the sync-latency histogram, the stall watchdog
-around ``sync`` and the resource witness's ``note_blocking`` hooks, which
-wait for the port's metrics and analysis tools (ROADMAP.md §1 item 16).
+The port's copy of the JAX package's ``tablet/wal.py``, whole: the
+segments are the JAX WAL's byte for byte (``utils.codec``), so either
+package replays the other's log. ``sync`` records its latency in
+``yb_wal_sync_ms`` (``utils.metrics``) and runs under the stall watchdog
+(``wal.sync``); the fsyncs report to the resource witness
+(``utils.resources.note_blocking``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from __future__ import annotations
 import os
 import struct
 import threading
+import time
 import zlib
 from dataclasses import dataclass
 
@@ -123,6 +125,8 @@ class Log:
                 # Roll-over happens mid-append, so the old segment must be
                 # durable before the lock drops — a sync() racing past
                 # would only fsync the NEW file.
+                from yugabyte_db_tpu_torch.utils.resources import note_blocking
+                note_blocking("fsync")
                 os.fsync(self._file.fileno())
             self._file.close()
             self._file = None
@@ -165,27 +169,38 @@ class Log:
 
         if maybe_fault("fault.wal_sync_failed"):
             raise FaultInjected("injected WAL sync failure")
-        f = None
-        with self._lock:
-            if self._file is None and self._buffer:
-                self._open_segment_locked(max(1, self.last_appended.index))
-            self._flush_buffer_locked()
-            f = self._file
-            if f is not None:
-                # flush() stays under the lock: BufferedWriter is not
-                # thread-safe against a concurrent _flush_buffer_locked.
-                f.flush()
-        if f is not None and self.fsync:
-            try:
-                # fsync OUTSIDE the lock — the group-commit shape:
-                # appenders keep buffering into the next group while
-                # this one reaches disk.
-                os.fsync(f.fileno())
-            except (ValueError, OSError):
-                # A concurrent roll-over closed this segment after we
-                # snapshotted it; _close_file_locked flushed AND fsynced
-                # it before closing, so the group is durable anyway.
-                pass
+        from yugabyte_db_tpu_torch.utils.metrics import observe_wal_sync_ms
+        from yugabyte_db_tpu_torch.utils.watchdog import watchdog
+
+        # Standing stall check (reference: kernel_stack_watchdog.h):
+        # a wedged fsync surfaces as a flagged stall, not silence.
+        with watchdog().watch("wal.sync", threshold_s=2.0):
+            start = time.monotonic()
+            f = None
+            with self._lock:
+                if self._file is None and self._buffer:
+                    self._open_segment_locked(max(1, self.last_appended.index))
+                self._flush_buffer_locked()
+                f = self._file
+                if f is not None:
+                    # flush() stays under the lock: BufferedWriter is not
+                    # thread-safe against a concurrent _flush_buffer_locked.
+                    f.flush()
+            if f is not None and self.fsync:
+                try:
+                    from yugabyte_db_tpu_torch.utils.resources import (
+                        note_blocking)
+                    note_blocking("fsync")
+                    # fsync OUTSIDE the lock — the group-commit shape:
+                    # appenders keep buffering into the next group while
+                    # this one reaches disk.
+                    os.fsync(f.fileno())
+                except (ValueError, OSError):
+                    # A concurrent roll-over closed this segment after we
+                    # snapshotted it; _close_file_locked flushed AND fsynced
+                    # it before closing, so the group is durable anyway.
+                    pass
+            observe_wal_sync_ms((time.monotonic() - start) * 1e3)
 
     # -- read / replay -----------------------------------------------------
     def read_all(self, min_index: int = 0):

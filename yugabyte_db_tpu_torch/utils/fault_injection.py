@@ -10,8 +10,9 @@ production code marks fault points; tests arm them via flags.
     arm_fault_once("fault.gpu_dispatch")   # exactly one hit
 
 ``fault.seed`` (non-zero) seeds the probability draw so that a randomized
-run replays byte for byte. The JAX module's ``yb_faults_fired`` series
-waits for the port's metrics registry (ROADMAP.md §1 item 16).
+run replays byte for byte, and every fault that fires bumps
+``yb_faults_fired{name=...}`` on the process registry (``utils.metrics``),
+as in the JAX module.
 """
 
 from __future__ import annotations
@@ -37,6 +38,12 @@ def clear_faults() -> None:
         _once.clear()
 
 
+def _count_fired(name: str) -> None:
+    from yugabyte_db_tpu_torch.utils.metrics import count_fault_fired
+
+    count_fault_fired(name)
+
+
 def _maybe_reseed_locked() -> None:
     """Fold a changed ``fault.seed`` flag into the RNG (0 = unseeded).
     Lazy so ``FLAGS.set("fault.seed", s)`` takes effect at the next
@@ -57,11 +64,13 @@ def _maybe_reseed_locked() -> None:
 def maybe_fault(name: str) -> bool:
     """True when the named fault should fire. Checks armed one-shot
     hits first, then the flag ``name`` as a probability in [0, 1]
-    (unknown flag = 0: disabled)."""
+    (unknown flag = 0: disabled). Every fire counts in
+    ``yb_faults_fired{name=...}``."""
     with _lock:
         n = _once.get(name, 0)
         if n > 0:
             _once[name] = n - 1
+            _count_fired(name)
             return True
     from yugabyte_db_tpu_torch.utils.flags import FLAGS
 
@@ -73,7 +82,10 @@ def maybe_fault(name: str) -> bool:
         return False
     with _lock:
         _maybe_reseed_locked()
-        return _rng.random() < p
+        fired = _rng.random() < p
+    if fired:
+        _count_fired(name)
+    return fired
 
 
 class FaultInjected(Exception):

@@ -3,9 +3,10 @@
 Reference analog: src/yb/util/status.h. The port's copy of the part of the
 JAX package's ``utils/status.py`` that the tablet and the engine read: the
 ``Code`` enum, the ``Status`` value, the ``StatusError`` exception carrying
-one, and ``AlreadyPresent`` (the tablet's ``if_not_exists`` write). Left
-out: the other exception classes and the ``Status`` constructors, which
-only the RPC and query layers use (ROADMAP.md §1 item 16).
+one, ``AlreadyPresent`` (the tablet's ``if_not_exists`` write) and
+``TabletSplit`` (the tablet peer's writes to a sealed tablet). Left out:
+the other exception classes and the ``Status`` constructors, which only
+the RPC and query layers use (ROADMAP.md §1 item 16).
 """
 
 from __future__ import annotations
@@ -78,3 +79,18 @@ class StatusError(Exception):
 class AlreadyPresent(StatusError):
     def __init__(self, message: str):
         super().__init__(Status(Code.ALREADY_PRESENT, message))
+
+
+class TabletSplit(StatusError):
+    """The addressed tablet has been sealed for (or replaced by) a
+    split: the caller's location entry is stale at TABLET granularity.
+    Carries the split tablet's id so the client can invalidate exactly
+    that entry and re-plan from fresh locations (reference: the
+    TABLET_SPLIT error of tserver_error.h driving per-tablet meta-cache
+    invalidation in client-side LookupRpc retries)."""
+
+    def __init__(self, tablet_id: str):
+        super().__init__(Status(Code.ILLEGAL_STATE,
+                                f"tablet {tablet_id} has been split",
+                                {"tablet_id": tablet_id}))
+        self.tablet_id = tablet_id
