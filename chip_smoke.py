@@ -25,8 +25,9 @@ line is printed:
 1c. raft (``raft_phase``): three ``TabletPeer``s (``node-0..2``) of the
    port over its ``LocalTransport``, each its own ``gpu`` engine in a
    temporary data directory (fsync on, the default ``RaftOptions``), on
-   the tablet phase's rows, updates and oracle: a leader elected with a
-   lease, 50 writes of 10,000 rows and the 20,000 updates (100 a write)
+   the tablet phase's rows and the first 10,000 of its updates
+   (RAFT_UPDATES) with their oracle: a leader elected with a lease, 50
+   writes of 10,000 rows and the 10,000 updates (100 a write)
    through it, retried on ``NotLeader`` as a client does (rows/s, the
    commit latency's p50 and p99), each replica's ``TabletPeer.flush``
    (the device route, its run saved), the headline batch and 256 YCSB-E
@@ -39,6 +40,31 @@ line is printed:
    the terms and any election besides the deliberate one printed, every
    launch counted, K12, K7 and K9 held against their plain versions
    (``raft`` line, ``--raft`` alone);
+1d. tserver (``tserver_phase``): three tablet server daemons of the port
+   (``ts-0..2``), each its own OS process (``python3 chip_smoke.py
+   --tserver-daemon <server.daemon_main arguments>``: the port's
+   ``daemon_main`` with the launch counters, the K12 / K7 / K9 holds,
+   the breakers, a count of ``install_snapshot`` calls and of the GC's
+   full collections installed; a JSON record written on SIGTERM) on
+   loopback ports, fsync on, the default ``RaftOptions``, serve one RF-3
+   tablet of the bench table at TSERVER_KEYS (100,000) keys; the smoke is
+   their master and client through the port's ``SocketTransport``:
+   ``ts.create_tablet`` to each, writes of 10,000 rows and 5,000 zipfian
+   updates (100 a write) through ``ts.write`` to the leader the client
+   cached (rows/s and the write RPC's round trip p50 / p99, the bodies
+   encoded before the timed loop), a duplicate (client_id, request_id) answering the original
+   hybrid time, ``ts.flush`` on each (K12) and equal ``ts.checksum``s,
+   the headline batch (``ts.scan_batch``: K1 and the resolve) and 256
+   YCSB-E pages (``ts.scan_wire_batch``, "cql": K7) on the leader, the
+   leader's process SIGKILLed (ms to a new leader that serves), an
+   acknowledged update re-sent to the new leader (its original hybrid
+   time), 30 writes of 100 rows and 256 pages over them unflushed (K9),
+   the survivors' flush, the killed daemon restarted on its data
+   directory and re-seeded by exactly one remote-bootstrap install (the
+   catch-up, its checksum, its headline batch as leader after
+   ``ts.transfer_leadership``), SIGTERM: every record must show no
+   plain-version mismatch, no re-serve, no trip (``tserver`` line,
+   ``--tserver`` alone);
 2. kernel: 16,777,216 rows at R = 2048 of flat-run planes made from a
    numpy seed (~5% tombstones, NULLs, unset values, expired TTLs, invalid
    rows, values at the i32 and i64 extremes, an all-NULL and a never-set
@@ -302,11 +328,14 @@ for K11 on the compact phase's union and on it at 42 columns
 51fb244:yugabyte_db_tpu_torch/csrc/compact.cu > build/ab/compact_first.cu``.
 ``--run-io`` builds no kernel: on the card's host it times a run file of
 the bench table's TABLET_KEYS rows (one version each, as the tablet's
-flush saves them) written and read by the codec's record functions
-(``codec.encode_run`` / ``decode_run``) against the generic codec over
-the record lists (``codec.encode`` / ``decode`` and the RowVersion
-constructor, the JAX module's way), each in turns, the bytes and the
-versions equal (``run_io`` line), and exits.
+flush saves them) written and read by ``codec.encode_run`` /
+``decode_run`` over the native codec and over the pure-Python codec
+(their route where the native one cannot be built or overflows), and a
+10,000-row WAL body through the native and the pure-Python codec, each in turns, the
+bytes and the versions equal (``run_io`` line), and exits.
+
+Every mode first checks that the port's native codec loaded (``codec:
+native``).
 """
 
 from __future__ import annotations
@@ -6948,51 +6977,63 @@ def stamped_batch(rows, ht: int) -> list:
 
 def run_io_speed(reps: int = 2) -> dict:
     """A run file of the bench table's TABLET_KEYS rows (one version a
-    key), encoded and decoded by the codec's record functions and by the
-    generic codec over the record lists, in turns (``reps`` each, GC
-    paused as ``run_io.load_run`` pauses it); the bytes and the versions
-    must be equal. Host seconds, no fsync."""
+    key), encoded and decoded by ``codec.encode_run`` / ``decode_run`` in
+    turns over the native codec and over the pure-Python codec (their
+    route where the native one cannot be built or overflows); and the WAL
+    body of a 10,000-row write (``wire.encode_rows`` inside the WAL
+    record) through the native and the pure-Python generic codec. ``reps``
+    each, GC paused as ``run_io.load_run`` pauses it; the bytes and the
+    versions must be equal. Host seconds, no fsync."""
     import gc
 
     from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage import wire
     from yugabyte_db_tpu_torch.storage.row_version import RowVersion
     from yugabyte_db_tpu_torch.utils import codec
 
+    check(codec.native_loaded(), "run_io: the native codec did not load")
     schema = workload.make_schema()
     rows, _ = bench_rows(schema, TABLET_KEYS)
     entries = sorted(((r.key, [r]) for r in rows), key=lambda e: e[0])
+    record = [3, 17, 1 << 50, "write", wire.encode_rows(rows[:TABLET_BATCH])]
 
-    def generic_encode():
-        return codec.encode(["run1", [
-            [k, [[v.ht, v.tombstone, v.liveness,
-                  {str(c): x for c, x in v.columns.items()}, v.expire_ht,
-                  v.write_id] for v in vs]] for k, vs in entries]])
+    def pure(fn):
+        """``fn`` with the codec's native module set aside."""
+        def run():
+            nat, codec._native = codec._native, None
+            try:
+                return fn()
+            finally:
+                codec._native = nat
+        return run
 
-    def generic_decode(buf):
-        _magic, payload = codec.decode(buf)
-        return [(k, [RowVersion(k, ht=r[0], tombstone=r[1], liveness=r[2],
-                                columns={int(c): x
-                                         for c, x in r[3].items()},
-                                expire_ht=r[4], write_id=r[5])
-                     for r in recs]) for k, recs in payload]
-
-    times: dict = {"encode_run": [], "encode": [], "decode_run": [],
-                   "decode": []}
+    routes = {"encode_run_native": lambda: codec.encode_run("run1", entries),
+              "encode_run_python": pure(lambda: codec.encode_run("run1",
+                                                                 entries)),
+              "wal_encode_native": lambda: codec.encode(record),
+              "wal_encode_python": lambda: codec._py_encode(record)}
+    times: dict = {k: [] for k in (*routes, "decode_run_native",
+                                   "decode_run_python", "wal_decode_native",
+                                   "wal_decode_python")}
     gc.collect()
     gc.disable()
     try:
         for _ in range(reps):
-            for name, fn in (("encode_run",
-                              lambda: codec.encode_run("run1", entries)),
-                             ("encode", generic_encode)):
+            out = {}
+            for name, fn in routes.items():
                 t = time.perf_counter()
-                buf = fn()
+                out[name] = fn()
                 times[name].append(time.perf_counter() - t)
-            check(buf == codec.encode_run("run1", entries),
-                  "encode_run's bytes differ from the generic codec's")
-            for name, fn in (("decode_run", lambda: codec.decode_run(
+            buf = out["encode_run_native"]
+            check(buf == out["encode_run_python"],
+                  "run_io: the native run file's bytes differ")
+            check(out["wal_encode_native"] == out["wal_encode_python"],
+                  "run_io: the native WAL body's bytes differ")
+            for name, fn in (("decode_run_native", lambda: codec.decode_run(
                     buf, "run1", RowVersion.stored)),
-                             ("decode", lambda: generic_decode(buf))):
+                             ("decode_run_python", pure(
+                                 lambda: codec.decode_run(
+                                     buf, "run1", RowVersion.stored)))):
                 t = time.perf_counter()
                 got = fn()
                 times[name].append(time.perf_counter() - t)
@@ -7001,13 +7042,25 @@ def run_io_speed(reps: int = 2) -> dict:
                       and got[-1][1][0] == entries[-1][1][0],
                       f"{name}: the versions differ")
                 del got
+            body = out["wal_encode_native"]
+            for name, fn in (("wal_decode_native", lambda: codec.decode(body)),
+                             ("wal_decode_python",
+                              lambda: codec._py_decode(body))):
+                t = time.perf_counter()
+                got = fn()
+                times[name].append(time.perf_counter() - t)
+                check(got == record, f"{name}: the record differs")
+            del out
     finally:
         gc.enable()
     best = {k: min(v) for k, v in times.items()}
     out = {"card": nvidia_smi(), "versions": len(entries),
-           "bytes": len(buf), "s_each": times,
-           "encode_speedup": best["encode"] / best["encode_run"],
-           "decode_speedup": best["decode"] / best["decode_run"]}
+           "bytes": len(buf), "wal_body_rows": TABLET_BATCH,
+           "wal_body_bytes": len(body), "s_each": times,
+           "speedup_native": {
+               k: best[f"{k}_python"] / best[f"{k}_native"]
+               for k in ("encode_run", "decode_run", "wal_encode",
+                         "wal_decode")}}
     print("run_io " + json.dumps(out))
     return out
 
@@ -7322,6 +7375,9 @@ def tablet_phase(device, bw: float, rate: float, ready=None) -> tuple:
 RAFT_NODES = ("node-0", "node-1", "node-2")
 RAFT_FAILOVER_KEYS = 1_000    # keys written through the new leader, unflushed
 RAFT_WAIT_S = 60.0            # the longest wait for a leader, lease or apply
+RAFT_UPDATES = 10_000         # the first of the tablet phase's updates
+                              # (all TABLET_UPDATES before the smoke's time
+                              # budget cut them)
 
 
 def wait_until(pred, what: str, timeout: float = RAFT_WAIT_S):
@@ -7471,16 +7527,17 @@ def stamped_oracle(schema, rows, updates) -> "TabletOracle":
     return TabletOracle(schema, stamped, ups)
 
 
-def failover_rows(schema, rows, oracle, seed: int = 59) -> tuple:
-    """RAFT_FAILOVER_KEYS whole-row writes to existing keys of ``rows``
-    (new a, c and d), and ``oracle`` with them applied (a copy)."""
+def failover_rows(schema, rows, oracle, seed: int = 59,
+                  n: int = RAFT_FAILOVER_KEYS) -> tuple:
+    """``n`` whole-row writes to existing keys of ``rows`` (new a, c and
+    d), and ``oracle`` with them applied (a copy)."""
     import copy
 
     from yugabyte_db_tpu_torch.storage.row_version import RowVersion
 
     rng = random.Random(seed)
     cid = oracle.cid
-    picks = rng.sample(range(len(rows)), RAFT_FAILOVER_KEYS)
+    picks = rng.sample(range(len(rows)), n)
     writes = [RowVersion(rows[i].key, ht=0, liveness=True, columns={
         cid["a"]: rng.randrange(-10**12, 10**12),
         cid["c"]: rng.uniform(-1e6, 1e6),
@@ -7502,10 +7559,11 @@ def failover_rows(schema, rows, oracle, seed: int = 59) -> tuple:
 def raft_phase(device, bw: float, rate: float, table=None) -> dict:
     """A three-replica Raft group (``RaftGroup``) of the port's
     ``TabletPeer``s on the ``gpu`` engine on ``table``, the tablet
-    phase's schema, rows, updates and oracle (made here, the oracle by
-    ``stamped_oracle``, when it is None: the phase alone): an election
-    with a lease, the writes of 10,000 rows (TABLET_BATCH) and the
-    zipfian updates (100 a write) through the leader, each replica's
+    phase's schema, rows and updates (made here when it is None: the
+    phase alone), the first RAFT_UPDATES of the updates and their oracle
+    (``stamped_oracle``): an election with a lease, the writes of the
+    rows, TABLET_BATCH a write, and the updates (100 a write) through
+    the leader, each replica's
     flush (the device route, its run saved), the headline batch
     and YCSB-E pages on the leader (lease) and the headline batch on each
     follower (stale, once it applied the leader's commit index), the
@@ -7544,14 +7602,14 @@ def raft_phase(device, bw: float, rate: float, table=None) -> dict:
     gcp = GcPauses().__enter__()
     card = nvidia_smi()
     if table is not None:
-        schema, rows, updates, oracle = (
-            table.schema, table.rows, table.updates, table.oracle)
+        schema, rows = table.schema, table.rows
+        updates = table.updates[:RAFT_UPDATES]
     else:
         schema = workload.make_schema()
         rows, max_ht = bench_rows(schema, TABLET_KEYS)
         updates, _ = workload.make_update_rows(schema, rows, max_ht,
-                                               TABLET_UPDATES)
-        oracle = stamped_oracle(schema, rows, updates)
+                                               RAFT_UPDATES)
+    oracle = stamped_oracle(schema, rows, updates)
     writes, after = failover_rows(schema, rows, oracle)
     # The client's rows and the oracle stand for another process: out of
     # the cyclic GC's full collections, which stop every Raft thread.
@@ -7741,17 +7799,687 @@ def raft_phase(device, bw: float, rate: float, table=None) -> dict:
     return parts
 
 
+# -- the tserver phase: three tablet server daemons over loopback sockets ----
+
+TSERVER_NODES = ("ts-0", "ts-1", "ts-2")
+TSERVER_KEYS = 100_000        # rows of the bench table (200,000 before the
+                              # smoke's time budget cut it): the
+                              # remote-bootstrap payload ships them in one
+                              # RPC frame
+TSERVER_UPDATES = 5_000       # zipfian one-field updates, 100 a write
+TSERVER_AFTER_WRITES = 30     # writes of 100 rows through the new leader
+TSERVER_TABLET = "bench-ts"
+TSERVER_RECORD = "smoke-record.json"  # a daemon's record, in its data dir
+TSERVER_WAIT_S = 120.0        # the longest wait for a daemon or a leader
+
+
+def tserver_daemon(argv: list) -> int:
+    """``python3 chip_smoke.py --tserver-daemon <daemon_main arguments>``:
+    one tablet server daemon of the tserver phase, the port's
+    ``server.daemon_main.main`` with the smoke's instruments installed in
+    this process first: the launch counters (zeroed), K12 held by a
+    WriteLog and K7 / K9 by a LaunchLog, every breaker at threshold 1 with
+    its host re-serves counted, the calls of
+    ``TSTabletManager.install_snapshot`` and the cyclic GC's full
+    collections. The smoke's method ``smoke.record`` (answered here, ahead
+    of the tablet server's handlers) holds the launches recorded so far
+    against their plain versions and returns the record; the parent asks
+    for it before it kills the daemon. On SIGTERM ``main`` returns, and
+    the final record is written to ``TSERVER_RECORD`` in the data
+    directory."""
+    import gc
+    import os
+
+    from yugabyte_db_tpu_torch.server import daemon_main
+    from yugabyte_db_tpu_torch.storage import breaker
+    from yugabyte_db_tpu_torch.tserver import tablet_manager, tablet_server
+    from yugabyte_db_tpu_torch.utils import codec
+
+    data_dir = argv[argv.index("--data-dir") + 1]
+    configure_breakers()
+    watch_host_reserves()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    wlog = write_log()
+    rlog = LaunchLog().__enter__()
+    installs: list = []
+    sized: list = []  # (install, payload) whose bytes record() counts
+    held = {"replay_flush": 0, "gather_rows": 0, "scan_candidates": 0,
+            "mismatch": None}
+    mgr_cls = tablet_manager.TSTabletManager
+    install = mgr_cls.install_snapshot
+
+    def counted(self, tablet_id, payload):
+        before = self.bootstrap_installs
+        t0 = time.perf_counter()
+        install(self, tablet_id, payload)
+        installs.append({"term": payload["term"],
+                         "installed": self.bootstrap_installs > before,
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "runs": len(payload["runs"]),
+                         "payload_bytes": None})
+        sized.append((installs[-1], payload))
+
+    mgr_cls.install_snapshot = counted
+    gc.collect()
+    gcp = GcPauses().__enter__()
+
+    def record() -> dict:
+        # The payload's frame bytes, counted here, out of the install's
+        # handler and the catch-up that the parent times.
+        while sized:
+            rec, payload = sized.pop()
+            rec["payload_bytes"] = len(codec.encode(payload))
+        try:
+            held["replay_flush"] += wlog.verify_flushes()
+            rows = rlog.verify()
+            held["gather_rows"] += rows["gather_rows"]
+            held["scan_candidates"] += rows["scan_candidates"]
+        except Exception as e:  # noqa: BLE001 — the parent fails on it
+            held["mismatch"] = f"{type(e).__name__}: {e}"
+        return {"codec_native": codec.native_loaded(),
+                "launches": {n: fn.launches for n, fn in counters.items()},
+                "installs": list(installs), "gc": gcp.summary(),
+                "host_reserves": _HOST_RESERVES[0],
+                "breakers": [[b.name, b.state, b.trips]
+                             for b in list(breaker._BREAKERS)],
+                "held": dict(held)}
+
+    handle = tablet_server.TabletServer.handle
+
+    def handle_smoke(self, method, payload):
+        if method == "smoke.record":
+            return record()
+        return handle(self, method, payload)
+
+    tablet_server.TabletServer.handle = handle_smoke
+    rc = daemon_main.main(argv)
+    rec = dict(record(), rc=rc)
+    gcp.__exit__()
+    rlog.__exit__()
+    tmp = os.path.join(data_dir, TSERVER_RECORD + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(rec, f)
+    os.replace(tmp, os.path.join(data_dir, TSERVER_RECORD))
+    return rc
+
+
+def free_ports(n: int) -> list:
+    """``n`` loopback ports no socket holds now."""
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class TserverCluster:
+    """Three daemons of ``tserver_daemon`` (RF 3, fsync on, the default
+    ``RaftOptions`` and plane encoding) in data directories under
+    ``root``, on loopback ports; the smoke is their master and their
+    client, through the port's ``SocketTransport``."""
+
+    def __init__(self, root: str, device: str):
+        import os
+
+        from yugabyte_db_tpu_torch.rpc import SocketTransport
+
+        self.root, self.device = root, device
+        ports = free_ports(len(TSERVER_NODES))
+        self.addr = {u: ("127.0.0.1", p) for u, p in zip(TSERVER_NODES,
+                                                         ports)}
+        self.topology = ",".join(f"{u}=127.0.0.1:{p}"
+                                 for u, p in zip(TSERVER_NODES, ports))
+        self.transport = SocketTransport()
+        for u, (h, p) in self.addr.items():
+            self.transport.set_address(u, h, p)
+        self.procs: dict = {}
+        self.retries = 0  # RPCs to the leader retried (not_leader, timed_out)
+        self.cached = None  # the leader last found, as a client caches it
+        self.last_ms = 0.0  # the round trip of on_leader's answered RPC
+        self.lives = {u: 0 for u in TSERVER_NODES}
+        self.dirs = {u: os.path.join(root, u) for u in TSERVER_NODES}
+
+    def start(self, uuid: str) -> None:
+        import os
+
+        self.lives[uuid] += 1
+        log = open(os.path.join(self.root, f"{uuid}.{self.lives[uuid]}.log"),
+                   "w")
+        self.procs[uuid] = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--tserver-daemon",
+             "--role", "tserver", "--uuid", uuid, "--data-dir",
+             self.dirs[uuid], "--topology", self.topology, "--masters",
+             "m-0", "--device", self.device],
+            stdout=log, stderr=subprocess.STDOUT,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        log.close()
+
+    def log_tail(self, uuid: str) -> str:
+        import os
+
+        path = os.path.join(self.root, f"{uuid}.{self.lives[uuid]}.log")
+        with open(path) as f:
+            return f.read()[-3000:]
+
+    def call(self, uuid: str, method: str, payload: dict,
+             timeout: float = 60.0) -> dict:
+        return self.transport.send(uuid, method, payload, timeout=timeout)
+
+    def wait_up(self, uuid: str) -> None:
+        from yugabyte_db_tpu_torch.rpc import TransportError
+
+        def up():
+            try:
+                return self.call(uuid, "ts.status", {})["uuid"] == uuid
+            except TransportError:
+                check(self.procs[uuid].poll() is None,
+                      f"tserver: daemon {uuid} exited "
+                      f"{self.procs[uuid].returncode}:\n"
+                      f"{self.log_tail(uuid)}")
+                return False
+        wait_until(up, f"daemon {uuid} to serve", TSERVER_WAIT_S)
+
+    def raft(self, uuid: str) -> dict | None:
+        """The tablet's raft stats on ``uuid`` (None while it has no
+        replica of the tablet, say mid-install)."""
+        st = self.call(uuid, "ts.status", {})["tablets"]
+        t = st.get(TSERVER_TABLET)
+        return t["raft"] if t is not None else None
+
+    def leader(self, exclude=()) -> str:
+        """The daemon whose replica leads with a lease (a scan on it
+        answers), found anew and cached."""
+        from yugabyte_db_tpu_torch.storage import wire
+        from yugabyte_db_tpu_torch.storage.scan_spec import ScanSpec
+
+        probe = wire.encode_spec(ScanSpec(limit=1))
+
+        def ready():
+            for u in TSERVER_NODES:
+                if u in exclude or self.procs.get(u) is None:
+                    continue
+                try:
+                    r = self.raft(u)
+                    if r is None or r["role"] != "LEADER":
+                        continue
+                    resp = self.call(u, "ts.scan", {
+                        "tablet_id": TSERVER_TABLET, "spec": probe})
+                except Exception:  # noqa: BLE001 — a daemon going down
+                    continue
+                if resp.get("code") == "ok":
+                    return u
+            return None
+        self.cached = wait_until(ready, "a tserver leader with a lease",
+                                 TSERVER_WAIT_S)
+        return self.cached
+
+    def lead(self, exclude=()) -> str:
+        """The cached leader (a client's MetaCache), found anew only when
+        there is none, it is excluded or its process is gone."""
+        u = self.cached
+        if u is None or u in exclude or self.procs.get(u) is None:
+            u = self.leader(exclude)
+        return u
+
+    def on_leader(self, method: str, payload: dict, exclude=()) -> tuple:
+        """(reply, leader uuid) of one RPC to the cached leader, which is
+        found anew after ``not_leader``, ``timed_out`` or a transport error
+        and the RPC retried, as a client does; ``retries`` counts the
+        retries and ``last_ms`` is the round trip of the RPC that
+        answered."""
+        from yugabyte_db_tpu_torch.rpc import TransportError
+
+        t_end = time.monotonic() + TSERVER_WAIT_S
+        while True:
+            u = self.lead(exclude)
+            t0 = time.perf_counter()
+            try:
+                resp = self.call(u, method, dict(payload,
+                                                 tablet_id=TSERVER_TABLET))
+            except TransportError as e:
+                resp = {"code": "transport_error", "error": str(e)}
+            self.last_ms = (time.perf_counter() - t0) * 1e3
+            if resp.get("code") not in ("not_leader", "timed_out",
+                                        "transport_error"):
+                check(resp.get("code") == "ok",
+                      f"tserver: {method} on {u}: {resp}")
+                return resp, u
+            self.cached = None
+            self.retries += 1
+            check(time.monotonic() < t_end,
+                  f"tserver: {method} kept failing: {resp}")
+            time.sleep(0.01)
+
+    def flush(self, uuids) -> dict:
+        """``ts.flush`` on each daemon of ``uuids``, all at once (one
+        process each): {uuid: the ms its flush took}."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        def one(u):
+            t0 = time.perf_counter()
+            resp = self.call(u, "ts.flush", {"tablet_id": TSERVER_TABLET},
+                             timeout=300.0)
+            check(resp == {"code": "ok"}, f"tserver: ts.flush on {u}: {resp}")
+            return (time.perf_counter() - t0) * 1e3
+
+        with ThreadPoolExecutor(len(uuids)) as pool:
+            return dict(zip(uuids, pool.map(one, uuids)))
+
+    def terms(self) -> dict:
+        out = {}
+        for u in TSERVER_NODES:
+            if self.procs.get(u) is None or self.procs[u].poll() is not None:
+                continue
+            r = self.raft(u)
+            if r is not None:
+                out[u] = r["term"]
+        return out
+
+    def kill(self, uuid: str) -> None:
+        """SIGKILL: the daemon crashes, no record is written."""
+        p = self.procs.pop(uuid)
+        p.kill()
+        p.wait(timeout=60)
+
+    def stop_all(self) -> dict:
+        """SIGTERM every daemon; {uuid: exit code}."""
+        import signal
+
+        for p in self.procs.values():
+            p.send_signal(signal.SIGTERM)
+        codes = {}
+        for u, p in self.procs.items():
+            try:
+                codes[u] = p.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes[u] = p.wait(timeout=60)
+        self.procs = {}
+        return codes
+
+    def close(self) -> None:
+        """Kill whatever still runs (a failed phase)."""
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        self.procs = {}
+        self.transport.close()
+
+
+def tserver_headline(cl, oracle, label: str, uuid=None,
+                     prop: int = 0) -> dict:
+    """The headline 32-spec batch through ``ts.scan_batch`` (on the leader,
+    or on ``uuid``), each answer held against ``oracle`` (an
+    ``Oracle``); the round trip timed."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage import wire
+
+    lits = [-500_000 - 7 * i for i in range(BATCH)]
+    specs = [wire.encode_spec(workload.headline_spec(wire.MAX_HT, lo))
+             for lo in lits]
+    payload = {"specs": specs, "propagated_ht": prop, "timeout": 60.0}
+    t0 = time.perf_counter()
+    if uuid is None:
+        resp, uuid = cl.on_leader("ts.scan_batch", payload)
+    else:
+        resp = cl.call(uuid, "ts.scan_batch",
+                       dict(payload, tablet_id=TSERVER_TABLET))
+        check(resp.get("code") == "ok", f"tserver {label}: {resp}")
+    ms = (time.perf_counter() - t0) * 1e3
+    for lo, r in zip(lits, resp["results"]):
+        check(tuple(r["rows"][0]) == oracle.headline(lo),
+              f"tserver {label}: headline d >= {lo}: {r['rows'][0]} != "
+              f"{oracle.headline(lo)}")
+    return {"on": uuid, "batch_ms": ms, "specs": BATCH}
+
+
+def tserver_pages(cl, oracle, label: str, seed: int, prop: int) -> dict:
+    """TABLET_PAGES YCSB-E pages through ``ts.scan_wire_batch`` in "cql" on
+    the leader, each page's bytes equal to ``models.wirefmt``'s
+    serialization of the oracle's rows and its resume key the oracle's."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.models import wirefmt
+    from yugabyte_db_tpu_torch.storage import ScanSpec, wire
+
+    schema = workload.make_schema()
+    specs = workload.ycsb_e_batch(schema, TSERVER_KEYS, wire.MAX_HT,
+                                  random.Random(seed), TABLET_PAGES)
+    proj = ["k", "r", "a", "d"]
+    specs = [ScanSpec(lower=s.lower, read_ht=wire.MAX_HT,
+                      predicates=s.predicates, projection=proj,
+                      limit=s.limit) for s in specs]
+    dts = [schema.column(n).dtype for n in proj]
+    t0 = time.perf_counter()
+    resp, uuid = cl.on_leader("ts.scan_wire_batch", {
+        "specs": [wire.encode_spec(s) for s in specs], "fmt": "cql",
+        "propagated_ht": prop, "timeout": 60.0})
+    ms = (time.perf_counter() - t0) * 1e3
+    for j, (pg, s) in enumerate(zip(resp["pages"], specs)):
+        rows, resume = oracle.page(s)
+        check(pg["nrows"] == len(rows) and pg["resume"] == resume,
+              f"tserver {label} page {j}: {pg['nrows']} rows, resume "
+              f"{pg['resume']!r}; oracle {len(rows)}, {resume!r}")
+        check(bytes(pg["data"]) == wirefmt.serialize_rows("cql", dts, rows),
+              f"tserver {label} page {j}: bytes differ from the oracle's")
+    return {"on": uuid, "pages": len(specs), "batch_ms": ms}
+
+
+def tserver_checksums(cl, uuids, label: str) -> dict:
+    """``ts.checksum`` of every daemon in ``uuids`` at the first one's read
+    point: all equal."""
+    first = cl.call(uuids[0], "ts.checksum", {"tablet_id": TSERVER_TABLET,
+                                              "timeout": 60.0})
+    check(first.get("code") == "ok", f"tserver {label}: {first}")
+    sums = {uuids[0]: first}
+    for u in uuids[1:]:
+        sums[u] = cl.call(u, "ts.checksum", {
+            "tablet_id": TSERVER_TABLET, "read_ht": first["read_ht"],
+            "timeout": 60.0})
+    got = {u: (r.get("code"), r.get("rows"), r.get("checksum"))
+           for u, r in sums.items()}
+    check(len(set(got.values())) == 1 and first["rows"] > 0,
+          f"tserver {label}: checksums differ: {got}")
+    return {"rows": first["rows"], "checksum": first["checksum"],
+            "replicas": len(sums)}
+
+
+def tserver_phase(device, bw: float, rate: float) -> dict:
+    """Three tablet server daemons of the port (``tserver_daemon``: the
+    port's ``server.daemon_main`` in its own OS process, on the card)
+    serve one RF-3 tablet of the bench table over loopback sockets; the
+    smoke plays master and client through the port's ``SocketTransport``
+    (``ts.create_tablet`` with the RF-3 config to each daemon). Writes of
+    10,000 rows and zipfian updates (100 a write) through the leader's
+    ``ts.write``; a duplicate (client_id, request_id) answers the original
+    hybrid time; ``ts.flush`` on every replica (K12) and equal
+    ``ts.checksum``s; the headline batch (``ts.scan_batch``: K1, the
+    resolve) and 256 YCSB-E pages (``ts.scan_wire_batch``: K7) on the
+    leader; the leader SIGKILLed (the ms to a new leader that serves), an
+    acknowledged update re-sent to the new one (its original hybrid time),
+    writes and pages over them unflushed (K9) through the new leader and
+    the survivors' flush; the killed daemon restarted on its data
+    directory and re-seeded by exactly one remote-bootstrap install (the
+    catch-up time, its checksum, its headline batch as leader after
+    ``ts.transfer_leadership``: K1 over the installed run); then SIGTERM:
+    every daemon's record (launches, plain-version holds, installs, GC
+    pauses). Every answer equals the exact oracle (``stamped_oracle``)."""
+    import os
+    import shutil
+    import tempfile
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage import wire
+    from yugabyte_db_tpu_torch.utils import codec
+
+    parts: dict = {}
+    steps: dict = {}
+    terms_at: dict = {}
+    mark = [time.perf_counter()]
+    cl = None
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - mark[0]
+        mark[0] = now
+        if cl is not None and cl.procs:
+            t = cl.terms()
+            terms_at[name] = max(t.values()) if t else None
+        print(f"tserver step {name}: {steps[name]:.1f} s, terms "
+              f"{terms_at.get(name)}", flush=True)
+
+    card = nvidia_smi()
+    schema = workload.make_schema()
+    rows, max_ht = bench_rows(schema, TSERVER_KEYS)
+    updates, _ = workload.make_update_rows(schema, rows, max_ht,
+                                           TSERVER_UPDATES)
+    oracle = stamped_oracle(schema, rows, updates)
+    after_writes, after = failover_rows(
+        schema, rows, oracle, seed=61,
+        n=TSERVER_AFTER_WRITES * TABLET_UPDATE_BATCH)
+    root = tempfile.mkdtemp(prefix="tserver-")
+    step("setup")
+    dev = "cuda" if device.type == "cuda" else "cpu"
+    cl = TserverCluster(root, dev)
+    records: dict = {}
+    try:
+        t0 = time.perf_counter()
+        for u in TSERVER_NODES:
+            cl.start(u)
+        for u in TSERVER_NODES:
+            cl.wait_up(u)
+        parts["daemons_up_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        create = {"tablet_id": TSERVER_TABLET, "table_name": "bench",
+                  "schema": schema.to_dict(), "partition_start": 0,
+                  "partition_end": 65536, "peers": list(TSERVER_NODES)}
+        for u in TSERVER_NODES:
+            check(cl.call(u, "ts.create_tablet", create) == {"code": "ok"},
+                  f"tserver: ts.create_tablet on {u}")
+        leader = cl.leader()
+        parts["leader_ms"] = (time.perf_counter() - t0) * 1e3
+        step("start")
+        # Writes of 10,000 rows, then the updates, 100 a write, each with
+        # the client's (client_id, request_id).
+        rid = [0]
+
+        def write(body, exclude=()):
+            rid[0] += 1
+            resp, _u = cl.on_leader("ts.write", {
+                "rows": body, "client_id": "smoke",
+                "request_id": rid[0], "timeout": 60.0}, exclude)
+            return rid[0], resp["ht"]
+
+        def bodies(src, n):
+            """``src`` in wire bodies of ``n`` rows, encoded before the
+            timed loop: the loops time the RPCs alone."""
+            return [wire.encode_rows(src[i:i + n])
+                    for i in range(0, len(src), n)]
+
+        last = None
+        batches = bodies(rows, TABLET_BATCH)
+        t0 = time.perf_counter()
+        for body in batches:
+            last = write(body)
+        s = time.perf_counter() - t0
+        parts["write"] = {"rows": len(rows), "writes": len(batches), "s": s,
+                          "rows_per_s": len(rows) / s}
+        lat = []
+        batches = bodies(updates, TABLET_UPDATE_BATCH)
+        t0 = time.perf_counter()
+        for body in batches:
+            last = write(body)
+            lat.append(cl.last_ms)
+        s = time.perf_counter() - t0
+        q = statistics.quantiles(lat, n=100, method="inclusive")
+        parts["updates"] = {"rows": len(updates), "writes": len(lat),
+                            "s": s, "rows_per_s": len(updates) / s,
+                            "rtt_p50_ms": statistics.median(lat),
+                            "rtt_p99_ms": q[98], "rtt_max_ms": max(lat)}
+        step("write")
+        # Exactly once: the last update re-sent with its ids.
+        resp, _u = cl.on_leader("ts.write", {
+            "rows": wire.encode_rows(updates[-TABLET_UPDATE_BATCH:]),
+            "client_id": "smoke", "request_id": last[0]})
+        check(resp["ht"] == last[1], f"tserver: the duplicate write "
+              f"answered {resp['ht']}, the original {last[1]}")
+        prop = last[1]
+        step("exactly_once")
+        # Every replica flushes (K12), and the checksums agree.
+        parts["flush_ms"] = cl.flush(TSERVER_NODES)
+        parts["checksum"] = tserver_checksums(cl, list(TSERVER_NODES),
+                                              "flushed")
+        check(parts["checksum"]["rows"] == int(oracle.exists.sum()),
+              f"tserver: {parts['checksum']['rows']} rows checksummed, "
+              f"{int(oracle.exists.sum())} exist")
+        step("flush")
+        parts["headline"] = tserver_headline(cl, oracle.headline(),
+                                             "leader", prop=prop)
+        parts["pages"] = tserver_pages(cl, oracle, "leader", 31, prop)
+        step("reads")
+        # The leader's process crashes.
+        leader = cl.leader()
+        terms_before = cl.terms()
+        first_life = cl.call(leader, "smoke.record", {}, timeout=300.0)
+        t0 = time.perf_counter()
+        cl.kill(leader)
+        new = cl.leader(exclude=(leader,))
+        parts["failover_ms"] = (time.perf_counter() - t0) * 1e3
+        parts["killed"], parts["new_leader"] = leader, new
+        resp, _u = cl.on_leader("ts.write", {
+            "rows": wire.encode_rows(updates[-TABLET_UPDATE_BATCH:]),
+            "client_id": "smoke", "request_id": last[0]}, (leader,))
+        check(resp["ht"] == last[1], f"tserver: the acknowledged update "
+              f"re-sent to the new leader answered {resp['ht']}, the "
+              f"original {last[1]}")
+        step("failover")
+        batches = bodies(after_writes, TABLET_UPDATE_BATCH)
+        t0 = time.perf_counter()
+        for body in batches:
+            last = write(body, (leader,))
+        parts["after_writes_s"] = time.perf_counter() - t0
+        prop = last[1]
+        parts["unflushed_pages"] = tserver_pages(cl, after, "unflushed", 47,
+                                                 prop)
+        parts["survivors_flush_ms"] = cl.flush(
+            [u for u in TSERVER_NODES if u != leader])
+        step("writes_after")
+        # The killed daemon restarts on its data directory: re-seeded by
+        # remote bootstrap.
+        t0 = time.perf_counter()
+        cl.start(leader)
+        cl.wait_up(leader)
+        parts["restart_up_ms"] = (time.perf_counter() - t0) * 1e3
+
+        def caught_up():
+            try:
+                r = cl.raft(leader)
+                lead = cl.raft(cl.lead(exclude=(leader,)))
+            except Exception:  # noqa: BLE001 — mid-install
+                return False
+            return r is not None and lead is not None and \
+                r["applied_index"] >= lead["commit_index"] - 1
+        wait_until(caught_up, "the restarted daemon's catch-up",
+                   TSERVER_WAIT_S)
+        parts["catch_up_ms"] = (time.perf_counter() - t0) * 1e3
+        parts["restarted_checksum"] = tserver_checksums(
+            cl, [cl.lead(), leader], "restarted")
+        check(parts["restarted_checksum"]["rows"] == int(after.exists.sum()),
+              f"tserver: {parts['restarted_checksum']['rows']} rows on the "
+              f"restarted daemon, {int(after.exists.sum())} exist")
+        step("restart")
+        t0 = time.perf_counter()
+        retry_at = [0.0]
+
+        def moved():
+            r = cl.raft(leader)
+            if r is not None and r["role"] == "LEADER":
+                return cl.leader() == leader  # it serves with a lease
+            if time.monotonic() >= retry_at[0]:  # asked again every 2 s
+                cl.call(cl.lead(exclude=(leader,)), "ts.transfer_leadership",
+                        {"tablet_id": TSERVER_TABLET, "target": leader})
+                retry_at[0] = time.monotonic() + 2.0
+            return False
+        wait_until(moved, "the restarted daemon's leadership",
+                   TSERVER_WAIT_S)
+        parts["transfer_ms"] = (time.perf_counter() - t0) * 1e3
+        parts["restarted_headline"] = tserver_headline(
+            cl, after.headline(), "restarted leader", uuid=leader, prop=prop)
+        step("transfer")
+        terms_end = cl.terms()
+        codes = cl.stop_all()
+        check(codes == {u: 0 for u in TSERVER_NODES},
+              f"tserver: the daemons exited {codes}")
+        for u in TSERVER_NODES:
+            path = os.path.join(cl.dirs[u], TSERVER_RECORD)
+            check(os.path.exists(path), f"tserver: {u} wrote no record:\n"
+                                        f"{cl.log_tail(u)}")
+            with open(path) as f:
+                records[u] = json.load(f)
+        step("stop")
+    finally:
+        cl.close()
+        shutil.rmtree(root, ignore_errors=True)
+    killed = parts["killed"]
+    lives = [*records.items(), (killed + " (killed)", first_life)]
+    for u, rec in lives:
+        check(rec["held"]["mismatch"] is None,
+              f"tserver: {u}: a kernel differs from its plain version: "
+              f"{rec['held']['mismatch']}")
+        check(rec["codec_native"] or not codec.native_loaded(),
+              f"tserver: {u} ran the Python codec")
+        check(rec["host_reserves"] == 0 and all(
+            st == "closed" and trips == 0 for _n, st, trips in
+            rec["breakers"]), f"tserver: {u} re-served or tripped: {rec}")
+    installs = [i for i in records[killed]["installs"] if i["installed"]]
+    check(len(installs) == 1,
+          f"tserver: the restarted daemon installed {installs}")
+    parts["bootstrap"] = installs[0]
+    # Installs on the daemons that never went down (reported, not a
+    # check: a leader whose log cache starts at its own install may re-seed
+    # a follower, as the JAX package's Raft does).
+    parts["other_installs"] = {
+        u: sum(i["installed"] for i in rec["installs"])
+        for u, rec in records.items() if u != killed}
+    launches: dict = {}
+    for _u, rec in lives:
+        for name, n in rec["launches"].items():
+            launches[name] = launches.get(name, 0) + n
+    for name in ("flat_agg", "mvcc_resolve", "row_gather", "scan_window",
+                 "replay_flush", "decode"):
+        check(launches[name] > 0,
+              f"the tserver phase launched {name} 0 times")
+    # Elections: the first, the deliberate two (the crash's and the
+    # transfer's), and any other; the terms each step added.
+    grew, prev = {}, terms_at["start"]
+    for name, term in terms_at.items():
+        if term is not None and prev is not None:
+            grew[name], prev = term - prev, term
+    check(max(terms_end.values()) > terms_before[killed],
+          "tserver: no new term after the leader's crash")
+    parts["elections_besides_the_deliberate"] = {
+        "total": sum(grew.values()) - 2,
+        "terms_added_by_step": {k: v for k, v in grew.items() if v}}
+    parts["terms"] = {"before_kill": terms_before, "end": terms_end}
+    parts["terms_after_step"] = terms_at
+    parts["daemons"] = {u: {"gc": rec["gc"], "held": rec["held"],
+                            "launches": {k: v for k, v in
+                                         rec["launches"].items() if v}}
+                        for u, rec in lives}
+    parts["not_leader_retries"] = cl.retries
+    parts["launches"] = launches
+    parts["steps_s"] = steps
+    parts["card"] = card
+    print(f"tserver bootstrap payload: {installs[0]['payload_bytes']} bytes, "
+          f"{installs[0]['runs']} keys in one RPC frame")
+    print("tserver " + json.dumps(parts))
+    return parts
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--tserver-daemon":
+        return tserver_daemon(sys.argv[2:])  # on its --device
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    from yugabyte_db_tpu_torch import native as host_native
     from yugabyte_db_tpu_torch.ops import native
+    from yugabyte_db_tpu_torch.utils import codec
 
     device = torch.device("cuda")
     card = nvidia_smi()
     print(card)  # nvidia-smi: name, power limit
+    check(codec.native_loaded(), f"the native codec did not load: "
+          f"{host_native.build_error}")
+    print(f"codec: native ({host_native.library_path().name})")
     bw = bandwidth(card)
     rate = int32_ops_per_s()
     print(f"bounds: {bw} bytes/s, {rate} int32 operations/s "
@@ -7839,6 +8567,9 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--raft":
         raft_phase(device, bw, rate)
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--tserver":
+        tserver_phase(device, bw, rate)
+        return 0
 
     def timed(name, phase, *args):
         reserves0 = _HOST_RESERVES[0]
@@ -7854,6 +8585,7 @@ def main() -> int:
     kernels_built()
     raft = timed("raft", raft_phase, table)
     del table
+    tsv = timed("tserver", tserver_phase)
 
     kernel_err = timed("kernel", kernel_phase)
     eng, flat = timed("engine", engine_phase)
@@ -7929,10 +8661,11 @@ def main() -> int:
         group_agg_entry(grp), *row_path_entries(rows, sources),
         *write_entries(eng["k12"], comp), full_entry(full),
         decode_entry()]
-    # The tablet and raft phases' launches, each on its own path.
+    # The tablet, raft and tserver phases' launches, each on its own path.
     for entry in kernels:
         for path, counts in (("tablet", tab["launches"]),
-                             ("raft", raft["launches"])):
+                             ("raft", raft["launches"]),
+                             ("tserver", tsv["launches"])):
             n = counts.get(entry["name"], 0)
             if n:
                 entry["launches"] += n

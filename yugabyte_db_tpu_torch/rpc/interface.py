@@ -8,9 +8,7 @@ integration, and the daemons all import the seam from rpc;
 implementations are ``LocalTransport`` (consensus.transport, in-process
 with fault injection) and ``SocketTransport`` (rpc.transport, real TCP).
 
-The port's copy of the JAX package's ``rpc/interface.py``. The port has
-``LocalTransport`` (consensus.transport) so far; the socket transport and
-the messenger come with the tserver (ROADMAP.md §1 item 12).
+The port's copy of the JAX package's ``rpc/interface.py``.
 """
 
 from __future__ import annotations

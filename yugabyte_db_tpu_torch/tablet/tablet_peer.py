@@ -12,9 +12,9 @@ follower reads are opt-in the same way).
 
 The port's copy of the JAX package's ``tablet/tablet_peer.py``, whole,
 over the port's ``Tablet`` (on the ``gpu`` engine by default) and its
-``consensus``. Left out of the port so far: installing a remote-bootstrap
-payload on the receiving replica, which the tablet server does
-(ROADMAP.md §1 item 12); ``snapshot_for_bootstrap`` builds the payload.
+``consensus``. ``snapshot_for_bootstrap`` builds the remote-bootstrap
+payload; the tablet server installs it on the receiving replica
+(``tserver.tablet_manager.TSTabletManager.install_snapshot``).
 """
 
 from __future__ import annotations

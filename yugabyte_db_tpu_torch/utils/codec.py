@@ -2,16 +2,19 @@
 
 Reference analog: protobuf serialization of consensus/log records
 (src/yb/consensus/consensus.proto, log.proto). The port's copy of the JAX
-package's ``utils/codec.py``, the pure-Python encoder and decoder only
-(the JAX module's fallback when its native ``yb_codec`` is missing): the
-bytes are the JAX codec's, so a WAL segment or a run file written by
-either package reads in the other. The native codec waits for ROADMAP.md
-§1 item 16. The Python here is written for speed (dispatch on the value's
-exact type, small integers' encodings precomputed, varints inline) and
-gives the JAX module's bytes, which ``tests/test_torch_wal.py`` holds.
-``encode_run`` / ``decode_run`` give and read a run file's records
-(``storage/run_io.py``) straight from and into version objects, the same
-bytes as ``encode`` / ``decode`` of the record lists.
+package's ``utils/codec.py``: ``encode`` and ``decode`` dispatch to the
+port's native ``yb_codec`` (``native/codec.cc``, built at the first call
+by ``yugabyte_db_tpu_torch.native``) when it loads, as the JAX module
+dispatches to its own, and take the pure-Python path for an integer wider
+than 64 bits (the native codec's ``OverflowError``) and wherever the
+native codec cannot be built. The pure-Python encoder and decoder
+(``_py_encode`` / ``_py_decode``) are its plain version; either gives the
+JAX codec's bytes, so a WAL segment or a run file written by either
+package reads in the other. The Python is written for speed (dispatch on
+the value's exact type, small integers' encodings precomputed, varints
+inline). ``encode_run`` / ``decode_run`` give and read a run file's
+records (``storage/run_io.py``) from and into version objects through
+``encode`` / ``decode`` of the record lists.
 
 Wire grammar (tag byte, then payload):
   N 0x00 | T 0x01 | F 0x02 | I 0x03 varint(zigzag) | D 0x04 8B f64 LE
@@ -153,10 +156,41 @@ def _encode_other(out: bytearray, v) -> None:
         out += comp
 
 
-def encode(v) -> bytes:
+def _py_encode(v) -> bytes:
     out = bytearray()
     _encode_into(out, v)
     return bytes(out)
+
+
+# The native module: _UNRESOLVED until the first encode or decode resolves
+# it (importing this module builds nothing), then the module or None.
+_UNRESOLVED = object()
+_native = _UNRESOLVED
+
+
+def _resolve_native():
+    global _native
+    from yugabyte_db_tpu_torch import native
+
+    _native = native.yb_codec()
+    return _native
+
+
+def native_loaded() -> bool:
+    """Whether ``encode`` / ``decode`` go through the native codec (the
+    first call builds it)."""
+    nat = _native if _native is not _UNRESOLVED else _resolve_native()
+    return nat is not None
+
+
+def encode(v) -> bytes:
+    nat = _native if _native is not _UNRESOLVED else _resolve_native()
+    if nat is not None:
+        try:
+            return nat.encode(v)
+        except OverflowError:
+            pass  # >64-bit int somewhere in v: arbitrary-precision path
+    return _py_encode(v)
 
 
 def _decode_from(buf: bytes, pos: int):
@@ -232,192 +266,72 @@ def _read_varint(buf: bytes, pos: int) -> tuple[int, int]:
         shift += 7
 
 
-def decode(buf: bytes):
+def _py_decode(buf: bytes):
     v, pos = _decode_from(buf, 0)
     if pos != len(buf):
         raise ValueError(f"codec: {len(buf) - pos} trailing bytes")
     return v
 
 
+def decode(buf: bytes):
+    nat = _native if _native is not _UNRESOLVED else _resolve_native()
+    if nat is not None:
+        try:
+            return nat.decode(buf)
+        except OverflowError:
+            pass  # varint beyond uint64: arbitrary-precision path
+    return _py_decode(buf)
+
+
 # -- a run file's records --------------------------------------------------
 # A run file is ``encode([magic, payload])``, payload
 #   [[key, [[ht, tombstone, liveness, {str(col): val}, expire_ht,
 #            write_id], ... ht-desc]], ... key-asc]
-# Its layout is fixed, so ``encode_run`` encodes a record's head (hybrid
-# time, flags, column count) and tail (expiry, write id) once for each
-# distinct value and sends only the column values through the encoder,
-# and ``decode_run`` reads the records without building the lists.
 
 
 def encode_run(magic: str, entries) -> bytes:
     """``encode([magic, payload])`` of (key, versions) ``entries`` (each
     version has ``ht``, ``tombstone``, ``liveness``, ``columns``,
-    ``expire_ht`` and ``write_id``), written straight from the versions."""
-    out = bytearray((_T_LIST, 2))
-    _encode_into(out, magic)
-    out.append(_T_LIST)
-    _write_varint(out, len(entries))
-    small = _SMALL_INTS
-    pack = _F64.pack
-    heads: dict = {}
-    tails: dict = {}
-    colkeys: dict = {}
+    ``expire_ht`` and ``write_id``)."""
+    names: dict = {}
+    payload = []
     for key, versions in entries:
-        out.append(_T_LIST)
-        out.append(2)
-        if type(key) is bytes and len(key) < 0x80:
-            out.append(_T_BYTES)
-            out.append(len(key))
-            out += key
-        else:
-            _encode_into(out, key)
-        out.append(_T_LIST)
-        _write_varint(out, len(versions))
+        recs = []
         for v in versions:
-            cols = v.columns
-            ht, tomb, live = v.ht, v.tombstone, v.liveness
-            if type(ht) is int and type(tomb) is bool \
-                    and type(live) is bool:
-                hk = (ht, tomb, live, len(cols))
-                head = heads.get(hk)
-                if head is None:
-                    head = heads[hk] = _record_head(ht, tomb, live, len(cols))
-                out += head
-            else:
-                out += _record_head(ht, tomb, live, len(cols))
-            for c, val in cols.items():
-                ck = colkeys.get(c)
-                if ck is None:
-                    ck = colkeys[c] = encode(str(c))
-                out += ck
-                t = type(val)
-                if t is int:
-                    b = small.get(val)
-                    if b is not None:
-                        out += b
-                        continue
-                    out.append(_T_INT)
-                    z = (val << 1) if val >= 0 else ((-val - 1) << 1) | 1
-                    while z >= 0x80:
-                        out.append((z & 0x7F) | 0x80)
-                        z >>= 7
-                    out.append(z)
-                elif t is float:
-                    out.append(_T_F64)
-                    out += pack(val)
-                else:
-                    _encode_into(out, val)
-            exp, wid = v.expire_ht, v.write_id
-            if type(exp) is int and type(wid) is int:
-                tk = (exp, wid)
-                tail = tails.get(tk)
-                if tail is None:
-                    tail = tails[tk] = encode(exp) + encode(wid)
-                out += tail
-            else:
-                out += encode(exp) + encode(wid)
-    return bytes(out)
-
-
-def _record_head(ht, tomb, live, ncols: int) -> bytes:
-    """A record's bytes up to its column map's entries."""
-    out = bytearray((_T_LIST, 6))
-    for x in (ht, tomb, live):
-        _encode_into(out, x)
-    out.append(_T_MAP)
-    _write_varint(out, ncols)
-    return bytes(out)
-
-
-class _OtherLayout(Exception):
-    """The bytes are not in the layout ``decode_run`` reads."""
+            cols = {}
+            for c, x in v.columns.items():
+                n = names.get(c)
+                if n is None:
+                    n = names[c] = str(c)
+                cols[n] = x
+            recs.append([v.ht, v.tombstone, v.liveness, cols, v.expire_ht,
+                         v.write_id])
+        payload.append([key, recs])
+    return encode([magic, payload])
 
 
 def decode_run(buf: bytes, magic: str, make) -> list | None:
     """The (key, versions) entries of ``encode_run``'s bytes, each version
     ``make(key, ht, tombstone, liveness, columns, expire_ht, write_id)``
     with int column ids; None when ``buf`` holds another layout (say, an
-    older record without the write id), which ``decode`` reads."""
-    try:
-        return _decode_run(buf, magic, make)
-    except _OtherLayout:
+    older record without the write id), which the caller reads through
+    ``decode``."""
+    top = decode(buf)
+    if type(top) is not list or len(top) != 2 or top[0] != magic:
         return None
-
-
-def _decode_run(buf: bytes, magic: str, make) -> list:
-    dec = _decode_from
-    unpack = _F64.unpack_from
-    varint = _read_varint
-    bools = (_T_TRUE, _T_FALSE)
-    head = encode(magic)
-    if buf[:2] != bytes((_T_LIST, 2)) or buf[2:2 + len(head)] != head:
-        raise _OtherLayout
-    pos = 2 + len(head)
-    if buf[pos] != _T_LIST:
-        raise _OtherLayout
-    n, pos = varint(buf, pos + 1)
-    colkeys: dict = {}
+    ids: dict = {}
     out = []
-    append = out.append
-    for _ in range(n):
-        if buf[pos] != _T_LIST or buf[pos + 1] != 2 \
-                or buf[pos + 2] != _T_BYTES:
-            raise _OtherLayout
-        klen, pos = varint(buf, pos + 3)
-        key = buf[pos:pos + klen]
-        pos += klen
-        if buf[pos] != _T_LIST:
-            raise _OtherLayout
-        nv, pos = varint(buf, pos + 1)
+    for key, recs in top[1]:
         versions = []
-        for _v in range(nv):
-            if buf[pos] != _T_LIST or buf[pos + 1] != 6:
-                raise _OtherLayout
-            ht, pos = dec(buf, pos + 2)
-            tomb = buf[pos]
-            live = buf[pos + 1]
-            if tomb not in bools or live not in bools or \
-                    buf[pos + 2] != _T_MAP:
-                raise _OtherLayout
-            nc = buf[pos + 3]
-            if nc < 0x80:
-                pos += 4
-            else:
-                nc, pos = varint(buf, pos + 3)
+        for r in recs:
+            if len(r) != 6:
+                return None
             cols = {}
-            for _c in range(nc):
-                # a column id: its str tag, a one-byte length, the digits
-                if buf[pos] != _T_STR:
-                    raise _OtherLayout
-                end = pos + 2 + buf[pos + 1]
-                raw = buf[pos:end]
-                c = colkeys.get(raw)
-                if c is None:
-                    ck, _e = dec(buf, pos)
-                    c = colkeys[raw] = int(ck)
-                tag = buf[end]
-                if tag == _T_INT:  # inline
-                    pos = end + 1
-                    b = buf[pos]
-                    pos += 1
-                    z = b & 0x7F
-                    shift = 7
-                    while b >= 0x80:
-                        b = buf[pos]
-                        pos += 1
-                        z |= (b & 0x7F) << shift
-                        shift += 7
-                    cols[c] = (z >> 1) if not z & 1 else -((z >> 1) + 1)
-                elif tag == _T_F64:  # inline
-                    cols[c] = unpack(buf, end + 1)[0]
-                    pos = end + 9
-                else:
-                    cols[c], pos = dec(buf, end)
-            expire, pos = dec(buf, pos)
-            wid, pos = dec(buf, pos)
-            versions.append(make(key, ht, tomb == _T_TRUE, live == _T_TRUE,
-                                 cols, expire, wid))
-        append((key, versions))
-    if pos != len(buf):
-        raise _OtherLayout
+            for c, x in r[3].items():
+                i = ids.get(c)
+                if i is None:
+                    i = ids[c] = int(c)
+                cols[i] = x
+            versions.append(make(key, r[0], r[1], r[2], cols, r[4], r[5]))
+        out.append((key, versions))
     return out

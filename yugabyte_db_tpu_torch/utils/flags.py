@@ -132,3 +132,6 @@ FLAGS.define("fault.raft_apply_stall", 0.0,
              "stay unapplied) — used by the commit_ack_crash fault-sweep "
              "round to widen the commit-ack/apply window deterministically",
              ("unsafe", "runtime", "hidden"))
+FLAGS.define("max_clock_skew_us", 500_000,
+             "bound on tolerated inter-node clock skew",
+             ("stable",))

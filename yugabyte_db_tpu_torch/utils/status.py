@@ -3,8 +3,9 @@
 Reference analog: src/yb/util/status.h. The port's copy of the part of the
 JAX package's ``utils/status.py`` that the tablet and the engine read: the
 ``Code`` enum, the ``Status`` value, the ``StatusError`` exception carrying
-one, ``AlreadyPresent`` (the tablet's ``if_not_exists`` write) and
-``TabletSplit`` (the tablet peer's writes to a sealed tablet). Left out:
+one, ``AlreadyPresent`` (the tablet's ``if_not_exists`` write),
+``IllegalState`` (``fs``'s data-directory identity) and ``TabletSplit``
+(the tablet peer's writes to a sealed tablet). Left out:
 the other exception classes and the ``Status`` constructors, which only
 the RPC and query layers use (ROADMAP.md §1 item 16).
 """
@@ -79,6 +80,11 @@ class StatusError(Exception):
 class AlreadyPresent(StatusError):
     def __init__(self, message: str):
         super().__init__(Status(Code.ALREADY_PRESENT, message))
+
+
+class IllegalState(StatusError):
+    def __init__(self, message: str):
+        super().__init__(Status(Code.ILLEGAL_STATE, message))
 
 
 class TabletSplit(StatusError):

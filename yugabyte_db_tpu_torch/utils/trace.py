@@ -19,9 +19,8 @@ TRACE() is a no-op (one contextvar read) when no trace is active, so
 library code can trace unconditionally.
 
 The port's copy of the JAX package's ``utils/trace.py``, whole. The
-port's ``TabletPeer`` traces its writes and scans; the webserver that
-serves ``/rpcz`` and ``/tracing.json`` comes with the tserver (ROADMAP.md
-§1 item 12).
+port's ``TabletPeer`` traces its writes and scans, the tablet server its
+RPCs; its webserver serves ``/rpcz`` and ``/tracing.json``.
 """
 
 from __future__ import annotations
