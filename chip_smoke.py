@@ -11,8 +11,8 @@ line is printed:
    while the tablet phase (run first) generates its rows and writes its
    WAL; every phase after it runs alone, one after another;
 1b. tablet (``tablet_phase``): the port's ``Tablet`` on the ``gpu``
-   engine at TABLET_KEYS (500,000) keys of the bench table in a
-   temporary data directory (fsync on, the default plane encoding): 50
+   engine at TABLET_KEYS (100,000) keys of the bench table in a
+   temporary data directory (fsync on, the default plane encoding): 10
    ``Tablet.write`` batches of 10,000 rows, the device flush (K12) with
    its run saved, 20,000 zipfian updates left in the WAL, ``close()``
    (the device bytes released, no cache entry left), ``Tablet.open``
@@ -26,7 +26,7 @@ line is printed:
    port over its ``LocalTransport``, each its own ``gpu`` engine in a
    temporary data directory (fsync on, the default ``RaftOptions``), on
    the tablet phase's rows and the first 10,000 of its updates
-   (RAFT_UPDATES) with their oracle: a leader elected with a lease, 50
+   (RAFT_UPDATES) with their oracle: a leader elected with a lease, 10
    writes of 10,000 rows and the 10,000 updates (100 a write)
    through it, retried on ``NotLeader`` as a client does (rows/s, the
    commit latency's p50 and p99), each replica's ``TabletPeer.flush``
@@ -40,31 +40,40 @@ line is printed:
    the terms and any election besides the deliberate one printed, every
    launch counted, K12, K7 and K9 held against their plain versions
    (``raft`` line, ``--raft`` alone);
-1d. tserver (``tserver_phase``): three tablet server daemons of the port
-   (``ts-0..2``), each its own OS process (``python3 chip_smoke.py
+1d. cluster (``cluster_phase``): the port's cluster, each daemon its own
+   OS process on loopback ports: a master (``m-0``, ``python3
+   chip_smoke.py --master-daemon <server.daemon_main arguments>``: the
+   port's ``daemon_main`` with ``follower_unavailable_considered_failed_sec``
+   set longer than the phase) and three tablet servers (``ts-0..2``, ``python3 chip_smoke.py
    --tserver-daemon <server.daemon_main arguments>``: the port's
-   ``daemon_main`` with the launch counters, the K12 / K7 / K9 holds,
-   the breakers, a count of ``install_snapshot`` calls and of the GC's
-   full collections installed; a JSON record written on SIGTERM) on
-   loopback ports, fsync on, the default ``RaftOptions``, serve one RF-3
-   tablet of the bench table at TSERVER_KEYS (100,000) keys; the smoke is
-   their master and client through the port's ``SocketTransport``:
-   ``ts.create_tablet`` to each, writes of 10,000 rows and 5,000 zipfian
-   updates (100 a write) through ``ts.write`` to the leader the client
-   cached (rows/s and the write RPC's round trip p50 / p99, the bodies
-   encoded before the timed loop), a duplicate (client_id, request_id) answering the original
-   hybrid time, ``ts.flush`` on each (K12) and equal ``ts.checksum``s,
-   the headline batch (``ts.scan_batch``: K1 and the resolve) and 256
-   YCSB-E pages (``ts.scan_wire_batch``, "cql": K7) on the leader, the
-   leader's process SIGKILLed (ms to a new leader that serves), an
-   acknowledged update re-sent to the new leader (its original hybrid
-   time), 30 writes of 100 rows and 256 pages over them unflushed (K9),
-   the survivors' flush, the killed daemon restarted on its data
-   directory and re-seeded by exactly one remote-bootstrap install (the
-   catch-up, its checksum, its headline batch as leader after
-   ``ts.transfer_leadership``), SIGTERM: every record must show no
-   plain-version mismatch, no re-serve, no trip (``tserver`` line,
-   ``--tserver`` alone);
+   ``daemon_main`` with the launch counters, the K12 / K7 / K9 / K8
+   holds, the breakers, a count of ``install_snapshot`` calls and of the
+   GC's full collections installed; a JSON record written on SIGTERM)
+   that register with it by heartbeat; fsync on, the default
+   ``RaftOptions``. The smoke is a client: ``YBClient`` over the port's
+   ``SocketTransport``. ``YBClient.create_table`` makes the bench table
+   (one tablet, RF 3, the ``gpu`` engine); TSERVER_KEYS (100,000) rows in
+   writes of 10,000 and 5,000 zipfian updates (100 a write) through
+   ``YBSession`` (the row path: rows/s, a 100-row flush's p50 / p99), the
+   last update re-sent with its (client_id, request_id) answering its
+   original hybrid time, ``ts.flush`` on each replica (K12) and equal
+   ``ts.checksum``s, the headline batch (K1 and the resolve) and 256
+   YCSB-E pages (K7) through the session and as one ``ts.scan_batch``
+   and one ``ts.scan_wire_batch`` ("cql", byte for byte, resume keys)
+   through ``YBClient.tablet_rpc``, the leader's process SIGKILLed (ms
+   to a new leader that serves), the acknowledged update re-sent (its
+   original hybrid time), 30 writes of 100 rows, and over them unflushed
+   256 pages and both batch RPCs (K9), the survivors' flush, the killed
+   daemon restarted on its data directory and re-seeded by exactly one
+   remote-bootstrap install, and no replica installing a tablet twice
+   (the catch-up, its checksum, the headline batch through the session
+   and ``ts.scan_batch`` once it leads after
+   ``ts.transfer_leadership``), the master's placement unchanged; the
+   tablet split through the master (``master.split_tablet``: its
+   seconds and the children's rows), each child flushed (K12), and the
+   headline batch, a GROUP BY (K8) and the 256 pages across both
+   children; SIGTERM: every record must show no plain-version mismatch,
+   no re-serve, no trip (``cluster`` line, ``--cluster`` alone);
 2. kernel: 16,777,216 rows at R = 2048 of flat-run planes made from a
    numpy seed (~5% tombstones, NULLs, unset values, expired TTLs, invalid
    rows, values at the i32 and i64 extremes, an all-NULL and a never-set
@@ -6853,9 +6862,10 @@ def residency_alone(device, bw: float, rate: float) -> None:
 
 # -- the tablet phase: the port's Tablet on the gpu engine ------------------
 
-TABLET_KEYS = 500_000         # the bench table at half the engine phase's
-                              # keys (the raft phase reuses them): the
-                              # smoke's time budget
+TABLET_KEYS = 300_000         # the bench table at three tenths of the
+                              # engine phase's keys (the raft phase reuses
+                              # them): the smoke's time budget (500,000
+                              # before the cluster phase's master and split)
 TABLET_BATCH = 10_000         # rows a Tablet.write: one WAL append + sync
 TABLET_UPDATES = 20_000       # zipfian one-field updates, left unflushed
 TABLET_UPDATE_BATCH = 100     # updates a Tablet.write (a group commit)
@@ -7799,8 +7809,9 @@ def raft_phase(device, bw: float, rate: float, table=None) -> dict:
     return parts
 
 
-# -- the tserver phase: three tablet server daemons over loopback sockets ----
+# -- the cluster phase: a master and three tablet servers over loopback ------
 
+CLUSTER_MASTER = "m-0"
 TSERVER_NODES = ("ts-0", "ts-1", "ts-2")
 TSERVER_KEYS = 100_000        # rows of the bench table (200,000 before the
                               # smoke's time budget cut it): the
@@ -7808,18 +7819,57 @@ TSERVER_KEYS = 100_000        # rows of the bench table (200,000 before the
                               # RPC frame
 TSERVER_UPDATES = 5_000       # zipfian one-field updates, 100 a write
 TSERVER_AFTER_WRITES = 30     # writes of 100 rows through the new leader
-TSERVER_TABLET = "bench-ts"
 TSERVER_RECORD = "smoke-record.json"  # a daemon's record, in its data dir
 TSERVER_WAIT_S = 120.0        # the longest wait for a daemon or a leader
+# The master's follower_unavailable_considered_failed_sec: longer than the
+# phase, so the killed tablet server is never counted dead and the master
+# re-replicates nothing before its restart (with three tablet servers and
+# RF 3 it has no other server to place a replica on either).
+CLUSTER_FAILED_SEC = 900
+
+
+class GroupLog:
+    """The engine's K8 launches (``group_agg.grouped_aggregate``),
+    recorded through a proxy of ``ops.group_agg`` that the engine module
+    reads, to be held against the plain version."""
+
+    def __init__(self):
+        from yugabyte_db_tpu_torch.ops import group_agg
+        from yugabyte_db_tpu_torch.storage import gpu_engine
+
+        self.ga, self.launches = group_agg, []
+
+        def grouped(plan, table, params):
+            out = group_agg.grouped_aggregate(plan, table, params)
+            self.launches.append((plan, table, params, out))
+            return out
+
+        proxy = SimpleNamespace(**vars(group_agg))
+        proxy.grouped_aggregate = grouped
+        gpu_engine.group_agg = proxy
+
+    def verify(self) -> int:
+        """Every recorded launch against the plain version, exactly: the
+        number held."""
+        import torch
+
+        n = 0
+        while self.launches:
+            plan, table, params, out = self.launches.pop()
+            want = self.ga.grouped_aggregate_plain(plan, table, params)
+            check(torch.equal(out, want),
+                  "K8 differs from its plain version")
+            n += 1
+        return n
 
 
 def tserver_daemon(argv: list) -> int:
     """``python3 chip_smoke.py --tserver-daemon <daemon_main arguments>``:
-    one tablet server daemon of the tserver phase, the port's
+    one tablet server daemon of the cluster phase, the port's
     ``server.daemon_main.main`` with the smoke's instruments installed in
     this process first: the launch counters (zeroed), K12 held by a
-    WriteLog and K7 / K9 by a LaunchLog, every breaker at threshold 1 with
-    its host re-serves counted, the calls of
+    WriteLog, K7 / K9 by a LaunchLog and K8 by a GroupLog, every breaker
+    at threshold 1 with its host re-serves counted, the calls of
     ``TSTabletManager.install_snapshot`` and the cyclic GC's full
     collections. The smoke's method ``smoke.record`` (answered here, ahead
     of the tablet server's handlers) holds the launches recorded so far
@@ -7831,7 +7881,7 @@ def tserver_daemon(argv: list) -> int:
     import os
 
     from yugabyte_db_tpu_torch.server import daemon_main
-    from yugabyte_db_tpu_torch.storage import breaker
+    from yugabyte_db_tpu_torch.storage import breaker, gpu_engine
     from yugabyte_db_tpu_torch.tserver import tablet_manager, tablet_server
     from yugabyte_db_tpu_torch.utils import codec
 
@@ -7843,10 +7893,20 @@ def tserver_daemon(argv: list) -> int:
         fn.launches = 0
     wlog = write_log()
     rlog = LaunchLog().__enter__()
+    glog = GroupLog()
     installs: list = []
     sized: list = []  # (install, payload) whose bytes record() counts
     held = {"replay_flush": 0, "gather_rows": 0, "scan_candidates": 0,
-            "mismatch": None}
+            "grouped_aggregate": 0, "mismatch": None}
+    host_folds = [0]  # GROUP BY specs K8 handed back to the host
+    engine_cls = gpu_engine.GpuStorageEngine
+    fold = engine_cls._grouped_host_fold
+
+    def counted_fold(self, prep):
+        host_folds[0] += 1
+        return fold(self, prep)
+
+    engine_cls._grouped_host_fold = counted_fold
     mgr_cls = tablet_manager.TSTabletManager
     install = mgr_cls.install_snapshot
 
@@ -7854,7 +7914,7 @@ def tserver_daemon(argv: list) -> int:
         before = self.bootstrap_installs
         t0 = time.perf_counter()
         install(self, tablet_id, payload)
-        installs.append({"term": payload["term"],
+        installs.append({"tablet_id": tablet_id, "term": payload["term"],
                          "installed": self.bootstrap_installs > before,
                          "ms": (time.perf_counter() - t0) * 1e3,
                          "runs": len(payload["runs"]),
@@ -7876,12 +7936,14 @@ def tserver_daemon(argv: list) -> int:
             rows = rlog.verify()
             held["gather_rows"] += rows["gather_rows"]
             held["scan_candidates"] += rows["scan_candidates"]
+            held["grouped_aggregate"] += glog.verify()
         except Exception as e:  # noqa: BLE001 — the parent fails on it
             held["mismatch"] = f"{type(e).__name__}: {e}"
         return {"codec_native": codec.native_loaded(),
                 "launches": {n: fn.launches for n, fn in counters.items()},
                 "installs": list(installs), "gc": gcp.summary(),
                 "host_reserves": _HOST_RESERVES[0],
+                "grouped_host_folds": host_folds[0],
                 "breakers": [[b.name, b.state, b.trips]
                              for b in list(breaker._BREAKERS)],
                 "held": dict(held)}
@@ -7905,6 +7967,19 @@ def tserver_daemon(argv: list) -> int:
     return rc
 
 
+def master_daemon(argv: list) -> int:
+    """``python3 chip_smoke.py --master-daemon <daemon_main arguments>``:
+    the cluster phase's master, the port's ``server.daemon_main.main``
+    with ``follower_unavailable_considered_failed_sec`` set to
+    CLUSTER_FAILED_SEC in this process first."""
+    from yugabyte_db_tpu_torch.server import daemon_main
+    from yugabyte_db_tpu_torch.utils.flags import FLAGS
+
+    FLAGS.set("follower_unavailable_considered_failed_sec",
+              float(CLUSTER_FAILED_SEC))
+    return daemon_main.main(argv)
+
+
 def free_ports(n: int) -> list:
     """``n`` loopback ports no socket holds now."""
     import socket
@@ -7918,11 +7993,15 @@ def free_ports(n: int) -> list:
     return ports
 
 
-class TserverCluster:
-    """Three daemons of ``tserver_daemon`` (RF 3, fsync on, the default
-    ``RaftOptions`` and plane encoding) in data directories under
-    ``root``, on loopback ports; the smoke is their master and their
-    client, through the port's ``SocketTransport``."""
+class ClusterDaemons:
+    """The cluster phase's daemons in data directories under ``root``, on
+    loopback ports: the port's master (``master_daemon``, CLUSTER_MASTER)
+    and three ``tserver_daemon``s (fsync on, the default
+    ``RaftOptions`` and plane encoding) that register with it by
+    heartbeat. The smoke's client is a ``YBClient`` over ``transport``,
+    the port's ``SocketTransport``; the harness reads each daemon's state
+    through the same transport (``ts.status``, ``ts.checksum``,
+    ``ts.flush``, ``smoke.record``), as an operator's tools do."""
 
     def __init__(self, root: str, device: str):
         import os
@@ -7930,34 +8009,34 @@ class TserverCluster:
         from yugabyte_db_tpu_torch.rpc import SocketTransport
 
         self.root, self.device = root, device
-        ports = free_ports(len(TSERVER_NODES))
-        self.addr = {u: ("127.0.0.1", p) for u, p in zip(TSERVER_NODES,
-                                                         ports)}
+        nodes = (CLUSTER_MASTER, *TSERVER_NODES)
+        ports = free_ports(len(nodes))
         self.topology = ",".join(f"{u}=127.0.0.1:{p}"
-                                 for u, p in zip(TSERVER_NODES, ports))
+                                 for u, p in zip(nodes, ports))
         self.transport = SocketTransport()
-        for u, (h, p) in self.addr.items():
-            self.transport.set_address(u, h, p)
+        for u, p in zip(nodes, ports):
+            self.transport.set_address(u, "127.0.0.1", p)
         self.procs: dict = {}
-        self.retries = 0  # RPCs to the leader retried (not_leader, timed_out)
-        self.cached = None  # the leader last found, as a client caches it
-        self.last_ms = 0.0  # the round trip of on_leader's answered RPC
-        self.lives = {u: 0 for u in TSERVER_NODES}
-        self.dirs = {u: os.path.join(root, u) for u in TSERVER_NODES}
+        self.lives = {u: 0 for u in nodes}
+        self.dirs = {u: os.path.join(root, u) for u in nodes}
+        self.tablet = None  # the tablet the leader of which ``leader`` finds
 
     def start(self, uuid: str) -> None:
         import os
 
+        here = os.path.dirname(os.path.abspath(__file__))
         self.lives[uuid] += 1
         log = open(os.path.join(self.root, f"{uuid}.{self.lives[uuid]}.log"),
                    "w")
+        if uuid == CLUSTER_MASTER:
+            cmd = ["--master-daemon", "--role", "master"]
+        else:
+            cmd = ["--tserver-daemon", "--role", "tserver"]
         self.procs[uuid] = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--tserver-daemon",
-             "--role", "tserver", "--uuid", uuid, "--data-dir",
-             self.dirs[uuid], "--topology", self.topology, "--masters",
-             "m-0", "--device", self.device],
-            stdout=log, stderr=subprocess.STDOUT,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
+            [sys.executable, os.path.abspath(__file__), *cmd, "--uuid", uuid,
+             "--data-dir", self.dirs[uuid], "--topology", self.topology,
+             "--masters", CLUSTER_MASTER, "--device", self.device],
+            stdout=log, stderr=subprocess.STDOUT, cwd=here)
         log.close()
 
     def log_tail(self, uuid: str) -> str:
@@ -7974,30 +8053,42 @@ class TserverCluster:
     def wait_up(self, uuid: str) -> None:
         from yugabyte_db_tpu_torch.rpc import TransportError
 
+        method = ("master.list_tservers" if uuid == CLUSTER_MASTER
+                  else "ts.status")
+
         def up():
             try:
-                return self.call(uuid, "ts.status", {})["uuid"] == uuid
+                return self.call(uuid, method, {}).get("code", "ok") in (
+                    "ok", "not_leader")
             except TransportError:
                 check(self.procs[uuid].poll() is None,
-                      f"tserver: daemon {uuid} exited "
+                      f"cluster: daemon {uuid} exited "
                       f"{self.procs[uuid].returncode}:\n"
                       f"{self.log_tail(uuid)}")
                 return False
         wait_until(up, f"daemon {uuid} to serve", TSERVER_WAIT_S)
 
-    def raft(self, uuid: str) -> dict | None:
-        """The tablet's raft stats on ``uuid`` (None while it has no
-        replica of the tablet, say mid-install)."""
+    def registered(self) -> list:
+        """The tablet servers the master counts alive."""
+        resp = self.call(CLUSTER_MASTER, "master.list_tservers", {})
+        if resp.get("code") != "ok":
+            return []
+        return sorted(t["uuid"] for t in resp["tservers"] if t["alive"])
+
+    def raft(self, uuid: str, tablet=None) -> dict | None:
+        """A tablet's raft stats on ``uuid`` (None while it has no replica
+        of the tablet, say mid-install)."""
         st = self.call(uuid, "ts.status", {})["tablets"]
-        t = st.get(TSERVER_TABLET)
+        t = st.get(tablet or self.tablet)
         return t["raft"] if t is not None else None
 
-    def leader(self, exclude=()) -> str:
-        """The daemon whose replica leads with a lease (a scan on it
-        answers), found anew and cached."""
+    def leader(self, exclude=(), tablet=None) -> str:
+        """The daemon whose replica of the tablet leads with a lease (a
+        scan on it answers)."""
         from yugabyte_db_tpu_torch.storage import wire
         from yugabyte_db_tpu_torch.storage.scan_spec import ScanSpec
 
+        tablet = tablet or self.tablet
         probe = wire.encode_spec(ScanSpec(limit=1))
 
         def ready():
@@ -8005,67 +8096,31 @@ class TserverCluster:
                 if u in exclude or self.procs.get(u) is None:
                     continue
                 try:
-                    r = self.raft(u)
+                    r = self.raft(u, tablet)
                     if r is None or r["role"] != "LEADER":
                         continue
                     resp = self.call(u, "ts.scan", {
-                        "tablet_id": TSERVER_TABLET, "spec": probe})
+                        "tablet_id": tablet, "spec": probe})
                 except Exception:  # noqa: BLE001 — a daemon going down
                     continue
                 if resp.get("code") == "ok":
                     return u
             return None
-        self.cached = wait_until(ready, "a tserver leader with a lease",
-                                 TSERVER_WAIT_S)
-        return self.cached
+        return wait_until(ready, f"a leader of {tablet} with a lease",
+                          TSERVER_WAIT_S)
 
-    def lead(self, exclude=()) -> str:
-        """The cached leader (a client's MetaCache), found anew only when
-        there is none, it is excluded or its process is gone."""
-        u = self.cached
-        if u is None or u in exclude or self.procs.get(u) is None:
-            u = self.leader(exclude)
-        return u
-
-    def on_leader(self, method: str, payload: dict, exclude=()) -> tuple:
-        """(reply, leader uuid) of one RPC to the cached leader, which is
-        found anew after ``not_leader``, ``timed_out`` or a transport error
-        and the RPC retried, as a client does; ``retries`` counts the
-        retries and ``last_ms`` is the round trip of the RPC that
-        answered."""
-        from yugabyte_db_tpu_torch.rpc import TransportError
-
-        t_end = time.monotonic() + TSERVER_WAIT_S
-        while True:
-            u = self.lead(exclude)
-            t0 = time.perf_counter()
-            try:
-                resp = self.call(u, method, dict(payload,
-                                                 tablet_id=TSERVER_TABLET))
-            except TransportError as e:
-                resp = {"code": "transport_error", "error": str(e)}
-            self.last_ms = (time.perf_counter() - t0) * 1e3
-            if resp.get("code") not in ("not_leader", "timed_out",
-                                        "transport_error"):
-                check(resp.get("code") == "ok",
-                      f"tserver: {method} on {u}: {resp}")
-                return resp, u
-            self.cached = None
-            self.retries += 1
-            check(time.monotonic() < t_end,
-                  f"tserver: {method} kept failing: {resp}")
-            time.sleep(0.01)
-
-    def flush(self, uuids) -> dict:
-        """``ts.flush`` on each daemon of ``uuids``, all at once (one
-        process each): {uuid: the ms its flush took}."""
+    def flush(self, uuids, tablet=None) -> dict:
+        """``ts.flush`` of the tablet on each daemon of ``uuids``, all at
+        once (one process each): {uuid: the ms its flush took}."""
         from concurrent.futures import ThreadPoolExecutor
+
+        tablet = tablet or self.tablet
 
         def one(u):
             t0 = time.perf_counter()
-            resp = self.call(u, "ts.flush", {"tablet_id": TSERVER_TABLET},
+            resp = self.call(u, "ts.flush", {"tablet_id": tablet},
                              timeout=300.0)
-            check(resp == {"code": "ok"}, f"tserver: ts.flush on {u}: {resp}")
+            check(resp == {"code": "ok"}, f"cluster: ts.flush on {u}: {resp}")
             return (time.perf_counter() - t0) * 1e3
 
         with ThreadPoolExecutor(len(uuids)) as pool:
@@ -8088,19 +8143,22 @@ class TserverCluster:
         p.wait(timeout=60)
 
     def stop_all(self) -> dict:
-        """SIGTERM every daemon; {uuid: exit code}."""
+        """SIGTERM every daemon, the tablet servers first; {uuid: exit
+        code}."""
         import signal
 
-        for p in self.procs.values():
-            p.send_signal(signal.SIGTERM)
         codes = {}
-        for u, p in self.procs.items():
-            try:
-                codes[u] = p.wait(timeout=120)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                codes[u] = p.wait(timeout=60)
-        self.procs = {}
+        for group in (TSERVER_NODES, (CLUSTER_MASTER,)):
+            procs = {u: p for u, p in self.procs.items() if u in group}
+            for p in procs.values():
+                p.send_signal(signal.SIGTERM)
+            for u, p in procs.items():
+                try:
+                    codes[u] = p.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    codes[u] = p.wait(timeout=60)
+                del self.procs[u]
         return codes
 
     def close(self) -> None:
@@ -8113,37 +8171,88 @@ class TserverCluster:
         self.transport.close()
 
 
-def tserver_headline(cl, oracle, label: str, uuid=None,
-                     prop: int = 0) -> dict:
-    """The headline 32-spec batch through ``ts.scan_batch`` (on the leader,
-    or on ``uuid``), each answer held against ``oracle`` (an
-    ``Oracle``); the round trip timed."""
+def row_hash(key: bytes) -> int:
+    """The partition hash of an encoded bench-table key (its tag and
+    2-byte hash code), which ``YBSession.apply_row`` routes by."""
+    from yugabyte_db_tpu_torch.models.encoding import TAG_HASH
+
+    check(key[0] == TAG_HASH, "a bench key without its hash code")
+    return int.from_bytes(key[1:3], "big")
+
+
+def cluster_headline(session, table, oracle, label: str) -> dict:
+    """The headline batch's 32 specs through ``YBSession.scan`` (one
+    aggregate scan each, fanned out over the table's tablets and
+    combined), each answer held against ``oracle`` (an ``Oracle``)."""
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.storage import wire
 
     lits = [-500_000 - 7 * i for i in range(BATCH)]
+    t0 = time.perf_counter()
+    got = [session.scan(table, workload.headline_spec(wire.MAX_HT, lo),
+                        timeout_s=60.0) for lo in lits]
+    ms = (time.perf_counter() - t0) * 1e3
+    for lo, res in zip(lits, got):
+        check(tuple(res.rows[0]) == oracle.headline(lo),
+              f"cluster {label}: headline d >= {lo}: {res.rows[0]} != "
+              f"{oracle.headline(lo)}")
+    return {"specs": BATCH, "ms": ms}
+
+
+def cluster_pages(session, table, oracle, label: str, seed: int) -> dict:
+    """TABLET_PAGES YCSB-E pages (LIMIT 100 from a key, ``d >= -500000``,
+    projecting k, r, a, d) through ``YBSession.scan``, each page's rows
+    equal to the oracle's."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage import ScanSpec, wire
+
+    specs = workload.ycsb_e_batch(table.schema, TSERVER_KEYS, wire.MAX_HT,
+                                  random.Random(seed), TABLET_PAGES)
+    specs = [ScanSpec(lower=s.lower, predicates=s.predicates,
+                      projection=["k", "r", "a", "d"], limit=s.limit)
+             for s in specs]
+    t0 = time.perf_counter()
+    got = [session.scan(table, s, timeout_s=60.0) for s in specs]
+    ms = (time.perf_counter() - t0) * 1e3
+    for j, (res, s) in enumerate(zip(got, specs)):
+        rows, _resume = oracle.page(s)
+        check([tuple(r) for r in res.rows] == rows,
+              f"cluster {label} page {j}: {len(res.rows)} rows differ from "
+              f"the oracle's {len(rows)}")
+    return {"pages": len(specs), "ms": ms}
+
+
+def cluster_scan_batch(client, oracle, label: str) -> dict:
+    """The headline batch's 32 specs as one ``ts.scan_batch`` request to
+    the table's one tablet through ``YBClient.tablet_rpc`` (its leader,
+    K1 once for the batch), each answer held against ``oracle`` (an
+    ``Oracle``)."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage import wire
+
+    loc = client.meta_cache.locations("bench").tablets[0]
+    lits = [-500_000 - 7 * i for i in range(BATCH)]
     specs = [wire.encode_spec(workload.headline_spec(wire.MAX_HT, lo))
              for lo in lits]
-    payload = {"specs": specs, "propagated_ht": prop, "timeout": 60.0}
     t0 = time.perf_counter()
-    if uuid is None:
-        resp, uuid = cl.on_leader("ts.scan_batch", payload)
-    else:
-        resp = cl.call(uuid, "ts.scan_batch",
-                       dict(payload, tablet_id=TSERVER_TABLET))
-        check(resp.get("code") == "ok", f"tserver {label}: {resp}")
+    resp = client.tablet_rpc("bench", loc, "ts.scan_batch",
+                             {"specs": specs}, timeout_s=60.0)
     ms = (time.perf_counter() - t0) * 1e3
+    check(len(resp["results"]) == BATCH,
+          f"cluster {label}: ts.scan_batch answered "
+          f"{len(resp['results'])} specs of {BATCH}")
     for lo, r in zip(lits, resp["results"]):
         check(tuple(r["rows"][0]) == oracle.headline(lo),
-              f"tserver {label}: headline d >= {lo}: {r['rows'][0]} != "
-              f"{oracle.headline(lo)}")
-    return {"on": uuid, "batch_ms": ms, "specs": BATCH}
+              f"cluster {label}: ts.scan_batch d >= {lo}: {r['rows'][0]} "
+              f"!= {oracle.headline(lo)}")
+    return {"on": loc.leader, "specs": BATCH, "batch_ms": ms}
 
 
-def tserver_pages(cl, oracle, label: str, seed: int, prop: int) -> dict:
-    """TABLET_PAGES YCSB-E pages through ``ts.scan_wire_batch`` in "cql" on
-    the leader, each page's bytes equal to ``models.wirefmt``'s
-    serialization of the oracle's rows and its resume key the oracle's."""
+def cluster_wire_pages(client, oracle, label: str, seed: int) -> dict:
+    """TABLET_PAGES YCSB-E pages as one ``ts.scan_wire_batch`` request in
+    "cql" to the table's one tablet through ``YBClient.tablet_rpc``, each
+    page's bytes equal to ``models.wirefmt``'s serialization of the
+    oracle's rows and its resume key the oracle's."""
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.models import wirefmt
     from yugabyte_db_tpu_torch.storage import ScanSpec, wire
@@ -8156,69 +8265,121 @@ def tserver_pages(cl, oracle, label: str, seed: int, prop: int) -> dict:
                       predicates=s.predicates, projection=proj,
                       limit=s.limit) for s in specs]
     dts = [schema.column(n).dtype for n in proj]
+    loc = client.meta_cache.locations("bench").tablets[0]
     t0 = time.perf_counter()
-    resp, uuid = cl.on_leader("ts.scan_wire_batch", {
-        "specs": [wire.encode_spec(s) for s in specs], "fmt": "cql",
-        "propagated_ht": prop, "timeout": 60.0})
+    resp = client.tablet_rpc("bench", loc, "ts.scan_wire_batch", {
+        "specs": [wire.encode_spec(s) for s in specs], "fmt": "cql"},
+        timeout_s=60.0)
     ms = (time.perf_counter() - t0) * 1e3
+    check(len(resp["pages"]) == len(specs),
+          f"cluster {label}: ts.scan_wire_batch answered "
+          f"{len(resp['pages'])} pages of {len(specs)}")
     for j, (pg, s) in enumerate(zip(resp["pages"], specs)):
         rows, resume = oracle.page(s)
         check(pg["nrows"] == len(rows) and pg["resume"] == resume,
-              f"tserver {label} page {j}: {pg['nrows']} rows, resume "
+              f"cluster {label} wire page {j}: {pg['nrows']} rows, resume "
               f"{pg['resume']!r}; oracle {len(rows)}, {resume!r}")
         check(bytes(pg["data"]) == wirefmt.serialize_rows("cql", dts, rows),
-              f"tserver {label} page {j}: bytes differ from the oracle's")
-    return {"on": uuid, "pages": len(specs), "batch_ms": ms}
+              f"cluster {label} wire page {j}: bytes differ from the "
+              f"oracle's")
+    return {"on": loc.leader, "pages": len(specs), "batch_ms": ms}
 
 
-def tserver_checksums(cl, uuids, label: str) -> dict:
-    """``ts.checksum`` of every daemon in ``uuids`` at the first one's read
-    point: all equal."""
-    first = cl.call(uuids[0], "ts.checksum", {"tablet_id": TSERVER_TABLET,
+CLUSTER_GROUP_D = (0, 400)  # the GROUP BY's window of d: 21 groups at
+                            # TSERVER_KEYS, no two in one K8 bucket
+
+
+def cluster_group_by(session, table, oracle, label: str) -> dict:
+    """One GROUP BY d (count of rows and of a, sum of d) over the rows
+    whose d lies in CLUSTER_GROUP_D, through ``YBSession.scan``: K8 on
+    each tablet (counts and the sum of a non-negative column: no host
+    re-fold), the groups combined by the session; held against the
+    oracle."""
+    from yugabyte_db_tpu_torch.storage.scan_spec import (AggSpec, Predicate,
+                                                         ScanSpec)
+
+    lo, hi = CLUSTER_GROUP_D
+    spec = ScanSpec(predicates=[Predicate("d", ">=", lo),
+                                Predicate("d", "<", hi)],
+                    aggregates=[AggSpec("count", None), AggSpec("count", "a"),
+                                AggSpec("sum", "d")],
+                    group_by=["d"])
+    groups: dict = {}
+    for i in np.nonzero(oracle.exists)[0].tolist():
+        d = oracle.vals["d"][i]
+        if d is None or not lo <= d < hi:
+            continue
+        g = groups.setdefault(d, [0, 0, 0])
+        g[0] += 1
+        g[1] += oracle.vals["a"][i] is not None
+        g[2] += d
+    want = [(d, *groups[d]) for d in sorted(groups)]
+    t0 = time.perf_counter()
+    res = session.scan(table, spec, timeout_s=60.0)
+    ms = (time.perf_counter() - t0) * 1e3
+    check([tuple(r) for r in res.rows] == want,
+          f"cluster {label}: GROUP BY d: {res.rows} != {want}")
+    return {"groups": len(want), "ms": ms}
+
+
+def cluster_checksums(cl, uuids, tablet, label: str) -> dict:
+    """``ts.checksum`` of the tablet on every daemon in ``uuids`` at the
+    first one's read point: all equal."""
+    first = cl.call(uuids[0], "ts.checksum", {"tablet_id": tablet,
                                               "timeout": 60.0})
-    check(first.get("code") == "ok", f"tserver {label}: {first}")
+    check(first.get("code") == "ok", f"cluster {label}: {first}")
     sums = {uuids[0]: first}
     for u in uuids[1:]:
         sums[u] = cl.call(u, "ts.checksum", {
-            "tablet_id": TSERVER_TABLET, "read_ht": first["read_ht"],
+            "tablet_id": tablet, "read_ht": first["read_ht"],
             "timeout": 60.0})
     got = {u: (r.get("code"), r.get("rows"), r.get("checksum"))
            for u, r in sums.items()}
     check(len(set(got.values())) == 1 and first["rows"] > 0,
-          f"tserver {label}: checksums differ: {got}")
+          f"cluster {label}: checksums differ: {got}")
     return {"rows": first["rows"], "checksum": first["checksum"],
             "replicas": len(sums)}
 
 
-def tserver_phase(device, bw: float, rate: float) -> dict:
-    """Three tablet server daemons of the port (``tserver_daemon``: the
-    port's ``server.daemon_main`` in its own OS process, on the card)
-    serve one RF-3 tablet of the bench table over loopback sockets; the
-    smoke plays master and client through the port's ``SocketTransport``
-    (``ts.create_tablet`` with the RF-3 config to each daemon). Writes of
-    10,000 rows and zipfian updates (100 a write) through the leader's
-    ``ts.write``; a duplicate (client_id, request_id) answers the original
-    hybrid time; ``ts.flush`` on every replica (K12) and equal
-    ``ts.checksum``s; the headline batch (``ts.scan_batch``: K1, the
-    resolve) and 256 YCSB-E pages (``ts.scan_wire_batch``: K7) on the
-    leader; the leader SIGKILLed (the ms to a new leader that serves), an
-    acknowledged update re-sent to the new one (its original hybrid time),
-    writes and pages over them unflushed (K9) through the new leader and
-    the survivors' flush; the killed daemon restarted on its data
-    directory and re-seeded by exactly one remote-bootstrap install (the
-    catch-up time, its checksum, its headline batch as leader after
-    ``ts.transfer_leadership``: K1 over the installed run); then SIGTERM:
-    every daemon's record (launches, plain-version holds, installs, GC
-    pauses). Every answer equals the exact oracle (``stamped_oracle``)."""
+def cluster_phase(device, bw: float, rate: float) -> dict:
+    """The port's cluster over loopback sockets, each daemon its own OS
+    process on the card (``ClusterDaemons``): a master and three tablet
+    servers that register with it; the smoke is a client, a ``YBClient``
+    and its ``YBSession`` over the port's ``SocketTransport``.
+    ``YBClient.create_table`` makes the bench table (one tablet, RF 3, the
+    ``gpu`` engine); writes of 10,000 rows and zipfian updates (100 a
+    write) through the session's row path; the last update re-sent
+    through ``YBClient.tablet_rpc`` with its (client_id, request_id)
+    answers its original hybrid time; ``ts.flush`` on every replica (K12)
+    and equal ``ts.checksum``s; the headline batch (K1, the resolve) and
+    256 YCSB-E pages (K7) through the session, and again as one
+    ``ts.scan_batch`` and one ``ts.scan_wire_batch`` ("cql": each page's
+    bytes and resume key) through ``YBClient.tablet_rpc``; the leader
+    SIGKILLed (the ms to a new leader that serves), the acknowledged
+    update re-sent through the client (its original hybrid time), writes
+    over them unflushed and their pages (K9) through the session and the
+    two batch RPCs, and the survivors' flush; the killed daemon restarted
+    on its data directory and re-seeded by exactly one remote-bootstrap
+    install (the catch-up, its checksum, the headline batch through the
+    session and ``ts.scan_batch`` once it leads after
+    ``ts.transfer_leadership``: K1 over the installed run), the master's
+    placement unchanged; the tablet split through the master
+    (``master.split_tablet``), each child flushed on its replicas (K12),
+    and the headline batch, a GROUP BY (K8) and the 256 pages across both
+    children; then SIGTERM: every tablet server's record (launches,
+    plain-version holds, installs, GC pauses). Every answer equals the
+    exact oracle (``stamped_oracle``)."""
     import os
     import shutil
     import tempfile
 
     from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.client import YBClient, YBSession
     from yugabyte_db_tpu_torch.storage import wire
     from yugabyte_db_tpu_torch.utils import codec
 
-    parts: dict = {}
+    parts: dict = {"follower_unavailable_considered_failed_sec":
+                   CLUSTER_FAILED_SEC}
     steps: dict = {}
     terms_at: dict = {}
     mark = [time.perf_counter()]
@@ -8228,10 +8389,10 @@ def tserver_phase(device, bw: float, rate: float) -> dict:
         now = time.perf_counter()
         steps[name] = now - mark[0]
         mark[0] = now
-        if cl is not None and cl.procs:
+        if cl is not None and cl.tablet is not None and cl.procs:
             t = cl.terms()
             terms_at[name] = max(t.values()) if t else None
-        print(f"tserver step {name}: {steps[name]:.1f} s, terms "
+        print(f"cluster step {name}: {steps[name]:.1f} s, terms "
               f"{terms_at.get(name)}", flush=True)
 
     card = nvidia_smi()
@@ -8243,85 +8404,97 @@ def tserver_phase(device, bw: float, rate: float) -> dict:
     after_writes, after = failover_rows(
         schema, rows, oracle, seed=61,
         n=TSERVER_AFTER_WRITES * TABLET_UPDATE_BATCH)
-    root = tempfile.mkdtemp(prefix="tserver-")
+    root = tempfile.mkdtemp(prefix="cluster-")
     step("setup")
     dev = "cuda" if device.type == "cuda" else "cpu"
-    cl = TserverCluster(root, dev)
+    cl = ClusterDaemons(root, dev)
     records: dict = {}
     try:
         t0 = time.perf_counter()
-        for u in TSERVER_NODES:
+        for u in (CLUSTER_MASTER, *TSERVER_NODES):
             cl.start(u)
-        for u in TSERVER_NODES:
+        for u in (CLUSTER_MASTER, *TSERVER_NODES):
             cl.wait_up(u)
+        wait_until(lambda: cl.registered() == list(TSERVER_NODES),
+                   "the tablet servers' registration", TSERVER_WAIT_S)
         parts["daemons_up_ms"] = (time.perf_counter() - t0) * 1e3
+        client = YBClient(cl.transport, [CLUSTER_MASTER])
         t0 = time.perf_counter()
-        create = {"tablet_id": TSERVER_TABLET, "table_name": "bench",
-                  "schema": schema.to_dict(), "partition_start": 0,
-                  "partition_end": 65536, "peers": list(TSERVER_NODES)}
-        for u in TSERVER_NODES:
-            check(cl.call(u, "ts.create_tablet", create) == {"code": "ok"},
-                  f"tserver: ts.create_tablet on {u}")
-        leader = cl.leader()
-        parts["leader_ms"] = (time.perf_counter() - t0) * 1e3
+        table = client.create_table("bench", schema.columns, num_tablets=1,
+                                    replication_factor=3, engine="gpu",
+                                    timeout_s=TSERVER_WAIT_S)
+        check(table.schema.to_dict() == schema.to_dict() and
+              table.engine == "gpu", f"cluster: the table the master made: "
+              f"{table.schema.to_dict()}, {table.engine}")
+        loc = client.meta_cache.locations("bench").tablets[0]
+        cl.tablet = parent = loc.tablet_id
+        check(sorted(loc.replicas) == list(TSERVER_NODES),
+              f"cluster: the tablet's replicas {loc.replicas}")
+        cl.leader()
+        parts["create_table_ms"] = (time.perf_counter() - t0) * 1e3
         step("start")
-        # Writes of 10,000 rows, then the updates, 100 a write, each with
-        # the client's (client_id, request_id).
-        rid = [0]
+        session = YBSession(client)
 
-        def write(body, exclude=()):
-            rid[0] += 1
-            resp, _u = cl.on_leader("ts.write", {
-                "rows": body, "client_id": "smoke",
-                "request_id": rid[0], "timeout": 60.0}, exclude)
-            return rid[0], resp["ht"]
+        def write(src) -> float:
+            """``src`` through the session's row path, one flush: its
+            ms."""
+            for r in src:
+                session.apply_row(table, row_hash(r.key), r)
+            t = time.perf_counter()
+            check(session.flush(timeout_s=TSERVER_WAIT_S) == len(src),
+                  "cluster: a session flush wrote a short count")
+            return (time.perf_counter() - t) * 1e3
 
-        def bodies(src, n):
-            """``src`` in wire bodies of ``n`` rows, encoded before the
-            timed loop: the loops time the RPCs alone."""
-            return [wire.encode_rows(src[i:i + n])
-                    for i in range(0, len(src), n)]
-
-        last = None
-        batches = bodies(rows, TABLET_BATCH)
         t0 = time.perf_counter()
-        for body in batches:
-            last = write(body)
+        for i in range(0, len(rows), TABLET_BATCH):
+            write(rows[i:i + TABLET_BATCH])
         s = time.perf_counter() - t0
-        parts["write"] = {"rows": len(rows), "writes": len(batches), "s": s,
-                          "rows_per_s": len(rows) / s}
-        lat = []
-        batches = bodies(updates, TABLET_UPDATE_BATCH)
+        parts["write"] = {"rows": len(rows), "flushes": -(-len(rows) //
+                                                         TABLET_BATCH),
+                          "s": s, "rows_per_s": len(rows) / s}
         t0 = time.perf_counter()
-        for body in batches:
-            last = write(body)
-            lat.append(cl.last_ms)
+        lat = [write(updates[i:i + TABLET_UPDATE_BATCH])
+               for i in range(0, len(updates), TABLET_UPDATE_BATCH)]
         s = time.perf_counter() - t0
         q = statistics.quantiles(lat, n=100, method="inclusive")
-        parts["updates"] = {"rows": len(updates), "writes": len(lat),
+        parts["updates"] = {"rows": len(updates), "flushes": len(lat),
                             "s": s, "rows_per_s": len(updates) / s,
-                            "rtt_p50_ms": statistics.median(lat),
-                            "rtt_p99_ms": q[98], "rtt_max_ms": max(lat)}
+                            "flush_p50_ms": statistics.median(lat),
+                            "flush_p99_ms": q[98], "flush_max_ms": max(lat)}
+        # The last update's ids and hybrid time: a session flush takes
+        # one request id a tablet, and the client keeps the newest hybrid
+        # time a reply carried.
+        last = (client._req_counter, client.last_observed_ht)
+        last_body = wire.encode_rows(updates[-TABLET_UPDATE_BATCH:])
         step("write")
-        # Exactly once: the last update re-sent with its ids.
-        resp, _u = cl.on_leader("ts.write", {
-            "rows": wire.encode_rows(updates[-TABLET_UPDATE_BATCH:]),
-            "client_id": "smoke", "request_id": last[0]})
-        check(resp["ht"] == last[1], f"tserver: the duplicate write "
-              f"answered {resp['ht']}, the original {last[1]}")
-        prop = last[1]
+
+        def resend():
+            """The last acknowledged update, re-sent by the client with
+            its (client_id, request_id): the original hybrid time."""
+            loc = client.meta_cache.locations("bench").tablets[0]
+            resp = client.tablet_rpc("bench", loc, "ts.write", {
+                "rows": last_body, "client_id": client.client_id,
+                "request_id": last[0]}, timeout_s=TSERVER_WAIT_S)
+            return resp["ht"]
+
+        ht = resend()
+        check(ht == last[1], f"cluster: the duplicate write answered {ht}, "
+                             f"the original {last[1]}")
         step("exactly_once")
         # Every replica flushes (K12), and the checksums agree.
         parts["flush_ms"] = cl.flush(TSERVER_NODES)
-        parts["checksum"] = tserver_checksums(cl, list(TSERVER_NODES),
-                                              "flushed")
+        parts["checksum"] = cluster_checksums(cl, list(TSERVER_NODES),
+                                              parent, "flushed")
         check(parts["checksum"]["rows"] == int(oracle.exists.sum()),
-              f"tserver: {parts['checksum']['rows']} rows checksummed, "
+              f"cluster: {parts['checksum']['rows']} rows checksummed, "
               f"{int(oracle.exists.sum())} exist")
         step("flush")
-        parts["headline"] = tserver_headline(cl, oracle.headline(),
-                                             "leader", prop=prop)
-        parts["pages"] = tserver_pages(cl, oracle, "leader", 31, prop)
+        parts["headline"] = cluster_headline(session, table,
+                                             oracle.headline(), "leader")
+        parts["pages"] = cluster_pages(session, table, oracle, "leader", 31)
+        parts["scan_batch"] = cluster_scan_batch(client, oracle.headline(),
+                                                 "leader")
+        parts["wire_pages"] = cluster_wire_pages(client, oracle, "leader", 37)
         step("reads")
         # The leader's process crashes.
         leader = cl.leader()
@@ -8332,21 +8505,21 @@ def tserver_phase(device, bw: float, rate: float) -> dict:
         new = cl.leader(exclude=(leader,))
         parts["failover_ms"] = (time.perf_counter() - t0) * 1e3
         parts["killed"], parts["new_leader"] = leader, new
-        resp, _u = cl.on_leader("ts.write", {
-            "rows": wire.encode_rows(updates[-TABLET_UPDATE_BATCH:]),
-            "client_id": "smoke", "request_id": last[0]}, (leader,))
-        check(resp["ht"] == last[1], f"tserver: the acknowledged update "
-              f"re-sent to the new leader answered {resp['ht']}, the "
-              f"original {last[1]}")
+        ht = resend()
+        check(ht == last[1], f"cluster: the acknowledged update re-sent "
+                             f"after the crash answered {ht}, the original "
+                             f"{last[1]}")
         step("failover")
-        batches = bodies(after_writes, TABLET_UPDATE_BATCH)
         t0 = time.perf_counter()
-        for body in batches:
-            last = write(body, (leader,))
+        for i in range(0, len(after_writes), TABLET_UPDATE_BATCH):
+            write(after_writes[i:i + TABLET_UPDATE_BATCH])
         parts["after_writes_s"] = time.perf_counter() - t0
-        prop = last[1]
-        parts["unflushed_pages"] = tserver_pages(cl, after, "unflushed", 47,
-                                                 prop)
+        parts["unflushed_pages"] = cluster_pages(session, table, after,
+                                                 "unflushed", 47)
+        parts["unflushed_scan_batch"] = cluster_scan_batch(
+            client, after.headline(), "unflushed")
+        parts["unflushed_wire_pages"] = cluster_wire_pages(
+            client, after, "unflushed", 43)
         parts["survivors_flush_ms"] = cl.flush(
             [u for u in TSERVER_NODES if u != leader])
         step("writes_after")
@@ -8360,7 +8533,7 @@ def tserver_phase(device, bw: float, rate: float) -> dict:
         def caught_up():
             try:
                 r = cl.raft(leader)
-                lead = cl.raft(cl.lead(exclude=(leader,)))
+                lead = cl.raft(cl.leader(exclude=(leader,)))
             except Exception:  # noqa: BLE001 — mid-install
                 return False
             return r is not None and lead is not None and \
@@ -8368,10 +8541,10 @@ def tserver_phase(device, bw: float, rate: float) -> dict:
         wait_until(caught_up, "the restarted daemon's catch-up",
                    TSERVER_WAIT_S)
         parts["catch_up_ms"] = (time.perf_counter() - t0) * 1e3
-        parts["restarted_checksum"] = tserver_checksums(
-            cl, [cl.lead(), leader], "restarted")
+        parts["restarted_checksum"] = cluster_checksums(
+            cl, [cl.leader(), leader], parent, "restarted")
         check(parts["restarted_checksum"]["rows"] == int(after.exists.sum()),
-              f"tserver: {parts['restarted_checksum']['rows']} rows on the "
+              f"cluster: {parts['restarted_checksum']['rows']} rows on the "
               f"restarted daemon, {int(after.exists.sum())} exist")
         step("restart")
         t0 = time.perf_counter()
@@ -8382,23 +8555,101 @@ def tserver_phase(device, bw: float, rate: float) -> dict:
             if r is not None and r["role"] == "LEADER":
                 return cl.leader() == leader  # it serves with a lease
             if time.monotonic() >= retry_at[0]:  # asked again every 2 s
-                cl.call(cl.lead(exclude=(leader,)), "ts.transfer_leadership",
-                        {"tablet_id": TSERVER_TABLET, "target": leader})
+                cl.call(cl.leader(exclude=(leader,)),
+                        "ts.transfer_leadership",
+                        {"tablet_id": parent, "target": leader})
                 retry_at[0] = time.monotonic() + 2.0
             return False
         wait_until(moved, "the restarted daemon's leadership",
                    TSERVER_WAIT_S)
         parts["transfer_ms"] = (time.perf_counter() - t0) * 1e3
-        parts["restarted_headline"] = tserver_headline(
-            cl, after.headline(), "restarted leader", uuid=leader, prop=prop)
+        parts["restarted_headline"] = cluster_headline(
+            session, table, after.headline(), "restarted leader")
+        served_by = client.meta_cache.locations("bench").tablets[0].leader
+        check(served_by == leader, f"cluster: the headline after the "
+                                   f"transfer was served by {served_by}")
+        parts["restarted_scan_batch"] = cluster_scan_batch(
+            client, after.headline(), "restarted leader")
+        check(parts["restarted_scan_batch"]["on"] == leader,
+              f"cluster: ts.scan_batch after the transfer was served by "
+              f"{parts['restarted_scan_batch']['on']}")
+        # The master placed nothing new: the tablet keeps its three
+        # replicas, and every tablet server is alive to it again.
+        placed = client.master_rpc("master.get_table_locations",
+                                   {"name": "bench"})
+        parts["replicas_after_restart"] = [
+            sorted(r["uuid"] for r in t["replicas"])
+            for t in placed["tablets"]]
+        check(parts["replicas_after_restart"] == [list(TSERVER_NODES)],
+              f"cluster: the master re-placed the tablet: {placed}")
+        wait_until(lambda: cl.registered() == list(TSERVER_NODES),
+                   "the restarted daemon's registration", TSERVER_WAIT_S)
+        # The restarted daemon's installs up to here: the restart's.
+        restarted = cl.call(leader, "smoke.record", {}, timeout=300.0)
         step("transfer")
         terms_end = cl.terms()
+        # The split through the master, each child flushed on its
+        # replicas, and the reads across both children.
+        # An operator's split (yb-admin split_tablet), sent to the master
+        # with a budget for the whole protocol: the client's master RPC
+        # gives each attempt 2 s, and a retry of a running split fails.
+        t0 = time.perf_counter()
+        resp = cl.call(CLUSTER_MASTER, "master.split_tablet", {
+            "table": "bench", "tablet_id": parent,
+            "timeout": TSERVER_WAIT_S}, timeout=TSERVER_WAIT_S + 10.0)
+        check(resp.get("code") == "ok" and len(resp["children"]) == 2,
+              f"cluster: the split: {resp}")
+        parts["split_s"] = time.perf_counter() - t0
+        children = resp["children"]
+        print(f"cluster split: {parts['split_s']:.2f} s, {resp}", flush=True)
+        locs = client.meta_cache.locations("bench", refresh=True).tablets
+        check([t.tablet_id for t in locs] == children,
+              f"cluster: the table's tablets after the split: "
+              f"{[t.tablet_id for t in locs]}, children {children}")
+        parts["children"] = {}
+        leads = {}
+        for child in children:
+            lead = leads[child] = cl.leader(tablet=child)
+            # Every replica applies the seed before the flushes, which
+            # trim the logs: no replica needs an install to catch up.
+            target = cl.raft(lead, child)["commit_index"]
+            wait_until(lambda: all(
+                (cl.raft(u, child) or {}).get("applied_index", -1) >= target
+                for u in TSERVER_NODES), f"the replicas of {child} to apply",
+                TSERVER_WAIT_S)
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(len(children)) as pool:
+            flushed = dict(zip(children, pool.map(
+                lambda child: cl.flush(TSERVER_NODES, tablet=child),
+                children)))
+        for child in children:
+            lead = leads[child]
+            sums = cluster_checksums(cl, [lead, *(u for u in TSERVER_NODES
+                                                  if u != lead)],
+                                     child, "child")
+            parts["children"][child] = {
+                "rows": sums["rows"], "flush_ms": flushed[child],
+                "terms": {u: cl.raft(u, child)["term"]
+                          for u in TSERVER_NODES}}
+        n_children = sum(c["rows"] for c in parts["children"].values())
+        check(n_children == int(after.exists.sum()),
+              f"cluster: the children hold {n_children} rows, "
+              f"{int(after.exists.sum())} exist")
+        step("split")
+        parts["split_headline"] = cluster_headline(
+            session, table, after.headline(), "split")
+        parts["split_group_by"] = cluster_group_by(session, table, after,
+                                                   "split")
+        parts["split_pages"] = cluster_pages(session, table, after,
+                                             "split", 53)
+        step("split_reads")
         codes = cl.stop_all()
-        check(codes == {u: 0 for u in TSERVER_NODES},
-              f"tserver: the daemons exited {codes}")
+        check(codes == {u: 0 for u in (*TSERVER_NODES, CLUSTER_MASTER)},
+              f"cluster: the daemons exited {codes}")
         for u in TSERVER_NODES:
             path = os.path.join(cl.dirs[u], TSERVER_RECORD)
-            check(os.path.exists(path), f"tserver: {u} wrote no record:\n"
+            check(os.path.exists(path), f"cluster: {u} wrote no record:\n"
                                         f"{cl.log_tail(u)}")
             with open(path) as f:
                 records[u] = json.load(f)
@@ -8410,39 +8661,62 @@ def tserver_phase(device, bw: float, rate: float) -> dict:
     lives = [*records.items(), (killed + " (killed)", first_life)]
     for u, rec in lives:
         check(rec["held"]["mismatch"] is None,
-              f"tserver: {u}: a kernel differs from its plain version: "
+              f"cluster: {u}: a kernel differs from its plain version: "
               f"{rec['held']['mismatch']}")
         check(rec["codec_native"] or not codec.native_loaded(),
-              f"tserver: {u} ran the Python codec")
-        check(rec["host_reserves"] == 0 and all(
-            st == "closed" and trips == 0 for _n, st, trips in
-            rec["breakers"]), f"tserver: {u} re-served or tripped: {rec}")
-    installs = [i for i in records[killed]["installs"] if i["installed"]]
-    check(len(installs) == 1,
-          f"tserver: the restarted daemon installed {installs}")
+              f"cluster: {u} ran the Python codec")
+        check(rec["host_reserves"] == 0 and rec["grouped_host_folds"] == 0
+              and all(st == "closed" and trips == 0 for _n, st, trips in
+                      rec["breakers"]),
+              f"cluster: {u} re-served, folded on the host or tripped: "
+              f"{rec}")
+    installs = [i for i in restarted["installs"] if i["installed"]]
+    check(len(installs) == 1 and installs[0]["tablet_id"] == parent,
+          f"cluster: the restarted daemon installed {installs} before the "
+          f"split")
     parts["bootstrap"] = installs[0]
-    # Installs on the daemons that never went down (reported, not a
-    # check: a leader whose log cache starts at its own install may re-seed
-    # a follower, as the JAX package's Raft does).
-    parts["other_installs"] = {
-        u: sum(i["installed"] for i in rec["installs"])
-        for u, rec in records.items() if u != killed}
+    # Every other install, on every daemon's life: (tablet, term, ms). A
+    # replica that a leader's Raft RPC finds gone answers "not_found" with
+    # last_index 0 (``TabletServer._dispatch``), and the leader re-seeds
+    # it: a parent replica the split deleted before the parent's leader
+    # (``SplitManager._split_locked``'s last phase), a child on a daemon
+    # that SIGTERM is stopping. So a replica may install a tablet once
+    # more; twice, on any daemon, fails.
+    restart = (parent, installs[0]["term"])
+    others: dict = {}
+    for u, rec in lives:
+        got = [(i["tablet_id"], i["term"], i["ms"]) for i in rec["installs"]
+               if i["installed"]]
+        if u == killed:  # the restarted life, less the restart's own
+            got.remove(next(g for g in got if g[:2] == restart))
+        others[u] = got
+        ids = [t for t, _term, _ms in got]
+        check(len(ids) == len(set(ids)),
+              f"cluster: {u} installed a tablet twice besides the "
+              f"restart's install {restart}: {got}")
+    parts["other_installs"] = others
     launches: dict = {}
     for _u, rec in lives:
         for name, n in rec["launches"].items():
             launches[name] = launches.get(name, 0) + n
-    for name in ("flat_agg", "mvcc_resolve", "row_gather", "scan_window",
-                 "replay_flush", "decode"):
+    for name in ("flat_agg", "mvcc_resolve", "group_agg", "row_gather",
+                 "scan_window", "replay_flush", "decode"):
         check(launches[name] > 0,
-              f"the tserver phase launched {name} 0 times")
+              f"the cluster phase launched {name} 0 times")
+    held = {k: sum(rec["held"][k] for _u, rec in lives)
+            for k in ("replay_flush", "gather_rows", "scan_candidates",
+                      "grouped_aggregate")}
+    check(held["grouped_aggregate"] >= launches["group_agg"],
+          f"cluster: K8 launches held {held}, made {launches}")
     # Elections: the first, the deliberate two (the crash's and the
-    # transfer's), and any other; the terms each step added.
+    # transfer's), and any other; the terms each step added (the parent
+    # tablet's, up to the split).
     grew, prev = {}, terms_at["start"]
     for name, term in terms_at.items():
         if term is not None and prev is not None:
             grew[name], prev = term - prev, term
-    check(max(terms_end.values()) > terms_before[killed],
-          "tserver: no new term after the leader's crash")
+    check(terms_at["failover"] > terms_before[killed],
+          "cluster: no new term after the leader's crash")
     parts["elections_besides_the_deliberate"] = {
         "total": sum(grew.values()) - 2,
         "terms_added_by_step": {k: v for k, v in grew.items() if v}}
@@ -8452,13 +8726,13 @@ def tserver_phase(device, bw: float, rate: float) -> dict:
                             "launches": {k: v for k, v in
                                          rec["launches"].items() if v}}
                         for u, rec in lives}
-    parts["not_leader_retries"] = cl.retries
+    parts["held"] = held
     parts["launches"] = launches
     parts["steps_s"] = steps
     parts["card"] = card
-    print(f"tserver bootstrap payload: {installs[0]['payload_bytes']} bytes, "
-          f"{installs[0]['runs']} keys in one RPC frame")
-    print("tserver " + json.dumps(parts))
+    print(f"cluster bootstrap payload: {installs[0]['payload_bytes']} "
+          f"bytes, {installs[0]['runs']} keys in one RPC frame")
+    print("cluster " + json.dumps(parts))
     return parts
 
 
@@ -8467,6 +8741,8 @@ def main() -> int:
 
     if len(sys.argv) > 1 and sys.argv[1] == "--tserver-daemon":
         return tserver_daemon(sys.argv[2:])  # on its --device
+    if len(sys.argv) > 1 and sys.argv[1] == "--master-daemon":
+        return master_daemon(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -8567,8 +8843,8 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--raft":
         raft_phase(device, bw, rate)
         return 0
-    if len(sys.argv) == 2 and sys.argv[1] == "--tserver":
-        tserver_phase(device, bw, rate)
+    if len(sys.argv) == 2 and sys.argv[1] == "--cluster":
+        cluster_phase(device, bw, rate)
         return 0
 
     def timed(name, phase, *args):
@@ -8585,7 +8861,7 @@ def main() -> int:
     kernels_built()
     raft = timed("raft", raft_phase, table)
     del table
-    tsv = timed("tserver", tserver_phase)
+    clu = timed("cluster", cluster_phase)
 
     kernel_err = timed("kernel", kernel_phase)
     eng, flat = timed("engine", engine_phase)
@@ -8661,11 +8937,11 @@ def main() -> int:
         group_agg_entry(grp), *row_path_entries(rows, sources),
         *write_entries(eng["k12"], comp), full_entry(full),
         decode_entry()]
-    # The tablet, raft and tserver phases' launches, each on its own path.
+    # The tablet, raft and cluster phases' launches, each on its own path.
     for entry in kernels:
         for path, counts in (("tablet", tab["launches"]),
                              ("raft", raft["launches"]),
-                             ("tserver", tsv["launches"])):
+                             ("cluster", clu["launches"])):
             n = counts.get(entry["name"], 0)
             if n:
                 entry["launches"] += n

@@ -442,3 +442,13 @@ def assert_same_rows(want, got, label, scanned=True):
     assert got.rows == want.rows, label
     if scanned:
         assert got.rows_scanned == want.rows_scanned, label
+
+
+def cpu_mini_cluster(data_root: str, **kwargs):
+    """The port's ``MiniCluster``, its ``gpu`` tablets on CPU tensors:
+    what the JAX cluster tests' ``MiniCluster(...)`` becomes in their
+    port mirrors (``tests/test_torch_cluster*.py``)."""
+    from yugabyte_db_tpu_torch.integration import MiniCluster
+
+    kwargs.setdefault("engine_options", {"device": "cpu"})
+    return MiniCluster(data_root, **kwargs)

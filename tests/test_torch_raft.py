@@ -168,6 +168,19 @@ class Group:
             read_ht=peer.tablet.clock.now().value), allow_stale=True)
         return sorted(res.rows)
 
+    def scan_retrying(self, make_spec, timeout=10.0):
+        """A lease-gated scan on whichever peer leads, at its read time,
+        retried on ``NotLeader`` as a client does: leadership can move
+        between ``leader()`` and the scan."""
+        deadline = time.monotonic() + timeout
+        while True:
+            leader = self.leader()
+            try:
+                return leader.scan(make_spec(leader.read_time().value))
+            except self.side.C.NotLeader:
+                assert time.monotonic() < deadline, "no leader served it"
+                time.sleep(0.02)
+
     def write_retrying(self, rows, timeout=10.0):
         """Write through whichever peer leads, retrying ``NotLeader`` as a
         client does."""
@@ -443,9 +456,9 @@ def check_groups(jg, tg, label):
         for p in g.peers.values():
             assert g.read_all(p) == want, (label, g.side.name, p.node_uuid)
     for lo in (-10**6, 0, 500_000):
-        gt = tl.scan(headline(PORTSIDE, tl.read_time().value, lo)).rows[0]
-        wj = jl.scan(headline(JAXSIDE, jl.read_time().value, lo)).rows[0]
-        same_values(gt, wj, (label, lo))
+        gt = tg.scan_retrying(lambda ht: headline(PORTSIDE, ht, lo))
+        wj = jg.scan_retrying(lambda ht: headline(JAXSIDE, ht, lo))
+        same_values(gt.rows[0], wj.rows[0], (label, lo))
 
 
 @pytest.mark.parametrize("jax_engine", JAX_ENGINES)

@@ -8,7 +8,8 @@
   client; here the test plays the master and the client itself, creating
   the tablet with ``ts.create_tablet`` on each of three port tablet
   servers over a ``LocalTransport`` and writing and reading through their
-  RPC handlers (the ``MiniCluster`` forms wait for ROADMAP.md item 12.4).
+  RPC handlers (their ``MiniCluster`` forms are in
+  ``tests/test_torch_cluster_bootstrap.py``).
   The tablets run on the ``gpu`` engine over CPU tensors.
 - ``install_snapshot``'s term fencing.
 - A differential: three JAX tablet servers (the ``tpu`` engine on the CPU
@@ -18,7 +19,9 @@
   installed by the port's ``TSTabletManager``: every file equals the JAX
   install's byte for byte, and the port's replica serves the same rows.
 - Three ``python -m yugabyte_db_tpu_torch.server.daemon_main --role tserver
-  --device cpu`` processes over loopback sockets.
+  --device cpu`` processes over loopback sockets, and a ``--role master``
+  daemon that a tserver daemon registers with and a ``YBClient`` creates
+  a table through.
 """
 
 from __future__ import annotations
@@ -110,6 +113,8 @@ class Cluster:
                                        heartbeat_interval_s=0.05,
                                        lease_s=0.6, rpc_timeout_s=1.0)
         self.servers = {}
+        self.retried = []
+        self.request_id = 0
         for uuid in NODES:
             self.start(uuid)
 
@@ -146,6 +151,15 @@ class Cluster:
     def peer(self, uuid):
         return self.servers[uuid].tablet_manager.get(TID)
 
+    def settle(self):
+        """Wait until every replica has applied the leader's commit
+        index: a flush or a compaction on each replica then leaves the
+        same runs on all of them, whichever leads later."""
+        target = self.peer(self.leader()).raft.stats()["commit_index"]
+        for uuid in NODES:
+            wait_for(lambda uuid=uuid: self.peer(uuid).raft.stats()[
+                "applied_index"] >= target, msg=f"{uuid} to apply")
+
     def leader(self, exclude=()) -> str:
         def ready():
             for uuid, ts in self.servers.items():
@@ -173,6 +187,7 @@ class Cluster:
                               "tablet_id": TID}, timeout=timeout)
             if resp.get("code") not in ("not_leader", "timed_out"):
                 return resp
+            self.retried.append((method, resp.get("code")))
             assert time.monotonic() < deadline, (method, resp)
             time.sleep(0.02)
 
@@ -188,6 +203,14 @@ class Cluster:
                 for i in range(start, start + n)]
 
     def write(self, rows, **ids) -> dict:
+        """One ``ts.write`` through the leader. Every write carries a
+        (client_id, request_id), the caller's or the next of this client,
+        so that ``on_leader``'s retry after ``timed_out`` applies it once,
+        as a real client's retry does."""
+        if not ids:
+            self.request_id += 1
+            ids = {"client_id": "test-client",
+                   "request_id": self.request_id}
         resp = self.on_leader("ts.write",
                               {"rows": self.side.wire.encode_rows(rows),
                                **ids})
@@ -451,14 +474,61 @@ def test_server_flags_match_the_jax_flags():
         (jax[n].default, jax[n].help, jax[n].tags), n
 
 
-def test_daemon_refuses_the_master_role(tmp_path):
-    out = subprocess.run(
+def test_master_daemon_serves_a_tserver_daemon(tmp_path):
+    """``daemon_main --role master`` and ``--role tserver --device cpu`` in
+    two processes: the tserver registers by heartbeat, and a ``YBClient``
+    over the port's ``SocketTransport`` creates a table, writes a row
+    through ``YBSession`` and reads it back."""
+    from yugabyte_db_tpu_torch.client import YBClient, YBSession
+    from yugabyte_db_tpu_torch.rpc import SocketTransport
+
+    roles = {"m-0": "master", "ts-0": "tserver"}
+    uuids = list(roles)
+    ports = free_ports(len(uuids))
+    topo = ",".join(f"{u}=127.0.0.1:{p}" for u, p in zip(uuids, ports))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    procs = {u: subprocess.Popen(
         [sys.executable, "-m", "yugabyte_db_tpu_torch.server.daemon_main",
-         "--role", "master", "--uuid", "m-0", "--data-dir",
-         str(tmp_path / "m"), "--topology", "m-0=127.0.0.1:1",
-         "--masters", "m-0"], cwd=ROOT, capture_output=True, text=True,
-        timeout=120)
-    assert out.returncode == 2 and "12.4" in out.stderr
+         "--role", roles[u], "--device", "cpu", "--uuid", u,
+         "--data-dir", str(tmp_path / u), "--topology", topo,
+         "--masters", "m-0", "--no-fsync"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for u in uuids}
+    transport = SocketTransport()
+    for u, p in zip(uuids, ports):
+        transport.set_address(u, "127.0.0.1", p)
+    try:
+        client = YBClient(transport, ["m-0"])
+
+        def registered():
+            for p in procs.values():
+                assert p.poll() is None, p.communicate()
+            try:
+                resp = client.master_rpc("master.list_tservers", {},
+                                         timeout_s=5.0)
+            except Exception:  # noqa: BLE001 — the master is starting
+                return False
+            return [t["uuid"] for t in resp["tservers"]] == ["ts-0"]
+        wait_for(registered, timeout=90.0, interval=0.2,
+                 msg="the tserver's registration")
+        table = client.create_table("kv", [
+            t_schema.ColumnSchema("k", t_dt.DataType.STRING,
+                                  t_schema.ColumnKind.HASH),
+            t_schema.ColumnSchema("v", t_dt.DataType.INT64)],
+            num_tablets=1, replication_factor=1)
+        assert table.engine == "gpu"
+        session = YBSession(client)
+        session.insert(table, {"k": "a", "v": 7})
+        assert session.flush() == 1
+        assert session.get(table, {"k": "a"}) == ("a", 7)
+    finally:
+        transport.close()
+        for p in procs.values():
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        codes = {u: p.wait(timeout=60) for u, p in procs.items()}
+    assert codes == {u: 0 for u in uuids}, {
+        u: p.stderr.read()[-2000:] for u, p in procs.items()}
 
 
 # -- a JAX-vs-port differential over the RPC surface -----------------------
@@ -500,6 +570,14 @@ def stripped(resp: dict) -> dict:
     """A reply without its hybrid times and uuids."""
     return {k: v for k, v in resp.items()
             if k not in ("ht", "read_ht", "uuid")}
+
+
+def step_label(step) -> str:
+    """The label ``diff_script`` gave a step: a write's reply is a bare
+    dict, every other step a tuple that starts with its labels."""
+    if isinstance(step, dict):
+        return "write"
+    return " ".join(str(x) for x in step[:-1])
 
 
 def diff_script(c: Cluster) -> list:
@@ -545,6 +623,11 @@ def diff_script(c: Cluster) -> list:
                              {"specs": pages, "fmt": fmt})
             out.append((label, fmt, stripped(wb)))
     reads("memtable")
+    # Flushes and compactions are local to a replica, and a scan's
+    # ``rows_scanned`` follows the runs of the replica that serves it: each
+    # replica applies every entry, then flushes or compacts, so that a
+    # leader change between two steps changes no reply.
+    c.settle()
     for uuid in NODES:
         out.append(("flush", c.call(uuid, "ts.flush", {"tablet_id": TID})))
     reads("flushed")
@@ -572,8 +655,10 @@ def diff_script(c: Cluster) -> list:
     out.append(("apply_txn", c.on_leader(
         "ts.apply_txn", {"txn_id": "txn-1", "commit_ht": wi["ht"] + 1})))
     reads("txn")
-    out.append(("compact", c.on_leader("ts.compact",
-                                       {"history_cutoff_ht": 0})))
+    c.settle()
+    for uuid in NODES:
+        out.append(("compact", c.call(uuid, "ts.compact", {
+            "tablet_id": TID, "history_cutoff_ht": 0})))
     reads("compacted")
     out.append(("split_key", c.on_leader("ts.get_split_key", {})))
     out.append(("checksum", stripped(c.on_leader("ts.checksum", {}))))
@@ -599,8 +684,67 @@ def test_port_tservers_answer_as_the_jax_tservers(tmp_path):
         finally:
             tc.shutdown()
     assert len(got) == len(want)
-    for g, w in zip(got, want):
-        assert g == w
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g == w, (
+            f"step {i} ({step_label(w)}) differs\n port: {g!r}\n"
+            f" jax:  {w!r}\n retries: port {tc.retried}, jax {jc.retried}")
+
+
+def compaction_then_transfer(c: Cluster) -> list:
+    """A limit scan's reply on a leader that alone compacted its runs,
+    then on a replica that did not, after a leadership transfer."""
+    batches, _kf = bench_rows(c.side, c.schema)
+    c.create()
+    for layer in (batches, batches[5:]):  # two runs on every replica
+        for b in layer:
+            c.write(b)
+        c.settle()
+        for uuid in NODES:
+            c.call(uuid, "ts.flush", {"tablet_id": TID})
+    spec = c.side.wire.encode_spec(c.side.S.ScanSpec(
+        projection=["k", "r", "a", "c", "d"], limit=60))
+    lead = c.leader()
+    assert c.call(lead, "ts.compact", {"tablet_id": TID,
+                                       "history_cutoff_ht": 0}) == \
+        {"code": "ok"}
+    out = [stripped(c.on_leader("ts.scan", {"spec": spec}))]
+    other = next(u for u in NODES if u != lead)
+
+    def moved():
+        st = c.call(other, "ts.status", {})["tablets"][TID]["raft"]
+        if st["role"] == "LEADER":
+            return True
+        c.call(lead, "ts.transfer_leadership",
+               {"tablet_id": TID, "target": other})
+        return False
+    wait_for(moved, msg="the transfer")
+    out.append(stripped(c.on_leader("ts.scan", {"spec": spec})))
+    return out
+
+
+def test_a_leader_local_compaction_shows_in_both_packages(tmp_path):
+    """What made the differential above flaky on a loaded host: a
+    compaction is local to one replica, and ``rows_scanned`` follows the
+    runs of the replica that serves the scan. The same state gives the
+    same replies in both packages; the replies differ only between
+    replicas of different runs, so the script settles and compacts every
+    replica."""
+    with D.plain_planes():
+        jc = Cluster(tmp_path / "jax", JAXSIDE, bench_schema(JAXSIDE),
+                     engine="tpu")
+        try:
+            want = compaction_then_transfer(jc)
+        finally:
+            jc.shutdown()
+        tc = Cluster(tmp_path / "port", PORTSIDE, bench_schema(PORTSIDE))
+        try:
+            got = compaction_then_transfer(tc)
+        finally:
+            tc.shutdown()
+    assert got == want
+    compacted, uncompacted = got
+    assert compacted["rows"] == uncompacted["rows"]
+    assert compacted["rows_scanned"] != uncompacted["rows_scanned"]
 
 
 # -- a JAX remote-bootstrap payload installed by the port ------------------

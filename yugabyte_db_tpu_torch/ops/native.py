@@ -4,7 +4,10 @@ Each kernel source ``csrc/<name>.cu`` has a plain C interface. It is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the root of the checkout, at first use, and
 loaded with ``ctypes``. The library's file name carries a hash of its
-source, so an edited source never loads a stale build. Nothing here runs
+source, so an edited source never loads a stale build. ``nvcc``'s output
+(``-Xptxas -v``: registers, stack frames, spills) is kept beside the
+library as ``lib<name>-<hash>.log``, so ``build_logs`` holds it also when
+every library was built by an earlier process. Nothing here runs
 when the module is imported: the CPU tests import every module on a host
 with no ``nvcc``.
 """
@@ -26,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
-# nvcc's output of the last build of each kernel (registers, spills).
+# nvcc's output of the build of each kernel (registers, spills), from
+# this process's build or from the log kept beside a cached library.
 build_logs: dict[str, str] = {}
 
 
@@ -48,10 +52,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def log_path(name: str) -> Path:
+    """Where ``nvcc``'s output for ``library_path(name)`` is kept."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(names) -> None:
     """Compile every named kernel whose library is missing, one ``nvcc``
-    each, all started together."""
+    each, all started together; read the kept log of each one cached."""
     todo = [n for n in names if not library_path(n).exists()]
+    for name in names:
+        if name not in todo and name not in build_logs and \
+                log_path(name).exists():
+            build_logs[name] = log_path(name).read_text()
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -71,7 +84,10 @@ def build(names) -> None:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
-        os.replace(tmp, target)
+        log_tmp = log_path(name).with_suffix(f".{os.getpid()}.logtmp")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, log_path(name))  # before the library: a
+        os.replace(tmp, target)              # cached library has its log
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
 

@@ -12,12 +12,11 @@ Usage:
       --topology m-0=127.0.0.1:7100,ts-0=127.0.0.1:9100,... \
       --masters m-0 --web-port 9200
 
-The port's copy of the JAX package's ``server/daemon_main.py``: the
-tserver role, whole, plus ``--device`` (default ``cuda``), which the
-tablet server's engines take as ``engine_options={"device": ...}``, so
-that a caller asks for the CPU (``--device cpu``, as the tests do). The
-master role exits with an error until ``master/`` is ported (ROADMAP.md
-§1 item 12.4).
+The port's copy of the JAX package's ``server/daemon_main.py``, both
+roles, plus ``--device`` (default ``cuda``), which the tablet server's
+engines take as ``engine_options={"device": ...}``, so that a caller asks
+for the CPU (``--device cpu``, as the tests do). A master builds no
+engine; it accepts the option all the same.
 """
 
 from __future__ import annotations
@@ -54,9 +53,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="the torch device of the tablets' gpu engines")
     args = ap.parse_args(argv)
-    if args.role == "master":
-        ap.error("--role master: the port has no master yet "
-                 "(ROADMAP.md item 12.4)")
 
     from yugabyte_db_tpu_torch.rpc import Messenger, SocketTransport
 
@@ -70,11 +66,17 @@ def main(argv=None) -> int:
     for uuid, (h, p) in topology.items():
         transport.set_address(uuid, h, p)
 
-    from yugabyte_db_tpu_torch.tserver.tablet_server import TabletServer
+    if args.role == "master":
+        from yugabyte_db_tpu_torch.master.master import Master
 
-    daemon = TabletServer(args.uuid, args.data_dir, transport,
-                          master_uuids, fsync=not args.no_fsync,
-                          engine_options={"device": args.device})
+        daemon = Master(args.uuid, args.data_dir, transport, master_uuids,
+                        fsync=not args.no_fsync)
+    else:
+        from yugabyte_db_tpu_torch.tserver.tablet_server import TabletServer
+
+        daemon = TabletServer(args.uuid, args.data_dir, transport,
+                              master_uuids, fsync=not args.no_fsync,
+                              engine_options={"device": args.device})
     messenger = Messenger(args.uuid, num_workers=16)
     # Consensus traffic rides a dedicated pool: user writes block their
     # workers on majority replication, and the raft RPCs that complete

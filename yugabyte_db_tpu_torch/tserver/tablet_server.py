@@ -17,9 +17,6 @@ JAX default ``"cpu"`` is not registered in the port), and
 ``point_serve`` answers None: the native memtable it reads is ROADMAP.md
 §1 item 16). ``ts.multi_agg_scan`` / ``ts.multi_row_scan`` reply
 ``{"code": "ineligible"}`` until the mesh program is ported (item 14).
-The JAX server's ``options`` argument (``server/options.py``'s
-``TabletServerOptions``, which no caller passes) is left out with that
-module until a daemon reads it (item 12.4).
 """
 
 from __future__ import annotations
@@ -46,7 +43,16 @@ class TabletServer:
                  engine_options: dict | None = None,
                  fsync: bool = True,
                  heartbeat_interval_s: float = 0.5,
-                 advertised_addr=None, cloud_info=None):
+                 advertised_addr=None, options=None, cloud_info=None):
+        # Structured options (server.options.TabletServerOptions) override
+        # the loose kwargs when provided (reference:
+        # TabletServerOptions over gflags, server_base_options.h).
+        if options is not None:
+            fsync = options.fsync
+            heartbeat_interval_s = options.heartbeat_interval_s
+            engine_options = options.engine_options or engine_options
+            cloud_info = getattr(options, "cloud_info", None) or cloud_info
+        self.options = options
         self.uuid = uuid
         self.transport = transport
         self.advertised_addr = advertised_addr  # (host, port) when on TCP
@@ -94,6 +100,9 @@ class TabletServer:
         self.tablet_manager.open_existing()
         self.heartbeater.start()
         self.txn_notifier.start()
+        if self.options is not None and self.options.webserver:
+            self.start_webserver(self.options.webserver_host,
+                                 self.options.webserver_port)
 
     def shutdown(self) -> None:
         if self.webserver is not None:

@@ -3,11 +3,10 @@
 Reference analog: the transaction stack of src/yb/tablet/
 transaction_coordinator.cc (status-tablet state machine) and
 transaction_participant.cc (per-tablet intents + apply). The port's copy
-of the JAX package's ``txn`` package as far as the tablet reads it: every
-tablet builds a participant, the status table's tablets a coordinator.
-Left out: the JAX ``txn/__init__``'s lazy re-export of the client-side
-session API (``client.transaction``), which comes with the client
-(ROADMAP.md §1 item 16).
+of the JAX package's ``txn`` package, whole: every tablet builds a
+participant, the status table's tablets a coordinator, and the
+client-side session API (``client.transaction``) is re-exported lazily,
+as in the JAX package.
 """
 
 from yugabyte_db_tpu_torch.txn.coordinator import (TXN_STATUS_TABLE,
@@ -17,11 +16,24 @@ from yugabyte_db_tpu_torch.txn.errors import (TransactionAborted,
 from yugabyte_db_tpu_torch.txn.participant import (IntentConflict,
                                                    TransactionParticipant)
 
+
+def __getattr__(name):
+    # Lazy re-export of the client-side session API, which lives in
+    # yugabyte_db_tpu_torch.client.transaction. Loading it eagerly here
+    # would recurse: client.transaction imports txn.coordinator, which
+    # runs this package __init__ first.
+    if name in ("TransactionManager", "YBTransaction"):
+        from yugabyte_db_tpu_torch.client import transaction
+        return getattr(transaction, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 __all__ = [
     "IntentConflict",
     "TransactionAborted",
     "TransactionConflict",
     "TransactionCoordinator",
+    "TransactionManager",
     "TransactionParticipant",
     "TXN_STATUS_TABLE",
+    "YBTransaction",
 ]

@@ -21,7 +21,12 @@ the JAX defaults, help texts and tags:
 
 - ``raft_group_commit_window_us``, ``raft_max_inflight_ops`` and
   ``fault.raft_apply_stall`` (``consensus.raft``), and
-  ``fault.wal_sync_failed`` (``tablet.wal``).
+  ``fault.wal_sync_failed`` (``tablet.wal``);
+- ``max_clock_skew_us`` (``tserver.tablet_server``);
+- ``follower_unavailable_considered_failed_sec`` (``master.ts_manager``,
+  ``server.options``), ``tablet_split_size_bytes`` /
+  ``tablet_split_ops_per_sec`` (``master.split_manager``) and
+  ``enable_leader_balancing`` (``master.load_balancer``).
 
 The registry is the JAX one: tags, and ``force=True`` to set a flag
 tagged ``unsafe`` (the JAX ``fault.*`` flags are; the port's own
@@ -135,3 +140,28 @@ FLAGS.define("fault.raft_apply_stall", 0.0,
 FLAGS.define("max_clock_skew_us", 500_000,
              "bound on tolerated inter-node clock skew",
              ("stable",))
+FLAGS.define("follower_unavailable_considered_failed_sec", 5.0,
+             "tserver liveness timeout", ("stable",))
+FLAGS.define("tablet_split_size_bytes", 0,
+             "size threshold for master-driven tablet splitting: a "
+             "tablet whose reported on-disk size (WAL + flushed runs) "
+             "crosses this many bytes is split at its median resident "
+             "key; 0 disables size-based splitting (reference: "
+             "FLAGS_tablet_split_size_threshold_bytes of "
+             "catalog_manager's tablet-split heuristics)",
+             ("evolving", "runtime"))
+FLAGS.define("tablet_split_ops_per_sec", 0.0,
+             "op-rate threshold for master-driven tablet splitting: a "
+             "tablet whose heartbeat-reported op rate sustains above "
+             "this many ops/s is split at its median resident key; 0 "
+             "disables load-based splitting (reference: the automatic "
+             "tablet-splitting thresholds of the reference's "
+             "TabletSplitManager)",
+             ("evolving", "runtime"))
+FLAGS.define("enable_leader_balancing", False,
+             "run the master's leader load-balancer pass: when the "
+             "spread between the most- and least-leader-loaded live "
+             "tservers reaches 2, step one leader down toward the "
+             "least-loaded tserver (one move per pass; reference: "
+             "the leader-balancing half of cluster_balance.cc)",
+             ("evolving", "runtime"))

@@ -22,10 +22,10 @@ of either package reads alike. The feeders are consensus
 (``count_swallowed``, ``count_fault_fired``,
 ``observe_group_commit_batch``), the WAL (``observe_wal_sync_ms``) and
 the resource witness (``observe_lock_hold_s``,
-``resource_witness_entity``). The JAX module's other series (serving
-batches, residency, flush paths, plane encodings, splits, leader moves,
-request latency) come with the slice that first feeds each
-(ROADMAP.md §1 item 16).
+``resource_witness_entity``) and the master (``count_tablet_split``,
+``count_leader_move``). The JAX module's other series (serving
+batches, residency, flush paths, plane encodings, request latency)
+come with the slice that first feeds each (ROADMAP.md §1 item 16).
 """
 
 from __future__ import annotations
@@ -373,3 +373,46 @@ def observe_wal_sync_ms(ms: float) -> None:
             "yb_wal_sync_ms", buckets=WAL_SYNC_MS_BUCKETS).observe(ms)
     except Exception:  # noqa: BLE001 — accounting must not throw
         _SWALLOW_LOG.debug("observe_wal_sync_ms failed")
+
+
+# -- cluster-elasticity observability -----------------------------------------
+# Splits and leader moves are rare, cluster-shaping events: both get
+# process-wide counters the master bumps as each operation COMMITS (a
+# dispatched-but-failed split does not count).
+_ELASTICITY_ENTITY: MetricEntity | None = None
+
+
+def _elasticity_entity() -> MetricEntity:
+    global _ELASTICITY_ENTITY
+    with _ENTITY_LOCK:
+        if _ELASTICITY_ENTITY is None:
+            _ELASTICITY_ENTITY = _PROCESS_REGISTRY.entity()
+        return _ELASTICITY_ENTITY
+
+
+def count_tablet_split() -> None:
+    """Bump ``yb_tablet_splits_total``: one committed tablet split
+    (parent swapped for both children in the catalog). Never raises."""
+    try:
+        _elasticity_entity().counter("yb_tablet_splits_total").increment()
+    except Exception:  # noqa: BLE001 — accounting must not throw
+        _SWALLOW_LOG.debug("count_tablet_split failed")
+
+
+def tablet_splits_total() -> int:
+    """Current ``yb_tablet_splits_total`` value (0 if none committed)."""
+    return _elasticity_entity().counter("yb_tablet_splits_total").get()
+
+
+def count_leader_move() -> None:
+    """Bump ``yb_leader_moves_total``: one leader-balancer stepdown
+    actually issued to a tserver. Never raises."""
+    try:
+        _elasticity_entity().counter("yb_leader_moves_total").increment()
+    except Exception:  # noqa: BLE001 — accounting must not throw
+        _SWALLOW_LOG.debug("count_leader_move failed")
+
+
+def leader_moves_total() -> int:
+    """Current ``yb_leader_moves_total`` value (0 if none issued)."""
+    return _elasticity_entity().counter("yb_leader_moves_total").get()

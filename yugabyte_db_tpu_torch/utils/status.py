@@ -3,7 +3,9 @@
 Reference analog: src/yb/util/status.h. The port's copy of the part of the
 JAX package's ``utils/status.py`` that the tablet and the engine read: the
 ``Code`` enum, the ``Status`` value, the ``StatusError`` exception carrying
-one, ``AlreadyPresent`` (the tablet's ``if_not_exists`` write),
+one, ``InvalidArgument`` and ``NotFound`` (``auth.RoleStore``),
+``AlreadyPresent`` (the tablet's ``if_not_exists`` write, a role created
+twice),
 ``IllegalState`` (``fs``'s data-directory identity) and ``TabletSplit``
 (the tablet peer's writes to a sealed tablet). Left out:
 the other exception classes and the ``Status`` constructors, which only
@@ -75,6 +77,16 @@ class StatusError(Exception):
     def __init__(self, status: Status):
         super().__init__(str(status))
         self.status = status
+
+
+class InvalidArgument(StatusError):
+    def __init__(self, message: str):
+        super().__init__(Status(Code.INVALID_ARGUMENT, message))
+
+
+class NotFound(StatusError):
+    def __init__(self, message: str):
+        super().__init__(Status(Code.NOT_FOUND, message))
 
 
 class AlreadyPresent(StatusError):
