@@ -8230,12 +8230,12 @@ def cluster_scan_batch(client, oracle, label: str) -> dict:
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.storage import wire
 
-    loc = client.meta_cache.locations("bench").tablets[0]
+    loc = client.meta_cache.locations(CLUSTER_TABLE).tablets[0]
     lits = [-500_000 - 7 * i for i in range(BATCH)]
     specs = [wire.encode_spec(workload.headline_spec(wire.MAX_HT, lo))
              for lo in lits]
     t0 = time.perf_counter()
-    resp = client.tablet_rpc("bench", loc, "ts.scan_batch",
+    resp = client.tablet_rpc(CLUSTER_TABLE, loc, "ts.scan_batch",
                              {"specs": specs}, timeout_s=60.0)
     ms = (time.perf_counter() - t0) * 1e3
     check(len(resp["results"]) == BATCH,
@@ -8265,9 +8265,9 @@ def cluster_wire_pages(client, oracle, label: str, seed: int) -> dict:
                       predicates=s.predicates, projection=proj,
                       limit=s.limit) for s in specs]
     dts = [schema.column(n).dtype for n in proj]
-    loc = client.meta_cache.locations("bench").tablets[0]
+    loc = client.meta_cache.locations(CLUSTER_TABLE).tablets[0]
     t0 = time.perf_counter()
-    resp = client.tablet_rpc("bench", loc, "ts.scan_wire_batch", {
+    resp = client.tablet_rpc(CLUSTER_TABLE, loc, "ts.scan_wire_batch", {
         "specs": [wire.encode_spec(s) for s in specs], "fmt": "cql"},
         timeout_s=60.0)
     ms = (time.perf_counter() - t0) * 1e3
@@ -8304,16 +8304,7 @@ def cluster_group_by(session, table, oracle, label: str) -> dict:
                     aggregates=[AggSpec("count", None), AggSpec("count", "a"),
                                 AggSpec("sum", "d")],
                     group_by=["d"])
-    groups: dict = {}
-    for i in np.nonzero(oracle.exists)[0].tolist():
-        d = oracle.vals["d"][i]
-        if d is None or not lo <= d < hi:
-            continue
-        g = groups.setdefault(d, [0, 0, 0])
-        g[0] += 1
-        g[1] += oracle.vals["a"][i] is not None
-        g[2] += d
-    want = [(d, *groups[d]) for d in sorted(groups)]
+    want = group_by_oracle(oracle)
     t0 = time.perf_counter()
     res = session.scan(table, spec, timeout_s=60.0)
     ms = (time.perf_counter() - t0) * 1e3
@@ -8339,6 +8330,331 @@ def cluster_checksums(cl, uuids, tablet, label: str) -> dict:
           f"cluster {label}: checksums differ: {got}")
     return {"rows": first["rows"], "checksum": first["checksum"],
             "replicas": len(sums)}
+
+
+# -- the cluster phase's CQL part: the port's CQL proxy over the daemons -----
+
+CLUSTER_TABLE = "smoke.bench"  # the bench table, in keyspace "smoke": the
+                               # CQL part reads it by that name
+CQL_PAGE_ROWS = 100            # rows a CQL page (CqlConnection's page_size)
+CQL_PAGES = 256                # pages after the first flush
+CQL_FAILOVER_PAGES = 16        # pages over the unflushed writes
+CQL_SPLIT_PAGES = 64           # pages across both children
+CQL_POINTS = 1_000             # pipelined prepared point SELECTs
+CQL_INSERTS = 2_000            # pipelined prepared INSERTs of new keys
+# The CQL server's and processor's swallowed-error sites on the
+# pipelined path: an error there re-runs the frame through execute().
+CQL_SWALLOW_SITES = ("cql.batch_decode", "cql.batch_execute",
+                     "cql.batch_plan", "cql.batch_serve",
+                     "cql.batch_continue")
+CQL_HEADLINE = (f"SELECT count(*), sum(a), min(a), max(a), sum(d) "
+                f"FROM {CLUSTER_TABLE} WHERE d >= ? ALLOW FILTERING")
+CQL_PAGE_QUERY = (f"SELECT k, r, a, d FROM {CLUSTER_TABLE} "
+                  f"WHERE d >= -500000 ALLOW FILTERING")
+CQL_POINT = f"SELECT k, r, a, c, d FROM {CLUSTER_TABLE} WHERE k = ? AND r = ?"
+
+
+def cql_insert_rows(schema, first: int, n: int, seed: int = 71) -> list:
+    """``n`` whole rows of new keys, the bench table's key numbers
+    [first, first + n): what the CQL part INSERTs."""
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+
+    rng = random.Random(seed)
+    cid = {c.name: c.col_id for c in schema.columns}
+    return [RowVersion(workload.bench_key(schema, i), ht=0, liveness=True,
+                       columns={cid["a"]: rng.randrange(-10**12, 10**12),
+                                cid["c"]: rng.uniform(-1e6, 1e6),
+                                cid["d"]: rng.randrange(-10**6, 10**6)})
+            for i in range(first, first + n)]
+
+
+def cql_changes(schema, rows, updates, seed: int = 73) -> list:
+    """The CQL part's UPDATE (a new d) and DELETE, each of an existing key
+    of ``rows`` that ``updates`` leaves alone."""
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+
+    rng = random.Random(seed)
+    touched = {u.key for u in updates}
+    picks = [r for r in rng.sample(rows, 64)
+             if r.key not in touched and not r.tombstone][:2]
+    cid = {c.name: c.col_id for c in schema.columns}
+    return [RowVersion(picks[0].key, ht=0,
+                       columns={cid["d"]: rng.randrange(-10**6, 10**6)}),
+            RowVersion(picks[1].key, ht=0, tombstone=True)]
+
+
+def group_by_oracle(oracle) -> list:
+    """The rows of ``GROUP BY d`` (count of rows and of a, sum of d) over
+    the rows whose d lies in CLUSTER_GROUP_D, from a ``TabletOracle``."""
+    lo, hi = CLUSTER_GROUP_D
+    groups: dict = {}
+    for i in np.nonzero(oracle.exists)[0].tolist():
+        d = oracle.vals["d"][i]
+        if d is None or not lo <= d < hi:
+            continue
+        g = groups.setdefault(d, [0, 0, 0])
+        g[0] += 1
+        g[1] += oracle.vals["a"][i] is not None
+        g[2] += d
+    return [(d, *groups[d]) for d in sorted(groups)]
+
+
+class CqlProxy:
+    """The CQL part's client side, in the smoke process: the port's
+    ``CQLServer`` over a ``ClientCluster`` of its own ``YBClient`` (the
+    CQL proxy's, over the same socket transport as the harness), on
+    loopback, driven by the port's ``CqlConnection``. It records each
+    request's round trip from its frame's making (just before its write)
+    to its reply (pipelined requests overlap), and counts the prepared
+    point SELECT frames that the pipelined batch path served and
+    refused."""
+
+    def __init__(self, transport):
+        from yugabyte_db_tpu_torch.client import YBClient
+        from yugabyte_db_tpu_torch.drivers import CqlConnection
+        from yugabyte_db_tpu_torch.yql.cql import processor
+        from yugabyte_db_tpu_torch.yql.cql.client_cluster import ClientCluster
+        from yugabyte_db_tpu_torch.yql.cql.server import CQLServer
+
+        self.client = YBClient(transport, [CLUSTER_MASTER])
+        self.server = CQLServer(ClientCluster(self.client))
+        self.addr = self.server.listen("127.0.0.1", 0)
+        self.batch = {"served": 0, "refused": 0}
+        cls = processor.QLProcessor
+        self._batch_fn = batch_fn = cls.execute_wire_point_batch
+
+        def counted(proc, items):
+            out = batch_fn(proc, items)
+            n = sum(r is not None for r in out)
+            self.batch["served"] += n
+            self.batch["refused"] += len(out) - n
+            return out
+
+        cls.execute_wire_point_batch = counted
+        self._cls = cls
+        self.conn = CqlConnection(*self.addr)
+        self.sent: dict = {}
+        self.lat: list = []
+        frame, recv = self.conn._frame, self.conn._recv_frame
+
+        def timed_frame(op, body):
+            stream, out = frame(op, body)
+            self.sent[stream] = time.perf_counter()
+            return stream, out
+
+        def timed_recv():
+            stream, op, body = recv()
+            t = self.sent.pop(stream, None)
+            if t is not None:
+                self.lat.append((time.perf_counter() - t) * 1e3)
+            return stream, op, body
+
+        self.conn._frame, self.conn._recv_frame = timed_frame, timed_recv
+
+    def latencies(self) -> list:
+        """The round trips (ms) recorded since the last call."""
+        out, self.lat = self.lat, []
+        return out
+
+    def leader(self) -> str:
+        """The leader the proxy's client last found for the table's first
+        tablet."""
+        return self.client.meta_cache.locations(
+            CLUSTER_TABLE).tablets[0].leader
+
+    def close(self) -> None:
+        self._cls.execute_wire_point_batch = self._batch_fn
+        self.conn.close()
+        self.server.shutdown()
+
+
+def cql_swallowed() -> dict:
+    from yugabyte_db_tpu_torch.utils.metrics import swallowed_errors
+
+    return {s: swallowed_errors(s) for s in CQL_SWALLOW_SITES}
+
+
+def cql_daemon_launches(cl) -> dict:
+    """The live tablet servers' launch counts, summed: read through
+    ``smoke.record`` just before and just after each CQL step (the
+    difference is the step's)."""
+    out: dict = {}
+    for u in TSERVER_NODES:
+        if cl.procs.get(u) is None or cl.procs[u].poll() is not None:
+            continue
+        rec = cl.call(u, "smoke.record", {}, timeout=300.0)
+        for name, n in rec["launches"].items():
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def cql_split_errors(proxy, tries: int = 3) -> int:
+    """The statements answered with the split's error before one reads
+    the children: the proxy's client learns of a split from the first
+    RPC to the parent (``YBClient.tablet_rpc`` drops the parent's
+    location and raises ``TabletSplit``), which the processor answers as
+    an error, and the next statement's lookup finds the children (the
+    JAX proxy does the same)."""
+    from yugabyte_db_tpu_torch.drivers import CqlError
+
+    for n in range(tries):
+        try:
+            proxy.conn.execute(f"SELECT count(*) FROM {CLUSTER_TABLE}")
+            proxy.latencies()
+            return n
+        except CqlError as e:
+            check("TabletSplit" in e.message,
+                  f"cql split: an error other than the split's: {e}")
+    check(False, f"cql split: {tries} statements met the split's error")
+
+
+def cql_headline(proxy, oracle, label: str) -> dict:
+    """The headline batch's 32 literals as the prepared CQL_HEADLINE, one
+    EXECUTE each (the processor fans each out over the tablets: the
+    resolve and K1 on each), each answer held against ``oracle`` (an
+    ``Oracle``)."""
+    conn = proxy.conn
+    prep = conn.prepare(CQL_HEADLINE)
+    lits = [-500_000 - 7 * i for i in range(BATCH)]
+    t0 = time.perf_counter()
+    got = [conn.execute_prepared(prep, [lo]) for lo in lits]
+    ms = (time.perf_counter() - t0) * 1e3
+    proxy.latencies()
+    for lo, res in zip(lits, got):
+        check(res.rows == [oracle.headline(lo)],
+              f"cql {label}: headline d >= {lo}: {res.rows} != "
+              f"{oracle.headline(lo)}")
+    return {"specs": BATCH, "ms": ms}
+
+
+def cql_group_by(proxy, oracle, label: str) -> dict:
+    """``GROUP BY d`` over CLUSTER_GROUP_D through CQL (K8 on each
+    tablet, the groups combined by the processor), held against the
+    oracle."""
+    lo, hi = CLUSTER_GROUP_D
+    want = group_by_oracle(oracle)
+    t0 = time.perf_counter()
+    res = proxy.conn.execute(
+        f"SELECT d, count(*), count(a), sum(d) FROM {CLUSTER_TABLE} "
+        f"WHERE d >= {lo} AND d < {hi} GROUP BY d ALLOW FILTERING")
+    ms = (time.perf_counter() - t0) * 1e3
+    proxy.latencies()
+    check(res.rows == want, f"cql {label}: GROUP BY d: {res.rows} != {want}")
+    return {"groups": len(want), "ms": ms}
+
+
+def cql_pages(proxy, oracle, label: str, n: int) -> dict:
+    """The first ``n`` pages of CQL_PAGE_QUERY, CQL_PAGE_ROWS rows a page,
+    through CqlConnection's page size and paging state (the wire route:
+    the tablets serialize the cells, the server forwards them), each
+    page's rows equal to the oracle's."""
+    conn = proxy.conn
+    state, pages = None, []
+    t0 = time.perf_counter()
+    for _ in range(n):
+        res = conn.execute(CQL_PAGE_QUERY, page_size=CQL_PAGE_ROWS,
+                           paging_state=state)
+        pages.append(res.rows)
+        state = res.paging_state
+        check(state is not None, f"cql {label}: the scan ended at page "
+                                 f"{len(pages)} of {n}")
+    ms = (time.perf_counter() - t0) * 1e3
+    lat = proxy.latencies()
+    match = oracle.match
+    for j, rows in enumerate(pages):
+        take = match[j * CQL_PAGE_ROWS:(j + 1) * CQL_PAGE_ROWS].tolist()
+        want = [oracle.key_values(oracle.keys[i])
+                + (oracle.vals["a"][i], oracle.vals["d"][i]) for i in take]
+        check(rows == want, f"cql {label} page {j}: {len(rows)} rows differ "
+                            f"from the oracle's {len(want)}")
+    return {"pages": n, "rows": n * CQL_PAGE_ROWS, "ms": ms,
+            "ms_a_page": ms / n, "page_p50_ms": statistics.median(lat),
+            "page_p99_ms": statistics.quantiles(
+                lat, n=100, method="inclusive")[98]}
+
+
+def cql_point_rows(oracle, keys) -> list:
+    """The CQL_POINT answers of ``keys`` from a ``TabletOracle``."""
+    out = []
+    for key in keys:
+        p = oracle.point(key)
+        out.append([] if p is None else
+                   [oracle.key_values(key) + (p["a"], p["c"], p["d"])])
+    return out
+
+
+def cql_points(proxy, oracle, keys, label: str) -> dict:
+    """CQL_POINT for each of ``keys``, pipelined by
+    ``execute_prepared_many`` (the server's batch path: one
+    ``ts.scan_wire_batch`` a tablet a burst), each answer held against
+    the oracle; the batch path refuses none of the frames of a burst."""
+    conn = proxy.conn
+    prep = conn.prepare(CQL_POINT)
+    proxy.latencies()
+    before = dict(proxy.batch)
+    t0 = time.perf_counter()
+    got = conn.execute_prepared_many(
+        prep, [list(oracle.key_values(k)) for k in keys])
+    ms = (time.perf_counter() - t0) * 1e3
+    lat = proxy.latencies()
+    want = cql_point_rows(oracle, keys)
+    for j, (res, w) in enumerate(zip(got, want)):
+        got_rows = res if isinstance(res, Exception) else res.rows
+        check(got_rows == w, f"cql {label}: point {j}: {got_rows} != {w}")
+    served = proxy.batch["served"] - before["served"]
+    refused = proxy.batch["refused"] - before["refused"]
+    # A frame that arrives alone is an EXECUTE of its own, not a burst.
+    check(served > 0 and refused == 0,
+          f"cql {label}: the batch path served {served} and refused "
+          f"{refused} of {len(keys)} point SELECTs")
+    q = statistics.quantiles(lat, n=100, method="inclusive")
+    return {"requests": len(keys), "ms": ms,
+            "p50_ms": statistics.median(lat), "p99_ms": q[98],
+            "batch_served": served, "batch_refused": refused,
+            "alone": len(keys) - served,
+            "found": sum(bool(w) for w in want)}
+
+
+def cql_writes(proxy, schema, inserts, changes, oracle) -> dict:
+    """``inserts`` as pipelined prepared INSERTs (d bound as an int, c as
+    a double, by the statement's bind specs), then ``changes``' UPDATE
+    and DELETE; every acknowledged write read back through CQL (pipelined
+    point SELECTs) against ``oracle``, the state after them."""
+    conn = proxy.conn
+    cid = {c.name: c.col_id for c in schema.columns}
+    ins = conn.prepare(f"INSERT INTO {CLUSTER_TABLE} (k, r, a, c, d) "
+                       f"VALUES (?, ?, ?, ?, ?)")
+    check([spec[0] for spec in ins.bind_specs] == [0x000D, 0x0002, 0x0002,
+                                                   0x0007, 0x0009],
+          f"cql: the INSERT's bind specs {ins.bind_specs}")
+    values = [[*oracle.key_values(r.key), r.columns[cid["a"]],
+               r.columns[cid["c"]], r.columns[cid["d"]]] for r in inserts]
+    proxy.latencies()
+    t0 = time.perf_counter()
+    out = conn.execute_prepared_many(ins, values)
+    s = time.perf_counter() - t0
+    lat = proxy.latencies()
+    bad = [r for r in out if isinstance(r, Exception) or r.kind != "void"]
+    check(not bad, f"cql: {len(bad)} INSERTs failed: {bad[:3]}")
+    upd, dele = changes
+    k, r = oracle.key_values(upd.key)
+    conn.execute_prepared(conn.prepare(
+        f"UPDATE {CLUSTER_TABLE} SET d = ? WHERE k = ? AND r = ?"),
+        [upd.columns[cid["d"]], k, r])
+    conn.execute_prepared(conn.prepare(
+        f"DELETE FROM {CLUSTER_TABLE} WHERE k = ? AND r = ?"),
+        list(oracle.key_values(dele.key)))
+    proxy.latencies()
+    back = cql_points(proxy, oracle, [r.key for r in inserts]
+                      + [upd.key, dele.key], "read back")
+    check(back["found"] == len(inserts) + 1,
+          f"cql: {back['found']} of the {len(inserts) + 1} written rows "
+          f"read back")
+    q = statistics.quantiles(lat, n=100, method="inclusive")
+    return {"inserts": len(inserts), "s": s, "rows_per_s": len(inserts) / s,
+            "insert_p50_ms": statistics.median(lat), "insert_p99_ms": q[98],
+            "read_back": back}
 
 
 def cluster_phase(device, bw: float, rate: float) -> dict:
@@ -8368,7 +8684,24 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
     and the headline batch, a GROUP BY (K8) and the 256 pages across both
     children; then SIGTERM: every tablet server's record (launches,
     plain-version holds, installs, GC pauses). Every answer equals the
-    exact oracle (``stamped_oracle``)."""
+    exact oracle (``stamped_oracle``).
+
+    The CQL part runs on the same daemons (``CqlProxy``: the port's
+    ``CQLServer`` over a ``ClientCluster`` of its own client, driven by
+    the port's ``CqlConnection``), the table read as CLUSTER_TABLE, its
+    steps first at each point (so the runs' first reads, and their
+    resolves, are its own): after the first flush, the handshake,
+    ``CREATE KEYSPACE`` and ``discover()``, the headline batch as a
+    prepared statement (the resolve and K1), a ``GROUP BY d`` (K8),
+    CQL_PAGES pages (the wire route, K7) and CQL_POINTS pipelined point
+    SELECTs (the batch path refusing none), then CQL_INSERTS pipelined
+    prepared INSERTs of new keys, an UPDATE and a DELETE, each read back,
+    and a flush of every replica (K12) with equal checksums; after the
+    failover the headline and CQL_FAILOVER_PAGES pages over the unflushed
+    writes (K9) from the new leader; after the split the headline, the
+    GROUP BY and CQL_SPLIT_PAGES pages across both children. Its launches
+    are the ``cql`` path, and none of its errors is swallowed and
+    re-run."""
     import os
     import shutil
     import tempfile
@@ -8401,14 +8734,41 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
     updates, _ = workload.make_update_rows(schema, rows, max_ht,
                                            TSERVER_UPDATES)
     oracle = stamped_oracle(schema, rows, updates)
+    # The CQL part's writes: new keys, then an UPDATE and a DELETE; the
+    # table's state after them, and after the failover's writes over it.
+    cql_rows = cql_insert_rows(schema, TSERVER_KEYS, CQL_INSERTS)
+    changes = cql_changes(schema, rows, updates)
+    cql_oracle = stamped_oracle(schema, rows + cql_rows, updates + changes)
     after_writes, after = failover_rows(
-        schema, rows, oracle, seed=61,
+        schema, rows, cql_oracle, seed=61,
         n=TSERVER_AFTER_WRITES * TABLET_UPDATE_BATCH)
     root = tempfile.mkdtemp(prefix="cluster-")
     step("setup")
     dev = "cuda" if device.type == "cuda" else "cpu"
     cl = ClusterDaemons(root, dev)
     records: dict = {}
+    proxy = None
+    cql: dict = {"launches": {}}
+
+    def cql_step(name, fn):
+        """One CQL step, timed as step ``name``: the live tablet servers'
+        launch counts read just before and just after it (the difference
+        is the step's: the ``cql`` path), the CQL layer's swallowed-error
+        counters unchanged by it."""
+        before = cql_daemon_launches(cl)
+        swallowed = cql_swallowed()
+        mark[0] = time.perf_counter()
+        cql[name] = fn()
+        step(name)
+        for k, n in cql_daemon_launches(cl).items():
+            if n - before.get(k, 0):
+                cql["launches"][k] = (cql["launches"].get(k, 0) + n
+                                      - before.get(k, 0))
+        check(cql_swallowed() == swallowed,
+              f"cql {name}: errors swallowed and re-run: {cql_swallowed()}, "
+              f"before {swallowed}")
+        mark[0] = time.perf_counter()
+
     try:
         t0 = time.perf_counter()
         for u in (CLUSTER_MASTER, *TSERVER_NODES):
@@ -8420,13 +8780,14 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
         parts["daemons_up_ms"] = (time.perf_counter() - t0) * 1e3
         client = YBClient(cl.transport, [CLUSTER_MASTER])
         t0 = time.perf_counter()
-        table = client.create_table("bench", schema.columns, num_tablets=1,
-                                    replication_factor=3, engine="gpu",
-                                    timeout_s=TSERVER_WAIT_S)
-        check(table.schema.to_dict() == schema.to_dict() and
+        table = client.create_table(CLUSTER_TABLE, schema.columns,
+                                    num_tablets=1, replication_factor=3,
+                                    engine="gpu", timeout_s=TSERVER_WAIT_S)
+        check(table.schema.to_dict() == dict(schema.to_dict(),
+                                             table_id=CLUSTER_TABLE) and
               table.engine == "gpu", f"cluster: the table the master made: "
               f"{table.schema.to_dict()}, {table.engine}")
-        loc = client.meta_cache.locations("bench").tablets[0]
+        loc = client.meta_cache.locations(CLUSTER_TABLE).tablets[0]
         cl.tablet = parent = loc.tablet_id
         check(sorted(loc.replicas) == list(TSERVER_NODES),
               f"cluster: the tablet's replicas {loc.replicas}")
@@ -8471,8 +8832,8 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
         def resend():
             """The last acknowledged update, re-sent by the client with
             its (client_id, request_id): the original hybrid time."""
-            loc = client.meta_cache.locations("bench").tablets[0]
-            resp = client.tablet_rpc("bench", loc, "ts.write", {
+            loc = client.meta_cache.locations(CLUSTER_TABLE).tablets[0]
+            resp = client.tablet_rpc(CLUSTER_TABLE, loc, "ts.write", {
                 "rows": last_body, "client_id": client.client_id,
                 "request_id": last[0]}, timeout_s=TSERVER_WAIT_S)
             return resp["ht"]
@@ -8489,6 +8850,38 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
               f"cluster: {parts['checksum']['rows']} rows checksummed, "
               f"{int(oracle.exists.sum())} exist")
         step("flush")
+        # The CQL part (1): the proxy over the flushed multi-version run,
+        # its first reads (the leader's view: the resolve), then the
+        # session's reads, then the CQL writes.
+        proxy = CqlProxy(cl.transport)
+
+        def cql_reads():
+            c = proxy.conn
+            c.execute("CREATE KEYSPACE smoke")
+            topo = c.discover()
+            ks, name = CLUSTER_TABLE.split(".")
+            cols = topo["schema"].get(ks, {}).get("tables", {}).get(name)
+            check(cols == [c.name for c in schema.columns],
+                  f"cql: discover() found {CLUSTER_TABLE} as {cols}")
+            keys = random.Random(67).sample(oracle.keys, CQL_POINTS)
+            return {"cql_version": c.supported.get("CQL_VERSION"),
+                    "headline": cql_headline(proxy, oracle.headline(),
+                                             "leader"),
+                    "group_by": cql_group_by(proxy, oracle, "leader"),
+                    "pages": cql_pages(proxy, oracle, "leader", CQL_PAGES),
+                    "points": cql_points(proxy, oracle, keys, "leader")}
+
+        def cql_writes_step():
+            out = cql_writes(proxy, schema, cql_rows, changes, cql_oracle)
+            out["flush_ms"] = cl.flush(TSERVER_NODES)
+            out["checksum"] = cluster_checksums(
+                cl, list(TSERVER_NODES), parent, "cql writes")
+            check(out["checksum"]["rows"] == int(cql_oracle.exists.sum()),
+                  f"cql: {out['checksum']['rows']} rows checksummed, "
+                  f"{int(cql_oracle.exists.sum())} exist")
+            return out
+
+        cql_step("cql_reads", cql_reads)
         parts["headline"] = cluster_headline(session, table,
                                              oracle.headline(), "leader")
         parts["pages"] = cluster_pages(session, table, oracle, "leader", 31)
@@ -8496,6 +8889,7 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
                                                  "leader")
         parts["wire_pages"] = cluster_wire_pages(client, oracle, "leader", 37)
         step("reads")
+        cql_step("cql_writes", cql_writes_step)
         # The leader's process crashes.
         leader = cl.leader()
         terms_before = cl.terms()
@@ -8514,6 +8908,23 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
         for i in range(0, len(after_writes), TABLET_UPDATE_BATCH):
             write(after_writes[i:i + TABLET_UPDATE_BATCH])
         parts["after_writes_s"] = time.perf_counter() - t0
+        step("writes_after")
+
+        # The CQL part (2): the same connection over the unflushed
+        # writes, answered by the new leader, which the proxy's client
+        # finds by itself; the new leader's first reads (its view, the
+        # resolve).
+        def cql_failover():
+            out = {"headline": cql_headline(proxy, after.headline(),
+                                            "new leader"),
+                   "pages": cql_pages(proxy, after, "new leader",
+                                      CQL_FAILOVER_PAGES)}
+            check(proxy.leader() == new, f"cql: the proxy's client reads "
+                                         f"from {proxy.leader()}, the new "
+                                         f"leader is {new}")
+            return out
+
+        cql_step("cql_failover", cql_failover)
         parts["unflushed_pages"] = cluster_pages(session, table, after,
                                                  "unflushed", 47)
         parts["unflushed_scan_batch"] = cluster_scan_batch(
@@ -8522,7 +8933,7 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
             client, after, "unflushed", 43)
         parts["survivors_flush_ms"] = cl.flush(
             [u for u in TSERVER_NODES if u != leader])
-        step("writes_after")
+        step("unflushed_reads")
         # The killed daemon restarts on its data directory: re-seeded by
         # remote bootstrap.
         t0 = time.perf_counter()
@@ -8565,7 +8976,8 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
         parts["transfer_ms"] = (time.perf_counter() - t0) * 1e3
         parts["restarted_headline"] = cluster_headline(
             session, table, after.headline(), "restarted leader")
-        served_by = client.meta_cache.locations("bench").tablets[0].leader
+        served_by = client.meta_cache.locations(
+            CLUSTER_TABLE).tablets[0].leader
         check(served_by == leader, f"cluster: the headline after the "
                                    f"transfer was served by {served_by}")
         parts["restarted_scan_batch"] = cluster_scan_batch(
@@ -8576,7 +8988,7 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
         # The master placed nothing new: the tablet keeps its three
         # replicas, and every tablet server is alive to it again.
         placed = client.master_rpc("master.get_table_locations",
-                                   {"name": "bench"})
+                                   {"name": CLUSTER_TABLE})
         parts["replicas_after_restart"] = [
             sorted(r["uuid"] for r in t["replicas"])
             for t in placed["tablets"]]
@@ -8595,14 +9007,14 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
         # gives each attempt 2 s, and a retry of a running split fails.
         t0 = time.perf_counter()
         resp = cl.call(CLUSTER_MASTER, "master.split_tablet", {
-            "table": "bench", "tablet_id": parent,
+            "table": CLUSTER_TABLE, "tablet_id": parent,
             "timeout": TSERVER_WAIT_S}, timeout=TSERVER_WAIT_S + 10.0)
         check(resp.get("code") == "ok" and len(resp["children"]) == 2,
               f"cluster: the split: {resp}")
         parts["split_s"] = time.perf_counter() - t0
         children = resp["children"]
         print(f"cluster split: {parts['split_s']:.2f} s, {resp}", flush=True)
-        locs = client.meta_cache.locations("bench", refresh=True).tablets
+        locs = client.meta_cache.locations(CLUSTER_TABLE, refresh=True).tablets
         check([t.tablet_id for t in locs] == children,
               f"cluster: the table's tablets after the split: "
               f"{[t.tablet_id for t in locs]}, children {children}")
@@ -8637,6 +9049,14 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
               f"cluster: the children hold {n_children} rows, "
               f"{int(after.exists.sum())} exist")
         step("split")
+        # The CQL part (3): across both children, their first reads.
+        cql_step("cql_split", lambda: {
+            "split_errors": cql_split_errors(proxy),
+            "headline": cql_headline(proxy, after.headline(), "split"),
+            "group_by": cql_group_by(proxy, after, "split"),
+            "pages": cql_pages(proxy, after, "split", CQL_SPLIT_PAGES)})
+        proxy.close()
+        proxy = None
         parts["split_headline"] = cluster_headline(
             session, table, after.headline(), "split")
         parts["split_group_by"] = cluster_group_by(session, table, after,
@@ -8655,6 +9075,8 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
                 records[u] = json.load(f)
         step("stop")
     finally:
+        if proxy is not None:
+            proxy.close()
         cl.close()
         shutil.rmtree(root, ignore_errors=True)
     killed = parts["killed"]
@@ -8703,6 +9125,13 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
                  "scan_window", "replay_flush", "decode"):
         check(launches[name] > 0,
               f"the cluster phase launched {name} 0 times")
+    cql["s"] = sum(steps[k] for k in steps if k.startswith("cql_"))
+    parts["cql"] = cql
+    print("cql " + json.dumps(cql))
+    for name in ("flat_agg", "mvcc_resolve", "group_agg", "row_gather",
+                 "scan_window", "replay_flush"):
+        check(cql["launches"].get(name, 0) > 0,
+              f"the cluster phase's CQL part launched {name} 0 times")
     held = {k: sum(rec["held"][k] for _u, rec in lives)
             for k in ("replay_flush", "gather_rows", "scan_candidates",
                       "grouped_aggregate")}
@@ -8937,11 +9366,14 @@ def main() -> int:
         group_agg_entry(grp), *row_path_entries(rows, sources),
         *write_entries(eng["k12"], comp), full_entry(full),
         decode_entry()]
-    # The tablet, raft and cluster phases' launches, each on its own path.
+    # The tablet, raft and cluster phases' launches, each on its own path
+    # (the cluster phase's CQL part on its own, "cql").
+    cql = clu["cql"]["launches"]
+    cluster = {k: n - cql.get(k, 0) for k, n in clu["launches"].items()}
     for entry in kernels:
         for path, counts in (("tablet", tab["launches"]),
                              ("raft", raft["launches"]),
-                             ("cluster", clu["launches"])):
+                             ("cluster", cluster), ("cql", cql)):
             n = counts.get(entry["name"], 0)
             if n:
                 entry["launches"] += n

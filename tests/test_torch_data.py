@@ -452,3 +452,178 @@ def cpu_mini_cluster(data_root: str, **kwargs):
 
     kwargs.setdefault("engine_options", {"device": "cpu"})
     return MiniCluster(data_root, **kwargs)
+
+
+def cpu_local_cluster(data_root: str | None = None, **kwargs):
+    """The port's ``LocalCluster`` (the CQL processor's in-process
+    cluster), its ``gpu`` tablets on CPU tensors: what the JAX CQL tests'
+    ``LocalCluster(...)`` becomes in their port mirrors
+    (``tests/test_torch_cql*.py``). Options the caller gives are kept;
+    ``device`` is added to them."""
+    from yugabyte_db_tpu_torch.yql.cql.processor import LocalCluster
+
+    kwargs["engine_options"] = dict(kwargs.get("engine_options") or {},
+                                    device="cpu")
+    return LocalCluster(data_root, **kwargs)
+
+
+class CqlWireClient:
+    """A tiny CQL v4 client speaking raw frames through the port's
+    ``wire_protocol`` (the JAX ``tests/test_cql_wire.py`` ``WireClient``):
+    STARTUP, QUERY, PREPARE/EXECUTE with raw bound values, paging, and
+    pipelined EXECUTEs in one write (``tests/test_serving_path.py``'s
+    ``_CqlWire``)."""
+
+    def __init__(self, host, port):
+        import socket
+
+        from yugabyte_db_tpu_torch.yql.cql import wire_protocol as W
+
+        self.W = W
+        self.sock = socket.create_connection((host, port), timeout=10)
+        self.stream = 0
+
+    def close(self):
+        self.sock.close()
+
+    def _send(self, opcode, body: bytes, stream=None):
+        W = self.W
+        s = self.stream if stream is None else stream
+        self.sock.sendall(
+            W.HEADER.pack(W.VERSION_REQ, 0, s, opcode, len(body)) + body)
+
+    def _recv_frame(self):
+        W = self.W
+        hdr = self._recvn(W.HEADER.size)
+        _version, _flags, stream, opcode, length = W.HEADER.unpack(hdr)
+        return stream, opcode, self._recvn(length)
+
+    def _recvn(self, n):
+        buf = b""
+        while len(buf) < n:
+            chunk = self.sock.recv(n - len(buf))
+            assert chunk, "connection closed"
+            buf += chunk
+        return buf
+
+    def startup(self):
+        W = self.W
+        w = W.Writer()
+        w.short(1)
+        w.string("CQL_VERSION").string("3.4.4")
+        self._send(W.OP_STARTUP, w.getvalue())
+        _s, opcode, _b = self._recv_frame()
+        assert opcode == W.OP_READY
+
+    def query(self, cql, page_size=None, paging_state=None, values=None):
+        W = self.W
+        self.stream = (self.stream + 1) % 32000
+        w = W.Writer().long_string(cql)
+        self._query_params(w, values, page_size, paging_state)
+        self._send(W.OP_QUERY, w.getvalue())
+        return self._result()
+
+    def prepare(self, cql):
+        W = self.W
+        self.stream = (self.stream + 1) % 32000
+        self._send(W.OP_PREPARE, W.Writer().long_string(cql).getvalue())
+        _stream, opcode, body = self._recv_frame()
+        assert opcode == W.OP_RESULT, body
+        r = W.Reader(body)
+        assert r.int32() == W.RESULT_PREPARED
+        stmt_id = r.short_bytes()
+        flags = r.int32()
+        ncols = r.int32()
+        r.int32()  # pk count
+        if flags & 0x0001:
+            r.string()
+            r.string()
+        bind_types = []
+        for _ in range(ncols):
+            r.string()
+            bind_types.append(r.short())
+        return stmt_id, bind_types
+
+    def execute(self, stmt_id, raw_values, page_size=None):
+        W = self.W
+        self.stream = (self.stream + 1) % 32000
+        w = W.Writer().short_bytes(stmt_id)
+        self._query_params(w, raw_values, page_size, None)
+        self._send(W.OP_EXECUTE, w.getvalue())
+        return self._result()
+
+    def execute_many(self, frames):
+        """frames: [(stream, stmt_id, [raw value bytes])], all sent in
+        ONE write (the pipelined shape the server's batch path
+        coalesces); returns {stream: (opcode, body)}, each reply frame
+        verbatim."""
+        W = self.W
+        out = []
+        for stream, stmt_id, values in frames:
+            w = W.Writer().short_bytes(stmt_id)
+            self._query_params(w, values, None, None)
+            body = w.getvalue()
+            out.append(W.HEADER.pack(W.VERSION_REQ, 0, stream,
+                                     W.OP_EXECUTE, len(body)) + body)
+        self.sock.sendall(b"".join(out))
+        replies = {}
+        for _ in range(len(frames)):
+            stream, opcode, body = self._recv_frame()
+            assert stream not in replies
+            replies[stream] = (opcode, body)
+        assert set(replies) == {f[0] for f in frames}
+        return replies
+
+    @staticmethod
+    def _query_params(w, values, page_size, paging_state):
+        flags = 0
+        if values:
+            flags |= 0x01
+        if page_size is not None:
+            flags |= 0x04
+        if paging_state is not None:
+            flags |= 0x08
+        w.short(1).byte(flags)  # consistency ONE
+        if values:
+            w.short(len(values))
+            for v in values:
+                w.bytes_(v)
+        if page_size is not None:
+            w.int32(page_size)
+        if paging_state is not None:
+            w.bytes_(paging_state)
+
+    def _result(self):
+        W = self.W
+        _stream, opcode, body = self._recv_frame()
+        if opcode == W.OP_ERROR:
+            r = W.Reader(body)
+            code = r.int32()
+            raise CqlWireError(code, r.string())
+        assert opcode == W.OP_RESULT
+        r = W.Reader(body)
+        kind = r.int32()
+        if kind in (W.RESULT_VOID, W.RESULT_SET_KEYSPACE,
+                    W.RESULT_SCHEMA_CHANGE):
+            return kind, None, None
+        assert kind == W.RESULT_ROWS
+        flags = r.int32()
+        ncols = r.int32()
+        paging = r.bytes_() if flags & 0x0002 else None
+        if flags & 0x0001:
+            r.string()
+            r.string()
+        cols = []
+        for _ in range(ncols):
+            name = r.string()
+            cols.append((name, r.short()))
+        nrows = r.int32()
+        rows = [tuple(r.bytes_() for _ in range(ncols))
+                for _ in range(nrows)]
+        return cols, rows, paging
+
+
+class CqlWireError(Exception):
+    def __init__(self, code, message):
+        super().__init__(message)
+        self.code = code

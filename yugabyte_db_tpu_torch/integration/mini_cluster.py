@@ -9,8 +9,8 @@ The port's copy of the JAX package's ``integration/mini_cluster.py``.
 Its tablets run on the port's ``gpu`` engine, on the device that
 ``engine_options={"device": ...}`` names: ``"cuda"`` unless the caller
 asks for another (the tests ask for ``"cpu"``). Left out: the JAX
-cluster's ``start_cql_server`` and ``start_pg_server``, which need the
-YQL frontends (ROADMAP.md §1 item 16).
+cluster's ``start_pg_server``, which needs the YSQL frontend (ROADMAP.md
+§1 item 16).
 """
 
 from __future__ import annotations
@@ -177,3 +177,17 @@ class MiniCluster:
             time.sleep(0.02)
         raise TimeoutError(
             f"{len(master.ts_manager.live_tservers())}/{want} tservers")
+
+    def start_cql_server(self, host: str = "127.0.0.1", port: int = 0,
+                         **cluster_kwargs):
+        """Start a CQL native-protocol proxy over this cluster (the
+        reference shape: the tserver process spawns the CQL server on
+        port 9042, tablet_server_main.cc:211). Returns (server, (host,
+        port)); caller shuts the server down."""
+        from yugabyte_db_tpu_torch.yql.cql.client_cluster import ClientCluster
+        from yugabyte_db_tpu_torch.yql.cql.server import CQLServer
+
+        server = CQLServer(ClientCluster(self.client("cql-proxy"),
+                                         **cluster_kwargs))
+        addr = server.listen(host, port)
+        return server, addr

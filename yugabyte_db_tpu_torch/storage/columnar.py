@@ -59,8 +59,18 @@ def sorted_dictionary(vals: list):
     binary column's non-NULL values, or None past ``DICT_MAX_VALUES``
     distinct raw values: the JAX package's ``sorted(set(raws))`` and
     ``code_of`` lookup, with the raw bytes taken once per distinct value
-    instead of once per row."""
-    raw_of = {v: _varlen_raw(v) for v in set(vals)}
+    instead of once per row (once per row for unhashable values: the
+    collections and JSONB documents a CQL table stores)."""
+    try:
+        raw_of = {v: _varlen_raw(v) for v in set(vals)}
+    except TypeError:
+        raws = [_varlen_raw(v) for v in vals]
+        uniq = sorted(set(raws))
+        if len(uniq) > enc.DICT_MAX_VALUES:
+            return None
+        code_of_raw = {r: i for i, r in enumerate(uniq)}
+        return uniq, np.fromiter(map(code_of_raw.__getitem__, raws),
+                                 np.int64, len(raws))
     uniq = sorted(set(raw_of.values()))
     if len(uniq) > enc.DICT_MAX_VALUES:
         return None

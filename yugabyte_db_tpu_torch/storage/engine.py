@@ -151,13 +151,20 @@ def register_engine(name: str, cls: type) -> None:
     _ENGINES[name] = cls
 
 
-def make_engine(name: str, schema: Schema,
-                options: dict | None = None) -> StorageEngine:
-    """Factory behind the ``tablet_storage_engine`` option."""
+def require_engine(name: str) -> type:
+    """The engine class registered as ``name``; raises ``ValueError``
+    for a name no engine is registered under (the port registers only
+    ``gpu``)."""
     if name == "gpu" and name not in _ENGINES:
         # Lazy: the engine module pulls in torch; host-only users of the
         # data model shouldn't pay for it.
         import yugabyte_db_tpu_torch.storage.gpu_engine  # noqa: F401
     if name not in _ENGINES:
         raise ValueError(f"unknown storage engine {name!r}; have {sorted(_ENGINES)}")
-    return _ENGINES[name](schema, options)
+    return _ENGINES[name]
+
+
+def make_engine(name: str, schema: Schema,
+                options: dict | None = None) -> StorageEngine:
+    """Factory behind the ``tablet_storage_engine`` option."""
+    return require_engine(name)(schema, options)

@@ -165,3 +165,7 @@ FLAGS.define("enable_leader_balancing", False,
              "least-loaded tserver (one move per pass; reference: "
              "the leader-balancing half of cluster_balance.cc)",
              ("evolving", "runtime"))
+FLAGS.define("use_cassandra_authentication", False,
+             "require CQL authentication + per-statement role "
+             "permission checks (reference: the flag of the same name "
+             "gating auth in the CQL proxy)", ("stable", "runtime"))

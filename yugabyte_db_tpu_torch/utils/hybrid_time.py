@@ -8,7 +8,8 @@ issues them (physical wall clock, logical increments within one microsecond,
 
 The port's copy of the JAX package's ``utils/hybrid_time.py``: the
 constants ``storage.row_version`` resolves relative TTLs with,
-``HybridTime`` and ``HybridClock`` (the tablet stamps its writes with the
+``HybridTime`` (with ``from_micros`` and ``max``, which the CQL layer
+reads) and ``HybridClock`` (the tablet stamps its writes with the
 clock; ``HybridClock(now_micros=...)`` takes a deterministic time source,
 as the tests do). Left out: ``LogicalClock`` and the clock-skew bound,
 which only the cluster layers read (ROADMAP.md §1 item 16).
@@ -34,6 +35,17 @@ class HybridTime:
 
     value: int
 
+    # -- constructors ------------------------------------------------------
+    @staticmethod
+    def from_micros(micros: int, logical: int = 0) -> "HybridTime":
+        # '+' (not '|') so a logical overflow carries into the physical
+        # component instead of silently wrapping backwards in time.
+        return HybridTime((micros << BITS_FOR_LOGICAL) + logical)
+
+    @staticmethod
+    def max() -> "HybridTime":
+        return _MAX
+
     # -- accessors ---------------------------------------------------------
     @property
     def physical_micros(self) -> int:
@@ -55,6 +67,9 @@ class HybridTime:
         if self.value < 0:
             return "HT<invalid>"
         return f"HT{{p:{self.physical_micros} l:{self.logical}}}"
+
+
+_MAX = HybridTime(_MAX_HT)
 
 
 class HybridClock:

@@ -23,9 +23,10 @@ of either package reads alike. The feeders are consensus
 ``observe_group_commit_batch``), the WAL (``observe_wal_sync_ms``) and
 the resource witness (``observe_lock_hold_s``,
 ``resource_witness_entity``) and the master (``count_tablet_split``,
-``count_leader_move``). The JAX module's other series (serving
-batches, residency, flush paths, plane encodings, request latency)
-come with the slice that first feeds each (ROADMAP.md §1 item 16).
+``count_leader_move``) and the CQL server (``observe_serve_batch``).
+The JAX module's other series (residency, flush paths, plane
+encodings, request latency) come with the slice that first feeds
+each (ROADMAP.md §1 item 16).
 """
 
 from __future__ import annotations
@@ -373,6 +374,37 @@ def observe_wal_sync_ms(ms: float) -> None:
             "yb_wal_sync_ms", buckets=WAL_SYNC_MS_BUCKETS).observe(ms)
     except Exception:  # noqa: BLE001 — accounting must not throw
         _SWALLOW_LOG.debug("observe_wal_sync_ms failed")
+
+
+# -- serving-path observability ----------------------------------------------
+_SERVE_ENTITIES: dict[str, MetricEntity] = {}
+_SERVE_LOCK = threading.Lock()
+
+
+def observe_serve_batch(proto: str, ops: int) -> None:
+    """Record one request batch entering a serving path: bump the
+    per-protocol batch-size histogram ``yb_serve_batch_ops{proto=...}``
+    on the process registry. The distribution answers whether clients
+    actually pipeline, and how much per-batch work one serving call
+    amortizes. Never raises."""
+    try:
+        with _SERVE_LOCK:
+            ent = _SERVE_ENTITIES.get(proto)
+            if ent is None:
+                ent = _PROCESS_REGISTRY.entity(proto=proto)
+                _SERVE_ENTITIES[proto] = ent
+        ent.histogram("yb_serve_batch_ops",
+                      buckets=BATCH_SIZE_BUCKETS).observe(ops)
+    except Exception:  # noqa: BLE001 — accounting must not throw
+        _SWALLOW_LOG.debug("observe_serve_batch failed for %s", proto)
+
+
+def swallowed_errors(site: str) -> int:
+    """Current ``yb_swallowed_errors{site=...}`` value (0 if the site
+    never swallowed an error)."""
+    with _SWALLOW_LOCK:
+        ent = _SWALLOW_ENTITIES.get(site)
+    return ent.counter("yb_swallowed_errors").get() if ent is not None else 0
 
 
 # -- cluster-elasticity observability -----------------------------------------
