@@ -9,9 +9,10 @@ line is printed:
    compiles every CUDA kernel of the main path from ``csrc/``, one
    ``nvcc`` each, all at once (``ptxas:`` lines: registers and spills),
    while the tablet phase (run first) generates its rows and writes its
-   WAL; every phase after it runs alone, one after another;
+   WAL, and then the engine and mvcc phases' tables are generated; every
+   phase after it runs alone, one after another;
 1b. tablet (``tablet_phase``): the port's ``Tablet`` on the ``gpu``
-   engine at TABLET_KEYS (100,000) keys of the bench table in a
+   engine at TABLET_KEYS (200,000) keys of the bench table in a
    temporary data directory (fsync on, the default plane encoding): 10
    ``Tablet.write`` batches of 10,000 rows, the device flush (K12) with
    its run saved, 20,000 zipfian updates left in the WAL, ``close()``
@@ -73,7 +74,17 @@ line is printed:
    seconds and the children's rows), each child flushed (K12), and the
    headline batch, a GROUP BY (K8) and the 256 pages across both
    children; SIGTERM: every record must show no plain-version mismatch,
-   no re-serve, no trip (``cluster`` line, ``--cluster`` alone);
+   no re-serve, no trip (``cluster`` line, ``--cluster`` alone). On the
+   same daemons, a CQL part (``CqlProxy``, ``cql`` line) and a YSQL
+   part (``PgProxy``: the port's ``PgServer`` over a ``ClientCluster``,
+   driven by ``PgConnection``; ``ysql`` line): after the first flush the
+   prepared headline 32 times (K1), a GROUP BY (K8), 64 LIMIT 100 row
+   SELECTs (K7), 500 prepared point SELECTs, then 1,000 new keys in 10
+   multi-row INSERTs, a committed and a rolled-back transaction, an
+   UPDATE and a DELETE, all read back, flushed (K12), checksums equal;
+   after the failover the headline and 16 row SELECTs over the unflushed
+   writes (K9); after the split the headline, the GROUP BY and 16 row
+   SELECTs across both children;
 2. kernel: 16,777,216 rows at R = 2048 of flat-run planes made from a
    numpy seed (~5% tombstones, NULLs, unset values, expired TTLs, invalid
    rows, values at the i32 and i64 extremes, an all-NULL and a never-set
@@ -269,7 +280,12 @@ line is printed:
    96 and 2048, a dictionary past the shared cap (read through the
    read-only cache, as the launch reports) and a delta16 leaf whose
    offsets are not 16-byte aligned (loaded, not copied); every K8
-   launch's reported shape must equal ``group_agg.launch_geometry``;
+   launch's reported shape must equal ``group_agg.launch_geometry``.
+   Then TPC-H through SQL (``ysql_tpch``, ``--ysql-tpch`` alone):
+   ``lineitem`` made by SQL DDL through the port's ``PgServer`` over a
+   4-tablet ``LocalCluster``, 250,000 rows written by the tablets and
+   flushed (K12), Q1 and Q6 through ``PgConnection`` 5 times each (K8 a
+   tablet a query, every launch held), equal to the numpy oracles;
 12. ``phases_s`` (each phase's wall seconds), one JSON line listing every
    kernel of the path, then as the last line
    ``{"ok": true, "device": {...}}``.
@@ -944,10 +960,17 @@ _BENCH_ROWS: dict = {}  # make_rows of the bench table, made once
 
 def bench_rows(schema, n: int) -> tuple:
     """``workload.make_rows(schema, n)``, made once a process: the engine,
-    mvcc and compact phases' tables hold the same rows (same seed)."""
+    mvcc and compact phases' tables hold the same rows (same seed). A
+    shorter table is the first ``n`` rows of a longer one made before
+    (``make_rows`` draws key by key, so they are equal)."""
     from yugabyte_db_tpu_torch import workload
 
-    if n not in _BENCH_ROWS:
+    longest = max(_BENCH_ROWS, default=0)
+    if n <= longest:
+        if n not in _BENCH_ROWS:
+            rows = _BENCH_ROWS[longest][0][:n]
+            _BENCH_ROWS[n] = rows, rows[-1].ht
+    else:
         _BENCH_ROWS[n] = workload.make_rows(schema, n)
     return _BENCH_ROWS[n]
 
@@ -1405,6 +1428,22 @@ def long_group_resolve(device, bw: float, rate: float) -> dict:
     return row
 
 
+_MVCC_UPDATES: dict = {}  # make_update_rows of the mvcc table, made once
+
+
+def mvcc_updates(schema) -> tuple:
+    """(updates, max_ht): MVCC_UPDATES updates over ``bench_rows(schema,
+    MVCC_KEYS)``, made once a process."""
+    from yugabyte_db_tpu_torch import workload
+
+    size = (MVCC_KEYS, MVCC_UPDATES)
+    if size not in _MVCC_UPDATES:
+        rows, load_ht = bench_rows(schema, MVCC_KEYS)
+        _MVCC_UPDATES[size] = workload.make_update_rows(
+            schema, rows, load_ht, MVCC_UPDATES)
+    return _MVCC_UPDATES[size]
+
+
 def mvcc_engine(device) -> tuple:
     """The bench table at MVCC_KEYS keys plus MVCC_UPDATES updates, applied
     and flushed into one multi-version run of a ``gpu`` engine: (schema,
@@ -1415,8 +1454,7 @@ def mvcc_engine(device) -> tuple:
     t0 = time.perf_counter()
     schema = workload.make_schema()
     rows, load_ht = bench_rows(schema, MVCC_KEYS)
-    updates, max_ht = workload.make_update_rows(schema, rows, load_ht,
-                                                MVCC_UPDATES)
+    updates, max_ht = mvcc_updates(schema)
     gen_s = time.perf_counter() - t0
     eng = make_engine("gpu", schema, {"rows_per_block": 2048,
                                       "device": device})
@@ -5389,11 +5427,161 @@ def k8_roles(plan, table) -> set:
     return roles
 
 
+YSQL_TPCH_ROWS = 250_000   # lineitem rows through SQL (SF1 / 24)
+YSQL_TPCH_TABLETS = 4
+YSQL_TPCH_REPS = 5         # runs of Q1 and of Q6, their median reported
+# ``tpch.LINEITEM_COLUMNS``' own types: discount and tax INT8 (TINYINT).
+# Declared INT, as the JAX SQL test declares them, Q1's and Q6's products
+# have no narrow factor (``expr.lower_product``), and the engine serves
+# them by the row path instead of K8.
+YSQL_TPCH_DDL = (
+    "CREATE TABLE lineitem (l_orderkey BIGINT, l_linenumber INT, "
+    "l_quantity INT, l_extendedprice BIGINT, l_discount TINYINT, "
+    "l_tax TINYINT, l_returnflag TEXT, l_linestatus TEXT, "
+    "l_shipdate INT, PRIMARY KEY ((l_orderkey), l_linenumber))")
+
+
+def ysql_tpch(device) -> dict:
+    """TPC-H Q1 and Q6 through SQL (BASELINE configuration 3): the port's
+    ``PgServer`` over a YSQL_TPCH_TABLETS-tablet ``LocalCluster`` on the
+    card, ``lineitem`` made by SQL DDL, YSQL_TPCH_ROWS rows of
+    ``workload.generate_lineitem`` routed to their tablets by hash code
+    (``yql.common.key_and_tablet``'s routing) and written by the tablets'
+    own ``Tablet.write`` in batches, each tablet flushed (K12, every
+    launch held byte for byte); then ``tpch.q1_sql()`` and
+    ``tpch.q6_sql()`` through ``PgConnection`` YSQL_TPCH_REPS times each
+    (K8 once a tablet a query, every launch held against its plain
+    version), each answer equal to the numpy oracles: the integer sums
+    and counts exactly, the averages as the oracle's sum over its count.
+    The launches are counted from 0 just before and read just after (the
+    ``ysql`` path)."""
+    import gc
+    import shutil
+    import tempfile
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.drivers import PgConnection
+    from yugabyte_db_tpu_torch.storage import gpu_engine
+    from yugabyte_db_tpu_torch.yql.common import key_and_tablet
+    from yugabyte_db_tpu_torch.yql.cql.processor import LocalCluster
+    from yugabyte_db_tpu_torch.yql.pgsql import tpch
+    from yugabyte_db_tpu_torch.yql.pgsql.wire import PgServer
+
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    reserves0 = _HOST_RESERVES[0]
+    swallowed = ysql_swallowed()
+    out: dict = {"rows": YSQL_TPCH_ROWS, "tablets": YSQL_TPCH_TABLETS}
+    root = tempfile.mkdtemp(prefix="ysql-tpch-")
+    cluster = LocalCluster(root, num_tablets=YSQL_TPCH_TABLETS,
+                           engine_options={"rows_per_block": LINEITEM_R,
+                                           "device": device.type})
+    server = PgServer(cluster)
+    conn = None
+    glog = None
+    try:
+        conn = PgConnection(*server.listen("127.0.0.1", 0), user="tpch")
+        conn.execute(YSQL_TPCH_DDL)
+        handle = cluster.table("lineitem")
+        schema = handle.schema
+        check([(c.name, c.dtype, c.kind) for c in schema.columns] ==
+              [(c.name, c.dtype, c.kind) for c in tpch.LINEITEM_COLUMNS],
+              f"ysql tpch: the DDL made {schema}")
+        t0 = time.perf_counter()
+        gc.disable()
+        try:
+            cols = workload.generate_lineitem(YSQL_TPCH_ROWS)
+            keys = workload.lineitem_keys(schema, cols)
+            rows, _ht = workload.lineitem_rows(schema, cols)
+            by_tablet: dict = {}
+            for r in rows:
+                t = cluster.tablet_for_hash(handle, row_hash(r.key))
+                by_tablet.setdefault(id(t), (t, []))[1].append(r)
+        finally:
+            gc.enable()
+        # The routing is key_and_tablet's, on a sample of the rows.
+        names = (schema.hash_columns[0].name, schema.range_columns[0].name)
+        for i in range(0, YSQL_TPCH_ROWS, YSQL_TPCH_ROWS // 64):
+            kv = {n: int(cols[n][i]) for n in names}
+            key, tablet = key_and_tablet(cluster, handle, kv)
+            check(key == keys[i] and tablet is cluster.tablet_for_hash(
+                handle, row_hash(keys[i])),
+                f"ysql tpch: row {i} routed other than key_and_tablet")
+        out["generate_s"] = time.perf_counter() - t0
+        check(len(by_tablet) == YSQL_TPCH_TABLETS,
+              f"ysql tpch: rows reached {len(by_tablet)} tablets")
+        t0 = time.perf_counter()
+        for tablet, rs in by_tablet.values():
+            for i in range(0, len(rs), TABLET_BATCH):
+                tablet.write(rs[i:i + TABLET_BATCH])
+        out["write_s"] = time.perf_counter() - t0
+        del rows, by_tablet
+        t0 = time.perf_counter()
+        for tablet in handle.tablets:
+            tablet.flush()
+        out["flush_s"] = time.perf_counter() - t0
+        out["flush_launches"] = counters["replay_flush"].launches
+        out["flush_held"] = write_log().verify_flushes()
+        check(out["flush_held"] >= YSQL_TPCH_TABLETS,
+              f"ysql tpch: {out['flush_held']} flushes held, "
+              f"{YSQL_TPCH_TABLETS} tablets flushed")
+        want_q1, want_q6 = q1_oracle(cols), q6_oracle(cols)
+        glog = GroupLog()
+        lat: dict = {"q1": [], "q6": []}
+        for _ in range(YSQL_TPCH_REPS):
+            for name, sql in (("q1", tpch.q1_sql()), ("q6", tpch.q6_sql())):
+                t = time.perf_counter()
+                res = conn.execute(sql)
+                lat[name].append((time.perf_counter() - t) * 1e3)
+                if name == "q6":
+                    check(res.rows == want_q6,
+                          f"ysql tpch: Q6 {res.rows} != {want_q6}")
+                    continue
+                got = [r[:6] + (r[8],) for r in res.rows]
+                check(got == want_q1, f"ysql tpch: Q1 {got} != {want_q1}")
+                for r, w in zip(res.rows, want_q1):
+                    check(r[6] == w[2] / w[6] and r[7] == w[3] / w[6],
+                          f"ysql tpch: Q1's averages {r[6:8]} for {w}")
+        out["held"] = glog.verify()
+        out["q1_median_ms"] = statistics.median(lat["q1"])
+        out["q6_median_ms"] = statistics.median(lat["q6"])
+        out["q1_ms"], out["q6_ms"] = lat["q1"], lat["q6"]
+        out["groups"] = len(want_q1)
+    finally:
+        if glog is not None:
+            gpu_engine.group_agg = glog.ga
+        if conn is not None:
+            conn.close()
+        server.shutdown()
+        cluster.close()
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = {n: fn.launches for n, fn in counters.items()
+                       if fn.launches}
+    k8 = out["launches"].get("group_agg", 0)
+    check(k8 >= 2 * YSQL_TPCH_REPS * YSQL_TPCH_TABLETS,
+          f"ysql tpch: K8 launched {k8} times for "
+          f"{2 * YSQL_TPCH_REPS} queries over {YSQL_TPCH_TABLETS} tablets")
+    check(out["held"] >= k8, f"ysql tpch: {out['held']} of {k8} K8 "
+                             f"launches held")
+    check(out["launches"].get("replay_flush", 0) > 0,
+          "ysql tpch: the flushes launched K12 0 times")
+    check(_HOST_RESERVES[0] == reserves0,
+          f"ysql tpch: {_HOST_RESERVES[0] - reserves0} host re-serves")
+    check(ysql_swallowed() == swallowed,
+          f"ysql tpch: errors swallowed: {ysql_swallowed()}, before "
+          f"{swallowed}")
+    print("ysql_tpch " + json.dumps({k: v for k, v in out.items()
+                                     if k not in ("q1_ms", "q6_ms")}))
+    return out
+
+
 def grouped_phase(device, bw: float, rate: float) -> dict:
     """TPC-H lineitem at LINEITEM_ROWS (SF1 / 4) in one flat run, and at
     MV_LINEITEM_ROWS with MV_LINEITEM_UPDATES zipfian one-field updates in
     one multi-version run: Q1 and Q6 through the engine against numpy
-    oracles, K8 held against its plain version and timed, its edges."""
+    oracles, K8 held against its plain version and timed, its edges; then
+    Q1 and Q6 through SQL (``ysql_tpch``: the ``ysql`` path)."""
     import torch
 
     from yugabyte_db_tpu_torch import workload
@@ -5524,6 +5712,11 @@ def grouped_phase(device, bw: float, rate: float) -> dict:
     row["enc_edges"] = group_enc_edges(device)
     print("grouped_enc_edges " + json.dumps(row["enc_edges"]))
     print(f"grouped_enc_edges_s {time.perf_counter() - t0}")
+    # Q1 and Q6 through SQL, the grouped phase's own launches kept apart.
+    t0 = time.perf_counter()
+    row["ysql_tpch"] = ysql_tpch(device)
+    row["ysql_tpch"]["s"] = time.perf_counter() - t0
+    print(f"grouped_ysql_tpch_s {row['ysql_tpch']['s']}")
     return row
 
 
@@ -6862,10 +7055,11 @@ def residency_alone(device, bw: float, rate: float) -> None:
 
 # -- the tablet phase: the port's Tablet on the gpu engine ------------------
 
-TABLET_KEYS = 300_000         # the bench table at three tenths of the
-                              # engine phase's keys (the raft phase reuses
-                              # them): the smoke's time budget (500,000
-                              # before the cluster phase's master and split)
+TABLET_KEYS = 200_000         # the bench table at a fifth of the engine
+                              # phase's keys (the raft phase reuses them):
+                              # the smoke's time budget (500,000 before the
+                              # cluster phase's master and split, 300,000
+                              # before its SQL parts)
 TABLET_BATCH = 10_000         # rows a Tablet.write: one WAL append + sync
 TABLET_UPDATES = 20_000       # zipfian one-field updates, left unflushed
 TABLET_UPDATE_BATCH = 100     # updates a Tablet.write (a group commit)
@@ -8315,15 +8509,19 @@ def cluster_group_by(session, table, oracle, label: str) -> dict:
 
 def cluster_checksums(cl, uuids, tablet, label: str) -> dict:
     """``ts.checksum`` of the tablet on every daemon in ``uuids`` at the
-    first one's read point: all equal."""
+    first one's read point, the others at once (one process each): all
+    equal."""
+    from concurrent.futures import ThreadPoolExecutor
+
     first = cl.call(uuids[0], "ts.checksum", {"tablet_id": tablet,
                                               "timeout": 60.0})
     check(first.get("code") == "ok", f"cluster {label}: {first}")
     sums = {uuids[0]: first}
-    for u in uuids[1:]:
-        sums[u] = cl.call(u, "ts.checksum", {
-            "tablet_id": tablet, "read_ht": first["read_ht"],
-            "timeout": 60.0})
+    with ThreadPoolExecutor(len(uuids) - 1) as pool:
+        sums.update(zip(uuids[1:], pool.map(lambda u: cl.call(
+            u, "ts.checksum", {"tablet_id": tablet,
+                               "read_ht": first["read_ht"],
+                               "timeout": 60.0}), uuids[1:])))
     got = {u: (r.get("code"), r.get("rows"), r.get("checksum"))
            for u, r in sums.items()}
     check(len(set(got.values())) == 1 and first["rows"] > 0,
@@ -8341,7 +8539,8 @@ CQL_PAGES = 256                # pages after the first flush
 CQL_FAILOVER_PAGES = 16        # pages over the unflushed writes
 CQL_SPLIT_PAGES = 64           # pages across both children
 CQL_POINTS = 1_000             # pipelined prepared point SELECTs
-CQL_INSERTS = 2_000            # pipelined prepared INSERTs of new keys
+CQL_INSERTS = 1_000            # pipelined prepared INSERTs of new keys
+                               # (2,000 before the SQL parts: time budget)
 # The CQL server's and processor's swallowed-error sites on the
 # pipelined path: an error there re-runs the frame through execute().
 CQL_SWALLOW_SITES = ("cql.batch_decode", "cql.batch_execute",
@@ -8657,6 +8856,295 @@ def cql_writes(proxy, schema, inserts, changes, oracle) -> dict:
             "read_back": back}
 
 
+# -- the cluster phase's YSQL part: the port's PG server over the daemons ----
+
+YSQL_ROW_SELECTS = 64          # LIMIT 100 row SELECTs after the first flush
+YSQL_FAILOVER_SELECTS = 16     # row SELECTs over the unflushed writes
+YSQL_SPLIT_SELECTS = 16        # row SELECTs across both children
+YSQL_LIMIT = 100               # rows a row SELECT's LIMIT
+YSQL_POINTS = 500              # prepared point SELECTs by full primary key
+YSQL_INSERTS = 1_000           # new keys written by multi-row INSERTs
+YSQL_INSERT_ROWS = 100         # rows a multi-row INSERT
+# Each row SELECT's window of d: on one tablet the LIMIT is pushed to the
+# engine, so a window of ~200 rows ends in it; across two tablets the
+# LIMIT is applied above the scans, so the window holds ~100 rows. Over
+# the unflushed writes a window holds a fifth of the rows: a window of
+# ~200 there took 976.6 ms a SELECT (p50) on the multi-source row path.
+YSQL_WINDOW = 4_000
+YSQL_SPLIT_WINDOW = 2_000
+YSQL_FAILOVER_WINDOW = 400_000
+YSQL_HEADLINE = (f"SELECT count(*), sum(a), min(a), max(a), sum(d) "
+                 f"FROM {CLUSTER_TABLE} WHERE d >= $1")
+YSQL_ROWS = (f"SELECT k, r, a, d FROM {CLUSTER_TABLE} "
+             f"WHERE d >= {{lo}} AND d < {{hi}} LIMIT {YSQL_LIMIT}")
+YSQL_POINT = (f"SELECT k, r, a, c, d FROM {CLUSTER_TABLE} "
+              f"WHERE k = $1 AND r = $2")
+
+
+def ysql_changes(schema, rows, touched, seed: int = 79) -> list:
+    """The YSQL part's changes of existing keys of ``rows`` that no
+    earlier write touched (keys ``touched``): a new d inside the
+    committed transaction, then a new d and a DELETE outside any."""
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
+
+    rng = random.Random(seed)
+    picks = [r for r in rng.sample(rows, 64)
+             if r.key not in touched and not r.tombstone][:3]
+    cid = {c.name: c.col_id for c in schema.columns}
+    return [RowVersion(picks[0].key, ht=0,
+                       columns={cid["d"]: rng.randrange(-10**6, 10**6)}),
+            RowVersion(picks[1].key, ht=0,
+                       columns={cid["d"]: rng.randrange(-10**6, 10**6)}),
+            RowVersion(picks[2].key, ht=0, tombstone=True)]
+
+
+def ysql_values(oracle, r, cid) -> str:
+    """A new row's VALUES tuple in SQL: k, r, a, c, d."""
+    k, rr = oracle.key_values(r.key)
+    return (f"('{k}', {rr}, {r.columns[cid['a']]}, "
+            f"{r.columns[cid['c']]!r}, {r.columns[cid['d']]})")
+
+
+def ysql_swallowed() -> dict:
+    """Every swallowed-error counter of the smoke process (the PG
+    server, its processor and client run here)."""
+    from yugabyte_db_tpu_torch.utils import metrics
+
+    return {s: metrics.swallowed_errors(s)
+            for s in list(metrics._SWALLOW_ENTITIES)}
+
+
+class PgProxy:
+    """The YSQL part's client side, in the smoke process: the port's
+    ``PgServer`` over a ``ClientCluster`` of its own ``YBClient`` (over
+    the same socket transport as the harness), on loopback, driven by the
+    port's ``PgConnection``; the round trip of each request it times."""
+
+    def __init__(self, transport):
+        from yugabyte_db_tpu_torch.client import YBClient
+        from yugabyte_db_tpu_torch.drivers import PgConnection
+        from yugabyte_db_tpu_torch.yql.cql.client_cluster import ClientCluster
+        from yugabyte_db_tpu_torch.yql.pgsql.wire import PgServer
+
+        self.client = YBClient(transport, [CLUSTER_MASTER])
+        self.server = PgServer(ClientCluster(self.client))
+        self.addr = self.server.listen("127.0.0.1", 0)
+        self.conn = PgConnection(*self.addr, user="smoke")
+        self.prepared: set = set()
+
+    def prepare(self, name: str, sql: str) -> None:
+        """Parse ``sql`` as the named statement ``name`` once a
+        connection."""
+        if name not in self.prepared:
+            self.conn.prepare(name, sql)
+            self.prepared.add(name)
+
+    def timed(self, fn, *args) -> tuple:
+        """(``fn(*args)``, its round trip in ms)."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def leader(self) -> str:
+        """The leader the proxy's client last found for the table's first
+        tablet."""
+        return self.client.meta_cache.locations(
+            CLUSTER_TABLE).tablets[0].leader
+
+    def close(self) -> None:
+        self.conn.close()
+        self.server.shutdown()
+
+
+def ysql_split_errors(proxy, tries: int = 3) -> int:
+    """The statements answered with the split's error before one reads
+    the children (``cql_split_errors``' count, through SQL)."""
+    from yugabyte_db_tpu_torch.drivers import PgError
+
+    for n in range(tries):
+        try:
+            proxy.conn.execute(f"SELECT count(*) FROM {CLUSTER_TABLE}")
+            return n
+        except PgError as e:
+            check("has been split" in e.message,
+                  f"ysql split: an error other than the split's: {e}")
+    check(False, f"ysql split: {tries} statements met the split's error")
+
+
+def ysql_headline(proxy, oracle, label: str, n: int = BATCH) -> dict:
+    """YSQL_HEADLINE as an extended-protocol prepared statement executed
+    ``n`` times over the headline batch's literals (the processor fans
+    each out over the tablets: the resolve and K1 on each), each answer
+    held against ``oracle`` (an ``Oracle``)."""
+    conn = proxy.conn
+    proxy.prepare("headline", YSQL_HEADLINE)
+    lits = [-500_000 - 7 * i for i in range(n)]
+    t0 = time.perf_counter()
+    got = [conn.execute_prepared("headline", [lo]) for lo in lits]
+    ms = (time.perf_counter() - t0) * 1e3
+    for lo, res in zip(lits, got):
+        check(res.rows == [oracle.headline(lo)],
+              f"ysql {label}: headline d >= {lo}: {res.rows} != "
+              f"{[oracle.headline(lo)]}")
+    return {"statements": n, "ms": ms}
+
+
+def ysql_group_by(proxy, oracle, label: str) -> dict:
+    """``GROUP BY d`` over CLUSTER_GROUP_D through SQL (K8 on each tablet,
+    the groups combined by ``operations.combine_grouped``), held against
+    the oracle."""
+    lo, hi = CLUSTER_GROUP_D
+    want = group_by_oracle(oracle)
+    res, ms = proxy.timed(proxy.conn.execute,
+                          f"SELECT d, count(*), count(a), sum(d) FROM "
+                          f"{CLUSTER_TABLE} WHERE d >= {lo} AND d < {hi} "
+                          f"GROUP BY d ORDER BY d")
+    check(res.rows == want, f"ysql {label}: GROUP BY d: {res.rows} != {want}")
+    return {"groups": len(want), "ms": ms}
+
+
+def ysql_window_rows(oracle, d, lo: int, hi: int) -> list:
+    """The oracle's first YSQL_LIMIT rows (k, r, a, d) in key order whose
+    d lies in [lo, hi); ``d`` is the oracle's d as int64 (a NULL below
+    every window)."""
+    take = np.nonzero(oracle.exists & (d >= lo) & (d < hi))[0]
+    return [oracle.key_values(oracle.keys[i])
+            + (oracle.vals["a"][i], oracle.vals["d"][i])
+            for i in take[:YSQL_LIMIT].tolist()]
+
+
+def ysql_rows(proxy, oracle, label: str, n: int, width: int,
+              seed: int) -> dict:
+    """``n`` row SELECTs (YSQL_ROWS: LIMIT 100, no ORDER BY) over
+    distinct windows of d ``width`` wide, each answer equal to the
+    oracle's rows."""
+    rng = random.Random(seed)
+    starts = rng.sample(range(-1_000_000, 1_000_000 - width, 1_000), n)
+    lat, got = [], []
+    for lo in starts:
+        res, ms = proxy.timed(proxy.conn.execute,
+                              YSQL_ROWS.format(lo=lo, hi=lo + width))
+        lat.append(ms)
+        got.append(res.rows)
+    rows = 0
+    d = np.array([I64_MIN if v is None else v for v in oracle.vals["d"]],
+                 np.int64)
+    for lo, g in zip(starts, got):
+        want = ysql_window_rows(oracle, d, lo, lo + width)
+        check(g == want, f"ysql {label}: rows with {lo} <= d < "
+                         f"{lo + width}: {len(g)} rows differ from the "
+                         f"oracle's {len(want)}")
+        rows += len(g)
+    return {"selects": n, "rows": rows, "ms": sum(lat),
+            "p50_ms": statistics.median(lat),
+            "p99_ms": statistics.quantiles(lat, n=100,
+                                           method="inclusive")[98]}
+
+
+def ysql_points(proxy, oracle, keys, label: str) -> dict:
+    """YSQL_POINT, prepared, executed for each of ``keys``; each answer
+    held against the oracle (``cql_point_rows``: no row for a key that
+    does not exist)."""
+    conn = proxy.conn
+    proxy.prepare("point", YSQL_POINT)
+    lat, got = [], []
+    for key in keys:
+        res, ms = proxy.timed(conn.execute_prepared, "point",
+                              list(oracle.key_values(key)))
+        lat.append(ms)
+        got.append(res.rows)
+    want = cql_point_rows(oracle, keys)
+    for j, (g, w) in enumerate(zip(got, want)):
+        check(g == w, f"ysql {label}: point {j}: {g} != {w}")
+    q = statistics.quantiles(lat, n=100, method="inclusive")
+    return {"requests": len(keys), "ms": sum(lat),
+            "p50_ms": statistics.median(lat), "p99_ms": q[98],
+            "found": sum(bool(w) for w in want)}
+
+
+def ysql_writes(proxy, schema, inserts, txn_row, rolled_back, changes,
+                oracle) -> dict:
+    """``inserts`` in multi-row INSERTs of YSQL_INSERT_ROWS rows; one
+    transaction that INSERTs ``txn_row`` and UPDATEs ``changes[0]`` and
+    commits; one that INSERTs ``rolled_back`` and rolls back; then the
+    UPDATE of ``changes[1]`` and the DELETE of ``changes[2]``, with the
+    statements' tags (``oracle``, the state after them, gives the
+    keys)."""
+    conn = proxy.conn
+    cid = {c.name: c.col_id for c in schema.columns}
+    head = f"INSERT INTO {CLUSTER_TABLE} (k, r, a, c, d) VALUES "
+    stmts = [head + ", ".join(ysql_values(oracle, r, cid)
+                              for r in inserts[i:i + YSQL_INSERT_ROWS])
+             for i in range(0, len(inserts), YSQL_INSERT_ROWS)]
+    lat = []
+    for sql in stmts:
+        res, ms = proxy.timed(conn.execute, sql)
+        check(res.command_tag == f"INSERT 0 {YSQL_INSERT_ROWS}",
+              f"ysql: an INSERT answered {res.command_tag}")
+        lat.append(ms)
+    s = sum(lat) / 1e3
+
+    def update(r):
+        k, rr = oracle.key_values(r.key)
+        return (f"UPDATE {CLUSTER_TABLE} SET d = {r.columns[cid['d']]} "
+                f"WHERE k = '{k}' AND r = {rr}")
+
+    commit, ms_commit = proxy.timed(
+        conn.execute, f"BEGIN; {head}{ysql_values(oracle, txn_row, cid)}; "
+                      f"{update(changes[0])}; COMMIT")
+    check(commit.command_tag == "COMMIT" and conn.txn_status == b"I",
+          f"ysql: the transaction ended {commit.command_tag}, status "
+          f"{conn.txn_status}")
+    k_gone, r_gone = oracle.key_values(rolled_back.key)
+    values = (f"('{k_gone}', {r_gone}, {rolled_back.columns[cid['a']]}, "
+              f"{rolled_back.columns[cid['c']]!r}, "
+              f"{rolled_back.columns[cid['d']]})")
+    rb, ms_rollback = proxy.timed(conn.execute,
+                                  f"BEGIN; {head}{values}; ROLLBACK")
+    check(rb.command_tag == "ROLLBACK" and conn.txn_status == b"I",
+          f"ysql: the rollback ended {rb.command_tag}")
+    res, ms_update = proxy.timed(conn.execute, update(changes[1]))
+    check(res.command_tag == "UPDATE 1", f"ysql: the UPDATE answered "
+                                         f"{res.command_tag}")
+    k, rr = oracle.key_values(changes[2].key)
+    res, ms_delete = proxy.timed(conn.execute,
+                                 f"DELETE FROM {CLUSTER_TABLE} WHERE "
+                                 f"k = '{k}' AND r = {rr}")
+    check(res.command_tag == "DELETE 1", f"ysql: the DELETE answered "
+                                         f"{res.command_tag}")
+    q = statistics.quantiles(lat, n=100, method="inclusive")
+    return {"inserts": len(inserts), "statements": len(stmts), "s": s,
+            "rows_per_s": len(inserts) / s,
+            "insert_p50_ms": statistics.median(lat),
+            "insert_p99_ms": q[98], "commit_ms": ms_commit,
+            "rollback_ms": ms_rollback, "update_ms": ms_update,
+            "delete_ms": ms_delete}
+
+
+def ysql_read_back(proxy, inserts, txn_row, rolled_back, changes,
+                   oracle) -> dict:
+    """Every write of ``ysql_writes`` read back through SQL against
+    ``oracle``: the new keys by one SELECT over a range of k, the changed
+    keys by point SELECTs; the rolled-back row is not read."""
+    conn = proxy.conn
+    new = [r.key for r in inserts] + [txn_row.key, rolled_back.key]
+    names = sorted(oracle.key_values(k)[0] for k in new)
+    t0 = time.perf_counter()
+    res = conn.execute(f"SELECT k, r, a, c, d FROM {CLUSTER_TABLE} "
+                       f"WHERE k >= '{names[0]}' AND k <= '{names[-1]}'")
+    ms_range = (time.perf_counter() - t0) * 1e3
+    want = [w[0] for w in cql_point_rows(oracle, new) if w]
+    check(sorted(res.rows) == sorted(want) and
+          len(want) == len(inserts) + 1,
+          f"ysql: {len(res.rows)} rows read back over the new keys, "
+          f"{len(want)} written (the rolled-back row not among them)")
+    back = ysql_points(proxy, oracle, [c.key for c in changes]
+                       + [rolled_back.key], "read back")
+    check(back["found"] == 2, f"ysql: {back['found']} of the 2 changed "
+                              f"rows left read back")
+    return {"rows": len(res.rows), "range_ms": ms_range, "points": back}
+
+
 def cluster_phase(device, bw: float, rate: float) -> dict:
     """The port's cluster over loopback sockets, each daemon its own OS
     process on the card (``ClusterDaemons``): a master and three tablet
@@ -8709,6 +9197,7 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.client import YBClient, YBSession
     from yugabyte_db_tpu_torch.storage import wire
+    from yugabyte_db_tpu_torch.storage.row_version import RowVersion
     from yugabyte_db_tpu_torch.utils import codec
 
     parts: dict = {"follower_unavailable_considered_failed_sec":
@@ -8739,35 +9228,55 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
     cql_rows = cql_insert_rows(schema, TSERVER_KEYS, CQL_INSERTS)
     changes = cql_changes(schema, rows, updates)
     cql_oracle = stamped_oracle(schema, rows + cql_rows, updates + changes)
+    # The YSQL part's writes: new keys past the CQL part's (the last two a
+    # committed transaction's INSERT and a rolled-back one), then the
+    # changes of existing keys; the table's state after them.
+    sql_new = cql_insert_rows(schema, TSERVER_KEYS + CQL_INSERTS,
+                              YSQL_INSERTS + 2, seed=83)
+    sql_rows, (txn_row, rolled_back) = sql_new[:-2], sql_new[-2:]
+    sql_changes = ysql_changes(schema, rows,
+                               {u.key for u in updates + changes})
+    ysql_oracle = stamped_oracle(
+        schema, rows + cql_rows + sql_rows + [txn_row, RowVersion(
+            rolled_back.key, ht=0, tombstone=True)],
+        updates + changes + sql_changes)
     after_writes, after = failover_rows(
-        schema, rows, cql_oracle, seed=61,
+        schema, rows, ysql_oracle, seed=61,
         n=TSERVER_AFTER_WRITES * TABLET_UPDATE_BATCH)
     root = tempfile.mkdtemp(prefix="cluster-")
     step("setup")
     dev = "cuda" if device.type == "cuda" else "cpu"
     cl = ClusterDaemons(root, dev)
     records: dict = {}
-    proxy = None
+    proxy = pg = None
     cql: dict = {"launches": {}}
+    ysql: dict = {"launches": {}}
 
-    def cql_step(name, fn):
-        """One CQL step, timed as step ``name``: the live tablet servers'
-        launch counts read just before and just after it (the difference
-        is the step's: the ``cql`` path), the CQL layer's swallowed-error
-        counters unchanged by it."""
+    def path_step(out, name, fn, swallowed_now):
+        """One CQL or YSQL step, timed as step ``name``: the live tablet
+        servers' launch counts read just before and just after it (the
+        difference is the step's: the ``cql`` or ``ysql`` path, into
+        ``out``), the swallowed-error counters ``swallowed_now`` reads
+        unchanged by it."""
         before = cql_daemon_launches(cl)
-        swallowed = cql_swallowed()
+        swallowed = swallowed_now()
         mark[0] = time.perf_counter()
-        cql[name] = fn()
+        out[name] = fn()
         step(name)
         for k, n in cql_daemon_launches(cl).items():
             if n - before.get(k, 0):
-                cql["launches"][k] = (cql["launches"].get(k, 0) + n
+                out["launches"][k] = (out["launches"].get(k, 0) + n
                                       - before.get(k, 0))
-        check(cql_swallowed() == swallowed,
-              f"cql {name}: errors swallowed and re-run: {cql_swallowed()}, "
-              f"before {swallowed}")
+        check(swallowed_now() == swallowed,
+              f"{name}: errors swallowed: {swallowed_now()}, before "
+              f"{swallowed}")
         mark[0] = time.perf_counter()
+
+    def cql_step(name, fn):
+        path_step(cql, name, fn, cql_swallowed)
+
+    def ysql_step(name, fn):
+        path_step(ysql, name, fn, ysql_swallowed)
 
     try:
         t0 = time.perf_counter()
@@ -8882,6 +9391,36 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
             return out
 
         cql_step("cql_reads", cql_reads)
+        # The YSQL part (1): the PG proxy over the same run, after the
+        # CQL reads.
+        pg = PgProxy(cl.transport)
+
+        def ysql_reads():
+            keys = random.Random(89).sample(oracle.keys, YSQL_POINTS)
+            return {"headline": ysql_headline(pg, oracle.headline(),
+                                              "leader"),
+                    "group_by": ysql_group_by(pg, oracle, "leader"),
+                    "rows": ysql_rows(pg, oracle, "leader",
+                                      YSQL_ROW_SELECTS, YSQL_WINDOW, 97),
+                    "points": ysql_points(pg, oracle, keys, "leader")}
+
+        def ysql_writes_step():
+            out = ysql_writes(pg, schema, sql_rows, txn_row, rolled_back,
+                              sql_changes, ysql_oracle)
+            out["flush_ms"] = cl.flush(TSERVER_NODES)
+            t0 = time.perf_counter()
+            out["checksum"] = cluster_checksums(
+                cl, list(TSERVER_NODES), parent, "ysql writes")
+            out["checksum"]["ms"] = (time.perf_counter() - t0) * 1e3
+            check(out["checksum"]["rows"] == int(ysql_oracle.exists.sum()),
+                  f"ysql: {out['checksum']['rows']} rows checksummed, "
+                  f"{int(ysql_oracle.exists.sum())} exist")
+            out["read_back"] = ysql_read_back(pg, sql_rows, txn_row,
+                                              rolled_back, sql_changes,
+                                              ysql_oracle)
+            return out
+
+        ysql_step("ysql_reads", ysql_reads)
         parts["headline"] = cluster_headline(session, table,
                                              oracle.headline(), "leader")
         parts["pages"] = cluster_pages(session, table, oracle, "leader", 31)
@@ -8890,6 +9429,7 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
         parts["wire_pages"] = cluster_wire_pages(client, oracle, "leader", 37)
         step("reads")
         cql_step("cql_writes", cql_writes_step)
+        ysql_step("ysql_writes", ysql_writes_step)
         # The leader's process crashes.
         leader = cl.leader()
         terms_before = cl.terms()
@@ -8925,6 +9465,19 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
             return out
 
         cql_step("cql_failover", cql_failover)
+
+        def ysql_failover():
+            out = {"headline": ysql_headline(pg, after.headline(),
+                                             "new leader"),
+                   "rows": ysql_rows(pg, after, "new leader",
+                                     YSQL_FAILOVER_SELECTS,
+                                     YSQL_FAILOVER_WINDOW, 101)}
+            check(pg.leader() == new, f"ysql: the proxy's client reads "
+                                      f"from {pg.leader()}, the new "
+                                      f"leader is {new}")
+            return out
+
+        ysql_step("ysql_failover", ysql_failover)
         parts["unflushed_pages"] = cluster_pages(session, table, after,
                                                  "unflushed", 47)
         parts["unflushed_scan_batch"] = cluster_scan_batch(
@@ -9057,6 +9610,14 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
             "pages": cql_pages(proxy, after, "split", CQL_SPLIT_PAGES)})
         proxy.close()
         proxy = None
+        ysql_step("ysql_split", lambda: {
+            "split_errors": ysql_split_errors(pg),
+            "headline": ysql_headline(pg, after.headline(), "split"),
+            "group_by": ysql_group_by(pg, after, "split"),
+            "rows": ysql_rows(pg, after, "split", YSQL_SPLIT_SELECTS,
+                              YSQL_SPLIT_WINDOW, 103)})
+        pg.close()
+        pg = None
         parts["split_headline"] = cluster_headline(
             session, table, after.headline(), "split")
         parts["split_group_by"] = cluster_group_by(session, table, after,
@@ -9077,6 +9638,8 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
     finally:
         if proxy is not None:
             proxy.close()
+        if pg is not None:
+            pg.close()
         cl.close()
         shutil.rmtree(root, ignore_errors=True)
     killed = parts["killed"]
@@ -9132,6 +9695,13 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
                  "scan_window", "replay_flush"):
         check(cql["launches"].get(name, 0) > 0,
               f"the cluster phase's CQL part launched {name} 0 times")
+    ysql["s"] = sum(steps[k] for k in steps if k.startswith("ysql_"))
+    parts["ysql"] = ysql
+    print("ysql " + json.dumps(ysql))
+    for name in ("flat_agg", "group_agg", "row_gather", "scan_window",
+                 "replay_flush"):
+        check(ysql["launches"].get(name, 0) > 0,
+              f"the cluster phase's YSQL part launched {name} 0 times")
     held = {k: sum(rec["held"][k] for _u, rec in lives)
             for k in ("replay_flush", "gather_rows", "scan_candidates",
                       "grouped_aggregate")}
@@ -9202,7 +9772,8 @@ def main() -> int:
         walls["build"] = time.perf_counter() - t0
 
     # The whole smoke builds the kernels (one nvcc a source, all started
-    # together) while the tablet phase does its first host work; every
+    # together) while the tablet phase does its first host work and the
+    # engine and mvcc tables are generated (``generate_then_wait``); every
     # other mode waits for the build first.
     build_thread = threading.Thread(target=build_kernels)
     build_thread.start()
@@ -9275,6 +9846,10 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--cluster":
         cluster_phase(device, bw, rate)
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--ysql-tpch":
+        write_log()  # the flushes' K12 launches, held
+        ysql_tpch(device)
+        return 0
 
     def timed(name, phase, *args):
         reserves0 = _HOST_RESERVES[0]
@@ -9286,7 +9861,19 @@ def main() -> int:
             check_no_fault(name, reserves0)
         return result
 
-    tab, table = timed("tablet", tablet_phase, kernels_built)
+    def generate_then_wait():
+        """While nvcc still runs, the engine and mvcc phases' tables (the
+        smoke's longest generations on the host); then the build."""
+        from yugabyte_db_tpu_torch import workload
+
+        schema = workload.make_schema()
+        if build_thread.is_alive():
+            bench_rows(schema, ENGINE_KEYS)
+        if build_thread.is_alive():
+            mvcc_updates(schema)
+        kernels_built()
+
+    tab, table = timed("tablet", tablet_phase, generate_then_wait)
     kernels_built()
     raft = timed("raft", raft_phase, table)
     del table
@@ -9367,13 +9954,20 @@ def main() -> int:
         *write_entries(eng["k12"], comp), full_entry(full),
         decode_entry()]
     # The tablet, raft and cluster phases' launches, each on its own path
-    # (the cluster phase's CQL part on its own, "cql").
-    cql = clu["cql"]["launches"]
-    cluster = {k: n - cql.get(k, 0) for k, n in clu["launches"].items()}
+    # (the cluster phase's CQL part on its own, "cql"; its YSQL part and
+    # the grouped phase's TPC-H through SQL, "ysql").
+    cql, sql = clu["cql"]["launches"], clu["ysql"]["launches"]
+    cluster = {k: n - cql.get(k, 0) - sql.get(k, 0)
+               for k, n in clu["launches"].items()}
+    ysql = dict(sql)
+    for k, n in grp["ysql_tpch"]["launches"].items():
+        ysql[k] = ysql.get(k, 0) + n
+    print("ysql_launches " + json.dumps(ysql))
     for entry in kernels:
         for path, counts in (("tablet", tab["launches"]),
                              ("raft", raft["launches"]),
-                             ("cluster", cluster), ("cql", cql)):
+                             ("cluster", cluster), ("cql", cql),
+                             ("ysql", ysql)):
             n = counts.get(entry["name"], 0)
             if n:
                 entry["launches"] += n

@@ -14,10 +14,11 @@ They are usable components, not test fixtures: the CLI tools can speak
 to a remote cluster through them.
 
 The port's copy of the JAX package's ``drivers/``: the CQL driver
-(``minicql``). ``minipg`` and ``miniredis`` come with the YSQL and
-YEDIS frontends (ROADMAP.md §1 item 16).
+(``minicql``) and the PostgreSQL driver (``minipg``). ``miniredis``
+comes with the YEDIS frontend (ROADMAP.md §1 item 16).
 """
 
 from yugabyte_db_tpu_torch.drivers.minicql import CqlConnection, CqlError
+from yugabyte_db_tpu_torch.drivers.minipg import PgConnection, PgError
 
-__all__ = ["CqlConnection", "CqlError"]
+__all__ = ["CqlConnection", "CqlError", "PgConnection", "PgError"]

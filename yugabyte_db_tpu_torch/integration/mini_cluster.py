@@ -8,9 +8,9 @@ through the rpc layer, one Messenger per daemon).
 The port's copy of the JAX package's ``integration/mini_cluster.py``.
 Its tablets run on the port's ``gpu`` engine, on the device that
 ``engine_options={"device": ...}`` names: ``"cuda"`` unless the caller
-asks for another (the tests ask for ``"cpu"``). Left out: the JAX
-cluster's ``start_pg_server``, which needs the YSQL frontend (ROADMAP.md
-§1 item 16).
+asks for another (the tests ask for ``"cpu"``). ``start_cql_server``
+and ``start_pg_server`` put the port's YCQL and YSQL frontends over a
+``ClientCluster`` of this cluster.
 """
 
 from __future__ import annotations
@@ -189,5 +189,19 @@ class MiniCluster:
 
         server = CQLServer(ClientCluster(self.client("cql-proxy"),
                                          **cluster_kwargs))
+        addr = server.listen(host, port)
+        return server, addr
+
+    def start_pg_server(self, host: str = "127.0.0.1", port: int = 0,
+                        **cluster_kwargs):
+        """Start a PostgreSQL wire-protocol frontend over this cluster
+        (the reference shape: the tserver spawns the SQL frontend on port
+        5433, tablet_server_main.cc:160). Returns (server, (host, port));
+        caller shuts the server down."""
+        from yugabyte_db_tpu_torch.yql.cql.client_cluster import ClientCluster
+        from yugabyte_db_tpu_torch.yql.pgsql.wire import PgServer
+
+        server = PgServer(ClientCluster(self.client("pg-proxy"),
+                                        **cluster_kwargs))
         addr = server.listen(host, port)
         return server, addr

@@ -169,3 +169,7 @@ FLAGS.define("use_cassandra_authentication", False,
              "require CQL authentication + per-statement role "
              "permission checks (reference: the flag of the same name "
              "gating auth in the CQL proxy)", ("stable", "runtime"))
+FLAGS.define("ysql_require_auth", False,
+             "require cleartext-password authentication on the PG wire "
+             "(reference: pg_hba password auth via initdb defaults)",
+             ("stable", "runtime"))

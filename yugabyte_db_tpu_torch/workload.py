@@ -12,12 +12,12 @@ update waves of ``bench.py``'s post-write scan bench, which leave several
 runs and a live memtable. ``ycsb_e_batch`` is a batch of YCSB workload
 E's LIMIT pages, as ``bench.py``'s ``bench_ycsb_e`` makes them.
 
-TPC-H's lineitem (BASELINE config 3) is the port's copy of the data part
-of the JAX package's ``yql/pgsql/tpch.py``: its schema (scaled-integer
-money), a seeded numpy generator with the same value distributions as
-``generate_lineitem``, and the Q1/Q6 specs. ``make_lineitem_updates``
-rewrites single fields of zipfian keys, which makes the run
-multi-version.
+TPC-H's lineitem (BASELINE config 3) takes its schema (scaled-integer
+money) from the port's ``yql/pgsql/tpch.py``; here are a seeded numpy
+generator with the same value distributions as ``tpch.generate_lineitem``
+(much faster at the smoke's row counts), and the Q1/Q6 specs.
+``make_lineitem_updates`` rewrites single fields of zipfian keys, which
+makes the run multi-version.
 
 ``flat_planes`` draws a flat run's planes with integer and float
 columns (NULLs, unset values, tombstones, TTLs, invalid rows, values at
@@ -49,6 +49,9 @@ from yugabyte_db_tpu_torch.storage.expr import BinOp, Col, Const
 from yugabyte_db_tpu_torch.storage.scan_spec import (AggSpec, Predicate,
                                                      ScanSpec)
 from yugabyte_db_tpu_torch.utils import planes as P
+from yugabyte_db_tpu_torch.yql.pgsql.tpch import (LINEITEM_COLUMNS,
+                                                  SHIPDATE_HI, SHIPDATE_LO,
+                                                  lineitem_schema)
 
 
 def make_schema() -> Schema:
@@ -692,27 +695,9 @@ def headline_spec(read_ht: int, lo: int = -500_000) -> ScanSpec:
 
 # -- TPC-H lineitem ------------------------------------------------------------
 
-LINEITEM_COLUMNS = [
-    ColumnSchema("l_orderkey", DataType.INT64, ColumnKind.HASH),
-    ColumnSchema("l_linenumber", DataType.INT32, ColumnKind.RANGE),
-    ColumnSchema("l_quantity", DataType.INT32),       # whole units
-    ColumnSchema("l_extendedprice", DataType.INT64),  # cents
-    ColumnSchema("l_discount", DataType.INT8),        # percent 0..10
-    ColumnSchema("l_tax", DataType.INT8),             # percent 0..8
-    ColumnSchema("l_returnflag", DataType.STRING),    # 'A'|'N'|'R'
-    ColumnSchema("l_linestatus", DataType.STRING),    # 'F'|'O'
-    ColumnSchema("l_shipdate", DataType.INT32),       # days since epoch
-]
 LINEITEM_VALUES = tuple(c.name for c in LINEITEM_COLUMNS[2:])
-
-SHIPDATE_LO = 8766    # ~1994-01-01 in days
-SHIPDATE_HI = 10957   # ~1998-12-31
 SF1_ROWS = 6_001_215  # lineitem rows at TPC-H scale factor 1
 LINEITEM_HT0 = 100    # the first row is written at LINEITEM_HT0 + 1
-
-
-def lineitem_schema(table_id: str = "lineitem") -> Schema:
-    return Schema(list(LINEITEM_COLUMNS), table_id=table_id)
 
 
 def generate_lineitem(num_rows: int, seed: int = 42) -> dict:
