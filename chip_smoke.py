@@ -18,7 +18,7 @@ line is printed:
    its run saved, 20,000 zipfian updates left in the WAL, ``close()``
    (the device bytes released, no cache entry left), ``Tablet.open``
    (the run loaded from disk, the WAL replayed), the headline 32-spec
-   batch, 256 YCSB-E pages in "cql" and "pg" (bytes) and 1,000 point
+   batch, 128 YCSB-E pages in "cql" and "pg" (bytes) and 1,000 point
    reads against an exact oracle, ALTER ADD COLUMN (a counted
    re-upload), a snapshot around 1,000 deletes and its restore, and
    compaction (K11); every launch counted, K12, K7 and K9 held against
@@ -31,7 +31,7 @@ line is printed:
    writes of 10,000 rows and the 10,000 updates (100 a write)
    through it, retried on ``NotLeader`` as a client does (rows/s, the
    commit latency's p50 and p99), each replica's ``TabletPeer.flush``
-   (the device route, its run saved), the headline batch and 256 YCSB-E
+   (the device route, its run saved), the headline batch and 128 YCSB-E
    pages in "cql" and "pg" on the leader (lease), the headline batch on
    each follower (stale, once it applied the leader's commit index), the
    leader isolated (ms to a new lease), 1,000 unflushed writes and reads
@@ -58,13 +58,13 @@ line is printed:
    ``YBSession`` (the row path: rows/s, a 100-row flush's p50 / p99), the
    last update re-sent with its (client_id, request_id) answering its
    original hybrid time, ``ts.flush`` on each replica (K12) and equal
-   ``ts.checksum``s, the headline batch (K1 and the resolve) and 256
+   ``ts.checksum``s, the headline batch (K1 and the resolve) and 128
    YCSB-E pages (K7) through the session and as one ``ts.scan_batch``
    and one ``ts.scan_wire_batch`` ("cql", byte for byte, resume keys)
    through ``YBClient.tablet_rpc``, the leader's process SIGKILLed (ms
    to a new leader that serves), the acknowledged update re-sent (its
    original hybrid time), 30 writes of 100 rows, and over them unflushed
-   256 pages and both batch RPCs (K9), the survivors' flush, the killed
+   128 pages and both batch RPCs (K9), the survivors' flush, the killed
    daemon restarted on its data directory and re-seeded by exactly one
    remote-bootstrap install, and no replica installing a tablet twice
    (the catch-up, its checksum, the headline batch through the session
@@ -72,9 +72,15 @@ line is printed:
    ``ts.transfer_leadership``), the master's placement unchanged; the
    tablet split through the master (``master.split_tablet``: its
    seconds and the children's rows), each child flushed (K12), and the
-   headline batch, a GROUP BY (K8) and the 256 pages across both
-   children; SIGTERM: every record must show no plain-version mismatch,
-   no re-serve, no trip (``cluster`` line, ``--cluster`` alone). On the
+   headline batch, a GROUP BY (K8) and 64 pages across both children,
+   whose leadership ``ts.transfer_leadership`` first moves to one tablet
+   server, so that the session's headline and pages ride its mesh scans
+   (``ts.multi_agg_scan`` / ``ts.multi_row_scan``: K10, the resolve, K5,
+   ``mesh_combine``, K7); SIGTERM: every record must show no
+   plain-version mismatch (the mesh path's kernels held by a
+   ``MeshLog`` in each daemon), no re-serve, no trip, and the children's
+   leader's ``mesh_scan`` counters at least one aggregate and one page
+   served (``cluster`` line, ``--cluster`` alone). On the
    same daemons, a CQL part (``CqlProxy``, ``cql`` line) and a YSQL
    part (``PgProxy``: the port's ``PgServer`` over a ``ClientCluster``,
    driven by ``PgConnection``; ``ysql`` line): after the first flush the
@@ -121,6 +127,27 @@ line is printed:
    kernel and the host's time per batch ("not measured" where the trace
    holds no device event); then the kernel is timed and held against its
    plain version at the engine's shapes;
+3b. mesh (``mesh_phase``, ``--mesh`` alone): the engine phase's bench
+   table hash-partitioned into 4 tablets, each flushed by its own engine
+   (K12), stacked (``parallel.ShardedTablets``) on the ``MeshScanService``'s
+   own mesh of the card (1x1, encoded: K10 a dispatch) and a logical 4x2
+   on the card (plain): the headline at 4 literals, two bounded ranges
+   and a historical read point through the service and
+   ``sharded_aggregate`` (K5, ``mesh_combine``), 64 YCSB-E pages and a
+   3-page chain across a tablet boundary (K7, 8 pieces on the 4x2), each
+   against an exact oracle or the per-tablet engine scans; 20,000 updates
+   to tablet 0 compacted with history GC (K11) and its slot rewritten in
+   place from its device planes (``stack_update``), 20,000 to tablet 1
+   compacted keeping every version (the service's rebuild, the resolve),
+   an encoded stack refusing the update, the ``by_device`` charge and
+   ``close()``, one armed ``fault.mesh_dispatch``; every launch of the
+   path's kernels held against its plain version, and the counts the
+   path's own (the engines' own scans kept out: ``mesh_uncounted``);
+   then K14's device time (resolve, K5, combine), the combine,
+   ``stack_update`` alone beside a ``copy_`` a leaf, the 8-piece K7
+   launch alone (both queued, their wrappers' times beside) and K10's
+   share, each beside its bound, and ``mesh.cu``'s ptxas report
+   (``mesh`` line);
 4. mvcc: the bench table at 1,000,000 keys plus 1,000,000 updates
    (``workload.make_update_rows``: zipfian keys and one field per update
    as YCSB workload A's updates, plus deletes with same-hybrid-time
@@ -191,9 +218,9 @@ line is printed:
    2,050,000 versions, past ``HOST_GC_MASK_MAX``, compacted at the newest
    hybrid time through K11 (``ops.compact``, ``csrc/compact.cu``): its
    launch against its plain version and the numpy twin, the merged
-   versions of 4,000 keys against ``gc_versions`` over their history,
+   versions of 2,000 keys against ``gc_versions`` over their history,
    the headline spec at and past the cutoff against ``HistoryOracle``, a
-   YCSB-E batch of 256 pages against the merged run's oracle; the
+   YCSB-E batch of 64 pages against the merged run's oracle; the
    compaction's parts, K11 timed beside its plain version, the numpy
    twin on the same union and its bound; K11's edges held byte for byte
    against its plain version and the twin (pad rows, 42 columns, a drawn
@@ -201,7 +228,7 @@ line is printed:
    time crosses a tile edge, 256 columns); K11's and K12's ptxas reports
    must show no spill and no stack frame. Then the flat engine of the
    overlay phase (after 7): its memtable flushed, its 5 runs compacted
-   at the newest hybrid time (the numpy twin's route), and 64 YCSB-E
+   at the newest hybrid time (the numpy twin's route), and 16 YCSB-E
    pages against every source's history (``SourcesOracle``), on a route
    that is no longer the row scan over several sources;
 9. full: the windowed fold K5 (``ops.full_agg``, ``csrc/full_agg.cu``)
@@ -328,6 +355,8 @@ waves and runs the rows phase over several sources, and exits.
 flush held against the host build, K12 timed), applies the overlay
 phase's waves to it as there, runs the compact phase, prints the K12
 and K11 entries of the kernels line, and exits.
+``--mesh`` builds the kernels, generates the bench table and runs the
+mesh phase alone, and prints its entries of the kernels line.
 ``--residency`` builds the kernels, makes the engine phase's flat table
 and the mvcc phase's multi-version one, compacts each into one encoded
 run, runs the residency phase and exits.
@@ -367,6 +396,7 @@ from __future__ import annotations
 
 import bisect
 import collections
+import contextlib
 import json
 import random
 import statistics
@@ -390,7 +420,7 @@ PLAIN_REPS = 1  # timed calls of a plain version (3 until PR 15)
 TRACE_BATCHES = 4
 # The CUDA kernels of the main path.
 KERNELS = ("flat_agg", "mvcc_resolve", "group_agg", "row_gather", "compact",
-           "flush", "full_agg", "decode")
+           "flush", "full_agg", "decode", "mesh")
 
 # Device-memory bandwidth by card (NVIDIA data sheets), bytes/s.
 _BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
@@ -3035,7 +3065,9 @@ GC_COL_OPS = 2           # (visibility, shadowing, alive, the contributor
 # ballots, the span and keep tests; a set test and a select a column)
 COMPACT_WAVES = 3        # bench.py:1458 bench_compact: 3 update waves of
 COMPACT_SHARE = 0.35     # 35% of the keys each, 10% of them DELETEs
-COMPACT_SAMPLE = 4000    # keys whose merged versions are held against GC
+COMPACT_SAMPLE = 2000    # keys whose merged versions are held against GC
+COMPACT_PAGES = 64       # YCSB-E pages over the merged run
+COMPACT_SOURCE_PAGES = 16  # pages over the overlay engine's merged run
 TWIN_REPS = 1            # timed runs of the numpy twin on the K11 union
 _WRITE_LOG = None
 
@@ -3527,11 +3559,12 @@ def compact_phase(device, bw: float, rate: float, flat) -> dict:
     K11's launch against its plain version and the numpy twin; the
     merged entries of COMPACT_SAMPLE keys against ``gc_versions`` over
     the history; the headline spec at read points at and past the cutoff
-    against the history oracle, a YCSB-E batch of 256 pages against the
-    merged run's oracle. Then the overlay phase's flat engine (4 runs and
-    a live memtable, after the rows over several sources): flushed,
-    compacted at its newest hybrid time (the numpy twin's route), and 64
-    YCSB-E pages against the history (``SourcesOracle``)."""
+    against the history oracle, a YCSB-E batch of COMPACT_PAGES pages
+    against the merged run's oracle. Then the overlay phase's flat engine
+    (4 runs and a live memtable, after the rows over several sources):
+    flushed, compacted at its newest hybrid time (the numpy twin's route),
+    and COMPACT_SOURCE_PAGES YCSB-E pages against the history
+    (``SourcesOracle``)."""
     import torch
 
     from yugabyte_db_tpu_torch import workload
@@ -3614,7 +3647,7 @@ def compact_phase(device, bw: float, rate: float, flat) -> dict:
     steps["run_oracle_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     specs = workload.ycsb_e_batch(schema, ENGINE_KEYS, read,
-                                  random.Random(29))
+                                  random.Random(29), COMPACT_PAGES)
     page_route = eng._plan_scan(specs[0])[0]
     ycsb = check_pages(eng, specs, r_oracle,
                        "gather" if page_route == "gather" else "page",
@@ -3672,7 +3705,7 @@ def compact_phase(device, bw: float, rate: float, flat) -> dict:
     steps["run_oracle_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     specs = workload.ycsb_e_batch(flat.schema, ENGINE_KEYS, read,
-                                  random.Random(23), SOURCE_PAGES)
+                                  random.Random(23), COMPACT_SOURCE_PAGES)
     page_route = fe._plan_scan(specs[0])[0]
     pages = check_pages(fe, specs, r_oracle,
                         "gather" if page_route == "gather" else "page",
@@ -7063,7 +7096,7 @@ TABLET_KEYS = 200_000         # the bench table at a fifth of the engine
 TABLET_BATCH = 10_000         # rows a Tablet.write: one WAL append + sync
 TABLET_UPDATES = 20_000       # zipfian one-field updates, left unflushed
 TABLET_UPDATE_BATCH = 100     # updates a Tablet.write (a group commit)
-TABLET_PAGES = 256            # YCSB-E LIMIT-100 pages a wire format
+TABLET_PAGES = 128            # YCSB-E LIMIT-100 pages a wire format
 TABLET_POINTS = 1_000         # current_row_values point reads
 TABLET_DELETES = 1_000        # deletes between a snapshot and its restore
 TABLET_LAUNCHES: dict = {}    # the phase's kernel launches, by entry name
@@ -7078,7 +7111,9 @@ _COUNTERS = (("flat_agg", "flat_agg", "flat_aggregate"),
              ("replay_flush", "flush", "replay_flush"),
              ("gc_mask", "compact", "resident_gc_mask"),
              ("full_agg", "full_agg", "full_aggregate"),
-             ("decode", "decode", "decode_tree"))
+             ("decode", "decode", "decode_tree"),
+             ("mesh_combine", "mesh", "combine"),
+             ("stack_update", "mesh", "stack_update"))
 
 
 def launch_counters() -> dict:
@@ -8062,7 +8097,8 @@ def tserver_daemon(argv: list) -> int:
     one tablet server daemon of the cluster phase, the port's
     ``server.daemon_main.main`` with the smoke's instruments installed in
     this process first: the launch counters (zeroed), K12 held by a
-    WriteLog, K7 / K9 by a LaunchLog and K8 by a GroupLog, every breaker
+    WriteLog, K7 / K9 by a LaunchLog, K8 by a GroupLog and the mesh
+    path's kernels by a MeshLog (its counters in the record), every breaker
     at threshold 1 with its host re-serves counted, the calls of
     ``TSTabletManager.install_snapshot`` and the cyclic GC's full
     collections. The smoke's method ``smoke.record`` (answered here, ahead
@@ -8088,6 +8124,8 @@ def tserver_daemon(argv: list) -> int:
     wlog = write_log()
     rlog = LaunchLog().__enter__()
     glog = GroupLog()
+    mlog = MeshLog().__enter__()
+    server: list = []  # the daemon's TabletServer, once it answered
     installs: list = []
     sized: list = []  # (install, payload) whose bytes record() counts
     held = {"replay_flush": 0, "gather_rows": 0, "scan_candidates": 0,
@@ -8131,8 +8169,10 @@ def tserver_daemon(argv: list) -> int:
             held["gather_rows"] += rows["gather_rows"]
             held["scan_candidates"] += rows["scan_candidates"]
             held["grouped_aggregate"] += glog.verify()
+            held["mesh"] = mlog.verify()
         except Exception as e:  # noqa: BLE001 — the parent fails on it
             held["mismatch"] = f"{type(e).__name__}: {e}"
+        svc = server[0].mesh_scan if server else None
         return {"codec_native": codec.native_loaded(),
                 "launches": {n: fn.launches for n, fn in counters.items()},
                 "installs": list(installs), "gc": gcp.summary(),
@@ -8140,11 +8180,16 @@ def tserver_daemon(argv: list) -> int:
                 "grouped_host_folds": host_folds[0],
                 "breakers": [[b.name, b.state, b.trips]
                              for b in list(breaker._BREAKERS)],
+                "mesh_scan": {k: getattr(svc, k) for k in (
+                    "served", "served_rows", "updated", "fallbacks",
+                    "chip_losses")} if svc is not None else {},
                 "held": dict(held)}
 
     handle = tablet_server.TabletServer.handle
 
     def handle_smoke(self, method, payload):
+        if not server:
+            server.append(self)
         if method == "smoke.record":
             return record()
         return handle(self, method, payload)
@@ -8154,6 +8199,7 @@ def tserver_daemon(argv: list) -> int:
     rec = dict(record(), rc=rc)
     gcp.__exit__()
     rlog.__exit__()
+    mlog.__exit__()
     tmp = os.path.join(data_dir, TSERVER_RECORD + ".tmp")
     with open(tmp, "w") as f:
         json.dump(rec, f)
@@ -8393,15 +8439,16 @@ def cluster_headline(session, table, oracle, label: str) -> dict:
     return {"specs": BATCH, "ms": ms}
 
 
-def cluster_pages(session, table, oracle, label: str, seed: int) -> dict:
-    """TABLET_PAGES YCSB-E pages (LIMIT 100 from a key, ``d >= -500000``,
+def cluster_pages(session, table, oracle, label: str, seed: int,
+                  n: int = TABLET_PAGES) -> dict:
+    """``n`` YCSB-E pages (LIMIT 100 from a key, ``d >= -500000``,
     projecting k, r, a, d) through ``YBSession.scan``, each page's rows
     equal to the oracle's."""
     from yugabyte_db_tpu_torch import workload
     from yugabyte_db_tpu_torch.storage import ScanSpec, wire
 
     specs = workload.ycsb_e_batch(table.schema, TSERVER_KEYS, wire.MAX_HT,
-                                  random.Random(seed), TABLET_PAGES)
+                                  random.Random(seed), n)
     specs = [ScanSpec(lower=s.lower, predicates=s.predicates,
                       projection=["k", "r", "a", "d"], limit=s.limit)
              for s in specs]
@@ -9156,7 +9203,7 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
     through ``YBClient.tablet_rpc`` with its (client_id, request_id)
     answers its original hybrid time; ``ts.flush`` on every replica (K12)
     and equal ``ts.checksum``s; the headline batch (K1, the resolve) and
-    256 YCSB-E pages (K7) through the session, and again as one
+    TABLET_PAGES YCSB-E pages (K7) through the session, and again as one
     ``ts.scan_batch`` and one ``ts.scan_wire_batch`` ("cql": each page's
     bytes and resume key) through ``YBClient.tablet_rpc``; the leader
     SIGKILLed (the ms to a new leader that serves), the acknowledged
@@ -9169,8 +9216,10 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
     ``ts.transfer_leadership``: K1 over the installed run), the master's
     placement unchanged; the tablet split through the master
     (``master.split_tablet``), each child flushed on its replicas (K12),
-    and the headline batch, a GROUP BY (K8) and the 256 pages across both
-    children; then SIGTERM: every tablet server's record (launches,
+    both children's leadership moved to one tablet server, and the
+    headline batch and MESH_PAGES pages across both children on its mesh
+    scans, and a GROUP BY (K8); then SIGTERM: every tablet server's record
+    (launches,
     plain-version holds, installs, GC pauses). Every answer equals the
     exact oracle (``stamped_oracle``).
 
@@ -9618,12 +9667,40 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
                               YSQL_SPLIT_WINDOW, 103)})
         pg.close()
         pg = None
+        # Both children led by one tablet server (the first child's
+        # leader, after the CQL and YSQL steps): the session's headline
+        # and pages across them ride its mesh scans (ts.multi_agg_scan /
+        # ts.multi_row_scan).
+        t0 = time.perf_counter()
+        retry_at = [0.0]
+        at: list = []
+
+        def together():
+            lead0 = cl.leader(tablet=children[0])
+            lead1 = cl.leader(tablet=children[1])
+            if lead0 == lead1:
+                at.append(lead0)
+                return True
+            if time.monotonic() >= retry_at[0]:  # asked again every 2 s
+                cl.call(lead1, "ts.transfer_leadership",
+                        {"tablet_id": children[1], "target": lead0})
+                retry_at[0] = time.monotonic() + 2.0
+            return False
+        wait_until(together, "both children's leadership on one server",
+                   TSERVER_WAIT_S)
+        mesh_at = at[-1]
+        # The session learns the leader as from a leader hint.
+        for child in children:
+            client.meta_cache.mark_leader(CLUSTER_TABLE, child, mesh_at)
+        parts["children_leader"] = mesh_at
+        parts["children_transfer_ms"] = (time.perf_counter() - t0) * 1e3
+        step("children_together")
         parts["split_headline"] = cluster_headline(
             session, table, after.headline(), "split")
         parts["split_group_by"] = cluster_group_by(session, table, after,
                                                    "split")
         parts["split_pages"] = cluster_pages(session, table, after,
-                                             "split", 53)
+                                             "split", 53, MESH_PAGES)
         step("split_reads")
         codes = cl.stop_all()
         check(codes == {u: 0 for u in (*TSERVER_NODES, CLUSTER_MASTER)},
@@ -9655,6 +9732,17 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
                       rec["breakers"]),
               f"cluster: {u} re-served, folded on the host or tripped: "
               f"{rec}")
+    # The children's leader served the session's multi-tablet reads on
+    # its mesh.
+    meshed = records[parts["children_leader"]]["mesh_scan"]
+    check(meshed.get("served", 0) >= 1 and meshed.get("served_rows", 0) >= 1,
+          f"cluster: the children's leader's mesh scans: {meshed}")
+    parts["mesh_scan"] = {u: rec["mesh_scan"] for u, rec in records.items()}
+    parts["mesh_held"] = {u: rec["held"].get("mesh") for u, rec in
+                          records.items()}
+    parts["mesh_pages"] = sum((rec["held"].get("mesh") or {}).get(
+        "gather_rows", 0) for _u, rec in [*records.items(),
+                                          ("killed", first_life)])
     installs = [i for i in restarted["installs"] if i["installed"]]
     check(len(installs) == 1 and installs[0]["tablet_id"] == parent,
           f"cluster: the restarted daemon installed {installs} before the "
@@ -9685,7 +9773,8 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
         for name, n in rec["launches"].items():
             launches[name] = launches.get(name, 0) + n
     for name in ("flat_agg", "mvcc_resolve", "group_agg", "row_gather",
-                 "scan_window", "replay_flush", "decode"):
+                 "scan_window", "replay_flush", "decode", "mesh_combine",
+                 "full_agg"):
         check(launches[name] > 0,
               f"the cluster phase launched {name} 0 times")
     cql["s"] = sum(steps[k] for k in steps if k.startswith("cql_"))
@@ -9733,6 +9822,753 @@ def cluster_phase(device, bw: float, rate: float) -> dict:
           f"bytes, {installs[0]['runs']} keys in one RPC frame")
     print("cluster " + json.dumps(parts))
     return parts
+
+
+# -- the mesh scans (K14, dist_page, stack_update) ---------------------------
+
+MESH_TABLETS = 4      # the bench table hash-partitioned as a 4-tablet table
+MESH_WINDOW = 8       # blocks a window of the stacks (ShardedTablets' default)
+MESH_PAGES = 64       # LIMIT 100 pages through the mesh row path
+MESH_UPDATES = 20_000  # zipfian updates to one tablet before its refresh
+MESH_LITS = (-500_000, -250_000, 0, 400_000)  # the headline's d >= lo
+
+
+class MeshLog:
+    """Every launch of the mesh path's kernels made through
+    ``parallel.sharded`` (the combine, the slot update, K5, the resolve,
+    K10 and K7), recorded through proxies of the modules that
+    ``parallel.sharded`` reads and held against the plain versions: the
+    slot update at once (it writes in place: each destination range's
+    bytes before the launch, written by the plain version, against the
+    kernel's), the others by ``verify``."""
+
+    NAMES = ("combine", "stack_update", "full_aggregate", "resolve_view",
+             "decode_tree", "gather_rows")
+
+    def __init__(self):
+        from yugabyte_db_tpu_torch.parallel import sharded
+
+        self.sharded = sharded
+        self.mods = {n: getattr(sharded, n) for n in (
+            "mesh_ops", "full_agg", "mvcc_resolve", "decode", "RG")}
+        self.calls = {n: [] for n in self.NAMES}
+        self.held = {n: 0 for n in self.NAMES}
+        # Calls made through ``parallel.sharded``: the mesh path's own.
+        self.seen = {n: 0 for n in self.NAMES}
+        self.record = True
+        self.last = {}  # each kernel's last recorded call
+        mo, fa, mr, dc, rg = (self.mods[n] for n in (
+            "mesh_ops", "full_agg", "mvcc_resolve", "decode", "RG"))
+
+        def keep(name, args, out):
+            self.seen[name] += 1
+            self.last[name] = (args, out)
+            if self.record:
+                self.calls[name].append((args, out))
+            return out
+
+        def stack_update(entries):
+            import torch
+
+            before = [dst.clone() for dst, _s, _f in entries]
+            mo.stack_update(entries)
+            self.seen["stack_update"] += 1
+            mo.stack_update_plain([(b, s, f) for b, (_d, s, f) in
+                                   zip(before, entries)])
+            same = all(torch.equal(b.view(torch.uint8), d.view(torch.uint8))
+                       for b, (d, _s, _f) in zip(before, entries))
+            check(same, "stack_update differs from its plain version")
+            self.held["stack_update"] += 1
+            self.last["stack_update"] = (entries, None)
+
+        def proxy(mod, **fns):
+            return SimpleNamespace(**{**vars(mod), **fns})
+
+        self.proxies = {
+            "mesh_ops": proxy(mo, stack_update=stack_update,
+                              combine=lambda *a: keep(
+                                  "combine", a, mo.combine(*a))),
+            "full_agg": proxy(fa, full_aggregate=lambda *a: keep(
+                "full_aggregate", a, fa.full_aggregate(*a))),
+            "mvcc_resolve": proxy(mr, resolve_view=lambda *a: keep(
+                "resolve_view", a, mr.resolve_view(*a))),
+            "decode": proxy(dc, decode_tree=lambda *a: keep(
+                "decode_tree", a, dc.decode_tree(*a))),
+            "RG": proxy(rg, gather_rows=lambda *a: keep(
+                "gather_rows", a, rg.gather_rows(*a)))}
+
+    def __enter__(self):
+        for n, p in self.proxies.items():
+            setattr(self.sharded, n, p)
+        return self
+
+    def __exit__(self, *exc):
+        for n, m in self.mods.items():
+            setattr(self.sharded, n, m)
+
+    def verify(self) -> dict:
+        """Every recorded launch against its plain version: the combine,
+        the resolve, K10 and K7 exactly, K5's ivec exactly and its fvec
+        within FULL_SUM_TOL (no float aggregate on the mesh path the
+        smoke drives); the launches held (the slot update's too)."""
+        import torch
+
+        mo, fa, mr, dc, rg = (self.mods[n] for n in (
+            "mesh_ops", "full_agg", "mvcc_resolve", "decode", "RG"))
+        for args, (oi, of) in self.calls["combine"]:
+            wi, wf = mo.combine_plain(*args)
+            check(torch.equal(oi, wi) and torch.equal(
+                of.view(torch.int32), wf.view(torch.int32)),
+                "mesh_combine differs from its plain version")
+        for (plan, run, params), (oi, of) in self.calls["full_aggregate"]:
+            wi, wf = fa.full_aggregate_plain(plan, run, params)
+            check(torch.equal(oi, wi) and (of.numel() == 0 or torch.allclose(
+                of, wf, rtol=FULL_SUM_TOL)),
+                "K5 on the mesh differs from its plain version")
+        for args, out in self.calls["resolve_view"]:
+            check(view_diff(out, mr.resolve_view_plain(*args)) == 0,
+                "the resolve on the mesh differs from its plain version")
+        for (tree, *_rest), out in self.calls["decode_tree"]:
+            check(plain_tree_diff(out, dc.decode_tree_plain(tree),
+                                  out["valid"].shape[0]) == 0,
+                  "K10 on the mesh differs from its plain version")
+        for (sig, run, ip, fp), out in self.calls["gather_rows"]:
+            check(torch.equal(out, rg.gather_rows_plain(sig, run, ip, fp)),
+                  "K7 on the mesh differs from its plain version")
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        for n in self.NAMES:
+            if n != "stack_update":
+                self.held[n] += len(self.calls[n])
+                self.calls[n] = []
+        return dict(self.held)
+
+
+def mesh_counted() -> dict:
+    """The mesh path's counted wrappers: {name: (the wrapper, its
+    ``MeshLog`` name)}."""
+    from yugabyte_db_tpu_torch.ops import (decode, full_agg, mesh,
+                                           mvcc_resolve, row_gather)
+
+    return {"mesh_combine": (mesh.combine, "combine"),
+            "stack_update": (mesh.stack_update, "stack_update"),
+            "full_agg": (full_agg.full_aggregate, "full_aggregate"),
+            "mvcc_resolve": (mvcc_resolve.resolve_view, "resolve_view"),
+            "decode": (decode.decode_tree, "decode_tree"),
+            "row_gather": (row_gather.gather_rows, "gather_rows")}
+
+
+def mesh_launches() -> dict:
+    """The mesh path's kernels' launch counts ({name: count})."""
+    return {n: fn.launches for n, (fn, _l) in mesh_counted().items()}
+
+
+@contextlib.contextmanager
+def mesh_uncounted():
+    """The mesh path's launch counts kept as they were across the block:
+    the per-tablet engines (the oracles' scans, the updates' flushes and
+    compactions, the fallback) launch the same kernels outside the mesh
+    path."""
+    fns = [fn for fn, _l in mesh_counted().values()]
+    saved = [fn.launches for fn in fns]
+    try:
+        yield
+    finally:
+        for fn, n in zip(fns, saved):
+            fn.launches = n
+
+
+class MeshTable:
+    """The mesh phase's rows as arrays, once: each row's tablet, key,
+    hybrid time, existence and d, a, c (the bench rows have no NULLs), for
+    the headline's ``Oracle`` over any subset of them and over tablets'
+    merged states after updates."""
+
+    def __init__(self, schema, rows, tablet_of):
+        cid = {c.name: c.col_id for c in schema.columns}
+        self.cid = cid
+        n = len(rows)
+        self.tablet = np.fromiter(tablet_of, np.int64, n)
+        self.keys = [r.key for r in rows]
+        self.ht = np.fromiter((r.ht for r in rows), np.int64, n)
+        self.exists = np.fromiter((not r.tombstone for r in rows), bool, n)
+        vals = [r.columns if not r.tombstone else None for r in rows]
+        self.d = np.fromiter((v[cid["d"]] if v else 0 for v in vals),
+                             np.int64, n)
+        self.a = np.fromiter((v[cid["a"]] if v else 0 for v in vals),
+                             np.int64, n)
+        self.c = np.fromiter((v[cid["c"]] if v else 0.0 for v in vals),
+                             np.float64, n)
+
+    def oracle(self, mask=None, merged=()) -> "Oracle":
+        """The headline's ``Oracle`` over the flat rows of ``mask`` (all
+        by default) that exist, and the merged state after every version
+        of each (rows, updates) of ``merged``, whose keys ``mask`` must
+        leave out."""
+        m = self.exists if mask is None else self.exists & mask
+        d, a, c = self.d[m], self.a[m], self.c[m]
+        ok = np.ones(len(d), bool)
+        parts = [(d, a, ok, c, ok)]
+        for rows, updates in merged:
+            from yugabyte_db_tpu_torch.storage.merge import merge_versions
+
+            by_key: dict = {}
+            for u in updates:
+                by_key.setdefault(u.key, []).append(u)
+            triples = []
+            for r in rows:
+                vs = by_key.get(r.key)
+                if vs is None:
+                    if not r.tombstone:
+                        triples.append(tuple(r.columns.get(self.cid[x])
+                                             for x in ("d", "a", "c")))
+                    continue
+                mv = merge_versions(r.key, [r] + vs, MAX_HT_READ)
+                if mv.exists:
+                    triples.append(tuple(mv.get(self.cid[x])
+                                         for x in ("d", "a", "c")))
+            parts.append(Oracle.arrays([t for t in triples
+                                        if t[0] is not None]))
+        return Oracle(*(np.concatenate([p[i] for p in parts])
+                        for i in range(5)))
+
+    def in_range(self, lo: bytes, hi: bytes) -> np.ndarray:
+        return np.fromiter((lo <= k < hi for k in self.keys), bool,
+                           len(self.keys))
+
+
+def sharded_tracker():
+    """The MemTracker the mesh stacks are charged to."""
+    from yugabyte_db_tpu_torch.utils.memtracker import root_tracker
+
+    return root_tracker().child("device").child("sharded")
+
+
+def mesh_page_oracle(engs, spec) -> list:
+    """A LIMIT page over the tablets in order: the per-tablet engine
+    scans from the spec's lower bound concatenated, the first ``limit``
+    rows."""
+    from yugabyte_db_tpu_torch.storage import ScanSpec
+
+    out = []
+    with mesh_uncounted():
+        for eng in engs:
+            left = spec.limit - len(out)
+            if left <= 0:
+                break
+            out += [tuple(r) for r in eng.scan(ScanSpec(
+                lower=spec.lower, upper=spec.upper, read_ht=spec.read_ht,
+                predicates=spec.predicates, projection=spec.projection,
+                limit=left)).rows]
+    return out
+
+
+def mesh_phase(device, bw: float, rate: float) -> dict:
+    """The mesh scans on the card (``parallel``, ``tserver.mesh_scan``).
+    The engine phase's bench table at ENGINE_KEYS keys hash-partitioned
+    into MESH_TABLETS tablets (``PartitionSchema``), each flushed by its
+    own ``gpu`` engine (K12); stacks of window MESH_WINDOW on two meshes:
+    ``MeshScanService``'s own of the card (1x1, the plane encoding's
+    default: encoded, K10 a dispatch) and a logical 4x2 on the card (8
+    pieces). Through the service and ``sharded_aggregate``: the headline
+    at MESH_LITS, two bounded ranges and a historical read point, each
+    equal to the exact oracle; MESH_PAGES LIMIT 100 pages under
+    ``d >= -500000`` from seeded keys and a chain of 3 pages across a
+    tablet boundary by the resume token, each equal to the per-tablet
+    engine scans concatenated. Then MESH_UPDATES zipfian updates to
+    tablet 0, its flush and a compaction with history GC to one run
+    (K11), ``update_tablet`` of the plain stacks in place from its device
+    planes (K10 decodes them; one ``stack_update`` launch a stack); and
+    MESH_UPDATES to tablet 1, flushed and compacted keeping every version:
+    the service rebuilds its encoded stack, and a new plain 1x1 stack
+    takes the multi-version run (the resolve); their answers and 8 pages
+    equal to the oracle. An encoded stack answers as the plain one and
+    refuses the update; the ``by_device`` charge equals the stacks' bytes
+    and ``close()`` releases it; one armed ``fault.mesh_dispatch`` falls
+    back with the oracle's answer. Every launch of the path's kernels held
+    against its plain version (``MeshLog``); the counts set to 0 just
+    before and read just after. Then, outside the count: K14's device
+    time on the headline over the multi-version stack (the resolve, K5,
+    the combine), the combine alone (4 and 8 pieces), ``stack_update``
+    alone beside a ``copy_`` a leaf, the 8-piece K7 launch, K10's share,
+    each beside its bound, and
+    ``mesh.cu``'s ptxas report."""
+    import gc
+
+    import torch
+
+    from yugabyte_db_tpu_torch import workload
+    from yugabyte_db_tpu_torch.models.partition import PartitionSchema
+    from yugabyte_db_tpu_torch.ops import decode, full_agg, mesh as mesh_ops
+    from yugabyte_db_tpu_torch.ops import mvcc_resolve, native
+    from yugabyte_db_tpu_torch.ops import row_gather
+    from yugabyte_db_tpu_torch.parallel import (DeviceMesh, ShardedTablets,
+                                                sharded_aggregate,
+                                                sharded_row_page)
+    from yugabyte_db_tpu_torch.storage import (AggSpec, Predicate, ScanSpec,
+                                               make_engine)
+    from yugabyte_db_tpu_torch.storage import gpu_engine
+    from yugabyte_db_tpu_torch.storage.residency import hbm_cache
+    from yugabyte_db_tpu_torch.tserver.mesh_scan import MeshScanService
+    from yugabyte_db_tpu_torch.utils import codec
+    from yugabyte_db_tpu_torch.utils.fault_injection import arm_fault_once
+
+    parts: dict = {"card": nvidia_smi()}
+    steps: dict = {}
+    mark = [time.perf_counter()]
+
+    def step(name):
+        now = time.perf_counter()
+        steps[name] = now - mark[0]
+        mark[0] = now
+
+    schema = workload.make_schema()
+    rows, max_ht = bench_rows(schema, ENGINE_KEYS)
+    ps = PartitionSchema(MESH_TABLETS)
+    by_tablet = [[] for _ in range(MESH_TABLETS)]
+    tablet_of = [ps.partition_index_for_hash(row_hash(r.key)) for r in rows]
+    for r, t in zip(rows, tablet_of):
+        by_tablet[t].append(r)
+    engs = []
+    for rs in by_tablet:
+        eng = make_engine("gpu", schema, {"rows_per_block": 2048,
+                                          "device": device})
+        eng.apply(rs)
+        flush(eng, "mesh")
+        engs.append(eng)
+    parts["tablet_rows"] = [len(rs) for rs in by_tablet]
+    peers = [SimpleNamespace(tablet=SimpleNamespace(
+        engine=e, meta=SimpleNamespace(schema=schema))) for e in engs]
+    read = max_ht + 1
+    table = MeshTable(schema, rows, tablet_of)
+    oracle = table.oracle()
+    # Bounded ranges: inside tablet 0, and across tablets 1 and 2 (each
+    # end mid-window, off a piece's edge).
+    cr = [e.runs[0].crun for e in engs]
+    keys = [sorted(r.key for r in rs) for rs in by_tablet[:3]]
+    ranges = [(keys[0][len(keys[0]) // 250 + 1],
+               keys[0][len(keys[0]) * 3 // 5 + 3]),
+              (keys[1][len(keys[1]) * 9 // 25 + 7],
+               keys[2][len(keys[2]) * 7 // 25 + 11])]
+    range_oracles = [table.oracle(table.in_range(lo, hi))
+                     for lo, hi in ranges]
+    hist_read = rows[len(rows) // 2].ht
+    hist_oracle = table.oracle(table.ht <= hist_read)
+    step("load")
+
+    svc = MeshScanService()
+    mesh11 = svc._get_mesh(device)
+    mesh42 = DeviceMesh.logical(device, 4, 2)
+    check(mesh11.shape == {"t": 1, "b": 1},
+          f"the service's mesh of one card: {mesh11}")
+    mlog = MeshLog().__enter__()
+    cache = hbm_cache()
+
+    def by_device() -> int:
+        return cache.stats()["by_device"].get(
+            gpu_engine.device_label(device), {}).get("resident_bytes", 0)
+
+    def aggregate(st, spec):
+        if st is svc:
+            res = svc.aggregate(peers, spec)
+            check(res is not None, "the service fell back on an eligible "
+                                   "aggregate")
+            return res
+        return sharded_aggregate(st, spec)
+
+    def answers(st, label, want=oracle, at=read, checks=True) -> list:
+        out = []
+        for lo in MESH_LITS:
+            got = aggregate(st, workload.headline_spec(at, lo)).rows[0]
+            check(got == want.headline(lo), f"mesh {label}: headline "
+                  f"d >= {lo}: {got} != {want.headline(lo)}")
+            out.append(got)
+        if not checks:
+            return out
+        for (lo_k, hi_k), o in zip(ranges, range_oracles):
+            spec = workload.headline_spec(read, -500_000)
+            spec.lower, spec.upper = lo_k, hi_k
+            got = aggregate(st, spec).rows[0]
+            check(got == o.headline(-500_000), f"mesh {label}: bounded "
+                  f"headline {got} != {o.headline(-500_000)}")
+            out.append(got)
+        got = aggregate(st, workload.headline_spec(hist_read,
+                                                   -500_000)).rows[0]
+        check(got == hist_oracle.headline(-500_000), f"mesh {label}: "
+              f"historical headline {got} != "
+              f"{hist_oracle.headline(-500_000)}")
+        out.append(got)
+        return out
+
+    def page(st, spec, resume=None):
+        if st is svc:
+            res = svc.rows(peers, spec, resume=resume)
+            check(res is not None, "the service fell back on a row page")
+            return res
+        return sharded_row_page(st, spec, resume=resume)
+
+    specs = workload.ycsb_e_batch(schema, ENGINE_KEYS, read,
+                                  random.Random(113), MESH_PAGES)
+
+    def pages(st, label, n=MESH_PAGES, at=read) -> dict:
+        t0 = time.perf_counter()
+        for j, s in enumerate(specs[:n]):
+            spec = ScanSpec(lower=s.lower, read_ht=at,
+                            predicates=s.predicates,
+                            projection=["k", "r", "a", "d"], limit=s.limit)
+            got = [tuple(r) for r in page(st, spec).rows]
+            check(got == mesh_page_oracle(engs, spec),
+                  f"mesh {label} page {j}: {len(got)} rows differ from "
+                  f"the per-tablet scans'")
+        return {"pages": n, "ms": (time.perf_counter() - t0) * 1e3}
+
+    def chain(st, label) -> dict:
+        """3 pages from 150 matching rows before tablet 0's end: the
+        second crosses into tablet 1, each resumed by the token."""
+        tail = ScanSpec(lower=keys[0][-1000],
+                        read_ht=read, predicates=[Predicate(
+                            "d", ">=", -500_000)], projection=["k", "r", "a",
+                                                              "d"],
+                        limit=1000)
+        last = mesh_page_oracle(engs[:1], tail)
+        lower = schema.encode_primary_key(
+            {"k": last[-150][0], "r": last[-150][1]},
+            workload.compute_hash_code(schema, {"k": last[-150][0]}))
+        spec = ScanSpec(lower=lower, read_ht=read,
+                        predicates=tail.predicates,
+                        projection=tail.projection, limit=100)
+        want = mesh_page_oracle(engs, ScanSpec(
+            lower=lower, read_ht=read, predicates=tail.predicates,
+            projection=tail.projection, limit=300))
+        got, token, tablets = [], None, []
+        for _ in range(3):
+            res = page(st, spec, token)
+            got += [tuple(r) for r in res.rows]
+            token = res.resume_key
+            check(token is not None, f"mesh {label}: the chain ended early")
+            tablets.append(codec.decode(token)[0])
+        check(got == want, f"mesh {label}: the chained pages differ from "
+                           f"the per-tablet scans")
+        check(tablets[0] == 0 and tablets[-1] == 1,
+              f"mesh {label}: the chain's tokens name tablets {tablets}")
+        return {"pages": 3, "tablets": tablets}
+
+    # The main path, counted: the kernels' counts set to 0 just before.
+    for fn, logged in mesh_counted().values():
+        fn.launches = 0
+        mlog.seen[logged] = 0
+    base = by_device()
+    sharded_base = sharded_tracker().consumption
+    t0 = time.perf_counter()
+    answers(svc, "service")
+    parts["service_first_ms"] = (time.perf_counter() - t0) * 1e3
+    (st_enc,) = svc._stacks.values()
+    check(st_enc.encoded, "the service's stack is not encoded")
+    lat = []
+    for _ in range(5):
+        t = time.perf_counter()
+        aggregate(svc, workload.headline_spec(read, -500_000))
+        lat.append((time.perf_counter() - t) * 1e3)
+    parts["service_headline_ms"] = statistics.median(lat)
+    st11 = ShardedTablets(schema, cr, mesh11, MESH_WINDOW, encode=False)
+    st42 = ShardedTablets(schema, cr, mesh42, MESH_WINDOW, encode=False)
+    charged = by_device() - base
+    check(charged == st_enc.nbytes + st11.nbytes + st42.nbytes,
+          f"mesh: by_device charged {charged}, the stacks hold "
+          f"{st_enc.nbytes} + {st11.nbytes} + {st42.nbytes}")
+    parts["stack_bytes"] = {"encoded_1x1": st_enc.nbytes,
+                            "plain_1x1": st11.nbytes,
+                            "plain_4x2": st42.nbytes}
+    plain_answers = answers(st11, "1x1")
+    check(answers(st42, "4x2") == plain_answers, "mesh: the 4x2 answers")
+    lat = []
+    for _ in range(5):
+        t = time.perf_counter()
+        aggregate(st11, workload.headline_spec(read, -500_000))
+        lat.append((time.perf_counter() - t) * 1e3)
+    parts["headline_1x1_ms"] = statistics.median(lat)
+    parts["held_reads"] = mlog.verify()
+    step("aggregates")
+    parts["pages_service"] = pages(svc, "service")
+    parts["pages_4x2"] = pages(st42, "4x2")
+    parts["chain_4x2"] = chain(st42, "4x2")
+    parts["chain_service"] = chain(svc, "service")
+    parts["held_pages"] = mlog.verify()
+    step("pages")
+    # Tablet 0 takes updates, a flush and a compaction with history GC at
+    # a read point after every version (K11): a run of one version a
+    # key that fits its slot, refreshed in place from its device planes.
+    # Tablet 1 takes updates, a flush and a compaction that keeps every
+    # version (K11): a multi-version run, which the service's encoded
+    # stack and a new plain one take by a rebuild (the resolve).
+    upd0, ht0 = workload.make_update_rows(schema, by_tablet[0], max_ht,
+                                          MESH_UPDATES)
+    upd1, _ = workload.make_update_rows(schema, by_tablet[1], ht0,
+                                        MESH_UPDATES, seed=7)
+    mask_max = gpu_engine.HOST_GC_MASK_MAX
+    gpu_engine.HOST_GC_MASK_MAX = 0
+    try:
+        for eng, upd, cutoff in ((engs[0], upd0, MAX_HT_READ),
+                                 (engs[1], upd1, 0)):
+            with mesh_uncounted():
+                eng.apply(upd)
+                flush(eng, "mesh")
+                eng.compact(cutoff)
+            check(eng.compact_paths["k11"] == 1 and len(eng.runs) == 1,
+                  f"mesh: a tablet's compaction took {eng.compact_paths}")
+    finally:
+        gpu_engine.HOST_GC_MASK_MAX = mask_max
+    run0, run1 = engs[0].runs[0], engs[1].runs[0]
+    check(not run1.flat, "mesh: tablet 1's compacted run is flat")
+    after0 = table.oracle(table.tablet != 0, [(by_tablet[0], upd0)])
+    after = table.oracle(table.tablet >= 2, [(by_tablet[0], upd0),
+                                             (by_tablet[1], upd1)])
+    with mesh_uncounted():
+        engs[0].scan(workload.headline_spec(MAX_HT_READ, -500_000))
+    dev = run0.peek_device()
+    check(dev is not None and dev.encoded, "mesh: tablet 0's run is not "
+                                           "resident encoded")
+    step("updates")
+    sharded_before = sharded_tracker().consumption
+    updated = mlog.held["stack_update"]
+    for st in (st11, st42):
+        check(st.update_tablet(0, run0.crun, device_arrays=dev.arrays),
+              "mesh: update_tablet refused the plain stack's slot")
+    check(mlog.held["stack_update"] - updated == 2,
+          "mesh: update_tablet launched stack_update other than once a "
+          "stack")
+    check(sharded_tracker().consumption == sharded_before,
+          "mesh: the stacks' charge moved with the update")
+    want0 = answers(st11, "1x1 updated", after0, MAX_HT_READ, False)
+    check(answers(st42, "4x2 updated", after0, MAX_HT_READ, False) ==
+          want0, "mesh: the 4x2 answers after the update")
+    cr[0], cr[1] = run0.crun, run1.crun
+    want_after = answers(svc, "service rebuilt", after, MAX_HT_READ, False)
+    st_enc2 = svc._stacks.get((schema.version, tuple(id(r) for r in cr)))
+    check(svc.updated == 0 and st_enc2 is not None and st_enc2.encoded,
+          "mesh: the service updated its encoded stack in place")
+    st11b = ShardedTablets(schema, cr, mesh11, MESH_WINDOW, encode=False)
+    check(not st11b.flat, "mesh: the rebuilt stack is flat")
+    check(answers(st11b, "1x1 rebuilt", after, MAX_HT_READ, False) ==
+          want_after, "mesh: the rebuilt plain stack's answers")
+    parts["pages_rebuilt"] = pages(st11b, "1x1 rebuilt", 8, MAX_HT_READ)
+    st_enc3 = ShardedTablets(schema, cr, mesh11, MESH_WINDOW, encode=True)
+    check(answers(st_enc3, "encoded", after, MAX_HT_READ, False) ==
+          want_after, "mesh: the encoded stack's answers")
+    check(not st_enc3.update_tablet(0, run0.crun),
+          "mesh: an encoded stack took an update in place")
+    parts["held_updated"] = mlog.verify()
+    step("updated")
+    # A chip lost at the next dispatch: every stack dropped, the answer
+    # from the per-tablet engines combined on the host.
+    arm_fault_once("fault.mesh_dispatch")
+    spec = workload.headline_spec(MAX_HT_READ, -500_000)
+    check(svc.aggregate(peers, spec) is None,
+          "mesh: the armed fault did not fall back")
+    check(svc.chip_losses == 1 and not svc._stacks,
+          f"mesh: the fault left {len(svc._stacks)} stacks")
+    with mesh_uncounted():
+        res = [e.scan(spec).rows[0] for e in engs]
+    host = (sum(r[0] for r in res), sum(r[1] for r in res),
+            min(r[2] for r in res), max(r[3] for r in res),
+            sum(r[4] for r in res))
+    check(host == after.headline(-500_000),
+          f"mesh: the fallback's answer {host}")
+    launched = mesh_launches()
+    for name, (_fn, logged) in mesh_counted().items():
+        n, calls = launched[name], mlog.seen[logged]
+        check(n > 0, f"the mesh phase launched {name} 0 times")
+        # One launch a call through parallel.sharded; the resolve launches
+        # once a chunk of columns, K10 once a tree with an encoded leaf.
+        if name in ("mvcc_resolve", "decode"):
+            check(0 < calls and (n >= calls if name == "mvcc_resolve"
+                                 else n <= calls),
+                  f"mesh: {name} launched {n} times in {calls} calls")
+        else:
+            check(n == calls, f"mesh: {name} launched {n} times in "
+                              f"{calls} calls of the mesh path")
+    parts["calls"] = {n: mlog.seen[logged]
+                      for n, (_fn, logged) in mesh_counted().items()}
+    parts["launches"] = launched
+    parts["service"] = {k: getattr(svc, k) for k in (
+        "served", "served_rows", "updated", "fallbacks", "chip_losses")}
+    step("fault")
+
+    # Outside the count: each kernel at the path's shapes, timed beside
+    # its bound (CUDA events), held again.
+    kernels: dict = {}
+    # K14 on the 1,000,000-row plain 1x1 stack, multi-version since the
+    # rebuild: the resolve, K5 on the view, the combine.
+    sharded_aggregate(st11b, workload.headline_spec(MAX_HT_READ, -500_000))
+    mlog.record = False
+    r_args, _view = mlog.calls["resolve_view"][-1]
+    (plan, run, params), _o = mlog.calls["full_aggregate"][-1]
+    (aggs, ivec, fvec), _c = mlog.calls["combine"][-1]
+    mlog.verify()
+    res_ms = cuda_ms(lambda: mvcc_resolve.resolve_view(*r_args), KERNEL_REPS)
+    res_bound = mvcc_resolve.view_bytes(*r_args[:5]) / bw * 1e3
+    k5 = measure_full(plan, run, params, bw, rate)
+    comb_ms = cuda_ms(lambda: mesh_ops.combine(aggs, ivec, fvec),
+                      KERNEL_REPS, queue_ahead=True)
+    comb_plain = cuda_ms(lambda: mesh_ops.combine_plain(aggs, ivec, fvec), 1)
+    comb_bound = mesh_ops.combine_bytes(aggs, ivec.shape[0]) / bw * 1e3
+    kernels["k14"] = {"rows": int(run["valid"].numel()),
+                      "pieces": ivec.shape[0], "resolve_ms": res_ms,
+                      "resolve_bound_ms": res_bound, "k5_ms": k5["ms"],
+                      "k5_bound_ms": k5["bound_ms"],
+                      "k5_plain_ms": k5["plain_ms"], "combine_ms": comb_ms,
+                      "device_ms": res_ms + k5["ms"] + comb_ms,
+                      "bound_ms": res_bound + k5["bound_ms"] + comb_bound}
+    kernels["combine"] = {"ms": comb_ms, "plain_ms": comb_plain,
+                          "bound_ms": comb_bound, "bound_by": "bytes",
+                          "pieces": ivec.shape[0], "max_abs_err": 0}
+    # The combine over the logical 4x2's 8 pieces.
+    mlog.record = True
+    sharded_aggregate(st42, workload.headline_spec(MAX_HT_READ, -500_000))
+    mlog.record = False
+    (aggs8, iv8, fv8), _c = mlog.calls["combine"][-1]
+    (p8, run8, par8), _o = mlog.calls["full_aggregate"][-1]
+    mlog.verify()
+    kernels["combine"]["ms_8_pieces"] = cuda_ms(
+        lambda: mesh_ops.combine(aggs8, iv8, fv8), KERNEL_REPS,
+        queue_ahead=True)
+    kernels["k14"]["k5_8_pieces_ms"] = cuda_ms(
+        lambda: full_agg.full_aggregate(p8, run8, par8), KERNEL_REPS,
+        queue_ahead=True)
+    # stack_update: the 4x2 stack's refresh of tablet 0 again (its 2
+    # pieces of every leaf), beside copy_ a leaf range and the bound.
+    # The kernel alone: its entry table built once, the launches queued
+    # ahead (as the combine is timed); the wrapper's time (the table and
+    # its upload a call) beside it.
+    entries, _ = mlog.last["stack_update"]
+    table = mesh_ops.update_table(entries, device)
+    blocks_x = mesh_ops.launch_geometry(entries)["blocks_x"]
+    upd_ms = cuda_ms(lambda: mesh_ops.launch_update(table, len(entries),
+                                                    blocks_x),
+                     KERNEL_REPS, queue_ahead=True)
+    upd_wrapper_ms = cuda_ms(lambda: mesh_ops.stack_update(entries),
+                             KERNEL_REPS)
+
+    def copies():
+        for dst, src, fill in entries:
+            if src is None:
+                dst.fill_(fill)
+            else:
+                dst.copy_(src)
+
+    lib_ms = cuda_ms(copies, KERNEL_REPS, queue_ahead=True)
+    plain_ms = cuda_ms(lambda: mesh_ops.stack_update_plain(entries), 1)
+    kernels["stack_update"] = {
+        "entries": len(entries), "bytes": mesh_ops.update_bytes(entries),
+        "ms": upd_ms, "wrapper_ms": upd_wrapper_ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms,
+        "bound_ms": mesh_ops.update_bytes(entries) / bw * 1e3,
+        "bound_by": "bytes", "max_abs_err": 0,
+        "launch": mesh_ops.last_launch()}
+    # dist_page: one K7 launch over the 4x2 stack's 8 pieces (a YCSB-E
+    # page's).
+    mlog.record = True
+    s0 = specs[0]
+    sharded_row_page(st42, ScanSpec(
+        lower=s0.lower, read_ht=read, predicates=s0.predicates,
+        projection=["k", "r", "a", "d"], limit=s0.limit))
+    mlog.record = False
+    (sig, prun, ip, fp), pout = mlog.calls["gather_rows"][-1]
+    mlog.verify()
+    check(ip.shape[0] == 8, f"the 4x2 page launch had {ip.shape[0]} "
+                            f"pieces")
+    # The launch alone, queued ahead; the wrapper's time beside it.
+    k7_ms = cuda_ms(lambda: row_gather.gather_rows(sig, prun, ip, fp),
+                    KERNEL_REPS, queue_ahead=True)
+    k7_wrapper_ms = cuda_ms(lambda: row_gather.gather_rows(sig, prun, ip,
+                                                           fp), KERNEL_REPS)
+    want = row_gather.gather_rows_plain(sig, prun, ip, fp)
+    err = int((pout.long() - want.long()).abs().max())
+    check(err == 0, "K7 on the 4x2 stack differs from its plain version")
+    k7_plain = cuda_ms(lambda: row_gather.gather_rows_plain(
+        sig, prun, ip, fp), 1)
+    k7_bytes = row_gather.gather_bytes(sig, prun, ip.cpu().numpy(),
+                                       pout.cpu().numpy())
+    kernels["dist_page"] = {"pieces": 8, "ms": k7_ms,
+                            "wrapper_ms": k7_wrapper_ms, "plain_ms": k7_plain,
+                            "bound_ms": k7_bytes / bw * 1e3,
+                            "bound_by": "bytes", "max_abs_err": err,
+                            "launches": launched["row_gather"]}
+    # K10's share of a dispatch on the service's encoded 1x1 stack.
+    tree_args, _t = mlog.last["decode_tree"]
+    kernels["k10"] = {"ms": cuda_ms(lambda: decode.decode_tree(*tree_args),
+                                    KERNEL_REPS),
+                      "bound_ms": decode.decode_bytes(tree_args[0]) / bw
+                      * 1e3}
+    ptx = ptxas_usage("mesh")
+    check(len(ptx) == 2 and all(
+        p["spill_store_bytes"] == p["spill_load_bytes"] ==
+        p["stack_bytes"] == 0 for p in ptx),
+          f"mesh.cu's ptxas report: {ptx}")
+    kernels["ptxas"] = ptx
+    parts["kernels"] = kernels
+    parts["held"] = mlog.verify()
+    mlog.__exit__()
+    for st in (st11, st42, st11b, st_enc3):
+        st.close()
+    del st11, st42, st11b, st_enc, st_enc2, st_enc3
+    gc.collect()
+    check(sharded_tracker().consumption == sharded_base,
+          f"mesh: {sharded_tracker().consumption - sharded_base} bytes stay "
+          f"charged after close()")
+    for e in engs:
+        e.close()
+    step("kernels")
+    parts["steps_s"] = steps
+    print("mesh " + json.dumps(parts))
+    return parts
+
+
+def mesh_alone(device, bw: float, rate: float) -> dict:
+    """``--mesh``: the mesh phase alone (the bench table generated here)."""
+    out = mesh_phase(device, bw, rate)
+    print(json.dumps({"kernels": mesh_entries(out)}))
+    return out
+
+
+def mesh_entries(mesh: dict) -> list:
+    """The kernels line's entries of the mesh path."""
+    k, n = mesh["kernels"], mesh["launches"]
+    return [{
+        "name": "mesh_combine", "route": "cuda",
+        "source": "yugabyte_db_tpu_torch/csrc/mesh.cu",
+        "replaces": "yugabyte_db_tpu/parallel/sharded.py:459",
+        "launches": n["mesh_combine"],
+        "launches_by_path": {"mesh": n["mesh_combine"]},
+        "max_abs_err": k["combine"]["max_abs_err"],
+        "ms": k["combine"]["ms"], "plain_ms": k["combine"]["plain_ms"],
+        "bound_ms": k["combine"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "ms_8_pieces": k["combine"]["ms_8_pieces"],
+        "k14_device_ms": k["k14"]["device_ms"],
+        "k14_bound_ms": k["k14"]["bound_ms"],
+        "k14_k5_ms": k["k14"]["k5_ms"],
+        "k14_resolve_ms": k["k14"]["resolve_ms"]}, {
+        "name": "dist_page", "route": "cuda",
+        "source": "yugabyte_db_tpu_torch/csrc/row_gather.cu",
+        "replaces": "yugabyte_db_tpu/parallel/sharded.py:625",
+        "launches": n["row_gather"],
+        "launches_by_path": {"mesh": n["row_gather"]},
+        "max_abs_err": k["dist_page"]["max_abs_err"],
+        "ms": k["dist_page"]["ms"], "plain_ms": k["dist_page"]["plain_ms"],
+        "bound_ms": k["dist_page"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "pieces": 8,
+        "wrapper_ms": k["dist_page"]["wrapper_ms"]}, {
+        "name": "stack_update", "route": "cuda",
+        "source": "yugabyte_db_tpu_torch/csrc/mesh.cu",
+        "replaces": "yugabyte_db_tpu/parallel/sharded.py:479",
+        "launches": n["stack_update"],
+        "launches_by_path": {"mesh": n["stack_update"]},
+        "max_abs_err": k["stack_update"]["max_abs_err"],
+        "ms": k["stack_update"]["ms"],
+        "plain_ms": k["stack_update"]["plain_ms"],
+        "bound_ms": k["stack_update"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": k["stack_update"]["library_ms"],
+        "wrapper_ms": k["stack_update"]["wrapper_ms"]}]
 
 
 def main() -> int:
@@ -9832,6 +10668,12 @@ def main() -> int:
     if len(sys.argv) == 2 and sys.argv[1] == "--encoded":
         encoded_alone(device, bw, rate)
         return 0
+    if len(sys.argv) == 2 and sys.argv[1] == "--mesh":
+        configure_breakers()
+        watch_host_reserves()
+        write_log()  # the flushes' K12 launches, held
+        mesh_alone(device, bw, rate)
+        return 0
     configure_breakers()
     watch_host_reserves()
     if len(sys.argv) == 2 and sys.argv[1] == "--residency":
@@ -9881,6 +10723,13 @@ def main() -> int:
 
     kernel_err = timed("kernel", kernel_phase)
     eng, flat = timed("engine", engine_phase)
+    mesh = timed("mesh", mesh_phase)
+    print("mesh_vs_engine " + json.dumps({
+        "engine_single_scan_ms": eng["single_scan_latency_ms"],
+        "mesh_service_headline_ms": mesh["service_headline_ms"],
+        "mesh_1x1_headline_ms": mesh["headline_1x1_ms"],
+        "engine_k1_32_specs_ms": eng["kernel"]["ms"],
+        "k14_device_ms": mesh["kernels"]["k14"]["device_ms"]}))
     mv, mvcc = timed("mvcc", mvcc_phase)
     rows = timed("rows", rows_phase, flat, mvcc)
     ov = timed("overlay", overlay_phase, flat, mvcc)
@@ -9952,7 +10801,7 @@ def main() -> int:
         "overlay_long_group_bound_ms": ovm["resolve"]["long"]["bound_ms"]},
         group_agg_entry(grp), *row_path_entries(rows, sources),
         *write_entries(eng["k12"], comp), full_entry(full),
-        decode_entry()]
+        decode_entry(), *mesh_entries(mesh)]
     # The tablet, raft and cluster phases' launches, each on its own path
     # (the cluster phase's CQL part on its own, "cql"; its YSQL part and
     # the grouped phase's TPC-H through SQL, "ysql").
@@ -9963,6 +10812,8 @@ def main() -> int:
     for k, n in grp["ysql_tpch"]["launches"].items():
         ysql[k] = ysql.get(k, 0) + n
     print("ysql_launches " + json.dumps(ysql))
+    # The mesh path's K7 launches in the daemons (the children's pages).
+    cluster["dist_page"] = clu["mesh_pages"]
     for entry in kernels:
         for path, counts in (("tablet", tab["launches"]),
                              ("raft", raft["launches"]),

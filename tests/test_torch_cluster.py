@@ -3,9 +3,10 @@ the port's master, tablet servers and client) under the assertions of
 the JAX package's ``tests/test_mini_cluster.py``: DDL, writes and reads
 through the client, a tserver kill with failover and re-replication,
 master failover, a full restart, the socket transport, and the repair of
-a replica missing from a live tserver. The tablets run on the ``gpu``
-engine over CPU tensors. The JAX file's two mesh tests (:266, :316) wait
-for the mesh scans (ROADMAP.md §1 item 14).
+a replica missing from a live tserver, and the JAX file's two mesh tests
+(:266, :316): multi-tablet aggregates and row pages served by the
+tserver's ``MeshScanService``. The tablets run on the ``gpu`` engine over
+CPU tensors.
 """
 
 import time
@@ -258,5 +259,240 @@ def test_live_missing_replica_repaired_without_failed_creates(tmp_path):
         from yugabyte_db_tpu_torch.client import YBSession
         s = YBSession(client)
         assert len(s.scan(table, ScanSpec()).rows) == 30
+    finally:
+        c.shutdown()
+
+
+@pytest.fixture(params=["1x1", "4x2"])
+def mesh_shape(request, monkeypatch):
+    """The service's own mesh of the CPU (1x1), or the logical 4x2 on the
+    CPU (the JAX tests' 8 virtual devices)."""
+    if request.param == "4x2":
+        import torch
+
+        from yugabyte_db_tpu_torch.parallel import DeviceMesh
+        from yugabyte_db_tpu_torch.tserver.mesh_scan import MeshScanService
+
+        monkeypatch.setattr(
+            MeshScanService, "_get_mesh",
+            lambda self, device: DeviceMesh.logical(torch.device("cpu"), 4,
+                                                    2))
+    return request.param
+
+
+def test_mesh_multi_tablet_aggregate(tmp_path, mesh_shape):
+    """Multi-tablet aggregates execute as ONE mesh program on the
+    tserver (ts.multi_agg_scan -> parallel.sharded_aggregate: K5 over the
+    pieces, the mesh combine), not as per-tablet scans merged on the
+    client."""
+    c = MiniCluster(str(tmp_path), num_masters=1, num_tservers=1).start()
+    try:
+        c.wait_tservers_registered(1)
+        client = c.client()
+        table = client.create_table("mesh", COLUMNS, num_tablets=4,
+                                    replication_factor=1)
+        from yugabyte_db_tpu_torch.client import YBSession
+        s = YBSession(client)
+        n = 200
+        for i in range(n):
+            s.insert(table, {"k": f"key{i}", "r": i, "v": i * 10,
+                             "s": f"val-{i}"})
+        assert s.flush() == n
+        ts = next(iter(c.tservers.values()))
+        for peer in ts.tablet_manager.peers():
+            peer.flush()
+        total = sum(i * 10 for i in range(n))
+
+        def mesh_served():
+            # Transient lease/leadership states legitimately fall back to
+            # per-tablet scans; results stay correct either way. Retry
+            # until the mesh path engages.
+            res = s.scan(table, ScanSpec(aggregates=[
+                AggSpec("count", None), AggSpec("sum", "v"),
+                AggSpec("min", "v"), AggSpec("max", "v"),
+                AggSpec("avg", "v")]))
+            assert res.rows == [(n, total, 0, 1990, total / n)]
+            return ts.mesh_scan.served >= 1
+        wait_for(mesh_served, timeout=20.0,
+                 msg="aggregate riding the mesh")
+        # Device-exact predicate pushdown through the mesh path.
+        res2 = s.scan(table, ScanSpec(
+            predicates=[Predicate("v", ">=", 1000)],
+            aggregates=[AggSpec("count", None)]))
+        assert res2.rows == [(100,)]
+        assert ts.mesh_scan.served >= 2
+        # Ineligible spec (string max needs the host path) falls back and
+        # still returns correct results.
+        res3 = s.scan(table, ScanSpec(aggregates=[AggSpec("max", "s")]))
+        assert res3.rows == [("val-99",)]
+        assert ts.mesh_scan.fallbacks >= 1
+    finally:
+        c.shutdown()
+
+
+def external_entries() -> int:
+    """The residency cache's live external entries (dead owners reaped)."""
+    import gc
+
+    from yugabyte_db_tpu_torch.storage.residency import hbm_cache
+
+    gc.collect()
+    return hbm_cache().stats()["by_encoding"].get(
+        "external", {"entries": 0})["entries"]
+
+
+def test_mesh_multi_tablet_row_scan(tmp_path, mesh_shape):
+    """Row scans over many tablets of one tserver ride the mesh as ONE
+    program per page (ts.multi_row_scan -> parallel.sharded_row_page),
+    with LIMIT paging chained by the opaque cross-tablet resume token; a
+    flush replacing a tablet's run refreshes the cached stack (in-place
+    update or rebuild+close) without leaking residency pins (external
+    entries counted against the process's before the cluster started:
+    other tests' engines and stacks may still hold theirs)."""
+    base = external_entries()
+    c = MiniCluster(str(tmp_path), num_masters=1, num_tservers=1).start()
+    try:
+        c.wait_tservers_registered(1)
+        client = c.client()
+        table = client.create_table("meshrow", COLUMNS, num_tablets=4,
+                                    replication_factor=1)
+        from yugabyte_db_tpu_torch.client import YBSession
+        s = YBSession(client)
+        n = 240
+        for i in range(n):
+            s.insert(table, {"k": f"key{i}", "r": i, "v": i * 10,
+                             "s": f"val-{i}"})
+        assert s.flush() == n
+        ts = next(iter(c.tservers.values()))
+        for peer in ts.tablet_manager.peers():
+            peer.flush()
+        want = sorted((f"key{i}", i, i * 10, f"val-{i}")
+                      for i in range(n))
+
+        def mesh_served():
+            res = s.scan(table, ScanSpec())
+            assert sorted(res.rows) == want
+            return ts.mesh_scan.served_rows >= 1
+        wait_for(mesh_served, timeout=20.0, msg="rows riding the mesh")
+        # LIMIT + device-exact predicate through the mesh path.
+        res2 = s.scan(table, ScanSpec(
+            predicates=[Predicate("v", ">=", 1200)], limit=50))
+        assert len(res2.rows) == 50
+        assert all(r[2] >= 1200 for r in res2.rows)
+        # A page of 7 rows chains across tablets by the resume token.
+        before = ts.mesh_scan.served_rows
+        res3 = s.scan(table, ScanSpec(limit=7))
+        assert len(res3.rows) == 7
+        assert ts.mesh_scan.served_rows > before
+        # A flush replacing one tablet's run supersedes the cached
+        # stack; the next scan re-serves the NEW data on the mesh.
+        for i in range(n, n + 40):
+            s.insert(table, {"k": f"key{i}", "r": i, "v": i * 10,
+                             "s": f"val-{i}"})
+        s.flush()
+        for peer in ts.tablet_manager.peers():
+            peer.flush()
+            peer.compact()
+        want2 = sorted((f"key{i}", i, i * 10, f"val-{i}")
+                       for i in range(n + 40))
+
+        def mesh_served_again():
+            before = ts.mesh_scan.served_rows
+            res = s.scan(table, ScanSpec())
+            assert sorted(res.rows) == want2
+            return ts.mesh_scan.served_rows > before
+        wait_for(mesh_served_again, timeout=20.0,
+                 msg="post-flush rows riding the mesh")
+        # Stack cache bounded; superseded stacks released their pins.
+        assert len(ts.mesh_scan._stacks) <= ts.mesh_scan._max_cached
+        assert external_entries() - base <= ts.mesh_scan._max_cached + 4
+    finally:
+        c.shutdown()
+
+
+def test_mesh_dispatch_fault_drops_every_stack(tmp_path):
+    """An armed ``fault.mesh_dispatch`` (a chip lost mid-scan) drops every
+    cached stack: the ``device/sharded`` charge reads 0, the reply falls
+    back to the per-tablet path with the right answer, and
+    ``chip_losses`` and ``fallbacks`` count it; the next scan rebuilds
+    and rides the mesh again. (The charge is read against the process's
+    before the cluster started: 0 when no other stack lives.)"""
+    import gc
+
+    from yugabyte_db_tpu_torch.client import YBSession
+    from yugabyte_db_tpu_torch.storage.residency import hbm_cache
+    from yugabyte_db_tpu_torch.utils.fault_injection import arm_fault_once
+    from yugabyte_db_tpu_torch.utils.memtracker import root_tracker
+
+    tracker = root_tracker().child("device").child("sharded")
+    gc.collect()
+    hbm_cache().stats()  # reap stacks of clusters gone before this one
+    base = tracker.consumption
+    c = MiniCluster(str(tmp_path), num_masters=1, num_tservers=1).start()
+    try:
+        c.wait_tservers_registered(1)
+        client = c.client()
+        table = client.create_table("meshfault", COLUMNS, num_tablets=4,
+                                    replication_factor=1)
+        s = YBSession(client)
+        for i in range(100):
+            s.insert(table, {"k": f"key{i}", "r": i, "v": i,
+                             "s": f"val-{i}"})
+        assert s.flush() == 100
+        ts = next(iter(c.tservers.values()))
+        for peer in ts.tablet_manager.peers():
+            peer.flush()
+        spec = ScanSpec(aggregates=[AggSpec("count", None),
+                                    AggSpec("sum", "v")])
+        wait_for(lambda: s.scan(table, spec).rows == [(100, 4950)]
+                 and ts.mesh_scan.served >= 1, timeout=20.0,
+                 msg="aggregate riding the mesh")
+        assert ts.mesh_scan._stacks and tracker.consumption > base
+        served, losses = ts.mesh_scan.served, ts.mesh_scan.chip_losses
+        fallbacks = ts.mesh_scan.fallbacks
+        arm_fault_once("fault.mesh_dispatch")
+        assert s.scan(table, spec).rows == [(100, 4950)]
+        assert ts.mesh_scan.chip_losses == losses + 1
+        assert ts.mesh_scan.fallbacks == fallbacks + 1
+        assert ts.mesh_scan.served == served
+        assert not ts.mesh_scan._stacks
+        assert tracker.consumption == base
+        assert s.scan(table, spec).rows == [(100, 4950)]
+        assert ts.mesh_scan.served == served + 1
+    finally:
+        c.shutdown()
+
+
+def test_mesh_scans_after_alter_table(tmp_path):
+    """ALTER TABLE grows the tablets' runs in place (the same run objects
+    under a new schema version): the service builds a new stack for the
+    new schema instead of serving the cached one, so a page projecting
+    the added column rides the mesh, the old rows reading it as NULL."""
+    from yugabyte_db_tpu_torch.client import YBSession
+
+    c = MiniCluster(str(tmp_path), num_masters=1, num_tservers=1).start()
+    try:
+        c.wait_tservers_registered(1)
+        client = c.client()
+        table = client.create_table("meshalter", COLUMNS, num_tablets=4,
+                                    replication_factor=1)
+        s = YBSession(client)
+        for i in range(80):
+            s.insert(table, {"k": f"key{i}", "r": i, "v": i, "s": f"v{i}"})
+        assert s.flush() == 80
+        ts = next(iter(c.tservers.values()))
+        for peer in ts.tablet_manager.peers():
+            peer.flush()
+        wait_for(lambda: len(s.scan(table, ScanSpec()).rows) == 80
+                 and ts.mesh_scan.served_rows >= 1, timeout=20.0,
+                 msg="rows riding the mesh")
+        new = table.schema.with_added_column("w", DataType.INT64)
+        client.alter_table("meshalter", new.to_dict())
+        table = client.open_table("meshalter")
+        before = ts.mesh_scan.served_rows
+        res = s.scan(table, ScanSpec(projection=["k", "r", "w"]))
+        assert sorted(res.rows) == sorted((f"key{i}", i, None)
+                                          for i in range(80))
+        assert ts.mesh_scan.served_rows > before
     finally:
         c.shutdown()

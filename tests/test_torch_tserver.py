@@ -421,20 +421,29 @@ def test_install_snapshot_term_fencing(cluster):
 
 
 def test_mesh_scans_answer_ineligible(cluster):
-    """The mesh scan service has no mesh program yet (ROADMAP.md item 14):
-    both multi-tablet handlers answer the JAX service's ineligible reply,
-    each counted in ``fallbacks``."""
+    """The mesh scan service on one server's tablet (a 1x1 mesh of the
+    CPU): once the leader's tablet holds one run and no memtable key, an
+    eligible ``count(*)`` through ``ts.multi_agg_scan`` answers "ok" with
+    the leader's count (``served``); a string ``max`` answers the JAX
+    service's ``{"code": "ineligible"}``, counted in ``fallbacks``."""
     cluster.write(cluster.kv_rows("m", 0, 10))
     leader = cluster.leader()
-    agg = t_wire.encode_spec(T.ScanSpec(aggregates=[T.AggSpec("count",
-                                                               None)]))
-    page = t_wire.encode_spec(T.ScanSpec(limit=5))
-    for method, spec in (("ts.multi_agg_scan", agg),
-                         ("ts.multi_row_scan", page)):
-        assert cluster.call(leader, method, {"tablet_ids": [TID],
-                                             "spec": spec}) == \
-            {"code": "ineligible"}
-    assert cluster.servers[leader].mesh_scan.fallbacks == 2
+    cluster.peer(leader).flush()
+    service = cluster.servers[leader].mesh_scan
+
+    def multi(aggs):
+        return cluster.call(leader, "ts.multi_agg_scan", {
+            "tablet_ids": [TID],
+            "spec": t_wire.encode_spec(T.ScanSpec(aggregates=aggs))})
+
+    resp = multi([T.AggSpec("count", None)])
+    assert resp["code"] == "ok", resp
+    assert t_wire.decode_result(resp).rows == [(10,)]
+    want = cluster.scan(T.ScanSpec(aggregates=[T.AggSpec("count", None)]))
+    assert t_wire.decode_result(want).rows == [(10,)]
+    assert (service.served, service.fallbacks) == (1, 0)
+    assert multi([T.AggSpec("max", "k")]) == {"code": "ineligible"}
+    assert (service.served, service.fallbacks) == (1, 1)
 
 
 def test_webserver_pages(cluster):

@@ -14,8 +14,9 @@ departures: every table's writes take the row path (one ``ts.write`` of
 wire rows per tablet), because the native write plane that encodes the
 JAX session's block writes (``yb_wp``) is ROADMAP.md §1 item 16; and the
 mesh scans (``ts.multi_agg_scan`` / ``ts.multi_row_scan``) are tried for
-tables on the ``gpu`` engine, whose tablet servers answer ``ineligible``
-until item 14, so those reads take the per-tablet path.
+tables on the ``gpu`` engine (the JAX session's ``tpu``): a tablet server
+leading two or more of the table's tablets serves them as one mesh
+program, and any other reply sends the group down the per-tablet path.
 """
 
 from __future__ import annotations

@@ -14,5 +14,8 @@
   leaf forms), which ``decode`` (K10, ``csrc/decode.cu``) turns into the
   plain planes the other kernels read;
 - ``scan`` / ``agg_fold``: the static signatures and the host-side
-  packing/finalize shared with the JAX package's layout.
+  packing/finalize shared with the JAX package's layout;
+- ``mesh``: the mesh scans' cross-piece combine (K14's) and the stacked
+  planes' slot update, CUDA kernels (``csrc/mesh.cu``) with their plain
+  versions (``parallel`` drives them).
 """

@@ -1720,6 +1720,13 @@ class GpuStorageEngine(RowPath, StorageEngine):
                 and not t.crun.max_key < spec.lower
                 and (hp is None or t.crun.may_contain_hashed(hp))]
 
+    def _memtable_in_range(self, spec: ScanSpec) -> bool:
+        """Whether the memtable holds a key of the spec's range (the mesh
+        scans serve only a single run: ``tserver.mesh_scan``)."""
+        if self.memtable.is_empty:
+            return False
+        return self.memtable.has_keys(spec.lower, spec.upper)
+
     def _split_predicates(self, spec: ScanSpec):
         """(device-exact preds, device-superset preds, host-only preds):
         'str' prefixes and rounded 'f32' values give superset masks (ties

@@ -18,9 +18,9 @@ The budget is a per-device map: every entry belongs to exactly one
 owning device (demand re-uploads go back to it). Admission and eviction
 are scoped to the admitting device. On one card the map has one bucket.
 ``release`` drops an entry's payload and keeps its registration (planes
-rebuilt in place by ``alter_schema``). The JAX cache's per-device byte
-map of an external registration (a sharded upload) comes with the port's
-path that needs it (ROADMAP.md §1 item 14).
+rebuilt in place by ``alter_schema``). An external registration may
+charge several devices at once (``add_external(..., dev_bytes=)``: a
+mesh stack, one device's share a bucket, as the JAX cache does).
 
 Scan resistance mirrors the reference's two-pool policy: point-get and
 bounded-scan traffic is admitted to (or promoted into) the protected
@@ -67,7 +67,7 @@ _EXTERNAL = object()
 class _Entry:
     __slots__ = ("key", "label", "tracker", "owner_ref", "payload",
                  "nbytes", "aux", "aux_bytes", "pins", "pool", "external",
-                 "encoding", "device")
+                 "encoding", "device", "dev_bytes")
 
     def __init__(self, key: int, label: str, tracker,
                  device: str = DEFAULT_DEVICE):
@@ -91,6 +91,7 @@ class _Entry:
         # bucket is the one this entry's bytes count against.
         self.device = device
         # External multi-device entries only: per-device byte map.
+        self.dev_bytes: dict | None = None
 
     @property
     def total_bytes(self) -> int:
@@ -167,12 +168,15 @@ class HbmCache:
 
     def add_external(self, owner, nbytes: int, tracker=None,
                      label: str = "external",
-                     device: str = DEFAULT_DEVICE) -> int:
+                     device: str = DEFAULT_DEVICE,
+                     dev_bytes: dict | None = None) -> int:
         """Account ``nbytes`` of device residency uploaded outside the
-        cache (the overlay's masked valid plane). External entries are
-        permanently pinned until invalidated (or their owner is
-        collected); they overflow the budget rather than being
-        evictable."""
+        cache (sharded mesh stacks, the overlay's masked valid plane).
+        External entries are permanently pinned until invalidated (or
+        their owner is collected); they overflow the budget rather than
+        being evictable. ``dev_bytes`` (device name -> bytes) charges a
+        multi-device upload per device — the sharded mesh stacks — and
+        overrides ``nbytes``/``device`` when given."""
         key = self.register(owner, tracker, label, device=device)
         with self._lock:
             self._drain_dead()
@@ -182,7 +186,11 @@ class HbmCache:
             e.external = True
             e.payload = _EXTERNAL
             e.encoding = "external"
-            e.nbytes = int(nbytes)
+            if dev_bytes:
+                e.dev_bytes = {d: int(n) for d, n in dev_bytes.items()}
+                e.nbytes = sum(e.dev_bytes.values())
+            else:
+                e.nbytes = int(nbytes)
             e.pins = 1
             self._pools["high"][key] = e
             self._charge(e, e.nbytes)
@@ -363,7 +371,12 @@ class HbmCache:
         self._resident += nbytes
         if self._resident > self._peak_resident:
             self._peak_resident = self._resident
-        self._bump_dev(e.device, nbytes)
+        if e.dev_bytes is not None and nbytes == e.nbytes:
+            # External multi-device initial charge: split per device.
+            for d, n in e.dev_bytes.items():
+                self._bump_dev(d, n)
+        else:
+            self._bump_dev(e.device, nbytes)
         if e.tracker is not None:
             e.tracker.consume(nbytes)
 
@@ -414,7 +427,12 @@ class HbmCache:
         e.payload = None
         e.aux = {}
         self._resident -= total
-        self._bump_dev(e.device, -total)
+        if e.dev_bytes is not None:
+            for d, n in e.dev_bytes.items():
+                self._bump_dev(d, -n)
+            e.dev_bytes = None
+        else:
+            self._bump_dev(e.device, -total)
         if e.tracker is not None:
             e.tracker.release(total)
         e.nbytes = 0
@@ -482,12 +500,15 @@ class HbmCache:
                 for dev, n in sorted(self._dev_resident.items())}
             for pool in self._pools.values():
                 for e in pool.values():
-                    d = by_dev.setdefault(
-                        e.device, {"resident_bytes": 0, "budget_bytes": b,
-                                   "entries": 0, "pinned_bytes": 0})
-                    d["entries"] += 1
-                    if e.pins > 0:
-                        d["pinned_bytes"] += e.total_bytes
+                    devs = (e.dev_bytes if e.dev_bytes is not None
+                            else {e.device: e.total_bytes})
+                    for dev, n in devs.items():
+                        d = by_dev.setdefault(
+                            dev, {"resident_bytes": 0, "budget_bytes": b,
+                                  "entries": 0, "pinned_bytes": 0})
+                        d["entries"] += 1
+                        if e.pins > 0:
+                            d["pinned_bytes"] += n
             out = {
                 "budget_bytes": b,
                 "resident_bytes": self._resident,

@@ -15,8 +15,10 @@ JAX server's: ``ts.create_tablet``'s engine defaults to ``"gpu"`` (the
 JAX default ``"cpu"`` is not registered in the port), and
 ``ts.redis_read_batch`` always replies ``{"fallback": True}`` (the port's
 ``point_serve`` answers None: the native memtable it reads is ROADMAP.md
-§1 item 16). ``ts.multi_agg_scan`` / ``ts.multi_row_scan`` reply
-``{"code": "ineligible"}`` until the mesh program is ported (item 14).
+§1 item 16). ``ts.multi_agg_scan`` / ``ts.multi_row_scan`` are served by
+the port's ``MeshScanService`` (``tserver/mesh_scan.py``) on the mesh of
+the server's cards, and reply ``{"code": "ineligible"}`` where the JAX
+service does.
 """
 
 from __future__ import annotations
